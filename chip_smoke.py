@@ -9,15 +9,28 @@ Phases, one line each (any failure exits non-zero):
 2. build: every CUDA kernel under torchgpipe_tpu_torch/csrc/ with nvcc.
 3. flash_fwd against its plain PyTorch version on the card.
 4. flash_decode against its plain PyTorch version on the card.
-5. slice: greedy ``generate`` at Llama-3-8B width (random weights from a
+5. flash_bwd: flash_bwd_dq and flash_bwd_dkv against the plain backward,
+   row by row, and a probe that the check fails a backward with a tile
+   left out.
+6. slice: greedy ``generate`` at Llama-3-8B width (random weights from a
    seed, 32 layers, batch 4, prompt 1024, 128 new tokens), with the
    kernels' launch counts read around that one call, prefill logits of
    the kernel path against the plain path, and the generated tokens
    against a teacher-forced full forward.
-6. profile: device time by kernel and idle share, prefill and decode.
+7. profile: device time by kernel and idle share, prefill and decode.
+8. train: ``GPipe`` training at Llama-3-8B width (benchmarks/llama_speed.py
+   ``pipeline-1``: 1 stage, batch 8, 4 micro-batches, seq 1024,
+   checkpoint 'except_last'; random weights from the seed), one warm-up
+   and three timed steps of ``value_and_grad`` plus an in-place SGD
+   update, launch counts read around one step, the step-1 loss against
+   the unpipelined model's, a falling loss, a profile of one step, and a
+   3-stage schedule on one card against the 1-stage one at 4 blocks.
 
 Then one JSON line per kernel (time, launches, bound, plain and library
-yardsticks), the card line, and the last line
+yardsticks; ``launches`` counts one generate call for the forward and
+decode kernels and one training step for the backward kernels, and
+``flash_fwd`` splits its count by path in ``launches_by_path``), the card
+line, and the last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the package beside this script, it exits non-zero and prints no result.
 """
@@ -44,6 +57,24 @@ LSE_TOL = 2e-3
 # summation order and the fast exp (<= 2 ulp) differ over <= 1152 terms,
 # ~1e-5 relative of |o| < 5.
 DECODE_TOL = 2e-4
+# bf16 gradients of the backward kernels against the plain float32
+# backward rounded once, held row by row: for each (batch, position, head)
+# row of d values, max |got - want| <= BWD_ROW_TOL * max |want| over that
+# row, plus a floor.  Causal gradients span orders of magnitude across rows
+# (the first keys' dK/dV collect every query's weight; dQ falls off along
+# the sequence), so one tolerance per tensor would be as large as a typical
+# row.  Within a row the kernel rounds P (for dV) and dS (for dQ, dK) to
+# bf16 before its products (unit roundoff 2^-8; the term errors have mixed
+# signs, so the sum's error is ~2^-8 of the row's typical entry, under 2^-8
+# of its max), and each side rounds the output once (the two at most one
+# bf16 ulp apart, 2^-7 of the entry): ~3 x 2^-8 of the row max at worst.
+# 2^-6 = 4 x 2^-8, while one key or query tile left out of a row's loop
+# moves it by far more (a quarter of a row's terms at a band of 256; the
+# probe below checks that it fails).  The floor, 2^-9 of the median row
+# max, covers rows that are zero in exact arithmetic (query 0's dQ: p = 1,
+# dS = dP - delta = 0), where only float32 summation noise is left.
+BWD_ROW_TOL = 2 ** -6
+BWD_FLOOR = 2 ** -9
 
 
 def fail(msg: str) -> None:
@@ -190,6 +221,120 @@ def phase_decode(torch, tfa, card, gqa_sdpa):
                 bound_ms=bms, bound_by=by)
 
 
+def attn_bytes(b, s, h, g, d, *, reads, writes):
+    """Bytes an attention pass must move: ``reads``/``writes`` name the
+    bf16 [b, s, h|g, d] tensors (q/o/do: h heads; k/v/dk/dv: g heads) plus
+    two float32 [b*h, s] rows (lse, delta) when ``reads`` has them."""
+    size = {"q": h, "o": h, "do": h, "dq": h, "k": g, "v": g, "dk": g, "dv": g}
+    n = sum(2.0 * b * s * size[t] * d for t in reads + writes if t in size)
+    n += sum(4.0 * b * h * s for t in reads if t in ("lse", "delta"))
+    return n
+
+
+def bwd_rows(got, want):
+    """Row-by-row check of a gradient ``[b, n, heads, d]`` against the
+    plain one: ``(worst err/tol over rows, median row max |want|, floor)``;
+    the check passes when the first is <= 1."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs().amax(-1)
+    scale = w.abs().amax(-1)
+    typical = scale.median().item()
+    floor = BWD_FLOOR * typical
+    return (err / (BWD_ROW_TOL * scale + floor)).max().item(), typical, floor
+
+
+def phase_bwd(torch, tfa, card, gqa_sdpa):
+    """The two backward kernels against the plain backward on the card;
+    timed at the training shape (one micro-batch of pipeline-1)."""
+    cases = [
+        ("main", 2, 32, 8, 1024, 128, None),
+        ("window256", 2, 32, 8, 1024, 128, 256),
+        ("ragged1000", 2, 32, 8, 1000, 128, None),
+        ("d64", 2, 32, 8, 1024, 64, None),
+        ("long12288", 1, 4, 1, 12288, 128, None),
+    ]
+    worst = {"dq": 0.0, "dkv": 0.0}
+    timing = {}
+    for name, b, h, g, s, d, window in cases:
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        q = torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
+        k = torch.randn(b, s, g, d, generator=gen, device="cuda").bfloat16()
+        v = torch.randn(b, s, g, d, generator=gen, device="cuda").bfloat16()
+        do = torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
+        scale = d ** -0.5
+        kw = dict(causal=True, sm_scale=scale, window=window)
+        o, lse = tfa._flash_fwd(q, k, v, True, scale, window)
+        delta = tfa._delta(do, o)
+        dq = tfa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        ref = tfa._reference_bwd(q, k, v, o, lse, do, True, scale, window)
+        torch.cuda.synchronize()
+        errs = {}
+        for gname, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+            ratio, typical, floor = bwd_rows(got, want)
+            err = (got.float() - want.float()).abs().max().item()
+            if not ratio <= 1.0:
+                fail(f"flash_bwd {name} {gname}: a row's error is {ratio:.3f} x its "
+                     f"tolerance (2^-6 of the row's max |{gname}| + {floor:.3e})")
+            errs[gname] = (err, ratio, typical, floor)
+        worst["dq"] = max(worst["dq"], errs["dq"][0])
+        worst["dkv"] = max(worst["dkv"], errs["dk"][0], errs["dv"][0])
+        print(f"flash_bwd {name}: b={b} s={s} h={h} g={g} d={d} window={window} "
+              + " ".join(f"{n}: max_abs_err={e:.3e} worst_row_err/tol={r:.3f} "
+                         f"(tol 2^-6 of the row max + {f:.2e}; median row max "
+                         f"|{n}| {t:.3e})" for n, (e, r, t, f) in errs.items())
+              + f" [{card}]", flush=True)
+        # The check's reach: the plain backward with one tile's worth of
+        # terms left out of the loops must fail it.  At the main shape the
+        # last query tile is dropped from dK/dV (its dO rows zeroed, delta
+        # recomputed); under the window, the oldest 64 keys of every
+        # query's band (the same LSE and delta over a band of 192).
+        if name in ("main", "window256"):
+            if window is None:
+                do0 = do.clone()
+                do0[:, -64:] = 0
+                cut = tfa._reference_grads(q, k, v, do0, lse, tfa._delta(do0, o),
+                                           True, scale, None)
+                probes = (("dk", dk, cut[1]), ("dv", dv, cut[2]))
+            else:
+                cut = tfa._reference_grads(q, k, v, do, lse, delta, True, scale,
+                                           window - 64)
+                probes = zip(("dq", "dk", "dv"), (dq, dk, dv), cut)
+            seen = {n: bwd_rows(got, want)[0] for n, got, want in probes}
+            if not all(r > 1.0 for r in seen.values()):
+                fail(f"flash_bwd {name}: the row check passes a backward with a "
+                     f"tile left out (worst row err/tol {seen})")
+            print(f"flash_bwd {name}: a tile left out of the loops fails the check: "
+                  f"worst row err/tol {({n: round(r, 2) for n, r in seen.items()})}",
+                  flush=True)
+            del cut
+        if name not in ("main", "long12288"):
+            continue
+        ms_dq = time_ms(torch, lambda: tfa.flash_bwd_dq(q, k, v, do, lse, delta, **kw), 10)
+        ms_dkv = time_ms(torch, lambda: tfa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw), 10)
+        plain_ms = time_ms(torch, lambda: tfa._reference_grads(
+            q, k, v, do, lse, delta, True, scale, window), 3, 1)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        out = gqa_sdpa(qt, kt, vt, True)
+        dot = do.transpose(1, 2)
+        lib_ms = time_ms(torch, lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), 10)
+        del out
+        pairs = fwd_pairs(s, True, window)
+        reads = ["q", "k", "v", "do", "lse", "delta"]
+        bq = bound(6.0 * b * h * d * pairs, attn_bytes(b, s, h, g, d, reads=reads,
+                                                       writes=["dq"]))
+        bkv = bound(8.0 * b * h * d * pairs, attn_bytes(b, s, h, g, d, reads=reads,
+                                                        writes=["dk", "dv"]))
+        print(f"flash_bwd timing {name}: dq_ms={ms_dq:.4f} (bound {bq[0]:.4f}, {bq[1]}) "
+              f"dkv_ms={ms_dkv:.4f} (bound {bkv[0]:.4f}, {bkv[1]}) "
+              f"plain_ms={plain_ms:.4f} (all three grads) "
+              f"sdpa_bwd_ms={lib_ms:.4f} (all three grads) [{card}]", flush=True)
+        timing[name] = dict(dq=(ms_dq, bq), dkv=(ms_dkv, bkv), plain_ms=plain_ms,
+                            lib_ms=lib_ms)
+    return worst, timing
+
+
 def phase_slice(torch, tfa, tt, tg, card, seed: int, new_tokens: int = 128,
                 reps: int = 3):
     cfg = tt.TransformerConfig(
@@ -302,44 +447,215 @@ def phase_slice(torch, tfa, tt, tg, card, seed: int, new_tokens: int = 128,
     return launches, (cfg, model, prompt)
 
 
-def phase_profile(torch, tg, card, cfg, model, prompt, steps: int = 16) -> None:
-    """Device time by kernel and the device's idle share (torch.profiler;
-    one stream, so busy time is the sum of kernel times) for one prefill
-    and for a ``steps``-token generate; decode per step is their
-    difference over ``steps``."""
-    from torch.profiler import ProfilerActivity, profile
+def profile(torch, card, label, fn, top: int = 12):
+    """Device time by kernel and the device's idle share of one call of
+    ``fn`` (torch.profiler; one stream, so busy time is the sum of kernel
+    times).  Returns ``(wall_s, busy_s)``."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
 
-    def run(label, fn):
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rows = []
-        for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
-                continue  # CPU-side ops also carry their kernels' time
-            dev = getattr(e, "self_device_time_total", None)
-            if dev is None:
-                dev = e.self_cuda_time_total
-            if dev > 0:
-                rows.append((dev, e.count, e.key))
-        busy = sum(r[0] for r in rows) / 1e6
-        rows.sort(reverse=True)
-        print(f"profile {label}: wall={wall * 1e3:.1f}ms device_busy={busy * 1e3:.1f}ms "
-              f"idle_share={1 - busy / wall:.3f} [{card}]", flush=True)
-        for dev, count, key in rows[:12]:
-            print(f"  {dev / 1e3:9.2f}ms {100 * dev / 1e6 / busy:5.1f}% "
-                  f"x{count:<6d} {key[:90]}")
-        return wall, busy
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue  # CPU-side ops also carry their kernels' time
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = e.self_cuda_time_total
+        if dev > 0:
+            rows.append((dev, e.count, e.key))
+    busy = sum(r[0] for r in rows) / 1e6
+    rows.sort(reverse=True)
+    print(f"profile {label}: wall={wall * 1e3:.1f}ms device_busy={busy * 1e3:.1f}ms "
+          f"idle_share={1 - busy / wall:.3f} [{card}]", flush=True)
+    for dev, count, key in rows[:top]:
+        print(f"  {dev / 1e3:9.2f}ms {100 * dev / 1e6 / busy:5.1f}% "
+              f"x{count:<6d} {key[:90]}")
+    return wall, busy
 
+
+def phase_profile(torch, tg, card, cfg, model, prompt, steps: int = 16) -> None:
+    """Profiles of one prefill and of a ``steps``-token generate; decode
+    per step is their difference over ``steps``."""
     s = prompt.shape[1]
-    pw, pb = run("prefill", lambda: tg.prefill(cfg, model, prompt, s + steps))
-    gw, gb = run(f"generate x{steps}", lambda: tg.generate(cfg, model, prompt, steps))
+    pw, pb = profile(torch, card, "prefill",
+                     lambda: tg.prefill(cfg, model, prompt, s + steps))
+    gw, gb = profile(torch, card, f"generate x{steps}",
+                     lambda: tg.generate(cfg, model, prompt, steps))
     print(f"profile decode (generate - prefill) per step: wall={(gw - pw) * 1e3 / steps:.2f}ms "
           f"device_busy={(gb - pb) * 1e3 / steps:.2f}ms "
           f"idle_share={1 - (gb - pb) / (gw - pw):.3f} [{card}]", flush=True)
+
+
+def causal_lm_loss(tt):
+    """benchmarks/llama_speed.py's objective: predict token t+1 from the
+    prefix <= t (``cross_entropy`` does not shift)."""
+    def loss(out, tokens):
+        return tt.cross_entropy(out[:, :-1, :], tokens[:, 1:])
+    return loss
+
+
+# SGD rate for the bf16 weights.  run_speed's 1e-4 moves no bf16 weight:
+# a projection weight of |w| ~ dim^-1/2 = 0.0156 has a bf16 ulp of 2^-13
+# = 1.2e-4, so an update survives rounding only when lr * |g| > 6e-5.
+# The train phase prints the step-1 gradients; on an H100 (seed 0) their
+# RMS was 3.1e-5 (lm head) to 2.6e-4 (block 0) and their max 1.2e-3 to
+# 1.3e-2.  lr = 1.0 moves the larger ones (9% of the head's weights
+# changed in step 1) and keeps the typical block update near 2% of |w|.
+TRAIN_LR = 1.0
+
+
+def phase_train(torch, tfa, tt, card, seed: int, steps: int = 3):
+    """pipeline-1 at Llama-3-8B width: GPipe(llama, [34], chunks=4,
+    checkpoint='except_last'), batch 8, seq 1024, SGD in place."""
+    import numpy as np
+
+    from torchgpipe_tpu_torch import GPipe
+
+    cfg = tt.TransformerConfig(
+        vocab=128256, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+        mlp_ratio=5.25, dtype=torch.bfloat16,
+    )
+    b, s, chunks = 8, 1024, 4
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    llama = tt.llama(cfg, device="cuda", generator=gen)
+    tokens = torch.from_numpy(
+        np.random.default_rng(seed).integers(0, cfg.vocab, (b, s))
+    ).cuda()
+    loss_fn = causal_lm_loss(tt)
+    with torch.no_grad():
+        plain_loss = loss_fn(llama(tokens), tokens).item()
+    model = GPipe(llama, [len(llama)], chunks=chunks, checkpoint="except_last")
+    params = list(model.parameters())
+
+    @torch.no_grad()
+    def sgd():
+        # In place: the reference rebinds its parameter tree (p - lr * g),
+        # which would hold a second 16 GB copy of the weights on the card.
+        for p in params:
+            p.add_(p.grad, alpha=-TRAIN_LR)
+
+    def step(stats=None):
+        loss, _, _ = model.value_and_grad(tokens, tokens, loss_fn)
+        if stats is not None:
+            for name, layer, key in (("head.w", -1, "w"), ("table", 0, "table"),
+                                     ("block0.wq", 1, "wq"),
+                                     ("block0.w_down", 1, "w_down")):
+                g = getattr(model[layer], key).grad.float()
+                stats[name] = (g.abs().max().item(), g.square().mean().sqrt().item())
+        sgd()
+        return loss
+
+    head_w = model[-1].w
+    head_before = head_w.detach().clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f in (tfa.flash_attention, tfa.flash_bwd_dq, tfa.flash_bwd_dkv):
+        f.launches = 0
+    grad_stats = {}
+    losses = [step(grad_stats)]
+    torch.cuda.synchronize()
+    launches = {"flash_fwd": tfa.flash_attention.launches,
+                "flash_bwd_dq": tfa.flash_bwd_dq.launches,
+                "flash_bwd_dkv": tfa.flash_bwd_dkv.launches}
+    n_blocks = cfg.n_layers
+    want = {"flash_fwd": n_blocks * (chunks + chunks - 1),
+            "flash_bwd_dq": n_blocks * chunks, "flash_bwd_dkv": n_blocks * chunks}
+    if launches != want:
+        fail(f"kernel launches in one training step {launches}, expected {want}")
+    moved = (head_w != head_before).float().mean().item()
+    del head_before
+
+    step_ms = []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(step())
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated()
+    losses = [x.item() for x in losses]
+    # Step-1 loss against one unpipelined forward on the same weights:
+    # the two differ only where cuBLAS picks another summation order for
+    # 2048-row micro-batch GEMMs than for the 8192-row batch.  The slice
+    # phase's prefill check shows bf16 logits at this width moving by ~0.1
+    # when attention sums in another order; per-token NLLs
+    # move by at most that, with independent signs over 8184 tokens, so
+    # the mean moves by ~1e-3; 2e-2 absolute leaves room for a drift.
+    if not all(np.isfinite(losses)) or abs(losses[0] - plain_loss) > 2e-2:
+        fail(f"step-1 loss {losses[0]} vs unpipelined {plain_loss} (tol 2e-2)")
+    if not losses[-1] < losses[0]:
+        fail(f"loss did not fall on the fixed batch: {losses}")
+
+    n_matmul = sum(p.numel() for n, p in llama.named_parameters() if p.ndim == 2
+                   and not n.endswith("table"))
+    tok = b * s
+    pairs = fwd_pairs(s, True, None)
+    flops = 6.0 * n_matmul * tok + 12.0 * n_blocks * b * cfg.n_heads * cfg.head_dim * pairs
+    med = statistics.median(step_ms)
+    print(f"train: pipeline-1 Llama-3-8B width ({sum(p.numel() for p in params) / 1e9:.3f}B "
+          f"params, seed {seed}), batch {b} x seq {s}, chunks {chunks}, except_last, "
+          f"SGD lr {TRAIN_LR}: losses {[round(x, 5) for x in losses]} "
+          f"(unpipelined step-1 loss {plain_loss:.5f}), head weights moved by step 1: "
+          f"{moved:.4f}; step-1 grad (max, rms): "
+          + ", ".join(f"{k} ({a:.3e}, {r:.3e})" for k, (a, r) in grad_stats.items())
+          + f" [{card}]", flush=True)
+    print(f"train: step_ms={med:.3f} (steps {[round(t, 3) for t in step_ms]}) "
+          f"tokens_per_s={tok * 1e3 / med:.1f} model_flops_per_step={flops:.4e} "
+          f"mfu={flops / (med * 1e-3) / PEAK_BF16_FLOPS:.4f} of 989 TF/s "
+          f"max_memory_allocated={peak / 2**30:.2f}GiB launches/step={launches} "
+          f"[{card}]", flush=True)
+    profile(torch, card, "train step", step, top=16)
+    del model, llama, params
+    torch.cuda.empty_cache()
+    return launches, med
+
+
+def phase_stages(torch, tt, card, seed: int):
+    """A 4-block model at full width: GPipe balance [2, 2, 2] (three
+    stages on one card) against [6]: loss and gradients equal up to the
+    order of the float atomics in the embedding-gradient scatter."""
+    import numpy as np
+
+    from torchgpipe_tpu_torch import GPipe
+
+    cfg = tt.TransformerConfig(
+        vocab=128256, dim=4096, n_layers=4, n_heads=32, n_kv_heads=8,
+        mlp_ratio=5.25, dtype=torch.bfloat16,
+    )
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    layers = list(tt.llama(cfg, device="cuda", generator=gen))
+    tokens = torch.from_numpy(
+        np.random.default_rng(seed + 1).integers(0, cfg.vocab, (8, 1024))
+    ).cuda()
+    loss_fn = causal_lm_loss(tt)
+    results = []
+    for balance in ([6], [2, 2, 2]):
+        model = GPipe(layers, balance, chunks=4, checkpoint="except_last")
+        loss, grads, _ = model.value_and_grad(tokens, tokens, loss_fn)
+        flat = [g.clone() for stage in grads for layer in stage for g in layer.values()]
+        results.append((loss.item(), flat))
+    (l1, g1), (l3, g3) = results
+    bitwise = sum(torch.equal(a, c) for a, c in zip(g1, g3))
+    worst = max(((a.float() - c.float()).abs().max() / c.float().abs().max()).item()
+                for a, c in zip(g1, g3))
+    # The stage boundaries change no operation, so the loss matches to
+    # float32 rounding of the mean (1e-6 relative) and each gradient to one
+    # bf16 ulp of its largest entry (2^-7 of it), the room the scatter's
+    # atomics need.
+    if abs(l1 - l3) > 1e-6 * abs(l1) or worst > 2 ** -7:
+        fail(f"3-stage vs 1-stage: loss {l3} vs {l1}, worst grad diff {worst:.3e} "
+             "of max |grad| (tol 2^-7)")
+    print(f"stages: 4 blocks, balance [2, 2, 2] vs [6]: loss {l3:.6f} vs {l1:.6f}, "
+          f"{bitwise}/{len(g1)} grad leaves bitwise equal, worst diff {worst:.3e} of "
+          f"max |grad| (tol 2^-7) [{card}]", flush=True)
 
 
 def main() -> None:
@@ -384,16 +700,33 @@ def main() -> None:
 
     fwd = phase_fwd(torch, tfa, card, gqa_sdpa)
     dec = phase_decode(torch, tfa, card, gqa_sdpa)
+    bwd_err, bwd = phase_bwd(torch, tfa, card, gqa_sdpa)
     launches, (cfg, model, prompt) = phase_slice(torch, tfa, tt, tg, card, args.seed)
     phase_profile(torch, tg, card, cfg, model, prompt)
+    del cfg, model, prompt   # the generation model's 16 GB before training
+    torch.cuda.empty_cache()
+    train_launches, _ = phase_train(torch, tfa, tt, card, args.seed)
+    phase_stages(torch, tt, card, args.seed)
 
     src = "torchgpipe_tpu_torch/csrc/"
     ref = "torchgpipe_tpu/ops/flash_attention.py"
     main_fwd = fwd["main"]
+
+    def bwd_entry(name, key, line, also):
+        main_bwd = bwd["main"]
+        ms, (bms, by) = main_bwd[key]
+        return {"name": name, "route": "cuda", "source": src + "flash_bwd.cu",
+                "replaces": f"{ref}:{line}", "also_replaces": f"{ref}:{also}",
+                "launches": train_launches[name], "max_abs_err": bwd_err[key],
+                "ms": ms, "plain_ms": main_bwd["plain_ms"], "bound_ms": bms,
+                "bound_by": by, "library_ms": main_bwd["lib_ms"]}
+
     kernels = [
         {"name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
          "replaces": f"{ref}:69", "also_replaces": f"{ref}:301",
          "launches": launches["flash_fwd"],
+         "launches_by_path": {"generate": launches["flash_fwd"],
+                              "train_step": train_launches["flash_fwd"]},
          "max_abs_err": max(r["err"] for r in fwd.values()),
          "ms": main_fwd["ms"], "plain_ms": main_fwd["plain_ms"],
          "bound_ms": main_fwd["bound_ms"], "bound_by": main_fwd["bound_by"],
@@ -403,6 +736,8 @@ def main() -> None:
          "max_abs_err": dec["err"], "ms": dec["ms"], "plain_ms": dec["plain_ms"],
          "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
          "library_ms": dec["lib_ms"]},
+        bwd_entry("flash_bwd_dq", "dq", 538, 411),
+        bwd_entry("flash_bwd_dkv", "dkv", 592, 468),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -9,7 +9,13 @@ without them (``tests/conftest.py`` imports JAX, hence ``--noconftest``):
 
 Tolerances are chip_smoke.py's, derived there: bf16 forward output 3.2e-2
 (two bf16 ulps of |o| < 5), float32 decode output 2e-4 (summation order
-over <= 1152 terms).
+over <= 1152 terms), bf16 gradients row by row: for each (batch,
+position, head) row, 2^-6 of the row's largest magnitude (one bf16 ulp
+between the two output roundings plus the bf16 rounding of P and dS inside
+the products, ~3 x 2^-8 of it) plus a floor of 2^-9 of the median row's
+largest magnitude (for rows that are zero in exact arithmetic).  Causal
+gradients span orders of magnitude across rows, so a tolerance per tensor
+would hide a tile left out of a loop.
 """
 
 import pytest
@@ -19,6 +25,16 @@ from torchgpipe_tpu_torch.ops import flash_attention as tfa
 
 FWD_TOL = 3.2e-2
 DECODE_TOL = 2e-4
+BWD_ROW_TOL = 2 ** -6
+BWD_FLOOR = 2 ** -9
+
+
+def bwd_row_ratio(got, want):
+    """Worst ratio of a row's error to its tolerance (<= 1 passes)."""
+    g, w = got.float(), want.float()
+    scale = w.abs().amax(-1)
+    tol = BWD_ROW_TOL * scale + BWD_FLOOR * scale.median()
+    return ((g - w).abs().amax(-1) / tol).max().item()
 
 
 @pytest.fixture
@@ -46,6 +62,75 @@ def test_flash_fwd_kernel_matches_plain(cuda_device, s, h, g, d, window, causal)
     torch.cuda.synchronize()
     assert tfa.flash_attention.launches == before + 1
     assert (out.float() - ref.float()).abs().max().item() <= FWD_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "s,h,g,d,window,causal",
+    [(1024, 8, 2, 128, None, True), (1000, 8, 2, 128, None, True),
+     (1024, 8, 2, 128, 256, True), (333, 4, 4, 64, 50, True),
+     (200, 4, 1, 128, None, False)],
+)
+def test_flash_bwd_kernels_match_plain(cuda_device, s, h, g, d, window, causal):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (
+        torch.randn(2, s, n, d, generator=gen, device=cuda_device).bfloat16()
+        for n in (h, g, g)
+    )
+    do = torch.randn(2, s, h, d, generator=gen, device=cuda_device).bfloat16()
+    scale = d ** -0.5
+    o, lse = tfa._flash_fwd(q, k, v, causal, scale, window)
+    delta = tfa._delta(do, o)
+    kw = dict(causal=causal, sm_scale=scale, window=window)
+    before = (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches)
+    dq = tfa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    ref = tfa._reference_bwd(q, k, v, o, lse, do, causal, scale, window)
+    torch.cuda.synchronize()
+    assert (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1
+    )
+    for got, want in zip((dq, dk, dv), ref):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        assert bwd_row_ratio(got, want) <= 1.0
+    if window is not None:
+        # The check's reach: the same LSE and delta over half the band
+        # (keys left out of both kernels' loops) must fail it.
+        cut = tfa._reference_grads(q, k, v, do, lse, delta, causal, scale,
+                                   window // 2)
+        for got, want in zip((dq, dk, dv), cut):
+            assert bwd_row_ratio(got, want) > 1.0
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_launches_both_kernels(cuda_device):
+    q = torch.randn(1, 128, 4, 128, device=cuda_device).bfloat16().requires_grad_()
+    k = torch.randn(1, 128, 2, 128, device=cuda_device).bfloat16().requires_grad_()
+    v = torch.randn(1, 128, 2, 128, device=cuda_device).bfloat16().requires_grad_()
+    before = (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches)
+    tfa.flash_attention(q, k, v).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1
+    )
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+@pytest.mark.cuda
+def test_backward_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    q = torch.zeros(1, 64, 4, 128, device=cuda_device).bfloat16()
+    lse = torch.zeros(4, 64, device=cuda_device)
+    kw = dict(causal=True, sm_scale=1.0, window=None)
+    for fn in (tfa.flash_bwd_dq, tfa.flash_bwd_dkv):
+        with pytest.raises(TypeError, match="bfloat16"):
+            fn(q.float(), q.float(), q.float(), q.float(), lse, lse, **kw)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(q, q, q, q.transpose(1, 2), lse, lse, **kw)
+        with pytest.raises(ValueError, match="float32"):
+            fn(q, q, q, q, lse.bfloat16(), lse, **kw)
+        odd = torch.zeros(1, 64, 4, 96, device=cuda_device).bfloat16()
+        with pytest.raises(ValueError, match="head dim"):
+            fn(odd, odd, odd, odd, lse, lse, **kw)
 
 
 @pytest.mark.cuda

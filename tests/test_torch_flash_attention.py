@@ -13,8 +13,24 @@ O(1), so the gap is a few float32 ulps of O(1) values, ~1e-6; 2e-5
 leaves an order of magnitude.  bfloat16: both round the float32 result
 to bfloat16 once, so they differ by at most one bfloat16 ulp of the
 output, 2^-7 * |o| <= 3e-2 for |o| < 4.
+
+Gradients (``flash_attention``'s autograd backward against ``jax.vjp``
+through the reference Pallas backward kernels), float32: both sides
+recompute ``p = exp(s - lse)`` and form ``ds = p * (dp - delta)`` from
+the same float32 inputs.  Scores and the LSE (~10 in magnitude) agree to
+~1e-6 absolute, which moves ``p`` by ~1e-6 relative; ``dp`` and ``delta``
+(~10) differ by summation order over d = 64..128 terms, ~1e-6 relative,
+and their difference can cancel to ~1e-2 of their size, so ``ds`` agrees
+to ~1e-5 of its scale, and the sums over <= 256 keys or queries keep that
+relative figure.  1e-4 of max |grad| leaves an order of magnitude.
+bfloat16: the port's plain backward works in float32 and rounds each
+gradient once; the reference kernel's dK/dV are float32 sums rounded
+once too, so the two differ by about one bfloat16 ulp at the largest
+gradient, 2^-7 of max |grad|; 2^-6 allows a second rounding where the
+reference casts dq to bfloat16 inside its kernel.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +41,8 @@ from torchgpipe_tpu_torch.ops import flash_attention as tfa
 
 F32_TOL = 2e-5
 BF16_TOL = 3e-2
+GRAD_REL_TOL = 1e-4
+BF16_GRAD_REL_TOL = 2 ** -6
 
 
 def _inputs(rng, b, s, h, g, d, sk=None):
@@ -59,6 +77,91 @@ def test_flash_attention_matches_jax(h, g, d, window, causal):
     assert out.dtype == torch.float32 and out.shape == q.shape
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=F32_TOL, rtol=0)
     assert tfa.flash_attention.launches == before  # CPU: plain version only
+
+
+def _jax_grads(q, k, v, do, streaming, **kw):
+    """``(dq, dk, dv)`` of the reference through its Pallas backward
+    kernels (interpret mode): resident (B5/B6) or streaming (B3/B4)."""
+    _, pull = jax.vjp(
+        lambda q, k, v: jfa.flash_attention(
+            q, k, v, interpret=True, streaming=streaming, **kw
+        ),
+        *(jnp.asarray(a) for a in (q, k, v)),
+    )
+    return pull(jnp.asarray(do))
+
+
+def _torch_grads(q, k, v, do, dtype=torch.float32, **kw):
+    qt, kt, vt = (
+        torch.from_numpy(a).to(dtype).requires_grad_() for a in (q, k, v)
+    )
+    out = tfa.flash_attention(qt, kt, vt, **kw)
+    return torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(do).to(dtype))
+
+
+def _assert_grads_close(got, want, rel):
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        b = np.asarray(b, np.float32)
+        assert tuple(a.shape) == b.shape, name
+        np.testing.assert_allclose(
+            a.float().numpy(), b, atol=rel * np.abs(b).max(), rtol=0, err_msg=name
+        )
+
+
+@pytest.mark.parametrize("streaming", [False, True])
+@pytest.mark.parametrize(
+    "h,g,d,window,causal",
+    [
+        (4, 2, 128, None, True),    # GQA r=2, full causal
+        (4, 2, 128, 64, True),      # sliding window
+        (4, 1, 64, None, True),     # MQA, head dim 64
+        (2, 2, 64, 100, True),      # MHA, window not a tile multiple
+        (2, 1, 128, None, False),   # bidirectional
+    ],
+)
+def test_flash_attention_grads_match_jax_kernels(h, g, d, window, causal, streaming):
+    rng = np.random.default_rng(6)
+    q, k, v = _inputs(rng, 2, 256, h, g, d)
+    do = rng.standard_normal(q.shape, dtype=np.float32)
+    ref = _jax_grads(q, k, v, do, streaming, causal=causal, window=window)
+    before = (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches)
+    got = _torch_grads(q, k, v, do, causal=causal, window=window)
+    _assert_grads_close(got, ref, GRAD_REL_TOL)
+    # CPU: the plain backward only.
+    assert (tfa.flash_bwd_dq.launches, tfa.flash_bwd_dkv.launches) == before
+
+
+def test_flash_attention_bf16_grads_match_jax_kernels():
+    rng = np.random.default_rng(7)
+    q, k, v = _inputs(rng, 1, 256, 4, 2, 128)
+    do = rng.standard_normal(q.shape, dtype=np.float32)
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, do)]
+    _, pull = jax.vjp(
+        lambda q, k, v: jfa.flash_attention(q, k, v, causal=True, interpret=True),
+        *jb[:3],
+    )
+    ref = pull(jb[3])
+    got = _torch_grads(q, k, v, do, dtype=torch.bfloat16, causal=True)
+    assert all(t.dtype == torch.bfloat16 for t in got)
+    _assert_grads_close(got, ref, BF16_GRAD_REL_TOL)
+
+
+@pytest.mark.parametrize("window", [None, 37])
+def test_flash_attention_ragged_grads_match_jax_dense(window):
+    """s = 200 is no multiple of the reference kernels' 128-row block, so
+    the oracle is ``jax.grad`` of the reference's dense attention."""
+    from torchgpipe_tpu.parallel.ring_attention import full_attention
+
+    rng = np.random.default_rng(8)
+    q, k, v = _inputs(rng, 2, 200, 4, 2, 64)
+    do = rng.standard_normal(q.shape, dtype=np.float32)
+    _, pull = jax.vjp(
+        lambda q, k, v: full_attention(q, k, v, causal=True, window=window),
+        *(jnp.asarray(a) for a in (q, k, v)),
+    )
+    ref = pull(jnp.asarray(do))
+    got = _torch_grads(q, k, v, do, causal=True, window=window)
+    _assert_grads_close(got, ref, GRAD_REL_TOL)
 
 
 def test_flash_attention_bf16_matches_jax():

@@ -148,6 +148,9 @@ def test_port_imports_no_jax_and_no_reference_package():
         "import torchgpipe_tpu_torch.models.generation\n"
         "import torchgpipe_tpu_torch.ops.flash_attention\n"
         "import torchgpipe_tpu_torch.ops._build\n"
+        "import torchgpipe_tpu_torch.gpipe, torchgpipe_tpu_torch.pipeline\n"
+        "import torchgpipe_tpu_torch.microbatch, torchgpipe_tpu_torch.partition\n"
+        "import torchgpipe_tpu_torch.checkpoint\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'torchgpipe_tpu' or m.startswith('torchgpipe_tpu.')]\n"
         "assert not bad, bad\n"

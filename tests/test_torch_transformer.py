@@ -90,7 +90,7 @@ def test_block_forward_matches_jax(knobs):
     if tcfg.norm == "layernorm":
         head["bias"] = np.zeros(256, np.float32)
     model = params_from_jax(tcfg, [embed, np_params, head], device="cpu")
-    out = model[1](torch.from_numpy(x))
+    out = model[1](torch.from_numpy(x)).detach()
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=BLOCK_TOL, rtol=0)
 
 

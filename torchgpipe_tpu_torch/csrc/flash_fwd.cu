@@ -28,13 +28,11 @@
 // i / (h/g).  Not yet done (later work): wgmma and TMA, which the card's
 // full rate needs, and a persistent schedule.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "mma_tiles.cuh"
 
 namespace {
+
+using namespace tiles;
 
 constexpr int BQ = 64;               // query rows per block
 constexpr int BK = 64;               // keys per K/V tile
@@ -50,62 +48,6 @@ struct Layout {
   static constexpr int TILE = BK * LD;
   static constexpr size_t BYTES = size_t(BQ * LD + 4 * TILE) * sizeof(bf16);
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a (16x16 row-major) * b (16x8 col-major), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma16816(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy `rows` rows of D bf16 (row r at src + r * stride) into a [rows][LD]
-// shared tile; rows at or past `valid` are zero-filled.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, size_t stride,
-                                          int valid, int tid) {
-  constexpr int CH = D / 8;
-#pragma unroll
-  for (int c = tid; c < ROWS * CH; c += THREADS) {
-    const int row = c / CH, col = (c % CH) * 8;
-    const bool ok = row < valid;
-    cp_async16(dst + row * Layout<D>::LD + col, ok ? src + row * stride + col : src, ok);
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(THREADS)
@@ -138,11 +80,11 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   auto load_kv = [&](int jt, int stage) {
     const int k0 = jt * BK;
-    load_tile<D, BK>(sK + stage * L::TILE, kbase + size_t(k0) * kstride, kstride, sk - k0, tid);
-    load_tile<D, BK>(sV + stage * L::TILE, vbase + size_t(k0) * kstride, kstride, sk - k0, tid);
+    load_tile<D, L::LD, BK, THREADS>(sK + stage * L::TILE, kbase + size_t(k0) * kstride, kstride, sk - k0, tid);
+    load_tile<D, L::LD, BK, THREADS>(sV + stage * L::TILE, vbase + size_t(k0) * kstride, kstride, sk - k0, tid);
   };
 
-  load_tile<D, BQ>(sQ, qsrc, qstride, s - q0, tid);
+  load_tile<D, L::LD, BQ, THREADS>(sQ, qsrc, qstride, s - q0, tid);
   load_kv(jt0, 0);
   cp_async_commit();
 

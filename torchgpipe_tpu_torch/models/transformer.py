@@ -315,9 +315,8 @@ def _block_attn_out(
 
 
 def _param(shape: Tuple[int, ...], dtype: torch.dtype, device: torch.device):
-    return nn.Parameter(
-        torch.empty(shape, dtype=dtype, device=device), requires_grad=False
-    )
+    """A trainable parameter (generation runs under ``inference_mode``)."""
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
 class _Layer(nn.Module):
@@ -464,6 +463,17 @@ class Llama(nn.Sequential):
     def reset_parameters(self, gen: torch.Generator) -> None:
         for layer in self:
             layer.reset_parameters(gen)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean token cross-entropy at aligned positions, as the reference's
+    ``cross_entropy``: float32 log-softmax over ``logits [b, s, v]``, int
+    ``labels [b, s]``.  For a causal-LM objective pass pre-shifted arrays
+    (logits of ``tokens[:, :-1]``, ``labels = tokens[:, 1:]``); this
+    function does not shift."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(-1, labels[..., None].long())[..., 0]
+    return -ll.mean()
 
 
 def token_embedding(

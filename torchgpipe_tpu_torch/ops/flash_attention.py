@@ -1,21 +1,27 @@
-"""Flash attention forward and KV-cache decode: CUDA kernels for Hopper.
+"""Flash attention forward, backward and KV-cache decode: CUDA kernels
+for Hopper.
 
-Counterpart of ``torchgpipe_tpu/ops/flash_attention.py`` (forward and
-decode only; the backward kernels come with the training slice).
+Counterpart of ``torchgpipe_tpu/ops/flash_attention.py``.  On the TPU
+each pass exists twice (K/V resident in VMEM, or streamed on a grid
+axis) because of VMEM size; on Hopper one tile loop serves every length.
 
-* :func:`flash_attention` launches ``csrc/flash_fwd.cu``, which replaces
-  both ``_fwd_kernel`` and ``_fwd_stream_kernel``: on the TPU the split
-  exists because of VMEM size; on Hopper one K/V-tile loop serves every
-  length.
+* :func:`flash_attention` launches ``csrc/flash_fwd.cu`` (replaces
+  ``_fwd_kernel`` and ``_fwd_stream_kernel``).  It is differentiable: a
+  ``torch.autograd.Function`` saves ``(q, k, v, o, lse)``, as the
+  reference's ``_flash_vjp_fwd`` does, and its backward launches
+  :func:`flash_bwd_dq` (replaces ``_dq_kernel`` and ``_dq_stream_kernel``)
+  and :func:`flash_bwd_dkv` (replaces ``_dkv_kernel`` and
+  ``_dkv_stream_kernel``), both in ``csrc/flash_bwd.cu``.
 * :func:`flash_decode_attention` launches ``csrc/flash_decode.cu``, which
   replaces ``_decode_kernel``.
 
 Each wrapper launches its kernel for CUDA tensors and raises for what the
 kernel does not take (device, dtype, contiguity, head dim).  It runs the
 plain PyTorch version beside it (:func:`flash_attention_reference`,
-:func:`flash_decode_reference`) only when its inputs lie on the CPU.
-Each keeps a plain-integer count of kernel launches in its ``launches``
-attribute; the plain version never touches it.
+:func:`_reference_bwd`, :func:`flash_decode_reference`) only when its
+inputs lie on the CPU.  Each keeps a plain-integer count of kernel
+launches in its ``launches`` attribute; the plain version never touches
+it.
 """
 
 from __future__ import annotations
@@ -37,6 +43,12 @@ DECODE_CHUNK = 64     # live keys per decode block (split-key grid)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # q, k, v, o, lse, b, s, sk, h, g, d, scale, causal, window, stream
 _FWD_ARGS = [_P] * 5 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
+# q, k, v, dout, lse, delta, dq, b, s, sk, h, g, d, scale, causal, window,
+# stream
+_BWD_DQ_ARGS = [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
+# q, k, v, dout, lse, delta, dk, dv, b, s, sk, h, g, d, scale, causal,
+# window, stream
+_BWD_DKV_ARGS = [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
 # q, ck, cv, out, scratch, pos0, b, g, nh, nkv, hd, max_len, window,
 # chunk, nsplit, is_f32, stream
 _DECODE_ARGS = [_P] * 5 + [_I] * 11 + [_P]
@@ -99,6 +111,60 @@ def flash_attention_reference(
     sm_scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
     _validate_window(causal, window)
     return _reference_fwd(q, k, v, causal, sm_scale, window)[0]
+
+
+def _delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """``rowsum(dO * O)`` in float32 as ``[b*h, s]`` (the reference
+    computes it outside Pallas too, ``_flash_bwd_resident``)."""
+    b, s, h, _ = o.shape
+    d = (do.float() * o.float()).sum(-1)                 # [b, s, h]
+    return d.permute(0, 2, 1).reshape(b * h, s).contiguous()
+
+
+def _reference_grads(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, causal: bool, sm_scale: float,
+    window: Optional[int],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Dense float32 ``(dq, dk, dv)`` from the saved LSE and ``delta``,
+    the kernels' arithmetic: ``p = exp(s - lse)``, ``dv = pᵀ·do``,
+    ``dp = do·vᵀ``, ``ds = p*(dp - delta)``, ``dq = ds·k·scale``,
+    ``dk = dsᵀ·q·scale``, dk/dv summed over each kv head's ``h/g`` query
+    heads.  Cast to the inputs' dtypes."""
+    b, s, h, d = q.shape
+    sk, g = k.shape[1], k.shape[2]
+    r = h // g
+    qf = q.reshape(b, s, g, r, d).float()
+    dof = do.reshape(b, s, g, r, d).float()
+    kf, vf = k.float(), v.float()
+    scores = torch.einsum("bqgrd,bsgd->bgrqs", qf, kf) * sm_scale
+    if causal:
+        qpos = torch.arange(s, device=q.device)[:, None]
+        kpos = torch.arange(sk, device=q.device)[None, :]
+        valid = kpos <= qpos
+        if window is not None:
+            valid &= kpos > qpos - window
+        scores = scores.masked_fill(~valid, float("-inf"))
+    p = torch.exp(scores - lse.reshape(b, g, r, s, 1))
+    dv = torch.einsum("bgrqs,bqgrd->bsgd", p, dof)
+    dp = torch.einsum("bqgrd,bsgd->bgrqs", dof, vf)
+    ds = p * (dp - delta.reshape(b, g, r, s, 1))
+    dq = torch.einsum("bgrqs,bsgd->bqgrd", ds, kf) * sm_scale
+    dk = torch.einsum("bgrqs,bqgrd->bsgd", ds, qf) * sm_scale
+    return dq.reshape(b, s, h, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _reference_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, causal: bool, sm_scale: float,
+    window: Optional[int],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the backward kernels: ``(dq, dk, dv)`` of
+    :func:`flash_attention` from its residuals ``(q, k, v, o, lse)`` and
+    the output cotangent ``do``."""
+    return _reference_grads(
+        q, k, v, do, lse, _delta(do, o), causal, sm_scale, window
+    )
 
 
 def flash_decode_reference(
@@ -194,7 +260,7 @@ def _flash_fwd(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out, lse)``: the kernel on CUDA tensors, the plain version on
     CPU tensors.  ``lse`` is float32 ``[b*h, s]`` in scaled-score units,
-    as the reference kernel's residual (kept for the training slice)."""
+    as the reference kernel's residual."""
     if q.device.type == "cpu":
         return _reference_fwd(q, k, v, causal, sm_scale, window)
     if q.device.type != "cuda":
@@ -226,6 +292,125 @@ def _flash_fwd(
     return o, lse
 
 
+# --------------------------------------------------------------------- #
+# backward                                                              #
+# --------------------------------------------------------------------- #
+
+
+def _check_bwd(what: str, q, k, v, do, lse, delta) -> None:
+    _check_cuda(what, q, k, v, do, lse, delta)
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v, do)):
+        raise TypeError(
+            f"{what} kernel takes bfloat16 q/k/v/do, got {q.dtype}/{k.dtype}/"
+            f"{v.dtype}/{do.dtype}"
+        )
+    b, s, h, _ = q.shape
+    if lse.dtype != torch.float32 or delta.dtype != torch.float32 \
+            or lse.shape != (b * h, s) or delta.shape != (b * h, s):
+        raise ValueError(f"{what}: lse and delta must be float32 [b*h, s]")
+    if not supports(q.shape, k.shape, q.dtype) or v.shape != k.shape \
+            or do.shape != q.shape:
+        raise ValueError(
+            f"{what} kernel does not take q {tuple(q.shape)}, k "
+            f"{tuple(k.shape)}, v {tuple(v.shape)}, do {tuple(do.shape)}: head "
+            f"dim must be one of {FWD_HEAD_DIMS} and h a multiple of g"
+        )
+
+
+def flash_bwd_dq(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, *, causal: bool, sm_scale: float,
+    window: Optional[int],
+) -> torch.Tensor:
+    """dQ ``[b, s, h, d]`` of :func:`flash_attention` from the output
+    cotangent ``do``, the forward's ``lse`` and ``delta = rowsum(do*o)``
+    (both float32 ``[b*h, s]``): ``csrc/flash_bwd.cu`` on CUDA tensors,
+    the plain version on CPU tensors."""
+    if q.device.type == "cpu":
+        return _reference_grads(
+            q, k, v, do, lse, delta, causal, sm_scale, window
+        )[0]
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_bwd_dq: unsupported device {q.device}")
+    _check_bwd("flash_bwd_dq", q, k, v, do, lse, delta)
+    b, s, h, d = q.shape
+    sk, g = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q)
+    fn = _build.function("flash_bwd", "tgt_flash_bwd_dq_bf16", _BWD_DQ_ARGS)
+    rc = fn(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dq),
+        b, s, sk, h, g, d, float(sm_scale), int(causal),
+        0 if window is None else int(window), _stream(q),
+    )
+    _build.check(rc, "flash_bwd_dq")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, *, causal: bool, sm_scale: float,
+    window: Optional[int],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dK, dV)`` ``[b, s_k, g, d]``, summed over each kv head's query
+    heads, from the same inputs as :func:`flash_bwd_dq`."""
+    if q.device.type == "cpu":
+        return _reference_grads(
+            q, k, v, do, lse, delta, causal, sm_scale, window
+        )[1:]
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_bwd_dkv: unsupported device {q.device}")
+    _check_bwd("flash_bwd_dkv", q, k, v, do, lse, delta)
+    b, s, h, d = q.shape
+    sk, g = k.shape[1], k.shape[2]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = _build.function("flash_bwd", "tgt_flash_bwd_dkv_bf16", _BWD_DKV_ARGS)
+    rc = fn(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dk),
+        _ptr(dv), b, s, sk, h, g, d, float(sm_scale), int(causal),
+        0 if window is None else int(window), _stream(q),
+    )
+    _build.check(rc, "flash_bwd_dkv")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward through ``flash_fwd`` saving ``(q, k, v, o, lse)``;
+    backward through the two backward kernels, or, for CPU tensors, one
+    call of the plain version.  Counterpart of the reference's ``_flash``
+    custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, window):
+        o, lse = _flash_fwd(q, k, v, causal, sm_scale, window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, sm_scale, window)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, sm_scale, window = ctx.args
+        do = do.contiguous()
+        delta = _delta(do, o)
+        if q.device.type == "cpu":
+            dq, dk, dv = _reference_grads(
+                q, k, v, do, lse, delta, causal, sm_scale, window
+            )
+        else:
+            kw = dict(causal=causal, sm_scale=sm_scale, window=window)
+            dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+            dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal: bool = True, sm_scale: Optional[float] = None,
@@ -235,10 +420,10 @@ def flash_attention(
     with ``g`` dividing ``h`` (query head ``i`` reads kv head
     ``i // (h/g)``).  Returns ``[b, s, h, d]`` in ``q.dtype``.
     ``window`` (needs ``causal``): attend iff ``0 <= qpos - kpos <
-    window``."""
+    window``.  Differentiable in ``q``, ``k`` and ``v``."""
     sm_scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
     _validate_window(causal, window)
-    return _flash_fwd(q, k, v, causal, sm_scale, window)[0]
+    return _FlashAttention.apply(q, k, v, causal, sm_scale, window)
 
 
 flash_attention.launches = 0

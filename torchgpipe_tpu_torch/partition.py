@@ -1,0 +1,79 @@
+"""Balance-driven partitioning of a sequential model into pipeline stages.
+
+Counterpart of ``torchgpipe_tpu/partition.py`` with the same
+``BalanceError`` messages.  A layer here is an ``nn.Module``; the
+reference's ``layers.Layer`` protocol (``init``/``apply`` over explicit
+pytrees) has no counterpart in the port.  Automatic balancing
+(``torchgpipe_tpu.balance``) is not ported yet (ROADMAP.md, queue A
+item 2).
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+from torch import nn
+
+_RECOMMEND = (
+    "If your model is still under development, its optimal balance would change\n"
+    "frequently. Automatic balancing (torchgpipe_tpu.balance in the reference) "
+    "is not ported to torchgpipe_tpu_torch yet (ROADMAP.md, queue A item 2);\n"
+    "pass a balance whose entries sum to the number of layers:\n"
+    "\n"
+    "  model = GPipe(layers, balance=[n0, n1, ...], chunks=...)\n"
+)
+
+
+class BalanceError(ValueError):
+    """Reference: torchgpipe/gpipe.py:67-68."""
+
+
+def verify_module(layers: Sequence[nn.Module]) -> None:
+    """Validate the sequential model: a non-empty ``nn.Sequential`` or
+    list of modules in which no module appears twice (a module's
+    parameters belong to exactly one stage)."""
+    if not isinstance(layers, (nn.Sequential, list, tuple)) or len(layers) == 0:
+        raise TypeError(
+            "model must be a non-empty nn.Sequential or list/tuple of modules"
+        )
+    seen = set()
+    for i, layer in enumerate(layers):
+        if not isinstance(layer, nn.Module):
+            raise TypeError(
+                f"model elements must be nn.Module instances, got "
+                f"{type(layer).__name__}"
+            )
+        if id(layer) in seen:
+            raise ValueError(
+                f"module {type(layer).__name__} at index {i} appears twice; "
+                "each layer must be a distinct module (its parameters belong "
+                "to one stage)"
+            )
+        seen.add(id(layer))
+
+
+def split_layers(
+    layers: Sequence[nn.Module], balance: Sequence[int]
+) -> List[List[nn.Module]]:
+    """Split layers into contiguous stages of sizes ``balance``.
+
+    Reference: torchgpipe/gpipe.py:71-127 (``split_module``), with the same
+    failure modes: balance/layer-count mismatch and non-positive entries.
+    """
+    balance = list(balance)
+    if len(layers) != sum(balance):
+        raise BalanceError(
+            f"module and sum of balance have different length "
+            f"(module: {len(layers)}, sum of balance: {sum(balance)})\n\n{_RECOMMEND}"
+        )
+    if any(x <= 0 for x in balance):
+        raise BalanceError(
+            f"all balance numbers must be positive integer (balance: {balance})"
+        )
+    layers = list(layers)
+    stages: List[List[nn.Module]] = []
+    i = 0
+    for n in balance:
+        stages.append(layers[i : i + n])
+        i += n
+    return stages
