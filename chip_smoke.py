@@ -6,9 +6,14 @@
 Phases, one line each (any failure exits non-zero):
 
 1. device: card name and power limit (nvidia-smi); TF32 off.
-2. build: every CUDA kernel under torchgpipe_tpu_torch/csrc/ with nvcc.
+2. build: every CUDA kernel under torchgpipe_tpu_torch/csrc/ with nvcc; any
+   register spill that ptxas reports fails the run.
 3. flash_fwd against its plain PyTorch version on the card.
-4. flash_decode against its plain PyTorch version on the card.
+4. flash_decode against its plain PyTorch version on the card, with a
+   bf16 and an int8 cache, up to 20 query rows per kv head (speculative
+   verification's g=5 at r=4), at phase 6c's own shapes too (the hd-64
+   draft and the 20-row verify at b=1), timed at the decode run's shape
+   (live 1088) and at a long cache (live 32704).
 5. flash_bwd: flash_bwd_dq and flash_bwd_dkv against the plain backward,
    row by row, and a probe that the check fails a backward with a tile
    left out.
@@ -17,7 +22,19 @@ Phases, one line each (any failure exits non-zero):
    kernels' launch counts read around that one call, prefill logits of
    the kernel path against the plain path, and the generated tokens
    against a teacher-forced full forward.
-7. profile: device time by kernel and idle share, prefill and decode.
+6b. slice_int8: the same ``generate`` with ``kv_quant=True`` (the int8
+   decode kernel): launch counts, times, cache bytes, the teacher-forced
+   check, token agreement with phase 6 and the two caches' decode logits
+   on phase 6's tokens.
+6c. speculative: ``speculative_generate`` with phase 6's model as the
+   target and a random benchmarks/llama_speed.py ``1b`` draft (batch 2,
+   prompt 512, 64 new tokens, gamma 4, greedy): launch counts against
+   ``SpecStats``, the teacher-forced check, agreement with ``generate``;
+   then the target as its own draft (acceptance >= 0.8).
+6d. beam: ``beam_search`` of one prompt with 4 beams, 32 tokens, and
+   ``num_beams=1`` against greedy ``generate`` (equal).
+7. profile: device time by kernel and idle share, prefill and decode,
+   bf16 and int8 caches.
 8. train: ``GPipe`` training at Llama-3-8B width (benchmarks/llama_speed.py
    ``pipeline-1``: 1 stage, batch 8, 4 micro-batches, seq 1024,
    checkpoint 'except_last'; random weights from the seed), one warm-up
@@ -26,11 +43,13 @@ Phases, one line each (any failure exits non-zero):
    the unpipelined model's, a falling loss, a profile of one step, and a
    3-stage schedule on one card against the 1-stage one at 4 blocks.
 
-Then one JSON line per kernel (time, launches, bound, plain and library
-yardsticks; ``launches`` counts one generate call for the forward and
-decode kernels and one training step for the backward kernels, and
-``flash_fwd`` splits its count by path in ``launches_by_path``), the card
-line, and the last line
+Each path's launch counts are set to 0 just before it runs and read just
+after.  Then one JSON line per kernel (time, launches, bound, plain and
+library yardsticks; ``launches`` counts one generate call for the forward
+and decode kernels, one ``generate(kv_quant=True)`` call for the int8
+decode variant and one training step for the backward kernels; every
+path's counts are in ``launches_by_path``), the card line, and the last
+line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the package beside this script, it exits non-zero and prints no result.
 """
@@ -39,11 +58,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import time
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
+PEAK_F32_FLOPS = 67e12     # H100 SXM float32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 rate
 # bf16 attention output: the kernel rounds P to bf16 before P @ V (one
 # bf16 rounding, 2^-9 relative, of each weight of an average of V rows
@@ -54,8 +75,12 @@ FWD_TOL = 3.2e-2
 # f32; only summation order differs): ~1e-6 relative of lse ~ 10.
 LSE_TOL = 2e-3
 # Decode output is float32 on both sides from identical bf16 values; only
-# summation order and the fast exp (<= 2 ulp) differ over <= 1152 terms,
-# ~1e-5 relative of |o| < 5.
+# summation order and the fast exp (<= 2 ulp) differ, ~1e-7 x sqrt(terms)
+# relative: ~1e-5 of |o| < 5 at 1152 keys, and at 32704 keys (the long
+# timing shape) the output, an average of that many random V rows, is
+# far smaller than 5.  For an int8 cache the plain version dequantizes
+# each element where the kernel scales each score and each softmax weight
+# (csrc/flash_decode.cu): one more f32 rounding per key, the same order.
 DECODE_TOL = 2e-4
 # bf16 gradients of the backward kernels against the plain float32
 # backward rounded once, held row by row: for each (batch, position, head)
@@ -103,8 +128,31 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def device_ms(torch, fn, reps: int, warmup: int = 2) -> float:
+    """Device time per call of ``fn``: the CUDA kernels' own time summed
+    by torch.profiler over ``reps`` calls.  Unlike ``time_ms`` it leaves
+    out the host's time between launches, which at decode sizes is
+    longer than the kernels."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev = getattr(e, "self_device_time_total", None)
+            total += e.self_cuda_time_total if dev is None else dev
+    return total / 1e3 / reps
+
+
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -159,66 +207,150 @@ def phase_fwd(torch, tfa, card, gqa_sdpa):
     return rows
 
 
-def phase_decode(torch, tfa, card, gqa_sdpa):
-    b, nh, nkv, hd = 4, 32, 8, 128
+def int8_cache(torch, tg, gen, b, L, nkv, hd):
+    """An int8 cache and its float32 [b, nkv, L] scales: random bf16 rows
+    quantized as ``generate(kv_quant=True)`` quantizes them."""
+    rows = torch.randn(b, L, nkv, hd, generator=gen, device="cuda").bfloat16()
+    q, sc = tg._quant_rows(rows)
+    return q, sc.transpose(1, 2).contiguous()
+
+
+def decode_bound(b, nh, nkv, hd, live, g, cache_bytes_per_elem, scales):
+    """The decode kernel's least time: the live K/V prefix read once (and
+    the two f32 scale rows of an int8 cache), q read and the f32 output
+    written once, against HBM; its f32 products against the f32 rate."""
+    flops = 4.0 * b * g * nh * hd * live
+    nbytes = (2.0 * b * live * nkv * hd * cache_bytes_per_elem
+              + (2.0 * b * nkv * live * 4 if scales else 0.0)
+              + 2.0 * b * g * nh * hd + 4.0 * b * g * nh * hd)
+    return bound(flops, nbytes, PEAK_F32_FLOPS)
+
+
+def phase_decode(torch, tfa, tg, card, gqa_sdpa):
+    """The decode kernel against its plain version, bf16 and int8 caches,
+    at every shape the generation phases give it (the speculative phase's
+    hd-64 draft decode and 20-row verify at b=1 included); timed at the
+    main path's shape and at a long cache."""
+    # (name, b, nh, nkv, hd, g, pos0, window, max_len)
+    llama = (4, 32, 8, 128)
     cases = [
-        ("len1", 1, 0, None, 1152), ("len129", 1, 128, None, 1152),
-        ("len1025", 1, 1024, None, 1152), ("len1152", 1, 1151, None, 1152),
-        ("g4", 4, 1148, None, 1152), ("window256", 1, 1151, 256, 1152),
-        ("ragged1000", 1, 999, None, 1000),
+        ("len1", *llama, 1, 0, None, 1152), ("len129", *llama, 1, 128, None, 1152),
+        ("len1025", *llama, 1, 1024, None, 1152),
+        ("len1152", *llama, 1, 1151, None, 1152),
+        ("g4", *llama, 4, 1148, None, 1152),
+        ("window256", *llama, 1, 1151, 256, 1152),
+        ("ragged1000", *llama, 1, 999, None, 1000),
+        ("g5_rows20", *llama, 5, 1100, None, 1152),
+        ("g5_rows20_window256", *llama, 5, 900, 256, 1152),
+        # Phase 6c (prompt 512, 64 new, gamma 4: buffers of 512 + 64 + 5 =
+        # 581 positions, one row at a time): the 1b draft's decode reads
+        # 513..581 live keys at hd 64; the target's verify, 5 queries (20
+        # rows per kv head) at 517..581.
+        ("draft_hd64_len513", 1, 32, 8, 64, 1, 512, None, 581),
+        ("draft_hd64_len548", 1, 32, 8, 64, 1, 547, None, 581),
+        ("draft_hd64_len581", 1, 32, 8, 64, 1, 580, None, 581),
+        ("verify_rows20_len517", 1, 32, 8, 128, 5, 512, None, 581),
+        ("verify_rows20_len581", 1, 32, 8, 128, 5, 576, None, 581),
     ]
-    worst = 0.0
-    for name, g, pos0, window, max_len in cases:
-        gen = torch.Generator(device="cuda").manual_seed(2)
-        q = torch.randn(b, g, nh, hd, generator=gen, device="cuda").bfloat16()
-        ck = torch.randn(b, max_len, nkv, hd, generator=gen, device="cuda").bfloat16()
-        cv = torch.randn(b, max_len, nkv, hd, generator=gen, device="cuda").bfloat16()
-        out = tfa.flash_decode_attention(q, ck, cv, pos0, window=window)
-        ref = tfa.flash_decode_reference(q, ck, cv, pos0, window=window)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        worst = max(worst, err)
-        if not err <= DECODE_TOL:
-            fail(f"flash_decode {name}: max abs err {err} (tol {DECODE_TOL})")
-        print(f"flash_decode {name}: cache=[{b},{max_len},{nkv},{hd}] g={g} "
-              f"pos0={pos0} window={window} max_abs_err={err:.3e} "
-              f"(tol {DECODE_TOL}) [{card}]", flush=True)
+    worst = {"bf16": 0.0, "int8": 0.0}
+    for quant in (False, True):
+        kind = "int8" if quant else "bf16"
+        for name, b, nh, nkv, hd, g, pos0, window, max_len in cases:
+            gen = torch.Generator(device="cuda").manual_seed(2)
+            q = torch.randn(b, g, nh, hd, generator=gen, device="cuda").bfloat16()
+            if quant:
+                ck, ks = int8_cache(torch, tg, gen, b, max_len, nkv, hd)
+                cv, vs = int8_cache(torch, tg, gen, b, max_len, nkv, hd)
+                kw = dict(window=window, k_scale=ks, v_scale=vs)
+            else:
+                ck = torch.randn(b, max_len, nkv, hd, generator=gen, device="cuda").bfloat16()
+                cv = torch.randn(b, max_len, nkv, hd, generator=gen, device="cuda").bfloat16()
+                kw = dict(window=window)
+            out = tfa.flash_decode_attention(q, ck, cv, pos0, **kw)
+            ref = tfa.flash_decode_reference(q, ck, cv, pos0, **kw)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            worst[kind] = max(worst[kind], err)
+            if not err <= DECODE_TOL:
+                fail(f"flash_decode {kind} {name}: max abs err {err} (tol {DECODE_TOL})")
+            print(f"flash_decode {kind} {name}: cache=[{b},{max_len},{nkv},{hd}] g={g} "
+                  f"rows/kv head={g * nh // nkv} pos0={pos0} window={window} "
+                  f"max_abs_err={err:.3e} (tol {DECODE_TOL}) [{card}]", flush=True)
 
     # Timing at the main path's shape: g=1 at live length 1088 (the middle
-    # of the decode run's 1025..1152), cycling four caches (76 MB > the
-    # 50 MB L2) as the 32 layers' caches cycle in the real loop.
-    live, max_len = 1088, 1152
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    sets = []
-    for _ in range(4):
-        q = torch.randn(b, 1, nh, hd, generator=gen, device="cuda").bfloat16()
-        ck = torch.randn(b, max_len, nkv, hd, generator=gen, device="cuda").bfloat16()
-        cv = torch.randn(b, max_len, nkv, hd, generator=gen, device="cuda").bfloat16()
-        sets.append((q, ck, cv, q.transpose(1, 2), ck[:, :live].transpose(1, 2),
-                     cv[:, :live].transpose(1, 2)))
-    it = {"i": 0}
+    # of the decode run's 1025..1152), cycling four caches (76 MB of bf16 >
+    # the 50 MB L2) as the 32 layers' caches cycle in the real loop; and at
+    # a long cache (live 32704 of 32768: 537 MB of bf16, past L2 alone).
+    b, nh, nkv, hd = llama
+    timing = {}
+    for shape, live, max_len, nsets in (("main", 1088, 1152, 4),
+                                        ("long", 32704, 32768, 1)):
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        sets = []
+        for _ in range(nsets):
+            q = torch.randn(b, 1, nh, hd, generator=gen, device="cuda").bfloat16()
+            ck = torch.randn(b, max_len, nkv, hd, generator=gen, device="cuda").bfloat16()
+            cv = torch.randn(b, max_len, nkv, hd, generator=gen, device="cuda").bfloat16()
+            qk, ks = int8_cache(torch, tg, gen, b, max_len, nkv, hd)
+            qv, vs = int8_cache(torch, tg, gen, b, max_len, nkv, hd)
+            sets.append(dict(q=q, ck=ck, cv=cv, qk=qk, qv=qv, ks=ks, vs=vs,
+                             qt=q.transpose(1, 2), kt=ck[:, :live].transpose(1, 2),
+                             vt=cv[:, :live].transpose(1, 2)))
+        it = {"i": 0}
 
-    def cycle(fn):
-        def run():
-            it["i"] = (it["i"] + 1) % 4
-            fn(*sets[it["i"]])
-        return run
+        def cycle(fn):
+            def run():
+                it["i"] = (it["i"] + 1) % nsets
+                fn(sets[it["i"]])
+            return run
 
-    pos0 = live - 1
-    ms = time_ms(torch, cycle(lambda q, ck, cv, *_: tfa.flash_decode_attention(
-        q, ck, cv, pos0)), 40)
-    plain_ms = time_ms(torch, cycle(lambda q, ck, cv, *_: tfa.flash_decode_reference(
-        q, ck, cv, pos0)), 10)
-    lib_ms = time_ms(torch, cycle(lambda q, ck, cv, qt, kt, vt: gqa_sdpa(
-        qt, kt, vt, False)), 40)
-    flops = 4.0 * b * nh * hd * live
-    nbytes = 2.0 * (q.numel() + 2 * b * live * nkv * hd) + 4.0 * b * nh * hd
-    bms, by = bound(flops, nbytes)
-    print(f"flash_decode timing: cache=[{b},{max_len},{nkv},{hd}] live={live} g=1 "
-          f"ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms:.4f} "
-          f"bound_ms={bms:.4f} ({by}) [{card}]", flush=True)
-    return dict(err=worst, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
-                bound_ms=bms, bound_by=by)
+        pos0 = live - 1
+        d = sets[0]
+        for kind, ck, cv, sc in (
+            ("bf16", d["ck"], d["cv"], {}),
+            ("int8", d["qk"], d["qv"], dict(k_scale=d["ks"], v_scale=d["vs"])),
+        ):
+            got = tfa.flash_decode_attention(d["q"], ck, cv, pos0, **sc)
+            want = tfa.flash_decode_reference(d["q"], ck, cv, pos0, **sc)
+            err = (got - want).abs().max().item()
+            worst[kind] = max(worst[kind], err)
+            if not err <= DECODE_TOL:
+                fail(f"flash_decode {kind} timing shape {shape}: max abs err {err} "
+                     f"(tol {DECODE_TOL})")
+            print(f"flash_decode {kind} timing shape {shape}: live={live} "
+                  f"max_abs_err={err:.3e} (tol {DECODE_TOL}) [{card}]", flush=True)
+        reps = 40 if shape == "main" else 10
+        plain_reps = 3 if shape == "long" else 10
+        bf16 = cycle(lambda d: tfa.flash_decode_attention(d["q"], d["ck"], d["cv"], pos0))
+        int8 = cycle(lambda d: tfa.flash_decode_attention(
+            d["q"], d["qk"], d["qv"], pos0, k_scale=d["ks"], v_scale=d["vs"]))
+        ms, q8_ms = device_ms(torch, bf16, reps), device_ms(torch, int8, reps)
+        call_ms, q8_call_ms = time_ms(torch, bf16, reps), time_ms(torch, int8, reps)
+        plain_ms = device_ms(torch, cycle(lambda d: tfa.flash_decode_reference(
+            d["q"], d["ck"], d["cv"], pos0)), plain_reps, 1)
+        q8_plain_ms = device_ms(torch, cycle(lambda d: tfa.flash_decode_reference(
+            d["q"], d["qk"], d["qv"], pos0, k_scale=d["ks"], v_scale=d["vs"])),
+            plain_reps, 1)
+        lib_ms = device_ms(torch, cycle(lambda d: gqa_sdpa(d["qt"], d["kt"], d["vt"],
+                                                           False)), reps)
+        bms, by = decode_bound(b, nh, nkv, hd, live, 1, 2, False)
+        q8_bms, q8_by = decode_bound(b, nh, nkv, hd, live, 1, 1, True)
+        print(f"flash_decode timing {shape}: cache=[{b},{max_len},{nkv},{hd}] live={live} "
+              f"g=1, device time per call (wrapper call time on the host clock): "
+              f"bf16: ms={ms:.4f} ({call_ms:.4f}) plain_ms={plain_ms:.4f} "
+              f"sdpa_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by}); int8: ms={q8_ms:.4f} "
+              f"({q8_call_ms:.4f}) plain_ms={q8_plain_ms:.4f} bound_ms={q8_bms:.4f} "
+              f"({q8_by}) library_ms=None (no PyTorch call reads an int8 cache) "
+              f"[{card}]", flush=True)
+        timing[shape] = {
+            "bf16": dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, lib_ms=lib_ms,
+                         bound_ms=bms, bound_by=by),
+            "int8": dict(ms=q8_ms, call_ms=q8_call_ms, plain_ms=q8_plain_ms, lib_ms=None,
+                         bound_ms=q8_bms, bound_by=q8_by),
+        }
+        del sets
+        torch.cuda.empty_cache()
+    return worst, timing
 
 
 def attn_bytes(b, s, h, g, d, *, reads, writes):
@@ -335,12 +467,116 @@ def phase_bwd(torch, tfa, card, gqa_sdpa):
     return worst, timing
 
 
+LLAMA3_8B = dict(vocab=128256, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
+                 mlp_ratio=5.25)
+# benchmarks/llama_speed.py preset "1b": the speculative phase's draft.
+LLAMA_1B = dict(vocab=128256, dim=2048, n_layers=16, n_heads=32, n_kv_heads=8,
+                mlp_ratio=6.0)
+
+
+def timed_generate(torch, tfa, tg, cfg, model, prompt, new_tokens, reps, **kw):
+    """``reps`` calls of ``generate(cfg, model, prompt, new_tokens, **kw)``
+    after a short warm-up, each split on the device clock by an event that
+    its own prefill records on return (no sync is added): prefill = start
+    -> mark, decode = mark -> end.  The first call is the counted run:
+    every launch count is 0 just before it and read just after.  Returns
+    ``(out, cache, launches, times)`` with the first call's tokens and
+    cache and per-call ``prefill_ms``/``decode_ms``/``total_ms`` lists."""
+    tg.generate(cfg, model, prompt[:, :128], 2, **kw)   # warm-up: cuBLAS, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    real_prefill, marks = tg.prefill, []
+
+    def marked_prefill(*a, **pkw):
+        res = real_prefill(*a, **pkw)
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        return res
+
+    tg.prefill = marked_prefill
+    times = {"prefill_ms": [], "decode_ms": [], "total_ms": []}
+    try:
+        for rep in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            if rep == 0:
+                tfa.reset_launches()
+            start.record()
+            out, cache = tg.generate(cfg, model, prompt, new_tokens,
+                                     return_state=True, **kw)
+            end.record()
+            end.synchronize()
+            if rep == 0:
+                launches = kernel_launches(tfa)
+                first = (out, cache)
+            elif not torch.equal(out, first[0]):
+                fail("two greedy generate calls on one input disagree")
+            times["prefill_ms"].append(start.elapsed_time(marks[-1]))
+            times["decode_ms"].append(marks[-1].elapsed_time(end))
+            times["total_ms"].append(start.elapsed_time(end))
+    finally:
+        tg.prefill = real_prefill
+    times["peak"] = torch.cuda.max_memory_allocated()
+    return first[0], first[1], launches, times
+
+
+def kernel_launches(tfa):
+    """Every kernel's launch count, the decode kernel's per variant."""
+    return {"flash_fwd": tfa.flash_attention.launches,
+            "flash_decode": tfa.flash_decode_attention.launches,
+            "flash_decode_int8": tfa.flash_decode_attention.launches_int8,
+            "flash_bwd_dq": tfa.flash_bwd_dq.launches,
+            "flash_bwd_dkv": tfa.flash_bwd_dkv.launches}
+
+
+def expect_launches(got, want, what):
+    full = {k: 0 for k in got}
+    full.update(want)
+    if got != full:
+        fail(f"kernel launches in {what}: {got}, expected {full}")
+
+
+def teacher_forced(torch, model, prompt, out):
+    """A full forward over prompt + generated tokens: the share of
+    positions where the generated token is the forward's argmax, and the
+    worst gap between the forward's max logit and the generated token's."""
+    s = prompt.shape[1]
+    with torch.inference_mode():
+        seq = torch.cat([prompt, out[:, :-1]], dim=1)
+        logits = model(seq)[:, s - 1:].float()
+        agree = (logits.argmax(-1) == out).float().mean().item()
+        gap = (logits.max(-1).values
+               - logits.gather(-1, out[..., None])[..., 0]).max().item()
+    return agree, gap
+
+
+# Teacher forcing: a full forward over prompt + generated tokens must rank
+# each generated token at (or, at a bf16 near-tie, next to) the top.  With
+# ~128k logits of scale ~1, the top two sit within one bf16 ulp (2^-5 at
+# |x| in [4, 8)) at a few percent of positions, and the two paths' logits
+# differ by up to ~0.1 (the prefill check of phase 6), so the generated
+# token's logit must be within 0.3 of the forward's max everywhere, and be
+# its argmax at >= 90% of positions.
+TF_AGREE, TF_GAP = 0.9, 0.3
+# The int8 cache (phase 6b) moves each cached K/V element by up to half a
+# quantization step, amax/254 of its (position, head) row: RMS ~0.7% of
+# the row's RMS (amax ~3 RMS over 128 dims; step/sqrt(12)), ~6x the bf16
+# cache's own rounding (2^-9/sqrt(3) ~ 0.11%).  Averaged over the keys an
+# attention output reads, it moves each layer's output about as much as
+# the two bf16 ulps that already separate the paths, so the decode
+# logits move by up to ~2x phase 6's 0.1: the gap allowance grows by
+# 0.2 to 0.5, and the share of positions within that margin of a tie
+# doubles, so the argmax agreement floor falls from 0.9 to 0.85.
+TF_AGREE_INT8, TF_GAP_INT8 = 0.85, 0.5
+
+
+def llama_cfg(tt, torch, preset):
+    return tt.TransformerConfig(**preset, dtype=torch.bfloat16)
+
+
 def phase_slice(torch, tfa, tt, tg, card, seed: int, new_tokens: int = 128,
                 reps: int = 3):
-    cfg = tt.TransformerConfig(
-        vocab=128256, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
-        mlp_ratio=5.25, dtype=torch.bfloat16,
-    )
+    cfg = llama_cfg(tt, torch, LLAMA3_8B)
     b, s = 4, 1024
     gen = torch.Generator(device="cuda").manual_seed(seed)
     t0 = time.perf_counter()
@@ -351,50 +587,10 @@ def phase_slice(torch, tfa, tt, tg, card, seed: int, new_tokens: int = 128,
     print(f"slice: Llama-3-8B width, {n_params / 1e9:.3f}B params random from "
           f"seed {seed}, built in {time.perf_counter() - t0:.1f}s [{card}]", flush=True)
 
-    tg.generate(cfg, model, prompt[:, :128], 2)          # warm-up: cuBLAS, allocator
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    # Each generate call is split on the device clock by an event that its
-    # own prefill records on return (no sync is added): prefill = start ->
-    # mark, decode = mark -> end.  The first call is the counted main-path
-    # run; the times are the median of `reps` calls.
-    real_prefill, marks = tg.prefill, []
-
-    def marked_prefill(*a, **kw):
-        res = real_prefill(*a, **kw)
-        marks.append(torch.cuda.Event(enable_timing=True))
-        marks[-1].record()
-        return res
-
-    tg.prefill = marked_prefill
-    prefill_ms, decode_ms, total_ms = [], [], []
-    try:
-        for rep in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            if rep == 0:
-                tfa.flash_attention.launches = 0
-                tfa.flash_decode_attention.launches = 0
-            start.record()
-            out = tg.generate(cfg, model, prompt, new_tokens)
-            end.record()
-            end.synchronize()
-            if rep == 0:
-                launches = {"flash_fwd": tfa.flash_attention.launches,
-                            "flash_decode": tfa.flash_decode_attention.launches}
-                first_out = out
-            elif not torch.equal(out, first_out):
-                fail("two greedy generate calls on one input disagree")
-            prefill_ms.append(start.elapsed_time(marks[-1]))
-            decode_ms.append(marks[-1].elapsed_time(end))
-            total_ms.append(start.elapsed_time(end))
-    finally:
-        tg.prefill = real_prefill
-    peak = torch.cuda.max_memory_allocated()
-    want = {"flash_fwd": cfg.n_layers, "flash_decode": cfg.n_layers * new_tokens}
-    if launches != want:
-        fail(f"kernel launches on the main path {launches}, expected {want}")
+    out, _, launches, times = timed_generate(torch, tfa, tg, cfg, model, prompt,
+                                             new_tokens, reps)
+    expect_launches(launches, {"flash_fwd": cfg.n_layers,
+                               "flash_decode": cfg.n_layers * new_tokens}, "generate")
     if out.shape != (b, new_tokens) or int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
         fail(f"generate returned {tuple(out.shape)} / ids out of range")
 
@@ -414,37 +610,190 @@ def phase_slice(torch, tfa, tt, tg, card, seed: int, new_tokens: int = 128,
     if rel > 5e-2:
         fail(f"prefill logits kernel vs plain: max diff {diff.max().item()} "
              f"= {rel:.3e} of max |logit| {scale} (tol 5e-2)")
-
-    # Teacher forcing: a full forward over prompt + generated tokens must
-    # rank each generated token at (or, at a bf16 near-tie, next to) the
-    # top.  With ~128k logits of scale ~1, the top two sit within one
-    # bf16 ulp (2^-5 at |x| in [4, 8)) at a few percent of positions, and
-    # the two paths' logits differ by up to ~0.1 (the prefill check
-    # above), so the generated token's logit must be within 0.3 of the
-    # forward's max everywhere, and be its argmax at >= 90% of positions.
-    with torch.inference_mode():
-        seq = torch.cat([prompt, out[:, :-1]], dim=1)
-        logits = model(seq)[:, s - 1:].float()
-        agree = (logits.argmax(-1) == out).float().mean().item()
-        gap = (logits.max(-1).values
-               - logits.gather(-1, out[..., None])[..., 0]).max().item()
-    if agree < 0.9 or gap > 0.3:
+    agree, gap = teacher_forced(torch, model, prompt, out)
+    if agree < TF_AGREE or gap > TF_GAP:
         fail(f"greedy tokens vs the teacher-forced forward: argmax agreement "
-             f"{agree:.3f} (>= 0.9 needed), worst logit gap {gap:.3f} (<= 0.3)")
-    med = statistics.median
-    per_tok = [d / new_tokens for d in decode_ms]
-    print(f"slice: generate b={b} prompt={s} new={new_tokens}, median of {reps} calls "
-          f"(each call: {[round(t, 3) for t in total_ms]} ms total, "
-          f"{[round(t, 4) for t in per_tok]} decode ms/token): "
-          f"total_ms={med(total_ms):.3f} prefill_ms={med(prefill_ms):.3f} "
-          f"decode_ms_per_token={med(per_tok):.4f} "
-          f"tokens_per_s={b * new_tokens * 1e3 / med(total_ms):.2f} "
-          f"decode_tokens_per_s={b * 1e3 / med(per_tok):.2f} "
-          f"max_memory_allocated={peak / 2**30:.2f}GiB launches={launches} "
-          f"prefill_logit_max_diff={diff.max().item():.4f} rel={rel:.3e} "
-          f"top1_agree={top_agree:.2f} teacher_forced_agree={agree:.4f} "
+             f"{agree:.3f} (>= {TF_AGREE} needed), worst logit gap {gap:.3f} "
+             f"(<= {TF_GAP})")
+    print(f"slice: generate b={b} prompt={s} new={new_tokens}, "
+          + generate_summary(times, b, new_tokens, reps)
+          + f" launches={launches} prefill_logit_max_diff={diff.max().item():.4f} "
+          f"rel={rel:.3e} top1_agree={top_agree:.2f} teacher_forced_agree={agree:.4f} "
           f"teacher_forced_max_gap={gap:.4f} [{card}]", flush=True)
-    return launches, (cfg, model, prompt)
+    return launches, (cfg, model, prompt, out)
+
+
+def generate_summary(times, b, new_tokens, reps):
+    med = statistics.median
+    per_tok = [d / new_tokens for d in times["decode_ms"]]
+    return (f"median of {reps} calls (each call: "
+            f"{[round(t, 3) for t in times['total_ms']]} ms total, "
+            f"{[round(t, 4) for t in per_tok]} decode ms/token): "
+            f"total_ms={med(times['total_ms']):.3f} "
+            f"prefill_ms={med(times['prefill_ms']):.3f} "
+            f"decode_ms_per_token={med(per_tok):.4f} "
+            f"tokens_per_s={b * new_tokens * 1e3 / med(times['total_ms']):.2f} "
+            f"decode_tokens_per_s={b * 1e3 / med(per_tok):.2f} "
+            f"max_memory_allocated={times['peak'] / 2**30:.2f}GiB")
+
+
+def cache_bytes(cache):
+    bufs = [t for name in ("k", "v", "k_scale", "v_scale")
+            for t in getattr(cache, name, [])]
+    return sum(t.numel() * t.element_size() for t in bufs)
+
+
+def phase_slice_int8(torch, tfa, tg, card, cfg, model, prompt, bf16_out,
+                     new_tokens: int = 128, reps: int = 2):
+    """``generate(kv_quant=True)`` on phase 6's model and prompt: launch
+    counts, times, cache bytes, the teacher-forced check, token agreement
+    with the bf16-cache run, and the decode logits of the two caches
+    teacher-forced on the bf16 run's tokens."""
+    b, s = prompt.shape
+    out, cache, launches, times = timed_generate(
+        torch, tfa, tg, cfg, model, prompt, new_tokens, reps, kv_quant=True)
+    expect_launches(launches, {"flash_fwd": cfg.n_layers,
+                               "flash_decode_int8": cfg.n_layers * new_tokens},
+                    "generate(kv_quant=True)")
+    if not isinstance(cache, tg.QuantKVCache) or cache.k[0].dtype != torch.int8:
+        fail("generate(kv_quant=True) did not keep an int8 cache")
+    q_bytes = cache_bytes(cache)
+    s_bytes = sum(t.numel() * 4 for t in cache.k_scale + cache.v_scale)
+    bf16_bytes = 2 * cfg.n_layers * b * (s + new_tokens) * cfg.kv_heads * cfg.head_dim * 2
+    agree, gap = teacher_forced(torch, model, prompt, out)
+    same = (out == bf16_out).float().mean().item()
+    first_diff = (out != bf16_out).int().argmax(-1).tolist()
+
+    # The int8 cache's effect on the decode logits: the bf16 run's first
+    # 16 tokens teacher-forced through a bf16 and an int8 cache.
+    embed_p, block_p, head_p = tg._split_params(cfg, model)
+    dev_max = 0.0
+    with torch.inference_mode():
+        caches = [tg.prefill(cfg, model, prompt, s + 16)[1],
+                  tg.prefill(cfg, model, prompt, s + 16, kv_quant=True)[1]]
+        for t in range(16):
+            logits = []
+            for c in caches:
+                x = tg._embed(cfg, embed_p, bf16_out[:, t:t + 1])
+                x, _ = tg._decode_step(cfg, block_p, x, c)
+                logits.append(tg._logits(cfg, head_p, x)[:, 0])
+            dev_max = max(dev_max, (logits[0] - logits[1]).abs().max().item())
+    if agree < TF_AGREE_INT8 or gap > TF_GAP_INT8:
+        fail(f"int8-cache tokens vs the teacher-forced forward: argmax agreement "
+             f"{agree:.3f} (>= {TF_AGREE_INT8} needed), worst logit gap {gap:.3f} "
+             f"(<= {TF_GAP_INT8})")
+    print(f"slice_int8: generate(kv_quant=True) b={b} prompt={s} new={new_tokens}, "
+          + generate_summary(times, b, new_tokens, reps)
+          + f" launches={launches} cache_bytes={q_bytes} (int8 K/V "
+          f"{(q_bytes - s_bytes) / 1e9:.4f} GB + scales {s_bytes / 1e6:.2f} MB; a bf16 "
+          f"cache: {bf16_bytes / 1e9:.4f} GB) teacher_forced_agree={agree:.4f} "
+          f"teacher_forced_max_gap={gap:.4f} token_agreement_with_bf16_cache={same:.4f} "
+          f"first_divergence_per_row={first_diff} decode_logit_max_diff_int8_vs_bf16"
+          f"(16 steps)={dev_max:.4f} [{card}]", flush=True)
+    return launches, times
+
+
+def phase_speculative(torch, tfa, tt, tg, card, seed, cfg, model, prompt,
+                      new_tokens: int = 64, gamma: int = 4):
+    """``speculative_generate`` with phase 6's model as the target and a
+    random ``1b`` draft (b=2, prompt 512, gamma 4, greedy): launch counts
+    against ``SpecStats``, the teacher-forced check, agreement with greedy
+    ``generate``; then the target as its own draft, whose acceptance must
+    be >= 0.8."""
+    prompt = prompt[:2, :512].contiguous()
+    b, s = prompt.shape
+    dcfg = llama_cfg(tt, torch, LLAMA_1B)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    draft = tt.llama(dcfg, device="cuda", generator=gen)
+    tg.speculative_generate(cfg, model, dcfg, draft, prompt[:, :64], 6, gamma=gamma)
+    torch.cuda.synchronize()
+    tfa.reset_launches()
+    t0 = time.perf_counter()
+    out, stats = tg.speculative_generate(cfg, model, dcfg, draft, prompt, new_tokens,
+                                         gamma=gamma, return_stats=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_launches(tfa)
+    rounds = int(stats.rounds.sum())
+    # Per round and row: gamma + 1 draft decode steps through the draft's
+    # blocks (hd 64, r rows) and one verify chunk through the target's
+    # blocks (hd 128, (gamma + 1) * r = 20 rows).
+    want = {"flash_fwd": cfg.n_layers + dcfg.n_layers,
+            "flash_decode": rounds * ((gamma + 1) * dcfg.n_layers + cfg.n_layers)}
+    expect_launches(launches, want, "speculative_generate")
+    if (stats.drafted != gamma * stats.rounds).any() or \
+            int((stats.rounds + stats.accepted).min()) < new_tokens - 1:
+        fail(f"SpecStats inconsistent: {stats}")
+    agree, gap = teacher_forced(torch, model, prompt, out)
+    if agree < TF_AGREE or gap > TF_GAP:
+        fail(f"speculative tokens vs the teacher-forced forward: argmax agreement "
+             f"{agree:.3f} (>= {TF_AGREE} needed), worst logit gap {gap:.3f} "
+             f"(<= {TF_GAP})")
+    greedy = tg.generate(cfg, model, prompt, new_tokens)
+    same = (out == greedy).float().mean().item()
+    acc_rate = int(stats.accepted.sum()) / int(stats.drafted.sum())
+    print(f"speculative: target Llama-3-8B width, draft 1b ({dcfg.dim} dim, "
+          f"{dcfg.n_layers} layers, hd {dcfg.head_dim}, random from seed {seed + 2}), "
+          f"b={b} prompt={s} new={new_tokens} gamma={gamma}: wall_s={wall:.3f} "
+          f"tokens_per_s={b * new_tokens / wall:.2f} rounds={stats.rounds.tolist()} "
+          f"accepted={stats.accepted.tolist()} acceptance={acc_rate:.4f} "
+          f"launches={launches} (expected {want}) teacher_forced_agree={agree:.4f} "
+          f"teacher_forced_max_gap={gap:.4f} token_agreement_with_generate={same:.4f} "
+          f"[{card}]", flush=True)
+
+    # Self-draft: every proposal is the target's own greedy token, so a
+    # rejection happens only where the 20-row verify read and the one-row
+    # decode read resolve a near-tie differently.  Phase 6 measured the
+    # decode path against the full forward at 0.963 argmax agreement: ~4%
+    # of positions are near-ties that two summation orders split.  With
+    # that rejection rate per proposal, a round of 4 accepts ~3.8 (0.94 of
+    # drafted); 0.8 leaves room for 4x as many near-tie flips.
+    t0 = time.perf_counter()
+    sout, sstats = tg.speculative_generate(cfg, model, cfg, model, prompt, new_tokens,
+                                           gamma=gamma, return_stats=True)
+    torch.cuda.synchronize()
+    swall = time.perf_counter() - t0
+    self_rate = int(sstats.accepted.sum()) / int(sstats.drafted.sum())
+    self_same = (sout == greedy).float().mean().item()
+    if self_rate < 0.8:
+        fail(f"self-draft acceptance {self_rate:.3f} < 0.8 ({sstats})")
+    print(f"speculative self-draft: wall_s={swall:.3f} "
+          f"tokens_per_s={b * new_tokens / swall:.2f} rounds={sstats.rounds.tolist()} "
+          f"accepted={sstats.accepted.tolist()} acceptance={self_rate:.4f} (>= 0.8) "
+          f"token_agreement_with_generate={self_same:.4f} [{card}]", flush=True)
+    del draft
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_beam(torch, tfa, tg, card, cfg, model, prompt, new_tokens: int = 32,
+               beams: int = 4):
+    """``beam_search`` of one prompt with 4 beams (launch counts, finite
+    score), and ``num_beams=1`` against greedy ``generate``: equal, since
+    no kernel on the path uses atomics."""
+    prompt = prompt[:1].contiguous()
+    tfa.reset_launches()
+    t0 = time.perf_counter()
+    out, lp = tg.beam_search(cfg, model, prompt, new_tokens, num_beams=beams)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_launches(tfa)
+    # The seed decode and one per step but the last: new_tokens - 1.
+    expect_launches(launches, {"flash_fwd": cfg.n_layers,
+                               "flash_decode": cfg.n_layers * (new_tokens - 1)},
+                    "beam_search")
+    if out.shape != (1, new_tokens) or not torch.isfinite(lp).all():
+        fail(f"beam_search returned {tuple(out.shape)}, log-prob {lp}")
+    one, _ = tg.beam_search(cfg, model, prompt, new_tokens, num_beams=1)
+    greedy = tg.generate(cfg, model, prompt, new_tokens)
+    if not torch.equal(one, greedy):
+        fail(f"beam_search(num_beams=1) != greedy generate: {one} vs {greedy}")
+    print(f"beam: b=1 prompt={prompt.shape[1]} beams={beams} new={new_tokens}: "
+          f"wall_s={wall:.3f} log_prob={lp.item():.4f} launches={launches}; "
+          f"num_beams=1 equals greedy generate on all {new_tokens} tokens; "
+          f"best beam shares {(out == greedy).float().mean().item():.3f} of its "
+          f"tokens with greedy [{card}]", flush=True)
+    return launches
 
 
 def profile(torch, card, label, fn, top: int = 12):
@@ -480,16 +829,20 @@ def profile(torch, card, label, fn, top: int = 12):
 
 
 def phase_profile(torch, tg, card, cfg, model, prompt, steps: int = 16) -> None:
-    """Profiles of one prefill and of a ``steps``-token generate; decode
-    per step is their difference over ``steps``."""
+    """Profiles of one prefill and of a ``steps``-token generate, with a
+    bf16 and with an int8 cache; decode per step is their difference over
+    ``steps``."""
     s = prompt.shape[1]
-    pw, pb = profile(torch, card, "prefill",
-                     lambda: tg.prefill(cfg, model, prompt, s + steps))
-    gw, gb = profile(torch, card, f"generate x{steps}",
-                     lambda: tg.generate(cfg, model, prompt, steps))
-    print(f"profile decode (generate - prefill) per step: wall={(gw - pw) * 1e3 / steps:.2f}ms "
-          f"device_busy={(gb - pb) * 1e3 / steps:.2f}ms "
-          f"idle_share={1 - (gb - pb) / (gw - pw):.3f} [{card}]", flush=True)
+    for kv_quant in (False, True):
+        tag = " kv_quant" if kv_quant else ""
+        pw, pb = profile(torch, card, f"prefill{tag}", lambda: tg.prefill(
+            cfg, model, prompt, s + steps, kv_quant=kv_quant))
+        gw, gb = profile(torch, card, f"generate{tag} x{steps}", lambda: tg.generate(
+            cfg, model, prompt, steps, kv_quant=kv_quant))
+        print(f"profile decode{tag} (generate - prefill) per step: "
+              f"wall={(gw - pw) * 1e3 / steps:.2f}ms "
+              f"device_busy={(gb - pb) * 1e3 / steps:.2f}ms "
+              f"idle_share={1 - (gb - pb) / (gw - pw):.3f} [{card}]", flush=True)
 
 
 def causal_lm_loss(tt):
@@ -517,10 +870,7 @@ def phase_train(torch, tfa, tt, card, seed: int, steps: int = 3):
 
     from torchgpipe_tpu_torch import GPipe
 
-    cfg = tt.TransformerConfig(
-        vocab=128256, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
-        mlp_ratio=5.25, dtype=torch.bfloat16,
-    )
+    cfg = llama_cfg(tt, torch, LLAMA3_8B)
     b, s, chunks = 8, 1024, 4
     gen = torch.Generator(device="cuda").manual_seed(seed)
     llama = tt.llama(cfg, device="cuda", generator=gen)
@@ -555,19 +905,15 @@ def phase_train(torch, tfa, tt, card, seed: int, steps: int = 3):
     head_before = head_w.detach().clone()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for f in (tfa.flash_attention, tfa.flash_bwd_dq, tfa.flash_bwd_dkv):
-        f.launches = 0
+    tfa.reset_launches()
     grad_stats = {}
     losses = [step(grad_stats)]
     torch.cuda.synchronize()
-    launches = {"flash_fwd": tfa.flash_attention.launches,
-                "flash_bwd_dq": tfa.flash_bwd_dq.launches,
-                "flash_bwd_dkv": tfa.flash_bwd_dkv.launches}
+    launches = kernel_launches(tfa)
     n_blocks = cfg.n_layers
-    want = {"flash_fwd": n_blocks * (chunks + chunks - 1),
-            "flash_bwd_dq": n_blocks * chunks, "flash_bwd_dkv": n_blocks * chunks}
-    if launches != want:
-        fail(f"kernel launches in one training step {launches}, expected {want}")
+    expect_launches(launches, {"flash_fwd": n_blocks * (chunks + chunks - 1),
+                               "flash_bwd_dq": n_blocks * chunks,
+                               "flash_bwd_dkv": n_blocks * chunks}, "one training step")
     moved = (head_w != head_before).float().mean().item()
     del head_before
 
@@ -626,10 +972,7 @@ def phase_stages(torch, tt, card, seed: int):
 
     from torchgpipe_tpu_torch import GPipe
 
-    cfg = tt.TransformerConfig(
-        vocab=128256, dim=4096, n_layers=4, n_heads=32, n_kv_heads=8,
-        mlp_ratio=5.25, dtype=torch.bfloat16,
-    )
+    cfg = llama_cfg(tt, torch, dict(LLAMA3_8B, n_layers=4))
     gen = torch.Generator(device="cuda").manual_seed(seed + 1)
     layers = list(tt.llama(cfg, device="cuda", generator=gen))
     tokens = torch.from_numpy(
@@ -686,24 +1029,39 @@ def main() -> None:
     secs = _build.build_all()
     print(f"build: {sorted(_build.sources())} in {time.perf_counter() - t0:.1f}s "
           f"(per source {({k: round(v, 1) for k, v in secs.items()})})", flush=True)
-    spills = [
-        line.strip()
-        for name in _build.sources()
-        for line in open(_build.log_path(name))
-        if "spill" in line and not line.strip().startswith("0 bytes stack")
-    ]
-    print(f"build: ptxas reports {len(spills)} kernel(s) with a stack frame or spills"
-          + "".join(f"\n  {line}" for line in spills), flush=True)
+    # ptxas: "N bytes stack frame, S bytes spill stores, L bytes spill
+    # loads" under each kernel's "Function properties for <name>".
+    spills, frames, fn, reports = [], [], "", 0
+    for name in _build.sources():
+        for line in open(_build.log_path(name)):
+            if "Function properties for" in line:
+                fn = line.split("Function properties for", 1)[1].strip()
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            reports += bool(m)
+            if m and any(int(x) for x in m.groups()):
+                (spills if int(m[2]) or int(m[3]) else frames).append(
+                    f"{fn}: {line.strip()}")
+    print(f"build: ptxas reports {len(spills)} of {reports} kernel(s) with spills "
+          f"and {len(frames)} more with a stack frame"
+          + "".join(f"\n  {line}" for line in spills + frames), flush=True)
+    if spills or not reports:
+        fail(f"ptxas spills registers in {len(spills)} kernel(s) "
+             f"({reports} reports read)")
 
     def gqa_sdpa(q, k, v, causal):
         return F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
 
     fwd = phase_fwd(torch, tfa, card, gqa_sdpa)
-    dec = phase_decode(torch, tfa, card, gqa_sdpa)
+    dec_err, dec = phase_decode(torch, tfa, tg, card, gqa_sdpa)
     bwd_err, bwd = phase_bwd(torch, tfa, card, gqa_sdpa)
-    launches, (cfg, model, prompt) = phase_slice(torch, tfa, tt, tg, card, args.seed)
+    launches, (cfg, model, prompt, out) = phase_slice(torch, tfa, tt, tg, card, args.seed)
+    int8_launches, _ = phase_slice_int8(torch, tfa, tg, card, cfg, model, prompt, out)
+    spec_launches = phase_speculative(torch, tfa, tt, tg, card, args.seed, cfg, model,
+                                      prompt)
+    beam_launches = phase_beam(torch, tfa, tg, card, cfg, model, prompt)
     phase_profile(torch, tg, card, cfg, model, prompt)
-    del cfg, model, prompt   # the generation model's 16 GB before training
+    del cfg, model, prompt, out   # the generation model's 16 GB before training
     torch.cuda.empty_cache()
     train_launches, _ = phase_train(torch, tfa, tt, card, args.seed)
     phase_stages(torch, tt, card, args.seed)
@@ -711,6 +1069,21 @@ def main() -> None:
     src = "torchgpipe_tpu_torch/csrc/"
     ref = "torchgpipe_tpu/ops/flash_attention.py"
     main_fwd = fwd["main"]
+
+    paths = {"generate": launches, "generate_int8": int8_launches,
+             "speculative": spec_launches, "beam_search": beam_launches}
+
+    def decode_entry(name, kind, main_path):
+        t, long = dec["main"][kind], dec["long"][kind]
+        return {"name": name, "route": "cuda", "source": src + "flash_decode.cu",
+                "replaces": f"{ref}:1024", "launches": paths[main_path][name],
+                "launches_by_path": {p: n[name] for p, n in paths.items()},
+                "max_abs_err": dec_err[kind], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["lib_ms"], "call_ms": t["call_ms"],
+                "long_cache": {"ms": long["ms"], "plain_ms": long["plain_ms"],
+                               "bound_ms": long["bound_ms"],
+                               "library_ms": long["lib_ms"]}}
 
     def bwd_entry(name, key, line, also):
         main_bwd = bwd["main"]
@@ -725,17 +1098,14 @@ def main() -> None:
         {"name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
          "replaces": f"{ref}:69", "also_replaces": f"{ref}:301",
          "launches": launches["flash_fwd"],
-         "launches_by_path": {"generate": launches["flash_fwd"],
-                              "train_step": train_launches["flash_fwd"]},
+         "launches_by_path": dict({p: n["flash_fwd"] for p, n in paths.items()},
+                                  train_step=train_launches["flash_fwd"]),
          "max_abs_err": max(r["err"] for r in fwd.values()),
          "ms": main_fwd["ms"], "plain_ms": main_fwd["plain_ms"],
          "bound_ms": main_fwd["bound_ms"], "bound_by": main_fwd["bound_by"],
          "library_ms": main_fwd["lib_ms"]},
-        {"name": "flash_decode", "route": "cuda", "source": src + "flash_decode.cu",
-         "replaces": f"{ref}:1024", "launches": launches["flash_decode"],
-         "max_abs_err": dec["err"], "ms": dec["ms"], "plain_ms": dec["plain_ms"],
-         "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-         "library_ms": dec["lib_ms"]},
+        decode_entry("flash_decode", "bf16", "generate"),
+        decode_entry("flash_decode_int8", "int8", "generate_int8"),
         bwd_entry("flash_bwd_dq", "dq", 538, 411),
         bwd_entry("flash_bwd_dkv", "dkv", 592, 468),
     ]

@@ -9,7 +9,9 @@ without them (``tests/conftest.py`` imports JAX, hence ``--noconftest``):
 
 Tolerances are chip_smoke.py's, derived there: bf16 forward output 3.2e-2
 (two bf16 ulps of |o| < 5), float32 decode output 2e-4 (summation order
-over <= 1152 terms), bf16 gradients row by row: for each (batch,
+over <= 1152 terms; for an int8 cache the plain version dequantizes each
+element where the kernel scales each score and weight, one rounding per
+key apart), bf16 gradients row by row: for each (batch,
 position, head) row, 2^-6 of the row's largest magnitude (one bf16 ulp
 between the two output roundings plus the bf16 rounding of P and dS inside
 the products, ~3 x 2^-8 of it) plus a floor of 2^-9 of the median row's
@@ -137,18 +139,85 @@ def test_backward_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
 @pytest.mark.parametrize(
     "g,pos0,window,hd,dtype",
     [(1, 0, None, 128, torch.bfloat16), (1, 1151, None, 128, torch.bfloat16),
-     (4, 600, 256, 128, torch.bfloat16), (2, 77, 9, 64, torch.float32)],
+     (4, 600, 256, 128, torch.bfloat16), (2, 77, 9, 64, torch.float32),
+     (5, 1000, None, 128, torch.bfloat16), (8, 500, 100, 64, torch.float32),
+     (1, 500, None, 64, torch.bfloat16),
+     # Long caches: chunks grow past 64 keys (DECODE_BLOCKS).
+     (1, 19999, None, 128, torch.bfloat16), (5, 15000, 9000, 64, torch.float32)],
 )
 def test_flash_decode_kernel_matches_plain(cuda_device, g, pos0, window, hd, dtype):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
+    L = 20000 if pos0 > 1152 else 1152
     q = torch.randn(2, g, 8, hd, generator=gen, device=cuda_device).to(dtype)
-    ck = torch.randn(2, 1152, 2, hd, generator=gen, device=cuda_device).to(dtype)
-    cv = torch.randn(2, 1152, 2, hd, generator=gen, device=cuda_device).to(dtype)
-    pos0 = min(pos0, 1152 - g)
+    ck = torch.randn(2, L, 2, hd, generator=gen, device=cuda_device).to(dtype)
+    cv = torch.randn(2, L, 2, hd, generator=gen, device=cuda_device).to(dtype)
+    pos0 = min(pos0, L - g)
     out = tfa.flash_decode_attention(q, ck, cv, pos0, window=window)
     ref = tfa.flash_decode_reference(q, ck, cv, pos0, window=window)
     torch.cuda.synchronize()
     assert (out - ref).abs().max().item() <= DECODE_TOL
+
+
+def _int8_cache(gen, b, L, nkv, hd, device):
+    """An int8 cache and its float32 [b, nkv, L] scales, from random rows
+    quantized as the generation path quantizes them."""
+    from torchgpipe_tpu_torch.models.generation import _quant_rows
+
+    rows = torch.randn(b, L, nkv, hd, generator=gen, device=device) * 2
+    q, s = _quant_rows(rows)
+    return q, s.transpose(1, 2).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "g,pos0,window,hd,L,qdtype",
+    [(1, 0, None, 128, 1152, torch.bfloat16),
+     (1, 1087, None, 128, 1152, torch.bfloat16),
+     (4, 600, 256, 128, 1152, torch.bfloat16),
+     (5, 999, None, 128, 1000, torch.bfloat16),   # 20 rows: two row groups
+     (5, 300, 64, 64, 517, torch.float32),
+     (2, 77, 9, 64, 1152, torch.bfloat16),
+     (8, 40, None, 64, 100, torch.float32),       # 32 rows
+     (1, 20000, None, 128, 20480, torch.bfloat16),  # chunks past 64 keys
+     (5, 20000, 3000, 64, 20480, torch.float32)],
+)
+def test_flash_decode_int8_kernel_matches_plain(cuda_device, g, pos0, window, hd,
+                                                L, qdtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q = torch.randn(2, g, 16, hd, generator=gen, device=cuda_device).to(qdtype)
+    ck, ks = _int8_cache(gen, 2, L, 4, hd, cuda_device)
+    cv, vs = _int8_cache(gen, 2, L, 4, hd, cuda_device)
+    pos0 = min(pos0, L - g)
+    before = (tfa.flash_decode_attention.launches,
+              tfa.flash_decode_attention.launches_int8)
+    out = tfa.flash_decode_attention(q, ck, cv, pos0, window=window,
+                                     k_scale=ks, v_scale=vs)
+    ref = tfa.flash_decode_reference(q, ck, cv, pos0, window=window,
+                                     k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert (tfa.flash_decode_attention.launches,
+            tfa.flash_decode_attention.launches_int8) == (before[0], before[1] + 1)
+    assert (out - ref).abs().max().item() <= DECODE_TOL
+
+
+@pytest.mark.cuda
+def test_flash_decode_int8_refusals(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q = torch.randn(1, 1, 8, 128, generator=gen, device=cuda_device).bfloat16()
+    ck, ks = _int8_cache(gen, 1, 64, 2, 128, cuda_device)
+    n = (tfa.flash_decode_attention.launches, tfa.flash_decode_attention.launches_int8)
+    with pytest.raises(ValueError, match="both k_scale and v_scale"):
+        tfa.flash_decode_attention(q, ck, ck, 3, k_scale=ks)
+    with pytest.raises(ValueError, match="k_scale must be float32"):
+        tfa.flash_decode_attention(q, ck, ck, 3, k_scale=ks.transpose(1, 2),
+                                   v_scale=ks)
+    with pytest.raises(TypeError, match="bfloat16 or float32 q"):
+        tfa.flash_decode_attention(q.half(), ck, ck, 3, k_scale=ks, v_scale=ks)
+    with pytest.raises(TypeError, match="int8 cache"):
+        tfa.flash_decode_attention(q, ck.bfloat16(), ck.bfloat16(), 3,
+                                   k_scale=ks, v_scale=ks)
+    assert (tfa.flash_decode_attention.launches,
+            tfa.flash_decode_attention.launches_int8) == n
 
 
 @pytest.mark.cuda

@@ -253,12 +253,17 @@ def test_gates_and_refusals():
     assert not tfa.supports((1, 128, 6, 128), (1, 128, 4, 128))
     assert tfa.supports_decode((4, 1, 32, 128), (4, 1152, 8, 128), None)
     assert tfa.supports_decode((4, 4, 32, 128), (4, 1000, 8, 128), 256)
-    assert not tfa.supports_decode((4, 8, 32, 128), (4, 1152, 8, 128), None)
+    # Any number of query rows (speculative verification: 8 x 4 = 32).
+    assert tfa.supports_decode((4, 8, 32, 128), (4, 1152, 8, 128), None)
+    assert tfa.supports_decode((4, 1, 32, 128), (4, 1152, 8, 128), None, torch.int8)
+    assert not tfa.supports_decode((4, 1, 32, 128), (4, 1152, 8, 128), None,
+                                   torch.float16)
     assert not tfa.supports_decode((4, 1, 32, 128), (4, 1152, 8, 128), 0)
     t = torch.zeros(1, 1, 2, 128)
     c = torch.zeros(1, 8, 2, 128)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfa.flash_decode_attention(t, c, c, 0, k_scale=c, v_scale=c)
+    s = torch.zeros(1, 2, 8)
+    with pytest.raises(TypeError, match="int8 cache"):
+        tfa.flash_decode_attention(t, c, c, 0, k_scale=s, v_scale=s)
     with pytest.raises(ValueError, match="window"):
         tfa.flash_attention(t, c, c, causal=False, window=4)
     with pytest.raises(TypeError, match="host int"):

@@ -13,15 +13,20 @@ axis) because of VMEM size; on Hopper one tile loop serves every length.
   and :func:`flash_bwd_dkv` (replaces ``_dkv_kernel`` and
   ``_dkv_stream_kernel``), both in ``csrc/flash_bwd.cu``.
 * :func:`flash_decode_attention` launches ``csrc/flash_decode.cu``, which
-  replaces ``_decode_kernel``.
+  replaces ``_decode_kernel``: a bf16 or float32 cache, or an int8 cache
+  with float32 per-(position, kv head) scales (the ``quant=True``
+  variant), dequantized in registers.
 
 Each wrapper launches its kernel for CUDA tensors and raises for what the
 kernel does not take (device, dtype, contiguity, head dim).  It runs the
 plain PyTorch version beside it (:func:`flash_attention_reference`,
 :func:`_reference_bwd`, :func:`flash_decode_reference`) only when its
 inputs lie on the CPU.  Each keeps a plain-integer count of kernel
-launches in its ``launches`` attribute; the plain version never touches
-it.
+launches in its ``launches`` attribute; the decode wrapper keeps one
+count per variant, ``launches`` for a bf16/float32 cache and
+``launches_int8`` for an int8 cache, and adds one to exactly one of them
+a launch.  The plain versions never touch them.  :func:`reset_launches`
+sets every count to 0.
 """
 
 from __future__ import annotations
@@ -36,8 +41,10 @@ from torchgpipe_tpu_torch.ops import _build
 _NEG = -1e30
 FWD_HEAD_DIMS = (64, 128)
 DECODE_HEAD_DIMS = (64, 128)
-DECODE_MAX_ROWS = 16  # g * (nh // nkv) query rows per (batch, kv head)
-DECODE_CHUNK = 64     # live keys per decode block (split-key grid)
+DECODE_CHUNK = 64     # live keys per decode block (split-key grid) ...
+DECODE_BLOCKS = 1024  # ... grown in steps of 64 keys past this many blocks
+# Element-type codes of csrc/flash_decode.cu.
+_DECODE_TYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 
 # C signatures (csrc/*.cu): pointers and the stream as c_void_p.
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -49,9 +56,9 @@ _BWD_DQ_ARGS = [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
 # q, k, v, dout, lse, delta, dk, dv, b, s, sk, h, g, d, scale, causal,
 # window, stream
 _BWD_DKV_ARGS = [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
-# q, ck, cv, out, scratch, pos0, b, g, nh, nkv, hd, max_len, window,
-# chunk, nsplit, is_f32, stream
-_DECODE_ARGS = [_P] * 5 + [_I] * 11 + [_P]
+# q, ck, cv, k_scale, v_scale, out, scratch, pos0, b, g, nh, nkv, hd,
+# max_len, window, chunk, nsplit, q_type, kv_type, stream
+_DECODE_ARGS = [_P] * 7 + [_I] * 12 + [_P]
 
 
 def _validate_window(causal: bool, window: Optional[int]) -> None:
@@ -61,14 +68,6 @@ def _validate_window(causal: bool, window: Optional[int]) -> None:
         raise ValueError("window (sliding-window attention) requires causal=True")
     if window < 1:
         raise ValueError("window must be >= 1")
-
-
-def _not_ported_quant() -> NotImplementedError:
-    return NotImplementedError(
-        "the int8 KV cache (k_scale/v_scale) variant of the decode kernel "
-        "is not ported to torchgpipe_tpu_torch yet (ROADMAP.md, queue A "
-        "item 3)"
-    )
 
 
 # --------------------------------------------------------------------- #
@@ -167,15 +166,28 @@ def _reference_bwd(
     )
 
 
+def dequant_rows(rows: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int8 cache rows ``[b, L, nkv, hd]`` times their float32 scales
+    ``[b, nkv, L]`` (positions last, the cache's layout), in float32: the
+    reference's ``_dequant_rows``."""
+    return rows.float() * scale.transpose(1, 2)[..., None]
+
+
 def flash_decode_reference(
     q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, pos0: Any, *,
     window: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The plain version of :func:`flash_decode_attention`: ``g``
     consecutive queries (positions ``pos0 .. pos0+g-1``) against the
     whole cache, masked to ``<= qpos`` (and the window band), float32.
     ``pos0`` is a scalar or ``[b]`` (one frontier per row, the serving
-    pool's case).  Returns float32 ``[b, g, nh*hd]``."""
+    pool's case).  With ``k_scale``/``v_scale`` the cache is int8 and is
+    dequantized first (:func:`dequant_rows`).  Returns float32
+    ``[b, g, nh*hd]``."""
+    if k_scale is not None:
+        ck, cv = dequant_rows(ck, k_scale), dequant_rows(cv, v_scale)
     b, g, nh, hd = q.shape
     max_len, nkv = ck.shape[1], ck.shape[2]
     r = nh // nkv
@@ -217,17 +229,17 @@ def supports_decode(
     q_shape: Tuple[int, ...], k_shape: Tuple[int, ...],
     window: Optional[int], dtype: torch.dtype = torch.bfloat16,
 ) -> bool:
-    """Whether ``csrc/flash_decode.cu`` takes these shapes: bfloat16 or
-    float32 cache, head dim 64 or 128, ``nh`` a multiple of ``nkv``, at
-    most :data:`DECODE_MAX_ROWS` query rows per kv head.  Any cache
-    length."""
+    """Whether ``csrc/flash_decode.cu`` takes these shapes: a bfloat16,
+    float32 or int8 cache (``dtype``), head dim 64 or 128, ``nh`` a
+    multiple of ``nkv``.  Any cache length and any number of query rows
+    (a block holds at most ``1024 / hd`` of a kv head's ``g * nh / nkv``
+    rows; more rows take more blocks)."""
     b, g, nh, hd = q_shape
     nkv = k_shape[2]
     return (
-        dtype in (torch.bfloat16, torch.float32)
+        dtype in _DECODE_TYPES
         and hd in DECODE_HEAD_DIMS and k_shape[3] == hd
         and nkv > 0 and nh % nkv == 0
-        and g * (nh // nkv) <= DECODE_MAX_ROWS
         and (window is None or window >= 1)
     )
 
@@ -434,6 +446,31 @@ flash_attention.launches = 0
 # --------------------------------------------------------------------- #
 
 
+def _check_scales(
+    ck: torch.Tensor, cv: torch.Tensor, k_scale: Optional[torch.Tensor],
+    v_scale: Optional[torch.Tensor],
+) -> bool:
+    """Whether the cache is int8 with scales; raises for a half-given or
+    misshapen pair, or scales beside a float cache (and the reverse)."""
+    quant = k_scale is not None
+    if quant != (v_scale is not None):
+        raise ValueError("pass both k_scale and v_scale, or neither")
+    if quant != (ck.dtype == torch.int8) or cv.dtype != ck.dtype:
+        raise TypeError(
+            f"k_scale/v_scale go with an int8 cache and only with one; got a "
+            f"{ck.dtype}/{cv.dtype} cache {'with' if quant else 'without'} scales"
+        )
+    if quant:
+        want = (ck.shape[0], ck.shape[2], ck.shape[1])
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if tuple(t.shape) != want or t.dtype != torch.float32:
+                raise ValueError(
+                    f"{name} must be float32 [b, nkv, max_len] = {list(want)} "
+                    f"(positions last), got {t.dtype} {list(t.shape)}"
+                )
+    return quant
+
+
 def flash_decode_attention(
     q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, pos0: Any, *,
     window: Optional[int] = None,
@@ -443,55 +480,75 @@ def flash_decode_attention(
     """``g`` consecutive rope'd queries ``q: [b, g, nh, hd]`` (positions
     ``pos0 .. pos0+g-1``) against the live prefix ``[0, pos0+g)`` of a
     ``[b, max_len, nkv, hd]`` cache.  ``pos0`` is a host ``int``
-    (:func:`flash_decode_reference` also takes one per row).  Returns
-    float32 ``[b, g, nh*hd]``."""
-    if k_scale is not None or v_scale is not None:
-        raise _not_ported_quant()
+    (:func:`flash_decode_reference` also takes one per row).  With
+    ``k_scale``/``v_scale`` (both or neither: float32 ``[b, nkv,
+    max_len]``) the cache is int8, as the reference's ``QuantKVCache``
+    stores it.  Returns float32 ``[b, g, nh*hd]``."""
     if window is not None and window < 1:
         raise ValueError("window must be >= 1")
     b, g, nh, hd = q.shape
     max_len, nkv = ck.shape[1], ck.shape[2]
     if nh % nkv != 0:
         raise ValueError(f"nh={nh} not divisible by nkv={nkv}")
+    quant = _check_scales(ck, cv, k_scale, v_scale)
     if isinstance(pos0, torch.Tensor):
         raise TypeError("flash_decode_attention takes pos0 as a host int")
     pos0 = int(pos0)
     if not 0 <= pos0 <= max_len - g:
         raise ValueError(f"pos0={pos0} + g={g} outside the cache ({max_len})")
     if q.device.type == "cpu":
-        return flash_decode_reference(q, ck, cv, pos0, window=window)
+        return flash_decode_reference(q, ck, cv, pos0, window=window,
+                                      k_scale=k_scale, v_scale=v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode_attention: unsupported device {q.device}")
-    _check_cuda("flash_decode_attention", q, ck, cv)
-    if q.dtype not in (torch.bfloat16, torch.float32) or ck.dtype != q.dtype \
-            or cv.dtype != q.dtype:
+    scales = (k_scale, v_scale) if quant else ()
+    _check_cuda("flash_decode_attention", q, ck, cv, *scales)
+    if q.dtype not in (torch.bfloat16, torch.float32) or (
+        not quant and ck.dtype != q.dtype
+    ):
         raise TypeError(
-            f"flash_decode kernel takes bfloat16 or float32 q/cache of one "
-            f"type, got {q.dtype}/{ck.dtype}/{cv.dtype}"
+            f"flash_decode kernel takes a bfloat16 or float32 q with a cache "
+            f"of its type or an int8 cache, got {q.dtype}/{ck.dtype}/{cv.dtype}"
         )
-    if not supports_decode(q.shape, ck.shape, window, q.dtype) \
+    if not supports_decode(q.shape, ck.shape, window, ck.dtype) \
             or cv.shape != ck.shape:
         raise ValueError(
             f"flash_decode kernel does not take q {tuple(q.shape)}, cache "
-            f"{tuple(ck.shape)}: head dim must be one of {DECODE_HEAD_DIMS} "
-            f"and g*nh/nkv <= {DECODE_MAX_ROWS}"
+            f"{tuple(ck.shape)}: head dim must be one of {DECODE_HEAD_DIMS}"
         )
     first = 0 if window is None else max(pos0 - window + 1, 0)
-    nsplit = -(-(pos0 + g - first) // DECODE_CHUNK)
+    live = pos0 + g - first
+    n64 = -(-live // DECODE_CHUNK)                      # 64-key chunks
+    chunk = DECODE_CHUNK * -(-n64 // max(1, DECODE_BLOCKS // (b * nkv)))
+    nsplit = -(-live // chunk)
     rows = g * (nh // nkv)
     out = torch.empty((b, g, nh * hd), dtype=torch.float32, device=q.device)
     scratch = torch.empty(
         (b, nkv, nsplit, rows, 2 + hd), dtype=torch.float32, device=q.device
     )
+    ks_p, vs_p = (_ptr(k_scale), _ptr(v_scale)) if quant else (None, None)
     fn = _build.function("flash_decode", "tgt_flash_decode", _DECODE_ARGS)
     rc = fn(
-        _ptr(q), _ptr(ck), _ptr(cv), _ptr(out), _ptr(scratch), pos0,
-        b, g, nh, nkv, hd, max_len, 0 if window is None else int(window),
-        DECODE_CHUNK, nsplit, int(q.dtype == torch.float32), _stream(q),
+        _ptr(q), _ptr(ck), _ptr(cv), ks_p, vs_p, _ptr(out), _ptr(scratch),
+        pos0, b, g, nh, nkv, hd, max_len, 0 if window is None else int(window),
+        chunk, nsplit,
+        _DECODE_TYPES[q.dtype], _DECODE_TYPES[ck.dtype], _stream(q),
     )
     _build.check(rc, "flash_decode")
-    flash_decode_attention.launches += 1
+    if quant:
+        flash_decode_attention.launches_int8 += 1
+    else:
+        flash_decode_attention.launches += 1
     return out
 
 
 flash_decode_attention.launches = 0
+flash_decode_attention.launches_int8 = 0
+
+
+def reset_launches() -> None:
+    """Set every kernel launch count of this module to 0."""
+    for fn in (flash_attention, flash_bwd_dq, flash_bwd_dkv,
+               flash_decode_attention):
+        fn.launches = 0
+    flash_decode_attention.launches_int8 = 0
