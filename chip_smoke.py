@@ -7,16 +7,23 @@ Phases, one line each (any failure exits non-zero):
 
 1. device: card name and power limit (nvidia-smi); TF32 off.
 2. build: every CUDA kernel under torchgpipe_tpu_torch/csrc/ with nvcc; any
-   register spill that ptxas reports fails the run.
-3. flash_fwd against its plain PyTorch version on the card.
+   register spill that ptxas reports fails the run; each kernel's
+   registers and shared memory from the ptxas report.  SASS check
+   (``cuobjdump -sass``, from the CUDA toolkit): the flash_fwd and
+   flash_bwd_dkv kernels must issue HGMMA (wgmma) and UTMALDG (TMA loads).
+3. flash_fwd against its plain PyTorch version on the card at every
+   shape the later phases launch it at (the generate prefill, b=4; the
+   training micro-batch, b=2; the speculative phase's hd-64 draft and
+   target prefills; the beam prefill), and at a window, a ragged and a
+   long sequence; timed at each, through the wrapper and in device time.
 4. flash_decode against its plain PyTorch version on the card, with a
    bf16 and an int8 cache, up to 20 query rows per kv head (speculative
    verification's g=5 at r=4), at phase 6c's own shapes too (the hd-64
    draft and the 20-row verify at b=1), timed at the decode run's shape
    (live 1088) and at a long cache (live 32704).
 5. flash_bwd: flash_bwd_dq and flash_bwd_dkv against the plain backward,
-   row by row, and a probe that the check fails a backward with a tile
-   left out.
+   row by row, a probe that the check fails a backward with a tile left
+   out, and two flash_bwd_dkv calls at the main shape bitwise equal.
 6. slice: greedy ``generate`` at Llama-3-8B width (random weights from a
    seed, 32 layers, batch 4, prompt 1024, 128 new tokens), with the
    kernels' launch counts read around that one call, prefill logits of
@@ -58,7 +65,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import time
@@ -114,6 +123,94 @@ def card_line() -> str:
     return out[0]
 
 
+# Kernel entries of the `kernels` line -> (library, kernel functions).
+KERNEL_FUNCS = {
+    "flash_fwd": ("flash_fwd", ("flash_fwd_kernel",)),
+    "flash_decode": ("flash_decode", ("decode_partial", "decode_combine")),
+    "flash_decode_int8": ("flash_decode", ("decode_partial", "decode_combine")),
+    "flash_bwd_dq": ("flash_bwd", ("flash_bwd_dq_kernel",)),
+    "flash_bwd_dkv": ("flash_bwd", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_sum_kernel")),
+}
+# The redesigned kernels and the instructions their SASS must hold:
+# HGMMA (wgmma) and UTMALDG (TMA tensor loads).
+SASS_REQUIRED = {"flash_fwd": ("flash_fwd_kernel",),
+                 "flash_bwd": ("flash_bwd_dkv_kernel",)}
+
+
+def ptxas_report(build):
+    """One pass over every build's ptxas report.  Returns the kernels whose
+    report shows spills, those with only a stack frame, the number of
+    reports read, and ``{function: {"registers", "smem_static_bytes"}}``
+    of the kernels line's functions (max over a function's instantiations;
+    registers are the count at launch, which warp-specialised kernels
+    rebalance with setmaxnreg).  ptxas writes "Compiling entry function
+    '<mangled>'", then "Function properties for <mangled>" with "N bytes
+    stack frame, S bytes spill stores, L bytes spill loads", then "Used R
+    registers, ... B bytes smem"."""
+    names = sorted({f for _, fs in KERNEL_FUNCS.values() for f in fs}, key=len, reverse=True)
+    spills, frames, reports, resources = [], [], 0, {}
+    for lib in build.sources():
+        fn = ""
+        for line in open(build.log_path(lib)):
+            m = re.search(r"(?:Compiling entry function '|Function properties for )"
+                          r"([^'\s]+)", line)
+            if m:
+                fn = m[1]
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m:
+                reports += 1
+                if any(int(x) for x in m.groups()):
+                    (spills if int(m[2]) or int(m[3]) else frames).append(
+                        f"{fn}: {line.strip()}")
+                continue
+            m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+            kernel = next((n for n in names if f"{len(n)}{n}" in fn), None)
+            if m and kernel:
+                r = resources.setdefault(kernel, {"registers": 0, "smem_static_bytes": 0})
+                r["registers"] = max(r["registers"], int(m[1]))
+                r["smem_static_bytes"] = max(r["smem_static_bytes"], int(m[2] or 0))
+    return spills, frames, reports, resources
+
+
+def sass_check(build):
+    """Fail unless every instantiation of the redesigned kernels issues
+    HGMMA and UTMALDG (``cuobjdump -sass`` of the built libraries)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = shutil.which("cuobjdump") or os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        fail("cuobjdump not found (the CUDA toolkit's; needed for the SASS check)")
+    seen = []
+    for lib, funcs in SASS_REQUIRED.items():
+        sass = subprocess.run([tool, "-sass", build.so_path(lib)], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+        for section in re.split(r"\n\s*Function : ", sass)[1:]:
+            name = section.split("\n", 1)[0].strip()
+            f = next((f for f in funcs if f"{len(f)}{f}" in name), None)
+            if f is None:
+                continue
+            counts = {op: len(re.findall(rf"\b{op}\b", section)) for op in ("HGMMA", "UTMALDG")}
+            if not all(counts.values()):
+                fail(f"SASS of {name}: {counts} (HGMMA and UTMALDG required)")
+            d = re.search(r"ILi(\d+)E", name)[1]
+            seen.append(f"{f}<{d}> {counts}")
+    if len(seen) < 4:
+        fail(f"SASS check found {seen}: expected d=64 and d=128 of each kernel")
+    print("build: SASS " + "; ".join(seen), flush=True)
+
+
+def smem_dynamic(build):
+    """Dynamic shared memory per block at d=128 of the redesigned kernels,
+    from their C interfaces."""
+    import ctypes
+
+    fwd = build.function("flash_fwd", "tgt_flash_fwd_smem_bytes", [ctypes.c_int])
+    dkv = build.function("flash_bwd", "tgt_flash_bwd_dkv_smem_bytes", [ctypes.c_int])
+    return {"flash_fwd": fwd(128), "flash_bwd_dkv": dkv(128)}
+
+
 def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
@@ -164,23 +261,33 @@ def fwd_pairs(s: int, causal: bool, window) -> int:
 
 
 def phase_fwd(torch, tfa, card, gqa_sdpa):
+    """flash_fwd against its plain version at every shape the generation
+    and training phases give it; timed at each."""
+    # (name, b, h, g, s, window, d)
     cases = [
-        ("main", 4, 32, 8, 1024, None),
-        ("window256", 4, 32, 8, 1024, 256),
-        ("ragged1000", 4, 32, 8, 1000, None),
-        ("long12288", 1, 4, 1, 12288, None),
+        ("main", 4, 32, 8, 1024, None, 128),
+        # One micro-batch of phase 8's step (224 launches a step).
+        ("train_microbatch", 2, 32, 8, 1024, None, 128),
+        ("window256", 4, 32, 8, 1024, 256, 128),
+        ("ragged1000", 4, 32, 8, 1000, None, 128),
+        # Phase 6c's prefills: the 1b draft's (hd 64) and the target's
+        # (also the self-draft's); phase 6d's one prompt.
+        ("spec_draft_d64", 2, 32, 8, 512, None, 64),
+        ("spec_target", 2, 32, 8, 512, None, 128),
+        ("beam_prefill", 1, 32, 8, 1024, None, 128),
+        ("long12288", 1, 4, 1, 12288, None, 128),
     ]
     rows = {}
-    for name, b, h, g, s, window in cases:
+    for name, b, h, g, s, window, d in cases:
         gen = torch.Generator(device="cuda").manual_seed(1)
-        q = torch.randn(b, s, h, 128, generator=gen, device="cuda").bfloat16()
-        k = torch.randn(b, s, g, 128, generator=gen, device="cuda").bfloat16()
-        v = torch.randn(b, s, g, 128, generator=gen, device="cuda").bfloat16()
+        q = torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
+        k = torch.randn(b, s, g, d, generator=gen, device="cuda").bfloat16()
+        v = torch.randn(b, s, g, d, generator=gen, device="cuda").bfloat16()
         o = tfa.flash_attention(q, k, v, window=window)
         ro = tfa.flash_attention_reference(q, k, v, window=window)
         # LSE, the tight check at long s, through the kernel's (o, lse) entry.
-        _, lse = tfa._flash_fwd(q, k, v, True, 128 ** -0.5, window)
-        _, rlse = tfa._reference_fwd(q, k, v, True, 128 ** -0.5, window)
+        _, lse = tfa._flash_fwd(q, k, v, True, d ** -0.5, window)
+        _, rlse = tfa._reference_fwd(q, k, v, True, d ** -0.5, window)
         torch.cuda.synchronize()
         err = (o.float() - ro.float()).abs().max().item()
         lerr = (lse - rlse).abs().max().item()
@@ -192,18 +299,22 @@ def phase_fwd(torch, tfa, card, gqa_sdpa):
             torch, lambda: tfa.flash_attention_reference(q, k, v, window=window), 3, 1
         )
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        lib_ms = None
+        lib_ms = lib_dev = None
         if window is None:
             lib_ms = time_ms(torch, lambda: gqa_sdpa(qt, kt, vt, True), 10)
-        flops = 4.0 * b * h * 128 * fwd_pairs(s, True, window)
+            lib_dev = device_ms(torch, lambda: gqa_sdpa(qt, kt, vt, True), 10)
+        # Device time apart from the host's: at the short prefills the
+        # wrapper's host time per call can exceed the kernel's.
+        dev = device_ms(torch, lambda: tfa.flash_attention(q, k, v, window=window), 10)
+        flops = 4.0 * b * h * d * fwd_pairs(s, True, window)
         nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel()) + 4.0 * b * h * s
         bms, by = bound(flops, nbytes)
-        print(f"flash_fwd {name}: b={b} s={s} h={h} g={g} d=128 window={window} "
-              f"max_abs_err={err:.3e} (tol {FWD_TOL}) lse_err={lerr:.3e} "
-              f"ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib_ms} "
-              f"bound_ms={bms:.4f} ({by}) [{card}]", flush=True)
-        rows[name] = dict(err=err, ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
-                          bound_ms=bms, bound_by=by)
+        print(f"flash_fwd {name}: b={b} s={s} h={h} g={g} d={d} window={window} "
+              f"max_abs_err={err:.3e} (tol {FWD_TOL}) lse_err={lerr:.3e} (tol {LSE_TOL}) "
+              f"ms={ms:.4f} (device {dev:.4f}) plain_ms={plain_ms:.4f} sdpa_ms={lib_ms} "
+              f"(device {lib_dev}) bound_ms={bms:.4f} ({by}) [{card}]", flush=True)
+        rows[name] = dict(err=err, ms=ms, device_ms=dev, plain_ms=plain_ms, lib_ms=lib_ms,
+                          lib_device_ms=lib_dev, bound_ms=bms, bound_by=by)
     return rows
 
 
@@ -401,6 +512,15 @@ def phase_bwd(torch, tfa, card, gqa_sdpa):
         dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
         ref = tfa._reference_bwd(q, k, v, o, lse, do, True, scale, window)
         torch.cuda.synchronize()
+        if name == "main":
+            # No atomics: a second call gives the same bits.
+            dk2, dv2 = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+                fail("flash_bwd_dkv: two calls on one input differ")
+            print(f"flash_bwd main: two flash_bwd_dkv calls bitwise equal [{card}]",
+                  flush=True)
+            del dk2, dv2
         errs = {}
         for gname, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
             ratio, typical, floor = bwd_rows(got, want)
@@ -1029,25 +1149,20 @@ def main() -> None:
     secs = _build.build_all()
     print(f"build: {sorted(_build.sources())} in {time.perf_counter() - t0:.1f}s "
           f"(per source {({k: round(v, 1) for k, v in secs.items()})})", flush=True)
-    # ptxas: "N bytes stack frame, S bytes spill stores, L bytes spill
-    # loads" under each kernel's "Function properties for <name>".
-    spills, frames, fn, reports = [], [], "", 0
-    for name in _build.sources():
-        for line in open(_build.log_path(name)):
-            if "Function properties for" in line:
-                fn = line.split("Function properties for", 1)[1].strip()
-            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                          r"(\d+) bytes spill loads", line)
-            reports += bool(m)
-            if m and any(int(x) for x in m.groups()):
-                (spills if int(m[2]) or int(m[3]) else frames).append(
-                    f"{fn}: {line.strip()}")
+    spills, frames, reports, resources = ptxas_report(_build)
     print(f"build: ptxas reports {len(spills)} of {reports} kernel(s) with spills "
           f"and {len(frames)} more with a stack frame"
           + "".join(f"\n  {line}" for line in spills + frames), flush=True)
     if spills or not reports:
         fail(f"ptxas spills registers in {len(spills)} kernel(s) "
              f"({reports} reports read)")
+    missing = {f for _, fs in KERNEL_FUNCS.values() for f in fs} - set(resources)
+    if missing:
+        fail(f"no ptxas register report for {sorted(missing)}")
+    print("build: ptxas registers / static smem per kernel function (max over "
+          "instantiations): " + ", ".join(f"{k} {r['registers']} / {r['smem_static_bytes']}"
+                                          for k, r in sorted(resources.items())), flush=True)
+    sass_check(_build)
 
     def gqa_sdpa(q, k, v, causal):
         return F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
@@ -1086,13 +1201,19 @@ def main() -> None:
                                "library_ms": long["lib_ms"]}}
 
     def bwd_entry(name, key, line, also):
-        main_bwd = bwd["main"]
+        main_bwd, long = bwd["main"], bwd["long12288"]
         ms, (bms, by) = main_bwd[key]
         return {"name": name, "route": "cuda", "source": src + "flash_bwd.cu",
                 "replaces": f"{ref}:{line}", "also_replaces": f"{ref}:{also}",
                 "launches": train_launches[name], "max_abs_err": bwd_err[key],
                 "ms": ms, "plain_ms": main_bwd["plain_ms"], "bound_ms": bms,
-                "bound_by": by, "library_ms": main_bwd["lib_ms"]}
+                "bound_by": by, "library_ms": main_bwd["lib_ms"],
+                "long_shape": {"ms": long[key][0], "plain_ms": long["plain_ms"],
+                               "bound_ms": long[key][1][0], "library_ms": long["lib_ms"]}}
+
+    def shape_entry(row):
+        return {k: row[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms")} | {
+            "library_ms": row["lib_ms"], "library_device_ms": row["lib_device_ms"]}
 
     kernels = [
         {"name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
@@ -1103,12 +1224,23 @@ def main() -> None:
          "max_abs_err": max(r["err"] for r in fwd.values()),
          "ms": main_fwd["ms"], "plain_ms": main_fwd["plain_ms"],
          "bound_ms": main_fwd["bound_ms"], "bound_by": main_fwd["bound_by"],
-         "library_ms": main_fwd["lib_ms"]},
+         "library_ms": main_fwd["lib_ms"],
+         "device_ms": main_fwd["device_ms"], "library_device_ms": main_fwd["lib_device_ms"],
+         "train_microbatch": shape_entry(fwd["train_microbatch"]),
+         "long_shape": shape_entry(fwd["long12288"]),
+         "path_shapes": {n: shape_entry(fwd[n])
+                         for n in ("spec_draft_d64", "spec_target", "beam_prefill")}},
         decode_entry("flash_decode", "bf16", "generate"),
         decode_entry("flash_decode_int8", "int8", "generate_int8"),
         bwd_entry("flash_bwd_dq", "dq", 538, 411),
         bwd_entry("flash_bwd_dkv", "dkv", 592, 468),
     ]
+    smem = smem_dynamic(_build)
+    for k in kernels:
+        k["ptxas"] = {f: resources[f] for f in KERNEL_FUNCS[k["name"]][1]}
+        if k["name"] in smem:
+            k["smem_dynamic_bytes"] = smem[k["name"]]
+    kernels[-1]["bitwise_repeat"] = True   # phase 5 fails otherwise
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,12 +17,19 @@ between the two output roundings plus the bf16 rounding of P and dS inside
 the products, ~3 x 2^-8 of it) plus a floor of 2^-9 of the median row's
 largest magnitude (for rows that are zero in exact arithmetic).  Causal
 gradients span orders of magnitude across rows, so a tolerance per tensor
-would hide a tile left out of a loop.
+would hide a tile left out of a loop.  The wgmma self-test of
+csrc/hopper_tiles.cuh against torch.matmul: bf16 products are exact in
+float32 and only the order of the <= 128-term sums differs (~1e-6 of
+|c| ~ 11), so 1e-3 absolute; a wrong descriptor or swizzle moves whole
+rows or columns by O(1).
 """
+
+import ctypes
 
 import pytest
 import torch
 
+from torchgpipe_tpu_torch.ops import _build
 from torchgpipe_tpu_torch.ops import flash_attention as tfa
 
 FWD_TOL = 3.2e-2
@@ -51,7 +58,11 @@ def cuda_device():
     "s,h,g,d,window,causal",
     [(1024, 8, 2, 128, None, True), (1000, 8, 2, 128, None, True),
      (1024, 8, 2, 128, 256, True), (333, 4, 4, 64, 50, True),
-     (200, 4, 1, 128, None, False)],
+     (200, 4, 1, 128, None, False),
+     # Edges of the 64/128-row tiles and of the dK/dV work items.
+     (17, 8, 1, 128, None, True), (129, 4, 4, 128, None, True),
+     (191, 8, 8, 64, None, True), (2112, 8, 1, 128, None, True),
+     (1000, 8, 2, 64, 300, True), (129, 4, 1, 64, None, False)],
 )
 def test_flash_fwd_kernel_matches_plain(cuda_device, s, h, g, d, window, causal):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
@@ -71,7 +82,11 @@ def test_flash_fwd_kernel_matches_plain(cuda_device, s, h, g, d, window, causal)
     "s,h,g,d,window,causal",
     [(1024, 8, 2, 128, None, True), (1000, 8, 2, 128, None, True),
      (1024, 8, 2, 128, 256, True), (333, 4, 4, 64, 50, True),
-     (200, 4, 1, 128, None, False)],
+     (200, 4, 1, 128, None, False),
+     # Edges of the 64/128-row tiles and of the dK/dV work items.
+     (17, 8, 1, 128, None, True), (129, 4, 4, 128, None, True),
+     (191, 8, 8, 64, None, True), (2112, 8, 1, 128, None, True),
+     (1000, 8, 2, 64, 300, True), (129, 4, 1, 64, None, False)],
 )
 def test_flash_bwd_kernels_match_plain(cuda_device, s, h, g, d, window, causal):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
@@ -102,6 +117,83 @@ def test_flash_bwd_kernels_match_plain(cuda_device, s, h, g, d, window, causal):
                                    window // 2)
         for got, want in zip((dq, dk, dv), cut):
             assert bwd_row_ratio(got, want) > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,sk,causal", [(200, 333, False), (333, 200, True),
+                                         (130, 1000, True)])
+def test_flash_kernels_with_other_key_lengths(cuda_device, s, sk, causal):
+    """s_k != s: queries and keys both count from 0 (keys past s are never
+    attended under the causal mask, and their dK/dV rows are zeros)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q = torch.randn(2, s, 8, 128, generator=gen, device=cuda_device).bfloat16()
+    k, v = (torch.randn(2, sk, 2, 128, generator=gen, device=cuda_device).bfloat16()
+            for _ in range(2))
+    do = torch.randn(2, s, 8, 128, generator=gen, device=cuda_device).bfloat16()
+    scale = 128 ** -0.5
+    o, lse = tfa._flash_fwd(q, k, v, causal, scale, None)
+    ro, rlse = tfa._reference_fwd(q, k, v, causal, scale, None)
+    delta = tfa._delta(do, o)
+    kw = dict(causal=causal, sm_scale=scale, window=None)
+    dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    _, rdk, rdv = tfa._reference_grads(q, k, v, do, lse, delta, causal, scale, None)
+    torch.cuda.synchronize()
+    assert (o.float() - ro.float()).abs().max().item() <= FWD_TOL
+    assert (lse - rlse).abs().max().item() <= 2e-3
+    for got, want in ((dk, rdk), (dv, rdv)):
+        if causal and sk > s:
+            # Keys past the last query: no query attends them.
+            assert not got[:, s:].any()
+            got, want = got[:, :s], want[:, :s]
+        assert bwd_row_ratio(got, want) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,g,d", [(2, 1024, 32, 8, 128), (1, 4096, 4, 1, 128),
+                                       (2, 1000, 8, 2, 64)])
+def test_flash_bwd_dkv_is_bitwise_deterministic(cuda_device, b, s, h, g, d):
+    """No atomics: partial sums go to their own slots and are added in
+    item order, so two calls give equal bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    q, do = (torch.randn(b, s, h, d, generator=gen, device=cuda_device).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(b, s, g, d, generator=gen, device=cuda_device).bfloat16()
+            for _ in range(2))
+    o, lse = tfa._flash_fwd(q, k, v, True, d ** -0.5, None)
+    delta = tfa._delta(do, o)
+    kw = dict(causal=True, sm_scale=d ** -0.5, window=None)
+    first = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    second = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+def test_hopper_tiles_wgmma_self_test(cuda_device, mode):
+    """csrc/hopper_selftest.cu: one TMA-loaded, 128-byte-swizzled tile per
+    operand form of csrc/hopper_tiles.cuh, against torch.matmul.  Modes 0/1:
+    C[64, n] = A[64, 128] B[n, 128]^T (both K-major, n = 64 / 128); modes
+    2/3: C[64, n] = A[64, 64] B[64, n] (A from registers, B MN-major)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(mode)
+    n = 128 if mode % 2 else 64
+    if mode < 2:
+        a = torch.randn(64, 128, generator=gen, device=cuda_device).bfloat16()
+        b = torch.randn(n, 128, generator=gen, device=cuda_device).bfloat16()
+        want = a.float() @ b.float().T
+    else:
+        a = torch.randn(64, 64, generator=gen, device=cuda_device).bfloat16()
+        b = torch.randn(64, n, generator=gen, device=cuda_device).bfloat16()
+        want = a.float() @ b.float()
+    c = torch.full((64, n), float("nan"), device=cuda_device)
+    P = ctypes.c_void_p
+    fn = _build.function("hopper_selftest", "tgt_hopper_selftest",
+                         [ctypes.c_int, P, P, P, ctypes.c_int, P])
+    rc = fn(mode, P(a.data_ptr()), P(b.data_ptr()), P(c.data_ptr()), 64 * 128,
+            P(torch.cuda.current_stream().cuda_stream))
+    _build.check(rc, "hopper_selftest")
+    torch.cuda.synchronize()
+    assert (c - want).abs().max().item() <= 1e-3
 
 
 @pytest.mark.cuda

@@ -270,3 +270,133 @@ def test_gates_and_refusals():
         tfa.flash_decode_attention(t, c, c, torch.tensor(3, dtype=torch.int32))
     with pytest.raises(ValueError, match="outside the cache"):
         tfa.flash_decode_attention(t, c, c, 8)
+
+
+# flash_bwd_dkv's work list (``dkv_schedule``): the two timing shapes of
+# chip_smoke.py (one pipeline-1 micro-batch at Llama-3-8B width, and the
+# long sequence), then edges of the 64-query and 128-key tiles, a window,
+# no causal mask, and more keys than queries (key tiles no query attends).
+_DKV_SHAPES = [
+    # (b, s, sk, h, g, causal, window)
+    (2, 1024, 1024, 32, 8, True, None),
+    (1, 12288, 12288, 4, 1, True, None),
+    (2, 17, 17, 8, 8, True, None),
+    (2, 129, 129, 4, 1, True, None),
+    (2, 191, 191, 8, 2, True, None),
+    (2, 1000, 1000, 8, 2, True, None),
+    (1, 2112, 2112, 8, 1, True, None),
+    (2, 333, 333, 4, 4, True, 50),
+    (2, 1024, 1024, 8, 2, True, 256),
+    (2, 200, 200, 4, 1, False, None),
+    (1, 300, 700, 4, 2, True, 100),
+]
+
+
+def _attended_tile_pairs(b, s, sk, h, causal, window):
+    """Every (batch, query head, 64-query tile, 128-key tile) holding at
+    least one attended (query, key) pair.  Over a tile pair, q - k takes
+    every integer from q0 - k_last to q_last - k0, so a pair attends iff
+    that range meets [0, window)."""
+    out = set()
+    for jq in range(-(-s // 64)):
+        q0, q_last = jq * 64, min(jq * 64 + 63, s - 1)
+        for kt in range(-(-sk // 128)):
+            k0, k_last = kt * 128, min(kt * 128 + 127, sk - 1)
+            if causal and (q_last - k0 < 0 or (window is not None
+                                               and q0 - k_last >= window)):
+                continue
+            out.update((bi, hh, jq, kt) for bi in range(b) for hh in range(h))
+    return out
+
+
+@pytest.mark.parametrize("b,s,sk,h,g,causal,window", _DKV_SHAPES)
+def test_dkv_schedule_covers_every_tile_pair_once(b, s, sk, h, g, causal, window):
+    sch = tfa.dkv_schedule(b, s, sk, h, g, causal, window, 132)
+    r, nkt = h // g, -(-sk // 128)
+    seen = {}
+    for bi, kvh, kt, jq0, ntile, it0, it1, _ in sch.items:
+        assert 0 <= it0 < it1 <= r * ntile
+        for t in range(it0, it1):
+            key = (bi, kvh * r + t // ntile, jq0 + t % ntile, kt)
+            seen[key] = seen.get(key, 0) + 1
+    assert set(seen.values()) <= {1}
+    assert set(seen) == _attended_tile_pairs(b, s, sk, h, causal, window)
+    # Blocks: at most one per SM, each with a contiguous run of items.
+    assert sch.offsets[0] == 0 and sch.offsets[-1] == len(sch.items)
+    assert len(sch.offsets) - 1 <= 132
+    assert all(a < e for a, e in zip(sch.offsets, sch.offsets[1:]))
+    # Slots: a combo cut into n items owns n consecutive slots, in the
+    # order of its iterations (the sum kernel adds them in that order);
+    # an uncut combo writes directly; a combo no query attends has none.
+    by_combo = {}
+    for it in sch.items:
+        by_combo.setdefault((it[0] * g + it[1]) * nkt + it[2], []).append(it)
+    assert len(sch.combos) == b * g * nkt
+    slots = []
+    for c, (first, count) in enumerate(sch.combos):
+        pieces = sorted(by_combo.get(c, []), key=lambda it: it[5])
+        if count == 0:
+            assert not pieces
+        elif count == -1:
+            assert len(pieces) == 1 and pieces[0][7] == -1
+        else:
+            assert [it[7] for it in pieces] == list(range(first, first + count))
+            slots.extend(range(first, first + count))
+    assert sorted(slots) == list(range(sch.slots))
+
+
+@pytest.mark.parametrize("b,s,h,g", [(2, 1024, 32, 8), (1, 12288, 4, 1)])
+def test_dkv_schedule_balances_the_timing_shapes(b, s, h, g):
+    """Longest first onto 132 SMs: the busiest SM holds at most 1.15x the
+    mean work (64-query tiles).  One block per key tile would give its
+    heaviest block 1.9-2.0x the mean, and a launch waits on it."""
+    sch = tfa.dkv_schedule(b, s, s, h, g, True, None, 132)
+    loads = [sum(it[6] - it[5] for it in sch.items[a:e])
+             for a, e in zip(sch.offsets, sch.offsets[1:])]
+    assert max(loads) <= 1.15 * sum(loads) / 132
+    # Pure: the same call gives the same list (the sums' order rests on it).
+    assert tfa.dkv_schedule(b, s, s, h, g, True, None, 132) == sch
+
+
+# The persistent forward's tile list (``fwd_schedule``): the shapes of
+# chip_smoke.py's forward timings (generate prefill b=4, the training
+# micro-batch b=2, the speculative prefills b=2 s=512, the beam prefill
+# b=1, the long sequence), then edges of the 128-row tiles, a window, no
+# causal mask and more keys than queries.
+_FWD_SHAPES = [
+    # (b, s, sk, h, causal, window)
+    (4, 1024, 1024, 32, True, None),
+    (2, 1024, 1024, 32, True, None),
+    (2, 512, 512, 32, True, None),
+    (1, 1024, 1024, 32, True, None),
+    (1, 12288, 12288, 4, True, None),
+    (2, 17, 17, 8, True, None),
+    (2, 129, 129, 4, True, None),
+    (2, 1000, 1000, 8, True, 300),
+    (2, 200, 200, 4, False, None),
+    (2, 333, 200, 8, True, None),
+]
+
+
+@pytest.mark.parametrize("b,s,sk,h,causal,window", _FWD_SHAPES)
+def test_fwd_schedule_runs_every_tile_once(b, s, sk, h, causal, window):
+    offsets, tiles = tfa.fwd_schedule(b, s, sk, h, causal, window, 132)
+    assert sorted(tiles) == list(range(b * h * -(-s // 128)))
+    assert offsets[0] == 0 and offsets[-1] == len(tiles)
+    assert len(offsets) - 1 <= 132
+    assert all(a < e for a, e in zip(offsets, offsets[1:]))
+
+
+@pytest.mark.parametrize("b,s,h", [(4, 1024, 32), (2, 1024, 32), (1, 12288, 4)])
+def test_fwd_schedule_balances_the_timing_shapes(b, s, h):
+    """Key tiles per block within 1.15x of the mean; handing the
+    heaviest-first tiles round-robin to the blocks left the busiest block
+    1.34x the mean at s = 12288."""
+    offsets, tiles = tfa.fwd_schedule(b, s, s, h, True, None, 132)
+    nqt = -(-s // 128)
+
+    def work(t):   # causal: query tile q reads key tiles 0 .. q
+        return nqt - t // (b * h)
+
+    loads = [sum(work(t) for t in tiles[a:e]) for a, e in zip(offsets, offsets[1:])]
+    assert max(loads) <= 1.15 * sum(loads) / 132

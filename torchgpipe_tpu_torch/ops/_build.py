@@ -48,7 +48,9 @@ def _nvcc() -> str:
     )
 
 
-def _so_path(name: str) -> str:
+def so_path(name: str) -> str:
+    """The built shared library of ``csrc/<name>.cu`` (keyed by a hash of
+    the sources and flags)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sorted(glob.glob(os.path.join(CSRC, "*.cuh"))) + [
         os.path.join(CSRC, name + ".cu")
@@ -60,7 +62,7 @@ def _so_path(name: str) -> str:
 
 def log_path(name: str) -> str:
     """nvcc's output (with the ptxas register/spill report) for a build."""
-    return _so_path(name) + ".log"
+    return so_path(name) + ".log"
 
 
 def sources() -> List[str]:
@@ -80,7 +82,7 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, float]:
     procs = {}
     t0 = time.perf_counter()
     for name in names:
-        so = _so_path(name)
+        so = so_path(name)
         if os.path.exists(so):
             continue
         tmp = f"{so}.tmp{os.getpid()}"
@@ -118,7 +120,7 @@ def library(name: str) -> ctypes.CDLL:
         return lib
     with _lock:
         if name not in _libs:
-            so = _so_path(name)
+            so = so_path(name)
             if not os.path.exists(so):
                 build_all([name])
             _libs[name] = ctypes.CDLL(so)

@@ -12,6 +12,11 @@ axis) because of VMEM size; on Hopper one tile loop serves every length.
   :func:`flash_bwd_dq` (replaces ``_dq_kernel`` and ``_dq_stream_kernel``)
   and :func:`flash_bwd_dkv` (replaces ``_dkv_kernel`` and
   ``_dkv_stream_kernel``), both in ``csrc/flash_bwd.cu``.
+* ``flash_fwd`` and ``flash_bwd_dkv`` run one persistent block per SM over
+  a work list that this module builds in plain Python and caches per shape
+  (:func:`fwd_schedule`: query tiles, longest first onto the least loaded
+  block; :func:`dkv_schedule`: the causal dK/dV loops cut so that every SM
+  holds the mean work), so the CPU tests cover the balance.
 * :func:`flash_decode_attention` launches ``csrc/flash_decode.cu``, which
   replaces ``_decode_kernel``: a bf16 or float32 cache, or an int8 cache
   with float32 per-(position, kv head) scales (the ``quant=True``
@@ -32,7 +37,9 @@ sets every count to 0.
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Optional, Tuple
+import functools
+import heapq
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -48,14 +55,15 @@ _DECODE_TYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 
 # C signatures (csrc/*.cu): pointers and the stream as c_void_p.
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# q, k, v, o, lse, b, s, sk, h, g, d, scale, causal, window, stream
-_FWD_ARGS = [_P] * 5 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
+# q, k, v, o, lse, tiles, nblocks, b, s, sk, h, g, d, scale, causal,
+# window, stream
+_FWD_ARGS = [_P] * 6 + [_I] * 7 + [ctypes.c_float, _I, _I, _P]
 # q, k, v, dout, lse, delta, dq, b, s, sk, h, g, d, scale, causal, window,
 # stream
 _BWD_DQ_ARGS = [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
-# q, k, v, dout, lse, delta, dk, dv, b, s, sk, h, g, d, scale, causal,
-# window, stream
-_BWD_DKV_ARGS = [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
+# q, k, v, dout, lse, delta, dk, dv, items, offsets, combos, partial,
+# nblocks, b, s, sk, h, g, d, scale, causal, window, stream
+_BWD_DKV_ARGS = [_P] * 12 + [_I] * 7 + [ctypes.c_float, _I, _I, _P]
 # q, ck, cv, k_scale, v_scale, out, scratch, pos0, b, g, nh, nkv, hd,
 # max_len, window, chunk, nsplit, q_type, kv_type, stream
 _DECODE_ARGS = [_P] * 7 + [_I] * 12 + [_P]
@@ -253,12 +261,191 @@ def _check_cuda(what: str, *ts: torch.Tensor) -> None:
             raise ValueError(f"{what}: inputs must be contiguous")
 
 
+def _check_tma(what: str, *ts: torch.Tensor) -> None:
+    """The TMA tensor maps of flash_fwd.cu / flash_bwd.cu need 16-byte
+    aligned bases."""
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{what}: inputs must be 16-byte aligned")
+
+
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
 def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+# --------------------------------------------------------------------- #
+# work lists of the persistent kernels                                  #
+# --------------------------------------------------------------------- #
+
+FWD_ROWS = 128     # query rows per forward tile (csrc/flash_fwd.cu BQ)
+FWD_KEYS = 128     # keys per K/V tile (BK)
+
+
+def _fwd_live_tiles(q0: int, s: int, sk: int, causal: bool,
+                    window: Optional[int]) -> int:
+    """Key tiles the forward tile of rows ``q0 ..`` reads (the kernel's
+    ``Tile``): up to the diagonal, from the window's first."""
+    nkt = -(-sk // FWD_KEYS)
+    first = 0
+    if causal:
+        nkt = min(nkt, (min(q0 + FWD_ROWS, s) - 1) // FWD_KEYS + 1)
+        if window is not None:
+            first = max(q0 - (window - 1), 0) // FWD_KEYS
+    return nkt - first
+
+
+def fwd_schedule(
+    b: int, s: int, sk: int, h: int, causal: bool, window: Optional[int],
+    n_sms: int,
+) -> Tuple[List[int], List[int]]:
+    """``(offsets, tiles)`` of the persistent forward kernel: block ``i``
+    runs ``tiles[offsets[i]:offsets[i+1]]``.  Tile ``t`` is query tile
+    ``nqt-1-t//(b*h)`` of head ``t % (b*h)``.  Longest processing time
+    first: tiles sorted by their key-tile count (plus one for the
+    epilogue), each given to the least loaded block, so a long causal
+    sequence (tiles of 1..s/128 key tiles) balances as well as many
+    short ones."""
+    nqt = -(-s // FWD_ROWS)
+    bhn = b * h
+    n = nqt * bhn
+    blocks = min(n_sms, n)
+    cost = [_fwd_live_tiles((nqt - 1 - t // bhn) * FWD_ROWS, s, sk, causal,
+                            window) + 1 for t in range(n)]
+    heap = [(0, i) for i in range(blocks)]
+    lists: List[List[int]] = [[] for _ in range(blocks)]
+    for t in sorted(range(n), key=lambda t: (-cost[t], t)):
+        load, i = heapq.heappop(heap)
+        lists[i].append(t)
+        heapq.heappush(heap, (load + cost[t], i))
+    offsets, tiles = [0], []
+    for blk in lists:
+        tiles.extend(blk)
+        offsets.append(len(tiles))
+    return offsets, tiles
+
+
+@functools.lru_cache(maxsize=64)
+def _fwd_plan(device: torch.device, *key) -> Tuple[torch.Tensor, int]:
+    """:func:`fwd_schedule` of ``key = (b, s, sk, h, causal, window)`` on
+    ``device``'s SMs as one int32 device tensor (offsets, then tiles) and
+    its block count."""
+    n_sms = torch.cuda.get_device_properties(device).multi_processor_count
+    offsets, tiles = fwd_schedule(*key, n_sms)
+    return (torch.tensor(offsets + tiles, dtype=torch.int32, device=device),
+            len(offsets) - 1)
+
+
+DKV_KEYS = 128     # keys per work item (csrc/flash_bwd.cu KV_BK)
+DKV_QUERIES = 64   # queries per Q/dO tile (KV_BQ)
+
+
+class DkvSchedule(NamedTuple):
+    """How ``csrc/flash_bwd.cu``'s persistent dK/dV kernel splits one
+    call.  A *combo* is one (batch, kv head, 128-key tile); its work is
+    a loop over (query head of the group, live 64-query tile), ``r *
+    ntile`` iterations.  ``items`` are contiguous ranges of those loops:
+    ``(bi, kvh, kt, jq0, ntile, it0, it1, slot)``, iteration ``t`` being
+    query head ``kvh * r + t // ntile`` and query tile ``jq0 + t %
+    ntile``; ``slot`` is the item's f32 scratch slot, or -1 when the
+    item holds its combo's whole loop and writes bf16 itself.  Block
+    ``i`` runs ``items[offsets[i]:offsets[i+1]]``.  ``combos[c] =
+    (first_slot, count)`` for combo ``c = (bi * g + kvh) * nkt + kt``:
+    count -1 = written by its item, 0 = no query attends it (zeros)."""
+
+    items: List[Tuple[int, ...]]
+    offsets: List[int]
+    combos: List[Tuple[int, int]]
+    slots: int
+
+
+def _dkv_live_tiles(kt: int, s: int, sk: int, causal: bool,
+                    window: Optional[int]) -> Tuple[int, int]:
+    """``(first, count)`` of the 64-query tiles that attend some key of
+    128-key tile ``kt``: from the diagonal to the window's last query."""
+    nq = -(-s // DKV_QUERIES)
+    if not causal:
+        return 0, nq
+    k0 = kt * DKV_KEYS
+    first, end = k0 // DKV_QUERIES, nq
+    if window is not None:
+        last_key = min(k0 + DKV_KEYS, sk) - 1
+        end = min((last_key + window - 1) // DKV_QUERIES + 1, nq)
+    return first, max(end - first, 0)
+
+
+def dkv_schedule(
+    b: int, s: int, sk: int, h: int, g: int, causal: bool,
+    window: Optional[int], n_sms: int,
+) -> DkvSchedule:
+    """The balanced causal schedule of ``flash_bwd_dkv``: combos sorted
+    longest first fill the SMs in turn, each SM up to ``ceil(total /
+    n_sms)`` iterations, a combo cut where an SM fills (McNaughton's
+    wrap-around rule), so no SM holds more than the mean work plus one
+    iteration, and at most ``n_sms - 1`` combos are cut.  Pure and
+    deterministic: the kernel's sums depend on the slots, not on which
+    SM runs an item."""
+    r = h // g
+    nkt = -(-sk // DKV_KEYS)
+    combos = []   # (work, combo index, bi, kvh, kt, jq0, ntile)
+    for bi in range(b):
+        for kvh in range(g):
+            for kt in range(nkt):
+                jq0, ntile = _dkv_live_tiles(kt, s, sk, causal, window)
+                c = (bi * g + kvh) * nkt + kt
+                combos.append((r * ntile, c, bi, kvh, kt, jq0, ntile))
+    total = sum(c[0] for c in combos)
+    table = [(0, 0)] * len(combos)
+    if total == 0:
+        return DkvSchedule([], [0], table, 0)
+    per = -(-total // min(n_sms, total))
+    bins: List[List[list]] = [[]]
+    fill = 0
+    pieces: Dict[int, List[list]] = {}
+    for work, c, bi, kvh, kt, jq0, ntile in sorted(
+            (x for x in combos if x[0]), key=lambda x: (-x[0], x[1])):
+        it = 0
+        while it < work:
+            take = min(work - it, per - fill)
+            item = [bi, kvh, kt, jq0, ntile, it, it + take, -1]
+            bins[-1].append(item)
+            pieces.setdefault(c, []).append(item)
+            it += take
+            fill += take
+            if fill == per:
+                bins.append([])
+                fill = 0
+    slots = 0
+    for c in sorted(pieces):
+        if len(pieces[c]) == 1:
+            table[c] = (0, -1)
+            continue
+        table[c] = (slots, len(pieces[c]))
+        for item in pieces[c]:
+            item[7] = slots
+            slots += 1
+    items, offsets = [], [0]
+    for blk in bins:
+        if blk:
+            items.extend(tuple(x) for x in blk)
+            offsets.append(len(items))
+    return DkvSchedule(items, offsets, table, slots)
+
+
+@functools.lru_cache(maxsize=64)
+def _dkv_plan(device: torch.device, *key) -> Tuple[torch.Tensor, int, int, int]:
+    """:func:`dkv_schedule` of ``key = (b, s, sk, h, g, causal, window)``
+    on ``device``'s SMs as one int32 device tensor (items, then offsets,
+    then combos) with its block count, slot count and where the offsets
+    start."""
+    n_sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sch = dkv_schedule(*key, n_sms)
+    flat = [v for it in sch.items for v in it] + sch.offsets + [
+        v for c in sch.combos for v in c]
+    return (torch.tensor(flat, dtype=torch.int32, device=device),
+            len(sch.offsets) - 1, sch.slots, 8 * len(sch.items))
 
 
 # --------------------------------------------------------------------- #
@@ -278,6 +465,7 @@ def _flash_fwd(
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check_cuda("flash_attention", q, k, v)
+    _check_tma("flash_attention", q, k, v)
     b, s, h, d = q.shape
     sk, g = k.shape[1], k.shape[2]
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -293,11 +481,12 @@ def _flash_fwd(
         )
     o = torch.empty_like(q)
     lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
+    plan, nblocks = _fwd_plan(q.device, b, s, sk, h, bool(causal), window)
     fn = _build.function("flash_fwd", "tgt_flash_fwd_bf16", _FWD_ARGS)
     rc = fn(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse), b, s, sk, h, g, d,
-        float(sm_scale), int(causal), 0 if window is None else int(window),
-        _stream(q),
+        _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse), _ptr(plan), nblocks,
+        b, s, sk, h, g, d, float(sm_scale), int(causal),
+        0 if window is None else int(window), _stream(q),
     )
     _build.check(rc, "flash_fwd")
     flash_attention.launches += 1
@@ -311,6 +500,7 @@ def _flash_fwd(
 
 def _check_bwd(what: str, q, k, v, do, lse, delta) -> None:
     _check_cuda(what, q, k, v, do, lse, delta)
+    _check_tma(what, q, k, v, do)
     if any(t.dtype != torch.bfloat16 for t in (q, k, v, do)):
         raise TypeError(
             f"{what} kernel takes bfloat16 q/k/v/do, got {q.dtype}/{k.dtype}/"
@@ -379,11 +569,17 @@ def flash_bwd_dkv(
     b, s, h, d = q.shape
     sk, g = k.shape[1], k.shape[2]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    plan, nblocks, slots, at_offsets = _dkv_plan(
+        q.device, b, s, sk, h, g, bool(causal), window)
+    at_combos = at_offsets + nblocks + 1
+    partial = torch.empty(max(slots, 1) * 256 * d, dtype=torch.float32,
+                          device=q.device)
     fn = _build.function("flash_bwd", "tgt_flash_bwd_dkv_bf16", _BWD_DKV_ARGS)
     rc = fn(
         _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dk),
-        _ptr(dv), b, s, sk, h, g, d, float(sm_scale), int(causal),
-        0 if window is None else int(window), _stream(q),
+        _ptr(dv), _ptr(plan), _ptr(plan[at_offsets:]), _ptr(plan[at_combos:]),
+        _ptr(partial), nblocks, b, s, sk, h, g, d, float(sm_scale),
+        int(causal), 0 if window is None else int(window), _stream(q),
     )
     _build.check(rc, "flash_bwd_dkv")
     flash_bwd_dkv.launches += 1
