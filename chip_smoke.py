@@ -9,8 +9,10 @@ Phases, one line each (any failure exits non-zero):
 2. build: every CUDA kernel under torchgpipe_tpu_torch/csrc/ with nvcc; any
    register spill that ptxas reports fails the run; each kernel's
    registers and shared memory from the ptxas report.  SASS check
-   (``cuobjdump -sass``, from the CUDA toolkit): the flash_fwd and
-   flash_bwd_dkv kernels must issue HGMMA (wgmma) and UTMALDG (TMA loads).
+   (``cuobjdump -sass``, from the CUDA toolkit): flash_fwd, flash_bwd_dq and
+   flash_bwd_dkv must hold HGMMA (wgmma) and UTMALDG (TMA loads) in every
+   instantiation, the decode partial kernel UTMALDG and (bf16 and int8
+   caches) HMMA.
 3. flash_fwd against its plain PyTorch version on the card at every
    shape the later phases launch it at (the generate prefill, b=4; the
    training micro-batch, b=2; the speculative phase's hd-64 draft and
@@ -19,11 +21,15 @@ Phases, one line each (any failure exits non-zero):
 4. flash_decode against its plain PyTorch version on the card, with a
    bf16 and an int8 cache, up to 20 query rows per kv head (speculative
    verification's g=5 at r=4), at phase 6c's own shapes too (the hd-64
-   draft and the 20-row verify at b=1), timed at the decode run's shape
-   (live 1088) and at a long cache (live 32704).
+   draft and the 20-row verify at b=1), each also with pos0 as a device
+   int32 (bitwise equal to the host int), one call captured in a CUDA
+   graph and replayed at three live lengths written to that scalar (each
+   equal to the eager call), timed at the decode run's shape (live 1088)
+   and at a long cache (live 32704), SDPA timed under each backend.
 5. flash_bwd: flash_bwd_dq and flash_bwd_dkv against the plain backward,
    row by row, a probe that the check fails a backward with a tile left
-   out, and two flash_bwd_dkv calls at the main shape bitwise equal.
+   out, two flash_bwd_dkv and two flash_bwd_dq calls at the main shape
+   bitwise equal; device time beside SDPA's backward under each backend.
 6. slice: greedy ``generate`` at Llama-3-8B width (random weights from a
    seed, 32 layers, batch 4, prompt 1024, 128 new tokens), with the
    kernels' launch counts read around that one call, prefill logits of
@@ -52,7 +58,8 @@ Phases, one line each (any failure exits non-zero):
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Then one JSON line per kernel (time, launches, bound, plain and
-library yardsticks; ``launches`` counts one generate call for the forward
+library yardsticks, the fastest SDPA backend by name; ``launches``
+counts one generate call for the forward
 and decode kernels, one ``generate(kv_quant=True)`` call for the int8
 decode variant and one training step for the backward kernels; every
 path's counts are in ``launches_by_path``), the card line, and the last
@@ -71,6 +78,7 @@ import shutil
 import statistics
 import subprocess
 import time
+import warnings
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12     # H100 SXM float32 rate outside the tensor cores
@@ -126,15 +134,23 @@ def card_line() -> str:
 # Kernel entries of the `kernels` line -> (library, kernel functions).
 KERNEL_FUNCS = {
     "flash_fwd": ("flash_fwd", ("flash_fwd_kernel",)),
-    "flash_decode": ("flash_decode", ("decode_partial", "decode_combine")),
-    "flash_decode_int8": ("flash_decode", ("decode_partial", "decode_combine")),
+    "flash_decode": ("flash_decode", ("flash_decode_kernel", "flash_decode_merge")),
+    "flash_decode_int8": ("flash_decode", ("flash_decode_kernel", "flash_decode_merge")),
     "flash_bwd_dq": ("flash_bwd", ("flash_bwd_dq_kernel",)),
     "flash_bwd_dkv": ("flash_bwd", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_sum_kernel")),
 }
-# The redesigned kernels and the instructions their SASS must hold:
-# HGMMA (wgmma) and UTMALDG (TMA tensor loads).
-SASS_REQUIRED = {"flash_fwd": ("flash_fwd_kernel",),
-                 "flash_bwd": ("flash_bwd_dkv_kernel",)}
+# The redesigned kernels and the instructions their SASS must hold: HGMMA
+# (wgmma) and UTMALDG (TMA tensor loads); the decode kernel's scores run on
+# mma.sync (HMMA) for bf16 and int8 caches (an f32 cache keeps f32
+# products on the CUDA cores: no HMMA there).  SASS_COUNT: instantiations
+# each must show (d = 64 and 128; decode: four query/cache type pairs x two
+# head dims x four row counts).
+SASS_REQUIRED = {"flash_fwd": {"flash_fwd_kernel": ("HGMMA", "UTMALDG")},
+                 "flash_bwd": {"flash_bwd_dkv_kernel": ("HGMMA", "UTMALDG"),
+                               "flash_bwd_dq_kernel": ("HGMMA", "UTMALDG")},
+                 "flash_decode": {"flash_decode_kernel": ("UTMALDG", "HMMA")}}
+SASS_COUNT = {"flash_fwd_kernel": 2, "flash_bwd_dkv_kernel": 2, "flash_bwd_dq_kernel": 2,
+              "flash_decode_kernel": 32}
 
 
 def ptxas_report(build):
@@ -176,13 +192,14 @@ def ptxas_report(build):
 
 def sass_check(build):
     """Fail unless every instantiation of the redesigned kernels issues
-    HGMMA and UTMALDG (``cuobjdump -sass`` of the built libraries)."""
+    the instructions of SASS_REQUIRED (``cuobjdump -sass`` of the built
+    libraries), and each kernel shows SASS_COUNT instantiations."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     tool = shutil.which("cuobjdump") or os.path.join(CUDA_HOME or "", "bin", "cuobjdump")
     if not os.path.exists(tool):
         fail("cuobjdump not found (the CUDA toolkit's; needed for the SASS check)")
-    seen = []
+    seen = {}
     for lib, funcs in SASS_REQUIRED.items():
         sass = subprocess.run([tool, "-sass", build.so_path(lib)], capture_output=True,
                               text=True, timeout=300, check=True).stdout
@@ -191,24 +208,34 @@ def sass_check(build):
             f = next((f for f in funcs if f"{len(f)}{f}" in name), None)
             if f is None:
                 continue
-            counts = {op: len(re.findall(rf"\b{op}\b", section)) for op in ("HGMMA", "UTMALDG")}
+            ops = funcs[f]
+            if f == "flash_decode_kernel" and "flash_decode_kernelIff" in name:
+                ops = tuple(op for op in ops if op != "HMMA")   # f32 cache: f32 products
+            counts = {op: len(re.findall(rf"\b{op}\b", section)) for op in ops}
             if not all(counts.values()):
-                fail(f"SASS of {name}: {counts} (HGMMA and UTMALDG required)")
-            d = re.search(r"ILi(\d+)E", name)[1]
-            seen.append(f"{f}<{d}> {counts}")
-    if len(seen) < 4:
-        fail(f"SASS check found {seen}: expected d=64 and d=128 of each kernel")
-    print("build: SASS " + "; ".join(seen), flush=True)
+                fail(f"SASS of {name}: {counts} ({' and '.join(ops)} required)")
+            seen.setdefault(f, []).append(counts)
+    short = {f: len(seen.get(f, [])) for f, n in SASS_COUNT.items() if len(seen.get(f, [])) != n}
+    if short:
+        fail(f"SASS check found {short} instantiations, expected {SASS_COUNT}")
+    print("build: SASS " + "; ".join(
+        f"{f} x{len(c)} (fewest per instantiation: "
+        f"{ {op: min(x[op] for x in c if op in x) for op in c[0]} })"
+        for f, c in seen.items()), flush=True)
 
 
 def smem_dynamic(build):
-    """Dynamic shared memory per block at d=128 of the redesigned kernels,
-    from their C interfaces."""
+    """Dynamic shared memory per block at d=128 of the redesigned kernels
+    (the decode kernel's at its main-path instantiation: bf16 cache, up to
+    4 rows a group), from their C interfaces."""
     import ctypes
 
     fwd = build.function("flash_fwd", "tgt_flash_fwd_smem_bytes", [ctypes.c_int])
+    dq = build.function("flash_bwd", "tgt_flash_bwd_dq_smem_bytes", [ctypes.c_int])
     dkv = build.function("flash_bwd", "tgt_flash_bwd_dkv_smem_bytes", [ctypes.c_int])
-    return {"flash_fwd": fwd(128), "flash_bwd_dkv": dkv(128)}
+    dec = build.function("flash_decode", "tgt_flash_decode_smem_bytes", [])
+    return {"flash_fwd": fwd(128), "flash_bwd_dq": dq(128), "flash_bwd_dkv": dkv(128),
+            "flash_decode": dec(), "flash_decode_int8": dec()}
 
 
 def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
@@ -246,6 +273,65 @@ def device_ms(torch, fn, reps: int, warmup: int = 2) -> float:
             dev = getattr(e, "self_device_time_total", None)
             total += e.self_cuda_time_total if dev is None else dev
     return total / 1e3 / reps
+
+
+def sdpa_backends(torch, sets, causal: bool, reps: int, dout=None):
+    """The library yardstick: device time of one
+    ``scaled_dot_product_attention`` call (``sets``: ``(q [b, h, s, d], k,
+    v [b, g, s_k, d])`` tuples, cycled call by call as the kernel's timing
+    cycles its caches; with ``dout``, the backward of the first set: the
+    three gradients) under each backend that accepts it, through
+    ``torch.nn.attention.sdpa_kernel``.  FLASH_ATTENTION gets K/V expanded
+    to ``h`` heads outside the timed region; the others take GQA as it is,
+    or expanded where they refuse it.  Returns ``({backend: ms or None},
+    fastest backend, its ms)``."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    r = sets[0][0].shape[1] // sets[0][1].shape[1]
+    expanded = [(q, k.repeat_interleave(r, 1), v.repeat_interleave(r, 1)) for q, k, v in sets]
+    out = {}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")   # a refused backend warns, then raises
+        for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION"):
+            out[name] = None
+            forms = [(expanded, False)] if name == "FLASH_ATTENTION" else [(sets, True),
+                                                                           (expanded, False)]
+            for form, gqa in forms:
+                it = {"i": 0}
+                try:
+                    with sdpa_kernel(getattr(SDPBackend, name)):
+                        if dout is None:
+                            def call():
+                                it["i"] = (it["i"] + 1) % len(form)
+                                q, k, v = form[it["i"]]
+                                F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                               enable_gqa=gqa)
+                        else:
+                            qg, kg, vg = (t.detach().requires_grad_() for t in form[0])
+                            o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal,
+                                                               enable_gqa=gqa)
+
+                            def call():
+                                torch.autograd.grad(o, (qg, kg, vg), dout, retain_graph=True)
+                        call()
+                        torch.cuda.synchronize()
+                        # The profiler has read a backend's kernels as 0 ms
+                        # once: measure again, else leave the backend out.
+                        for _ in range(2):
+                            ms = device_ms(torch, call, reps)
+                            if ms > 0:
+                                out[name] = ms
+                                break
+                    break
+                except RuntimeError:
+                    continue
+    del expanded
+    done = {n: t for n, t in out.items() if t is not None}
+    if not done:
+        fail("no SDPA backend took the yardstick call")
+    best = min(done, key=done.get)
+    return out, best, done[best]
 
 
 def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
@@ -337,7 +423,51 @@ def decode_bound(b, nh, nkv, hd, live, g, cache_bytes_per_elem, scales):
     return bound(flops, nbytes, PEAK_F32_FLOPS)
 
 
-def phase_decode(torch, tfa, tg, card, gqa_sdpa):
+def decode_graph_replay(torch, tfa, tg, card, worst) -> None:
+    """One decode call at the generate cell's shape (cache [4, 1152, 8,
+    128], g=1) captured in a CUDA graph with a device pos0, replayed after
+    writing three live lengths into it: each replay must equal the eager
+    host-int call bitwise and the plain version within DECODE_TOL."""
+    for kind in ("bf16", "int8"):
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        q = torch.randn(4, 1, 32, 128, generator=gen, device="cuda").bfloat16()
+        if kind == "int8":
+            ck, ks = int8_cache(torch, tg, gen, 4, 1152, 8, 128)
+            cv, vs = int8_cache(torch, tg, gen, 4, 1152, 8, 128)
+            kw = dict(k_scale=ks, v_scale=vs)
+        else:
+            ck, cv = (torch.randn(4, 1152, 8, 128, generator=gen, device="cuda").bfloat16()
+                      for _ in range(2))
+            kw = {}
+        pos = torch.tensor(1024, dtype=torch.int32, device="cuda")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            tfa.flash_decode_attention(q, ck, cv, pos, **kw)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = tfa.flash_decode_attention(q, ck, cv, pos, **kw)
+        errs = []
+        for p in (1087, 1024, 1151):
+            pos.fill_(p)
+            graph.replay()
+            want = tfa.flash_decode_attention(q, ck, cv, p, **kw)
+            ref = tfa.flash_decode_reference(q, ck, cv, p, **kw)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            worst[kind] = max(worst[kind], err)
+            if not torch.equal(out, want) or not err <= DECODE_TOL:
+                fail(f"flash_decode {kind} graph replay at pos0={p}: equal to the eager "
+                     f"call {torch.equal(out, want)}, max abs err {err} (tol {DECODE_TOL})")
+            errs.append(err)
+        print(f"flash_decode {kind} graph replay: one capture, pos0 1087/1024/1151 written "
+              f"to the device scalar, each equal to the eager call bitwise, max abs err "
+              f"{max(errs):.3e} (tol {DECODE_TOL}) [{card}]", flush=True)
+        del graph
+
+
+def phase_decode(torch, tfa, tg, card):
     """The decode kernel against its plain version, bf16 and int8 caches,
     at every shape the generation phases give it (the speculative phase's
     hd-64 draft decode and 20-row verify at b=1 included); timed at the
@@ -378,15 +508,23 @@ def phase_decode(torch, tfa, tg, card, gqa_sdpa):
                 cv = torch.randn(b, max_len, nkv, hd, generator=gen, device="cuda").bfloat16()
                 kw = dict(window=window)
             out = tfa.flash_decode_attention(q, ck, cv, pos0, **kw)
+            # The same call with pos0 as a device scalar: the same bits.
+            dev = tfa.flash_decode_attention(
+                q, ck, cv, torch.tensor(pos0, dtype=torch.int32, device="cuda"), **kw)
             ref = tfa.flash_decode_reference(q, ck, cv, pos0, **kw)
             torch.cuda.synchronize()
             err = (out - ref).abs().max().item()
             worst[kind] = max(worst[kind], err)
             if not err <= DECODE_TOL:
                 fail(f"flash_decode {kind} {name}: max abs err {err} (tol {DECODE_TOL})")
+            if not torch.equal(out, dev):
+                fail(f"flash_decode {kind} {name}: a device pos0 gives other bits than "
+                     f"the host int")
             print(f"flash_decode {kind} {name}: cache=[{b},{max_len},{nkv},{hd}] g={g} "
                   f"rows/kv head={g * nh // nkv} pos0={pos0} window={window} "
-                  f"max_abs_err={err:.3e} (tol {DECODE_TOL}) [{card}]", flush=True)
+                  f"max_abs_err={err:.3e} (tol {DECODE_TOL}); device pos0 bitwise equal "
+                  f"[{card}]", flush=True)
+    decode_graph_replay(torch, tfa, tg, card, worst)
 
     # Timing at the main path's shape: g=1 at live length 1088 (the middle
     # of the decode run's 1025..1152), cycling four caches (76 MB of bf16 >
@@ -442,21 +580,24 @@ def phase_decode(torch, tfa, tg, card, gqa_sdpa):
         q8_plain_ms = device_ms(torch, cycle(lambda d: tfa.flash_decode_reference(
             d["q"], d["qk"], d["qv"], pos0, k_scale=d["ks"], v_scale=d["vs"])),
             plain_reps, 1)
-        lib_ms = device_ms(torch, cycle(lambda d: gqa_sdpa(d["qt"], d["kt"], d["vt"],
-                                                           False)), reps)
+        lib_all, lib_best, lib_ms = sdpa_backends(
+            torch, [(d["qt"], d["kt"], d["vt"]) for d in sets], False, reps)
         bms, by = decode_bound(b, nh, nkv, hd, live, 1, 2, False)
         q8_bms, q8_by = decode_bound(b, nh, nkv, hd, live, 1, 1, True)
         print(f"flash_decode timing {shape}: cache=[{b},{max_len},{nkv},{hd}] live={live} "
               f"g=1, device time per call (wrapper call time on the host clock): "
               f"bf16: ms={ms:.4f} ({call_ms:.4f}) plain_ms={plain_ms:.4f} "
-              f"sdpa_ms={lib_ms:.4f} bound_ms={bms:.4f} ({by}); int8: ms={q8_ms:.4f} "
+              f"sdpa_ms={lib_ms:.4f} ({lib_best}; by backend {lib_all}) "
+              f"bound_ms={bms:.4f} ({by}); int8: ms={q8_ms:.4f} "
               f"({q8_call_ms:.4f}) plain_ms={q8_plain_ms:.4f} bound_ms={q8_bms:.4f} "
               f"({q8_by}) library_ms=None (no PyTorch call reads an int8 cache) "
               f"[{card}]", flush=True)
         timing[shape] = {
             "bf16": dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, lib_ms=lib_ms,
+                         lib_backend=lib_best, lib_by_backend=lib_all,
                          bound_ms=bms, bound_by=by),
             "int8": dict(ms=q8_ms, call_ms=q8_call_ms, plain_ms=q8_plain_ms, lib_ms=None,
+                         lib_backend=None, lib_by_backend=None,
                          bound_ms=q8_bms, bound_by=q8_by),
         }
         del sets
@@ -486,7 +627,7 @@ def bwd_rows(got, want):
     return (err / (BWD_ROW_TOL * scale + floor)).max().item(), typical, floor
 
 
-def phase_bwd(torch, tfa, card, gqa_sdpa):
+def phase_bwd(torch, tfa, card):
     """The two backward kernels against the plain backward on the card;
     timed at the training shape (one micro-batch of pipeline-1)."""
     cases = [
@@ -515,12 +656,15 @@ def phase_bwd(torch, tfa, card, gqa_sdpa):
         if name == "main":
             # No atomics: a second call gives the same bits.
             dk2, dv2 = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+            dq2 = tfa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
             torch.cuda.synchronize()
             if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
                 fail("flash_bwd_dkv: two calls on one input differ")
-            print(f"flash_bwd main: two flash_bwd_dkv calls bitwise equal [{card}]",
-                  flush=True)
-            del dk2, dv2
+            if not torch.equal(dq, dq2):
+                fail("flash_bwd_dq: two calls on one input differ")
+            print(f"flash_bwd main: two flash_bwd_dkv calls and two flash_bwd_dq calls "
+                  f"bitwise equal [{card}]", flush=True)
+            del dk2, dv2, dq2
         errs = {}
         for gname, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
             ratio, typical, floor = bwd_rows(got, want)
@@ -562,28 +706,30 @@ def phase_bwd(torch, tfa, card, gqa_sdpa):
             del cut
         if name not in ("main", "long12288"):
             continue
-        ms_dq = time_ms(torch, lambda: tfa.flash_bwd_dq(q, k, v, do, lse, delta, **kw), 10)
-        ms_dkv = time_ms(torch, lambda: tfa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw), 10)
+        dq_call = lambda: tfa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)  # noqa: E731
+        dkv_call = lambda: tfa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)  # noqa: E731
+        call_dq, call_dkv = time_ms(torch, dq_call, 10), time_ms(torch, dkv_call, 10)
+        ms_dq, ms_dkv = device_ms(torch, dq_call, 10), device_ms(torch, dkv_call, 10)
         plain_ms = time_ms(torch, lambda: tfa._reference_grads(
             q, k, v, do, lse, delta, True, scale, window), 3, 1)
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-        out = gqa_sdpa(qt, kt, vt, True)
-        dot = do.transpose(1, 2)
-        lib_ms = time_ms(torch, lambda: torch.autograd.grad(
-            out, (qt, kt, vt), dot, retain_graph=True), 10)
-        del out
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib_all, lib_best, lib_ms = sdpa_backends(torch, [(qt, kt, vt)], True, 10,
+                                                  dout=do.transpose(1, 2))
         pairs = fwd_pairs(s, True, window)
         reads = ["q", "k", "v", "do", "lse", "delta"]
         bq = bound(6.0 * b * h * d * pairs, attn_bytes(b, s, h, g, d, reads=reads,
                                                        writes=["dq"]))
         bkv = bound(8.0 * b * h * d * pairs, attn_bytes(b, s, h, g, d, reads=reads,
                                                         writes=["dk", "dv"]))
-        print(f"flash_bwd timing {name}: dq_ms={ms_dq:.4f} (bound {bq[0]:.4f}, {bq[1]}) "
-              f"dkv_ms={ms_dkv:.4f} (bound {bkv[0]:.4f}, {bkv[1]}) "
-              f"plain_ms={plain_ms:.4f} (all three grads) "
-              f"sdpa_bwd_ms={lib_ms:.4f} (all three grads) [{card}]", flush=True)
-        timing[name] = dict(dq=(ms_dq, bq), dkv=(ms_dkv, bkv), plain_ms=plain_ms,
-                            lib_ms=lib_ms)
+        print(f"flash_bwd timing {name}, device time per call (wrapper call time on "
+              f"the host clock): dq_ms={ms_dq:.4f} ({call_dq:.4f}; bound {bq[0]:.4f}, "
+              f"{bq[1]}) dkv_ms={ms_dkv:.4f} ({call_dkv:.4f}; bound {bkv[0]:.4f}, "
+              f"{bkv[1]}) plain_ms={plain_ms:.4f} (all three grads) "
+              f"sdpa_bwd_ms={lib_ms:.4f} ({lib_best}; all three grads; by backend "
+              f"{lib_all}) [{card}]", flush=True)
+        timing[name] = dict(dq=(ms_dq, bq, call_dq), dkv=(ms_dkv, bkv, call_dkv),
+                            plain_ms=plain_ms, lib_ms=lib_ms, lib_backend=lib_best,
+                            lib_by_backend=lib_all)
     return worst, timing
 
 
@@ -1168,8 +1314,8 @@ def main() -> None:
         return F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
 
     fwd = phase_fwd(torch, tfa, card, gqa_sdpa)
-    dec_err, dec = phase_decode(torch, tfa, tg, card, gqa_sdpa)
-    bwd_err, bwd = phase_bwd(torch, tfa, card, gqa_sdpa)
+    dec_err, dec = phase_decode(torch, tfa, tg, card)
+    bwd_err, bwd = phase_bwd(torch, tfa, card)
     launches, (cfg, model, prompt, out) = phase_slice(torch, tfa, tt, tg, card, args.seed)
     int8_launches, _ = phase_slice_int8(torch, tfa, tg, card, cfg, model, prompt, out)
     spec_launches = phase_speculative(torch, tfa, tt, tg, card, args.seed, cfg, model,
@@ -1195,21 +1341,29 @@ def main() -> None:
                 "launches_by_path": {p: n[name] for p, n in paths.items()},
                 "max_abs_err": dec_err[kind], "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                "library_ms": t["lib_ms"], "call_ms": t["call_ms"],
+                "library_ms": t["lib_ms"], "library_backend": t["lib_backend"],
+                "library_ms_by_backend": t["lib_by_backend"], "call_ms": t["call_ms"],
                 "long_cache": {"ms": long["ms"], "plain_ms": long["plain_ms"],
                                "bound_ms": long["bound_ms"],
-                               "library_ms": long["lib_ms"]}}
+                               "library_ms": long["lib_ms"],
+                               "library_backend": long["lib_backend"],
+                               "library_ms_by_backend": long["lib_by_backend"]}}
 
     def bwd_entry(name, key, line, also):
         main_bwd, long = bwd["main"], bwd["long12288"]
-        ms, (bms, by) = main_bwd[key]
+        ms, (bms, by), call = main_bwd[key]
         return {"name": name, "route": "cuda", "source": src + "flash_bwd.cu",
                 "replaces": f"{ref}:{line}", "also_replaces": f"{ref}:{also}",
                 "launches": train_launches[name], "max_abs_err": bwd_err[key],
-                "ms": ms, "plain_ms": main_bwd["plain_ms"], "bound_ms": bms,
-                "bound_by": by, "library_ms": main_bwd["lib_ms"],
-                "long_shape": {"ms": long[key][0], "plain_ms": long["plain_ms"],
-                               "bound_ms": long[key][1][0], "library_ms": long["lib_ms"]}}
+                "ms": ms, "call_ms": call, "plain_ms": main_bwd["plain_ms"],
+                "bound_ms": bms, "bound_by": by, "library_ms": main_bwd["lib_ms"],
+                "library_backend": main_bwd["lib_backend"],
+                "library_ms_by_backend": main_bwd["lib_by_backend"],
+                "long_shape": {"ms": long[key][0], "call_ms": long[key][2],
+                               "plain_ms": long["plain_ms"], "bound_ms": long[key][1][0],
+                               "library_ms": long["lib_ms"],
+                               "library_backend": long["lib_backend"],
+                               "library_ms_by_backend": long["lib_by_backend"]}}
 
     def shape_entry(row):
         return {k: row[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms")} | {
@@ -1240,7 +1394,10 @@ def main() -> None:
         k["ptxas"] = {f: resources[f] for f in KERNEL_FUNCS[k["name"]][1]}
         if k["name"] in smem:
             k["smem_dynamic_bytes"] = smem[k["name"]]
-    kernels[-1]["bitwise_repeat"] = True   # phase 5 fails otherwise
+    for k in kernels[-2:]:
+        k["bitwise_repeat"] = True   # phase 5 fails otherwise
+    for k in kernels[1:3]:
+        k["device_pos0_bitwise"] = k["graph_replay"] = True   # phase 4 fails otherwise
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -135,11 +135,13 @@ def test_flash_kernels_with_other_key_lengths(cuda_device, s, sk, causal):
     ro, rlse = tfa._reference_fwd(q, k, v, causal, scale, None)
     delta = tfa._delta(do, o)
     kw = dict(causal=causal, sm_scale=scale, window=None)
+    dq = tfa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
     dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
-    _, rdk, rdv = tfa._reference_grads(q, k, v, do, lse, delta, causal, scale, None)
+    rdq, rdk, rdv = tfa._reference_grads(q, k, v, do, lse, delta, causal, scale, None)
     torch.cuda.synchronize()
     assert (o.float() - ro.float()).abs().max().item() <= FWD_TOL
     assert (lse - rlse).abs().max().item() <= 2e-3
+    assert bwd_row_ratio(dq, rdq) <= 1.0
     for got, want in ((dk, rdk), (dv, rdv)):
         if causal and sk > s:
             # Keys past the last query: no query attends them.
@@ -166,6 +168,27 @@ def test_flash_bwd_dkv_is_bitwise_deterministic(cuda_device, b, s, h, g, d):
     second = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
     torch.cuda.synchronize()
     assert all(torch.equal(a, c) for a, c in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,g,d,window", [(2, 1024, 32, 8, 128, None),
+                                              (1, 4096, 4, 1, 128, None),
+                                              (2, 1000, 8, 2, 64, 300)])
+def test_flash_bwd_dq_is_bitwise_deterministic(cuda_device, b, s, h, g, d, window):
+    """dQ stays in registers across the key loop and is written once: no
+    atomics, so two calls give equal bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    q, do = (torch.randn(b, s, h, d, generator=gen, device=cuda_device).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(b, s, g, d, generator=gen, device=cuda_device).bfloat16()
+            for _ in range(2))
+    o, lse = tfa._flash_fwd(q, k, v, True, d ** -0.5, window)
+    delta = tfa._delta(do, o)
+    kw = dict(causal=True, sm_scale=d ** -0.5, window=window)
+    first = tfa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    second = tfa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
@@ -234,7 +257,7 @@ def test_backward_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
      (4, 600, 256, 128, torch.bfloat16), (2, 77, 9, 64, torch.float32),
      (5, 1000, None, 128, torch.bfloat16), (8, 500, 100, 64, torch.float32),
      (1, 500, None, 64, torch.bfloat16),
-     # Long caches: chunks grow past 64 keys (DECODE_BLOCKS).
+     # Long caches: chunks of many 64-key tiles (decode_split).
      (1, 19999, None, 128, torch.bfloat16), (5, 15000, 9000, 64, torch.float32)],
 )
 def test_flash_decode_kernel_matches_plain(cuda_device, g, pos0, window, hd, dtype):
@@ -347,3 +370,83 @@ def test_generation_on_the_card_raises_for_what_the_kernels_do_not_take(
         tg.prefill(cfg, model, prompt, 20)
     with pytest.raises(error, match=match):
         tg.generate(cfg, model, prompt, 2)
+
+
+def _decode_inputs(gen, b, g, nh, nkv, hd, L, kind, device):
+    """q and a cache of `kind` (bf16, f32 or int8 with scales) as keyword
+    arguments of flash_decode_attention."""
+    dtype = torch.float32 if kind == "f32" else torch.bfloat16
+    q = torch.randn(b, g, nh, hd, generator=gen, device=device).to(dtype)
+    if kind == "int8":
+        ck, ks = _int8_cache(gen, b, L, nkv, hd, device)
+        cv, vs = _int8_cache(gen, b, L, nkv, hd, device)
+        return q, ck, cv, dict(k_scale=ks, v_scale=vs)
+    ck, cv = (torch.randn(b, L, nkv, hd, generator=gen, device=device).to(dtype)
+              for _ in range(2))
+    return q, ck, cv, {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "kind,g,pos0,window,hd,L",
+    [("bf16", 1, 1087, None, 128, 1152), ("bf16", 5, 576, None, 128, 581),
+     ("bf16", 4, 600, 256, 128, 1152), ("f32", 2, 77, 9, 64, 1152),
+     ("int8", 1, 1087, None, 128, 1152), ("int8", 5, 300, 64, 64, 517),
+     ("bf16", 1, 19999, None, 128, 20000)],
+)
+def test_flash_decode_tensor_pos0_equals_host_int(cuda_device, kind, g, pos0, window,
+                                                  hd, L):
+    """pos0 as a 0-d int32 CUDA tensor: the kernel reads it on the device
+    and derives the same split, so the output has the host int's bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, ck, cv, sc = _decode_inputs(gen, 2, g, 8, 2, hd, L, kind, cuda_device)
+    host = tfa.flash_decode_attention(q, ck, cv, pos0, window=window, **sc)
+    dev = tfa.flash_decode_attention(
+        q, ck, cv, torch.tensor(pos0, dtype=torch.int32, device=cuda_device),
+        window=window, **sc)
+    ref = tfa.flash_decode_reference(q, ck, cv, pos0, window=window, **sc)
+    torch.cuda.synchronize()
+    assert torch.equal(host, dev)
+    assert (dev - ref).abs().max().item() <= DECODE_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_flash_decode_graph_replays_at_two_lengths(cuda_device, kind):
+    """One decode call captured in a CUDA graph with a device pos0, replayed
+    after writing two live lengths into it: each replay equals the eager
+    call at that length (the grid does not depend on pos0)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    q, ck, cv, sc = _decode_inputs(gen, 4, 1, 32, 8, 128, 1152, kind, cuda_device)
+    pos = torch.tensor(100, dtype=torch.int32, device=cuda_device)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # warm-up: build, work-list caches
+        tfa.flash_decode_attention(q, ck, cv, pos, **sc)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tfa.flash_decode_attention(q, ck, cv, pos, **sc)
+    for p in (1000, 100, 1151):
+        pos.fill_(p)
+        graph.replay()
+        want = tfa.flash_decode_attention(q, ck, cv, p, **sc)
+        ref = tfa.flash_decode_reference(q, ck, cv, p, **sc)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+        assert (out - ref).abs().max().item() <= DECODE_TOL
+
+
+@pytest.mark.cuda
+def test_flash_decode_tensor_pos0_is_clamped(cuda_device):
+    """A device pos0 past the cache is clamped to max_len - g, as the
+    reference's index maps clamp (a host int is refused instead)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q, ck, cv, _ = _decode_inputs(gen, 1, 2, 8, 2, 128, 300, "bf16", cuda_device)
+    big = torch.tensor(10_000, dtype=torch.int32, device=cuda_device)
+    got = tfa.flash_decode_attention(q, ck, cv, big)
+    want = tfa.flash_decode_attention(q, ck, cv, 298)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="outside the cache"):
+        tfa.flash_decode_attention(q, ck, cv, 299)

@@ -207,6 +207,114 @@ def test_flash_decode_matches_jax(g, pos0, window, nh, nkv):
     assert tfa.flash_decode_attention.launches == before
 
 
+@pytest.mark.parametrize(
+    "g,pos0,window,nh,nkv,hd,dtype",
+    [
+        (1, 0, None, 4, 2, 128, torch.float32),
+        (1, 255, None, 8, 2, 128, torch.bfloat16),
+        (5, 200, None, 8, 2, 128, torch.bfloat16),   # 20 rows per kv head
+        (5, 251, 40, 4, 1, 64, torch.float32),
+        (2, 130, 17, 8, 8, 64, torch.bfloat16),
+        (4, 99, None, 4, 2, 64, torch.float32),
+    ],
+)
+def test_flash_decode_tensor_pos0_equals_int_and_jax(g, pos0, window, nh, nkv, hd, dtype):
+    """pos0 as a 0-d int32 tensor gives the host int's bits, and both equal
+    the reference kernel fed ``jnp.asarray(pos0, jnp.int32)``.  bfloat16
+    inputs are held in float32 by both sides (the kernels' arithmetic), so
+    the float32 tolerance holds."""
+    rng = np.random.default_rng(8)
+    b, max_len = 2, 256
+    mk = lambda *shape: rng.standard_normal(shape, dtype=np.float32)  # noqa: E731
+    q, ck, cv = mk(b, g, nh, hd), mk(b, max_len, nkv, hd), mk(b, max_len, nkv, hd)
+    tq, tk, tv = (torch.from_numpy(a).to(dtype) for a in (q, ck, cv))
+    jq, jk, jv = (jnp.asarray(a.float().numpy()).astype(
+        jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32) for a in (tq, tk, tv))
+    ref = jfa.flash_decode_attention(jq, jk, jv, jnp.asarray(pos0, jnp.int32),
+                                     window=window, interpret=True)
+    host = tfa.flash_decode_attention(tq, tk, tv, pos0, window=window)
+    dev = tfa.flash_decode_attention(tq, tk, tv, torch.tensor(pos0, dtype=torch.int32),
+                                     window=window)
+    assert torch.equal(host, dev)
+    np.testing.assert_allclose(dev.numpy(), np.asarray(ref, np.float32), atol=F32_TOL, rtol=0)
+
+
+# The decode kernel's split of the live keys (``decode_split``, mirrored
+# from csrc/flash_decode.cu): the generate cell (b=4, nkv=8, cache 1152,
+# g=1), the long timing cache (32768), the speculative draft (b=1, 581,
+# hd 64) and verify (g=5: 20 rows, one group), the CUDA tests' shapes, a
+# window, and a grid of one block row.
+_SPLIT_SHAPES = [
+    # (b, nkv, rows, max_len, g, window)
+    (4, 8, 4, 1152, 1, None),
+    (4, 8, 4, 32768, 1, None),
+    (1, 8, 4, 581, 1, None),
+    (1, 8, 20, 581, 5, None),
+    (2, 2, 4, 20000, 1, None),
+    (2, 2, 20, 20000, 5, 9000),
+    (4, 8, 4, 1152, 1, 256),
+    (1, 1, 40, 700, 8, None),
+]
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("b,nkv,rows,max_len,g,window", _SPLIT_SHAPES)
+def test_decode_split_covers_the_live_keys_once(b, nkv, rows, max_len, g, window, quant):
+    """For every live length the chunks cover [first, pos0 + g) exactly once,
+    in whole 64-key units but the last, and never outnumber the grid's split
+    axis (sized from max_len alone)."""
+    ngroups, group_rows = tfa.decode_groups(rows)
+    assert ngroups * group_rows >= rows and group_rows <= tfa.DECODE_ROWS
+    want = tfa.decode_want(b, nkv, ngroups, 132, quant)
+    zmax = tfa.decode_zmax(max_len, want)
+    step = 1 if max_len <= 2048 else 97
+    for pos0 in list(range(0, max_len - g + 1, step)) + [max_len - g]:
+        first, chunk, nsplit = tfa.decode_split(pos0, g, window, want)
+        end = pos0 + g
+        assert first == (0 if window is None else max(pos0 - window + 1, 0))
+        assert chunk % tfa.DECODE_KEYS == 0 and 1 <= nsplit <= zmax
+        starts = [first + i * chunk for i in range(nsplit)]
+        covered = [k for st in starts for k in range(st, min(st + chunk, end))]
+        assert covered == list(range(first, end))
+        # One wave: the blocks of a call fit one (int8: two) to an SM.
+        wave = tfa.DECODE_WAVE[quant] * 132
+        assert b * nkv * ngroups * nsplit <= max(wave, b * nkv * ngroups)
+
+
+@pytest.mark.parametrize("b,s,sk,h,causal,window", [
+    (2, 1024, 1024, 32, True, None), (1, 12288, 12288, 4, True, None),
+    (2, 17, 17, 8, True, None), (2, 129, 129, 4, True, None),
+    (2, 1000, 1000, 8, True, 300), (2, 200, 200, 4, False, None),
+    (2, 333, 200, 8, True, None), (2, 130, 1000, 8, True, None),
+])
+def test_dq_schedule_runs_every_tile_once(b, s, sk, h, causal, window):
+    """flash_bwd_dq's work list (``fwd_schedule`` with 128-row query tiles
+    and 64-key K/V tiles): every (head, query tile) once, at most one block
+    per SM, each block a contiguous run."""
+    offsets, tiles = tfa.fwd_schedule(b, s, sk, h, causal, window, 132,
+                                      tfa.DQ_ROWS, tfa.DQ_KEYS)
+    assert sorted(tiles) == list(range(b * h * -(-s // tfa.DQ_ROWS)))
+    assert offsets[0] == 0 and offsets[-1] == len(tiles)
+    assert len(offsets) - 1 <= 132
+    assert all(a < e for a, e in zip(offsets, offsets[1:]))
+
+
+@pytest.mark.parametrize("b,s,h", [(2, 1024, 32), (1, 12288, 4)])
+def test_dq_schedule_balances_the_timing_shapes(b, s, h):
+    """Key tiles (64 keys) per block within 1.15x of the mean at the dQ
+    timing shapes: the causal tiles' work grows along the sequence, and the
+    longest-first list spreads it."""
+    offsets, tiles = tfa.fwd_schedule(b, s, s, h, True, None, 132,
+                                      tfa.DQ_ROWS, tfa.DQ_KEYS)
+    nqt = -(-s // tfa.DQ_ROWS)
+
+    def work(t):   # causal: query tile q reads key tiles 0 .. 2q+1
+        return 2 * (nqt - t // (b * h))
+
+    loads = [sum(work(t) for t in tiles[a:e]) for a, e in zip(offsets, offsets[1:])]
+    assert max(loads) <= 1.15 * sum(loads) / 132
+
+
 def test_decode_reference_per_row_pos0_matches_jax_dense():
     """The ``[b]`` pos0 branch (the serving pool's dense read) against
     the reference's ``_attend_chunk`` dense path."""
@@ -266,8 +374,13 @@ def test_gates_and_refusals():
         tfa.flash_decode_attention(t, c, c, 0, k_scale=s, v_scale=s)
     with pytest.raises(ValueError, match="window"):
         tfa.flash_attention(t, c, c, causal=False, window=4)
-    with pytest.raises(TypeError, match="host int"):
-        tfa.flash_decode_attention(t, c, c, torch.tensor(3, dtype=torch.int32))
+    # pos0: a host int or a 0-d int32 tensor (the reference's runtime
+    # scalar); other tensors are refused.
+    for bad in (torch.tensor(3), torch.tensor([3], dtype=torch.int32)):
+        with pytest.raises(TypeError, match="0-d int32"):
+            tfa.flash_decode_attention(t, c, c, bad)
+    with pytest.raises(ValueError, match="outside the cache"):
+        tfa.flash_decode_attention(t, c, c, torch.tensor(8, dtype=torch.int32))
     with pytest.raises(ValueError, match="outside the cache"):
         tfa.flash_decode_attention(t, c, c, 8)
 

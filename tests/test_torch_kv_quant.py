@@ -198,3 +198,34 @@ def test_decode_chunk_quant_equals_sequential_steps(gqa):
     for a, b in zip(c1.k + c1.v, c2.k + c2.v):
         d = (a.int() - b.int()).abs()
         assert d.max() <= 1 and (d > 0).float().mean() <= 1e-3
+
+
+@pytest.mark.parametrize(
+    "g,pos0,window,hd,qdtype",
+    [(1, 300, None, 128, torch.bfloat16), (5, 250, 64, 64, torch.float32),
+     (2, 0, None, 64, torch.bfloat16)],
+)
+def test_int8_decode_tensor_pos0_equals_int_and_jax(g, pos0, window, hd, qdtype):
+    """An int8 cache with pos0 as a 0-d int32 tensor: the host int's bits,
+    and the reference kernel's output for ``jnp.asarray(pos0, jnp.int32)``
+    within the int8 read's tolerance."""
+    b, S, nkv, r = 2, 512, 2, 4
+    rng = np.random.default_rng(11 + g)
+    q = rng.standard_normal((b, g, nkv * r, hd)).astype(np.float32)
+    tq = torch.from_numpy(q).to(qdtype)
+    ck, cks = (np.array(a) for a in jg._quant_rows(
+        jnp.asarray(rng.standard_normal((b, S, nkv, hd)).astype(np.float32))))
+    cv, cvs = (np.array(a) for a in jg._quant_rows(
+        jnp.asarray(rng.standard_normal((b, S, nkv, hd)).astype(np.float32))))
+    cks, cvs = (np.ascontiguousarray(a.transpose(0, 2, 1)) for a in (cks, cvs))
+    ref = jfa.flash_decode_attention(
+        jnp.asarray(tq.float().numpy()), jnp.asarray(ck), jnp.asarray(cv),
+        jnp.asarray(pos0, jnp.int32), window=window, k_scale=jnp.asarray(cks),
+        v_scale=jnp.asarray(cvs), interpret=True,
+    )
+    kw = dict(window=window, k_scale=torch.from_numpy(cks), v_scale=torch.from_numpy(cvs))
+    tk, tv = torch.from_numpy(ck), torch.from_numpy(cv)
+    host = tfa.flash_decode_attention(tq, tk, tv, pos0, **kw)
+    dev = tfa.flash_decode_attention(tq, tk, tv, torch.tensor(pos0, dtype=torch.int32), **kw)
+    assert torch.equal(host, dev)
+    np.testing.assert_allclose(dev.numpy(), np.asarray(ref), atol=DECODE_TOL, rtol=DECODE_TOL)

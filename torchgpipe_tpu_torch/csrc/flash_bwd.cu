@@ -20,14 +20,31 @@
 //
 // No atomics in either kernel, so the results are bitwise equal run to run.
 //
-// * flash_bwd_dq (FlashAttention-2's dQ pass on mma.sync, mma_tiles.cuh):
-//   one block of 4 warps per (batch*head, 64-row query tile), each warp 16
-//   query rows.  Q and dO stay in shared memory; K/V tiles of 64 keys
-//   stream through a two-stage cp.async ring over the live tiles only (the
-//   window's first tile .. the diagonal).  Per tile S and dP accumulate in
-//   registers, P = exp(S*scale - lse) and dS = P * (dP - delta) are formed
-//   in place and packed straight into A fragments for dQ += dS K (K's B
-//   fragments via ldmatrix.trans).
+// * flash_bwd_dq (wgmma on swizzled tiles fed by TMA, hopper_tiles.cuh,
+//   the design of flash_fwd).  One persistent block per SM walks a
+//   longest-first list of 128-row query tiles (ops/flash_attention.py
+//   fwd_schedule with rows=128, keys=64: a tile's cost is its live key
+//   tiles, which grow along a causal sequence, so one block per tile left
+//   the launch waiting on its heaviest blocks).  Warpgroups 0 and 1 are
+//   consumers, 64 query rows each, reading their rows' lse and delta from
+//   device memory; one thread of warpgroup 2 is the producer: it TMA-loads
+//   each tile's Q and dO once, into one of two slots so that the next
+//   tile's arrive while this one runs, and keeps a three-stage ring of
+//   64-key K/V tiles in flight over the live key tiles only (the window's
+//   first tile .. the diagonal), across tiles.  Each consumer warp reads
+//   its 16 rows of Q and dO once per tile into registers as wgmma A
+//   fragments (then frees the slot), so S = Q K^T and dP = dO V^T run as RS
+//   wgmma reading only K and V from shared memory (an SS m64n64 product
+//   reads as many operand bytes as the tensor cores consume).  P =
+//   exp2(S * scale * log2e - lse) and dS = P * (dP - delta) are formed on
+//   the accumulators (branch-free masks on edge tiles only) and packed as
+//   A fragments, so dQ += dS K runs from registers too, with K read
+//   MN-major (the transpose bit).  The two consumers take turns to start S
+//   and dP (named barriers, as flash_fwd's ping-pong).  dQ ([64, d] f32)
+//   stays in registers across the key loop and is written once, as bf16
+//   times the scale: no atomics, no partials.  The consumers take 240
+//   registers (setmaxnreg), the producer 24.  A warpgroup skips a key tile
+//   that none of its rows attends.
 // * flash_bwd_dkv (wgmma on swizzled tiles fed by TMA, hopper_tiles.cuh).
 //   - The schedule.  The causal work of a 128-key tile grows with its
 //     distance from the end, so one block per key tile leaves the launch
@@ -62,202 +79,314 @@
 //     outputs and the group sum after them.
 // Element masks (causal, window, ragged query and key edges) run only on
 // tiles that straddle an edge; rows and keys past the end arrive as zeros
-// (cp.async zero-fill in flash_bwd_dq, TMA's out-of-bounds fill in
-// flash_bwd_dkv) and are masked.  GQA: query head i reads kv head i / (h/g).
+// (TMA's out-of-bounds fill) and are masked.  GQA: query head i reads kv head i / (h/g).
 
 #include <math_constants.h>
 
 #include "hopper_tiles.cuh"
-#include "mma_tiles.cuh"
 
 namespace {
 
-using namespace tiles;
 using namespace hopper;
 
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// flash_bwd_dq: 64 query rows per block, 64-key K/V tiles.
-constexpr int DQ_BQ = 16 * WARPS;
-constexpr int DQ_BK = 64;
+// ---- flash_bwd_dq ----------------------------------------------------------
 
+constexpr int DQ_BQ = 128;       // query rows per tile: two consumer warpgroups of 64
+constexpr int DQ_BK = 64;        // keys per K/V tile
+constexpr int DQ_STAGES = 3;
+constexpr int DQ_THREADS = 384;
+constexpr int DQ_TURN = 1;       // named barriers 1, 2: consumer w's turn to start products
+
+// Q and dO in two slots (the next tile's load while this one runs) and a
+// three-stage K/V ring: 225 KB at d = 128.
 template <int D>
-struct DqLayout {
-  static constexpr int LD = D + 8;   // row pitch (bf16): ldmatrix conflict-free
-  static constexpr int TILE = DQ_BK * LD;
-  // Q, dO [BQ][LD]; K, V [2][BK][LD]
-  static constexpr size_t BYTES = size_t(2 * DQ_BQ * LD + 4 * TILE) * sizeof(bf16);
+struct DqSmem {
+  static constexpr int Q_TILE = DQ_BQ * D * 2;   // bytes of Q (or dO)
+  static constexpr int KV_TILE = DQ_BK * D * 2;  // bytes of K (or V)
+  static constexpr int Q = 0;                    // [slot][Q_TILE]
+  static constexpr int DO = 2 * Q_TILE;
+  static constexpr int K = 4 * Q_TILE;           // [stage][KV_TILE]
+  static constexpr int V = K + DQ_STAGES * KV_TILE;
+  static constexpr int BAR = V + DQ_STAGES * KV_TILE;
+  // q_full[2], q_empty[2], kv_full[S], kv_empty[S]
+  static constexpr int BYTES = BAR + (4 + 2 * DQ_STAGES) * 8;
+  static constexpr int ALLOC = BYTES + 1024;     // room to align the base
+};
+
+// One 128-row query tile of a dQ launch: tile i is query tile nqt-1-i/bhn
+// of head i%bhn (ops/flash_attention.py fwd_schedule with rows=128,
+// keys=64).  Its live key tiles are jt0 .. jt0+n-1.
+struct DqTile {
+  int bi, hi, kvh, q0, jt0, n;
+  __device__ __forceinline__ DqTile(int i, int bhn, int nqt, int h, int g, int s, int sk,
+                                    int causal, int window) {
+    const int bh = i % bhn;
+    bi = bh / h;
+    hi = bh % h;
+    kvh = hi / (h / g);
+    q0 = (nqt - 1 - i / bhn) * DQ_BQ;
+    int nkt = (sk + DQ_BK - 1) / DQ_BK;
+    jt0 = 0;
+    if (causal) {
+      nkt = min(nkt, (min(q0 + DQ_BQ, s) - 1) / DQ_BK + 1);
+      if (window > 0) jt0 = max(q0 - (window - 1), 0) / DQ_BK;
+    }
+    n = max(nkt - jt0, 0);   // 0: a windowed tile past the keys (dQ = 0)
+  }
 };
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dq, int s, int sk, int h, int g, float scale,
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const float* __restrict__ lse,
+                    const float* __restrict__ delta, const int* __restrict__ plan,
+                    bf16* __restrict__ dq, int b, int s, int sk, int h, int g, float scale,
                     int causal, int window) {
-  typedef DqLayout<D> L;
-  constexpr int BQ = DQ_BQ, BK = DQ_BK;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sO = sQ + BQ * L::LD;        // dO
-  bf16* sK = sO + BQ * L::LD;        // [2][BK][LD]
-  bf16* sV = sK + 2 * L::TILE;       // [2][BK][LD]
+  typedef DqSmem<D> L;
+  constexpr int NB = D / 64;         // 64-column blocks of a row
+  constexpr int BK = DQ_BK;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::BAR);   // [slot]
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* kv_full = q_empty + 2;
+  uint64_t* kv_empty = kv_full + DQ_STAGES;
+  const int bhn = b * h, nqt = (s + DQ_BQ - 1) / DQ_BQ;
+  const int first = plan[blockIdx.x], last = plan[blockIdx.x + 1];
+  const int* tiles = plan + gridDim.x + 1;
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
 
-  const int bh = blockIdx.x;
-  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
-  const int bi = bh / h, hi = bh % h;
-  const int kvh = hi / (h / g);
-  const int q0 = qt * BQ;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-
-  int nkt = (sk + BK - 1) / BK, jt0 = 0;
-  if (causal) {
-    nkt = min(nkt, (min(q0 + BQ, s) - 1) / BK + 1);
-    if (window > 0) jt0 = max(q0 - (window - 1), 0) / BK;
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], 8);     // one arrival per consumer warp
+    }
+    for (int i = 0; i < DQ_STAGES; ++i) {
+      mbar_init(&kv_full[i], 1);
+      mbar_init(&kv_empty[i], 8);
+    }
+    mbar_fence_init();
   }
-  const size_t qstride = size_t(h) * D, kstride = size_t(g) * D;
-  const size_t qoff = (size_t(bi) * s + q0) * qstride + size_t(hi) * D;
-  const bf16* kbase = k + size_t(bi) * sk * kstride + size_t(kvh) * D;
-  const bf16* vbase = v + size_t(bi) * sk * kstride + size_t(kvh) * D;
+  __syncthreads();
 
-  auto load_kv = [&](int jt, int stage) {
-    const int k0 = jt * BK;
-    load_tile<D, L::LD, BK, THREADS>(sK + stage * L::TILE, kbase + size_t(k0) * kstride,
-                                     kstride, sk - k0, tid);
-    load_tile<D, L::LD, BK, THREADS>(sV + stage * L::TILE, vbase + size_t(k0) * kstride,
-                                     kstride, sk - k0, tid);
-  };
-
-  load_tile<D, L::LD, BQ, THREADS>(sQ, q + qoff, qstride, s - q0, tid);
-  load_tile<D, L::LD, BQ, THREADS>(sO, dout + qoff, qstride, s - q0, tid);
-  load_kv(jt0, 0);
-  cp_async_commit();
-
-  // Per-thread rows of the warp's 16: r0 = lane/4 and r0 + 8; per n-tile
-  // of 8 keys/dims, columns 2*(lane%4) and +1.
-  const int r0 = lane >> 2, cq = (lane & 3) * 2;
-  const int qpos0 = q0 + warp * 16 + r0, qpos1 = qpos0 + 8;
-  const float sl2 = scale * LOG2E;   // scores in the log2 domain
-  const float* lrow = lse + size_t(bh) * s;
-  const float* drow = delta + size_t(bh) * s;
-  const float lse0 = qpos0 < s ? lrow[qpos0] * LOG2E : 0.f;
-  const float lse1 = qpos1 < s ? lrow[qpos1] * LOG2E : 0.f;
-  const float dl0 = qpos0 < s ? drow[qpos0] : 0.f;
-  const float dl1 = qpos1 < s ? drow[qpos1] : 0.f;
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  // ldmatrix lane addressing: matrix i = lane/8, row lane%8.
-  const int li = lane >> 3, lr = lane & 7;
-  const int arow = (warp * 16 + (li & 1) * 8 + lr) * L::LD + (li >> 1) * 8;
-
-  for (int jt = jt0; jt < nkt; ++jt) {
-    const int stage = (jt - jt0) & 1;
-    if (jt + 1 < nkt) {
-      load_kv(jt + 1, stage ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* tK = sK + stage * L::TILE;
-    const bf16* tV = sV + stage * L::TILE;
-
-    // S = Q K^T and dP = dO V^T, [16 rows x BK keys] per warp.
-    float sc[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-    for (int t = 0; t < BK / 8; ++t) {
-      sc[t][0] = sc[t][1] = sc[t][2] = sc[t][3] = 0.f;
-      dp[t][0] = dp[t][1] = dp[t][2] = dp[t][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qa[4], da[4];
-      ldmatrix_x4(qa, sQ + arow + kk * 16);
-      ldmatrix_x4(da, sO + arow + kk * 16);
-#pragma unroll
-      for (int j = 0; j < BK / 16; ++j) {
-        const int boff = (j * 16 + (li >> 1) * 8 + lr) * L::LD + kk * 16 + (li & 1) * 8;
-        uint32_t kb[4], vb[4];
-        ldmatrix_x4(kb, tK + boff);
-        mma16816(sc[2 * j], qa, kb[0], kb[1]);
-        mma16816(sc[2 * j + 1], qa, kb[2], kb[3]);
-        ldmatrix_x4(vb, tV + boff);
-        mma16816(dp[2 * j], da, vb[0], vb[1]);
-        mma16816(dp[2 * j + 1], da, vb[2], vb[3]);
+  if (wg == 2) {
+    // Producer: one thread.  Per tile it TMA-loads Q and dO into the
+    // tile's slot (freed by the tile before last), then keeps the K/V ring
+    // running over the tile's live key tiles, across tiles.
+    reg_dealloc<24>();
+    if (tid != 2 * 128) return;
+    int it = 0;
+    for (int x = first; x < last; ++x) {
+      const DqTile t(tiles[x], bhn, nqt, h, g, s, sk, causal, window);
+      const int xi = x - first, slot = xi & 1;
+      mbar_wait(&q_empty[slot], ((xi >> 1) & 1) ^ 1);
+      mbar_arrive_tx(&q_full[slot], 2 * L::Q_TILE);
+      for (int c = 0; c < NB; ++c) {
+        const int off = slot * L::Q_TILE + c * DQ_BQ * 128;
+        tma_load_4d(sm + L::Q + off, &tq, &q_full[slot], c * 64, t.hi, t.q0, t.bi);
+        tma_load_4d(sm + L::DO + off, &tdo, &q_full[slot], c * 64, t.hi, t.q0, t.bi);
       }
-    }
-
-    // P = exp(S*scale - lse); dS = P * (dP - delta), packed as A fragments.
-    const int k0 = jt * BK;
-    const bool edge = k0 + BK > sk || q0 + BQ > s ||
-                      (causal && (k0 + BK - 1 > q0 ||
-                                  (window > 0 && q0 + BQ - 1 - k0 >= window)));
-    uint32_t dsa[BK / 16][4];
-#pragma unroll
-    for (int t = 0; t < BK / 8; ++t) {
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool lo = e < 2;
-        float p = exp2f(sc[t][e] * sl2 - (lo ? lse0 : lse1));
-        if (edge && !attends(lo ? qpos0 : qpos1, k0 + t * 8 + cq + (e & 1), s, sk,
-                             causal, window))
-          p = 0.f;
-        ds[e] = p * (dp[t][e] - (lo ? dl0 : dl1));
+      for (int j = 0; j < t.n; ++j) {
+        const int cur = it + j, st = cur % DQ_STAGES;
+        const int k0 = (t.jt0 + j) * BK;
+        mbar_wait(&kv_empty[st], ((cur / DQ_STAGES) & 1) ^ 1);
+        mbar_arrive_tx(&kv_full[st], 2 * L::KV_TILE);
+        for (int c = 0; c < NB; ++c) {
+          const int off = st * L::KV_TILE + c * BK * 128;
+          tma_load_4d(sm + L::K + off, &tk, &kv_full[st], c * 64, t.kvh, k0, t.bi);
+          tma_load_4d(sm + L::V + off, &tv, &kv_full[st], c * 64, t.kvh, k0, t.bi);
+        }
       }
-      dsa[t >> 1][(t & 1) * 2] = pack_bf16(ds[0], ds[1]);
-      dsa[t >> 1][(t & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      it += t.n;
     }
-
-    // dQ += dS K (K as [keys, d]: B fragments by ldmatrix.trans).
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-      for (int np = 0; np < D / 16; ++np) {
-        uint32_t kb[4];
-        ldmatrix_x4_trans(kb, tK + (kk * 16 + (li & 1) * 8 + lr) * L::LD + np * 16 + (li >> 1) * 8);
-        mma16816(acc[2 * np], dsa[kk], kb[0], kb[1]);
-        mma16816(acc[2 * np + 1], dsa[kk], kb[2], kb[3]);
-      }
-    }
-    __syncthreads();  // the next prefetch overwrites this stage
+    return;
   }
 
-  if (qpos0 < s) {
-    bf16* dst = dq + qoff + size_t(warp * 16 + r0) * qstride + cq;
+  // Consumers: warpgroup w owns query rows q0 + 64w .. +63 of each tile.
+  reg_alloc<240>();
+  const int w = wg, warp = (tid >> 5) & 3;
+  const int rq = lane >> 2, cq = (lane & 3) * 2;
+  const float sl2 = scale * LOG2E;
+  const uint32_t base = smem_u32(sm);
+  const size_t qstride = size_t(h) * D;
+  // Ping-pong: the two consumers take turns to start S and dP (one turn per
+  // key tile, dead tiles included, so both take the same number), so one
+  // warpgroup's exponentials run while the other's products hold the
+  // tensor cores.  Warpgroup 1 gives warpgroup 0 its first turn and arrives
+  // after every turn but its last of the launch.
+  const int me = DQ_TURN + w, other = DQ_TURN + (w ^ 1);
+  if (w == 1) bar_arrive(DQ_TURN, 256);
+  int it = 0;
+  for (int x = first; x < last; ++x) {
+    const DqTile t(tiles[x], bhn, nqt, h, g, s, sk, causal, window);
+    const int xi = x - first, slot = xi & 1;
+    const int qw0 = t.q0 + 64 * w;
+    const int qpos0 = qw0 + warp * 16 + rq;
+    // This thread's two rows of lse (log2 units) and delta, read while the
+    // tile's Q/dO arrive.
+    const float* lrow = lse + (size_t(t.bi) * h + t.hi) * s;
+    const float* drow = delta + (size_t(t.bi) * h + t.hi) * s;
+    const float lse0 = qpos0 < s ? lrow[qpos0] * LOG2E : 0.f;
+    const float lse1 = qpos0 + 8 < s ? lrow[qpos0 + 8] * LOG2E : 0.f;
+    const float dl0 = qpos0 < s ? drow[qpos0] : 0.f;
+    const float dl1 = qpos0 + 8 < s ? drow[qpos0 + 8] : 0.f;
+    mbar_wait(&q_full[slot], (xi >> 1) & 1);
+    // At d = 128, this warp's 16 rows of Q and dO as A fragments of every
+    // k16 step, read once per tile through the swizzle; S and dP then read
+    // only K and V from shared memory, and the slot goes back to the
+    // producer at once.  (At d = 64 the same fragments gave wrong dQ on the
+    // H100, not understood yet; d = 64 reads Q and dO from shared memory.)
+    constexpr bool RS = D == 128;
+    const uint32_t qa = base + L::Q + slot * L::Q_TILE + w * 64 * 128;
+    const uint32_t oa = base + L::DO + slot * L::Q_TILE + w * 64 * 128;
+    uint32_t qf[D / 16][4], of[D / 16][4];
+    if constexpr (RS) {
+      const int li = lane >> 3, lr = lane & 7;
+      const int row = w * 64 + warp * 16 + (li & 1) * 8 + lr;   // of the 128-row tile
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) =
-          __floats2bfloat162_rn(acc[n][0] * scale, acc[n][1] * scale);
-  }
-  if (qpos1 < s) {
-    bf16* dst = dq + qoff + size_t(warp * 16 + r0 + 8) * qstride + cq;
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t o = (kk / 4) * DQ_BQ * 128 +
+                           swizzle<7>(row * 128 + ((kk % 4) * 16 + (li >> 1) * 8) * 2);
+        ldmatrix_x4(qf[kk], base + L::Q + slot * L::Q_TILE + o);
+        ldmatrix_x4(of[kk], base + L::DO + slot * L::Q_TILE + o);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&q_empty[slot]);
+    }
+    float dqa[D / 2];
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) =
-          __floats2bfloat162_rn(acc[n][2] * scale, acc[n][3] * scale);
+    for (int n = 0; n < D / 2; ++n) dqa[n] = 0.f;
+    for (int j = 0; j < t.n; ++j) {
+      const int cur = it + j, st = cur % DQ_STAGES;
+      const int k0 = (t.jt0 + j) * BK;
+      mbar_wait(&kv_full[st], (cur / DQ_STAGES) & 1);
+      const bool dead = qw0 >= s || (causal && (k0 > qw0 + 63 ||
+                                               (window > 0 && qw0 - (k0 + BK - 1) >= window)));
+      const bool edge = k0 + BK > sk || qw0 + 64 > s ||
+                        (causal && (k0 + BK - 1 > qw0 || (window > 0 && qw0 + 63 - k0 >= window)));
+      const uint32_t ka = base + L::K + st * L::KV_TILE;
+      const uint32_t va = base + L::V + st * L::KV_TILE;
+      uint32_t dsa[BK / 16][4];
+      const bool pass = w == 0 || x + 1 < last || j + 1 < t.n;   // arrive after this turn
+      bar_sync(me, 256);
+      if (!dead) {
+        // S = Q K^T and dP = dO V^T: [64 rows x 64 keys] each.
+        float sc[BK / 2], dp[BK / 2];
+        fence_regs(sc);
+        fence_regs(dp);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off = (kk % 4) * 32u;
+          if constexpr (RS)
+            wgmma_rs<BK, 0>(sc, qf[kk], desc_k(ka + (kk / 4) * BK * 128 + off), kk > 0);
+          else
+            wgmma_ss<BK, 0>(sc, desc_k(qa + (kk / 4) * DQ_BQ * 128 + off),
+                            desc_k(ka + (kk / 4) * BK * 128 + off), kk > 0);
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t off = (kk % 4) * 32u;
+          if constexpr (RS)
+            wgmma_rs<BK, 0>(dp, of[kk], desc_k(va + (kk / 4) * BK * 128 + off), kk > 0);
+          else
+            wgmma_ss<BK, 0>(dp, desc_k(oa + (kk / 4) * DQ_BQ * 128 + off),
+                            desc_k(va + (kk / 4) * BK * 128 + off), kk > 0);
+        }
+        wgmma_commit();
+        if (pass) bar_arrive(other, 256);
+
+        // P = exp2(S * scale * log2e - lse) while dP finishes; masked
+        // pairs (only on tiles that straddle an edge) get p = 0.
+        wgmma_wait<1>();
+        fence_regs(sc);
+        if (edge) {
+#pragma unroll
+          for (int t8 = 0; t8 < BK / 8; ++t8)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (!visible(qpos0 + (e >> 1) * 8, k0 + t8 * 8 + cq + (e & 1), s, sk, causal,
+                           window))
+                sc[4 * t8 + e] = -CUDART_INF_F;
+        }
+#pragma unroll
+        for (int t8 = 0; t8 < BK / 8; ++t8)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[4 * t8 + e] = exp2_fast(fmaf(sc[4 * t8 + e], sl2, e < 2 ? -lse0 : -lse1));
+        // dS = P * (dP - delta), packed as A fragments.
+        wgmma_wait<0>();
+        fence_regs(dp);
+#pragma unroll
+        for (int t8 = 0; t8 < BK / 8; ++t8) {
+          float ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            ds[e] = sc[4 * t8 + e] * (dp[4 * t8 + e] - (e < 2 ? dl0 : dl1));
+          dsa[t8 >> 1][(t8 & 1) * 2] = bf16x2(ds[0], ds[1]);
+          dsa[t8 >> 1][(t8 & 1) * 2 + 1] = bf16x2(ds[2], ds[3]);
+        }
+      } else if (pass) {
+        bar_arrive(other, 256);
+      }
+      if constexpr (!RS) {
+        __syncwarp();
+        if (j + 1 == t.n && lane == 0) mbar_arrive(&q_empty[slot]);   // the tile's last Q/dO read
+      }
+      if (!dead) {
+        // dQ += dS K (K as [keys, d]: MN-major, the transpose bit).
+        fence_regs(dqa);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_rs<D, 1>(dqa, dsa[kk], desc_mn(ka + kk * 2048, BK * 128), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dqa);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&kv_empty[st]);
+    }
+    it += t.n;
+    if constexpr (!RS) {
+      __syncwarp();
+      if (t.n == 0 && lane == 0) mbar_arrive(&q_empty[slot]);
+    }
+
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int qpos = qpos0 + 8 * rr;
+      if (qpos >= s) continue;
+      bf16* dst = dq + (size_t(t.bi) * s + qpos) * qstride + size_t(t.hi) * D + cq;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c)
+        *reinterpret_cast<__nv_bfloat162*>(dst + c * 8) =
+            __floats2bfloat162_rn(dqa[4 * c + 2 * rr] * scale, dqa[4 * c + 2 * rr + 1] * scale);
+    }
   }
 }
 
 template <int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, void* dq, int b, int s, int sk, int h,
-              int g, float scale, int causal, int window, cudaStream_t stream) {
-  const size_t bytes = DqLayout<D>::BYTES;
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
-  if (e != cudaSuccess) return int(e);
-  dim3 grid(b * h, (s + DQ_BQ - 1) / DQ_BQ);
-  flash_bwd_dq_kernel<D><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), s, sk, h, g, scale, causal, window);
+int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, void* dq, const int* plan, int nblocks, int b, int s, int sk,
+              int h, int g, float scale, int causal, int window, cudaStream_t stream) {
+  CUtensorMap tq, tdo, tk, tv;
+  int e;
+  if ((e = make_map(&tq, q, D, h, s, b, DQ_BQ)) || (e = make_map(&tdo, dout, D, h, s, b, DQ_BQ)) ||
+      (e = make_map(&tk, k, D, g, sk, b, DQ_BK)) || (e = make_map(&tv, v, D, g, sk, b, DQ_BK)))
+    return e;
+  const int bytes = DqSmem<D>::ALLOC;
+  cudaError_t ce = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (ce != cudaSuccess) return int(ce);
+  flash_bwd_dq_kernel<D><<<nblocks, DQ_THREADS, bytes, stream>>>(
+      tq, tdo, tk, tv, static_cast<const float*>(lse), static_cast<const float*>(delta), plan,
+      static_cast<bf16*>(dq), b, s, sk, h, g, scale, causal, window);
   return int(cudaGetLastError());
 }
 
@@ -599,21 +728,27 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 
 }  // namespace
 
-// q, dout, dq [b, s, h, d]; k, v [b, sk, g, d] bf16 contiguous; lse, delta
-// [b*h, s] f32 (lse in scaled-score units, as flash_fwd writes it; delta =
-// rowsum(dO * O)).  dq = dS K * scale.  window <= 0 means none.  Returns
-// cudaGetLastError().
+// q, dout, dq [b, s, h, d]; k, v [b, sk, g, d] bf16 contiguous (16-byte
+// aligned); lse, delta [b*h, s] f32 (lse in scaled-score units, as
+// flash_fwd writes it; delta = rowsum(dO * O)).  dq = dS K * scale.
+// window <= 0 means none.  `plan` int32: the work list of
+// ops/flash_attention.py fwd_schedule(rows=128, keys=64), nblocks + 1
+// offsets then the tiles.  Returns 0 or a cudaError_t.
 extern "C" int tgt_flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                      const void* dout, const void* lse, const void* delta,
-                                     void* dq, int b, int s, int sk, int h, int g, int d,
-                                     float scale, int causal, int window, void* stream) {
+                                     void* dq, const void* plan, int nblocks, int b, int s,
+                                     int sk, int h, int g, int d, float scale, int causal,
+                                     int window, void* stream) {
   if (s == 0 || b == 0) return 0;
-  if (sk == 0 || g <= 0 || h % g != 0) return int(cudaErrorInvalidValue);
+  if (sk == 0 || g <= 0 || h % g != 0 || nblocks <= 0) return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* pl = static_cast<const int*>(plan);
   if (d == 128)
-    return launch_dq<128>(q, k, v, dout, lse, delta, dq, b, s, sk, h, g, scale, causal, window, st);
+    return launch_dq<128>(q, k, v, dout, lse, delta, dq, pl, nblocks, b, s, sk, h, g, scale,
+                          causal, window, st);
   if (d == 64)
-    return launch_dq<64>(q, k, v, dout, lse, delta, dq, b, s, sk, h, g, scale, causal, window, st);
+    return launch_dq<64>(q, k, v, dout, lse, delta, dq, pl, nblocks, b, s, sk, h, g, scale,
+                         causal, window, st);
   return int(cudaErrorInvalidValue);
 }
 
@@ -645,6 +780,12 @@ extern "C" int tgt_flash_bwd_dkv_bf16(const void* q, const void* k, const void* 
     return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, it, of, co, pp, nblocks, b, s, sk,
                           h, g, scale, causal, window, st);
   return int(cudaErrorInvalidValue);
+}
+
+// Dynamic shared memory of one flash_bwd_dq block at head dim d (0: d
+// not taken).
+extern "C" int tgt_flash_bwd_dq_smem_bytes(int d) {
+  return d == 128 ? DqSmem<128>::ALLOC : d == 64 ? DqSmem<64>::ALLOC : 0;
 }
 
 // Dynamic shared memory of one flash_bwd_dkv block at head dim d (0: d

@@ -1,9 +1,10 @@
-// Hopper (sm_90a) building blocks shared by flash_fwd.cu and flash_bwd.cu:
-// 128-byte-swizzled bf16 tiles in shared memory, loaded by the Tensor
-// Memory Accelerator (TMA) and read by warpgroup matrix multiplies (wgmma);
-// mbarriers that tie the two together; named barriers; register
+// Hopper (sm_90a) building blocks shared by flash_fwd.cu, flash_bwd.cu and
+// flash_decode.cu: 128-byte-swizzled tiles in shared memory, loaded by the
+// Tensor Memory Accelerator (TMA) and read by warpgroup matrix multiplies
+// (wgmma), or by ldmatrix and mma.sync where a product has too few rows for
+// wgmma; mbarriers that tie the two together; named barriers; register
 // rebalancing between producer and consumer warpgroups; and the host-side
-// tensor map.
+// tensor maps.
 //
 // Tile layout.  TMA with CU_TENSOR_MAP_SWIZZLE_128B takes at most 128 bytes
 // (64 bf16) of a row per box, so a [rows][d] tile is stored as d/64
@@ -283,6 +284,40 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   else wgmma_rs_n128<TB>(d, a, db, acc);
 }
 
+// ---- mma.sync (for products too narrow for wgmma's 64 rows) --------------
+
+// Byte offset of byte `o` of a column block whose rows are 128 (mask 7) or
+// 64 (mask 3) bytes wide, under TMA's swizzle of that width: the 16-byte
+// chunk index is XORed with bits 7.. of the offset (the row, or the row
+// pair at 64 bytes).  Needs the block on a 1024-byte boundary.
+template <int MASK>
+__device__ __forceinline__ uint32_t swizzle(uint32_t o) {
+  return o ^ (((o >> 7) & MASK) << 4);
+}
+
+// Four 8x8 b16 matrices from shared memory; lane l gives the address of
+// row l%8 of matrix l/8.  The memory clobber keeps the load after the
+// mbarrier wait that says its tile has arrived.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// d += a (16x16, row-major) b (16x8, col-major): bf16 in, f32 accumulate.
+// Fragments (PTX ISA, mma.m16n8k16): lane l holds rows l/4 and l/4 + 8,
+// columns 2*(l%4) and +1 of d; a = {a[r][2c..], a[r+8][2c..], a[r][2c+8..],
+// a[r+8][2c+8..]}; b = {b[2c..2c+1][l/4], b[2c+8..2c+9][l/4]} (c = l%4).
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // ---- host: tensor maps ---------------------------------------------------
 
 // cuTensorMapEncodeTiled is a driver-API function; it is fetched through
@@ -309,23 +344,33 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor [n3][n2][n1][n0] (contiguous; for attention n0 = d,
-// n1 = heads, n2 = positions, n3 = batch) read in boxes of 64 x 1 x rows x 1
-// with the 128-byte swizzle.  Returns 0 or a cudaError_t.
-inline int make_map(CUtensorMap* map, const void* base, int n0, int n1, int n2, int n3,
-                    int rows) {
+// A tensor [n3][n2][n1][n0] (contiguous; for attention n0 = d, n1 = heads,
+// n2 = positions, n3 = batch) of `elem` bytes an element, read in boxes of
+// (row_bytes / elem) x 1 x rows x 1 with the swizzle of that row width
+// (128 or 64 bytes: one column block of the tile layout above).  Returns 0
+// or a cudaError_t.
+inline int make_map_typed(CUtensorMap* map, const void* base, CUtensorMapDataType type,
+                          int elem, int n0, int n1, int n2, int n3, int rows,
+                          int row_bytes = 128) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return int(cudaErrorNotSupported);
+  const cuuint64_t e = cuuint64_t(elem);
   const cuuint64_t dims[4] = {cuuint64_t(n0), cuuint64_t(n1), cuuint64_t(n2), cuuint64_t(n3)};
-  const cuuint64_t strides[3] = {cuuint64_t(n0) * 2, cuuint64_t(n0) * n1 * 2,
-                                 cuuint64_t(n0) * n1 * n2 * 2};
-  const cuuint32_t box[4] = {64, 1, cuuint32_t(rows), 1};
+  const cuuint64_t strides[3] = {cuuint64_t(n0) * e, cuuint64_t(n0) * n1 * e,
+                                 cuuint64_t(n0) * n1 * n2 * e};
+  const cuuint32_t box[4] = {cuuint32_t(row_bytes / elem), 1, cuuint32_t(rows), 1};
   const cuuint32_t step[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                        strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = fn(map, type, 4, const_cast<void*>(base), dims, strides, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : int(cudaErrorInvalidValue);
+}
+
+// A bf16 tensor in boxes of 64 x 1 x rows x 1, 128-byte swizzle.
+inline int make_map(CUtensorMap* map, const void* base, int n0, int n1, int n2, int n3,
+                    int rows) {
+  return make_map_typed(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, n0, n1, n2, n3, rows);
 }
 
 }  // namespace hopper

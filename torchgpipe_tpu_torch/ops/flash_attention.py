@@ -12,15 +12,19 @@ axis) because of VMEM size; on Hopper one tile loop serves every length.
   :func:`flash_bwd_dq` (replaces ``_dq_kernel`` and ``_dq_stream_kernel``)
   and :func:`flash_bwd_dkv` (replaces ``_dkv_kernel`` and
   ``_dkv_stream_kernel``), both in ``csrc/flash_bwd.cu``.
-* ``flash_fwd`` and ``flash_bwd_dkv`` run one persistent block per SM over
-  a work list that this module builds in plain Python and caches per shape
-  (:func:`fwd_schedule`: query tiles, longest first onto the least loaded
-  block; :func:`dkv_schedule`: the causal dK/dV loops cut so that every SM
-  holds the mean work), so the CPU tests cover the balance.
+* ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` run one persistent
+  block per SM over a work list that this module builds in plain Python
+  and caches per shape (:func:`fwd_schedule`: query tiles, longest first
+  onto the least loaded block, for the forward and for dQ;
+  :func:`dkv_schedule`: the causal dK/dV loops cut so that every SM holds
+  the mean work), so the CPU tests cover the balance.
 * :func:`flash_decode_attention` launches ``csrc/flash_decode.cu``, which
   replaces ``_decode_kernel``: a bf16 or float32 cache, or an int8 cache
   with float32 per-(position, kv head) scales (the ``quant=True``
-  variant), dequantized in registers.
+  variant), dequantized in registers.  ``pos0`` may be a device int32
+  scalar: the kernel derives its split of the live keys on the device
+  (:func:`decode_split` mirrors it), and its grid depends only on the
+  cache's size.
 
 Each wrapper launches its kernel for CUDA tensors and raises for what the
 kernel does not take (device, dtype, contiguity, head dim).  It runs the
@@ -48,8 +52,13 @@ from torchgpipe_tpu_torch.ops import _build
 _NEG = -1e30
 FWD_HEAD_DIMS = (64, 128)
 DECODE_HEAD_DIMS = (64, 128)
-DECODE_CHUNK = 64     # live keys per decode block (split-key grid) ...
-DECODE_BLOCKS = 1024  # ... grown in steps of 64 keys past this many blocks
+DECODE_KEYS = 64      # keys per decode tile (csrc/flash_decode.cu KT)
+DECODE_ROWS = 32      # query rows a decode block holds (MAX_ROWS)
+# Decode blocks per SM that the split aims at: one for a bf16/f32 cache
+# (bytes set the pace; on an H100 two per SM read ~5% slower at a
+# 32704-key cache), two for an int8 cache (its per-tile work sets the
+# pace).  Measurements in PERF.md.
+DECODE_WAVE = {False: 1, True: 2}
 # Element-type codes of csrc/flash_decode.cu.
 _DECODE_TYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
 
@@ -58,15 +67,15 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # q, k, v, o, lse, tiles, nblocks, b, s, sk, h, g, d, scale, causal,
 # window, stream
 _FWD_ARGS = [_P] * 6 + [_I] * 7 + [ctypes.c_float, _I, _I, _P]
-# q, k, v, dout, lse, delta, dq, b, s, sk, h, g, d, scale, causal, window,
-# stream
-_BWD_DQ_ARGS = [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
+# q, k, v, dout, lse, delta, dq, plan, nblocks, b, s, sk, h, g, d, scale,
+# causal, window, stream
+_BWD_DQ_ARGS = [_P] * 8 + [_I] * 7 + [ctypes.c_float, _I, _I, _P]
 # q, k, v, dout, lse, delta, dk, dv, items, offsets, combos, partial,
 # nblocks, b, s, sk, h, g, d, scale, causal, window, stream
 _BWD_DKV_ARGS = [_P] * 12 + [_I] * 7 + [ctypes.c_float, _I, _I, _P]
-# q, ck, cv, k_scale, v_scale, out, scratch, pos0, b, g, nh, nkv, hd,
-# max_len, window, chunk, nsplit, q_type, kv_type, stream
-_DECODE_ARGS = [_P] * 7 + [_I] * 12 + [_P]
+# q, ck, cv, k_scale, v_scale, out, scratch, pos_dev, pos_host, b, g, nh,
+# nkv, hd, max_len, window, want, zmax, q_type, kv_type, stream
+_DECODE_ARGS = [_P] * 8 + [_I] * 12 + [_P]
 
 
 def _validate_window(causal: bool, window: Optional[int]) -> None:
@@ -282,38 +291,44 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
 
 FWD_ROWS = 128     # query rows per forward tile (csrc/flash_fwd.cu BQ)
 FWD_KEYS = 128     # keys per K/V tile (BK)
+DQ_ROWS = 128      # query rows per dQ tile (csrc/flash_bwd.cu DQ_BQ)
+DQ_KEYS = 64       # keys per dQ K/V tile (DQ_BK)
 
 
 def _fwd_live_tiles(q0: int, s: int, sk: int, causal: bool,
-                    window: Optional[int]) -> int:
-    """Key tiles the forward tile of rows ``q0 ..`` reads (the kernel's
-    ``Tile``): up to the diagonal, from the window's first."""
-    nkt = -(-sk // FWD_KEYS)
+                    window: Optional[int], rows: int = FWD_ROWS,
+                    keys: int = FWD_KEYS) -> int:
+    """Key tiles the query tile of ``rows`` rows from ``q0`` reads (the
+    kernels' ``Tile``/``DqTile``): up to the diagonal, from the window's
+    first."""
+    nkt = -(-sk // keys)
     first = 0
     if causal:
-        nkt = min(nkt, (min(q0 + FWD_ROWS, s) - 1) // FWD_KEYS + 1)
+        nkt = min(nkt, (min(q0 + rows, s) - 1) // keys + 1)
         if window is not None:
-            first = max(q0 - (window - 1), 0) // FWD_KEYS
-    return nkt - first
+            first = max(q0 - (window - 1), 0) // keys
+    return max(nkt - first, 0)
 
 
 def fwd_schedule(
     b: int, s: int, sk: int, h: int, causal: bool, window: Optional[int],
-    n_sms: int,
+    n_sms: int, rows: int = FWD_ROWS, keys: int = FWD_KEYS,
 ) -> Tuple[List[int], List[int]]:
-    """``(offsets, tiles)`` of the persistent forward kernel: block ``i``
-    runs ``tiles[offsets[i]:offsets[i+1]]``.  Tile ``t`` is query tile
-    ``nqt-1-t//(b*h)`` of head ``t % (b*h)``.  Longest processing time
-    first: tiles sorted by their key-tile count (plus one for the
-    epilogue), each given to the least loaded block, so a long causal
-    sequence (tiles of 1..s/128 key tiles) balances as well as many
+    """``(offsets, tiles)`` of a persistent kernel over query tiles of
+    ``rows`` rows and K/V tiles of ``keys`` keys (the forward's 128/128 by
+    default; ``flash_bwd_dq`` takes :data:`DQ_ROWS`/:data:`DQ_KEYS`):
+    block ``i`` runs ``tiles[offsets[i]:offsets[i+1]]``.  Tile ``t`` is
+    query tile ``nqt-1-t//(b*h)`` of head ``t % (b*h)``.  Longest
+    processing time first: tiles sorted by their key-tile count (plus one
+    for the epilogue), each given to the least loaded block, so a long
+    causal sequence (tiles of 1..s/128 key tiles) balances as well as many
     short ones."""
-    nqt = -(-s // FWD_ROWS)
+    nqt = -(-s // rows)
     bhn = b * h
     n = nqt * bhn
     blocks = min(n_sms, n)
-    cost = [_fwd_live_tiles((nqt - 1 - t // bhn) * FWD_ROWS, s, sk, causal,
-                            window) + 1 for t in range(n)]
+    cost = [_fwd_live_tiles((nqt - 1 - t // bhn) * rows, s, sk, causal,
+                            window, rows, keys) + 1 for t in range(n)]
     heap = [(0, i) for i in range(blocks)]
     lists: List[List[int]] = [[] for _ in range(blocks)]
     for t in sorted(range(n), key=lambda t: (-cost[t], t)):
@@ -328,12 +343,12 @@ def fwd_schedule(
 
 
 @functools.lru_cache(maxsize=64)
-def _fwd_plan(device: torch.device, *key) -> Tuple[torch.Tensor, int]:
-    """:func:`fwd_schedule` of ``key = (b, s, sk, h, causal, window)`` on
-    ``device``'s SMs as one int32 device tensor (offsets, then tiles) and
-    its block count."""
-    n_sms = torch.cuda.get_device_properties(device).multi_processor_count
-    offsets, tiles = fwd_schedule(*key, n_sms)
+def _fwd_plan(device: torch.device, *key,
+              tile: Tuple[int, int] = (FWD_ROWS, FWD_KEYS)) -> Tuple[torch.Tensor, int]:
+    """:func:`fwd_schedule` of ``key = (b, s, sk, h, causal, window)`` and
+    ``tile = (rows, keys)`` on ``device``'s SMs as one int32 device tensor
+    (offsets, then tiles) and its block count."""
+    offsets, tiles = fwd_schedule(*key, _sm_count(device), *tile)
     return (torch.tensor(offsets + tiles, dtype=torch.int32, device=device),
             len(offsets) - 1)
 
@@ -440,12 +455,51 @@ def _dkv_plan(device: torch.device, *key) -> Tuple[torch.Tensor, int, int, int]:
     on ``device``'s SMs as one int32 device tensor (items, then offsets,
     then combos) with its block count, slot count and where the offsets
     start."""
-    n_sms = torch.cuda.get_device_properties(device).multi_processor_count
-    sch = dkv_schedule(*key, n_sms)
+    sch = dkv_schedule(*key, _sm_count(device))
     flat = [v for it in sch.items for v in it] + sch.offsets + [
         v for c in sch.combos for v in c]
     return (torch.tensor(flat, dtype=torch.int32, device=device),
             len(sch.offsets) - 1, sch.slots, 8 * len(sch.items))
+
+
+def decode_groups(rows: int) -> Tuple[int, int]:
+    """``(ngroups, group_rows)``: a kv head's ``rows = g * nh / nkv``
+    query rows cut into equal groups of at most :data:`DECODE_ROWS`, one
+    decode block each (``csrc/flash_decode.cu``'s entry)."""
+    ngroups = -(-rows // DECODE_ROWS)
+    return ngroups, -(-rows // ngroups)
+
+
+def decode_want(b: int, nkv: int, ngroups: int, n_sms: int, quant: bool) -> int:
+    """The most chunks a (batch row, kv head, row group) is cut into:
+    :data:`DECODE_WAVE` blocks per SM (``quant``: an int8 cache) over the
+    ``b * nkv * ngroups`` block rows, at least 1."""
+    return max(1, DECODE_WAVE[quant] * n_sms // (b * nkv * ngroups))
+
+
+def decode_split(pos0: int, g: int, window: Optional[int],
+                 want: int) -> Tuple[int, int, int]:
+    """``(first, chunk, nsplit)``: the decode kernel's split of the live
+    keys ``[first, pos0 + g)`` into ``nsplit`` chunks of ``chunk`` keys
+    (the last one shorter), 64-key tiles dealt in equal runs to at most
+    ``want`` chunks.  The kernel computes the same on the device from the
+    live length (``decode_split`` in ``csrc/flash_decode.cu``); the grid
+    is sized by :func:`decode_zmax`, which no live length exceeds."""
+    first = 0 if not window else max(pos0 - window + 1, 0)
+    ntiles = -(-(pos0 + g - first) // DECODE_KEYS)
+    per = -(-ntiles // min(ntiles, want))
+    return first, per * DECODE_KEYS, -(-ntiles // per)
+
+
+def decode_zmax(max_len: int, want: int) -> int:
+    """The decode grid's split axis (and the scratch's): the most chunks
+    any live length up to ``max_len`` needs."""
+    return min(-(-max_len // DECODE_KEYS), want)
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # --------------------------------------------------------------------- #
@@ -538,10 +592,12 @@ def flash_bwd_dq(
     b, s, h, d = q.shape
     sk, g = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
+    plan, nblocks = _fwd_plan(q.device, b, s, sk, h, bool(causal), window,
+                              tile=(DQ_ROWS, DQ_KEYS))
     fn = _build.function("flash_bwd", "tgt_flash_bwd_dq_bf16", _BWD_DQ_ARGS)
     rc = fn(
         _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dq),
-        b, s, sk, h, g, d, float(sm_scale), int(causal),
+        _ptr(plan), nblocks, b, s, sk, h, g, d, float(sm_scale), int(causal),
         0 if window is None else int(window), _stream(q),
     )
     _build.check(rc, "flash_bwd_dq")
@@ -675,8 +731,13 @@ def flash_decode_attention(
 ) -> torch.Tensor:
     """``g`` consecutive rope'd queries ``q: [b, g, nh, hd]`` (positions
     ``pos0 .. pos0+g-1``) against the live prefix ``[0, pos0+g)`` of a
-    ``[b, max_len, nkv, hd]`` cache.  ``pos0`` is a host ``int``
-    (:func:`flash_decode_reference` also takes one per row).  With
+    ``[b, max_len, nkv, hd]`` cache.  ``pos0`` is a host ``int`` or a 0-d
+    int32 tensor on ``q``'s device, as the reference's runtime scalar
+    (:func:`flash_decode_reference` also takes one per row).  The kernel
+    reads a tensor ``pos0`` on the device and clamps it to ``[0, max_len
+    - g]``; its grid and scratch depend on ``max_len``, not on ``pos0``, so
+    a captured call replays at any length, and the two forms give equal
+    bits.  A host ``int`` (and a CPU tensor) is range-checked.  With
     ``k_scale``/``v_scale`` (both or neither: float32 ``[b, nkv,
     max_len]``) the cache is int8, as the reference's ``QuantKVCache``
     stores it.  Returns float32 ``[b, g, nh*hd]``."""
@@ -687,11 +748,21 @@ def flash_decode_attention(
     if nh % nkv != 0:
         raise ValueError(f"nh={nh} not divisible by nkv={nkv}")
     quant = _check_scales(ck, cv, k_scale, v_scale)
+    pos_dev = None
     if isinstance(pos0, torch.Tensor):
-        raise TypeError("flash_decode_attention takes pos0 as a host int")
-    pos0 = int(pos0)
-    if not 0 <= pos0 <= max_len - g:
-        raise ValueError(f"pos0={pos0} + g={g} outside the cache ({max_len})")
+        if pos0.ndim != 0 or pos0.dtype != torch.int32:
+            raise TypeError(
+                f"pos0 must be a host int or a 0-d int32 tensor, got "
+                f"{pos0.dtype} of shape {list(pos0.shape)}"
+            )
+        if pos0.device != q.device:
+            raise ValueError(f"pos0 is on {pos0.device}, q on {q.device}")
+        if pos0.device.type == "cuda":
+            pos_dev = pos0
+    if pos_dev is None:
+        pos0 = int(pos0)
+        if not 0 <= pos0 <= max_len - g:
+            raise ValueError(f"pos0={pos0} + g={g} outside the cache ({max_len})")
     if q.device.type == "cpu":
         return flash_decode_reference(q, ck, cv, pos0, window=window,
                                       k_scale=k_scale, v_scale=v_scale)
@@ -712,22 +783,22 @@ def flash_decode_attention(
             f"flash_decode kernel does not take q {tuple(q.shape)}, cache "
             f"{tuple(ck.shape)}: head dim must be one of {DECODE_HEAD_DIMS}"
         )
-    first = 0 if window is None else max(pos0 - window + 1, 0)
-    live = pos0 + g - first
-    n64 = -(-live // DECODE_CHUNK)                      # 64-key chunks
-    chunk = DECODE_CHUNK * -(-n64 // max(1, DECODE_BLOCKS // (b * nkv)))
-    nsplit = -(-live // chunk)
+    _check_tma("flash_decode_attention", ck, cv)
     rows = g * (nh // nkv)
+    ngroups, _ = decode_groups(rows)
+    want = decode_want(b, nkv, ngroups, _sm_count(q.device), quant)
+    zmax = decode_zmax(max_len, want)
     out = torch.empty((b, g, nh * hd), dtype=torch.float32, device=q.device)
     scratch = torch.empty(
-        (b, nkv, nsplit, rows, 2 + hd), dtype=torch.float32, device=q.device
+        (b, nkv, zmax, rows, 2 + hd), dtype=torch.float32, device=q.device
     )
     ks_p, vs_p = (_ptr(k_scale), _ptr(v_scale)) if quant else (None, None)
     fn = _build.function("flash_decode", "tgt_flash_decode", _DECODE_ARGS)
     rc = fn(
         _ptr(q), _ptr(ck), _ptr(cv), ks_p, vs_p, _ptr(out), _ptr(scratch),
-        pos0, b, g, nh, nkv, hd, max_len, 0 if window is None else int(window),
-        chunk, nsplit,
+        None if pos_dev is None else _ptr(pos_dev),
+        0 if pos_dev is not None else pos0, b, g, nh, nkv, hd, max_len,
+        0 if window is None else int(window), want, zmax,
         _DECODE_TYPES[q.dtype], _DECODE_TYPES[ck.dtype], _stream(q),
     )
     _build.check(rc, "flash_decode")
