@@ -48,6 +48,21 @@ Phases, one line each (any failure exits non-zero):
    ``num_beams=1`` against greedy ``generate`` (equal).
 7. profile: device time by kernel and idle share, prefill and decode,
    bf16 and int8 caches.
+9. serving (run after 7, before 8 frees phase 6's model): the
+   continuous-batching ``serving.Engine`` on that model (8 slots, max_len 1152, prefill ladder (8, 64, 256), greedy), its
+   programs captured CUDA graphs: graph replays against the eager bodies
+   (4 requests, 32 tokens; tokens and cache bytes bitwise equal), decode
+   step time at 8 occupied slots both ways and profiles of 8 steady
+   steps, the dense cache read's cost per layer (beside the flash_decode
+   kernel at one shared frontier), a seeded churn trace (24 requests,
+   prompts 32-1024, 16-128 new tokens, 8 at the start and 2 every 16
+   engine steps, one cancelled mid-decode, one drain and resume) that
+   must add no capture to the warm-up's one per program (one request per
+   bucket, served alone), every finished stream held to
+   the teacher-forced check (an int8 pool's 4 streams to the int8
+   limits), zero launches of the hand-written kernels, and a
+   ``{"serving": ...}`` line (tokens/s, TTFT/TPOT p50/p99, occupancy,
+   steps by program, capture time, pool bytes, peak memory).
 8. train: ``GPipe`` training at Llama-3-8B width (benchmarks/llama_speed.py
    ``pipeline-1``: 1 stage, batch 8, 4 micro-batches, seq 1024,
    checkpoint 'except_last'; random weights from the seed), one warm-up
@@ -1065,7 +1080,8 @@ def phase_beam(torch, tfa, tg, card, cfg, model, prompt, new_tokens: int = 32,
 def profile(torch, card, label, fn, top: int = 12):
     """Device time by kernel and the device's idle share of one call of
     ``fn`` (torch.profiler; one stream, so busy time is the sum of kernel
-    times).  Returns ``(wall_s, busy_s)``."""
+    times).  Returns ``(wall_s, busy_s, [(device_us, count, name)] of the
+    top kernels)``."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -1091,7 +1107,7 @@ def profile(torch, card, label, fn, top: int = 12):
     for dev, count, key in rows[:top]:
         print(f"  {dev / 1e3:9.2f}ms {100 * dev / 1e6 / busy:5.1f}% "
               f"x{count:<6d} {key[:90]}")
-    return wall, busy
+    return wall, busy, rows[:top]
 
 
 def phase_profile(torch, tg, card, cfg, model, prompt, steps: int = 16) -> None:
@@ -1101,14 +1117,332 @@ def phase_profile(torch, tg, card, cfg, model, prompt, steps: int = 16) -> None:
     s = prompt.shape[1]
     for kv_quant in (False, True):
         tag = " kv_quant" if kv_quant else ""
-        pw, pb = profile(torch, card, f"prefill{tag}", lambda: tg.prefill(
+        pw, pb, _ = profile(torch, card, f"prefill{tag}", lambda: tg.prefill(
             cfg, model, prompt, s + steps, kv_quant=kv_quant))
-        gw, gb = profile(torch, card, f"generate{tag} x{steps}", lambda: tg.generate(
+        gw, gb, _ = profile(torch, card, f"generate{tag} x{steps}", lambda: tg.generate(
             cfg, model, prompt, steps, kv_quant=kv_quant))
         print(f"profile decode{tag} (generate - prefill) per step: "
               f"wall={(gw - pw) * 1e3 / steps:.2f}ms "
               f"device_busy={(gb - pb) * 1e3 / steps:.2f}ms "
               f"idle_share={1 - (gb - pb) / (gw - pw):.3f} [{card}]", flush=True)
+
+
+# Phase 9: the serving Engine on phase 6's model.  ``Engine(cfg, model,
+# num_slots=8, max_len=1152, prefill_chunk=(8, 64, 256))``, greedy: a bf16
+# pool of 32 layers x K and V x [8, 1152, 8, 128] = 1.21 GB.
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_LADDER = 8, 1152, (8, 64, 256)
+SERVE_STATS = {"prefill@8": 1, "prefill@64": 1, "prefill@256": 1, "decode": 1}
+
+
+def serving_trace(np, seed: int, vocab: int, n: int = 24):
+    """The churn trace: ``n`` requests, prompt lengths uniform in 32-1024
+    and ``max_new_tokens`` uniform in 16-128, from ``seed``."""
+    rng = np.random.RandomState(seed)
+    return [(rng.randint(0, vocab, int(rng.randint(32, 1025))).astype(np.int32),
+             int(rng.randint(16, 129))) for _ in range(n)]
+
+
+def drive_trace(Engine, eng, trace, first: int = 8, every: int = 16,
+                cancel_at: int = 40, drain_at: int = 120):
+    """Serve ``trace`` on ``eng`` as a continuous-batching server sees
+    it: ``first`` requests at the start, then two more every ``every``
+    engine steps; the first request decoding its 4th token at or after
+    step ``cancel_at`` is cancelled; at step ``drain_at`` the engine is
+    drained (``request_drain``), reopened (``resume_serving``) and the
+    snapshot's requests resubmitted to it (``restore_requests``).  Device
+    agnostic: no synchronisation here.  Returns the trace's log."""
+    log = {"prompts": {}, "steps_by_program": {}, "cancelled": None, "drained": None,
+           "engine_steps": 0}
+    real_run = eng._run_program
+
+    def counted(name, *args):
+        log["steps_by_program"][name] = log["steps_by_program"].get(name, 0) + 1
+        return real_run(name, *args)
+
+    eng._run_program = counted
+    snaps = []
+    eng.drain_hooks.append(snaps.append)
+
+    def submit(i):
+        log["prompts"][eng.submit(trace[i][0], trace[i][1])] = trace[i][0]
+
+    for i in range(first):
+        submit(i)
+    nxt, steps = first, 0
+    try:
+        while True:
+            if nxt < len(trace) and steps >= every * ((nxt - first) // 2 + 1):
+                for i in range(nxt, min(nxt + 2, len(trace))):
+                    submit(i)
+                nxt += 2
+            if log["cancelled"] is None and steps >= cancel_at:
+                live = [r for r in eng.scheduler.decode_ready() if len(r.generated) >= 4]
+                if live:
+                    log["cancelled"] = live[0].rid
+                    eng.cancel(live[0].rid)
+            if log["drained"] is None and steps >= drain_at:
+                eng.request_drain()
+                if eng.run() != "preempted":
+                    fail("serving: request_drain() did not drain the engine")
+                restored = Engine.restore_requests(snaps[-1])
+                log["drained"] = len(restored)
+                eng.resume_serving()
+                for kw in restored:
+                    eng.submit(kw.pop("prompt"), kw.pop("max_new_tokens"), **kw)
+            if eng.step():
+                steps += 1
+            elif nxt >= len(trace):
+                break
+            else:       # idle before the next arrival: it comes now
+                steps = every * ((nxt - first) // 2 + 1)
+    finally:
+        del eng._run_program    # back to the class's method (no cycle holding eng)
+    log["engine_steps"] = steps
+    return log
+
+
+def pool_buffers(eng):
+    c = eng.pool.cache
+    return [t for name in ("k", "v", "k_scale", "v_scale") for t in getattr(c, name, [])]
+
+
+def serve_all(eng, reqs):
+    rids = [eng.submit(p, n) for p, n in reqs]
+    eng.run()
+    return {r: eng.result(r).tolist() for r in rids}
+
+
+def stream_check(torch, model, streams, agree_min, gap_max, what):
+    """The teacher-forced check of phase 6 over finished streams
+    (``[(prompt, tokens)]``, one forward each): the argmax agreement is
+    pooled over every stream's positions (a 16-token stream alone cannot
+    resolve a 0.9 share), the logit gap must hold at every position of
+    every stream."""
+    hits = n = 0
+    gap = 0.0
+    for prompt, toks in streams:
+        p = torch.as_tensor(prompt, dtype=torch.int64, device="cuda")[None]
+        o = torch.as_tensor(toks, dtype=torch.int64, device="cuda")[None]
+        a, g = teacher_forced(torch, model, p, o)
+        hits += a * o.shape[1]
+        n += o.shape[1]
+        gap = max(gap, g)
+    agree = hits / n
+    if agree < agree_min or gap > gap_max:
+        fail(f"{what}: streams vs the teacher-forced forward: argmax agreement "
+             f"{agree:.3f} (>= {agree_min} needed), worst logit gap {gap:.3f} "
+             f"(<= {gap_max})")
+    return {"streams": len(streams), "positions": n, "agree": agree, "max_gap": gap}
+
+
+def step_ms(torch, eng, steps: int):
+    """Host-clock ms of each of ``steps`` calls of ``eng.step()`` (each
+    ends in the step's token fetch, a synchronisation), every one a
+    decode step."""
+    if eng.scheduler.queue or eng.scheduler.prefill_pending():
+        fail("serving: a prompt is still pending in a timed decode window")
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        if not eng.step():
+            fail("serving: the engine went idle inside a timed decode window")
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def phase_serving(torch, tfa, tg, card, seed, cfg, model):
+    """The continuous-batching Engine at Llama-3-8B width on phase 6's
+    model: captured graphs against the eager bodies (bitwise), decode
+    step time both ways and a profile of steady replays, the dense cache
+    read's cost, the churn trace with a cancellation and a drain/resume
+    (one capture per program), teacher-forced streams (bf16 and int8
+    pools), and zero hand-written kernel launches throughout.  The launch
+    gate reads the wrappers' counts, which move where a wrapper's Python
+    runs: in the eager bodies and in the captures (each program is
+    captured inside a gated window, 9a and 9d's warm-up).  A replay runs
+    no Python and cannot add to them, so a kernel a graph replays would
+    have been counted at its capture."""
+    import numpy as np
+
+    from torchgpipe_tpu_torch.serving import Engine, ServingMetrics
+
+    def engine(**kw):
+        return Engine(cfg, model, num_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                      prefill_chunk=SERVE_LADDER, **kw)
+
+    def no_launches(what):
+        torch.cuda.synchronize()
+        counts = kernel_launches(tfa)
+        expect_launches(counts, {}, what)
+        return counts
+
+    trace = serving_trace(np, seed, cfg.vocab)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"card": card, "model": f"Llama-3-8B width, {cfg.n_layers} layers, bf16, "
+                                  f"random from seed {seed}",
+           "engine": {"num_slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN,
+                      "prefill_chunk": list(SERVE_LADDER), "greedy": True}}
+
+    # 9a. Graph replays against the eager bodies: 4 requests, 32 tokens.
+    short = [(p, 32) for p, _ in trace[:4]]
+    graph_eng, eager_eng = engine(), engine(cuda_graph=False)
+    tfa.reset_launches()
+    got, want = serve_all(graph_eng, short), serve_all(eager_eng, short)
+    no_launches("the serving engine (graph against eager)")
+    same_cache = all(torch.equal(a, b) for a, b in zip(pool_buffers(graph_eng),
+                                                        pool_buffers(eager_eng)))
+    if got != want or not same_cache:
+        fail(f"serving: graph replays against the eager bodies: tokens equal "
+             f"{got == want}, cache bytes equal {same_cache}")
+    out["graph_equals_eager"] = {"requests": len(short), "tokens": 32, "bitwise": True}
+
+    # 9b. Decode step at 8 occupied slots, graph against eager, in turns;
+    # then profiles of 8 steady decode steps each way.
+    for eng in (graph_eng, eager_eng):
+        for p, _ in trace[:SERVE_SLOTS]:
+            eng.submit(p, 100)
+        while eng.scheduler.queue or eng.scheduler.prefill_pending():
+            eng.step()
+    times = {"graph": [], "eager": []}
+    tfa.reset_launches()
+    for order in (("graph", "eager"), ("eager", "graph")) * 2:
+        for name in order:
+            times[name].append(step_ms(torch, graph_eng if name == "graph" else eager_eng, 6))
+    prof = {}
+    for name, eng in (("graph", graph_eng), ("eager", eager_eng)):
+        wall, busy, rows = profile(torch, card, f"serving decode x8 ({name})",
+                                   lambda eng=eng: [eng.step() for _ in range(8)])
+        prof[name] = {"wall_ms_per_step": wall * 1e3 / 8, "busy_ms_per_step": busy * 1e3 / 8,
+                      "idle_share": 1 - busy / wall,
+                      "top": [[k[:80], c, round(d / 1e3 / 8, 4)] for d, c, k in rows[:8]]}
+    no_launches("the serving engine (decode timing and profiles)")
+    out["decode_step_ms"] = {
+        k: {"median": statistics.median(sum(v, [])), "window_medians": [
+            statistics.median(w) for w in v], "steps": [[round(t, 3) for t in w] for w in v]}
+        for k, v in times.items()}
+    out["decode_step_ms"]["graph_over_eager"] = (out["decode_step_ms"]["graph"]["median"]
+                                                 / out["decode_step_ms"]["eager"]["median"])
+    out["profile_decode_x8"] = prof
+    del graph_eng, eager_eng
+    torch.cuda.empty_cache()
+
+    # 9c. What the dense read costs: the slot step's attention read of one
+    # layer (flash_decode_reference, per-row frontiers) at the decode
+    # step's shape, beside the flash_decode kernel reading the same cache
+    # at one shared frontier (the kernel takes one scalar position).
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    q = torch.randn(SERVE_SLOTS, 1, cfg.n_heads, cfg.head_dim, generator=gen,
+                    device="cuda").bfloat16()
+    ck, cv = (torch.randn(SERVE_SLOTS, SERVE_MAX_LEN, cfg.kv_heads, cfg.head_dim,
+                          generator=gen, device="cuda").bfloat16() for _ in range(2))
+    lengths = torch.arange(1090, 1090 + SERVE_SLOTS, device="cuda")
+    dense = device_ms(torch, lambda: tfa.flash_decode_reference(q, ck, cv, lengths), 20)
+    kern = device_ms(torch, lambda: tfa.flash_decode_attention(q, ck, cv, 1097), 20)
+    busy = prof["graph"]["busy_ms_per_step"]
+    out["dense_read"] = {"ms_per_layer": dense, "ms_per_step": dense * cfg.n_layers,
+                         "share_of_graph_step_busy": dense * cfg.n_layers / busy,
+                         "flash_decode_kernel_ms_per_layer_one_frontier": kern,
+                         "shape": f"cache [{SERVE_SLOTS}, {SERVE_MAX_LEN}, {cfg.kv_heads}, "
+                                  f"{cfg.head_dim}] bf16, g=1, frontiers 1090-1097"}
+    del q, ck, cv
+
+    # 9d. The churn trace on a fresh engine, warmed up first as a server
+    # is: one request per ladder bucket, served alone (prompts of 8, 64 and
+    # 256 tokens, 2 new tokens each), captures every program once.  The
+    # seeded trace alone need not use every bucket (seed 0's never leaves
+    # a remainder of <= 8 prompt tokens pending by itself); after the
+    # warm-up it must capture nothing more.  The trace's metrics are its
+    # own: a fresh ServingMetrics after the warm-up.
+    eng = engine()
+    capture_s = []
+    real_build = eng._build
+
+    def timed_build(prog):
+        if prog.built:
+            return real_build(prog)
+        t0 = time.perf_counter()
+        real_build(prog)
+        torch.cuda.synchronize()
+        capture_s.append(time.perf_counter() - t0)
+
+    eng._build = timed_build
+    warm = np.random.RandomState(seed + 1)
+    tfa.reset_launches()
+    for g in SERVE_LADDER:
+        serve_all(eng, [(warm.randint(0, cfg.vocab, g).astype(np.int32), 2)])
+    no_launches("the serving engine (warm-up)")
+    if eng.compile_stats != SERVE_STATS:
+        fail(f"serving: captures after the warm-up {eng.compile_stats}, expected "
+             f"{SERVE_STATS}")
+    eng.metrics = ServingMetrics()
+    tfa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    log = drive_trace(Engine, eng, trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    trace_launches = no_launches("the serving engine (churn trace)")
+    del eng._build, timed_build, real_build   # nothing but `eng` holds the engine
+    if eng.compile_stats != SERVE_STATS:
+        fail(f"serving: captures after the warm-up, the trace, the drain and the "
+             f"resume {eng.compile_stats}, expected {SERVE_STATS}")
+    snap = eng.metrics.snapshot()
+    finished = [(log["prompts"][r], eng.result(r).tolist()) for r in log["prompts"]
+                if eng.status(r) == "finished"]
+    if len(finished) != len(trace) - 1 or eng.status(log["cancelled"]) != "cancelled":
+        fail(f"serving: {len(finished)} of {len(trace)} streams finished, cancelled "
+             f"{log['cancelled']}")
+    want_len = {r: n for r, (_, n) in zip(log["prompts"], trace)}
+    short_streams = [r for r in log["prompts"] if eng.status(r) == "finished"
+                     and len(eng.result(r)) != want_len[r]]
+    if short_streams:
+        fail(f"serving: streams of the wrong length {short_streams}")
+    out["trace"] = {
+        "requests": len(trace), "first": 8, "arrivals": "2 every 16 engine steps",
+        "cancelled": log["cancelled"], "drained_requests": log["drained"],
+        "engine_steps": log["engine_steps"], "steps_by_program": log["steps_by_program"],
+        "wall_s": wall, "tokens": snap["tokens_out"],
+        "tokens_per_s": snap["tokens_out"] / wall, "occupancy": snap["occupancy"],
+        "ttft_p50_s": snap["ttft_p50"], "ttft_p99_s": snap["ttft_p99"],
+        "tpot_p50_s": snap["tpot_p50"], "tpot_p99_s": snap["tpot_p99"],
+        "queue_wait_p50_s": snap["queue_wait_p50"]}
+    out["compile_stats"] = eng.compile_stats
+    out["capture_s"] = {"total": sum(capture_s), "each": capture_s}
+    out["pool_bytes"] = eng.pool.bytes()
+    out["teacher_forced"] = stream_check(torch, model, finished, TF_AGREE, TF_GAP,
+                                         "serving (bf16 pool)")
+    del eng
+    torch.cuda.empty_cache()
+
+    # 9e. An int8 pool: 4 requests, 32 tokens.
+    q_eng = engine(kv_quant=True)
+    tfa.reset_launches()
+    q_got = serve_all(q_eng, short)
+    no_launches("the serving engine (int8 pool)")
+    q_streams = [(p, q_got[r]) for (p, _), r in zip(short, q_got)]
+    out["int8"] = dict(stream_check(torch, model, q_streams, TF_AGREE_INT8, TF_GAP_INT8,
+                                    "serving (int8 pool)"),
+                       pool_bytes=q_eng.pool.bytes(),
+                       token_agreement_with_bf16_pool=float(np.mean(
+                           [a == b for r, s in zip(q_got, got) for a, b in
+                            zip(q_got[r], got[s])])))
+    del q_eng
+    torch.cuda.empty_cache()
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["kernel_launches"] = trace_launches
+    t, d = out["trace"], out["decode_step_ms"]
+    print(f"serving: {t['requests']} requests, {t['engine_steps']} engine steps "
+          f"{t['steps_by_program']}, {t['tokens']} tokens in {t['wall_s']:.3f}s = "
+          f"{t['tokens_per_s']:.2f} tokens/s, occupancy {t['occupancy']:.4f}, "
+          f"TTFT p50/p99 {t['ttft_p50_s']:.4f}/{t['ttft_p99_s']:.4f}s, TPOT p50/p99 "
+          f"{t['tpot_p50_s']:.5f}/{t['tpot_p99_s']:.5f}s; captures {out['compile_stats']} "
+          f"in {out['capture_s']['total']:.2f}s; decode step graph "
+          f"{d['graph']['median']:.3f}ms vs eager {d['eager']['median']:.3f}ms; "
+          f"teacher_forced {out['teacher_forced']}; int8 {out['int8']} [{card}]", flush=True)
+    print(json.dumps({"serving": out}), flush=True)
+    return out
 
 
 def causal_lm_loss(tt):
@@ -1322,6 +1656,7 @@ def main() -> None:
                                       prompt)
     beam_launches = phase_beam(torch, tfa, tg, card, cfg, model, prompt)
     phase_profile(torch, tg, card, cfg, model, prompt)
+    serving = phase_serving(torch, tfa, tg, card, args.seed, cfg, model)
     del cfg, model, prompt, out   # the generation model's 16 GB before training
     torch.cuda.empty_cache()
     train_launches, _ = phase_train(torch, tfa, tt, card, args.seed)
@@ -1332,7 +1667,8 @@ def main() -> None:
     main_fwd = fwd["main"]
 
     paths = {"generate": launches, "generate_int8": int8_launches,
-             "speculative": spec_launches, "beam_search": beam_launches}
+             "speculative": spec_launches, "beam_search": beam_launches,
+             "serving": serving["kernel_launches"]}
 
     def decode_entry(name, kind, main_path):
         t, long = dec["main"][kind], dec["long"][kind]

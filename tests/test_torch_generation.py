@@ -159,6 +159,8 @@ def test_port_imports_no_jax_and_no_reference_package():
         "import torchgpipe_tpu_torch.gpipe, torchgpipe_tpu_torch.pipeline\n"
         "import torchgpipe_tpu_torch.microbatch, torchgpipe_tpu_torch.partition\n"
         "import torchgpipe_tpu_torch.checkpoint\n"
+        "import torchgpipe_tpu_torch.serving, torchgpipe_tpu_torch.obs\n"
+        "import torchgpipe_tpu_torch.resilience, torchgpipe_tpu_torch.tune\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'torchgpipe_tpu' or m.startswith('torchgpipe_tpu.')]\n"
         "assert not bad, bad\n"

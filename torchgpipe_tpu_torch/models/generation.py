@@ -88,11 +88,13 @@ Cache = Union[KVCache, QuantKVCache]
 
 def init_cache(
     cfg: TransformerConfig, batch: int, max_len: int, device: Device = None,
+    dtype: Optional[torch.dtype] = None,
 ) -> KVCache:
-    """Zeroed ``cfg.dtype`` KV cache for ``cfg.n_layers`` blocks."""
+    """Zeroed KV cache for ``cfg.n_layers`` blocks, in ``dtype``
+    (``cfg.dtype`` by default)."""
     dev = resolve_device(device)
     shape = (batch, max_len, cfg.kv_heads, cfg.head_dim)
-    dt = cfg.dtype
+    dt = dtype or cfg.dtype
     return KVCache(
         k=[torch.zeros(shape, dtype=dt, device=dev) for _ in range(cfg.n_layers)],
         v=[torch.zeros(shape, dtype=dt, device=dev) for _ in range(cfg.n_layers)],
@@ -326,30 +328,34 @@ def _scatter_rows(
 ) -> None:
     """Write row ``s``'s token ``j`` of ``k, v: [S, g, nkv, hd]`` at
     position ``lengths[s] + j`` of layer ``i`` when ``j < n_valid[s]``
-    (and the position is inside the buffer); other tokens write nothing:
-    each writes back what its position already holds, read after the
-    tokens before it, so a no-op row stays bit-untouched and no host read
-    is needed to find the valid tokens."""
-    S, g = k.shape[:2]
+    (and the position is inside the buffer); other tokens write nothing.
+    One gather and one scatter per buffer, with no host read: every token
+    targets position ``(lengths[s] + j) % L``, and a masked token writes
+    back what that position holds.  Those targets are distinct within a
+    row for ``g <= L`` (a masked token's position never wraps onto a valid
+    token's), so no two writes collide and a no-op row stays
+    bit-untouched.  A token ``j >= L`` lies past the buffer whatever the
+    row's length, so a chunk wider than the buffer is cut to its first
+    ``L`` tokens."""
     L = cache.k[i].shape[1]
-    rows = torch.arange(S, device=k.device)
+    k, v = k[:, :L], v[:, :L]
+    S, g = k.shape[:2]
+    rows = torch.arange(S, device=k.device)[:, None]
+    pos = lengths[:, None] + torch.arange(g, device=k.device)
+    ok = (torch.arange(g, device=k.device) < n_valid[:, None]) & (pos < L)   # [S, g]
+    at = torch.remainder(pos, L)
     if isinstance(cache, QuantKVCache):
         (kq, vq), (ks, vs) = _quant_rows(torch.stack([k, v]))
         news = (kq, vq, ks, vs)
     else:
         news = (k, v)
-    bufs = _buffers(cache)[i]
-    for j in range(g):
-        pos = lengths + j
-        ok = (j < n_valid) & (pos < L)
-        at = pos.clamp(max=L - 1)
-        for buf, new in zip(bufs, news):
-            if buf.ndim == 4:
-                cur = buf[rows, at]
-                buf[rows, at] = torch.where(ok[:, None, None], new[:, j].to(buf.dtype), cur)
-            else:
-                cur = buf[rows, :, at]
-                buf[rows, :, at] = torch.where(ok[:, None], new[:, j], cur)
+    for buf, new in zip(_buffers(cache)[i], news):
+        if buf.ndim == 4:
+            cur = buf[rows, at]                                  # [S, g, nkv, hd]
+            buf[rows, at] = torch.where(ok[..., None, None], new.to(buf.dtype), cur)
+        else:
+            cur = buf[rows, :, at]                               # [S, g, nkv]
+            buf[rows, :, at] = torch.where(ok[..., None], new, cur)
 
 
 def _logits(cfg: TransformerConfig, head_p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -364,7 +370,7 @@ def _filter_logits(
     reference (the most probable token always survives; ties at the
     cutoff are kept; ``top_p >= 1`` is a no-op)."""
     logits = logits / temperature
-    neg_inf = torch.tensor(float("-inf"), device=logits.device)
+    neg_inf = logits.new_full((), float("-inf"))   # a fill: capturable in a CUDA graph
     if top_k is not None:
         kth = torch.sort(logits, dim=-1).values[..., -top_k, None]
         logits = torch.where(logits < kth, neg_inf, logits)
