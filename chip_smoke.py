@@ -66,10 +66,27 @@ Phases, one line each (any failure exits non-zero):
 8. train: ``GPipe`` training at Llama-3-8B width (benchmarks/llama_speed.py
    ``pipeline-1``: 1 stage, batch 8, 4 micro-batches, seq 1024,
    checkpoint 'except_last'; random weights from the seed), one warm-up
-   and three timed steps of ``value_and_grad`` plus an in-place SGD
-   update, launch counts read around one step, the step-1 loss against
-   the unpipelined model's, a falling loss, a profile of one step, and a
-   3-stage schedule on one card against the 1-stage one at 4 blocks.
+   and three timed steps of ``make_train_step`` with ``torch.optim.SGD``,
+   launch counts read around one step, the step-1 loss against the
+   unpipelined model's, a falling loss, the peak memory within 1 GiB of
+   the stateless SGD's, a profile of one step, and a 3-stage schedule on
+   one card against the 1-stage one at 4 blocks.
+10. train_1f1b: the same width cut to 8 blocks, batch 8, seq 1024, 8
+   micro-batches, checkpoint 'never', 4 stages on one card at the balance
+   ``balance_by_flops`` counts: one fill-drain step and one 1F1B step
+   (``loss_reduction='mean'``) from the same weights, their losses and
+   gradients against each other, 1F1B's peak memory below fill-drain's,
+   launch counts against 8 x 8 per kernel, then three ``make_train_step``
+   steps of AdamW under 1F1B with a falling loss.
+11. resnet101: ResNet-101 at full width (1000 classes, 224x224, float32),
+   benchmarks/resnet101_speed.py's ``pipeline-2`` row (2 stages, batch
+   512, 16 micro-batches, 'except_last', deferred batch norm) at the
+   balance ``balance_by_time`` measures: one step there and one at a
+   forced 3-stage cut inside bottlenecks (skips crossing stages) against
+   the 1-stage pipeline (loss, gradients, BatchNorm buffers), bn1's
+   deferred commit against the whole batch's statistics, three SGD steps
+   (lr 0.1, momentum 0.9) with a falling loss, step ms, samples/s, peak
+   memory, a profile, and 0 launches of every hand-written kernel.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Then one JSON line per kernel (time, launches, bound, plain and
@@ -1461,11 +1478,18 @@ def causal_lm_loss(tt):
 # 1.3e-2.  lr = 1.0 moves the larger ones (9% of the head's weights
 # changed in step 1) and keeps the typical block update near 2% of |w|.
 TRAIN_LR = 1.0
+# Phase 8's peak memory with the hand-written in-place SGD it had before
+# make_train_step (NVIDIA H100 80GB HBM3, 700 W; PERF.md): torch.optim.SGD
+# without momentum keeps no state, so the peak stays within 1 GiB of it.
+TRAIN_PEAK_GIB = 50.01
 
 
 def phase_train(torch, tfa, tt, card, seed: int, steps: int = 3):
     """pipeline-1 at Llama-3-8B width: GPipe(llama, [34], chunks=4,
-    checkpoint='except_last'), batch 8, seq 1024, SGD in place."""
+    checkpoint='except_last'), batch 8, seq 1024, trained by
+    ``make_train_step`` with SGD (in place, no state)."""
+    import functools
+
     import numpy as np
 
     from torchgpipe_tpu_torch import GPipe
@@ -1482,23 +1506,18 @@ def phase_train(torch, tfa, tt, card, seed: int, steps: int = 3):
         plain_loss = loss_fn(llama(tokens), tokens).item()
     model = GPipe(llama, [len(llama)], chunks=chunks, checkpoint="except_last")
     params = list(model.parameters())
-
-    @torch.no_grad()
-    def sgd():
-        # In place: the reference rebinds its parameter tree (p - lr * g),
-        # which would hold a second 16 GB copy of the weights on the card.
-        for p in params:
-            p.add_(p.grad, alpha=-TRAIN_LR)
+    train_step = model.make_train_step(
+        functools.partial(torch.optim.SGD, lr=TRAIN_LR), loss_fn)
 
     def step(stats=None):
-        loss, _, _ = model.value_and_grad(tokens, tokens, loss_fn)
+        loss, _ = train_step(tokens, tokens)
         if stats is not None:
+            # SGD leaves the step's gradients in .grad.
             for name, layer, key in (("head.w", -1, "w"), ("table", 0, "table"),
                                      ("block0.wq", 1, "wq"),
                                      ("block0.w_down", 1, "w_down")):
                 g = getattr(model[layer], key).grad.float()
                 stats[name] = (g.abs().max().item(), g.square().mean().sqrt().item())
-        sgd()
         return loss
 
     head_w = model[-1].w
@@ -1527,6 +1546,9 @@ def phase_train(torch, tfa, tt, card, seed: int, steps: int = 3):
         end.synchronize()
         step_ms.append(start.elapsed_time(end))
     peak = torch.cuda.max_memory_allocated()
+    if abs(peak / 2**30 - TRAIN_PEAK_GIB) > 1.0:
+        fail(f"train step peak memory {peak / 2**30:.2f} GiB, not within 1 GiB of "
+             f"{TRAIN_PEAK_GIB} GiB (the hand-written SGD's; SGD keeps no state)")
     losses = [x.item() for x in losses]
     # Step-1 loss against one unpipelined forward on the same weights:
     # the two differ only where cuBLAS picks another summation order for
@@ -1548,7 +1570,7 @@ def phase_train(torch, tfa, tt, card, seed: int, steps: int = 3):
     med = statistics.median(step_ms)
     print(f"train: pipeline-1 Llama-3-8B width ({sum(p.numel() for p in params) / 1e9:.3f}B "
           f"params, seed {seed}), batch {b} x seq {s}, chunks {chunks}, except_last, "
-          f"SGD lr {TRAIN_LR}: losses {[round(x, 5) for x in losses]} "
+          f"make_train_step(SGD lr {TRAIN_LR}): losses {[round(x, 5) for x in losses]} "
           f"(unpipelined step-1 loss {plain_loss:.5f}), head weights moved by step 1: "
           f"{moved:.4f}; step-1 grad (max, rms): "
           + ", ".join(f"{k} ({a:.3e}, {r:.3e})" for k, (a, r) in grad_stats.items())
@@ -1559,7 +1581,7 @@ def phase_train(torch, tfa, tt, card, seed: int, steps: int = 3):
           f"max_memory_allocated={peak / 2**30:.2f}GiB launches/step={launches} "
           f"[{card}]", flush=True)
     profile(torch, card, "train step", step, top=16)
-    del model, llama, params
+    del model, llama, params, train_step
     torch.cuda.empty_cache()
     return launches, med
 
@@ -1599,6 +1621,338 @@ def phase_stages(torch, tt, card, seed: int):
     print(f"stages: 4 blocks, balance [2, 2, 2] vs [6]: loss {l3:.6f} vs {l1:.6f}, "
           f"{bitwise}/{len(g1)} grad leaves bitwise equal, worst diff {worst:.3e} of "
           f"max |grad| (tol 2^-7) [{card}]", flush=True)
+
+
+# Phase 10: AdamW's rate for the bf16 weights.  Adam moves an entry by
+# ~lr whatever its gradient (m / sqrt(v) ~ +-1 in the first steps); a
+# projection weight of |w| ~ dim^-1/2 = 0.0156 has a bf16 ulp of 2^-13 =
+# 1.2e-4, so a move survives rounding only when lr > 6e-5.  lr = 1e-3 moves
+# such a weight by ~8 ulps a step (6% of |w|), large weights by fewer, and
+# the decay (lr * 0.01 = 1e-5 of |w|) by none: too small for bf16.
+ADAMW_LR = 1e-3
+
+
+def grad_leaves(model):
+    return [p.grad for p in model.parameters()]
+
+
+def grad_witness(torch, model, fn):
+    """``fn()`` with a hook on every parameter that adds each gradient it
+    receives (one per cell backward) into float32: ``{name: (sum, sum of
+    |g|, [count])}``.  The hooks change no gradient."""
+    acc, handles = {}, []
+    for name, p in model.named_parameters():
+        s, a, n = torch.zeros_like(p, dtype=torch.float32), \
+            torch.zeros_like(p, dtype=torch.float32), [0]
+
+        def hook(g, s=s, a=a, n=n):
+            s.add_(g)
+            a.add_(g.abs())
+            n[0] += 1
+
+        handles.append(p.register_hook(hook))
+        acc[name] = (s, a, n)
+    for p in model.parameters():
+        p.grad = None
+    try:
+        fn()
+    finally:
+        for h in handles:
+            h.remove()
+    torch.cuda.synchronize()
+    return acc
+
+
+def step_with_peak(torch, tfa, model, fn):
+    """``fn()`` with the card's peak memory above what was allocated just
+    before it (old gradients dropped first) and the kernels' launches."""
+    for p in model.parameters():
+        p.grad = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tfa.reset_launches()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, {"peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                 "step_peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+                 "ms": start.elapsed_time(end), "launches": kernel_launches(tfa)}
+
+
+def phase_1f1b(torch, tfa, tt, card, seed: int):
+    """Llama-3-8B width cut to 8 blocks, batch 8, seq 1024, chunks 8,
+    checkpoint 'never', 4 stages on one card at the balance
+    ``balance_by_flops`` gives: one step of the fill-drain schedule and
+    one of 1F1B from the same weights (loss, gradients, launches, peak
+    memory), then three ``make_train_step`` steps of AdamW under 1F1B."""
+    import functools
+
+    import numpy as np
+
+    from torchgpipe_tpu_torch import GPipe
+    from torchgpipe_tpu_torch.balance import balance_by_flops
+
+    cfg = llama_cfg(tt, torch, dict(LLAMA3_8B, n_layers=8))
+    b, s, chunks, n_stages = 8, 1024, 8, 4
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    layers = list(tt.llama(cfg, device="cuda", generator=gen))
+    tokens = torch.from_numpy(
+        np.random.default_rng(seed + 3).integers(0, cfg.vocab, (b, s))).cuda()
+    loss_fn = causal_lm_loss(tt)
+    t0 = time.perf_counter()
+    balance = balance_by_flops(n_stages, layers, tokens[: b // chunks])
+    flops_s = time.perf_counter() - t0
+    # No recompute under 'never': each block runs the forward kernel once
+    # per micro-batch and each backward kernel once per micro-batch, in
+    # either schedule (balance_by_flops counted on the meta device and
+    # launched nothing).
+    want = {k: cfg.n_layers * chunks for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    # One untimed fill-drain step first: cuBLAS and the allocator warm up
+    # outside the two steps compared.
+    GPipe(layers, balance, chunks=chunks, checkpoint="never").value_and_grad(
+        tokens, tokens, loss_fn)
+
+    def pipe(schedule):
+        kw = dict(loss_reduction="mean") if schedule == "1f1b" else {}
+        return GPipe(layers, balance, chunks=chunks, checkpoint="never",
+                     schedule=schedule, **kw)
+
+    runs = {}
+    for schedule in ("gpipe", "1f1b"):
+        model = pipe(schedule)
+        (loss, _, _), stats = step_with_peak(
+            torch, tfa, model, lambda: model.value_and_grad(tokens, tokens, loss_fn))
+        expect_launches(stats["launches"], want, f"one {schedule} step (8 blocks, 8 chunks)")
+        runs[schedule] = (loss.item(), stats)
+        del model
+    (lg, sg), (lf, sf) = runs["gpipe"], runs["1f1b"]
+    # Loss: fill-drain takes one mean over the gathered 8 x 1023 token
+    # losses, 1F1B sums eight per-micro-batch means weighted 1/8: the
+    # same float32 terms in another order, ~1e-7 relative.
+    if abs(lf - lg) > 1e-5 * abs(lg):
+        fail(f"1F1B vs fill-drain: loss {lf} vs {lg} (tol 1e-5 relative)")
+    if not sf["step_peak_gib"] < sg["step_peak_gib"]:
+        fail(f"1F1B step peak {sf['step_peak_gib']:.2f} GiB is not below fill-drain's "
+             f"{sg['step_peak_gib']:.2f} GiB")
+    # Gradients, on a second step of each schedule (the hooks' float32
+    # sums would distort the peaks above).  The two schedules add the
+    # same eight micro-batch gradients into the bf16 .grad in opposite
+    # orders (7 -> 0 against 0 -> 7), so their .grad part by rounding
+    # alone; a bound on that, not one reading, decides:
+    # * every leaf receives exactly `chunks` gradients (a micro-batch lost
+    #   or counted twice fails here);
+    # * each .grad equals the float32 sum S of what it received within
+    #   the bf16 rounding of n - 1 adds: each rounds by at most 2^-8 of
+    #   its result, and every partial sum is at most A = sum |g| (times
+    #   (1 + 2^-8)^7), so |.grad - S| <= n 2^-8 A elementwise (S's own
+    #   float32 error, n 2^-24 A, fits in the ~0.8 x 2^-8 A left over, and
+    #   2^-130 covers subnormal sums, which round by up to 2^-134 an add);
+    # * the two schedules' S, which no longer depend on the order, agree
+    #   within 2^-7 of a leaf's max |S| (phase_stages' one bf16 ulp).
+    sums, bound_use, s_diff = {}, {}, 0.0
+    for schedule in ("gpipe", "1f1b"):
+        model = pipe(schedule)
+        acc = grad_witness(torch, model, lambda: model.value_and_grad(tokens, tokens, loss_fn))
+        bound_use[schedule] = 0.0
+        for name, p in model.named_parameters():
+            total, absum, n = acc.pop(name)
+            if n[0] != chunks:
+                fail(f"{schedule}: {name} received {n[0]} gradients, not {chunks}")
+            err = (p.grad.float() - total).abs_()
+            tol = absum.mul_(n[0] * 2 ** -8).add_(2 ** -130)
+            if bool((err > tol).any()):
+                fail(f"{schedule}: {name}'s bf16 .grad is off the float32 sum of its "
+                     f"{n[0]} micro-batch gradients beyond the rounding bound")
+            bound_use[schedule] = max(bound_use[schedule], err.div_(tol).max().item())
+            if schedule == "gpipe":
+                sums[name] = total
+                continue
+            ref = sums.pop(name)
+            d = ((total - ref).abs().max() / ref.abs().max()).item()
+            if not d <= 2 ** -7:
+                fail(f"1F1B vs fill-drain: {name}'s float32 gradient sums part by {d:.3e} "
+                     f"of max |S| (tol 2^-7)")
+            s_diff = max(s_diff, d)
+            del total, absum, err, tol, ref
+        del model, acc
+    torch.cuda.empty_cache()
+    print(f"train_1f1b: Llama-3-8B width, 8 blocks, batch {b} x seq {s}, chunks {chunks}, "
+          f"'never', balance_by_flops({n_stages}) = {balance} ({flops_s:.2f}s on the meta "
+          f"device); loss gpipe {lg:.6f} vs 1f1b {lf:.6f}; every leaf got {chunks} "
+          f"micro-batch gradients, .grad within the bf16 bound of their float32 sum (worst "
+          f"use of the bound: gpipe {bound_use['gpipe']:.3f}, 1f1b {bound_use['1f1b']:.3f}), "
+          f"float32 sums of the two schedules part by {s_diff:.3e} of max |S| at worst "
+          f"(tol 2^-7); step peak above start: fill-drain "
+          f"{sg['step_peak_gib']:.2f} GiB vs 1F1B {sf['step_peak_gib']:.2f} GiB (ratio "
+          f"{sf['step_peak_gib'] / sg['step_peak_gib']:.3f}; absolute "
+          f"{sg['peak_gib']:.2f} vs {sf['peak_gib']:.2f}); step ms {sg['ms']:.1f} vs "
+          f"{sf['ms']:.1f}; launches/step {sf['launches']} = {cfg.n_layers} blocks x "
+          f"{chunks} [{card}]", flush=True)
+
+    model = GPipe(layers, balance, chunks=chunks, checkpoint="never", schedule="1f1b",
+                  loss_reduction="mean")
+    step = model.make_train_step(functools.partial(torch.optim.AdamW, lr=ADAMW_LR),
+                                 loss_fn)
+    losses, ms = [], []
+    for _ in range(3):
+        (loss, _), stats = step_with_peak(torch, tfa, model, lambda: step(tokens, tokens))
+        expect_launches(stats["launches"], want, "one 1F1B AdamW step")
+        losses.append(loss.item())
+        ms.append(stats["ms"])
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"AdamW under 1F1B: loss did not fall on the fixed batch: {losses}")
+    print(f"train_1f1b: make_train_step(AdamW lr {ADAMW_LR}) x3 under 1F1B: losses "
+          f"{[round(x, 5) for x in losses]}, step ms {[round(t, 1) for t in ms]}, peak "
+          f"{stats['peak_gib']:.2f} GiB [{card}]", flush=True)
+    del model, step, layers
+    torch.cuda.empty_cache()
+    return {"balance": balance, "launches": sf["launches"],
+            "gpipe_step_peak_gib": sg["step_peak_gib"],
+            "1f1b_step_peak_gib": sf["step_peak_gib"]}
+
+
+# Phase 11: benchmarks/resnet101_speed.py's pipeline-2 row: 2 stages,
+# batch 512, chunks 16, 'except_last', deferred batch norm, at 224x224.
+RESNET_BATCH, RESNET_CHUNKS, RESNET_STAGES, RESNET_IMAGE = 512, 16, 2, 224
+# SGD as the torchgpipe ResNet-101 recipe: lr 0.1, momentum 0.9.
+RESNET_LR, RESNET_MOMENTUM = 0.1, 0.9
+
+
+def phase_resnet(torch, tfa, card, seed: int):
+    """ResNet-101 at full width (1000 classes, float32 weights drawn as
+    the reference's init draws them) through ``GPipe`` with deferred
+    batch norm on one card: the balance from ``balance_by_time``, one
+    step there and at a forced 3-stage cut inside bottlenecks against the
+    1-stage pipeline, the deferred commit of bn1, three SGD steps."""
+    import functools
+
+    import torch.nn.functional as F
+
+    from torchgpipe_tpu_torch import GPipe
+    from torchgpipe_tpu_torch.balance import balance_by_time
+    from torchgpipe_tpu_torch.batchnorm import convert_deferred_batch_norm
+    from torchgpipe_tpu_torch.models.resnet import resnet101
+
+    b, chunks = RESNET_BATCH, RESNET_CHUNKS
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    layers = convert_deferred_batch_norm(
+        list(resnet101(device="cuda", generator=gen)), chunks)
+    n = len(layers)
+    x = torch.randn(b, 3, RESNET_IMAGE, RESNET_IMAGE, device="cuda", generator=gen)
+    x = x.contiguous(memory_format=torch.channels_last)
+    y = torch.randint(0, 1000, (b,), device="cuda", generator=gen)
+
+    def loss_fn(out, tgt):
+        return F.cross_entropy(out.float(), tgt)
+
+    t0 = time.perf_counter()
+    balance = balance_by_time(RESNET_STAGES, layers, x[: b // chunks], timeout=1.0)
+    time_s = time.perf_counter() - t0
+    names = [layer.name for layer in layers]
+    forced = [names.index("layer2_b1_bn1"), names.index("layer3_b12_conv3")]
+    forced = [forced[0], forced[1] - forced[0], n - forced[1]]
+    snapshot = [{k: v.clone() for k, v in layer.state_dict().items()} for layer in layers]
+
+    def restore():
+        for layer, state in zip(layers, snapshot):
+            layer.load_state_dict(state)
+
+    results = {}
+    for tag, bal in (("balance", balance), ("forced", forced), ("one_stage", [n])):
+        restore()
+        model = GPipe(layers, bal, chunks=chunks, checkpoint="except_last",
+                      deferred_batch_norm=True)
+        crossing = sum(src != dst for src, dst in model.skip_layout.by_key.values())
+        (loss, _, _), stats = step_with_peak(
+            torch, tfa, model, lambda: model.value_and_grad(x, y, loss_fn))
+        expect_launches(stats["launches"], {}, f"a ResNet-101 step at {bal}")
+        results[tag] = (loss.item(), [g.clone() for g in grad_leaves(model)],
+                        [t.clone() for t in model.buffers()], crossing, stats)
+        del model
+    l1, g1, b1, _, s1 = results["one_stage"]
+    # The stage boundaries change no operation: the loss is one float32
+    # mean either way (1e-6 relative), and each gradient leaf may differ
+    # only by the order in which cuDNN's weight-gradient kernels add with
+    # atomics, ~2^-24 x sqrt(terms) of the terms, far inside 1e-4 of the
+    # leaf's max |grad|.  Buffers come from the forward alone (the same
+    # reductions): 1e-6 of max(|value|, 1).
+    for tag in ("balance", "forced"):
+        loss, grads, bufs, crossing, _ = results[tag]
+        gworst = max(((a - c).abs().max() / c.abs().max().clamp_min(1e-30)).item()
+                     for a, c in zip(grads, g1))
+        bworst = max(((a.double() - c.double()).abs().max()
+                      / c.double().abs().max().clamp_min(1.0)).item()
+                     for a, c in zip(bufs, b1))
+        if abs(loss - l1) > 1e-6 * abs(l1) or gworst > 1e-4 or bworst > 1e-6:
+            fail(f"ResNet-101 at {tag} balance vs one stage: loss {loss} vs {l1}, worst "
+                 f"grad diff {gworst:.3e} (tol 1e-4), worst buffer diff {bworst:.3e} "
+                 "(tol 1e-6)")
+        results[tag] = (loss, gworst, bworst, crossing, results[tag][4])
+    del g1, b1
+
+    # Deferred BN: bn1's running statistics after the one-stage step are
+    # one 0.9-momentum commit, from (mean 0, var 1), of the whole batch's
+    # biased statistics of conv1's output.  From the same conv1 on the
+    # same 512 images, the per-micro-batch sums (16 x 401k terms) and
+    # var_mean over all 6.4M agree to ~1e-6 of the statistics; the
+    # commit's ssq/count - mean^2 cancels little here (|mean| < std), so
+    # 1e-4 of max(|stat|, 1) leaves room.
+    with torch.no_grad():
+        h = layers[0](x)
+        var, mean = torch.var_mean(h, dim=(0, 2, 3), correction=0)
+        del h
+    restore()
+    model = GPipe(layers, [n], chunks=chunks, checkpoint="except_last",
+                  deferred_batch_norm=True)
+    model.value_and_grad(x, y, loss_fn)
+    bn1 = layers[1]
+    dmean = (bn1.mean - 0.1 * mean).abs().max().item()
+    dvar = (bn1.var - (0.9 + 0.1 * var)).abs().max().item()
+    if dmean > 1e-4 * max(mean.abs().max().item(), 1.0) or \
+            dvar > 1e-4 * max(var.abs().max().item(), 1.0) or bn1._tracked != 0:
+        fail(f"deferred bn1 commit: mean off by {dmean:.3e}, var by {dvar:.3e} "
+             f"(tracked {bn1._tracked})")
+    del model
+
+    restore()
+    model = GPipe(layers, balance, chunks=chunks, checkpoint="except_last",
+                  deferred_batch_norm=True)
+    step = model.make_train_step(functools.partial(
+        torch.optim.SGD, lr=RESNET_LR, momentum=RESNET_MOMENTUM), loss_fn)
+    losses, ms = [], []
+    for _ in range(3):
+        (loss, _), stats = step_with_peak(torch, tfa, model, lambda: step(x, y))
+        expect_launches(stats["launches"], {}, "a ResNet-101 SGD step")
+        losses.append(loss.item())
+        ms.append(stats["ms"])
+    if not all(l == l for l in losses) or not losses[-1] < losses[0]:
+        fail(f"ResNet-101 SGD: loss did not fall on the fixed batch: {losses}")
+    tfa.reset_launches()
+    profile(torch, card, "resnet101 step", lambda: step(x, y), top=10)
+    expect_launches(kernel_launches(tfa), {}, "the profiled ResNet-101 step")
+    med = statistics.median(ms)
+    lb, gb, bb, cb, _ = results["balance"]
+    _, gf, bf, cf, _ = results["forced"]
+    print(f"resnet101: {n} layers, {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M "
+          f"params float32, batch {b} x {RESNET_IMAGE}^2, chunks {chunks}, except_last, "
+          f"deferred BN, cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}; "
+          f"balance_by_time({RESNET_STAGES}) = {balance} ({time_s:.1f}s, {cb} skips cross "
+          f"the boundary): loss {lb:.6f} vs one stage {l1:.6f}, "
+          f"grad diff {gb:.2e}, buffer diff {bb:.2e}; forced {forced} ({cf} skips cross): "
+          f"grad diff {gf:.2e}, buffer diff {bf:.2e}; bn1 commit off by {dmean:.2e} / "
+          f"{dvar:.2e} [{card}]", flush=True)
+    print(f"resnet101: make_train_step(SGD lr {RESNET_LR} momentum {RESNET_MOMENTUM}) x3: "
+          f"losses {[round(v, 5) for v in losses]}; step_ms={med:.1f} (steps "
+          f"{[round(t, 1) for t in ms]}) samples_per_s={b * 1e3 / med:.1f} "
+          f"max_memory_allocated={stats['peak_gib']:.2f}GiB (one-stage step "
+          f"{s1['peak_gib']:.2f}GiB) [{card}]", flush=True)
+    del model, step, layers, snapshot, x
+    torch.cuda.empty_cache()
+    return {"balance": balance, "step_ms": med, "samples_per_s": b * 1e3 / med,
+            "launches": stats["launches"]}
 
 
 def main() -> None:
@@ -1661,6 +2015,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     train_launches, _ = phase_train(torch, tfa, tt, card, args.seed)
     phase_stages(torch, tt, card, args.seed)
+    t0 = time.perf_counter()
+    one_f1b = phase_1f1b(torch, tfa, tt, card, args.seed)
+    resnet = phase_resnet(torch, tfa, card, args.seed)
+    print(f"phases 10-11 (train_1f1b, resnet101): {time.perf_counter() - t0:.1f}s",
+          flush=True)
 
     src = "torchgpipe_tpu_torch/csrc/"
     ref = "torchgpipe_tpu/ops/flash_attention.py"
@@ -1668,7 +2027,8 @@ def main() -> None:
 
     paths = {"generate": launches, "generate_int8": int8_launches,
              "speculative": spec_launches, "beam_search": beam_launches,
-             "serving": serving["kernel_launches"]}
+             "serving": serving["kernel_launches"], "train_step": train_launches,
+             "train_1f1b": one_f1b["launches"], "resnet101": resnet["launches"]}
 
     def decode_entry(name, kind, main_path):
         t, long = dec["main"][kind], dec["long"][kind]
@@ -1690,7 +2050,9 @@ def main() -> None:
         ms, (bms, by), call = main_bwd[key]
         return {"name": name, "route": "cuda", "source": src + "flash_bwd.cu",
                 "replaces": f"{ref}:{line}", "also_replaces": f"{ref}:{also}",
-                "launches": train_launches[name], "max_abs_err": bwd_err[key],
+                "launches": train_launches[name],
+                "launches_by_path": {p: n[name] for p, n in paths.items()},
+                "max_abs_err": bwd_err[key],
                 "ms": ms, "call_ms": call, "plain_ms": main_bwd["plain_ms"],
                 "bound_ms": bms, "bound_by": by, "library_ms": main_bwd["lib_ms"],
                 "library_backend": main_bwd["lib_backend"],
@@ -1709,8 +2071,7 @@ def main() -> None:
         {"name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
          "replaces": f"{ref}:69", "also_replaces": f"{ref}:301",
          "launches": launches["flash_fwd"],
-         "launches_by_path": dict({p: n["flash_fwd"] for p, n in paths.items()},
-                                  train_step=train_launches["flash_fwd"]),
+         "launches_by_path": {p: n["flash_fwd"] for p, n in paths.items()},
          "max_abs_err": max(r["err"] for r in fwd.values()),
          "ms": main_fwd["ms"], "plain_ms": main_fwd["plain_ms"],
          "bound_ms": main_fwd["bound_ms"], "bound_by": main_fwd["bound_by"],

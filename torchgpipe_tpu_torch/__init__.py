@@ -2,8 +2,10 @@
 
 The JAX package ``torchgpipe_tpu`` is the reference; this package mirrors
 its module names (``gpipe``, ``pipeline``, ``microbatch``, ``partition``,
-``checkpoint``, ``models.transformer``, ``models.generation``,
-``ops.flash_attention``, ``serving``, ``obs``, ``resilience``, ``tune``)
+``checkpoint``, ``skip``, ``batchnorm``, ``balance``,
+``models.transformer``, ``models.generation``, ``models.resnet``,
+``ops.flash_attention``, ``ops.nn``, ``serving``, ``obs``,
+``resilience``, ``tune``)
 and replaces each Pallas TPU kernel with a kernel
 written by hand in CUDA C++ for ``sm_90a`` (``csrc/``).  Importing the
 package builds nothing: kernels compile at their first launch

@@ -30,7 +30,8 @@ Each wrapper launches its kernel for CUDA tensors and raises for what the
 kernel does not take (device, dtype, contiguity, head dim).  It runs the
 plain PyTorch version beside it (:func:`flash_attention_reference`,
 :func:`_reference_bwd`, :func:`flash_decode_reference`) only when its
-inputs lie on the CPU.  Each keeps a plain-integer count of kernel
+inputs lie on the CPU, or on the meta device, where nothing runs and
+``balance.layer_flops`` counts the FLOPs of shapes.  Each keeps a plain-integer count of kernel
 launches in its ``launches`` attribute; the decode wrapper keeps one
 count per variant, ``launches`` for a bf16/float32 cache and
 ``launches_int8`` for an int8 cache, and adds one to exactly one of them
@@ -50,6 +51,9 @@ import torch
 from torchgpipe_tpu_torch.ops import _build
 
 _NEG = -1e30
+# Devices whose tensors take the plain versions: the CPU, and meta
+# (shapes only: FLOP counting).
+_PLAIN_DEVICES = ("cpu", "meta")
 FWD_HEAD_DIMS = (64, 128)
 DECODE_HEAD_DIMS = (64, 128)
 DECODE_KEYS = 64      # keys per decode tile (csrc/flash_decode.cu KT)
@@ -514,7 +518,7 @@ def _flash_fwd(
     """``(out, lse)``: the kernel on CUDA tensors, the plain version on
     CPU tensors.  ``lse`` is float32 ``[b*h, s]`` in scaled-score units,
     as the reference kernel's residual."""
-    if q.device.type == "cpu":
+    if q.device.type in _PLAIN_DEVICES:
         return _reference_fwd(q, k, v, causal, sm_scale, window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
@@ -664,7 +668,7 @@ class _FlashAttention(torch.autograd.Function):
         causal, sm_scale, window = ctx.args
         do = do.contiguous()
         delta = _delta(do, o)
-        if q.device.type == "cpu":
+        if q.device.type in _PLAIN_DEVICES:
             dq, dk, dv = _reference_grads(
                 q, k, v, do, lse, delta, causal, sm_scale, window
             )

@@ -1,26 +1,30 @@
 """Balance-driven partitioning of a sequential model into pipeline stages.
 
 Counterpart of ``torchgpipe_tpu/partition.py`` with the same
-``BalanceError`` messages.  A layer here is an ``nn.Module``; the
-reference's ``layers.Layer`` protocol (``init``/``apply`` over explicit
-pytrees) has no counterpart in the port.  Automatic balancing
-(``torchgpipe_tpu.balance``) is not ported yet (ROADMAP.md, queue A
-item 2).
+``BalanceError`` messages, plus :class:`Stage`, the module a stage runs.
+A layer here is an ``nn.Module``; the reference's ``layers.Layer``
+protocol (``init``/``apply`` over explicit pytrees) has no counterpart in
+the port.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Any, Dict, List, Sequence, Tuple
 
 from torch import nn
 
+from torchgpipe_tpu_torch.skip import SkipLayout, apply_layer
+
 _RECOMMEND = (
     "If your model is still under development, its optimal balance would change\n"
-    "frequently. Automatic balancing (torchgpipe_tpu.balance in the reference) "
-    "is not ported to torchgpipe_tpu_torch yet (ROADMAP.md, queue A item 2);\n"
-    "pass a balance whose entries sum to the number of layers:\n"
+    "frequently. In this case, we highly recommend "
+    "torchgpipe_tpu_torch.balance for naive automatic balancing:\n"
     "\n"
-    "  model = GPipe(layers, balance=[n0, n1, ...], chunks=...)\n"
+    "  from torchgpipe_tpu_torch import GPipe\n"
+    "  from torchgpipe_tpu_torch.balance import balance_by_time\n"
+    "\n"
+    "  balance = balance_by_time(n_stages, layers, sample)\n"
+    "  model = GPipe(layers, balance, ...)\n"
 )
 
 
@@ -77,3 +81,27 @@ def split_layers(
         stages.append(layers[i : i + n])
         i += n
     return stages
+
+
+class Stage(nn.Sequential):
+    """One pipeline stage: its layers in order, threading skips.
+
+    ``forward(x, skips_in) -> (y, ext)``: ``skips_in`` holds the skips
+    stashed on earlier stages that this stage pops, and ``ext`` the ones
+    this stage stashes for later stages (``layout.external_*``).  Skips
+    stashed and popped inside the stage stay inside it."""
+
+    def __init__(self, layers: Sequence[nn.Module], index: int,
+                 layout: SkipLayout) -> None:
+        super().__init__(*layers)
+        self.index = index
+        self.ext_stash_keys: Tuple = tuple(layout.external_stashes(index))
+        self.ext_pop_keys: Tuple = tuple(layout.external_pops(index))
+
+    def forward(  # type: ignore[override]
+        self, x: Any, skips_in: Dict = None
+    ) -> Tuple[Any, Dict]:
+        skips = dict(skips_in or {})
+        for layer in self:
+            x = apply_layer(layer, x, skips)
+        return x, {k: skips[k] for k in self.ext_stash_keys}
