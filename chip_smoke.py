@@ -87,6 +87,32 @@ Phases, one line each (any failure exits non-zero):
    deferred commit against the whole batch's statistics, three SGD steps
    (lr 0.1, momentum 0.9) with a falling loss, step ms, samples/s, peak
    memory, a profile, and 0 launches of every hand-written kernel.
+12. train_graph: phase 10's model (8 blocks, batch 8, seq 1024, 8
+   micro-batches, its 4-stage balance) under 'except_last' as
+   ``GPipe(fused=True)``: two eager SGD steps, the fused warm-up and the
+   first replay from the same weights, all bitwise equal (loss, every
+   .grad, every updated parameter); one capture; replay and eager step
+   ms and idle shares; the flash kernels' launches per replay from a
+   profile (the wrappers count no launch recorded in a capture) equal to
+   the eager step's; then ``make_train_step(AdamW(capturable=True),
+   megastep=4)`` replayed with a NaN loss at inner step 1 against four
+   replayed single steps with step 1 skipped (finite flags, losses,
+   parameters, moments and step counts bitwise).
+13. precision: (a) phase 11's ResNet-101 row with
+   ``compute_dtype=bfloat16`` over float32 masters against the float32
+   step from the same weights (loss within 1e-2; gradients finite
+   float32, their distance printed); a witness at batch 64: plain
+   float32 against the policy at ``float64`` (1e-3 over all leaves,
+   1e-2 the worst leaf) and bf16 1e2 times farther; three SGD steps
+   eagerly and as one CUDA graph from the same state, bitwise equal
+   step by step; ms, samples/s, peak, profiles; (b) phase 12's Llama
+   with float32 masters, bf16 compute, ``fused=True``: the fused
+   warm-up's launches and a replay's (CUDA-only profile) equal to
+   phase 12's, warm-up and replay bitwise equal to the eager step.
+14. offload: phase 10's model at the depth ``/proc/meminfo`` allows,
+   ``checkpoint='offload'`` against ``'never'``: loss and gradients
+   bitwise, every saved byte moved to pinned host memory, the step's
+   peak above its start lower, ms (median of 3 each).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Then one JSON line per kernel (time, launches, bound, plain and
@@ -103,6 +129,7 @@ the package beside this script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import re
@@ -1094,16 +1121,18 @@ def phase_beam(torch, tfa, tg, card, cfg, model, prompt, new_tokens: int = 32,
     return launches
 
 
-def profile(torch, card, label, fn, top: int = 12):
+def profile(torch, card, label, fn, top: int = 12, cuda_only: bool = False):
     """Device time by kernel and the device's idle share of one call of
     ``fn`` (torch.profiler; one stream, so busy time is the sum of kernel
-    times).  Returns ``(wall_s, busy_s, [(device_us, count, name)] of the
-    top kernels)``."""
+    times).  Returns ``(wall_s, busy_s, [(device_us, count, name)] of
+    every kernel, longest first)``; prints the top ``top``.  ``cuda_only``
+    records the device's activity alone."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] if cuda_only else [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch_profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1124,7 +1153,7 @@ def profile(torch, card, label, fn, top: int = 12):
     for dev, count, key in rows[:top]:
         print(f"  {dev / 1e3:9.2f}ms {100 * dev / 1e6 / busy:5.1f}% "
               f"x{count:<6d} {key[:90]}")
-    return wall, busy, rows[:top]
+    return wall, busy, rows
 
 
 def phase_profile(torch, tg, card, cfg, model, prompt, steps: int = 16) -> None:
@@ -1955,11 +1984,580 @@ def phase_resnet(torch, tfa, card, seed: int):
             "launches": stats["launches"]}
 
 
+# Phases 12-14: the eighth slice's training options at phase 10's width.
+FLASH_KERNELS = {"flash_fwd": "flash_fwd_kernel", "flash_bwd_dq": "flash_bwd_dq_kernel",
+                 "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
+
+
+def profile_launches(rows):
+    """Launches of the flash training kernels in a profile's rows (what a
+    graph replay runs without passing through the wrappers)."""
+    return {k: sum(n for _, n, key in rows if name in key)
+            for k, name in FLASH_KERNELS.items()}
+
+
+def clone_all(tensors):
+    return [t.detach().clone() for t in tensors]
+
+
+def load_all(torch, dst, src):
+    with torch.no_grad():
+        for d, s in zip(dst, src):
+            d.copy_(s, non_blocking=True)
+
+
+def to_host(tensors):
+    return [t.detach().to("cpu") for t in tensors]
+
+
+def bitwise(torch, got, want):
+    """Indices of the tensors of ``got`` that differ from ``want`` in any
+    bit (NaN where NaN), ``want`` on the host or the card."""
+    bad = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        b = b.to(a.device, non_blocking=True)
+        if a.shape != b.shape or not (torch.equal(a.nan_to_num(), b.nan_to_num())
+                                      and torch.equal(a.isnan(), b.isnan())):
+            bad.append(i)
+    return bad if len(got) == len(want) else ["count"]
+
+
+def opt_tensors(optimizers):
+    return [v for opt in optimizers for st in opt.state.values()
+            for v in st.values() if hasattr(v, "is_cuda")]
+
+
+def timed_steps(torch, fn, n):
+    ms = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    return ms
+
+
+def phase_train_graph(torch, tfa, tt, card, seed: int, balance):
+    """Phase 10's model (Llama-3-8B width, 8 blocks, batch 8, seq 1024,
+    8 micro-batches, 4 stages on one card at ``balance``) under
+    ``checkpoint='except_last'`` as ``GPipe(fused=True)``: one SGD step
+    eagerly (per cell) twice and as a replayed CUDA graph from the same
+    weights, all bitwise equal; replay and eager step times and idle
+    shares; then ``make_train_step(AdamW(capturable=True), megastep=4)``
+    with a NaN loss at inner step 1, against four replayed single steps
+    in which this phase skips step 1."""
+    import functools
+
+    import numpy as np
+
+    from torchgpipe_tpu_torch import GPipe
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = llama_cfg(tt, torch, dict(LLAMA3_8B, n_layers=8))
+    b, s, chunks = 8, 1024, 8
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    layers = list(tt.llama(cfg, device="cuda", generator=gen))
+    rng = np.random.default_rng(seed + 5)
+    toks = [torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).cuda() for _ in range(4)]
+    base_loss = causal_lm_loss(tt)
+
+    def loss_fn(out, target):
+        tokens, scale = target if isinstance(target, tuple) else (target, None)
+        loss = base_loss(out, tokens)
+        return loss if scale is None else loss * scale
+
+    def pipe(**kw):
+        return GPipe(layers, balance, chunks=chunks, checkpoint="except_last", **kw)
+
+    eager, fused = pipe(), pipe(fused=True)
+    params = list(eager.parameters())
+    w0 = to_host(params)     # on the host: the megastep below needs the card's memory
+    sgd = functools.partial(torch.optim.SGD, lr=TRAIN_LR)
+    estep = eager.make_train_step(sgd, loss_fn)
+    fstep = fused.make_train_step(sgd, loss_fn)
+    want_launches = {"flash_fwd": cfg.n_layers * (2 * chunks - 1),
+                     "flash_bwd_dq": cfg.n_layers * chunks,
+                     "flash_bwd_dkv": cfg.n_layers * chunks}
+
+    def run(step, what):
+        load_all(torch, params, w0)
+        tfa.reset_launches()
+        loss, _ = step(toks[0], toks[0])
+        torch.cuda.synchronize()
+        return loss, [p.grad for p in params], kernel_launches(tfa)
+
+    loss1, grads1, l1 = run(estep, "eager")
+    expect_launches(l1, want_launches, "an eager step")
+    ref = ([loss1.clone()], clone_all(grads1), clone_all(params))
+    results = {}
+    for what, step in (("eager again", estep), ("fused warm-up", fstep),
+                       ("replay", fstep)):
+        loss, grads, launches = run(step, what)
+        want = want_launches if what != "replay" else {}
+        expect_launches(launches, want, f"the {what} step (wrapper counts)")
+        bad = [bitwise(torch, [loss], ref[0]), bitwise(torch, grads, ref[1]),
+               bitwise(torch, params, ref[2])]
+        if any(bad):
+            fail(f"train_graph: the {what} step differs from the eager step: loss "
+                 f"{loss.item()} vs {loss1.item()}, grads {bad[1][:8]}, params {bad[2][:8]}")
+        results[what] = launches
+    stats = dict(fused.graph_stats)
+    if stats["captures"] != 1 or stats["replays"] != 1:
+        fail(f"train_graph: graph stats {stats}, expected one capture and one replay")
+    del ref, grads1, loss, grads   # the replay's outputs hold the graph's pool
+    # Times: three replays with new tokens each, two eager steps.
+    replay_ms = timed_steps(torch, lambda: fstep(toks[1], toks[1]), 3)
+    eager_ms = timed_steps(torch, lambda: estep(toks[1], toks[1]), 2)
+    rw, rb, rows = profile(torch, card, "train_graph replay", lambda: fstep(toks[2], toks[2]),
+                           top=6)
+    per_replay = profile_launches(rows)
+    if per_replay != want_launches:
+        fail(f"train_graph: flash kernels per replay (profile) {per_replay}, expected "
+             f"{want_launches} (the eager step's)")
+    ew, eb, _ = profile(torch, card, "train_graph eager step", lambda: estep(toks[2], toks[2]),
+                        top=6)
+    if fused.graph_stats["captures"] != 1:
+        fail(f"train_graph: new tokens added a capture: {fused.graph_stats}")
+    print(f"train_graph: Llama-3-8B width, 8 blocks, batch {b} x seq {s}, chunks {chunks}, "
+          f"except_last, balance {balance}, fused=True, SGD lr {TRAIN_LR}: two eager steps, "
+          f"the fused warm-up and the first replay from the same weights bitwise equal "
+          f"(loss {loss1.item():.6f}, every .grad, every updated parameter); captures "
+          f"{fused.graph_stats['captures']} in {stats['capture_s']:.2f}s (warm-up step "
+          f"included); step_ms replay {statistics.median(replay_ms):.1f} "
+          f"({[round(t, 1) for t in replay_ms]}) vs eager {statistics.median(eager_ms):.1f} "
+          f"({[round(t, 1) for t in eager_ms]}); idle_share replay {1 - rb / rw:.3f} vs eager "
+          f"{1 - eb / ew:.3f}; flash launches per replay (profile) {per_replay} = the eager "
+          f"step's [{card}]", flush=True)
+    del estep, fstep, eager, fused
+    for p in params:
+        p.grad = None
+    torch.cuda.empty_cache()
+
+    # The megastep: K=4 with a NaN loss at inner step 1.
+    k = 4
+    adamw = functools.partial(torch.optim.AdamW, lr=ADAMW_LR, capturable=True)
+    xs = torch.stack(toks)
+    nan = torch.ones(k, device="cuda")
+    nan[1] = float("nan")
+
+    def fresh(optimizers):
+        """Back to w0 and to the state a new AdamW starts from."""
+        load_all(torch, params, w0)
+        with torch.no_grad():
+            for t in opt_tensors(optimizers):
+                t.zero_()
+
+    mpipe = pipe(fused=True, megastep=k)
+    mstep = mpipe.make_train_step(adamw, loss_fn)
+    mstep(xs, (xs, torch.ones(k, device="cuda")))        # warm-up and capture
+    fresh(mstep.optimizers)
+    tfa.reset_launches()
+    t0 = time.perf_counter()
+    losses, _, finite = mstep(xs, (xs, nan))              # replay
+    torch.cuda.synchronize()
+    mega_s = time.perf_counter() - t0
+    expect_launches(kernel_launches(tfa), {}, "a megastep replay (wrapper counts)")
+    flags = finite.tolist()
+    if flags != [True, False, True, True]:
+        fail(f"train_graph megastep: finite {flags}, expected [True, False, True, True]")
+    mega = ([x.clone() for x in losses], to_host(params), to_host(opt_tensors(mstep.optimizers)))
+    mcaptures = mpipe.graph_stats["captures"]
+    del mstep, mpipe, losses, finite
+    for p in params:
+        p.grad = None
+    torch.cuda.empty_cache()
+
+    spipe = pipe(fused=True)
+    sstep = spipe.make_train_step(adamw, loss_fn)
+    sstep(toks[0], (toks[0], nan[0]))                     # warm-up and capture
+    fresh(sstep.optimizers)
+    single = []
+    for i in range(k):
+        if i == 1:
+            before = to_host(params + opt_tensors(sstep.optimizers))
+        loss, _ = sstep(toks[i], (toks[i], nan[i]))       # replays
+        single.append(loss.clone())
+        if i == 1:
+            load_all(torch, params + opt_tensors(sstep.optimizers), before)
+            del before
+    bad = [bitwise(torch, mega[0], single), bitwise(torch, params, mega[1]),
+           bitwise(torch, opt_tensors(sstep.optimizers), mega[2])]
+    if any(bad) or spipe.graph_stats["captures"] != 1 or mcaptures != 1:
+        fail(f"train_graph megastep vs single replayed steps with step 1 skipped: losses "
+             f"{bad[0]}, params {bad[1][:8]}, AdamW state {bad[2][:8]}; captures "
+             f"{mcaptures} / {spipe.graph_stats['captures']}")
+    print(f"train_graph: make_train_step(AdamW lr {ADAMW_LR} capturable, megastep={k}) "
+          f"replayed with a NaN loss at inner step 1: finite {flags}, losses "
+          f"{[round(x.item(), 5) for x in mega[0]]} bitwise those of {k} replayed single "
+          f"steps with step 1 skipped, parameters, moments and step counts bitwise "
+          f"({len(mega[1])} + {len(mega[2])} tensors); the megastep replay took "
+          f"{mega_s * 1e3:.1f}ms wall [{card}]", flush=True)
+    del sstep, spipe, mega, layers, params, w0
+    torch.cuda.empty_cache()
+    return {"launches": results["fused warm-up"], "per_replay": per_replay, "balance": balance,
+            "replay_ms": statistics.median(replay_ms),
+            "eager_ms": statistics.median(eager_ms), "replay_idle": 1 - rb / rw,
+            "eager_idle": 1 - eb / ew, "capture_s": stats["capture_s"]}
+
+
+# Phase 13 (a)'s witness, at phase 11's row: plain float32 and the policy
+# at compute_dtype=float64 (its norms in float32) against a plain
+# float64 copy of the model.  No policy code runs in plain float32, so
+# its distance from float64 is what float32's roundings (2^-24) become
+# in the gradients of this randomly initialised ResNet-101: the
+# BatchNorm backwards amplify them (~5e-2 read on the card).  The
+# float64 policy rounds only its norms to float32, so it may stand no
+# farther from float64 than that, with a factor of 2 for the spread
+# (over all leaves and at the worst leaf: a cast whose gradient is
+# dropped puts its leaf at 1.0).  bf16 rounds 2^15 times coarser and
+# must stand 10 times farther: a policy that did not compute in bf16
+# would sit as close as float32.
+WITNESS_FACTOR, WITNESS_BF16_RATIO = 2.0, 10.0
+
+
+def grad_distance(F, got, want):
+    """Relative L2 of all leaves together, the worst leaf's, the worst
+    leaf's cosine."""
+    diff = num = 0.0
+    worst, cos = 0.0, 1.0
+    for a, c in zip(got, want):
+        a, c = a.double(), c.double()
+        diff += (a - c).square().sum().item()
+        num += c.square().sum().item()
+        worst = max(worst, ((a - c).norm() / c.norm()).item())
+        cos = min(cos, F.cosine_similarity(a.flatten(), c.flatten(), dim=0).item())
+    return (diff / num) ** 0.5, worst, cos
+
+
+def phase_precision(torch, tfa, tt, card, seed: int, resnet_balance, graph,
+                    f32_samples_per_s=None):
+    """(a) ResNet-101 at phase 11's row with ``compute_dtype=bfloat16``
+    over float32 masters against phase 11's float32 step from the same
+    weights, and plain float32 and the policy at ``float64`` against a
+    plain float64 copy (the witness above ``grad_distance``); three SGD
+    steps eagerly and as a CUDA graph from the same
+    state, bitwise equal, their time and profiles; (b) phase 12's Llama
+    with float32 masters and bf16 compute under ``fused=True``: the
+    fused warm-up's flash launches and a replay's equal phase 12's, both
+    bitwise its eager step."""
+    import copy
+    import functools
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from torchgpipe_tpu_torch import GPipe
+    from torchgpipe_tpu_torch.batchnorm import convert_deferred_batch_norm
+    from torchgpipe_tpu_torch.models.resnet import resnet101
+
+    b, chunks = RESNET_BATCH, RESNET_CHUNKS
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)    # phase 11's weights
+    layers = convert_deferred_batch_norm(
+        list(resnet101(device="cuda", generator=gen)), chunks)
+    x = torch.randn(b, 3, RESNET_IMAGE, RESNET_IMAGE, device="cuda", generator=gen)
+    x = x.contiguous(memory_format=torch.channels_last)
+    y = torch.randint(0, 1000, (b,), device="cuda", generator=gen)
+
+    def loss_fn(out, tgt):
+        return F.cross_entropy(out.float(), tgt)
+
+    def state(mods):
+        return [{k: v.clone() for k, v in m.state_dict().items()} for m in mods]
+
+    def restore(mods, saved):
+        for m, st in zip(mods, saved):
+            m.load_state_dict(st)
+
+    def resnet(mods, **kw):
+        return GPipe(mods, resnet_balance, chunks=chunks, checkpoint="except_last",
+                     deferred_batch_norm=True, **kw)
+
+    snapshot = state(layers)
+    f32 = resnet(layers)
+    (l32, _, _), s32 = step_with_peak(torch, tfa, f32, lambda: f32.value_and_grad(x, y, loss_fn))
+    g32 = [p.grad.clone() for p in f32.parameters()]
+    del f32
+
+    # The witness: a plain float64 copy and the policy at float64 (on a
+    # copy, so that `layers` takes bf16's below), the loss in float64.
+    def loss64(out, tgt):
+        return F.cross_entropy(out.double(), tgt)
+
+    wit = {}
+    for what in ("float64", "policy float64"):
+        restore(layers, snapshot)
+        if what == "float64":
+            m = resnet([layer.double() for layer in copy.deepcopy(layers)])
+            wl, _, _ = m.value_and_grad(x.double(), y, loss64)
+        else:
+            m = resnet(copy.deepcopy(layers), compute_dtype=torch.float64)
+            wl, _, _ = m.value_and_grad(x, y, loss64)
+        wit[what] = (wl.item(), [p.grad for p in m.parameters()])
+        del m, wl
+    (l64, g64), lpol = wit["float64"], wit["policy float64"][0]
+    w32 = grad_distance(F, g32, g64)
+    wpol = grad_distance(F, wit["policy float64"][1], g64)
+    del wit["policy float64"]
+    restore(layers, snapshot)
+    model = resnet(layers, compute_dtype=torch.bfloat16)
+    snapshot = state(layers)                  # the wrapped layers' keys
+    (l16, _, _), s16 = step_with_peak(torch, tfa, model,
+                                      lambda: model.value_and_grad(x, y, loss_fn))
+    expect_launches(s16["launches"], {}, "a bf16 ResNet-101 step")
+    g16 = [p.grad.clone() for p in model.parameters()]
+    # bf16 keeps 8 bits: each rounding moves a value by up to 2^-9 of
+    # itself.  The loss is a mean over 512 x 1000 log-probabilities, so
+    # the roundings of ~300 layers average out in it: within 1e-2
+    # relative.  The gradients pass through 104 BatchNorms, each of which
+    # subtracts per-channel means of nearly cancelling terms and scales
+    # by 1/std, so a rounding comes out amplified by orders of magnitude
+    # (the witness): bf16's distance from float32 is printed.
+    bad = [i for i, (a, c) in enumerate(zip(g16, g32))
+           if a.dtype != torch.float32 or a.shape != c.shape or not bool(a.isfinite().all())]
+    head = [i for i, p in enumerate(model.parameters()) if p.ndim == 2]
+    head_l2 = max(grad_distance(F, [g16[i]], [g32[i]])[0] for i in head)
+    rel_l2, _, worst_cos = grad_distance(F, g16, g32)
+    lrel = abs(l16.item() - l32.item()) / abs(l32.item())
+    if bad or not lrel <= 1e-2:
+        fail(f"precision: bf16 ResNet-101 vs float32: loss {l16.item()} vs {l32.item()} "
+             f"({lrel:.3e} relative, tol 1e-2), gradient leaves not finite float32 of "
+             f"the masters' shapes: {bad[:8]}")
+    w16 = grad_distance(F, g16, g64)
+    del g32, g64, wit
+    print(f"precision: ResNet-101 witness, gradients against a plain float64 copy (loss "
+          f"{l64:.7f}; float32 {l32.item():.7f}, policy float64 {lpol:.7f}): plain float32 "
+          f"{w32[0]:.3e} over all leaves, worst leaf {w32[1]:.3e}, worst cosine "
+          f"{w32[2]:.6f}; the policy at float64 {wpol[0]:.3e}, worst leaf {wpol[1]:.3e}, "
+          f"worst cosine {wpol[2]:.6f} (tol {WITNESS_FACTOR:g} times float32's); the policy at bf16 {w16[0]:.3e}, worst leaf {w16[1]:.3e}, "
+          f"worst cosine {w16[2]:.4f}: {w16[0] / w32[0]:.3g} times float32's (at least "
+          f"{WITNESS_BF16_RATIO:g}) [{card}]", flush=True)
+    if not (wpol[0] <= WITNESS_FACTOR * w32[0] and wpol[1] <= WITNESS_FACTOR * w32[1]
+            and w16[0] >= WITNESS_BF16_RATIO * w32[0]):
+        fail("precision: the ResNet-101 witness failed (the line above): the policy at "
+             "float64 must stand within twice float32's distance from float64, bf16 ten "
+             "times farther than float32")
+
+    # Three SGD steps eagerly, then as one CUDA graph from the same state
+    # (weights, BN buffers, fresh momentum): loss, gradients, parameters
+    # and buffers bitwise equal at every step, the first eager step's
+    # also the value_and_grad's above.
+    sgd = functools.partial(torch.optim.SGD, lr=RESNET_LR, momentum=RESNET_MOMENTUM)
+
+    def taken(loss):
+        return ([loss.clone()], clone_all(p.grad for p in model.parameters()),
+                clone_all(model.parameters()), clone_all(model.buffers()))
+
+    restore(layers, snapshot)
+    step = model.make_train_step(sgd, loss_fn)
+    eager, ms = [], []
+    for _ in range(3):
+        (loss, _), stats = step_with_peak(torch, tfa, model, lambda: step(x, y))
+        eager.append(taken(loss))
+        ms.append(stats["ms"])
+    losses = [t[0][0].item() for t in eager]
+    first = [bitwise(torch, eager[0][0], [l16]), bitwise(torch, eager[0][1], g16)]
+    if any(first):
+        fail(f"precision: two eager bf16 ResNet-101 steps differ: loss {losses[0]} vs "
+             f"{l16.item()}, gradient leaves {first[1][:8]}")
+    if not all(v == v for v in losses) or not losses[-1] < losses[0]:
+        fail(f"precision: bf16 ResNet-101 SGD loss did not fall: {losses}")
+    del g16
+    rw, rb, _ = profile(torch, card, "resnet101 bf16 step", lambda: step(x, y), top=10)
+    med = statistics.median(ms)
+    print(f"precision: ResNet-101 compute_dtype=bfloat16 (float32 masters), batch {b}, "
+          f"chunks {chunks}, balance {resnet_balance}, except_last, deferred BN: loss "
+          f"{l16.item():.6f} vs float32 {l32.item():.6f} ({lrel:.2e} relative), gradients "
+          f"float32 and finite, the classifier's {head_l2:.3e} from float32 (relative L2), "
+          f"all leaves {rel_l2:.3e}, worst leaf cosine {worst_cos:.4f}; SGD x3 losses "
+          f"{[round(v, 5) for v in losses]}, the first step's loss and gradients bitwise "
+          f"value_and_grad's; step_ms={med:.1f} ({[round(t, 1) for t in ms]}) "
+          f"samples_per_s={b * 1e3 / med:.1f} (phase 11's float32: {f32_samples_per_s}; "
+          f"here float32 value_and_grad {s32['ms']:.1f}ms, "
+          f"bf16 {s16['ms']:.1f}ms); max_memory_allocated={stats['peak_gib']:.2f}GiB "
+          f"(float32 step {s32['peak_gib']:.2f}GiB); idle_share {1 - rb / rw:.3f} "
+          f"[{card}]", flush=True)
+    del step
+
+    # The same three steps as one CUDA graph: the warm-up, then replays.
+    restore(layers, snapshot)
+    fmodel = resnet(layers, compute_dtype=torch.bfloat16, fused=True)
+    fstep = fmodel.make_train_step(sgd, loss_fn)
+    t0 = time.perf_counter()
+    for i, want in enumerate(eager):
+        loss, _ = fstep(x, y)
+        torch.cuda.synchronize()
+        if i == 0:
+            capture_s = time.perf_counter() - t0
+        bad = [bitwise(torch, got, w) for got, w in zip(taken(loss), want)]
+        if any(bad):
+            what = "warm-up" if i == 0 else "replay"
+            fail(f"precision: fused bf16 ResNet-101 step {i + 1} ({what}) "
+                 f"differs from the eager step: loss {loss.item()} vs {losses[i]}, grads "
+                 f"{bad[1][:8]}, params {bad[2][:8]}, buffers {bad[3][:8]}")
+    del eager
+    fms = timed_steps(torch, lambda: fstep(x, y), 3)
+    fw, fb, _ = profile(torch, card, "resnet101 bf16 replay", lambda: fstep(x, y), top=6)
+    fmed = statistics.median(fms)
+    if fmodel.graph_stats["captures"] != 1:
+        fail(f"precision: fused bf16 ResNet-101: {fmodel.graph_stats}, expected one capture")
+    print(f"precision: ResNet-101 bf16 fused=True: the warm-up and two replays from the "
+          f"same state bitwise the three eager SGD steps (loss, every .grad, parameter and "
+          f"buffer); capture {capture_s:.2f}s (warm-up step included), step_ms={fmed:.1f} "
+          f"({[round(t, 1) for t in fms]}) samples_per_s={b * 1e3 / fmed:.1f}, idle_share "
+          f"{1 - fb / fw:.3f} [{card}]", flush=True)
+    del fmodel, fstep
+    resnet_out = {"step_ms": med, "samples_per_s": b * 1e3 / med,
+                  "launches": s16["launches"], "fused_step_ms": fmed}
+    del model, layers, snapshot, x
+    torch.cuda.empty_cache()
+
+    # (b) Llama, float32 masters, bf16 compute, fused.
+    cfg = tt.TransformerConfig(**dict(LLAMA3_8B, n_layers=8), dtype=torch.float32)
+    bsz, s, chunks = 8, 1024, 8
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    llama = list(tt.llama(cfg, device="cuda", generator=gen))
+    tokens = torch.from_numpy(
+        np.random.default_rng(seed + 6).integers(0, cfg.vocab, (bsz, s))).cuda()
+    loss_fn = causal_lm_loss(tt)
+
+    def pipe(**kw):
+        return GPipe(llama, graph["balance"], chunks=chunks, checkpoint="except_last",
+                     compute_dtype=torch.bfloat16, **kw)
+
+    eager = pipe()
+    tfa.reset_launches()
+    loss_e, grads, _ = eager.value_and_grad(tokens, tokens, loss_fn)
+    torch.cuda.synchronize()
+    expect_launches(kernel_launches(tfa), graph["launches"],
+                    "the float32-master Llama's eager step (phase 12's counts)")
+    want = ([loss_e.clone()], to_host(g for st in grads for d in st for g in d.values()))
+    if any(g.dtype != torch.float32 for g in want[1]):
+        fail("precision: a float32 master's gradient is not float32")
+    for p in eager.parameters():
+        p.grad = None
+    del eager, grads
+    fused = pipe(fused=True)
+    for call in ("warm-up", "replay"):
+        tfa.reset_launches()
+        loss, grads, _ = fused.value_and_grad(tokens, tokens, loss_fn)
+        torch.cuda.synchronize()
+        counts = kernel_launches(tfa)
+        if call == "warm-up":
+            launches = counts
+        expect_launches(counts, graph["launches"] if call == "warm-up" else {},
+                        f"the fused float32-master Llama's {call} (wrapper counts)")
+        got = [g for st in grads for d in st for g in d.values()]
+        bad = [bitwise(torch, [loss], want[0]), bitwise(torch, got, want[1])]
+        if any(bad):
+            fail(f"precision: fused float32-master Llama {call} differs from its eager "
+                 f"step: loss {loss.item()} vs {loss_e.item()}, grads {bad[1][:8]}")
+        del grads, got
+    # A replay runs no wrapper: its launches are read from a profile of
+    # the device's activity alone (whose kernel times summed to half the
+    # busy time in one run, so the idle share comes from a second).
+    _, _, rows = profile(torch, card, "float32-master Llama replay (CUDA only)",
+                         lambda: fused.value_and_grad(tokens, tokens, loss_fn), top=0,
+                         cuda_only=True)
+    per_replay = profile_launches(rows)
+    if per_replay != graph["per_replay"]:
+        fail(f"precision: flash kernels per float32-master replay (profile) {per_replay}, "
+             f"expected phase 12's {graph['per_replay']}")
+    rw, rb, _ = profile(torch, card, "float32-master Llama replay",
+                        lambda: fused.value_and_grad(tokens, tokens, loss_fn), top=6)
+    print(f"precision: Llama-3-8B width 8 blocks, float32 masters "
+          f"({sum(p.numel() for p in fused.parameters()) / 1e9:.3f}B params), "
+          f"compute_dtype=bfloat16, fused=True: warm-up launches {launches} and per replay "
+          f"(profile) {per_replay} = phase 12's; warm-up and replay bitwise equal to the "
+          f"eager step (loss {loss_e.item():.6f}, every float32 .grad); replay idle_share "
+          f"{1 - rb / rw:.3f} [{card}]", flush=True)
+    del fused, llama, want
+    torch.cuda.empty_cache()
+    return resnet_out, launches
+
+
+def host_available_gib():
+    with open("/proc/meminfo") as f:
+        info = dict(line.split(":", 1) for line in f)
+    return int(info["MemAvailable"].split()[0]) / 2**20
+
+
+# Phase 14: pinned host memory per block for 'offload' at batch 8, seq
+# 1024, 8 micro-batches (phase 10's 'never' step holds ~2.7 GiB of
+# residuals a block), with room for the caching host allocator's
+# power-of-two blocks.
+OFFLOAD_GIB_PER_BLOCK = 5.5
+
+
+def phase_offload(torch, tfa, tt, card, seed: int, balance):
+    """Phase 10's model under ``checkpoint='offload'`` against ``'never'``
+    at the depth host memory allows: loss and gradients bitwise, every
+    saved byte moved, the step's peak above its start, ms (median of 3)."""
+    import numpy as np
+
+    from torchgpipe_tpu_torch import GPipe
+    from torchgpipe_tpu_torch.balance import balance_by_flops
+
+    avail = host_available_gib()
+    blocks = max(1, min(8, int(avail // OFFLOAD_GIB_PER_BLOCK)))
+    cfg = llama_cfg(tt, torch, dict(LLAMA3_8B, n_layers=blocks))
+    b, s, chunks = 8, 1024, 8
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    layers = list(tt.llama(cfg, device="cuda", generator=gen))
+    tokens = torch.from_numpy(
+        np.random.default_rng(seed + 7).integers(0, cfg.vocab, (b, s))).cuda()
+    loss_fn = causal_lm_loss(tt)
+    if blocks != 8:
+        balance = balance_by_flops(4, layers, tokens[: b // chunks])
+    never = GPipe(layers, balance, chunks=chunks, checkpoint="never")
+    (ln, gn, _), sn = step_with_peak(torch, tfa, never,
+                                     lambda: never.value_and_grad(tokens, tokens, loss_fn))
+    want = ([ln.clone()], clone_all(g for st in gn for d in st for g in d.values()))
+    del gn
+    never_ms = timed_steps(torch, lambda: never.value_and_grad(tokens, tokens, loss_fn), 3)
+    off = GPipe(layers, balance, chunks=chunks, checkpoint="offload")
+    t0 = time.perf_counter()
+    off.value_and_grad(tokens, tokens, loss_fn)        # pins the host buffers
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    (lo, go, _), so = step_with_peak(torch, tfa, off,
+                                     lambda: off.value_and_grad(tokens, tokens, loss_fn))
+    moved = dict(off.offload_stats)
+    bad = [bitwise(torch, [lo], want[0]),
+           bitwise(torch, [g for st in go for d in st for g in d.values()], want[1])]
+    if any(bad):
+        fail(f"offload: loss {lo.item()} vs never {ln.item()}, grads {bad[1][:8]}")
+    del go
+    off_ms = timed_steps(torch, lambda: off.value_and_grad(tokens, tokens, loss_fn), 3)
+    if not 0 < moved["moved_bytes"] == moved["saved_bytes"]:
+        fail(f"offload: {moved}: every saved byte must move to the host")
+    if not so["step_peak_gib"] < sn["step_peak_gib"]:
+        fail(f"offload: step peak {so['step_peak_gib']:.2f} GiB is not below 'never''s "
+             f"{sn['step_peak_gib']:.2f} GiB")
+    print(f"offload: Llama-3-8B width, {blocks} blocks (host MemAvailable {avail:.1f} GiB), "
+          f"batch {b} x seq {s}, chunks {chunks}, balance {balance}: 'offload' loss and "
+          f"every gradient bitwise 'never''s (loss {ln.item():.6f}); moved "
+          f"{moved['moved_bytes'] / 2**30:.3f} GiB to pinned host memory = every saved byte; "
+          f"step peak above start {so['step_peak_gib']:.2f} GiB vs 'never' "
+          f"{sn['step_peak_gib']:.2f} GiB ({sn['step_peak_gib'] - so['step_peak_gib']:.3f} GiB "
+          f"lower; absolute {so['peak_gib']:.2f} vs {sn['peak_gib']:.2f}); step_ms offload "
+          f"{statistics.median(off_ms):.1f} ({[round(t, 1) for t in off_ms]}) vs never "
+          f"{statistics.median(never_ms):.1f} ({[round(t, 1) for t in never_ms]}) (first "
+          f"offload step {first_s * 1e3:.0f}ms wall, pinning included) [{card}]", flush=True)
+    del never, off, layers, want
+    torch.cuda.empty_cache()
+    return {"launches": so["launches"], "blocks": blocks,
+            "ms": statistics.median(off_ms), "never_ms": statistics.median(never_ms)}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="weights and prompt seed")
     args = ap.parse_args()
 
+    run_t0 = time.perf_counter()
     import torch
     import torch.nn.functional as F
 
@@ -2020,6 +2618,16 @@ def main() -> None:
     resnet = phase_resnet(torch, tfa, card, args.seed)
     print(f"phases 10-11 (train_1f1b, resnet101): {time.perf_counter() - t0:.1f}s",
           flush=True)
+    t0 = time.perf_counter()
+    graph = phase_train_graph(torch, tfa, tt, card, args.seed, one_f1b["balance"])
+    t1 = time.perf_counter()
+    precision_resnet, precision_llama = phase_precision(
+        torch, tfa, tt, card, args.seed, resnet["balance"], graph, resnet["samples_per_s"])
+    t2 = time.perf_counter()
+    offload = phase_offload(torch, tfa, tt, card, args.seed, one_f1b["balance"])
+    t3 = time.perf_counter()
+    print(f"phases 12-14 (train_graph, precision, offload): {t3 - t0:.1f}s "
+          f"({t1 - t0:.1f} + {t2 - t1:.1f} + {t3 - t2:.1f})", flush=True)
 
     src = "torchgpipe_tpu_torch/csrc/"
     ref = "torchgpipe_tpu/ops/flash_attention.py"
@@ -2028,7 +2636,9 @@ def main() -> None:
     paths = {"generate": launches, "generate_int8": int8_launches,
              "speculative": spec_launches, "beam_search": beam_launches,
              "serving": serving["kernel_launches"], "train_step": train_launches,
-             "train_1f1b": one_f1b["launches"], "resnet101": resnet["launches"]}
+             "train_1f1b": one_f1b["launches"], "resnet101": resnet["launches"],
+             "train_graph": graph["launches"], "precision_resnet101": precision_resnet["launches"],
+             "precision_llama": precision_llama, "offload": offload["launches"]}
 
     def decode_entry(name, kind, main_path):
         t, long = dec["main"][kind], dec["long"][kind]
@@ -2096,6 +2706,7 @@ def main() -> None:
     for k in kernels[1:3]:
         k["device_pos0_bitwise"] = k["graph_replay"] = True   # phase 4 fails otherwise
     print(json.dumps({"kernels": kernels}))
+    print(f"chip_smoke: {time.perf_counter() - run_t0:.1f}s in all", flush=True)
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -164,6 +164,8 @@ def test_port_imports_no_jax_and_no_reference_package():
         "import torchgpipe_tpu_torch.skip, torchgpipe_tpu_torch.batchnorm\n"
         "import torchgpipe_tpu_torch.balance, torchgpipe_tpu_torch.balance.profile\n"
         "import torchgpipe_tpu_torch.ops.nn, torchgpipe_tpu_torch.models.resnet\n"
+        "import torchgpipe_tpu_torch.precision, torchgpipe_tpu_torch.graphs\n"
+        "import torchgpipe_tpu_torch.ops.losses\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'torchgpipe_tpu' or m.startswith('torchgpipe_tpu.')]\n"
         "assert not bad, bad\n"

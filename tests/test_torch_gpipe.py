@@ -153,8 +153,9 @@ def test_checkpoint_modes_and_errors():
     assert tckpt.CHECKPOINT_MODES == jckpt.CHECKPOINT_MODES
     with pytest.raises(ValueError, match="checkpoint is not one of"):
         tckpt.checkpoint_stop("sometimes", 4, train=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A item 2"):
-        tckpt.checkpoint_stop("offload", 4, train=True)
+    # 'offload' keeps every cell's residuals (in host memory): stop 0.
+    assert tckpt.checkpoint_stop("offload", 4, train=True) == 0 == \
+        jckpt.checkpoint_stop("offload", 4, train=True)
 
 
 @pytest.mark.parametrize("balance", [[3, 2], [1, 1, 1], [0, 4], [2, -1, 3]])
@@ -319,31 +320,59 @@ def test_llama_backward_reaches_every_weight():
         assert p.grad.abs().max() > 0, name
 
 
+_JAX_DTYPES = {torch.float16: jnp.float16, torch.bfloat16: jnp.bfloat16}
+
+
 @pytest.mark.parametrize(
     "kwargs",
-    # The two cases that named 'schedule' and 'deferred_batch_norm' alone
-    # (both ported now) pair them with an option still unported.
+    # The options of the eighth slice (fused, megastep, compute_dtype,
+    # 'offload') are ported: their cases now pair them so that the
+    # reference refuses the pairing, and the port must refuse it with
+    # the reference's text.  The options still unported keep raising
+    # with their ROADMAP item.
     [{"schedule": "1f1b", "loss_reduction": "mean", "megastep": 3},
-     {"fused": True}, {"megastep": 2},
+     {"fused": True, "schedule": "1f1b", "loss_reduction": "mean"},
+     {"megastep": 2},
      {"remat_policy": object()}, {"tracer": object()},
-     {"deferred_batch_norm": True, "compute_dtype": torch.float16},
-     {"compute_dtype": torch.bfloat16},
-     {"checkpoint": "offload"}, {"hbm_budget_bytes": 1 << 30}],
+     {"deferred_batch_norm": True, "compute_dtype": torch.float16,
+      "fused": True, "checkpoint": "offload"},
+     {"compute_dtype": torch.bfloat16, "fused": True, "tracer": object()},
+     {"checkpoint": "offload", "schedule": "1f1b", "loss_reduction": "sum"},
+     {"hbm_budget_bytes": 1 << 30}],
 )
 def test_unported_options_raise_with_roadmap_item(kwargs):
     layers = [nn.Linear(2, 2), nn.Linear(2, 2)]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A item 2"):
+    # A tracer with fused=True meets the reference's fused check first.
+    unported = {"remat_policy", "hbm_budget_bytes"} & set(kwargs) or (
+        "tracer" in kwargs and not kwargs.get("fused"))
+    if unported:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A item 2"):
+            GPipe(layers, [1, 1], devices=["cpu"], **kwargs)
+        return
+    jkw = {k: _JAX_DTYPES.get(v, v) if k == "compute_dtype" else v
+           for k, v in kwargs.items()}
+    with pytest.raises(ValueError) as je:
+        JGPipe(jt.llama(JCFG)[:2], [1, 1], devices=[jax.devices()[0]], **jkw)
+    with pytest.raises(ValueError) as te:
         GPipe(layers, [1, 1], devices=["cpu"], **kwargs)
+    assert str(te.value) == str(je.value)
 
 
 def test_unported_entry_points_and_layers_raise():
     model = GPipe([nn.Linear(2, 2)], [1], devices=["cpu"])
-    for call in (lambda: model.make_train_step(torch.optim.SGD, None, megastep=2),
-                 lambda: model.value_and_grad_with_loss_params(),
+    for call in (lambda: model.value_and_grad_with_loss_params(),
                  lambda: model.value_and_grad(torch.zeros(2, 2), None, None,
                                               rng=0)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A item 2"):
             call()
+    # megastep is ported; on a pipe without fused=True the reference's
+    # refusal, word for word.
+    jmodel = JGPipe(jt.llama(JCFG)[:1], [1], devices=[jax.devices()[0]])
+    with pytest.raises(ValueError) as je:
+        jmodel.make_train_step(None, None, megastep=2)
+    with pytest.raises(ValueError) as te:
+        model.make_train_step(torch.optim.SGD, None, megastep=2)
+    assert str(te.value) == str(je.value)
     with pytest.raises(NotImplementedError, match="random layer"):
         GPipe([nn.Linear(2, 2), nn.Dropout(0.1)], [2], devices=["cpu"])
     # Skip layers are ported: a stash that no layer pops fails the

@@ -142,6 +142,12 @@ def test_make_train_step_matches_optax(reference, balance, opt_name):
 
 
 def test_megastep_is_not_ported():
+    """megastep is ported (tests/test_torch_fused.py); without fused=True
+    both packages refuse it, with the same text."""
     model = GPipe([torch.nn.Linear(2, 2)], [1], devices=["cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A item 2"):
+    jmodel = JGPipe(jt.llama(JCFG)[:1], [1], devices=[jax.devices()[0]])
+    with pytest.raises(ValueError) as je:
+        jmodel.make_train_step(optax.sgd(0.5), None, megastep=2)
+    with pytest.raises(ValueError, match=r"needs GPipe\(fused=True\)") as te:
         model.make_train_step(torch.optim.SGD, torch_loss, megastep=2)
+    assert str(te.value) == str(je.value)

@@ -15,6 +15,16 @@ updated in place.  The commit is decided from a host copy of
 ``tracked``, so deciding reads nothing back from the device.  A
 recomputed pipeline cell (``is_recomputing()``) tracks nothing: its
 checkpointed forward already did.
+
+The host copy and ``tracked`` move in lockstep: a pipeline step tracks
+exactly ``chunks`` micro-batches (``GPipe`` refuses a batch that splits
+otherwise), so each step commits once and leaves both counters where
+it found them.  A captured step (``GPipe(fused=True)``) runs this
+Python once, at capture, where the host copy goes the same round; each
+replay takes ``tracked`` the same round on the device.  So the commit
+falls on the same micro-batch in an eager step, at capture, in every
+replay and in eager steps after them.  Under a ``compute_dtype`` policy
+the layer sees a float32 upcast of its input, so the sums stay float32.
 """
 
 from __future__ import annotations

@@ -12,7 +12,9 @@ A convolutional layer list (``models.resnet``) loads per layer params
 *and* states (:func:`layers_from_jax`): a conv kernel turns from the
 reference's HWIO into OIHW; BatchNorm ``scale``/``bias`` land in
 parameters, ``mean``/``var`` (and a deferred BatchNorm's ``sum``,
-``ssq``, ``count``, ``tracked``) in buffers.
+``ssq``, ``count``, ``tracked``) in buffers; a LayerNorm's ``scale``/
+``bias`` in parameters.  A layer wrapped by the mixed-precision policy
+(:mod:`torchgpipe_tpu_torch.precision`) loads into the layer it wraps.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from torch import nn
 
 from torchgpipe_tpu_torch.batchnorm import DeferredBatchNorm
 from torchgpipe_tpu_torch.models.resnet import Residual
-from torchgpipe_tpu_torch.ops.nn import BatchNorm, Conv2d, Dense
+from torchgpipe_tpu_torch.ops.nn import BatchNorm, Conv2d, Dense, LayerNorm
+from torchgpipe_tpu_torch.precision import unwrap
 from torchgpipe_tpu_torch.skip import layer_name
 from torchgpipe_tpu_torch.models.transformer import (
     Device,
@@ -98,6 +101,7 @@ def _keys(tree: Any) -> list:
 
 
 def _load(module: nn.Module, p: Any, s: Any, what: str) -> None:
+    module = unwrap(module)
     if isinstance(module, (Conv2d, Dense)):
         want = ["b", "w"] if module.b is not None else ["w"]
         if _keys(p) != want:
@@ -106,6 +110,15 @@ def _load(module: nn.Module, p: Any, s: Any, what: str) -> None:
               (3, 2, 0, 1) if isinstance(module, Conv2d) else None)
         if module.b is not None:
             _copy(module.b, p["b"], f"{what} b")
+        return
+    if isinstance(module, LayerNorm):
+        if _keys(p) != ["bias", "scale"] or len(s):
+            raise ValueError(
+                f"{what}: reference params {_keys(p)} / state {_keys(s)} != "
+                "['bias', 'scale'] / []"
+            )
+        _copy(module.scale, p["scale"], f"{what} scale")
+        _copy(module.bias, p["bias"], f"{what} bias")
         return
     if isinstance(module, BatchNorm):
         buffers = dict(module.named_buffers())

@@ -217,13 +217,14 @@ def _rope(x: torch.Tensor, theta: float, pos_offset: Any = 0) -> torch.Tensor:
     freqs = 1.0 / (
         theta ** (torch.arange(0, half, dtype=torch.float32, device=dev) / half)
     )
-    off = torch.as_tensor(pos_offset, dtype=torch.float32, device=dev)
-    if off.ndim == 2:
-        positions = off
+    steps = torch.arange(s, dtype=torch.float32, device=dev)
+    if isinstance(pos_offset, (int, float)):
+        # No host-to-device copy of the offset: a captured CUDA graph
+        # (GPipe(fused=True)) may not make one.
+        positions = (steps + pos_offset)[None]
     else:
-        positions = off.reshape(-1, 1) + torch.arange(
-            s, dtype=torch.float32, device=dev
-        )
+        off = torch.as_tensor(pos_offset, dtype=torch.float32, device=dev)
+        positions = off if off.ndim == 2 else off.reshape(-1, 1) + steps
     ang = positions[..., None] * freqs          # [B', s, half]
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
@@ -256,8 +257,11 @@ def _embed(
 ) -> torch.Tensor:
     """Token lookup with the optional ``embed_scale`` (learned position
     tables, which would need the position, are refused by
-    ``TransformerConfig.check_ported``)."""
-    x = p["table"][tokens]
+    ``TransformerConfig.check_ported``).  ``F.embedding``'s backward
+    sums each row's gradients in a fixed order on the card (advanced
+    indexing's adds with atomics, in any order), so a training step
+    repeats bit for bit."""
+    x = F.embedding(tokens, p["table"])
     if cfg.embed_scale is not None:
         x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype)
     return x

@@ -35,7 +35,9 @@ inputs lie on the CPU, or on the meta device, where nothing runs and
 launches in its ``launches`` attribute; the decode wrapper keeps one
 count per variant, ``launches`` for a bf16/float32 cache and
 ``launches_int8`` for an int8 cache, and adds one to exactly one of them
-a launch.  The plain versions never touch them.  :func:`reset_launches`
+a launch.  A launch recorded into a CUDA graph capture is not counted
+(its replays launch the kernel without the wrapper; ``chip_smoke.py``
+counts those from a profile).  The plain versions never touch them.  :func:`reset_launches`
 sets every count to 0.
 """
 
@@ -279,6 +281,14 @@ def _check_tma(what: str, *ts: torch.Tensor) -> None:
     aligned bases."""
     if any(t.data_ptr() % 16 for t in ts):
         raise ValueError(f"{what}: inputs must be 16-byte aligned")
+
+
+def _count(fn: Any, attr: str = "launches") -> None:
+    """One launch of ``fn``'s kernel.  Inside a CUDA graph capture the
+    launch is recorded, not run, and is not counted: the graph's replays
+    run it without passing through the wrapper."""
+    if not torch.cuda.is_current_stream_capturing():
+        setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -547,7 +557,7 @@ def _flash_fwd(
         0 if window is None else int(window), _stream(q),
     )
     _build.check(rc, "flash_fwd")
-    flash_attention.launches += 1
+    _count(flash_attention)
     return o, lse
 
 
@@ -605,7 +615,7 @@ def flash_bwd_dq(
         0 if window is None else int(window), _stream(q),
     )
     _build.check(rc, "flash_bwd_dq")
-    flash_bwd_dq.launches += 1
+    _count(flash_bwd_dq)
     return dq
 
 
@@ -642,7 +652,7 @@ def flash_bwd_dkv(
         int(causal), 0 if window is None else int(window), _stream(q),
     )
     _build.check(rc, "flash_bwd_dkv")
-    flash_bwd_dkv.launches += 1
+    _count(flash_bwd_dkv)
     return dk, dv
 
 
@@ -807,9 +817,9 @@ def flash_decode_attention(
     )
     _build.check(rc, "flash_decode")
     if quant:
-        flash_decode_attention.launches_int8 += 1
+        _count(flash_decode_attention, "launches_int8")
     else:
-        flash_decode_attention.launches += 1
+        _count(flash_decode_attention)
     return out
 
 

@@ -1,11 +1,14 @@
 """The reference's layer library, as ``nn.Module``s, for the convolutional
 models.
 
-Counterpart of the parts of ``torchgpipe_tpu/ops/nn.py`` that ResNet
-uses: ``dense`` (:34), ``conv2d`` (:55), ``batch_norm`` (:101), ``relu``
-(:183), ``max_pool2d`` (:207), ``global_avg_pool`` (:296) and ``flatten``
-(:300).  Parameter names are the reference's keys (``w``, ``b``;
-``scale``, ``bias``; buffers ``mean``, ``var``).  Images are NCHW at the
+Counterpart of ``torchgpipe_tpu/ops/nn.py``: ``dense`` (:34),
+``conv2d`` (:55), ``batch_norm`` (:101), ``layer_norm`` (:143),
+``dropout`` (:162), ``relu`` (:183), ``gelu`` (:187), ``max_pool2d``
+(:207), ``avg_pool2d`` (:225), ``instance_norm`` (:247),
+``leaky_relu`` (:263), ``dropout2d`` (:267), ``upsample2d`` (:287),
+``global_avg_pool`` (:296) and ``flatten`` (:300).  Parameter names are
+the reference's keys (``w``, ``b``; ``scale``, ``bias``; buffers
+``mean``, ``var``).  Images are NCHW at the
 API, torch's own convolution layout (the reference is NHWC); a conv
 weight is OIHW (the reference's HWIO, transposed by ``convert``), a
 dense weight ``[in, out]`` as in the reference.  On the card
@@ -15,6 +18,12 @@ is involved on either side.
 
 The reference infers input widths at ``init``; a module here takes them
 at construction.  Each layer carries the reference's ``name``.
+
+The reference's dropouts draw from the per-micro-batch key the engine
+hands them; here :class:`Dropout` and :class:`Dropout2d` draw from the
+``torch.Generator`` they are built with (on the activations' device),
+so their masks are not the reference's bits.  A pipeline refuses them
+where a cell would recompute its forward (ROADMAP.md queue A item 2).
 """
 
 from __future__ import annotations
@@ -29,9 +38,12 @@ from torchgpipe_tpu_torch.checkpoint import is_recomputing
 from torchgpipe_tpu_torch.models.transformer import Device, resolve_device
 
 __all__ = [
-    "BatchNorm", "Conv2d", "Dense", "Flatten", "GlobalAvgPool", "MaxPool2d",
-    "ReLU", "batch_norm", "conv2d", "dense", "flatten", "global_avg_pool",
-    "max_pool2d", "relu",
+    "AvgPool2d", "BatchNorm", "Conv2d", "Dense", "Dropout", "Dropout2d",
+    "Flatten", "GELU", "GlobalAvgPool", "InstanceNorm", "LayerNorm",
+    "LeakyReLU", "MaxPool2d", "ReLU", "Upsample2d", "avg_pool2d",
+    "batch_norm", "conv2d", "dense", "dropout", "dropout2d", "flatten",
+    "gelu", "global_avg_pool", "instance_norm", "layer_norm", "leaky_relu",
+    "max_pool2d", "relu", "upsample2d",
 ]
 
 Pad = Any  # 'SAME' | 'VALID' | ((lo, hi), (lo, hi))
@@ -214,6 +226,154 @@ class MaxPool2d(nn.Module):
         return F.max_pool2d(x, self.window, self.strides)
 
 
+class AvgPool2d(nn.Module):
+    """Average pooling over NCHW.  The pad adds zeros to the window's
+    sum; the sum is divided by the window's area, or, with
+    ``count_include_pad=False`` and a padding other than ``'VALID'``, by
+    the number of real elements under the window, as the reference's
+    ``reduce_window`` counts them."""
+
+    def __init__(
+        self, window: Any = (2, 2), strides: Any = None, *, padding: Pad = "VALID",
+        count_include_pad: bool = True, name: str = "avgpool",
+    ) -> None:
+        super().__init__()
+        self.name = name
+        self.window = _pair(window)
+        self.strides = _pair(strides) if strides is not None else self.window
+        self.padding = padding
+        self.count_include_pad = count_include_pad
+
+    def _sum(self, x: torch.Tensor, pads) -> torch.Tensor:
+        (hl, hh), (wl, wh) = pads
+        x = F.pad(x, (wl, wh, hl, hh))
+        return F.avg_pool2d(x, self.window, self.strides, divisor_override=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pads = _explicit_pad(self.padding, x.shape[2:], self.window, self.strides)
+        summed = self._sum(x, pads)
+        if self.count_include_pad or self.padding == "VALID":
+            return summed / (self.window[0] * self.window[1])
+        ones = torch.ones((1, 1) + tuple(x.shape[2:]), dtype=x.dtype, device=x.device)
+        return summed / self._sum(ones, pads)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the trailing dim: ``(x - mean) * rsqrt(var + eps)
+    * scale + bias`` with the biased variance (``jnp.var``)."""
+
+    def __init__(
+        self, features: int, *, eps: float = 1e-6, name: str = "ln",
+        device: Device = None,
+    ) -> None:
+        super().__init__()
+        self.name = name
+        self.eps = eps
+        dev = resolve_device(device)
+        self.scale = nn.Parameter(torch.ones(features, device=dev))
+        self.bias = nn.Parameter(torch.zeros(features, device=dev))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        var, mean = torch.var_mean(x, dim=-1, keepdim=True, correction=0)
+        y = (x - mean) * torch.rsqrt(var + self.eps)
+        return y * self.scale + self.bias
+
+
+class InstanceNorm(nn.Module):
+    """InstanceNorm over the spatial axes, per sample and channel, with
+    no affine parameters and no running statistics (torch's
+    ``InstanceNorm2d`` defaults)."""
+
+    def __init__(self, *, eps: float = 1e-5, name: str = "in") -> None:
+        super().__init__()
+        self.name = name
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dims = tuple(range(2, x.ndim))
+        var, mean = torch.var_mean(x, dim=dims, keepdim=True, correction=0)
+        return (x - mean) * torch.rsqrt(var + self.eps)
+
+
+class GELU(nn.Module):
+    """``jax.nn.gelu``'s default, the tanh approximation (``F.gelu``'s
+    default is the exact erf form)."""
+
+    def __init__(self, name: str = "gelu") -> None:
+        super().__init__()
+        self.name = name
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.gelu(x, approximate="tanh")
+
+
+class LeakyReLU(nn.Module):
+    def __init__(self, negative_slope: float = 0.01, *, name: str = "leaky_relu") -> None:
+        super().__init__()
+        self.name = name
+        self.negative_slope = negative_slope
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.leaky_relu(x, self.negative_slope)
+
+
+class Dropout(nn.Module):
+    """Inverted dropout: in training, each element is kept with
+    probability ``1 - rate`` (drawn from ``generator``) and scaled by
+    ``1 / (1 - rate)``.  In eval mode, or at rate 0, the identity."""
+
+    def __init__(
+        self, rate: float, *, generator: Optional[torch.Generator] = None,
+        name: str = "dropout",
+    ) -> None:
+        super().__init__()
+        if not 0.0 <= rate < 1.0:
+            raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+        self.name = name
+        self.rate = rate
+        self.generator = generator
+
+    def _mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:
+        return tuple(x.shape)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.generator is None:
+            raise ValueError(f"{self.name} needs a torch.Generator in train mode")
+        keep = torch.empty(self._mask_shape(x), device=x.device).bernoulli_(
+            1.0 - self.rate, generator=self.generator).bool()
+        return torch.where(keep, x / (1.0 - self.rate), 0.0)
+
+
+class Dropout2d(Dropout):
+    """Spatial dropout: zeroes whole feature maps, one draw per sample
+    and channel of an NCHW input."""
+
+    def __init__(
+        self, rate: float, *, generator: Optional[torch.Generator] = None,
+        name: str = "dropout2d",
+    ) -> None:
+        super().__init__(rate, generator=generator, name=name)
+
+    def _mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:
+        return tuple(x.shape[:2]) + (1,) * (x.ndim - 2)
+
+
+class Upsample2d(nn.Module):
+    """Nearest-neighbour upsampling of the spatial axes by an integer
+    ``scale``."""
+
+    def __init__(self, scale: int = 2, *, name: str = "upsample") -> None:
+        super().__init__()
+        self.name = name
+        self.scale = scale
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.repeat_interleave(self.scale, dim=2)
+        return x.repeat_interleave(self.scale, dim=3)
+
+
 class GlobalAvgPool(nn.Module):
     """Mean over the spatial axes: ``[N, C, H, W] -> [N, C]``."""
 
@@ -244,7 +404,15 @@ class Flatten(nn.Module):
 dense = Dense
 conv2d = Conv2d
 batch_norm = BatchNorm
+layer_norm = LayerNorm
+dropout = Dropout
 relu = ReLU
+gelu = GELU
 max_pool2d = MaxPool2d
+avg_pool2d = AvgPool2d
+instance_norm = InstanceNorm
+leaky_relu = LeakyReLU
+dropout2d = Dropout2d
+upsample2d = Upsample2d
 global_avg_pool = GlobalAvgPool
 flatten = Flatten

@@ -32,14 +32,21 @@ Counterpart of ``torchgpipe_tpu/pipeline.py`` (``clock_cycles``,
   parameters' dtype, as the reference's per-stage tree adds do.
 * Stage hand-offs are ``.to(device, non_blocking=True)``; kernels queue
   on each device's current stream while Python runs ahead.
+* ``checkpoint='offload'`` (fill-drain only) runs every cell as
+  ``'never'`` does, with its saved tensors in pinned host memory between
+  its forward and its backward (:class:`~torchgpipe_tpu_torch.checkpoint.Offload`):
+  the backward fetches each cell's tensors one cell ahead.
+* ``GPipe(fused=True)`` captures :meth:`Pipeline.run_train` (or
+  :meth:`Pipeline.run_forward`) whole into one CUDA graph
+  (:mod:`torchgpipe_tpu_torch.gpipe`); the cells are these.
 
-Not ported (ROADMAP.md queue A item 2): the fused schedule, host offload
-of residuals, tracing.
+Not ported (ROADMAP.md queue A item 2): tracing.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterator, List, Sequence, Tuple
+import contextlib
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -103,6 +110,12 @@ def _pairs(y: Any, gy: Any) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     return [(a, b) for a, b in zip(ys, gs) if b is not None and a.requires_grad]
 
 
+def _leaves(x: Any) -> List[torch.Tensor]:
+    if isinstance(x, tuple):
+        return [t for v in x for t in _leaves(v)]
+    return [] if x is None else [x]
+
+
 def _split_loss(res: Any) -> Tuple[torch.Tensor, Any]:
     return res if isinstance(res, tuple) else (res, None)
 
@@ -112,9 +125,11 @@ class _Cells:
     what each cell keeps between its forward and its backward, and the
     skips and skip cotangents in flight."""
 
-    def __init__(self, pipe: "Pipeline", checkpoint_stop: int) -> None:
+    def __init__(self, pipe: "Pipeline", checkpoint_stop: int,
+                 offload: Optional[ckpt.Offload] = None) -> None:
         self.pipe = pipe
         self.stop = checkpoint_stop
+        self.offload = offload
         self.saved: Dict[Cell, Tuple] = {}    # checkpointed: inputs only
         self.graphs: Dict[Cell, Tuple] = {}   # inputs and outputs
         self.skips: Dict[Tuple[int, Any], torch.Tensor] = {}
@@ -132,19 +147,28 @@ class _Cells:
                 y, ext = stage(x, skips_in)
             self.saved[(i, j)] = (x, skips_in)
         else:
-            with torch.enable_grad(), ckpt.phase():
+            hooks = contextlib.nullcontext() if self.offload is None else \
+                self.offload.cell((i, j), dev, _leaves((x, *skips_in.values()))
+                                  + list(stage.parameters()))
+            with torch.enable_grad(), ckpt.phase(), hooks:
                 y, ext = stage(x, skips_in)
             self.graphs[(i, j)] = (x, skips_in, y, ext)
         for k, v in ext.items():
             self.skips[(i, k)] = _to(v.detach(), pipe.devices[pipe.layout.pop_stage(k)])
         return y
 
-    def backward(self, i: int, j: int, gy: Any) -> Any:
+    def backward(self, i: int, j: int, gy: Any, nxt: Optional[Cell] = None) -> Any:
         """The cell's backward from its output cotangent ``gy`` (and the
         cotangents of its stashes, which have arrived); returns its input
-        cotangent on stage ``j - 1``'s device (None for stage 0)."""
+        cotangent on stage ``j - 1``'s device (None for stage 0).
+        ``nxt`` is the cell whose backward comes next (offload fetches
+        its tensors now)."""
         pipe = self.pipe
         stage = pipe.stages[j]
+        if self.offload is not None:
+            self.offload.before_backward(
+                (i, j), pipe.devices[j], nxt,
+                None if nxt is None else pipe.devices[nxt[1]])
         if (i, j) in self.saved:
             x, skips_in = self.saved.pop((i, j))
             with torch.enable_grad(), ckpt.phase(recomputing=True):
@@ -204,13 +228,15 @@ class Pipeline:
         target: Any,
         loss_fn: Callable[..., Any],
         checkpoint_stop: int,
+        offload: Optional[ckpt.Offload] = None,
     ) -> Tuple[torch.Tensor, Any]:
         """Fill-drain forward, loss on the gathered output, and backward.
         Returns ``(loss, aux)`` (``aux`` is what ``loss_fn`` returned
         beside the loss, or None); the parameters' ``.grad`` hold the
-        mini-batch gradients."""
+        mini-batch gradients.  With ``offload``, the cells' saved tensors
+        wait in host memory (``checkpoint='offload'``)."""
         n, m = len(self.stages), len(mbatches)
-        cells = _Cells(self, checkpoint_stop)
+        cells = _Cells(self, checkpoint_stop, offload)
         acts: Dict[int, Any] = {}
         outs: List[Any] = [None] * m
 
@@ -230,11 +256,12 @@ class Pipeline:
         gys: Dict[Cell, Any] = {(i, n - 1): _grad_of(leaf) for i, leaf in enumerate(leaves)}
         del leaves, outs
 
-        for cycle in reversed(list(clock_cycles(m, n))):
-            for i, j in reversed(cycle):
-                gx = cells.backward(i, j, gys.pop((i, j)))
-                if j > 0:
-                    gys[(i, j - 1)] = gx
+        order = [c for cycle in reversed(list(clock_cycles(m, n))) for c in reversed(cycle)]
+        for k, (i, j) in enumerate(order):
+            nxt = order[k + 1] if k + 1 < len(order) else None
+            gx = cells.backward(i, j, gys.pop((i, j)), nxt)
+            if j > 0:
+                gys[(i, j - 1)] = gx
         return loss.detach(), aux
 
     def run_train_1f1b(

@@ -79,6 +79,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tu
 import numpy as np
 import torch
 
+from torchgpipe_tpu_torch import graphs
 from torchgpipe_tpu_torch.models.generation import (
     QuantKVCache,
     _check_decodable,
@@ -421,24 +422,14 @@ class Engine:
             return
         gen = self._generator if self.temperature > 0.0 else None
         gen_state = gen.get_state() if gen is not None else None
-        prog.inp.zero_()        # n_valid 0 everywhere: a no-op step
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self._body(prog)    # warm-up (cuBLAS handles, allocator)
-        torch.cuda.current_stream(self.device).wait_stream(side)
+        prog.inp.zero_()        # n_valid 0 everywhere: a no-op warm-up step
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        if gen is not None:
-            # Replays read the generator's offset and advance it, as the
-            # eager body's draws would.
-            graph.register_generator_state(gen)
-        with torch.cuda.graph(graph, pool=self._graph_pool):
-            self._body(prog)
+        prog.graph, _ = graphs.capture(
+            lambda: self._body(prog), self.device, self._graph_pool,
+            warmup=lambda: self._body(prog), generator=gen)
         if gen is not None:
             gen.set_state(gen_state)
-        prog.graph = graph
         prog.built = True
         self.trace_counts[prog.name] += 1
 
