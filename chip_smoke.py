@@ -71,7 +71,7 @@ Phases, one line each (any failure exits non-zero):
    unpipelined model's, a falling loss, the peak memory within 1 GiB of
    the stateless SGD's, a profile of one step, and a 3-stage schedule on
    one card against the 1-stage one at 4 blocks.
-10. train_1f1b: the same width cut to 8 blocks, batch 8, seq 1024, 8
+10. train_1f1b: the same width cut to 4 blocks, batch 8, seq 1024, 8
    micro-batches, checkpoint 'never', 4 stages on one card at the balance
    ``balance_by_flops`` counts: one fill-drain step and one 1F1B step
    (``loss_reduction='mean'``) from the same weights, their losses and
@@ -87,7 +87,7 @@ Phases, one line each (any failure exits non-zero):
    deferred commit against the whole batch's statistics, three SGD steps
    (lr 0.1, momentum 0.9) with a falling loss, step ms, samples/s, peak
    memory, a profile, and 0 launches of every hand-written kernel.
-12. train_graph: phase 10's model (8 blocks, batch 8, seq 1024, 8
+12. train_graph: phase 10's model (4 blocks, batch 8, seq 1024, 8
    micro-batches, its 4-stage balance) under 'except_last' as
    ``GPipe(fused=True)``: two eager SGD steps, the fused warm-up and the
    first replay from the same weights, all bitwise equal (loss, every
@@ -113,6 +113,32 @@ Phases, one line each (any failure exits non-zero):
    ``checkpoint='offload'`` against ``'never'``: loss and gradients
    bitwise, every saved byte moved to pinned host memory, the step's
    peak above its start lower, ms (median of 3 each).
+15. lora: LoRA fine-tuning at full Llama-3-8B width (``lora_rank=16``,
+   bf16 base, ``llama(cfg, head=False)`` with ``chunked_lm_loss``,
+   ``GPipe([33], chunks=4, 'except_last')``, batch 8, seq 1024,
+   ``lora_optimizer(AdamW)``): three steps with a falling loss, 224 / 128
+   / 128 flash launches a step, every frozen base weight bitwise
+   unchanged with no ``.grad``, every adapter and loss-layer tensor
+   moved; step ms, tokens/s and peak beside phase 8's; a profile; one
+   packed step from ``pack_documents`` over a seeded ragged corpus
+   (lengths uniform in [64, 1024]) with 0 flash launches, a finite loss
+   and its ``real_token_fraction``; ``generate`` of 32 greedy tokens with
+   the adapters unmerged (``flash_decode``), then ``merge_lora`` and
+   ``mpmd_params_for_generation``: the unmerged tokens must pass both
+   models' teacher-forced check, and the count of equal merged tokens is
+   printed.
+16. unet: benchmarks/unet_speed.py's row pipeline-2 ((5, 64) U-Net,
+   192x192, batch 160, 8 micro-batches, 2 stages, 'except_last',
+   float32, cuDNN deterministic) with its Dropout2d(0.1) live: two eager
+   steps with one key bitwise equal and another key different, 'never'
+   and 'except_last' bitwise equal under one key (at batch 40), the
+   ``fused=True`` warm-up and replays bitwise the eager steps of their
+   keys with one capture; samples/s eager and replayed, idle shares;
+   then VGG16 at 224x224, batch 64: an eager and a replayed step bitwise.
+17. timeline: phase 16's U-Net under ``Timeline(sync=False)`` and
+   ``Timeline(sync=True)`` (benchmarks/unet_timeline.py's drive):
+   samples/s, the per-stage summary, and ``simulate_pipeline``'s makespan
+   and bubble against the analytic (n - 1) / (m + n - 1).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Then one JSON line per kernel (time, launches, bound, plain and
@@ -1612,7 +1638,7 @@ def phase_train(torch, tfa, tt, card, seed: int, steps: int = 3):
     profile(torch, card, "train step", step, top=16)
     del model, llama, params, train_step
     torch.cuda.empty_cache()
-    return launches, med
+    return launches, (med, peak / 2**30)
 
 
 def phase_stages(torch, tt, card, seed: int):
@@ -1651,6 +1677,10 @@ def phase_stages(torch, tt, card, seed: int):
           f"{bitwise}/{len(g1)} grad leaves bitwise equal, worst diff {worst:.3e} of "
           f"max |grad| (tol 2^-7) [{card}]", flush=True)
 
+
+# Phases 10, 12, 13 (b) and 14 run Llama-3-8B width cut to this many
+# blocks, so that the whole run stays within half its time limit.
+CUT_BLOCKS = 4
 
 # Phase 10: AdamW's rate for the bf16 weights.  Adam moves an entry by
 # ~lr whatever its gradient (m / sqrt(v) ~ +-1 in the first steps); a
@@ -1712,7 +1742,7 @@ def step_with_peak(torch, tfa, model, fn):
 
 
 def phase_1f1b(torch, tfa, tt, card, seed: int):
-    """Llama-3-8B width cut to 8 blocks, batch 8, seq 1024, chunks 8,
+    """Llama-3-8B width cut to ``CUT_BLOCKS`` blocks, batch 8, seq 1024, chunks 8,
     checkpoint 'never', 4 stages on one card at the balance
     ``balance_by_flops`` gives: one step of the fill-drain schedule and
     one of 1F1B from the same weights (loss, gradients, launches, peak
@@ -1724,7 +1754,7 @@ def phase_1f1b(torch, tfa, tt, card, seed: int):
     from torchgpipe_tpu_torch import GPipe
     from torchgpipe_tpu_torch.balance import balance_by_flops
 
-    cfg = llama_cfg(tt, torch, dict(LLAMA3_8B, n_layers=8))
+    cfg = llama_cfg(tt, torch, dict(LLAMA3_8B, n_layers=CUT_BLOCKS))
     b, s, chunks, n_stages = 8, 1024, 8, 4
     gen = torch.Generator(device="cuda").manual_seed(seed + 3)
     layers = list(tt.llama(cfg, device="cuda", generator=gen))
@@ -1754,7 +1784,7 @@ def phase_1f1b(torch, tfa, tt, card, seed: int):
         model = pipe(schedule)
         (loss, _, _), stats = step_with_peak(
             torch, tfa, model, lambda: model.value_and_grad(tokens, tokens, loss_fn))
-        expect_launches(stats["launches"], want, f"one {schedule} step (8 blocks, 8 chunks)")
+        expect_launches(stats["launches"], want, f"one {schedule} step ({cfg.n_layers} blocks, {chunks} chunks)")
         runs[schedule] = (loss.item(), stats)
         del model
     (lg, sg), (lf, sf) = runs["gpipe"], runs["1f1b"]
@@ -1808,7 +1838,8 @@ def phase_1f1b(torch, tfa, tt, card, seed: int):
             del total, absum, err, tol, ref
         del model, acc
     torch.cuda.empty_cache()
-    print(f"train_1f1b: Llama-3-8B width, 8 blocks, batch {b} x seq {s}, chunks {chunks}, "
+    print(f"train_1f1b: Llama-3-8B width, {cfg.n_layers} blocks, batch {b} x seq {s}, "
+          f"chunks {chunks}, "
           f"'never', balance_by_flops({n_stages}) = {balance} ({flops_s:.2f}s on the meta "
           f"device); loss gpipe {lg:.6f} vs 1f1b {lf:.6f}; every leaf got {chunks} "
           f"micro-batch gradients, .grad within the bf16 bound of their float32 sum (worst "
@@ -2040,7 +2071,7 @@ def timed_steps(torch, fn, n):
 
 
 def phase_train_graph(torch, tfa, tt, card, seed: int, balance):
-    """Phase 10's model (Llama-3-8B width, 8 blocks, batch 8, seq 1024,
+    """Phase 10's model (Llama-3-8B width, ``CUT_BLOCKS`` blocks, batch 8, seq 1024,
     8 micro-batches, 4 stages on one card at ``balance``) under
     ``checkpoint='except_last'`` as ``GPipe(fused=True)``: one SGD step
     eagerly (per cell) twice and as a replayed CUDA graph from the same
@@ -2056,7 +2087,7 @@ def phase_train_graph(torch, tfa, tt, card, seed: int, balance):
 
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = llama_cfg(tt, torch, dict(LLAMA3_8B, n_layers=8))
+    cfg = llama_cfg(tt, torch, dict(LLAMA3_8B, n_layers=CUT_BLOCKS))
     b, s, chunks = 8, 1024, 8
     gen = torch.Generator(device="cuda").manual_seed(seed + 5)
     layers = list(tt.llama(cfg, device="cuda", generator=gen))
@@ -2121,7 +2152,8 @@ def phase_train_graph(torch, tfa, tt, card, seed: int, balance):
                         top=6)
     if fused.graph_stats["captures"] != 1:
         fail(f"train_graph: new tokens added a capture: {fused.graph_stats}")
-    print(f"train_graph: Llama-3-8B width, 8 blocks, batch {b} x seq {s}, chunks {chunks}, "
+    print(f"train_graph: Llama-3-8B width, {cfg.n_layers} blocks, batch {b} x seq {s}, "
+          f"chunks {chunks}, "
           f"except_last, balance {balance}, fused=True, SGD lr {TRAIN_LR}: two eager steps, "
           f"the fused warm-up and the first replay from the same weights bitwise equal "
           f"(loss {loss1.item():.6f}, every .grad, every updated parameter); captures "
@@ -2415,7 +2447,7 @@ def phase_precision(torch, tfa, tt, card, seed: int, resnet_balance, graph,
     torch.cuda.empty_cache()
 
     # (b) Llama, float32 masters, bf16 compute, fused.
-    cfg = tt.TransformerConfig(**dict(LLAMA3_8B, n_layers=8), dtype=torch.float32)
+    cfg = tt.TransformerConfig(**dict(LLAMA3_8B, n_layers=CUT_BLOCKS), dtype=torch.float32)
     bsz, s, chunks = 8, 1024, 8
     gen = torch.Generator(device="cuda").manual_seed(seed + 5)
     llama = list(tt.llama(cfg, device="cuda", generator=gen))
@@ -2467,7 +2499,7 @@ def phase_precision(torch, tfa, tt, card, seed: int, resnet_balance, graph,
              f"expected phase 12's {graph['per_replay']}")
     rw, rb, _ = profile(torch, card, "float32-master Llama replay",
                         lambda: fused.value_and_grad(tokens, tokens, loss_fn), top=6)
-    print(f"precision: Llama-3-8B width 8 blocks, float32 masters "
+    print(f"precision: Llama-3-8B width {cfg.n_layers} blocks, float32 masters "
           f"({sum(p.numel() for p in fused.parameters()) / 1e9:.3f}B params), "
           f"compute_dtype=bfloat16, fused=True: warm-up launches {launches} and per replay "
           f"(profile) {per_replay} = phase 12's; warm-up and replay bitwise equal to the "
@@ -2501,7 +2533,7 @@ def phase_offload(torch, tfa, tt, card, seed: int, balance):
     from torchgpipe_tpu_torch.balance import balance_by_flops
 
     avail = host_available_gib()
-    blocks = max(1, min(8, int(avail // OFFLOAD_GIB_PER_BLOCK)))
+    blocks = max(1, min(CUT_BLOCKS, int(avail // OFFLOAD_GIB_PER_BLOCK)))
     cfg = llama_cfg(tt, torch, dict(LLAMA3_8B, n_layers=blocks))
     b, s, chunks = 8, 1024, 8
     gen = torch.Generator(device="cuda").manual_seed(seed + 7)
@@ -2509,7 +2541,7 @@ def phase_offload(torch, tfa, tt, card, seed: int, balance):
     tokens = torch.from_numpy(
         np.random.default_rng(seed + 7).integers(0, cfg.vocab, (b, s))).cuda()
     loss_fn = causal_lm_loss(tt)
-    if blocks != 8:
+    if blocks != CUT_BLOCKS:
         balance = balance_by_flops(4, layers, tokens[: b // chunks])
     never = GPipe(layers, balance, chunks=chunks, checkpoint="never")
     (ln, gn, _), sn = step_with_peak(torch, tfa, never,
@@ -2550,6 +2582,346 @@ def phase_offload(torch, tfa, tt, card, seed: int, balance):
     torch.cuda.empty_cache()
     return {"launches": so["launches"], "blocks": blocks,
             "ms": statistics.median(off_ms), "never_ms": statistics.median(never_ms)}
+
+
+
+# Phase 15: LoRA at full Llama-3-8B width.  The adapters (rank 16, alpha
+# 16) and the chunked loss layer's head train with AdamW at phase 10's
+# rate; the base weights are frozen.
+LORA_RANK = 16
+
+
+def phase_lora(torch, tfa, tt, tg, card, seed: int, train_ms: float, train_peak: float):
+    """LoRA fine-tuning of the headless Llama-3-8B-width model with the
+    chunked loss layer (``GPipe([33], chunks=4, 'except_last')``, batch 8,
+    seq 1024, ``lora_optimizer(AdamW)``): three steps, then one packed
+    step, then ``generate`` with the adapters unmerged, ``merge_lora`` and
+    ``generate`` again."""
+    import functools
+
+    import numpy as np
+
+    from torchgpipe_tpu_torch import GPipe
+    from torchgpipe_tpu_torch.models import lora
+    from torchgpipe_tpu_torch.utils import data as tdata
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = tt.TransformerConfig(**LLAMA3_8B, dtype=torch.bfloat16, lora_rank=LORA_RANK)
+    b, s, chunks, new_tokens = 8, 1024, 4, 32
+    gen = torch.Generator(device="cuda").manual_seed(seed + 15)
+    t0 = time.perf_counter()
+    model = tt.llama(cfg, head=False, device="cuda", generator=gen)
+    loss_layer = tt.chunked_lm_loss(cfg, device="cuda", generator=gen)
+    pipe = GPipe(list(model), [cfg.n_layers + 1], chunks=chunks, checkpoint="except_last")
+    opt = lora.lora_optimizer(functools.partial(torch.optim.AdamW, lr=ADAMW_LR), pipe)(
+        list(pipe.parameters()) + list(loss_layer.parameters()))
+    base = [p for n, p in pipe.named_parameters() if "lora" not in n.split(".")]
+    moving = [p for n, p in pipe.named_parameters() if "lora" in n.split(".")] + \
+        list(loss_layer.parameters())
+    base0, moving0 = to_host(base), clone_all(moving)
+    n_adapt = sum(p.numel() for p in moving[:-len(list(loss_layer.parameters()))])
+    rng = np.random.default_rng(seed + 15)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s + 1))).cuda()
+    x, y = tokens[:, :-1], tokens[:, 1:]
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+
+    def step(xx, yy):
+        loss, _, _, _ = pipe.value_and_grad_with_loss_params(xx, yy, loss_layer)
+        opt.step()
+        return loss
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, launches = [], [], None
+    for i in range(3):
+        tfa.reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(step(x, y))
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        if i == 0:
+            launches = kernel_launches(tfa)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = cfg.n_layers
+    expect_launches(launches, {"flash_fwd": n * (2 * chunks - 1), "flash_bwd_dq": n * chunks,
+                               "flash_bwd_dkv": n * chunks}, "a LoRA step")
+    losses = [v.item() for v in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"lora: the loss did not fall on the fixed batch: {losses}")
+    if any(p.grad is not None for p in base):
+        fail("lora: a frozen base weight holds a .grad")
+    bad = bitwise(torch, base, base0)
+    if bad:
+        fail(f"lora: {len(bad)} frozen base weights changed (first {bad[:4]})")
+    unmoved = [i for i, (a, w) in enumerate(zip(moving, moving0)) if torch.equal(a, w)]
+    if unmoved:
+        fail(f"lora: {len(unmoved)} of {len(moving)} adapter / loss-layer tensors did not move")
+    del base0, moving0
+    med = statistics.median(step_ms[1:])
+    profile(torch, card, "lora step", lambda: step(x, y), top=8)
+    print(f"lora: Llama-3-8B width, lora_rank {LORA_RANK}, llama(head=False) + "
+          f"chunked_lm_loss, GPipe([{n + 1}], chunks={chunks}, except_last), batch {b} x "
+          f"seq {s}, lora_optimizer(AdamW lr {ADAMW_LR}): losses "
+          f"{[round(v, 5) for v in losses]}; {len(base)} base tensors bitwise unchanged "
+          f"with no .grad, {n_adapt / 1e6:.2f}M adapter and "
+          f"{sum(p.numel() for p in loss_layer.parameters()) / 1e6:.1f}M loss-layer "
+          f"parameters moved; launches/step={launches}; step_ms={med:.3f} (steps "
+          f"{[round(t, 3) for t in step_ms]}, the first creates AdamW's state) "
+          f"tokens_per_s={b * s * 1e3 / med:.1f} peak={peak:.2f}GiB against phase 8's "
+          f"full-parameter step {train_ms:.3f} ms, {train_peak:.2f}GiB; built in "
+          f"{build_s:.1f}s [{card}]", flush=True)
+
+    # One packed step: a seeded ragged corpus (lengths uniform in
+    # [64, 1024], as benchmarks/packing_speed.py draws them).
+    lens = rng.integers(64, s + 1, 24)
+    docs = [rng.integers(0, cfg.vocab, int(k)) for k in lens]
+    pk = tdata.pack_documents(docs, s)
+    px, py = next(tdata.packed_batches(pk, b))
+    frac = tdata.real_token_fraction(px)
+    px, py = next(tdata.prefetch_to_device([(px, py)]))
+    tfa.reset_launches()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    packed_loss = step(px, py)
+    end.record()
+    end.synchronize()
+    packed_ms = start.elapsed_time(end)
+    packed_launches = kernel_launches(tfa)
+    expect_launches(packed_launches, {}, "a packed LoRA step (dense segment attention)")
+    if not bool(torch.isfinite(packed_loss)):
+        fail(f"lora: packed step loss {packed_loss.item()}")
+    print(f"lora: packed step over {len(docs)} documents ({pk.n_blocks} blocks of {s}; "
+          f"first {b} rows): loss {packed_loss.item():.5f}, real_token_fraction "
+          f"{frac:.4f}, {packed_ms:.1f} ms, flash launches {packed_launches} (packed "
+          f"attention is the dense masked path, as in the reference) [{card}]", flush=True)
+    del px, py, packed_loss
+    opt.zero_grad(set_to_none=True)
+    for p in pipe.parameters():
+        p.grad = None
+    del opt
+    torch.cuda.empty_cache()
+
+    # Decode with the adapters unmerged, then merged.
+    prompt = x[:4].contiguous()
+    gen_model = tg.mpmd_params_for_generation(pipe, head=loss_layer)
+    tfa.reset_launches()
+    t0 = time.perf_counter()
+    out = tg.generate(cfg, gen_model, prompt, new_tokens)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_launches = kernel_launches(tfa)
+    expect_launches(gen_launches, {"flash_fwd": n, "flash_decode": n * new_tokens},
+                    "LoRA generate (adapters unmerged)")
+    agree_u, gap_u = teacher_forced(torch, gen_model, prompt, out)
+    mcfg, merged = lora.merge_lora(cfg, gen_model)
+    out_m = tg.generate(mcfg, merged, prompt, new_tokens)
+    same = int((out_m == out).sum())
+    # Merging rounds w + (A @ B) alpha/r to bf16 once (half an ulp of w,
+    # 2^-9 relative), where the unmerged path rounds h @ w and the
+    # adapter's product separately: perturbations of the size of the two
+    # attention paths' in phase 6 (~0.1 of the logits), so every unmerged
+    # token must stand within phase 6's 0.3 of the merged forward's max
+    # logit too, and the greedy streams may part at a near-tie.  The
+    # trained head's logits reach |x| >= 8, where a bf16 ulp is 2^-4,
+    # twice phase 6's: about twice as many positions sit within one ulp
+    # of a tie, so the argmax agreement floor falls as the int8 cache's
+    # does, to 0.85.
+    agree_m, gap_m = teacher_forced(torch, merged, prompt, out)
+    with torch.inference_mode():
+        top = merged(torch.cat([prompt, out[:, :-1]], 1))[:, s - 1:].float().amax(-1)
+        top = (top.min().item(), top.max().item())
+    if min(agree_u, agree_m) < TF_AGREE_INT8 or max(gap_u, gap_m) > TF_GAP:
+        fail(f"lora generate: teacher-forced agreement unmerged {agree_u:.3f} / merged "
+             f"{agree_m:.3f} (>= {TF_AGREE_INT8}), worst gap {gap_u:.3f} / {gap_m:.3f} "
+             f"(<= {TF_GAP})")
+    print(f"lora: generate 4 x prompt {s}, {new_tokens} greedy tokens with the adapters "
+          f"unmerged in {gen_s:.2f}s, launches {gen_launches}; merge_lora + "
+          f"mpmd_params_for_generation: {same} of {out.numel()} merged tokens equal the "
+          f"unmerged ones; the unmerged tokens under the unmerged / merged model's "
+          f"teacher-forced forward: argmax agreement {agree_u:.4f} / {agree_m:.4f}, "
+          f"worst gap {gap_u:.4f} / {gap_m:.4f} (bounds {TF_AGREE_INT8}, {TF_GAP}); the "
+          f"merged forward's max logit per position {top[0]:.2f}-{top[1]:.2f} "
+          f"[{card}]",
+          flush=True)
+    del merged, gen_model, pipe, model, loss_layer, base, moving, out, out_m
+    torch.cuda.empty_cache()
+    return {"launches": launches, "packed_launches": packed_launches,
+            "generate_launches": gen_launches, "step_ms": med, "peak_gib": peak,
+            "packed_ms": packed_ms}
+
+
+# Phases 16-17: benchmarks/unet_speed.py's row pipeline-2 (a (5, 64)
+# U-Net, 192x192, batch 160, 8 micro-batches, 2 stages, 'except_last'),
+# float32; the spatial dropouts (0.1) live.
+UNET_ROW = dict(depth=5, num_convs=5, base_channels=64)
+
+
+def unet_loss(out, target):
+    return (out - target).square().mean()
+
+
+def phase_unet(torch, tfa, card, seed: int):
+    """U-Net and VGG16 with dropout: eager steps bitwise repeatable under
+    one key, 'never' and 'except_last' bitwise equal under one key, and
+    ``fused=True`` replays bitwise the eager steps of their keys with a
+    new key on each replay and one capture."""
+    import torch.nn.functional as F
+
+    from torchgpipe_tpu_torch import GPipe
+    from torchgpipe_tpu_torch.models.unet import unet
+    from torchgpipe_tpu_torch.models.vgg import vgg16
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 16)
+    layers = list(unet(**UNET_ROW, device="cuda", generator=gen))
+    n_layers = len(layers)
+    balance = [n_layers // 2, n_layers - n_layers // 2]
+    b, chunks, size = 160, 8, 192
+    x = torch.randn(b, 3, size, size, device="cuda", generator=gen)
+    y = torch.zeros(b, 1, size, size, device="cuda")
+    n_params = sum(p.numel() for layer in layers for p in layer.parameters())
+
+    def grads_of(pipe, rng, xx=x, yy=y, loss_fn=unet_loss):
+        loss, _, _ = pipe.value_and_grad(xx, yy, loss_fn, rng=rng)
+        return [loss.detach().clone()] + clone_all([p.grad for p in pipe.parameters()])
+
+    pipe = GPipe(layers, balance, chunks=chunks, checkpoint="except_last")
+    tfa.reset_launches()
+    r1 = grads_of(pipe, 1)
+    torch.cuda.synchronize()
+    launches = kernel_launches(tfa)
+    expect_launches(launches, {}, "a U-Net step (cuDNN convolutions)")
+    r1b, r2 = grads_of(pipe, 1), grads_of(pipe, 2)
+    if bitwise(torch, r1b, r1) or not bitwise(torch, r2, r1):
+        fail(f"unet: two eager steps with one key differ ({bitwise(torch, r1b, r1)[:4]}) or "
+             f"another key draws the same (loss {r2[0].item()} vs {r1[0].item()})")
+    del r1b
+    # 'never' keeps every cell's graph: at batch 40 (8 micro-batches of 5).
+    sub = {}
+    for mode in ("never", "except_last"):
+        p = GPipe(layers, balance, chunks=chunks, checkpoint=mode)
+        sub[mode] = grads_of(p, 1, x[:40], y[:40])
+        del p
+    bad = bitwise(torch, sub["except_last"], sub["never"])
+    if bad:
+        fail(f"unet: 'except_last' differs from 'never' under one key at batch 40: {bad[:8]}")
+    del sub
+    fpipe = GPipe(layers, balance, chunks=chunks, checkpoint="except_last", fused=True)
+    for what, key, want in (("warm-up", 1, r1), ("replay", 2, r2), ("replay", 1, r1)):
+        got = grads_of(fpipe, key)
+        bad = bitwise(torch, got, want)
+        if bad:
+            fail(f"unet: the fused {what} with key {key} differs from the eager step: "
+                 f"{bad[:8]} (loss {got[0].item()} vs {want[0].item()})")
+        del got
+    stats = dict(fpipe.graph_stats)
+    if stats["captures"] != 1 or stats["replays"] != 2:
+        fail(f"unet: graph stats {stats}, expected one capture and two replays")
+    del r1, r2
+    for p in pipe.parameters():
+        p.grad = None
+    eager_ms = timed_steps(torch, lambda: pipe.value_and_grad(x, y, unet_loss, rng=3), 1)
+    replay_ms = timed_steps(torch, lambda: fpipe.value_and_grad(x, y, unet_loss, rng=4), 1)
+    ew, eb, _ = profile(torch, card, "unet eager step",
+                        lambda: pipe.value_and_grad(x, y, unet_loss, rng=5), top=6)
+    rw, rb, _ = profile(torch, card, "unet replay",
+                        lambda: fpipe.value_and_grad(x, y, unet_loss, rng=6), top=6)
+    if fpipe.graph_stats["captures"] != 1:
+        fail(f"unet: new keys added a capture: {fpipe.graph_stats}")
+    e_ms, r_ms = statistics.median(eager_ms), statistics.median(replay_ms)
+    print(f"unet: unet_speed.py pipeline-2 ({n_params / 1e6:.1f}M params, {n_layers} "
+          f"layers, balance {balance}, batch {b} x {size}x{size}, chunks {chunks}, "
+          f"except_last, float32, Dropout2d(0.1) live, cuDNN deterministic): two eager "
+          f"steps with one key bitwise equal, another key differs; 'never' and "
+          f"'except_last' bitwise equal under one key (batch 40); fused warm-up (key 1) and "
+          f"replays (keys 2, 1) bitwise the eager steps, captures {stats['captures']} in "
+          f"{stats['capture_s']:.2f}s; step_ms eager {e_ms:.1f} "
+          f"({[round(t, 1) for t in eager_ms]}) = {b * 1e3 / e_ms:.1f} samples/s, replay "
+          f"{r_ms:.1f} ({[round(t, 1) for t in replay_ms]}) = {b * 1e3 / r_ms:.1f} "
+          f"samples/s; idle_share eager {1 - eb / ew:.3f}, replay {1 - rb / rw:.3f}; "
+          f"launches {launches} [{card}]", flush=True)
+    out = {"launches": launches, "eager_ms": e_ms, "replay_ms": r_ms,
+           "eager_idle": 1 - eb / ew, "replay_idle": 1 - rb / rw,
+           "layers": layers, "balance": balance, "x": x, "y": y}
+    del fpipe, pipe
+    torch.cuda.empty_cache()
+
+    # VGG16 at 224x224, batch 64: one eager step and one replayed step.
+    vlayers = vgg16(1000, device="cuda", generator=gen)
+    vb = 64
+    vx = torch.randn(vb, 3, 224, 224, device="cuda", generator=gen)
+    vy = torch.randint(0, 1000, (vb,), device="cuda", generator=gen)
+    ce = lambda o, t: F.cross_entropy(o, t)  # noqa: E731
+    vbal = [len(vlayers) // 2, len(vlayers) - len(vlayers) // 2]
+    veager = GPipe(vlayers, vbal, chunks=4, checkpoint="except_last")
+    vfused = GPipe(vlayers, vbal, chunks=4, checkpoint="except_last", fused=True)
+    tfa.reset_launches()
+    vref = grads_of(veager, 7, vx, vy, ce)
+    torch.cuda.synchronize()
+    vlaunches = kernel_launches(tfa)
+    expect_launches(vlaunches, {}, "a VGG16 step")
+    grads_of(vfused, 7, vx, vy, ce)                       # warm-up and capture
+    t0 = time.perf_counter()
+    vgot = grads_of(vfused, 7, vx, vy, ce)                # replay
+    torch.cuda.synchronize()
+    v_ms = (time.perf_counter() - t0) * 1e3
+    bad = bitwise(torch, vgot, vref)
+    if bad or vfused.graph_stats["replays"] != 1:
+        fail(f"vgg16: the replayed step differs from the eager step: {bad[:8]}; "
+             f"{vfused.graph_stats}")
+    print(f"vgg16: 224x224, batch {vb}, chunks 4, balance {vbal}, except_last, dropout 0.5 "
+          f"live: eager step and replayed step (key 7) bitwise equal (loss "
+          f"{vref[0].item():.5f}, {len(vref) - 1} gradients); replay {v_ms:.1f} ms wall "
+          f"({vb * 1e3 / v_ms:.1f} samples/s); launches {vlaunches} [{card}]", flush=True)
+    out["vgg_launches"] = vlaunches
+    del veager, vfused, vlayers, vref, vgot, vx, vy
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_timeline(torch, card, unet_row):
+    """The U-Net of phase 16 under ``Timeline(sync=False)`` and
+    ``Timeline(sync=True)``, as benchmarks/unet_timeline.py drives them:
+    samples/s each way, the per-stage summary, and ``simulate_pipeline``'s
+    makespan and bubble against the analytic (n - 1) / (m + n - 1)."""
+    from torchgpipe_tpu_torch import GPipe
+    from torchgpipe_tpu_torch.utils.tracing import Timeline, simulate_pipeline
+
+    layers, balance, x, y = (unet_row[k] for k in ("layers", "balance", "x", "y"))
+    chunks, steps, n = 8, 2, len(balance)
+    rates, sim = {}, None
+    for mode in ("pipelined", "serialized"):
+        tracer = Timeline(sync=mode == "serialized")
+        pipe = GPipe(layers, balance, chunks=chunks, checkpoint="except_last", tracer=tracer)
+        torch.cuda.synchronize()   # phase 16 ran these shapes: no warm-up step
+        t0 = time.perf_counter()
+        for k in range(steps):
+            pipe.value_and_grad(x, y, unet_loss, rng=2 + k)
+        torch.cuda.synchronize()
+        rates[mode] = x.shape[0] * steps / (time.perf_counter() - t0)
+        want = steps * (2 * chunks * n + 1)
+        if len(tracer.events) != want:
+            fail(f"timeline: {len(tracer.events)} events in {mode} mode, expected {want}")
+        print(f"timeline ({mode}): {rates[mode]:.1f} samples/s [{card}]\n"
+              + tracer.summary(), flush=True)
+        if mode == "serialized":
+            sim = simulate_pipeline(tracer.events, n)
+        del pipe
+    if sim is None:
+        fail("timeline: simulate_pipeline found no cells")
+    makespan, busy, bubble = sim
+    analytic = (n - 1) / (chunks + n - 1)
+    print(f"timeline: simulate_pipeline fill_drain makespan {makespan * 1e3:.1f} ms a "
+          f"step, busy {busy:.3f}, bubble {bubble:.3f} against the analytic "
+          f"(n-1)/(m+n-1) = {analytic:.3f} (n={n}, m={chunks}); overlap speedup "
+          f"{rates['pipelined'] / rates['serialized']:.2f}x [{card}]", flush=True)
+    return {"makespan_ms": makespan * 1e3, "bubble": bubble, "analytic": analytic,
+            "samples_per_s": rates}
 
 
 def main() -> None:
@@ -2611,7 +2983,7 @@ def main() -> None:
     serving = phase_serving(torch, tfa, tg, card, args.seed, cfg, model)
     del cfg, model, prompt, out   # the generation model's 16 GB before training
     torch.cuda.empty_cache()
-    train_launches, _ = phase_train(torch, tfa, tt, card, args.seed)
+    train_launches, (train_ms, train_peak) = phase_train(torch, tfa, tt, card, args.seed)
     phase_stages(torch, tt, card, args.seed)
     t0 = time.perf_counter()
     one_f1b = phase_1f1b(torch, tfa, tt, card, args.seed)
@@ -2628,6 +3000,18 @@ def main() -> None:
     t3 = time.perf_counter()
     print(f"phases 12-14 (train_graph, precision, offload): {t3 - t0:.1f}s "
           f"({t1 - t0:.1f} + {t2 - t1:.1f} + {t3 - t2:.1f})", flush=True)
+    t0 = time.perf_counter()
+    lora_run = phase_lora(torch, tfa, tt, tg, card, args.seed, train_ms, train_peak)
+    t1 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True   # bitwise-repeatable convolution gradients
+    unet_row = phase_unet(torch, tfa, card, args.seed)
+    t2 = time.perf_counter()
+    phase_timeline(torch, card, unet_row)
+    torch.backends.cudnn.deterministic = False
+    del unet_row["layers"], unet_row["x"], unet_row["y"]
+    t3 = time.perf_counter()
+    print(f"phases 15-17 (lora, unet/vgg16, timeline): {t3 - t0:.1f}s "
+          f"({t1 - t0:.1f} + {t2 - t1:.1f} + {t3 - t2:.1f})", flush=True)
 
     src = "torchgpipe_tpu_torch/csrc/"
     ref = "torchgpipe_tpu/ops/flash_attention.py"
@@ -2638,7 +3022,10 @@ def main() -> None:
              "serving": serving["kernel_launches"], "train_step": train_launches,
              "train_1f1b": one_f1b["launches"], "resnet101": resnet["launches"],
              "train_graph": graph["launches"], "precision_resnet101": precision_resnet["launches"],
-             "precision_llama": precision_llama, "offload": offload["launches"]}
+             "precision_llama": precision_llama, "offload": offload["launches"],
+             "lora_step": lora_run["launches"], "lora_packed": lora_run["packed_launches"],
+             "lora_generate": lora_run["generate_launches"], "unet": unet_row["launches"],
+             "vgg16": unet_row["vgg_launches"]}
 
     def decode_entry(name, kind, main_path):
         t, long = dec["main"][kind], dec["long"][kind]

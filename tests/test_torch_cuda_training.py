@@ -222,3 +222,89 @@ def test_fused_deferred_bn_conv_replays_equal_eager(cuda_device):
         assert _equal(*states)
     finally:
         torch.backends.cudnn.deterministic = det
+
+
+@pytest.mark.cuda
+def test_fused_step_takes_a_new_key_per_replay(cuda_device):
+    """A dropout in a captured step: the key is a static input of the
+    graph, so each replay draws the masks of its own key, bitwise as an
+    eager step with that key does, and no key captures again."""
+    gen = torch.Generator("cuda").manual_seed(3)
+    layers = lambda: [tnn.dense(64, 64, device="cuda", generator=gen),  # noqa: E731
+                      tnn.dropout(0.5), tnn.dense(64, 8, device="cuda", generator=gen)]
+    eager_layers = layers()
+    fused_layers = layers()
+    with torch.no_grad():
+        for a, b in zip(_params_of(fused_layers), _params_of(eager_layers)):
+            a.copy_(b)
+    eager = GPipe(eager_layers, [2, 1], chunks=2)
+    fused = GPipe(fused_layers, [2, 1], chunks=2, fused=True)
+    x = torch.randn(8, 64, device="cuda")
+
+    def loss_fn(out, _):
+        return out.square().mean()
+
+    def run(pipe, rng):
+        loss, _, _ = pipe.value_and_grad(x, None, loss_fn, rng=rng)
+        return [loss.clone()] + [p.grad.clone() for p in pipe.parameters()]
+
+    want = {k: run(eager, k) for k in (1, 2)}
+    assert not _equal(want[1], want[2])
+    for k in (1, 2, 1):      # the warm-up, then replays with other keys
+        assert _equal(run(fused, k), want[k]), k
+    assert fused.graph_stats["captures"] == 1 and fused.graph_stats["replays"] == 2
+
+
+def _params_of(layers):
+    return [p for layer in layers for p in layer.parameters()]
+
+
+@pytest.mark.cuda
+def test_lora_launch_counts(cuda_device):
+    """LoRA fine-tuning of a headless Llama with the chunked loss runs
+    every block's attention through the flash kernels, forward,
+    recompute and backward (the adapters' gradients need dQ, dK and dV),
+    leaves the frozen base weights without a gradient; a packed batch
+    launches none of them; ``generate`` with unmerged adapters decodes
+    through the decode kernel."""
+    from torchgpipe_tpu_torch.models import generation as tg
+    from torchgpipe_tpu_torch.models.lora import lora_optimizer
+    from torchgpipe_tpu_torch.ops import flash_attention as tfa
+    from torchgpipe_tpu_torch.utils.data import pack_documents, packed_batches
+
+    cfg = tt.TransformerConfig(vocab=256, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                               dtype=torch.bfloat16, lora_rank=8)
+    gen = torch.Generator("cuda").manual_seed(0)
+    model = tt.llama(cfg, head=False, device="cuda", generator=gen)
+    loss_layer = tt.chunked_lm_loss(cfg, chunk=64, device="cuda", generator=gen)
+    pipe = GPipe(list(model), [3], chunks=2, checkpoint="except_last")
+    opt = lora_optimizer(functools.partial(torch.optim.AdamW, lr=1e-3), pipe)(
+        list(pipe.parameters()) + list(loss_layer.parameters()))
+    tokens = _tokens(0)
+    tfa.reset_launches()
+    loss, _, _, _ = pipe.value_and_grad_with_loss_params(tokens[:, :-1], tokens[:, 1:],
+                                                          loss_layer)
+    opt.step()
+    torch.cuda.synchronize()
+    n = cfg.n_layers
+    assert (tfa.flash_attention.launches, tfa.flash_bwd_dq.launches,
+            tfa.flash_bwd_dkv.launches) == (n * 3, n * 2, n * 2)
+    assert all(p.grad is None for name, p in pipe.named_parameters() if "lora" not in name)
+    assert torch.isfinite(loss)
+    rng = np.random.default_rng(1)
+    docs = [rng.integers(1, cfg.vocab, int(k)) for k in rng.integers(8, 128, 12)]
+    x, y = next(packed_batches(pack_documents(docs, 128), 4))
+    x = {k: torch.from_numpy(v).long().cuda() for k, v in x.items()}
+    y = {"labels": torch.from_numpy(y["labels"]).long().cuda(),
+         "weights": torch.from_numpy(y["weights"]).cuda()}
+    tfa.reset_launches()
+    loss, _, _, _ = pipe.value_and_grad_with_loss_params(x, y, loss_layer)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert (tfa.flash_attention.launches, tfa.flash_bwd_dq.launches,
+            tfa.flash_bwd_dkv.launches) == (0, 0, 0)
+    tfa.reset_launches()
+    out = tg.generate(cfg, tg.mpmd_params_for_generation(pipe, head=loss_layer),
+                      tokens[:2, :64], 8)
+    assert out.shape == (2, 8)
+    assert tfa.flash_attention.launches == n and tfa.flash_decode_attention.launches == n * 8

@@ -326,14 +326,18 @@ _JAX_DTYPES = {torch.float16: jnp.float16, torch.bfloat16: jnp.bfloat16}
 @pytest.mark.parametrize(
     "kwargs",
     # The options of the eighth slice (fused, megastep, compute_dtype,
-    # 'offload') are ported: their cases now pair them so that the
-    # reference refuses the pairing, and the port must refuse it with
-    # the reference's text.  The options still unported keep raising
-    # with their ROADMAP item.
+    # 'offload') are ported: their cases pair them so that the reference
+    # refuses the pairing, and the port must refuse it with the
+    # reference's text.  ``tracer`` and ``hbm_budget_bytes`` are ported
+    # too: the pipe keeps them as the reference's does.  ``remat_policy``
+    # meets the reference's two checks first; one they let through is
+    # still unported and names its ROADMAP item.
     [{"schedule": "1f1b", "loss_reduction": "mean", "megastep": 3},
      {"fused": True, "schedule": "1f1b", "loss_reduction": "mean"},
      {"megastep": 2},
      {"remat_policy": object()}, {"tracer": object()},
+     {"remat_policy": object(), "fused": True, "checkpoint": "never"},
+     {"remat_policy": object(), "fused": True},
      {"deferred_batch_norm": True, "compute_dtype": torch.float16,
       "fused": True, "checkpoint": "offload"},
      {"compute_dtype": torch.bfloat16, "fused": True, "tracer": object()},
@@ -342,15 +346,18 @@ _JAX_DTYPES = {torch.float16: jnp.float16, torch.bfloat16: jnp.bfloat16}
 )
 def test_unported_options_raise_with_roadmap_item(kwargs):
     layers = [nn.Linear(2, 2), nn.Linear(2, 2)]
-    # A tracer with fused=True meets the reference's fused check first.
-    unported = {"remat_policy", "hbm_budget_bytes"} & set(kwargs) or (
-        "tracer" in kwargs and not kwargs.get("fused"))
-    if unported:
+    jkw = {k: _JAX_DTYPES.get(v, v) if k == "compute_dtype" else v
+           for k, v in kwargs.items()}
+    if set(kwargs) <= {"tracer", "hbm_budget_bytes"}:
+        jpipe_ = JGPipe(jt.llama(JCFG)[:2], [1, 1], devices=[jax.devices()[0]], **jkw)
+        pipe = GPipe(layers, [1, 1], devices=["cpu"], **kwargs)
+        assert pipe.tracer is jpipe_.tracer
+        assert pipe.hbm_budget_bytes == jpipe_.hbm_budget_bytes
+        return
+    if kwargs.keys() == {"remat_policy", "fused"}:
         with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A item 2"):
             GPipe(layers, [1, 1], devices=["cpu"], **kwargs)
         return
-    jkw = {k: _JAX_DTYPES.get(v, v) if k == "compute_dtype" else v
-           for k, v in kwargs.items()}
     with pytest.raises(ValueError) as je:
         JGPipe(jt.llama(JCFG)[:2], [1, 1], devices=[jax.devices()[0]], **jkw)
     with pytest.raises(ValueError) as te:
@@ -359,12 +366,24 @@ def test_unported_options_raise_with_roadmap_item(kwargs):
 
 
 def test_unported_entry_points_and_layers_raise():
+    """What was refused and is ported now behaves as the reference's:
+    ``value_and_grad(rng=...)`` runs, ``value_and_grad_with_loss_params``
+    refuses the 1F1B schedule with the reference's text, and a
+    ``torch.nn`` dropout (global generator) in a recomputed cell is
+    refused in favour of ``ops.nn.Dropout``, which takes the key."""
     model = GPipe([nn.Linear(2, 2)], [1], devices=["cpu"])
-    for call in (lambda: model.value_and_grad_with_loss_params(),
-                 lambda: model.value_and_grad(torch.zeros(2, 2), None, None,
-                                              rng=0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A item 2"):
-            call()
+    loss, _, _ = model.value_and_grad(torch.ones(2, 2), None,
+                                      lambda out, _: out.sum(), rng=0)
+    assert torch.isfinite(loss)
+    jmodel = JGPipe(jt.llama(JCFG)[:1], [1], devices=[jax.devices()[0]],
+                    schedule="1f1b", loss_reduction="mean")
+    with pytest.raises(ValueError) as je:
+        jmodel.value_and_grad_with_loss_params(None, None, None, None, None, None)
+    f1b = GPipe([nn.Linear(2, 2)], [1], devices=["cpu"], schedule="1f1b",
+                loss_reduction="mean")
+    with pytest.raises(ValueError) as te:
+        f1b.value_and_grad_with_loss_params(torch.ones(2, 2), None, nn.Linear(2, 2))
+    assert str(te.value) == str(je.value)
     # megastep is ported; on a pipe without fused=True the reference's
     # refusal, word for word.
     jmodel = JGPipe(jt.llama(JCFG)[:1], [1], devices=[jax.devices()[0]])
@@ -373,7 +392,7 @@ def test_unported_entry_points_and_layers_raise():
     with pytest.raises(ValueError) as te:
         model.make_train_step(torch.optim.SGD, None, megastep=2)
     assert str(te.value) == str(je.value)
-    with pytest.raises(NotImplementedError, match="random layer"):
+    with pytest.raises(ValueError, match="random layer"):
         GPipe([nn.Linear(2, 2), nn.Dropout(0.1)], [2], devices=["cpu"])
     # Skip layers are ported: a stash that no layer pops fails the
     # reference's static check instead.

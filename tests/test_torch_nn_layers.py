@@ -156,7 +156,7 @@ def test_dropout_properties(rate):
     d.eval()
     assert d(x) is x
     assert tnn.dropout(0.0)(x) is x
-    with pytest.raises(ValueError, match="needs a torch.Generator"):
+    with pytest.raises(ValueError, match="^dropout needs an rng key in train mode$"):
         tnn.dropout(rate)(x)
 
 
@@ -176,17 +176,22 @@ def test_dropout2d_drops_whole_channels():
 
 
 def test_dropout_in_a_pipeline_only_without_recompute():
-    """A dropout draws anew on every call, so a cell that recomputes its
-    forward, or a step that a graph replays, would need its generator
-    state replayed (queue A item 2); under 'never' it runs."""
+    """A generator draws anew on every call, so a cell that recomputes
+    its forward cannot use it: without ``rng=`` such a step refuses the
+    generator's dropout; with ``rng=`` the pipeline hands each layer its
+    key and every mode runs.  Under 'never' the generator runs as
+    before."""
     layers = lambda: [tnn.dense(4, 4, device="cpu"),  # noqa: E731
                       tnn.dropout(0.5, generator=torch.Generator().manual_seed(0))]
-    for kw in ({}, {"checkpoint": "always"}, {"checkpoint": "never", "fused": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A item 2"):
-            GPipe(layers(), [1, 1], devices=["cpu"], chunks=2, **kw)
+    loss_fn = lambda out, _: out.sum()  # noqa: E731
+    for kw in ({}, {"checkpoint": "always"}):
+        pipe = GPipe(layers(), [1, 1], devices=["cpu"], chunks=2, **kw)
+        with pytest.raises(ValueError, match="recomputes its forward"):
+            pipe.value_and_grad(torch.ones(4, 4), None, loss_fn)
+        loss, _, _ = pipe.value_and_grad(torch.ones(4, 4), None, loss_fn, rng=1)
+        assert torch.isfinite(loss)
     pipe = GPipe(layers(), [1, 1], devices=["cpu"], chunks=2, checkpoint="never")
-    loss, grads, _ = pipe.value_and_grad(torch.ones(4, 4), None,
-                                         lambda out, _: out.sum())
+    loss, grads, _ = pipe.value_and_grad(torch.ones(4, 4), None, loss_fn)
     assert torch.isfinite(loss)
     torch.testing.assert_close(pipe.apply(torch.ones(4, 4)),
                                torch.ones(4, 4) @ pipe[0].w + pipe[0].b)

@@ -122,7 +122,9 @@ def test_init_distributions_follow_reference():
 
 
 @pytest.mark.parametrize(
-    "knob", [{"tp_axis": "tp"}, {"lora_rank": 4}, {"tie_embeddings": True},
+    # lora_rank is ported (tests/test_torch_lora.py); its slot holds the
+    # other unported parallel axis.
+    "knob", [{"tp_axis": "tp"}, {"sp_axis": "sp"}, {"tie_embeddings": True},
              {"pos_emb": "learned", "max_pos": 64}]
 )
 def test_unported_knobs_raise_with_roadmap_item(knob):

@@ -6,9 +6,11 @@ The reference keeps a Llama's parameters as a flat per-layer list
 ``models.generation.mpmd_params_for_generation`` return).  Handed over as
 numpy arrays, each leaf lands in the port parameter of the same name,
 with the same ``[in, out]`` layout: nothing is transposed
-(:func:`params_from_jax`).
+(:func:`params_from_jax`; LoRA adapters too, and a ``chunked_lm_loss``
+layer's ``scale``/``w``).
 
-A convolutional layer list (``models.resnet``) loads per layer params
+A convolutional layer list (``models.resnet``, ``models.unet``,
+``models.vgg``) loads per layer params
 *and* states (:func:`layers_from_jax`): a conv kernel turns from the
 reference's HWIO into OIHW; BatchNorm ``scale``/``bias`` land in
 parameters, ``mean``/``var`` (and a deferred BatchNorm's ``sum``,
@@ -19,7 +21,7 @@ parameters, ``mean``/``var`` (and a deferred BatchNorm's ``sum``,
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Sequence
+from typing import Any, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -31,6 +33,7 @@ from torchgpipe_tpu_torch.ops.nn import BatchNorm, Conv2d, Dense, LayerNorm
 from torchgpipe_tpu_torch.precision import unwrap
 from torchgpipe_tpu_torch.skip import layer_name
 from torchgpipe_tpu_torch.models.transformer import (
+    ChunkedLMLoss,
     Device,
     Llama,
     TransformerConfig,
@@ -48,43 +51,59 @@ def _to_tensor(arr: Any) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _load_dict(ours: Mapping[str, Any], theirs: Mapping[str, Any], what: str) -> None:
+    """Copy a reference param dict into the port's of the same keys; a
+    LoRA block's ``"lora"`` subdict loads into its adapters."""
+    for key, leaf in theirs.items():
+        if key != "lora" and (isinstance(leaf, Mapping) or not hasattr(leaf, "shape")):
+            raise not_ported(f"{what} param {key!r} (MoE / int8 weights)", "5")
+    if set(theirs) != set(ours):
+        raise ValueError(
+            f"{what}: reference keys {sorted(theirs)} != port keys "
+            f"{sorted(ours)}; do the two configs agree?"
+        )
+    for key, dst in ours.items():
+        if key == "lora":
+            _load_dict(dst, theirs[key], f"{what} lora")
+            continue
+        src = _to_tensor(theirs[key])
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(
+                f"{what} param {key!r}: shape {tuple(src.shape)} != "
+                f"{tuple(dst.shape)}"
+            )
+        dst.copy_(src.to(dst.dtype))
+
+
 @torch.no_grad()
 def params_from_jax(
     cfg: TransformerConfig, params: Sequence[Mapping[str, Any]],
-    device: Device = None,
-) -> Llama:
+    device: Device = None, *, loss_params: Optional[Mapping[str, Any]] = None,
+    chunk: int = 8192,
+) -> Any:
     """The port's ``llama(cfg)`` holding the reference's parameters
-    (numpy arrays, one dict per layer), on ``device`` (``cuda`` unless
-    named)."""
+    (numpy arrays, one dict per layer, LoRA adapters under a block's
+    ``"lora"``), on ``device`` (``cuda`` unless named).  ``params``
+    without the head (``n_layers + 1`` dicts) builds
+    ``llama(cfg, head=False)``; then ``loss_params`` (the reference's
+    ``chunked_lm_loss`` params, ``scale``/``w``) returns ``(model,
+    loss_layer)`` with a :class:`ChunkedLMLoss` of ``chunk``."""
     params = list(params)
-    model = Llama(cfg, device=device)
+    head = len(params) != cfg.n_layers + 1
+    model = Llama(cfg, head=head, device=device)
     if len(params) != len(model):
         raise ValueError(
-            f"expected {len(model)} per-layer param dicts (embed, "
-            f"{cfg.n_layers} blocks, head), got {len(params)}"
+            f"expected {cfg.n_layers + 2} per-layer param dicts (embed, "
+            f"{cfg.n_layers} blocks, head), or {cfg.n_layers + 1} without "
+            f"the head, got {len(params)}"
         )
     for i, (layer, p) in enumerate(zip(model, params)):
-        ours = layer.params()
-        for key, leaf in p.items():
-            if isinstance(leaf, Mapping) or not hasattr(leaf, "shape"):
-                raise not_ported(
-                    f"layer {i} param {key!r} (LoRA / MoE / int8 weights)",
-                    "2" if key == "lora" else "5",
-                )
-        if set(p) != set(ours):
-            raise ValueError(
-                f"layer {i}: reference keys {sorted(p)} != port keys "
-                f"{sorted(ours)}; do the two configs agree?"
-            )
-        for key, dst in ours.items():
-            src = _to_tensor(p[key])
-            if tuple(src.shape) != tuple(dst.shape):
-                raise ValueError(
-                    f"layer {i} param {key!r}: shape {tuple(src.shape)} != "
-                    f"{tuple(dst.shape)}"
-                )
-            dst.copy_(src.to(dst.dtype))
-    return model
+        _load_dict(layer.params(), p, f"layer {i}")
+    if loss_params is None:
+        return model
+    loss = ChunkedLMLoss(cfg, chunk=chunk, device=device)
+    _load_dict(loss.params(), loss_params, "loss layer")
+    return model, loss
 
 
 def _copy(dst: torch.Tensor, src: Any, what: str, transpose=None) -> None:
@@ -158,9 +177,10 @@ def layers_from_jax(
 ) -> Sequence[nn.Module]:
     """Load the reference's per-layer ``params`` and ``states`` (numpy
     leaves, one entry per layer, as ``layers.sequential_init`` returns
-    them) into the port's layers of the same model (``models.resnet``;
-    the layer list must be built, or converted to deferred BatchNorm,
-    as the reference's was).  Returns ``layers``."""
+    them) into the port's layers of the same model (``models.resnet``,
+    ``models.unet``, ``models.vgg``; the layer list must be built, or
+    converted to deferred BatchNorm, as the reference's was).  Returns
+    ``layers``."""
     layers = list(layers)
     if not len(layers) == len(params) == len(states):
         raise ValueError(

@@ -32,6 +32,18 @@ swapping tensors.  On the CPU the same step body runs eagerly.
 ``compute_dtype`` applies :func:`~torchgpipe_tpu_torch.precision.apply_policy`
 to the layers (after the deferred batch norm conversion).
 
+``rng=`` (an int seed or a key tensor, :mod:`torchgpipe_tpu_torch.rng`)
+gives each micro-batch ``i`` the key ``fold_in(rng, i)`` and each layer
+``fold_in(rng_i, layer index)``: the dropouts of ``ops.nn`` draw their
+masks from it, so a checkpointed cell's recompute, the 1F1B schedule and
+a captured step's replay draw the same masks.  Under ``fused=True`` the
+key is one of the graph's static inputs: a replay takes a new key with
+no second capture.  A parameter with ``requires_grad=False`` (frozen,
+as :func:`~torchgpipe_tpu_torch.models.lora.lora_optimizer` leaves the
+base weights of a LoRA model) gets no ``.grad`` and no entry in
+``grads``.  ``tracer`` (:class:`~torchgpipe_tpu_torch.utils.tracing.Timeline`)
+records every cell of the per-cell scheduler.
+
 Example::
 
     model = GPipe(llama(cfg), balance=[34], chunks=4)
@@ -52,6 +64,7 @@ import torch.utils._pytree as pytree
 from torch import nn
 
 from torchgpipe_tpu_torch import graphs, microbatch
+from torchgpipe_tpu_torch import rng as _rng
 from torchgpipe_tpu_torch.batchnorm import convert_deferred_batch_norm
 from torchgpipe_tpu_torch.checkpoint import CHECKPOINT_MODES, Offload, checkpoint_stop
 from torchgpipe_tpu_torch.models.transformer import (
@@ -60,7 +73,6 @@ from torchgpipe_tpu_torch.models.transformer import (
     resolve_device,
 )
 from torchgpipe_tpu_torch.partition import Stage, split_layers, verify_module
-from torchgpipe_tpu_torch.ops.nn import Dropout
 from torchgpipe_tpu_torch.pipeline import Pipeline
 from torchgpipe_tpu_torch.precision import apply_policy
 from torchgpipe_tpu_torch.skip import inspect_skip_layout, verify_skippables
@@ -71,28 +83,23 @@ _SLICE = "2"  # ROADMAP.md queue A item for what the training slice leaves out
 # each with the one value it takes here (the reference's default).
 _UNPORTED_OPTIONS = {
     "remat_policy": None,
-    "tracer": None,
-    "hbm_budget_bytes": None,
 }
 _GRAPH_CACHE = 8   # captured graphs kept per pipe (the reference's jit cache)
 
 
-def _random_module(layers: Sequence[nn.Module]) -> Optional[str]:
-    """The first dropout module with a non-zero rate (by name), or None.
-    A checkpointed cell recomputes its forward and a captured step
-    replays it, so a random layer would need its per-micro-batch
-    generator state replayed."""
+def _torch_dropout(layers: Sequence[nn.Module]) -> Optional[str]:
+    """The first ``torch.nn`` dropout module with a non-zero rate (by
+    name), or None.  It draws from the global generator, which neither a
+    recomputed cell nor a graph replay can draw from again."""
     for i, layer in enumerate(layers):
         for name, mod in layer.named_modules():
-            if (isinstance(mod, nn.modules.dropout._DropoutNd) and mod.p > 0) or \
-                    (isinstance(mod, Dropout) and mod.rate > 0):
+            if isinstance(mod, nn.modules.dropout._DropoutNd) and mod.p > 0:
                 return f"layer {i} ({name or type(mod).__name__})"
     return None
 
 
-def _refuse_rng(rng: Any) -> None:
-    if rng is not None:
-        raise not_ported("value_and_grad(rng=...) (per-micro-batch RNG)", _SLICE)
+def _key(rng: Any) -> Optional[torch.Tensor]:
+    return None if rng is None else _rng.key_tensor(rng)
 
 
 def _tensors(tree: Any) -> List[torch.Tensor]:
@@ -171,6 +178,8 @@ class GPipe(nn.Module):
         schedule: str = "gpipe",
         loss_reduction: Optional[str] = None,
         megastep: int = 1,
+        tracer: Any = None,
+        hbm_budget_bytes: Optional[int] = None,
         **options: Any,
     ) -> None:
         super().__init__()
@@ -222,28 +231,37 @@ class GPipe(nn.Module):
         self.checkpoint = checkpoint
         self.schedule = schedule
         self.loss_reduction = loss_reduction
+        # Declared per-device memory budget in bytes, stored as the
+        # reference stores it; its readers (the schedule verifier, the
+        # planner) are ROADMAP.md queue A item 5.6.
+        self.hbm_budget_bytes = hbm_budget_bytes
         parts = split_layers(layers, self.balance)
         self.skip_layout = inspect_skip_layout(parts)
         if devices is None:
             devices = [resolve_device(None)]
         devices = [torch.device(d) for d in devices]
         self.devices = [devices[j % len(devices)] for j in range(len(parts))]
+        offsets = [sum(self.balance[:j]) for j in range(len(parts))]
         self.partitions = nn.ModuleList(
-            Stage(part, j, self.skip_layout).to(dev)
+            Stage(part, j, self.skip_layout, offsets[j]).to(dev)
             for j, (part, dev) in enumerate(zip(parts, self.devices))
         )
-        self._validate_fused(fused, schedule, checkpoint, megastep, options)
-        random = _random_module(layers)
+        self.tracer = tracer
+        self._validate_fused(fused, schedule, checkpoint, megastep, tracer, options)
+        random = _torch_dropout(layers)
         if random is not None and (fused or checkpoint in ("always", "except_last")):
             where = "a captured (fused) step" if fused else "a recomputed pipeline cell"
-            raise not_ported(
-                f"a random layer in {where} ({random}: per-micro-batch RNG "
-                "replay)", _SLICE,
+            raise ValueError(
+                f"a random layer in {where} ({random}) must draw the same mask "
+                "again, and a torch.nn dropout draws from the global generator; "
+                "use torchgpipe_tpu_torch.ops.nn.Dropout / Dropout2d, which take "
+                "the pipeline's per-micro-batch key (rng=)"
             )
         self.fused = fused
         self.megastep = megastep
         self._layers = layers
-        self._pipeline = Pipeline(list(self.partitions), self.devices, self.skip_layout)
+        self._pipeline = Pipeline(list(self.partitions), self.devices, self.skip_layout,
+                                  tracer)
         self._graphs: Dict[Any, _Graph] = {}
         self._graph_pool: Any = None
         # Captures made and their wall seconds (warm-up included); replays.
@@ -252,11 +270,11 @@ class GPipe(nn.Module):
         self.offload_stats = {"saved_bytes": 0, "moved_bytes": 0}
 
     def _validate_fused(self, fused: bool, schedule: str, checkpoint: str,
-                        megastep: Any, options: Dict[str, Any]) -> None:
-        """The reference's checks of ``fused``, ``'offload'`` and
-        ``megastep`` (its messages word for word), then the options the
-        port does not take yet."""
-        tracer = options.get("tracer")
+                        megastep: Any, tracer: Any, options: Dict[str, Any]) -> None:
+        """The reference's checks of ``fused``, ``'offload'``,
+        ``remat_policy`` and ``megastep`` (its messages word for word),
+        then the options the port does not take yet."""
+        remat_policy = options.get("remat_policy")
         if fused and schedule == "1f1b":
             raise ValueError(
                 "fused=True compiles the whole fill-drain step into one "
@@ -293,6 +311,20 @@ class GPipe(nn.Module):
                     "('gpipe') schedule only — 1F1B already bounds "
                     "in-flight residuals at the pipeline depth"
                 )
+        if remat_policy is not None and not fused:
+            raise ValueError(
+                "remat_policy refines the FUSED path's per-cell "
+                "jax.checkpoint (GPipe(fused=True, remat_policy=...)); "
+                "the per-cell scheduler's checkpointed cells keep no "
+                "residuals at all (recompute-ahead), so a save policy "
+                "cannot apply — drop remat_policy, or use fused=True / "
+                "the SPMD engine's SpmdGPipe.remat_policy"
+            )
+        if remat_policy is not None and checkpoint == 'never':
+            raise ValueError(
+                "remat_policy has no effect under checkpoint='never' "
+                "(no cell is rematerialized)"
+            )
         if not (isinstance(megastep, int) and not isinstance(megastep, bool)
                 and megastep >= 1):
             raise ValueError(f"megastep must be an int >= 1, got {megastep!r}")
@@ -345,24 +377,34 @@ class GPipe(nn.Module):
             for m, t in zip(self.modules(), was):
                 m.training = t
 
-    def apply(self, x: microbatch.Batch) -> microbatch.Batch:  # type: ignore
-        """Pipelined forward with no gradients, every layer in eval mode
-        (BatchNorm reads its running statistics): scatter, schedule,
-        gather.  The name is the reference's entry point; it shadows
-        ``nn.Module.apply(fn)``, so a callable (as a parent module's
-        ``apply(init_fn)`` passes down) goes to ``nn.Module.apply``."""
+    def apply(self, x: microbatch.Batch, *, rng: Any = None,  # type: ignore
+              train: bool = False) -> microbatch.Batch:
+        """Pipelined forward with no gradients: scatter, schedule,
+        gather.  Every layer is in eval mode (BatchNorm reads its running
+        statistics) unless ``train`` (dropouts then draw from ``rng``'s
+        per-micro-batch keys).  The name is the reference's entry point;
+        it shadows ``nn.Module.apply(fn)``, so a callable (as a parent
+        module's ``apply(init_fn)`` passes down) goes to
+        ``nn.Module.apply``."""
         if callable(x):
             return super().apply(x)
 
-        def body(x: Any) -> Any:
-            with self._mode(False):
-                outs = self._pipeline.run_forward(microbatch.scatter(x, self.chunks))
+        def body(inp: Any) -> Any:
+            x, key = inp
+            with self._mode(train):
+                outs = self._pipeline.run_forward(
+                    microbatch.scatter(x, self.chunks), self._key_of(key))
             return microbatch.gather(outs)
 
-        return self._run(("apply",), x, body)
+        return self._run(("apply", train), (x, _key(rng)), body)
 
     def forward(self, x: microbatch.Batch) -> microbatch.Batch:
         return self.apply(x)
+
+    def _key_of(self, key: Optional[torch.Tensor]) -> Optional[_rng.Key]:
+        """The step's key on the first stage's device (a captured step
+        reads it from its static input)."""
+        return None if key is None else _rng.Key(key.to(self.devices[0]))
 
     def _split_microbatches(self, x: microbatch.Batch) -> Tuple[List, int]:
         """Scatter and the checkpoint stop.  Deferred BN commits on the
@@ -394,28 +436,30 @@ class GPipe(nn.Module):
         ``loss_reduction``, so ``target`` must split along the batch like
         the input, and ``aux`` is a list with one value per micro-batch.
         Returns ``(loss, grads, aux)`` with ``grads`` a tuple over stages
-        of lists over layers of ``{param name: param.grad}``; running
-        statistics are updated in their buffers."""
-        _refuse_rng(rng)
+        of lists over layers of ``{param name: param.grad}`` (trainable
+        parameters only); running statistics are updated in their
+        buffers.  ``rng`` keys the dropouts (see the module doc)."""
         stop = self._split_microbatches(x)[1]
-        return self._run(("value_and_grad", loss_fn, stop), (x, target),
+        return self._run(("value_and_grad", loss_fn, stop), (x, target, _key(rng)),
                          lambda inp: self._train_body(*inp, loss_fn))
 
     def _train_body(
-        self, x: Any, target: Any, loss_fn: Callable[..., Any]
+        self, x: Any, target: Any, key: Optional[torch.Tensor],
+        loss_fn: Callable[..., Any],
     ) -> Tuple[torch.Tensor, Tuple[List[dict], ...], Any]:
         """One ``value_and_grad``, as it runs eagerly and as it is
         captured."""
         mbatches, stop = self._split_microbatches(x)
+        rng = self._key_of(key)
         for p in self.parameters():
             p.grad = None
         with self._mode(True):
             if self.schedule == "1f1b":
-                loss, aux = self._run_1f1b(mbatches, target, loss_fn, stop)
+                loss, aux = self._run_1f1b(mbatches, target, loss_fn, stop, rng)
             else:
                 offload = Offload() if self.checkpoint == "offload" else None
                 loss, aux = self._pipeline.run_train(
-                    mbatches, target, loss_fn, stop, offload)
+                    mbatches, target, loss_fn, stop, offload, rng)
                 if offload is not None:
                     self.offload_stats = {"saved_bytes": offload.saved_bytes,
                                           "moved_bytes": offload.moved_bytes}
@@ -425,6 +469,8 @@ class GPipe(nn.Module):
             for layer in part:
                 named = {}
                 for name, p in layer.named_parameters():
+                    if not p.requires_grad:
+                        continue
                     if p.grad is None:
                         p.grad = torch.zeros_like(p)
                     named[name] = p.grad
@@ -487,7 +533,8 @@ class GPipe(nn.Module):
         return result
 
     def _run_1f1b(
-        self, mbatches: List, target: Any, loss_fn: Callable[..., Any], stop: int
+        self, mbatches: List, target: Any, loss_fn: Callable[..., Any], stop: int,
+        rng: Optional[_rng.Key],
     ) -> Tuple[torch.Tensor, List[Any]]:
         """The 1F1B step: the micro-batches' loss weights, and the
         target split along the batch as the input is."""
@@ -512,7 +559,7 @@ class GPipe(nn.Module):
             )
         target_mbs = microbatch.scatter(target, self.chunks)
         return self._pipeline.run_train_1f1b(
-            mbatches, target_mbs, loss_fn, stop, weights
+            mbatches, target_mbs, loss_fn, stop, weights, rng
         )
 
     def init_opt_state(
@@ -544,8 +591,8 @@ class GPipe(nn.Module):
         ``torch.optim.Optimizer``, for example
         ``functools.partial(torch.optim.SGD, lr=0.1, momentum=0.9)``; it
         is called once per stage here (:meth:`init_opt_state`).  Returns
-        ``step(x, target, rng=None) -> (loss, aux)``: ``value_and_grad``,
-        then every stage's ``optimizer.step()``.  The update is in place,
+        ``step(x, target, rng=None) -> (loss, aux)``: ``value_and_grad``
+        (with ``rng``), then every stage's ``optimizer.step()``.  The update is in place,
         so the reference's ``donate`` has no counterpart; the optimizers
         are ``step.optimizers``.  Under ``fused=True`` on the card the
         whole step, optimizers included, is one CUDA graph, so an
@@ -554,8 +601,9 @@ class GPipe(nn.Module):
 
         ``megastep=K`` (default: the pipe's ``megastep``; ``K > 1`` needs
         ``fused=True``) runs K steps per call, one graph on the card:
-        ``step(xs, targets) -> (loss[K], aux, finite[K])`` over
-        ``[K, ...]``-stacked batches, ``aux`` stacked the same way.
+        ``step(xs, targets, rng=None) -> (loss[K], aux, finite[K])`` over
+        ``[K, ...]``-stacked batches, ``aux`` stacked the same way; inner
+        step ``k`` runs with the key ``fold_in(rng, k)``.
         Parameters and optimizer states are updated in place, not
         returned, and no ``.grad`` is left behind.  An inner step whose
         output (loss, parameters, optimizer state, buffers, aux) is not
@@ -577,24 +625,22 @@ class GPipe(nn.Module):
             _check_capturable(optimizers)
         token = object()   # this step's graphs are its own
 
-        def one(x: Any, target: Any) -> Tuple[torch.Tensor, Any]:
-            loss, _, aux = self._train_body(x, target, loss_fn)
+        def one(x: Any, target: Any, key: Optional[torch.Tensor]) -> Tuple[torch.Tensor, Any]:
+            loss, _, aux = self._train_body(x, target, key, loss_fn)
             for opt in optimizers:
                 opt.step()
             return loss, aux
 
         if k == 1:
             def step(x: Any, target: Any, rng: Any = None) -> Tuple[torch.Tensor, Any]:
-                _refuse_rng(rng)
                 stop = self._split_microbatches(x)[1]
-                return self._run(("step", token, stop), (x, target),
+                return self._run(("step", token, stop), (x, target, _key(rng)),
                                  lambda inp: self._guard_state(optimizers, one, *inp),
                                  warmup=lambda inp: one(*inp))
         else:
             snaps: Dict[int, torch.Tensor] = {}
 
             def step(xs: Any, targets: Any, rng: Any = None) -> Tuple[Any, ...]:
-                _refuse_rng(rng)
                 for leaf in _tensors(xs):
                     if leaf.shape[:1] != (k,):
                         raise ValueError(
@@ -608,7 +654,7 @@ class GPipe(nn.Module):
                     lambda t: t[0] if isinstance(t, torch.Tensor) else t, xs)
                 stop = self._split_microbatches(inner)[1]
                 return self._run(
-                    ("megastep", token, stop), (xs, targets),
+                    ("megastep", token, stop), (xs, targets, _key(rng)),
                     lambda inp: self._guard_state(
                         optimizers, self._megastep_body, k, optimizers, one, snaps,
                         False, *inp),
@@ -637,8 +683,9 @@ class GPipe(nn.Module):
 
     def _megastep_body(
         self, k: int, optimizers: Sequence[torch.optim.Optimizer],
-        one: Callable[[Any, Any], Tuple[torch.Tensor, Any]],
+        one: Callable[[Any, Any, Any], Tuple[torch.Tensor, Any]],
         snaps: Dict[int, torch.Tensor], eager: bool, xs: Any, targets: Any,
+        key: Optional[torch.Tensor],
     ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
         """K inner steps with the skip-step select: before each, every
         parameter, optimizer state tensor and buffer is copied into its
@@ -657,7 +704,7 @@ class GPipe(nn.Module):
                         snaps[id(t)] = torch.empty_like(t)
                     snaps[id(t)].copy_(t)
             had = [set(opt.state) for opt in optimizers]
-            loss, aux = one(x, target)
+            loss, aux = one(x, target, None if key is None else _rng.fold_in(key, i))
             ok = _all_finite([loss, *self.parameters(), *_opt_tensors(optimizers),
                               *self.buffers(), *_tensors(aux)])
             with torch.no_grad():
@@ -678,7 +725,46 @@ class GPipe(nn.Module):
             p.grad = None   # not part of the result: free them (in a graph, its pool)
         return torch.stack(losses), aux, torch.stack(oks)
 
-    def value_and_grad_with_loss_params(self, *args: Any, **kwargs: Any) -> Any:
-        raise not_ported(
-            "GPipe.value_and_grad_with_loss_params (parametric loss layers)", _SLICE
-        )
+    def value_and_grad_with_loss_params(
+        self,
+        x: microbatch.Batch,
+        target: Any,
+        loss_layer: nn.Module,
+        *,
+        rng: Any = None,
+    ) -> Tuple[torch.Tensor, Tuple[List[dict], ...], dict, Any]:
+        """Pipelined training step with a PARAMETRIC loss layer:
+        ``loss_layer(gathered_output, target)`` (for example
+        :func:`~torchgpipe_tpu_torch.models.transformer.chunked_lm_loss`,
+        which owns the final norm and the head, so a model built with
+        ``llama(cfg, head=False)`` never forms the ``[tokens, vocab]``
+        logits) trains with the pipe.  The layer lives on the last
+        stage's device.  Fill-drain only.  Returns ``(loss, grads,
+        loss_grads, aux)``: ``loss_grads`` is ``{param name: .grad}`` of
+        the layer's trainable parameters."""
+        if self.schedule != "gpipe":
+            raise ValueError(
+                "value_and_grad_with_loss_params supports the fill-drain "
+                f"('gpipe') schedule only (got schedule={self.schedule!r})"
+            )
+        if self.fused:
+            raise ValueError(
+                "value_and_grad_with_loss_params is not supported with "
+                "fused=True (the fused program computes its loss inline); "
+                "use the per-cell scheduler"
+            )
+        if list(loss_layer.buffers()):
+            raise ValueError(
+                f"parametric loss layer {type(loss_layer).__name__!r} must "
+                "be stateless (its state updates would be silently dropped)"
+            )
+        params = [(n, p) for n, p in loss_layer.named_parameters() if p.requires_grad]
+        for _, p in params:
+            p.grad = None
+        loss, grads, aux = self.value_and_grad(x, target, loss_layer, rng=rng)
+        loss_grads = {}
+        for n, p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            loss_grads[n] = p.grad
+        return loss, grads, loss_grads, aux

@@ -2,29 +2,31 @@
 
 Counterpart of ``torchgpipe_tpu/microbatch.py`` (``check``,
 ``batch_size``, ``chunk_sizes``, ``scatter``, ``gather``).  A mini-batch
-is a tensor or a tuple of tensors sharing the leading (batch) dimension;
-other pytrees are not needed by the training slice.  Chunks follow
-``torch.chunk`` size semantics: ceil-sized, the last one short, possibly
-fewer than asked for.
+is a pytree (tensor, tuple, list or dict, as ``torch.utils._pytree``
+flattens it) of tensors sharing the leading (batch) dimension: a packed
+batch is the dict ``{"tokens", "segment_ids", "positions"}``.  Chunks
+follow ``torch.chunk`` size semantics: ceil-sized, the last one short,
+possibly fewer than asked for.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple, Union
+from typing import Any, List, Sequence
 
 import torch
+import torch.utils._pytree as pytree
 
-Batch = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
+Batch = Any   # a pytree of tensors
 
 
-def _leaves(value: Batch) -> Tuple:
-    return tuple(value) if isinstance(value, (tuple, list)) else (value,)
+def _leaves(value: Batch) -> List:
+    return pytree.tree_leaves(value)
 
 
 def check(value: Batch) -> None:
-    """Validate a mini-batch: a tensor or a non-empty tuple of tensors
-    with a common leading dimension (the reference's messages)."""
+    """Validate a mini-batch: a non-empty pytree of tensors with a
+    common leading dimension (the reference's messages)."""
     leaves = _leaves(value)
     if not leaves:
         raise TypeError("expected a non-empty pytree of arrays as input")
@@ -70,16 +72,17 @@ def scatter(value: Batch, chunks: int) -> List[Batch]:
     """Split a mini-batch into a list of micro-batches (views, no copy)."""
     check(value)
     sizes = chunk_sizes(batch_size(value), chunks)
-    if isinstance(value, torch.Tensor):
-        return list(value.split(sizes))
-    parts = [leaf.split(sizes) for leaf in value]
-    return [tuple(p[i] for p in parts) for i in range(len(sizes))]
+    leaves, spec = pytree.tree_flatten(value)
+    parts = [leaf.split(sizes) for leaf in leaves]
+    return [pytree.tree_unflatten([p[i] for p in parts], spec)
+            for i in range(len(sizes))]
 
 
 def gather(microbatches: Sequence[Batch]) -> Batch:
     """Concatenate micro-batches back into one mini-batch."""
     if not microbatches:
         raise ValueError("no micro-batches to gather")
-    if isinstance(microbatches[0], torch.Tensor):
-        return torch.cat(list(microbatches))
-    return tuple(torch.cat(list(leaves)) for leaves in zip(*microbatches))
+    flat = [pytree.tree_flatten(mb) for mb in microbatches]
+    spec = flat[0][1]
+    return pytree.tree_unflatten(
+        [torch.cat(list(leaves)) for leaves in zip(*(f[0] for f in flat))], spec)

@@ -4,7 +4,10 @@ Counterpart of ``torchgpipe_tpu/models/generation.py``: ``prefill``,
 ``generate`` (full or ring caches, bf16/f32 or int8 storage, multi-turn
 continuation with ``cache=``, per-row frontiers with ``row_lengths=``,
 ``early_exit``), ``decode_slots``, ``row_frontiers``, ``beam_search`` and
-``speculative_generate``.  Prefill runs one batched pass over the prompt
+``speculative_generate``, and ``mpmd_params_for_generation`` (a trained
+``GPipe`` back to the model these take).  A LoRA model decodes with its
+adapters unmerged: the shared block prologue applies their deltas.
+Prefill runs one batched pass over the prompt
 with ``ops.flash_attention.flash_attention`` (the ``flash_fwd`` CUDA
 kernel on the card) and banks every block's K/V; each decode step runs
 its tokens through the blocks, reading the live cache prefix with
@@ -32,12 +35,14 @@ Differences from the reference, all forced by PyTorch running eagerly:
 
 from __future__ import annotations
 
+import copy as _copy
 import dataclasses
 from typing import Any, List, Mapping, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
 from torchgpipe_tpu_torch.models.transformer import (  # noqa: F401 (re-exported)
+    ChunkedLMLoss,
     Device,
     TransformerConfig,
     _block_attn_out,
@@ -181,8 +186,8 @@ def _split_params(
         )
     ps = [layer.params() for layer in layers]
     for p in ps:
-        if "mlp" in p or "lora" in p:
-            raise not_ported("MoE / LoRA block parameters", "5")
+        if "mlp" in p:
+            raise not_ported("MoE block parameters", "5")
     return ps[0], ps[1:-1], ps[-1]
 
 
@@ -979,3 +984,37 @@ def speculative_generate(
     if return_stats:
         return out, SpecStats(rounds=stats[0], drafted=stats[1], accepted=stats[2])
     return out
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    return a.type == b.type and (a.index is None or b.index is None or a.index == b.index)
+
+
+def mpmd_params_for_generation(
+    pipe: Any, device: Device = None, *, head: Optional[Any] = None,
+    copy: bool = False,
+) -> torch.nn.Sequential:
+    """A trained ``GPipe(llama(cfg))`` as the flat model :func:`generate`
+    takes (train with the pipeline, decode with the same weights): its
+    layers in order, unwrapped from a ``compute_dtype`` policy, then
+    ``head`` when the pipe has none (``llama(cfg, head=False)`` trained
+    with a :func:`~torchgpipe_tpu_torch.models.transformer.chunked_lm_loss`
+    layer, whose parameters are the head's).  All on ``device``
+    (default: the first stage's): a layer already there is shared, one
+    on another stage's device is copied, and ``copy=True`` copies every
+    layer (without its ``.grad``)."""
+    from torchgpipe_tpu_torch.precision import unwrap
+
+    dev = pipe.devices[0] if device is None else torch.device(device)
+    if isinstance(head, ChunkedLMLoss):
+        head = head.as_head()
+    layers = [unwrap(layer) for layer in pipe] + ([] if head is None else [head])
+    out = []
+    for layer in layers:
+        held = next(layer.parameters()).device
+        if copy or not _same_device(held, dev):
+            layer = _copy.deepcopy(layer).to(dev)
+            for p in layer.parameters():
+                p.grad = None
+        out.append(layer)
+    return torch.nn.Sequential(*out)

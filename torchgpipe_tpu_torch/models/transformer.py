@@ -13,6 +13,17 @@ block_{n-1}, head]``, the flat per-layer list the JAX engines and
 (:func:`_block_qkv`, :func:`_block_attn_out`, :func:`_mlp_out`) live here
 so the block's own forward and every generation path share one body;
 ``models.generation`` re-exports them under the reference's names.
+
+LoRA (``cfg.lora_rank``): each block holds adapters ``A``/``B`` on
+q/k/v/o in a ``lora`` submodule (``B`` zero, so a fresh model computes
+the base model), applied in that shared body.  Sequence packing: the
+embedding takes the packer's dict ``{"tokens", "segment_ids",
+"positions"}`` and emits the tuple ``(hidden, segment_ids, positions)``,
+which every block carries (rotary at the per-token positions, attention
+masked to segment ∧ causal through :func:`segment_attention`, the
+reference's dense path: its flash kernel has no segment mask) until the
+head takes the hidden plane.  :func:`chunked_lm_loss` is the parametric
+loss that owns the final norm and head of ``llama(cfg, head=False)``.
 """
 
 from __future__ import annotations
@@ -24,7 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from torchgpipe_tpu_torch.ops.flash_attention import flash_attention
+from torchgpipe_tpu_torch.ops.flash_attention import _validate_window, flash_attention
+from torchgpipe_tpu_torch.ops.losses import chunked_softmax_xent
 
 Device = Union[str, torch.device, None]
 
@@ -136,8 +148,6 @@ class TransformerConfig:
         self.validate_arch()
         if self.tp_axis is not None or self.sp_axis is not None:
             raise not_ported("tensor/sequence parallelism (tp_axis, sp_axis)", "5")
-        if self.lora_rank:
-            raise not_ported("LoRA adapters (lora_rank)", "2")
         if self.tie_embeddings:
             raise not_ported("tied embeddings (tie_embeddings)", "5")
         if self.pos_emb != "rope":
@@ -190,6 +200,15 @@ def _block_norm(
         x, p[key], cfg.norm_eps, bias=p.get(bkey),
         centered=cfg.norm == "layernorm",
     )
+
+
+def _lora_delta(
+    cfg: TransformerConfig, lo: Mapping[str, torch.Tensor], x: torch.Tensor,
+    a: str, b: str,
+) -> torch.Tensor:
+    """One adapter's contribution ``(x @ A) @ B * alpha / rank``, shared
+    by the training block and the generation prefill/decode paths."""
+    return ((x @ lo[a]) @ lo[b]) * (cfg.lora_alpha / cfg.lora_rank)
 
 
 def _act_fn(act: str) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -277,6 +296,11 @@ def _block_qkv(
     hd = cfg.head_dim
     h = _block_norm(cfg, p, "ln1", x)
     q, k, v = h @ p["wq"], h @ p["wk"], h @ p["wv"]
+    if "lora" in p:
+        lo = p["lora"]
+        q = q + _lora_delta(cfg, lo, h, "qa", "qb")
+        k = k + _lora_delta(cfg, lo, h, "ka", "kb")
+        v = v + _lora_delta(cfg, lo, h, "va", "vb")
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(b, g, -1, hd)
@@ -307,10 +331,71 @@ def _block_attn_out(
     sequential residual), MLP residual.  ``attn: [b, g, nh*hd]``."""
     attn = attn.to(x.dtype)
     o = attn @ p["wo"]
+    if "lora" in p:
+        o = o + _lora_delta(cfg, p["lora"], attn, "oa", "ob")
     if "bo" in p:
         o = o + p["bo"]
     h = _block_norm(cfg, p, "ln2", x if cfg.parallel_residual else x + o)
     return x + o + _mlp_out(cfg, p, h)
+
+
+# --------------------------------------------------------------------- #
+# sequence packing                                                      #
+# --------------------------------------------------------------------- #
+
+
+def _is_packed_batch(x: Any) -> bool:
+    """A raw packed input batch (the packer's dict)."""
+    return isinstance(x, dict) and "tokens" in x and "segment_ids" in x
+
+
+def _is_packed_act(x: Any) -> bool:
+    """A packed activation between layers: ``(hidden, seg, pos)``."""
+    return isinstance(x, tuple) and len(x) == 3
+
+
+def _refuse_packed_sp(cfg: TransformerConfig, what: str) -> None:
+    """The reference's refusal of a packed batch under a sequence-parallel
+    axis (``sp_axis`` is not ported: a config that names one is refused
+    at construction, so this guards a config swapped in afterwards)."""
+    if cfg.sp_axis is not None:
+        raise ValueError(
+            f"{what} do not compose with a bound sequence-parallel axis; "
+            "drop cfg.sp_axis for packed training"
+        )
+
+
+def segment_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, seg: torch.Tensor, *,
+    causal: bool = True, window: Optional[int] = None,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Dense attention with the sequence-packing mask, the reference's
+    ``full_attention(..., seg=)``: position ``i`` attends ``j`` only when
+    ``seg[i] == seg[j]`` (and ``j <= i`` when causal, within ``window``).
+    ``q: [b, s, h, d]``, ``k, v: [b, s, g, d]``, ``seg: [b, s]`` int.
+    Scores and softmax in float32, masked with -1e30 (a row with no
+    allowed key softens to uniform and stays finite), the weights cast to
+    ``v``'s dtype for ``P V``; returns ``q.dtype``.  No flash kernel: the
+    reference's packed path is dense too."""
+    b, sq, h, d = q.shape
+    sk, g = k.shape[1], k.shape[2]
+    sm_scale = d ** -0.5 if sm_scale is None else sm_scale
+    _validate_window(causal, window)
+    qg = q.reshape(b, sq, g, h // g, d).float()
+    scores = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.float()) * sm_scale
+    mask = seg[:, :, None] == seg[:, None, :]                  # [b, sq, sk]
+    if causal:
+        diff = torch.arange(sq, device=q.device)[:, None] - \
+            torch.arange(sk, device=q.device)[None, :]
+        band = diff >= 0
+        if window is not None:
+            band = band & (diff < window)
+        mask = mask & band
+    scores = torch.where(mask[:, None, None], scores, -1e30)
+    p = torch.softmax(scores, dim=-1).to(v.dtype)
+    o = torch.einsum("bgrqk,bkgd->bqgrd", p, v)
+    return o.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
 
 
 # --------------------------------------------------------------------- #
@@ -331,6 +416,31 @@ class _Layer(nn.Module):
         return dict(self._parameters)
 
 
+class LoRA(_Layer):
+    """A block's adapters: ``A`` (``qa``/``ka``/``va``/``oa``) and ``B``
+    (``qb``/``kb``/``vb``/``ob``) factors on the q/k/v/o projections, in
+    ``cfg.dtype``, the reference's ``"lora"`` subdict."""
+
+    def __init__(self, cfg: TransformerConfig, device: torch.device):
+        super().__init__()
+        r, dim, hd, dt = cfg.lora_rank, cfg.dim, cfg.head_dim, cfg.dtype
+        nh, nkv = cfg.n_heads, cfg.kv_heads
+        shapes = {"qa": (dim, r), "qb": (r, nh * hd), "ka": (dim, r),
+                  "kb": (r, nkv * hd), "va": (dim, r), "vb": (r, nkv * hd),
+                  "oa": (nh * hd, r), "ob": (r, dim)}
+        for name, shape in shapes.items():
+            setattr(self, name, _param(shape, dt, device))
+
+    @torch.no_grad()
+    def reset_parameters(self, gen: torch.Generator, std: float) -> None:
+        """``A ~ N(0, std)``, ``B = 0``: the delta starts at zero."""
+        for name, t in self._parameters.items():
+            if name.endswith("a"):
+                t.copy_(_normal(gen, t.shape, std, t.dtype, t.device))
+            else:
+                t.zero_()
+
+
 class TokenEmbedding(_Layer):
     """Token lookup ``table[tokens]`` with optional ``embed_scale``."""
 
@@ -346,8 +456,20 @@ class TokenEmbedding(_Layer):
             _normal(gen, self.table.shape, 0.02, self.cfg.dtype, self.table.device)
         )
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return _embed(self.cfg, self.params(), tokens)
+    def forward(self, tokens: Any) -> Any:
+        """Token ids ``[b, s]`` to ``[b, s, dim]``; a packed batch dict to
+        the packed activation ``(hidden, segment_ids, positions)``."""
+        if not _is_packed_batch(tokens):
+            return _embed(self.cfg, self.params(), tokens)
+        seg, pos = tokens["segment_ids"], tokens.get("positions")
+        if pos is None:
+            raise ValueError(
+                "packed batch is missing 'positions' (per-token "
+                "within-document positions); build batches with "
+                "utils.data.pack_documents/packed_batches"
+            )
+        _refuse_packed_sp(self.cfg, "packed batches")
+        return _embed(self.cfg, self.params(), tokens["tokens"]), seg, pos
 
 
 class TransformerBlock(_Layer):
@@ -393,12 +515,22 @@ class TransformerBlock(_Layer):
             )
         for name, (shape, dtype) in shapes.items():
             setattr(self, name, _param(shape, dtype, dev))
+        if cfg.lora_rank:
+            self.lora = LoRA(cfg, dev)
+
+    def params(self) -> dict:
+        """The reference's param dict: the block's own leaves, and the
+        adapters under ``"lora"``."""
+        p = dict(self._parameters)
+        if "lora" in self._modules:
+            p["lora"] = self.lora.params()
+        return p
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
         """Same distributions as the reference init: N(0, dim^-1/2)
         projections (``w_down``/``w_proj``: hidden^-1/2), unit norm
-        scales, zero biases."""
+        scales, zero biases; adapters ``A ~ N(0, dim^-1/2)``, ``B = 0``."""
         cfg = self.cfg
         std, hstd = cfg.dim ** -0.5, cfg.mlp_hidden ** -0.5
         for name, t in self._parameters.items():
@@ -409,16 +541,29 @@ class TransformerBlock(_Layer):
             else:
                 s = hstd if name in ("w_down", "w_proj") else std
                 t.copy_(_normal(gen, t.shape, s, t.dtype, t.device))
+        if "lora" in self._modules:
+            self.lora.reset_parameters(gen, std)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: Any) -> Any:
+        """``[b, s, dim]``, or the packed ``(hidden, seg, pos)`` (rotary
+        at ``pos``, attention through :func:`segment_attention`)."""
         cfg, p = self.cfg, self.params()
+        packed = _is_packed_act(x)
+        if packed:
+            _refuse_packed_sp(cfg, "packed batches (segment_ids)")
+            x, seg, pos = x
         b, s, _ = x.shape
-        q, k, v = _block_qkv(cfg, p, x, 0)
-        attn = flash_attention(
-            q.contiguous(), k.contiguous(), v.contiguous(),
-            causal=cfg.causal, window=cfg.attn_window,
-        )
-        return _block_attn_out(cfg, p, x, attn.reshape(b, s, -1))
+        q, k, v = _block_qkv(cfg, p, x, pos if packed else 0)
+        if packed:
+            attn = segment_attention(q, k, v, seg, causal=cfg.causal,
+                                     window=cfg.attn_window)
+        else:
+            attn = flash_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                causal=cfg.causal, window=cfg.attn_window,
+            )
+        out = _block_attn_out(cfg, p, x, attn.reshape(b, s, -1))
+        return (out, seg, pos) if packed else out
 
 
 class LMHead(_Layer):
@@ -445,21 +590,72 @@ class LMHead(_Layer):
                     self.w.device)
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: Any) -> torch.Tensor:
+        if _is_packed_act(x):
+            x = x[0]   # logits come from the hidden plane
         p = self.params()
         return _block_norm(self.cfg, p, "scale", x) @ p["w"]
 
 
+class ChunkedLMLoss(LMHead):
+    """The final norm, the vocabulary projection and the cross-entropy
+    as one parametric loss layer (the reference's ``chunked_lm_loss``):
+    ``loss(y, labels)`` runs ``ops.losses.chunked_softmax_xent`` over
+    vocabulary chunks of ``chunk`` columns, so no ``[tokens, vocab]``
+    logit matrix exists in either direction.  Its parameters are
+    :class:`LMHead`'s (``scale``, ``bias`` for a LayerNorm config, ``w``),
+    so the two heads are checkpoint-interchangeable.  ``y`` may be a
+    packed activation, ``labels`` ``[b, s]`` int or the packed target
+    dict ``{"labels", "weights"}``.  Train it with
+    ``GPipe.value_and_grad_with_loss_params``."""
+
+    def __init__(self, cfg: TransformerConfig, *, chunk: int = 8192,
+                 device: Device = None):
+        super().__init__(cfg, device=device)
+        self.chunk = chunk
+
+    def row_loss(self, y: Any, labels: Any) -> torch.Tensor:
+        """``[b]`` per-row losses: each row's token mean, or its
+        weighted mean over the real tokens of a packed target."""
+        if _is_packed_act(y):
+            y = y[0]
+        weights = None
+        if isinstance(labels, dict):
+            labels, weights = labels["labels"], labels["weights"]
+        p = self.params()
+        h = _block_norm(self.cfg, p, "scale", y)
+        losses = chunked_softmax_xent(
+            h.reshape(-1, self.cfg.dim), p["w"], labels.reshape(-1), self.chunk)
+        losses = losses.reshape(labels.shape[0], -1)
+        if weights is not None:
+            w = weights.to(losses.dtype)
+            return (losses * w).sum(1) / w.sum(1).clamp_min(1.0)
+        return losses.mean(1)
+
+    def forward(self, y: Any, labels: Any) -> torch.Tensor:  # type: ignore[override]
+        return self.row_loss(y, labels).mean()
+
+    def as_head(self) -> LMHead:
+        """An :class:`LMHead` over this layer's own parameters (shared,
+        not copied): the head of the model ``generate`` decodes with."""
+        head = LMHead(self.cfg, device="meta")
+        for name, p in self.params().items():
+            setattr(head, name, p)
+        return head
+
+
 class Llama(nn.Sequential):
     """``[embed, block_0 .. block_{n-1}, head]``, the reference's flat
-    ``llama(cfg)`` layer list as one ``nn.Sequential``."""
+    ``llama(cfg)`` layer list as one ``nn.Sequential`` (no head with
+    ``head=False``)."""
 
-    def __init__(self, cfg: TransformerConfig, *, device: Device = None):
+    def __init__(self, cfg: TransformerConfig, *, head: bool = True,
+                 device: Device = None):
         dev = resolve_device(device)
         super().__init__(
             TokenEmbedding(cfg, device=dev),
             *[TransformerBlock(cfg, device=dev) for _ in range(cfg.n_layers)],
-            LMHead(cfg, device=dev),
+            *([LMHead(cfg, device=dev)] if head else []),
         )
         self.cfg = cfg
 
@@ -478,6 +674,47 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = logp.gather(-1, labels[..., None].long())[..., 0]
     return -ll.mean()
+
+
+def _packed_token_nll(logits: Any, target: Any) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-position negative log-likelihood and its real-token weights
+    for the packed/padded target ``{"labels", "weights"}``."""
+    if _is_packed_act(logits):
+        logits = logits[0]
+    labels, weights = target["labels"], target["weights"]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(-1, labels[..., None].long())[..., 0]
+    return -ll, weights.float()
+
+
+def packed_cross_entropy(logits: Any, target: Any) -> torch.Tensor:
+    """Cross-entropy weighted by real tokens: ``sum(w nll) / sum(w)``
+    over this call, for the ``{"labels", "weights"}`` target of
+    ``utils.data`` (pad and document-final positions weigh 0).  For a
+    loss summed over micro-batches use :func:`packed_cross_entropy_sum`."""
+    nll, w = _packed_token_nll(logits, target)
+    return (nll * w).sum() / w.sum().clamp_min(1.0)
+
+
+def packed_cross_entropy_sum(logits: Any, target: Any) -> torch.Tensor:
+    """``sum(w nll)`` over the call: decomposes exactly over any split
+    of the batch (pair with ``loss_reduction='sum'``)."""
+    nll, w = _packed_token_nll(logits, target)
+    return (nll * w).sum()
+
+
+def per_document_losses(
+    logits: Any, target: Any, segment_ids: torch.Tensor, n_docs: int
+) -> torch.Tensor:
+    """Token-mean loss per packed document: entry ``r * n_docs + d - 1``
+    of the ``[b * n_docs]`` result is row ``r`` segment ``d``'s mean nll
+    over its real positions (0 where the segment is absent)."""
+    nll, w = _packed_token_nll(logits, target)
+    out = []
+    for d in range(1, n_docs + 1):
+        m = (segment_ids == d).float() * w
+        out.append((nll * m).sum(1) / m.sum(1).clamp_min(1.0))
+    return torch.stack(out, dim=1).reshape(nll.shape[0] * n_docs)
 
 
 def token_embedding(
@@ -504,13 +741,24 @@ def lm_head(
 
 
 def llama(
-    cfg: TransformerConfig, *, device: Device = None,
+    cfg: TransformerConfig, *, head: bool = True, device: Device = None,
     generator: Optional[torch.Generator] = None,
 ) -> Llama:
     """The flat Llama as an ``nn.Sequential`` on ``device`` (``cuda``
     unless named), initialised from ``generator`` (a fresh one seeded 0
-    on that device when omitted)."""
-    return _init(Llama(cfg, device=device), generator)
+    on that device when omitted).  ``head=False`` leaves out the head:
+    pair it with :func:`chunked_lm_loss` through
+    ``GPipe.value_and_grad_with_loss_params``."""
+    return _init(Llama(cfg, head=head, device=device), generator)
+
+
+def chunked_lm_loss(
+    cfg: TransformerConfig, *, chunk: int = 8192, device: Device = None,
+    generator: Optional[torch.Generator] = None,
+) -> ChunkedLMLoss:
+    """The parametric big-vocabulary loss layer (:class:`ChunkedLMLoss`),
+    its parameters drawn as :func:`lm_head`'s."""
+    return _init(ChunkedLMLoss(cfg, chunk=chunk, device=device), generator)
 
 
 def _init(layer: nn.Module, gen: Optional[torch.Generator]) -> Any:

@@ -19,11 +19,13 @@ is involved on either side.
 The reference infers input widths at ``init``; a module here takes them
 at construction.  Each layer carries the reference's ``name``.
 
-The reference's dropouts draw from the per-micro-batch key the engine
-hands them; here :class:`Dropout` and :class:`Dropout2d` draw from the
-``torch.Generator`` they are built with (on the activations' device),
-so their masks are not the reference's bits.  A pipeline refuses them
-where a cell would recompute its forward (ROADMAP.md queue A item 2).
+The reference's dropouts draw from the per-layer key the engine hands
+them; so do :class:`Dropout` and :class:`Dropout2d` inside a ``GPipe``
+step given ``rng=`` (:mod:`torchgpipe_tpu_torch.rng`: the same key
+derivation, another hash than threefry, so the masks are not the
+reference's bits), which makes a recomputed cell and a replayed graph
+draw the same masks.  Outside a pipeline they draw from the
+``torch.Generator`` they are built with, on the activations' device.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from torchgpipe_tpu_torch.checkpoint import is_recomputing
+from torchgpipe_tpu_torch import rng as _rng
+from torchgpipe_tpu_torch.checkpoint import is_checkpointing, is_recomputing
 from torchgpipe_tpu_torch.models.transformer import Device, resolve_device
 
 __all__ = [
@@ -319,8 +322,16 @@ class LeakyReLU(nn.Module):
 
 class Dropout(nn.Module):
     """Inverted dropout: in training, each element is kept with
-    probability ``1 - rate`` (drawn from ``generator``) and scaled by
-    ``1 / (1 - rate)``.  In eval mode, or at rate 0, the identity."""
+    probability ``1 - rate`` and scaled by ``1 / (1 - rate)``.  In eval
+    mode, or at rate 0, the identity.
+
+    The mask comes from the layer's key when a pipeline step given
+    ``rng=`` runs it (:func:`torchgpipe_tpu_torch.rng.layer_key`), else
+    from ``generator``; with neither, training raises the reference's
+    error.  A generator cannot replay a mask, so a checkpointed cell's
+    forward or its recompute refuses it."""
+
+    kind = "dropout"
 
     def __init__(
         self, rate: float, *, generator: Optional[torch.Generator] = None,
@@ -336,19 +347,34 @@ class Dropout(nn.Module):
     def _mask_shape(self, x: torch.Tensor) -> Tuple[int, ...]:
         return tuple(x.shape)
 
+    def _keep(self, x: torch.Tensor) -> torch.Tensor:
+        shape = self._mask_shape(x)
+        key = _rng.layer_key(x.device)
+        if key is not None:
+            return _rng.bernoulli(key, 1.0 - self.rate, shape)
+        if self.generator is None:
+            raise ValueError(f"{self.kind} needs an rng key in train mode")
+        if is_checkpointing() or is_recomputing():
+            raise ValueError(
+                f"{self.name}: a checkpointed pipeline cell recomputes its "
+                "forward, and a generator cannot draw the same mask twice; "
+                "pass rng= to the step (the pipeline then hands each layer "
+                "its key)"
+            )
+        return torch.empty(shape, device=x.device).bernoulli_(
+            1.0 - self.rate, generator=self.generator).bool()
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
-        if self.generator is None:
-            raise ValueError(f"{self.name} needs a torch.Generator in train mode")
-        keep = torch.empty(self._mask_shape(x), device=x.device).bernoulli_(
-            1.0 - self.rate, generator=self.generator).bool()
-        return torch.where(keep, x / (1.0 - self.rate), 0.0)
+        return torch.where(self._keep(x), x / (1.0 - self.rate), 0.0)
 
 
 class Dropout2d(Dropout):
     """Spatial dropout: zeroes whole feature maps, one draw per sample
     and channel of an NCHW input."""
+
+    kind = "dropout2d"
 
     def __init__(
         self, rate: float, *, generator: Optional[torch.Generator] = None,
@@ -370,8 +396,12 @@ class Upsample2d(nn.Module):
         self.scale = scale
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.repeat_interleave(self.scale, dim=2)
-        return x.repeat_interleave(self.scale, dim=3)
+        # A broadcast, not repeat_interleave: its backward is a sum over
+        # the copies (fixed order) where repeat_interleave's adds with
+        # atomics on the card, so a step would not repeat bit for bit.
+        n, c, h, w = x.shape
+        s = self.scale
+        return x[:, :, :, None, :, None].expand(n, c, h, s, w, s).reshape(n, c, h * s, w * s)
 
 
 class GlobalAvgPool(nn.Module):

@@ -9,10 +9,11 @@ the port.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from torch import nn
 
+from torchgpipe_tpu_torch.rng import Key, scope
 from torchgpipe_tpu_torch.skip import SkipLayout, apply_layer
 
 _RECOMMEND = (
@@ -86,22 +87,31 @@ def split_layers(
 class Stage(nn.Sequential):
     """One pipeline stage: its layers in order, threading skips.
 
-    ``forward(x, skips_in) -> (y, ext)``: ``skips_in`` holds the skips
-    stashed on earlier stages that this stage pops, and ``ext`` the ones
-    this stage stashes for later stages (``layout.external_*``).  Skips
-    stashed and popped inside the stage stay inside it."""
+    ``forward(x, skips_in, key) -> (y, ext)``: ``skips_in`` holds the
+    skips stashed on earlier stages that this stage pops, and ``ext`` the
+    ones this stage stashes for later stages (``layout.external_*``).
+    Skips stashed and popped inside the stage stay inside it.  ``key``
+    (a micro-batch's :class:`~torchgpipe_tpu_torch.rng.Key`, or None)
+    is folded with each layer's index in the whole model (``offset`` is
+    the index of this stage's first layer), the reference's
+    ``fold_in(rng, offset + li)``."""
 
     def __init__(self, layers: Sequence[nn.Module], index: int,
-                 layout: SkipLayout) -> None:
+                 layout: SkipLayout, offset: int = 0) -> None:
         super().__init__(*layers)
         self.index = index
+        self.offset = offset
         self.ext_stash_keys: Tuple = tuple(layout.external_stashes(index))
         self.ext_pop_keys: Tuple = tuple(layout.external_pops(index))
 
     def forward(  # type: ignore[override]
-        self, x: Any, skips_in: Dict = None
+        self, x: Any, skips_in: Dict = None, key: Optional[Key] = None
     ) -> Tuple[Any, Dict]:
         skips = dict(skips_in or {})
-        for layer in self:
-            x = apply_layer(layer, x, skips)
+        for li, layer in enumerate(self):
+            if key is None:
+                x = apply_layer(layer, x, skips)
+                continue
+            with scope(key.fold(self.offset + li)):
+                x = apply_layer(layer, x, skips)
         return x, {k: skips[k] for k in self.ext_stash_keys}

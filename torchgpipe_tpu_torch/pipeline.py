@@ -39,8 +39,13 @@ Counterpart of ``torchgpipe_tpu/pipeline.py`` (``clock_cycles``,
 * ``GPipe(fused=True)`` captures :meth:`Pipeline.run_train` (or
   :meth:`Pipeline.run_forward`) whole into one CUDA graph
   (:mod:`torchgpipe_tpu_torch.gpipe`); the cells are these.
-
-Not ported (ROADMAP.md queue A item 2): tracing.
+* ``rng`` (a :class:`~torchgpipe_tpu_torch.rng.Key`) is folded with
+  the micro-batch index, ``fold_in(rng, i)``, and the stage folds in
+  each layer's index; a checkpointed cell saves its key with its
+  inputs, so its recompute draws the same dropout masks.
+* ``tracer`` (:class:`~torchgpipe_tpu_torch.utils.tracing.Timeline`)
+  records a span per cell: ``fwd`` and ``bwd`` (a recompute inside its
+  backward), and ``loss``.
 """
 
 from __future__ import annotations
@@ -50,8 +55,11 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tupl
 
 import torch
 
+import torch.utils._pytree as pytree
+
 from torchgpipe_tpu_torch import checkpoint as ckpt
 from torchgpipe_tpu_torch import microbatch
+from torchgpipe_tpu_torch.rng import Key
 from torchgpipe_tpu_torch.skip import SkipLayout
 
 Cell = Tuple[int, int]
@@ -84,9 +92,8 @@ def clock_cycles(m: int, n: int) -> Iterator[List[Cell]]:
 
 
 def _to(x: Any, device: torch.device) -> Any:
-    if isinstance(x, tuple):
-        return tuple(_to(t, device) for t in x)
-    return None if x is None else x.to(device, non_blocking=True)
+    return pytree.tree_map(
+        lambda t: t.to(device, non_blocking=True) if isinstance(t, torch.Tensor) else t, x)
 
 
 def _as_leaf(x: Any) -> Any:
@@ -111,13 +118,16 @@ def _pairs(y: Any, gy: Any) -> List[Tuple[torch.Tensor, torch.Tensor]]:
 
 
 def _leaves(x: Any) -> List[torch.Tensor]:
-    if isinstance(x, tuple):
-        return [t for v in x for t in _leaves(v)]
-    return [] if x is None else [x]
+    return [t for t in pytree.tree_leaves(x) if isinstance(t, torch.Tensor)]
 
 
 def _split_loss(res: Any) -> Tuple[torch.Tensor, Any]:
     return res if isinstance(res, tuple) else (res, None)
+
+
+def _mb_key(rng: Optional[Key], i: int) -> Optional[Key]:
+    """Micro-batch ``i``'s key, the reference's ``fold_in(rng, i)``."""
+    return None if rng is None else rng.fold(i)
 
 
 class _Cells:
@@ -126,11 +136,13 @@ class _Cells:
     skips and skip cotangents in flight."""
 
     def __init__(self, pipe: "Pipeline", checkpoint_stop: int,
-                 offload: Optional[ckpt.Offload] = None) -> None:
+                 offload: Optional[ckpt.Offload] = None,
+                 rng: Optional[Key] = None) -> None:
         self.pipe = pipe
         self.stop = checkpoint_stop
         self.offload = offload
-        self.saved: Dict[Cell, Tuple] = {}    # checkpointed: inputs only
+        self.rng = rng
+        self.saved: Dict[Cell, Tuple] = {}    # checkpointed: inputs and key
         self.graphs: Dict[Cell, Tuple] = {}   # inputs and outputs
         self.skips: Dict[Tuple[int, Any], torch.Tensor] = {}
         self.gskips: Dict[Tuple[int, Any], torch.Tensor] = {}
@@ -138,21 +150,25 @@ class _Cells:
     def forward(self, i: int, j: int, x: Any) -> Any:
         pipe = self.pipe
         stage, dev = pipe.stages[j], pipe.devices[j]
+        start = None if pipe.tracer is None else pipe.tracer.now()
         x = _to(x, dev)
         if j > 0:
             x = _as_leaf(x)
         skips_in = {k: _as_leaf(self.skips.pop((i, k))) for k in stage.ext_pop_keys}
+        rng_i = _mb_key(self.rng, i)
         if i < self.stop:
             with torch.no_grad(), ckpt.phase(checkpointing=True):
-                y, ext = stage(x, skips_in)
-            self.saved[(i, j)] = (x, skips_in)
+                y, ext = stage(x, skips_in, rng_i)
+            self.saved[(i, j)] = (x, skips_in, rng_i)
         else:
             hooks = contextlib.nullcontext() if self.offload is None else \
                 self.offload.cell((i, j), dev, _leaves((x, *skips_in.values()))
                                   + list(stage.parameters()))
             with torch.enable_grad(), ckpt.phase(), hooks:
-                y, ext = stage(x, skips_in)
+                y, ext = stage(x, skips_in, rng_i)
             self.graphs[(i, j)] = (x, skips_in, y, ext)
+        if pipe.tracer is not None:
+            pipe.tracer.record("fwd", j, i, y, start=start)
         for k, v in ext.items():
             self.skips[(i, k)] = _to(v.detach(), pipe.devices[pipe.layout.pop_stage(k)])
         return y
@@ -165,14 +181,15 @@ class _Cells:
         its tensors now)."""
         pipe = self.pipe
         stage = pipe.stages[j]
+        start = None if pipe.tracer is None else pipe.tracer.now()
         if self.offload is not None:
             self.offload.before_backward(
                 (i, j), pipe.devices[j], nxt,
                 None if nxt is None else pipe.devices[nxt[1]])
         if (i, j) in self.saved:
-            x, skips_in = self.saved.pop((i, j))
+            x, skips_in, rng_i = self.saved.pop((i, j))
             with torch.enable_grad(), ckpt.phase(recomputing=True):
-                y, ext = stage(x, skips_in)
+                y, ext = stage(x, skips_in, rng_i)
         else:
             x, skips_in, y, ext = self.graphs.pop((i, j))
         pairs = _pairs(y, gy)
@@ -180,6 +197,11 @@ class _Cells:
             pairs += _pairs(ext[k], self.gskips.pop((i, k), None))
         if pairs:
             torch.autograd.backward([a for a, _ in pairs], [b for _, b in pairs])
+        if pipe.tracer is not None:
+            # The whole cell's output, parameter gradients included: a
+            # stage-0 cell hands back no input cotangent to wait on.
+            pipe.tracer.record("bwd", j, i, ([p.grad for p in stage.parameters()],
+                                             _grad_of(x)), start=start)
         for k, leaf in skips_in.items():
             g = _grad_of(leaf)
             if g is not None:
@@ -190,17 +212,19 @@ class _Cells:
 class Pipeline:
     """Scheduling of micro-batches over ``stages`` (one
     :class:`~torchgpipe_tpu_torch.partition.Stage` per stage, already on
-    ``devices[j]``), routing skips by ``layout``."""
+    ``devices[j]``), routing skips by ``layout``; ``tracer`` records
+    each cell."""
 
     def __init__(
         self, stages: Sequence[torch.nn.Module], devices: Sequence[torch.device],
-        layout: SkipLayout,
+        layout: SkipLayout, tracer: Any = None,
     ) -> None:
         self.stages = list(stages)
         self.devices = list(devices)
         self.layout = layout
+        self.tracer = tracer
 
-    def run_forward(self, mbatches: List[Any]) -> List[Any]:
+    def run_forward(self, mbatches: List[Any], rng: Optional[Key] = None) -> List[Any]:
         """All micro-batches through all stages with no gradients; the
         last stage's outputs, one per micro-batch."""
         n, m = len(self.stages), len(mbatches)
@@ -211,9 +235,12 @@ class Pipeline:
             for cycle in clock_cycles(m, n):
                 for i, j in cycle:
                     stage = self.stages[j]
+                    start = None if self.tracer is None else self.tracer.now()
                     x = mbatches[i] if j == 0 else acts.pop(i)
                     skips_in = {k: skips.pop((i, k)) for k in stage.ext_pop_keys}
-                    y, ext = stage(_to(x, self.devices[j]), skips_in)
+                    y, ext = stage(_to(x, self.devices[j]), skips_in, _mb_key(rng, i))
+                    if self.tracer is not None:
+                        self.tracer.record("fwd", j, i, y, start=start)
                     for k, v in ext.items():
                         skips[(i, k)] = _to(v, self.devices[self.layout.pop_stage(k)])
                     if j == n - 1:
@@ -229,14 +256,16 @@ class Pipeline:
         loss_fn: Callable[..., Any],
         checkpoint_stop: int,
         offload: Optional[ckpt.Offload] = None,
+        rng: Optional[Key] = None,
     ) -> Tuple[torch.Tensor, Any]:
         """Fill-drain forward, loss on the gathered output, and backward.
         Returns ``(loss, aux)`` (``aux`` is what ``loss_fn`` returned
         beside the loss, or None); the parameters' ``.grad`` hold the
-        mini-batch gradients.  With ``offload``, the cells' saved tensors
-        wait in host memory (``checkpoint='offload'``)."""
+        mini-batch gradients (a parametric ``loss_fn``'s too).  With
+        ``offload``, the cells' saved tensors wait in host memory
+        (``checkpoint='offload'``)."""
         n, m = len(self.stages), len(mbatches)
-        cells = _Cells(self, checkpoint_stop, offload)
+        cells = _Cells(self, checkpoint_stop, offload, rng)
         acts: Dict[int, Any] = {}
         outs: List[Any] = [None] * m
 
@@ -249,11 +278,16 @@ class Pipeline:
                     acts[i] = y
 
         last = self.devices[-1]
+        start = None if self.tracer is None else self.tracer.now()
         leaves = [_as_leaf(_to(o, last)) for o in outs]
         with torch.enable_grad():
             loss, aux = _split_loss(loss_fn(microbatch.gather(leaves), _to(target, last)))
             loss.backward()
         gys: Dict[Cell, Any] = {(i, n - 1): _grad_of(leaf) for i, leaf in enumerate(leaves)}
+        if self.tracer is not None:
+            # Its own span (micro-batch -1), so a synchronizing tracer
+            # does not charge the loss to the first backward cell.
+            self.tracer.record("loss", n - 1, -1, (loss, list(gys.values())), start=start)
         del leaves, outs
 
         order = [c for cycle in reversed(list(clock_cycles(m, n))) for c in reversed(cycle)]
@@ -271,6 +305,7 @@ class Pipeline:
         loss_fn: Callable[..., Any],
         checkpoint_stop: int,
         loss_weights: Sequence[float],
+        rng: Optional[Key] = None,
     ) -> Tuple[torch.Tensor, List[Any]]:
         """One-forward-one-backward schedule.  The loss of micro-batch
         ``i`` is ``loss_weights[i] * loss_fn(out_i, target_mbs[i])``,
@@ -281,7 +316,7 @@ class Pipeline:
         per micro-batch."""
         n, m = len(self.stages), len(mbatches)
         orders = one_f1b_orders(m, n)
-        cells = _Cells(self, checkpoint_stop)
+        cells = _Cells(self, checkpoint_stop, rng=rng)
         acts: Dict[Cell, Any] = {}
         gys: Dict[Cell, Any] = {}
         losses: List[Any] = [None] * m
@@ -293,6 +328,7 @@ class Pipeline:
             if j < n - 1:
                 acts[(i, j)] = y
                 return
+            start = None if self.tracer is None else self.tracer.now()
             leaf = _as_leaf(y)
             with torch.enable_grad():
                 loss, aux = _split_loss(loss_fn(leaf, _to(target_mbs[i], last)))
@@ -300,6 +336,8 @@ class Pipeline:
                 wloss.backward()
             losses[i], auxes[i] = wloss.detach(), aux
             gys[(i, j)] = _grad_of(leaf)
+            if self.tracer is not None:
+                self.tracer.record("loss", j, i, (losses[i], gys[(i, j)]), start=start)
 
         def do_bwd(i: int, j: int) -> None:
             gx = cells.backward(i, j, gys.pop((i, j)))
