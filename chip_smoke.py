@@ -16,8 +16,11 @@ Phases, one line each (any failure exits non-zero):
 3. flash_fwd against its plain PyTorch version on the card at every
    shape the later phases launch it at (the generate prefill, b=4; the
    training micro-batch, b=2; the speculative phase's hd-64 draft and
-   target prefills; the beam prefill), and at a window, a ragged and a
-   long sequence; timed at each, through the wrapper and in device time.
+   target prefills; the beam prefill; phase 18's ViT-L/16 micro-batch
+   without a causal mask, MHA at d=64; phase 21's GPT-2 XL prefill), and
+   at a window, a ragged and a long sequence, each case with its own
+   ``causal``; timed at each, through the wrapper and in device time,
+   beside SDPA with the same mask.
 4. flash_decode against its plain PyTorch version on the card, with a
    bf16 and an int8 cache, up to 20 query rows per kv head (speculative
    verification's g=5 at r=4), at phase 6c's own shapes too (the hd-64
@@ -25,11 +28,14 @@ Phases, one line each (any failure exits non-zero):
    int32 (bitwise equal to the host int), one call captured in a CUDA
    graph and replayed at three live lengths written to that scalar (each
    equal to the eager call), timed at the decode run's shape (live 1088)
-   and at a long cache (live 32704), SDPA timed under each backend.
+   and at a long cache (live 32704), SDPA timed under each backend; and
+   at phase 21's GPT-2 XL shapes (MHA, 25 kv heads, one query row each,
+   hd 64, live 513-576), timed at live 544.
 5. flash_bwd: flash_bwd_dq and flash_bwd_dkv against the plain backward,
    row by row, a probe that the check fails a backward with a tile left
    out, two flash_bwd_dkv and two flash_bwd_dq calls at the main shape
-   bitwise equal; device time beside SDPA's backward under each backend.
+   bitwise equal; device time beside SDPA's backward under each backend,
+   at the main, the long and phase 18's non-causal ViT-L/16 shape.
 6. slice: greedy ``generate`` at Llama-3-8B width (random weights from a
    seed, 32 layers, batch 4, prompt 1024, 128 new tokens), with the
    kernels' launch counts read around that one call, prefill logits of
@@ -71,12 +77,12 @@ Phases, one line each (any failure exits non-zero):
    unpipelined model's, a falling loss, the peak memory within 1 GiB of
    the stateless SGD's, a profile of one step, and a 3-stage schedule on
    one card against the 1-stage one at 4 blocks.
-10. train_1f1b: the same width cut to 4 blocks, batch 8, seq 1024, 8
+10. train_1f1b: the same width cut to 2 blocks (``CUT_BLOCKS``), batch 8, seq 1024, 8
    micro-batches, checkpoint 'never', 4 stages on one card at the balance
    ``balance_by_flops`` counts: one fill-drain step and one 1F1B step
    (``loss_reduction='mean'``) from the same weights, their losses and
    gradients against each other, 1F1B's peak memory below fill-drain's,
-   launch counts against 8 x 8 per kernel, then three ``make_train_step``
+   launch counts against 2 x 8 per kernel, then three ``make_train_step``
    steps of AdamW under 1F1B with a falling loss.
 11. resnet101: ResNet-101 at full width (1000 classes, 224x224, float32),
    benchmarks/resnet101_speed.py's ``pipeline-2`` row (2 stages, batch
@@ -87,7 +93,7 @@ Phases, one line each (any failure exits non-zero):
    deferred commit against the whole batch's statistics, three SGD steps
    (lr 0.1, momentum 0.9) with a falling loss, step ms, samples/s, peak
    memory, a profile, and 0 launches of every hand-written kernel.
-12. train_graph: phase 10's model (4 blocks, batch 8, seq 1024, 8
+12. train_graph: phase 10's model (2 blocks, batch 8, seq 1024, 8
    micro-batches, its 4-stage balance) under 'except_last' as
    ``GPipe(fused=True)``: two eager SGD steps, the fused warm-up and the
    first replay from the same weights, all bitwise equal (loss, every
@@ -127,8 +133,8 @@ Phases, one line each (any failure exits non-zero):
    ``mpmd_params_for_generation``: the unmerged tokens must pass both
    models' teacher-forced check, and the count of equal merged tokens is
    printed.
-16. unet: benchmarks/unet_speed.py's row pipeline-2 ((5, 64) U-Net,
-   192x192, batch 160, 8 micro-batches, 2 stages, 'except_last',
+16. unet: benchmarks/unet_speed.py's row pipeline-2 (its (5, 64) U-Net
+   cut to depth 4, 192x192, batch 160, 8 micro-batches, 2 stages, 'except_last',
    float32, cuDNN deterministic) with its Dropout2d(0.1) live: two eager
    steps with one key bitwise equal and another key different, 'never'
    and 'except_last' bitwise equal under one key (at batch 40), the
@@ -139,6 +145,30 @@ Phases, one line each (any failure exits non-zero):
    ``Timeline(sync=True)`` (benchmarks/unet_timeline.py's drive):
    samples/s, the per-stage summary, and ``simulate_pipeline``'s makespan
    and bubble against the analytic (n - 1) / (m + n - 1).
+
+18. vit_l16: ViT-L/16 (dim 1024, depth 24, 16 heads, MLP 4096, patch 16,
+   224x224, 1000 classes), bf16 weights, benchmarks/vit_speed.py's row
+   pipeline-2 (batch 512, 8 micro-batches, 2 stages on one card,
+   'except_last'), SGD: block 0's attention of micro-batch 0 at its real
+   activations against the plain backward row by row; three steps with a
+   falling loss, 360 / 192 / 192 flash launches a step, samples/s, peak,
+   a profiled step's idle share.
+19. amoebanetd: AmoebaNet-D (18, 256), 224x224, float32, TF32 off,
+   benchmarks/amoebanetd_speed.py's row n2m4 (batch 256, 4 micro-batches,
+   balance [9, 15], 'except_last'; the batch halved, and the cut printed,
+   if it does not fit): the 2-stage step against the 1-stage one (loss,
+   gradients, BatchNorm buffers), three SGD steps (momentum; losses
+   printed, not gated), samples/s, peak, idle share, no hand-written
+   kernel.
+20. t5: t5-base width (vocab 32128, dim 768, 12 + 12 layers, 12 heads,
+   d_ff 3072, relu, tied), bf16: a 2-stage step (encoder 512, decoder
+   128, batch 32, 4 micro-batches) against the unpipelined loss, two SGD
+   steps, then greedy ``t5_generate`` (batch 8, 64 tokens) whose tokens
+   are the teacher-forced argmax up to bf16 near-ties; no kernel.
+21. gpt2_xl_generate: GPT-2 XL as HF gpt2-xl's config gives it (1600
+   wide, 48 layers, 25 heads, 1024 positions, vocab 50257, gelu_new,
+   tied), bf16: 4 prompts of 512, 64 greedy tokens; 48 flash_fwd and
+   3072 flash_decode launches; the teacher-forced check; ms/token.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Then one JSON line per kernel (time, launches, bound, plain and
@@ -157,6 +187,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -434,53 +465,59 @@ def fwd_pairs(s: int, causal: bool, window) -> int:
 def phase_fwd(torch, tfa, card, gqa_sdpa):
     """flash_fwd against its plain version at every shape the generation
     and training phases give it; timed at each."""
-    # (name, b, h, g, s, window, d)
+    # (name, b, h, g, s, window, d, causal)
     cases = [
-        ("main", 4, 32, 8, 1024, None, 128),
+        ("main", 4, 32, 8, 1024, None, 128, True),
         # One micro-batch of phase 8's step (224 launches a step).
-        ("train_microbatch", 2, 32, 8, 1024, None, 128),
-        ("window256", 4, 32, 8, 1024, 256, 128),
-        ("ragged1000", 4, 32, 8, 1000, None, 128),
+        ("train_microbatch", 2, 32, 8, 1024, None, 128, True),
+        ("window256", 4, 32, 8, 1024, 256, 128, True),
+        ("ragged1000", 4, 32, 8, 1000, None, 128, True),
         # Phase 6c's prefills: the 1b draft's (hd 64) and the target's
         # (also the self-draft's); phase 6d's one prompt.
-        ("spec_draft_d64", 2, 32, 8, 512, None, 64),
-        ("spec_target", 2, 32, 8, 512, None, 128),
-        ("beam_prefill", 1, 32, 8, 1024, None, 128),
-        ("long12288", 1, 4, 1, 12288, None, 128),
+        ("spec_draft_d64", 2, 32, 8, 512, None, 64, True),
+        ("spec_target", 2, 32, 8, 512, None, 128, True),
+        ("beam_prefill", 1, 32, 8, 1024, None, 128, True),
+        ("long12288", 1, 4, 1, 12288, None, 128, True),
+        # Phase 18's micro-batch: ViT-L/16, 196 patches, MHA at d=64, no
+        # causal mask; phase 21's prefill: GPT-2 XL, MHA (25 heads) at d=64.
+        ("vit_l16", 64, 16, 16, 196, None, 64, False),
+        ("gpt2_xl_prefill", 4, 25, 25, 512, None, 64, True),
     ]
     rows = {}
-    for name, b, h, g, s, window, d in cases:
+    for name, b, h, g, s, window, d, causal in cases:
         gen = torch.Generator(device="cuda").manual_seed(1)
         q = torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
         k = torch.randn(b, s, g, d, generator=gen, device="cuda").bfloat16()
         v = torch.randn(b, s, g, d, generator=gen, device="cuda").bfloat16()
-        o = tfa.flash_attention(q, k, v, window=window)
-        ro = tfa.flash_attention_reference(q, k, v, window=window)
+        kw = dict(causal=causal, window=window)
+        o = tfa.flash_attention(q, k, v, **kw)
+        ro = tfa.flash_attention_reference(q, k, v, **kw)
         # LSE, the tight check at long s, through the kernel's (o, lse) entry.
-        _, lse = tfa._flash_fwd(q, k, v, True, d ** -0.5, window)
-        _, rlse = tfa._reference_fwd(q, k, v, True, d ** -0.5, window)
+        _, lse = tfa._flash_fwd(q, k, v, causal, d ** -0.5, window)
+        _, rlse = tfa._reference_fwd(q, k, v, causal, d ** -0.5, window)
         torch.cuda.synchronize()
         err = (o.float() - ro.float()).abs().max().item()
         lerr = (lse - rlse).abs().max().item()
         if not (err <= FWD_TOL and lerr <= LSE_TOL):
             fail(f"flash_fwd {name}: max abs err {err} (tol {FWD_TOL}), "
                  f"lse err {lerr} (tol {LSE_TOL})")
-        ms = time_ms(torch, lambda: tfa.flash_attention(q, k, v, window=window), 10)
+        ms = time_ms(torch, lambda: tfa.flash_attention(q, k, v, **kw), 10)
         plain_ms = time_ms(
-            torch, lambda: tfa.flash_attention_reference(q, k, v, window=window), 3, 1
+            torch, lambda: tfa.flash_attention_reference(q, k, v, **kw), 3, 1
         )
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         lib_ms = lib_dev = None
         if window is None:
-            lib_ms = time_ms(torch, lambda: gqa_sdpa(qt, kt, vt, True), 10)
-            lib_dev = device_ms(torch, lambda: gqa_sdpa(qt, kt, vt, True), 10)
+            lib_ms = time_ms(torch, lambda: gqa_sdpa(qt, kt, vt, causal), 10)
+            lib_dev = device_ms(torch, lambda: gqa_sdpa(qt, kt, vt, causal), 10)
         # Device time apart from the host's: at the short prefills the
         # wrapper's host time per call can exceed the kernel's.
-        dev = device_ms(torch, lambda: tfa.flash_attention(q, k, v, window=window), 10)
-        flops = 4.0 * b * h * d * fwd_pairs(s, True, window)
+        dev = device_ms(torch, lambda: tfa.flash_attention(q, k, v, **kw), 10)
+        flops = 4.0 * b * h * d * fwd_pairs(s, causal, window)
         nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel()) + 4.0 * b * h * s
         bms, by = bound(flops, nbytes)
         print(f"flash_fwd {name}: b={b} s={s} h={h} g={g} d={d} window={window} "
+              f"causal={causal} "
               f"max_abs_err={err:.3e} (tol {FWD_TOL}) lse_err={lerr:.3e} (tol {LSE_TOL}) "
               f"ms={ms:.4f} (device {dev:.4f}) plain_ms={plain_ms:.4f} sdpa_ms={lib_ms} "
               f"(device {lib_dev}) bound_ms={bms:.4f} ({by}) [{card}]", flush=True)
@@ -577,6 +614,10 @@ def phase_decode(torch, tfa, tg, card):
         ("draft_hd64_len581", 1, 32, 8, 64, 1, 580, None, 581),
         ("verify_rows20_len517", 1, 32, 8, 128, 5, 512, None, 581),
         ("verify_rows20_len581", 1, 32, 8, 128, 5, 576, None, 581),
+        # Phase 21 (GPT-2 XL, prompt 512, 64 new: buffers of 576): MHA, one
+        # query row per kv head (25 heads) at hd 64, 513..576 live keys.
+        ("gpt2_xl_len513", 4, 25, 25, 64, 1, 512, None, 576),
+        ("gpt2_xl_len576", 4, 25, 25, 64, 1, 575, None, 576),
     ]
     worst = {"bf16": 0.0, "int8": 0.0}
     for quant in (False, True):
@@ -610,6 +651,7 @@ def phase_decode(torch, tfa, tg, card):
                   f"max_abs_err={err:.3e} (tol {DECODE_TOL}); device pos0 bitwise equal "
                   f"[{card}]", flush=True)
     decode_graph_replay(torch, tfa, tg, card, worst)
+    gpt2 = decode_path_timing(torch, tfa, card, "gpt2_xl", 4, 25, 25, 64, 544, 576)
 
     # Timing at the main path's shape: g=1 at live length 1088 (the middle
     # of the decode run's 1025..1152), cycling four caches (76 MB of bf16 >
@@ -687,7 +729,44 @@ def phase_decode(torch, tfa, tg, card):
         }
         del sets
         torch.cuda.empty_cache()
+    timing["gpt2_xl"] = gpt2
     return worst, timing
+
+
+def decode_path_timing(torch, tfa, card, name, b, nh, nkv, hd, live, max_len):
+    """The bf16 decode kernel at one path's shape (g=1, cycling four
+    caches as the layers' caches cycle): device ms beside the plain
+    version's, the fastest SDPA backend's and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    sets = []
+    for _ in range(4):
+        q = torch.randn(b, 1, nh, hd, generator=gen, device="cuda").bfloat16()
+        ck = torch.randn(b, max_len, nkv, hd, generator=gen, device="cuda").bfloat16()
+        cv = torch.randn(b, max_len, nkv, hd, generator=gen, device="cuda").bfloat16()
+        sets.append((q, ck, cv))
+    pos0, it = live - 1, {"i": 0}
+
+    def cycle(fn):
+        def run():
+            it["i"] = (it["i"] + 1) % len(sets)
+            fn(*sets[it["i"]])
+        return run
+
+    ms = device_ms(torch, cycle(lambda q, ck, cv: tfa.flash_decode_attention(
+        q, ck, cv, pos0)), 40)
+    plain_ms = device_ms(torch, cycle(lambda q, ck, cv: tfa.flash_decode_reference(
+        q, ck, cv, pos0)), 10, 1)
+    lib_all, lib_best, lib_ms = sdpa_backends(
+        torch, [(q.transpose(1, 2), ck[:, :live].transpose(1, 2),
+                 cv[:, :live].transpose(1, 2)) for q, ck, cv in sets], False, 40)
+    bms, by = decode_bound(b, nh, nkv, hd, live, 1, 2, False)
+    print(f"flash_decode timing {name}: cache=[{b},{max_len},{nkv},{hd}] live={live} g=1 "
+          f"rows/kv head={nh // nkv}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"sdpa_ms={lib_ms:.4f} ({lib_best}; by backend {lib_all}) bound_ms={bms:.4f} "
+          f"({by}) [{card}]", flush=True)
+    del sets
+    return dict(ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, lib_backend=lib_best,
+                bound_ms=bms, bound_by=by)
 
 
 def attn_bytes(b, s, h, g, d, *, reads, writes):
@@ -715,28 +794,31 @@ def bwd_rows(got, want):
 def phase_bwd(torch, tfa, card):
     """The two backward kernels against the plain backward on the card;
     timed at the training shape (one micro-batch of pipeline-1)."""
+    # (name, b, h, g, s, d, window, causal)
     cases = [
-        ("main", 2, 32, 8, 1024, 128, None),
-        ("window256", 2, 32, 8, 1024, 128, 256),
-        ("ragged1000", 2, 32, 8, 1000, 128, None),
-        ("d64", 2, 32, 8, 1024, 64, None),
-        ("long12288", 1, 4, 1, 12288, 128, None),
+        ("main", 2, 32, 8, 1024, 128, None, True),
+        ("window256", 2, 32, 8, 1024, 128, 256, True),
+        ("ragged1000", 2, 32, 8, 1000, 128, None, True),
+        ("d64", 2, 32, 8, 1024, 64, None, True),
+        ("long12288", 1, 4, 1, 12288, 128, None, True),
+        # Phase 18's micro-batch: ViT-L/16, MHA at d=64, no causal mask.
+        ("vit_l16", 64, 16, 16, 196, 64, None, False),
     ]
     worst = {"dq": 0.0, "dkv": 0.0}
     timing = {}
-    for name, b, h, g, s, d, window in cases:
+    for name, b, h, g, s, d, window, causal in cases:
         gen = torch.Generator(device="cuda").manual_seed(4)
         q = torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
         k = torch.randn(b, s, g, d, generator=gen, device="cuda").bfloat16()
         v = torch.randn(b, s, g, d, generator=gen, device="cuda").bfloat16()
         do = torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
         scale = d ** -0.5
-        kw = dict(causal=True, sm_scale=scale, window=window)
-        o, lse = tfa._flash_fwd(q, k, v, True, scale, window)
+        kw = dict(causal=causal, sm_scale=scale, window=window)
+        o, lse = tfa._flash_fwd(q, k, v, causal, scale, window)
         delta = tfa._delta(do, o)
         dq = tfa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
         dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
-        ref = tfa._reference_bwd(q, k, v, o, lse, do, True, scale, window)
+        ref = tfa._reference_bwd(q, k, v, o, lse, do, causal, scale, window)
         torch.cuda.synchronize()
         if name == "main":
             # No atomics: a second call gives the same bits.
@@ -761,6 +843,7 @@ def phase_bwd(torch, tfa, card):
         worst["dq"] = max(worst["dq"], errs["dq"][0])
         worst["dkv"] = max(worst["dkv"], errs["dk"][0], errs["dv"][0])
         print(f"flash_bwd {name}: b={b} s={s} h={h} g={g} d={d} window={window} "
+              f"causal={causal} "
               + " ".join(f"{n}: max_abs_err={e:.3e} worst_row_err/tol={r:.3f} "
                          f"(tol 2^-6 of the row max + {f:.2e}; median row max "
                          f"|{n}| {t:.3e})" for n, (e, r, t, f) in errs.items())
@@ -775,10 +858,10 @@ def phase_bwd(torch, tfa, card):
                 do0 = do.clone()
                 do0[:, -64:] = 0
                 cut = tfa._reference_grads(q, k, v, do0, lse, tfa._delta(do0, o),
-                                           True, scale, None)
+                                           causal, scale, None)
                 probes = (("dk", dk, cut[1]), ("dv", dv, cut[2]))
             else:
-                cut = tfa._reference_grads(q, k, v, do, lse, delta, True, scale,
+                cut = tfa._reference_grads(q, k, v, do, lse, delta, causal, scale,
                                            window - 64)
                 probes = zip(("dq", "dk", "dv"), (dq, dk, dv), cut)
             seen = {n: bwd_rows(got, want)[0] for n, got, want in probes}
@@ -789,18 +872,18 @@ def phase_bwd(torch, tfa, card):
                   f"worst row err/tol {({n: round(r, 2) for n, r in seen.items()})}",
                   flush=True)
             del cut
-        if name not in ("main", "long12288"):
+        if name not in ("main", "long12288", "vit_l16"):
             continue
         dq_call = lambda: tfa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)  # noqa: E731
         dkv_call = lambda: tfa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)  # noqa: E731
         call_dq, call_dkv = time_ms(torch, dq_call, 10), time_ms(torch, dkv_call, 10)
         ms_dq, ms_dkv = device_ms(torch, dq_call, 10), device_ms(torch, dkv_call, 10)
         plain_ms = time_ms(torch, lambda: tfa._reference_grads(
-            q, k, v, do, lse, delta, True, scale, window), 3, 1)
+            q, k, v, do, lse, delta, causal, scale, window), 3, 1)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        lib_all, lib_best, lib_ms = sdpa_backends(torch, [(qt, kt, vt)], True, 10,
+        lib_all, lib_best, lib_ms = sdpa_backends(torch, [(qt, kt, vt)], causal, 10,
                                                   dout=do.transpose(1, 2))
-        pairs = fwd_pairs(s, True, window)
+        pairs = fwd_pairs(s, causal, window)
         reads = ["q", "k", "v", "do", "lse", "delta"]
         bq = bound(6.0 * b * h * d * pairs, attn_bytes(b, s, h, g, d, reads=reads,
                                                        writes=["dq"]))
@@ -1679,8 +1762,10 @@ def phase_stages(torch, tt, card, seed: int):
 
 
 # Phases 10, 12, 13 (b) and 14 run Llama-3-8B width cut to this many
-# blocks, so that the whole run stays within half its time limit.
-CUT_BLOCKS = 4
+# blocks, so that the whole run stays within half its time limit: 8 at
+# first, 4 once phases 15-17 joined, 2 once phases 18-21 joined (with 4,
+# the run took 632.9 s on an NVIDIA H100 80GB HBM3 at 700 W).
+CUT_BLOCKS = 2
 
 # Phase 10: AdamW's rate for the bf16 weights.  Adam moves an entry by
 # ~lr whatever its gradient (m / sqrt(v) ~ +-1 in the first steps); a
@@ -2754,10 +2839,12 @@ def phase_lora(torch, tfa, tt, tg, card, seed: int, train_ms: float, train_peak:
             "packed_ms": packed_ms}
 
 
-# Phases 16-17: benchmarks/unet_speed.py's row pipeline-2 (a (5, 64)
-# U-Net, 192x192, batch 160, 8 micro-batches, 2 stages, 'except_last'),
-# float32; the spatial dropouts (0.1) live.
-UNET_ROW = dict(depth=5, num_convs=5, base_channels=64)
+# Phases 16-17: benchmarks/unet_speed.py's row pipeline-2 (192x192, batch
+# 160, 8 micro-batches, 2 stages, 'except_last'), float32; the spatial
+# dropouts (0.1) live.  Its (5, 64) U-Net is cut to depth 4 (the widths
+# of the levels kept are the row's), so that the whole run stays within
+# half its time limit as phases 18-21 joined.
+UNET_ROW = dict(depth=4, num_convs=5, base_channels=64)
 
 
 def unet_loss(out, target):
@@ -2924,6 +3011,350 @@ def phase_timeline(torch, card, unet_row):
             "samples_per_s": rates}
 
 
+# Phase 18: ViT-L/16 (Dosovitskiy et al. 2020, Table 1), bf16 weights,
+# benchmarks/vit_speed.py row pipeline-2: batch 512, 8 micro-batches, 2
+# stages on one card, 'except_last', SGD.  A step launches 8 x 24 forward
+# kernels, 7 x 24 again in the checkpointed cells' recompute, and 8 x 24
+# of each backward kernel.  lr 0.25 for bf16 weights: at 1.0 (TRAIN_LR,
+# whose updates survive bf16 rounding more often) the first step took the
+# loss from 7.280 to 6.991 and the second overshot to 7.415 (NVIDIA H100
+# 80GB HBM3, 700 W, seed 0).
+VIT_L16 = dict(image_size=224, patch_size=16, dim=1024, depth=24, n_heads=16,
+               num_classes=1000)
+VIT_BATCH, VIT_CHUNKS, VIT_LR = 512, 8, 0.25
+VIT_LAUNCHES = {"flash_fwd": 8 * 24 + 7 * 24, "flash_bwd_dq": 8 * 24, "flash_bwd_dkv": 8 * 24}
+
+
+def phase_vit(torch, tfa, card, seed: int):
+    """ViT-L/16 training through the non-causal flash kernels: the
+    attention of one micro-batch's first block, at its real activations,
+    held against the plain backward row by row; then three SGD steps of
+    the 2-stage pipeline with their launch counts, samples/s, peak and a
+    profiled step's idle share."""
+    import functools
+
+    import torch.nn.functional as F
+
+    from torchgpipe_tpu_torch import GPipe
+    from torchgpipe_tpu_torch.models import transformer as tt
+    from torchgpipe_tpu_torch.models.vit import vit
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 18)
+    layers = list(vit(**VIT_L16, dtype=torch.bfloat16, device="cuda", generator=gen))
+    b, chunks, mb = VIT_BATCH, VIT_CHUNKS, VIT_BATCH // VIT_CHUNKS
+    x = torch.randn(b, 3, 224, 224, device="cuda", generator=gen)
+    y = torch.randint(0, 1000, (b,), device="cuda", generator=gen)
+
+    def loss_fn(out, tgt):
+        return F.cross_entropy(out.float(), tgt)
+
+    with torch.no_grad():
+        blk = layers[1]
+        q, k, v = (t.contiguous() for t in tt._block_qkv(
+            blk.cfg, blk.params(), layers[0](x[:mb]), 0))
+    do = torch.randn(q.shape, device="cuda", generator=gen).bfloat16()
+    scale = q.shape[-1] ** -0.5
+    kw = dict(causal=False, sm_scale=scale, window=None)
+    o, lse = tfa._flash_fwd(q, k, v, False, scale, None)
+    ro = tfa.flash_attention_reference(q, k, v, causal=False)
+    delta = tfa._delta(do, o)
+    got = (tfa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+           *tfa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    want = tfa._reference_bwd(q, k, v, o, lse, do, False, scale, None)
+    err = (o.float() - ro.float()).abs().max().item()
+    rows = {n: bwd_rows(g, w)[0] for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+    if not err <= FWD_TOL or not all(r <= 1.0 for r in rows.values()):
+        fail(f"vit_l16 block-0 attention at micro-batch 0: forward err {err} (tol "
+             f"{FWD_TOL}), worst row err/tol {rows}")
+    print(f"vit_l16: block-0 attention of micro-batch 0 ({tuple(q.shape)}, no causal mask) "
+          f"against the plain version: forward max_abs_err={err:.3e} (tol {FWD_TOL}), "
+          f"gradients worst row err/tol {({n: round(r, 3) for n, r in rows.items()})} "
+          f"[{card}]", flush=True)
+    del q, k, v, do, o, lse, ro, delta, got, want
+
+    pipe = GPipe(layers, [13, 13], chunks=chunks, checkpoint="except_last")
+    step = pipe.make_train_step(functools.partial(torch.optim.SGD, lr=VIT_LR), loss_fn)
+    losses, ms = [], []
+    for _ in range(3):
+        (loss, _), stats = step_with_peak(torch, tfa, pipe, lambda: step(x, y))
+        expect_launches(stats["launches"], VIT_LAUNCHES, "a ViT-L/16 step")
+        losses.append(loss.item())
+        ms.append(stats["ms"])
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f"ViT-L/16 SGD: loss did not fall on the fixed batch: {losses}")
+    wall, busy, _ = profile(torch, card, "vit_l16 step", lambda: step(x, y), top=8)
+    med = statistics.median(ms)
+    n_params = sum(p.numel() for p in pipe.parameters())
+    print(f"vit_l16: {len(layers)} layers, {n_params / 1e6:.2f}M params bf16, batch {b} x "
+          f"224^2 (196 patches), chunks {chunks}, balance [13, 13] on one card, "
+          f"except_last, SGD lr {VIT_LR}: losses {[round(v, 5) for v in losses]}; "
+          f"launches a step {stats['launches']} (predicted {VIT_LAUNCHES}); "
+          f"step_ms={med:.1f} (steps {[round(t, 1) for t in ms]}) "
+          f"samples_per_s={b * 1e3 / med:.1f} max_memory_allocated="
+          f"{stats['peak_gib']:.2f}GiB idle_share={1 - busy / wall:.3f} [{card}]", flush=True)
+    del pipe, step, layers, x
+    torch.cuda.empty_cache()
+    return {"launches": stats["launches"], "step_ms": med, "samples_per_s": b * 1e3 / med,
+            "peak_gib": stats["peak_gib"], "idle_share": 1 - busy / wall,
+            "row_check": rows}
+
+
+# Phase 19: AmoebaNet-D (18, 256), benchmarks/amoebanetd_speed.py row n2m4:
+# batch 256, 4 micro-batches, balance [9, 15], 'except_last', float32, TF32
+# off, SGD with momentum 0.9.  Halved (and the cut printed) if it does not
+# fit.  The loss of the fixed batch is printed, not gated: at this init the
+# 18-cell BatchNorm stack's first steps move it either way (NVIDIA H100
+# 80GB HBM3, 700 W, seed 0: 7.009 -> 7.268 -> 7.465 at lr 0.1, 7.009 ->
+# 7.184 -> 7.128 at 0.01; on the CPU at 96x96, batch 8, it rose at 1e-3 as
+# well), while the cut-down model's falls (tests/test_torch_amoebanet.py
+# holds its gradients to the reference's).  The gate is the 2-stage step
+# against the 1-stage one.
+AMOEBA = dict(num_classes=1000, num_layers=18, num_filters=256)
+AMOEBA_BATCH, AMOEBA_CHUNKS, AMOEBA_BALANCE, AMOEBA_LR = 256, 4, [9, 15], 0.01
+
+
+def phase_amoebanet(torch, tfa, card, seed: int):
+    """AmoebaNet-D (18, 256) at 224x224 through the 2-stage pipeline on
+    one card: its step (loss, every gradient, every BatchNorm buffer)
+    against the 1-stage pipeline's from the same weights (the ``(x,
+    skip)`` tuple crosses the cut), three SGD steps, samples/s, peak, a
+    profiled step's idle share, and no hand-written kernel launched."""
+    import functools
+
+    import torch.nn.functional as F
+
+    from torchgpipe_tpu_torch import GPipe
+    from torchgpipe_tpu_torch.models.amoebanet import amoebanetd
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 19)
+    layers = amoebanetd(**AMOEBA, device="cuda", generator=gen)
+    n = len(layers)
+    snapshot = [{k: v.clone() for k, v in layer.state_dict().items()} for layer in layers]
+
+    def restore():
+        for layer, state in zip(layers, snapshot):
+            layer.load_state_dict(state)
+
+    def loss_fn(out, tgt):
+        return F.cross_entropy(out.float(), tgt)
+
+    def run(b):
+        x = torch.randn(b, 3, 224, 224, device="cuda", generator=gen)
+        x = x.contiguous(memory_format=torch.channels_last)
+        y = torch.randint(0, 1000, (b,), device="cuda", generator=gen)
+        res = {}
+        for tag, bal in (("two_stage", AMOEBA_BALANCE), ("one_stage", [n])):
+            restore()
+            pipe = GPipe(layers, bal, chunks=AMOEBA_CHUNKS, checkpoint="except_last")
+            (loss, _, _), stats = step_with_peak(
+                torch, tfa, pipe, lambda: pipe.value_and_grad(x, y, loss_fn))
+            expect_launches(stats["launches"], {}, f"an AmoebaNet-D step at {bal}")
+            res[tag] = (loss.item(), [p.grad.clone() for p in pipe.parameters()],
+                        [t.clone() for t in pipe.buffers()], stats)
+            del pipe
+        restore()
+        pipe = GPipe(layers, AMOEBA_BALANCE, chunks=AMOEBA_CHUNKS, checkpoint="except_last")
+        step = pipe.make_train_step(functools.partial(
+            torch.optim.SGD, lr=AMOEBA_LR, momentum=RESNET_MOMENTUM), loss_fn)
+        losses, ms = [], []
+        for _ in range(3):
+            (loss, _), stats = step_with_peak(torch, tfa, pipe, lambda: step(x, y))
+            expect_launches(stats["launches"], {}, "an AmoebaNet-D SGD step")
+            losses.append(loss.item())
+            ms.append(stats["ms"])
+        return x, y, res, pipe, step, losses, ms, stats
+
+    b = AMOEBA_BATCH
+    while True:
+        try:
+            x, y, res, pipe, step, losses, ms, stats = run(b)
+            break
+        except torch.cuda.OutOfMemoryError:
+            for p in (q for layer in layers for q in layer.parameters()):
+                p.grad = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            if b <= AMOEBA_BATCH // 8:
+                fail(f"AmoebaNet-D (18, 256) does not fit at batch {b}")
+            print(f"amoebanetd: batch {b} exceeds the card; cut to {b // 2}", flush=True)
+            b //= 2
+    # As phase 11: the stage cut changes no operation, so the loss agrees
+    # to float32 rounding (1e-6 relative), each gradient leaf to 1e-4 of
+    # its max |grad| (cuDNN's weight-gradient kernels add with atomics in
+    # any order), the buffers to 1e-6 of max(|value|, 1).
+    (l2, g2, b2, _), (l1, g1, b1, s1) = res["two_stage"], res["one_stage"]
+    gworst = max(((a - c).abs().max() / c.abs().max().clamp_min(1e-30)).item()
+                 for a, c in zip(g2, g1))
+    bworst = max(((a.double() - c.double()).abs().max()
+                  / c.double().abs().max().clamp_min(1.0)).item() for a, c in zip(b2, b1))
+    if not math.isfinite(l2) or abs(l2 - l1) > 1e-6 * abs(l1) or gworst > 1e-4 \
+            or bworst > 1e-6:
+        fail(f"AmoebaNet-D at {AMOEBA_BALANCE} vs one stage: loss {l2} vs {l1}, worst grad "
+             f"diff {gworst:.3e} (tol 1e-4), worst buffer diff {bworst:.3e} (tol 1e-6)")
+    del res, g1, g2, b1, b2
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"AmoebaNet-D SGD: a loss is not finite: {losses}")
+    tfa.reset_launches()
+    wall, busy, _ = profile(torch, card, "amoebanetd step", lambda: step(x, y), top=8)
+    expect_launches(kernel_launches(tfa), {}, "the profiled AmoebaNet-D step")
+    med = statistics.median(ms)
+    n_params = sum(p.numel() for p in pipe.parameters())
+    print(f"amoebanetd: (18, 256), {n} layers, {n_params / 1e6:.2f}M params float32, "
+          f"batch {b} (n2m4's {AMOEBA_BATCH}) x 224^2, chunks {AMOEBA_CHUNKS}, balance "
+          f"{AMOEBA_BALANCE} on one card, except_last, TF32 off: loss {l2:.6f} vs one "
+          f"stage {l1:.6f}, grad diff {gworst:.2e}, buffer diff {bworst:.2e}; SGD lr "
+          f"{AMOEBA_LR} momentum {RESNET_MOMENTUM} x3: losses {[round(v, 5) for v in losses]} "
+          f"(not gated); step_ms={med:.1f} (steps {[round(t, 1) for t in ms]}) "
+          f"samples_per_s={b * 1e3 / med:.1f} max_memory_allocated="
+          f"{stats['peak_gib']:.2f}GiB (one-stage step {s1['peak_gib']:.2f}GiB) "
+          f"idle_share={1 - busy / wall:.3f} [{card}]", flush=True)
+    del pipe, step, layers, x, snapshot
+    torch.cuda.empty_cache()
+    return {"launches": stats["launches"], "batch": b, "step_ms": med,
+            "samples_per_s": b * 1e3 / med, "peak_gib": stats["peak_gib"],
+            "idle_share": 1 - busy / wall}
+
+
+# Phase 20: t5-base width (Raffel et al. 2020; HF t5-base config.json:
+# vocab 32128, d_model 768, 12 + 12 layers, 12 heads, d_ff 3072, relu,
+# tied), bf16: a 2-stage training step (encoder 512 / decoder 128 tokens,
+# batch 32, 4 micro-batches, cut at the encoder's end), then greedy
+# t5_generate (batch 8, 64 tokens).
+T5_BASE = dict(vocab=32128, dim=768, n_enc_layers=12, n_dec_layers=12, n_heads=12,
+               mlp_hidden=3072, act="relu", tie_word_embeddings=True)
+T5_BATCH, T5_CHUNKS, T5_SE, T5_SD, T5_LR = 32, 4, 512, 128, 0.1
+
+
+def phase_t5(torch, tfa, card, seed: int):
+    """T5 through the pipeline (the tuple carrier and the batch-1 bias
+    carriers across the cut), its step-1 loss against the unpipelined
+    forward, two SGD steps; greedy ``t5_generate`` whose tokens must be
+    the teacher-forced forward's argmax (up to bf16 near-ties)."""
+    import functools
+
+    import torch.nn.functional as F
+
+    from torchgpipe_tpu_torch import GPipe
+    from torchgpipe_tpu_torch.models import t5
+
+    cfg = t5.T5Config(**T5_BASE, dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 20)
+    layers = t5.t5_layers(cfg, device="cuda", generator=gen)
+    enc = torch.randint(0, cfg.vocab, (T5_BATCH, T5_SE), device="cuda", generator=gen)
+    labels = torch.randint(0, cfg.vocab, (T5_BATCH, T5_SD), device="cuda", generator=gen)
+    dec = t5.t5_shift_right(cfg, labels)
+
+    def loss_fn(out, tgt):
+        return F.cross_entropy(out.float().flatten(0, 1), tgt.flatten())
+
+    with torch.no_grad():
+        h = (enc, dec)
+        for layer in layers:
+            h = layer(h)
+        plain_loss = loss_fn(h, labels).item()
+        del h
+    cut = 2 + cfg.n_enc_layers    # embed, encoder, enc_final | decoder, final
+    pipe = GPipe(layers, [cut, len(layers) - cut], chunks=T5_CHUNKS,
+                 checkpoint="except_last")
+    step = pipe.make_train_step(functools.partial(torch.optim.SGD, lr=T5_LR), loss_fn)
+    losses, ms, launches = [], [], {}
+    for _ in range(2):
+        (loss, _), stats = step_with_peak(torch, tfa, pipe, lambda: step((enc, dec), labels))
+        expect_launches(stats["launches"], {}, "a T5 step")
+        losses.append(loss.item())
+        ms.append(stats["ms"])
+    # bf16 logits of scale ~0.05 (the tied head's dim^-1/2): the pipeline
+    # changes no operation, only the micro-batch split of the loss's mean.
+    if not all(math.isfinite(v) for v in losses) or abs(losses[0] - plain_loss) > 1e-2:
+        fail(f"T5 step-1 loss {losses[0]} vs unpipelined {plain_loss} (tol 1e-2)")
+    tokens = T5_BATCH * (T5_SE + T5_SD)
+    print(f"t5: t5-base width, {sum(p.numel() for p in pipe.parameters()) / 1e6:.2f}M "
+          f"params bf16, batch {T5_BATCH} x (enc {T5_SE} + dec {T5_SD}), chunks {T5_CHUNKS}, "
+          f"balance {pipe.balance}, except_last, SGD lr {T5_LR}: losses "
+          f"{[round(v, 5) for v in losses]} (unpipelined {plain_loss:.5f}); step_ms="
+          f"{ms[-1]:.1f} tokens_per_s={tokens * 1e3 / ms[-1]:.0f} max_memory_allocated="
+          f"{stats['peak_gib']:.2f}GiB [{card}]", flush=True)
+    launches["train_step"] = stats["launches"]
+    del pipe, step
+
+    src = enc[:8]
+    t5.t5_generate(cfg, layers, src[:, :64], 2)   # warm-up
+    torch.cuda.synchronize()
+    tfa.reset_launches()
+    t0 = time.perf_counter()
+    out = t5.t5_generate(cfg, layers, src, 64)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches["generate"] = kernel_launches(tfa)
+    expect_launches(launches["generate"], {}, "t5_generate")
+    with torch.no_grad():
+        h = (src, t5.t5_shift_right(cfg, out))
+        for layer in layers:
+            h = layer(h)
+        logits = h.float()
+    agree = (logits.argmax(-1) == out).float().mean().item()
+    gap = logits.max(-1).values - logits.gather(-1, out[..., None])[..., 0]
+    # A position where the two differ must be a bf16 near-tie: the final
+    # product rounds each logit once (2^-9 of |x|), and the decoder's bf16
+    # states differ by a few roundings between the cached and the full
+    # path: 2^-6 of the position's max |logit| (two to four bf16 ulps).
+    tie = 2.0 ** -6 * logits.abs().amax(-1)
+    if agree < TF_AGREE or not bool((gap <= tie).all()):
+        fail(f"t5_generate vs teacher forcing: argmax agreement {agree:.3f} (floor "
+             f"{TF_AGREE}), worst gap/tie {(gap / tie).max().item():.3f}")
+    print(f"t5: greedy t5_generate batch 8 x enc {T5_SE}, 64 tokens in {gen_s:.2f}s "
+          f"({gen_s * 1e3 / 64:.2f} ms/token); tokens equal the teacher-forced argmax at "
+          f"{agree:.4f} of positions, worst gap {gap.max().item():.3e} (<= 2^-6 of the "
+          f"max |logit| everywhere) [{card}]", flush=True)
+    del layers, logits
+    torch.cuda.empty_cache()
+    return {"launches": {k: sum(v[k] for v in launches.values())
+                         for k in launches["train_step"]},
+            "step_ms": ms[-1], "agree": agree}
+
+
+# Phase 21: GPT-2 XL as HF gpt2-xl's config.json gives it (n_embd 1600,
+# n_layer 48, n_head 25, n_positions 1024, vocab 50257, gelu_new, tied,
+# layer_norm_epsilon 1e-5), transcribed as models/hf_interop.py maps it,
+# bf16, random weights: 4 prompts of 512, 64 greedy tokens.
+GPT2_XL = dict(vocab=50257, dim=1600, n_layers=48, n_heads=25, mlp_ratio=4.0,
+               norm_eps=1e-5, norm="layernorm", pos_emb="learned", max_pos=1024,
+               mlp_impl="classic", act="gelu_tanh", attn_bias=True, attn_out_bias=True,
+               tie_embeddings=True)
+GPT2_PROMPT, GPT2_NEW = 512, 64
+
+
+def phase_gpt2_xl(torch, tfa, tt, tg, card, seed: int):
+    """Greedy ``generate`` on the tied, learned-position GPT-2 XL: one
+    ``flash_fwd`` a layer in the prefill and one ``flash_decode`` a layer
+    a token at MHA (one query row per kv head), the tokens against a
+    teacher-forced forward, ms/token."""
+    cfg = tt.TransformerConfig(**GPT2_XL, dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+    model = tt.llama_tied(cfg, device="cuda", generator=gen)
+    prompt = torch.randint(0, cfg.vocab, (4, GPT2_PROMPT), device="cuda", generator=gen)
+    out, _, launches, times = timed_generate(torch, tfa, tg, cfg, model, prompt,
+                                             GPT2_NEW, 2)
+    expect_launches(launches, {"flash_fwd": cfg.n_layers,
+                               "flash_decode": cfg.n_layers * GPT2_NEW},
+                    "GPT-2 XL generate")
+    agree, gap = teacher_forced(torch, model, prompt, out)
+    if agree < TF_AGREE or gap > TF_GAP:
+        fail(f"GPT-2 XL generate vs teacher forcing: agreement {agree:.3f} (floor "
+             f"{TF_AGREE}), gap {gap:.3f} (tol {TF_GAP})")
+    dec_ms = statistics.median(times["decode_ms"]) / GPT2_NEW
+    print(f"gpt2_xl_generate: {sum(p.numel() for p in model.parameters()) / 1e9:.3f}B "
+          f"params bf16 (tied), batch 4 x prompt {GPT2_PROMPT}, {GPT2_NEW} greedy tokens: "
+          f"launches {launches}; prefill_ms={statistics.median(times['prefill_ms']):.1f} "
+          f"decode ms/token={dec_ms:.2f} tokens_per_s={4 * 1e3 / dec_ms:.1f} "
+          f"max_memory_allocated={times['peak'] / 2**30:.2f}GiB; teacher-forced argmax "
+          f"agreement {agree:.4f}, gap {gap:.4f} (floor {TF_AGREE}, tol {TF_GAP}) "
+          f"[{card}]", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "decode_ms_per_token": dec_ms}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="weights and prompt seed")
@@ -3012,6 +3443,17 @@ def main() -> None:
     t3 = time.perf_counter()
     print(f"phases 15-17 (lora, unet/vgg16, timeline): {t3 - t0:.1f}s "
           f"({t1 - t0:.1f} + {t2 - t1:.1f} + {t3 - t2:.1f})", flush=True)
+    t0 = time.perf_counter()
+    vit_run = phase_vit(torch, tfa, card, args.seed)
+    t1 = time.perf_counter()
+    amoeba = phase_amoebanet(torch, tfa, card, args.seed)
+    t2 = time.perf_counter()
+    t5_run = phase_t5(torch, tfa, card, args.seed)
+    t3 = time.perf_counter()
+    gpt2 = phase_gpt2_xl(torch, tfa, tt, tg, card, args.seed)
+    t4 = time.perf_counter()
+    print(f"phases 18-21 (vit_l16, amoebanetd, t5, gpt2_xl_generate): {t4 - t0:.1f}s "
+          f"({t1 - t0:.1f} + {t2 - t1:.1f} + {t3 - t2:.1f} + {t4 - t3:.1f})", flush=True)
 
     src = "torchgpipe_tpu_torch/csrc/"
     ref = "torchgpipe_tpu/ops/flash_attention.py"
@@ -3025,7 +3467,9 @@ def main() -> None:
              "precision_llama": precision_llama, "offload": offload["launches"],
              "lora_step": lora_run["launches"], "lora_packed": lora_run["packed_launches"],
              "lora_generate": lora_run["generate_launches"], "unet": unet_row["launches"],
-             "vgg16": unet_row["vgg_launches"]}
+             "vgg16": unet_row["vgg_launches"], "vit_l16": vit_run["launches"],
+             "amoebanetd": amoeba["launches"], "t5": t5_run["launches"],
+             "gpt2_xl_generate": gpt2["launches"]}
 
     def decode_entry(name, kind, main_path):
         t, long = dec["main"][kind], dec["long"][kind]
@@ -3036,6 +3480,11 @@ def main() -> None:
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["lib_ms"], "library_backend": t["lib_backend"],
                 "library_ms_by_backend": t["lib_by_backend"], "call_ms": t["call_ms"],
+                "path_shapes": {"gpt2_xl": {
+                    k: dec["gpt2_xl"][k] for k in ("ms", "plain_ms", "bound_ms")} | {
+                    "library_ms": dec["gpt2_xl"]["lib_ms"],
+                    "library_backend": dec["gpt2_xl"]["lib_backend"]}}
+                if kind == "bf16" else {},
                 "long_cache": {"ms": long["ms"], "plain_ms": long["plain_ms"],
                                "bound_ms": long["bound_ms"],
                                "library_ms": long["lib_ms"],
@@ -3043,7 +3492,7 @@ def main() -> None:
                                "library_ms_by_backend": long["lib_by_backend"]}}
 
     def bwd_entry(name, key, line, also):
-        main_bwd, long = bwd["main"], bwd["long12288"]
+        main_bwd, long, vit_bwd = bwd["main"], bwd["long12288"], bwd["vit_l16"]
         ms, (bms, by), call = main_bwd[key]
         return {"name": name, "route": "cuda", "source": src + "flash_bwd.cu",
                 "replaces": f"{ref}:{line}", "also_replaces": f"{ref}:{also}",
@@ -3058,10 +3507,16 @@ def main() -> None:
                                "plain_ms": long["plain_ms"], "bound_ms": long[key][1][0],
                                "library_ms": long["lib_ms"],
                                "library_backend": long["lib_backend"],
-                               "library_ms_by_backend": long["lib_by_backend"]}}
+                               "library_ms_by_backend": long["lib_by_backend"]},
+                "path_shapes": {"vit_l16": {
+                    "ms": vit_bwd[key][0], "call_ms": vit_bwd[key][2],
+                    "plain_ms": vit_bwd["plain_ms"], "bound_ms": vit_bwd[key][1][0],
+                    "bound_by": vit_bwd[key][1][1], "library_ms": vit_bwd["lib_ms"],
+                    "library_backend": vit_bwd["lib_backend"],
+                    "causal": False}}}
 
     def shape_entry(row):
-        return {k: row[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms")} | {
+        return {k: row[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")} | {
             "library_ms": row["lib_ms"], "library_device_ms": row["lib_device_ms"]}
 
     kernels = [
@@ -3077,7 +3532,8 @@ def main() -> None:
          "train_microbatch": shape_entry(fwd["train_microbatch"]),
          "long_shape": shape_entry(fwd["long12288"]),
          "path_shapes": {n: shape_entry(fwd[n])
-                         for n in ("spec_draft_d64", "spec_target", "beam_prefill")}},
+                         for n in ("spec_draft_d64", "spec_target", "beam_prefill",
+                                   "vit_l16", "gpt2_xl_prefill")}},
         decode_entry("flash_decode", "bf16", "generate"),
         decode_entry("flash_decode_int8", "int8", "generate_int8"),
         bwd_entry("flash_bwd_dq", "dq", 538, 411),

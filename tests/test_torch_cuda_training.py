@@ -1,5 +1,6 @@
 """``GPipe(fused=True)``, the megastep and ``checkpoint='offload'`` on
-the card.
+the card; a small ViT's step and a GPT-2-class decode through the flash
+kernels.
 
 Needs an NVIDIA GPU; every test skips without one.  This file imports
 neither JAX nor the JAX package (``tests/conftest.py`` imports JAX, hence
@@ -308,3 +309,73 @@ def test_lora_launch_counts(cuda_device):
                       tokens[:2, :64], 8)
     assert out.shape == (2, 8)
     assert tfa.flash_attention.launches == n and tfa.flash_decode_attention.launches == n * 8
+
+
+@pytest.mark.cuda
+def test_vit_step_launches_and_replays_bitwise(cuda_device):
+    """A small bf16 ViT (32x32 images, patch 8: 16 patches; dim 128, 2
+    heads of 64, 2 blocks) trains through the flash kernels without a
+    causal mask: 2 micro-batches under 'except_last' launch 2 x 2 + 1 x 2
+    forwards and 2 x 2 of each backward kernel a step; ``fused=True``
+    replays the eager steps bit for bit."""
+    import torch.nn.functional as F
+
+    from torchgpipe_tpu_torch.models.vit import vit
+    from torchgpipe_tpu_torch.ops import flash_attention as tfa
+
+    def build():
+        return list(vit(image_size=32, patch_size=8, dim=128, depth=2, n_heads=2,
+                        num_classes=10, dtype=torch.bfloat16, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0)))
+
+    def loss_fn(out, tgt):
+        return F.cross_entropy(out.float(), tgt)
+
+    gen = torch.Generator("cuda").manual_seed(1)
+    xs = [torch.randn(8, 3, 32, 32, device="cuda", generator=gen) for _ in range(3)]
+    y = torch.randint(0, 10, (8,), device="cuda", generator=gen)
+    eager = GPipe(build(), [2, 2], chunks=2, checkpoint="except_last")
+    estep = eager.make_train_step(OPTS["sgd"], loss_fn)
+    want = []
+    for i, x in enumerate(xs):
+        tfa.reset_launches()
+        loss, _ = estep(x, y)
+        torch.cuda.synchronize()
+        if i == 0:
+            assert (tfa.flash_attention.launches, tfa.flash_bwd_dq.launches,
+                    tfa.flash_bwd_dkv.launches) == (6, 4, 4)
+        want.append((loss.clone(), _state(eager, estep.optimizers)))
+    fused = GPipe(build(), [2, 2], chunks=2, checkpoint="except_last", fused=True)
+    fstep = fused.make_train_step(OPTS["sgd"], loss_fn)
+    for i, x in enumerate(xs):
+        loss, _ = fstep(x, y)
+        assert torch.equal(loss, want[i][0]), i
+        assert _equal(_state(fused, fstep.optimizers), want[i][1]), i
+    assert fused.graph_stats["captures"] == 1 and fused.graph_stats["replays"] == 2
+
+
+@pytest.mark.cuda
+def test_gpt2_class_generate_decodes_through_flash_decode_at_mha(cuda_device):
+    """A tied, learned-position GPT-2-class model (MHA: 4 heads of 64, one
+    query row per kv head) decodes through ``flash_decode``: one prefill
+    kernel a layer, one decode kernel a layer a token; its greedy tokens
+    rank first in a teacher-forced forward (up to bf16 near-ties)."""
+    from torchgpipe_tpu_torch.models import generation as tg
+    from torchgpipe_tpu_torch.ops import flash_attention as tfa
+
+    cfg = tt.TransformerConfig(vocab=256, dim=256, n_layers=2, n_heads=4, norm="layernorm",
+                               pos_emb="learned", max_pos=128, mlp_impl="classic",
+                               act="gelu_tanh", attn_bias=True, attn_out_bias=True,
+                               tie_embeddings=True, dtype=torch.bfloat16)
+    model = tt.llama_tied(cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    prompt = _tokens(5)[:2, :64]
+    tfa.reset_launches()
+    out = tg.generate(cfg, model, prompt, 16)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention.launches, tfa.flash_decode_attention.launches) == (2, 2 * 16)
+    with torch.inference_mode():
+        logits = model(torch.cat([prompt, out[:, :-1]], 1))[:, 63:].float()
+    gap = logits.max(-1).values - logits.gather(-1, out[..., None])[..., 0]
+    # bf16 logits of ~1: the cached and the full path differ by a few bf16
+    # roundings, so a token off the argmax must be a near-tie (2^-4).
+    assert (logits.argmax(-1) == out).float().mean() >= 0.9 and bool((gap <= 2 ** -4).all())

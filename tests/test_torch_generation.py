@@ -169,6 +169,8 @@ def test_port_imports_no_jax_and_no_reference_package():
         "import torchgpipe_tpu_torch.rng, torchgpipe_tpu_torch.models.lora\n"
         "import torchgpipe_tpu_torch.models.unet, torchgpipe_tpu_torch.models.vgg\n"
         "import torchgpipe_tpu_torch.utils.data, torchgpipe_tpu_torch.utils.tracing\n"
+        "import torchgpipe_tpu_torch.models.vit, torchgpipe_tpu_torch.models.amoebanet\n"
+        "import torchgpipe_tpu_torch.models.t5\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'torchgpipe_tpu' or m.startswith('torchgpipe_tpu.')]\n"
         "assert not bad, bad\n"

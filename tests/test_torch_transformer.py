@@ -122,10 +122,12 @@ def test_init_distributions_follow_reference():
 
 
 @pytest.mark.parametrize(
-    # lora_rank is ported (tests/test_torch_lora.py); its slot holds the
-    # other unported parallel axis.
-    "knob", [{"tp_axis": "tp"}, {"sp_axis": "sp"}, {"tie_embeddings": True},
-             {"pos_emb": "learned", "max_pos": 64}]
+    # lora_rank is ported (tests/test_torch_lora.py), and so are tied
+    # embeddings and learned positions (tests/test_torch_arch_knobs.py);
+    # their slots hold the parallel axes in other combinations.
+    "knob", [{"tp_axis": "tp"}, {"sp_axis": "sp"},
+             {"tp_axis": "tp", "sp_axis": "sp"},
+             {"sp_axis": "sp", "sp_impl": "ulysses"}]
 )
 def test_unported_knobs_raise_with_roadmap_item(knob):
     cfg = tt.TransformerConfig(vocab=64, dim=64, n_layers=1, n_heads=2, **knob)

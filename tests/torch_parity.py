@@ -76,31 +76,9 @@ def assert_buffers_match(layers, jstates, rel_tol):
 
 def jax_trees(layers):
     """The reference's per-layer ``(params, states)`` (numpy trees) of a
-    port layer list of ``ops.nn`` layers and ``models.resnet`` residuals:
-    the inverse of ``convert.layers_from_jax``, so a parity test can start
-    both sides from the port's seeded weights."""
-    from torchgpipe_tpu_torch.models.resnet import Residual
-    from torchgpipe_tpu_torch.ops.nn import BatchNorm, Conv2d, Dense
-
-    def tree(layer):
-        if isinstance(layer, (Conv2d, Dense)):
-            p = {"w": layer.w.detach().numpy()}
-            if isinstance(layer, Conv2d):
-                p["w"] = p["w"].transpose(2, 3, 1, 0)      # OIHW -> HWIO
-            if layer.b is not None:
-                p["b"] = layer.b.detach().numpy()
-            return p, ()
-        if isinstance(layer, BatchNorm):
-            return ({"scale": layer.scale.detach().numpy(),
-                     "bias": layer.bias.detach().numpy()},
-                    {k: b.numpy().copy() for k, b in layer.named_buffers()})
-        if isinstance(layer, Residual) and layer.down is not None:
-            ps, ss = zip(*(tree(child) for child in layer.down))
-            return tuple(ps), tuple(ss)
-        assert not list(layer.parameters()), type(layer).__name__
-        return (), ()
-
-    pairs = [tree(layer) for layer in layers]
+    port layer list: the inverse of ``convert.layers_from_jax``, so a
+    parity test can start both sides from the port's seeded weights."""
+    pairs = [ref_tree(layer) for layer in layers]
     return [p for p, _ in pairs], [s for _, s in pairs]
 
 
@@ -112,3 +90,68 @@ def per_stage(pipe, per_layer):
         out.append(jax.tree_util.tree_map(jnp.asarray, list(per_layer[i:i + len(part)])))
         i += len(part)
     return pipe.place(tuple(out))
+
+
+def ref_tree(layer, leaf=lambda t: t.detach().numpy()):
+    """``(params, states)`` of one port layer in the reference's tree
+    layout, each tensor through ``leaf``: a convolution's OIHW kernel as
+    HWIO, a ``Structured`` layer's children as a dict by name, an
+    ``nn.Sequential`` as a tuple, a transformer-style layer (``params()``
+    dicts, nested for T5) as its dict.  ``leaf=lambda t: t.grad`` (as
+    numpy) gives the gradients in the layout of the reference's."""
+    from torch import nn
+
+    from torchgpipe_tpu_torch.models.amoebanet import Structured
+    from torchgpipe_tpu_torch.models.resnet import Residual
+    from torchgpipe_tpu_torch.models.transformer import _Layer
+    from torchgpipe_tpu_torch.ops.nn import BatchNorm, Conv2d, Dense
+
+    def nested(d):
+        return {k: nested(v) if isinstance(v, dict) else leaf(v) for k, v in d.items()}
+
+    if isinstance(layer, _Layer):
+        return nested(layer.params()), ()
+    if isinstance(layer, (Conv2d, Dense)):
+        p = {"w": leaf(layer.w)}
+        if isinstance(layer, Conv2d):   # OIHW -> HWIO (an array, or a shape tuple)
+            w = p["w"]
+            p["w"] = tuple(w[i] for i in (2, 3, 1, 0)) if isinstance(w, tuple) else \
+                w.transpose(2, 3, 1, 0)
+        if layer.b is not None:
+            p["b"] = leaf(layer.b)
+        return p, ()
+    if isinstance(layer, BatchNorm):
+        return ({"scale": leaf(layer.scale), "bias": leaf(layer.bias)},
+                {k: b if b.is_meta else b.detach().numpy().copy()
+                 for k, b in layer.named_buffers()})
+    if isinstance(layer, Structured):
+        pairs = {k: ref_tree(c, leaf) for k, c in layer.parts.items()}
+        return {k: p for k, (p, _) in pairs.items()}, {k: s for k, (_, s) in pairs.items()}
+    if isinstance(layer, Residual) and layer.down is not None:
+        return ref_tree(layer.down, leaf)
+    if isinstance(layer, nn.Sequential):
+        pairs = [ref_tree(c, leaf) for c in layer]
+        return tuple(p for p, _ in pairs), tuple(s for _, s in pairs)
+    assert not list(layer.parameters()), type(layer).__name__
+    return (), ()
+
+
+def grad_of(t):
+    """A parameter's gradient as numpy (zeros where it took none)."""
+    g = t.grad
+    return np.zeros(tuple(t.shape), np.float32) if g is None else g.float().numpy()
+
+
+def assert_trees_close(got, want, rel_tol, what, floor=0.0):
+    """Same tree structure; every leaf within ``rel_tol`` of the larger
+    of its reference leaf's max |value| and ``floor`` (1 for a leaf of
+    all zeros with no floor)."""
+    gl, gs = jax.tree_util.tree_flatten_with_path(got)
+    wl, ws = jax.tree_util.tree_flatten_with_path(want)
+    assert gs == ws, (what, gs, ws)
+    for (path, a), (_, b) in zip(gl, wl):
+        b = np.asarray(b, np.float32)
+        scale = max(np.abs(b).max(), floor) or 1.0
+        np.testing.assert_allclose(np.asarray(a, np.float32), b, rtol=0,
+                                   atol=rel_tol * scale,
+                                   err_msg=f"{what} {jax.tree_util.keystr(path)}")

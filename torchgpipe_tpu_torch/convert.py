@@ -9,8 +9,9 @@ with the same ``[in, out]`` layout: nothing is transposed
 (:func:`params_from_jax`; LoRA adapters too, and a ``chunked_lm_loss``
 layer's ``scale``/``w``).
 
-A convolutional layer list (``models.resnet``, ``models.unet``,
-``models.vgg``) loads per layer params
+A layer list of the model zoo (``models.resnet``, ``models.unet``,
+``models.vgg``, ``models.amoebanet``, ``models.vit``, ``models.t5``)
+loads per layer params
 *and* states (:func:`layers_from_jax`): a conv kernel turns from the
 reference's HWIO into OIHW; BatchNorm ``scale``/``bias`` land in
 parameters, ``mean``/``var`` (and a deferred BatchNorm's ``sum``,
@@ -28,6 +29,7 @@ import torch
 from torch import nn
 
 from torchgpipe_tpu_torch.batchnorm import DeferredBatchNorm
+from torchgpipe_tpu_torch.models.amoebanet import Structured
 from torchgpipe_tpu_torch.models.resnet import Residual
 from torchgpipe_tpu_torch.ops.nn import BatchNorm, Conv2d, Dense, LayerNorm
 from torchgpipe_tpu_torch.precision import unwrap
@@ -37,6 +39,7 @@ from torchgpipe_tpu_torch.models.transformer import (
     Device,
     Llama,
     TransformerConfig,
+    _Layer,
     not_ported,
 )
 
@@ -53,18 +56,24 @@ def _to_tensor(arr: Any) -> torch.Tensor:
 
 def _load_dict(ours: Mapping[str, Any], theirs: Mapping[str, Any], what: str) -> None:
     """Copy a reference param dict into the port's of the same keys; a
-    LoRA block's ``"lora"`` subdict loads into its adapters."""
+    nested dict (a LoRA block's ``"lora"``, a T5 layer's ``"attn"``,
+    ``"xattn"``, ``"ff"``) loads into the port's dict of that key."""
     for key, leaf in theirs.items():
-        if key != "lora" and (isinstance(leaf, Mapping) or not hasattr(leaf, "shape")):
-            raise not_ported(f"{what} param {key!r} (MoE / int8 weights)", "5")
+        nested = isinstance(leaf, Mapping)
+        if (nested and not isinstance(ours.get(key), Mapping)) or \
+                (not nested and not hasattr(leaf, "shape")):
+            raise not_ported(
+                f"{what} param {key!r} ({type(leaf).__name__} where the port "
+                f"holds {type(ours.get(key)).__name__}; MoE experts and int8 "
+                "weights are not ported)", "5")
     if set(theirs) != set(ours):
         raise ValueError(
             f"{what}: reference keys {sorted(theirs)} != port keys "
             f"{sorted(ours)}; do the two configs agree?"
         )
     for key, dst in ours.items():
-        if key == "lora":
-            _load_dict(dst, theirs[key], f"{what} lora")
+        if isinstance(dst, Mapping):
+            _load_dict(dst, theirs[key], f"{what} {key}")
             continue
         src = _to_tensor(theirs[key])
         if tuple(src.shape) != tuple(dst.shape):
@@ -83,7 +92,11 @@ def params_from_jax(
 ) -> Any:
     """The port's ``llama(cfg)`` holding the reference's parameters
     (numpy arrays, one dict per layer, LoRA adapters under a block's
-    ``"lora"``), on ``device`` (``cuda`` unless named).  ``params``
+    ``"lora"``; learned positions ``pos``, the embedding LayerNorm
+    ``eln``/``elnb`` and the LayerNorm biases under their keys), on
+    ``device`` (``cuda`` unless named).  A tied config
+    (``tie_embeddings``) builds :func:`~torchgpipe_tpu_torch.models.transformer.llama_tied`;
+    its head dict may carry the spliced ``table`` or not.  ``params``
     without the head (``n_layers + 1`` dicts) builds
     ``llama(cfg, head=False)``; then ``loss_params`` (the reference's
     ``chunked_lm_loss`` params, ``scale``/``w``) returns ``(model,
@@ -91,6 +104,10 @@ def params_from_jax(
     params = list(params)
     head = len(params) != cfg.n_layers + 1
     model = Llama(cfg, head=head, device=device)
+    if cfg.tie_embeddings and head and len(params) == len(model) \
+            and "table" not in params[-1]:
+        # A tied head's dict without the spliced table reads the embedding's.
+        params[-1] = dict(params[-1], table=params[0]["table"])
     if len(params) != len(model):
         raise ValueError(
             f"expected {cfg.n_layers + 2} per-layer param dicts (embed, "
@@ -121,6 +138,18 @@ def _keys(tree: Any) -> list:
 
 def _load(module: nn.Module, p: Any, s: Any, what: str) -> None:
     module = unwrap(module)
+    if isinstance(module, _Layer):
+        if len(s):
+            raise ValueError(f"{what}: reference state {_keys(s)} for a stateless layer")
+        _load_dict(module.params(), p, what)
+        return
+    if isinstance(module, Structured):
+        if _keys(p) != sorted(module.parts):
+            raise ValueError(
+                f"{what}: reference children {_keys(p)} != {sorted(module.parts)}")
+        for name, child in module.parts.items():
+            _load(child, p[name], s[name] if len(s) else (), f"{what}.{name}")
+        return
     if isinstance(module, (Conv2d, Dense)):
         want = ["b", "w"] if module.b is not None else ["w"]
         if _keys(p) != want:
@@ -178,7 +207,9 @@ def layers_from_jax(
     """Load the reference's per-layer ``params`` and ``states`` (numpy
     leaves, one entry per layer, as ``layers.sequential_init`` returns
     them) into the port's layers of the same model (``models.resnet``,
-    ``models.unet``, ``models.vgg``; the layer list must be built, or
+    ``models.unet``, ``models.vgg``, ``models.amoebanet`` (its cells'
+    children by name), ``models.vit``, ``models.t5``; the layer list
+    must be built, or
     converted to deferred BatchNorm, as the reference's was).  Returns
     ``layers``."""
     layers = list(layers)

@@ -131,6 +131,23 @@ def _check_capturable(optimizers: Sequence[torch.optim.Optimizer]) -> None:
             )
 
 
+def _refuse_shared_params(partitions: Sequence[nn.Module]) -> None:
+    """A parameter held by two stages (a tied embedding across a cut)
+    would be stepped by each stage's optimizer: refuse it."""
+    owner: Dict[int, int] = {}
+    for j, part in enumerate(partitions):
+        for p in part.parameters():
+            i = owner.setdefault(id(p), j)
+            if i != j:
+                raise ValueError(
+                    f"a parameter of shape {tuple(p.shape)} is held by stages {i} "
+                    f"and {j} (a tied embedding and head?): each stage's "
+                    "optimizer would step it and its two gradients would not "
+                    "be summed; keep both layers in one stage, or untie "
+                    "(tie_embeddings=False)"
+                )
+
+
 class _Graph:
     """One captured step: the graph, its static inputs and outputs, and
     the static gradient of each parameter."""
@@ -246,6 +263,7 @@ class GPipe(nn.Module):
             Stage(part, j, self.skip_layout, offsets[j]).to(dev)
             for j, (part, dev) in enumerate(zip(parts, self.devices))
         )
+        _refuse_shared_params(self.partitions)
         self.tracer = tracer
         self._validate_fused(fused, schedule, checkpoint, megastep, tracer, options)
         random = _torch_dropout(layers)

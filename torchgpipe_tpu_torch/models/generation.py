@@ -27,6 +27,11 @@ Differences from the reference, all forced by PyTorch running eagerly:
   condition reads device values (``early_exit``'s "every row finished",
   speculative decoding's accepted count), the port reads them to the
   host once per step or round; each entry point says so.
+* The embedding LayerNorm (``embed_layernorm``) applies in decode as it
+  does in training; the reference's decode embedding leaves it out, so
+  there a pre-norm model with it decodes another function than it trains.
+  Learned position rows are gathered at each row's position, as the
+  reference's are.
 * Randomness comes from an explicit ``torch.Generator``; a JAX key and a
   generator give different streams from one seed, so sampled (non
   greedy) outputs are not comparable across the two packages, only
@@ -49,6 +54,7 @@ from torchgpipe_tpu_torch.models.transformer import (  # noqa: F401 (re-exported
     _block_norm,
     _block_qkv,
     _embed,
+    _head_w,
     _mlp_out,
     not_ported,
     resolve_device,
@@ -364,7 +370,8 @@ def _scatter_rows(
 
 
 def _logits(cfg: TransformerConfig, head_p: Params, x: torch.Tensor) -> torch.Tensor:
-    return (_block_norm(cfg, head_p, "scale", x) @ head_p["w"]).float()
+    """Float32 logits: the final norm, then ``w`` or the tied table."""
+    return (_block_norm(cfg, head_p, "scale", x) @ _head_w(cfg, head_p)).float()
 
 
 def _filter_logits(
@@ -434,18 +441,39 @@ def _total_len(s: int, max_new_tokens: int, max_len: Optional[int]) -> int:
     return total
 
 
-def _check_decodable(cfg: TransformerConfig) -> None:
-    """Causal pre-norm configs only (the reference's checks; learned
-    position tables, whose length check needs the position count, are
-    refused by ``check_ported``)."""
+def _check_decodable(cfg: TransformerConfig, positions: int) -> None:
+    """Every generation entry point's checks, the reference's: a causal
+    pre-norm config, and ``positions`` within a learned position table."""
     if not cfg.causal:
         raise ValueError(
             "the KV-cache generation API is causal by construction; "
-            "cfg.causal=False has no autoregressive decode"
+            "cfg.causal=False (encoder/ViT-style bidirectional "
+            "attention) has no autoregressive decode"
         )
     if cfg.norm_position != "pre":
-        raise ValueError("the decode paths compute pre-norm blocks")
+        raise ValueError(
+            "the decode paths compute pre-norm blocks; "
+            f"norm_position={cfg.norm_position!r} (BERT-class post-norm) "
+            "models are encoders — use the training/apply path"
+        )
     cfg.check_ported()
+    _check_max_pos(cfg, positions)
+
+
+def _check_max_pos(cfg: TransformerConfig, positions: int) -> None:
+    """Fail before a decode runs past a learned position table (the
+    reference's text: there a gather past it clamps; here it would fail
+    on the card mid-run)."""
+    if cfg.pos_emb == "learned" and positions + cfg.pos_emb_offset > cfg.max_pos:
+        off = (f" minus {cfg.pos_emb_offset} reserved rows"
+               if cfg.pos_emb_offset else "")
+        raise ValueError(
+            f"this decode reaches position {positions - 1} but the "
+            f"learned position table has max_pos={cfg.max_pos} rows"
+            f"{off} (GPT-2-class models cannot extend context by "
+            "decoding further; shorten prompt + max_new_tokens or "
+            "retrain with a larger max_pos)"
+        )
 
 
 @torch.inference_mode()
@@ -469,7 +497,7 @@ def prefill(
     b, s = tokens.shape
     if s > max_len:
         raise ValueError(f"prompt length {s} exceeds max_len {max_len}")
-    _check_decodable(cfg)
+    _check_decodable(cfg, s)
     if ring and cfg.attn_window is None:
         raise ValueError(
             "ring caches hold exactly the attention window: set "
@@ -500,7 +528,7 @@ def _decode_slots(
     n_valid: torch.Tensor,
 ) -> Tuple[torch.Tensor, Cache, torch.Tensor]:
     embed_p, block_p, head_p = params
-    x = _embed(cfg, embed_p, tokens)
+    x = _embed(cfg, embed_p, tokens, lengths)
     for i, p in enumerate(block_p):
         q, k, v = _block_qkv(cfg, p, x, lengths)
         _scatter_rows(cache, i, k, v, lengths, n_valid)
@@ -575,7 +603,7 @@ def _generate_rows(
             f"shape {tuple(rl.shape)}"
         )
     L = cache.k[0].shape[1]
-    _check_decodable(cfg)
+    _check_decodable(cfg, L)
     deepest = int(rl.max())
     if deepest + s + max_new_tokens > L:
         raise ValueError(
@@ -701,7 +729,7 @@ def generate(
             "eos_id (without it no row ever finishes early)"
         )
     total = _total_len(s, max_new_tokens, max_len)
-    _check_decodable(cfg)
+    _check_decodable(cfg, total)
     embed_p, block_p, head_p = _split_params(cfg, model)
     if cache is None:
         logits, cache = prefill(cfg, model, prompt, total, ring=ring,
@@ -709,7 +737,7 @@ def generate(
     else:
         # Continuation: absorb this turn's tokens through the decode path.
         for t in range(s):
-            x = _embed(cfg, embed_p, prompt[:, t:t + 1])
+            x = _embed(cfg, embed_p, prompt[:, t:t + 1], cache.length)
             x, cache = _decode_step(cfg, block_p, x, cache, ring)
             logits = _logits(cfg, head_p, x)[:, 0]
     L = cache.k[0].shape[1]
@@ -725,7 +753,7 @@ def generate(
             was_alive = alive
             alive = alive & (tok != eos_id)
             old_cols = _columns(cache, col)
-        x = _embed(cfg, embed_p, tok[:, None])
+        x = _embed(cfg, embed_p, tok[:, None], cache.length)
         x, cache = _decode_step(cfg, block_p, x, cache, ring)
         if eos_id is not None:
             _mask_finished_rows(cache, old_cols, was_alive, col)
@@ -767,7 +795,7 @@ def beam_search(
     if k < 1:
         raise ValueError(f"num_beams must be >= 1, got {k}")
     total = _total_len(s, max_new_tokens, max_len)
-    _check_decodable(cfg)
+    _check_decodable(cfg, total)
     embed_p, block_p, head_p = _split_params(cfg, model)
     logits0, cache = prefill(cfg, model, prompt, total, device=dev)
     vocab = logits0.shape[-1]
@@ -779,7 +807,7 @@ def beam_search(
                     length=cache.length)
 
     def flat_decode(tok: torch.Tensor) -> torch.Tensor:
-        x = _embed(cfg, embed_p, tok.reshape(b * k, 1))
+        x = _embed(cfg, embed_p, tok.reshape(b * k, 1), cache.length)
         x, _ = _decode_step(cfg, block_p, x, cache)
         return _logits(cfg, head_p, x)[:, 0]                            # [b*k, V]
 
@@ -904,8 +932,8 @@ def speculative_generate(
     if temperature > 0.0 and generator is None:
         raise ValueError("temperature sampling needs generator=torch.Generator")
     total = _total_len(s, T, max_len)
-    _check_decodable(cfg)
-    _check_decodable(draft_cfg)
+    _check_decodable(cfg, total)
+    _check_decodable(draft_cfg, total)
     L = total + g + 1
     embed_p, block_p, head_p = _split_params(cfg, model)
     d_embed_p, d_block_p, d_head_p = _split_params(draft_cfg, draft_model)
@@ -932,7 +960,7 @@ def speculative_generate(
             # Draft: gamma proposals, plus one feed that banks the last.
             cur, drafts, q_logits = tok, [], []
             for _ in range(g + 1):
-                x = _embed(draft_cfg, d_embed_p, cur[:, None])
+                x = _embed(draft_cfg, d_embed_p, cur[:, None], dc.length)
                 x, _ = _decode_step(draft_cfg, d_block_p, x, dc)
                 ql = filtered(_logits(draft_cfg, d_head_p, x)[0, 0])
                 nxt = torch.argmax(ql) if greedy else draw(torch.softmax(ql, -1))
@@ -942,7 +970,7 @@ def speculative_generate(
             drafts = torch.stack(drafts)[:g]                            # [g]
             # Verify: one chunk over [tok, d_1 .. d_g].
             frontier = tc.length
-            x = _embed(cfg, embed_p, torch.cat([tok, drafts])[None])
+            x = _embed(cfg, embed_p, torch.cat([tok, drafts])[None], frontier)
             x, _ = _decode_chunk(cfg, block_p, x, tc)
             p_logits = filtered(_logits(cfg, head_p, x)[0])             # [g+1, V]
             if greedy:

@@ -24,6 +24,12 @@ masked to segment ∧ causal through :func:`segment_attention`, the
 reference's dense path: its flash kernel has no segment mask) until the
 head takes the hidden plane.  :func:`chunked_lm_loss` is the parametric
 loss that owns the final norm and head of ``llama(cfg, head=False)``.
+
+The GPT-2/BERT knobs: learned positions (``pos`` rows added at the
+embedding, at each token's position), the embedding LayerNorm
+(``eln``/``elnb``), post-norm blocks (LayerNorm of each residual sum)
+and tied embeddings (:func:`llama_tied`: the head holds the embedding's
+``table``; :func:`llama` refuses the tie, as the reference's does).
 """
 
 from __future__ import annotations
@@ -129,9 +135,20 @@ class TransformerConfig:
             raise ValueError(
                 f"mlp_impl={self.mlp_impl!r}: expected 'gated' or 'classic'"
             )
+        if self.pos_emb == "learned" and not self.max_pos:
+            raise ValueError(
+                "pos_emb='learned' needs max_pos (the position table "
+                "size — HF GPT2Config.n_positions)"
+            )
         if self.norm_position not in ("pre", "post"):
             raise ValueError(
                 f"norm_position={self.norm_position!r}: expected 'pre' or 'post'"
+            )
+        if self.norm_position == "post" and self.parallel_residual:
+            raise ValueError(
+                "norm_position='post' and parallel_residual do not "
+                "compose (no published family; the parallel form is "
+                "defined on pre-norm branches)"
             )
         if not 0.0 < self.rope_pct <= 1.0:
             raise ValueError(f"rope_pct={self.rope_pct} must be in (0, 1]")
@@ -148,12 +165,6 @@ class TransformerConfig:
         self.validate_arch()
         if self.tp_axis is not None or self.sp_axis is not None:
             raise not_ported("tensor/sequence parallelism (tp_axis, sp_axis)", "5")
-        if self.tie_embeddings:
-            raise not_ported("tied embeddings (tie_embeddings)", "5")
-        if self.pos_emb != "rope":
-            raise not_ported("learned position tables (pos_emb='learned')", "5")
-        if self.norm_position != "pre" or self.embed_layernorm:
-            raise not_ported("post-norm / embedding-LayerNorm encoders", "5")
 
 
 def _normal(
@@ -272,17 +283,38 @@ def _maybe_rope(
 
 
 def _embed(
-    cfg: TransformerConfig, p: Mapping[str, torch.Tensor], tokens: torch.Tensor
+    cfg: TransformerConfig, p: Mapping[str, torch.Tensor], tokens: torch.Tensor,
+    pos0: Any = 0,
 ) -> torch.Tensor:
-    """Token lookup with the optional ``embed_scale`` (learned position
-    tables, which would need the position, are refused by
-    ``TransformerConfig.check_ported``).  ``F.embedding``'s backward
+    """Token lookup with the optional ``embed_scale``, the learned
+    position rows (``p["pos"]``, GPT-2 class) and the embedding LayerNorm
+    (``eln``/``elnb``, BERT class).  Position row of token ``j`` is
+    ``pos_emb_offset + pos0 + j`` for a host int ``pos0`` (decode passes
+    the cache length), ``pos_emb_offset + pos0[i] + j`` for a ``[b]``
+    tensor (one frontier per row, the slot decode), and
+    ``pos_emb_offset + pos0[i, j]`` for a ``[b, s]`` tensor (a packed
+    batch's within-document positions).  ``F.embedding``'s backward
     sums each row's gradients in a fixed order on the card (advanced
     indexing's adds with atomics, in any order), so a training step
     repeats bit for bit."""
     x = F.embedding(tokens, p["table"])
     if cfg.embed_scale is not None:
         x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype)
+    if "pos" in p:
+        s, off = tokens.shape[-1], cfg.pos_emb_offset
+        if isinstance(pos0, int):
+            # No host-to-device copy: a captured CUDA graph may not make one.
+            idx = torch.arange(off + pos0, off + pos0 + s, device=x.device)
+        elif pos0.ndim == 1:
+            idx = off + pos0[:, None] + torch.arange(s, device=x.device)
+        else:
+            idx = off + pos0
+        # Rows past the table clamp to its last, as the reference's gather
+        # does; every entry point checks the bound first (only speculative
+        # decoding's rolled-back rows past the decode's end reach it).
+        x = x + F.embedding(idx.clamp_max(cfg.max_pos - 1), p["pos"]).to(x.dtype)
+    if "eln" in p:
+        x = _norm(x, p["eln"], cfg.norm_eps, bias=p["elnb"], centered=True)
     return x
 
 
@@ -290,11 +322,14 @@ def _block_qkv(
     cfg: TransformerConfig, p: Mapping[str, torch.Tensor], x: torch.Tensor,
     pos: Any,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """ln1, q/k/v projections (+ Qwen2 biases), head reshape, Qwen3
-    per-head q/k RMSNorm, rotary at ``pos``.  ``x: [b, g, dim]``."""
+    """ln1 (pre-norm only), q/k/v projections (+ Qwen2 biases), head
+    reshape, Qwen3 per-head q/k RMSNorm, rotary at ``pos``.
+    ``x: [b, g, dim]``."""
     b, g, _ = x.shape
     hd = cfg.head_dim
-    h = _block_norm(cfg, p, "ln1", x)
+    # Post-norm (BERT class): the attention branch reads x raw; ln1
+    # normalizes the residual sum in _block_attn_out instead.
+    h = x if cfg.norm_position == "post" else _block_norm(cfg, p, "ln1", x)
     q, k, v = h @ p["wq"], h @ p["wk"], h @ p["wv"]
     if "lora" in p:
         lo = p["lora"]
@@ -328,13 +363,17 @@ def _block_attn_out(
     attn: torch.Tensor,
 ) -> torch.Tensor:
     """wo projection (+ bias), attention residual, ln2 (parallel or
-    sequential residual), MLP residual.  ``attn: [b, g, nh*hd]``."""
+    sequential residual), MLP residual; post-norm: ``ln1(x + o)``, then
+    ``ln2`` of the MLP's residual sum.  ``attn: [b, g, nh*hd]``."""
     attn = attn.to(x.dtype)
     o = attn @ p["wo"]
     if "lora" in p:
         o = o + _lora_delta(cfg, p["lora"], attn, "oa", "ob")
     if "bo" in p:
         o = o + p["bo"]
+    if cfg.norm_position == "post":
+        x = _block_norm(cfg, p, "ln1", x + o)
+        return _block_norm(cfg, p, "ln2", x + _mlp_out(cfg, p, x))
     h = _block_norm(cfg, p, "ln2", x if cfg.parallel_residual else x + o)
     return x + o + _mlp_out(cfg, p, h)
 
@@ -442,24 +481,59 @@ class LoRA(_Layer):
 
 
 class TokenEmbedding(_Layer):
-    """Token lookup ``table[tokens]`` with optional ``embed_scale``."""
+    """Token lookup ``table[tokens]`` with optional ``embed_scale``, the
+    learned position table ``pos`` (``pos_emb='learned'``) and the
+    embedding LayerNorm ``eln``/``elnb`` (``embed_layernorm``)."""
 
     def __init__(self, cfg: TransformerConfig, *, device: Device = None):
         super().__init__()
         cfg.check_ported()
         self.cfg = cfg
-        self.table = _param((cfg.vocab, cfg.dim), cfg.dtype, resolve_device(device))
+        dev = resolve_device(device)
+        self.table = _param((cfg.vocab, cfg.dim), cfg.dtype, dev)
+        if cfg.pos_emb == "learned":
+            self.pos = _param((cfg.max_pos, cfg.dim), cfg.dtype, dev)
+        if cfg.embed_layernorm:
+            self.eln = _param((cfg.dim,), torch.float32, dev)
+            self.elnb = _param((cfg.dim,), torch.float32, dev)
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
-        self.table.copy_(
-            _normal(gen, self.table.shape, 0.02, self.cfg.dtype, self.table.device)
+        """``N(0, 0.02)`` tables (token, then position), unit ``eln``,
+        zero ``elnb``, as the reference draws them."""
+        for name in ("table", "pos"):
+            if name in self._parameters:
+                t = self._parameters[name]
+                t.copy_(_normal(gen, t.shape, 0.02, t.dtype, t.device))
+        if "eln" in self._parameters:
+            self.eln.fill_(1.0)
+            self.elnb.zero_()
+
+    def _check_len(self, s: int, packed: bool) -> None:
+        """The reference's guard: a gather past the learned table would
+        read clamped rows under jit (here, fail on the card)."""
+        cfg = self.cfg
+        if "pos" not in self._parameters or s + cfg.pos_emb_offset <= cfg.max_pos:
+            return
+        if packed:
+            raise ValueError(
+                f"packed block length {s} + pos_emb_offset "
+                f"{cfg.pos_emb_offset} exceeds the learned position "
+                f"table (max_pos={cfg.max_pos} rows): a document "
+                "filling its block would read clamped rows — pack "
+                "with block_len <= max_pos - pos_emb_offset"
+            )
+        raise ValueError(
+            f"sequence length {s} + pos_emb_offset "
+            f"{cfg.pos_emb_offset} exceeds the learned position "
+            f"table (max_pos={cfg.max_pos} rows)"
         )
 
     def forward(self, tokens: Any) -> Any:
         """Token ids ``[b, s]`` to ``[b, s, dim]``; a packed batch dict to
         the packed activation ``(hidden, segment_ids, positions)``."""
         if not _is_packed_batch(tokens):
+            self._check_len(tokens.shape[-1], False)
             return _embed(self.cfg, self.params(), tokens)
         seg, pos = tokens["segment_ids"], tokens.get("positions")
         if pos is None:
@@ -469,7 +543,9 @@ class TokenEmbedding(_Layer):
                 "utils.data.pack_documents/packed_batches"
             )
         _refuse_packed_sp(self.cfg, "packed batches")
-        return _embed(self.cfg, self.params(), tokens["tokens"]), seg, pos
+        ids = tokens["tokens"]
+        self._check_len(ids.shape[-1], True)
+        return _embed(self.cfg, self.params(), ids, pos), seg, pos
 
 
 class TransformerBlock(_Layer):
@@ -566,11 +642,37 @@ class TransformerBlock(_Layer):
         return (out, seg, pos) if packed else out
 
 
+def _head_w(cfg: TransformerConfig, p: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """The head projection ``[dim, vocab]``: the layer's own ``w``, or,
+    under ``cfg.tie_embeddings``, the embedding table transposed (a tied
+    head holds it as ``table``; generation splices it in)."""
+    if "w" in p:
+        return p["w"]
+    if cfg.tie_embeddings and "table" in p:
+        return p["table"].T
+    if cfg.tie_embeddings:
+        raise ValueError(
+            "tie_embeddings=True but the head received neither 'w' nor "
+            "the spliced embedding 'table' — build the model with "
+            "models.transformer.llama_tied(cfg), or give the head the "
+            "embedding's parameter: lm_head(cfg, table=embed.table)"
+        )
+    raise ValueError(
+        f"head params are missing 'w' (got keys {sorted(p)}) — was "
+        "the checkpoint built for a different head configuration?"
+    )
+
+
 class LMHead(_Layer):
     """Final norm + vocabulary projection (float32 logits are the
-    generation path's job; the forward returns ``x.dtype``)."""
+    generation path's job; the forward returns ``x.dtype``).  A tied
+    config (``tie_embeddings``) has no ``w``: given ``table`` (the
+    embedding's parameter), the head registers that same parameter and
+    projects with its transpose, so its param dict is the reference's
+    spliced tied head ``{scale, [bias,] table}``."""
 
-    def __init__(self, cfg: TransformerConfig, *, device: Device = None):
+    def __init__(self, cfg: TransformerConfig, *, device: Device = None,
+                 table: Optional[nn.Parameter] = None):
         super().__init__()
         cfg.check_ported()
         self.cfg = cfg
@@ -578,23 +680,29 @@ class LMHead(_Layer):
         self.scale = _param((cfg.dim,), torch.float32, dev)
         if cfg.norm == "layernorm":
             self.bias = _param((cfg.dim,), torch.float32, dev)
-        self.w = _param((cfg.dim, cfg.vocab), cfg.dtype, dev)
+        if not cfg.tie_embeddings:
+            self.w = _param((cfg.dim, cfg.vocab), cfg.dtype, dev)
+        elif table is not None:
+            self.table = table
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
+        """Unit scale, zero bias, ``w ~ N(0, dim^-1/2)``; a tied head's
+        table is the embedding's, drawn there."""
         self.scale.fill_(1.0)
         if "bias" in self._parameters:
             self.bias.zero_()
-        self.w.copy_(
-            _normal(gen, self.w.shape, self.cfg.dim ** -0.5, self.w.dtype,
-                    self.w.device)
-        )
+        if "w" in self._parameters:
+            self.w.copy_(
+                _normal(gen, self.w.shape, self.cfg.dim ** -0.5, self.w.dtype,
+                        self.w.device)
+            )
 
     def forward(self, x: Any) -> torch.Tensor:
         if _is_packed_act(x):
             x = x[0]   # logits come from the hidden plane
         p = self.params()
-        return _block_norm(self.cfg, p, "scale", x) @ p["w"]
+        return _block_norm(self.cfg, p, "scale", x) @ _head_w(self.cfg, p)
 
 
 class ChunkedLMLoss(LMHead):
@@ -625,7 +733,8 @@ class ChunkedLMLoss(LMHead):
         p = self.params()
         h = _block_norm(self.cfg, p, "scale", y)
         losses = chunked_softmax_xent(
-            h.reshape(-1, self.cfg.dim), p["w"], labels.reshape(-1), self.chunk)
+            h.reshape(-1, self.cfg.dim), _head_w(self.cfg, p), labels.reshape(-1),
+            self.chunk)
         losses = losses.reshape(labels.shape[0], -1)
         if weights is not None:
             w = weights.to(losses.dtype)
@@ -644,18 +753,32 @@ class ChunkedLMLoss(LMHead):
         return head
 
 
+_TIE_MPMD = (
+    "tie_embeddings is an SPMD-engine feature: the MPMD layer "
+    "list places the embedding and the head on different stage "
+    "devices with independent param trees, so the tied gradient "
+    "would need a manual cross-stage reduction.  Use "
+    "llama_spmd(cfg, n) + SpmdGPipe (pre params are replicated "
+    "across pp lanes; the tie is spliced and gradients sum "
+    "automatically), or set tie_embeddings=False here"
+)
+
+
 class Llama(nn.Sequential):
     """``[embed, block_0 .. block_{n-1}, head]``, the reference's flat
     ``llama(cfg)`` layer list as one ``nn.Sequential`` (no head with
-    ``head=False``)."""
+    ``head=False``).  A tied config's head holds the embedding's
+    ``table`` (:func:`llama_tied`; :func:`llama` refuses the tie)."""
 
     def __init__(self, cfg: TransformerConfig, *, head: bool = True,
                  device: Device = None):
         dev = resolve_device(device)
+        embed = TokenEmbedding(cfg, device=dev)
+        table = embed.table if cfg.tie_embeddings else None
         super().__init__(
-            TokenEmbedding(cfg, device=dev),
+            embed,
             *[TransformerBlock(cfg, device=dev) for _ in range(cfg.n_layers)],
-            *([LMHead(cfg, device=dev)] if head else []),
+            *([LMHead(cfg, device=dev, table=table)] if head else []),
         )
         self.cfg = cfg
 
@@ -736,8 +859,9 @@ def transformer_block(
 def lm_head(
     cfg: TransformerConfig, *, device: Device = None,
     generator: Optional[torch.Generator] = None,
+    table: Optional[nn.Parameter] = None,
 ) -> LMHead:
-    return _init(LMHead(cfg, device=device), generator)
+    return _init(LMHead(cfg, device=device, table=table), generator)
 
 
 def llama(
@@ -748,8 +872,26 @@ def llama(
     unless named), initialised from ``generator`` (a fresh one seeded 0
     on that device when omitted).  ``head=False`` leaves out the head:
     pair it with :func:`chunked_lm_loss` through
-    ``GPipe.value_and_grad_with_loss_params``."""
+    ``GPipe.value_and_grad_with_loss_params``.  A tied config is
+    refused with the reference's text: use :func:`llama_tied`."""
+    if cfg.tie_embeddings:
+        raise ValueError(_TIE_MPMD)
     return _init(Llama(cfg, head=head, device=device), generator)
+
+
+def llama_tied(
+    cfg: TransformerConfig, *, device: Device = None,
+    generator: Optional[torch.Generator] = None,
+) -> Llama:
+    """The flat model of a tied config (``tie_embeddings=True``, the
+    GPT-2 class): :func:`llama`'s layers, the head holding the
+    embedding's ``table`` parameter itself (one tensor, registered in
+    both layers; ``parameters()`` lists it once).  For generation and
+    the unpipelined forward; ``GPipe`` refuses a parameter held by two
+    of its stages, as the reference's MPMD engine refuses the tie."""
+    if not cfg.tie_embeddings:
+        raise ValueError("llama_tied needs cfg.tie_embeddings=True; use llama(cfg)")
+    return _init(Llama(cfg, device=device), generator)
 
 
 def chunked_lm_loss(
@@ -762,8 +904,12 @@ def chunked_lm_loss(
 
 
 def _init(layer: nn.Module, gen: Optional[torch.Generator]) -> Any:
+    """Draw ``layer``'s parameters from ``gen`` (a fresh one seeded 0 on
+    the layer's device when None; a layer on ``meta`` holds no values)."""
+    dev = next(layer.parameters()).device
+    if dev.type == "meta":
+        return layer
     if gen is None:
-        dev = next(layer.parameters()).device
         gen = torch.Generator(device=dev).manual_seed(0)
     layer.reset_parameters(gen)
     return layer

@@ -521,6 +521,16 @@ def _sm_count(device: torch.device) -> int:
 # --------------------------------------------------------------------- #
 
 
+def _check_fwd_dtype(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """The forward kernel is bf16 only: float32 attention on the card is
+    refused, never routed to the plain version."""
+    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"flash_fwd kernel takes bfloat16 q/k/v, got {q.dtype}/"
+            f"{k.dtype}/{v.dtype}"
+        )
+
+
 def _flash_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     sm_scale: float, window: Optional[int],
@@ -536,11 +546,7 @@ def _flash_fwd(
     _check_tma("flash_attention", q, k, v)
     b, s, h, d = q.shape
     sk, g = k.shape[1], k.shape[2]
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(
-            f"flash_fwd kernel takes bfloat16 q/k/v, got {q.dtype}/"
-            f"{k.dtype}/{v.dtype}"
-        )
+    _check_fwd_dtype(q, k, v)
     if not supports(q.shape, k.shape, q.dtype) or v.shape != k.shape:
         raise ValueError(
             f"flash_fwd kernel does not take q {tuple(q.shape)}, k "

@@ -244,7 +244,7 @@ class Engine:
         self.device = _model_device(model, device)
         self._params = _split_params(cfg, model)   # validates the layer list
         self.version = 0
-        _check_decodable(cfg)
+        _check_decodable(cfg, max_len)
         self.prefill_buckets = normalize_buckets(prefill_chunk)
         self.prefill_chunk = self.prefill_buckets[-1]
         self.role = role

@@ -14,14 +14,21 @@ from typing import Any, Dict, List, Sequence, Tuple
 from torch import nn
 
 
+def _keys(layer: nn.Module, attr: str) -> Tuple:
+    keys = getattr(layer, attr, ())
+    # A method of that name (``nn.Sequential.pop``) is no key tuple.
+    return () if callable(keys) else tuple(keys or ())
+
+
 def stash_keys(layer: nn.Module) -> Tuple:
     """The skip keys a layer stashes (``()`` for a plain layer)."""
-    return tuple(getattr(layer, "stash", ()) or ())
+    return _keys(layer, "stash")
 
 
 def pop_keys(layer: nn.Module) -> Tuple:
-    """The skip keys a layer pops (``()`` for a plain layer)."""
-    return tuple(getattr(layer, "pop", ()) or ())
+    """The skip keys a layer pops (``()`` for a plain layer; an
+    ``nn.Sequential`` layer, whose ``pop`` is a method, pops none)."""
+    return _keys(layer, "pop")
 
 
 class SkipLayout:
