@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of torchgpipe_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--phases 3,9b,mixtral_moe]
 
-Phases, one line each (any failure exits non-zero):
+Phases, one line each (any failure exits non-zero).  ``--phases`` runs
+the phases it names (by number or name, with the phases whose results
+they need) and prints no kernels line; by default every phase runs:
 
 1. device: card name and power limit (nvidia-smi); TF32 off.
 2. build: every CUDA kernel under torchgpipe_tpu_torch/csrc/ with nvcc; any
@@ -20,7 +22,11 @@ Phases, one line each (any failure exits non-zero):
    without a causal mask, MHA at d=64; phase 21's GPT-2 XL prefill), and
    at a window, a ragged and a long sequence, each case with its own
    ``causal``; timed at each, through the wrapper and in device time,
-   beside SDPA with the same mask.
+   beside SDPA with the same mask.  Two rows run the head dims the kernel
+   takes zero-padded (``ops.flash_attention.attention_route``): d=80
+   (Phi-2's head, b=4 s=2048 h=g=32) and d=32 (the reference's
+   benchmarks/llama_megastep.py config), each one flash_fwd launch and
+   no other kernel a call.
 4. flash_decode against its plain PyTorch version on the card, with a
    bf16 and an int8 cache, up to 20 query rows per kv head (speculative
    verification's g=5 at r=4), at phase 6c's own shapes too (the hd-64
@@ -35,7 +41,20 @@ Phases, one line each (any failure exits non-zero):
    row by row, a probe that the check fails a backward with a tile left
    out, two flash_bwd_dkv and two flash_bwd_dq calls at the main shape
    bitwise equal; device time beside SDPA's backward under each backend,
-   at the main, the long and phase 18's non-causal ViT-L/16 shape.
+   at the main, the long and phase 18's non-causal ViT-L/16 shape, and
+   phase 3's padded d=80 and d=32 rows (the kernels at the padded dim,
+   the gradients sliced back and held to the unpadded plain backward).
+5b. simt: csrc/flash_simt.cu, the CUDA-core kernels for what the
+   tensor-core ones have no instantiation for: its float32 forward, dQ
+   and dK/dV against the plain versions (row by row) and its decode
+   (bf16, float32 and int8 caches at head dims 32, 80 and 96, a device
+   pos0 bitwise equal to the host int) at the path's shapes and at edges,
+   timed beside SDPA; then its path: a float32 Llama at the "1b" widths
+   and a bf16 Llama at Phi-2's attention widths (d=80), each cut to 2
+   blocks, take a GPipe step and ``generate`` 4 x 512 + 32 tokens, their
+   launches gated (float32: flash_simt's forward and backward and
+   flash_decode's float32 instantiation; d=80: the tensor-core kernels
+   zero-padded and flash_simt's decode), tokens teacher-forced.
 6. slice: greedy ``generate`` at Llama-3-8B width (random weights from a
    seed, 32 layers, batch 4, prompt 1024, 128 new tokens), with the
    kernels' launch counts read around that one call, prefill logits of
@@ -69,6 +88,11 @@ Phases, one line each (any failure exits non-zero):
    limits), zero launches of the hand-written kernels, and a
    ``{"serving": ...}`` line (tokens/s, TTFT/TPOT p50/p99, occupancy,
    steps by program, capture time, pool bytes, peak memory).
+9b. int8_weights (after 9, on phase 6's model): ``quantize_params_int8``,
+   its bytes against the bf16 model's 16.06 GB, ``generate`` at phase 6's
+   shape (launches, ms/token beside phase 6's, the teacher-forced check
+   at the int8 cache's limits, agreement with phase 6's tokens) and the
+   Engine's captured decode step at 8 slots beside phase 9's.
 8. train: ``GPipe`` training at Llama-3-8B width (benchmarks/llama_speed.py
    ``pipeline-1``: 1 stage, batch 8, 4 micro-batches, seq 1024,
    checkpoint 'except_last'; random weights from the seed), one warm-up
@@ -169,15 +193,27 @@ Phases, one line each (any failure exits non-zero):
    wide, 48 layers, 25 heads, 1024 positions, vocab 50257, gelu_new,
    tied), bf16: 4 prompts of 512, 64 greedy tokens; 48 flash_fwd and
    3072 flash_decode launches; the teacher-forced check; ms/token.
+22. mixtral_moe: Mixtral-8x7B width (dim 4096, 32 heads, 8 kv heads,
+   hidden 14336, vocab 32000, rope theta 1e6, 8 experts top-2 dropless,
+   balance weight 0.02), bf16, cut to 2 of its 32 blocks: the 2-stage
+   GPipe step ([2, 2], batch 8 x seq 1024, 4 micro-batches,
+   'except_last') against the 1-stage one, three SGD steps (step ms,
+   tokens/s, peak, idle share), dropless against 'sparse' at capacity
+   factor E/k (no drop) on block 1's input, ``router_stats``,
+   ``generate(moe=)`` (4 x 512, 32 tokens, teacher-forced) and an
+   ``Engine(moe=)`` whose graph replays equal its eager bodies bitwise;
+   launch counts gated as written before the first run.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Then one JSON line per kernel (time, launches, bound, plain and
 library yardsticks, the fastest SDPA backend by name; ``launches``
 counts one generate call for the forward
 and decode kernels, one ``generate(kv_quant=True)`` call for the int8
-decode variant and one training step for the backward kernels; every
-path's counts are in ``launches_by_path``), the card line, and the last
-line
+decode variant, one training step for the backward kernels, phase 5b's
+float32 step for flash_simt's float32 kernels and its d=80 generate for
+its decode; every path's counts are in ``launches_by_path``, flash_simt's
+0 on every bf16 path at head dims 64 and 128), the card line, and the
+last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the package beside this script, it exits non-zero and prints no result.
 """
@@ -185,6 +221,7 @@ the package beside this script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import math
@@ -254,6 +291,10 @@ KERNEL_FUNCS = {
     "flash_decode_int8": ("flash_decode", ("flash_decode_kernel", "flash_decode_merge")),
     "flash_bwd_dq": ("flash_bwd", ("flash_bwd_dq_kernel",)),
     "flash_bwd_dkv": ("flash_bwd", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_sum_kernel")),
+    "flash_fwd_f32": ("flash_simt", ("fwd_f32_kernel",)),
+    "flash_bwd_dq_f32": ("flash_simt", ("dq_f32_kernel",)),
+    "flash_bwd_dkv_f32": ("flash_simt", ("dkv_f32_kernel",)),
+    "flash_decode_simt": ("flash_simt", ("decode_simt_kernel",)),
 }
 # The redesigned kernels and the instructions their SASS must hold: HGMMA
 # (wgmma) and UTMALDG (TMA tensor loads); the decode kernel's scores run on
@@ -350,8 +391,11 @@ def smem_dynamic(build):
     dq = build.function("flash_bwd", "tgt_flash_bwd_dq_smem_bytes", [ctypes.c_int])
     dkv = build.function("flash_bwd", "tgt_flash_bwd_dkv_smem_bytes", [ctypes.c_int])
     dec = build.function("flash_decode", "tgt_flash_decode_smem_bytes", [])
+    simt = build.function("flash_simt", "tgt_flash_simt_smem_bytes", [ctypes.c_int] * 2)
     return {"flash_fwd": fwd(128), "flash_bwd_dq": dq(128), "flash_bwd_dkv": dkv(128),
-            "flash_decode": dec(), "flash_decode_int8": dec()}
+            "flash_decode": dec(), "flash_decode_int8": dec(),
+            "flash_fwd_f32": simt(0, 128), "flash_bwd_dq_f32": simt(1, 128),
+            "flash_bwd_dkv_f32": simt(2, 128)}
 
 
 def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
@@ -482,7 +526,14 @@ def phase_fwd(torch, tfa, card, gqa_sdpa):
         # causal mask; phase 21's prefill: GPT-2 XL, MHA (25 heads) at d=64.
         ("vit_l16", 64, 16, 16, 196, None, 64, False),
         ("gpt2_xl_prefill", 4, 25, 25, 512, None, 64, True),
+        # Head dims the kernel takes zero-padded (ops.flash_attention.
+        # attention_route): Phi-2's 80 (to 128) and the reference's
+        # benchmarks/llama_megastep.py's 32 (dim 256 over 8 heads, to 64).
+        ("pad_d80", 4, 32, 32, 2048, None, 80, True),
+        ("pad_d32", 4, 8, 4, 2048, None, 32, True),
     ]
+    import torch.nn.functional as F
+
     rows = {}
     for name, b, h, g, s, window, d, causal in cases:
         gen = torch.Generator(device="cuda").manual_seed(1)
@@ -490,10 +541,24 @@ def phase_fwd(torch, tfa, card, gqa_sdpa):
         k = torch.randn(b, s, g, d, generator=gen, device="cuda").bfloat16()
         v = torch.randn(b, s, g, d, generator=gen, device="cuda").bfloat16()
         kw = dict(causal=causal, window=window)
-        o = tfa.flash_attention(q, k, v, **kw)
+        route = tfa.attention_route(q.shape, k.shape, q.dtype, window=window)
+        if route.kind != ("kernel" if d in tfa.FWD_HEAD_DIMS else "pad"):
+            fail(f"flash_fwd {name}: attention_route answers {route}")
+        # The padded rows run the routed call (pad, kernel, slice) whole.
+        call = (lambda: tfa.flash_attention(q, k, v, **kw)) if route.kind == "kernel" \
+            else (lambda: tfa.attention(q, k, v, **kw))
+        tfa.reset_launches()
+        o = call()
+        torch.cuda.synchronize()
+        got = kernel_launches(tfa)
+        if got["flash_fwd"] != 1 or sum(got.values()) != 1:
+            fail(f"flash_fwd {name}: one call launched {got}")
         ro = tfa.flash_attention_reference(q, k, v, **kw)
-        # LSE, the tight check at long s, through the kernel's (o, lse) entry.
-        _, lse = tfa._flash_fwd(q, k, v, causal, d ** -0.5, window)
+        # LSE, the tight check at long s, through the kernel's (o, lse) entry
+        # (at the padded dim with the real dim's scale for a padded row).
+        pad = (0, route.head_dim - d)
+        _, lse = tfa._flash_fwd(*(F.pad(x, pad) for x in (q, k, v)), causal, d ** -0.5,
+                                window)
         _, rlse = tfa._reference_fwd(q, k, v, causal, d ** -0.5, window)
         torch.cuda.synchronize()
         err = (o.float() - ro.float()).abs().max().item()
@@ -501,7 +566,7 @@ def phase_fwd(torch, tfa, card, gqa_sdpa):
         if not (err <= FWD_TOL and lerr <= LSE_TOL):
             fail(f"flash_fwd {name}: max abs err {err} (tol {FWD_TOL}), "
                  f"lse err {lerr} (tol {LSE_TOL})")
-        ms = time_ms(torch, lambda: tfa.flash_attention(q, k, v, **kw), 10)
+        ms = time_ms(torch, call, 10)
         plain_ms = time_ms(
             torch, lambda: tfa.flash_attention_reference(q, k, v, **kw), 3, 1
         )
@@ -512,17 +577,18 @@ def phase_fwd(torch, tfa, card, gqa_sdpa):
             lib_dev = device_ms(torch, lambda: gqa_sdpa(qt, kt, vt, causal), 10)
         # Device time apart from the host's: at the short prefills the
         # wrapper's host time per call can exceed the kernel's.
-        dev = device_ms(torch, lambda: tfa.flash_attention(q, k, v, **kw), 10)
+        dev = device_ms(torch, call, 10)
         flops = 4.0 * b * h * d * fwd_pairs(s, causal, window)
         nbytes = 2.0 * (2 * q.numel() + k.numel() + v.numel()) + 4.0 * b * h * s
         bms, by = bound(flops, nbytes)
         print(f"flash_fwd {name}: b={b} s={s} h={h} g={g} d={d} window={window} "
-              f"causal={causal} "
+              f"causal={causal} route={route.kind}@{route.head_dim} "
               f"max_abs_err={err:.3e} (tol {FWD_TOL}) lse_err={lerr:.3e} (tol {LSE_TOL}) "
               f"ms={ms:.4f} (device {dev:.4f}) plain_ms={plain_ms:.4f} sdpa_ms={lib_ms} "
               f"(device {lib_dev}) bound_ms={bms:.4f} ({by}) [{card}]", flush=True)
         rows[name] = dict(err=err, ms=ms, device_ms=dev, plain_ms=plain_ms, lib_ms=lib_ms,
-                          lib_device_ms=lib_dev, bound_ms=bms, bound_by=by)
+                          lib_device_ms=lib_dev, bound_ms=bms, bound_by=by,
+                          route=f"{route.kind}@{route.head_dim}")
     return rows
 
 
@@ -803,7 +869,13 @@ def phase_bwd(torch, tfa, card):
         ("long12288", 1, 4, 1, 12288, 128, None, True),
         # Phase 18's micro-batch: ViT-L/16, MHA at d=64, no causal mask.
         ("vit_l16", 64, 16, 16, 196, 64, None, False),
+        # Phase 3's padded head dims: the kernels at the padded dim (128,
+        # 64) with the real dim's scale, the gradients sliced back.
+        ("pad_d80", 4, 32, 32, 2048, 80, None, True),
+        ("pad_d32", 4, 8, 4, 2048, 32, None, True),
     ]
+    import torch.nn.functional as F
+
     worst = {"dq": 0.0, "dkv": 0.0}
     timing = {}
     for name, b, h, g, s, d, window, causal in cases:
@@ -814,10 +886,13 @@ def phase_bwd(torch, tfa, card):
         do = torch.randn(b, s, h, d, generator=gen, device="cuda").bfloat16()
         scale = d ** -0.5
         kw = dict(causal=causal, sm_scale=scale, window=window)
-        o, lse = tfa._flash_fwd(q, k, v, causal, scale, window)
-        delta = tfa._delta(do, o)
-        dq = tfa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
-        dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        D = tfa.attention_route(q.shape, k.shape, q.dtype, window=window).head_dim
+        qk, kk, vk, dok = (F.pad(x, (0, D - d)) for x in (q, k, v, do))
+        o, lse = tfa._flash_fwd(qk, kk, vk, causal, scale, window)
+        delta = tfa._delta(dok, o)
+        dq = tfa.flash_bwd_dq(qk, kk, vk, dok, lse, delta, **kw)[..., :d]
+        dk, dv = (x[..., :d] for x in tfa.flash_bwd_dkv(qk, kk, vk, dok, lse, delta, **kw))
+        o = o[..., :d].contiguous()
         ref = tfa._reference_bwd(q, k, v, o, lse, do, causal, scale, window)
         torch.cuda.synchronize()
         if name == "main":
@@ -872,10 +947,11 @@ def phase_bwd(torch, tfa, card):
                   f"worst row err/tol {({n: round(r, 2) for n, r in seen.items()})}",
                   flush=True)
             del cut
-        if name not in ("main", "long12288", "vit_l16"):
+        if name not in ("main", "long12288", "vit_l16", "pad_d80", "pad_d32"):
             continue
-        dq_call = lambda: tfa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)  # noqa: E731
-        dkv_call = lambda: tfa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)  # noqa: E731
+        # (At the padded dims: the kernels on the padded operands.)
+        dq_call = lambda: tfa.flash_bwd_dq(qk, kk, vk, dok, lse, delta, **kw)  # noqa: E731
+        dkv_call = lambda: tfa.flash_bwd_dkv(qk, kk, vk, dok, lse, delta, **kw)  # noqa: E731
         call_dq, call_dkv = time_ms(torch, dq_call, 10), time_ms(torch, dkv_call, 10)
         ms_dq, ms_dkv = device_ms(torch, dq_call, 10), device_ms(torch, dkv_call, 10)
         plain_ms = time_ms(torch, lambda: tfa._reference_grads(
@@ -955,12 +1031,19 @@ def timed_generate(torch, tfa, tg, cfg, model, prompt, new_tokens, reps, **kw):
 
 
 def kernel_launches(tfa):
-    """Every kernel's launch count, the decode kernel's per variant."""
+    """Every kernel's launch count, the decode kernel's per variant (the
+    CUDA-core kernels of flash_simt.cu too: 0 wherever a gate does not say
+    otherwise, so no bf16 path at head dim 64 or 128 takes another route
+    unseen)."""
     return {"flash_fwd": tfa.flash_attention.launches,
             "flash_decode": tfa.flash_decode_attention.launches,
             "flash_decode_int8": tfa.flash_decode_attention.launches_int8,
             "flash_bwd_dq": tfa.flash_bwd_dq.launches,
-            "flash_bwd_dkv": tfa.flash_bwd_dkv.launches}
+            "flash_bwd_dkv": tfa.flash_bwd_dkv.launches,
+            "flash_fwd_f32": tfa.flash_attention_f32.launches,
+            "flash_bwd_dq_f32": tfa.flash_bwd_dq_f32.launches,
+            "flash_bwd_dkv_f32": tfa.flash_bwd_dkv_f32.launches,
+            "flash_decode_simt": tfa.flash_decode_simt.launches}
 
 
 def expect_launches(got, want, what):
@@ -1054,7 +1137,7 @@ def phase_slice(torch, tfa, tt, tg, card, seed: int, new_tokens: int = 128,
           + f" launches={launches} prefill_logit_max_diff={diff.max().item():.4f} "
           f"rel={rel:.3e} top1_agree={top_agree:.2f} teacher_forced_agree={agree:.4f} "
           f"teacher_forced_max_gap={gap:.4f} [{card}]", flush=True)
-    return launches, (cfg, model, prompt, out)
+    return launches, (cfg, model, prompt, out, times)
 
 
 def generate_summary(times, b, new_tokens, reps):
@@ -3355,10 +3438,617 @@ def phase_gpt2_xl(torch, tfa, tt, tg, card, seed: int):
     return {"launches": launches, "decode_ms_per_token": dec_ms}
 
 
+
+# Phase 9b: weight-only int8 on phase 6's model (models.quant).  The
+# dequantize-then-GEMM path reads the int8 bytes and writes and reads a
+# bf16 copy of every matrix a step, so it may be slower than bf16: the
+# times are what the card shows, not a gate.  The tokens are held to the
+# bf16 model's teacher-forced forward with the int8 cache's limits: a
+# weight's error is at most half a quantization step (amax/254 of its
+# output channel), RMS ~0.9% of the channel's RMS (amax ~3.9 RMS over
+# 4096 inputs), close to the int8 cache's ~0.7% per cached row.
+def phase_int8_weights(torch, tfa, tg, card, seed, cfg, model, prompt, bf16_out,
+                       bf16_times, serving, new_tokens: int = 128):
+    """``quantize_params_int8`` of phase 6's model: its bytes against the
+    bf16 model's 16.06 GB, ``generate`` at phase 6's shape (launches,
+    ms/token beside phase 6's, the teacher-forced check, agreement with
+    phase 6's tokens), and the serving Engine's captured decode step at 8
+    slots beside phase 9's bf16 step."""
+    import numpy as np
+
+    from torchgpipe_tpu_torch.models import quant as tq
+    from torchgpipe_tpu_torch.serving import Engine
+
+    b, s = prompt.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qmodel = tq.quantize_params_int8(cfg, model)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    qb, fb = tq.quantized_bytes(qmodel, torch.bfloat16)
+    bf16_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    rest = sum(p.numel() * p.element_size() for p in qmodel.parameters())
+    channels = sum(v["sc"].numel() for layer in qmodel for v in layer.params().values()
+                   if tq.is_quantized(v))
+    # Exact byte identities: the quantized leaves' bf16 bytes and the rest
+    # make the bf16 model; int8 is half of bf16 plus a float32 per channel.
+    if fb + rest != bf16_bytes or 2 * (qb - 4 * channels) != fb:
+        fail(f"int8_weights: bytes {qb} int8 / {fb} as bf16 / {rest} unquantized do not "
+             f"add up to the bf16 model's {bf16_bytes}")
+    out, _, launches, times = timed_generate(torch, tfa, tg, cfg, qmodel, prompt,
+                                             new_tokens, 1)
+    expect_launches(launches, {"flash_fwd": cfg.n_layers,
+                               "flash_decode": cfg.n_layers * new_tokens},
+                    "generate with int8 weights")
+    agree, gap = teacher_forced(torch, model, prompt, out)
+    if agree < TF_AGREE_INT8 or gap > TF_GAP_INT8:
+        fail(f"int8-weight tokens vs the bf16 teacher-forced forward: argmax agreement "
+             f"{agree:.3f} (>= {TF_AGREE_INT8} needed), worst logit gap {gap:.3f} "
+             f"(<= {TF_GAP_INT8})")
+    same = (out == bf16_out).float().mean().item()
+    dec = statistics.median(times["decode_ms"]) / new_tokens
+    bf16_dec = statistics.median(times_b / new_tokens for times_b in bf16_times["decode_ms"])
+
+    # The Engine's captured decode step at phase 9's shape (8 slots, max_len
+    # 1152, ladder (8, 64, 256), phase 9's first 8 trace prompts).
+    eng = Engine(cfg, qmodel, num_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                 prefill_chunk=SERVE_LADDER)
+    tfa.reset_launches()
+    for p, _ in serving_trace(np, seed, cfg.vocab)[:SERVE_SLOTS]:
+        eng.submit(p, 100)
+    while eng.scheduler.queue or eng.scheduler.prefill_pending():
+        eng.step()
+    steps = step_ms(torch, eng, 6) + step_ms(torch, eng, 6)
+    wall, busy, _ = profile(torch, card, "int8-weight serving decode x8",
+                            lambda: [eng.step() for _ in range(8)], top=6)
+    torch.cuda.synchronize()
+    expect_launches(kernel_launches(tfa), {}, "the int8-weight serving engine")
+    eng_ms = statistics.median(steps)
+    row = {"quantize_s": quant_s, "quantized_bytes": qb, "quantized_leaves_bf16_bytes": fb,
+           "unquantized_bytes": rest, "bf16_model_bytes": bf16_bytes,
+           "int8_model_bytes": qb + rest, "launches": launches,
+           "prefill_ms": statistics.median(times["prefill_ms"]),
+           "decode_ms_per_token": dec, "bf16_decode_ms_per_token": bf16_dec,
+           "teacher_forced_agree": agree, "teacher_forced_max_gap": gap,
+           "token_agreement_with_bf16": same,
+           "engine_decode_step_ms": eng_ms,
+           "engine_decode_step_ms_bf16": serving["decode_step_ms"]["graph"]["median"],
+           "engine_idle_share": 1 - busy / wall, "engine_compile_stats": eng.compile_stats,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(), "card": card}
+    print(f"int8_weights: quantize_params_int8 in {quant_s:.2f}s: {qb / 1e9:.4f} GB int8 "
+          f"leaves with scales ({fb / 1e9:.4f} GB as bf16) + {rest / 1e9:.4f} GB "
+          f"unquantized = {(qb + rest) / 1e9:.4f} GB against the bf16 model's "
+          f"{bf16_bytes / 1e9:.4f} GB; generate b={b} prompt={s} new={new_tokens}: "
+          f"launches {launches}, decode ms/token {dec:.3f} (bf16 {bf16_dec:.3f}), "
+          f"teacher_forced_agree={agree:.4f} max_gap={gap:.4f} (floor {TF_AGREE_INT8}, "
+          f"tol {TF_GAP_INT8}), token agreement with bf16 {same:.4f}; Engine captured "
+          f"decode step at {SERVE_SLOTS} slots {eng_ms:.3f}ms (bf16, phase 9: "
+          f"{row['engine_decode_step_ms_bf16']:.3f}ms), idle_share "
+          f"{row['engine_idle_share']:.3f} [{card}]", flush=True)
+    print(json.dumps({"int8_weights": row}), flush=True)
+    del eng, qmodel, out
+    torch.cuda.empty_cache()
+    return row
+
+
+# Phase 22: Mixtral-8x7B's published widths (mistralai/Mixtral-8x7B-v0.1
+# config.json: hidden_size 4096, 32 attention heads, 8 key-value heads,
+# intermediate_size 14336, vocab_size 32000, rope_theta 1e6, 8 local
+# experts, 2 per token, router_aux_loss_coef 0.02), bf16, cut to 2 of its
+# 32 blocks: 32 blocks are ~46.7B parameters (93 GB in bf16), 2 are ~3.2B.
+# 4 blocks (6.1B) at first; the full run then took 647.7 s of its 600, on
+# an NVIDIA H100 80GB HBM3 at 700 W.  mlp_ratio 5.25 gives the 14336
+# hidden.  Dispatch 'dropless' as the reference's config_from_hf_mixtral
+# chooses.
+MIXTRAL = dict(vocab=32000, dim=4096, n_layers=2, n_heads=32, n_kv_heads=8,
+               mlp_ratio=5.25, rope_theta=1e6)
+MIXTRAL_MOE = dict(n_experts=8, top_k=2, dispatch="dropless", balance_weight=0.02)
+MIXTRAL_BATCH, MIXTRAL_SEQ, MIXTRAL_CHUNKS = 8, 1024, 4
+MIXTRAL_BALANCE = [2, 2]
+MIXTRAL_PROMPT, MIXTRAL_NEW = 512, 32
+# Launch gates, written before the phase first ran: a training step under
+# except_last runs each block's forward once per micro-batch and again
+# for the recomputed ones (chunks - 1), and one backward per micro-batch;
+# generate runs one flash_fwd a block in the prefill and one flash_decode
+# a block a token; the Engine's slot step reads its cache densely.
+MIXTRAL_TRAIN_LAUNCHES = {"flash_fwd": 2 * (4 + 3), "flash_bwd_dq": 2 * 4,
+                          "flash_bwd_dkv": 2 * 4}
+MIXTRAL_GENERATE_LAUNCHES = {"flash_fwd": 2, "flash_decode": 2 * 32}
+MIXTRAL_SERVE_LAUNCHES = {}
+# Dropless against 'sparse' at capacity factor E/k (capacity = tokens: no
+# drop): the same routing, gates and bf16 products, summed by another
+# GEMM tiling (grouped products against batched ones).  The float32
+# accumulators differ by ~1e-6 relative, which moves a bf16 rounding of a
+# gate/up/down product by one ulp (2^-8 relative) at worst; the two
+# choices' sum keeps that: 2^-6 of max |y| leaves a factor of 4.
+MIXTRAL_DISPATCH_TOL = 2 ** -6
+# Teacher forcing of the MoE generate: phase 6's limits, except that a
+# token whose top-2 routing sits on a near-tie can take another expert in
+# the cached path than in the full forward (their hidden states differ by
+# bf16 roundings), which moves that position's logits by O(1): the gap
+# must hold at 95% of the positions, the agreement floor is phase 6's.
+MIXTRAL_GAP_SHARE = 0.95
+
+
+def phase_mixtral(torch, tfa, tt, tg, card, seed: int):
+    """Mixtral-8x7B width cut to 2 blocks: the 2-stage GPipe step against
+    the 1-stage one (loss, every gradient), three SGD steps (step ms,
+    tokens/s, peak, a profiled step's idle share), dropless against
+    'sparse' at capacity factor E/k on block 1's real input (no drop),
+    ``router_stats``, ``generate(moe=)`` and an ``Engine(moe=)`` whose
+    captured replays equal its eager bodies; launch counts gated."""
+    import functools
+
+    import numpy as np
+
+    from torchgpipe_tpu_torch import GPipe
+    from torchgpipe_tpu_torch.models import moe as tm
+    from torchgpipe_tpu_torch.serving import Engine
+
+    cfg = tt.TransformerConfig(**MIXTRAL, dtype=torch.bfloat16)
+    moe = tm.MoEConfig(**MIXTRAL_MOE)
+    if cfg.mlp_hidden != 14336 or cfg.head_dim != 128:
+        fail(f"mixtral: hidden {cfg.mlp_hidden}, head dim {cfg.head_dim}")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 22)
+    t0 = time.perf_counter()
+    layers = list(tm.llama_moe(cfg, moe, device="cuda", generator=gen))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for layer in layers for p in layer.parameters())
+    build_s = time.perf_counter() - t0
+    b, s, chunks = MIXTRAL_BATCH, MIXTRAL_SEQ, MIXTRAL_CHUNKS
+    tokens = torch.from_numpy(
+        np.random.default_rng(seed + 22).integers(0, cfg.vocab, (b, s))).cuda()
+    loss_fn = causal_lm_loss(tt)
+    out = {"card": card, "params": n_params, "build_s": build_s}
+
+    # 22a. Two stages against one (phase 8b's check: the cut changes no
+    # operation), each step's launches gated.
+    res = {}
+    for tag, bal in (("one_stage", [len(layers)]), ("two_stage", MIXTRAL_BALANCE)):
+        pipe = GPipe(layers, bal, chunks=chunks, checkpoint="except_last")
+        (loss, _, _), stats = step_with_peak(
+            torch, tfa, pipe, lambda: pipe.value_and_grad(tokens, tokens, loss_fn))
+        expect_launches(stats["launches"], MIXTRAL_TRAIN_LAUNCHES, f"a Mixtral step at {bal}")
+        res[tag] = (loss.item(), [p.grad.clone() for p in pipe.parameters()], stats)
+        del pipe
+    (l1, g1, s1), (l2, g2, s2) = res["one_stage"], res["two_stage"]
+    same = sum(torch.equal(a, c) for a, c in zip(g1, g2))
+    worst = max(((a.float() - c.float()).abs().max()
+                 / c.float().abs().max().clamp_min(1e-30)).item() for a, c in zip(g2, g1))
+    if not math.isfinite(l2) or abs(l2 - l1) > 1e-6 * abs(l1) or worst > 2 ** -7:
+        fail(f"mixtral at {MIXTRAL_BALANCE} vs one stage: loss {l2} vs {l1}, worst grad "
+             f"diff {worst:.3e} of max |grad| (tol 2^-7)")
+    router_grad = max(layer.mlp.router.grad.abs().max().item() for layer in layers[1:-1])
+    del res, g1, g2
+    for p in (q for layer in layers for q in layer.parameters()):
+        p.grad = None
+    torch.cuda.empty_cache()
+
+    # 22b. make_train_step with SGD, three steps on the fixed batch.
+    pipe = GPipe(layers, MIXTRAL_BALANCE, chunks=chunks, checkpoint="except_last")
+    step = pipe.make_train_step(functools.partial(torch.optim.SGD, lr=TRAIN_LR), loss_fn)
+    losses, ms = [], []
+    for _ in range(3):
+        (loss, _), stats = step_with_peak(torch, tfa, pipe, lambda: step(tokens, tokens))
+        expect_launches(stats["launches"], MIXTRAL_TRAIN_LAUNCHES, "a Mixtral SGD step")
+        losses.append(loss.item())
+        ms.append(stats["ms"])
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"mixtral SGD: a loss is not finite: {losses}")
+    wall, busy, _ = profile(torch, card, "mixtral step", lambda: step(tokens, tokens), top=8)
+    train_launches = stats["launches"]
+    med = statistics.median(ms)
+    out["train"] = {"loss_one_stage": l1, "loss_two_stage": l2, "grad_leaves_bitwise": same,
+                    "grad_leaves": len(list(pipe.parameters())),
+                    "worst_grad_diff": worst, "router_grad_max": router_grad,
+                    "sgd_losses": losses, "step_ms": med, "steps_ms": ms,
+                    "tokens_per_s": b * s * 1e3 / med, "peak_gib": stats["peak_gib"],
+                    "one_stage_peak_gib": s1["peak_gib"], "idle_share": 1 - busy / wall,
+                    "launches": train_launches}
+    del pipe, step
+    for p in (q for layer in layers for q in layer.parameters()):
+        p.grad = None
+    torch.cuda.empty_cache()
+
+    # 22c. Dropless against 'sparse' at capacity factor E/k on block 1's
+    # input (block 0's output of micro-batch 0 through block 1's ln2),
+    # and router_stats there.
+    model = torch.nn.Sequential(*layers).eval()
+    with torch.inference_mode():
+        x1 = model[1](model[0](tokens[:b // chunks]))
+        h = tt._block_norm(cfg, model[2].params(), "ln2", x1)
+        p2 = model[2].mlp.params()
+        y_drop = tm.moe_forward(moe, p2, h, train=False)
+        sparse = dataclasses.replace(moe, dispatch="sparse",
+                                     capacity_factor=moe.n_experts / moe.top_k)
+        y_sparse = tm.moe_forward(sparse, p2, h, train=False)
+        t = h.shape[0] * h.shape[1]
+        probs = torch.softmax(h.reshape(t, -1).float() @ p2["router"], dim=-1)
+        _, _, keep, _ = tm._sparse_assignment(probs, moe.top_k, tm.capacity_of(sparse, t))
+        load, importance, balance = tm.router_stats(p2["router"], h, moe)
+    derr = (y_drop.float() - y_sparse.float()).abs().max().item()
+    dscale = y_sparse.float().abs().max().item()
+    if not bool(keep.all()) or derr > MIXTRAL_DISPATCH_TOL * dscale:
+        fail(f"mixtral: dropless vs sparse at capacity factor E/k: {int(keep.sum())} of "
+             f"{keep.numel()} assignments kept, max diff {derr:.3e} of max |y| {dscale:.3e} "
+             f"(tol {MIXTRAL_DISPATCH_TOL})")
+    out["dispatch"] = {"tokens": t, "kept": int(keep.sum()), "assignments": keep.numel(),
+                       "max_abs_diff": derr, "max_abs_y": dscale,
+                       "router_stats": {"load": load.tolist(),
+                                        "importance": importance.tolist(),
+                                        "balance": balance.item()}}
+    del x1, h, y_drop, y_sparse, probs, keep
+
+    # 22d. generate(moe=): prefill one flash_fwd a block, decode one
+    # flash_decode a block a token; the teacher-forced check.
+    prompt = torch.randint(0, cfg.vocab, (4, MIXTRAL_PROMPT), device="cuda", generator=gen)
+    gout, _, gen_launches, times = timed_generate(torch, tfa, tg, cfg, model, prompt,
+                                                  MIXTRAL_NEW, 1, moe=moe)
+    expect_launches(gen_launches, MIXTRAL_GENERATE_LAUNCHES, "Mixtral generate(moe=)")
+    sq = torch.cat([prompt, gout[:, :-1]], dim=1)
+    with torch.inference_mode():
+        logits = model(sq)[:, MIXTRAL_PROMPT - 1:].float()
+    agree = (logits.argmax(-1) == gout).float().mean().item()
+    gaps = logits.max(-1).values - logits.gather(-1, gout[..., None])[..., 0]
+    gap_share = (gaps <= TF_GAP).float().mean().item()
+    if agree < TF_AGREE or gap_share < MIXTRAL_GAP_SHARE:
+        fail(f"mixtral generate vs teacher forcing: agreement {agree:.3f} (floor "
+             f"{TF_AGREE}), share of positions within {TF_GAP} of the max {gap_share:.3f} "
+             f"(floor {MIXTRAL_GAP_SHARE})")
+    dec = statistics.median(times["decode_ms"]) / MIXTRAL_NEW
+    out["generate"] = {"batch": 4, "prompt": MIXTRAL_PROMPT, "new": MIXTRAL_NEW,
+                       "launches": gen_launches,
+                       "prefill_ms": statistics.median(times["prefill_ms"]),
+                       "decode_ms_per_token": dec, "teacher_forced_agree": agree,
+                       "gap_share": gap_share, "max_gap": gaps.max().item()}
+    del logits, sq
+
+    # 22e. Engine(moe=): captured programs against the eager bodies.
+    short = [(prompt[i, :64 + 64 * i].cpu().numpy().astype(np.int32), 16) for i in range(4)]
+    kw = dict(num_slots=4, max_len=MIXTRAL_PROMPT, prefill_chunk=(8, 64, 256), moe=moe)
+    graph_eng, eager_eng = Engine(cfg, model, **kw), Engine(cfg, model, cuda_graph=False, **kw)
+    tfa.reset_launches()
+    got, want = serve_all(graph_eng, short), serve_all(eager_eng, short)
+    torch.cuda.synchronize()
+    serve_launches = kernel_launches(tfa)
+    expect_launches(serve_launches, MIXTRAL_SERVE_LAUNCHES, "the Mixtral Engine")
+    same_cache = all(torch.equal(a, c) for a, c in zip(pool_buffers(graph_eng),
+                                                        pool_buffers(eager_eng)))
+    if got != want or not same_cache or any(len(v) != 16 for v in got.values()):
+        fail(f"mixtral Engine(moe=): graph against eager: tokens equal {got == want}, "
+             f"cache bytes equal {same_cache}")
+    out["serve"] = {"requests": len(short), "tokens": 16, "bitwise": True,
+                    "compile_stats": graph_eng.compile_stats, "launches": serve_launches}
+    tr = out["train"]
+    print(f"mixtral_moe: Mixtral-8x7B width cut to {cfg.n_layers} blocks "
+          f"({n_params / 1e9:.3f}B params bf16, built in {build_s:.1f}s), 8 experts top-2 "
+          f"dropless, balance_weight 0.02; train batch {b} x seq {s}, chunks {chunks}, "
+          f"except_last: {MIXTRAL_BALANCE} loss {l2:.6f} vs one stage {l1:.6f}, "
+          f"{same}/{len(list(model.parameters()))} grad leaves bitwise, worst diff "
+          f"{worst:.3e} (tol 2^-7); SGD lr {TRAIN_LR} x3 losses "
+          f"{[round(v, 5) for v in losses]}; step_ms={med:.1f} tokens_per_s="
+          f"{tr['tokens_per_s']:.1f} peak {tr['peak_gib']:.2f}GiB idle_share "
+          f"{tr['idle_share']:.3f} launches/step {train_launches}; dropless vs sparse(cf=E/k) "
+          f"max diff {derr:.3e} of {dscale:.3e}, {out['dispatch']['kept']}/"
+          f"{out['dispatch']['assignments']} kept; router_stats balance "
+          f"{balance.item():.4f} load {[round(v, 4) for v in load.tolist()]}; generate "
+          f"4 x {MIXTRAL_PROMPT} + {MIXTRAL_NEW}: launches {gen_launches} decode ms/token "
+          f"{dec:.3f} teacher_forced_agree {agree:.4f} gap_share {gap_share:.4f}; Engine "
+          f"graph == eager (4 requests, 16 tokens) captures {graph_eng.compile_stats} "
+          f"[{card}]", flush=True)
+    print(json.dumps({"mixtral_moe": out}), flush=True)
+    del graph_eng, eager_eng, model, layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"train": train_launches, "generate": gen_launches, "serve": serve_launches,
+            "row": out}
+
+
+# Phase 5b: the CUDA-core kernels of csrc/flash_simt.cu.  Its main path
+# is two models the tensor-core kernels do not take whole: a float32
+# Llama at benchmarks/llama_speed.py's "1b" widths (head dim 64), and a
+# bf16 Llama at Phi-2's attention widths (dim 2560, 32 heads of 80,
+# Phi-2's 51200 vocab and 10240 hidden), each cut to 2 blocks.
+SIMT_F32 = dict(LLAMA_1B, n_layers=2)
+SIMT_D80 = dict(vocab=51200, dim=2560, n_layers=2, n_heads=32, n_kv_heads=32,
+                mlp_ratio=4.0)
+SIMT_BATCH, SIMT_SEQ, SIMT_CHUNKS = 4, 1024, 2
+SIMT_PROMPT, SIMT_NEW = 512, 32
+# Launch gates, as phase 22's: under except_last each block's forward
+# runs once per micro-batch and again for the recomputed ones, one
+# backward per micro-batch; generate runs one forward a block in the
+# prefill and one decode a block a token.  float32 takes flash_simt's
+# forward and backward and the tensor-core decode's float32 instantiation
+# (d=64); d=80 takes the tensor-core forward and backward zero-padded to
+# 128 and flash_simt's decode (a cache is never padded).
+SIMT_F32_TRAIN = {"flash_fwd_f32": 2 * (2 + 1), "flash_bwd_dq_f32": 2 * 2,
+                  "flash_bwd_dkv_f32": 2 * 2}
+SIMT_F32_GENERATE = {"flash_fwd_f32": 2, "flash_decode": 2 * SIMT_NEW}
+SIMT_D80_TRAIN = {"flash_fwd": 2 * (2 + 1), "flash_bwd_dq": 2 * 2, "flash_bwd_dkv": 2 * 2}
+SIMT_D80_GENERATE = {"flash_fwd": 2, "flash_decode_simt": 2 * SIMT_NEW}
+# flash_simt.cu keeps every product in float32 FMAs, as the plain versions
+# do: the two differ only in summation order, ~1e-6 of O(1) outputs over
+# <= 1024 keys and <= 128 dims.  Forward 1e-4 absolute; gradients row by
+# row, 1e-4 of the row's max plus a floor of 1e-4 of the median row's max
+# for rows that are zero in exact arithmetic (query 0's dQ: p = 1, dS =
+# dP - delta = 0), where each side keeps the float32 noise of dP - delta
+# (~1e-6 of |dP| ~ sqrt(d)) times |k| * scale: a few 1e-7 absolute, ~1e-5
+# of a median row's max.  The decode's output: DECODE_TOL.
+SIMT_F32_TOL = 1e-4
+SIMT_ROW_TOL, SIMT_FLOOR = 1e-4, 1e-4
+
+
+def simt_rows(got, want):
+    scale = want.abs().amax(-1)
+    tol = SIMT_ROW_TOL * scale + SIMT_FLOOR * scale.median()
+    return ((got - want).abs().amax(-1) / tol).max().item()
+
+
+def f32_bytes(b, s, h, g, d, *, reads, writes):
+    """attn_bytes for float32 tensors (twice the bf16 bytes of q/k/v/o/
+    do/dq/dk/dv; lse and delta are float32 in both)."""
+    rows = attn_bytes(b, s, h, g, d, reads=[t for t in reads if t not in ("lse", "delta")],
+                      writes=writes)
+    return 2 * rows + attn_bytes(b, s, h, g, d, reads=[t for t in reads if t in
+                                                         ("lse", "delta")], writes=[])
+
+
+def simt_kernels(torch, tfa, tg, card):
+    """flash_simt's float32 forward, dQ and dK/dV, and its decode, against
+    the plain versions at the shapes phase 5b's path gives them and at
+    edges (other head dims, a window, no causal mask, an int8 cache, a
+    device pos0); timed at the path's shapes beside SDPA."""
+    # (name, b, h, g, s, d, window, causal): the float32 Llama's training
+    # micro-batch and prefill, then edges.
+    cases = [("train_microbatch", 2, 32, 8, 1024, 64, None, True),
+             ("prefill", 4, 32, 8, 512, 64, None, True),
+             ("d80_nocausal", 2, 8, 2, 333, 80, None, False),
+             ("d32_window", 2, 8, 4, 700, 32, 100, True),
+             ("d128_ragged", 1, 8, 8, 129, 128, None, True)]
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "decode": 0.0}
+    rows = {}
+    for name, b, h, g, s, d, window, causal in cases:
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        q, k, v = (torch.randn(b, s, n, d, generator=gen, device="cuda").requires_grad_()
+                   for n in (h, g, g))
+        do = torch.randn(b, s, h, d, generator=gen, device="cuda")
+        kw = dict(causal=causal, window=window)
+        tfa.reset_launches()
+        out = tfa.flash_attention_f32(q, k, v, **kw)
+        got = torch.autograd.grad(out, (q, k, v), do)
+        torch.cuda.synchronize()
+        counts = kernel_launches(tfa)
+        if (counts["flash_fwd_f32"], counts["flash_bwd_dq_f32"], counts["flash_bwd_dkv_f32"],
+                sum(counts.values())) != (1, 1, 1, 3):
+            fail(f"flash_simt f32 {name}: one forward and backward launched {counts}")
+        ref = tfa.flash_attention_reference(q, k, v, **kw)
+        want = torch.autograd.grad(ref, (q, k, v), do)
+        err = (out - ref).abs().max().item()
+        ratios = [simt_rows(a, c) for a, c in zip(got, want)]
+        if not (err <= SIMT_F32_TOL and max(ratios) <= 1.0):
+            fail(f"flash_simt f32 {name}: forward err {err:.3e} (tol {SIMT_F32_TOL}), "
+                 f"dq/dk/dv worst row err/tol {ratios}")
+        worst["fwd"] = max(worst["fwd"], err)
+        worst["dq"] = max(worst["dq"], (got[0] - want[0]).abs().max().item())
+        worst["dkv"] = max(worst["dkv"], *((a - c).abs().max().item()
+                                          for a, c in zip(got[1:], want[1:])))
+        print(f"flash_simt f32 {name}: b={b} s={s} h={h} g={g} d={d} window={window} "
+              f"causal={causal} fwd max_abs_err={err:.3e} (tol {SIMT_F32_TOL}) dq/dk/dv "
+              f"worst row err/tol {[round(x, 4) for x in ratios]} [{card}]", flush=True)
+        if name != "train_microbatch":
+            continue
+        qd, kd, vd = (x.detach() for x in (q, k, v))
+        scale = d ** -0.5
+        o, lse = tfa._flash_fwd_f32(qd, kd, vd, causal, scale, window)
+        delta = tfa._delta(do, o)
+        bkw = dict(causal=causal, sm_scale=scale, window=window)
+        fwd_call = lambda: tfa._flash_fwd_f32(qd, kd, vd, causal, scale, window)  # noqa: E731
+        dq_call = lambda: tfa.flash_bwd_dq_f32(qd, kd, vd, do, lse, delta, **bkw)  # noqa: E731
+        dkv_call = lambda: tfa.flash_bwd_dkv_f32(qd, kd, vd, do, lse, delta, **bkw)  # noqa: E731
+        ms = {n: device_ms(torch, c, 5) for n, c in
+              (("fwd", fwd_call), ("dq", dq_call), ("dkv", dkv_call))}
+        plain_fwd = device_ms(torch, lambda: tfa._reference_fwd(qd, kd, vd, causal, scale,
+                                                                window), 3, 1)
+        plain_bwd = device_ms(torch, lambda: tfa._reference_grads(
+            qd, kd, vd, do, lse, delta, causal, scale, window), 3, 1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (qd, kd, vd))
+        lib_f = sdpa_backends(torch, [(qt, kt, vt)], causal, 5)
+        lib_b = sdpa_backends(torch, [(qt, kt, vt)], causal, 5, dout=do.transpose(1, 2))
+        pairs = fwd_pairs(s, causal, window)
+        reads = ["q", "k", "v", "do", "lse", "delta"]
+        bounds = {
+            "fwd": bound(4.0 * b * h * d * pairs,
+                         f32_bytes(b, s, h, g, d, reads=["q", "k", "v"], writes=["o"])
+                         + 4.0 * b * h * s, PEAK_F32_FLOPS),
+            "dq": bound(6.0 * b * h * d * pairs,
+                        f32_bytes(b, s, h, g, d, reads=reads, writes=["dq"]), PEAK_F32_FLOPS),
+            "dkv": bound(8.0 * b * h * d * pairs,
+                         f32_bytes(b, s, h, g, d, reads=reads, writes=["dk", "dv"]),
+                         PEAK_F32_FLOPS)}
+        print(f"flash_simt f32 timing {name}, device ms per call: fwd {ms['fwd']:.4f} "
+              f"(plain {plain_fwd:.4f}, sdpa {lib_f[2]:.4f} {lib_f[1]}, bound "
+              f"{bounds['fwd'][0]:.4f} {bounds['fwd'][1]}) dq {ms['dq']:.4f} (bound "
+              f"{bounds['dq'][0]:.4f}) dkv {ms['dkv']:.4f} (bound {bounds['dkv'][0]:.4f}); "
+              f"plain backward {plain_bwd:.4f} and sdpa backward {lib_b[2]:.4f} ({lib_b[1]}), "
+              f"all three grads [{card}]", flush=True)
+        rows["f32"] = dict(ms=ms, plain_fwd=plain_fwd, plain_bwd=plain_bwd, lib_fwd=lib_f,
+                           lib_bwd=lib_b, bounds=bounds)
+        del o, lse, delta
+    # Decode: the d=80 model's generate (b=4, 32 kv heads, one row each,
+    # 513..544 live of 544), then edges.
+    # (name, kind, b, g, nh, nkv, hd, pos0, window, max_len)
+    dcases = [("d80_len513", "bf16", 4, 1, 32, 32, 80, 512, None, 544),
+              ("d80_len544", "bf16", 4, 1, 32, 32, 80, 543, None, 544),
+              ("d32_int8_g5", "int8", 2, 5, 8, 4, 32, 300, 64, 517),
+              ("d96_f32_window", "f32", 2, 2, 8, 2, 96, 1000, 9, 1152),
+              ("d80_long", "bf16", 1, 1, 32, 8, 80, 19999, None, 20000)]
+    for name, kind, b, g, nh, nkv, hd, pos0, window, max_len in dcases:
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        dtype = torch.float32 if kind == "f32" else torch.bfloat16
+        q = torch.randn(b, g, nh, hd, generator=gen, device="cuda").to(dtype)
+        if kind == "int8":
+            ck, ks = int8_cache(torch, tg, gen, b, max_len, nkv, hd)
+            cv, vs = int8_cache(torch, tg, gen, b, max_len, nkv, hd)
+            sc = dict(k_scale=ks, v_scale=vs)
+        else:
+            ck, cv = (torch.randn(b, max_len, nkv, hd, generator=gen, device="cuda").to(dtype)
+                      for _ in range(2))
+            sc = {}
+        tfa.reset_launches()
+        out = tfa.flash_decode_simt(q, ck, cv, pos0, window=window, **sc)
+        dev = tfa.flash_decode_simt(q, ck, cv, torch.tensor(pos0, dtype=torch.int32,
+                                                              device="cuda"),
+                                    window=window, **sc)
+        torch.cuda.synchronize()
+        if kernel_launches(tfa)["flash_decode_simt"] != 2:
+            fail(f"flash_decode_simt {name}: two calls launched {kernel_launches(tfa)}")
+        ref = tfa.flash_decode_reference(q, ck, cv, pos0, window=window, **sc)
+        err = (out - ref).abs().max().item()
+        worst["decode"] = max(worst["decode"], err)
+        if not (err <= DECODE_TOL and torch.equal(out, dev)):
+            fail(f"flash_decode_simt {name}: max abs err {err:.3e} (tol {DECODE_TOL}), "
+                 f"device pos0 bitwise {torch.equal(out, dev)}")
+        print(f"flash_decode_simt {name}: {kind} cache=[{b},{max_len},{nkv},{hd}] g={g} "
+              f"pos0={pos0} window={window} max_abs_err={err:.3e} (tol {DECODE_TOL}); "
+              f"device pos0 bitwise equal [{card}]", flush=True)
+    # Timed at the d=80 generate's middle (live 528), cycling four caches
+    # as the layers' caches cycle.
+    b, nh, nkv, hd, live, max_len = 4, 32, 32, 80, 528, 544
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    sets = [tuple(torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+                  for shape in ((b, 1, nh, hd), (b, max_len, nkv, hd), (b, max_len, nkv, hd)))
+            for _ in range(4)]
+    it = {"i": 0}
+
+    def cycle(fn):
+        def run():
+            it["i"] = (it["i"] + 1) % len(sets)
+            fn(*sets[it["i"]])
+        return run
+
+    ms = device_ms(torch, cycle(lambda q, ck, cv: tfa.flash_decode_simt(q, ck, cv, live - 1)),
+                   40)
+    call_ms = time_ms(torch, cycle(lambda q, ck, cv: tfa.flash_decode_simt(q, ck, cv,
+                                                                            live - 1)), 40)
+    plain_ms = device_ms(torch, cycle(lambda q, ck, cv: tfa.flash_decode_reference(
+        q, ck, cv, live - 1)), 10, 1)
+    lib = sdpa_backends(torch, [(q.transpose(1, 2), ck[:, :live].transpose(1, 2),
+                                 cv[:, :live].transpose(1, 2)) for q, ck, cv in sets],
+                        False, 40)
+    bms, by = decode_bound(b, nh, nkv, hd, live, 1, 2, False)
+    print(f"flash_decode_simt timing: cache=[{b},{max_len},{nkv},{hd}] live={live} g=1: "
+          f"ms={ms:.4f} ({call_ms:.4f} on the host clock) plain_ms={plain_ms:.4f} "
+          f"sdpa_ms={lib[2]:.4f} ({lib[1]}; by backend {lib[0]}) bound_ms={bms:.4f} ({by}) "
+          f"[{card}]", flush=True)
+    rows["decode"] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, lib=lib, bound_ms=bms,
+                          bound_by=by)
+    del sets
+    torch.cuda.empty_cache()
+    return worst, rows
+
+
+def phase_simt(torch, tfa, tt, tg, card, seed: int):
+    """flash_simt's kernels against their plain versions, then its main
+    path: the float32 Llama and the d=80 Llama each take one GPipe step
+    (batch 4 x seq 1024, 2 micro-batches, except_last) and ``generate``
+    4 x 512 prompts with 32 greedy tokens, each run's launches gated; the
+    tokens against a teacher-forced forward."""
+    import numpy as np
+
+    from torchgpipe_tpu_torch import GPipe
+
+    worst, rows = simt_kernels(torch, tfa, tg, card)
+    out = {"worst": worst, "rows": rows, "paths": {}}
+    loss_fn = causal_lm_loss(tt)
+    for tag, preset, dtype, train_gate, gen_gate in (
+            ("f32_llama", SIMT_F32, torch.float32, SIMT_F32_TRAIN, SIMT_F32_GENERATE),
+            ("d80_llama", SIMT_D80, torch.bfloat16, SIMT_D80_TRAIN, SIMT_D80_GENERATE)):
+        cfg = tt.TransformerConfig(**preset, dtype=dtype)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+        model = tt.llama(cfg, device="cuda", generator=gen)
+        tokens = torch.from_numpy(np.random.default_rng(seed + 5).integers(
+            0, cfg.vocab, (SIMT_BATCH, SIMT_SEQ))).cuda()
+        pipe = GPipe(list(model), [len(model)], chunks=SIMT_CHUNKS, checkpoint="except_last")
+        (loss, _, _), stats = step_with_peak(
+            torch, tfa, pipe, lambda: pipe.value_and_grad(tokens, tokens, loss_fn))
+        expect_launches(stats["launches"], train_gate, f"a {tag} training step")
+        grads_finite = all(bool(torch.isfinite(p.grad).all()) for p in pipe.parameters())
+        if not (math.isfinite(loss.item()) and grads_finite):
+            fail(f"{tag} step: loss {loss.item()}, gradients finite {grads_finite}")
+        del pipe
+        for p in model.parameters():
+            p.grad = None
+        model.eval()
+        prompt = torch.randint(0, cfg.vocab, (4, SIMT_PROMPT), device="cuda", generator=gen)
+        gout, _, gen_launches, times = timed_generate(torch, tfa, tg, cfg, model, prompt,
+                                                      SIMT_NEW, 1)
+        expect_launches(gen_launches, gen_gate, f"{tag} generate")
+        agree, gap = teacher_forced(torch, model, prompt, gout)
+        if agree < TF_AGREE or gap > TF_GAP:
+            fail(f"{tag} generate vs teacher forcing: agreement {agree:.3f} (floor "
+                 f"{TF_AGREE}), worst gap {gap:.3f} (tol {TF_GAP})")
+        dec = statistics.median(times["decode_ms"]) / SIMT_NEW
+        out["paths"][tag] = {"train": stats["launches"], "generate": gen_launches,
+                             "loss": loss.item(), "step_ms": stats["ms"],
+                             "decode_ms_per_token": dec, "teacher_forced_agree": agree,
+                             "max_gap": gap}
+        print(f"simt path {tag}: {cfg.head_dim}-dim heads, {str(dtype)[6:]}, 2 blocks; step "
+              f"batch {SIMT_BATCH} x seq {SIMT_SEQ} loss {loss.item():.5f} step_ms "
+              f"{stats['ms']:.1f} launches {stats['launches']}; generate 4 x {SIMT_PROMPT} + "
+              f"{SIMT_NEW}: launches {gen_launches} decode ms/token {dec:.3f} "
+              f"teacher_forced_agree {agree:.4f} max_gap {gap:.4f} [{card}]", flush=True)
+        del model, tokens, prompt, gout
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# Every phase by number and name, in the order a run takes them, with the
+# phases whose results it needs (``--phases``).
+PHASES = {
+    "3": "fwd", "4": "decode", "5": "bwd", "5b": "simt", "6": "generate", "6b": "generate_int8",
+    "6c": "speculative", "6d": "beam", "7": "profile", "9": "serving",
+    "9b": "int8_weights", "8": "train", "10": "train_1f1b", "11": "resnet101",
+    "12": "train_graph", "13": "precision", "14": "offload", "15": "lora", "16": "unet",
+    "17": "timeline", "18": "vit_l16", "19": "amoebanetd", "20": "t5",
+    "21": "gpt2_xl_generate", "22": "mixtral_moe",
+}
+PHASE_ORDER = list(PHASES)
+PHASE_NEEDS = {"6b": ["6"], "6c": ["6"], "6d": ["6"], "7": ["6"], "9": ["6"],
+               "9b": ["6", "9"], "12": ["10"], "13": ["11", "12"], "14": ["10"],
+               "15": ["8"], "17": ["16"]}
+
+
+def select_phases(spec):
+    """The phase numbers ``--phases`` selects (all without it), with the
+    phases they need."""
+    if spec is None:
+        return set(PHASES)
+    by_name = {name: num for num, name in PHASES.items()}
+    todo = []
+    for item in (x.strip() for x in spec.split(",") if x.strip()):
+        num = item if item in PHASES else by_name.get(item)
+        if num is None:
+            fail(f"--phases: unknown phase {item!r}; phases: "
+                 + ", ".join(f"{n} {m}" for n, m in PHASES.items()))
+        todo.append(num)
+    run = set()
+    while todo:
+        num = todo.pop()
+        if num not in run:
+            run.add(num)
+            todo += PHASE_NEEDS.get(num, [])
+    return run
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="weights and prompt seed")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases by number or name (e.g. '3,mixtral_moe'); "
+                         "the phases they need run too; default: every phase")
     args = ap.parse_args()
+    run = select_phases(args.phases)
 
     run_t0 = time.perf_counter()
     import torch
@@ -3402,58 +4092,92 @@ def main() -> None:
     def gqa_sdpa(q, k, v, causal):
         return F.scaled_dot_product_attention(q, k, v, is_causal=causal, enable_gqa=True)
 
-    fwd = phase_fwd(torch, tfa, card, gqa_sdpa)
-    dec_err, dec = phase_decode(torch, tfa, tg, card)
-    bwd_err, bwd = phase_bwd(torch, tfa, card)
-    launches, (cfg, model, prompt, out) = phase_slice(torch, tfa, tt, tg, card, args.seed)
-    int8_launches, _ = phase_slice_int8(torch, tfa, tg, card, cfg, model, prompt, out)
-    spec_launches = phase_speculative(torch, tfa, tt, tg, card, args.seed, cfg, model,
-                                      prompt)
-    beam_launches = phase_beam(torch, tfa, tg, card, cfg, model, prompt)
-    phase_profile(torch, tg, card, cfg, model, prompt)
-    serving = phase_serving(torch, tfa, tg, card, args.seed, cfg, model)
-    del cfg, model, prompt, out   # the generation model's 16 GB before training
-    torch.cuda.empty_cache()
-    train_launches, (train_ms, train_peak) = phase_train(torch, tfa, tt, card, args.seed)
-    phase_stages(torch, tt, card, args.seed)
-    t0 = time.perf_counter()
-    one_f1b = phase_1f1b(torch, tfa, tt, card, args.seed)
-    resnet = phase_resnet(torch, tfa, card, args.seed)
-    print(f"phases 10-11 (train_1f1b, resnet101): {time.perf_counter() - t0:.1f}s",
-          flush=True)
-    t0 = time.perf_counter()
-    graph = phase_train_graph(torch, tfa, tt, card, args.seed, one_f1b["balance"])
-    t1 = time.perf_counter()
-    precision_resnet, precision_llama = phase_precision(
-        torch, tfa, tt, card, args.seed, resnet["balance"], graph, resnet["samples_per_s"])
-    t2 = time.perf_counter()
-    offload = phase_offload(torch, tfa, tt, card, args.seed, one_f1b["balance"])
-    t3 = time.perf_counter()
-    print(f"phases 12-14 (train_graph, precision, offload): {t3 - t0:.1f}s "
-          f"({t1 - t0:.1f} + {t2 - t1:.1f} + {t3 - t2:.1f})", flush=True)
-    t0 = time.perf_counter()
-    lora_run = phase_lora(torch, tfa, tt, tg, card, args.seed, train_ms, train_peak)
-    t1 = time.perf_counter()
-    torch.backends.cudnn.deterministic = True   # bitwise-repeatable convolution gradients
-    unet_row = phase_unet(torch, tfa, card, args.seed)
-    t2 = time.perf_counter()
-    phase_timeline(torch, card, unet_row)
+    r = {}     # each phase's result, by number
+
+    def timed(numbers, label):
+        """Run the selected ones of ``numbers`` (``(number, thunk)``) and
+        print their seconds."""
+        t0, parts = time.perf_counter(), []
+        for num, fn in numbers:
+            if num in run:
+                t = time.perf_counter()
+                r[num] = fn()
+                parts.append(f"{num} {time.perf_counter() - t:.1f}")
+        if parts:
+            print(f"phases {label}: {time.perf_counter() - t0:.1f}s ({', '.join(parts)})",
+                  flush=True)
+
+    timed([("3", lambda: phase_fwd(torch, tfa, card, gqa_sdpa)),
+           ("4", lambda: phase_decode(torch, tfa, tg, card)),
+           ("5", lambda: phase_bwd(torch, tfa, card)),
+           ("5b", lambda: phase_simt(torch, tfa, tt, tg, card, args.seed))],
+          "3-5b (fwd, decode, bwd, simt)")
+    if "6" in run:
+        def gen_model():
+            return r["6"][1]
+
+        timed([("6", lambda: phase_slice(torch, tfa, tt, tg, card, args.seed)),
+               ("6b", lambda: phase_slice_int8(torch, tfa, tg, card, *gen_model()[:4])[0]),
+               ("6c", lambda: phase_speculative(torch, tfa, tt, tg, card, args.seed,
+                                                *gen_model()[:3])),
+               ("6d", lambda: phase_beam(torch, tfa, tg, card, *gen_model()[:3])),
+               ("7", lambda: phase_profile(torch, tg, card, *gen_model()[:3])),
+               ("9", lambda: phase_serving(torch, tfa, tg, card, args.seed,
+                                           *gen_model()[:2])),
+               ("9b", lambda: phase_int8_weights(torch, tfa, tg, card, args.seed,
+                                                 *gen_model(), r["9"]))],
+              "6-9b (generate .. int8_weights)")
+        r["6"] = (r["6"][0], None)   # the generation model's 16 GB before training
+        gc.collect()
+        torch.cuda.empty_cache()
+    timed([("8", lambda: (phase_train(torch, tfa, tt, card, args.seed),
+                          phase_stages(torch, tt, card, args.seed))[0])], "8 (train)")
+    timed([("10", lambda: phase_1f1b(torch, tfa, tt, card, args.seed)),
+           ("11", lambda: phase_resnet(torch, tfa, card, args.seed))],
+          "10-11 (train_1f1b, resnet101)")
+    timed([("12", lambda: phase_train_graph(torch, tfa, tt, card, args.seed,
+                                            r["10"]["balance"])),
+           ("13", lambda: phase_precision(torch, tfa, tt, card, args.seed,
+                                          r["11"]["balance"], r["12"],
+                                          r["11"]["samples_per_s"])),
+           ("14", lambda: phase_offload(torch, tfa, tt, card, args.seed,
+                                        r["10"]["balance"]))],
+          "12-14 (train_graph, precision, offload)")
+
+    def unet():
+        torch.backends.cudnn.deterministic = True   # bitwise-repeatable conv gradients
+        return phase_unet(torch, tfa, card, args.seed)
+
+    timed([("15", lambda: phase_lora(torch, tfa, tt, tg, card, args.seed, *r["8"][1])),
+           ("16", unet), ("17", lambda: phase_timeline(torch, card, r["16"]))],
+          "15-17 (lora, unet/vgg16, timeline)")
     torch.backends.cudnn.deterministic = False
-    del unet_row["layers"], unet_row["x"], unet_row["y"]
-    t3 = time.perf_counter()
-    print(f"phases 15-17 (lora, unet/vgg16, timeline): {t3 - t0:.1f}s "
-          f"({t1 - t0:.1f} + {t2 - t1:.1f} + {t3 - t2:.1f})", flush=True)
-    t0 = time.perf_counter()
-    vit_run = phase_vit(torch, tfa, card, args.seed)
-    t1 = time.perf_counter()
-    amoeba = phase_amoebanet(torch, tfa, card, args.seed)
-    t2 = time.perf_counter()
-    t5_run = phase_t5(torch, tfa, card, args.seed)
-    t3 = time.perf_counter()
-    gpt2 = phase_gpt2_xl(torch, tfa, tt, tg, card, args.seed)
-    t4 = time.perf_counter()
-    print(f"phases 18-21 (vit_l16, amoebanetd, t5, gpt2_xl_generate): {t4 - t0:.1f}s "
-          f"({t1 - t0:.1f} + {t2 - t1:.1f} + {t3 - t2:.1f} + {t4 - t3:.1f})", flush=True)
+    for key in ("layers", "x", "y"):
+        r.get("16", {}).pop(key, None)
+    timed([("18", lambda: phase_vit(torch, tfa, card, args.seed)),
+           ("19", lambda: phase_amoebanet(torch, tfa, card, args.seed)),
+           ("20", lambda: phase_t5(torch, tfa, card, args.seed)),
+           ("21", lambda: phase_gpt2_xl(torch, tfa, tt, tg, card, args.seed)),
+           ("22", lambda: phase_mixtral(torch, tfa, tt, tg, card, args.seed))],
+          "18-22 (vit_l16, amoebanetd, t5, gpt2_xl_generate, mixtral_moe)")
+
+    if run != set(PHASES):
+        print(f"chip_smoke: phases {sorted(run, key=PHASE_ORDER.index)} of {len(PHASES)} "
+              f"in {time.perf_counter() - run_t0:.1f}s; the kernels line needs every "
+              "phase", flush=True)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
+    fwd, (dec_err, dec), (bwd_err, bwd) = r["3"], r["4"], r["5"]
+    launches, int8_launches = r["6"][0], r["6b"]
+    spec_launches, beam_launches, serving = r["6c"], r["6d"], r["9"]
+    train_launches = r["8"][0]
+    one_f1b, resnet, graph, offload = r["10"], r["11"], r["12"], r["14"]
+    precision_resnet, precision_llama = r["13"]
+    lora_run, unet_row, vit_run, amoeba, t5_run = r["15"], r["16"], r["18"], r["19"], r["20"]
+    gpt2, mixtral, int8w, simt = r["21"], r["22"], r["9b"], r["5b"]
 
     src = "torchgpipe_tpu_torch/csrc/"
     ref = "torchgpipe_tpu/ops/flash_attention.py"
@@ -3469,13 +4193,23 @@ def main() -> None:
              "lora_generate": lora_run["generate_launches"], "unet": unet_row["launches"],
              "vgg16": unet_row["vgg_launches"], "vit_l16": vit_run["launches"],
              "amoebanetd": amoeba["launches"], "t5": t5_run["launches"],
-             "gpt2_xl_generate": gpt2["launches"]}
+             "gpt2_xl_generate": gpt2["launches"],
+             "int8_weights_generate": int8w["launches"],
+             "mixtral_moe_train": mixtral["train"], "mixtral_moe_generate": mixtral["generate"],
+             "mixtral_moe_serve": mixtral["serve"],
+             "f32_llama_train": simt["paths"]["f32_llama"]["train"],
+             "f32_llama_generate": simt["paths"]["f32_llama"]["generate"],
+             "d80_llama_train": simt["paths"]["d80_llama"]["train"],
+             "d80_llama_generate": simt["paths"]["d80_llama"]["generate"]}
+
+    def by_path(name):
+        return {p: n.get(name, 0) for p, n in paths.items()}
 
     def decode_entry(name, kind, main_path):
         t, long = dec["main"][kind], dec["long"][kind]
         return {"name": name, "route": "cuda", "source": src + "flash_decode.cu",
                 "replaces": f"{ref}:1024", "launches": paths[main_path][name],
-                "launches_by_path": {p: n[name] for p, n in paths.items()},
+                "launches_by_path": by_path(name),
                 "max_abs_err": dec_err[kind], "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["lib_ms"], "library_backend": t["lib_backend"],
@@ -3491,13 +4225,18 @@ def main() -> None:
                                "library_backend": long["lib_backend"],
                                "library_ms_by_backend": long["lib_by_backend"]}}
 
+    def bwd_path(row, key, **extra):
+        return {"ms": row[key][0], "call_ms": row[key][2], "plain_ms": row["plain_ms"],
+                "bound_ms": row[key][1][0], "bound_by": row[key][1][1],
+                "library_ms": row["lib_ms"], "library_backend": row["lib_backend"], **extra}
+
     def bwd_entry(name, key, line, also):
-        main_bwd, long, vit_bwd = bwd["main"], bwd["long12288"], bwd["vit_l16"]
+        main_bwd, long = bwd["main"], bwd["long12288"]
         ms, (bms, by), call = main_bwd[key]
         return {"name": name, "route": "cuda", "source": src + "flash_bwd.cu",
                 "replaces": f"{ref}:{line}", "also_replaces": f"{ref}:{also}",
                 "launches": train_launches[name],
-                "launches_by_path": {p: n[name] for p, n in paths.items()},
+                "launches_by_path": by_path(name),
                 "max_abs_err": bwd_err[key],
                 "ms": ms, "call_ms": call, "plain_ms": main_bwd["plain_ms"],
                 "bound_ms": bms, "bound_by": by, "library_ms": main_bwd["lib_ms"],
@@ -3508,12 +4247,24 @@ def main() -> None:
                                "library_ms": long["lib_ms"],
                                "library_backend": long["lib_backend"],
                                "library_ms_by_backend": long["lib_by_backend"]},
-                "path_shapes": {"vit_l16": {
-                    "ms": vit_bwd[key][0], "call_ms": vit_bwd[key][2],
-                    "plain_ms": vit_bwd["plain_ms"], "bound_ms": vit_bwd[key][1][0],
-                    "bound_by": vit_bwd[key][1][1], "library_ms": vit_bwd["lib_ms"],
-                    "library_backend": vit_bwd["lib_backend"],
-                    "causal": False}}}
+                "path_shapes": {"vit_l16": bwd_path(bwd["vit_l16"], key, causal=False),
+                                "pad_d80": bwd_path(bwd["pad_d80"], key, head_dim="80->128"),
+                                "pad_d32": bwd_path(bwd["pad_d32"], key, head_dim="32->64")}}
+
+    srows, sworst = simt["rows"], simt["worst"]
+
+    def simt_entry(name, key, line, main_path):
+        f32 = srows["f32"]
+        ms, (bms, by) = f32["ms"][key], f32["bounds"][key]
+        lib = f32["lib_fwd"] if key == "fwd" else f32["lib_bwd"]
+        return {"name": name, "route": "cuda", "source": src + "flash_simt.cu",
+                "replaces": f"{ref}:{line}", "launches": paths[main_path][name],
+                "launches_by_path": by_path(name), "max_abs_err": sworst[key],
+                "ms": ms, "plain_ms": f32["plain_fwd"] if key == "fwd" else f32["plain_bwd"],
+                "plain_covers": "forward" if key == "fwd" else "all three gradients",
+                "bound_ms": bms, "bound_by": by, "library_ms": lib[2],
+                "library_backend": lib[1], "library_ms_by_backend": lib[0],
+                "shape": "f32 b=2 s=1024 h=32 g=8 d=64 causal"}
 
     def shape_entry(row):
         return {k: row[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")} | {
@@ -3523,7 +4274,7 @@ def main() -> None:
         {"name": "flash_fwd", "route": "cuda", "source": src + "flash_fwd.cu",
          "replaces": f"{ref}:69", "also_replaces": f"{ref}:301",
          "launches": launches["flash_fwd"],
-         "launches_by_path": {p: n["flash_fwd"] for p, n in paths.items()},
+         "launches_by_path": by_path("flash_fwd"),
          "max_abs_err": max(r["err"] for r in fwd.values()),
          "ms": main_fwd["ms"], "plain_ms": main_fwd["plain_ms"],
          "bound_ms": main_fwd["bound_ms"], "bound_by": main_fwd["bound_by"],
@@ -3533,18 +4284,30 @@ def main() -> None:
          "long_shape": shape_entry(fwd["long12288"]),
          "path_shapes": {n: shape_entry(fwd[n])
                          for n in ("spec_draft_d64", "spec_target", "beam_prefill",
-                                   "vit_l16", "gpt2_xl_prefill")}},
+                                   "vit_l16", "gpt2_xl_prefill", "pad_d80", "pad_d32")}},
         decode_entry("flash_decode", "bf16", "generate"),
         decode_entry("flash_decode_int8", "int8", "generate_int8"),
         bwd_entry("flash_bwd_dq", "dq", 538, 411),
         bwd_entry("flash_bwd_dkv", "dkv", 592, 468),
+        simt_entry("flash_fwd_f32", "fwd", 69, "f32_llama_train"),
+        simt_entry("flash_bwd_dq_f32", "dq", 538, "f32_llama_train"),
+        simt_entry("flash_bwd_dkv_f32", "dkv", 592, "f32_llama_train"),
+        {"name": "flash_decode_simt", "route": "cuda", "source": src + "flash_simt.cu",
+         "replaces": f"{ref}:1024", "launches": paths["d80_llama_generate"]["flash_decode_simt"],
+         "launches_by_path": by_path("flash_decode_simt"), "max_abs_err": sworst["decode"],
+         "ms": srows["decode"]["ms"], "call_ms": srows["decode"]["call_ms"],
+         "plain_ms": srows["decode"]["plain_ms"], "bound_ms": srows["decode"]["bound_ms"],
+         "bound_by": srows["decode"]["bound_by"], "library_ms": srows["decode"]["lib"][2],
+         "library_backend": srows["decode"]["lib"][1],
+         "library_ms_by_backend": srows["decode"]["lib"][0],
+         "shape": "bf16 cache [4, 544, 32, 80] live 528 g=1"},
     ]
     smem = smem_dynamic(_build)
     for k in kernels:
         k["ptxas"] = {f: resources[f] for f in KERNEL_FUNCS[k["name"]][1]}
         if k["name"] in smem:
             k["smem_dynamic_bytes"] = smem[k["name"]]
-    for k in kernels[-2:]:
+    for k in kernels[3:5]:
         k["bitwise_repeat"] = True   # phase 5 fails otherwise
     for k in kernels[1:3]:
         k["device_pos0_bitwise"] = k["graph_replay"] = True   # phase 4 fails otherwise

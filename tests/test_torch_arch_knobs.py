@@ -264,13 +264,15 @@ def test_refusals_copy_the_reference_texts():
     with pytest.raises(ValueError, match="causal by construction"):
         tg.generate(dataclasses.replace(bcfg, causal=False), bert, prompt[:, :4], 2,
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A item 5"):
-        tt.transformer_block(gcfg, device="cpu", mlp=object())
+    with pytest.raises(ValueError, match="transformer_block mlp 'BatchNorm1d' must be "
+                                         "stateless"):
+        tt.transformer_block(gcfg, device="cpu", mlp=torch.nn.BatchNorm1d(64))
 
 
 def test_load_refuses_a_nested_dict_by_its_key():
-    """A nested dict where the port holds a tensor names its key (a MoE
-    block's experts, an int8 weight's pair)."""
+    """A nested dict where the port holds a tensor names its key (one
+    that is neither a MoE block's ``"mlp"`` nor an int8 ``{"q8", "sc"}``
+    pair, which load)."""
     jcfg, tcfg = _cfgs(**dict(GPT2, tie_embeddings=False))
     _, params = _jax_params(jcfg)
     params[1] = dict(params[1], w_fc={"q": params[1]["w_fc"], "scale": np.ones(1)})

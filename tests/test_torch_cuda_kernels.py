@@ -350,15 +350,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "dtype,n_head_dim,error,match",
-    [(torch.float32, 128, TypeError, "bfloat16"),
-     (torch.bfloat16, 96, ValueError, "head dim")],
+    "dtype,n_head_dim",
+    [(torch.float16, 128), (torch.bfloat16, 256), (torch.float32, 256)],
 )
 def test_generation_on_the_card_raises_for_what_the_kernels_do_not_take(
-    cuda_device, dtype, n_head_dim, error, match
+    cuda_device, dtype, n_head_dim
 ):
     """prefill and generate call the kernels on the card and never fall
-    back to the plain version."""
+    back to the plain version: what no kernel takes (float16, a head dim
+    above 128) raises."""
     from torchgpipe_tpu_torch.models import generation as tg
     from torchgpipe_tpu_torch.models import transformer as tt
 
@@ -366,10 +366,45 @@ def test_generation_on_the_card_raises_for_what_the_kernels_do_not_take(
                                n_kv_heads=1, n_head_dim=n_head_dim, dtype=dtype)
     model = tt.llama(cfg, device=cuda_device)
     prompt = torch.zeros(1, 16, dtype=torch.int64, device=cuda_device)
-    with pytest.raises(error, match=match):
+    with pytest.raises(ValueError, match="no CUDA kernel"):
         tg.prefill(cfg, model, prompt, 20)
-    with pytest.raises(error, match=match):
+    with pytest.raises(ValueError, match="no CUDA kernel"):
         tg.generate(cfg, model, prompt, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "dtype,n_head_dim,route",
+    [(torch.float32, 128, "simt"), (torch.float32, 80, "simt"),
+     (torch.bfloat16, 96, "pad")],
+)
+def test_generation_on_the_card_routes_what_the_kernels_do_not_take(
+    cuda_device, dtype, n_head_dim, route
+):
+    """prefill and generate route attention as ``attention_route`` says,
+    always to a kernel: float32 through ``flash_simt``'s forward, bf16 at
+    d=96 through the forward kernel on a zero-padded head dim; the decode
+    through ``flash_decode`` at d=128 (it takes a float32 cache) and
+    ``flash_simt``'s decode at other dims (a cache is never padded).  The
+    tensor-core wrappers still refuse those shapes when called directly."""
+    from torchgpipe_tpu_torch.models import generation as tg
+    from torchgpipe_tpu_torch.models import transformer as tt
+
+    cfg = tt.TransformerConfig(vocab=64, dim=192, n_layers=1, n_heads=2,
+                               n_kv_heads=1, n_head_dim=n_head_dim, dtype=dtype)
+    model = tt.llama(cfg, device=cuda_device)
+    prompt = torch.zeros(1, 16, dtype=torch.int64, device=cuda_device)
+    tfa.reset_launches()
+    tg.prefill(cfg, model, prompt, 20)
+    tg.generate(cfg, model, prompt, 2)
+    torch.cuda.synchronize()
+    fwd = (tfa.flash_attention.launches, tfa.flash_attention_f32.launches)
+    assert fwd == ((0, 2) if route == "simt" else (2, 0))
+    dec = (tfa.flash_decode_attention.launches, tfa.flash_decode_simt.launches)
+    assert dec == ((2, 0) if n_head_dim == 128 else (0, 2))
+    q = torch.zeros(1, 16, 2, n_head_dim, device=cuda_device, dtype=dtype)
+    with pytest.raises((TypeError, ValueError)):
+        tfa.flash_attention(q, q[:, :, :1], q[:, :, :1])
 
 
 def _decode_inputs(gen, b, g, nh, nkv, hd, L, kind, device):
@@ -450,3 +485,105 @@ def test_flash_decode_tensor_pos0_is_clamped(cuda_device):
     assert torch.equal(got, want)
     with pytest.raises(ValueError, match="outside the cache"):
         tfa.flash_decode_attention(q, ck, cv, 299)
+
+
+# csrc/flash_simt.cu: every product in float32 FMAs on both sides, so the
+# kernels and the plain versions differ only in summation order (~1e-6 of
+# O(1) outputs over <= 2048 keys and <= 128 dims): 1e-4 absolute on the
+# forward, and per row 1e-4 of the row's largest gradient plus a floor of
+# 1e-4 of the median row's.  The floor is for rows that are zero in exact
+# arithmetic (query 0's dQ: p = 1, dS = dP - delta = 0), where each side
+# keeps the float32 noise of dP - delta (~1e-6 of |dP| ~ sqrt(d)) times
+# |k| * scale: a few 1e-7 absolute, ~1e-5 of a median row's max.
+F32_TOL = 1e-4
+F32_ROW_TOL, F32_FLOOR = 1e-4, 1e-4
+
+
+def f32_row_ratio(got, want):
+    scale = want.abs().amax(-1)
+    tol = F32_ROW_TOL * scale + F32_FLOOR * scale.median()
+    return ((got - want).abs().amax(-1) / tol).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "s,h,g,d,window,causal",
+    [(1024, 8, 2, 128, None, True), (333, 4, 4, 64, 50, True),
+     (200, 4, 1, 80, None, False), (17, 8, 1, 32, None, True),
+     (1000, 8, 2, 80, 300, True), (129, 4, 2, 96, None, True)],
+)
+def test_flash_simt_f32_matches_plain(cuda_device, s, h, g, d, window, causal):
+    """float32 forward, dQ and dK/dV against the plain versions."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(2, s, n, d, generator=gen, device=cuda_device)
+               .requires_grad_() for n in (h, g, g))
+    do = torch.randn(2, s, h, d, generator=gen, device=cuda_device)
+    before = (tfa.flash_attention_f32.launches, tfa.flash_bwd_dq_f32.launches,
+              tfa.flash_bwd_dkv_f32.launches)
+    out = tfa.flash_attention_f32(q, k, v, causal=causal, window=window)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    ref = tfa.flash_attention_reference(q, k, v, causal=causal, window=window)
+    want = torch.autograd.grad(ref, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_f32.launches, tfa.flash_bwd_dq_f32.launches,
+            tfa.flash_bwd_dkv_f32.launches) == tuple(n + 1 for n in before)
+    assert (out - ref).abs().max().item() <= F32_TOL
+    for a, b in zip(got, want):
+        assert f32_row_ratio(a, b) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "kind,g,pos0,window,hd,L",
+    [("bf16", 1, 1087, None, 80, 1152), ("bf16", 5, 576, None, 32, 581),
+     ("f32", 4, 600, 256, 80, 1152), ("f32", 2, 77, 9, 96, 1152),
+     ("int8", 1, 1087, None, 80, 1152), ("int8", 5, 300, 64, 32, 517),
+     ("bf16", 1, 19999, None, 80, 20000)],
+)
+def test_flash_decode_simt_matches_plain(cuda_device, kind, g, pos0, window, hd, L):
+    """The CUDA-core decode at head dims the tensor-core decode does not
+    take, with a host and a device ``pos0`` (equal bits)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, ck, cv, sc = _decode_inputs(gen, 2, g, 8, 2, hd, L, kind, cuda_device)
+    before = tfa.flash_decode_simt.launches
+    host = tfa.flash_decode_simt(q, ck, cv, pos0, window=window, **sc)
+    dev = tfa.flash_decode_simt(
+        q, ck, cv, torch.tensor(pos0, dtype=torch.int32, device=cuda_device),
+        window=window, **sc)
+    ref = tfa.flash_decode_reference(q, ck, cv, pos0, window=window, **sc)
+    torch.cuda.synchronize()
+    assert tfa.flash_decode_simt.launches == before + 2
+    assert torch.equal(host, dev)
+    assert (dev - ref).abs().max().item() <= DECODE_TOL
+
+
+@pytest.mark.cuda
+def test_flash_decode_simt_graph_replays_at_two_lengths(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    q, ck, cv, sc = _decode_inputs(gen, 4, 1, 32, 8, 80, 1152, "bf16", cuda_device)
+    pos = torch.tensor(100, dtype=torch.int32, device=cuda_device)
+    tfa.flash_decode_simt(q, ck, cv, pos, **sc)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tfa.flash_decode_simt(q, ck, cv, pos, **sc)
+    for p in (1000, 100, 1151):
+        pos.fill_(p)
+        graph.replay()
+        want = tfa.flash_decode_simt(q, ck, cv, p, **sc)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+def test_flash_simt_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    q = torch.zeros(1, 64, 4, 256, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_attention_f32(q, q, q)
+    with pytest.raises(TypeError, match="float32"):
+        tfa.flash_attention_f32(q[..., :64].bfloat16().contiguous(),
+                                q[..., :64].bfloat16().contiguous(),
+                                q[..., :64].bfloat16().contiguous())
+    c = torch.zeros(1, 64, 2, 256, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_decode_simt(q[:, :1].contiguous(), c, c, 3)

@@ -82,6 +82,34 @@ def test_graph_replay_bitwise_equals_eager_body(cuda_device, kv_quant):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["moe_dropless", "moe_sparse", "int8_weights"])
+def test_moe_and_int8_weight_replays_bitwise_equal_eager(cuda_device, kind):
+    """A dropless MoE model (grouped products over device offsets, no host
+    read), a capacity MoE model and an int8-weight model serve as captured
+    graphs whose tokens and cache bytes equal the eager bodies'."""
+    from torchgpipe_tpu_torch.models import moe as tm
+    from torchgpipe_tpu_torch.models.quant import quantize_params_int8
+
+    kw = dict(num_slots=4, max_len=64, prefill_chunk=(4, 16))
+    gen = torch.Generator("cuda").manual_seed(0)
+    if kind == "int8_weights":
+        model = quantize_params_int8(CFG, _model(0))
+    else:
+        kw["moe"] = tm.MoEConfig(n_experts=4, top_k=2, capacity_factor=1.0,
+                                 dispatch=kind.split("_")[1])
+        model = tm.llama_moe(CFG, kw["moe"], device="cuda", generator=gen)
+    reqs = _trace(6, 8)
+    graph = Engine(CFG, model, **kw)
+    eager = Engine(CFG, model, cuda_graph=False, **kw)
+    assert _serve(graph, reqs) == _serve(eager, reqs)
+    for a, b in zip(_pool_bytes(graph), _pool_bytes(eager)):
+        assert torch.equal(a, b)
+    # One capture per program the trace used: the eager engine's first runs.
+    assert graph.compile_stats == eager.compile_stats
+    assert set(graph.compile_stats.values()) <= {0, 1} and graph.compile_stats["decode"] == 1
+
+
+@pytest.mark.cuda
 def test_one_capture_per_program_under_churn(cuda_device):
     model = _model(0)
     eng = Engine(CFG, model, num_slots=3, max_len=64, prefill_chunk=8)

@@ -1,6 +1,6 @@
 """``GPipe(fused=True)``, the megastep and ``checkpoint='offload'`` on
 the card; a small ViT's step and a GPT-2-class decode through the flash
-kernels.
+kernels; float32 and head-dim-32 Llamas through the attention routes.
 
 Needs an NVIDIA GPU; every test skips without one.  This file imports
 neither JAX nor the JAX package (``tests/conftest.py`` imports JAX, hence
@@ -379,3 +379,138 @@ def test_gpt2_class_generate_decodes_through_flash_decode_at_mha(cuda_device):
     # bf16 logits of ~1: the cached and the full path differ by a few bf16
     # roundings, so a token off the argmax must be a near-tie (2^-4).
     assert (logits.argmax(-1) == out).float().mean() >= 0.9 and bool((gap <= 2 ** -4).all())
+
+
+# The routes on the card against the port on the CPU, from the same
+# weights and tokens.  float32 (attention through csrc/flash_simt.cu's
+# float32 kernels, the decode kernel's float32 instantiation): one float32
+# network in another summation order (cuBLAS against the CPU's BLAS, the
+# kernels' blocked softmax),
+# ~1e-6 relative per op: the loss to 1e-5 relative, each gradient leaf to
+# 1e-4 of its max, greedy tokens equal (no near-tie at these seeds).
+# bf16 at d=32 (the forward and backward kernels on a zero-padded head
+# dim, flash_simt's decode): the kernels round P and dS to bf16 where the
+# plain version keeps float32, and each block rounds its products to
+# bf16 (2^-8 relative), compounding over 2 blocks and the backward to a
+# few 2^-8 of each leaf's scale: the loss to 2^-6 relative, gradients to
+# 2^-4 of each leaf's max, tokens by the teacher-forced check.
+ROUTE_CASES = {
+    "float32": (dict(dtype=torch.float32), 1e-5, 1e-4),
+    "bf16_d32": (dict(dtype=torch.bfloat16, n_head_dim=32), 2 ** -6, 2 ** -4),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_routed_llama_trains_and_generates_as_on_the_cpu(cuda_device, case):
+    from torchgpipe_tpu_torch.models import generation as tg
+    from torchgpipe_tpu_torch.ops import flash_attention as tfa
+
+    kw, loss_rtol, grad_rel = ROUTE_CASES[case]
+    cfg = tt.TransformerConfig(vocab=256, dim=256, n_layers=2, n_heads=4, n_kv_heads=2,
+                               **kw)
+    cpu = tt.llama(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    card = tt.llama(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    tokens = _tokens(9)
+    results = []
+    tfa.reset_launches()
+    for model, dev in ((card, "cuda"), (cpu, "cpu")):
+        pipe = GPipe(list(model), [2, 2], devices=[dev], chunks=2)
+        loss, _, _ = pipe.value_and_grad(tokens.to(dev), tokens.to(dev), _loss)
+        results.append((float(loss), [p.grad.float().cpu() for p in pipe.parameters()]))
+    train_f32, train_fwd = tfa.flash_attention_f32.launches, tfa.flash_attention.launches
+    (lc, gc), (lh, gh) = results
+    assert lc == pytest.approx(lh, rel=loss_rtol)
+    for a, b in zip(gc, gh):
+        assert float((a - b).abs().max()) <= grad_rel * float(b.abs().max()), case
+    if case == "float32":
+        assert train_f32 > 0 and train_fwd == 0 and tfa.flash_bwd_dkv_f32.launches > 0
+    else:
+        assert train_f32 == 0 and train_fwd > 0 and tfa.flash_bwd_dq.launches > 0
+    prompt = tokens[:2, :64]
+    tfa.reset_launches()
+    out = tg.generate(cfg, card, prompt, 12)
+    torch.cuda.synchronize()
+    if case == "float32":
+        # prefill through the float32 kernel a layer; decode through the
+        # tensor-core decode (it takes a float32 cache at d=128).
+        assert tfa.flash_attention_f32.launches == 2
+        assert tfa.flash_decode_attention.launches == 2 * 12
+        want = tg.generate(cfg, cpu, prompt.cpu(), 12, device="cpu")
+        assert torch.equal(out.cpu(), want)
+    else:
+        # prefill through the padded kernel; decode through the CUDA-core
+        # decode at d=32 (a cache is never padded).
+        assert tfa.flash_attention.launches == 2
+        assert tfa.flash_decode_simt.launches == 2 * 12
+        assert tfa.flash_decode_attention.launches == 0
+        with torch.inference_mode():
+            logits = card(torch.cat([prompt, out[:, :-1]], 1))[:, 63:].float()
+        gap = logits.max(-1).values - logits.gather(-1, out[..., None])[..., 0]
+        assert (logits.argmax(-1) == out).float().mean() >= 0.9 and bool((gap <= 2 ** -4).all())
+
+
+@pytest.mark.cuda
+def test_bf16_head_dim_128_counts_no_dense_route(cuda_device):
+    """The tensor-core kernels' own case takes no other route: a training
+    step and a generate of the bf16 d=128 Llama launch no padded or
+    CUDA-core kernel."""
+    from torchgpipe_tpu_torch.models import generation as tg
+    from torchgpipe_tpu_torch.ops import flash_attention as tfa
+
+    cfg = tt.TransformerConfig(vocab=256, dim=256, n_layers=2, n_heads=2, n_kv_heads=1,
+                               dtype=torch.bfloat16)
+    model = tt.llama(cfg, device="cuda")
+    tokens = _tokens(3)
+    tfa.reset_launches()
+    GPipe(list(model), [4], chunks=2).value_and_grad(tokens, tokens, _loss)
+    tg.generate(cfg, model, tokens[:2, :32], 8)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_f32.launches, tfa.flash_decode_simt.launches) == (0, 0)
+    assert tfa.flash_attention.launches > 0 and tfa.flash_decode_attention.launches == 16
+
+
+@pytest.mark.cuda
+def test_mixtral_style_moe_step_is_deterministic_and_dropless_equals_sparse(cuda_device):
+    """A bf16 dropless MoE Llama (``torch._grouped_mm`` on the card):
+    two steps from the same weights give equal bits, and a 'sparse' run
+    at capacity factor E/k (no drops) gives the same loss up to bf16
+    rounding of its other product order (2^-6 relative)."""
+    from torchgpipe_tpu_torch.models import moe as tm
+
+    moe = tm.MoEConfig(n_experts=4, top_k=2, dispatch="dropless", balance_weight=0.02)
+    model = tm.llama_moe(CFG, moe, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(0))
+    tokens = _tokens(4)
+    pipe = GPipe(list(model), [2, 2], chunks=2)
+    runs = []
+    for _ in range(2):
+        loss, _, _ = pipe.value_and_grad(tokens, tokens, _loss)
+        runs.append((loss.clone(), [p.grad.clone() for p in pipe.parameters()]))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    for block in list(model)[1:-1]:
+        block.mlp.moe = tm.MoEConfig(n_experts=4, top_k=2, dispatch="sparse",
+                                     capacity_factor=2.0, balance_weight=0.02)
+    sparse, _, _ = pipe.value_and_grad(tokens, tokens, _loss)
+    assert float(sparse) == pytest.approx(float(runs[0][0]), rel=2 ** -6)
+
+
+@pytest.mark.cuda
+def test_float32_dropless_moe_on_the_card_equals_the_cpu(cuda_device):
+    """The dropless products of a float32 MoE layer on the card (every
+    expert over every row, its own segment kept: no host read) equal the
+    CPU's segment loop up to float32 summation order (1e-5 of max |y|,
+    products over 256 and 768 terms)."""
+    from torchgpipe_tpu_torch.models import moe as tm
+
+    cfg = tt.TransformerConfig(vocab=256, dim=256, n_layers=1, n_heads=4)
+    moe = tm.MoEConfig(n_experts=4, top_k=2, dispatch="dropless")
+    cpu = tm.moe_mlp(cfg, moe, device="cpu", generator=torch.Generator().manual_seed(0))
+    card = tm.MoEMLP(cfg, moe, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 64, 256, generator=torch.Generator().manual_seed(1))
+    want = cpu(x).detach()
+    got = card(x.cuda()).detach().cpu()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())

@@ -29,6 +29,7 @@ from torchgpipe_tpu.models import transformer as jt
 from torchgpipe_tpu_torch.convert import params_from_jax
 from torchgpipe_tpu_torch.models import generation as tg
 from torchgpipe_tpu_torch.models import transformer as tt
+from torchgpipe_tpu_torch.models.moe import MoEConfig
 from torchgpipe_tpu_torch.ops import flash_attention as tfa
 
 LOGIT_TOL = 5e-5
@@ -122,15 +123,19 @@ def test_sampled_generate_runs(tiny):
         tg.generate(TCFG, model, prompt, 2, temperature=1.0, device="cpu")
 
 
+EP = MoEConfig(ep_axis="ep")
+
+
 @pytest.mark.parametrize(
     "kwargs",
-    [{"entry": "generate", "moe": object()}, {"entry": "prefill", "moe": object()},
-     {"entry": "beam_search", "moe": object()},
-     {"entry": "speculative_generate", "draft_moe": object()}],
+    [{"entry": "generate", "moe": EP}, {"entry": "prefill", "moe": EP},
+     {"entry": "beam_search", "moe": EP},
+     {"entry": "speculative_generate", "draft_moe": EP}],
 )
 def test_unported_options_raise_with_roadmap_item(tiny, kwargs):
-    """MoE feed-forwards (ROADMAP queue A item 5) are the options of the
-    generation entry points still to be ported."""
+    """MoE feed-forwards are ported; a MoE config with an expert-parallel
+    axis (ROADMAP queue A item 5.4, the SPMD engine) is what the
+    generation entry points still refuse."""
     _, model, prompt = tiny
     kwargs = dict(kwargs)
     fn = getattr(tg, kwargs.pop("entry"))
@@ -171,6 +176,8 @@ def test_port_imports_no_jax_and_no_reference_package():
         "import torchgpipe_tpu_torch.utils.data, torchgpipe_tpu_torch.utils.tracing\n"
         "import torchgpipe_tpu_torch.models.vit, torchgpipe_tpu_torch.models.amoebanet\n"
         "import torchgpipe_tpu_torch.models.t5\n"
+        "import torchgpipe_tpu_torch.models.moe, torchgpipe_tpu_torch.models.quant\n"
+        "import torchgpipe_tpu_torch.auxgrad\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'torchgpipe_tpu' or m.startswith('torchgpipe_tpu.')]\n"
         "assert not bad, bad\n"

@@ -34,6 +34,7 @@ from torchgpipe_tpu.tune import serving_cache_bytes as j_cache_bytes
 from torchgpipe_tpu.tune import serving_max_slots as j_max_slots
 from torchgpipe_tpu.tune import tree_bytes as j_tree_bytes
 from torchgpipe_tpu_torch import tune
+from torchgpipe_tpu_torch.models.moe import MoEConfig
 from torchgpipe_tpu_torch.convert import params_from_jax
 from torchgpipe_tpu_torch.models import generation as tg
 from torchgpipe_tpu_torch.models import transformer as tt
@@ -467,7 +468,7 @@ def test_rejections_leave_nothing_registered(weights):
     (dict(prefix_cache=object()), "prefix_cache="),
     (dict(recorder=object()), "recorder="),
     (dict(reporter=object()), "reporter="),
-    (dict(moe=object()), "moe="),
+    (dict(moe=MoEConfig(ep_axis="ep")), "moe="),   # MoE is served; ep (5.4) is not
 ])
 def test_not_ported_arguments_name_their_item(weights, kwargs, what):
     with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A item 5") as e:

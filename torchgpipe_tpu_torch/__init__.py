@@ -4,6 +4,7 @@ The JAX package ``torchgpipe_tpu`` is the reference; this package mirrors
 its module names (``gpipe``, ``pipeline``, ``microbatch``, ``partition``,
 ``checkpoint``, ``skip``, ``batchnorm``, ``balance``,
 ``models.transformer``, ``models.generation``, ``models.resnet``,
+``models.moe``, ``models.quant``, ``auxgrad``,
 ``ops.flash_attention``, ``ops.nn``, ``serving``, ``obs``,
 ``resilience``, ``tune``)
 and replaces each Pallas TPU kernel with a kernel

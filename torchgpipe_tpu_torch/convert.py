@@ -6,8 +6,11 @@ The reference keeps a Llama's parameters as a flat per-layer list
 ``models.generation.mpmd_params_for_generation`` return).  Handed over as
 numpy arrays, each leaf lands in the port parameter of the same name,
 with the same ``[in, out]`` layout: nothing is transposed
-(:func:`params_from_jax`; LoRA adapters too, and a ``chunked_lm_loss``
-layer's ``scale``/``w``).
+(:func:`params_from_jax`; LoRA adapters too, a ``chunked_lm_loss``
+layer's ``scale``/``w``, a MoE block's ``"mlp"`` tree (``router``,
+``w_gate``/``w_up`` ``[E, dim, hidden]``, ``w_down`` ``[E, hidden, dim]``)
+and weight-only int8 ``{"q8", "sc"}`` leaves, which load into
+``models.quant.QuantWeight`` buffers).
 
 A layer list of the model zoo (``models.resnet``, ``models.unet``,
 ``models.vgg``, ``models.amoebanet``, ``models.vit``, ``models.t5``)
@@ -30,6 +33,7 @@ from torch import nn
 
 from torchgpipe_tpu_torch.batchnorm import DeferredBatchNorm
 from torchgpipe_tpu_torch.models.amoebanet import Structured
+from torchgpipe_tpu_torch.models.quant import QuantWeight, is_quantized
 from torchgpipe_tpu_torch.models.resnet import Residual
 from torchgpipe_tpu_torch.ops.nn import BatchNorm, Conv2d, Dense, LayerNorm
 from torchgpipe_tpu_torch.precision import unwrap
@@ -56,16 +60,17 @@ def _to_tensor(arr: Any) -> torch.Tensor:
 
 def _load_dict(ours: Mapping[str, Any], theirs: Mapping[str, Any], what: str) -> None:
     """Copy a reference param dict into the port's of the same keys; a
-    nested dict (a LoRA block's ``"lora"``, a T5 layer's ``"attn"``,
-    ``"xattn"``, ``"ff"``) loads into the port's dict of that key."""
+    nested dict (a LoRA block's ``"lora"``, a MoE block's ``"mlp"``, an
+    int8 weight's ``{"q8", "sc"}``, a T5 layer's ``"attn"``, ``"xattn"``,
+    ``"ff"``) loads into the port's dict of that key."""
     for key, leaf in theirs.items():
         nested = isinstance(leaf, Mapping)
         if (nested and not isinstance(ours.get(key), Mapping)) or \
                 (not nested and not hasattr(leaf, "shape")):
             raise not_ported(
                 f"{what} param {key!r} ({type(leaf).__name__} where the port "
-                f"holds {type(ours.get(key)).__name__}; MoE experts and int8 "
-                "weights are not ported)", "5")
+                f"holds {type(ours.get(key)).__name__}; stacked SPMD "
+                "parameter trees are not ported)", "5.4")
     if set(theirs) != set(ours):
         raise ValueError(
             f"{what}: reference keys {sorted(theirs)} != port keys "
@@ -84,11 +89,22 @@ def _load_dict(ours: Mapping[str, Any], theirs: Mapping[str, Any], what: str) ->
         dst.copy_(src.to(dst.dtype))
 
 
+def _hold_quantized(layer: nn.Module, theirs: Mapping[str, Any]) -> None:
+    """Make ``layer`` hold a :class:`QuantWeight` (empty, to be loaded)
+    where the reference's dict has an int8 ``{"q8", "sc"}`` leaf."""
+    for key, leaf in theirs.items():
+        if is_quantized(leaf) and key in layer._parameters:
+            w = layer._parameters.pop(key)
+            layer._modules[key] = QuantWeight(
+                torch.empty(w.shape, dtype=torch.int8, device=w.device),
+                torch.empty(w.shape[-1], dtype=torch.float32, device=w.device))
+
+
 @torch.no_grad()
 def params_from_jax(
     cfg: TransformerConfig, params: Sequence[Mapping[str, Any]],
     device: Device = None, *, loss_params: Optional[Mapping[str, Any]] = None,
-    chunk: int = 8192,
+    chunk: int = 8192, moe: Any = None,
 ) -> Any:
     """The port's ``llama(cfg)`` holding the reference's parameters
     (numpy arrays, one dict per layer, LoRA adapters under a block's
@@ -100,10 +116,26 @@ def params_from_jax(
     without the head (``n_layers + 1`` dicts) builds
     ``llama(cfg, head=False)``; then ``loss_params`` (the reference's
     ``chunked_lm_loss`` params, ``scale``/``w``) returns ``(model,
-    loss_layer)`` with a :class:`ChunkedLMLoss` of ``chunk``."""
+    loss_layer)`` with a :class:`ChunkedLMLoss` of ``chunk``.  Blocks
+    whose dicts carry ``"mlp"`` (``llama_moe``) need ``moe=MoEConfig``:
+    the model is then :func:`~torchgpipe_tpu_torch.models.moe.llama_moe`'s
+    (the router loads as float32, whatever ``cfg.dtype``).  int8 leaves
+    (the reference's ``quantize_params_int8``) give a quantized model,
+    the form ``models.quant.quantize_params_int8`` returns."""
     params = list(params)
     head = len(params) != cfg.n_layers + 1
-    model = Llama(cfg, head=head, device=device)
+    mlp = None
+    if any(isinstance(p, Mapping) and "mlp" in p for p in params):
+        if moe is None:
+            raise ValueError(
+                "these block params carry an 'mlp' feed-forward (MoE "
+                "family); pass moe=MoEConfig(...) matching the training "
+                "configuration"
+            )
+        from torchgpipe_tpu_torch.models.moe import MoEMLP
+
+        mlp = lambda dev: MoEMLP(cfg, moe, device=dev)   # noqa: E731
+    model = Llama(cfg, head=head, device=device, mlp=mlp)
     if cfg.tie_embeddings and head and len(params) == len(model) \
             and "table" not in params[-1]:
         # A tied head's dict without the spliced table reads the embedding's.
@@ -115,6 +147,7 @@ def params_from_jax(
             f"the head, got {len(params)}"
         )
     for i, (layer, p) in enumerate(zip(model, params)):
+        _hold_quantized(layer, p)
         _load_dict(layer.params(), p, f"layer {i}")
     if loss_params is None:
         return model

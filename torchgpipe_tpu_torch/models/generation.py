@@ -7,14 +7,21 @@ continuation with ``cache=``, per-row frontiers with ``row_lengths=``,
 ``speculative_generate``, and ``mpmd_params_for_generation`` (a trained
 ``GPipe`` back to the model these take).  A LoRA model decodes with its
 adapters unmerged: the shared block prologue applies their deltas.
+A MoE model (``models.moe.llama_moe``) decodes with ``moe=MoEConfig``
+(its routed experts in inference mode); a model from
+``models.quant.quantize_params_int8`` decodes with int8 weights, every
+path reading them through the one accessor ``_w``.
 Prefill runs one batched pass over the prompt
-with ``ops.flash_attention.flash_attention`` (the ``flash_fwd`` CUDA
-kernel on the card) and banks every block's K/V; each decode step runs
-its tokens through the blocks, reading the live cache prefix with
-``flash_decode_attention`` (the ``flash_decode`` kernel, whose int8
-variant reads a :class:`QuantKVCache` as int8 bytes).  Ring caches and
-per-row frontiers read the cache with the dense masked softmax, as the
-reference does (it has no kernel there either).
+with ``ops.flash_attention.attention`` (the ``flash_fwd`` CUDA
+kernel on the card, at a zero-padded head dim where that applies, or
+``flash_simt``'s float32 kernel: ``attention_route``) and banks every
+block's K/V; each decode step runs its tokens through the blocks,
+reading the live cache prefix with ``flash_decode_attention`` (the
+``flash_decode`` kernel, whose int8 variant reads a :class:`QuantKVCache`
+as int8 bytes) at head dims 64 and 128, ``flash_decode_simt`` at
+others.  Ring caches
+and per-row frontiers read the cache with the dense masked softmax, as
+the reference does (it has no kernel there either).
 
 Differences from the reference, all forced by PyTorch running eagerly:
 
@@ -49,6 +56,7 @@ import torch
 from torchgpipe_tpu_torch.models.transformer import (  # noqa: F401 (re-exported)
     ChunkedLMLoss,
     Device,
+    MlpFn,
     TransformerConfig,
     _block_attn_out,
     _block_norm,
@@ -56,10 +64,13 @@ from torchgpipe_tpu_torch.models.transformer import (  # noqa: F401 (re-exported
     _embed,
     _head_w,
     _mlp_out,
+    _w,
     not_ported,
     resolve_device,
 )
 from torchgpipe_tpu_torch.ops.flash_attention import (
+    attention,
+    decode_attention,
     dequant_rows as _dequant_rows,
     flash_attention,
     flash_attention_reference,
@@ -191,9 +202,6 @@ def _split_params(
             "models.transformer.llama(cfg)"
         )
     ps = [layer.params() for layer in layers]
-    for p in ps:
-        if "mlp" in p:
-            raise not_ported("MoE block parameters", "5")
     return ps[0], ps[1:-1], ps[-1]
 
 
@@ -208,9 +216,16 @@ def _model_device(model: Sequence[Any], device: Device) -> torch.device:
     return held
 
 
-def _refuse_moe(moe: Any) -> None:
-    if moe is not None:
-        raise not_ported("MoE feed-forward (moe=)", "5")
+def _mlp_layer_for(moe: Any) -> Optional[MlpFn]:
+    """The feed-forward of blocks whose params carry ``"mlp"`` (the MoE
+    family): ``(params, h) -> out`` in inference mode (no balance
+    injection); None for the dense default."""
+    if moe is None:
+        return None
+    from torchgpipe_tpu_torch.models.moe import moe_forward, validate
+
+    validate(moe)
+    return lambda p, h: moe_forward(moe, p, h, train=False)
 
 
 def _attend_ring(
@@ -242,15 +257,19 @@ def _attend_chunk(
 ) -> torch.Tensor:
     """Causal attention of ``g`` consecutive queries ``[b, g, nh, hd]``
     against the cache (int8 with ``k_scale``/``v_scale``).  A scalar
-    ``pos0`` goes to :func:`flash_decode_attention` (the ``flash_decode``
-    kernel on the card, which raises for what it does not take); a
-    ``[b]`` ``pos0`` and ``use_flash=False`` run the reference's dense
-    read (its XLA einsum in ``_attend_chunk``, which it also uses for a
-    ``[b]`` ``pos0``): the masked float32 softmax over the whole cache,
-    an int8 cache dequantized first.  Float32 ``[b, g, nh*hd]``."""
+    ``pos0`` goes where ``ops.flash_attention.attention_route`` sends a
+    decode (:func:`decode_attention`: the ``flash_decode`` kernel on the
+    card for head dims 64 and 128, ``flash_decode_simt`` at others; never
+    a padded cache); ``use_flash=True`` calls the kernel's wrapper, which raises
+    for what it does not take; a ``[b]`` ``pos0`` and ``use_flash=False``
+    run the reference's dense read (its XLA einsum in ``_attend_chunk``,
+    which it also uses for a ``[b]`` ``pos0``): the masked float32
+    softmax over the whole cache, an int8 cache dequantized first.
+    Float32 ``[b, g, nh*hd]``."""
     per_row = isinstance(pos0, torch.Tensor) and pos0.ndim == 1
-    if use_flash is None:
-        use_flash = not per_row
+    if use_flash is None and not per_row:
+        return decode_attention(q, ck, cv, pos0, window=window,
+                                k_scale=k_scale, v_scale=v_scale)
     if use_flash:
         if per_row:
             raise ValueError("the flash decode kernel takes one scalar pos0")
@@ -264,7 +283,7 @@ def _attend_chunk(
 
 def _decode_chunk(
     cfg: TransformerConfig, block_params: List[Params], x: torch.Tensor,
-    cache: Cache,
+    cache: Cache, mlp: Optional[MlpFn] = None,
 ) -> Tuple[torch.Tensor, Cache]:
     """``g`` consecutive tokens ``x: [b, g, dim]`` through all blocks,
     writing their K/V (quantized for an int8 cache) at ``cache.length``
@@ -283,21 +302,21 @@ def _decode_chunk(
         ks, vs = _scales(cache, i)
         attn = _attend_chunk(q, cache.k[i], cache.v[i], pos0, cfg.attn_window,
                              k_scale=ks, v_scale=vs)
-        x = _block_attn_out(cfg, p, x, attn)
+        x = _block_attn_out(cfg, p, x, attn, mlp)
     cache.length = pos0 + g
     return x, cache
 
 
 def _decode_step(
     cfg: TransformerConfig, block_params: List[Params], x: torch.Tensor,
-    cache: Cache, ring: bool = False,
+    cache: Cache, ring: bool = False, mlp: Optional[MlpFn] = None,
 ) -> Tuple[torch.Tensor, Cache]:
     """One token through all blocks: :func:`_decode_chunk` at ``g=1``,
     or, with ``ring=True``, a write at slot ``pos % W`` of the W-slot
     ring buffers and a read by :func:`_attend_ring` (an int8 ring is
     dequantized for the read, as in the reference)."""
     if not ring:
-        return _decode_chunk(cfg, block_params, x, cache)
+        return _decode_chunk(cfg, block_params, x, cache, mlp)
     pos = cache.length
     slot = pos % cache.k[0].shape[1]
     for i, p in enumerate(block_params):
@@ -307,7 +326,7 @@ def _decode_step(
         if isinstance(cache, QuantKVCache):
             rk = _dequant_rows(rk, cache.k_scale[i])
             rv = _dequant_rows(rv, cache.v_scale[i])
-        x = _block_attn_out(cfg, p, x, _attend_ring(q, rk, rv, pos))
+        x = _block_attn_out(cfg, p, x, _attend_ring(q, rk, rv, pos), mlp)
     cache.length = pos + 1
     return x, cache
 
@@ -421,13 +440,20 @@ def _attend_full(
     use_flash: Optional[bool] = None,
 ) -> torch.Tensor:
     """Causal (optionally banded) full-sequence GQA attention, flattened
-    to ``[b, s, nh*hd]``.  By default :func:`flash_attention` (the
-    ``flash_fwd`` kernel on the card, which raises for what it does not
-    take); ``use_flash=False`` forces the dense version."""
+    to ``[b, s, nh*hd]``.  By default where ``attention_route`` sends it
+    (:func:`attention`: the ``flash_fwd`` kernel on the card, at a
+    zero-padded head dim where that applies, or ``flash_simt``'s float32
+    kernel);
+    ``use_flash=True`` calls :func:`flash_attention`, which raises for
+    what the kernel does not take; ``use_flash=False`` forces the dense
+    version."""
     b, s, nh, hd = q.shape
-    attend = flash_attention_reference if use_flash is False else flash_attention
-    out = attend(q.contiguous(), k.contiguous(), v.contiguous(),
-                 causal=True, window=window)
+    if use_flash is None:
+        out = attention(q, k, v, causal=True, window=window)
+    else:
+        attend = flash_attention if use_flash else flash_attention_reference
+        out = attend(q.contiguous(), k.contiguous(), v.contiguous(),
+                     causal=True, window=window)
     return out.reshape(b, s, nh * hd)
 
 
@@ -489,8 +515,9 @@ def prefill(
     with ``kv_quant=True`` only the banked rows are quantized (int8
     :class:`QuantKVCache`).  ``ring=True`` (needs ``cfg.attn_window``)
     banks into ``[b, attn_window, ...]`` ring buffers: slot ``j`` holds
-    the newest prompt position congruent to ``j`` mod W."""
-    _refuse_moe(moe)
+    the newest prompt position congruent to ``j`` mod W.  A MoE model
+    (``models.moe.llama_moe``) needs its ``moe=MoEConfig``."""
+    mlp = _mlp_layer_for(moe)
     dev = _model_device(model, device)
     tokens = torch.as_tensor(tokens, device=dev)
     embed_p, block_p, head_p = _split_params(cfg, model)
@@ -514,7 +541,7 @@ def prefill(
     for i, p in enumerate(block_p):
         q, k, v = _block_qkv(cfg, p, x, 0)
         attn = _attend_full(q, k, v, cfg.attn_window, use_flash)
-        x = _block_attn_out(cfg, p, x, attn)
+        x = _block_attn_out(cfg, p, x, attn, mlp)
         if ring:
             k, v = k[:, idx], v[:, idx]
         _bank(cache, i, k, v, slice(0, k.shape[1]))
@@ -525,7 +552,7 @@ def prefill(
 def _decode_slots(
     cfg: TransformerConfig, params: Tuple[Params, List[Params], Params],
     tokens: torch.Tensor, cache: Cache, lengths: torch.Tensor,
-    n_valid: torch.Tensor,
+    n_valid: torch.Tensor, mlp: Optional[MlpFn] = None,
 ) -> Tuple[torch.Tensor, Cache, torch.Tensor]:
     embed_p, block_p, head_p = params
     x = _embed(cfg, embed_p, tokens, lengths)
@@ -537,7 +564,7 @@ def _decode_slots(
         # use_flash=False here; its kernel takes one pos0, as ours does).
         attn = flash_decode_reference(q, cache.k[i], cache.v[i], lengths,
                                       window=cfg.attn_window, k_scale=ks, v_scale=vs)
-        x = _block_attn_out(cfg, p, x, attn)
+        x = _block_attn_out(cfg, p, x, attn, mlp)
     return _logits(cfg, head_p, x), cache, lengths + n_valid
 
 
@@ -557,13 +584,13 @@ def decode_slots(
     only for its schema).  The attention read is the reference's dense
     one (``flash_decode_reference`` with a ``[b]`` ``pos0``): the kernel
     takes one scalar ``pos0``."""
-    _refuse_moe(moe)
+    mlp = _mlp_layer_for(moe)
     dev = _model_device(model, device)
     params = _split_params(cfg, model)
     tokens = torch.as_tensor(tokens, device=dev)
     lengths = torch.as_tensor(lengths, dtype=torch.int64, device=dev)
     n_valid = torch.as_tensor(n_valid, dtype=torch.int64, device=dev)
-    return _decode_slots(cfg, params, tokens, cache, lengths, n_valid)
+    return _decode_slots(cfg, params, tokens, cache, lengths, n_valid, mlp)
 
 
 def row_frontiers(
@@ -588,7 +615,7 @@ def _generate_rows(
     max_new_tokens: int, *, temperature: float, top_k: Optional[int],
     top_p: Optional[float], eos_id: Optional[int],
     generator: Optional[torch.Generator], cache: Cache, row_lengths: Any,
-    return_state: bool,
+    return_state: bool, mlp: Optional[MlpFn] = None,
 ) -> Any:
     """``generate(row_lengths=...)``: a turn continued with every row at
     its own frontier through :func:`decode_slots` (the turn's prompt
@@ -614,7 +641,7 @@ def _generate_rows(
         )
     params = _split_params(cfg, model)
     logits_g, cache, rl = _decode_slots(
-        cfg, params, prompt, cache, rl, torch.full_like(rl, s)
+        cfg, params, prompt, cache, rl, torch.full_like(rl, s), mlp
     )
     logits = logits_g[:, -1]
     alive = torch.ones(b, dtype=torch.bool, device=dev)
@@ -630,7 +657,7 @@ def _generate_rows(
         else:
             n_valid = torch.ones_like(rl)
         logits_g, cache, rl = _decode_slots(cfg, params, tok[:, None], cache, rl,
-                                            n_valid)
+                                            n_valid, mlp)
         logits = logits_g[:, 0]
         toks.append(tok)
     out = _stack_tokens(toks, b, dev)
@@ -688,7 +715,7 @@ def generate(
             "cache_mode='ring' holds exactly the attention window: set "
             "cfg.attn_window"
         )
-    _refuse_moe(moe)
+    mlp = _mlp_layer_for(moe)
     if temperature > 0.0 and generator is None:
         raise ValueError("temperature sampling needs generator=torch.Generator")
     dev = _model_device(model, device)
@@ -722,6 +749,7 @@ def generate(
             cfg, model, prompt, max_new_tokens, temperature=temperature,
             top_k=top_k, top_p=top_p, eos_id=eos_id, generator=generator,
             cache=cache, row_lengths=row_lengths, return_state=return_state,
+            mlp=mlp,
         )
     if early_exit and eos_id is None:
         raise ValueError(
@@ -733,12 +761,12 @@ def generate(
     embed_p, block_p, head_p = _split_params(cfg, model)
     if cache is None:
         logits, cache = prefill(cfg, model, prompt, total, ring=ring,
-                                kv_quant=kv_quant, device=dev)
+                                kv_quant=kv_quant, moe=moe, device=dev)
     else:
         # Continuation: absorb this turn's tokens through the decode path.
         for t in range(s):
             x = _embed(cfg, embed_p, prompt[:, t:t + 1], cache.length)
-            x, cache = _decode_step(cfg, block_p, x, cache, ring)
+            x, cache = _decode_step(cfg, block_p, x, cache, ring, mlp)
             logits = _logits(cfg, head_p, x)[:, 0]
     L = cache.k[0].shape[1]
     alive = torch.ones(b, dtype=torch.bool, device=dev)
@@ -754,7 +782,7 @@ def generate(
             alive = alive & (tok != eos_id)
             old_cols = _columns(cache, col)
         x = _embed(cfg, embed_p, tok[:, None], cache.length)
-        x, cache = _decode_step(cfg, block_p, x, cache, ring)
+        x, cache = _decode_step(cfg, block_p, x, cache, ring, mlp)
         if eos_id is not None:
             _mask_finished_rows(cache, old_cols, was_alive, col)
         logits = _logits(cfg, head_p, x)[:, 0]
@@ -787,7 +815,7 @@ def beam_search(
     ``num_beams=1`` is greedy :func:`generate`.  The reference also
     decodes the last step's tokens, whose logits nothing reads; the port
     skips that decode."""
-    _refuse_moe(moe)
+    mlp = _mlp_layer_for(moe)
     dev = _model_device(model, device)
     prompt = torch.as_tensor(prompt, device=dev)
     b, s = prompt.shape
@@ -797,7 +825,7 @@ def beam_search(
     total = _total_len(s, max_new_tokens, max_len)
     _check_decodable(cfg, total)
     embed_p, block_p, head_p = _split_params(cfg, model)
-    logits0, cache = prefill(cfg, model, prompt, total, device=dev)
+    logits0, cache = prefill(cfg, model, prompt, total, moe=moe, device=dev)
     vocab = logits0.shape[-1]
     T = max_new_tokens
 
@@ -808,7 +836,7 @@ def beam_search(
 
     def flat_decode(tok: torch.Tensor) -> torch.Tensor:
         x = _embed(cfg, embed_p, tok.reshape(b * k, 1), cache.length)
-        x, _ = _decode_step(cfg, block_p, x, cache)
+        x, _ = _decode_step(cfg, block_p, x, cache, mlp=mlp)
         return _logits(cfg, head_p, x)[:, 0]                            # [b*k, V]
 
     logits = flat_decode(seed_tok)
@@ -915,8 +943,8 @@ def speculative_generate(
     rejection only moves the host frontier back.  Each round reads its
     accepted count to the host once.  Returns ``[b, max_new_tokens]`` or,
     with ``return_stats``, ``(tokens, SpecStats)``."""
-    _refuse_moe(moe)
-    _refuse_moe(draft_moe)
+    mlp = _mlp_layer_for(moe)
+    d_mlp = _mlp_layer_for(draft_moe)
     dev = _model_device(model, device)
     _model_device(draft_model, dev)
     prompt = torch.as_tensor(prompt, device=dev)
@@ -945,8 +973,8 @@ def speculative_generate(
     def draw(probs: torch.Tensor) -> torch.Tensor:
         return torch.multinomial(probs, 1, generator=generator)[0]
 
-    t_logits0, tcache0 = prefill(cfg, model, prompt, L, device=dev)
-    _, dcache0 = prefill(draft_cfg, draft_model, prompt, L, device=dev)
+    t_logits0, tcache0 = prefill(cfg, model, prompt, L, moe=moe, device=dev)
+    _, dcache0 = prefill(draft_cfg, draft_model, prompt, L, moe=draft_moe, device=dev)
     tok0 = _sample(t_logits0, generator, temperature, top_k, top_p)     # [b]
     out = torch.zeros((b, T), dtype=torch.int64, device=dev)
     out[:, 0] = tok0
@@ -961,7 +989,7 @@ def speculative_generate(
             cur, drafts, q_logits = tok, [], []
             for _ in range(g + 1):
                 x = _embed(draft_cfg, d_embed_p, cur[:, None], dc.length)
-                x, _ = _decode_step(draft_cfg, d_block_p, x, dc)
+                x, _ = _decode_step(draft_cfg, d_block_p, x, dc, mlp=d_mlp)
                 ql = filtered(_logits(draft_cfg, d_head_p, x)[0, 0])
                 nxt = torch.argmax(ql) if greedy else draw(torch.softmax(ql, -1))
                 drafts.append(nxt)
@@ -971,7 +999,7 @@ def speculative_generate(
             # Verify: one chunk over [tok, d_1 .. d_g].
             frontier = tc.length
             x = _embed(cfg, embed_p, torch.cat([tok, drafts])[None], frontier)
-            x, _ = _decode_chunk(cfg, block_p, x, tc)
+            x, _ = _decode_chunk(cfg, block_p, x, tc, mlp)
             p_logits = filtered(_logits(cfg, head_p, x)[0])             # [g+1, V]
             if greedy:
                 t_argmax = torch.argmax(p_logits, dim=-1)

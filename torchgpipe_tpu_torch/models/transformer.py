@@ -41,7 +41,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from torchgpipe_tpu_torch.ops.flash_attention import _validate_window, flash_attention
+from torchgpipe_tpu_torch.models.quant import QuantWeight, dequantize_weight, refuse_quantized
+from torchgpipe_tpu_torch.ops.flash_attention import _validate_window, attention
 from torchgpipe_tpu_torch.ops.losses import chunked_softmax_xent
 
 Device = Union[str, torch.device, None]
@@ -318,6 +319,16 @@ def _embed(
     return x
 
 
+def _w(cfg: TransformerConfig, p: Mapping[str, Any], key: str) -> torch.Tensor:
+    """Weight read-site accessor (the reference's ``_w``): a plain
+    tensor passes through; a weight-only int8 leaf (``models.quant``)
+    dequantizes to ``cfg.dtype`` here, so every path that reads weights
+    through the shared body below takes quantized weights.  (A decode
+    step asks this of every weight: the plain case is one type check.)"""
+    v = p[key]
+    return dequantize_weight(v, cfg.dtype) if isinstance(v, dict) else v
+
+
 def _block_qkv(
     cfg: TransformerConfig, p: Mapping[str, torch.Tensor], x: torch.Tensor,
     pos: Any,
@@ -330,7 +341,7 @@ def _block_qkv(
     # Post-norm (BERT class): the attention branch reads x raw; ln1
     # normalizes the residual sum in _block_attn_out instead.
     h = x if cfg.norm_position == "post" else _block_norm(cfg, p, "ln1", x)
-    q, k, v = h @ p["wq"], h @ p["wk"], h @ p["wv"]
+    q, k, v = h @ _w(cfg, p, "wq"), h @ _w(cfg, p, "wk"), h @ _w(cfg, p, "wv")
     if "lora" in p:
         lo = p["lora"]
         q = q + _lora_delta(cfg, lo, h, "qa", "qb")
@@ -347,35 +358,50 @@ def _block_qkv(
     return _maybe_rope(cfg, q, pos), _maybe_rope(cfg, k, pos), v
 
 
+MlpFn = Callable[[Any, torch.Tensor], torch.Tensor]
+
+
 def _mlp_out(
-    cfg: TransformerConfig, p: Mapping[str, torch.Tensor], h: torch.Tensor
+    cfg: TransformerConfig, p: Mapping[str, torch.Tensor], h: torch.Tensor,
+    mlp: Optional[MlpFn] = None,
 ) -> torch.Tensor:
-    """Gated (SwiGLU/GeGLU) or classic (fc -> act -> proj) feed-forward."""
+    """Gated (SwiGLU/GeGLU) or classic (fc -> act -> proj) feed-forward,
+    or, for a block whose params carry ``"mlp"`` (a custom feed-forward,
+    the MoE family), ``mlp(p["mlp"], h)``."""
+    if "mlp" in p:
+        if mlp is None:
+            raise ValueError(
+                "these block params carry an 'mlp' feed-forward (MoE "
+                "family); pass moe=MoEConfig(...) matching the training "
+                "configuration to prefill()/generate()"
+            )
+        return mlp(p["mlp"], h).to(h.dtype)
     if "w_fc" in p:
-        hid = _act_fn(cfg.act)(h @ p["w_fc"] + p["b_fc"])
-        return hid @ p["w_proj"] + p["b_proj"]
-    gate = _act_fn(cfg.act)(h @ p["w_gate"])
-    return (gate * (h @ p["w_up"])) @ p["w_down"]
+        hid = _act_fn(cfg.act)(h @ _w(cfg, p, "w_fc") + p["b_fc"])
+        return hid @ _w(cfg, p, "w_proj") + p["b_proj"]
+    gate = _act_fn(cfg.act)(h @ _w(cfg, p, "w_gate"))
+    return (gate * (h @ _w(cfg, p, "w_up"))) @ _w(cfg, p, "w_down")
 
 
 def _block_attn_out(
     cfg: TransformerConfig, p: Mapping[str, torch.Tensor], x: torch.Tensor,
-    attn: torch.Tensor,
+    attn: torch.Tensor, mlp: Optional[MlpFn] = None,
 ) -> torch.Tensor:
     """wo projection (+ bias), attention residual, ln2 (parallel or
-    sequential residual), MLP residual; post-norm: ``ln1(x + o)``, then
-    ``ln2`` of the MLP's residual sum.  ``attn: [b, g, nh*hd]``."""
+    sequential residual), MLP residual (``mlp`` for a block with an
+    ``"mlp"`` feed-forward); post-norm: ``ln1(x + o)``, then ``ln2`` of
+    the MLP's residual sum.  ``attn: [b, g, nh*hd]``."""
     attn = attn.to(x.dtype)
-    o = attn @ p["wo"]
+    o = attn @ _w(cfg, p, "wo")
     if "lora" in p:
         o = o + _lora_delta(cfg, p["lora"], attn, "oa", "ob")
     if "bo" in p:
         o = o + p["bo"]
     if cfg.norm_position == "post":
         x = _block_norm(cfg, p, "ln1", x + o)
-        return _block_norm(cfg, p, "ln2", x + _mlp_out(cfg, p, x))
+        return _block_norm(cfg, p, "ln2", x + _mlp_out(cfg, p, x, mlp))
     h = _block_norm(cfg, p, "ln2", x if cfg.parallel_residual else x + o)
-    return x + o + _mlp_out(cfg, p, h)
+    return x + o + _mlp_out(cfg, p, h, mlp)
 
 
 # --------------------------------------------------------------------- #
@@ -449,10 +475,16 @@ def _param(shape: Tuple[int, ...], dtype: torch.dtype, device: torch.device):
 
 class _Layer(nn.Module):
     """A layer whose parameters are its own direct attributes, named by
-    the reference's param keys; :meth:`params` is that dict."""
+    the reference's param keys; :meth:`params` is that dict (a weight
+    that ``models.quant`` stored int8 shows as its ``{"q8", "sc"}``
+    leaf)."""
 
     def params(self) -> dict:
-        return dict(self._parameters)
+        p = dict(self._parameters)
+        for name, m in self._modules.items():
+            if isinstance(m, QuantWeight):
+                p[name] = m.leaf()
+        return p
 
 
 class LoRA(_Layer):
@@ -550,14 +582,28 @@ class TokenEmbedding(_Layer):
 
 class TransformerBlock(_Layer):
     """One pre-norm block: ``x + attn(norm(x))``; ``x + mlp(norm(x))``.
-    Attention goes through ``ops.flash_attention`` (the CUDA kernel on
-    the card, its plain version on the CPU)."""
+    Attention goes through ``ops.flash_attention.attention`` (on the
+    card: the CUDA kernel, the kernel at a zero-padded head dim, or the
+    float32 kernel, as ``attention_route`` routes it; the plain version
+    on the CPU).
 
-    def __init__(self, cfg: TransformerConfig, *, device: Device = None):
+    ``mlp`` (an ``nn.Module`` mapping the normalised hidden states
+    ``[b, s, dim]`` to ``[b, s, dim]``, such as ``models.moe.moe_mlp``)
+    replaces the dense feed-forward: the block holds it as ``self.mlp``,
+    its params under the ``"mlp"`` key, and it must be stateless (no
+    buffers), as in the reference."""
+
+    def __init__(self, cfg: TransformerConfig, *, device: Device = None,
+                 mlp: Optional[nn.Module] = None):
         super().__init__()
         cfg.check_ported()
         self.cfg = cfg
         dev = resolve_device(device)
+        if mlp is not None and list(mlp.buffers()):
+            raise ValueError(
+                f"transformer_block mlp {getattr(mlp, 'name', type(mlp).__name__)!r} "
+                "must be stateless"
+            )
         dim, hd, dt = cfg.dim, cfg.head_dim, cfg.dtype
         nh, nkv, hidden = cfg.n_heads, cfg.kv_heads, cfg.mlp_hidden
         f32 = torch.float32
@@ -579,7 +625,9 @@ class TransformerBlock(_Layer):
             )
         if cfg.qk_norm:
             shapes.update(qn=((hd,), f32), kn=((hd,), f32))
-        if cfg.mlp_impl == "classic":
+        if mlp is not None:
+            pass
+        elif cfg.mlp_impl == "classic":
             shapes.update(
                 w_fc=((dim, hidden), dt), b_fc=((hidden,), dt),
                 w_proj=((hidden, dim), dt), b_proj=((dim,), dt),
@@ -593,13 +641,19 @@ class TransformerBlock(_Layer):
             setattr(self, name, _param(shape, dtype, dev))
         if cfg.lora_rank:
             self.lora = LoRA(cfg, dev)
+        if mlp is not None:
+            self.mlp = mlp
 
     def params(self) -> dict:
-        """The reference's param dict: the block's own leaves, and the
-        adapters under ``"lora"``."""
-        p = dict(self._parameters)
+        """The reference's param dict: the block's own leaves, the
+        adapters under ``"lora"``, a custom feed-forward's under
+        ``"mlp"``."""
+        p = super().params()
         if "lora" in self._modules:
             p["lora"] = self.lora.params()
+        if "mlp" in self._modules:
+            m = self.mlp
+            p["mlp"] = m.params() if hasattr(m, "params") else dict(m.named_parameters())
         return p
 
     @torch.no_grad()
@@ -619,10 +673,13 @@ class TransformerBlock(_Layer):
                 t.copy_(_normal(gen, t.shape, s, t.dtype, t.device))
         if "lora" in self._modules:
             self.lora.reset_parameters(gen, std)
+        if "mlp" in self._modules and hasattr(self.mlp, "reset_parameters"):
+            self.mlp.reset_parameters(gen)
 
     def forward(self, x: Any) -> Any:
         """``[b, s, dim]``, or the packed ``(hidden, seg, pos)`` (rotary
         at ``pos``, attention through :func:`segment_attention`)."""
+        refuse_quantized(self, "this transformer block")
         cfg, p = self.cfg, self.params()
         packed = _is_packed_act(x)
         if packed:
@@ -634,11 +691,9 @@ class TransformerBlock(_Layer):
             attn = segment_attention(q, k, v, seg, causal=cfg.causal,
                                      window=cfg.attn_window)
         else:
-            attn = flash_attention(
-                q.contiguous(), k.contiguous(), v.contiguous(),
-                causal=cfg.causal, window=cfg.attn_window,
-            )
-        out = _block_attn_out(cfg, p, x, attn.reshape(b, s, -1))
+            attn = attention(q, k, v, causal=cfg.causal, window=cfg.attn_window)
+        mlp = None if "mlp" not in self._modules else (lambda _, h: self.mlp(h))
+        out = _block_attn_out(cfg, p, x, attn.reshape(b, s, -1), mlp)
         return (out, seg, pos) if packed else out
 
 
@@ -647,7 +702,7 @@ def _head_w(cfg: TransformerConfig, p: Mapping[str, torch.Tensor]) -> torch.Tens
     under ``cfg.tie_embeddings``, the embedding table transposed (a tied
     head holds it as ``table``; generation splices it in)."""
     if "w" in p:
-        return p["w"]
+        return _w(cfg, p, "w")
     if cfg.tie_embeddings and "table" in p:
         return p["table"].T
     if cfg.tie_embeddings:
@@ -699,6 +754,7 @@ class LMHead(_Layer):
             )
 
     def forward(self, x: Any) -> torch.Tensor:
+        refuse_quantized(self, "this head")
         if _is_packed_act(x):
             x = x[0]   # logits come from the hidden plane
         p = self.params()
@@ -768,16 +824,20 @@ class Llama(nn.Sequential):
     """``[embed, block_0 .. block_{n-1}, head]``, the reference's flat
     ``llama(cfg)`` layer list as one ``nn.Sequential`` (no head with
     ``head=False``).  A tied config's head holds the embedding's
-    ``table`` (:func:`llama_tied`; :func:`llama` refuses the tie)."""
+    ``table`` (:func:`llama_tied`; :func:`llama` refuses the tie).
+    ``mlp(device)`` makes each block's custom feed-forward
+    (``models.moe.llama_moe``)."""
 
     def __init__(self, cfg: TransformerConfig, *, head: bool = True,
-                 device: Device = None):
+                 device: Device = None,
+                 mlp: Optional[Callable[[torch.device], nn.Module]] = None):
         dev = resolve_device(device)
         embed = TokenEmbedding(cfg, device=dev)
         table = embed.table if cfg.tie_embeddings else None
         super().__init__(
             embed,
-            *[TransformerBlock(cfg, device=dev) for _ in range(cfg.n_layers)],
+            *[TransformerBlock(cfg, device=dev, mlp=None if mlp is None else mlp(dev))
+              for _ in range(cfg.n_layers)],
             *([LMHead(cfg, device=dev, table=table)] if head else []),
         )
         self.cfg = cfg
@@ -849,11 +909,12 @@ def token_embedding(
 
 def transformer_block(
     cfg: TransformerConfig, *, device: Device = None,
-    generator: Optional[torch.Generator] = None, mlp: Any = None,
+    generator: Optional[torch.Generator] = None, mlp: Optional[nn.Module] = None,
 ) -> TransformerBlock:
-    if mlp is not None:
-        raise not_ported("custom / MoE feed-forward blocks (mlp=)", "5")
-    return _init(TransformerBlock(cfg, device=device), generator)
+    """One block, initialised from ``generator``; ``mlp`` replaces the
+    dense feed-forward (see :class:`TransformerBlock`) and is drawn after
+    the block's own weights when it has ``reset_parameters``."""
+    return _init(TransformerBlock(cfg, device=device, mlp=mlp), generator)
 
 
 def lm_head(

@@ -25,6 +25,14 @@ axis) because of VMEM size; on Hopper one tile loop serves every length.
   scalar: the kernel derives its split of the live keys on the device
   (:func:`decode_split` mirrors it), and its grid depends only on the
   cache's size.
+* :func:`flash_attention_f32` (with :func:`flash_bwd_dq_f32` and
+  :func:`flash_bwd_dkv_f32`) and :func:`flash_decode_simt` launch
+  ``csrc/flash_simt.cu``, CUDA-core kernels for what the tensor-core ones
+  have no instantiation for: float32 attention (the reference's kernels
+  take float32) and decode at head dims other than 64 and 128.
+* :func:`attention_route` says which of these a shape runs on (a
+  bfloat16 head dim below 128 is zero-padded for the tensor-core
+  kernels); :func:`attention` and :func:`decode_attention` follow it.
 
 Each wrapper launches its kernel for CUDA tensors and raises for what the
 kernel does not take (device, dtype, contiguity, head dim).  It runs the
@@ -49,6 +57,7 @@ import heapq
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from torchgpipe_tpu_torch.ops import _build
 
@@ -743,24 +752,14 @@ def _check_scales(
     return quant
 
 
-def flash_decode_attention(
-    q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, pos0: Any, *,
-    window: Optional[int] = None,
-    k_scale: Optional[torch.Tensor] = None,
-    v_scale: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """``g`` consecutive rope'd queries ``q: [b, g, nh, hd]`` (positions
-    ``pos0 .. pos0+g-1``) against the live prefix ``[0, pos0+g)`` of a
-    ``[b, max_len, nkv, hd]`` cache.  ``pos0`` is a host ``int`` or a 0-d
-    int32 tensor on ``q``'s device, as the reference's runtime scalar
-    (:func:`flash_decode_reference` also takes one per row).  The kernel
-    reads a tensor ``pos0`` on the device and clamps it to ``[0, max_len
-    - g]``; its grid and scratch depend on ``max_len``, not on ``pos0``, so
-    a captured call replays at any length, and the two forms give equal
-    bits.  A host ``int`` (and a CPU tensor) is range-checked.  With
-    ``k_scale``/``v_scale`` (both or neither: float32 ``[b, nkv,
-    max_len]``) the cache is int8, as the reference's ``QuantKVCache``
-    stores it.  Returns float32 ``[b, g, nh*hd]``."""
+def _decode_args(
+    q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, pos0: Any,
+    window: Optional[int], k_scale: Optional[torch.Tensor],
+    v_scale: Optional[torch.Tensor],
+) -> Tuple[bool, Optional[torch.Tensor], int]:
+    """The decode wrappers' argument checks: ``(quant, pos_dev, pos0)``,
+    ``pos_dev`` the device ``pos0`` tensor (else None and ``pos0`` a
+    range-checked host int)."""
     if window is not None and window < 1:
         raise ValueError("window must be >= 1")
     b, g, nh, hd = q.shape
@@ -783,6 +782,30 @@ def flash_decode_attention(
         pos0 = int(pos0)
         if not 0 <= pos0 <= max_len - g:
             raise ValueError(f"pos0={pos0} + g={g} outside the cache ({max_len})")
+    return quant, pos_dev, pos0
+
+
+def flash_decode_attention(
+    q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, pos0: Any, *,
+    window: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``g`` consecutive rope'd queries ``q: [b, g, nh, hd]`` (positions
+    ``pos0 .. pos0+g-1``) against the live prefix ``[0, pos0+g)`` of a
+    ``[b, max_len, nkv, hd]`` cache.  ``pos0`` is a host ``int`` or a 0-d
+    int32 tensor on ``q``'s device, as the reference's runtime scalar
+    (:func:`flash_decode_reference` also takes one per row).  The kernel
+    reads a tensor ``pos0`` on the device and clamps it to ``[0, max_len
+    - g]``; its grid and scratch depend on ``max_len``, not on ``pos0``, so
+    a captured call replays at any length, and the two forms give equal
+    bits.  A host ``int`` (and a CPU tensor) is range-checked.  With
+    ``k_scale``/``v_scale`` (both or neither: float32 ``[b, nkv,
+    max_len]``) the cache is int8, as the reference's ``QuantKVCache``
+    stores it.  Returns float32 ``[b, g, nh*hd]``."""
+    quant, pos_dev, pos0 = _decode_args(q, ck, cv, pos0, window, k_scale, v_scale)
+    b, g, nh, hd = q.shape
+    max_len, nkv = ck.shape[1], ck.shape[2]
     if q.device.type == "cpu":
         return flash_decode_reference(q, ck, cv, pos0, window=window,
                                       k_scale=k_scale, v_scale=v_scale)
@@ -833,9 +856,383 @@ flash_decode_attention.launches = 0
 flash_decode_attention.launches_int8 = 0
 
 
+# --------------------------------------------------------------------- #
+# float32, and decode at other head dims: csrc/flash_simt.cu            #
+# --------------------------------------------------------------------- #
+
+SIMT_HEAD_DIM_MAX = 128   # csrc/flash_simt.cu DMAX
+# q, k, v, o, lse, b, s, sk, h, g, d, scale, causal, window, stream
+_FWD_F32_ARGS = [_P] * 5 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
+# q, k, v, dout, lse, delta, dq, b, s, sk, h, g, d, scale, causal, window,
+# stream
+_BWD_DQ_F32_ARGS = [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
+# q, k, v, dout, lse, delta, dk, dv, b, s, sk, h, g, d, scale, causal,
+# window, stream
+_BWD_DKV_F32_ARGS = [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
+# q, ck, cv, k_scale, v_scale, out, pos_dev, pos_host, b, g, nh, nkv, hd,
+# max_len, window, scale, q_type, kv_type, stream
+_DECODE_SIMT_ARGS = [_P] * 7 + [_I] * 8 + [ctypes.c_float, _I, _I, _P]
+
+
+def supports_f32(
+    q_shape: Tuple[int, ...], k_shape: Tuple[int, ...],
+    dtype: torch.dtype = torch.float32,
+) -> bool:
+    """Whether the float32 kernels of ``csrc/flash_simt.cu`` take these
+    shapes: float32, any head dim up to 128, ``h`` a multiple of ``g``."""
+    b, s, h, d = q_shape
+    g = k_shape[2]
+    return (
+        dtype == torch.float32 and 0 < d <= SIMT_HEAD_DIM_MAX and g > 0
+        and h % g == 0 and k_shape[3] == d
+    )
+
+
+def supports_decode_simt(
+    q_shape: Tuple[int, ...], k_shape: Tuple[int, ...],
+    window: Optional[int], dtype: torch.dtype = torch.bfloat16,
+) -> bool:
+    """Whether the decode of ``csrc/flash_simt.cu`` takes these shapes: a
+    bfloat16, float32 or int8 cache (``dtype``), any head dim up to 128,
+    ``nh`` a multiple of ``nkv``."""
+    b, g, nh, hd = q_shape
+    nkv = k_shape[2]
+    return (
+        dtype in _DECODE_TYPES and 0 < hd <= SIMT_HEAD_DIM_MAX
+        and k_shape[3] == hd and nkv > 0 and nh % nkv == 0
+        and (window is None or window >= 1)
+    )
+
+
+def _check_f32(what: str, *ts: torch.Tensor) -> None:
+    _check_cuda(what, *ts)
+    if any(t.dtype != torch.float32 for t in ts):
+        raise TypeError(
+            f"{what} kernel takes float32 operands, got "
+            f"{'/'.join(str(t.dtype) for t in ts)}"
+        )
+
+
+def _check_f32_shapes(what: str, q, k, v, do=None) -> None:
+    if not supports_f32(q.shape, k.shape, q.dtype) or v.shape != k.shape \
+            or (do is not None and do.shape != q.shape):
+        raise ValueError(
+            f"{what} kernel does not take q {tuple(q.shape)}, k "
+            f"{tuple(k.shape)}, v {tuple(v.shape)}: head dim must be at most "
+            f"{SIMT_HEAD_DIM_MAX} and h a multiple of g"
+        )
+
+
+def _flash_fwd_f32(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+    sm_scale: float, window: Optional[int],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)`` of float32 attention: ``csrc/flash_simt.cu`` on
+    CUDA tensors, the plain version on CPU tensors."""
+    if q.device.type in _PLAIN_DEVICES:
+        return _reference_fwd(q, k, v, causal, sm_scale, window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_f32: unsupported device {q.device}")
+    _check_f32("flash_fwd_f32", q, k, v)
+    _check_f32_shapes("flash_fwd_f32", q, k, v)
+    b, s, h, d = q.shape
+    sk, g = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
+    fn = _build.function("flash_simt", "tgt_flash_fwd_f32", _FWD_F32_ARGS)
+    rc = fn(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse), b, s, sk, h, g, d,
+        float(sm_scale), int(causal), 0 if window is None else int(window),
+        _stream(q),
+    )
+    _build.check(rc, "flash_fwd_f32")
+    _count(flash_attention_f32)
+    return o, lse
+
+
+def flash_bwd_dq_f32(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, *, causal: bool, sm_scale: float,
+    window: Optional[int],
+) -> torch.Tensor:
+    """dQ of :func:`flash_attention_f32`, as :func:`flash_bwd_dq` for
+    bfloat16: ``csrc/flash_simt.cu`` on CUDA tensors, the plain version
+    on CPU tensors."""
+    if q.device.type == "cpu":
+        return _reference_grads(
+            q, k, v, do, lse, delta, causal, sm_scale, window
+        )[0]
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_bwd_dq_f32: unsupported device {q.device}")
+    _check_f32("flash_bwd_dq_f32", q, k, v, do, lse, delta)
+    _check_f32_shapes("flash_bwd_dq_f32", q, k, v, do)
+    b, s, h, d = q.shape
+    sk, g = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q)
+    fn = _build.function("flash_simt", "tgt_flash_bwd_dq_f32", _BWD_DQ_F32_ARGS)
+    rc = fn(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dq),
+        b, s, sk, h, g, d, float(sm_scale), int(causal),
+        0 if window is None else int(window), _stream(q),
+    )
+    _build.check(rc, "flash_bwd_dq_f32")
+    _count(flash_bwd_dq_f32)
+    return dq
+
+
+flash_bwd_dq_f32.launches = 0
+
+
+def flash_bwd_dkv_f32(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, *, causal: bool, sm_scale: float,
+    window: Optional[int],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dK, dV)`` of :func:`flash_attention_f32`, summed over each kv
+    head's query heads, from the same inputs as :func:`flash_bwd_dq_f32`."""
+    if q.device.type == "cpu":
+        return _reference_grads(
+            q, k, v, do, lse, delta, causal, sm_scale, window
+        )[1:]
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_bwd_dkv_f32: unsupported device {q.device}")
+    _check_f32("flash_bwd_dkv_f32", q, k, v, do, lse, delta)
+    _check_f32_shapes("flash_bwd_dkv_f32", q, k, v, do)
+    b, s, h, d = q.shape
+    sk, g = k.shape[1], k.shape[2]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = _build.function("flash_simt", "tgt_flash_bwd_dkv_f32", _BWD_DKV_F32_ARGS)
+    rc = fn(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dk),
+        _ptr(dv), b, s, sk, h, g, d, float(sm_scale), int(causal),
+        0 if window is None else int(window), _stream(q),
+    )
+    _build.check(rc, "flash_bwd_dkv_f32")
+    _count(flash_bwd_dkv_f32)
+    return dk, dv
+
+
+flash_bwd_dkv_f32.launches = 0
+
+
+class _FlashAttentionF32(torch.autograd.Function):
+    """:class:`_FlashAttention` for float32: forward and backward
+    through ``csrc/flash_simt.cu``, or the plain version on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, window):
+        o, lse = _flash_fwd_f32(q, k, v, causal, sm_scale, window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, sm_scale, window)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, sm_scale, window = ctx.args
+        do = do.contiguous()
+        delta = _delta(do, o)
+        if q.device.type in _PLAIN_DEVICES:
+            dq, dk, dv = _reference_grads(
+                q, k, v, do, lse, delta, causal, sm_scale, window
+            )
+        else:
+            kw = dict(causal=causal, sm_scale=sm_scale, window=window)
+            dq = flash_bwd_dq_f32(q, k, v, do, lse, delta, **kw)
+            dk, dv = flash_bwd_dkv_f32(q, k, v, do, lse, delta, **kw)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_f32(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = True, sm_scale: Optional[float] = None,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """:func:`flash_attention` for float32 ``q``/``k``/``v`` at any head
+    dim up to 128, on the CUDA cores.  Differentiable in ``q``, ``k``
+    and ``v``."""
+    sm_scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
+    _validate_window(causal, window)
+    return _FlashAttentionF32.apply(q, k, v, causal, sm_scale, window)
+
+
+flash_attention_f32.launches = 0
+
+
+def flash_decode_simt(
+    q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, pos0: Any, *,
+    window: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """:func:`flash_decode_attention` at any head dim up to 128 (the
+    decode of ``csrc/flash_simt.cu``, on the CUDA cores): the same
+    arguments, the same ``pos0`` forms, float32 ``[b, g, nh*hd]``."""
+    quant, pos_dev, pos0 = _decode_args(q, ck, cv, pos0, window, k_scale, v_scale)
+    b, g, nh, hd = q.shape
+    max_len, nkv = ck.shape[1], ck.shape[2]
+    if q.device.type == "cpu":
+        return flash_decode_reference(q, ck, cv, pos0, window=window,
+                                      k_scale=k_scale, v_scale=v_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode_simt: unsupported device {q.device}")
+    scales = (k_scale, v_scale) if quant else ()
+    _check_cuda("flash_decode_simt", q, ck, cv, *scales)
+    if q.dtype not in (torch.bfloat16, torch.float32) or (
+        not quant and ck.dtype != q.dtype
+    ):
+        raise TypeError(
+            f"flash_decode_simt kernel takes a bfloat16 or float32 q with a "
+            f"cache of its type or an int8 cache, got {q.dtype}/{ck.dtype}/"
+            f"{cv.dtype}"
+        )
+    if not supports_decode_simt(q.shape, ck.shape, window, ck.dtype) \
+            or cv.shape != ck.shape:
+        raise ValueError(
+            f"flash_decode_simt kernel does not take q {tuple(q.shape)}, cache "
+            f"{tuple(ck.shape)}: head dim must be at most {SIMT_HEAD_DIM_MAX}"
+        )
+    out = torch.empty((b, g, nh * hd), dtype=torch.float32, device=q.device)
+    ks_p, vs_p = (_ptr(k_scale), _ptr(v_scale)) if quant else (None, None)
+    fn = _build.function("flash_simt", "tgt_flash_decode_simt", _DECODE_SIMT_ARGS)
+    rc = fn(
+        _ptr(q), _ptr(ck), _ptr(cv), ks_p, vs_p, _ptr(out),
+        None if pos_dev is None else _ptr(pos_dev),
+        0 if pos_dev is not None else pos0, b, g, nh, nkv, hd, max_len,
+        0 if window is None else int(window), float(hd ** -0.5),
+        _DECODE_TYPES[q.dtype], _DECODE_TYPES[ck.dtype], _stream(q),
+    )
+    _build.check(rc, "flash_decode_simt")
+    _count(flash_decode_simt)
+    return out
+
+
+flash_decode_simt.launches = 0
+
+
+# --------------------------------------------------------------------- #
+# routing: which kernel the callers run                                 #
+# --------------------------------------------------------------------- #
+
+
+class Route(NamedTuple):
+    """:func:`attention_route`'s answer: ``kind`` is ``"kernel"`` (the
+    tensor-core kernel as is), ``"pad"`` (the head dim zero-padded to
+    ``head_dim`` for the tensor-core kernel), ``"simt"`` (the CUDA-core
+    kernels of ``csrc/flash_simt.cu``) or ``"none"`` (no kernel takes
+    it: the plain version on the CPU, refused on the card);
+    ``head_dim`` is the dim the work runs at."""
+
+    kind: str
+    head_dim: int
+
+
+@functools.lru_cache(maxsize=256)
+def attention_route(
+    q_shape: Tuple[int, ...], k_shape: Tuple[int, ...], dtype: torch.dtype,
+    *, window: Optional[int] = None, decode: bool = False,
+    cache_dtype: Optional[torch.dtype] = None,
+) -> Route:
+    """Which kernel attention of these shapes runs on, where the
+    reference's callers route around its kernels' limits.
+
+    Forward and backward (the training block, the prefill): a
+    :func:`supports` shape runs the tensor-core kernels; bfloat16 with a
+    head dim below 128 that is not instantiated (d=32, Phi-2's 80) is
+    zero-padded to the next instantiated dim, as the reference pads to
+    128 lanes (exact: the zero columns add nothing to ``q·k`` and give
+    zero output columns, sliced off); float32 up to d=128 runs the
+    float32 kernels.  Decode (``decode=True``, the cache in
+    ``cache_dtype``): a :func:`supports_decode` shape runs the
+    tensor-core decode, any other head dim up to 128 the CUDA-core one.
+    A decode is never padded: that would copy the whole cache every
+    token.  Anything else (float16, a head dim above 128) has no kernel
+    yet.  Answers are cached by shape: a decode step asks once a layer."""
+    d = q_shape[-1]
+    if decode:
+        cdt = dtype if cache_dtype is None else cache_dtype
+        if dtype not in (torch.bfloat16, torch.float32) \
+                or cdt not in (dtype, torch.int8):
+            return Route("none", d)
+        if supports_decode(q_shape, k_shape, window, cdt):
+            return Route("kernel", d)
+        if supports_decode_simt(q_shape, k_shape, window, cdt):
+            return Route("simt", d)
+        return Route("none", d)
+    if supports(q_shape, k_shape, dtype):
+        return Route("kernel", d)
+    if supports_f32(q_shape, k_shape, dtype):
+        return Route("simt", d)
+    padded = next((D for D in FWD_HEAD_DIMS if D > d), None)
+    if padded is not None and supports(
+            (*q_shape[:-1], padded), (*k_shape[:-1], padded), dtype):
+        return Route("pad", padded)
+    return Route("none", d)
+
+
+def _no_kernel(q: torch.Tensor, k_shape: Tuple[int, ...], what: str) -> None:
+    """Refuse, on the card, attention that no kernel takes."""
+    if q.device.type not in _PLAIN_DEVICES:
+        raise ValueError(
+            f"{what}: no CUDA kernel takes {q.dtype} q {tuple(q.shape)} with "
+            f"k/cache {tuple(k_shape)} (bfloat16 and float32 up to head dim "
+            f"{SIMT_HEAD_DIM_MAX} are taken)"
+        )
+
+
+def attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = True, window: Optional[int] = None,
+) -> torch.Tensor:
+    """Differentiable attention as :func:`attention_route` routes it:
+    :func:`flash_attention`, :func:`flash_attention` on ``q``/``k``/``v``
+    zero-padded in the head dim (``sm_scale`` of the real dim) with the
+    output sliced back, or :func:`flash_attention_f32`.  On the CPU each
+    runs its plain version; on the card a shape no kernel takes raises.
+    The training block and the prefill call this."""
+    d = q.shape[-1]
+    route = attention_route(q.shape, k.shape, q.dtype, window=window)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if route.kind == "none":
+        _no_kernel(q, k.shape, "attention")
+        return flash_attention_reference(q, k, v, causal=causal, window=window)
+    if route.kind == "simt":
+        return flash_attention_f32(q, k, v, causal=causal, window=window)
+    if route.kind == "pad":
+        pad = (0, route.head_dim - d)
+        out = flash_attention(
+            F.pad(q, pad), F.pad(k, pad), F.pad(v, pad), causal=causal,
+            sm_scale=d ** -0.5, window=window)
+        return out[..., :d]
+    return flash_attention(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(
+    q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, pos0: Any, *,
+    window: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Decode attention of ``g`` queries against a cache as
+    :func:`attention_route` routes it (``decode=True``):
+    :func:`flash_decode_attention` or :func:`flash_decode_simt` over the
+    whole cache, never padded.  On the card a shape no kernel takes
+    raises.  Float32 ``[b, g, nh*hd]``."""
+    route = attention_route(q.shape, ck.shape, q.dtype, window=window,
+                            decode=True, cache_dtype=ck.dtype)
+    kw = dict(window=window, k_scale=k_scale, v_scale=v_scale)
+    if route.kind == "kernel":
+        return flash_decode_attention(q, ck, cv, pos0, **kw)
+    if route.kind == "simt":
+        return flash_decode_simt(q, ck, cv, pos0, **kw)
+    _no_kernel(q, ck.shape, "decode_attention")
+    return flash_decode_reference(q, ck, cv, pos0, **kw)
+
+
 def reset_launches() -> None:
     """Set every kernel launch count of this module to 0."""
     for fn in (flash_attention, flash_bwd_dq, flash_bwd_dkv,
-               flash_decode_attention):
+               flash_decode_attention, flash_attention_f32, flash_bwd_dq_f32,
+               flash_bwd_dkv_f32, flash_decode_simt):
         fn.launches = 0
     flash_decode_attention.launches_int8 = 0

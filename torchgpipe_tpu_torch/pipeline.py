@@ -43,6 +43,11 @@ Counterpart of ``torchgpipe_tpu/pipeline.py`` (``clock_cycles``,
   the micro-batch index, ``fold_in(rng, i)``, and the stage folds in
   each layer's index; a checkpointed cell saves its key with its
   inputs, so its recompute draws the same dropout masks.
+* Every cell's forward, and a checkpointed cell's recompute, runs under
+  ``auxgrad.aux_scale(1/m)`` with ``m`` the micro-batches of this run
+  (fewer than ``chunks`` for a ragged batch), so an injected auxiliary
+  gradient (a MoE balance penalty) is a micro-batch mean, as the
+  reference's per-cell weighting makes it.
 * ``tracer`` (:class:`~torchgpipe_tpu_torch.utils.tracing.Timeline`)
   records a span per cell: ``fwd`` and ``bwd`` (a recompute inside its
   backward), and ``loss``.
@@ -59,6 +64,7 @@ import torch.utils._pytree as pytree
 
 from torchgpipe_tpu_torch import checkpoint as ckpt
 from torchgpipe_tpu_torch import microbatch
+from torchgpipe_tpu_torch.auxgrad import aux_scale
 from torchgpipe_tpu_torch.rng import Key
 from torchgpipe_tpu_torch.skip import SkipLayout
 
@@ -135,10 +141,11 @@ class _Cells:
     what each cell keeps between its forward and its backward, and the
     skips and skip cotangents in flight."""
 
-    def __init__(self, pipe: "Pipeline", checkpoint_stop: int,
+    def __init__(self, pipe: "Pipeline", m: int, checkpoint_stop: int,
                  offload: Optional[ckpt.Offload] = None,
                  rng: Optional[Key] = None) -> None:
         self.pipe = pipe
+        self.aux = 1.0 / m     # every forward and recompute injects at 1/m
         self.stop = checkpoint_stop
         self.offload = offload
         self.rng = rng
@@ -157,14 +164,14 @@ class _Cells:
         skips_in = {k: _as_leaf(self.skips.pop((i, k))) for k in stage.ext_pop_keys}
         rng_i = _mb_key(self.rng, i)
         if i < self.stop:
-            with torch.no_grad(), ckpt.phase(checkpointing=True):
+            with torch.no_grad(), ckpt.phase(checkpointing=True), aux_scale(self.aux):
                 y, ext = stage(x, skips_in, rng_i)
             self.saved[(i, j)] = (x, skips_in, rng_i)
         else:
             hooks = contextlib.nullcontext() if self.offload is None else \
                 self.offload.cell((i, j), dev, _leaves((x, *skips_in.values()))
                                   + list(stage.parameters()))
-            with torch.enable_grad(), ckpt.phase(), hooks:
+            with torch.enable_grad(), ckpt.phase(), hooks, aux_scale(self.aux):
                 y, ext = stage(x, skips_in, rng_i)
             self.graphs[(i, j)] = (x, skips_in, y, ext)
         if pipe.tracer is not None:
@@ -188,7 +195,7 @@ class _Cells:
                 None if nxt is None else pipe.devices[nxt[1]])
         if (i, j) in self.saved:
             x, skips_in, rng_i = self.saved.pop((i, j))
-            with torch.enable_grad(), ckpt.phase(recomputing=True):
+            with torch.enable_grad(), ckpt.phase(recomputing=True), aux_scale(self.aux):
                 y, ext = stage(x, skips_in, rng_i)
         else:
             x, skips_in, y, ext = self.graphs.pop((i, j))
@@ -231,7 +238,7 @@ class Pipeline:
         acts: Dict[int, Any] = {}
         skips: Dict[Tuple[int, Any], torch.Tensor] = {}
         outs: List[Any] = [None] * m
-        with torch.no_grad():
+        with torch.no_grad(), aux_scale(1.0 / m):
             for cycle in clock_cycles(m, n):
                 for i, j in cycle:
                     stage = self.stages[j]
@@ -265,7 +272,7 @@ class Pipeline:
         ``offload``, the cells' saved tensors wait in host memory
         (``checkpoint='offload'``)."""
         n, m = len(self.stages), len(mbatches)
-        cells = _Cells(self, checkpoint_stop, offload, rng)
+        cells = _Cells(self, m, checkpoint_stop, offload, rng)
         acts: Dict[int, Any] = {}
         outs: List[Any] = [None] * m
 
@@ -316,7 +323,7 @@ class Pipeline:
         per micro-batch."""
         n, m = len(self.stages), len(mbatches)
         orders = one_f1b_orders(m, n)
-        cells = _Cells(self, checkpoint_stop, rng=rng)
+        cells = _Cells(self, m, checkpoint_stop, rng=rng)
         acts: Dict[Cell, Any] = {}
         gys: Dict[Cell, Any] = {}
         losses: List[Any] = [None] * m

@@ -82,11 +82,14 @@ class _Policy(nn.Module):
 
 
 class ComputeIn(_Policy):
-    """Runs its layer on parameters and inputs cast to ``dtype``."""
+    """Runs its layer on parameters and inputs cast to ``dtype``; a
+    parameter whose ``keep_dtype`` attribute is true (a MoE router,
+    ``models.moe.MoEMLP``) keeps its own."""
 
     def forward(self, x: Any, *args: Any) -> Any:
         inputs = (_cast(x, self.dtype), *_cast(args, self.dtype))
-        params = {n: _cast(p, self.dtype) for n, p in self.layer.named_parameters()}
+        params = {n: p if getattr(p, "keep_dtype", False) else _cast(p, self.dtype)
+                  for n, p in self.layer.named_parameters()}
         if not params:
             return self.layer(*inputs)
         return torch.func.functional_call(self.layer, params, inputs)

@@ -64,11 +64,18 @@ continuing exactly where it stopped (greedy decode is
 prefix-deterministic).  The snapshot format is the reference's, so a
 drain written by either package restores in the other.
 
+A MoE model serves with ``moe=MoEConfig(...)`` (token-choice routing;
+``expert_choice`` is refused, as the reference refuses it): the slot step
+runs the routed experts in inference mode, and a ``'dropless'`` config's
+grouped products take device offsets, so its programs capture as the
+dense model's do.  A model from ``models.quant.quantize_params_int8``
+serves as any other: its graphs dequantize the int8 weights each step.
+
 Not ported (each raises ``not_ported``, ROADMAP.md queue A item 5): the
 disaggregated ``role="prefill"``/``"decode"`` and KV migration, the
 radix ``prefix_cache``, the flight ``recorder`` and step ``reporter``,
-MoE feed-forward (``moe``), and ``kv_row_specs`` with the static serving
-lint and certificates that read it.
+and ``kv_row_specs`` with the static serving lint and certificates that
+read it.
 """
 
 from __future__ import annotations
@@ -85,7 +92,7 @@ from torchgpipe_tpu_torch.models.generation import (
     _check_decodable,
     _decode_slots,
     _model_device,
-    _refuse_moe,
+    _mlp_layer_for,
     _sample,
     _split_params,
 )
@@ -103,6 +110,19 @@ from torchgpipe_tpu_torch.serving.scheduler import (
     Scheduler,
     normalize_buckets,
 )
+
+
+def _flat(p: Dict[str, Any], prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
+    """A layer's param dict as sorted ``(path, tensor)`` pairs, nested
+    dicts (LoRA adapters, a MoE block's ``"mlp"``, an int8 weight's
+    ``{"q8", "sc"}``) flattened to ``a.b`` paths."""
+    out: List[Tuple[str, torch.Tensor]] = []
+    for k, v in sorted(p.items()):
+        if isinstance(v, dict):
+            out += _flat(v, f"{prefix}{k}.")
+        else:
+            out.append((prefix + k, v))
+    return out
 
 
 class TensorSpec(NamedTuple):
@@ -239,7 +259,19 @@ class Engine:
             raise not_ported("the flight recorder (recorder=)", "5")
         if reporter is not None:
             raise not_ported("the step reporter (reporter=)", "5")
-        _refuse_moe(moe)
+        if moe is not None and getattr(moe, "router", "topk") == "expert_choice":
+            raise ValueError(
+                "expert_choice routing selects the top-C tokens PER "
+                "EXPERT across the batch — at decode time the batch is "
+                "one token per slot, so the experts compete over "
+                "UNRELATED streams and a slot's token can be chosen by "
+                "no expert (it silently emits the zero vector, "
+                "corrupting that stream); serve MoE models with "
+                "token-choice routing (router='topk'), which routes "
+                "every token independently of its batch neighbours"
+            )
+        self.moe = moe
+        self._mlp = _mlp_layer_for(moe)
         self.cfg = cfg
         self.device = _model_device(model, device)
         self._params = _split_params(cfg, model)   # validates the layer list
@@ -394,7 +426,7 @@ class Engine:
         S, g = prog.tokens.shape
         logits, _, new_len = _decode_slots(
             self.cfg, self._params, prog.tokens, self.pool.cache,
-            self._lengths, prog.n_valid,
+            self._lengths, prog.n_valid, self._mlp,
         )
         if prog.prefill:
             last = (prog.n_valid - 1).clamp(0, g - 1)
@@ -527,7 +559,7 @@ class Engine:
         def sig(params: Tuple) -> List[Tuple[str, Tuple[int, ...], torch.dtype, torch.device]]:
             embed_p, block_p, head_p = params
             return [(k, tuple(t.shape), t.dtype, t.device)
-                    for p in [embed_p, *block_p, head_p] for k, t in sorted(p.items())]
+                    for p in [embed_p, *block_p, head_p] for k, t in _flat(p)]
 
         if sig(new) != sig(self._params):
             raise ValueError(
@@ -539,9 +571,9 @@ class Engine:
         with torch.no_grad():
             for dst_p, src_p in zip([self._params[0], *self._params[1], self._params[2]],
                                     [new[0], *new[1], new[2]]):
-                for k, dst in dst_p.items():
-                    if src_p[k] is not dst:
-                        dst.copy_(src_p[k])
+                for (_, dst), (_, src) in zip(_flat(dst_p), _flat(src_p)):
+                    if src is not dst:
+                        dst.copy_(src)
         self.version = int(version)
 
     # ------------------------------------------------------------------ #
