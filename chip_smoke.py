@@ -11,10 +11,10 @@ they need) and prints no kernels line; by default every phase runs:
 2. build: every CUDA kernel under torchgpipe_tpu_torch/csrc/ with nvcc; any
    register spill that ptxas reports fails the run; each kernel's
    registers and shared memory from the ptxas report.  SASS check
-   (``cuobjdump -sass``, from the CUDA toolkit): flash_fwd, flash_bwd_dq and
-   flash_bwd_dkv must hold HGMMA (wgmma) and UTMALDG (TMA loads) in every
-   instantiation, the decode partial kernel UTMALDG and (bf16 and int8
-   caches) HMMA.
+   (``cuobjdump -sass``, from the CUDA toolkit): flash_fwd, flash_bwd_dq,
+   flash_bwd_dkv and the 3xTF32 forward must hold HGMMA (wgmma) and
+   UTMALDG (TMA loads) in every instantiation, the decode partial kernel
+   UTMALDG and (bf16 and int8 caches) HMMA.
 3. flash_fwd against its plain PyTorch version on the card at every
    shape the later phases launch it at (the generate prefill, b=4; the
    training micro-batch, b=2; the speculative phase's hd-64 draft and
@@ -44,17 +44,21 @@ they need) and prints no kernels line; by default every phase runs:
    at the main, the long and phase 18's non-causal ViT-L/16 shape, and
    phase 3's padded d=80 and d=32 rows (the kernels at the padded dim,
    the gradients sliced back and held to the unpadded plain backward).
-5b. simt: csrc/flash_simt.cu, the CUDA-core kernels for what the
-   tensor-core ones have no instantiation for: its float32 forward, dQ
-   and dK/dV against the plain versions (row by row) and its decode
-   (bf16, float32 and int8 caches at head dims 32, 80 and 96, a device
-   pos0 bitwise equal to the host int) at the path's shapes and at edges,
-   timed beside SDPA; then its path: a float32 Llama at the "1b" widths
-   and a bf16 Llama at Phi-2's attention widths (d=80), each cut to 2
-   blocks, take a GPipe step and ``generate`` 4 x 512 + 32 tokens, their
-   launches gated (float32: flash_simt's forward and backward and
-   flash_decode's float32 instantiation; d=80: the tensor-core kernels
-   zero-padded and flash_simt's decode), tokens teacher-forced.
+5b. simt: float32 attention and decode at head dims other than 64 and
+   128.  The float32 forward of csrc/flash_fwd_tf32.cu (3xTF32 wgmma)
+   with csrc/flash_simt.cu's dQ and dK/dV against the plain versions
+   (row by row), and flash_decode (csrc/flash_decode.cu at the real head
+   dim: bf16, float32 and int8 caches at head dims 32, 80 and 96, a
+   device pos0 bitwise equal to the host int), at the path's shapes and
+   at edges, timed beside SDPA; flash_simt's CUDA-core forward and decode
+   at shapes TMA cannot map (d=18, an int8 cache at d=24), and timed at
+   the path's shapes as the earlier kernels; then the path: a float32
+   Llama at the "1b" widths and a bf16 Llama at Phi-2's attention widths
+   (d=80), each cut to 2 blocks, take a GPipe step and ``generate`` 4 x
+   512 + 32 tokens, their launches gated (float32: the 3xTF32 forward,
+   flash_simt's backward and flash_decode's float32 instantiation; d=80:
+   the tensor-core kernels zero-padded and flash_decode at d=80; no
+   CUDA-core forward or decode), tokens teacher-forced.
 6. slice: greedy ``generate`` at Llama-3-8B width (random weights from a
    seed, 32 layers, batch 4, prompt 1024, 128 new tokens), with the
    kernels' launch counts read around that one call, prefill logits of
@@ -210,9 +214,11 @@ library yardsticks, the fastest SDPA backend by name; ``launches``
 counts one generate call for the forward
 and decode kernels, one ``generate(kv_quant=True)`` call for the int8
 decode variant, one training step for the backward kernels, phase 5b's
-float32 step for flash_simt's float32 kernels and its d=80 generate for
-its decode; every path's counts are in ``launches_by_path``, flash_simt's
-0 on every bf16 path at head dims 64 and 128), the card line, and the
+float32 step for the 3xTF32 forward and flash_simt's backward kernels,
+and 0 for flash_simt's forward and decode, which no path reaches; every
+path's counts are in ``launches_by_path``, flash_simt's and the 3xTF32
+forward's 0 on every bf16 path at head dims 64 and 128), the card line,
+and the
 last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the package beside this script, it exits non-zero and prints no result.
@@ -235,6 +241,7 @@ import warnings
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_F32_FLOPS = 67e12     # H100 SXM float32 rate outside the tensor cores
+PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 tensor-core rate (3xTF32: a third of it)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 rate
 # bf16 attention output: the kernel rounds P to bf16 before P @ V (one
 # bf16 rounding, 2^-9 relative, of each weight of an average of V rows
@@ -291,6 +298,7 @@ KERNEL_FUNCS = {
     "flash_decode_int8": ("flash_decode", ("flash_decode_kernel", "flash_decode_merge")),
     "flash_bwd_dq": ("flash_bwd", ("flash_bwd_dq_kernel",)),
     "flash_bwd_dkv": ("flash_bwd", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_sum_kernel")),
+    "flash_fwd_tf32": ("flash_fwd_tf32", ("flash_fwd_tf32_kernel", "tf32_split_kernel")),
     "flash_fwd_f32": ("flash_simt", ("fwd_f32_kernel",)),
     "flash_bwd_dq_f32": ("flash_simt", ("dq_f32_kernel",)),
     "flash_bwd_dkv_f32": ("flash_simt", ("dkv_f32_kernel",)),
@@ -300,14 +308,16 @@ KERNEL_FUNCS = {
 # (wgmma) and UTMALDG (TMA tensor loads); the decode kernel's scores run on
 # mma.sync (HMMA) for bf16 and int8 caches (an f32 cache keeps f32
 # products on the CUDA cores: no HMMA there).  SASS_COUNT: instantiations
-# each must show (d = 64 and 128; decode: four query/cache type pairs x two
-# head dims x four row counts).
+# each must show (d = 64 and 128, the tile dims; decode: four query/cache
+# type pairs x two tile dims x four row counts, any head dim up to 128
+# running on one of the two tile dims).
 SASS_REQUIRED = {"flash_fwd": {"flash_fwd_kernel": ("HGMMA", "UTMALDG")},
                  "flash_bwd": {"flash_bwd_dkv_kernel": ("HGMMA", "UTMALDG"),
                                "flash_bwd_dq_kernel": ("HGMMA", "UTMALDG")},
-                 "flash_decode": {"flash_decode_kernel": ("UTMALDG", "HMMA")}}
+                 "flash_decode": {"flash_decode_kernel": ("UTMALDG", "HMMA")},
+                 "flash_fwd_tf32": {"flash_fwd_tf32_kernel": ("HGMMA", "UTMALDG")}}
 SASS_COUNT = {"flash_fwd_kernel": 2, "flash_bwd_dkv_kernel": 2, "flash_bwd_dq_kernel": 2,
-              "flash_decode_kernel": 32}
+              "flash_decode_kernel": 32, "flash_fwd_tf32_kernel": 2}
 
 
 def ptxas_report(build):
@@ -384,7 +394,8 @@ def sass_check(build):
 def smem_dynamic(build):
     """Dynamic shared memory per block at d=128 of the redesigned kernels
     (the decode kernel's at its main-path instantiation: bf16 cache, up to
-    4 rows a group), from their C interfaces."""
+    4 rows a group; the 3xTF32 forward's at its main path's d=64), from
+    their C interfaces."""
     import ctypes
 
     fwd = build.function("flash_fwd", "tgt_flash_fwd_smem_bytes", [ctypes.c_int])
@@ -392,10 +403,11 @@ def smem_dynamic(build):
     dkv = build.function("flash_bwd", "tgt_flash_bwd_dkv_smem_bytes", [ctypes.c_int])
     dec = build.function("flash_decode", "tgt_flash_decode_smem_bytes", [])
     simt = build.function("flash_simt", "tgt_flash_simt_smem_bytes", [ctypes.c_int] * 2)
+    tf32 = build.function("flash_fwd_tf32", "tgt_flash_fwd_tf32_smem_bytes", [ctypes.c_int])
     return {"flash_fwd": fwd(128), "flash_bwd_dq": dq(128), "flash_bwd_dkv": dkv(128),
             "flash_decode": dec(), "flash_decode_int8": dec(),
-            "flash_fwd_f32": simt(0, 128), "flash_bwd_dq_f32": simt(1, 128),
-            "flash_bwd_dkv_f32": simt(2, 128)}
+            "flash_fwd_tf32": tf32(64), "flash_fwd_f32": simt(0, 128),
+            "flash_bwd_dq_f32": simt(1, 128), "flash_bwd_dkv_f32": simt(2, 128)}
 
 
 def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
@@ -1040,6 +1052,7 @@ def kernel_launches(tfa):
             "flash_decode_int8": tfa.flash_decode_attention.launches_int8,
             "flash_bwd_dq": tfa.flash_bwd_dq.launches,
             "flash_bwd_dkv": tfa.flash_bwd_dkv.launches,
+            "flash_fwd_tf32": tfa.flash_attention_tf32.launches,
             "flash_fwd_f32": tfa.flash_attention_f32.launches,
             "flash_bwd_dq_f32": tfa.flash_bwd_dq_f32.launches,
             "flash_bwd_dkv_f32": tfa.flash_bwd_dkv_f32.launches,
@@ -3744,11 +3757,12 @@ def phase_mixtral(torch, tfa, tt, tg, card, seed: int):
             "row": out}
 
 
-# Phase 5b: the CUDA-core kernels of csrc/flash_simt.cu.  Its main path
-# is two models the tensor-core kernels do not take whole: a float32
-# Llama at benchmarks/llama_speed.py's "1b" widths (head dim 64), and a
-# bf16 Llama at Phi-2's attention widths (dim 2560, 32 heads of 80,
-# Phi-2's 51200 vocab and 10240 hidden), each cut to 2 blocks.
+# Phase 5b: float32 attention and decode at head dims other than 64 and
+# 128.  Its main path is two models the bf16 kernels at 64/128 do not
+# take whole: a float32 Llama at benchmarks/llama_speed.py's "1b" widths
+# (head dim 64), and a bf16 Llama at Phi-2's attention widths (dim 2560,
+# 32 heads of 80, Phi-2's 51200 vocab and 10240 hidden), each cut to 2
+# blocks.
 SIMT_F32 = dict(LLAMA_1B, n_layers=2)
 SIMT_D80 = dict(vocab=51200, dim=2560, n_layers=2, n_heads=32, n_kv_heads=32,
                 mlp_ratio=4.0)
@@ -3757,23 +3771,29 @@ SIMT_PROMPT, SIMT_NEW = 512, 32
 # Launch gates, as phase 22's: under except_last each block's forward
 # runs once per micro-batch and again for the recomputed ones, one
 # backward per micro-batch; generate runs one forward a block in the
-# prefill and one decode a block a token.  float32 takes flash_simt's
-# forward and backward and the tensor-core decode's float32 instantiation
-# (d=64); d=80 takes the tensor-core forward and backward zero-padded to
-# 128 and flash_simt's decode (a cache is never padded).
-SIMT_F32_TRAIN = {"flash_fwd_f32": 2 * (2 + 1), "flash_bwd_dq_f32": 2 * 2,
+# prefill and one decode a block a token.  float32 takes the 3xTF32
+# forward (csrc/flash_fwd_tf32.cu), flash_simt's backward and the
+# tensor-core decode's float32 instantiation (d=64); d=80 takes the
+# tensor-core forward and backward zero-padded to 128 and flash_decode at
+# d=80 (a cache is never padded).  flash_simt's forward and decode take
+# only rows TMA cannot map: 0 on both paths.
+SIMT_F32_TRAIN = {"flash_fwd_tf32": 2 * (2 + 1), "flash_bwd_dq_f32": 2 * 2,
                   "flash_bwd_dkv_f32": 2 * 2}
-SIMT_F32_GENERATE = {"flash_fwd_f32": 2, "flash_decode": 2 * SIMT_NEW}
+SIMT_F32_GENERATE = {"flash_fwd_tf32": 2, "flash_decode": 2 * SIMT_NEW}
 SIMT_D80_TRAIN = {"flash_fwd": 2 * (2 + 1), "flash_bwd_dq": 2 * 2, "flash_bwd_dkv": 2 * 2}
-SIMT_D80_GENERATE = {"flash_fwd": 2, "flash_decode_simt": 2 * SIMT_NEW}
+SIMT_D80_GENERATE = {"flash_fwd": 2, "flash_decode": 2 * SIMT_NEW}
 # flash_simt.cu keeps every product in float32 FMAs, as the plain versions
 # do: the two differ only in summation order, ~1e-6 of O(1) outputs over
-# <= 1024 keys and <= 128 dims.  Forward 1e-4 absolute; gradients row by
-# row, 1e-4 of the row's max plus a floor of 1e-4 of the median row's max
-# for rows that are zero in exact arithmetic (query 0's dQ: p = 1, dS =
-# dP - delta = 0), where each side keeps the float32 noise of dP - delta
-# (~1e-6 of |dP| ~ sqrt(d)) times |k| * scale: a few 1e-7 absolute, ~1e-5
-# of a median row's max.  The decode's output: DECODE_TOL.
+# <= 1024 keys and <= 128 dims.  The 3xTF32 forward keeps ~22 bits a
+# product (the dropped small x small term and the tf32 read of each small
+# part, ~2^-21 relative) and float32 sums: ~1e-6 as well (tests/
+# test_torch_tf32_split.py measures it against float64), so the same
+# tolerance holds both.  Forward 1e-4 absolute; gradients row by row,
+# 1e-4 of the row's max plus a floor of 1e-4 of the median row's max for
+# rows that are zero in exact arithmetic (query 0's dQ: p = 1, dS = dP -
+# delta = 0), where each side keeps the float32 noise of dP - delta (~1e-6
+# of |dP| ~ sqrt(d)) times |k| * scale: a few 1e-7 absolute, ~1e-5 of a
+# median row's max.  The decode's output: DECODE_TOL.
 SIMT_F32_TOL = 1e-4
 SIMT_ROW_TOL, SIMT_FLOOR = 1e-4, 1e-4
 
@@ -3794,59 +3814,72 @@ def f32_bytes(b, s, h, g, d, *, reads, writes):
 
 
 def simt_kernels(torch, tfa, tg, card):
-    """flash_simt's float32 forward, dQ and dK/dV, and its decode, against
-    the plain versions at the shapes phase 5b's path gives them and at
-    edges (other head dims, a window, no causal mask, an int8 cache, a
-    device pos0); timed at the path's shapes beside SDPA."""
+    """The 3xTF32 forward with flash_simt's dQ and dK/dV, and flash_decode
+    at other head dims, against the plain versions at the shapes phase
+    5b's path gives them and at edges (other head dims, a window, no
+    causal mask, an int8 cache, a device pos0); flash_simt's forward and
+    decode at shapes TMA cannot map; timed at the path's shapes beside
+    SDPA and beside flash_simt's kernels, the earlier route."""
     # (name, b, h, g, s, d, window, causal): the float32 Llama's training
-    # micro-batch and prefill, then edges.
+    # micro-batch and prefill, then edges; the last (d=18: 72-byte rows,
+    # which TMA cannot stride) stays on flash_simt's forward.
     cases = [("train_microbatch", 2, 32, 8, 1024, 64, None, True),
              ("prefill", 4, 32, 8, 512, 64, None, True),
              ("d80_nocausal", 2, 8, 2, 333, 80, None, False),
              ("d32_window", 2, 8, 4, 700, 32, 100, True),
-             ("d128_ragged", 1, 8, 8, 129, 128, None, True)]
-    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0, "decode": 0.0}
+             ("d128_ragged", 1, 8, 8, 129, 128, None, True),
+             ("d18_simt", 2, 8, 2, 257, 18, None, True)]
+    worst = {"fwd": 0.0, "fwd_simt": 0.0, "dq": 0.0, "dkv": 0.0, "decode": 0.0,
+             "decode_simt": 0.0}
     rows = {}
     for name, b, h, g, s, d, window, causal in cases:
+        route = tfa.attention_route((b, s, h, d), (b, s, g, d), torch.float32,
+                                    window=window).kind
+        if route != ("simt" if name.endswith("_simt") else "f32"):
+            fail(f"float32 attention {name}: routed to {route}")
+        fwd_key = {"f32": "fwd", "simt": "fwd_simt"}[route]
+        fwd_fn = tfa.flash_attention_tf32 if route == "f32" else tfa.flash_attention_f32
         gen = torch.Generator(device="cuda").manual_seed(6)
         q, k, v = (torch.randn(b, s, n, d, generator=gen, device="cuda").requires_grad_()
                    for n in (h, g, g))
         do = torch.randn(b, s, h, d, generator=gen, device="cuda")
         kw = dict(causal=causal, window=window)
         tfa.reset_launches()
-        out = tfa.flash_attention_f32(q, k, v, **kw)
+        out = fwd_fn(q, k, v, **kw)
         got = torch.autograd.grad(out, (q, k, v), do)
         torch.cuda.synchronize()
         counts = kernel_launches(tfa)
-        if (counts["flash_fwd_f32"], counts["flash_bwd_dq_f32"], counts["flash_bwd_dkv_f32"],
+        launched = "flash_fwd_tf32" if route == "f32" else "flash_fwd_f32"
+        if (counts[launched], counts["flash_bwd_dq_f32"], counts["flash_bwd_dkv_f32"],
                 sum(counts.values())) != (1, 1, 1, 3):
-            fail(f"flash_simt f32 {name}: one forward and backward launched {counts}")
+            fail(f"float32 attention {name}: one forward and backward launched {counts}")
         ref = tfa.flash_attention_reference(q, k, v, **kw)
         want = torch.autograd.grad(ref, (q, k, v), do)
         err = (out - ref).abs().max().item()
         ratios = [simt_rows(a, c) for a, c in zip(got, want)]
         if not (err <= SIMT_F32_TOL and max(ratios) <= 1.0):
-            fail(f"flash_simt f32 {name}: forward err {err:.3e} (tol {SIMT_F32_TOL}), "
+            fail(f"float32 attention {name}: forward err {err:.3e} (tol {SIMT_F32_TOL}), "
                  f"dq/dk/dv worst row err/tol {ratios}")
-        worst["fwd"] = max(worst["fwd"], err)
+        worst[fwd_key] = max(worst[fwd_key], err)
         worst["dq"] = max(worst["dq"], (got[0] - want[0]).abs().max().item())
         worst["dkv"] = max(worst["dkv"], *((a - c).abs().max().item()
                                           for a, c in zip(got[1:], want[1:])))
-        print(f"flash_simt f32 {name}: b={b} s={s} h={h} g={g} d={d} window={window} "
-              f"causal={causal} fwd max_abs_err={err:.3e} (tol {SIMT_F32_TOL}) dq/dk/dv "
-              f"worst row err/tol {[round(x, 4) for x in ratios]} [{card}]", flush=True)
+        print(f"float32 attention {name} ({launched}): b={b} s={s} h={h} g={g} d={d} "
+              f"window={window} causal={causal} fwd max_abs_err={err:.3e} (tol "
+              f"{SIMT_F32_TOL}) dq/dk/dv worst row err/tol {[round(x, 4) for x in ratios]} "
+              f"[{card}]", flush=True)
         if name != "train_microbatch":
             continue
         qd, kd, vd = (x.detach() for x in (q, k, v))
         scale = d ** -0.5
-        o, lse = tfa._flash_fwd_f32(qd, kd, vd, causal, scale, window)
+        o, lse = tfa._flash_fwd_tf32(qd, kd, vd, causal, scale, window)
         delta = tfa._delta(do, o)
         bkw = dict(causal=causal, sm_scale=scale, window=window)
-        fwd_call = lambda: tfa._flash_fwd_f32(qd, kd, vd, causal, scale, window)  # noqa: E731
-        dq_call = lambda: tfa.flash_bwd_dq_f32(qd, kd, vd, do, lse, delta, **bkw)  # noqa: E731
-        dkv_call = lambda: tfa.flash_bwd_dkv_f32(qd, kd, vd, do, lse, delta, **bkw)  # noqa: E731
-        ms = {n: device_ms(torch, c, 5) for n, c in
-              (("fwd", fwd_call), ("dq", dq_call), ("dkv", dkv_call))}
+        calls = (("fwd", lambda: tfa._flash_fwd_tf32(qd, kd, vd, causal, scale, window)),
+                 ("fwd_simt", lambda: tfa._flash_fwd_f32(qd, kd, vd, causal, scale, window)),
+                 ("dq", lambda: tfa.flash_bwd_dq_f32(qd, kd, vd, do, lse, delta, **bkw)),
+                 ("dkv", lambda: tfa.flash_bwd_dkv_f32(qd, kd, vd, do, lse, delta, **bkw)))
+        ms = {n: device_ms(torch, c, 5) for n, c in calls}
         plain_fwd = device_ms(torch, lambda: tfa._reference_fwd(qd, kd, vd, causal, scale,
                                                                 window), 3, 1)
         plain_bwd = device_ms(torch, lambda: tfa._reference_grads(
@@ -3856,32 +3889,41 @@ def simt_kernels(torch, tfa, tg, card):
         lib_b = sdpa_backends(torch, [(qt, kt, vt)], causal, 5, dout=do.transpose(1, 2))
         pairs = fwd_pairs(s, causal, window)
         reads = ["q", "k", "v", "do", "lse", "delta"]
+        fwd_bytes = (f32_bytes(b, s, h, g, d, reads=["q", "k", "v"], writes=["o"])
+                     + 4.0 * b * h * s)
+        # The forward's float32-accurate products: three TF32 products each
+        # on the tensor cores (the least time), or one f32 FMA on the CUDA
+        # cores (flash_simt's route).
         bounds = {
-            "fwd": bound(4.0 * b * h * d * pairs,
-                         f32_bytes(b, s, h, g, d, reads=["q", "k", "v"], writes=["o"])
-                         + 4.0 * b * h * s, PEAK_F32_FLOPS),
+            "fwd": bound(3 * 4.0 * b * h * d * pairs, fwd_bytes, PEAK_TF32_FLOPS),
+            "fwd_simt": bound(4.0 * b * h * d * pairs, fwd_bytes, PEAK_F32_FLOPS),
             "dq": bound(6.0 * b * h * d * pairs,
                         f32_bytes(b, s, h, g, d, reads=reads, writes=["dq"]), PEAK_F32_FLOPS),
             "dkv": bound(8.0 * b * h * d * pairs,
                          f32_bytes(b, s, h, g, d, reads=reads, writes=["dk", "dv"]),
                          PEAK_F32_FLOPS)}
-        print(f"flash_simt f32 timing {name}, device ms per call: fwd {ms['fwd']:.4f} "
-              f"(plain {plain_fwd:.4f}, sdpa {lib_f[2]:.4f} {lib_f[1]}, bound "
-              f"{bounds['fwd'][0]:.4f} {bounds['fwd'][1]}) dq {ms['dq']:.4f} (bound "
-              f"{bounds['dq'][0]:.4f}) dkv {ms['dkv']:.4f} (bound {bounds['dkv'][0]:.4f}); "
-              f"plain backward {plain_bwd:.4f} and sdpa backward {lib_b[2]:.4f} ({lib_b[1]}), "
-              f"all three grads [{card}]", flush=True)
+        print(f"float32 attention timing {name}, device ms per call: fwd (3xTF32) "
+              f"{ms['fwd']:.4f} (plain {plain_fwd:.4f}, sdpa {lib_f[2]:.4f} {lib_f[1]}, bound "
+              f"{bounds['fwd'][0]:.4f} {bounds['fwd'][1]} at 3xTF32, "
+              f"{bounds['fwd_simt'][0]:.4f} at f32 FMA; flash_simt's forward "
+              f"{ms['fwd_simt']:.4f}) dq {ms['dq']:.4f} (bound {bounds['dq'][0]:.4f}) dkv "
+              f"{ms['dkv']:.4f} (bound {bounds['dkv'][0]:.4f}); plain backward "
+              f"{plain_bwd:.4f} and sdpa backward {lib_b[2]:.4f} ({lib_b[1]}), all three "
+              f"grads [{card}]", flush=True)
         rows["f32"] = dict(ms=ms, plain_fwd=plain_fwd, plain_bwd=plain_bwd, lib_fwd=lib_f,
                            lib_bwd=lib_b, bounds=bounds)
         del o, lse, delta
     # Decode: the d=80 model's generate (b=4, 32 kv heads, one row each,
-    # 513..544 live of 544), then edges.
+    # 513..544 live of 544), then edges through flash_decode at the real
+    # head dim; the last (an int8 cache at d=24: 24-byte rows) stays on
+    # flash_simt's decode.
     # (name, kind, b, g, nh, nkv, hd, pos0, window, max_len)
     dcases = [("d80_len513", "bf16", 4, 1, 32, 32, 80, 512, None, 544),
               ("d80_len544", "bf16", 4, 1, 32, 32, 80, 543, None, 544),
               ("d32_int8_g5", "int8", 2, 5, 8, 4, 32, 300, 64, 517),
               ("d96_f32_window", "f32", 2, 2, 8, 2, 96, 1000, 9, 1152),
-              ("d80_long", "bf16", 1, 1, 32, 8, 80, 19999, None, 20000)]
+              ("d80_long", "bf16", 1, 1, 32, 8, 80, 19999, None, 20000),
+              ("d24_int8_simt", "int8", 2, 3, 8, 4, 24, 300, None, 517)]
     for name, kind, b, g, nh, nkv, hd, pos0, window, max_len in dcases:
         gen = torch.Generator(device="cuda").manual_seed(7)
         dtype = torch.float32 if kind == "f32" else torch.bfloat16
@@ -3894,25 +3936,34 @@ def simt_kernels(torch, tfa, tg, card):
             ck, cv = (torch.randn(b, max_len, nkv, hd, generator=gen, device="cuda").to(dtype)
                       for _ in range(2))
             sc = {}
+        route = tfa.attention_route(q.shape, ck.shape, dtype, window=window, decode=True,
+                                    cache_dtype=ck.dtype).kind
+        if route != ("simt" if name.endswith("_simt") else "kernel"):
+            fail(f"decode {name}: routed to {route}")
+        fn = tfa.flash_decode_attention if route == "kernel" else tfa.flash_decode_simt
+        key = ("flash_decode_simt" if route == "simt" else
+               "flash_decode_int8" if kind == "int8" else "flash_decode")
         tfa.reset_launches()
-        out = tfa.flash_decode_simt(q, ck, cv, pos0, window=window, **sc)
-        dev = tfa.flash_decode_simt(q, ck, cv, torch.tensor(pos0, dtype=torch.int32,
-                                                              device="cuda"),
-                                    window=window, **sc)
+        out = fn(q, ck, cv, pos0, window=window, **sc)
+        dev = fn(q, ck, cv, torch.tensor(pos0, dtype=torch.int32, device="cuda"),
+                 window=window, **sc)
         torch.cuda.synchronize()
-        if kernel_launches(tfa)["flash_decode_simt"] != 2:
-            fail(f"flash_decode_simt {name}: two calls launched {kernel_launches(tfa)}")
+        counts = kernel_launches(tfa)
+        if counts[key] != 2 or sum(counts.values()) != 2:
+            fail(f"decode {name}: two calls launched {counts}, expected 2 of {key}")
         ref = tfa.flash_decode_reference(q, ck, cv, pos0, window=window, **sc)
         err = (out - ref).abs().max().item()
-        worst["decode"] = max(worst["decode"], err)
+        wkey = "decode_simt" if route == "simt" else "decode"
+        worst[wkey] = max(worst[wkey], err)
         if not (err <= DECODE_TOL and torch.equal(out, dev)):
-            fail(f"flash_decode_simt {name}: max abs err {err:.3e} (tol {DECODE_TOL}), "
+            fail(f"decode {name} ({key}): max abs err {err:.3e} (tol {DECODE_TOL}), "
                  f"device pos0 bitwise {torch.equal(out, dev)}")
-        print(f"flash_decode_simt {name}: {kind} cache=[{b},{max_len},{nkv},{hd}] g={g} "
+        print(f"decode {name} ({key}): {kind} cache=[{b},{max_len},{nkv},{hd}] g={g} "
               f"pos0={pos0} window={window} max_abs_err={err:.3e} (tol {DECODE_TOL}); "
               f"device pos0 bitwise equal [{card}]", flush=True)
     # Timed at the d=80 generate's middle (live 528), cycling four caches
-    # as the layers' caches cycle.
+    # as the layers' caches cycle: flash_decode, and flash_simt's decode
+    # (the earlier route) at the same shape.
     b, nh, nkv, hd, live, max_len = 4, 32, 32, 80, 528, 544
     gen = torch.Generator(device="cuda").manual_seed(8)
     sets = [tuple(torch.randn(*shape, generator=gen, device="cuda").bfloat16()
@@ -3926,30 +3977,37 @@ def simt_kernels(torch, tfa, tg, card):
             fn(*sets[it["i"]])
         return run
 
-    ms = device_ms(torch, cycle(lambda q, ck, cv: tfa.flash_decode_simt(q, ck, cv, live - 1)),
-                   40)
-    call_ms = time_ms(torch, cycle(lambda q, ck, cv: tfa.flash_decode_simt(q, ck, cv,
-                                                                            live - 1)), 40)
+    def new(q, ck, cv):
+        return tfa.flash_decode_attention(q, ck, cv, live - 1)
+
+    def simt(q, ck, cv):
+        return tfa.flash_decode_simt(q, ck, cv, live - 1)
+
+    ms = device_ms(torch, cycle(new), 40)
+    call_ms = time_ms(torch, cycle(new), 40)
+    simt_ms = device_ms(torch, cycle(simt), 40)
+    simt_call_ms = time_ms(torch, cycle(simt), 40)
     plain_ms = device_ms(torch, cycle(lambda q, ck, cv: tfa.flash_decode_reference(
         q, ck, cv, live - 1)), 10, 1)
     lib = sdpa_backends(torch, [(q.transpose(1, 2), ck[:, :live].transpose(1, 2),
                                  cv[:, :live].transpose(1, 2)) for q, ck, cv in sets],
                         False, 40)
     bms, by = decode_bound(b, nh, nkv, hd, live, 1, 2, False)
-    print(f"flash_decode_simt timing: cache=[{b},{max_len},{nkv},{hd}] live={live} g=1: "
-          f"ms={ms:.4f} ({call_ms:.4f} on the host clock) plain_ms={plain_ms:.4f} "
-          f"sdpa_ms={lib[2]:.4f} ({lib[1]}; by backend {lib[0]}) bound_ms={bms:.4f} ({by}) "
-          f"[{card}]", flush=True)
-    rows["decode"] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, lib=lib, bound_ms=bms,
-                          bound_by=by)
+    print(f"decode timing d=80: cache=[{b},{max_len},{nkv},{hd}] live={live} g=1: flash_decode "
+          f"ms={ms:.4f} ({call_ms:.4f} on the host clock); flash_simt's decode {simt_ms:.4f} "
+          f"({simt_call_ms:.4f}); plain_ms={plain_ms:.4f} sdpa_ms={lib[2]:.4f} ({lib[1]}; by "
+          f"backend {lib[0]}) bound_ms={bms:.4f} ({by}) [{card}]", flush=True)
+    rows["decode"] = dict(ms=ms, call_ms=call_ms, simt_ms=simt_ms, simt_call_ms=simt_call_ms,
+                          plain_ms=plain_ms, lib=lib, bound_ms=bms, bound_by=by)
     del sets
     torch.cuda.empty_cache()
     return worst, rows
 
 
 def phase_simt(torch, tfa, tt, tg, card, seed: int):
-    """flash_simt's kernels against their plain versions, then its main
-    path: the float32 Llama and the d=80 Llama each take one GPipe step
+    """simt_kernels, then the main path of float32 attention and of
+    decode at other head dims: the float32 Llama and the d=80 Llama each
+    take one GPipe step
     (batch 4 x seq 1024, 2 micro-batches, except_last) and ``generate``
     4 x 512 prompts with 32 greedy tokens, each run's launches gated; the
     tokens against a teacher-forced forward."""
@@ -4217,8 +4275,16 @@ def main() -> None:
                 "path_shapes": {"gpt2_xl": {
                     k: dec["gpt2_xl"][k] for k in ("ms", "plain_ms", "bound_ms")} | {
                     "library_ms": dec["gpt2_xl"]["lib_ms"],
-                    "library_backend": dec["gpt2_xl"]["lib_backend"]}}
+                    "library_backend": dec["gpt2_xl"]["lib_backend"]},
+                    "phi2_d80": {k: srows["decode"][k] for k in (
+                        "ms", "call_ms", "plain_ms", "bound_ms", "bound_by")} | {
+                        "library_ms": srows["decode"]["lib"][2],
+                        "library_backend": srows["decode"]["lib"][1],
+                        "launches": paths["d80_llama_generate"][name],
+                        "earlier_kernel_ms": srows["decode"]["simt_ms"],
+                        "shape": "bf16 cache [4, 544, 32, 80] live 528 g=1"}}
                 if kind == "bf16" else {},
+                "other_head_dims_max_abs_err": sworst["decode"],
                 "long_cache": {"ms": long["ms"], "plain_ms": long["plain_ms"],
                                "bound_ms": long["bound_ms"],
                                "library_ms": long["lib_ms"],
@@ -4253,15 +4319,16 @@ def main() -> None:
 
     srows, sworst = simt["rows"], simt["worst"]
 
-    def simt_entry(name, key, line, main_path):
+    def simt_entry(name, key, line, main_path, source="flash_simt.cu"):
         f32 = srows["f32"]
         ms, (bms, by) = f32["ms"][key], f32["bounds"][key]
-        lib = f32["lib_fwd"] if key == "fwd" else f32["lib_bwd"]
-        return {"name": name, "route": "cuda", "source": src + "flash_simt.cu",
+        fwd = key.startswith("fwd")
+        lib = f32["lib_fwd"] if fwd else f32["lib_bwd"]
+        return {"name": name, "route": "cuda", "source": src + source,
                 "replaces": f"{ref}:{line}", "launches": paths[main_path][name],
                 "launches_by_path": by_path(name), "max_abs_err": sworst[key],
-                "ms": ms, "plain_ms": f32["plain_fwd"] if key == "fwd" else f32["plain_bwd"],
-                "plain_covers": "forward" if key == "fwd" else "all three gradients",
+                "ms": ms, "plain_ms": f32["plain_fwd"] if fwd else f32["plain_bwd"],
+                "plain_covers": "forward" if fwd else "all three gradients",
                 "bound_ms": bms, "bound_by": by, "library_ms": lib[2],
                 "library_backend": lib[1], "library_ms_by_backend": lib[0],
                 "shape": "f32 b=2 s=1024 h=32 g=8 d=64 causal"}
@@ -4289,17 +4356,24 @@ def main() -> None:
         decode_entry("flash_decode_int8", "int8", "generate_int8"),
         bwd_entry("flash_bwd_dq", "dq", 538, 411),
         bwd_entry("flash_bwd_dkv", "dkv", 592, 468),
-        simt_entry("flash_fwd_f32", "fwd", 69, "f32_llama_train"),
+        simt_entry("flash_fwd_tf32", "fwd", 69, "f32_llama_train", "flash_fwd_tf32.cu") | {
+            "bound_at": "3xTF32 on the tensor cores (495 TF/s / 3)",
+            "bound_fma_ms": srows["f32"]["bounds"]["fwd_simt"][0]},
+        simt_entry("flash_fwd_f32", "fwd_simt", 69, "f32_llama_train") | {
+            "takes": "float32 head dims that are not a multiple of 4",
+            "max_abs_err_at": "d=18"},
         simt_entry("flash_bwd_dq_f32", "dq", 538, "f32_llama_train"),
         simt_entry("flash_bwd_dkv_f32", "dkv", 592, "f32_llama_train"),
         {"name": "flash_decode_simt", "route": "cuda", "source": src + "flash_simt.cu",
          "replaces": f"{ref}:1024", "launches": paths["d80_llama_generate"]["flash_decode_simt"],
-         "launches_by_path": by_path("flash_decode_simt"), "max_abs_err": sworst["decode"],
-         "ms": srows["decode"]["ms"], "call_ms": srows["decode"]["call_ms"],
+         "launches_by_path": by_path("flash_decode_simt"),
+         "max_abs_err": sworst["decode_simt"], "max_abs_err_at": "int8 cache at d=24",
+         "ms": srows["decode"]["simt_ms"], "call_ms": srows["decode"]["simt_call_ms"],
          "plain_ms": srows["decode"]["plain_ms"], "bound_ms": srows["decode"]["bound_ms"],
          "bound_by": srows["decode"]["bound_by"], "library_ms": srows["decode"]["lib"][2],
          "library_backend": srows["decode"]["lib"][1],
          "library_ms_by_backend": srows["decode"]["lib"][0],
+         "takes": "cache rows that are not a multiple of 16 bytes",
          "shape": "bf16 cache [4, 544, 32, 80] live 528 g=1"},
     ]
     smem = smem_dynamic(_build)

@@ -7,10 +7,13 @@ The reference computes every other case: its kernel zero-pads a head dim
 below 128 (``torchgpipe_tpu/ops/flash_attention.py:977-995``) and takes
 float32; its decode goes dense where ``supports_decode`` fails.  The port
 routes at its three callers (the training block, the prefill, the
-decode): a bf16 head dim below 128 is zero-padded, float32 and a decode
-at another head dim up to 128 run the CUDA-core kernels of
-``csrc/flash_simt.cu``, and what none takes raises on the card.  The
-wrappers' refusals stay as they are.  On the CPU every route runs plain
+decode): a bf16 head dim below 128 is zero-padded; float32 runs the
+3xTF32 forward of ``csrc/flash_fwd_tf32.cu`` (head dims that are a
+multiple of 4) with the float32 backward of ``csrc/flash_simt.cu``; a
+decode runs ``csrc/flash_decode.cu`` at any head dim up to 128 whose
+cache row TMA maps (16-byte multiples); the rows TMA cannot map run
+``flash_simt``'s CUDA-core forward and decode; what none takes raises on
+the card.  The bf16 forward wrapper's refusals stay as they are.  On the CPU every route runs plain
 PyTorch; the padded route still pads, so its arithmetic is held here.
 
 Tolerances, as ``tests/test_torch_flash_attention.py`` derives them:
@@ -51,17 +54,26 @@ BF16, F32, I8 = torch.bfloat16, torch.float32, torch.int8
      (32, BF16, {}, ("pad", 64)), (80, BF16, {}, ("pad", 128)),
      (96, BF16, {}, ("pad", 128)), (16, BF16, {"window": 8}, ("pad", 64)),
      (256, BF16, {}, ("none", 256)), (192, BF16, {}, ("none", 192)),
-     (128, F32, {}, ("simt", 128)), (32, F32, {}, ("simt", 32)),
+     # float32: the 3xTF32 forward at d % 4 == 0, the CUDA-core one else
+     (128, F32, {}, ("f32", 128)), (32, F32, {}, ("f32", 32)),
      (128, torch.float16, {}, ("none", 128)),
-     (128, F32, {"window": 8}, ("simt", 128)),
-     # decode: the tensor-core kernel at 64/128 (bf16, f32, int8 caches),
-     # the CUDA-core one at other dims up to 128, never padded
+     (128, F32, {"window": 8}, ("f32", 128)), (36, F32, {}, ("f32", 36)),
+     (30, F32, {}, ("simt", 30)), (18, F32, {"window": 8}, ("simt", 18)),
+     # decode: the tensor-core kernel at any head dim up to 128 whose
+     # cache row is a multiple of 16 bytes (bf16, f32, int8 caches), the
+     # CUDA-core one at the other dims, never padded
      (128, BF16, {"decode": True}, ("kernel", 128)),
      (64, F32, {"decode": True}, ("kernel", 64)),
      (128, BF16, {"decode": True, "cache_dtype": I8}, ("kernel", 128)),
      (128, F32, {"decode": True, "cache_dtype": I8}, ("kernel", 128)),
-     (32, BF16, {"decode": True}, ("simt", 32)),
-     (80, BF16, {"decode": True, "cache_dtype": I8}, ("simt", 80)),
+     (32, BF16, {"decode": True}, ("kernel", 32)),
+     (80, BF16, {"decode": True, "cache_dtype": I8}, ("kernel", 80)),
+     (80, BF16, {"decode": True}, ("kernel", 80)),
+     (96, F32, {"decode": True}, ("kernel", 96)),
+     (24, BF16, {"decode": True, "cache_dtype": I8}, ("simt", 24)),
+     (20, BF16, {"decode": True}, ("simt", 20)),
+     (30, F32, {"decode": True}, ("simt", 30)),
+     (24, F32, {"decode": True, "cache_dtype": I8}, ("simt", 24)),
      (128, torch.float16, {"decode": True}, ("none", 128)),
      (128, BF16, {"decode": True, "cache_dtype": F32}, ("none", 128)),
      (256, BF16, {"decode": True}, ("none", 256)), (256, F32, {}, ("none", 256))],
@@ -74,10 +86,15 @@ def test_route_table(d, dtype, kw, want):
 
 
 def test_route_leaves_the_gates_and_refusals_alone():
-    """The gates answer as before: padding is the callers' business."""
+    """The forward gate answers as before: padding is the callers'
+    business.  The decode gate takes every head dim up to 128 whose cache
+    row TMA maps (the kernel runs it at the real dim), no other."""
     assert not tfa.supports((1, 16, 4, 32), (1, 16, 4, 32))
     assert not tfa.supports((1, 16, 4, 128), (1, 16, 4, 128), F32)
-    assert not tfa.supports_decode((1, 1, 4, 80), (1, 16, 4, 80), None)
+    assert tfa.supports_decode((1, 1, 4, 80), (1, 16, 4, 80), None)
+    assert not tfa.supports_decode((1, 1, 4, 20), (1, 16, 4, 20), None)
+    assert not tfa.supports_decode((1, 1, 4, 24), (1, 16, 4, 24), None, I8)
+    assert not tfa.supports_decode((1, 1, 4, 136), (1, 16, 4, 136), None)
     assert tuple(tfa.attention_route((1, 16, 6, 64), (1, 16, 4, 64), BF16)) == \
         ("none", 64)       # h not a multiple of g: no kernel, no pad
 
@@ -127,9 +144,10 @@ def test_padded_route_matches_jax_and_unpadded_plain(d, window):
 
 
 def test_dense_route_float32_matches_jax():
-    """float32 goes to ``flash_attention_f32`` (``csrc/flash_simt.cu`` on
-    the card, its plain version here): output and gradients against the
-    reference's float32 Pallas kernel."""
+    """float32 goes to ``flash_attention_tf32`` (``csrc/flash_fwd_tf32.cu``
+    and ``csrc/flash_simt.cu``'s backward on the card, the plain version
+    here): output and gradients against the reference's float32 Pallas
+    kernel."""
     arrs, (q, k, v) = _qkv(3, 2, 64, 4, 2, 128, F32)
     ref, vjp = jax.vjp(lambda a, b, c: jfa.flash_attention(a, b, c, causal=True,
                                                             interpret=True),
@@ -142,15 +160,16 @@ def test_dense_route_float32_matches_jax():
         want = np.asarray(jgr)
         np.testing.assert_allclose(t.grad.numpy(), want, rtol=0,
                                    atol=F32_GRAD_REL * np.abs(want).max())
-    assert tfa.flash_attention_f32.launches == 0    # counted on the card only
+    assert tfa.flash_attention_tf32.launches == 0    # counted on the card only
 
 
-@pytest.mark.parametrize("d,cache", [(80, BF16), (32, F32), (80, I8)])
+@pytest.mark.parametrize("d,cache", [(80, BF16), (32, F32), (80, I8), (20, BF16), (24, I8)])
 def test_decode_route_dense_equals_plain(d, cache):
-    """A decode at a head dim the tensor-core kernel does not take goes to
-    ``flash_decode_simt`` over the whole cache, unpadded; on the CPU that
-    is ``flash_decode_reference`` exactly (the same function), with an
-    int8 cache's scales too."""
+    """A decode at a head dim other than 64 or 128 goes to
+    ``flash_decode_attention`` at the real head dim (or, for rows TMA
+    cannot map, ``flash_decode_simt``) over the whole cache, unpadded; on
+    the CPU that is ``flash_decode_reference`` exactly (the same
+    function), with an int8 cache's scales too."""
     g = torch.Generator().manual_seed(d)
     q = torch.randn(2, 3, 4, d, generator=g).to(BF16 if cache == BF16 else F32)
     if cache == I8:

@@ -375,18 +375,18 @@ def test_generation_on_the_card_raises_for_what_the_kernels_do_not_take(
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "dtype,n_head_dim,route",
-    [(torch.float32, 128, "simt"), (torch.float32, 80, "simt"),
+    [(torch.float32, 128, "f32"), (torch.float32, 80, "f32"),
      (torch.bfloat16, 96, "pad")],
 )
 def test_generation_on_the_card_routes_what_the_kernels_do_not_take(
     cuda_device, dtype, n_head_dim, route
 ):
     """prefill and generate route attention as ``attention_route`` says,
-    always to a kernel: float32 through ``flash_simt``'s forward, bf16 at
-    d=96 through the forward kernel on a zero-padded head dim; the decode
-    through ``flash_decode`` at d=128 (it takes a float32 cache) and
-    ``flash_simt``'s decode at other dims (a cache is never padded).  The
-    tensor-core wrappers still refuse those shapes when called directly."""
+    always to a kernel: float32 through the 3xTF32 forward, bf16 at d=96
+    through the forward kernel on a zero-padded head dim; the decode
+    through ``flash_decode`` at the real head dim (128, 80 and 96 rows are
+    multiples of 16 bytes; a cache is never padded).  The bf16 forward
+    wrapper still refuses those shapes when called directly."""
     from torchgpipe_tpu_torch.models import generation as tg
     from torchgpipe_tpu_torch.models import transformer as tt
 
@@ -398,10 +398,11 @@ def test_generation_on_the_card_routes_what_the_kernels_do_not_take(
     tg.prefill(cfg, model, prompt, 20)
     tg.generate(cfg, model, prompt, 2)
     torch.cuda.synchronize()
-    fwd = (tfa.flash_attention.launches, tfa.flash_attention_f32.launches)
-    assert fwd == ((0, 2) if route == "simt" else (2, 0))
+    fwd = (tfa.flash_attention.launches, tfa.flash_attention_tf32.launches,
+           tfa.flash_attention_f32.launches)
+    assert fwd == ((0, 2, 0) if route == "f32" else (2, 0, 0))
     dec = (tfa.flash_decode_attention.launches, tfa.flash_decode_simt.launches)
-    assert dec == ((2, 0) if n_head_dim == 128 else (0, 2))
+    assert dec == (2, 0)
     q = torch.zeros(1, 16, 2, n_head_dim, device=cuda_device, dtype=dtype)
     with pytest.raises((TypeError, ValueError)):
         tfa.flash_attention(q, q[:, :, :1], q[:, :, :1])
@@ -587,3 +588,128 @@ def test_flash_simt_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     c = torch.zeros(1, 64, 2, 256, device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):
         tfa.flash_decode_simt(q[:, :1].contiguous(), c, c, 3)
+
+
+# flash_decode at head dims other than 64 and 128: the tiles of the 64 or
+# 128 instantiation, the tensor maps over the real head dim (TMA fills
+# the columns past it with zeros).  The same arithmetic as at 64/128, so
+# DECODE_TOL holds.
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "kind,g,pos0,window,hd,L,nh,nkv",
+    [("bf16", 1, 527, None, 80, 544, 32, 32), ("bf16", 5, 576, None, 32, 581, 8, 2),
+     ("bf16", 3, 400, 100, 48, 500, 16, 4), ("bf16", 1, 19999, None, 80, 20000, 32, 8),
+     ("f32", 2, 1000, 9, 96, 1152, 8, 2), ("f32", 4, 600, 256, 80, 1152, 8, 2),
+     ("f32", 5, 200, None, 36, 300, 10, 2), ("int8", 5, 300, 64, 32, 517, 8, 4),
+     ("int8", 1, 1087, None, 80, 1152, 8, 2), ("int8", 2, 900, None, 112, 1000, 16, 16)],
+)
+def test_flash_decode_other_head_dims_match_plain(cuda_device, kind, g, pos0, window, hd, L,
+                                                  nh, nkv):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, ck, cv, sc = _decode_inputs(gen, 2, g, nh, nkv, hd, L, kind, cuda_device)
+    assert tfa.attention_route(q.shape, ck.shape, q.dtype, window=window, decode=True,
+                               cache_dtype=ck.dtype).kind == "kernel"
+    before = (tfa.flash_decode_attention.launches, tfa.flash_decode_attention.launches_int8,
+              tfa.flash_decode_simt.launches)
+    host = tfa.flash_decode_attention(q, ck, cv, pos0, window=window, **sc)
+    dev = tfa.flash_decode_attention(
+        q, ck, cv, torch.tensor(pos0, dtype=torch.int32, device=cuda_device),
+        window=window, **sc)
+    ref = tfa.flash_decode_reference(q, ck, cv, pos0, window=window, **sc)
+    torch.cuda.synchronize()
+    quant = kind == "int8"
+    assert (tfa.flash_decode_attention.launches, tfa.flash_decode_attention.launches_int8,
+            tfa.flash_decode_simt.launches) == (before[0] + 2 * (not quant),
+                                                before[1] + 2 * quant, before[2])
+    assert torch.equal(host, dev)
+    assert (dev - ref).abs().max().item() <= DECODE_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,hd", [("bf16", 80), ("f32", 96)])
+def test_flash_decode_other_head_dims_graph_replays_at_two_lengths(cuda_device, kind, hd):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    q, ck, cv, sc = _decode_inputs(gen, 4, 1, 32, 8, hd, 1152, kind, cuda_device)
+    pos = torch.tensor(100, dtype=torch.int32, device=cuda_device)
+    tfa.flash_decode_attention(q, ck, cv, pos, **sc)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tfa.flash_decode_attention(q, ck, cv, pos, **sc)
+    for p in (1000, 100, 1151):
+        pos.fill_(p)
+        graph.replay()
+        want = tfa.flash_decode_attention(q, ck, cv, p, **sc)
+        ref = tfa.flash_decode_reference(q, ck, cv, p, **sc)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+        assert (out - ref).abs().max().item() <= DECODE_TOL
+
+
+# csrc/flash_fwd_tf32.cu: 3xTF32 products (~2^-21 relative each) summed in
+# float32, against the plain float32 version: the F32 tolerances above
+# (tests/test_torch_tf32_split.py measures the split against float64).
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,s,h,g,d,window,causal,sk",
+    [(2, 1024, 32, 8, 64, None, True, None), (1, 129, 8, 8, 128, None, True, None),
+     (2, 333, 8, 2, 80, None, False, None), (2, 700, 8, 4, 32, 100, True, None),
+     (2, 200, 4, 1, 96, None, True, None), (1, 17, 4, 2, 64, None, True, None),
+     (2, 1000, 8, 2, 128, 300, True, None), (2, 300, 4, 4, 36, None, False, 77),
+     (1, 64, 2, 1, 4, None, True, None)],
+)
+def test_flash_fwd_tf32_matches_plain(cuda_device, b, s, h, g, d, window, causal, sk):
+    """The 3xTF32 forward (O and LSE) and the gradients it feeds to
+    flash_simt's backward kernels, against the plain versions."""
+    sk = sk or s
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q = torch.randn(b, s, h, d, generator=gen, device=cuda_device).requires_grad_()
+    k, v = (torch.randn(b, sk, g, d, generator=gen, device=cuda_device).requires_grad_()
+            for _ in range(2))
+    do = torch.randn(b, s, h, d, generator=gen, device=cuda_device)
+    before = (tfa.flash_attention_tf32.launches, tfa.flash_attention_f32.launches,
+              tfa.flash_bwd_dq_f32.launches, tfa.flash_bwd_dkv_f32.launches)
+    out = tfa.flash_attention_tf32(q, k, v, causal=causal, window=window)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    o, lse = tfa._flash_fwd_tf32(q.detach(), k.detach(), v.detach(), causal, d ** -0.5, window)
+    ro, rl = tfa._reference_fwd(q.detach(), k.detach(), v.detach(), causal, d ** -0.5, window)
+    ref = tfa.flash_attention_reference(q, k, v, causal=causal, window=window)
+    want = torch.autograd.grad(ref, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_tf32.launches, tfa.flash_attention_f32.launches,
+            tfa.flash_bwd_dq_f32.launches, tfa.flash_bwd_dkv_f32.launches) == (
+        before[0] + 2, before[1], before[2] + 1, before[3] + 1)
+    assert torch.equal(o, out.detach())
+    assert (out - ref).abs().max().item() <= F32_TOL
+    assert (lse - rl).abs().max().item() <= F32_TOL
+    for a, c in zip(got, want):
+        assert f32_row_ratio(a, c) <= 1.0
+
+
+@pytest.mark.cuda
+def test_new_routes_refuse_what_their_kernels_do_not_take(cuda_device):
+    """flash_attention_tf32 and flash_decode_attention raise, launching
+    nothing, on the rows TMA cannot map (those route to flash_simt) and
+    on what no kernel takes."""
+    n = (tfa.flash_attention_tf32.launches, tfa.flash_decode_attention.launches,
+         tfa.flash_decode_attention.launches_int8)
+    q = torch.zeros(1, 64, 4, 30, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_attention_tf32(q, q, q)
+    assert tfa.attention_route(q.shape, q.shape, q.dtype).kind == "simt"
+    big = torch.zeros(1, 64, 4, 256, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_attention_tf32(big, big, big)
+    with pytest.raises(TypeError, match="float32"):
+        tfa.flash_attention_tf32(*(torch.zeros(1, 64, 4, 64, device=cuda_device).bfloat16()
+                                   for _ in range(3)))
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for kind, hd in (("int8", 24), ("bf16", 20), ("f32", 30), ("bf16", 256)):
+        qd, ck, cv, sc = _decode_inputs(gen, 1, 1, 8, 2, hd, 64, kind, cuda_device)
+        with pytest.raises(ValueError, match="head dim"):
+            tfa.flash_decode_attention(qd, ck, cv, 3, **sc)
+        want = "none" if hd > 128 else "simt"
+        assert tfa.attention_route(qd.shape, ck.shape, qd.dtype, decode=True,
+                                   cache_dtype=ck.dtype).kind == want
+    assert (tfa.flash_attention_tf32.launches, tfa.flash_decode_attention.launches,
+            tfa.flash_decode_attention.launches_int8) == n

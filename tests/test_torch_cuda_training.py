@@ -382,14 +382,15 @@ def test_gpt2_class_generate_decodes_through_flash_decode_at_mha(cuda_device):
 
 
 # The routes on the card against the port on the CPU, from the same
-# weights and tokens.  float32 (attention through csrc/flash_simt.cu's
-# float32 kernels, the decode kernel's float32 instantiation): one float32
-# network in another summation order (cuBLAS against the CPU's BLAS, the
-# kernels' blocked softmax),
+# weights and tokens.  float32 (attention through csrc/flash_fwd_tf32.cu's
+# 3xTF32 forward and csrc/flash_simt.cu's float32 backward, the decode
+# kernel's float32 instantiation): one float32 network in another
+# summation order (cuBLAS against the CPU's BLAS, the kernels' blocked
+# softmax, 3xTF32's ~2^-21 per product),
 # ~1e-6 relative per op: the loss to 1e-5 relative, each gradient leaf to
 # 1e-4 of its max, greedy tokens equal (no near-tie at these seeds).
 # bf16 at d=32 (the forward and backward kernels on a zero-padded head
-# dim, flash_simt's decode): the kernels round P and dS to bf16 where the
+# dim, flash_decode at d=32): the kernels round P and dS to bf16 where the
 # plain version keeps float32, and each block rounds its products to
 # bf16 (2^-8 relative), compounding over 2 blocks and the backward to a
 # few 2^-8 of each leaf's scale: the loss to 2^-6 relative, gradients to
@@ -419,7 +420,8 @@ def test_routed_llama_trains_and_generates_as_on_the_cpu(cuda_device, case):
         pipe = GPipe(list(model), [2, 2], devices=[dev], chunks=2)
         loss, _, _ = pipe.value_and_grad(tokens.to(dev), tokens.to(dev), _loss)
         results.append((float(loss), [p.grad.float().cpu() for p in pipe.parameters()]))
-    train_f32, train_fwd = tfa.flash_attention_f32.launches, tfa.flash_attention.launches
+    train_f32, train_fwd = tfa.flash_attention_tf32.launches, tfa.flash_attention.launches
+    assert tfa.flash_attention_f32.launches == 0
     (lc, gc), (lh, gh) = results
     assert lc == pytest.approx(lh, rel=loss_rtol)
     for a, b in zip(gc, gh):
@@ -433,18 +435,18 @@ def test_routed_llama_trains_and_generates_as_on_the_cpu(cuda_device, case):
     out = tg.generate(cfg, card, prompt, 12)
     torch.cuda.synchronize()
     if case == "float32":
-        # prefill through the float32 kernel a layer; decode through the
+        # prefill through the 3xTF32 forward a layer; decode through the
         # tensor-core decode (it takes a float32 cache at d=128).
-        assert tfa.flash_attention_f32.launches == 2
+        assert tfa.flash_attention_tf32.launches == 2
         assert tfa.flash_decode_attention.launches == 2 * 12
         want = tg.generate(cfg, cpu, prompt.cpu(), 12, device="cpu")
         assert torch.equal(out.cpu(), want)
     else:
-        # prefill through the padded kernel; decode through the CUDA-core
-        # decode at d=32 (a cache is never padded).
+        # prefill through the padded kernel; decode through flash_decode
+        # at the real d=32 (a cache is never padded).
         assert tfa.flash_attention.launches == 2
-        assert tfa.flash_decode_simt.launches == 2 * 12
-        assert tfa.flash_decode_attention.launches == 0
+        assert tfa.flash_decode_attention.launches == 2 * 12
+        assert tfa.flash_decode_simt.launches == 0
         with torch.inference_mode():
             logits = card(torch.cat([prompt, out[:, :-1]], 1))[:, 63:].float()
         gap = logits.max(-1).values - logits.gather(-1, out[..., None])[..., 0]
@@ -467,7 +469,8 @@ def test_bf16_head_dim_128_counts_no_dense_route(cuda_device):
     GPipe(list(model), [4], chunks=2).value_and_grad(tokens, tokens, _loss)
     tg.generate(cfg, model, tokens[:2, :32], 8)
     torch.cuda.synchronize()
-    assert (tfa.flash_attention_f32.launches, tfa.flash_decode_simt.launches) == (0, 0)
+    assert (tfa.flash_attention_tf32.launches, tfa.flash_attention_f32.launches,
+            tfa.flash_decode_simt.launches) == (0, 0, 0)
     assert tfa.flash_attention.launches > 0 and tfa.flash_decode_attention.launches == 16
 
 

@@ -254,6 +254,13 @@ _SPLIT_SHAPES = [
     (2, 2, 20, 20000, 5, 9000),
     (4, 8, 4, 1152, 1, 256),
     (1, 1, 40, 700, 8, None),
+    # Head dims other than 64/128 (the split does not depend on hd):
+    # phase 5b's d=80 generate (MHA, 32 kv heads), its long d=80 cache,
+    # the int8 d=32 case (g=5, 10 rows) and the float32 d=96 window.
+    (4, 32, 1, 544, 1, None),
+    (1, 8, 4, 20000, 1, None),
+    (2, 4, 10, 517, 5, 64),
+    (2, 2, 8, 1152, 2, 9),
 ]
 
 

@@ -118,24 +118,7 @@ struct DqSmem {
 // One 128-row query tile of a dQ launch: tile i is query tile nqt-1-i/bhn
 // of head i%bhn (ops/flash_attention.py fwd_schedule with rows=128,
 // keys=64).  Its live key tiles are jt0 .. jt0+n-1.
-struct DqTile {
-  int bi, hi, kvh, q0, jt0, n;
-  __device__ __forceinline__ DqTile(int i, int bhn, int nqt, int h, int g, int s, int sk,
-                                    int causal, int window) {
-    const int bh = i % bhn;
-    bi = bh / h;
-    hi = bh % h;
-    kvh = hi / (h / g);
-    q0 = (nqt - 1 - i / bhn) * DQ_BQ;
-    int nkt = (sk + DQ_BK - 1) / DQ_BK;
-    jt0 = 0;
-    if (causal) {
-      nkt = min(nkt, (min(q0 + DQ_BQ, s) - 1) / DQ_BK + 1);
-      if (window > 0) jt0 = max(q0 - (window - 1), 0) / DQ_BK;
-    }
-    n = max(nkt - jt0, 0);   // 0: a windowed tile past the keys (dQ = 0)
-  }
-};
+typedef QueryTile<DQ_BQ, DQ_BK> DqTile;   // n = 0: a windowed tile past the keys (dQ = 0)
 
 template <int D>
 __global__ void __launch_bounds__(DQ_THREADS, 1)

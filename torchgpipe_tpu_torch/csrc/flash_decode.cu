@@ -67,6 +67,17 @@
 //   keys make a single chunk, the chunk kernel writes the output itself and
 //   the merge returns at once.  (Merging in the block that finishes last,
 //   behind an atomic count, measured ~7 us slower at a 1088-key cache.)
+// * Any head dim hd <= 128 whose cache row is a multiple of 16 bytes (TMA's
+//   stride rule: bf16 hd % 8, f32 hd % 4, int8 hd % 16), with no padded
+//   copy of the cache.  The tile layout is the template dim HD (64 for
+//   hd <= 64, else 128); the tensor maps take the real hd as the row, so
+//   TMA reads hd columns from HBM and fills the rest of a column block
+//   with zeros (blocks wholly past hd, which only an f32 cache has, are
+//   not loaded and its score loop stops at hd).  Zero columns of q (zeroed
+//   too) and K add nothing to a score and give P V columns that are never
+//   stored; q, the output and the chunks' scratch use the real hd for
+//   strides.  Only the ring's tiles are HD wide, so the bytes bound is the
+//   real cache's.
 // * Keys past the live length, and padded rows, are masked with -inf (a
 //   select, so stale cache contents past the live length never reach the
 //   output), on tiles that meet an edge only; P V stops at the live
@@ -114,7 +125,7 @@ struct Cfg {
   static constexpr bool MMA = sizeof(TK) <= 2;         // scores on the tensor cores
   static constexpr int NQ = MMA && sizeof(TQ) == 4 ? 3 : 1;  // bf16 parts of q
   static constexpr int ES = sizeof(TK);
-  static constexpr int RB = HD * ES;                   // bytes of a cache row
+  static constexpr int RB = HD * ES;                   // bytes of a tile row
   static constexpr int CBW = RB < 128 ? RB : 128;      // column block width
   static constexpr int MASK = CBW == 128 ? 7 : 3;      // its swizzle
   static constexpr int TILE = KT * RB;                 // bytes of a K (or V) tile
@@ -146,7 +157,7 @@ struct Cfg {
 
 struct Args {
   const int* pos_dev;   // device int32 pos0, or null: take pos_host
-  int pos_host, g, nh, nkv, max_len, window, rows, group_rows, ngroups, want, zmax;
+  int pos_host, g, nh, nkv, hd, max_len, window, rows, group_rows, ngroups, want, zmax;
 };
 
 struct Split {
@@ -286,6 +297,7 @@ flash_decode_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constan
     // Producer: the chunk's K/V tiles through the ring; the lanes copy an
     // int8 cache's scales of the tile (0 past the chunk).
     const size_t srow = (size_t(bi) * a.nkv + kvh) * a.max_len;
+    const int nblk = (a.hd * C::ES + C::CBW - 1) / C::CBW;   // blocks past hd stay unread
     for (int j = 0; j < ntile; ++j) {
       const int st = j % C::STAGES;
       const int k0 = kbeg + j * KT;
@@ -299,8 +311,8 @@ flash_decode_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constan
         }
       }
       if (lane == 0) {
-        mbar_arrive_tx(&full[st], 2 * C::TILE);
-        for (int cb = 0; cb < C::RB / C::CBW; ++cb) {
+        mbar_arrive_tx(&full[st], 2 * nblk * KT * C::CBW);
+        for (int cb = 0; cb < nblk; ++cb) {
           const int off = st * C::TILE + cb * KT * C::CBW, c0 = cb * (C::CBW / C::ES);
           tma_load_4d(sm + C::K + off, &tk, &full[st], c0, kvh, k0, bi);
           tma_load_4d(sm + C::V + off, &tv, &full[st], c0, kvh, k0, bi);
@@ -315,12 +327,13 @@ flash_decode_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constan
   // Consumers.  The group's rows of q into shared memory (zeros past nrows):
   // bf16 parts for the tensor cores, or f32 for an f32 cache.
   constexpr int QROWS = C::MMA ? C::MT * 16 : RP;
+  const int hd = a.hd;
   for (int idx = tid; idx < QROWS * HD; idx += CTHREADS) {
     const int i = idx / HD, d = idx % HD;
     float x = 0.f;
-    if (i < nrows) {
+    if (i < nrows && d < hd) {
       const int gi = row0 + i;
-      x = to_f(q[((size_t(bi) * a.g + gi / r) * a.nh + kvh * r + gi % r) * HD + d]);
+      x = to_f(q[((size_t(bi) * a.g + gi / r) * a.nh + kvh * r + gi % r) * hd + d]);
     }
     if constexpr (C::MMA) {
       bf16* sq = reinterpret_cast<bf16*>(sm + C::Q);
@@ -335,7 +348,7 @@ flash_decode_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constan
     }
   }
 
-  const float sl2 = rsqrtf(float(HD)) * LOG2E;   // scores to log2 units
+  const float sl2 = rsqrtf(float(hd)) * LOG2E;   // scores to log2 units
   const uint32_t base = smem_u32(sm);
   const int li = lane >> 3, lr = lane & 7, cq = (lane & 3) * 2;
   // Softmax state of the rows this warp owns: warp, warp + 4, ...
@@ -430,7 +443,7 @@ flash_decode_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constan
 #pragma unroll
       for (int i = 0; i < RP / 2; ++i) acc[i] = 0.f;
 #pragma unroll 4
-      for (int c = 0; c < HD / 4; ++c) {
+      for (int c = 0; c < hd / 4; ++c) {
         const float4 kv = *reinterpret_cast<const float4*>(krow + tile_off<C>(key, c * 16));
 #pragma unroll
         for (int i = 0; i < RP / 2; ++i) {
@@ -513,7 +526,7 @@ flash_decode_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constan
   float* red = reinterpret_cast<float*>(sm + C::K);   // [KS][RP][HD]
   auto dst_row = [&](int i) {   // output row of the group's row i
     const int gi = row0 + i;
-    return out + ((size_t(bi) * a.g + gi / r) * a.nh + kvh * r + gi % r) * HD;
+    return out + ((size_t(bi) * a.g + gi / r) * a.nh + kvh * r + gi % r) * hd;
   };
   bar_sync(BAR_CONSUMERS, CTHREADS);
 #pragma unroll
@@ -527,28 +540,30 @@ flash_decode_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constan
     if (lane == 0) s_c[warp + 4 * i] = l[i];
   bar_sync(BAR_CONSUMERS, CTHREADS);
   if (sl.nsplit == 1) {   // one chunk: the output itself
-    for (int idx = tid; idx < nrows * HD; idx += CTHREADS) {
+    for (int idx = tid; idx < nrows * hd; idx += CTHREADS) {
+      const int i = idx / hd, d = idx % hd;
       float sum = 0.f;
 #pragma unroll
-      for (int k = 0; k < C::KS; ++k) sum += red[k * RP * HD + idx];
-      dst_row(idx / HD)[idx % HD] = sum / s_c[idx / HD];
+      for (int k = 0; k < C::KS; ++k) sum += red[(k * RP + i) * HD + d];
+      dst_row(i)[d] = sum / s_c[i];
     }
     return;
   }
 
   // This chunk's (m, l, acc) per live row.
-  float* mine = part + (((size_t(bi) * a.nkv + kvh) * a.zmax + sp) * a.rows + row0) * (2 + HD);
+  float* mine = part + (((size_t(bi) * a.nkv + kvh) * a.zmax + sp) * a.rows + row0) * (2 + hd);
 #pragma unroll
   for (int i = 0; i < RP / 4; ++i) {
     const int row = warp + 4 * i;
     if (lane == 0 && row < nrows)
-      *reinterpret_cast<float2*>(mine + size_t(row) * (2 + HD)) = make_float2(m[i], l[i]);
+      *reinterpret_cast<float2*>(mine + size_t(row) * (2 + hd)) = make_float2(m[i], l[i]);
   }
-  for (int idx = tid; idx < nrows * HD; idx += CTHREADS) {
+  for (int idx = tid; idx < nrows * hd; idx += CTHREADS) {
+    const int i = idx / hd, d = idx % hd;
     float sum = 0.f;
 #pragma unroll
-    for (int k = 0; k < C::KS; ++k) sum += red[k * RP * HD + idx];
-    mine[size_t(idx / HD) * (2 + HD) + 2 + idx % HD] = sum;
+    for (int k = 0; k < C::KS; ++k) sum += red[(k * RP + i) * HD + d];
+    mine[size_t(i) * (2 + hd) + 2 + d] = sum;
   }
 }
 
@@ -567,10 +582,14 @@ flash_decode_merge(const float* __restrict__ part, float* __restrict__ out, Args
   const int kvh = blockIdx.x, bi = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r = a.nh / a.nkv;
-  const float* base = part + (size_t(bi) * a.nkv + kvh) * a.zmax * a.rows * (2 + HD);
-  const size_t sstride = size_t(a.rows) * (2 + HD);
+  const int hd = a.hd;
+  // A lane's EPL columns lie wholly inside or past hd (a multiple of 4 for
+  // every cache type); a lane past it has nothing to merge.
+  if (lane * EPL >= hd) return;
+  const float* base = part + (size_t(bi) * a.nkv + kvh) * a.zmax * a.rows * (2 + hd);
+  const size_t sstride = size_t(a.rows) * (2 + hd);
   for (int i = warp; i < a.rows; i += CWARPS) {
-    const float* row = base + size_t(i) * (2 + HD);
+    const float* row = base + size_t(i) * (2 + hd);
     float mx = -CUDART_INF_F, lsum = 0.f, o[EPL];
 #pragma unroll
     for (int e = 0; e < EPL; ++e) o[e] = 0.f;
@@ -593,7 +612,7 @@ flash_decode_merge(const float* __restrict__ part, float* __restrict__ out, Args
 #pragma unroll
       for (int e = 0; e < EPL; ++e) o[e] = fmaf(o[e], s0, v[e] * s1);
     }
-    float* dst = out + ((size_t(bi) * a.g + i / r) * a.nh + kvh * r + i % r) * HD + lane * EPL;
+    float* dst = out + ((size_t(bi) * a.g + i / r) * a.nh + kvh * r + i % r) * hd + lane * EPL;
 #pragma unroll
     for (int e = 0; e < EPL; ++e) dst[e] = o[e] / lsum;
   }
@@ -610,8 +629,8 @@ int launch(const Ptrs& p, int b, const Args& a, cudaStream_t stream) {
   typedef Cfg<TQ, TK, HD, RP> C;
   CUtensorMap tk, tv;
   int e;
-  if ((e = make_map_typed(&tk, p.ck, Elem<TK>::TYPE, C::ES, HD, a.nkv, a.max_len, b, KT, C::CBW)) ||
-      (e = make_map_typed(&tv, p.cv, Elem<TK>::TYPE, C::ES, HD, a.nkv, a.max_len, b, KT, C::CBW)))
+  if ((e = make_map_typed(&tk, p.ck, Elem<TK>::TYPE, C::ES, a.hd, a.nkv, a.max_len, b, KT, C::CBW)) ||
+      (e = make_map_typed(&tv, p.cv, Elem<TK>::TYPE, C::ES, a.hd, a.nkv, a.max_len, b, KT, C::CBW)))
     return e;
   // The shared-memory attribute once per device (a call captured into a
   // CUDA graph then makes no attribute call).
@@ -642,17 +661,21 @@ int by_rows(const Ptrs& p, int b, const Args& a, cudaStream_t st) {
   return int(cudaErrorInvalidValue);
 }
 
+// The tile dim: 64 for hd <= 64, 128 for hd <= 128.  TMA needs the cache's
+// row (hd elements) to be a multiple of 16 bytes.
 template <typename TQ, typename TK>
 int by_head_dim(const Ptrs& p, int b, int hd, const Args& a, cudaStream_t st) {
-  if (hd == 128) return by_rows<TQ, TK, 128>(p, b, a, st);
-  if (hd == 64) return by_rows<TQ, TK, 64>(p, b, a, st);
+  if (hd <= 0 || hd * int(sizeof(TK)) % 16 != 0) return int(cudaErrorInvalidValue);
+  if (hd <= 64) return by_rows<TQ, TK, 64>(p, b, a, st);
+  if (hd <= 128) return by_rows<TQ, TK, 128>(p, b, a, st);
   return int(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // q [b, g, nh, hd]; ck/cv [b, max_len, nkv, hd], contiguous, 16-byte
-// aligned; out [b, g, nh*hd] f32.  Element types by code (0 bf16, 1 f32,
+// aligned, hd <= 128 with hd * sizeof(cache element) a multiple of 16;
+// out [b, g, nh*hd] f32.  Element types by code (0 bf16, 1 f32,
 // 2 int8): q_type 0 or 1; kv_type equal to q_type, or 2 with
 // k_scale/v_scale f32 [b, nkv, max_len].  pos0: the int32 at `pos_dev`
 // (device memory) or, when it is null, `pos_host`; clamped to [0,
@@ -672,7 +695,7 @@ extern "C" int tgt_flash_decode(const void* q, const void* ck, const void* cv,
   const int rows = g * (nh / nkv);
   const int ngroups = (rows + MAX_ROWS - 1) / MAX_ROWS;
   const int group_rows = (rows + ngroups - 1) / ngroups;
-  const Args a{static_cast<const int*>(pos_dev), pos_host, g, nh, nkv, max_len, window, rows,
+  const Args a{static_cast<const int*>(pos_dev), pos_host, g, nh, nkv, hd, max_len, window, rows,
                group_rows, ngroups, want, zmax};
   const Ptrs p{q, ck, cv, static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
                static_cast<float*>(scratch), static_cast<float*>(out)};

@@ -170,27 +170,8 @@ struct Softmax {
   __device__ __forceinline__ void fence() { fence_regs(o); }
 };
 
-// One 128-row query tile of a launch: tile i is query tile nqt-1-i/bhn of
-// head i%bhn (bhn = b*h).  Its live key tiles are jt0 .. jt0+n-1 (n >= 1:
-// the diagonal tile is live).
-struct Tile {
-  int bi, hi, kvh, q0, jt0, n;
-  __device__ __forceinline__ Tile(int i, int bhn, int nqt, int h, int g, int s, int sk,
-                                  int causal, int window) {
-    const int bh = i % bhn;
-    bi = bh / h;
-    hi = bh % h;
-    kvh = hi / (h / g);
-    q0 = (nqt - 1 - i / bhn) * BQ;
-    int nkt = (sk + BK - 1) / BK;
-    jt0 = 0;
-    if (causal) {
-      nkt = min(nkt, (min(q0 + BQ, s) - 1) / BK + 1);
-      if (window > 0) jt0 = max(q0 - (window - 1), 0) / BK;
-    }
-    n = nkt - jt0;
-  }
-};
+// One 128-row query tile of a launch (n >= 1: the diagonal tile is live).
+typedef QueryTile<BQ, BK> Tile;
 
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)

@@ -1,10 +1,11 @@
-// Hopper (sm_90a) building blocks shared by flash_fwd.cu, flash_bwd.cu and
-// flash_decode.cu: 128-byte-swizzled tiles in shared memory, loaded by the
-// Tensor Memory Accelerator (TMA) and read by warpgroup matrix multiplies
-// (wgmma), or by ldmatrix and mma.sync where a product has too few rows for
-// wgmma; mbarriers that tie the two together; named barriers; register
-// rebalancing between producer and consumer warpgroups; and the host-side
-// tensor maps.
+// Hopper (sm_90a) building blocks shared by flash_fwd.cu, flash_fwd_tf32.cu,
+// flash_bwd.cu and flash_decode.cu: 128-byte-swizzled tiles in shared
+// memory, loaded by the Tensor Memory Accelerator (TMA) and read by
+// warpgroup matrix multiplies (wgmma, bf16 and tf32), or by ldmatrix and
+// mma.sync where a product has too few rows for wgmma; mbarriers that tie
+// the two together; named barriers; register rebalancing between producer
+// and consumer warpgroups; the persistent kernels' query tile; and the
+// host-side tensor maps.
 //
 // Tile layout.  TMA with CU_TENSOR_MAP_SWIZZLE_128B takes at most 128 bytes
 // (64 bf16) of a row per box, so a [rows][d] tile is stored as d/64
@@ -72,6 +73,31 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int s, int sk, int c
   const int band = window > 0 ? window : 0x7fffffff;
   return (qpos < s) & (kpos < sk) & ((causal == 0) | ((gap >= 0) & (gap < band)));
 }
+
+// One query tile of a persistent attention kernel's work list
+// (ops/flash_attention.py fwd_schedule): tile i is query tile
+// nqt-1-i/bhn of head i%bhn (bhn = b*h), BQ rows; its live BK-key tiles
+// are jt0 .. jt0+n-1, up to the diagonal and from the window's first
+// (n = 0: a windowed tile past the keys, which sees none).
+template <int BQ, int BK>
+struct QueryTile {
+  int bi, hi, kvh, q0, jt0, n;
+  __device__ __forceinline__ QueryTile(int i, int bhn, int nqt, int h, int g, int s, int sk,
+                                       int causal, int window) {
+    const int bh = i % bhn;
+    bi = bh / h;
+    hi = bh % h;
+    kvh = hi / (h / g);
+    q0 = (nqt - 1 - i / bhn) * BQ;
+    int nkt = (sk + BK - 1) / BK;
+    jt0 = 0;
+    if (causal) {
+      nkt = min(nkt, (min(q0 + BQ, s) - 1) / BK + 1);
+      if (window > 0) jt0 = max(q0 - (window - 1), 0) / BK;
+    }
+    n = max(nkt - jt0, 0);
+  }
+};
 
 // Two floats as one register of a bf16 pair (an A fragment's element).
 __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
@@ -284,6 +310,126 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   else wgmma_rs_n128<TB>(d, a, db, acc);
 }
 
+// ---- tf32 wgmma (3xTF32 float32 products) --------------------------------
+//
+// A 32-bit operand's k8 step is 32 bytes, as a bf16 k16 step is, so the
+// K-major descriptors above step the same way inside a 128-byte column
+// block (32 floats).  tf32 wgmma has no transpose bits: A and B are both
+// K-major.  The tensor core reads a float's sign, exponent and top 10
+// mantissa bits; 3xTF32 splits x = big + small with big = x with its low
+// 13 bits cleared (exactly a tf32) and small = x - big (exact in f32, at
+// most 2^-10 |x|), and forms A B ~ As Bb + Ab Bs + Ab Bb in f32: about 22
+// bits a product (As Bs, ~2^-20 relative, is left out).  An A fragment
+// from registers (m64k8, 32-bit elements) gives warp w of the warpgroup
+// rows 16w + lane/4 (a0, a2) and +8 (a1, a3), columns lane%4 (a0, a1)
+// and lane%4 + 4 (a2, a3).
+
+// x with its low 13 mantissa bits cleared: the tf32 the tensor core reads.
+__device__ __forceinline__ uint32_t tf32_big(float x) { return __float_as_uint(x) & 0xffffe000u; }
+
+// x - tf32_big(x), exact.
+__device__ __forceinline__ uint32_t tf32_small(float x) {
+  return __float_as_uint(x - __uint_as_float(tf32_big(x)));
+}
+
+// Generic-proxy writes to shared memory made visible to the async proxy
+// (wgmma operand reads, TMA), before a barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// fence_regs for 32-bit A fragments: keeps registers an asynchronous
+// product reads from being reused before its wait.
+template <int N>
+__device__ __forceinline__ void fence_regs_u32(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d[64 x N] (+)= A[64 x 8] B[8 x N], tf32 in, f32 accumulate; acc = 0
+// overwrites d.  _ss: A and B K-major in shared memory; _rs: A from
+// registers.
+
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32], uint32_t a0, uint32_t a1,
+                                                   uint32_t a2, uint32_t a3, uint64_t db,
+                                                   int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64], uint32_t a0, uint32_t a1,
+                                                   uint32_t a2, uint32_t a3, uint64_t db,
+                                                   int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(acc));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[N / 2], uint64_t da, uint64_t db, int acc) {
+  if constexpr (N == 32) wgmma_tf32_ss_n32(d, da, db, acc);
+  else wgmma_tf32_ss_n64(d, da, db, acc);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[N / 2], uint32_t a0, uint32_t a1,
+                                              uint32_t a2, uint32_t a3, uint64_t db, int acc) {
+  if constexpr (N == 64) wgmma_tf32_rs_n64(d, a0, a1, a2, a3, db, acc);
+  else wgmma_tf32_rs_n128(d, a0, a1, a2, a3, db, acc);
+}
+
 // ---- mma.sync (for products too narrow for wgmma's 64 rows) --------------
 
 // Byte offset of byte `o` of a column block whose rows are 128 (mask 7) or
@@ -363,6 +509,29 @@ inline int make_map_typed(CUtensorMap* map, const void* base, CUtensorMapDataTyp
   const CUresult r = fn(map, type, 4, const_cast<void*>(base), dims, strides, box, step,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : int(cudaErrorInvalidValue);
+}
+
+// A contiguous 4-D tensor of `elem`-byte elements, dims innermost first,
+// read in boxes of box[0..3] elements with a 128-byte swizzle (box[0] *
+// elem = 128: one column block).  Box elements past the tensor's edge
+// arrive as zeros; a box must start inside the tensor.  Returns 0 or a
+// cudaError_t.
+inline int make_map_box(CUtensorMap* map, const void* base, CUtensorMapDataType type, int elem,
+                        const int (&n)[4], const int (&box)[4]) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return int(cudaErrorNotSupported);
+  const cuuint64_t e = cuuint64_t(elem);
+  const cuuint64_t dims[4] = {cuuint64_t(n[0]), cuuint64_t(n[1]), cuuint64_t(n[2]),
+                              cuuint64_t(n[3])};
+  const cuuint64_t strides[3] = {dims[0] * e, dims[0] * dims[1] * e,
+                                 dims[0] * dims[1] * dims[2] * e};
+  const cuuint32_t bx[4] = {cuuint32_t(box[0]), cuuint32_t(box[1]), cuuint32_t(box[2]),
+                            cuuint32_t(box[3])};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, type, 4, const_cast<void*>(base), dims, strides, bx, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : int(cudaErrorInvalidValue);
 }

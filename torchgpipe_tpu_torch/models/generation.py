@@ -14,12 +14,12 @@ path reading them through the one accessor ``_w``.
 Prefill runs one batched pass over the prompt
 with ``ops.flash_attention.attention`` (the ``flash_fwd`` CUDA
 kernel on the card, at a zero-padded head dim where that applies, or
-``flash_simt``'s float32 kernel: ``attention_route``) and banks every
+the 3xTF32 float32 forward: ``attention_route``) and banks every
 block's K/V; each decode step runs its tokens through the blocks,
 reading the live cache prefix with ``flash_decode_attention`` (the
 ``flash_decode`` kernel, whose int8 variant reads a :class:`QuantKVCache`
-as int8 bytes) at head dims 64 and 128, ``flash_decode_simt`` at
-others.  Ring caches
+as int8 bytes) at any head dim up to 128 whose cache row TMA maps,
+``flash_decode_simt`` at the others.  Ring caches
 and per-row frontiers read the cache with the dense masked softmax, as
 the reference does (it has no kernel there either).
 
@@ -259,8 +259,8 @@ def _attend_chunk(
     against the cache (int8 with ``k_scale``/``v_scale``).  A scalar
     ``pos0`` goes where ``ops.flash_attention.attention_route`` sends a
     decode (:func:`decode_attention`: the ``flash_decode`` kernel on the
-    card for head dims 64 and 128, ``flash_decode_simt`` at others; never
-    a padded cache); ``use_flash=True`` calls the kernel's wrapper, which raises
+    card at any head dim up to 128 whose cache row TMA maps,
+    ``flash_decode_simt`` at the others; never a padded cache); ``use_flash=True`` calls the kernel's wrapper, which raises
     for what it does not take; a ``[b]`` ``pos0`` and ``use_flash=False``
     run the reference's dense read (its XLA einsum in ``_attend_chunk``,
     which it also uses for a ``[b]`` ``pos0``): the masked float32
@@ -442,8 +442,7 @@ def _attend_full(
     """Causal (optionally banded) full-sequence GQA attention, flattened
     to ``[b, s, nh*hd]``.  By default where ``attention_route`` sends it
     (:func:`attention`: the ``flash_fwd`` kernel on the card, at a
-    zero-padded head dim where that applies, or ``flash_simt``'s float32
-    kernel);
+    zero-padded head dim where that applies, or a float32 kernel);
     ``use_flash=True`` calls :func:`flash_attention`, which raises for
     what the kernel does not take; ``use_flash=False`` forces the dense
     version."""

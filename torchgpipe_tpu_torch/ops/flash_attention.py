@@ -21,15 +21,20 @@ axis) because of VMEM size; on Hopper one tile loop serves every length.
 * :func:`flash_decode_attention` launches ``csrc/flash_decode.cu``, which
   replaces ``_decode_kernel``: a bf16 or float32 cache, or an int8 cache
   with float32 per-(position, kv head) scales (the ``quant=True``
-  variant), dequantized in registers.  ``pos0`` may be a device int32
-  scalar: the kernel derives its split of the live keys on the device
-  (:func:`decode_split` mirrors it), and its grid depends only on the
-  cache's size.
+  variant), dequantized in registers, at any head dim up to 128 whose
+  cache row TMA can map (:func:`supports_decode`).  ``pos0`` may be a
+  device int32 scalar: the kernel derives its split of the live keys on
+  the device (:func:`decode_split` mirrors it), and its grid depends only
+  on the cache's size.
+* :func:`flash_attention_tf32` launches ``csrc/flash_fwd_tf32.cu``, the
+  float32 forward on the tensor cores at float32 accuracy (3xTF32, the
+  split of :func:`tf32_split`; the reference's kernels take float32);
+  its backward runs ``csrc/flash_simt.cu``'s float32 dQ and dK/dV.
 * :func:`flash_attention_f32` (with :func:`flash_bwd_dq_f32` and
   :func:`flash_bwd_dkv_f32`) and :func:`flash_decode_simt` launch
-  ``csrc/flash_simt.cu``, CUDA-core kernels for what the tensor-core ones
-  have no instantiation for: float32 attention (the reference's kernels
-  take float32) and decode at head dims other than 64 and 128.
+  ``csrc/flash_simt.cu``, CUDA-core kernels for the shapes TMA cannot map:
+  a float32 head dim that is not a multiple of 4, a decode cache row that
+  is not a multiple of 16 bytes.
 * :func:`attention_route` says which of these a shape runs on (a
   bfloat16 head dim below 128 is zero-padded for the tensor-core
   kernels); :func:`attention` and :func:`decode_attention` follow it.
@@ -66,6 +71,8 @@ _NEG = -1e30
 # (shapes only: FLOP counting).
 _PLAIN_DEVICES = ("cpu", "meta")
 FWD_HEAD_DIMS = (64, 128)
+# The decode kernel's tile dims: a head dim up to 64 runs on the 64 tiles,
+# up to 128 on the 128 ones (csrc/flash_decode.cu HD).
 DECODE_HEAD_DIMS = (64, 128)
 DECODE_KEYS = 64      # keys per decode tile (csrc/flash_decode.cu KT)
 DECODE_ROWS = 32      # query rows a decode block holds (MAX_ROWS)
@@ -262,16 +269,18 @@ def supports_decode(
     window: Optional[int], dtype: torch.dtype = torch.bfloat16,
 ) -> bool:
     """Whether ``csrc/flash_decode.cu`` takes these shapes: a bfloat16,
-    float32 or int8 cache (``dtype``), head dim 64 or 128, ``nh`` a
-    multiple of ``nkv``.  Any cache length and any number of query rows
-    (a block holds at most ``1024 / hd`` of a kv head's ``g * nh / nkv``
-    rows; more rows take more blocks)."""
+    float32 or int8 cache (``dtype``), a head dim up to 128 whose cache
+    row is a multiple of 16 bytes (TMA's stride rule: bf16 ``hd % 8``,
+    float32 ``hd % 4``, int8 ``hd % 16``), ``nh`` a multiple of ``nkv``.
+    Any cache length and any number of query rows (a block holds at most
+    32 of a kv head's ``g * nh / nkv`` rows; more rows take more
+    blocks)."""
     b, g, nh, hd = q_shape
     nkv = k_shape[2]
     return (
         dtype in _DECODE_TYPES
-        and hd in DECODE_HEAD_DIMS and k_shape[3] == hd
-        and nkv > 0 and nh % nkv == 0
+        and 0 < hd <= DECODE_HEAD_DIMS[-1] and hd * dtype.itemsize % 16 == 0
+        and k_shape[3] == hd and nkv > 0 and nh % nkv == 0
         and (window is None or window >= 1)
     )
 
@@ -824,7 +833,8 @@ def flash_decode_attention(
             or cv.shape != ck.shape:
         raise ValueError(
             f"flash_decode kernel does not take q {tuple(q.shape)}, cache "
-            f"{tuple(ck.shape)}: head dim must be one of {DECODE_HEAD_DIMS}"
+            f"{tuple(ck.shape)}: head dim must be at most "
+            f"{DECODE_HEAD_DIMS[-1]} with a cache row of a multiple of 16 bytes"
         )
     _check_tma("flash_decode_attention", ck, cv)
     rows = g * (nh // nkv)
@@ -857,7 +867,7 @@ flash_decode_attention.launches_int8 = 0
 
 
 # --------------------------------------------------------------------- #
-# float32, and decode at other head dims: csrc/flash_simt.cu            #
+# float32 and decode where TMA cannot map the rows: csrc/flash_simt.cu  #
 # --------------------------------------------------------------------- #
 
 SIMT_HEAD_DIM_MAX = 128   # csrc/flash_simt.cu DMAX
@@ -1111,17 +1121,127 @@ flash_decode_simt.launches = 0
 
 
 # --------------------------------------------------------------------- #
+# the float32 forward on the tensor cores: csrc/flash_fwd_tf32.cu       #
+# --------------------------------------------------------------------- #
+
+# (query rows, keys) of a forward tile by template head dim (csrc/
+# flash_fwd_tf32.cu Cfg): two consumer warpgroups at 64, one at 128.
+TF32_TILES = {64: (128, 64), 128: (64, 32)}
+TF32_KEY_PAD = 64    # V transposed is padded to a multiple of this many keys
+# q, k, v, o, lse, split, plan, nblocks, b, s, sk, h, g, d, scale, causal,
+# window, stream
+_FWD_TF32_ARGS = [_P] * 7 + [_I] * 7 + [ctypes.c_float, _I, _I, _P]
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(big, small)`` of float32 ``x`` as the 3xTF32 kernel splits it:
+    ``big`` is ``x`` with its low 13 mantissa bits cleared (a TF32 value,
+    read exactly by the tensor cores), ``small = x - big`` (exact in
+    float32).  ``A @ B`` is then formed as ``As Bb + Ab Bs + Ab Bb`` with
+    each operand read as TF32 (``small`` truncated too)."""
+    big = (x.contiguous().view(torch.int32) & -8192).view(torch.float32)
+    return big, x - big
+
+
+def supports_tf32(
+    q_shape: Tuple[int, ...], k_shape: Tuple[int, ...],
+    dtype: torch.dtype = torch.float32,
+) -> bool:
+    """Whether ``csrc/flash_fwd_tf32.cu`` takes these shapes: float32, a
+    head dim up to 128 that is a multiple of 4 (TMA's 16-byte rows), ``h``
+    a multiple of ``g``."""
+    b, s, h, d = q_shape
+    g = k_shape[2]
+    return (
+        dtype == torch.float32 and 0 < d <= SIMT_HEAD_DIM_MAX and d % 4 == 0
+        and g > 0 and h % g == 0 and k_shape[3] == d
+    )
+
+
+def _flash_fwd_tf32(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+    sm_scale: float, window: Optional[int],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)`` of float32 attention: ``csrc/flash_fwd_tf32.cu`` on
+    CUDA tensors, the plain version on CPU tensors.  ``lse`` is what
+    :func:`_flash_fwd_f32` writes (natural log, ``[b*h, s]``), so the
+    float32 backward kernels take it."""
+    if q.device.type in _PLAIN_DEVICES:
+        return _reference_fwd(q, k, v, causal, sm_scale, window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_tf32: unsupported device {q.device}")
+    _check_f32("flash_fwd_tf32", q, k, v)
+    _check_tma("flash_fwd_tf32", q, k, v)
+    if not supports_tf32(q.shape, k.shape, q.dtype) or v.shape != k.shape:
+        raise ValueError(
+            f"flash_fwd_tf32 kernel does not take q {tuple(q.shape)}, k "
+            f"{tuple(k.shape)}, v {tuple(v.shape)}: head dim must be a "
+            f"multiple of 4 up to {SIMT_HEAD_DIM_MAX} and h a multiple of g"
+        )
+    b, s, h, d = q.shape
+    sk, g = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
+    skp = -(-sk // TF32_KEY_PAD) * TF32_KEY_PAD
+    split = torch.empty(2 * k.numel() + 2 * b * g * d * skp, dtype=torch.float32,
+                        device=q.device)
+    plan, nblocks = _fwd_plan(q.device, b, s, sk, h, bool(causal), window,
+                              tile=TF32_TILES[64 if d <= 64 else 128])
+    fn = _build.function("flash_fwd_tf32", "tgt_flash_fwd_tf32", _FWD_TF32_ARGS)
+    rc = fn(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse), _ptr(split), _ptr(plan),
+        nblocks, b, s, sk, h, g, d, float(sm_scale), int(causal),
+        0 if window is None else int(window), _stream(q),
+    )
+    _build.check(rc, "flash_fwd_tf32")
+    _count(flash_attention_tf32)
+    return o, lse
+
+
+class _FlashAttentionTF32(_FlashAttentionF32):
+    """:class:`_FlashAttentionF32` with the forward on the tensor cores:
+    ``csrc/flash_fwd_tf32.cu``, then ``csrc/flash_simt.cu``'s dQ and
+    dK/dV from its LSE; the plain version on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, window):
+        o, lse = _flash_fwd_tf32(q, k, v, causal, sm_scale, window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, sm_scale, window)
+        return o
+
+
+def flash_attention_tf32(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = True, sm_scale: Optional[float] = None,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """:func:`flash_attention` for float32 ``q``/``k``/``v`` at a head dim
+    that is a multiple of 4 up to 128: the forward on the tensor cores at
+    float32 accuracy (3xTF32), the backward on ``flash_simt``'s float32
+    kernels.  Differentiable in ``q``, ``k`` and ``v``."""
+    sm_scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
+    _validate_window(causal, window)
+    return _FlashAttentionTF32.apply(q, k, v, causal, sm_scale, window)
+
+
+flash_attention_tf32.launches = 0
+
+
+# --------------------------------------------------------------------- #
 # routing: which kernel the callers run                                 #
 # --------------------------------------------------------------------- #
 
 
 class Route(NamedTuple):
     """:func:`attention_route`'s answer: ``kind`` is ``"kernel"`` (the
-    tensor-core kernel as is), ``"pad"`` (the head dim zero-padded to
-    ``head_dim`` for the tensor-core kernel), ``"simt"`` (the CUDA-core
-    kernels of ``csrc/flash_simt.cu``) or ``"none"`` (no kernel takes
-    it: the plain version on the CPU, refused on the card);
-    ``head_dim`` is the dim the work runs at."""
+    tensor-core kernel as is; a decode at any head dim it maps), ``"pad"``
+    (the head dim zero-padded to ``head_dim`` for the tensor-core kernel),
+    ``"f32"`` (float32: the 3xTF32 forward of ``csrc/flash_fwd_tf32.cu``
+    with ``csrc/flash_simt.cu``'s backward), ``"simt"`` (the CUDA-core
+    kernels of ``csrc/flash_simt.cu``, for rows TMA cannot map) or
+    ``"none"`` (no kernel takes it: the plain version on the CPU, refused
+    on the card); ``head_dim`` is the dim the work runs at."""
 
     kind: str
     head_dim: int
@@ -1141,13 +1261,16 @@ def attention_route(
     head dim below 128 that is not instantiated (d=32, Phi-2's 80) is
     zero-padded to the next instantiated dim, as the reference pads to
     128 lanes (exact: the zero columns add nothing to ``q·k`` and give
-    zero output columns, sliced off); float32 up to d=128 runs the
-    float32 kernels.  Decode (``decode=True``, the cache in
-    ``cache_dtype``): a :func:`supports_decode` shape runs the
-    tensor-core decode, any other head dim up to 128 the CUDA-core one.
-    A decode is never padded: that would copy the whole cache every
-    token.  Anything else (float16, a head dim above 128) has no kernel
-    yet.  Answers are cached by shape: a decode step asks once a layer."""
+    zero output columns, sliced off); float32 up to d=128 runs the 3xTF32
+    forward (:func:`supports_tf32`: ``d % 4 == 0``) or, at other dims, the
+    CUDA-core forward, with the CUDA-core backward.  Decode
+    (``decode=True``, the cache in ``cache_dtype``): a
+    :func:`supports_decode` shape (any head dim up to 128 whose cache row
+    is a multiple of 16 bytes) runs the tensor-core decode, any other
+    head dim up to 128 the CUDA-core one.  A decode is never padded: that
+    would copy the whole cache every token.  Anything else (float16, a
+    head dim above 128) has no kernel yet.  Answers are cached by shape:
+    a decode step asks once a layer."""
     d = q_shape[-1]
     if decode:
         cdt = dtype if cache_dtype is None else cache_dtype
@@ -1161,6 +1284,8 @@ def attention_route(
         return Route("none", d)
     if supports(q_shape, k_shape, dtype):
         return Route("kernel", d)
+    if supports_tf32(q_shape, k_shape, dtype):
+        return Route("f32", d)
     if supports_f32(q_shape, k_shape, dtype):
         return Route("simt", d)
     padded = next((D for D in FWD_HEAD_DIMS if D > d), None)
@@ -1187,15 +1312,18 @@ def attention(
     """Differentiable attention as :func:`attention_route` routes it:
     :func:`flash_attention`, :func:`flash_attention` on ``q``/``k``/``v``
     zero-padded in the head dim (``sm_scale`` of the real dim) with the
-    output sliced back, or :func:`flash_attention_f32`.  On the CPU each
-    runs its plain version; on the card a shape no kernel takes raises.
-    The training block and the prefill call this."""
+    output sliced back, :func:`flash_attention_tf32` or
+    :func:`flash_attention_f32`.  On the CPU each runs its plain version;
+    on the card a shape no kernel takes raises.  The training block and
+    the prefill call this."""
     d = q.shape[-1]
     route = attention_route(q.shape, k.shape, q.dtype, window=window)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if route.kind == "none":
         _no_kernel(q, k.shape, "attention")
         return flash_attention_reference(q, k, v, causal=causal, window=window)
+    if route.kind == "f32":
+        return flash_attention_tf32(q, k, v, causal=causal, window=window)
     if route.kind == "simt":
         return flash_attention_f32(q, k, v, causal=causal, window=window)
     if route.kind == "pad":
@@ -1215,8 +1343,8 @@ def decode_attention(
 ) -> torch.Tensor:
     """Decode attention of ``g`` queries against a cache as
     :func:`attention_route` routes it (``decode=True``):
-    :func:`flash_decode_attention` or :func:`flash_decode_simt` over the
-    whole cache, never padded.  On the card a shape no kernel takes
+    :func:`flash_decode_attention` (any head dim it maps) or
+    :func:`flash_decode_simt` over the whole cache, never padded.  On the card a shape no kernel takes
     raises.  Float32 ``[b, g, nh*hd]``."""
     route = attention_route(q.shape, ck.shape, q.dtype, window=window,
                             decode=True, cache_dtype=ck.dtype)
@@ -1232,7 +1360,7 @@ def decode_attention(
 def reset_launches() -> None:
     """Set every kernel launch count of this module to 0."""
     for fn in (flash_attention, flash_bwd_dq, flash_bwd_dkv,
-               flash_decode_attention, flash_attention_f32, flash_bwd_dq_f32,
-               flash_bwd_dkv_f32, flash_decode_simt):
+               flash_decode_attention, flash_attention_tf32, flash_attention_f32,
+               flash_bwd_dq_f32, flash_bwd_dkv_f32, flash_decode_simt):
         fn.launches = 0
     flash_decode_attention.launches_int8 = 0
