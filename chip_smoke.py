@@ -12,9 +12,9 @@ they need) and prints no kernels line; by default every phase runs:
    register spill that ptxas reports fails the run; each kernel's
    registers and shared memory from the ptxas report.  SASS check
    (``cuobjdump -sass``, from the CUDA toolkit): flash_fwd, flash_bwd_dq,
-   flash_bwd_dkv and the 3xTF32 forward must hold HGMMA (wgmma) and
-   UTMALDG (TMA loads) in every instantiation, the decode partial kernel
-   UTMALDG and (bf16 and int8 caches) HMMA.
+   flash_bwd_dkv and the 3xTF32 forward, dQ and dK/dV must hold HGMMA
+   (wgmma) and UTMALDG (TMA loads) in every instantiation, the decode
+   partial kernel UTMALDG and (bf16 and int8 caches) HMMA.
 3. flash_fwd against its plain PyTorch version on the card at every
    shape the later phases launch it at (the generate prefill, b=4; the
    training micro-batch, b=2; the speculative phase's hd-64 draft and
@@ -46,19 +46,22 @@ they need) and prints no kernels line; by default every phase runs:
    the gradients sliced back and held to the unpadded plain backward).
 5b. simt: float32 attention and decode at head dims other than 64 and
    128.  The float32 forward of csrc/flash_fwd_tf32.cu (3xTF32 wgmma)
-   with csrc/flash_simt.cu's dQ and dK/dV against the plain versions
-   (row by row), and flash_decode (csrc/flash_decode.cu at the real head
+   with the backward of csrc/flash_bwd_tf32.cu (its prologue bitwise
+   equal to its plain version, dQ and dK/dV on 3xTF32 wgmma, bitwise
+   equal on a second call) against the plain versions (row by row), and
+   flash_decode (csrc/flash_decode.cu at the real head
    dim: bf16, float32 and int8 caches at head dims 32, 80 and 96, a
    device pos0 bitwise equal to the host int), at the path's shapes and
-   at edges, timed beside SDPA; flash_simt's CUDA-core forward and decode
-   at shapes TMA cannot map (d=18, an int8 cache at d=24), and timed at
-   the path's shapes as the earlier kernels; then the path: a float32
+   at edges, timed beside SDPA; flash_simt's CUDA-core forward, dQ, dK/dV
+   and decode at shapes TMA cannot map (d=18, an int8 cache at d=24), and
+   timed at the path's shapes as the earlier kernels; then the path: a float32
    Llama at the "1b" widths and a bf16 Llama at Phi-2's attention widths
-   (d=80), each cut to 2 blocks, take a GPipe step and ``generate`` 4 x
-   512 + 32 tokens, their launches gated (float32: the 3xTF32 forward,
-   flash_simt's backward and flash_decode's float32 instantiation; d=80:
-   the tensor-core kernels zero-padded and flash_decode at d=80; no
-   CUDA-core forward or decode), tokens teacher-forced.
+   (d=80), each cut to 2 blocks, take a GPipe step (the float32 one a
+   second time under the profiler: device busy time, the attention
+   kernels' part of it) and ``generate`` 4 x 512 + 32 tokens, their launches gated (float32: the 3xTF32 forward and
+   backward and flash_decode's float32 instantiation; d=80: the
+   tensor-core kernels zero-padded and flash_decode at d=80; no CUDA-core
+   kernel), tokens teacher-forced.
 6. slice: greedy ``generate`` at Llama-3-8B width (random weights from a
    seed, 32 layers, batch 4, prompt 1024, 128 new tokens), with the
    kernels' launch counts read around that one call, prefill logits of
@@ -214,10 +217,10 @@ library yardsticks, the fastest SDPA backend by name; ``launches``
 counts one generate call for the forward
 and decode kernels, one ``generate(kv_quant=True)`` call for the int8
 decode variant, one training step for the backward kernels, phase 5b's
-float32 step for the 3xTF32 forward and flash_simt's backward kernels,
-and 0 for flash_simt's forward and decode, which no path reaches; every
-path's counts are in ``launches_by_path``, flash_simt's and the 3xTF32
-forward's 0 on every bf16 path at head dims 64 and 128), the card line,
+float32 step for the 3xTF32 forward and backward, and 0 for flash_simt's
+kernels, which no path reaches; every path's counts are in
+``launches_by_path``, flash_simt's and the 3xTF32 kernels' 0 on every
+bf16 path at head dims 64 and 128), the card line,
 and the
 last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
@@ -299,6 +302,9 @@ KERNEL_FUNCS = {
     "flash_bwd_dq": ("flash_bwd", ("flash_bwd_dq_kernel",)),
     "flash_bwd_dkv": ("flash_bwd", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_sum_kernel")),
     "flash_fwd_tf32": ("flash_fwd_tf32", ("flash_fwd_tf32_kernel", "tf32_split_kernel")),
+    "flash_bwd_dq_tf32": ("flash_bwd_tf32", ("flash_bwd_dq_tf32_kernel", "tf32_bwd_split_kernel")),
+    "flash_bwd_dkv_tf32": ("flash_bwd_tf32", ("flash_bwd_dkv_tf32_kernel",
+                                              "flash_bwd_dkv_tf32_sum_kernel")),
     "flash_fwd_f32": ("flash_simt", ("fwd_f32_kernel",)),
     "flash_bwd_dq_f32": ("flash_simt", ("dq_f32_kernel",)),
     "flash_bwd_dkv_f32": ("flash_simt", ("dkv_f32_kernel",)),
@@ -315,9 +321,12 @@ SASS_REQUIRED = {"flash_fwd": {"flash_fwd_kernel": ("HGMMA", "UTMALDG")},
                  "flash_bwd": {"flash_bwd_dkv_kernel": ("HGMMA", "UTMALDG"),
                                "flash_bwd_dq_kernel": ("HGMMA", "UTMALDG")},
                  "flash_decode": {"flash_decode_kernel": ("UTMALDG", "HMMA")},
-                 "flash_fwd_tf32": {"flash_fwd_tf32_kernel": ("HGMMA", "UTMALDG")}}
+                 "flash_fwd_tf32": {"flash_fwd_tf32_kernel": ("HGMMA", "UTMALDG")},
+                 "flash_bwd_tf32": {"flash_bwd_dq_tf32_kernel": ("HGMMA", "UTMALDG"),
+                                    "flash_bwd_dkv_tf32_kernel": ("HGMMA", "UTMALDG")}}
 SASS_COUNT = {"flash_fwd_kernel": 2, "flash_bwd_dkv_kernel": 2, "flash_bwd_dq_kernel": 2,
-              "flash_decode_kernel": 32, "flash_fwd_tf32_kernel": 2}
+              "flash_decode_kernel": 32, "flash_fwd_tf32_kernel": 2,
+              "flash_bwd_dq_tf32_kernel": 2, "flash_bwd_dkv_tf32_kernel": 2}
 
 
 def ptxas_report(build):
@@ -394,8 +403,8 @@ def sass_check(build):
 def smem_dynamic(build):
     """Dynamic shared memory per block at d=128 of the redesigned kernels
     (the decode kernel's at its main-path instantiation: bf16 cache, up to
-    4 rows a group; the 3xTF32 forward's at its main path's d=64), from
-    their C interfaces."""
+    4 rows a group; the 3xTF32 forward's and backward's at their main
+    path's d=64), from their C interfaces."""
     import ctypes
 
     fwd = build.function("flash_fwd", "tgt_flash_fwd_smem_bytes", [ctypes.c_int])
@@ -404,9 +413,13 @@ def smem_dynamic(build):
     dec = build.function("flash_decode", "tgt_flash_decode_smem_bytes", [])
     simt = build.function("flash_simt", "tgt_flash_simt_smem_bytes", [ctypes.c_int] * 2)
     tf32 = build.function("flash_fwd_tf32", "tgt_flash_fwd_tf32_smem_bytes", [ctypes.c_int])
+    dq_tf32 = build.function("flash_bwd_tf32", "tgt_flash_bwd_dq_tf32_smem_bytes", [ctypes.c_int])
+    dkv_tf32 = build.function("flash_bwd_tf32", "tgt_flash_bwd_dkv_tf32_smem_bytes",
+                              [ctypes.c_int])
     return {"flash_fwd": fwd(128), "flash_bwd_dq": dq(128), "flash_bwd_dkv": dkv(128),
             "flash_decode": dec(), "flash_decode_int8": dec(),
-            "flash_fwd_tf32": tf32(64), "flash_fwd_f32": simt(0, 128),
+            "flash_fwd_tf32": tf32(64), "flash_bwd_dq_tf32": dq_tf32(64),
+            "flash_bwd_dkv_tf32": dkv_tf32(64), "flash_fwd_f32": simt(0, 128),
             "flash_bwd_dq_f32": simt(1, 128), "flash_bwd_dkv_f32": simt(2, 128)}
 
 
@@ -424,11 +437,12 @@ def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps: int, warmup: int = 2) -> float:
+def device_ms(torch, fn, reps: int, warmup: int = 2, by_kernel: bool = False):
     """Device time per call of ``fn``: the CUDA kernels' own time summed
     by torch.profiler over ``reps`` calls.  Unlike ``time_ms`` it leaves
     out the host's time between launches, which at decode sizes is
-    longer than the kernels."""
+    longer than the kernels.  ``by_kernel``: ``(total, {kernel name: ms
+    per call})``."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -439,12 +453,14 @@ def device_ms(torch, fn, reps: int, warmup: int = 2) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total = 0.0
+    per = {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             dev = getattr(e, "self_device_time_total", None)
-            total += e.self_cuda_time_total if dev is None else dev
-    return total / 1e3 / reps
+            per[e.key] = per.get(e.key, 0.0) + (e.self_cuda_time_total if dev is None
+                                                else dev) / 1e3 / reps
+    total = sum(per.values())
+    return (total, per) if by_kernel else total
 
 
 def sdpa_backends(torch, sets, causal: bool, reps: int, dout=None):
@@ -1053,6 +1069,9 @@ def kernel_launches(tfa):
             "flash_bwd_dq": tfa.flash_bwd_dq.launches,
             "flash_bwd_dkv": tfa.flash_bwd_dkv.launches,
             "flash_fwd_tf32": tfa.flash_attention_tf32.launches,
+            "flash_bwd_split_tf32": tfa.tf32_bwd_split.launches,
+            "flash_bwd_dq_tf32": tfa.flash_bwd_dq_tf32.launches,
+            "flash_bwd_dkv_tf32": tfa.flash_bwd_dkv_tf32.launches,
             "flash_fwd_f32": tfa.flash_attention_f32.launches,
             "flash_bwd_dq_f32": tfa.flash_bwd_dq_f32.launches,
             "flash_bwd_dkv_f32": tfa.flash_bwd_dkv_f32.launches,
@@ -3772,20 +3791,21 @@ SIMT_PROMPT, SIMT_NEW = 512, 32
 # runs once per micro-batch and again for the recomputed ones, one
 # backward per micro-batch; generate runs one forward a block in the
 # prefill and one decode a block a token.  float32 takes the 3xTF32
-# forward (csrc/flash_fwd_tf32.cu), flash_simt's backward and the
+# forward (csrc/flash_fwd_tf32.cu), the 3xTF32 backward (csrc/
+# flash_bwd_tf32.cu: its prologue, dQ and dK/dV once a backward) and the
 # tensor-core decode's float32 instantiation (d=64); d=80 takes the
 # tensor-core forward and backward zero-padded to 128 and flash_decode at
-# d=80 (a cache is never padded).  flash_simt's forward and decode take
-# only rows TMA cannot map: 0 on both paths.
-SIMT_F32_TRAIN = {"flash_fwd_tf32": 2 * (2 + 1), "flash_bwd_dq_f32": 2 * 2,
-                  "flash_bwd_dkv_f32": 2 * 2}
+# d=80 (a cache is never padded).  flash_simt's kernels take only rows TMA
+# cannot map: 0 on both paths.
+SIMT_F32_TRAIN = {"flash_fwd_tf32": 2 * (2 + 1), "flash_bwd_split_tf32": 2 * 2,
+                  "flash_bwd_dq_tf32": 2 * 2, "flash_bwd_dkv_tf32": 2 * 2}
 SIMT_F32_GENERATE = {"flash_fwd_tf32": 2, "flash_decode": 2 * SIMT_NEW}
 SIMT_D80_TRAIN = {"flash_fwd": 2 * (2 + 1), "flash_bwd_dq": 2 * 2, "flash_bwd_dkv": 2 * 2}
 SIMT_D80_GENERATE = {"flash_fwd": 2, "flash_decode": 2 * SIMT_NEW}
 # flash_simt.cu keeps every product in float32 FMAs, as the plain versions
 # do: the two differ only in summation order, ~1e-6 of O(1) outputs over
-# <= 1024 keys and <= 128 dims.  The 3xTF32 forward keeps ~22 bits a
-# product (the dropped small x small term and the tf32 read of each small
+# <= 1024 keys and <= 128 dims.  The 3xTF32 forward and backward keep ~22
+# bits a product (the dropped small x small term and the tf32 read of each small
 # part, ~2^-21 relative) and float32 sums: ~1e-6 as well (tests/
 # test_torch_tf32_split.py measures it against float64), so the same
 # tolerance holds both.  Forward 1e-4 absolute; gradients row by row,
@@ -3814,30 +3834,30 @@ def f32_bytes(b, s, h, g, d, *, reads, writes):
 
 
 def simt_kernels(torch, tfa, tg, card):
-    """The 3xTF32 forward with flash_simt's dQ and dK/dV, and flash_decode
-    at other head dims, against the plain versions at the shapes phase
-    5b's path gives them and at edges (other head dims, a window, no
-    causal mask, an int8 cache, a device pos0); flash_simt's forward and
-    decode at shapes TMA cannot map; timed at the path's shapes beside
-    SDPA and beside flash_simt's kernels, the earlier route."""
+    """The 3xTF32 forward and backward, and flash_decode at other head
+    dims, against the plain versions at the shapes phase 5b's path gives
+    them and at edges (other head dims, a window, no causal mask, an int8
+    cache, a device pos0); flash_simt's forward, dQ, dK/dV and decode at
+    shapes TMA cannot map; timed at the path's shapes beside SDPA and
+    beside flash_simt's kernels, the earlier route."""
     # (name, b, h, g, s, d, window, causal): the float32 Llama's training
     # micro-batch and prefill, then edges; the last (d=18: 72-byte rows,
-    # which TMA cannot stride) stays on flash_simt's forward.
+    # which TMA cannot stride) stays on flash_simt's forward and backward.
     cases = [("train_microbatch", 2, 32, 8, 1024, 64, None, True),
              ("prefill", 4, 32, 8, 512, 64, None, True),
              ("d80_nocausal", 2, 8, 2, 333, 80, None, False),
              ("d32_window", 2, 8, 4, 700, 32, 100, True),
              ("d128_ragged", 1, 8, 8, 129, 128, None, True),
              ("d18_simt", 2, 8, 2, 257, 18, None, True)]
-    worst = {"fwd": 0.0, "fwd_simt": 0.0, "dq": 0.0, "dkv": 0.0, "decode": 0.0,
-             "decode_simt": 0.0}
+    worst = {"fwd": 0.0, "fwd_simt": 0.0, "dq": 0.0, "dkv": 0.0, "dq_simt": 0.0,
+             "dkv_simt": 0.0, "decode": 0.0, "decode_simt": 0.0}
     rows = {}
     for name, b, h, g, s, d, window, causal in cases:
         route = tfa.attention_route((b, s, h, d), (b, s, g, d), torch.float32,
                                     window=window).kind
         if route != ("simt" if name.endswith("_simt") else "f32"):
             fail(f"float32 attention {name}: routed to {route}")
-        fwd_key = {"f32": "fwd", "simt": "fwd_simt"}[route]
+        sfx = {"f32": "", "simt": "_simt"}[route]
         fwd_fn = tfa.flash_attention_tf32 if route == "f32" else tfa.flash_attention_f32
         gen = torch.Generator(device="cuda").manual_seed(6)
         q, k, v = (torch.randn(b, s, n, d, generator=gen, device="cuda").requires_grad_()
@@ -3849,10 +3869,17 @@ def simt_kernels(torch, tfa, tg, card):
         got = torch.autograd.grad(out, (q, k, v), do)
         torch.cuda.synchronize()
         counts = kernel_launches(tfa)
-        launched = "flash_fwd_tf32" if route == "f32" else "flash_fwd_f32"
-        if (counts[launched], counts["flash_bwd_dq_f32"], counts["flash_bwd_dkv_f32"],
-                sum(counts.values())) != (1, 1, 1, 3):
-            fail(f"float32 attention {name}: one forward and backward launched {counts}")
+        launched = (("flash_fwd_tf32", "flash_bwd_split_tf32", "flash_bwd_dq_tf32",
+                     "flash_bwd_dkv_tf32") if route == "f32" else
+                    ("flash_fwd_f32", "flash_bwd_dq_f32", "flash_bwd_dkv_f32"))
+        if counts != {key: int(key in launched) for key in counts}:
+            fail(f"float32 attention {name}: one forward and backward launched {counts}, "
+                 f"expected one each of {launched}")
+        if name == "train_microbatch":
+            again = fwd_fn(q, k, v, **kw)
+            twice = torch.autograd.grad(again, (q, k, v), do)
+            if not all(torch.equal(a, c) for a, c in zip(got, twice)):
+                fail(f"float32 attention {name}: two backward calls disagree bitwise")
         ref = tfa.flash_attention_reference(q, k, v, **kw)
         want = torch.autograd.grad(ref, (q, k, v), do)
         err = (out - ref).abs().max().item()
@@ -3860,26 +3887,39 @@ def simt_kernels(torch, tfa, tg, card):
         if not (err <= SIMT_F32_TOL and max(ratios) <= 1.0):
             fail(f"float32 attention {name}: forward err {err:.3e} (tol {SIMT_F32_TOL}), "
                  f"dq/dk/dv worst row err/tol {ratios}")
-        worst[fwd_key] = max(worst[fwd_key], err)
-        worst["dq"] = max(worst["dq"], (got[0] - want[0]).abs().max().item())
-        worst["dkv"] = max(worst["dkv"], *((a - c).abs().max().item()
-                                          for a, c in zip(got[1:], want[1:])))
-        print(f"float32 attention {name} ({launched}): b={b} s={s} h={h} g={g} d={d} "
-              f"window={window} causal={causal} fwd max_abs_err={err:.3e} (tol "
-              f"{SIMT_F32_TOL}) dq/dk/dv worst row err/tol {[round(x, 4) for x in ratios]} "
-              f"[{card}]", flush=True)
+        worst["fwd" + sfx] = max(worst["fwd" + sfx], err)
+        worst["dq" + sfx] = max(worst["dq" + sfx], (got[0] - want[0]).abs().max().item())
+        worst["dkv" + sfx] = max(worst["dkv" + sfx], *((a - c).abs().max().item()
+                                                      for a, c in zip(got[1:], want[1:])))
+        print(f"float32 attention {name} ({', '.join(launched)}): b={b} s={s} h={h} g={g} "
+              f"d={d} window={window} causal={causal} fwd max_abs_err={err:.3e} (tol "
+              f"{SIMT_F32_TOL}) dq/dk/dv worst row err/tol {[round(x, 4) for x in ratios]}"
+              f"{'; backward bitwise equal on a second call' if name == 'train_microbatch' else ''}"
+              f" [{card}]", flush=True)
         if name != "train_microbatch":
             continue
         qd, kd, vd = (x.detach() for x in (q, k, v))
         scale = d ** -0.5
         o, lse = tfa._flash_fwd_tf32(qd, kd, vd, causal, scale, window)
         delta = tfa._delta(do, o)
+        split = tfa.tf32_bwd_split(qd, kd, vd, do)
+        if not torch.equal(split, tfa._tf32_bwd_split_reference(qd, kd, vd, do)):
+            fail("tf32_bwd_split: the prologue's buffer differs from its plain version")
         bkw = dict(causal=causal, sm_scale=scale, window=window)
         calls = (("fwd", lambda: tfa._flash_fwd_tf32(qd, kd, vd, causal, scale, window)),
                  ("fwd_simt", lambda: tfa._flash_fwd_f32(qd, kd, vd, causal, scale, window)),
-                 ("dq", lambda: tfa.flash_bwd_dq_f32(qd, kd, vd, do, lse, delta, **bkw)),
-                 ("dkv", lambda: tfa.flash_bwd_dkv_f32(qd, kd, vd, do, lse, delta, **bkw)))
+                 ("split", lambda: tfa.tf32_bwd_split(qd, kd, vd, do)),
+                 ("dq", lambda: tfa.flash_bwd_dq_tf32(qd, kd, vd, do, lse, delta, split=split,
+                                                      **bkw)),
+                 ("dkv", lambda: tfa.flash_bwd_dkv_tf32(qd, kd, vd, do, lse, delta,
+                                                        split=split, **bkw)),
+                 ("dq_simt", lambda: tfa.flash_bwd_dq_f32(qd, kd, vd, do, lse, delta, **bkw)),
+                 ("dkv_simt", lambda: tfa.flash_bwd_dkv_f32(qd, kd, vd, do, lse, delta,
+                                                            **bkw)))
         ms = {n: device_ms(torch, c, 5) for n, c in calls}
+        ms["dkv_sum"] = sum(t for key, t in device_ms(torch, dict(calls)["dkv"], 5,
+                                                       by_kernel=True)[1].items()
+                            if "flash_bwd_dkv_tf32_sum_kernel" in key)
         plain_fwd = device_ms(torch, lambda: tfa._reference_fwd(qd, kd, vd, causal, scale,
                                                                 window), 3, 1)
         plain_bwd = device_ms(torch, lambda: tfa._reference_grads(
@@ -3891,28 +3931,38 @@ def simt_kernels(torch, tfa, tg, card):
         reads = ["q", "k", "v", "do", "lse", "delta"]
         fwd_bytes = (f32_bytes(b, s, h, g, d, reads=["q", "k", "v"], writes=["o"])
                      + 4.0 * b * h * s)
-        # The forward's float32-accurate products: three TF32 products each
-        # on the tensor cores (the least time), or one f32 FMA on the CUDA
-        # cores (flash_simt's route).
+        dq_bytes = f32_bytes(b, s, h, g, d, reads=reads, writes=["dq"])
+        dkv_bytes = f32_bytes(b, s, h, g, d, reads=reads, writes=["dk", "dv"])
+        # The float32-accurate products: three TF32 products each on the
+        # tensor cores (the least time), or one f32 FMA on the CUDA cores
+        # (flash_simt's route).  The prologue moves bytes only: q, k, v, dO
+        # read once, its buffer written once.
+        split_bytes = (f32_bytes(b, s, h, g, d, reads=["q", "k", "v", "do"], writes=[])
+                       + 4.0 * split.numel())
         bounds = {
             "fwd": bound(3 * 4.0 * b * h * d * pairs, fwd_bytes, PEAK_TF32_FLOPS),
             "fwd_simt": bound(4.0 * b * h * d * pairs, fwd_bytes, PEAK_F32_FLOPS),
-            "dq": bound(6.0 * b * h * d * pairs,
-                        f32_bytes(b, s, h, g, d, reads=reads, writes=["dq"]), PEAK_F32_FLOPS),
-            "dkv": bound(8.0 * b * h * d * pairs,
-                         f32_bytes(b, s, h, g, d, reads=reads, writes=["dk", "dv"]),
-                         PEAK_F32_FLOPS)}
+            "split": bound(0.0, split_bytes),
+            "dq": bound(3 * 6.0 * b * h * d * pairs, dq_bytes, PEAK_TF32_FLOPS),
+            "dkv": bound(3 * 8.0 * b * h * d * pairs, dkv_bytes, PEAK_TF32_FLOPS),
+            "dq_simt": bound(6.0 * b * h * d * pairs, dq_bytes, PEAK_F32_FLOPS),
+            "dkv_simt": bound(8.0 * b * h * d * pairs, dkv_bytes, PEAK_F32_FLOPS)}
         print(f"float32 attention timing {name}, device ms per call: fwd (3xTF32) "
               f"{ms['fwd']:.4f} (plain {plain_fwd:.4f}, sdpa {lib_f[2]:.4f} {lib_f[1]}, bound "
               f"{bounds['fwd'][0]:.4f} {bounds['fwd'][1]} at 3xTF32, "
               f"{bounds['fwd_simt'][0]:.4f} at f32 FMA; flash_simt's forward "
-              f"{ms['fwd_simt']:.4f}) dq {ms['dq']:.4f} (bound {bounds['dq'][0]:.4f}) dkv "
-              f"{ms['dkv']:.4f} (bound {bounds['dkv'][0]:.4f}); plain backward "
-              f"{plain_bwd:.4f} and sdpa backward {lib_b[2]:.4f} ({lib_b[1]}), all three "
-              f"grads [{card}]", flush=True)
+              f"{ms['fwd_simt']:.4f}); backward (3xTF32): prologue {ms['split']:.4f} (bound "
+              f"{bounds['split'][0]:.4f} {bounds['split'][1]}) dq {ms['dq']:.4f} (bound "
+              f"{bounds['dq'][0]:.4f} at 3xTF32, {bounds['dq_simt'][0]:.4f} at f32 FMA) dkv "
+              f"{ms['dkv']:.4f} (its sum kernel {ms['dkv_sum']:.4f}; bound "
+              f"{bounds['dkv'][0]:.4f} at 3xTF32, {bounds['dkv_simt'][0]:.4f} at f32 FMA), "
+              f"together "
+              f"{ms['split'] + ms['dq'] + ms['dkv']:.4f}; flash_simt's dq {ms['dq_simt']:.4f} "
+              f"dkv {ms['dkv_simt']:.4f} (earlier); plain backward {plain_bwd:.4f} and sdpa "
+              f"backward {lib_b[2]:.4f} ({lib_b[1]}), all three grads [{card}]", flush=True)
         rows["f32"] = dict(ms=ms, plain_fwd=plain_fwd, plain_bwd=plain_bwd, lib_fwd=lib_f,
                            lib_bwd=lib_b, bounds=bounds)
-        del o, lse, delta
+        del o, lse, delta, split
     # Decode: the d=80 model's generate (b=4, 32 kv heads, one row each,
     # 513..544 live of 544), then edges through flash_decode at the real
     # head dim; the last (an int8 cache at d=24: 24-byte rows) stays on
@@ -4033,6 +4083,20 @@ def phase_simt(torch, tfa, tt, tg, card, seed: int):
         grads_finite = all(bool(torch.isfinite(p.grad).all()) for p in pipe.parameters())
         if not (math.isfinite(loss.item()) and grads_finite):
             fail(f"{tag} step: loss {loss.item()}, gradients finite {grads_finite}")
+        prof = None
+        if tag == "f32_llama":
+            # A second step under the profiler: device busy time and the
+            # attention kernels' share of it (the float32 backward's).
+            wall, busy, krows = profile(torch, card, f"simt path {tag} step",
+                                        lambda: pipe.value_and_grad(tokens, tokens, loss_fn),
+                                        top=8)
+            attn = {n: sum(us for us, _, key in krows if n in key) / 1e3 for n in (
+                "flash_fwd_tf32_kernel", "tf32_bwd_split_kernel", "flash_bwd_dq_tf32_kernel",
+                "flash_bwd_dkv_tf32_kernel", "flash_bwd_dkv_tf32_sum_kernel")}
+            prof = {"wall_ms": wall * 1e3, "busy_ms": busy * 1e3, "attention_ms": attn}
+            print(f"simt path {tag}: profiled step device busy {busy * 1e3:.1f} ms of "
+                  f"{wall * 1e3:.1f}; attention kernels (ms) "
+                  f"{ {k: round(v, 3) for k, v in attn.items()} } [{card}]", flush=True)
         del pipe
         for p in model.parameters():
             p.grad = None
@@ -4049,7 +4113,7 @@ def phase_simt(torch, tfa, tt, tg, card, seed: int):
         out["paths"][tag] = {"train": stats["launches"], "generate": gen_launches,
                              "loss": loss.item(), "step_ms": stats["ms"],
                              "decode_ms_per_token": dec, "teacher_forced_agree": agree,
-                             "max_gap": gap}
+                             "max_gap": gap, "step_profile": prof}
         print(f"simt path {tag}: {cfg.head_dim}-dim heads, {str(dtype)[6:]}, 2 blocks; step "
               f"batch {SIMT_BATCH} x seq {SIMT_SEQ} loss {loss.item():.5f} step_ms "
               f"{stats['ms']:.1f} launches {stats['launches']}; generate 4 x {SIMT_PROMPT} + "
@@ -4362,8 +4426,24 @@ def main() -> None:
         simt_entry("flash_fwd_f32", "fwd_simt", 69, "f32_llama_train") | {
             "takes": "float32 head dims that are not a multiple of 4",
             "max_abs_err_at": "d=18"},
-        simt_entry("flash_bwd_dq_f32", "dq", 538, "f32_llama_train"),
-        simt_entry("flash_bwd_dkv_f32", "dkv", 592, "f32_llama_train"),
+        simt_entry("flash_bwd_dq_tf32", "dq", 538, "f32_llama_train", "flash_bwd_tf32.cu") | {
+            "bound_at": "3xTF32 on the tensor cores (495 TF/s / 3)",
+            "bound_fma_ms": srows["f32"]["bounds"]["dq_simt"][0],
+            "prologue_ms": srows["f32"]["ms"]["split"],
+            "prologue_bound_ms": srows["f32"]["bounds"]["split"][0],
+            "prologue_launches": paths["f32_llama_train"]["flash_bwd_split_tf32"],
+            "earlier_kernel_ms": srows["f32"]["ms"]["dq_simt"]},
+        simt_entry("flash_bwd_dkv_tf32", "dkv", 592, "f32_llama_train", "flash_bwd_tf32.cu") | {
+            "bound_at": "3xTF32 on the tensor cores (495 TF/s / 3)",
+            "bound_fma_ms": srows["f32"]["bounds"]["dkv_simt"][0],
+            "sum_kernel_ms": srows["f32"]["ms"]["dkv_sum"],
+            "earlier_kernel_ms": srows["f32"]["ms"]["dkv_simt"]},
+        simt_entry("flash_bwd_dq_f32", "dq_simt", 538, "f32_llama_train") | {
+            "takes": "float32 head dims that are not a multiple of 4",
+            "max_abs_err_at": "d=18"},
+        simt_entry("flash_bwd_dkv_f32", "dkv_simt", 592, "f32_llama_train") | {
+            "takes": "float32 head dims that are not a multiple of 4",
+            "max_abs_err_at": "d=18"},
         {"name": "flash_decode_simt", "route": "cuda", "source": src + "flash_simt.cu",
          "replaces": f"{ref}:1024", "launches": paths["d80_llama_generate"]["flash_decode_simt"],
          "launches_by_path": by_path("flash_decode_simt"),
@@ -4381,8 +4461,10 @@ def main() -> None:
         k["ptxas"] = {f: resources[f] for f in KERNEL_FUNCS[k["name"]][1]}
         if k["name"] in smem:
             k["smem_dynamic_bytes"] = smem[k["name"]]
-    for k in kernels[3:5]:
-        k["bitwise_repeat"] = True   # phase 5 fails otherwise
+    for k in kernels:
+        if k["name"] in ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_tf32",
+                         "flash_bwd_dkv_tf32"):
+            k["bitwise_repeat"] = True   # phases 5 and 5b fail otherwise
     for k in kernels[1:3]:
         k["device_pos0_bitwise"] = k["graph_replay"] = True   # phase 4 fails otherwise
     print(json.dumps({"kernels": kernels}))

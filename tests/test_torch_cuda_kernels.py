@@ -659,16 +659,15 @@ def test_flash_decode_other_head_dims_graph_replays_at_two_lengths(cuda_device, 
      (1, 64, 2, 1, 4, None, True, None)],
 )
 def test_flash_fwd_tf32_matches_plain(cuda_device, b, s, h, g, d, window, causal, sk):
-    """The 3xTF32 forward (O and LSE) and the gradients it feeds to
-    flash_simt's backward kernels, against the plain versions."""
+    """The 3xTF32 forward (O and LSE) and the gradients of the 3xTF32
+    backward it feeds, against the plain versions."""
     sk = sk or s
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     q = torch.randn(b, s, h, d, generator=gen, device=cuda_device).requires_grad_()
     k, v = (torch.randn(b, sk, g, d, generator=gen, device=cuda_device).requires_grad_()
             for _ in range(2))
     do = torch.randn(b, s, h, d, generator=gen, device=cuda_device)
-    before = (tfa.flash_attention_tf32.launches, tfa.flash_attention_f32.launches,
-              tfa.flash_bwd_dq_f32.launches, tfa.flash_bwd_dkv_f32.launches)
+    before = _tf32_counts()
     out = tfa.flash_attention_tf32(q, k, v, causal=causal, window=window)
     got = torch.autograd.grad(out, (q, k, v), do)
     o, lse = tfa._flash_fwd_tf32(q.detach(), k.detach(), v.detach(), causal, d ** -0.5, window)
@@ -676,14 +675,89 @@ def test_flash_fwd_tf32_matches_plain(cuda_device, b, s, h, g, d, window, causal
     ref = tfa.flash_attention_reference(q, k, v, causal=causal, window=window)
     want = torch.autograd.grad(ref, (q, k, v), do)
     torch.cuda.synchronize()
-    assert (tfa.flash_attention_tf32.launches, tfa.flash_attention_f32.launches,
-            tfa.flash_bwd_dq_f32.launches, tfa.flash_bwd_dkv_f32.launches) == (
-        before[0] + 2, before[1], before[2] + 1, before[3] + 1)
+    # Two forwards, one backward (prologue, dQ, dK/dV); no flash_simt launch.
+    assert _tf32_counts() == tuple(n + c for n, c in zip(before, (2, 1, 1, 1, 0, 0, 0)))
     assert torch.equal(o, out.detach())
     assert (out - ref).abs().max().item() <= F32_TOL
     assert (lse - rl).abs().max().item() <= F32_TOL
     for a, c in zip(got, want):
         assert f32_row_ratio(a, c) <= 1.0
+
+
+def _tf32_counts():
+    return (tfa.flash_attention_tf32.launches, tfa.tf32_bwd_split.launches,
+            tfa.flash_bwd_dq_tf32.launches, tfa.flash_bwd_dkv_tf32.launches,
+            tfa.flash_attention_f32.launches, tfa.flash_bwd_dq_f32.launches,
+            tfa.flash_bwd_dkv_f32.launches)
+
+
+# csrc/flash_bwd_tf32.cu: dQ and dK/dV on 3xTF32 wgmma from the prologue's
+# split operands, held row by row to the F32 tolerances above (the same
+# arithmetic as the 3xTF32 forward; tests/test_torch_tf32_split.py runs
+# the backward's five products against float64).  Every (batch, position,
+# head) row is checked, so a consumer warpgroup's rows placed wrongly (or
+# a tile left out) fail.  Head dims 32/64/80/128 on both template dims,
+# ragged lengths, GQA ratios 1 and 4, a window, no mask, fewer keys than
+# queries; a second call gives equal bits (no atomics).
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,s,h,g,d,window,causal,sk",
+    [(2, 1024, 32, 8, 64, None, True, None), (2, 257, 4, 4, 64, None, True, None),
+     (1, 129, 8, 8, 128, None, True, None), (2, 333, 8, 2, 80, None, False, None),
+     (2, 700, 8, 4, 32, 100, True, None), (1, 300, 8, 2, 128, 64, True, None),
+     (2, 700, 8, 8, 64, 250, True, None), (2, 129, 4, 1, 32, None, False, None),
+     (2, 300, 4, 4, 36, None, False, 77), (1, 2112, 4, 1, 128, None, True, None)],
+)
+def test_flash_bwd_tf32_matches_plain(cuda_device, b, s, h, g, d, window, causal, sk):
+    sk = sk or s
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    q = torch.randn(b, s, h, d, generator=gen, device=cuda_device)
+    k, v = (torch.randn(b, sk, g, d, generator=gen, device=cuda_device) for _ in range(2))
+    do = torch.randn(b, s, h, d, generator=gen, device=cuda_device)
+    scale = d ** -0.5
+    o, lse = tfa._flash_fwd_tf32(q, k, v, causal, scale, window)
+    delta = tfa._delta(do, o)
+    before = _tf32_counts()
+    split = tfa.tf32_bwd_split(q, k, v, do)
+    kw = dict(causal=causal, sm_scale=scale, window=window, split=split)
+    got = (tfa.flash_bwd_dq_tf32(q, k, v, do, lse, delta, **kw),
+           *tfa.flash_bwd_dkv_tf32(q, k, v, do, lse, delta, **kw))
+    again = (tfa.flash_bwd_dq_tf32(q, k, v, do, lse, delta, **kw),
+             *tfa.flash_bwd_dkv_tf32(q, k, v, do, lse, delta, **kw))
+    want = tfa._reference_grads(q, k, v, do, lse, delta, causal, scale, window)
+    torch.cuda.synchronize()
+    assert _tf32_counts() == tuple(n + c for n, c in zip(before, (0, 1, 2, 2, 0, 0, 0)))
+    assert torch.equal(split, tfa._tf32_bwd_split_reference(q, k, v, do))
+    for a, a2, c in zip(got, again, want):
+        assert torch.equal(a, a2)
+        assert f32_row_ratio(a, c) <= 1.0
+
+
+@pytest.mark.cuda
+def test_tf32_backward_wrappers_refuse_what_their_kernels_do_not_take(cuda_device):
+    """The prologue, dQ and dK/dV wrappers raise, launching nothing, on a
+    head dim TMA cannot map (d % 4 != 0: flash_simt's route), above 128, a
+    bfloat16 operand and a prologue buffer of other shapes (the one
+    prologue launch here makes that buffer)."""
+    n = _tf32_counts()
+    kw = dict(causal=True, sm_scale=1.0, window=None)
+    for d in (30, 256):
+        x = torch.zeros(1, 64, 4, d, device=cuda_device)
+        lse = torch.zeros(4, 64, device=cuda_device)
+        with pytest.raises(ValueError, match="head dim"):
+            tfa.tf32_bwd_split(x, x, x, x)
+        for fn in (tfa.flash_bwd_dq_tf32, tfa.flash_bwd_dkv_tf32):
+            with pytest.raises(ValueError, match="head dim"):
+                fn(x, x, x, x, lse, lse, split=x.flatten(), **kw)
+    x = torch.zeros(1, 64, 4, 64, device=cuda_device)
+    lse = torch.zeros(4, 64, device=cuda_device)
+    split = tfa.tf32_bwd_split(x, x, x, x)
+    with pytest.raises(TypeError, match="float32"):
+        tfa.flash_bwd_dq_tf32(x.bfloat16(), x, x, x, lse, lse, split=split, **kw)
+    for fn in (tfa.flash_bwd_dq_tf32, tfa.flash_bwd_dkv_tf32):
+        with pytest.raises(ValueError, match="split"):
+            fn(x, x, x, x, lse, lse, split=split[:-4], **kw)
+    assert _tf32_counts() == tuple(c + (i == 1) for i, c in enumerate(n))
 
 
 @pytest.mark.cuda

@@ -427,7 +427,12 @@ def test_routed_llama_trains_and_generates_as_on_the_cpu(cuda_device, case):
     for a, b in zip(gc, gh):
         assert float((a - b).abs().max()) <= grad_rel * float(b.abs().max()), case
     if case == "float32":
-        assert train_f32 > 0 and train_fwd == 0 and tfa.flash_bwd_dkv_f32.launches > 0
+        # the 3xTF32 backward (prologue, dQ, dK/dV) once per backward, and
+        # none of flash_simt's.
+        n_bwd = tfa.flash_bwd_dkv_tf32.launches
+        assert train_f32 > 0 and train_fwd == 0 and n_bwd > 0
+        assert (tfa.tf32_bwd_split.launches, tfa.flash_bwd_dq_tf32.launches) == (n_bwd, n_bwd)
+        assert (tfa.flash_bwd_dq_f32.launches, tfa.flash_bwd_dkv_f32.launches) == (0, 0)
     else:
         assert train_f32 == 0 and train_fwd > 0 and tfa.flash_bwd_dq.launches > 0
     prompt = tokens[:2, :64]
@@ -471,6 +476,8 @@ def test_bf16_head_dim_128_counts_no_dense_route(cuda_device):
     torch.cuda.synchronize()
     assert (tfa.flash_attention_tf32.launches, tfa.flash_attention_f32.launches,
             tfa.flash_decode_simt.launches) == (0, 0, 0)
+    assert (tfa.tf32_bwd_split.launches, tfa.flash_bwd_dq_tf32.launches,
+            tfa.flash_bwd_dkv_tf32.launches) == (0, 0, 0)
     assert tfa.flash_attention.launches > 0 and tfa.flash_decode_attention.launches == 16
 
 

@@ -29,7 +29,9 @@ axis) because of VMEM size; on Hopper one tile loop serves every length.
 * :func:`flash_attention_tf32` launches ``csrc/flash_fwd_tf32.cu``, the
   float32 forward on the tensor cores at float32 accuracy (3xTF32, the
   split of :func:`tf32_split`; the reference's kernels take float32);
-  its backward runs ``csrc/flash_simt.cu``'s float32 dQ and dK/dV.
+  its backward launches :func:`tf32_bwd_split` (a prologue writing the
+  split operands, some transposed), then :func:`flash_bwd_dq_tf32` and
+  :func:`flash_bwd_dkv_tf32`, all in ``csrc/flash_bwd_tf32.cu``.
 * :func:`flash_attention_f32` (with :func:`flash_bwd_dq_f32` and
   :func:`flash_bwd_dkv_f32`) and :func:`flash_decode_simt` launch
   ``csrc/flash_simt.cu``, CUDA-core kernels for the shapes TMA cannot map:
@@ -59,6 +61,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import heapq
+import math
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -390,15 +393,16 @@ DKV_QUERIES = 64   # queries per Q/dO tile (KV_BQ)
 
 
 class DkvSchedule(NamedTuple):
-    """How ``csrc/flash_bwd.cu``'s persistent dK/dV kernel splits one
-    call.  A *combo* is one (batch, kv head, 128-key tile); its work is
-    a loop over (query head of the group, live 64-query tile), ``r *
-    ntile`` iterations.  ``items`` are contiguous ranges of those loops:
-    ``(bi, kvh, kt, jq0, ntile, it0, it1, slot)``, iteration ``t`` being
-    query head ``kvh * r + t // ntile`` and query tile ``jq0 + t %
-    ntile``; ``slot`` is the item's f32 scratch slot, or -1 when the
-    item holds its combo's whole loop and writes bf16 itself.  Block
-    ``i`` runs ``items[offsets[i]:offsets[i+1]]``.  ``combos[c] =
+    """How a persistent dK/dV kernel (``csrc/flash_bwd.cu``,
+    ``csrc/flash_bwd_tf32.cu``) splits one call.  A *combo* is one
+    (batch, kv head, key tile: 128 keys by default); its work is a loop
+    over (query head of the group, live query tile: 64 queries by
+    default), ``r * ntile`` iterations.  ``items`` are contiguous ranges
+    of those loops: ``(bi, kvh, kt, jq0, ntile, it0, it1, slot)``,
+    iteration ``t`` being query head ``kvh * r + t // ntile`` and query
+    tile ``jq0 + t % ntile``; ``slot`` is the item's f32 scratch slot, or
+    -1 when the item holds its combo's whole loop and writes its output
+    itself.  Block ``i`` runs ``items[offsets[i]:offsets[i+1]]``.  ``combos[c] =
     (first_slot, count)`` for combo ``c = (bi * g + kvh) * nkt + kt``:
     count -1 = written by its item, 0 = no query attends it (zeros)."""
 
@@ -409,25 +413,30 @@ class DkvSchedule(NamedTuple):
 
 
 def _dkv_live_tiles(kt: int, s: int, sk: int, causal: bool,
-                    window: Optional[int]) -> Tuple[int, int]:
-    """``(first, count)`` of the 64-query tiles that attend some key of
-    128-key tile ``kt``: from the diagonal to the window's last query."""
-    nq = -(-s // DKV_QUERIES)
+                    window: Optional[int], keys: int = DKV_KEYS,
+                    queries: int = DKV_QUERIES) -> Tuple[int, int]:
+    """``(first, count)`` of the ``queries``-query tiles that attend some
+    key of ``keys``-key tile ``kt``: from the diagonal to the window's
+    last query."""
+    nq = -(-s // queries)
     if not causal:
         return 0, nq
-    k0 = kt * DKV_KEYS
-    first, end = k0 // DKV_QUERIES, nq
+    k0 = kt * keys
+    first, end = k0 // queries, nq
     if window is not None:
-        last_key = min(k0 + DKV_KEYS, sk) - 1
-        end = min((last_key + window - 1) // DKV_QUERIES + 1, nq)
+        last_key = min(k0 + keys, sk) - 1
+        end = min((last_key + window - 1) // queries + 1, nq)
     return first, max(end - first, 0)
 
 
 def dkv_schedule(
     b: int, s: int, sk: int, h: int, g: int, causal: bool,
-    window: Optional[int], n_sms: int,
+    window: Optional[int], n_sms: int, keys: int = DKV_KEYS,
+    queries: int = DKV_QUERIES,
 ) -> DkvSchedule:
-    """The balanced causal schedule of ``flash_bwd_dkv``: combos sorted
+    """The balanced causal schedule of ``flash_bwd_dkv`` (``keys``-key
+    combos over ``queries``-query tiles: 128/64 by default,
+    ``flash_bwd_dkv_tf32`` takes :data:`TF32_DKV_TILES`): combos sorted
     longest first fill the SMs in turn, each SM up to ``ceil(total /
     n_sms)`` iterations, a combo cut where an SM fills (McNaughton's
     wrap-around rule), so no SM holds more than the mean work plus one
@@ -435,12 +444,13 @@ def dkv_schedule(
     deterministic: the kernel's sums depend on the slots, not on which
     SM runs an item."""
     r = h // g
-    nkt = -(-sk // DKV_KEYS)
+    nkt = -(-sk // keys)
     combos = []   # (work, combo index, bi, kvh, kt, jq0, ntile)
     for bi in range(b):
         for kvh in range(g):
             for kt in range(nkt):
-                jq0, ntile = _dkv_live_tiles(kt, s, sk, causal, window)
+                jq0, ntile = _dkv_live_tiles(kt, s, sk, causal, window, keys,
+                                             queries)
                 c = (bi * g + kvh) * nkt + kt
                 combos.append((r * ntile, c, bi, kvh, kt, jq0, ntile))
     total = sum(c[0] for c in combos)
@@ -482,12 +492,14 @@ def dkv_schedule(
 
 
 @functools.lru_cache(maxsize=64)
-def _dkv_plan(device: torch.device, *key) -> Tuple[torch.Tensor, int, int, int]:
+def _dkv_plan(device: torch.device, *key,
+              tile: Tuple[int, int] = (DKV_KEYS, DKV_QUERIES),
+              ) -> Tuple[torch.Tensor, int, int, int]:
     """:func:`dkv_schedule` of ``key = (b, s, sk, h, g, causal, window)``
-    on ``device``'s SMs as one int32 device tensor (items, then offsets,
-    then combos) with its block count, slot count and where the offsets
-    start."""
-    sch = dkv_schedule(*key, _sm_count(device))
+    and ``tile = (keys, queries)`` on ``device``'s SMs as one int32 device
+    tensor (items, then offsets, then combos) with its block count, slot
+    count and where the offsets start."""
+    sch = dkv_schedule(*key, _sm_count(device), *tile)
     flat = [v for it in sch.items for v in it] + sch.offsets + [
         v for c in sch.combos for v in c]
     return (torch.tensor(flat, dtype=torch.int32, device=device),
@@ -1172,12 +1184,7 @@ def _flash_fwd_tf32(
         raise ValueError(f"flash_attention_tf32: unsupported device {q.device}")
     _check_f32("flash_fwd_tf32", q, k, v)
     _check_tma("flash_fwd_tf32", q, k, v)
-    if not supports_tf32(q.shape, k.shape, q.dtype) or v.shape != k.shape:
-        raise ValueError(
-            f"flash_fwd_tf32 kernel does not take q {tuple(q.shape)}, k "
-            f"{tuple(k.shape)}, v {tuple(v.shape)}: head dim must be a "
-            f"multiple of 4 up to {SIMT_HEAD_DIM_MAX} and h a multiple of g"
-        )
+    _check_tf32_shapes("flash_fwd_tf32", q, k, v)
     b, s, h, d = q.shape
     sk, g = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
@@ -1198,10 +1205,198 @@ def _flash_fwd_tf32(
     return o, lse
 
 
-class _FlashAttentionTF32(_FlashAttentionF32):
-    """:class:`_FlashAttentionF32` with the forward on the tensor cores:
-    ``csrc/flash_fwd_tf32.cu``, then ``csrc/flash_simt.cu``'s dQ and
-    dK/dV from its LSE; the plain version on the CPU."""
+# By template head dim (csrc/flash_bwd_tf32.cu Dq, Dkv): (query rows, keys)
+# of a dQ tile, and (keys, queries) of a dK/dV work item.
+TF32_DQ_TILES = {64: (128, 32), 128: (64, 32)}
+TF32_DKV_TILES = {64: (128, 32), 128: (64, 32)}
+TF32_BWD_PAD = 32    # Qt, dOt and Kt are padded to a multiple of this many positions
+# q, k, v, dout, split, b, s, sk, h, g, d, stream
+_BWD_SPLIT_TF32_ARGS = [_P] * 5 + [_I] * 6 + [_P]
+# split, lse, delta, dq, plan, nblocks, b, s, sk, h, g, d, scale, causal,
+# window, stream
+_BWD_DQ_TF32_ARGS = [_P] * 5 + [_I] * 7 + [ctypes.c_float, _I, _I, _P]
+# split, lse, delta, dk, dv, items, offsets, combos, partial, nblocks, b,
+# s, sk, h, g, d, scale, causal, window, stream
+_BWD_DKV_TF32_ARGS = [_P] * 9 + [_I] * 7 + [ctypes.c_float, _I, _I, _P]
+
+
+def tf32_bwd_split_shapes(
+    b: int, s: int, sk: int, h: int, g: int, d: int,
+) -> Dict[str, Tuple[int, ...]]:
+    """The parts of the float32 backward's prologue buffer, in order:
+    the big and small parts (:func:`tf32_split`) of q, dO, k and v as
+    stored, then of q, dO and k transposed to ``[b, heads, d, n]``
+    (:func:`tf32_transpose`)."""
+    pad = TF32_BWD_PAD
+    rq, rk = (b, s, h, d), (b, sk, g, d)
+    tq, tk = (b, h, d, -(-s // pad) * pad), (b, g, d, -(-sk // pad) * pad)
+    return {"qb": rq, "qs": rq, "dob": rq, "dos": rq, "kb": rk, "ks": rk,
+            "vb": rk, "vs": rk, "qtb": tq, "qts": tq, "dotb": tq, "dots": tq,
+            "ktb": tk, "kts": tk}
+
+
+def tf32_transpose(x: torch.Tensor) -> torch.Tensor:
+    """``[b, n, heads, d]`` as the float32 backward's B operands take it:
+    ``[b, heads, d, n']`` with the positions contiguous, zeros past ``n``
+    up to a multiple of :data:`TF32_BWD_PAD`, and in each aligned group
+    of 8 the positions 0 2 4 6 1 3 5 7 (the order in which an
+    accumulator's columns fall into the next product's A fragment)."""
+    n = x.shape[1]
+    n_pad = -(-n // TF32_BWD_PAD) * TF32_BWD_PAD
+    xt = F.pad(x, (0, 0, 0, 0, 0, n_pad - n)).permute(0, 2, 3, 1)
+    j = torch.arange(n_pad, device=x.device) % 8
+    order = torch.arange(n_pad, device=x.device) - j + torch.where(j < 4, 2 * j, 2 * j - 7)
+    return xt[..., order].contiguous()
+
+
+def _tf32_bwd_split_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+) -> torch.Tensor:
+    """The plain version of :func:`tf32_bwd_split`: the parts of
+    :func:`tf32_bwd_split_shapes` flattened into one float32 tensor."""
+    parts = {}
+    for name, x in (("q", q), ("do", do), ("k", k), ("v", v)):
+        parts[name + "b"], parts[name + "s"] = tf32_split(x.float())
+    for name, x in (("q", q), ("do", do), ("k", k)):
+        parts[name + "tb"], parts[name + "ts"] = tf32_split(tf32_transpose(x.float()))
+    shapes = tf32_bwd_split_shapes(*q.shape[:2], k.shape[1], q.shape[2], k.shape[2],
+                                   q.shape[3])
+    return torch.cat([parts[name].reshape(-1) for name in shapes])
+
+
+def tf32_bwd_split(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+) -> torch.Tensor:
+    """The float32 backward's prologue: one float32 buffer holding the
+    parts of :func:`tf32_bwd_split_shapes`, which :func:`flash_bwd_dq_tf32`
+    and :func:`flash_bwd_dkv_tf32` read.  ``tf32_bwd_split_kernel`` of
+    ``csrc/flash_bwd_tf32.cu`` on CUDA tensors, the plain version on CPU
+    tensors."""
+    if q.device.type == "cpu":
+        return _tf32_bwd_split_reference(q, k, v, do)
+    if q.device.type != "cuda":
+        raise ValueError(f"tf32_bwd_split: unsupported device {q.device}")
+    _check_f32("tf32_bwd_split", q, k, v, do)
+    _check_tf32_shapes("tf32_bwd_split", q, k, v, do)
+    b, s, h, d = q.shape
+    sk, g = k.shape[1], k.shape[2]
+    numel = sum(math.prod(x) for x in tf32_bwd_split_shapes(b, s, sk, h, g, d).values())
+    split = torch.empty(numel, dtype=torch.float32, device=q.device)
+    fn = _build.function("flash_bwd_tf32", "tgt_flash_bwd_tf32_split", _BWD_SPLIT_TF32_ARGS)
+    rc = fn(_ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(split), b, s, sk, h, g, d,
+            _stream(q))
+    _build.check(rc, "tf32_bwd_split")
+    _count(tf32_bwd_split)
+    return split
+
+
+tf32_bwd_split.launches = 0
+
+
+def _check_tf32_shapes(what: str, q, k, v, do=None) -> None:
+    if not supports_tf32(q.shape, k.shape, q.dtype) or v.shape != k.shape \
+            or (do is not None and do.shape != q.shape):
+        raise ValueError(
+            f"{what} kernel does not take q {tuple(q.shape)}, k "
+            f"{tuple(k.shape)}, v {tuple(v.shape)}: head dim must be a "
+            f"multiple of 4 up to {SIMT_HEAD_DIM_MAX} and h a multiple of g"
+        )
+
+
+def _check_tf32_bwd(what: str, q, k, v, do, lse, delta, split) -> None:
+    """The float32 backward wrappers' checks, ``split`` included."""
+    _check_f32(what, q, k, v, do, lse, delta)
+    _check_tf32_shapes(what, q, k, v, do)
+    b, s, h, d = q.shape
+    if lse.shape != (b * h, s) or delta.shape != (b * h, s):
+        raise ValueError(f"{what}: lse and delta must be float32 [b*h, s]")
+    numel = sum(math.prod(x) for x in tf32_bwd_split_shapes(
+        b, s, k.shape[1], h, k.shape[2], d).values())
+    if split.dtype != torch.float32 or split.numel() != numel \
+            or split.device != q.device or split.data_ptr() % 16:
+        raise ValueError(f"{what}: split is not tf32_bwd_split's buffer for these shapes")
+
+
+def flash_bwd_dq_tf32(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, *, causal: bool, sm_scale: float,
+    window: Optional[int], split: torch.Tensor,
+) -> torch.Tensor:
+    """dQ of :func:`flash_attention_tf32`, as :func:`flash_bwd_dq` for
+    bfloat16: ``csrc/flash_bwd_tf32.cu`` (3xTF32 wgmma) on CUDA tensors,
+    reading :func:`tf32_bwd_split`'s buffer of the same q, k, v and ``do``
+    (``split``); the plain version on CPU tensors."""
+    if q.device.type == "cpu":
+        return _reference_grads(
+            q, k, v, do, lse, delta, causal, sm_scale, window
+        )[0]
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_bwd_dq_tf32: unsupported device {q.device}")
+    _check_tf32_bwd("flash_bwd_dq_tf32", q, k, v, do, lse, delta, split)
+    b, s, h, d = q.shape
+    sk, g = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q)
+    plan, nblocks = _fwd_plan(q.device, b, s, sk, h, bool(causal), window,
+                              tile=TF32_DQ_TILES[64 if d <= 64 else 128])
+    fn = _build.function("flash_bwd_tf32", "tgt_flash_bwd_dq_tf32", _BWD_DQ_TF32_ARGS)
+    rc = fn(
+        _ptr(split), _ptr(lse), _ptr(delta), _ptr(dq), _ptr(plan), nblocks,
+        b, s, sk, h, g, d, float(sm_scale), int(causal),
+        0 if window is None else int(window), _stream(q),
+    )
+    _build.check(rc, "flash_bwd_dq_tf32")
+    _count(flash_bwd_dq_tf32)
+    return dq
+
+
+flash_bwd_dq_tf32.launches = 0
+
+
+def flash_bwd_dkv_tf32(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, *, causal: bool, sm_scale: float,
+    window: Optional[int], split: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dK, dV)`` of :func:`flash_attention_tf32`, summed over each kv
+    head's query heads, from the same inputs as
+    :func:`flash_bwd_dq_tf32` (its kernel and ``flash_bwd_dkv_tf32_sum``:
+    no atomics, bitwise equal run to run)."""
+    if q.device.type == "cpu":
+        return _reference_grads(
+            q, k, v, do, lse, delta, causal, sm_scale, window
+        )[1:]
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_bwd_dkv_tf32: unsupported device {q.device}")
+    _check_tf32_bwd("flash_bwd_dkv_tf32", q, k, v, do, lse, delta, split)
+    b, s, h, d = q.shape
+    sk, g = k.shape[1], k.shape[2]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dt = 64 if d <= 64 else 128
+    plan, nblocks, slots, at_offsets = _dkv_plan(
+        q.device, b, s, sk, h, g, bool(causal), window, tile=TF32_DKV_TILES[dt])
+    at_combos = at_offsets + nblocks + 1
+    partial = torch.empty(max(slots, 1) * 2 * TF32_DKV_TILES[dt][0] * dt,
+                          dtype=torch.float32, device=q.device)
+    fn = _build.function("flash_bwd_tf32", "tgt_flash_bwd_dkv_tf32", _BWD_DKV_TF32_ARGS)
+    rc = fn(
+        _ptr(split), _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv), _ptr(plan),
+        _ptr(plan[at_offsets:]), _ptr(plan[at_combos:]), _ptr(partial), nblocks,
+        b, s, sk, h, g, d, float(sm_scale), int(causal),
+        0 if window is None else int(window), _stream(q),
+    )
+    _build.check(rc, "flash_bwd_dkv_tf32")
+    _count(flash_bwd_dkv_tf32)
+    return dk, dv
+
+
+flash_bwd_dkv_tf32.launches = 0
+
+
+class _FlashAttentionTF32(torch.autograd.Function):
+    """:class:`_FlashAttention` for float32 on the tensor cores:
+    ``csrc/flash_fwd_tf32.cu``, then the prologue and ``csrc/
+    flash_bwd_tf32.cu``'s dQ and dK/dV from its LSE; the plain version on
+    the CPU."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale, window):
@@ -1210,6 +1405,23 @@ class _FlashAttentionTF32(_FlashAttentionF32):
         ctx.args = (causal, sm_scale, window)
         return o
 
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, sm_scale, window = ctx.args
+        do = do.contiguous()
+        delta = _delta(do, o)
+        if q.device.type in _PLAIN_DEVICES:
+            dq, dk, dv = _reference_grads(
+                q, k, v, do, lse, delta, causal, sm_scale, window
+            )
+        else:
+            kw = dict(causal=causal, sm_scale=sm_scale, window=window,
+                      split=tf32_bwd_split(q, k, v, do))
+            dq = flash_bwd_dq_tf32(q, k, v, do, lse, delta, **kw)
+            dk, dv = flash_bwd_dkv_tf32(q, k, v, do, lse, delta, **kw)
+        return dq, dk, dv, None, None, None
+
 
 def flash_attention_tf32(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -1217,9 +1429,9 @@ def flash_attention_tf32(
     window: Optional[int] = None,
 ) -> torch.Tensor:
     """:func:`flash_attention` for float32 ``q``/``k``/``v`` at a head dim
-    that is a multiple of 4 up to 128: the forward on the tensor cores at
-    float32 accuracy (3xTF32), the backward on ``flash_simt``'s float32
-    kernels.  Differentiable in ``q``, ``k`` and ``v``."""
+    that is a multiple of 4 up to 128: the forward and the backward on the
+    tensor cores at float32 accuracy (3xTF32).  Differentiable in ``q``,
+    ``k`` and ``v``."""
     sm_scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
     _validate_window(causal, window)
     return _FlashAttentionTF32.apply(q, k, v, causal, sm_scale, window)
@@ -1238,7 +1450,7 @@ class Route(NamedTuple):
     tensor-core kernel as is; a decode at any head dim it maps), ``"pad"``
     (the head dim zero-padded to ``head_dim`` for the tensor-core kernel),
     ``"f32"`` (float32: the 3xTF32 forward of ``csrc/flash_fwd_tf32.cu``
-    with ``csrc/flash_simt.cu``'s backward), ``"simt"`` (the CUDA-core
+    with the 3xTF32 backward of ``csrc/flash_bwd_tf32.cu``), ``"simt"`` (the CUDA-core
     kernels of ``csrc/flash_simt.cu``, for rows TMA cannot map) or
     ``"none"`` (no kernel takes it: the plain version on the CPU, refused
     on the card); ``head_dim`` is the dim the work runs at."""
@@ -1262,8 +1474,8 @@ def attention_route(
     zero-padded to the next instantiated dim, as the reference pads to
     128 lanes (exact: the zero columns add nothing to ``q·k`` and give
     zero output columns, sliced off); float32 up to d=128 runs the 3xTF32
-    forward (:func:`supports_tf32`: ``d % 4 == 0``) or, at other dims, the
-    CUDA-core forward, with the CUDA-core backward.  Decode
+    forward and backward (:func:`supports_tf32`: ``d % 4 == 0``) or, at
+    other dims, the CUDA-core forward and backward.  Decode
     (``decode=True``, the cache in ``cache_dtype``): a
     :func:`supports_decode` shape (any head dim up to 128 whose cache row
     is a multiple of 16 bytes) runs the tensor-core decode, any other
@@ -1361,6 +1573,7 @@ def reset_launches() -> None:
     """Set every kernel launch count of this module to 0."""
     for fn in (flash_attention, flash_bwd_dq, flash_bwd_dkv,
                flash_decode_attention, flash_attention_tf32, flash_attention_f32,
-               flash_bwd_dq_f32, flash_bwd_dkv_f32, flash_decode_simt):
+               flash_bwd_dq_f32, flash_bwd_dkv_f32, flash_decode_simt,
+               tf32_bwd_split, flash_bwd_dq_tf32, flash_bwd_dkv_tf32):
         fn.launches = 0
     flash_decode_attention.launches_int8 = 0
