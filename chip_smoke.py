@@ -79,7 +79,8 @@ they need) and prints no kernels line; by default every phase runs:
 6d. beam: ``beam_search`` of one prompt with 4 beams, 32 tokens, and
    ``num_beams=1`` against greedy ``generate`` (equal).
 7. profile: device time by kernel and idle share, prefill and decode,
-   bf16 and int8 caches.
+   bf16 and int8 caches (the device's activity alone: recording the
+   host's ops too made the phase take ~55 s).
 9. serving (run after 7, before 8 frees phase 6's model): the
    continuous-batching ``serving.Engine`` on that model (8 slots, max_len 1152, prefill ladder (8, 64, 256), greedy), its
    programs captured CUDA graphs: graph replays against the eager bodies
@@ -210,6 +211,24 @@ they need) and prints no kernels line; by default every phase runs:
    ``generate(moe=)`` (4 x 512, 32 tokens, teacher-forced) and an
    ``Engine(moe=)`` whose graph replays equal its eager bodies bitwise;
    launch counts gated as written before the first run.
+23. distributed: ``torchgpipe_tpu_torch.distributed`` at Llama-3-8B
+   width cut to 2 blocks (bf16, batch 8 x seq 1024, 4 micro-batches,
+   'except_last', SGD; balance [2, 2], ``balance_by_flops``' [3, 1]
+   printed beside it).  Here: three steps of the single-process
+   ``GPipe`` (loss, step-1 gradients kept on the host, launches), then
+   ``StepGuard`` on it (a step poisoned at stage 1's input by
+   ``faults.inject(nan_at=(1, 0))`` is skipped with every parameter,
+   optimizer state and buffer bitwise as before; the next clean step
+   equals an unguarded one).  Then two rank processes (this script with
+   ``--dist-rank``, started by subprocess) on the same card over
+   ``TcpTransport`` on localhost: three steps each, the step-1 loss and
+   every gradient bitwise the single-process step's, 7 / 4 / 4 launches of
+   flash_fwd / flash_bwd_dq / flash_bwd_dkv a rank (their sums the
+   single-process counts), then rank 1 exits
+   (``faults.should_die_at_megastep``) and rank 0's next step must raise
+   a ``PeerDiedError`` naming it; the parent kills both after 300 s.
+   Step ms of each rank beside the single-process step's, bytes staged
+   through the host and the time spent waiting in ``Mailbox.get``.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Then one JSON line per kernel (time, launches, bound, plain and
@@ -1388,9 +1407,9 @@ def phase_profile(torch, tg, card, cfg, model, prompt, steps: int = 16) -> None:
     for kv_quant in (False, True):
         tag = " kv_quant" if kv_quant else ""
         pw, pb, _ = profile(torch, card, f"prefill{tag}", lambda: tg.prefill(
-            cfg, model, prompt, s + steps, kv_quant=kv_quant))
+            cfg, model, prompt, s + steps, kv_quant=kv_quant), cuda_only=True)
         gw, gb, _ = profile(torch, card, f"generate{tag} x{steps}", lambda: tg.generate(
-            cfg, model, prompt, steps, kv_quant=kv_quant))
+            cfg, model, prompt, steps, kv_quant=kv_quant), cuda_only=True)
         print(f"profile decode{tag} (generate - prefill) per step: "
               f"wall={(gw - pw) * 1e3 / steps:.2f}ms "
               f"device_busy={(gb - pb) * 1e3 / steps:.2f}ms "
@@ -1731,10 +1750,14 @@ def causal_lm_loss(tt):
 # 1.3e-2.  lr = 1.0 moves the larger ones (9% of the head's weights
 # changed in step 1) and keeps the typical block update near 2% of |w|.
 TRAIN_LR = 1.0
-# Phase 8's peak memory with the hand-written in-place SGD it had before
-# make_train_step (NVIDIA H100 80GB HBM3, 700 W; PERF.md): torch.optim.SGD
-# without momentum keeps no state, so the peak stays within 1 GiB of it.
-TRAIN_PEAK_GIB = 50.01
+# Phase 8's peak memory (NVIDIA H100 80GB HBM3, 700 W; PERF.md):
+# torch.optim.SGD without momentum keeps no state, so the peak stays within
+# 1 GiB of the step's own.  50.01 GiB with the hand-written in-place SGD it
+# had before make_train_step; 48.60 since the step frees the leaves of its
+# gathered output after the loss's backward (the loss's graph held them,
+# and with them three checkpointed micro-batches' logits, 3 x 0.49 GiB,
+# through every cell's backward).
+TRAIN_PEAK_GIB = 48.60
 
 
 def phase_train(torch, tfa, tt, card, seed: int, steps: int = 3):
@@ -2597,7 +2620,8 @@ def phase_precision(torch, tfa, tt, card, seed: int, resnet_balance, graph,
     if not all(v == v for v in losses) or not losses[-1] < losses[0]:
         fail(f"precision: bf16 ResNet-101 SGD loss did not fall: {losses}")
     del g16
-    rw, rb, _ = profile(torch, card, "resnet101 bf16 step", lambda: step(x, y), top=10)
+    rw, rb, _ = profile(torch, card, "resnet101 bf16 step", lambda: step(x, y), top=10,
+                        cuda_only=True)
     med = statistics.median(ms)
     print(f"precision: ResNet-101 compute_dtype=bfloat16 (float32 masters), batch {b}, "
           f"chunks {chunks}, balance {resnet_balance}, except_last, deferred BN: loss "
@@ -4125,6 +4149,344 @@ def phase_simt(torch, tfa, tt, tg, card, seed: int):
     return out
 
 
+# Phase 23: the multi-process pipeline (torchgpipe_tpu_torch.distributed)
+# at Llama-3-8B width cut to CUT_BLOCKS blocks, batch 8 x seq 1024, 4
+# micro-batches, 'except_last', SGD at TRAIN_LR.  balance_by_flops(2)
+# answers [3, 1] here (the head's 4096 x 128256 product outweighs a
+# block at seq 1024), which puts both blocks, and so every attention
+# kernel, on rank 0; the phase cuts [2, 2] instead, one block a rank, so
+# that each rank's process launches the kernels (7 flash_fwd, 4 dQ and
+# 4 dK/dV a step: 4 forwards and 3 recomputes, 4 backwards), and prints
+# balance_by_flops' answer beside it.
+DIST_BALANCE = [2, 2]
+DIST_CHUNKS = 4
+DIST_STEPS = 3             # steps both ranks take; rank 1 exits after them
+DIST_RECV_TIMEOUT = 5.0    # a receive's steady-state deadline (a step is < 1 s)
+DIST_GRACE = 120.0         # the first step's extra: the peer's start-up
+DIST_CONNECT_S = 2.0       # connect deadline once both listeners are up
+DIST_DEADLINE_S = 300      # the parent kills both ranks after this
+DIST_WORKERS = ["rank0", "rank1"]
+DIST_LAUNCHES = {"flash_fwd": DIST_CHUNKS + DIST_CHUNKS - 1, "flash_bwd_dq": DIST_CHUNKS,
+                 "flash_bwd_dkv": DIST_CHUNKS}
+
+
+def dist_model(torch, tt, seed: int):
+    """Phase 23's layers and batches, the same in the parent and in each
+    rank: random weights from the seed, built on the card."""
+    import numpy as np
+
+    cfg = llama_cfg(tt, torch, dict(LLAMA3_8B, n_layers=CUT_BLOCKS))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    layers = list(tt.llama(cfg, device="cuda", generator=gen))
+    rng = np.random.default_rng(seed + 7)
+    batches = [torch.from_numpy(rng.integers(0, cfg.vocab, (8, 1024))).cuda()
+               for _ in range(DIST_STEPS + 1)]
+    return cfg, layers, batches
+
+
+def dist_grads(model_layers, offset: int = 0):
+    """``{"<layer index>.<param>": .grad on the host}``."""
+    return {f"{offset + i}.{n}": p.grad.detach().cpu()
+            for i, layer in enumerate(model_layers) for n, p in layer.named_parameters()}
+
+
+def dist_rank_main(args) -> None:
+    """One rank of phase 23, started by the parent as its own process:
+    DIST_STEPS steps over TcpTransport on localhost, then rank 1 exits
+    (``faults.should_die_at_megastep``, checked between steps) and rank 0's
+    next step must raise PeerDiedError naming it.  Writes its report and
+    its step-1 gradients into ``--dist-out``; prints no result line."""
+    import torch
+
+    from torchgpipe_tpu_torch.distributed import (
+        DistributedGPipe, DistributedGPipeDataLoader, PeerDiedError, TcpTransport)
+    from torchgpipe_tpu_torch.models import transformer as tt
+    from torchgpipe_tpu_torch.obs.flightrec import align_clocks
+    from torchgpipe_tpu_torch.ops import flash_attention as tfa
+    from torchgpipe_tpu_torch.resilience import faults
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("phase 23 rank: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, out = args.dist_rank, args.dist_out
+    ports = [int(p) for p in args.dist_ports.split(",")]
+    t_start = time.perf_counter()
+    cfg, layers, batches = dist_model(torch, tt, args.seed)
+    transport = TcpTransport(DIST_WORKERS[rank],
+                             {w: ("127.0.0.1", p) for w, p in zip(DIST_WORKERS, ports)},
+                             connect_timeout=DIST_DEADLINE_S)
+    box = transport.register(DIST_WORKERS[rank])
+    pipe = DistributedGPipe(layers, rank, DIST_WORKERS, DIST_BALANCE, chunks=DIST_CHUNKS,
+                            transport=transport, mailbox=box, device="cuda",
+                            checkpoint="except_last", recv_timeout=DIST_RECV_TIMEOUT,
+                            first_step_grace=DIST_GRACE)
+    del layers
+    opt = torch.optim.SGD(list(pipe.parameters()), lr=TRAIN_LR)
+    loss_fn = causal_lm_loss(tt)
+    # The clock handshake is the rendezvous: after it both listeners are
+    # up, so a refused connect means a dead peer.
+    align_clocks(transport, box, rank, DIST_WORKERS, timeout=DIST_DEADLINE_S)
+    transport.connect_timeout = DIST_CONNECT_S
+    data = [(x, x) for x in batches] if rank == 0 else None
+    loader = iter(DistributedGPipeDataLoader(
+        data, rank, DIST_WORKERS, transport=transport, mailbox=box,
+        num_batches=DIST_STEPS + 1, recv_timeout=DIST_RECV_TIMEOUT + DIST_GRACE))
+    report = {"rank": rank, "ready_s": time.perf_counter() - t_start, "losses": [],
+              "step_ms": [], "bytes_sent": [], "wait_s": []}
+
+    def step(k):
+        x, y = next(loader)
+        outs = pipe.forward(x)
+        if pipe.is_last:
+            loss, gys, _ = pipe.loss_grads(outs, y, loss_fn)
+            pipe.backward(gys)
+            report["losses"].append(loss.item())
+            report["loss_bits"] = report.get("loss_bits", []) + [
+                int(loss.view(torch.int32).item())]
+        else:
+            pipe.backward()
+        if k == 0:
+            torch.cuda.synchronize()
+            report["launches"] = kernel_launches(tfa)
+            torch.save(dist_grads(pipe.partition, pipe.offset),
+                       os.path.join(out, f"rank{rank}_grads.pt"))
+        opt.step()
+
+    with faults.inject(die_at_megastep=(1, DIST_STEPS)):
+        for k in range(DIST_STEPS + 1):
+            if faults.should_die_at_megastep(rank, k):
+                report["exited_after_steps"] = k
+                break
+            if k == 0:
+                tfa.reset_launches()
+            torch.cuda.synchronize()
+            t0, b0, w0 = time.perf_counter(), transport.bytes_sent, box.wait_s
+            if k < DIST_STEPS:
+                step(k)
+            else:
+                try:
+                    step(k)
+                except PeerDiedError as err:
+                    report["peer_died"] = {"rank": err.rank, "worker": err.worker,
+                                           "message": str(err),
+                                           "seconds": time.perf_counter() - t0}
+                    break
+                raise RuntimeError(f"rank {rank}: step {k + 1} went through although "
+                                   "rank 1 exited")
+            torch.cuda.synchronize()
+            report["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            report["bytes_sent"].append(transport.bytes_sent - b0)
+            report["wait_s"].append(box.wait_s - w0)
+    transport.close()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+
+
+def dist_reference(torch, tfa, tt, card, seed: int):
+    """The single-process GPipe at the phase's balance: DIST_STEPS SGD
+    steps (losses, step-1 gradients on the host, launches, step times),
+    then StepGuard on the same pipe."""
+    import functools
+
+    from torchgpipe_tpu_torch import GPipe
+    from torchgpipe_tpu_torch.balance import balance_by_flops
+
+    cfg, layers, batches = dist_model(torch, tt, seed)
+    flops_balance = balance_by_flops(2, layers, batches[0][: 8 // DIST_CHUNKS])
+    loss_fn = causal_lm_loss(tt)
+    pipe = GPipe(layers, DIST_BALANCE, chunks=DIST_CHUNKS, checkpoint="except_last")
+    train = pipe.make_train_step(functools.partial(torch.optim.SGD, lr=TRAIN_LR), loss_fn)
+    ref = {"losses": [], "loss_bits": [], "step_ms": [], "flops_balance": flops_balance}
+    for k in range(DIST_STEPS):
+        if k == 0:
+            tfa.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = train(batches[k], batches[k])
+        torch.cuda.synchronize()
+        ref["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        ref["losses"].append(loss.item())
+        ref["loss_bits"].append(int(loss.view(torch.int32).item()))
+        if k == 0:
+            ref["launches"] = kernel_launches(tfa)
+            ref["grads"] = dist_grads(pipe)
+    expect_launches(ref["launches"], {k: 2 * n for k, n in DIST_LAUNCHES.items()},
+                    "phase 23's single-process step")
+    ref["guard"] = dist_guard(torch, pipe, loss_fn, batches)
+    del pipe, train, layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cfg, ref
+
+
+def dist_guard(torch, pipe, loss_fn, batches):
+    """StepGuard on the single-process pipe (SGD with momentum, so there
+    is optimizer state): a step whose stage-1 input is poisoned
+    (``faults.inject(nan_at=(1, 0))``, ``faults.poison``) is skipped with
+    parameters, optimizer state and buffers bitwise as they were, and the
+    next clean step equals an unguarded step from the same state."""
+    import functools
+
+    from torchgpipe_tpu_torch.resilience import StepGuard, faults
+
+    step = pipe.make_train_step(
+        functools.partial(torch.optim.SGD, lr=TRAIN_LR, momentum=0.9), loss_fn)
+    guard = StepGuard(step)
+
+    def live():
+        return list(pipe.parameters()) + list(pipe.buffers()) + opt_tensors(step.optimizers)
+
+    def state():
+        return [t.detach().clone() for t in live()]
+
+    def same(a, b):
+        return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+    guard(batches[0], batches[0])
+    before = state()
+    with faults.inject(nan_at=(1, 0)):
+        bad, _ = guard(batches[1], batches[1])
+    if torch.isfinite(bad) or guard.stats.skipped != 1:
+        fail(f"StepGuard: the poisoned step gave loss {bad.item()} and "
+             f"{guard.stats.skipped} skips, expected a non-finite loss skipped")
+    if not same(state(), before):
+        fail("StepGuard: a skipped step changed parameters, optimizer state or buffers")
+    good, _ = guard(batches[2], batches[2])
+    after = state()
+    with torch.no_grad():
+        for t, s in zip(live(), before):
+            t.copy_(s)
+    plain, _ = step(batches[2], batches[2])
+    if not (torch.equal(good, plain) and same(after, state())):
+        fail("StepGuard: the clean step after a skip differs from an unguarded step "
+             "from the same state")
+    out = {"skipped": guard.stats.skipped, "steps": guard.stats.steps,
+           "poisoned_loss": bad.item(), "state_tensors": len(before),
+           "next_step_loss": good.item()}
+    del before, after
+    return out
+
+
+def phase_distributed(torch, tfa, tt, card, seed: int):
+    """Phase 23: the single-process reference and StepGuard here, then two
+    rank processes over TcpTransport on this card, each DIST_STEPS steps;
+    rank 1 exits and rank 0 must name it."""
+    import socket
+    import sys
+    import tempfile
+
+    t_phase = time.perf_counter()
+    cfg, ref = dist_reference(torch, tfa, tt, card, seed)
+    t_ref = time.perf_counter() - t_phase
+    socks = [socket.socket() for _ in DIST_WORKERS]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = ",".join(str(s.getsockname()[1]) for s in socks)
+    for s in socks:
+        s.close()
+    with tempfile.TemporaryDirectory() as out:
+        procs = []
+        t0 = time.perf_counter()
+        for rank in range(len(DIST_WORKERS)):
+            log = open(os.path.join(out, f"rank{rank}.log"), "wb")
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+                 "--dist-rank", str(rank), "--dist-ports", ports, "--dist-out", out],
+                stdout=log, stderr=subprocess.STDOUT), log))
+        try:
+            rcs = [p.wait(timeout=max(1.0, DIST_DEADLINE_S - (time.perf_counter() - t0)))
+                   for p, _ in procs]
+        except subprocess.TimeoutExpired:
+            rcs = None
+        finally:
+            for p, log in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                log.close()
+        ranks_s = time.perf_counter() - t0
+        logs = ""
+        for rank in range(len(DIST_WORKERS)):
+            with open(os.path.join(out, f"rank{rank}.log"), errors="replace") as f:
+                logs += f"--- rank {rank}\n" + f.read()[-4000:]
+        if rcs is None:
+            fail(f"distributed: the ranks did not finish within {DIST_DEADLINE_S}s "
+                 f"(killed)\n{logs}")
+        if rcs != [0, 0]:
+            fail(f"distributed: rank exit codes {rcs}\n{logs}")
+        reports = []
+        for rank in range(len(DIST_WORKERS)):
+            with open(os.path.join(out, f"rank{rank}.json")) as f:
+                reports.append(json.load(f))
+        grads = {}
+        for rank in range(len(DIST_WORKERS)):
+            grads.update(torch.load(os.path.join(out, f"rank{rank}_grads.pt")))
+    r0, r1 = reports
+    # Equality: the same kernels on the same micro-batches in the same
+    # order, so bitwise (see PERF.md section 5 for the cause if not).
+    if r1["loss_bits"][0] != ref["loss_bits"][0]:
+        fail(f"distributed: step-1 loss {r1['losses'][0]!r} vs single-process "
+             f"{ref['losses'][0]!r}: not bitwise equal")
+    if sorted(grads) != sorted(ref["grads"]):
+        fail(f"distributed: gradient names differ: {sorted(set(grads) ^ set(ref['grads']))}")
+    unequal = [k for k in grads if not torch.equal(grads[k], ref["grads"][k])]
+    if unequal:
+        worst = max((grads[k].float() - ref["grads"][k].float()).abs().max().item()
+                    for k in unequal)
+        fail(f"distributed: {len(unequal)}/{len(grads)} step-1 gradients differ from the "
+             f"single-process step's (worst {worst:.3e}): {unequal[:6]}")
+    for rep in reports:
+        expect_launches(rep["launches"], DIST_LAUNCHES, f"phase 23 rank {rep['rank']}'s step 1")
+    summed = {k: r0["launches"][k] + r1["launches"][k] for k in r0["launches"]}
+    if summed != ref["launches"]:
+        fail(f"distributed: launches summed over ranks {summed} != single-process "
+             f"{ref['launches']}")
+    died = r0.get("peer_died")
+    if r1.get("exited_after_steps") != DIST_STEPS or not died or died["rank"] != 1 \
+            or "peer rank 1 ('rank1') is dead" not in died["message"]:
+        fail(f"distributed: rank 1 exited after {r1.get('exited_after_steps')} steps and "
+             f"rank 0 reported {died}; expected a PeerDiedError naming rank 1")
+    if died["seconds"] > DIST_RECV_TIMEOUT + 2 * DIST_CONNECT_S + 5.0:
+        fail(f"distributed: the dead peer took {died['seconds']:.1f}s to name, over "
+             f"recv_timeout + probe")
+    later_equal = r1["loss_bits"][1:DIST_STEPS] == ref["loss_bits"][1:DIST_STEPS]
+    med = {r["rank"]: statistics.median(r["step_ms"][1:DIST_STEPS]) for r in reports}
+    ref_ms = statistics.median(ref["step_ms"][1:DIST_STEPS])
+    staged = {r["rank"]: statistics.median(r["bytes_sent"][1:DIST_STEPS]) for r in reports}
+    wait = {r["rank"]: statistics.median(r["wait_s"][1:DIST_STEPS]) for r in reports}
+    g = ref["guard"]
+    print(f"distributed: Llama-3-8B width, {cfg.n_layers} blocks, bf16, batch 8 x seq "
+          f"1024, chunks {DIST_CHUNKS}, except_last, SGD lr {TRAIN_LR}; balance "
+          f"{DIST_BALANCE} (balance_by_flops(2) = {ref['flops_balance']}); 2 rank "
+          f"processes on one card over TcpTransport (localhost, host-staged): step-1 loss "
+          f"{r1['losses'][0]:.6f} and {len(grads)}/{len(grads)} gradients bitwise the "
+          f"single-process GPipe's; steps 2-3 losses bitwise: {later_equal}; launches "
+          f"rank 0 {r0['launches']}, rank 1 {r1['launches']}, summed = single-process; "
+          f"rank 1 exited after {DIST_STEPS} steps and rank 0 raised PeerDiedError in "
+          f"{died['seconds']:.2f}s: {died['message']!r}; StepGuard: poisoned step "
+          f"skipped with all {g['state_tensors']} state tensors bitwise as before, the "
+          f"next step bitwise an unguarded one [{card}]", flush=True)
+    print(f"distributed: step_ms (median of steps 2-3) rank 0 {med[0]:.1f}, rank 1 "
+          f"{med[1]:.1f} vs single-process {ref_ms:.1f}; bytes staged through the host "
+          f"a step: rank 0 {staged[0]:.0f}, rank 1 {staged[1]:.0f}; waiting in "
+          f"Mailbox.get a step: rank 0 {wait[0] * 1e3:.1f} ms, rank 1 {wait[1] * 1e3:.1f} "
+          f"ms; the two ranks' contexts time-slice one card, so this measures transport "
+          f"and schedule, not overlap across cards; ranks started in "
+          f"{max(r['ready_s'] for r in reports):.1f}s, ran in {ranks_s:.1f}s, reference "
+          f"and guard {t_ref:.1f}s [{card}]", flush=True)
+    result = {"card": card, "balance": DIST_BALANCE, "flops_balance": ref["flops_balance"],
+              "losses": r1["losses"], "single_process_losses": ref["losses"],
+              "later_losses_bitwise": later_equal, "grads_bitwise": len(grads),
+              "launches": {r["rank"]: r["launches"] for r in reports},
+              "launches_sum": summed, "peer_died": died,
+              "step_ms": {r["rank"]: r["step_ms"] for r in reports},
+              "single_process_step_ms": ref["step_ms"], "bytes_staged": staged,
+              "mailbox_wait_s": wait, "guard": g, "ranks_s": ranks_s}
+    print(json.dumps({"distributed": result}), flush=True)
+    return result
+
+
 # Every phase by number and name, in the order a run takes them, with the
 # phases whose results it needs (``--phases``).
 PHASES = {
@@ -4133,7 +4495,7 @@ PHASES = {
     "9b": "int8_weights", "8": "train", "10": "train_1f1b", "11": "resnet101",
     "12": "train_graph", "13": "precision", "14": "offload", "15": "lora", "16": "unet",
     "17": "timeline", "18": "vit_l16", "19": "amoebanetd", "20": "t5",
-    "21": "gpt2_xl_generate", "22": "mixtral_moe",
+    "21": "gpt2_xl_generate", "22": "mixtral_moe", "23": "distributed",
 }
 PHASE_ORDER = list(PHASES)
 PHASE_NEEDS = {"6b": ["6"], "6c": ["6"], "6d": ["6"], "7": ["6"], "9": ["6"],
@@ -4169,7 +4531,14 @@ def main() -> None:
     ap.add_argument("--phases", default=None,
                     help="comma-separated phases by number or name (e.g. '3,mixtral_moe'); "
                          "the phases they need run too; default: every phase")
+    # A rank process of phase 23 (started by that phase, not by hand).
+    ap.add_argument("--dist-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dist-ports", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dist-out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.dist_rank is not None:
+        dist_rank_main(args)
+        return
     run = select_phases(args.phases)
 
     run_t0 = time.perf_counter()
@@ -4282,6 +4651,8 @@ def main() -> None:
            ("21", lambda: phase_gpt2_xl(torch, tfa, tt, tg, card, args.seed)),
            ("22", lambda: phase_mixtral(torch, tfa, tt, tg, card, args.seed))],
           "18-22 (vit_l16, amoebanetd, t5, gpt2_xl_generate, mixtral_moe)")
+    timed([("23", lambda: phase_distributed(torch, tfa, tt, card, args.seed))],
+          "23 (distributed)")
 
     if run != set(PHASES):
         print(f"chip_smoke: phases {sorted(run, key=PHASE_ORDER.index)} of {len(PHASES)} "
@@ -4300,6 +4671,7 @@ def main() -> None:
     precision_resnet, precision_llama = r["13"]
     lora_run, unet_row, vit_run, amoeba, t5_run = r["15"], r["16"], r["18"], r["19"], r["20"]
     gpt2, mixtral, int8w, simt = r["21"], r["22"], r["9b"], r["5b"]
+    dist = r["23"]
 
     src = "torchgpipe_tpu_torch/csrc/"
     ref = "torchgpipe_tpu/ops/flash_attention.py"
@@ -4322,7 +4694,8 @@ def main() -> None:
              "f32_llama_train": simt["paths"]["f32_llama"]["train"],
              "f32_llama_generate": simt["paths"]["f32_llama"]["generate"],
              "d80_llama_train": simt["paths"]["d80_llama"]["train"],
-             "d80_llama_generate": simt["paths"]["d80_llama"]["generate"]}
+             "d80_llama_generate": simt["paths"]["d80_llama"]["generate"],
+             "distributed": dist["launches_sum"]}
 
     def by_path(name):
         return {p: n.get(name, 0) for p, n in paths.items()}

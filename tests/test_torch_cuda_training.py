@@ -27,6 +27,7 @@ import torch
 from torchgpipe_tpu_torch import GPipe
 from torchgpipe_tpu_torch.batchnorm import DeferredBatchNorm
 from torchgpipe_tpu_torch.models import transformer as tt
+from torchgpipe_tpu_torch.ops import flash_attention as tfa
 from torchgpipe_tpu_torch.ops import nn as tnn
 from torchgpipe_tpu_torch.skip import Namespace, pop_add, stash
 
@@ -524,3 +525,51 @@ def test_float32_dropless_moe_on_the_card_equals_the_cpu(cuda_device):
     want = cpu(x).detach()
     got = card(x.cuda()).detach().cpu()
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+def _flash_launches():
+    return (tfa.flash_attention.launches, tfa.flash_bwd_dq.launches,
+            tfa.flash_bwd_dkv.launches)
+
+
+@pytest.mark.cuda
+def test_two_rank_distributed_step_equals_gpipe_bitwise(cuda_device):
+    """Two DistributedGPipe ranks over a LocalTransport on the card, one
+    block each: the step's loss and every gradient equal the
+    single-process GPipe's at the same balance bitwise, each rank
+    launching 3 / 2 / 2 flash kernels (2 forwards and 1 recompute, 2
+    backwards) and the two together GPipe's 6 / 4 / 4."""
+    from torchgpipe_tpu_torch.distributed import DistributedGPipe, LocalTransport
+
+    t = _tokens(5)
+    ref = GPipe(_layers(2), [2, 2], chunks=2)
+    tfa.reset_launches()
+    want_loss, _, _ = ref.value_and_grad(t, t, _loss)
+    want = [p.grad.clone() for p in ref.parameters()]
+    want_launches = _flash_launches()
+    assert want_launches == (6, 4, 4)
+
+    layers = _layers(2)
+    transport = LocalTransport()
+    ranks = [DistributedGPipe(layers, r, ["r0", "r1"], [2, 2], chunks=2,
+                              transport=transport, mailbox=transport.register(f"r{r}"))
+             for r in range(2)]
+    deltas = []
+
+    def counted(fn):
+        before = _flash_launches()
+        out = fn()
+        deltas.append(tuple(a - b for a, b in zip(_flash_launches(), before)))
+        return out
+
+    tfa.reset_launches()
+    counted(lambda: ranks[0].forward(t))
+    outs = counted(lambda: ranks[1].forward())
+    loss, gys, _ = ranks[1].loss_grads(outs, t, _loss)
+    counted(lambda: ranks[1].backward(gys))
+    counted(lambda: ranks[0].backward())
+    # Forwards: 2 each; backwards: 1 recompute, 2 dQ, 2 dK/dV each.
+    assert deltas == [(2, 0, 0), (2, 0, 0), (1, 2, 2), (1, 2, 2)]
+    assert _flash_launches() == want_launches
+    assert torch.equal(loss, want_loss)
+    assert _equal([p.grad for layer in layers for p in layer.parameters()], want)

@@ -178,6 +178,10 @@ def test_port_imports_no_jax_and_no_reference_package():
         "import torchgpipe_tpu_torch.models.t5\n"
         "import torchgpipe_tpu_torch.models.moe, torchgpipe_tpu_torch.models.quant\n"
         "import torchgpipe_tpu_torch.auxgrad\n"
+        "import torchgpipe_tpu_torch.distributed, torchgpipe_tpu_torch.distributed.context\n"
+        "import torchgpipe_tpu_torch.distributed.gpipe, torchgpipe_tpu_torch.obs.flightrec\n"
+        "import torchgpipe_tpu_torch.utils.serialization\n"
+        "import torchgpipe_tpu_torch.resilience.faults, torchgpipe_tpu_torch.resilience.guard\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'torchgpipe_tpu' or m.startswith('torchgpipe_tpu.')]\n"
         "assert not bad, bad\n"

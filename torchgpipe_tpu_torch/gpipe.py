@@ -75,6 +75,7 @@ from torchgpipe_tpu_torch.models.transformer import (
 from torchgpipe_tpu_torch.partition import Stage, split_layers, verify_module
 from torchgpipe_tpu_torch.pipeline import Pipeline
 from torchgpipe_tpu_torch.precision import apply_policy
+from torchgpipe_tpu_torch.resilience import faults as _faults
 from torchgpipe_tpu_torch.skip import inspect_skip_layout, verify_skippables
 
 _SLICE = "2"  # ROADMAP.md queue A item for what the training slice leaves out
@@ -115,6 +116,51 @@ def _all_finite(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
 def _opt_tensors(optimizers: Sequence[torch.optim.Optimizer]) -> List[torch.Tensor]:
     return [v for opt in optimizers for st in opt.state.values()
             for v in st.values() if isinstance(v, torch.Tensor)]
+
+
+class StateSnapshot:
+    """Copies of a module's parameters and buffers, its optimizers' state
+    tensors and any ``extra`` tensors, taken before a step
+    (:meth:`take`) and put back where the step was not finite
+    (:meth:`select`): the skip-step of a megastep and of
+    :class:`~torchgpipe_tpu_torch.resilience.guard.StepGuard`.  A copy
+    keeps its address from one take to the next, so a captured graph
+    reads and writes the same copies at every replay."""
+
+    def __init__(self, module: nn.Module, optimizers: Sequence[torch.optim.Optimizer],
+                 extra: Sequence[torch.Tensor] = ()) -> None:
+        self.module, self.optimizers, self.extra = module, list(optimizers), list(extra)
+        self._copies: Dict[int, torch.Tensor] = {}
+        self._state: List[torch.Tensor] = []
+        self._had: List[set] = []
+
+    def tensors(self) -> List[torch.Tensor]:
+        return (list(self.module.parameters()) + _opt_tensors(self.optimizers)
+                + list(self.module.buffers()) + self.extra)
+
+    def take(self) -> None:
+        self._state = self.tensors()
+        with torch.no_grad():
+            for t in self._state:
+                if id(t) not in self._copies:
+                    self._copies[id(t)] = torch.empty_like(t)
+                self._copies[id(t)].copy_(t)
+        self._had = [set(opt.state) for opt in self.optimizers]
+
+    def select(self, ok: torch.Tensor, eager: bool) -> None:
+        """Every tensor of the last take becomes ``where(ok, itself,
+        copy)``, on the device with no host sync.  Optimizer state that
+        the step created is dropped again where ``ok`` is false, which
+        only an ``eager`` caller may read on the host."""
+        with torch.no_grad():
+            for t in self._state:
+                cond = ok if t.device == ok.device else ok.to(t.device)
+                torch.where(cond, t, self._copies[id(t)], out=t)
+        fresh = [(opt, p) for opt, had in zip(self.optimizers, self._had)
+                 for p in opt.state if p not in had]
+        if fresh and eager and not bool(ok):
+            for opt, p in fresh:
+                del opt.state[p]
 
 
 def _check_capturable(optimizers: Sequence[torch.optim.Optimizer]) -> None:
@@ -507,7 +553,7 @@ class GPipe(nn.Module):
         device = self.devices[0]
         if not self.fused or device.type != "cuda":
             return (warmup or body)(inputs)
-        key = key + (graphs.tensor_key(inputs),)
+        key = key + (graphs.tensor_key(inputs), _faults.plan_token())
         entry = self._graphs.get(key)
         if entry is None:
             return self._capture(key, inputs, body, warmup or body, device)
@@ -612,7 +658,9 @@ class GPipe(nn.Module):
         ``step(x, target, rng=None) -> (loss, aux)``: ``value_and_grad``
         (with ``rng``), then every stage's ``optimizer.step()``.  The update is in place,
         so the reference's ``donate`` has no counterpart; the optimizers
-        are ``step.optimizers``.  Under ``fused=True`` on the card the
+        are ``step.optimizers`` and the pipe ``step.pipe`` (what
+        :class:`~torchgpipe_tpu_torch.resilience.guard.StepGuard`
+        snapshots).  Under ``fused=True`` on the card the
         whole step, optimizers included, is one CUDA graph, so an
         optimizer that keeps a step count must be built with
         ``capturable=True``.
@@ -656,7 +704,7 @@ class GPipe(nn.Module):
                                  lambda inp: self._guard_state(optimizers, one, *inp),
                                  warmup=lambda inp: one(*inp))
         else:
-            snaps: Dict[int, torch.Tensor] = {}
+            snap = StateSnapshot(self, optimizers)
 
             def step(xs: Any, targets: Any, rng: Any = None) -> Tuple[Any, ...]:
                 for leaf in _tensors(xs):
@@ -674,11 +722,12 @@ class GPipe(nn.Module):
                 return self._run(
                     ("megastep", token, stop), (xs, targets, _key(rng)),
                     lambda inp: self._guard_state(
-                        optimizers, self._megastep_body, k, optimizers, one, snaps,
+                        optimizers, self._megastep_body, k, optimizers, one, snap,
                         False, *inp),
                     warmup=lambda inp: self._megastep_body(
-                        k, optimizers, one, snaps, True, *inp))
+                        k, optimizers, one, snap, True, *inp))
 
+        step.pipe = self  # type: ignore[attr-defined]
         step.optimizers = optimizers  # type: ignore[attr-defined]
         step.megastep = k  # type: ignore[attr-defined]
         return step
@@ -702,37 +751,23 @@ class GPipe(nn.Module):
     def _megastep_body(
         self, k: int, optimizers: Sequence[torch.optim.Optimizer],
         one: Callable[[Any, Any, Any], Tuple[torch.Tensor, Any]],
-        snaps: Dict[int, torch.Tensor], eager: bool, xs: Any, targets: Any,
+        snap: StateSnapshot, eager: bool, xs: Any, targets: Any,
         key: Optional[torch.Tensor],
     ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
-        """K inner steps with the skip-step select: before each, every
-        parameter, optimizer state tensor and buffer is copied into its
-        snapshot; after it, ``where(finite, new, snapshot)``.  Only an
-        eager call may find optimizer state created by a skipped step
-        (the very first steps of a fresh optimizer); it drops that state
-        again, which reads ``finite`` on the host."""
+        """K inner steps with the skip-step select (:class:`StateSnapshot`):
+        before each, every parameter, optimizer state tensor and buffer
+        is copied into its snapshot; after it, ``where(finite, new,
+        snapshot)``.  Only an eager call may find optimizer state created
+        by a skipped step (the very first steps of a fresh optimizer); it
+        drops that state again, which reads ``finite`` on the host."""
         losses, auxes, oks = [], [], []
         for i in range(k):
             x, target = pytree.tree_map(
                 lambda t: t[i] if isinstance(t, torch.Tensor) else t, (xs, targets))
-            state = list(self.parameters()) + _opt_tensors(optimizers) + list(self.buffers())
-            with torch.no_grad():
-                for t in state:
-                    if id(t) not in snaps:
-                        snaps[id(t)] = torch.empty_like(t)
-                    snaps[id(t)].copy_(t)
-            had = [set(opt.state) for opt in optimizers]
+            snap.take()
             loss, aux = one(x, target, None if key is None else _rng.fold_in(key, i))
-            ok = _all_finite([loss, *self.parameters(), *_opt_tensors(optimizers),
-                              *self.buffers(), *_tensors(aux)])
-            with torch.no_grad():
-                for t in state:
-                    torch.where(ok, t, snaps[id(t)], out=t)
-            fresh = [(opt, p) for opt, h in zip(optimizers, had)
-                     for p in opt.state if p not in h]
-            if fresh and eager and not bool(ok):
-                for opt, p in fresh:
-                    del opt.state[p]
+            ok = _all_finite([loss, *snap.tensors(), *_tensors(aux)])
+            snap.select(ok, eager)
             losses.append(loss)
             auxes.append(aux)
             oks.append(ok)

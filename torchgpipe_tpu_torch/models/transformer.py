@@ -841,6 +841,10 @@ class Llama(nn.Sequential):
             *([LMHead(cfg, device=dev, table=table)] if head else []),
         )
         self.cfg = cfg
+        # The reference's layer names (its state-dict keys carry them).
+        names = ["embed"] + [f"block{i}" for i in range(cfg.n_layers)] + ["head"]
+        for layer, name in zip(self, names):
+            layer.name = name
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:

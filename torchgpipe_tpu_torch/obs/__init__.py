@@ -1,12 +1,21 @@
-"""Runtime telemetry: the metrics registry.
+"""Runtime telemetry: the metrics registry and the flight recorder.
 
-Counterpart of the registry half of ``torchgpipe_tpu/obs``: labeled
-counters, gauges and histograms with JSONL and Prometheus exporters
-(:mod:`~torchgpipe_tpu_torch.obs.registry`).  The flight recorder, step
-reporter, request traces, SLO monitor and reconciliation are not ported
-yet (ROADMAP.md, queue A item 5).
+Counterpart of part of ``torchgpipe_tpu/obs``: labeled counters, gauges
+and histograms with JSONL and Prometheus exporters
+(:mod:`~torchgpipe_tpu_torch.obs.registry`), and the per-rank event ring
+of the multi-process pipeline (:mod:`~torchgpipe_tpu_torch.obs.flightrec`).
+The step reporter, request traces, SLO monitor, postmortem analyzer and
+reconciliation are not ported yet (ROADMAP.md, queue A item 5).
 """
 
+from torchgpipe_tpu_torch.obs.flightrec import (
+    FlightEvent,
+    FlightRecorder,
+    StallWatchdog,
+    align_clocks,
+    load_dump,
+    merged_chrome_trace,
+)
 from torchgpipe_tpu_torch.obs.registry import (
     Counter,
     Gauge,
@@ -15,4 +24,6 @@ from torchgpipe_tpu_torch.obs.registry import (
     read_jsonl,
 )
 
-__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "read_jsonl"]
+__all__ = ["Counter", "FlightEvent", "FlightRecorder", "Gauge", "Histogram",
+           "MetricsRegistry", "StallWatchdog", "align_clocks", "load_dump",
+           "merged_chrome_trace", "read_jsonl"]

@@ -1,0 +1,557 @@
+"""Flight recorder: a bounded event ring per rank.
+
+Counterpart of ``torchgpipe_tpu/obs/flightrec.py`` (the same classes,
+event fields and JSON dump): the black box each
+:class:`~torchgpipe_tpu_torch.distributed.DistributedGPipe` rank carries.
+
+* :class:`FlightRecorder` is a fixed-size ring (``collections.deque``) of
+  :class:`FlightEvent` records: send enqueues, receive waits and matches
+  (with the mailbox depth), cell completions, forward and backward loop
+  boundaries, transport connect retries and timeouts.  Recording is one
+  clock read and one append under a lock.
+* :meth:`FlightRecorder.dump` writes the ring as JSON; the distributed
+  engine dumps on a receive timeout or a ``PeerDiedError``
+  (:meth:`~FlightRecorder.crash_dump`), and
+  ``PreemptionHandler.add_callback(recorder.dump)`` covers SIGTERM.
+* :class:`StallWatchdog` flags ``timeout`` seconds of recorder silence
+  (a ``hang_suspected`` gauge on a
+  :class:`~torchgpipe_tpu_torch.obs.registry.MetricsRegistry`, a dump,
+  a callback).
+* :func:`align_clocks` maps each rank's monotonic clock onto rank 0's
+  by a ping/pong over the transport; :func:`merged_chrome_trace` merges
+  the ranks' dumps into one Chrome/Perfetto trace.
+
+The postmortem analyzer that replays a dump is not ported yet
+(ROADMAP.md, queue A item 5.6).  Cell durations on a card are host
+dispatch times: kernels queue asynchronously, and the transport's host
+staging is what waits for them.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import json
+import os
+import threading
+import time
+from typing import (
+    Any, Callable, Dict, List, Optional, Sequence, Tuple, Union,
+)
+
+# Default ring capacity: at ~6 recorded events per pipeline cell, 4096
+# events cover hundreds of micro-batch cells — several full steps of
+# history at a few hundred bytes each, whatever the run length.
+RING_CAPACITY = 4096
+
+
+def _jsonable(x: Any) -> Any:
+    """JSON-safe projection of a mailbox-key component.  Skip channels
+    carry arbitrary key objects (namespaced skip keys are not JSON
+    types); they serialize as their ``str`` — which is exactly the
+    spelling the event graphs use for skip channels
+    (``distributed_events`` takes ``str(key)``), so dump channels and
+    graph channels stay comparable."""
+    if isinstance(x, (str, int, float, bool)) or x is None:
+        return x
+    if isinstance(x, (tuple, list)):
+        return [_jsonable(v) for v in x]
+    if isinstance(x, dict):
+        return {str(k): _jsonable(v) for k, v in x.items()}
+    return str(x)
+
+
+@dataclasses.dataclass
+class FlightEvent:
+    """One recorded moment on a rank's timeline.
+
+    ``t`` is the RANK-LOCAL monotonic clock; add the recorder's
+    ``clock_offset`` (set by :func:`align_clocks`) to place it on rank
+    0's timeline.  ``channel`` is the transport mailbox key ``(kind,
+    index)`` for comm events; ``stage``/``mb`` identify compute cells
+    (the event-graph node vocabulary); ``dur`` is a measured duration in
+    seconds where one exists (cell compute, receive wait).  ``rid`` is
+    the REQUEST correlation key serving-side events carry (``req_*``
+    spans from the engine, ``route``/``req_move`` from the fleet
+    router): every event of one request shares one rid across however
+    many replicas served it (the request tracer that stitches on it is
+    ROADMAP.md queue A item 5.6)."""
+
+    seq: int
+    t: float
+    kind: str
+    channel: Optional[Tuple[Any, int]] = None
+    peer: Optional[str] = None
+    stage: Optional[int] = None
+    mb: Optional[int] = None
+    dur: Optional[float] = None
+    detail: str = ""
+    rid: Optional[str] = None
+
+    def to_dict(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {"seq": self.seq, "t": self.t,
+                               "kind": self.kind}
+        if self.channel is not None:
+            out["channel"] = _jsonable(list(self.channel))
+        for k in ("peer", "stage", "mb", "dur", "rid"):
+            v = getattr(self, k)
+            if v is not None:
+                out[k] = v
+        if self.detail:
+            out["detail"] = self.detail
+        return out
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "FlightEvent":
+        ch = d.get("channel")
+        if ch is not None:
+            # JSON has no tuples; mailbox kinds that are tuples (skip
+            # keys) come back as lists too — re-tuple recursively so
+            # channel keys compare equal to the live ones.
+            kind = tuple(ch[0]) if isinstance(ch[0], list) else ch[0]
+            ch = (kind, ch[1])
+        return cls(
+            seq=int(d["seq"]), t=float(d["t"]), kind=str(d["kind"]),
+            channel=ch, peer=d.get("peer"), stage=d.get("stage"),
+            mb=d.get("mb"), dur=d.get("dur"), detail=d.get("detail", ""),
+            rid=d.get("rid"),
+        )
+
+
+class FlightRecorder:
+    """Fixed-size per-rank ring of :class:`FlightEvent` records.
+
+    Thread-safe: transports deliver into mailboxes from handler threads
+    while the engine loop records from its own, so appends take the
+    recorder lock (one uncontended acquire per event — the recorded
+    overhead budget).  ``record(..., activity=False)`` appends without
+    refreshing :attr:`last_activity` — that is how the watchdog logs its
+    own suspicion without resetting the very silence it measures.
+    """
+
+    def __init__(
+        self,
+        capacity: int = RING_CAPACITY,
+        *,
+        rank: Optional[int] = None,
+        worker: Optional[str] = None,
+        clock: Callable[[], float] = time.monotonic,
+        dump_path: Optional[str] = None,
+    ) -> None:
+        self.rank = rank
+        self.worker = worker
+        self.clock = clock
+        self.dump_path = dump_path
+        self.clock_offset = 0.0  # local -> rank-0 timeline (align_clocks)
+        self.meta: Dict[str, Any] = {}
+        self._ring: "collections.deque[FlightEvent]" = collections.deque(
+            maxlen=capacity
+        )
+        self._lock = threading.Lock()
+        self._dump_lock = threading.Lock()
+        self._seq = 0
+        self.last_activity = clock()
+
+    # ------------------------------------------------------------------ #
+    # recording                                                          #
+    # ------------------------------------------------------------------ #
+
+    def record(
+        self,
+        kind: str,
+        *,
+        channel: Optional[Tuple[Any, int]] = None,
+        peer: Optional[str] = None,
+        stage: Optional[int] = None,
+        mb: Optional[int] = None,
+        dur: Optional[float] = None,
+        detail: str = "",
+        rid: Optional[str] = None,
+        activity: bool = True,
+    ) -> FlightEvent:
+        now = self.clock()
+        with self._lock:
+            ev = FlightEvent(self._seq, now, kind, channel, peer, stage,
+                             mb, dur, detail, rid)
+            self._seq += 1
+            self._ring.append(ev)
+            if activity:
+                self.last_activity = now
+        return ev
+
+    def set_meta(self, **kw: Any) -> None:
+        """Attach run configuration (workers, chunks, checkpoint, skip
+        layout) — what the postmortem analyzer needs to rebuild the
+        schedule's event graph from a dump alone."""
+        self.meta.update(kw)
+
+    def events(self) -> List[FlightEvent]:
+        with self._lock:
+            return list(self._ring)
+
+    def last_event(self) -> Optional[FlightEvent]:
+        with self._lock:
+            return self._ring[-1] if self._ring else None
+
+    # ------------------------------------------------------------------ #
+    # dumping                                                            #
+    # ------------------------------------------------------------------ #
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "worker": self.worker,
+            "rank": self.rank,
+            "clock_offset": self.clock_offset,
+            "t_dump": self.clock(),
+            "meta": _jsonable(dict(self.meta)),
+            "events": [e.to_dict() for e in self.events()],
+        }
+
+    def dump(self, path: Optional[str] = None) -> Optional[str]:
+        """Write the ring as JSON to ``path`` (default: the recorder's
+        ``dump_path``).  Returns the written path, or None when neither
+        is set (a recorder without a destination is still a valid
+        in-memory black box) or when another dump held the lock past
+        the bounded wait.
+
+        Atomic and serialized: the payload goes to a temp file renamed
+        into place (``os.replace``), and concurrent dumpers — the
+        watchdog thread, the engine's crash path, a SIGTERM callback,
+        all of which fire together at exactly the moment a dump matters
+        — take a lock so they cannot tear one file.  The acquire is
+        BOUNDED (5s), not blocking: a SIGTERM hook runs in signal
+        context on the main thread and must never deadlock against a
+        dump that same thread was already inside (skipping is safe —
+        the dump already in flight carries the same ring)."""
+        dest = path or self.dump_path
+        if dest is None:
+            return None
+        payload = self.to_dict()
+        if not self._dump_lock.acquire(timeout=5.0):
+            return None
+        try:
+            tmp = dest + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(payload, f)
+            os.replace(tmp, dest)
+        finally:
+            self._dump_lock.release()
+        return dest
+
+    def crash_dump(self, reason: str) -> Optional[str]:
+        """Record a terminal ``crash`` event, then dump — called on the
+        failure path (receive timeout, ``PeerDiedError``), so ANY dump
+        failure (IO, a payload the serializer chokes on) is swallowed:
+        the dump must never mask or replace the original failure."""
+        self.record("crash", detail=reason)
+        try:
+            return self.dump()
+        except Exception:  # noqa: BLE001 — see docstring
+            return None
+
+
+@dataclasses.dataclass
+class RankDump:
+    """One rank's loaded flight dump (see :func:`load_dump`)."""
+
+    worker: Optional[str]
+    rank: Optional[int]
+    clock_offset: float
+    t_dump: float
+    meta: Dict[str, Any]
+    events: List[FlightEvent]
+
+    def aligned(self, t: float) -> float:
+        """Map a rank-local time onto rank 0's timeline."""
+        return t + self.clock_offset
+
+    def last_event(self) -> Optional[FlightEvent]:
+        return self.events[-1] if self.events else None
+
+
+def dump_from_dict(d: Dict[str, Any]) -> RankDump:
+    return RankDump(
+        worker=d.get("worker"),
+        rank=d.get("rank"),
+        clock_offset=float(d.get("clock_offset", 0.0)),
+        t_dump=float(d.get("t_dump", 0.0)),
+        meta=dict(d.get("meta", {})),
+        events=[FlightEvent.from_dict(e) for e in d.get("events", [])],
+    )
+
+
+def load_dump(path: str) -> RankDump:
+    """Load one rank's JSON flight dump."""
+    with open(path) as f:
+        return dump_from_dict(json.load(f))
+
+
+# --------------------------------------------------------------------- #
+# stall watchdog                                                        #
+# --------------------------------------------------------------------- #
+
+
+class StallWatchdog:
+    """Background liveness alarm over a :class:`FlightRecorder`.
+
+    A hang never raises — that is what makes it a hang — so a daemon
+    thread polls the recorder: ``timeout`` seconds with no recorded
+    activity flips the ``hang_suspected`` gauge (labeled by rank) on the
+    given registry to 1, dumps the ring, and fires ``on_stall(idle_s)``
+    once per stall episode; recorded activity resuming flips the gauge
+    back to 0.  Use as a context manager, or ``start()``/``stop()``::
+
+        with StallWatchdog(recorder, timeout=30.0, registry=reg):
+            ...training loop...
+    """
+
+    def __init__(
+        self,
+        recorder: FlightRecorder,
+        *,
+        timeout: float = 30.0,
+        poll: Optional[float] = None,
+        registry: Any = None,
+        on_stall: Optional[Callable[[float], None]] = None,
+    ) -> None:
+        if timeout <= 0:
+            raise ValueError("watchdog timeout must be positive")
+        self.recorder = recorder
+        self.timeout = timeout
+        self.poll = poll if poll is not None else max(timeout / 4.0, 0.01)
+        self.on_stall = on_stall
+        self._gauge = (
+            registry.gauge(
+                "hang_suspected",
+                help="1 while a rank's flight recorder has been silent "
+                     "past the watchdog timeout",
+                labels=("rank",),
+            )
+            if registry is not None else None
+        )
+        self._labels = {"rank": str(recorder.rank)}
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self.stalled = False
+
+    def _tick(self) -> None:
+        idle = self.recorder.clock() - self.recorder.last_activity
+        if idle > self.timeout and not self.stalled:
+            self.stalled = True
+            self.recorder.record(
+                "stall_suspected",
+                detail=f"no activity for {idle:.2f}s "
+                       f"(watchdog timeout {self.timeout}s)",
+                activity=False,
+            )
+            if self._gauge is not None:
+                self._gauge.set(1.0, **self._labels)
+            try:
+                self.recorder.dump()
+            except Exception:  # noqa: BLE001 — a failed dump must not
+                pass           # kill the alarm thread
+            if self.on_stall is not None:
+                try:
+                    self.on_stall(idle)
+                except Exception:  # noqa: BLE001 — alarm must survive
+                    pass           # a broken observer
+        elif idle <= self.timeout and self.stalled:
+            self.stalled = False
+            self.recorder.record("stall_cleared", activity=False)
+            if self._gauge is not None:
+                self._gauge.set(0.0, **self._labels)
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.poll):
+            self._tick()
+
+    def start(self) -> "StallWatchdog":
+        if self._thread is None:
+            self._stop.clear()
+            self._thread = threading.Thread(
+                target=self._run, name="flightrec-watchdog", daemon=True
+            )
+            self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None
+
+    def __enter__(self) -> "StallWatchdog":
+        return self.start()
+
+    def __exit__(self, *exc: Any) -> None:
+        self.stop()
+
+
+# --------------------------------------------------------------------- #
+# cross-rank clock alignment                                            #
+# --------------------------------------------------------------------- #
+
+# Handshake mailbox kinds — namespaced so they can never collide with
+# schedule channels ("forward"/"backward"/"meta"/("skip", k)).
+_PING, _PONG, _OFFSET = "fr_clock_ping", "fr_clock_pong", "fr_clock_off"
+
+
+def align_clocks(
+    transport: Any,
+    mailbox: Any,
+    rank: int,
+    workers: Sequence[str],
+    recorder: Optional[FlightRecorder] = None,
+    *,
+    timeout: Optional[float] = 60.0,
+    clock: Callable[[], float] = time.monotonic,
+) -> float:
+    """Offset handshake at context setup: returns (and stores on
+    ``recorder.clock_offset``) the additive offset mapping THIS rank's
+    monotonic clock onto rank 0's timeline.
+
+    Collective — every rank must call it once, with its own mailbox,
+    before the training loop.  Rank 0 pings each peer, the peer echoes
+    its local receive time, and rank 0 midpoints the round trip (the
+    classic NTP estimate: ``offset_r = (t0 + t1)/2 − t_r``, accurate to
+    half the RTT asymmetry — microseconds in-process, well under a
+    millisecond on the LANs ``TcpTransport`` targets, against schedule
+    events measured in milliseconds).  Offsets ride the same transport
+    as the schedule, so no extra connectivity is assumed.
+    """
+    offset = 0.0
+    if rank == 0:
+        for r in range(1, len(workers)):
+            t0 = clock()
+            transport.send(workers[r], _PING, r, t0)
+            t0_echo, tr = mailbox.get(_PONG, r, timeout=timeout)
+            t1 = clock()
+            peer_offset = (float(t0_echo) + t1) / 2.0 - float(tr)
+            transport.send(workers[r], _OFFSET, r, peer_offset)
+    else:
+        t0 = float(mailbox.get(_PING, rank, timeout=timeout))
+        tr = clock()
+        transport.send(workers[0], _PONG, rank, (t0, tr))
+        offset = float(mailbox.get(_OFFSET, rank, timeout=timeout))
+    if recorder is not None:
+        recorder.clock_offset = offset
+        recorder.record("clock_align", detail=f"offset={offset:+.6f}s")
+    return offset
+
+
+# --------------------------------------------------------------------- #
+# merged multi-rank chrome trace                                        #
+# --------------------------------------------------------------------- #
+
+# Events rendered as duration slices (they carry ``dur``: cell
+# completions, and recv_match whose dur is the measured WAIT, so the
+# slice shows the blocked interval ending at the match); everything
+# else becomes a thread-scoped instant tick.  Serving-side request
+# events (kind ``req_*``, carrying a ``rid``) get their own
+# ``requests`` thread row — slices when they carry a dur (prefill
+# chunks, decode groups, speculative rounds), instants otherwise.
+_SLICE_KINDS = ("fwd", "bwd", "recv_match")
+_COMPUTE_KINDS = ("fwd", "bwd")
+_REQUEST_PREFIX = "req_"
+
+
+def merged_chrome_trace(
+    dumps: Sequence[Union[RankDump, FlightRecorder]],
+    path: str,
+) -> None:
+    """Merge per-rank flight dumps into ONE Chrome/Perfetto trace: one
+    process (pid) per rank, clock-aligned timestamps (each event's local
+    ``t`` plus its dump's ``clock_offset``, re-zeroed on the earliest
+    aligned event), a ``compute`` row of fwd/bwd cell slices and a
+    ``comm`` row of receive waits plus send/arrival/retry instants —
+    the cross-rank picture a single rank's ring cannot show."""
+    loaded = [
+        dump_from_dict(d.to_dict()) if isinstance(d, FlightRecorder) else d
+        for d in dumps
+    ]
+    t_zero = min(
+        (d.aligned(e.t) for d in loaded for e in d.events),
+        default=0.0,
+    )
+    trace: List[Dict[str, Any]] = []
+    for i, d in enumerate(loaded):
+        # Rank-less dumps (a recorder attached to a transport only) get
+        # distinct negative pids so two of them never silently overlay
+        # one process row.
+        pid = d.rank if d.rank is not None else -1 - i
+        name = (f"rank {d.rank}" if d.rank is not None
+                else f"dump {i}") + (f" ({d.worker})" if d.worker else "")
+        trace.append({"name": "process_name", "ph": "M", "pid": pid,
+                      "tid": 0, "args": {"name": name}})
+        trace.append({"name": "thread_name", "ph": "M", "pid": pid,
+                      "tid": 0, "args": {"name": "compute"}})
+        trace.append({"name": "thread_name", "ph": "M", "pid": pid,
+                      "tid": 1, "args": {"name": "comm"}})
+        trace.append({"name": "thread_name", "ph": "M", "pid": pid,
+                      "tid": 2, "args": {"name": "requests"}})
+        for e in d.events:
+            ts = (d.aligned(e.t) - t_zero) * 1e6
+            args: Dict[str, Any] = {"kind": e.kind, "seq": e.seq}
+            if e.stage is not None:
+                args["stage"] = e.stage
+            if e.mb is not None:
+                args["micro_batch"] = e.mb
+            if e.channel is not None:
+                args["channel"] = repr(e.channel)
+            if e.peer is not None:
+                args["peer"] = e.peer
+            if e.rid is not None:
+                args["rid"] = e.rid
+            if e.detail:
+                args["detail"] = e.detail
+            if e.kind.startswith(_REQUEST_PREFIX):
+                label = (f"{e.kind}({e.rid})" if e.rid is not None
+                         else e.kind)
+                if e.dur is not None:
+                    trace.append({
+                        "name": label, "ph": "X", "pid": pid, "tid": 2,
+                        "ts": ts - e.dur * 1e6,
+                        "dur": max(e.dur * 1e6, 0.01),
+                        "args": args,
+                    })
+                else:
+                    trace.append({
+                        "name": label, "ph": "i", "s": "t", "pid": pid,
+                        "tid": 2, "ts": ts, "args": args,
+                    })
+                continue
+            if e.kind in _SLICE_KINDS and e.dur is not None:
+                label = (
+                    f"{e.kind}(s{e.stage},mb{e.mb})"
+                    if e.kind in _COMPUTE_KINDS
+                    else f"recv_wait {e.channel!r}"
+                )
+                trace.append({
+                    "name": label, "ph": "X", "pid": pid,
+                    "tid": 0 if e.kind in _COMPUTE_KINDS else 1,
+                    # Slices END at the recorded instant (dur measured
+                    # backward from completion).
+                    "ts": ts - e.dur * 1e6,
+                    "dur": max(e.dur * 1e6, 0.01),
+                    "args": args,
+                })
+            else:
+                trace.append({
+                    "name": e.kind, "ph": "i", "s": "t", "pid": pid,
+                    "tid": 1, "ts": ts, "args": args,
+                })
+    with open(path, "w") as f:
+        json.dump({"traceEvents": trace, "displayTimeUnit": "ms"}, f)
+
+
+__all__ = [
+    "FlightEvent",
+    "FlightRecorder",
+    "RankDump",
+    "RING_CAPACITY",
+    "StallWatchdog",
+    "align_clocks",
+    "dump_from_dict",
+    "load_dump",
+    "merged_chrome_trace",
+]

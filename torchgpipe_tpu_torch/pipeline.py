@@ -48,6 +48,8 @@ Counterpart of ``torchgpipe_tpu/pipeline.py`` (``clock_cycles``,
   (fewer than ``chunks`` for a ragged batch), so an injected auxiliary
   gradient (a MoE balance penalty) is a micro-batch mean, as the
   reference's per-cell weighting makes it.
+* A cell's input passes :func:`~torchgpipe_tpu_torch.resilience.faults.corrupt_cell_input`
+  first: ``faults.inject(nan_at=(j, i))`` poisons cell ``(i, j)``.
 * ``tracer`` (:class:`~torchgpipe_tpu_torch.utils.tracing.Timeline`)
   records a span per cell: ``fwd`` and ``bwd`` (a recompute inside its
   backward), and ``loss``.
@@ -65,6 +67,7 @@ import torch.utils._pytree as pytree
 from torchgpipe_tpu_torch import checkpoint as ckpt
 from torchgpipe_tpu_torch import microbatch
 from torchgpipe_tpu_torch.auxgrad import aux_scale
+from torchgpipe_tpu_torch.resilience import faults as _faults
 from torchgpipe_tpu_torch.rng import Key
 from torchgpipe_tpu_torch.skip import SkipLayout
 
@@ -131,6 +134,18 @@ def _split_loss(res: Any) -> Tuple[torch.Tensor, Any]:
     return res if isinstance(res, tuple) else (res, None)
 
 
+def loss_cotangents(outs: List[Any], target: Any, loss_fn: Callable[..., Any],
+                    device: torch.device) -> Tuple[torch.Tensor, List[Any], Any]:
+    """The loss of the gathered outputs on ``device`` and its backward:
+    ``(loss, cotangent per output, aux)`` (the parameters of a parametric
+    ``loss_fn`` get their ``.grad``)."""
+    leaves = [_as_leaf(_to(o, device)) for o in outs]
+    with torch.enable_grad():
+        loss, aux = _split_loss(loss_fn(microbatch.gather(leaves), _to(target, device)))
+        loss.backward()
+    return loss.detach(), [_grad_of(leaf) for leaf in leaves], aux
+
+
 def _mb_key(rng: Optional[Key], i: int) -> Optional[Key]:
     """Micro-batch ``i``'s key, the reference's ``fold_in(rng, i)``."""
     return None if rng is None else rng.fold(i)
@@ -158,7 +173,7 @@ class _Cells:
         pipe = self.pipe
         stage, dev = pipe.stages[j], pipe.devices[j]
         start = None if pipe.tracer is None else pipe.tracer.now()
-        x = _to(x, dev)
+        x = _faults.corrupt_cell_input(j, i, _to(x, dev))
         if j > 0:
             x = _as_leaf(x)
         skips_in = {k: _as_leaf(self.skips.pop((i, k))) for k in stage.ext_pop_keys}
@@ -284,18 +299,14 @@ class Pipeline:
                 else:
                     acts[i] = y
 
-        last = self.devices[-1]
         start = None if self.tracer is None else self.tracer.now()
-        leaves = [_as_leaf(_to(o, last)) for o in outs]
-        with torch.enable_grad():
-            loss, aux = _split_loss(loss_fn(microbatch.gather(leaves), _to(target, last)))
-            loss.backward()
-        gys: Dict[Cell, Any] = {(i, n - 1): _grad_of(leaf) for i, leaf in enumerate(leaves)}
+        loss, cots, aux = loss_cotangents(outs, target, loss_fn, self.devices[-1])
+        gys: Dict[Cell, Any] = {(i, n - 1): g for i, g in enumerate(cots)}
         if self.tracer is not None:
             # Its own span (micro-batch -1), so a synchronizing tracer
             # does not charge the loss to the first backward cell.
-            self.tracer.record("loss", n - 1, -1, (loss, list(gys.values())), start=start)
-        del leaves, outs
+            self.tracer.record("loss", n - 1, -1, (loss, cots), start=start)
+        del cots, outs
 
         order = [c for cycle in reversed(list(clock_cycles(m, n))) for c in reversed(cycle)]
         for k, (i, j) in enumerate(order):
@@ -303,7 +314,7 @@ class Pipeline:
             gx = cells.backward(i, j, gys.pop((i, j)), nxt)
             if j > 0:
                 gys[(i, j - 1)] = gx
-        return loss.detach(), aux
+        return loss, aux
 
     def run_train_1f1b(
         self,

@@ -2,7 +2,8 @@
 
 Counterpart of ``torchgpipe_tpu/utils/data.py`` (``Packing``,
 ``pack_documents``, ``packed_batches``, ``padded_batches``,
-``real_token_fraction``, ``prefetch_to_device``).  Packing places a
+``real_token_fraction``, ``prefetch_to_device``, ``pipe_data_sharding``,
+``prefetch_to_pipe``).  Packing places a
 ragged corpus, whole documents only, into fixed ``[B, S]`` blocks by a
 deterministic greedy first fit, so re-packing the same corpus (on
 resume) replays the same layout.  Each block carries ``segment_ids``
@@ -12,11 +13,11 @@ that are 1 on real supervised positions: what the packed embedding,
 attention mask and ``models.transformer.packed_cross_entropy`` take.
 Arrays are host numpy arrays (int32 tokens, float32 weights), as the
 reference's; :func:`prefetch_to_device` turns them into tensors on the
-card.
+card; :func:`prefetch_to_pipe` onto a pipe's first stage.
 
-Not ported here (ROADMAP.md queue A item 5.3, with ``distributed/``):
-``pipe_data_sharding``, ``prefetch_to_pipe`` and
-``global_batch_from_local``.
+The SPMD placements (``pipe_data_sharding`` of an SPMD pipe,
+``global_batch_from_local``) are not ported yet (ROADMAP.md, queue A
+item 5.4).
 """
 
 from __future__ import annotations
@@ -240,5 +241,43 @@ def prefetch_to_device(
         enqueue(1)
 
 
-__all__ = ["Packing", "pack_documents", "packed_batches", "padded_batches",
-           "prefetch_to_device", "real_token_fraction"]
+def pipe_data_sharding(pipe: Any, *, stacked: bool = False) -> torch.device:
+    """Where a full training batch of ``pipe`` belongs, what
+    :func:`prefetch_to_device`'s ``device`` should be: a ``GPipe``'s
+    first stage's device (micro-batches enter there), a
+    ``DistributedGPipe`` rank's own device.  ``stacked`` (megastep's
+    ``[K, ...]`` batches) changes nothing for these: every dimension
+    rides along."""
+    from torchgpipe_tpu_torch.distributed.gpipe import DistributedGPipe
+    from torchgpipe_tpu_torch.gpipe import GPipe
+    from torchgpipe_tpu_torch.models.transformer import not_ported
+
+    if isinstance(pipe, GPipe):
+        return pipe.devices[0]
+    if isinstance(pipe, DistributedGPipe):
+        return pipe.device
+    raise not_ported(f"pipe_data_sharding of {type(pipe).__name__} (SPMD)", "5.4")
+
+
+def prefetch_to_pipe(
+    iterable: Iterable[Pytree], pipe: Any, size: int = 2, *, stacked: bool = False,
+) -> Iterator[Pytree]:
+    """:func:`prefetch_to_device` onto :func:`pipe_data_sharding`'s
+    device: each batch's copy overlaps the previous step::
+
+        for x, y in prefetch_to_pipe(loader, pipe):
+            loss, aux = step(x, y)
+    """
+    return prefetch_to_device(iterable, size, device=pipe_data_sharding(pipe, stacked=stacked))
+
+
+def global_batch_from_local(mesh: Any, spec: Any, local_batch: Pytree) -> Pytree:
+    """A global sharded batch from each process's shard: not ported yet."""
+    from torchgpipe_tpu_torch.models.transformer import not_ported
+
+    raise not_ported("utils.data.global_batch_from_local (multi-host SPMD)", "5.4")
+
+
+__all__ = ["Packing", "global_batch_from_local", "pack_documents", "packed_batches",
+           "padded_batches", "pipe_data_sharding", "prefetch_to_device",
+           "prefetch_to_pipe", "real_token_fraction"]
