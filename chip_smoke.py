@@ -107,8 +107,10 @@ they need) and prints no kernels line; by default every phase runs:
    and three timed steps of ``make_train_step`` with ``torch.optim.SGD``,
    launch counts read around one step, the step-1 loss against the
    unpipelined model's, a falling loss, the peak memory within 1 GiB of
-   the stateless SGD's, a profile of one step, and a 3-stage schedule on
-   one card against the 1-stage one at 4 blocks.
+   the stateless SGD's, ``obs.StepReporter``'s line over the timed steps
+   (its MFU from ``obs.measured_step_flops`` and the port's peak table,
+   beside this script's own FLOPs share), a profile of one step, and a
+   3-stage schedule on one card against the 1-stage one at 4 blocks.
 10. train_1f1b: the same width cut to 2 blocks (``CUT_BLOCKS``), batch 8, seq 1024, 8
    micro-batches, checkpoint 'never', 4 stages on one card at the balance
    ``balance_by_flops`` counts: one fill-drain step and one 1F1B step
@@ -229,6 +231,29 @@ they need) and prints no kernels line; by default every phase runs:
    a ``PeerDiedError`` naming it; the parent kills both after 300 s.
    Step ms of each rank beside the single-process step's, bytes staged
    through the host and the time spent waiting in ``Mailbox.get``.
+24. fleet (run after 9b, on phase 6's model, shared by every replica):
+   ``fleet.Router`` over two ``Engine`` replicas (phase 9's
+   configuration, each with its own pool and captured programs, warmed
+   up first) on a seeded ``fleet.synthetic_trace`` of 48 requests (4
+   tenants, 256-512-token system prompts), a FlightRecorder on each
+   replica and the router; replica r0 dies mid-trace
+   (``faults.inject(die_at_step=...)``) and its requests resume on r1
+   (24a); the same with ``fleet.RadixPrefixCache`` on both replicas,
+   every ``prefix_copy``'s rows bitwise the donor's (24b); a prefill and
+   a decode replica on ``fleet.prefill_heavy_config``, every migration's
+   ingested rows bitwise the exported ones (24c); a
+   ``fleet.SpeculativeEngine`` (phase 6c's random ``1b`` draft, gamma 4)
+   on 8 requests beside a plain replica (24d); ``fleet.Autoscaler``
+   scaling 24a's replicas down and up and a ``fleet.RolloutController``
+   publish, swap and rollback on a virtual registry clock (24e); then the
+   flight recorder's cost on the captured 8-slot decode step.  Gates:
+   every request finishes at its budget, every stream passes phase 9's
+   teacher-forced check, one capture per program (``compile_stats`` and
+   ``program_count``), ``obs.reqtrace.stitch_request`` rebuilds every
+   request's span tree with no orphan (moved and migrated requests
+   across replicas), each new program's replay bitwise its eager body,
+   zero hand-written kernel launches.  Its numbers go to a ``{"fleet":
+   ...}`` line.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Then one JSON line per kernel (time, launches, bound, plain and
@@ -261,7 +286,11 @@ import subprocess
 import time
 import warnings
 
-PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
+# H100 SXM dense bf16 tensor-core rate: the port's own table
+# (torchgpipe_tpu_torch/utils/hw.py, 989e12), read by main() once the port
+# is importable.
+H100_SXM = "NVIDIA H100 80GB HBM3"
+PEAK_BF16_FLOPS = None
 PEAK_F32_FLOPS = 67e12     # H100 SXM float32 rate outside the tensor cores
 PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 tensor-core rate (3xTF32: a third of it)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 rate
@@ -541,8 +570,9 @@ def sdpa_backends(torch, sets, causal: bool, reps: int, dout=None):
     return out, best, done[best]
 
 
-def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
-    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak_flops: float = None):
+    t_ops = flops / (peak_flops or PEAK_BF16_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -1812,6 +1842,17 @@ def phase_train(torch, tfa, tt, card, seed: int, steps: int = 3):
     moved = (head_w != head_before).float().mean().item()
     del head_before
 
+    # StepReporter over the timed steps: its MFU numerator is the step's
+    # FLOPs counted on the meta device (obs.measured_step_flops of one
+    # unpipelined forward + backward), its clock the host's (each step
+    # ends in a synchronisation), its peak the port's table.
+    from torchgpipe_tpu_torch import obs
+
+    counted = obs.measured_step_flops(
+        lambda m, x: loss_fn(m(x), x).backward(), llama, tokens)
+    reporter = obs.StepReporter(items_per_step=b * s, items_label="tokens",
+                                flops_per_step=counted, clock=time.perf_counter,
+                                emit=lambda line: None)
     step_ms = []
     for _ in range(steps):
         start = torch.cuda.Event(enable_timing=True)
@@ -1820,6 +1861,7 @@ def phase_train(torch, tfa, tt, card, seed: int, steps: int = 3):
         losses.append(step())
         end.record()
         end.synchronize()
+        reporter.step()
         step_ms.append(start.elapsed_time(end))
     peak = torch.cuda.max_memory_allocated()
     if abs(peak / 2**30 - TRAIN_PEAK_GIB) > 1.0:
@@ -1853,10 +1895,22 @@ def phase_train(torch, tfa, tt, card, seed: int, steps: int = 3):
           + f" [{card}]", flush=True)
     print(f"train: step_ms={med:.3f} (steps {[round(t, 3) for t in step_ms]}) "
           f"tokens_per_s={tok * 1e3 / med:.1f} model_flops_per_step={flops:.4e} "
-          f"mfu={flops / (med * 1e-3) / PEAK_BF16_FLOPS:.4f} of 989 TF/s "
+          f"mfu={flops / (med * 1e-3) / PEAK_BF16_FLOPS:.4f} of "
+          f"{PEAK_BF16_FLOPS / 1e12:.0f} TF/s "
           f"max_memory_allocated={peak / 2**30:.2f}GiB launches/step={launches} "
           f"[{card}]", flush=True)
-    profile(torch, card, "train step", step, top=16)
+    rep = reporter.summary()
+    if counted is None or rep.get("measured_mfu") is None:
+        fail(f"StepReporter gave no MFU (counted FLOPs {counted}, peak "
+             f"{reporter.peak_flops})")
+    print(f"train: StepReporter {reporter.line()} (counted {counted:.4e} FLOPs a step "
+          f"on the meta device: the full S x S attention square and the plain "
+          f"backward's Q.K^T recompute, no checkpoint recompute; this script's count "
+          f"{flops:.4e}, causal pairs: ratio {counted / flops:.4f}; the reporter's "
+          f"MFU {rep['measured_mfu']:.4f} on the host clock's last step beside "
+          f"{flops / (med * 1e-3) / PEAK_BF16_FLOPS:.4f} from device time) [{card}]",
+          flush=True)
+    profile(torch, card, "train step", step, top=16, cuda_only=True)
     del model, llama, params, train_step
     torch.cuda.empty_cache()
     return launches, (med, peak / 2**30)
@@ -2214,7 +2268,7 @@ def phase_resnet(torch, tfa, card, seed: int):
     if not all(l == l for l in losses) or not losses[-1] < losses[0]:
         fail(f"ResNet-101 SGD: loss did not fall on the fixed batch: {losses}")
     tfa.reset_launches()
-    profile(torch, card, "resnet101 step", lambda: step(x, y), top=10)
+    profile(torch, card, "resnet101 step", lambda: step(x, y), top=10, cuda_only=True)
     expect_launches(kernel_launches(tfa), {}, "the profiled ResNet-101 step")
     med = statistics.median(ms)
     lb, gb, bb, cb, _ = results["balance"]
@@ -2366,13 +2420,13 @@ def phase_train_graph(torch, tfa, tt, card, seed: int, balance):
     replay_ms = timed_steps(torch, lambda: fstep(toks[1], toks[1]), 3)
     eager_ms = timed_steps(torch, lambda: estep(toks[1], toks[1]), 2)
     rw, rb, rows = profile(torch, card, "train_graph replay", lambda: fstep(toks[2], toks[2]),
-                           top=6)
+                           top=6, cuda_only=True)
     per_replay = profile_launches(rows)
     if per_replay != want_launches:
         fail(f"train_graph: flash kernels per replay (profile) {per_replay}, expected "
              f"{want_launches} (the eager step's)")
     ew, eb, _ = profile(torch, card, "train_graph eager step", lambda: estep(toks[2], toks[2]),
-                        top=6)
+                        top=6, cuda_only=True)
     if fused.graph_stats["captures"] != 1:
         fail(f"train_graph: new tokens added a capture: {fused.graph_stats}")
     print(f"train_graph: Llama-3-8B width, {cfg.n_layers} blocks, batch {b} x seq {s}, "
@@ -2886,7 +2940,7 @@ def phase_lora(torch, tfa, tt, tg, card, seed: int, train_ms: float, train_peak:
         fail(f"lora: {len(unmoved)} of {len(moving)} adapter / loss-layer tensors did not move")
     del base0, moving0
     med = statistics.median(step_ms[1:])
-    profile(torch, card, "lora step", lambda: step(x, y), top=8)
+    profile(torch, card, "lora step", lambda: step(x, y), top=8, cuda_only=True)
     print(f"lora: Llama-3-8B width, lora_rank {LORA_RANK}, llama(head=False) + "
           f"chunked_lm_loss, GPipe([{n + 1}], chunks={chunks}, except_last), batch {b} x "
           f"seq {s}, lora_optimizer(AdamW lr {ADAMW_LR}): losses "
@@ -3054,9 +3108,11 @@ def phase_unet(torch, tfa, card, seed: int):
     eager_ms = timed_steps(torch, lambda: pipe.value_and_grad(x, y, unet_loss, rng=3), 1)
     replay_ms = timed_steps(torch, lambda: fpipe.value_and_grad(x, y, unet_loss, rng=4), 1)
     ew, eb, _ = profile(torch, card, "unet eager step",
-                        lambda: pipe.value_and_grad(x, y, unet_loss, rng=5), top=6)
+                        lambda: pipe.value_and_grad(x, y, unet_loss, rng=5), top=6,
+                        cuda_only=True)
     rw, rb, _ = profile(torch, card, "unet replay",
-                        lambda: fpipe.value_and_grad(x, y, unet_loss, rng=6), top=6)
+                        lambda: fpipe.value_and_grad(x, y, unet_loss, rng=6), top=6,
+                        cuda_only=True)
     if fpipe.graph_stats["captures"] != 1:
         fail(f"unet: new keys added a capture: {fpipe.graph_stats}")
     e_ms, r_ms = statistics.median(eager_ms), statistics.median(replay_ms)
@@ -3221,7 +3277,8 @@ def phase_vit(torch, tfa, card, seed: int):
         ms.append(stats["ms"])
     if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
         fail(f"ViT-L/16 SGD: loss did not fall on the fixed batch: {losses}")
-    wall, busy, _ = profile(torch, card, "vit_l16 step", lambda: step(x, y), top=8)
+    wall, busy, _ = profile(torch, card, "vit_l16 step", lambda: step(x, y), top=8,
+                            cuda_only=True)
     med = statistics.median(ms)
     n_params = sum(p.numel() for p in pipe.parameters())
     print(f"vit_l16: {len(layers)} layers, {n_params / 1e6:.2f}M params bf16, batch {b} x "
@@ -3334,7 +3391,8 @@ def phase_amoebanet(torch, tfa, card, seed: int):
     if not all(math.isfinite(v) for v in losses):
         fail(f"AmoebaNet-D SGD: a loss is not finite: {losses}")
     tfa.reset_launches()
-    wall, busy, _ = profile(torch, card, "amoebanetd step", lambda: step(x, y), top=8)
+    wall, busy, _ = profile(torch, card, "amoebanetd step", lambda: step(x, y), top=8,
+                            cuda_only=True)
     expect_launches(kernel_launches(tfa), {}, "the profiled AmoebaNet-D step")
     med = statistics.median(ms)
     n_params = sum(p.numel() for p in pipe.parameters())
@@ -3691,7 +3749,8 @@ def phase_mixtral(torch, tfa, tt, tg, card, seed: int):
         ms.append(stats["ms"])
     if not all(math.isfinite(v) for v in losses):
         fail(f"mixtral SGD: a loss is not finite: {losses}")
-    wall, busy, _ = profile(torch, card, "mixtral step", lambda: step(tokens, tokens), top=8)
+    wall, busy, _ = profile(torch, card, "mixtral step", lambda: step(tokens, tokens), top=8,
+                            cuda_only=True)
     train_launches = stats["launches"]
     med = statistics.median(ms)
     out["train"] = {"loss_one_stage": l1, "loss_two_stage": l2, "grad_leaves_bitwise": same,
@@ -4487,6 +4546,607 @@ def phase_distributed(torch, tfa, tt, card, seed: int):
     return result
 
 
+# --------------------------------------------------------------------- #
+# phase 24: the serving fleet                                            #
+# --------------------------------------------------------------------- #
+
+# The fleet's trace (24a, 24b): fleet.synthetic_trace at the model's
+# vocab, 4 tenants whose system prompts are 256-512 tokens, suffixes of
+# 16-128 and budgets of 32-96 new tokens (prompt + budget <= 1152, the
+# serving pool's max_len).  Arrivals by router step: 16 at once, then 4
+# every 8 steps; replica r0 dies before its own step 30, mid-decode.
+FLEET_TRACE = dict(n_requests=48, vocab=128256, n_tenants=4, prefix_len=(256, 512),
+                   suffix_len=(16, 128), new_tokens=(32, 96), max_len=1152)
+FLEET_FIRST, FLEET_EVERY, FLEET_BATCH, FLEET_DIE_AT = 16, 8, 4, 30
+# The prefix cache: up to 4 of a replica's 8 slots pinned as donors, and
+# no reuse shorter than 16 tokens.
+FLEET_PC = dict(min_prefix_len=16, max_entries=4)
+FLEET_GAMMA = 4
+# The rows the row-copy programs write are compared with their source
+# after every copy; a replay is compared with its eager body once.
+FLEET_STATS = dict(SERVE_STATS, prefix_copy=1)
+
+
+def fleet_engines(Engine, cfg, model, names, prefix=None, **kw):
+    """One engine per name on ``model`` (phase 9's configuration), each
+    with a prefix cache of its own when ``prefix`` (the fleet package) is
+    given."""
+    return {n: Engine(cfg, model, num_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                      prefill_chunk=SERVE_LADDER, prefix_cache=None if prefix is None
+                      else prefix.RadixPrefixCache(**FLEET_PC), **kw) for n in names}
+
+
+def warm_engine(np, fleet, eng, vocab, seed):
+    """Capture every program of a unified engine once, served alone: one
+    request per ladder bucket (8, 64 and 256 prompt tokens, 2 new), and
+    with a prefix cache one that extends the 256-token prompt (its hit
+    captures prefix_copy); then a fresh trie, the warm-up's pins
+    released."""
+    rng = np.random.RandomState(seed)
+    for g in SERVE_LADDER:
+        p = rng.randint(0, vocab, g).astype(np.int32)
+        serve_all(eng, [(p, 2)])
+    if eng._prefix_cache is not None:
+        serve_all(eng, [(np.concatenate([p, rng.randint(0, vocab, 8).astype(np.int32)]), 2)])
+        if eng._prefix_cache.hits != 1:
+            fail(f"fleet: the warm-up's prefix hit did not happen {eng._prefix_cache.stats()}")
+        eng._prefix_cache.clear(eng.pool)
+        eng._prefix_cache = fleet.RadixPrefixCache(**FLEET_PC)
+
+
+def fresh_books(obs, ServingMetrics, engines, recorders=None):
+    """A registry of their own for the timed run (the warm-up's requests
+    out of its series), each engine's metrics on it by replica label."""
+    shared = obs.MetricsRegistry()
+    for n, eng in engines.items():
+        eng.metrics = ServingMetrics(registry=shared.labeled(replica=n))
+        eng.drain_hooks.clear()
+        if recorders is not None:
+            eng.recorder = recorders[n]
+    return shared
+
+
+def drive_fleet(router, trace):
+    """Submit ``trace`` (``TraceRequest``s, each under its session) as
+    arrivals by router step and step the router until idle.  Returns
+    ``{rid: (prompt, max_new_tokens)}`` and the router steps."""
+    reqs, nxt, steps = {}, 0, 0
+
+    def upto(k):
+        nonlocal nxt
+        while nxt < min(k, len(trace)):
+            t = trace[nxt]
+            reqs[router.submit(t.prompt, t.max_new_tokens, session=t.session)] = (
+                t.prompt, t.max_new_tokens)
+            nxt += 1
+
+    upto(FLEET_FIRST)
+    while True:
+        due = FLEET_EVERY * ((nxt - FLEET_FIRST) // FLEET_BATCH + 1)
+        if nxt < len(trace) and steps >= due:
+            upto(nxt + FLEET_BATCH)
+        if router.step():
+            steps += 1
+        elif nxt < len(trace):
+            steps = due          # idle before the next arrival: it comes now
+        else:
+            break
+    return reqs, steps
+
+
+def rows_checked(torch, eng, log):
+    """Wrap ``eng``'s row-copy dispatch: after each ``prefix_copy`` or
+    ``migrate_ingest``, rows [0, n) of the destination slot in every layer
+    must be bitwise the donor slot's (or the shipped rows'); counts in
+    ``log``, and the checks' own seconds in ``log["check_s"]`` (timings
+    that span a copy leave them out)."""
+    real = eng._run_rows
+
+    def run(name, src, dst, n, rows=None):
+        real(name, src, dst, n, rows=rows)
+        t0 = time.perf_counter()
+        c = eng.pool.cache
+        with torch.inference_mode():
+            for kind in ("k", "v"):
+                for i, bank in enumerate(getattr(c, kind)):
+                    want = bank[src, :n] if rows is None else rows[kind][i][:n]
+                    if not torch.equal(bank[dst, :n], want):
+                        fail(f"fleet: {name} wrote rows [0, {n}) of slot {dst} that are not "
+                             f"the {'donor slot ' + str(src) if rows is None else 'shipped'} "
+                             f"rows ({kind} layer {i})")
+        log[name] = log.get(name, 0) + 1
+        log["check_s"] = log.get("check_s", 0.0) + time.perf_counter() - t0
+
+    eng._run_rows = run
+
+
+def replay_equals_body(torch, eng, name, state):
+    """Program ``name``'s graph replayed once and its eager body run once
+    from the same state (``state``: every tensor it reads or writes), on
+    the inputs it last ran with: bitwise equal, the state restored."""
+    prog = eng._programs[name]
+    if prog.graph is None:
+        fail(f"fleet: {name} has no captured graph")
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        saved = [t.clone() for t in state]
+        prog.graph.replay()
+        after = [t.clone() for t in state]
+        for t, s in zip(state, saved):
+            t.copy_(s)
+        prog.body(eng)
+        same = all(torch.equal(a, t) for a, t in zip(after, state))
+        for t, s in zip(state, saved):
+            t.copy_(s)
+        torch.cuda.synchronize()
+    del saved, after
+    if not same:
+        fail(f"fleet: the replay of {name} is not bitwise its eager body")
+    return True
+
+
+def stitched(obs, recorders, rids, moved):
+    """Every request's span tree from the replicas' and the router's
+    flight dumps: no orphan, complete; a moved request spans two
+    attempts or more.  Returns the attempts and migrations counted."""
+    from torchgpipe_tpu_torch.obs.flightrec import dump_from_dict
+
+    dumps = [dump_from_dict(r.to_dict()) for r in recorders]
+    attempts = migrations = 0
+    for rid in rids:
+        t = obs.stitch_request(dumps, rid)
+        if t.orphans or not t.complete:
+            fail(f"fleet: request {rid}'s trace has orphans {t.orphans} / is incomplete:\n"
+                 + obs.format_request_tree(t))
+        n_att = sum(1 for s in t.root.children if s.name.startswith("attempt@"))
+        if rid in moved and t.migrations < 1:
+            fail(f"fleet: moved request {rid} stitched with no migration:\n"
+                 + obs.format_request_tree(t))
+        attempts += n_att
+        migrations += t.migrations
+    return {"requests": len(rids), "attempts": attempts, "migrations": migrations,
+            "orphans": 0, "events": sum(len(d.events) for d in dumps)}
+
+
+def latency(np, shared, engines):
+    """TTFT/TPOT p50/p99 per replica from the shared registry's
+    histograms, and pooled over every replica's request records."""
+    out = {}
+    for metric in ("ttft", "tpot"):
+        h = shared.get(f"serving_{metric}_seconds")
+        per = {n: {"p50": h.percentile(0.5, replica=n), "p99": h.percentile(0.99, replica=n)}
+               for n in engines} if h is not None else {}
+        vals = [getattr(r, metric) for e in engines.values()
+                for r in e.metrics.requests.values() if getattr(r, metric) is not None]
+        out[metric] = {"by_replica": per,
+                       "pooled_p50": float(np.percentile(vals, 50)) if vals else None,
+                       "pooled_p99": float(np.percentile(vals, 99)) if vals else None}
+    return out
+
+
+def fleet_run(torch, np, fleet, obs, faults, tfa, engines, trace, seed, what):
+    """24a/24b: two replicas behind a Router with a shared registry and a
+    FlightRecorder each; r0 dies before its step FLEET_DIE_AT.  Gates
+    every request finishing at its length, the streams, one capture per
+    program, the stitched traces and zero hand-written kernel launches."""
+    from torchgpipe_tpu_torch.serving import ServingMetrics
+
+    recs = {n: obs.FlightRecorder(capacity=1 << 16, worker=n) for n in engines}
+    router_rec = obs.FlightRecorder(capacity=1 << 16, worker="router")
+    shared = fresh_books(obs, ServingMetrics, engines, recs)
+    router = fleet.Router(engines, registry=shared, seed=seed, recorder=router_rec)
+    tfa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with faults.inject(die_at_step=(0, FLEET_DIE_AT)):
+        reqs, steps = drive_fleet(router, trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_launches(tfa)
+    expect_launches(counts, {}, f"the fleet ({what})")
+    if router.replicas["r0"].alive or router._c_failovers.value() != 1:
+        fail(f"fleet ({what}): r0 did not die at its step {FLEET_DIE_AT}")
+    results = {rid: router.result(rid).tolist() for rid in reqs}
+    short = [rid for rid, (_, n) in reqs.items() if len(results[rid]) != n]
+    if len(reqs) != len(trace) or short:
+        fail(f"fleet ({what}): {len(short)} of {len(reqs)} requests did not finish: {short}")
+    moved = {rid for rid in reqs if router._records[rid].moves}
+    if not moved:
+        fail(f"fleet ({what}): r0's death moved no in-flight request")
+    for n, eng in engines.items():
+        want = FLEET_STATS if eng._prefix_cache is not None else SERVE_STATS
+        if eng.compile_stats != want or eng.program_count != len(want):
+            fail(f"fleet ({what}): {n} captured {eng.compile_stats} ({eng.program_count} "
+                 f"programs), expected {want}")
+    traces = stitched(obs, [*recs.values(), router_rec], list(reqs), moved)
+    for eng in engines.values():
+        eng.recorder = None
+    tokens = sum(len(t) for t in results.values())
+    out = {"requests": len(reqs), "router_steps": steps, "wall_s": wall, "tokens": tokens,
+           "tokens_per_s": tokens / wall, "moved": len(moved),
+           "routed": {n: router._c_routed.value(replica=n) for n in engines},
+           "latency": latency(np, shared, engines), "reqtrace": traces,
+           "compile_stats": {n: e.compile_stats for n, e in engines.items()},
+           "kernel_launches": counts,
+           "streams": [(reqs[r][0], results[r]) for r in reqs]}
+    return out, router
+
+
+def phase_fleet(torch, tfa, tt, card, seed, cfg, model):
+    """The serving fleet at Llama-3-8B width on phase 6's model (its
+    replicas share that one copy of the weights): 24a a router over two
+    replicas with a failover, 24b the same with the radix prefix cache,
+    24c a prefill/decode pair with KV migration, 24d the speculative
+    engine beside a plain one, 24e the autoscaler and a rollout with a
+    rollback, then the flight recorder's cost on the captured decode
+    step.  No hand-written kernel runs on these paths (the slot step's
+    dense read, as in phase 9): every sub-phase's launch gate reads 0
+    before its teacher-forced check, which runs the model's forward."""
+    import copy
+
+    import numpy as np
+
+    from torchgpipe_tpu_torch import fleet, obs
+    from torchgpipe_tpu_torch.resilience import faults
+    from torchgpipe_tpu_torch.serving import Engine, ServingMetrics
+
+    out = {"card": card, "model": f"Llama-3-8B width, {cfg.n_layers} layers, bf16, random "
+                                  f"from seed {seed}, shared by every replica",
+           "engine": {"num_slots": SERVE_SLOTS, "max_len": SERVE_MAX_LEN,
+                      "prefill_chunk": list(SERVE_LADDER)}}
+    tcfg = fleet.TraceConfig(seed=seed, **FLEET_TRACE)
+    tstats = fleet.TraceStats()
+    trace = list(fleet.synthetic_trace(tcfg, tstats))
+    out["trace"] = {"config": FLEET_TRACE, "skipped_too_long": tstats.skipped_too_long,
+                    "shareable_fraction": tstats.shareable_fraction,
+                    "prompt_tokens": tstats.total_prompt_tokens,
+                    "arrivals": f"{FLEET_FIRST} at once, {FLEET_BATCH} every {FLEET_EVERY} "
+                                f"router steps; r0 dies before its step {FLEET_DIE_AT}"}
+
+    def check_streams(streams, what, check_model=model):
+        return stream_check(torch, check_model, streams, TF_AGREE, TF_GAP, f"fleet ({what})")
+
+    # 24a. Two unified replicas behind a router; r0 dies mid-trace.
+    t_sub = time.perf_counter()
+    engines = fleet_engines(Engine, cfg, model, ("r0", "r1"))
+    for i, eng in enumerate(engines.values()):
+        warm_engine(np, fleet, eng, cfg.vocab, seed + 10 + i)
+    if engines["r0"].weights_key() != engines["r1"].weights_key():
+        fail("fleet: the replicas do not share the model's weights")
+    a, router = fleet_run(torch, np, fleet, obs, faults, tfa, engines, trace, seed,
+                          "24a router")
+    a["teacher_forced"] = check_streams(a.pop("streams"), "24a router")
+    a["seconds"] = time.perf_counter() - t_sub
+    out["24a_router"] = a
+
+    # 24b. The same trace on two replicas with the radix prefix cache.
+    t_sub = time.perf_counter()
+    pcs = fleet_engines(Engine, cfg, model, ("r0", "r1"), prefix=fleet)
+    rows_log = {}
+    for i, eng in enumerate(pcs.values()):
+        warm_engine(np, fleet, eng, cfg.vocab, seed + 20 + i)
+        rows_checked(torch, eng, rows_log)
+    b, router_b = fleet_run(torch, np, fleet, obs, faults, tfa, pcs, trace, seed,
+                            "24b prefix")
+    b["teacher_forced"] = check_streams(b.pop("streams"), "24b prefix")
+    hits = sum(e._prefix_cache.hits for e in pcs.values())
+    looks = hits + sum(e._prefix_cache.misses for e in pcs.values())
+    b["prefix"] = {"hits": hits, "lookups": looks, "hit_rate": hits / max(looks, 1),
+                   "prefill_tokens_saved": sum(e.metrics.prefix_reused_tokens
+                                               for e in pcs.values()),
+                   "prompt_tokens": tstats.total_prompt_tokens,
+                   "rows_checked_copies": rows_log.get("prefix_copy", 0),
+                   "by_replica": {n: e._prefix_cache.stats() for n, e in pcs.items()}}
+    if not hits or rows_log.get("prefix_copy", 0) != hits:
+        fail(f"fleet (24b): prefix hits {hits}, copies checked {rows_log}")
+    donor = pcs["r1"]
+    b["prefix_copy_replay_equals_body"] = replay_equals_body(
+        torch, donor, "prefix_copy", pool_buffers(donor))
+    for eng in pcs.values():
+        eng.pool.check_refcounts()
+    b["seconds"] = time.perf_counter() - t_sub
+    out["24b_prefix"] = b
+    del pcs, donor, router_b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 24c. A prefill replica and a decode replica: every prompt migrates.
+    t_sub = time.perf_counter()
+    dcfg_trace = fleet.prefill_heavy_config(32, seed=seed, max_len=SERVE_MAX_LEN,
+                                            vocab=cfg.vocab)
+    dtrace = list(fleet.synthetic_trace(dcfg_trace))
+    pair = {"p0": fleet_engines(Engine, cfg, model, ("p0",), role="prefill")["p0"],
+            "d0": fleet_engines(Engine, cfg, model, ("d0",), role="decode")["d0"]}
+    fleet.validate_pools(pair["p0"], pair["d0"])
+    warm = fleet.Router(pair, seed=seed)
+    rng = np.random.RandomState(seed + 30)
+    for g in SERVE_LADDER:
+        warm.submit(rng.randint(0, cfg.vocab, g).astype(np.int32), 2, rid=f"warm{g}")
+        warm.run()
+    rows_log = {}
+    rows_checked(torch, pair["d0"], rows_log)
+    recs = {n: obs.FlightRecorder(capacity=1 << 16, worker=n) for n in pair}
+    router_rec = obs.FlightRecorder(capacity=1 << 16, worker="router")
+    shared = fresh_books(obs, ServingMetrics, pair, recs)
+    router_c = fleet.Router(pair, registry=shared, seed=seed, recorder=router_rec)
+    per_pos = sum(t.numel() * t.element_size() // SERVE_MAX_LEN
+                  for t in pool_buffers(pair["d0"])) // SERVE_SLOTS
+    payload = sum(int(np.prod(s.shape)) * torch.empty((), dtype=s.dtype).element_size()
+                  for v in pair["d0"].kv_row_specs().values() for s in v)
+    mig = {"ms": [], "rows": []}
+    real_migrate = fleet.migration.migrate
+
+    def timed_migrate(src, dst, req, **kw):
+        torch.cuda.synchronize()
+        t0, checks = time.perf_counter(), rows_log.get("check_s", 0.0)
+        rid = real_migrate(src, dst, req, **kw)
+        torch.cuda.synchronize()
+        checks = rows_log.get("check_s", 0.0) - checks
+        mig["ms"].append((time.perf_counter() - t0 - checks) * 1e3)
+        mig["rows"].append(req.prompt_len)
+        return rid
+
+    fleet.migration.migrate = timed_migrate
+    tfa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        creqs = {router_c.submit(t.prompt, t.max_new_tokens, session=t.session):
+                 (t.prompt, t.max_new_tokens) for t in dtrace}
+        router_c.run()
+    finally:
+        fleet.migration.migrate = real_migrate
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernel_launches(tfa)
+    expect_launches(counts, {}, "the fleet (24c disaggregated)")
+    cres = {rid: router_c.result(rid).tolist() for rid in creqs}
+    short = [rid for rid, (_, n) in creqs.items() if len(cres[rid]) != n]
+    if short:
+        fail(f"fleet (24c): requests short of their budget: {short}")
+    n_mig = int(shared.counter("fleet_migrations").value())
+    if n_mig != len(creqs) or len(mig["ms"]) != n_mig or rows_log.get("migrate_ingest") != n_mig:
+        fail(f"fleet (24c): {n_mig} migrations for {len(creqs)} requests, "
+             f"{len(mig['ms'])} timed, {rows_log} row checks")
+    want_p = {f"prefill@{g}": 1 for g in SERVE_LADDER}
+    if pair["p0"].compile_stats != want_p or pair["d0"].compile_stats != {
+            "decode": 1, "migrate_ingest": 1} or pair["p0"].program_count != 3 or \
+            pair["d0"].program_count != 2:
+        fail(f"fleet (24c): captures {pair['p0'].compile_stats} / {pair['d0'].compile_stats}")
+    traces = stitched(obs, [*recs.values(), router_rec], list(creqs), set(creqs))
+    if traces["migrations"] != len(creqs):
+        fail(f"fleet (24c): {traces['migrations']} stitched handoffs for {len(creqs)} requests")
+    c = {"requests": len(creqs), "wall_s": wall,
+         "tokens": sum(len(t) for t in cres.values()),
+         "migrations": n_mig, "ms_per_migration": {
+             "median": statistics.median(mig["ms"]), "max": max(mig["ms"]),
+             "min": min(mig["ms"])},
+         "live_bytes_shipped": sum(mig["rows"]) * per_pos,
+         "live_bytes_per_position": per_pos,
+         "payload_bytes_per_migration": payload,
+         "rows_checked": rows_log["migrate_ingest"],
+         "latency": latency(np, shared, pair), "reqtrace": traces,
+         "compile_stats": {n: e.compile_stats for n, e in pair.items()},
+         "kernel_launches": counts}
+    c["migrate_ingest_replay_equals_body"] = replay_equals_body(
+        torch, pair["d0"], "migrate_ingest", pool_buffers(pair["d0"]))
+    c["teacher_forced"] = check_streams([(p, cres[r]) for r, (p, _) in creqs.items()],
+                                        "24c disaggregated")
+    c["seconds"] = time.perf_counter() - t_sub
+    out["24c_disagg"] = c
+    del pair, warm, router_c
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 24d. The speculative engine (the random 1b draft of phase 6c, gamma
+    # 4) on 8 requests, beside 24a's surviving plain replica.
+    t_sub = time.perf_counter()
+    dcfg = llama_cfg(tt, torch, LLAMA_1B)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    draft = tt.llama(dcfg, device="cuda", generator=gen)
+    spec = fleet.SpeculativeEngine(cfg, model, dcfg, draft, gamma=FLEET_GAMMA,
+                                   num_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                                   prefill_chunk=SERVE_LADDER)
+    warm_engine(np, fleet, spec, cfg.vocab, seed + 40)
+    sreqs = [(t.prompt, t.max_new_tokens) for t in trace[:SERVE_SLOTS]]
+    plain = engines["r1"]
+    plain.drain_hooks.clear()
+    runs = {}
+    tfa.reset_launches()
+    for name, eng in (("speculative", spec), ("plain", plain), ("speculative", spec),
+                      ("plain", plain)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = serve_all(eng, sreqs)
+        torch.cuda.synchronize()
+        runs.setdefault(name, []).append((time.perf_counter() - t0, res))
+    counts = kernel_launches(tfa)
+    expect_launches(counts, {}, "the fleet (24d speculative)")
+    toks = sum(n for _, n in sreqs)
+    d = {"requests": len(sreqs), "tokens": toks, "gamma": FLEET_GAMMA,
+         "draft": f"llama_speed 1b ({dcfg.dim} dim, {dcfg.n_layers} layers), random from "
+                  f"seed {seed + 2}",
+         "acceptance": spec.acceptance_rate,
+         "rounds": spec._c_rounds.value(), "proposed": spec._c_proposed.value(),
+         "accepted": spec._c_accepted.value(), "kernel_launches": counts}
+    for name, rs in runs.items():
+        walls = [w for w, _ in rs]
+        d[name] = {"wall_s": walls, "tokens_per_s": [toks / w for w in walls],
+                   "ms_per_token_of_a_stream": [w * 1e3 / (toks / len(sreqs)) for w in walls]}
+        for w, res in rs:
+            short = [r for (p, n), r in zip(sreqs, res) if len(res[r]) != n]
+            if short:
+                fail(f"fleet (24d {name}): streams short of their budget {short}")
+    # The speculative round never runs the plain decode program (the
+    # reference's count keeps it: its program_count is the base bound plus
+    # the drafts).
+    want_spec = dict(SERVE_STATS, decode=0, **{f"draft@{g}": 1 for g in spec.draft_buckets})
+    if spec.compile_stats != want_spec or spec.program_count != len(want_spec):
+        fail(f"fleet (24d): captures {spec.compile_stats} ({spec.program_count} programs), "
+             f"expected {want_spec}")
+    d["compile_stats"] = spec.compile_stats
+    d["draft_replay_equals_body"] = replay_equals_body(
+        torch, spec, "draft@1", spec.draft_pool.cache.k + spec.draft_pool.cache.v
+        + [spec._draft_lengths, spec._programs["draft@1"].tok])
+    res = runs["speculative"][-1][1]
+    d["teacher_forced"] = check_streams([(p, res[r]) for (p, _), r in zip(sreqs, res)],
+                                        "24d speculative")
+    pres = runs["plain"][-1][1]
+    d["token_agreement_with_plain"] = float(np.mean(
+        [a == b for r, s in zip(res, pres) for a, b in zip(res[r], pres[s])]))
+    d["seconds"] = time.perf_counter() - t_sub
+    out["24d_speculative"] = d
+    del spec, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 24e. The autoscaler, then a rollout and its rollback, over 24a's two
+    # replicas on a virtual registry clock.
+    t_sub = time.perf_counter()
+
+    class Clock:
+        t = 0.0
+
+        def __call__(self):
+            return self.t
+
+    vclock = Clock()
+    vreg = obs.MetricsRegistry(clock=vclock)
+    for eng in engines.values():      # r0's failover drain left it closed
+        eng.drain_hooks.clear()
+        eng.resume_serving()
+    router_e = fleet.Router(engines, registry=vreg, seed=seed)
+    scaler = fleet.Autoscaler(router_e, service_time_s=1.0, window_s=1.0, headroom=1.0,
+                              hold_ticks=1, min_replicas=1)
+    ereqs = [(t.prompt, min(t.max_new_tokens, 32)) for t in trace[8:20]]
+    actions, rids = [], []
+    tfa.reset_launches()
+    # Request ids of their own: 24a's finished requests keep theirs on
+    # these engines.
+    for i, (p, n) in enumerate(ereqs[:6]):
+        scaler.observe_arrival()
+        rids.append(router_e.submit(p, n, rid=f"scale{i}"))
+    for _ in range(3):
+        router_e.step()
+    vclock.t += 5.0                       # the arrivals age out of the window
+    actions.append(scaler.tick())
+    for _ in range(3):
+        router_e.step()
+    scaler.observe_arrival(40)            # a burst: 40/s x 1 s over 8 slots
+    for i, (p, n) in enumerate(ereqs[6:], 6):
+        rids.append(router_e.submit(p, n, rid=f"scale{i}"))
+    actions.append(scaler.tick())
+    router_e.run()
+    if actions != ["down:r1", "up:r1"]:
+        fail(f"fleet (24e): autoscaler actions {actions}, expected ['down:r1', 'up:r1']")
+    eres = {r: router_e.result(r).tolist() for r in rids}
+    if any(len(eres[r]) != n for r, (_, n) in zip(rids, ereqs)):
+        fail("fleet (24e): a request was dropped across the scale-down and up")
+    e = {"autoscaler": {"actions": actions, "requests": len(rids),
+                        "moved": sum(1 for r in rids if router_e._records[r].moves)}}
+
+    head = model[-1]
+    w0 = head.w.detach().clone()
+    head_v1 = copy.deepcopy(head)
+    with torch.no_grad():
+        head_v1.w.neg_()                  # version 1: a different head
+    v1 = [*list(model)[:-1], head_v1]
+    v1_model = torch.nn.Sequential(*v1)
+    ctl = fleet.RolloutController(router_e)
+    steps = [ctl.publish(v1, 1)]
+    vreqs = [(t.prompt, 24) for t in trace[20:24]]
+    first = [router_e.submit(p, n, rid=f"v1-{i}") for i, (p, n) in enumerate(vreqs)]
+    steps.append(ctl.tick())
+    if steps[-1] != "swap:r0:v1" or ctl.versions() != {"r0": 1, "r1": 1}:
+        fail(f"fleet (24e): rollout {steps}, versions {ctl.versions()}")
+    with torch.inference_mode():
+        swapped = torch.equal(head.w, head_v1.w)
+    router_e.run()
+    v1_streams = [(p, router_e.result(r).tolist()) for (p, _), r in zip(vreqs, first)]
+    steps.append(ctl.rollback("drill"))
+    steps.append(ctl.tick())
+    with torch.inference_mode():
+        restored = torch.equal(head.w, w0)
+    if steps[2:] != ["rollback:v0", "swap:r0:v0"] or not (swapped and restored) or \
+            ctl.versions() != {"r0": 0, "r1": 0}:
+        fail(f"fleet (24e): rollback {steps}, versions {ctl.versions()}, head swapped "
+             f"{swapped}, restored bitwise {restored}")
+    second = [router_e.submit(p, n, rid=f"v0-{i}") for i, (p, n) in enumerate(vreqs)]
+    router_e.run()
+    v0_streams = [(p, router_e.result(r).tolist()) for (p, _), r in zip(vreqs, second)]
+    counts = kernel_launches(tfa)
+    expect_launches(counts, {}, "the fleet (24e autoscaler and rollout)")
+    if any(len(t) != n for (_, t), (_, n) in zip(v1_streams + v0_streams, vreqs * 2)):
+        fail("fleet (24e): a request was dropped across the rollout")
+    for n, eng in engines.items():
+        if eng.compile_stats != SERVE_STATS:
+            fail(f"fleet (24e): {n} recaptured across drain/swap/resume: {eng.compile_stats}")
+    e["rollout"] = {"actions": steps, "head_swapped_bitwise": swapped,
+                    "restored_bitwise": restored,
+                    "v1_tokens_differ": float(np.mean([a != b for (_, x), (_, y) in zip(
+                        v1_streams, v0_streams) for a, b in zip(x, y)]))}
+    e["teacher_forced"] = check_streams(
+        [(p, eres[r]) for r, (p, _) in zip(rids, ereqs)] + v0_streams, "24e v0")
+    e["teacher_forced_v1"] = check_streams(v1_streams, "24e v1", v1_model)
+    del v1_model, v1, head_v1, w0, ctl
+    e["seconds"] = time.perf_counter() - t_sub
+    out["24e_autoscale_rollout"] = e
+
+    # The flight recorder's cost: the captured 8-slot decode step with and
+    # without recorder=, alternated on one engine in windows of 8 steps.
+    eng = engines["r1"]
+    eng.drain_hooks.clear()
+    rec = obs.FlightRecorder(capacity=1 << 16, worker="r1")
+    for t in trace[:SERVE_SLOTS]:
+        eng.submit(t.prompt[:64], min(400, SERVE_MAX_LEN - 64), rid=f"cost{t.index}")
+    while eng.scheduler.queue or eng.scheduler.prefill_pending():
+        eng.step()
+    cost = {"off": [], "on": []}
+    for order in (("on", "off"), ("off", "on")) * 3:
+        for mode in order:
+            eng.recorder = rec if mode == "on" else None
+            cost[mode].append(step_ms(torch, eng, 8))
+    eng.drain()                 # recorded: the coalesced decode groups flush
+    eng.recorder = None
+    med = {k: statistics.median(sum(v, [])) for k, v in cost.items()}
+    out["recorder_cost"] = {
+        "decode_step_ms_median": med, "window_medians": {
+            k: [statistics.median(w) for w in v] for k, v in cost.items()},
+        "on_minus_off_ms": med["on"] - med["off"],
+        "on_over_off": med["on"] / med["off"], "events": len(rec.events())}
+    del router_e, router, engines, eng, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    a, b, c, d, r = (out["24a_router"], out["24b_prefix"], out["24c_disagg"],
+                     out["24d_speculative"], out["recorder_cost"])
+    for key, row in (("24a", a), ("24b", b)):
+        lat = row["latency"]
+        print(f"fleet {key}: {row['requests']} requests in {row['wall_s']:.3f}s, "
+              f"{row['tokens']} tokens = {row['tokens_per_s']:.2f} tokens/s fleet-wide, "
+              f"r0 died at its step {FLEET_DIE_AT}, {row['moved']} moved to r1; TTFT p50/p99 "
+              f"(pooled) {lat['ttft']['pooled_p50']:.4f}/{lat['ttft']['pooled_p99']:.4f}s, "
+              f"TPOT {lat['tpot']['pooled_p50']:.5f}/{lat['tpot']['pooled_p99']:.5f}s; "
+              f"reqtrace {row['reqtrace']} [{card}]", flush=True)
+    print(f"fleet 24b prefix: hit rate {b['prefix']['hit_rate']:.4f} ({b['prefix']['hits']} "
+          f"of {b['prefix']['lookups']}), prefill tokens saved "
+          f"{b['prefix']['prefill_tokens_saved']} of {b['prefix']['prompt_tokens']}, every "
+          f"copy's rows bitwise the donor's, replay == eager body [{card}]", flush=True)
+    print(f"fleet 24c disaggregated: {c['requests']} requests, {c['migrations']} migrations, "
+          f"{c['live_bytes_shipped'] / 1e6:.2f} MB of live rows shipped "
+          f"({c['payload_bytes_per_migration'] / 1e6:.2f} MB fixed-shape payload each), "
+          f"ms per migrated request median {c['ms_per_migration']['median']:.3f} "
+          f"(max {c['ms_per_migration']['max']:.3f}) [{card}]", flush=True)
+    print(f"fleet 24d speculative: acceptance {d['acceptance']:.4f}, ms/token of a stream "
+          f"{d['speculative']['ms_per_token_of_a_stream']} beside the plain engine's "
+          f"{d['plain']['ms_per_token_of_a_stream']} [{card}]", flush=True)
+    print(f"fleet recorder cost: captured 8-slot decode step median {r['decode_step_ms_median']}"
+          f" ms, on - off {r['on_minus_off_ms']:.4f} ms ({r['on_over_off']:.4f}x) [{card}]",
+          flush=True)
+    print(json.dumps({"fleet": out}), flush=True)
+    return out
+
+
 # Every phase by number and name, in the order a run takes them, with the
 # phases whose results it needs (``--phases``).
 PHASES = {
@@ -4495,10 +5155,10 @@ PHASES = {
     "9b": "int8_weights", "8": "train", "10": "train_1f1b", "11": "resnet101",
     "12": "train_graph", "13": "precision", "14": "offload", "15": "lora", "16": "unet",
     "17": "timeline", "18": "vit_l16", "19": "amoebanetd", "20": "t5",
-    "21": "gpt2_xl_generate", "22": "mixtral_moe", "23": "distributed",
+    "21": "gpt2_xl_generate", "22": "mixtral_moe", "23": "distributed", "24": "fleet",
 }
 PHASE_ORDER = list(PHASES)
-PHASE_NEEDS = {"6b": ["6"], "6c": ["6"], "6d": ["6"], "7": ["6"], "9": ["6"],
+PHASE_NEEDS = {"6b": ["6"], "6c": ["6"], "6d": ["6"], "7": ["6"], "9": ["6"], "24": ["6"],
                "9b": ["6", "9"], "12": ["10"], "13": ["11", "12"], "14": ["10"],
                "15": ["8"], "17": ["16"]}
 
@@ -4552,8 +5212,11 @@ def main() -> None:
         from torchgpipe_tpu_torch.models import transformer as tt
         from torchgpipe_tpu_torch.ops import _build
         from torchgpipe_tpu_torch.ops import flash_attention as tfa
+        from torchgpipe_tpu_torch.utils import hw
     except ImportError as e:
         fail(f"torchgpipe_tpu_torch is not importable beside this script ({e})")
+    global PEAK_BF16_FLOPS
+    PEAK_BF16_FLOPS = hw.peak_bf16_flops_for_name(H100_SXM)
 
     card = card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4616,8 +5279,10 @@ def main() -> None:
                ("9", lambda: phase_serving(torch, tfa, tg, card, args.seed,
                                            *gen_model()[:2])),
                ("9b", lambda: phase_int8_weights(torch, tfa, tg, card, args.seed,
-                                                 *gen_model(), r["9"]))],
-              "6-9b (generate .. int8_weights)")
+                                                 *gen_model(), r["9"])),
+               ("24", lambda: phase_fleet(torch, tfa, tt, card, args.seed,
+                                          *gen_model()[:2]))],
+              "6-9b, 24 (generate .. int8_weights, fleet)")
         r["6"] = (r["6"][0], None)   # the generation model's 16 GB before training
         gc.collect()
         torch.cuda.empty_cache()

@@ -153,6 +153,95 @@ def test_sampled_replay_equals_eager_from_equal_generator_states(cuda_device):
     assert torch.equal(runs[0][1], runs[1][1])     # the replays advanced it alike
 
 
+def _fleet_serve(make, reqs):
+    """A two-replica router over ``make(name)`` engines, r0 dying at its
+    step 3; returns the streams and the engines."""
+    from torchgpipe_tpu_torch import fleet
+    from torchgpipe_tpu_torch.resilience import faults
+
+    router = fleet.Router({n: make(n) for n in ("r0", "r1")}, seed=1)
+    with faults.inject(die_at_step=(0, 3)):
+        rids = [router.submit(p, n) for p, n in reqs]
+        assert router.run() == "idle"
+    return [router.result(r).tolist() for r in rids], router
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_prefix_copy_and_migrate_ingest_replays_bitwise_equal_eager(cuda_device, kv_quant):
+    """The fleet's two row-copy programs, captured with ``src``/``dst``/
+    ``n`` in a device tensor: a prefix-cached engine and a prefill/decode
+    pair give the eager bodies' tokens and cache bytes, each program
+    captured once and replayed for every reuse and every migration."""
+    from torchgpipe_tpu_torch import fleet
+
+    model = _model(0)
+    prefix = np.arange(20, dtype=np.int32) % CFG.vocab
+    rng = np.random.RandomState(8)
+    reqs = [(np.concatenate([prefix, rng.randint(0, CFG.vocab, (int(rng.randint(1, 9)),))
+                             .astype(np.int32)]), int(rng.randint(2, 9))) for _ in range(8)]
+    runs = []
+    for cuda_graph in (True, False):
+        kw = dict(num_slots=4, max_len=64, prefill_chunk=(4, 16), kv_quant=kv_quant,
+                  cuda_graph=cuda_graph)
+        pc = fleet.RadixPrefixCache(min_prefix_len=4)
+        eng = Engine(CFG, model, prefix_cache=pc, **kw)
+        first = _serve(eng, reqs[:1])
+        out = [first, _serve(eng, reqs[1:], steps_between=2), pc.stats()]
+        P = Engine(CFG, model, role="prefill", **kw)
+        D = Engine(CFG, model, role="decode", **kw)
+        router = fleet.Router({"p0": P, "d0": D})
+        rids = [router.submit(p, n) for p, n in reqs]
+        assert router.run() == "idle"
+        out.append([router.result(r).tolist() for r in rids])
+        runs.append((out, _pool_bytes(eng) + _pool_bytes(D), eng, P, D))
+    (got, gbytes, geng, gP, gD), (want, wbytes, *_) = runs
+    assert got == want and got[2]["hits"] > 0
+    for a, b in zip(gbytes, wbytes):
+        assert torch.equal(a, b)
+    assert geng.compile_stats["prefix_copy"] == 1 and gD.compile_stats == {
+        "decode": 1, "migrate_ingest": 1}
+    assert geng._programs["prefix_copy"].graph is not None
+    assert gD._programs["migrate_ingest"].graph is not None
+
+
+@pytest.mark.cuda
+def test_replicas_share_weights_but_not_graph_pools(cuda_device):
+    """Two replicas on one model: one copy of the weights, a graph pool
+    each; r0 dies mid-trace and r1's replays go on, every stream the
+    eager fleet's."""
+    model = _model(0)
+    reqs = _trace(9, 8)
+    kw = dict(num_slots=3, max_len=64, prefill_chunk=(4, 16))
+    got, router = _fleet_serve(lambda n: Engine(CFG, model, **kw), reqs)
+    want, _ = _fleet_serve(lambda n: Engine(CFG, model, cuda_graph=False, **kw), reqs)
+    assert got == want
+    e0, e1 = (router.replicas[n].engine for n in ("r0", "r1"))
+    assert e0.weights_key() == e1.weights_key()
+    assert e0._graph_pool is not None and e1._graph_pool is not None
+    assert e0._graph_pool != e1._graph_pool
+    assert e1.compile_stats["decode"] == 1
+
+
+@pytest.mark.cuda
+def test_speculative_engine_replays_equal_eager(cuda_device):
+    from torchgpipe_tpu_torch import fleet
+
+    draft_cfg = tt.TransformerConfig(vocab=256, dim=128, n_layers=1, n_heads=2,
+                                     n_kv_heads=1, dtype=torch.bfloat16)
+    model = _model(0)
+    draft = tt.llama(draft_cfg, device="cuda", generator=torch.Generator("cuda").manual_seed(3))
+    reqs = _trace(10, 6, plen_hi=30)
+    kw = dict(gamma=3, num_slots=3, max_len=64, prefill_chunk=(4, 16))
+    graph = fleet.SpeculativeEngine(CFG, model, draft_cfg, draft, **kw)
+    eager = fleet.SpeculativeEngine(CFG, model, draft_cfg, draft, cuda_graph=False, **kw)
+    got = _serve(graph, reqs)
+    assert got == _serve(eager, reqs)
+    assert set(graph.compile_stats.values()) <= {0, 1}
+    assert graph.compile_stats == eager.compile_stats
+    assert graph.program_count == 3 + 3
+
+
 @pytest.mark.cuda
 def test_capture_failure_raises_instead_of_running_eagerly(cuda_device, monkeypatch):
     """A body that synchronises with the host cannot be captured: the

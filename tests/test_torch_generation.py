@@ -182,6 +182,14 @@ def test_port_imports_no_jax_and_no_reference_package():
         "import torchgpipe_tpu_torch.distributed.gpipe, torchgpipe_tpu_torch.obs.flightrec\n"
         "import torchgpipe_tpu_torch.utils.serialization\n"
         "import torchgpipe_tpu_torch.resilience.faults, torchgpipe_tpu_torch.resilience.guard\n"
+        "import torchgpipe_tpu_torch.fleet, torchgpipe_tpu_torch.fleet.router\n"
+        "import torchgpipe_tpu_torch.fleet.prefix_cache, torchgpipe_tpu_torch.fleet.migration\n"
+        "import torchgpipe_tpu_torch.fleet.speculative, torchgpipe_tpu_torch.fleet.autoscaler\n"
+        "import torchgpipe_tpu_torch.fleet.rollout, torchgpipe_tpu_torch.fleet.trace\n"
+        "import torchgpipe_tpu_torch.obs.reporter, torchgpipe_tpu_torch.obs.reqtrace\n"
+        "import torchgpipe_tpu_torch.obs.slo, torchgpipe_tpu_torch.utils.hw\n"
+        "import torchgpipe_tpu_torch.analysis, torchgpipe_tpu_torch.analysis.diagnostics\n"
+        "import torchgpipe_tpu_torch.analysis.serving\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'torchgpipe_tpu' or m.startswith('torchgpipe_tpu.')]\n"
         "assert not bad, bad\n"

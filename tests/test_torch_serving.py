@@ -463,30 +463,104 @@ def test_rejections_leave_nothing_registered(weights):
 
 
 @pytest.mark.parametrize("kwargs,what", [
-    (dict(role="prefill"), "role='prefill'"),
-    (dict(role="decode"), "role='decode'"),
-    (dict(prefix_cache=object()), "prefix_cache="),
-    (dict(recorder=object()), "recorder="),
-    (dict(reporter=object()), "reporter="),
     (dict(moe=MoEConfig(ep_axis="ep")), "moe="),   # MoE is served; ep (5.4) is not
 ])
 def test_not_ported_arguments_name_their_item(weights, kwargs, what):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A item 5") as e:
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, queue A item 5\.4") as e:
         Engine(TCFG, weights[1], num_slots=2, max_len=16, device="cpu", **kwargs)
     assert what in str(e.value)
     with pytest.raises(ValueError, match="role must be"):
         Engine(TCFG, weights[1], num_slots=2, max_len=16, device="cpu", role="mixed")
 
 
-@pytest.mark.parametrize("call", [
-    lambda e: e.kv_row_specs(), lambda e: e.migration_pending,
-    lambda e: e.take_migration_ready(), lambda e: e.export_kv_rows(None),
-    lambda e: e.complete_migration(None), lambda e: e.ingest_migration(rid="x"),
+@pytest.mark.parametrize("kwargs,programs", [
+    (dict(role="prefill"), {"prefill": 1}),
+    (dict(role="decode"), {"decode": 0, "migrate_ingest": 0}),
+    (dict(prefix_cache="radix"), {"prefill": 1, "decode": 1, "prefix_copy": 0}),
+    (dict(recorder="flight"), {"prefill": 1, "decode": 1}),
+    (dict(reporter="step"), {"prefill": 1, "decode": 1}),
 ])
-def test_not_ported_methods_name_their_item(weights, call):
-    eng = Engine(TCFG, weights[1], num_slots=2, max_len=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A item 5"):
-        call(eng)
+def test_engine_takes_the_fleet_arguments_as_the_reference_does(weights, kwargs, programs):
+    """The arguments that once raised ``not_ported``: each builds the
+    reference's program set, and a request (or, on a decode-role engine,
+    a refused submit) runs as the reference's does."""
+    from torchgpipe_tpu import fleet as jfleet
+    from torchgpipe_tpu import obs as jobs
+    from torchgpipe_tpu_torch import fleet, obs
+
+    def args(f, o):
+        kw = dict(kwargs)
+        if kw.get("prefix_cache") == "radix":
+            kw["prefix_cache"] = f.RadixPrefixCache()
+        if kw.get("recorder") == "flight":
+            kw["recorder"] = o.FlightRecorder()
+        if kw.get("reporter") == "step":
+            kw["reporter"] = o.StepReporter()
+        return kw
+
+    jeng = JEngine(JCFG, weights[0], num_slots=2, max_len=16, **args(jfleet, jobs))
+    teng = Engine(TCFG, weights[1], num_slots=2, max_len=16, device="cpu",
+                  **args(fleet, obs))
+    prompt = np.arange(5, dtype=np.int32)
+    for eng in (jeng, teng):
+        if eng.role == "decode":
+            with pytest.raises(ValueError, match="ingest_migration"):
+                eng.submit(prompt, 3)
+        else:
+            eng.submit(prompt, 3, rid="a")
+            eng.run()
+    assert teng.compile_stats == jeng.compile_stats == programs
+    assert teng.program_count == jeng.program_count
+    if teng.role != "decode":
+        assert teng.result("a").tolist() == jeng.result("a").tolist()
+        assert teng.status("a") == jeng.status("a")
+    if "recorder" in kwargs:
+        assert [e.kind for e in teng.recorder.events()] == \
+            [e.kind for e in jeng.recorder.events()]
+    if "reporter" in kwargs:
+        assert teng.reporter.steps == jeng.reporter.steps > 0
+
+
+@pytest.mark.parametrize("member", [
+    "kv_row_specs", "migration_pending", "take_migration_ready",
+    "export_kv_rows", "complete_migration", "ingest_migration",
+])
+def test_engine_migration_members_match_reference(weights, member):
+    """The six migration members that once raised ``not_ported``, on a
+    prefill/decode pair of each package: a request parks at prompt
+    completion, its rows export, the decode engine ingests them and the
+    donor completes — each member's result against the reference's."""
+    def run(pkg_engine, cfg, params, **kw):
+        p = pkg_engine(cfg, params, num_slots=2, max_len=16, role="prefill", **kw)
+        d = pkg_engine(cfg, params, num_slots=2, max_len=16, role="decode", **kw)
+        p.submit(np.arange(5, dtype=np.int32), 4, rid="a")
+        while not p.migration_pending:
+            p.step()
+        specs = d.kv_row_specs()
+        out = {"kv_row_specs": [(k, [tuple(s.shape) for s in v]) for k, v in sorted(specs.items())],
+               "migration_pending": p.migration_pending}
+        (req,) = p.take_migration_ready()
+        out["take_migration_ready"] = (req.rid, req.status, list(req.generated))
+        rows = p.export_kv_rows(req)
+        out["export_kv_rows"] = [np.asarray(x, np.float32).tolist() for x in rows["k"]]
+        d.ingest_migration(rid=req.rid, prompt=req.prompt, max_new_tokens=req.max_new_tokens,
+                           rows=rows, last_token=req.generated[-1])
+        out["ingest_migration"] = (d.status("a"), d.pool.lengths.tolist())
+        p.complete_migration(req)
+        out["complete_migration"] = (req.status, p.pool.num_free, p.migration_pending)
+        d.run()
+        out["stream"] = d.result("a").tolist()
+        return out
+
+    want = run(lambda c, w, **k: JEngine(c, w, **k), JCFG, weights[0])
+    got = run(lambda c, w, **k: Engine(c, w, device="cpu", **k), TCFG, weights[1])
+    if member == "export_kv_rows":
+        # K rows of the same float32 network summed in another order:
+        # equal to ~1e-7 relative, held at 1e-5.
+        np.testing.assert_allclose(got[member], want[member], rtol=1e-5, atol=1e-6)
+    else:
+        assert got[member] == want[member]
+    assert got["stream"] == want["stream"]
 
 
 def test_engine_runs_on_the_card_unless_asked(weights, monkeypatch):

@@ -165,7 +165,7 @@ class TransformerConfig:
         """Raise on knobs whose reference feature is not ported yet."""
         self.validate_arch()
         if self.tp_axis is not None or self.sp_axis is not None:
-            raise not_ported("tensor/sequence parallelism (tp_axis, sp_axis)", "5")
+            raise not_ported("tensor/sequence parallelism (tp_axis, sp_axis)", "5.4")
 
 
 def _normal(

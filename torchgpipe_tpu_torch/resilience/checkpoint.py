@@ -151,7 +151,7 @@ def _single_process(what: str) -> None:
     import torch.distributed as dist
 
     if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise not_ported(f"multi-process checkpoints ({what})", "5")
+        raise not_ported(f"multi-process checkpoints ({what})", "5.4")
 
 
 class CheckpointManager:
@@ -183,7 +183,7 @@ class CheckpointManager:
         (The reference's ``world_size``/``balance`` records serve its
         elastic ``Supervisor``, not ported yet.)"""
         if sharded:
-            raise not_ported("orbax sharded checkpoints (sharded=True)", "5")
+            raise not_ported("orbax sharded checkpoints (sharded=True)", "5.4")
         if step < 0:
             raise ValueError(f"step must be >= 0, got {step}")
         _single_process("save")
@@ -301,7 +301,7 @@ class CheckpointManager:
             return None
         if manifest.get("backend") != "npz":
             raise not_ported(
-                f"snapshot step_{step} is an orbax sharded checkpoint", "5"
+                f"snapshot step_{step} is an orbax sharded checkpoint", "5.4"
             )
         want_arrays = manifest.get("arrays")
         if not isinstance(want_arrays, dict):

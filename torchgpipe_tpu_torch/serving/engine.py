@@ -71,11 +71,40 @@ grouped products take device offsets, so its programs capture as the
 dense model's do.  A model from ``models.quant.quantize_params_int8``
 serves as any other: its graphs dequantize the int8 weights each step.
 
-Not ported (each raises ``not_ported``, ROADMAP.md queue A item 5): the
-disaggregated ``role="prefill"``/``"decode"`` and KV migration, the
-radix ``prefix_cache``, the flight ``recorder`` and step ``reporter``,
-and ``kv_row_specs`` with the static serving lint and certificates that
-read it.
+The fleet layer (:mod:`torchgpipe_tpu_torch.fleet`) adds three more
+fixed-shape programs, each captured once like the slot steps:
+
+* ``prefix_copy`` (with ``prefix_cache=`` a
+  :class:`~torchgpipe_tpu_torch.fleet.prefix_cache.RadixPrefixCache`):
+  rows ``[0, n)`` of slot ``src`` copied into slot ``dst`` in every
+  layer's K, V (and int8 scales), ``src``/``dst``/``n`` read from a
+  device tensor (``index_select``/``index_copy_`` under a row mask), so
+  one graph serves every reuse;
+* ``migrate_ingest`` (``role="decode"``): the same masked write of a
+  migrated request's shipped rows, copied first into the program's
+  static row buffers (one slot's worth), into slot ``dst``;
+* a ``role="prefill"`` engine runs only the prefill ladder and parks
+  each request at prompt completion for
+  :func:`~torchgpipe_tpu_torch.fleet.migration.migrate`; a
+  ``role="decode"`` engine runs exactly ``decode`` + ``migrate_ingest``.
+
+``recorder=`` (an :class:`~torchgpipe_tpu_torch.obs.flightrec.
+FlightRecorder`) threads the reference's per-request events through the
+loop — ``req_submit``, ``req_admit``, ``req_prefix_copy``, one
+``req_prefill`` per chunk, ``req_decode`` coalesced per group,
+``req_finish``, ``req_preempt``, ``req_handoff``/``req_ingest`` — each
+keyed by ``rid`` (:func:`~torchgpipe_tpu_torch.obs.reqtrace.
+stitch_request` rebuilds the span tree).  Recording is host-side only,
+on the recorder's own clock: it never touches a program's buffers and
+costs one ``if`` per site without a recorder.  A span's ``dur`` is host
+time: a decode group ends after the step's one token fetch, so it spans
+device time; a prefill chunk's is its launch (and fetch, when a prompt
+completes).  ``reporter=`` (an :class:`~torchgpipe_tpu_torch.obs.
+StepReporter`) ticks once per engine iteration.
+
+Replicas may share one model's parameters: the engine reads them in
+place (``_split_params`` copies nothing) and keeps its own pool,
+programs and graph memory pool.
 """
 
 from __future__ import annotations
@@ -96,11 +125,7 @@ from torchgpipe_tpu_torch.models.generation import (
     _sample,
     _split_params,
 )
-from torchgpipe_tpu_torch.models.transformer import (
-    Device,
-    TransformerConfig,
-    not_ported,
-)
+from torchgpipe_tpu_torch.models.transformer import Device, TransformerConfig
 from torchgpipe_tpu_torch.resilience.guard import GuardPolicy, classify_error
 from torchgpipe_tpu_torch.serving.cache_pool import CachePool
 from torchgpipe_tpu_torch.serving.metrics import ServingMetrics
@@ -130,6 +155,18 @@ class TensorSpec(NamedTuple):
 
     shape: Tuple[int, ...]
     dtype: torch.dtype
+
+
+class _ParamLayer:
+    """A layer-like view of one parameter dict (``params()`` returns it):
+    what :func:`~torchgpipe_tpu_torch.models.generation._split_params`
+    reads, so an engine's own parameters pass where a model does."""
+
+    def __init__(self, params: Dict[str, Any]) -> None:
+        self._params = params
+
+    def params(self) -> Dict[str, Any]:
+        return self._params
 
 
 class _Program:
@@ -168,12 +205,45 @@ class _Program:
         if self.copied is not None:
             self.copied.record()
 
+    def body(self, engine: "Engine") -> None:
+        engine._body(self)
+
     def run(self, engine: "Engine") -> None:
         """Replay the graph, or run the body eagerly."""
         if self.graph is not None:
             self.graph.replay()
         else:
-            engine._body(self)
+            self.body(engine)
+
+
+class _RowsProgram(_Program):
+    """A row-copy program (``prefix_copy``, ``migrate_ingest``): ``inp``
+    holds ``src``, ``dst`` and ``n`` (int64), loaded from ``host`` by one
+    copy; ``rows`` (``migrate_ingest`` only) are the static buffers of one
+    slot's shipped rows, the tree :meth:`Engine.kv_row_specs` describes."""
+
+    def __init__(self, name: str, device: torch.device,
+                 rows: Optional[Dict[str, List[torch.Tensor]]] = None) -> None:
+        cuda = device.type == "cuda"
+        self.name, self.g, self.prefill = name, 0, False
+        self.inp = torch.zeros(3, dtype=torch.int64, device=device)
+        self.src, self.dst, self.n = self.inp[0:1], self.inp[1:2], self.inp[2:3]
+        self.host = torch.zeros(3, dtype=torch.int64, pin_memory=cuda)
+        self.copied = torch.cuda.Event() if cuda else None
+        self.rows = rows
+        self.graph: Optional[Any] = None
+        self.built = False
+
+    def load(self, src: int, dst: int, n: int) -> None:  # type: ignore[override]
+        if self.copied is not None:
+            self.copied.synchronize()
+        self.host.numpy()[:] = (src, dst, n)
+        self.inp.copy_(self.host, non_blocking=True)
+        if self.copied is not None:
+            self.copied.record()
+
+    def body(self, engine: "Engine") -> None:
+        engine._rows_body(self)
 
 
 class Engine:
@@ -251,14 +321,12 @@ class Engine:
             raise ValueError(
                 f"role must be 'unified' | 'prefill' | 'decode', got {role!r}"
             )
-        if role != "unified":
-            raise not_ported(f"disaggregated serving (role={role!r})", "5")
-        if prefix_cache is not None:
-            raise not_ported("the radix prefix KV cache (prefix_cache=)", "5")
-        if recorder is not None:
-            raise not_ported("the flight recorder (recorder=)", "5")
-        if reporter is not None:
-            raise not_ported("the step reporter (reporter=)", "5")
+        if role == "decode" and prefix_cache is not None:
+            raise ValueError(
+                "a decode-role engine never prefills, so a prefix cache "
+                "would never be consulted — attach it to the prefill "
+                "pool, whose completed prompts become the donors"
+            )
         if moe is not None and getattr(moe, "router", "topk") == "expert_choice":
             raise ValueError(
                 "expert_choice routing selects the top-C tokens PER "
@@ -327,6 +395,15 @@ class Engine:
             max_active=max_active, wave_admission=wave_admission, qos=qos,
         )
         self.metrics = metrics or ServingMetrics(clock=clock, registry=registry)
+        # ``reporter`` (obs.StepReporter) ticks once per engine iteration;
+        # ``recorder`` (obs.FlightRecorder) takes the rid-keyed request
+        # events.  Both are host-side only.
+        self.reporter = reporter
+        self.recorder = recorder
+        # One ``req_decode`` event per request GROUP of decode steps
+        # (flushed at finish/preempt/handoff), not one per token.
+        self._decode_groups: Dict[str, List[float]] = {}
+        self._prefix_cache = prefix_cache
         # drain hooks: called with the snapshot dict after every drain.
         self.drain_hooks: List[Callable[[Dict[str, Any]], None]] = []
         self.guard_policy = guard_policy or GuardPolicy()
@@ -339,6 +416,10 @@ class Engine:
         if preemption is not None and hasattr(preemption, "add_callback"):
             preemption.add_callback(self.request_drain)
         self._requests: Dict[str, Request] = {}
+        # Requests parked at prompt completion on a prefill-role engine:
+        # out of the scheduler, still holding their slot (the KV rows
+        # are the migration payload, freed by complete_migration).
+        self._migration_ready: List[Request] = []
         self._cur_tok = np.zeros((num_slots,), np.int32)
         self._rid_counter = 0
 
@@ -351,13 +432,26 @@ class Engine:
         with torch.inference_mode():
             self._lengths = torch.zeros(num_slots, dtype=torch.int64, device=dev)
             self._programs: Dict[str, _Program] = {}
-            self._prefill_names = {
+            self._prefill_names = {} if role == "decode" else {
                 g: ("prefill" if len(self.prefill_buckets) == 1 else f"prefill@{g}")
                 for g in self.prefill_buckets
             }
             for g, name in self._prefill_names.items():
                 self._programs[name] = _Program(name, g, True, num_slots, dev)
-            self._programs["decode"] = _Program("decode", 1, False, num_slots, dev)
+            if role != "prefill":
+                self._programs["decode"] = _Program("decode", 1, False, num_slots, dev)
+            # The row index the copy programs mask with.
+            self._row_index = torch.arange(max_len, dtype=torch.int64, device=dev)
+            if role == "decode":
+                rows = {
+                    kind: [torch.zeros(spec.shape, dtype=spec.dtype, device=dev)
+                           for spec in specs]
+                    for kind, specs in self.kv_row_specs().items()
+                }
+                self._programs["migrate_ingest"] = _RowsProgram(
+                    "migrate_ingest", dev, rows)
+            if prefix_cache is not None:
+                self._programs["prefix_copy"] = _RowsProgram("prefix_copy", dev)
         self._lengths_shadow: Optional[np.ndarray] = None
         self._len_host = torch.zeros(num_slots, dtype=torch.int64, pin_memory=cuda)
         self._len_copied = torch.cuda.Event() if cuda else None
@@ -368,6 +462,7 @@ class Engine:
         self.trace_counts = {name: 0 for name in self._programs}
         self._token_shapes = {
             name: (num_slots, prog.g) for name, prog in self._programs.items()
+            if not isinstance(prog, _RowsProgram)
         }
 
     # ------------------------------------------------------------------ #
@@ -377,8 +472,16 @@ class Engine:
     @property
     def program_count(self) -> int:
         """The statically bounded program count: one prefill program per
-        ladder bucket plus the decode program."""
-        return len(self.prefill_buckets) + 1
+        ladder bucket plus the decode program (plus ``prefix_copy`` with
+        a prefix cache).  Disaggregation SHRINKS it: a prefill pool drops
+        the decode program, a decode pool is exactly ``decode`` +
+        ``migrate_ingest``."""
+        extra = 1 if self._prefix_cache is not None else 0
+        if self.role == "prefill":
+            return len(self.prefill_buckets) + extra
+        if self.role == "decode":
+            return 2
+        return len(self.prefill_buckets) + 1 + extra
 
     @property
     def compile_stats(self) -> Dict[str, int]:
@@ -407,13 +510,49 @@ class Engine:
             "lengths": TensorSpec((S,), torch.int64),
             "n_valid": TensorSpec((S,), torch.int64),
         }
-        return {
+        specs: Dict[str, Any] = {
             kind: dict(common, tokens=TensorSpec(shape, torch.int64))
             for kind, shape in self._token_shapes.items()
         }
+        scalar = TensorSpec((1,), torch.int64)
+        if "prefix_copy" in self._programs:
+            specs["prefix_copy"] = {"cache": cache_spec, "src": scalar,
+                                    "dst": scalar, "n": scalar}
+        if "migrate_ingest" in self._programs:
+            specs["migrate_ingest"] = {"cache": cache_spec,
+                                       "rows": self.kv_row_specs(),
+                                       "dst": scalar, "n": scalar}
+        return specs
 
     def kv_row_specs(self) -> Dict[str, Any]:
-        raise not_ported("KV migration row specs (kv_row_specs)", "5")
+        """The (shape, dtype) of ONE slot's migration payload: per-layer
+        KV rows (+ int8 scale rows) with the slot axis sliced away —
+        what :meth:`export_kv_rows` produces and ``migrate_ingest``
+        consumes (:func:`~torchgpipe_tpu_torch.fleet.migration.
+        validate_pools` compares them across pools)."""
+        c = self.pool.cache
+        rows: Dict[str, Any] = {
+            "k": [TensorSpec(tuple(b.shape[1:]), b.dtype) for b in c.k],
+            "v": [TensorSpec(tuple(b.shape[1:]), b.dtype) for b in c.v],
+        }
+        if isinstance(c, QuantKVCache):
+            rows["k_scale"] = [TensorSpec(tuple(b.shape[1:]), b.dtype) for b in c.k_scale]
+            rows["v_scale"] = [TensorSpec(tuple(b.shape[1:]), b.dtype) for b in c.v_scale]
+        return rows
+
+    def serving_layers(self) -> List[_ParamLayer]:
+        """The engine's own parameters as a layer list (embed, blocks,
+        head) that :meth:`swap_params` and ``analysis.serving.
+        certify_swap`` accept in place of a model."""
+        embed_p, block_p, head_p = self._params
+        return [_ParamLayer(p) for p in [embed_p, *block_p, head_p]]
+
+    def weights_key(self) -> Tuple[str, int]:
+        """Where the served weights live (the embedding table's device
+        and address): engines with equal keys share parameter tensors,
+        so a swap into one is seen by all."""
+        t = _flat(self._params[0])[0][1]
+        return str(t.device), t.data_ptr()
 
     def _token_buffer(self, kind: str) -> np.ndarray:
         return np.zeros(self._token_shapes[kind], np.int32)
@@ -442,6 +581,31 @@ class Engine:
                                self.top_k, self.top_p))
         self._lengths.copy_(new_len)
 
+    def _rows_body(self, prog: _RowsProgram) -> None:
+        """A row-copy program's body: in every layer's K and V bank (and
+        int8 scale bank), slot ``dst`` takes rows ``[0, n)`` of slot
+        ``src`` (``prefix_copy``) or of the static shipped rows
+        (``migrate_ingest``) and keeps its own above ``n``.  Indices are
+        read from device tensors; nothing syncs with the host."""
+        keep = self._row_index < prog.n            # [L] rows to write
+
+        def put(bank: torch.Tensor, rows: Optional[torch.Tensor], axis: int) -> None:
+            # ``axis``: the bank's length axis (1 for K/V, 2 for scales).
+            cur = bank.index_select(0, prog.dst)
+            new = (rows.unsqueeze(0) if rows is not None
+                   else bank.index_select(0, prog.src))
+            shape = [1] * bank.dim()
+            shape[axis] = bank.shape[axis]
+            bank.index_copy_(0, prog.dst, torch.where(keep.view(shape), new, cur))
+
+        c = self.pool.cache
+        banks = [("k", c.k, 1), ("v", c.v, 1)]
+        if isinstance(c, QuantKVCache):
+            banks += [("k_scale", c.k_scale, 2), ("v_scale", c.v_scale, 2)]
+        for kind, layers, axis in banks:
+            for i, bank in enumerate(layers):
+                put(bank, None if prog.rows is None else prog.rows[kind][i], axis)
+
     def _build(self, prog: _Program) -> None:
         """Capture ``prog`` into a CUDA graph (on the card, unless
         ``cuda_graph=False``), counted in :attr:`compile_stats`.  Without
@@ -454,12 +618,12 @@ class Engine:
             return
         gen = self._generator if self.temperature > 0.0 else None
         gen_state = gen.get_state() if gen is not None else None
-        prog.inp.zero_()        # n_valid 0 everywhere: a no-op warm-up step
+        prog.inp.zero_()        # n_valid / n 0 everywhere: a no-op warm-up step
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         prog.graph, _ = graphs.capture(
-            lambda: self._body(prog), self.device, self._graph_pool,
-            warmup=lambda: self._body(prog), generator=gen)
+            lambda: prog.body(self), self.device, self._graph_pool,
+            warmup=lambda: prog.body(self), generator=gen)
         if gen is not None:
             gen.set_state(gen_state)
         prog.built = True
@@ -502,6 +666,24 @@ class Engine:
 
         self._dispatch(attempt)
         self._lengths_shadow = self._lengths_shadow + n_valid
+
+    def _run_rows(self, name: str, src: int, dst: int, n: int,
+                  rows: Optional[Dict[str, Any]] = None) -> None:
+        """One row-copy program (``prefix_copy``/``migrate_ingest``)
+        under the retry policy; ``rows`` (the ingest's shipped rows) are
+        first copied into the program's static row buffers."""
+        prog = self._programs[name]
+
+        def attempt() -> None:
+            self._build(prog)
+            if rows is not None:
+                for kind, bufs in prog.rows.items():
+                    for buf, src_rows in zip(bufs, rows[kind]):
+                        buf.copy_(src_rows, non_blocking=True)
+            prog.load(src, dst, n)
+            prog.run(self)
+
+        self._dispatch(attempt)
 
     def _fetch_tokens(self) -> np.ndarray:
         """The last step's sampled tokens on the host: the ONE fetch of a
@@ -575,6 +757,35 @@ class Engine:
                     if src is not dst:
                         dst.copy_(src)
         self.version = int(version)
+        if self.recorder is not None:
+            self.recorder.record("param_swap", detail=f"version={self.version}")
+
+    # ------------------------------------------------------------------ #
+    # request-scoped flight recording                                    #
+    # ------------------------------------------------------------------ #
+
+    def _rec(self, kind: str, rid: str, *, dur: Optional[float] = None,
+             detail: str = "") -> None:
+        """One rid-keyed flight event (no-op without a recorder)."""
+        if self.recorder is not None:
+            self.recorder.record(kind, rid=rid, dur=dur, detail=detail)
+
+    def _rec_clock(self) -> float:
+        """The recorder's clock (0.0 without one: callers use the value
+        only when a recorder exists, so durations stay on the clock of
+        the recorder's own event stamps)."""
+        return self.recorder.clock() if self.recorder is not None else 0.0
+
+    def _flush_decode_group(self, rid: str) -> None:
+        """Emit the coalesced decode-step span of ``rid`` (if any): from
+        its first step's start to its last step's end, with the step
+        count."""
+        group = self._decode_groups.pop(rid, None)
+        if group is None or self.recorder is None:
+            return
+        t0, t1, steps = group
+        self._rec("req_decode", rid, dur=max(t1 - t0, 0.0),
+                  detail=f"steps={int(steps)}")
 
     # ------------------------------------------------------------------ #
     # request API                                                        #
@@ -594,6 +805,12 @@ class Engine:
     ) -> str:
         """Queue a request; returns its id.  Admission happens between
         engine iterations (a free slot + the admission cap permitting)."""
+        if self.role == "decode":
+            raise ValueError(
+                "decode-role engine: work arrives via ingest_migration() "
+                "from a prefill replica, never submit() — route "
+                "admissions to the prefill pool"
+            )
         check_tier(tier)     # before any registration (no phantom state)
         if rid is None:
             self._rid_counter += 1
@@ -612,6 +829,20 @@ class Engine:
         self.scheduler.submit(req)   # validates before registration
         self._requests[rid] = req
         self.metrics.arrived(rid)
+        # Recorded only after validation accepted the request: a
+        # rejected submit leaves no phantom span.
+        if self.recorder is not None:
+            phase = "" if self.role == "unified" else f" phase={self.role}"
+            tenant_tag = "" if tenant is None else f" tenant={tenant}"
+            self._rec(
+                "req_submit", rid,
+                detail=(
+                    f"prompt={req.prompt_len} new={req.max_new_tokens} "
+                    f"queued={self.scheduler.queue_depth}"
+                    f" tier={tier}{tenant_tag}"
+                    f" version={self.version}{phase}"
+                ),
+            )
         return rid
 
     def _check_rid_free(self, rid: str) -> None:
@@ -619,13 +850,15 @@ class Engine:
         and resume resubmits it) once its prior incarnation is inert; a
         still-live duplicate is an error."""
         old = self._requests.get(rid)
-        if old is not None and old.status in ("queued", "active", "finished"):
+        if old is not None and old.status in ("queued", "active", "migrating", "finished"):
             raise ValueError(f"duplicate request id {rid!r}")
 
     def cancel(self, rid: str) -> bool:
         ok = self.scheduler.cancel(rid)
         if ok:
             self.metrics.finished(rid, status="cancelled")
+            self._flush_decode_group(rid)
+            self._rec("req_finish", rid, detail="status=cancelled")
         return ok
 
     def result(self, rid: str) -> np.ndarray:
@@ -646,8 +879,18 @@ class Engine:
         if not self._draining:
             if self.qos is not None:
                 self._preempt_for_pressure()
+            if (
+                self._prefix_cache is not None
+                and self.scheduler.queue
+                and self.pool.num_free == 0
+            ):
+                # Admission pressure: evict idle prefix entries (their
+                # pins are the only remaining references) so queued
+                # requests beat cached prefixes to slots.
+                self._prefix_cache.reclaim(self.pool, len(self.scheduler.queue))
             for req in self.scheduler.admit():
                 self.metrics.admitted(req.rid)
+                self._on_admit(req)
         action = self.scheduler.next_action()
         if action is None:
             return False
@@ -655,6 +898,8 @@ class Engine:
             self._run_prefill()
         else:
             self._run_decode()
+        if self.reporter is not None:
+            self.reporter.step()
         return True
 
     def _preempt_for_pressure(self) -> None:
@@ -713,7 +958,41 @@ class Engine:
         req.status = "preempted"
         self.scheduler.release(req)
         self.metrics.finished(rid, status="preempted")
+        self._flush_decode_group(rid)
+        self._rec("req_preempt", rid,
+                  detail=f"qos tier={req.tier} emitted={len(generated)}")
         return kwargs
+
+    def _on_admit(self, req: Request) -> None:
+        """Per-admission hook: the prefix-cache consult; subclasses
+        extend it (``fleet.SpeculativeEngine`` resets the recycled
+        slot's draft frontier)."""
+        if self.recorder is not None:
+            times = self.metrics.requests.get(req.rid)
+            wait = times.queue_wait if times is not None else None
+            self._rec("req_admit", req.rid, dur=wait, detail=f"slot={req.slot}")
+        if self._prefix_cache is not None:
+            self._apply_prefix_reuse(req)
+
+    def _apply_prefix_reuse(self, req: Request) -> None:
+        """Admission-time trie consult: when the prompt extends a cached
+        prefix, the ``prefix_copy`` program copies the donor slot's rows
+        into the request's slot (bitwise what a cold prefill of those
+        tokens writes) and the prefix counts as prefilled.  At most
+        ``prompt_len - 1`` tokens reuse: the LAST prompt token always
+        prefills, producing the first-token logits."""
+        m, donor = self._prefix_cache.match(req.prompt, limit=req.prompt_len - 1)
+        if m <= 0 or donor is None:
+            return
+        assert req.slot is not None
+        t0 = self._rec_clock()
+        self._run_rows("prefix_copy", donor, req.slot, m)
+        self.pool.lengths[req.slot] = m      # shadow miss -> re-upload
+        req.prefilled = m
+        self.metrics.prefix_hit(m)
+        self._rec("req_prefix_copy", req.rid,
+                  dur=max(self._rec_clock() - t0, 0.0),
+                  detail=f"reused={m} donor_slot={donor}")
 
     def _run_prefill(self) -> None:
         reqs = self.scheduler.prefill_pending()
@@ -729,16 +1008,35 @@ class Engine:
             tokens[r.slot, :take] = r.prompt[r.prefilled:r.prefilled + take]
             n_valid[r.slot] = take
             takes.append((r, take))
+        t0 = self._rec_clock()
         self._run_program(name, tokens, n_valid)
+        # Subclass hook: speculative decoding mirrors every prefill chunk
+        # into its draft cache (same bucket, same buffer).
+        self._after_prefill_dispatch(g, tokens, n_valid)
         self.metrics.step("prefill", len(reqs), self.pool.num_slots)
-        tok_host: Optional[np.ndarray] = None
+        # ONE host fetch per step, when a prompt completes in it.
+        tok_host = (self._fetch_tokens()
+                    if any(r.prefilled + take >= r.prompt_len for r, take in takes)
+                    else None)
+        if self.recorder is not None:
+            dur = max(self._rec_clock() - t0, 0.0)
+            for r, take in takes:
+                self._rec("req_prefill", r.rid, dur=dur, detail=f"g={g} take={take}")
         for r, take in takes:
             self.pool.lengths[r.slot] += take
             r.prefilled += take
             if r.prefill_done:
-                if tok_host is None:
-                    tok_host = self._fetch_tokens()   # ONE host fetch per step
+                if self._prefix_cache is not None:
+                    # The slot now holds the whole prompt's rows: it
+                    # becomes a donor (the insert pins it through the
+                    # pool refcounts, so recycling waits for eviction).
+                    self._prefix_cache.insert(r.prompt, r.slot, self.pool)
                 self._emit(r, int(tok_host[r.slot]))
+
+    def _after_prefill_dispatch(self, g: int, tokens: np.ndarray,
+                                n_valid: np.ndarray) -> None:
+        """No-op hook; ``fleet.SpeculativeEngine`` overrides it to
+        teacher-force the same prompt chunk into the draft cache."""
 
     def _run_decode(self) -> None:
         reqs = self.scheduler.decode_ready()
@@ -747,9 +1045,19 @@ class Engine:
         for r in reqs:
             tokens[r.slot, 0] = self._cur_tok[r.slot]
             n_valid[r.slot] = 1
+        t0 = self._rec_clock()
         self._run_program("decode", tokens, n_valid)
         self.metrics.step("decode", len(reqs), self.pool.num_slots)
         tok_host = self._fetch_tokens()        # the ONE host fetch per step
+        if self.recorder is not None:
+            t1 = self._rec_clock()
+            for r in reqs:
+                group = self._decode_groups.get(r.rid)
+                if group is None:
+                    self._decode_groups[r.rid] = [t0, t1, 1.0]
+                else:
+                    group[1] = t1
+                    group[2] += 1.0
         for r in reqs:
             self.pool.lengths[r.slot] += 1
             self._emit(r, int(tok_host[r.slot]))
@@ -770,28 +1078,154 @@ class Engine:
             req.status = "finished"
             self.scheduler.release(req)
             self.metrics.finished(req.rid)
+            self._flush_decode_group(req.rid)
+            self._rec(
+                "req_finish", req.rid,
+                detail=(f"status=finished tokens={len(req.tokens())} "
+                        f"version={self.version}"),
+            )
+        elif self.role == "prefill":
+            # Prompt complete, stream live: the decode phase belongs to
+            # the decode pool.  Park the request OUT of the scheduler with
+            # its slot still held (the rows are the migration payload,
+            # released by complete_migration once a decode replica has
+            # ingested them).  A request finishing on its first token
+            # never parks.
+            req.status = "migrating"
+            self.scheduler.active.pop(req.rid, None)
+            self._migration_ready.append(req)
+            self._flush_decode_group(req.rid)
         else:
             self._cur_tok[req.slot] = token
 
     # ------------------------------------------------------------------ #
-    # KV migration (disaggregated serving): not ported                   #
+    # KV migration (disaggregated serving)                               #
     # ------------------------------------------------------------------ #
 
     @property
     def migration_pending(self) -> bool:
-        raise not_ported("KV migration (migration_pending)", "5")
+        """Requests parked at prompt completion, awaiting handoff to a
+        decode replica (prefill role only)."""
+        return bool(self._migration_ready)
 
     def take_migration_ready(self) -> List[Request]:
-        raise not_ported("KV migration (take_migration_ready)", "5")
+        """Pop the parked requests (the router hands each to
+        :func:`~torchgpipe_tpu_torch.fleet.migration.migrate`); append
+        back to ``_migration_ready`` to re-park one the decode pool
+        cannot take yet."""
+        out = self._migration_ready
+        self._migration_ready = []
+        return out
 
     def export_kv_rows(self, req: Request) -> Dict[str, Any]:
-        raise not_ported("KV migration (export_kv_rows)", "5")
+        """One slot's migration payload: per-layer KV rows (+ int8 scale
+        rows) with the slot axis sliced away, as views of the pool (no
+        copy; :func:`~torchgpipe_tpu_torch.fleet.migration.stage_rows`
+        copies them to the host).  Shapes and dtypes are
+        :meth:`kv_row_specs`."""
+        if req.slot is None:
+            raise ValueError(f"request {req.rid!r} holds no slot — nothing to export")
+        slot = req.slot
+        c = self.pool.cache
+        rows: Dict[str, Any] = {
+            "k": [b[slot] for b in c.k],
+            "v": [b[slot] for b in c.v],
+        }
+        if isinstance(c, QuantKVCache):
+            rows["k_scale"] = [b[slot] for b in c.k_scale]
+            rows["v_scale"] = [b[slot] for b in c.v_scale]
+        return rows
 
     def complete_migration(self, req: Request) -> None:
-        raise not_ported("KV migration (complete_migration)", "5")
+        """Donor-side epilogue: the decode replica has ingested the rows
+        — free the slot (a prefix-cache donor pin, if any, keeps the rows
+        alive for future hits) and close the books here."""
+        req.status = "migrated"
+        self.scheduler.release(req)
+        self.metrics.migrated_out(req.rid)
+        self._rec("req_handoff", req.rid,
+                  detail=f"phase={self.role} emitted={len(req.generated)}")
 
-    def ingest_migration(self, **kwargs: Any) -> str:
-        raise not_ported("KV migration (ingest_migration)", "5")
+    def ingest_migration(
+        self,
+        *,
+        rid: str,
+        prompt: Any,
+        max_new_tokens: int,
+        rows: Dict[str, Any],
+        last_token: int,
+        eos_id: Optional[int] = None,
+        on_token: Optional[Callable[[str, int], None]] = None,
+        emitted_prefix: Sequence[int] = (),
+        tier: str = "standard",
+        tenant: Optional[str] = None,
+    ) -> str:
+        """Receive a mid-stream request from a prefill replica: allocate
+        a slot, write the shipped ``rows`` through the ``migrate_ingest``
+        program, and register the request exactly as a unified engine
+        holds it after emitting its first token (``last_token``), so the
+        decode stream continues unchanged.
+
+        Bypasses admission: no queue, no prefix-cache consult, no re-fire
+        of ``on_token`` for the carried token (the donor streamed it).
+        ``max_new_tokens`` is the ORIGINAL budget; the carried token
+        counts against it.  Raises ``RuntimeError`` when the pool has no
+        free slot (the router re-parks and retries)."""
+        if self.role != "decode":
+            raise ValueError(
+                "ingest_migration is the decode pool's entry point — "
+                f"this engine's role is {self.role!r}"
+            )
+        self._check_rid_free(rid)
+        check_tier(tier)
+        req = Request(
+            rid=rid,
+            prompt=np.asarray(prompt, np.int32).reshape(-1),
+            max_new_tokens=int(max_new_tokens),
+            eos_id=eos_id,
+            on_token=on_token,
+            emitted_prefix=list(emitted_prefix),
+            tier=tier,
+            tenant=tenant,
+        )
+        if req.prompt_len + req.max_new_tokens > self.pool.max_len:
+            raise ValueError(
+                f"request {rid!r}: prompt ({req.prompt_len}) + "
+                f"max_new_tokens ({req.max_new_tokens}) exceeds this "
+                f"pool's max_len={self.pool.max_len} — a disaggregated "
+                "fleet needs equal max_len across roles"
+            )
+        slot = self.pool.alloc(rid)
+        if slot is None:
+            raise RuntimeError(
+                "decode pool full: no free slot for migrated request "
+                f"{rid!r} — retry when a stream finishes"
+            )
+        t0 = self._rec_clock()
+        try:
+            self._run_rows("migrate_ingest", 0, slot, req.prompt_len, rows=rows)
+        except Exception:
+            # Register NOTHING on failure: the request is still parked
+            # on the donor, slot and all.
+            self.pool.free(slot)
+            raise
+        req.slot = slot
+        req.status = "active"
+        req.prefilled = req.prompt_len
+        req.generated = [int(last_token)]   # emitted on the donor
+        self._requests[rid] = req
+        self.scheduler.active[rid] = req
+        self.metrics.arrived(rid)
+        self.metrics.ingested(rid)
+        self.pool.lengths[slot] = req.prompt_len  # shadow miss -> upload
+        self._cur_tok[slot] = int(last_token)
+        self._rec(
+            "req_ingest", rid,
+            dur=max(self._rec_clock() - t0, 0.0),
+            detail=(f"phase=decode rows={req.prompt_len} slot={slot} "
+                    f"emitted={len(req.generated)}"),
+        )
+        return rid
 
     # ------------------------------------------------------------------ #
     # run / drain / resume                                               #
@@ -836,7 +1270,10 @@ class Engine:
         slots, and — when a CheckpointManager is wired — persist the
         snapshot.  Returns the snapshot dict."""
         self._draining = True
-        unfinished = list(self.scheduler.queue) + list(self.scheduler.active.values())
+        # Migration-parked requests (prefill role) are in flight too.
+        unfinished = (list(self.scheduler.queue)
+                      + list(self.scheduler.active.values())
+                      + list(self._migration_ready))
         tree: Dict[str, Dict[str, np.ndarray]] = {}
         meta: Dict[str, Dict[str, Any]] = {}
         for r in unfinished:
@@ -853,12 +1290,21 @@ class Engine:
                 "tier": r.tier,
                 "tenant": r.tenant,
             }
+        if self.recorder is not None:
+            for r in unfinished:
+                self._flush_decode_group(r.rid)
+                self._rec("req_preempt", r.rid, detail=f"drain emitted={len(r.generated)}")
+            self.recorder.record("drain", detail=f"{len(unfinished)} in-flight")
         for r in list(self.scheduler.active.values()):
             r.status = "preempted"
             self.scheduler.release(r)
         for r in list(self.scheduler.queue):
             r.status = "preempted"
         self.scheduler.queue.clear()
+        for r in self._migration_ready:
+            r.status = "preempted"
+            self.scheduler.release(r)   # frees the held slot
+        self._migration_ready.clear()
         self.metrics.drained(len(unfinished))
         for rid in meta:
             self.metrics.finished(rid, status="preempted")

@@ -18,8 +18,7 @@ Every counter is a series of the port's
 TTFT/TPOT/queue-wait stream into registry histograms, so ``snapshot()``
 reports p50/p95/p99 TTFT and TPOT and the whole set exports as JSONL or
 Prometheus text through ``metrics.registry``.  The series are the
-reference's, the prefix-cache and migration counters included: they stay
-at 0 until the fleet is ported (ROADMAP.md, queue A item 5).
+reference's, the prefix-cache and migration counters included.
 
 Everything is host-side bookkeeping around the engine loop — no device
 work.  ``snapshot()`` returns a plain-dict view; the ``clock`` is
@@ -173,6 +172,29 @@ class ServingMetrics:
         r.tokens += 1
         self._c_tokens.inc()
 
+    def ingested(self, rid: str) -> None:
+        """A migrated request arriving mid-stream (disaggregated
+        serving): its FIRST token was emitted on the donor prefill
+        replica, so this engine's first emission must count toward
+        TPOT, never as a second TTFT — ``first_token`` is stamped now
+        and ``tokens`` starts at the one token already streamed."""
+        r = self.requests[rid]
+        t = self._clock()
+        if r.admitted is None:
+            r.admitted = t
+        r.status = "active"
+        r.first_token = t
+        r.tokens = 1
+        self._c_migr_in.inc()
+
+    def migrated_out(self, rid: str) -> None:
+        """The donor side of :meth:`ingested`: the request left this
+        replica at prompt completion.  No latency histogram fires —
+        the stream continues elsewhere; only the handoff is counted."""
+        r = self.requests[rid]
+        r.status = "migrated"
+        self._c_migr_out.inc()
+
     def finished(self, rid: str, status: str = "finished") -> None:
         r = self.requests[rid]
         r.finished = self._clock()
@@ -196,6 +218,12 @@ class ServingMetrics:
     def drained(self, unfinished: int) -> None:
         self._c_drains.inc()
         self._c_preempted.inc(unfinished)
+
+    def prefix_hit(self, reused_tokens: int) -> None:
+        """One admission reused ``reused_tokens`` prompt tokens from the
+        KV prefix cache (prefill work avoided)."""
+        self._c_prefix_hits.inc()
+        self._c_prefix_tokens.inc(reused_tokens)
 
     # ------------------------------------------------------------------ #
     # snapshot                                                           #
