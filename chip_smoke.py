@@ -4985,9 +4985,11 @@ def phase_fleet(torch, tfa, tt, card, seed, cfg, model):
         fail(f"fleet (24d): captures {spec.compile_stats} ({spec.program_count} programs), "
              f"expected {want_spec}")
     d["compile_stats"] = spec.compile_stats
-    d["draft_replay_equals_body"] = replay_equals_body(
-        torch, spec, "draft@1", spec.draft_pool.cache.k + spec.draft_pool.cache.v
-        + [spec._draft_lengths, spec._programs["draft@1"].tok])
+    d["draft_replays_equal_bodies"] = {
+        name: replay_equals_body(
+            torch, spec, name, spec.draft_pool.cache.k + spec.draft_pool.cache.v
+            + [spec._draft_lengths, spec._programs[name].tok])
+        for name in (f"draft@{g}" for g in spec.draft_buckets)}
     res = runs["speculative"][-1][1]
     d["teacher_forced"] = check_streams([(p, res[r]) for (p, _), r in zip(sreqs, res)],
                                         "24d speculative")
