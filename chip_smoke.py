@@ -61,7 +61,15 @@ they need) and prints no kernels line; by default every phase runs:
    kernels' part of it) and ``generate`` 4 x 512 + 32 tokens, their launches gated (float32: the 3xTF32 forward and
    backward and flash_decode's float32 instantiation; d=80: the
    tensor-core kernels zero-padded and flash_decode at d=80; no CUDA-core
-   kernel), tokens teacher-forced.
+   kernel), tokens teacher-forced.  Float16 and head dims 129-256: the
+   f16 instantiations of flash_fwd, flash_bwd_dq/dkv and flash_decode
+   (f16 and int8 caches) and flash_simt.cu's wide kernels (d=160/256 in
+   bf16, f16 and f32; their decode with bf16, f16 and int8 caches)
+   against the plain versions (backward bitwise on a second call, device
+   pos0 bitwise), timed at the f16 path's and phase 25's shapes beside
+   SDPA; then a float16 Llama at Llama-3-8B's widths, 2 blocks, takes the
+   same step (its loss beside a bf16 step at the same weights, a sanity
+   bound) and ``generate``, launches gated on the f16 instantiations.
 6. slice: greedy ``generate`` at Llama-3-8B width (random weights from a
    seed, 32 layers, batch 4, prompt 1024, 128 new tokens), with the
    kernels' launch counts read around that one call, prefill logits of
@@ -168,7 +176,7 @@ they need) and prints no kernels line; by default every phase runs:
    models' teacher-forced check, and the count of equal merged tokens is
    printed.
 16. unet: benchmarks/unet_speed.py's row pipeline-2 (its (5, 64) U-Net
-   cut to depth 4, 192x192, batch 160, 8 micro-batches, 2 stages, 'except_last',
+   cut to depth 3, 192x192, batch 160, 8 micro-batches, 2 stages, 'except_last',
    float32, cuDNN deterministic) with its Dropout2d(0.1) live: two eager
    steps with one key bitwise equal and another key different, 'never'
    and 'except_last' bitwise equal under one key (at batch 40), the
@@ -254,6 +262,18 @@ they need) and prints no kernels line; by default every phase runs:
    across replicas), each new program's replay bitwise its eager body,
    zero hand-written kernel launches.  Its numbers go to a ``{"fleet":
    ...}`` line.
+25. spmd: ``torchgpipe_tpu_torch.spmd.SpmdGPipe`` at Gemma-7B's
+   published widths (head dim 256, tied embeddings) in bf16, 2 blocks,
+   one a stage, rank processes over gloo on this card (this script
+   re-run with hidden ``--spmd-*`` options): 25a pp=2 fill-drain, step 1's
+   loss and every gradient leaf against a sequential oracle run here on
+   the card with the same weights and batch, step 2 through
+   ``make_train_step``; 25b pp=2 x dp=2 1F1B against fill-drain (untied)
+   at the same weights; 25c ``spmd_params_for_generation`` of 25a's
+   trained params and ``generate`` on the wide decode, against the plain
+   version's tokens and a teacher-forced forward.  Each rank's launches
+   (the wide kernels), step ms, bytes staged through the host and peak
+   memory; a ``{"spmd": ...}`` line.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Then one JSON line per kernel (time, launches, bound, plain and
@@ -353,18 +373,30 @@ KERNEL_FUNCS = {
     "flash_bwd_dq_tf32": ("flash_bwd_tf32", ("flash_bwd_dq_tf32_kernel", "tf32_bwd_split_kernel")),
     "flash_bwd_dkv_tf32": ("flash_bwd_tf32", ("flash_bwd_dkv_tf32_kernel",
                                               "flash_bwd_dkv_tf32_sum_kernel")),
-    "flash_fwd_f32": ("flash_simt", ("fwd_f32_kernel",)),
-    "flash_bwd_dq_f32": ("flash_simt", ("dq_f32_kernel",)),
-    "flash_bwd_dkv_f32": ("flash_simt", ("dkv_f32_kernel",)),
+    "flash_fwd_f32": ("flash_simt", ("fwd_simt_kernel",)),
+    "flash_bwd_dq_f32": ("flash_simt", ("dq_simt_kernel",)),
+    "flash_bwd_dkv_f32": ("flash_simt", ("dkv_simt_kernel",)),
     "flash_decode_simt": ("flash_simt", ("decode_simt_kernel",)),
+    # float16: the tensor-core kernels' f16 instantiations (the same
+    # functions; registers are the max over instantiations).
+    "flash_fwd_f16": ("flash_fwd", ("flash_fwd_kernel",)),
+    "flash_bwd_dq_f16": ("flash_bwd", ("flash_bwd_dq_kernel",)),
+    "flash_bwd_dkv_f16": ("flash_bwd", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_sum_kernel")),
+    "flash_decode_f16": ("flash_decode", ("flash_decode_kernel", "flash_decode_merge")),
+    # head dims 129-256: flash_simt.cu's kernels at eight lanes a row.
+    "flash_fwd_wide": ("flash_simt", ("fwd_simt_kernel",)),
+    "flash_bwd_dq_wide": ("flash_simt", ("dq_simt_kernel",)),
+    "flash_bwd_dkv_wide": ("flash_simt", ("dkv_simt_kernel",)),
+    "flash_decode_wide": ("flash_simt", ("decode_simt_kernel",)),
 }
 # The redesigned kernels and the instructions their SASS must hold: HGMMA
 # (wgmma) and UTMALDG (TMA tensor loads); the decode kernel's scores run on
-# mma.sync (HMMA) for bf16 and int8 caches (an f32 cache keeps f32
+# mma.sync (HMMA) for bf16, f16 and int8 caches (an f32 cache keeps f32
 # products on the CUDA cores: no HMMA there).  SASS_COUNT: instantiations
-# each must show (d = 64 and 128, the tile dims; decode: four query/cache
-# type pairs x two tile dims x four row counts, any head dim up to 128
-# running on one of the two tile dims).
+# each must show (d = 64 and 128, the tile dims, times bf16 and f16 for
+# flash_fwd and flash_bwd; the 3xTF32 kernels d = 64 and 128; decode: six
+# query/cache type pairs x two tile dims x four row counts, any head dim
+# up to 128 running on one of the two tile dims).
 SASS_REQUIRED = {"flash_fwd": {"flash_fwd_kernel": ("HGMMA", "UTMALDG")},
                  "flash_bwd": {"flash_bwd_dkv_kernel": ("HGMMA", "UTMALDG"),
                                "flash_bwd_dq_kernel": ("HGMMA", "UTMALDG")},
@@ -372,8 +404,8 @@ SASS_REQUIRED = {"flash_fwd": {"flash_fwd_kernel": ("HGMMA", "UTMALDG")},
                  "flash_fwd_tf32": {"flash_fwd_tf32_kernel": ("HGMMA", "UTMALDG")},
                  "flash_bwd_tf32": {"flash_bwd_dq_tf32_kernel": ("HGMMA", "UTMALDG"),
                                     "flash_bwd_dkv_tf32_kernel": ("HGMMA", "UTMALDG")}}
-SASS_COUNT = {"flash_fwd_kernel": 2, "flash_bwd_dkv_kernel": 2, "flash_bwd_dq_kernel": 2,
-              "flash_decode_kernel": 32, "flash_fwd_tf32_kernel": 2,
+SASS_COUNT = {"flash_fwd_kernel": 4, "flash_bwd_dkv_kernel": 4, "flash_bwd_dq_kernel": 4,
+              "flash_decode_kernel": 48, "flash_fwd_tf32_kernel": 2,
               "flash_bwd_dq_tf32_kernel": 2, "flash_bwd_dkv_tf32_kernel": 2}
 
 
@@ -468,7 +500,10 @@ def smem_dynamic(build):
             "flash_decode": dec(), "flash_decode_int8": dec(),
             "flash_fwd_tf32": tf32(64), "flash_bwd_dq_tf32": dq_tf32(64),
             "flash_bwd_dkv_tf32": dkv_tf32(64), "flash_fwd_f32": simt(0, 128),
-            "flash_bwd_dq_f32": simt(1, 128), "flash_bwd_dkv_f32": simt(2, 128)}
+            "flash_bwd_dq_f32": simt(1, 128), "flash_bwd_dkv_f32": simt(2, 128),
+            "flash_fwd_f16": fwd(128), "flash_bwd_dq_f16": dq(128),
+            "flash_bwd_dkv_f16": dkv(128), "flash_fwd_wide": simt(0, 256),
+            "flash_bwd_dq_wide": simt(1, 256), "flash_bwd_dkv_wide": simt(2, 256)}
 
 
 def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
@@ -1124,7 +1159,11 @@ def kernel_launches(tfa):
             "flash_fwd_f32": tfa.flash_attention_f32.launches,
             "flash_bwd_dq_f32": tfa.flash_bwd_dq_f32.launches,
             "flash_bwd_dkv_f32": tfa.flash_bwd_dkv_f32.launches,
-            "flash_decode_simt": tfa.flash_decode_simt.launches}
+            "flash_decode_simt": tfa.flash_decode_simt.launches,
+            "flash_fwd_wide": tfa.flash_attention_wide.launches,
+            "flash_bwd_dq_wide": tfa.flash_bwd_dq_wide.launches,
+            "flash_bwd_dkv_wide": tfa.flash_bwd_dkv_wide.launches,
+            "flash_decode_wide": tfa.flash_decode_wide.launches}
 
 
 def expect_launches(got, want, what):
@@ -3034,10 +3073,10 @@ def phase_lora(torch, tfa, tt, tg, card, seed: int, train_ms: float, train_peak:
 
 # Phases 16-17: benchmarks/unet_speed.py's row pipeline-2 (192x192, batch
 # 160, 8 micro-batches, 2 stages, 'except_last'), float32; the spatial
-# dropouts (0.1) live.  Its (5, 64) U-Net is cut to depth 4 (the widths
-# of the levels kept are the row's), so that the whole run stays within
-# half its time limit as phases 18-21 joined.
-UNET_ROW = dict(depth=4, num_convs=5, base_channels=64)
+# dropouts (0.1) live.  Its (5, 64) U-Net is cut to depth 3 (the widths
+# of the levels kept are the row's): depth 4 as phases 18-21 joined, 3 as
+# phase 25 did, to keep the whole run near its time.
+UNET_ROW = dict(depth=3, num_convs=5, base_channels=64)
 
 
 def unet_loss(out, target):
@@ -4149,11 +4188,14 @@ def phase_simt(torch, tfa, tt, tg, card, seed: int):
     from torchgpipe_tpu_torch import GPipe
 
     worst, rows = simt_kernels(torch, tfa, tg, card)
-    out = {"worst": worst, "rows": rows, "paths": {}}
+    wide_worst, wide_rows = wide_f16_kernels(torch, tfa, tg, card)
+    out = {"worst": worst, "rows": rows, "wide_worst": wide_worst, "wide_rows": wide_rows,
+           "paths": {}}
     loss_fn = causal_lm_loss(tt)
     for tag, preset, dtype, train_gate, gen_gate in (
             ("f32_llama", SIMT_F32, torch.float32, SIMT_F32_TRAIN, SIMT_F32_GENERATE),
-            ("d80_llama", SIMT_D80, torch.bfloat16, SIMT_D80_TRAIN, SIMT_D80_GENERATE)):
+            ("d80_llama", SIMT_D80, torch.bfloat16, SIMT_D80_TRAIN, SIMT_D80_GENERATE),
+            ("f16_llama", SIMT_F16, torch.float16, SIMT_F16_TRAIN, SIMT_F16_GENERATE)):
         cfg = tt.TransformerConfig(**preset, dtype=dtype)
         gen = torch.Generator(device="cuda").manual_seed(seed + 5)
         model = tt.llama(cfg, device="cuda", generator=gen)
@@ -4166,6 +4208,19 @@ def phase_simt(torch, tfa, tt, tg, card, seed: int):
         grads_finite = all(bool(torch.isfinite(p.grad).all()) for p in pipe.parameters())
         if not (math.isfinite(loss.item()) and grads_finite):
             fail(f"{tag} step: loss {loss.item()}, gradients finite {grads_finite}")
+        bf16_loss = None
+        if tag == "f16_llama":
+            # The same weights in bf16, one step: a sanity bound on the loss.
+            bcfg = tt.TransformerConfig(**preset, dtype=torch.bfloat16)
+            bmodel = tt.llama(bcfg, device="cuda", generator=gen)
+            bmodel.load_state_dict(model.state_dict())
+            bpipe = GPipe(list(bmodel), [len(bmodel)], chunks=SIMT_CHUNKS,
+                          checkpoint="except_last")
+            bf16_loss = bpipe.value_and_grad(tokens, tokens, loss_fn)[0].item()
+            del bpipe, bmodel
+            if abs(loss.item() - bf16_loss) > F16_BF16_REL * abs(bf16_loss):
+                fail(f"{tag} step: float16 loss {loss.item()} vs bf16 {bf16_loss} at the same "
+                     f"weights (rel bound {F16_BF16_REL})")
         prof = None
         if tag == "f32_llama":
             # A second step under the profiler: device busy time and the
@@ -4194,11 +4249,14 @@ def phase_simt(torch, tfa, tt, tg, card, seed: int):
                  f"{TF_AGREE}), worst gap {gap:.3f} (tol {TF_GAP})")
         dec = statistics.median(times["decode_ms"]) / SIMT_NEW
         out["paths"][tag] = {"train": stats["launches"], "generate": gen_launches,
-                             "loss": loss.item(), "step_ms": stats["ms"],
+                             "loss": loss.item(), "bf16_loss": bf16_loss,
+                             "step_ms": stats["ms"],
                              "decode_ms_per_token": dec, "teacher_forced_agree": agree,
                              "max_gap": gap, "step_profile": prof}
         print(f"simt path {tag}: {cfg.head_dim}-dim heads, {str(dtype)[6:]}, 2 blocks; step "
-              f"batch {SIMT_BATCH} x seq {SIMT_SEQ} loss {loss.item():.5f} step_ms "
+              f"batch {SIMT_BATCH} x seq {SIMT_SEQ} loss {loss.item():.5f}"
+              f"{'' if bf16_loss is None else f' (bf16 at the same weights {bf16_loss:.5f})'}"
+              f" step_ms "
               f"{stats['ms']:.1f} launches {stats['launches']}; generate 4 x {SIMT_PROMPT} + "
               f"{SIMT_NEW}: launches {gen_launches} decode ms/token {dec:.3f} "
               f"teacher_forced_agree {agree:.4f} max_gap {gap:.4f} [{card}]", flush=True)
@@ -4206,6 +4264,199 @@ def phase_simt(torch, tfa, tt, tg, card, seed: int):
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+# Phase 5b, float16 and head dims 129-256 (ROADMAP C.3): the f16
+# instantiations of flash_fwd, flash_bwd_dq/dkv and flash_decode, and
+# flash_simt.cu's wide kernels (head dim 256, Gemma's, in bf16, f16 and
+# f32), against the plain versions at the shapes their paths give them
+# (the f16 Llama-3-8B-width step's micro-batch and generate; phase 25's
+# Gemma-7B-width micro-batch and generate) and at edges.  Tolerances:
+# float16 rounds where bf16 does at 2^-11 instead of 2^-8, so FWD_TOL,
+# BWD_ROW_TOL/BWD_FLOOR (derived for bf16 above) hold with room; the wide
+# kernels widen every element to f32 and compute as the plain versions
+# do, rounding their outputs once: FWD_TOL and the row tolerance for
+# bf16/f16, SIMT_F32_TOL and simt_rows for f32; the decode DECODE_TOL.
+# (name, dtype, b, h, g, s, d, window, causal, route)
+WIDE_CASES = [("f16_train_microbatch", "f16", 2, 32, 8, 1024, 128, None, True, "kernel"),
+              ("f16_d64_window", "f16", 2, 8, 2, 333, 64, 50, True, "kernel"),
+              ("gemma_microbatch", "bf16", 2, 16, 16, 512, 256, None, True, "wide"),
+              ("f16_d256_window", "f16", 1, 8, 4, 333, 256, 64, True, "wide"),
+              ("f32_d160_nocausal", "f32", 1, 8, 2, 200, 160, None, False, "wide")]
+# (name, kind, b, g, nh, nkv, hd, pos0, window, max_len, route)
+WIDE_DECODE = [("f16_generate", "f16", 4, 1, 32, 8, 128, 527, None, 544, "kernel"),
+               ("f16_int8", "f16int8", 2, 5, 8, 4, 64, 300, 64, 517, "kernel"),
+               ("gemma_generate", "bf16", 2, 1, 16, 16, 256, 135, None, 144, "wide"),
+               ("f16_d256", "f16", 2, 2, 8, 2, 256, 1000, 9, 1152, "wide"),
+               ("int8_d256", "int8", 2, 1, 8, 8, 256, 500, None, 517, "wide")]
+HALF = {"f16": "float16", "bf16": "bfloat16", "f32": "float32"}
+
+
+def wide_f16_kernels(torch, tfa, tg, card):
+    """WIDE_CASES and WIDE_DECODE against the plain versions; the path
+    shapes (the f16 training micro-batch and generate, phase 25's Gemma
+    micro-batch and generate) timed beside SDPA and the bound.  Returns
+    ``(worst errors, timing rows)``."""
+    worst, rows = {}, {}
+    for name, kind, b, h, g, s, d, window, causal, want_route in WIDE_CASES:
+        dtype = getattr(torch, HALF[kind])
+        route = tfa.attention_route((b, s, h, d), (b, s, g, d), dtype, window=window).kind
+        if route != want_route:
+            fail(f"{kind} attention {name}: routed to {route}, expected {want_route}")
+        wide = route == "wide"
+        fwd = tfa._flash_fwd_wide if wide else tfa._flash_fwd
+        dqf = tfa.flash_bwd_dq_wide if wide else tfa.flash_bwd_dq
+        dkvf = tfa.flash_bwd_dkv_wide if wide else tfa.flash_bwd_dkv
+        names = (("flash_fwd_wide", "flash_bwd_dq_wide", "flash_bwd_dkv_wide") if wide
+                 else ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        q, k, v = (torch.randn(b, s, n, d, generator=gen, device="cuda").to(dtype)
+                   for n in (h, g, g))
+        do = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
+        scale = d ** -0.5
+        bkw = dict(causal=causal, sm_scale=scale, window=window)
+        tfa.reset_launches()
+        o, lse = fwd(q, k, v, causal, scale, window)
+        delta = tfa._delta(do, o)
+        got = (dqf(q, k, v, do, lse, delta, **bkw), *dkvf(q, k, v, do, lse, delta, **bkw))
+        torch.cuda.synchronize()
+        counts = kernel_launches(tfa)
+        if counts != {key: int(key in names) for key in counts}:
+            fail(f"{kind} attention {name}: one forward and backward launched {counts}, "
+                 f"expected one each of {names}")
+        again = (dqf(q, k, v, do, lse, delta, **bkw), *dkvf(q, k, v, do, lse, delta, **bkw))
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            fail(f"{kind} attention {name}: two backward calls disagree bitwise")
+        ref_o, _ = tfa._reference_fwd(q, k, v, causal, scale, window)
+        want = tfa._reference_bwd(q, k, v, o, lse, do, causal, scale, window)
+        err = (o.float() - ref_o.float()).abs().max().item()
+        if kind == "f32":
+            ratios, tol = [simt_rows(a, c) for a, c in zip(got, want)], SIMT_F32_TOL
+        else:
+            ratios, tol = [bwd_rows(a, c)[0] for a, c in zip(got, want)], FWD_TOL
+        if not (err <= tol and max(ratios) <= 1.0):
+            fail(f"{kind} attention {name}: forward err {err:.3e} (tol {tol}), dq/dk/dv "
+                 f"worst row err/tol {ratios}")
+        key = f"{'wide' if wide else 'f16'}_{kind}"
+        worst[key] = max(worst.get(key, 0.0), err)
+        worst[key + "_bwd"] = max(worst.get(key + "_bwd", 0.0), *(
+            (a.float() - c.float()).abs().max().item() for a, c in zip(got, want)))
+        print(f"{kind} attention {name} ({', '.join(names)}): b={b} s={s} h={h} g={g} d={d} "
+              f"window={window} causal={causal} fwd max_abs_err={err:.3e} (tol {tol}) "
+              f"dq/dk/dv worst row err/tol {[round(x, 4) for x in ratios]}; backward "
+              f"bitwise equal on a second call [{card}]", flush=True)
+        if name not in ("f16_train_microbatch", "gemma_microbatch"):
+            continue
+        calls = {"fwd": lambda: fwd(q, k, v, causal, scale, window),
+                 "dq": lambda: dqf(q, k, v, do, lse, delta, **bkw),
+                 "dkv": lambda: dkvf(q, k, v, do, lse, delta, **bkw)}
+        ms = {n: device_ms(torch, c, 5) for n, c in calls.items()}
+        plain_fwd = device_ms(torch, lambda: tfa._reference_fwd(q, k, v, causal, scale,
+                                                                window), 3, 1)
+        plain_bwd = device_ms(torch, lambda: tfa._reference_grads(
+            q, k, v, do, lse, delta, causal, scale, window), 3, 1)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib_f = sdpa_backends(torch, [(qt, kt, vt)], causal, 5)
+        lib_b = sdpa_backends(torch, [(qt, kt, vt)], causal, 5, dout=do.transpose(1, 2))
+        pairs = fwd_pairs(s, causal, window)
+        reads = ["q", "k", "v", "do", "lse", "delta"]
+        nbytes = {"fwd": attn_bytes(b, s, h, g, d, reads=["q", "k", "v"], writes=["o"])
+                  + 4.0 * b * h * s,
+                  "dq": attn_bytes(b, s, h, g, d, reads=reads, writes=["dq"]),
+                  "dkv": attn_bytes(b, s, h, g, d, reads=reads, writes=["dk", "dv"])}
+        flops = {"fwd": 4.0 * b * h * d * pairs, "dq": 6.0 * b * h * d * pairs,
+                 "dkv": 8.0 * b * h * d * pairs}
+        # The least time is the 16-bit tensor-core rate's (the work a
+        # Hopper kernel could do there); the wide kernels run on the CUDA
+        # cores, so their f32 FMA bound is printed beside.
+        bounds = {n: bound(flops[n], nbytes[n]) for n in flops}
+        fma = {n: bound(flops[n], nbytes[n], PEAK_F32_FLOPS)[0] for n in flops}
+        print(f"{kind} attention timing {name}, device ms per call: fwd {ms['fwd']:.4f} dq "
+              f"{ms['dq']:.4f} dkv {ms['dkv']:.4f}; bounds (16-bit tensor cores) "
+              f"{ {n: round(x[0], 4) for n, x in bounds.items()} } (f32 FMA "
+              f"{ {n: round(x, 4) for n, x in fma.items()} }); plain fwd {plain_fwd:.4f} "
+              f"bwd {plain_bwd:.4f}; sdpa fwd {lib_f[2]:.4f} ({lib_f[1]}) bwd {lib_b[2]:.4f} "
+              f"({lib_b[1]}, three grads) [{card}]", flush=True)
+        rows[name] = dict(ms=ms, bounds=bounds, fma=fma, plain_fwd=plain_fwd,
+                          plain_bwd=plain_bwd, lib_fwd=lib_f, lib_bwd=lib_b)
+        del o, lse, delta, got, again, want
+    for name, kind, b, g, nh, nkv, hd, pos0, window, max_len, want_route in WIDE_DECODE:
+        gen = torch.Generator(device="cuda").manual_seed(10)
+        qdt = torch.float16 if kind.startswith("f16") else torch.bfloat16
+        q = torch.randn(b, g, nh, hd, generator=gen, device="cuda").to(qdt)
+        if kind.endswith("int8"):
+            ck, ks = int8_cache(torch, tg, gen, b, max_len, nkv, hd)
+            cv, vs = int8_cache(torch, tg, gen, b, max_len, nkv, hd)
+            sc = dict(k_scale=ks, v_scale=vs)
+        else:
+            ck, cv = (torch.randn(b, max_len, nkv, hd, generator=gen, device="cuda").to(qdt)
+                      for _ in range(2))
+            sc = {}
+        route = tfa.attention_route(q.shape, ck.shape, qdt, window=window, decode=True,
+                                    cache_dtype=ck.dtype).kind
+        if route != want_route:
+            fail(f"decode {name}: routed to {route}, expected {want_route}")
+        key = ("flash_decode_wide" if route == "wide" else
+               "flash_decode_int8" if kind.endswith("int8") else "flash_decode")
+        tfa.reset_launches()
+        out = tfa.decode_attention(q, ck, cv, pos0, window=window, **sc)
+        dev = tfa.decode_attention(q, ck, cv, torch.tensor(pos0, dtype=torch.int32,
+                                                           device="cuda"), window=window, **sc)
+        torch.cuda.synchronize()
+        counts = kernel_launches(tfa)
+        if counts[key] != 2 or sum(counts.values()) != 2:
+            fail(f"decode {name}: two calls launched {counts}, expected 2 of {key}")
+        ref = tfa.flash_decode_reference(q, ck, cv, pos0, window=window, **sc)
+        err = (out - ref).abs().max().item()
+        wkey = "decode_wide" if route == "wide" else "decode_f16"
+        worst[wkey] = max(worst.get(wkey, 0.0), err)
+        if not (err <= DECODE_TOL and torch.equal(out, dev)):
+            fail(f"decode {name} ({key}): max abs err {err:.3e} (tol {DECODE_TOL}), "
+                 f"device pos0 bitwise {torch.equal(out, dev)}")
+        print(f"decode {name} ({key}): {kind} q {str(qdt)[6:]} cache=[{b},{max_len},{nkv},"
+              f"{hd}] g={g} pos0={pos0} window={window} max_abs_err={err:.3e} (tol "
+              f"{DECODE_TOL}); device pos0 bitwise equal [{card}]", flush=True)
+        if name not in ("f16_generate", "gemma_generate"):
+            continue
+        live = pos0 + g
+        sets = [(q, ck, cv)] + [tuple(torch.randn_like(t) for t in (q, ck, cv))
+                                for _ in range(3)]
+        it = {"i": 0}
+
+        def cycle(fn):
+            def run():
+                it["i"] = (it["i"] + 1) % len(sets)
+                fn(*sets[it["i"]])
+            return run
+
+        ms = device_ms(torch, cycle(lambda a, c, e: tfa.decode_attention(a, c, e, pos0)), 40)
+        plain_ms = device_ms(torch, cycle(lambda a, c, e: tfa.flash_decode_reference(
+            a, c, e, pos0)), 10, 1)
+        lib = sdpa_backends(torch, [(a.transpose(1, 2), c[:, :live].transpose(1, 2),
+                                     e[:, :live].transpose(1, 2)) for a, c, e in sets],
+                            False, 40)
+        bms, by = decode_bound(b, nh, nkv, hd, live, g, 2, False)
+        print(f"decode timing {name} ({key}): cache=[{b},{max_len},{nkv},{hd}] live={live} "
+              f"g={g}: ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib[2]:.4f} ({lib[1]}) "
+              f"bound_ms={bms:.4f} ({by}) [{card}]", flush=True)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, lib=lib, bound_ms=bms, bound_by=by)
+        del sets
+    torch.cuda.empty_cache()
+    return worst, rows
+
+
+# The f16 path of phase 5b: Llama-3-8B's widths in float16 cut to 2
+# blocks, one GPipe step (SIMT_BATCH x SIMT_SEQ, SIMT_CHUNKS
+# micro-batches, except_last) and generate 4 x SIMT_PROMPT + SIMT_NEW, on
+# the tensor-core kernels' f16 instantiations; the same weights in bf16
+# take one step beside it as a sanity bound on the loss, not an equality:
+# the two round the same products at 2^-11 and 2^-8 relative, a few
+# 2^-8 of the loss after 2 blocks and the 128256-way softmax, so the
+# losses within F16_BF16_REL of each other.
+SIMT_F16 = dict(LLAMA3_8B, n_layers=2)
+SIMT_F16_TRAIN = SIMT_D80_TRAIN
+SIMT_F16_GENERATE = SIMT_D80_GENERATE
+F16_BF16_REL = 2 ** -5
 
 
 # Phase 23: the multi-process pipeline (torchgpipe_tpu_torch.distributed)
@@ -5151,6 +5402,388 @@ def phase_fleet(torch, tfa, tt, card, seed, cfg, model):
 
 # Every phase by number and name, in the order a run takes them, with the
 # phases whose results it needs (``--phases``).
+# --------------------------------------------------------------------- #
+# phase 25: the SPMD engine (torchgpipe_tpu_torch.spmd)                  #
+# --------------------------------------------------------------------- #
+
+# Gemma-7B's published widths (HF google/gemma-7b config.json, as the
+# reference's models/hf_interop.from_hf_gemma maps it: head dim 256, the
+# tanh gelu, the embedding scaled by sqrt(dim), tied embeddings; an ffn of
+# 24576 is mlp_ratio 12 under the gated 2/3 rule) in bf16, cut to 2 of its
+# 28 blocks, one block a stage.
+GEMMA_7B = dict(vocab=256000, dim=3072, n_layers=2, n_heads=16, n_kv_heads=16,
+                n_head_dim=256, mlp_ratio=12.0, act="gelu_tanh",
+                embed_scale=math.sqrt(3072), tie_embeddings=True, rope_theta=10000.0,
+                norm_eps=1e-6)
+SPMD_BATCH, SPMD_SEQ, SPMD_CHUNKS, SPMD_STEPS = 4, 512, 2, 2
+SPMD_LR = TRAIN_LR
+SPMD_PROMPT, SPMD_NEW = 128, 16
+SPMD_DEADLINE_S = 420
+# A rank's launches in a step: its one block a stage under 'except_last'
+# at SPMD_CHUNKS micro-batches: two forwards and one recompute, two
+# backwards, on the wide kernels (head dim 256); none of the others.
+SPMD_LAUNCHES = {"flash_fwd_wide": SPMD_CHUNKS + SPMD_CHUNKS - 1,
+                 "flash_bwd_dq_wide": SPMD_CHUNKS, "flash_bwd_dkv_wide": SPMD_CHUNKS}
+SPMD_1F1B_LAUNCHES = {k: 2 * v for k, v in SPMD_LAUNCHES.items()}
+# bf16 tolerances of a pipelined step against the sequential oracle (or
+# 1F1B against fill-drain): the same products in bf16 batched otherwise
+# (the pipeline's micro-batches and pp-sharded head; the oracle's whole
+# batch) round differently at 2^-8 relative, compounding over 2 blocks
+# and the backward, as tests/test_torch_cuda_training.py's bf16 route
+# derives: the loss to 2^-6 relative, each gradient leaf to 2^-4 of its
+# max.  25c: the decode's tokens against the plain version's on the card
+# by the teacher-forced check (TF_AGREE, TF_GAP), as phase 6's.
+SPMD_LOSS_REL, SPMD_GRAD_REL = 2 ** -6, 2 ** -4
+
+
+class _Stand:
+    """What SpmdGPipe.init reads of a mesh, for the parent's oracle: the
+    same draw as every rank's, without a process group."""
+
+    def __init__(self, pp, dp, device):
+        self.axis_names, self.shape = ("pp", "dp"), {"pp": pp, "dp": dp}
+        self.coords, self.device = {"pp": 0, "dp": 0}, device
+
+
+def spmd_engine(torch, tt, spmd, mesh, tied: bool, schedule: str, dp_axis,
+                device: str = "cuda"):
+    """Phase 25's engine; its layers on ``device`` ("meta" for an engine
+    that draws no params: the trees hold every tensor it runs on)."""
+    cfg = tt.TransformerConfig(**dict(GEMMA_7B, tie_embeddings=tied), dtype=torch.bfloat16)
+    block, pre, post = tt.llama_spmd(cfg, 2, device=device)
+    pipe = spmd.SpmdGPipe(block, 2, mesh, chunks=SPMD_CHUNKS, loss_fn=causal_lm_loss(tt),
+                          pre=pre, post=post, checkpoint="except_last", schedule=schedule,
+                          dp_axis=dp_axis)
+    return cfg, pipe
+
+
+def spmd_init(torch, pipe, seed: int):
+    """The global params tree (the same on every rank: one generator) and
+    the batch of the seed."""
+    import numpy as np
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 25)
+    params = pipe.init(gen, ((SPMD_BATCH, SPMD_SEQ), torch.int64))
+    tokens = torch.from_numpy(np.random.default_rng(seed + 25).integers(
+        0, GEMMA_7B["vocab"], (SPMD_BATCH, SPMD_SEQ)))
+    return params, tokens
+
+
+def spmd_free_templates(pipe):
+    """The engine runs its layers on the parameter trees; the layers' own
+    tensors are templates, freed once the trees exist."""
+    for layer in (pipe.block, pipe.pre, pipe.post):
+        layer.to("meta")
+
+
+def spmd_rank_main(args) -> None:
+    """One rank of phase 25, started by the parent as its own process over
+    gloo on this card.  Case ``a``: pp=2, dp=1, fill-drain, tied; step 1
+    by ``train_step`` (its gathered gradients written for the parent's
+    oracle), step 2 by ``make_train_step``; the gathered trained params
+    written for 25c.  Case ``b``: pp=2 x dp=2, untied; a fill-drain and a
+    1F1B step at the same params, the gathered gradients of both compared
+    on rank 0."""
+    import torch
+    import torch.distributed as dist
+
+    from torchgpipe_tpu_torch import spmd
+    from torchgpipe_tpu_torch.models import transformer as tt
+    from torchgpipe_tpu_torch.ops import flash_attention as tfa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world, out, case = args.spmd_rank, args.spmd_world, args.spmd_out, args.spmd_case
+    t_start = time.perf_counter()
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{args.spmd_port}",
+                            rank=rank, world_size=world)
+    try:
+        dp = world // 2
+        mesh = spmd.make_mesh(2, dp)
+        report = {"rank": rank, "coords": mesh.coords, "device": str(mesh.device),
+                  "step_ms": [], "staged_bytes": [], "peak_gib": [], "launches": []}
+        schedules = ["fill_drain"] if case == "a" else ["fill_drain", "1f1b"]
+        _, pipe = spmd_engine(torch, tt, spmd, mesh, case == "a", schedules[0],
+                              "dp" if dp > 1 else None)
+        params, tokens = spmd_init(torch, pipe, args.seed)
+        params = pipe.place(params)
+        spmd_free_templates(pipe)
+        torch.cuda.empty_cache()
+        report["ready_s"] = time.perf_counter() - t_start
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            tfa.reset_launches()
+            b0, t0 = mesh.staged_bytes, time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            report["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            report["staged_bytes"].append(mesh.staged_bytes - b0)
+            report["peak_gib"].append(torch.cuda.max_memory_allocated() / 2**30)
+            report["launches"].append(kernel_launches(tfa))
+            return res
+
+        def flat(tree):
+            return [a for k in ("pre", "blocks", "post") for _, a in spmd._items(tree[k])]
+
+        grads, local = {}, None
+        for sched in schedules:
+            eng = pipe if sched == schedules[0] else spmd_engine(
+                torch, tt, spmd, mesh, case == "a", sched, "dp" if dp > 1 else None,
+                "meta")[1]
+            loss, g = timed(lambda: eng.train_step(params, tokens, tokens))
+            report.setdefault("losses", []).append(loss.item())
+            # 25a's go to the parent's oracle; 25b compares on each rank.
+            grads[sched] = eng.gather(g) if case == "a" else g
+            local = g if case == "a" else None
+            del g
+        if case == "a":
+            # Step 1's SGD update from its gradients above, then step 2
+            # whole through make_train_step.
+            with torch.no_grad():
+                for t, gr in zip(flat(params), flat(local)):
+                    t.sub_(SPMD_LR * gr)
+            del local
+            step = pipe.make_train_step(lambda ts: torch.optim.SGD(ts, lr=SPMD_LR))
+            loss2 = timed(lambda: step(params, tokens, tokens))
+            report["losses"].append(loss2.item())
+            trained = pipe.gather(params)
+            if rank == 0:
+                torch.save(grads["fill_drain"], os.path.join(out, "grads_a.pt"))
+                torch.save(trained, os.path.join(out, "params_a.pt"))
+        else:
+            # This rank's gradients (its stage's blocks, the pre/post trees
+            # every rank holds) under 1F1B against fill-drain.
+            fd, ob = grads["fill_drain"], grads["1f1b"]
+            worst = max(spmd_rel_diff(torch, a, c)
+                        for (_, a), (_, c) in zip(spmd._items(ob), spmd._items(fd)))
+            report["1f1b_vs_fill_drain"] = {"worst_rel": worst, "leaves": len(
+                spmd._items(fd))}
+        with open(os.path.join(out, f"{case}_rank{rank}.json"), "w") as f:
+            json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spmd_rel_diff(torch, got, want, chunk: int = 1 << 24) -> float:
+    """max |got - want| / max |want| over a leaf, in float32 chunks of
+    ``chunk`` elements (four ranks share the card: no leaf-sized float32
+    temporaries)."""
+    err = scale = 0.0
+    for a, c in zip(got.reshape(-1).split(chunk), want.reshape(-1).split(chunk)):
+        err = max(err, (a.float() - c.float()).abs().max().item())
+        scale = max(scale, c.float().abs().max().item())
+    return err / max(scale, 1e-30)
+
+
+def spmd_ranks(torch, seed: int, case: str, world: int, out: str):
+    """Run phase 25's case on ``world`` rank processes; their reports."""
+    import socket
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    t0 = time.perf_counter()
+    for rank in range(world):
+        log = open(os.path.join(out, f"{case}_rank{rank}.log"), "wb")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+             "--spmd-rank", str(rank), "--spmd-world", str(world), "--spmd-port", str(port),
+             "--spmd-case", case, "--spmd-out", out],
+            stdout=log, stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")), log))
+    try:
+        rcs = [p.wait(timeout=max(1.0, SPMD_DEADLINE_S - (time.perf_counter() - t0)))
+               for p, _ in procs]
+    except subprocess.TimeoutExpired:
+        rcs = None
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    if rcs != [0] * world:
+        logs = ""
+        for rank in range(world):
+            with open(os.path.join(out, f"{case}_rank{rank}.log"), errors="replace") as f:
+                logs += f"--- rank {rank}\n" + f.read()[-4000:]
+        fail(f"spmd 25{case}: rank exit codes {rcs} (None: killed after "
+             f"{SPMD_DEADLINE_S}s)\n{logs}")
+    reports = []
+    for rank in range(world):
+        with open(os.path.join(out, f"{case}_rank{rank}.json")) as f:
+            reports.append(json.load(f))
+    return reports, time.perf_counter() - t0
+
+
+def spmd_oracle(torch, tfa, tt, spmd, seed: int):
+    """25a's single-process sequential oracle on the card: the same params
+    and batch, pre, stage 0's block, stage 1's block, the tied head and
+    the loss, one after another; its loss and gradients on the host."""
+    _, pipe = spmd_engine(torch, tt, spmd, _Stand(2, 1, torch.device("cuda")), True,
+                          "fill_drain", None)
+    params, tokens = spmd_init(torch, pipe, seed)
+    spmd_free_templates(pipe)
+    leaves = {k: spmd._tree_map(lambda a: a.detach().requires_grad_(), params[k])
+              for k in ("pre", "blocks", "post")}
+    x = tokens.cuda()
+    tfa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h = pipe._run_pre(leaves, x, True)
+    for j in range(2):
+        h = spmd._call(pipe.block, pipe._names["blocks"],
+                       spmd._tree_map(lambda a: a[j], leaves["blocks"]), h)
+    loss = causal_lm_loss(tt)(pipe._run_post(leaves, h), x)
+    loss.backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    grads = {k: spmd._tree_map(lambda a: a.grad.detach().cpu(), leaves[k])
+             for k in leaves}
+    launches = kernel_launches(tfa)
+    del leaves, params, h
+    return loss.item(), grads, ms, launches
+
+
+class plain_attention:
+    """Within it, the model code calls the plain attention versions (the
+    generation module's and the block's names), on the card too."""
+
+    def __init__(self, tt, tg, tfa):
+        self.mods, self.tfa = (tt, tg), tfa
+
+    def __enter__(self):
+        tfa = self.tfa
+        self.saved = [(m, n, getattr(m, n)) for m in self.mods
+                      for n in ("attention", "decode_attention") if hasattr(m, n)]
+        for m, n, _ in self.saved:
+            setattr(m, n, (lambda q, k, v, **kw: tfa.flash_attention_reference(q, k, v, **kw))
+                    if n == "attention" else
+                    (lambda q, ck, cv, pos0, **kw: tfa.flash_decode_reference(
+                        q, ck, cv, pos0, **kw)))
+
+    def __exit__(self, *exc):
+        for m, n, f in self.saved:
+            setattr(m, n, f)
+
+
+def phase_spmd(torch, tfa, tt, tg, card, seed: int):
+    """Phase 25: the SPMD engine at Gemma-7B width over gloo on this card.
+    25a: the oracle here, then pp=2 fill-drain (tied) on 2 rank
+    processes; 25b: pp=2 x dp=2 1F1B against fill-drain (untied) on 4;
+    25c: spmd_params_for_generation of 25a's trained params, generate
+    SPMD_NEW tokens on the wide decode, against the plain version's."""
+    import tempfile
+
+    import numpy as np
+
+    from torchgpipe_tpu_torch import spmd
+
+    t_phase = time.perf_counter()
+    ref_loss, ref_grads, ref_ms, ref_launches = spmd_oracle(torch, tfa, tt, spmd, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out:
+        ra, a_s = spmd_ranks(torch, seed, "a", 2, out)
+        grads = torch.load(os.path.join(out, "grads_a.pt"))
+        trained = torch.load(os.path.join(out, "params_a.pt"))
+        rb, b_s = spmd_ranks(torch, seed, "b", 4, out)
+    loss_a = ra[0]["losses"][0]
+    if abs(loss_a - ref_loss) > SPMD_LOSS_REL * abs(ref_loss):
+        fail(f"spmd 25a: step-1 loss {loss_a} vs the sequential oracle's {ref_loss} "
+             f"(rel tol {SPMD_LOSS_REL})")
+    worst = {}
+    for path, want in spmd._items(ref_grads):
+        worst[str(path)] = spmd_rel_diff(torch, dict(spmd._items(grads))[path], want)
+    bad = {k: v for k, v in worst.items() if v > SPMD_GRAD_REL}
+    if bad or len(worst) != len(spmd._items(grads)):
+        fail(f"spmd 25a: gradients against the oracle beyond {SPMD_GRAD_REL} of each "
+             f"leaf's max: {bad}")
+    for rep in ra:
+        expect_launches(rep["launches"][0], SPMD_LAUNCHES, f"25a rank {rep['rank']} step 1")
+    for rep in rb:
+        expect_launches(rep["launches"][1], SPMD_LAUNCHES, f"25b rank {rep['rank']} 1F1B")
+    if not all(math.isfinite(x) for rep in ra + rb for x in rep["losses"]):
+        fail(f"spmd: non-finite losses {[rep['losses'] for rep in ra + rb]}")
+    cmp = {"worst_rel": max(r["1f1b_vs_fill_drain"]["worst_rel"] for r in rb),
+           "leaves": sum(r["1f1b_vs_fill_drain"]["leaves"] for r in rb)}
+    loss_fd, loss_ob = rb[0]["losses"]
+    if abs(loss_ob - loss_fd) > SPMD_LOSS_REL * abs(loss_fd) or \
+            cmp["worst_rel"] > SPMD_GRAD_REL:
+        fail(f"spmd 25b: 1F1B loss {loss_ob} vs fill-drain {loss_fd}, worst gradient "
+             f"leaf {cmp['worst_rel']:.3e} of its max (tol {SPMD_GRAD_REL})")
+    # 25c: generate from 25a's trained params on the card.
+    cfg = tt.TransformerConfig(**GEMMA_7B, dtype=torch.bfloat16)
+    _, pipe = spmd_engine(torch, tt, spmd, _Stand(2, 1, torch.device("cuda")), True,
+                          "fill_drain", None, "meta")
+    model = tg.spmd_params_for_generation(pipe, trained, device="cuda")
+    del trained
+    prompt = torch.from_numpy(np.random.default_rng(seed + 26).integers(
+        0, cfg.vocab, (2, SPMD_PROMPT))).cuda()
+    tfa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = tg.generate(cfg, model, prompt, SPMD_NEW)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    gen_launches = kernel_launches(tfa)
+    expect_launches(gen_launches, {"flash_fwd_wide": 2, "flash_decode_wide": 2 * SPMD_NEW},
+                    "25c generate")
+    with plain_attention(tt, tg, tfa):
+        plain = tg.generate(cfg, model, prompt, SPMD_NEW)
+    if sum(kernel_launches(tfa).values()) != sum(gen_launches.values()):
+        fail("spmd 25c: the plain generate launched a kernel")
+    same = (toks == plain).float().mean().item()
+    agree, gap = teacher_forced(torch, model, prompt, toks)
+    if agree < TF_AGREE or gap > TF_GAP:
+        fail(f"spmd 25c: generate vs teacher forcing: agreement {agree:.3f} (floor "
+             f"{TF_AGREE}), worst gap {gap:.3f} (tol {TF_GAP})")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = {f"{c}{r['rank']}": r["step_ms"] for c, rs in (("a", ra), ("b", rb)) for r in rs}
+    staged = {f"{c}{r['rank']}": r["staged_bytes"] for c, rs in (("a", ra), ("b", rb))
+              for r in rs}
+    peak = {f"{c}{r['rank']}": r["peak_gib"] for c, rs in (("a", ra), ("b", rb)) for r in rs}
+    print(f"spmd 25a: Gemma-7B width (dim 3072, 16 heads of 256, ffn 24576, vocab 256000, "
+          f"tied, gelu_tanh), bf16, 2 blocks; batch {SPMD_BATCH} x seq {SPMD_SEQ}, chunks "
+          f"{SPMD_CHUNKS}, except_last, fill-drain, pp=2 over gloo (2 processes on this "
+          f"card): step-1 loss {loss_a:.6f} vs the sequential oracle's {ref_loss:.6f}; "
+          f"{len(worst)} gradient leaves, worst {max(worst.values()):.3e} of its max (tol "
+          f"{SPMD_GRAD_REL}); step 2 loss {ra[0]['losses'][1]:.6f}; launches a rank "
+          f"{[r['launches'][0] for r in ra]} (oracle, both blocks: {ref_launches}) [{card}]",
+          flush=True)
+    print(f"spmd 25b: pp=2 x dp=2, untied, 4 processes: 1F1B loss {loss_ob:.6f} vs "
+          f"fill-drain {loss_fd:.6f}; {cmp['leaves']} gradient leaves, worst "
+          f"{cmp['worst_rel']:.3e} of its max; 1F1B launches a rank "
+          f"{[r['launches'][1] for r in rb]} [{card}]", flush=True)
+    print(f"spmd 25c: generate 2 x {SPMD_PROMPT} + {SPMD_NEW} from 25a's trained params "
+          f"(spmd_params_for_generation): {gen_ms:.1f} ms, launches {gen_launches}; tokens "
+          f"equal to the plain version's {same:.3f}; teacher_forced_agree {agree:.4f} "
+          f"max_gap {gap:.4f} [{card}]", flush=True)
+    print(f"spmd: step_ms by rank {step}; bytes staged through the host a step {staged}; "
+          f"peak GiB {peak}; the oracle's step {ref_ms:.1f} ms; ranks ran 25a in "
+          f"{a_s:.1f}s and 25b in {b_s:.1f}s, started in "
+          f"{max(r['ready_s'] for r in ra + rb):.1f}s; the phase "
+          f"{time.perf_counter() - t_phase:.1f}s [{card}]", flush=True)
+    result = {"card": card, "loss_a": loss_a, "oracle_loss": ref_loss,
+              "grad_worst_rel": max(worst.values()), "losses_a": ra[0]["losses"],
+              "losses_b": rb[0]["losses"], "1f1b_vs_fill_drain": cmp,
+              "launches": {f"a{r['rank']}": r["launches"] for r in ra}
+              | {f"b{r['rank']}": r["launches"] for r in rb},
+              "launches_a_rank": ra[0]["launches"][0], "generate_launches": gen_launches,
+              "generate_ms": gen_ms, "tokens_equal_plain": same,
+              "teacher_forced_agree": agree, "max_gap": gap, "step_ms": step,
+              "staged_bytes": staged, "peak_gib": peak, "oracle_ms": ref_ms,
+              "ranks_s": {"a": a_s, "b": b_s}}
+    print(json.dumps({"spmd": result}), flush=True)
+    return result
+
+
 PHASES = {
     "3": "fwd", "4": "decode", "5": "bwd", "5b": "simt", "6": "generate", "6b": "generate_int8",
     "6c": "speculative", "6d": "beam", "7": "profile", "9": "serving",
@@ -5158,6 +5791,7 @@ PHASES = {
     "12": "train_graph", "13": "precision", "14": "offload", "15": "lora", "16": "unet",
     "17": "timeline", "18": "vit_l16", "19": "amoebanetd", "20": "t5",
     "21": "gpt2_xl_generate", "22": "mixtral_moe", "23": "distributed", "24": "fleet",
+    "25": "spmd",
 }
 PHASE_ORDER = list(PHASES)
 PHASE_NEEDS = {"6b": ["6"], "6c": ["6"], "6d": ["6"], "7": ["6"], "9": ["6"], "24": ["6"],
@@ -5197,9 +5831,17 @@ def main() -> None:
     ap.add_argument("--dist-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--dist-ports", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--dist-out", default=None, help=argparse.SUPPRESS)
+    # A rank process of phase 25 (started by that phase).
+    for opt in ("--spmd-rank", "--spmd-world", "--spmd-port"):
+        ap.add_argument(opt, type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--spmd-case", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--spmd-out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.dist_rank is not None:
         dist_rank_main(args)
+        return
+    if args.spmd_rank is not None:
+        spmd_rank_main(args)
         return
     run = select_phases(args.phases)
 
@@ -5318,8 +5960,9 @@ def main() -> None:
            ("21", lambda: phase_gpt2_xl(torch, tfa, tt, tg, card, args.seed)),
            ("22", lambda: phase_mixtral(torch, tfa, tt, tg, card, args.seed))],
           "18-22 (vit_l16, amoebanetd, t5, gpt2_xl_generate, mixtral_moe)")
-    timed([("23", lambda: phase_distributed(torch, tfa, tt, card, args.seed))],
-          "23 (distributed)")
+    timed([("23", lambda: phase_distributed(torch, tfa, tt, card, args.seed)),
+           ("25", lambda: phase_spmd(torch, tfa, tt, tg, card, args.seed))],
+          "23, 25 (distributed, spmd)")
 
     if run != set(PHASES):
         print(f"chip_smoke: phases {sorted(run, key=PHASE_ORDER.index)} of {len(PHASES)} "
@@ -5338,7 +5981,7 @@ def main() -> None:
     precision_resnet, precision_llama = r["13"]
     lora_run, unet_row, vit_run, amoeba, t5_run = r["15"], r["16"], r["18"], r["19"], r["20"]
     gpt2, mixtral, int8w, simt = r["21"], r["22"], r["9b"], r["5b"]
-    dist = r["23"]
+    dist, spmd_run = r["23"], r["25"]
 
     src = "torchgpipe_tpu_torch/csrc/"
     ref = "torchgpipe_tpu/ops/flash_attention.py"
@@ -5362,7 +6005,11 @@ def main() -> None:
              "f32_llama_generate": simt["paths"]["f32_llama"]["generate"],
              "d80_llama_train": simt["paths"]["d80_llama"]["train"],
              "d80_llama_generate": simt["paths"]["d80_llama"]["generate"],
-             "distributed": dist["launches_sum"]}
+             "f16_llama_train": simt["paths"]["f16_llama"]["train"],
+             "f16_llama_generate": simt["paths"]["f16_llama"]["generate"],
+             "distributed": dist["launches_sum"],
+             "spmd_rank": spmd_run["launches_a_rank"],
+             "spmd_generate": spmd_run["generate_launches"]}
 
     def by_path(name):
         return {p: n.get(name, 0) for p, n in paths.items()}
@@ -5495,6 +6142,71 @@ def main() -> None:
          "library_ms_by_backend": srows["decode"]["lib"][0],
          "takes": "cache rows that are not a multiple of 16 bytes",
          "shape": "bf16 cache [4, 544, 32, 80] live 528 g=1"},
+    ]
+    wrows, wworst = simt["wide_rows"], simt["wide_worst"]
+
+    def f16_entry(name, key, line, source, wrapper):
+        row = wrows["f16_train_microbatch"]
+        fwd_ = key == "fwd"
+        lib = row["lib_fwd"] if fwd_ else row["lib_bwd"]
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": f"{ref}:{line}", "instantiation": "float16",
+                "launches": paths["f16_llama_train"][wrapper],
+                "launches_by_path": {p: paths[p].get(wrapper, 0)
+                                     for p in ("f16_llama_train", "f16_llama_generate")},
+                "max_abs_err": wworst["f16_f16" if fwd_ else "f16_f16_bwd"],
+                "ms": row["ms"][key], "plain_ms": row["plain_fwd" if fwd_ else "plain_bwd"],
+                "plain_covers": "forward" if fwd_ else "all three gradients",
+                "bound_ms": row["bounds"][key][0], "bound_by": row["bounds"][key][1],
+                "library_ms": lib[2], "library_backend": lib[1],
+                "library_ms_by_backend": lib[0],
+                "shape": "f16 b=2 s=1024 h=32 g=8 d=128 causal"}
+
+    def wide_entry(name, key, line):
+        row = wrows["gemma_microbatch"]
+        fwd_ = key == "fwd"
+        lib = row["lib_fwd"] if fwd_ else row["lib_bwd"]
+        return {"name": name, "route": "cuda", "source": src + "flash_simt.cu",
+                "replaces": f"{ref}:{line}", "launches": paths["spmd_rank"][name],
+                "launches_by_path": by_path(name),
+                "max_abs_err": max(v for k, v in wworst.items()
+                                   if k.startswith("wide") and k.endswith("_bwd") != fwd_),
+                "ms": row["ms"][key], "plain_ms": row["plain_fwd" if fwd_ else "plain_bwd"],
+                "plain_covers": "forward" if fwd_ else "all three gradients",
+                "bound_ms": row["bounds"][key][0], "bound_by": row["bounds"][key][1],
+                "bound_fma_ms": row["fma"][key], "library_ms": lib[2],
+                "library_backend": lib[1], "library_ms_by_backend": lib[0],
+                "takes": "head dims 129-256 in bf16, f16 and f32",
+                "shape": "bf16 b=2 s=512 h=g=16 d=256 causal (phase 25's micro-batch)"}
+
+    def decode_row_entry(name, row_name, wrapper, path, **extra):
+        row = wrows[row_name]
+        return {"name": name, "route": "cuda", "replaces": f"{ref}:1024",
+                "launches": paths[path].get(wrapper, 0),
+                "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["lib"][2],
+                "library_backend": row["lib"][1], "library_ms_by_backend": row["lib"][0],
+                **extra}
+
+    kernels += [
+        f16_entry("flash_fwd_f16", "fwd", 69, "flash_fwd.cu", "flash_fwd"),
+        f16_entry("flash_bwd_dq_f16", "dq", 538, "flash_bwd.cu", "flash_bwd_dq"),
+        f16_entry("flash_bwd_dkv_f16", "dkv", 592, "flash_bwd.cu", "flash_bwd_dkv"),
+        decode_row_entry("flash_decode_f16", "f16_generate", "flash_decode",
+                         "f16_llama_generate", source=src + "flash_decode.cu",
+                         instantiation="float16", max_abs_err=wworst["decode_f16"],
+                         launches_by_path={"f16_llama_generate": paths[
+                             "f16_llama_generate"].get("flash_decode", 0)},
+                         shape="f16 cache [4, 544, 8, 128] live 528 g=1"),
+        wide_entry("flash_fwd_wide", "fwd", 69),
+        wide_entry("flash_bwd_dq_wide", "dq", 538),
+        wide_entry("flash_bwd_dkv_wide", "dkv", 592),
+        decode_row_entry("flash_decode_wide", "gemma_generate", "flash_decode_wide",
+                         "spmd_generate", source=src + "flash_simt.cu",
+                         max_abs_err=wworst["decode_wide"],
+                         launches_by_path=by_path("flash_decode_wide"),
+                         takes="head dims 129-256, bf16, f16, f32 and int8 caches",
+                         shape="bf16 cache [2, 144, 16, 256] live 136 g=1 (25c)"),
     ]
     smem = smem_dynamic(_build)
     for k in kernels:

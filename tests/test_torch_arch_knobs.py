@@ -276,6 +276,6 @@ def test_load_refuses_a_nested_dict_by_its_key():
     jcfg, tcfg = _cfgs(**dict(GPT2, tie_embeddings=False))
     _, params = _jax_params(jcfg)
     params[1] = dict(params[1], w_fc={"q": params[1]["w_fc"], "scale": np.ones(1)})
-    with pytest.raises(NotImplementedError, match="layer 1 param 'w_fc' \\(dict where "
+    with pytest.raises(ValueError, match="layer 1 param 'w_fc' \\(dict where "
                                                   "the port holds Parameter"):
         params_from_jax(tcfg, params, device="cpu")

@@ -2,7 +2,8 @@
 when the tensor-core kernels do not take its shape, against the JAX
 reference.
 
-The card's tensor-core kernels take bfloat16 at head dims 64 and 128.
+The card's tensor-core kernels take bfloat16 and float16 at head dims 64
+and 128; head dims 129 to 256 run the CUDA-core kernels ("wide").
 The reference computes every other case: its kernel zero-pads a head dim
 below 128 (``torchgpipe_tpu/ops/flash_attention.py:977-995``) and takes
 float32; its decode goes dense where ``supports_decode`` fails.  The port
@@ -53,10 +54,11 @@ BF16, F32, I8 = torch.bfloat16, torch.float32, torch.int8
     [(128, BF16, {}, ("kernel", 128)), (64, BF16, {}, ("kernel", 64)),
      (32, BF16, {}, ("pad", 64)), (80, BF16, {}, ("pad", 128)),
      (96, BF16, {}, ("pad", 128)), (16, BF16, {"window": 8}, ("pad", 64)),
-     (256, BF16, {}, ("none", 256)), (192, BF16, {}, ("none", 192)),
+     # head dims 129-256: the CUDA-core kernels in every dtype ("wide")
+     (256, BF16, {}, ("wide", 256)), (192, BF16, {}, ("wide", 192)),
      # float32: the 3xTF32 forward at d % 4 == 0, the CUDA-core one else
      (128, F32, {}, ("f32", 128)), (32, F32, {}, ("f32", 32)),
-     (128, torch.float16, {}, ("none", 128)),
+     (128, torch.float16, {}, ("kernel", 128)),
      (128, F32, {"window": 8}, ("f32", 128)), (36, F32, {}, ("f32", 36)),
      (30, F32, {}, ("simt", 30)), (18, F32, {"window": 8}, ("simt", 18)),
      # decode: the tensor-core kernel at any head dim up to 128 whose
@@ -74,9 +76,9 @@ BF16, F32, I8 = torch.bfloat16, torch.float32, torch.int8
      (20, BF16, {"decode": True}, ("simt", 20)),
      (30, F32, {"decode": True}, ("simt", 30)),
      (24, F32, {"decode": True, "cache_dtype": I8}, ("simt", 24)),
-     (128, torch.float16, {"decode": True}, ("none", 128)),
+     (128, torch.float16, {"decode": True}, ("kernel", 128)),
      (128, BF16, {"decode": True, "cache_dtype": F32}, ("none", 128)),
-     (256, BF16, {"decode": True}, ("none", 256)), (256, F32, {}, ("none", 256))],
+     (256, BF16, {"decode": True}, ("wide", 256)), (256, F32, {}, ("wide", 256))],
 )
 def test_route_table(d, dtype, kw, want):
     q, k = (2, 16, 8, d), (2, 16, 2, d)

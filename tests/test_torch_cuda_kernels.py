@@ -326,8 +326,8 @@ def test_flash_decode_int8_refusals(cuda_device):
     with pytest.raises(ValueError, match="k_scale must be float32"):
         tfa.flash_decode_attention(q, ck, ck, 3, k_scale=ks.transpose(1, 2),
                                    v_scale=ks)
-    with pytest.raises(TypeError, match="bfloat16 or float32 q"):
-        tfa.flash_decode_attention(q.half(), ck, ck, 3, k_scale=ks, v_scale=ks)
+    with pytest.raises(TypeError, match="float16 or float32 q"):
+        tfa.flash_decode_attention(q.double(), ck, ck, 3, k_scale=ks, v_scale=ks)
     with pytest.raises(TypeError, match="int8 cache"):
         tfa.flash_decode_attention(q, ck.bfloat16(), ck.bfloat16(), 3,
                                    k_scale=ks, v_scale=ks)
@@ -351,14 +351,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "dtype,n_head_dim",
-    [(torch.float16, 128), (torch.bfloat16, 256), (torch.float32, 256)],
+    [(torch.float16, 320), (torch.bfloat16, 320), (torch.float32, 384)],
 )
 def test_generation_on_the_card_raises_for_what_the_kernels_do_not_take(
     cuda_device, dtype, n_head_dim
 ):
     """prefill and generate call the kernels on the card and never fall
-    back to the plain version: what no kernel takes (float16, a head dim
-    above 128) raises."""
+    back to the plain version: what no kernel takes (a head dim above
+    256) raises."""
     from torchgpipe_tpu_torch.models import generation as tg
     from torchgpipe_tpu_torch.models import transformer as tt
 
@@ -782,8 +782,182 @@ def test_new_routes_refuse_what_their_kernels_do_not_take(cuda_device):
         qd, ck, cv, sc = _decode_inputs(gen, 1, 1, 8, 2, hd, 64, kind, cuda_device)
         with pytest.raises(ValueError, match="head dim"):
             tfa.flash_decode_attention(qd, ck, cv, 3, **sc)
-        want = "none" if hd > 128 else "simt"
+        want = "wide" if hd > 128 else "simt"
         assert tfa.attention_route(qd.shape, ck.shape, qd.dtype, decode=True,
                                    cache_dtype=ck.dtype).kind == want
     assert (tfa.flash_attention_tf32.launches, tfa.flash_decode_attention.launches,
             tfa.flash_decode_attention.launches_int8) == n
+
+
+# float16 through the tensor-core kernels (flash_fwd.cu, flash_bwd.cu,
+# flash_decode.cu; the same code as bf16, wgmma's and mma.sync's f16
+# forms).  The bf16 tolerances above hold with room to spare: they are
+# derived from bf16's rounding of P, dS and the outputs (unit roundoff
+# 2^-8), and float16 rounds the same places at 2^-11 (|o|, P and dS stay
+# far inside float16's range at these inputs).
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "s,h,g,d,window,causal",
+    [(1024, 8, 2, 128, None, True), (333, 4, 4, 64, 50, True),
+     (200, 4, 1, 128, None, False), (129, 4, 4, 128, None, True),
+     (1000, 8, 2, 64, 300, True)],
+)
+def test_flash_f16_kernels_match_plain(cuda_device, s, h, g, d, window, causal):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(2, s, n, d, generator=gen, device=cuda_device).half()
+               for n in (h, g, g))
+    do = torch.randn(2, s, h, d, generator=gen, device=cuda_device).half()
+    scale = d ** -0.5
+    before = (tfa.flash_attention.launches, tfa.flash_bwd_dq.launches,
+              tfa.flash_bwd_dkv.launches)
+    o, lse = tfa._flash_fwd(q, k, v, causal, scale, window)
+    ref_o, ref_lse = tfa._reference_fwd(q, k, v, causal, scale, window)
+    delta = tfa._delta(do, o)
+    kw = dict(causal=causal, sm_scale=scale, window=window)
+    dq = tfa.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = tfa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    ref = tfa._reference_bwd(q, k, v, o, lse, do, causal, scale, window)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.float16
+    assert (o.float() - ref_o.float()).abs().max().item() <= FWD_TOL
+    assert (lse - ref_lse).abs().max().item() <= 2e-3
+    assert (tfa.flash_attention.launches, tfa.flash_bwd_dq.launches,
+            tfa.flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    for got, want in zip((dq, dk, dv), ref):
+        assert got.dtype == torch.float16 and got.shape == want.shape
+        assert bwd_row_ratio(got, want) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "kind,g,pos0,window,hd,L",
+    [("f16", 1, 1087, None, 128, 1152), ("f16", 5, 600, 256, 64, 1152),
+     ("f16", 1, 19999, None, 128, 20000), ("f16", 4, 527, None, 80, 544),
+     ("f16int8", 1, 1087, None, 128, 1152), ("f16int8", 5, 300, 64, 64, 517)],
+)
+def test_flash_decode_f16_matches_plain(cuda_device, kind, g, pos0, window, hd, L):
+    """float16 queries against a float16 cache and against an int8 cache
+    (widened exactly to f16), host and device ``pos0`` equal bitwise."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q = torch.randn(2, g, 8, hd, generator=gen, device=cuda_device).half()
+    if kind == "f16int8":
+        ck, ks = _int8_cache(gen, 2, L, 2, hd, cuda_device)
+        cv, vs = _int8_cache(gen, 2, L, 2, hd, cuda_device)
+        sc = dict(k_scale=ks, v_scale=vs)
+    else:
+        ck, cv = (torch.randn(2, L, 2, hd, generator=gen, device=cuda_device).half()
+                  for _ in range(2))
+        sc = {}
+    assert tfa.attention_route(q.shape, ck.shape, q.dtype, window=window, decode=True,
+                               cache_dtype=ck.dtype).kind == "kernel"
+    host = tfa.flash_decode_attention(q, ck, cv, pos0, window=window, **sc)
+    dev = tfa.flash_decode_attention(
+        q, ck, cv, torch.tensor(pos0, dtype=torch.int32, device=cuda_device),
+        window=window, **sc)
+    ref = tfa.flash_decode_reference(q, ck, cv, pos0, window=window, **sc)
+    torch.cuda.synchronize()
+    assert torch.equal(host, dev)
+    assert (dev - ref).abs().max().item() <= DECODE_TOL
+
+
+# Head dims 129-256 (Gemma's 256) on csrc/flash_simt.cu in bf16, float16
+# and float32.  The kernels widen every element to f32 and compute in f32
+# as the plain versions do, so the two differ by summation order before
+# each rounds its outputs once: one ulp of the output type for bf16/f16
+# (inside FWD_TOL and the row tolerance), and the float32 tolerances of
+# test_flash_simt_f32_matches_plain for float32.
+WIDE_DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(WIDE_DTYPES))
+@pytest.mark.parametrize(
+    "s,h,g,d,window,causal",
+    [(512, 4, 4, 256, None, True), (333, 4, 2, 256, 50, True),
+     (200, 4, 1, 160, None, False), (129, 2, 2, 256, None, True)],
+)
+def test_flash_wide_matches_plain(cuda_device, kind, s, h, g, d, window, causal):
+    """The wide forward, dQ and dK/dV against the plain versions from the
+    kernel's own O and LSE (the backward's ``delta`` reads O in the
+    element type, as the tensor-core backward's test does), and
+    ``attention`` routing there with the same bits."""
+    dtype = WIDE_DTYPES[kind]
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(2, s, n, d, generator=gen, device=cuda_device).to(dtype)
+               for n in (h, g, g))
+    do = torch.randn(2, s, h, d, generator=gen, device=cuda_device).to(dtype)
+    assert tfa.attention_route(q.shape, k.shape, dtype, window=window).kind == "wide"
+    scale = d ** -0.5
+    kw = dict(causal=causal, sm_scale=scale, window=window)
+    o, lse = tfa._flash_fwd_wide(q, k, v, causal, scale, window)
+    ref_o, ref_lse = tfa._reference_fwd(q, k, v, causal, scale, window)
+    delta = tfa._delta(do, o)
+    got = (tfa.flash_bwd_dq_wide(q, k, v, do, lse, delta, **kw),
+           *tfa.flash_bwd_dkv_wide(q, k, v, do, lse, delta, **kw))
+    want = tfa._reference_bwd(q, k, v, o, lse, do, causal, scale, window)
+    before = (tfa.flash_attention_wide.launches, tfa.flash_bwd_dq_wide.launches,
+              tfa.flash_bwd_dkv_wide.launches)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    out = tfa.attention(qg, kg, vg, causal=causal, window=window)
+    routed = torch.autograd.grad(out, (qg, kg, vg), do)
+    torch.cuda.synchronize()
+    assert (tfa.flash_attention_wide.launches, tfa.flash_bwd_dq_wide.launches,
+            tfa.flash_bwd_dkv_wide.launches) == tuple(n + 1 for n in before)
+    assert torch.equal(out, o) and all(torch.equal(a, b) for a, b in zip(routed, got))
+    assert o.dtype == dtype and all(t.dtype == dtype for t in got)
+    assert (lse - ref_lse).abs().max().item() <= 2e-3
+    if dtype == torch.float32:
+        assert (o - ref_o).abs().max().item() <= F32_TOL
+        assert all(f32_row_ratio(a, b) <= 1.0 for a, b in zip(got, want))
+    else:
+        assert (o.float() - ref_o.float()).abs().max().item() <= FWD_TOL
+        assert all(bwd_row_ratio(a, b) <= 1.0 for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "kind,g,pos0,window,hd,L",
+    [("bf16", 1, 1087, None, 256, 1152), ("f16", 5, 600, 256, 256, 1152),
+     ("f32", 1, 527, None, 160, 544), ("int8", 1, 1087, None, 256, 1152),
+     ("bf16", 1, 9999, None, 256, 10000)],
+)
+def test_flash_decode_wide_matches_plain(cuda_device, kind, g, pos0, window, hd, L):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    if kind == "f16":
+        q = torch.randn(2, g, 8, hd, generator=gen, device=cuda_device).half()
+        ck, cv = (torch.randn(2, L, 2, hd, generator=gen, device=cuda_device).half()
+                  for _ in range(2))
+        sc = {}
+    else:
+        q, ck, cv, sc = _decode_inputs(gen, 2, g, 8, 2, hd, L, kind, cuda_device)
+    assert tfa.attention_route(q.shape, ck.shape, q.dtype, window=window, decode=True,
+                               cache_dtype=ck.dtype).kind == "wide"
+    before = tfa.flash_decode_wide.launches
+    host = tfa.decode_attention(q, ck, cv, pos0, window=window, **sc)
+    dev = tfa.decode_attention(
+        q, ck, cv, torch.tensor(pos0, dtype=torch.int32, device=cuda_device),
+        window=window, **sc)
+    ref = tfa.flash_decode_reference(q, ck, cv, pos0, window=window, **sc)
+    torch.cuda.synchronize()
+    assert tfa.flash_decode_wide.launches == before + 2
+    assert torch.equal(host, dev)
+    assert (dev - ref).abs().max().item() <= DECODE_TOL
+
+
+@pytest.mark.cuda
+def test_wide_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    q = torch.zeros(1, 64, 4, 320, device=cuda_device).bfloat16()
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_attention_wide(q, q, q)
+    with pytest.raises(ValueError, match="no CUDA kernel"):
+        tfa.attention(q, q, q)
+    q128 = torch.zeros(1, 64, 4, 128, device=cuda_device).bfloat16()
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_attention_wide(q128, q128, q128)
+    q256 = torch.zeros(1, 64, 4, 256, device=cuda_device).bfloat16()
+    with pytest.raises(TypeError, match="one type"):
+        tfa.flash_attention_wide(q256, q256.half(), q256)
+    c = torch.zeros(1, 64, 2, 320, device=cuda_device).bfloat16()
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_decode_wide(torch.zeros(1, 1, 4, 320, device=cuda_device).bfloat16(),
+                              c, c, 3)

@@ -18,6 +18,8 @@ micro-batches in the same order: loss and gradients must be bitwise
 equal, dropout masks included.
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -402,7 +404,13 @@ def test_prefetch_to_pipe_places_batches_where_the_pipe_takes_them():
     x, y = _mlp_data()
     got = list(data.prefetch_to_pipe([(x, y), (x, y)], pipe, size=1))
     assert len(got) == 2 and torch.equal(got[1][0], torch.from_numpy(x))
-    with pytest.raises(NotImplementedError, match="queue A item 5.4"):
+    with pytest.raises(TypeError, match="takes a GPipe"):
         data.pipe_data_sharding(object())
-    with pytest.raises(NotImplementedError, match="queue A item 5.4"):
-        data.global_batch_from_local(None, None, x)
+    # A one-process mesh stand-in: the global batch of a replicated spec is
+    # the local one; an axis the mesh lacks is refused.
+    mesh = types.SimpleNamespace(axis_names=("pp", "dp"), shape={"pp": 1, "dp": 1},
+                                 device=torch.device("cpu"), all_gather=lambda t, a: [t])
+    xt = torch.from_numpy(x)
+    assert torch.equal(data.global_batch_from_local(mesh, None, xt), xt)
+    with pytest.raises(ValueError, match="names axis 'tp'"):
+        data.global_batch_from_local(mesh, ("tp",), xt)

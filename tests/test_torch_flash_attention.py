@@ -372,7 +372,7 @@ def test_gates_and_refusals():
     assert tfa.supports_decode((4, 8, 32, 128), (4, 1152, 8, 128), None)
     assert tfa.supports_decode((4, 1, 32, 128), (4, 1152, 8, 128), None, torch.int8)
     assert not tfa.supports_decode((4, 1, 32, 128), (4, 1152, 8, 128), None,
-                                   torch.float16)
+                                   torch.float64)
     assert not tfa.supports_decode((4, 1, 32, 128), (4, 1152, 8, 128), 0)
     t = torch.zeros(1, 1, 2, 128)
     c = torch.zeros(1, 8, 2, 128)

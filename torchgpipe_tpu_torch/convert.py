@@ -44,7 +44,6 @@ from torchgpipe_tpu_torch.models.transformer import (
     Llama,
     TransformerConfig,
     _Layer,
-    not_ported,
 )
 
 
@@ -67,10 +66,11 @@ def _load_dict(ours: Mapping[str, Any], theirs: Mapping[str, Any], what: str) ->
         nested = isinstance(leaf, Mapping)
         if (nested and not isinstance(ours.get(key), Mapping)) or \
                 (not nested and not hasattr(leaf, "shape")):
-            raise not_ported(
+            raise ValueError(
                 f"{what} param {key!r} ({type(leaf).__name__} where the port "
-                f"holds {type(ours.get(key)).__name__}; stacked SPMD "
-                "parameter trees are not ported)", "5.4")
+                f"holds {type(ours.get(key)).__name__}); a stacked SPMD "
+                "parameter tree goes to params_from_jax whole, as the "
+                "{'pre', 'blocks', 'post'} dict")
     if set(theirs) != set(ours):
         raise ValueError(
             f"{what}: reference keys {sorted(theirs)} != port keys "
@@ -106,7 +106,10 @@ def params_from_jax(
     device: Device = None, *, loss_params: Optional[Mapping[str, Any]] = None,
     chunk: int = 8192, moe: Any = None,
 ) -> Any:
-    """The port's ``llama(cfg)`` holding the reference's parameters
+    """The port's ``llama(cfg)`` holding the reference's parameters, or,
+    given a reference ``SpmdGPipe``'s params dict (``{"pre", "blocks",
+    "post"}``, blocks stacked ``[n_stages, ...]``), the port's SPMD tree
+    (:func:`spmd_params_from_jax`).  The flat form:
     (numpy arrays, one dict per layer, LoRA adapters under a block's
     ``"lora"``; learned positions ``pos``, the embedding LayerNorm
     ``eln``/``elnb`` and the LayerNorm biases under their keys), on
@@ -122,6 +125,8 @@ def params_from_jax(
     (the router loads as float32, whatever ``cfg.dtype``).  int8 leaves
     (the reference's ``quantize_params_int8``) give a quantized model,
     the form ``models.quant.quantize_params_int8`` returns."""
+    if isinstance(params, Mapping) and "blocks" in params:
+        return spmd_params_from_jax(cfg, params, device)
     params = list(params)
     head = len(params) != cfg.n_layers + 1
     mlp = None
@@ -154,6 +159,59 @@ def params_from_jax(
     loss = ChunkedLMLoss(cfg, chunk=chunk, device=device)
     _load_dict(loss.params(), loss_params, "loss layer")
     return model, loss
+
+
+@torch.no_grad()
+def spmd_params_from_jax(cfg: TransformerConfig, params: Mapping[str, Any],
+                         device: Device = None) -> dict:
+    """A reference ``SpmdGPipe``'s params of ``llama_spmd(cfg, n)`` (numpy
+    leaves, ``{"pre", "blocks", "post"}``, blocks stacked ``[n_stages,
+    ...]``) as the port's tree of the same layout for
+    ``torchgpipe_tpu_torch.spmd.SpmdGPipe`` (its ``place`` takes it),
+    on ``device`` (``cuda`` unless named).  The structure and every shape
+    are checked against the port's ``llama_spmd`` (on the meta device);
+    a tied head carries no ``table``, as the reference's does not."""
+    from torchgpipe_tpu_torch.models.transformer import llama_spmd, resolve_device
+    from torchgpipe_tpu_torch.spmd import module_tree
+
+    leaves = [a for a in _np_leaves(params["blocks"])]
+    if not leaves:
+        raise ValueError("the reference's blocks tree has no leaves")
+    n = int(np.shape(leaves[0])[0])
+    block, pre, post = llama_spmd(cfg, n, device="meta")
+    skip = tuple(getattr(post, "tie_pre", ()))
+    want = {"pre": module_tree(pre), "post": module_tree(post, skip=skip),
+            "blocks": module_tree(block,
+                                  lambda name, p: torch.empty((n, *p.shape), device="meta"))}
+    if set(params) != set(want):
+        raise ValueError(f"reference keys {sorted(params)} != {sorted(want)}")
+    dev = resolve_device(device)
+
+    def load(ours: Any, theirs: Any, what: str) -> Any:
+        if isinstance(ours, Mapping):
+            if not isinstance(theirs, Mapping) or set(ours) != set(theirs):
+                raise ValueError(f"{what}: reference keys {_keys(theirs)} != {_keys(ours)}")
+            return {k: load(v, theirs[k], f"{what} {k}") for k, v in ours.items()}
+        if isinstance(ours, tuple):
+            if not isinstance(theirs, (tuple, list)) or len(theirs) != len(ours):
+                raise ValueError(f"{what}: reference {type(theirs).__name__} != "
+                                 f"a tuple of {len(ours)}")
+            return tuple(load(v, t, f"{what}[{i}]") for i, (v, t) in
+                         enumerate(zip(ours, theirs)))
+        t = _to_tensor(theirs)
+        if tuple(t.shape) != tuple(ours.shape):
+            raise ValueError(f"{what}: shape {tuple(t.shape)} != {tuple(ours.shape)}")
+        return t.to(device=dev, dtype=ours.dtype)
+
+    return {k: load(want[k], params[k], k) for k in ("pre", "blocks", "post")}
+
+
+def _np_leaves(tree: Any) -> list:
+    if isinstance(tree, Mapping):
+        return [x for v in tree.values() for x in _np_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _np_leaves(v)]
+    return [tree]
 
 
 def _copy(dst: torch.Tensor, src: Any, what: str, transpose=None) -> None:

@@ -20,6 +20,10 @@
 //
 // No atomics in either kernel, so the results are bitwise equal run to run.
 //
+// Element type E: bf16 (the _bf16 entry points) or float16 (_f16), the
+// same kernels with wgmma's f16 form and f16 tensor maps; P and dS are
+// packed to E as the products' A operands, everything else stays f32.
+//
 // * flash_bwd_dq (wgmma on swizzled tiles fed by TMA, hopper_tiles.cuh,
 //   the design of flash_fwd).  One persistent block per SM walks a
 //   longest-first list of 128-row query tiles (ops/flash_attention.py
@@ -120,14 +124,14 @@ struct DqSmem {
 // keys=64).  Its live key tiles are jt0 .. jt0+n-1.
 typedef QueryTile<DQ_BQ, DQ_BK> DqTile;   // n = 0: a windowed tile past the keys (dQ = 0)
 
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(DQ_THREADS, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tdo,
                     const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const float* __restrict__ lse,
                     const float* __restrict__ delta, const int* __restrict__ plan,
-                    bf16* __restrict__ dq, int b, int s, int sk, int h, int g, float scale,
+                    E* __restrict__ dq, int b, int s, int sk, int h, int g, float scale,
                     int causal, int window) {
   typedef DqSmem<D> L;
   constexpr int NB = D / 64;         // 64-column blocks of a row
@@ -266,9 +270,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
         for (int kk = 0; kk < D / 16; ++kk) {
           const uint32_t off = (kk % 4) * 32u;
           if constexpr (RS)
-            wgmma_rs<BK, 0>(sc, qf[kk], desc_k(ka + (kk / 4) * BK * 128 + off), kk > 0);
+            wgmma_rs<BK, 0, E>(sc, qf[kk], desc_k(ka + (kk / 4) * BK * 128 + off), kk > 0);
           else
-            wgmma_ss<BK, 0>(sc, desc_k(qa + (kk / 4) * DQ_BQ * 128 + off),
+            wgmma_ss<BK, 0, E>(sc, desc_k(qa + (kk / 4) * DQ_BQ * 128 + off),
                             desc_k(ka + (kk / 4) * BK * 128 + off), kk > 0);
         }
         wgmma_commit();
@@ -276,9 +280,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
         for (int kk = 0; kk < D / 16; ++kk) {
           const uint32_t off = (kk % 4) * 32u;
           if constexpr (RS)
-            wgmma_rs<BK, 0>(dp, of[kk], desc_k(va + (kk / 4) * BK * 128 + off), kk > 0);
+            wgmma_rs<BK, 0, E>(dp, of[kk], desc_k(va + (kk / 4) * BK * 128 + off), kk > 0);
           else
-            wgmma_ss<BK, 0>(dp, desc_k(oa + (kk / 4) * DQ_BQ * 128 + off),
+            wgmma_ss<BK, 0, E>(dp, desc_k(oa + (kk / 4) * DQ_BQ * 128 + off),
                             desc_k(va + (kk / 4) * BK * 128 + off), kk > 0);
         }
         wgmma_commit();
@@ -311,8 +315,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             ds[e] = sc[4 * t8 + e] * (dp[4 * t8 + e] - (e < 2 ? dl0 : dl1));
-          dsa[t8 >> 1][(t8 & 1) * 2] = bf16x2(ds[0], ds[1]);
-          dsa[t8 >> 1][(t8 & 1) * 2 + 1] = bf16x2(ds[2], ds[3]);
+          dsa[t8 >> 1][(t8 & 1) * 2] = pack2<E>(ds[0], ds[1]);
+          dsa[t8 >> 1][(t8 & 1) * 2 + 1] = pack2<E>(ds[2], ds[3]);
         }
       } else if (pass) {
         bar_arrive(other, 256);
@@ -327,7 +331,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
-          wgmma_rs<D, 1>(dqa, dsa[kk], desc_mn(ka + kk * 2048, BK * 128), 1);
+          wgmma_rs<D, 1, E>(dqa, dsa[kk], desc_mn(ka + kk * 2048, BK * 128), 1);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dqa);
@@ -345,31 +349,31 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
     for (int rr = 0; rr < 2; ++rr) {
       const int qpos = qpos0 + 8 * rr;
       if (qpos >= s) continue;
-      bf16* dst = dq + (size_t(t.bi) * s + qpos) * qstride + size_t(t.hi) * D + cq;
+      E* dst = dq + (size_t(t.bi) * s + qpos) * qstride + size_t(t.hi) * D + cq;
 #pragma unroll
       for (int c = 0; c < D / 8; ++c)
-        *reinterpret_cast<__nv_bfloat162*>(dst + c * 8) =
-            __floats2bfloat162_rn(dqa[4 * c + 2 * rr] * scale, dqa[4 * c + 2 * rr + 1] * scale);
+        store2<E>(dst + c * 8, dqa[4 * c + 2 * rr] * scale, dqa[4 * c + 2 * rr + 1] * scale);
     }
   }
 }
 
-template <int D>
+template <int D, typename E>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, void* dq, const int* plan, int nblocks, int b, int s, int sk,
               int h, int g, float scale, int causal, int window, cudaStream_t stream) {
   CUtensorMap tq, tdo, tk, tv;
   int e;
-  if ((e = make_map(&tq, q, D, h, s, b, DQ_BQ)) || (e = make_map(&tdo, dout, D, h, s, b, DQ_BQ)) ||
-      (e = make_map(&tk, k, D, g, sk, b, DQ_BK)) || (e = make_map(&tv, v, D, g, sk, b, DQ_BK)))
+  if ((e = make_map<E>(&tq, q, D, h, s, b, DQ_BQ)) ||
+      (e = make_map<E>(&tdo, dout, D, h, s, b, DQ_BQ)) ||
+      (e = make_map<E>(&tk, k, D, g, sk, b, DQ_BK)) || (e = make_map<E>(&tv, v, D, g, sk, b, DQ_BK)))
     return e;
   const int bytes = DqSmem<D>::ALLOC;
-  cudaError_t ce = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+  cudaError_t ce = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, E>,
                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (ce != cudaSuccess) return int(ce);
-  flash_bwd_dq_kernel<D><<<nblocks, DQ_THREADS, bytes, stream>>>(
+  flash_bwd_dq_kernel<D, E><<<nblocks, DQ_THREADS, bytes, stream>>>(
       tq, tdo, tk, tv, static_cast<const float*>(lse), static_cast<const float*>(delta), plan,
-      static_cast<bf16*>(dq), b, s, sk, h, g, scale, causal, window);
+      static_cast<E*>(dq), b, s, sk, h, g, scale, causal, window);
   return int(cudaGetLastError());
 }
 
@@ -403,7 +407,7 @@ struct DkvSmem {
   static constexpr int ALLOC = BYTES + 1024;  // room to align the base
 };
 
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(KV_THREADS, 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tdo,
@@ -411,7 +415,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tv, const float* __restrict__ lse,
                      const float* __restrict__ delta, const int* __restrict__ items,
                      const int* __restrict__ offsets, float* __restrict__ partial,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int s, int sk, int h, int g,
+                     E* __restrict__ dk, E* __restrict__ dv, int s, int sk, int h, int g,
                      float scale, int causal, int window) {
   typedef DkvSmem<D> L;
   constexpr int NB = D / 64;         // 64-column blocks of a row
@@ -533,14 +537,14 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const uint32_t off = (kk / 4) * KV_BK * 128 + (kk % 4) * 32;
-          wgmma_ss<KV_BQ, 0>(st, desc_k(ka + off),
+          wgmma_ss<KV_BQ, 0, E>(st, desc_k(ka + off),
                              desc_k(qa + (kk / 4) * KV_BQ * 128 + (kk % 4) * 32), kk > 0);
         }
         wgmma_commit();
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           const uint32_t off = (kk / 4) * KV_BK * 128 + (kk % 4) * 32;
-          wgmma_ss<KV_BQ, 0>(dpt, desc_k(va + off),
+          wgmma_ss<KV_BQ, 0, E>(dpt, desc_k(va + off),
                              desc_k(oa + (kk / 4) * KV_BQ * 128 + (kk % 4) * 32), kk > 0);
         }
         wgmma_commit();
@@ -576,10 +580,10 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             ds[e] = st[4 * t8 + e] * (dpt[4 * t8 + e] - ((e & 1) ? dl.y : dl.x));
-          pa[t8 >> 1][(t8 & 1) * 2] = bf16x2(st[4 * t8], st[4 * t8 + 1]);
-          pa[t8 >> 1][(t8 & 1) * 2 + 1] = bf16x2(st[4 * t8 + 2], st[4 * t8 + 3]);
-          dsa[t8 >> 1][(t8 & 1) * 2] = bf16x2(ds[0], ds[1]);
-          dsa[t8 >> 1][(t8 & 1) * 2 + 1] = bf16x2(ds[2], ds[3]);
+          pa[t8 >> 1][(t8 & 1) * 2] = pack2<E>(st[4 * t8], st[4 * t8 + 1]);
+          pa[t8 >> 1][(t8 & 1) * 2 + 1] = pack2<E>(st[4 * t8 + 2], st[4 * t8 + 3]);
+          dsa[t8 >> 1][(t8 & 1) * 2] = pack2<E>(ds[0], ds[1]);
+          dsa[t8 >> 1][(t8 & 1) * 2 + 1] = pack2<E>(ds[2], ds[3]);
         }
 
         // dV += P^T dO and dK += dS^T Q (dO, Q as [queries, d]: MN-major).
@@ -588,10 +592,10 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
         wgmma_fence();
 #pragma unroll
         for (int kq = 0; kq < KV_BQ / 16; ++kq)
-          wgmma_rs<D, 1>(dva, pa[kq], desc_mn(oa + kq * 2048, KV_BQ * 128), 1);
+          wgmma_rs<D, 1, E>(dva, pa[kq], desc_mn(oa + kq * 2048, KV_BQ * 128), 1);
 #pragma unroll
         for (int kq = 0; kq < KV_BQ / 16; ++kq)
-          wgmma_rs<D, 1>(dka, dsa[kq], desc_mn(qa + kq * 2048, KV_BQ * 128), 1);
+          wgmma_rs<D, 1, E>(dka, dsa[kq], desc_mn(qa + kq * 2048, KV_BQ * 128), 1);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dva);
@@ -614,20 +618,16 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
         const size_t off = (size_t(bi) * sk + kpos0) * kstride + col;
 #pragma unroll
         for (int t8 = 0; t8 < D / 8; ++t8) {
-          *reinterpret_cast<__nv_bfloat162*>(dk + off + t8 * 8) =
-              __floats2bfloat162_rn(dka[4 * t8] * scale, dka[4 * t8 + 1] * scale);
-          *reinterpret_cast<__nv_bfloat162*>(dv + off + t8 * 8) =
-              __floats2bfloat162_rn(dva[4 * t8], dva[4 * t8 + 1]);
+          store2<E>(dk + off + t8 * 8, dka[4 * t8] * scale, dka[4 * t8 + 1] * scale);
+          store2<E>(dv + off + t8 * 8, dva[4 * t8], dva[4 * t8 + 1]);
         }
       }
       if (kpos1 < sk) {
         const size_t off = (size_t(bi) * sk + kpos1) * kstride + col;
 #pragma unroll
         for (int t8 = 0; t8 < D / 8; ++t8) {
-          *reinterpret_cast<__nv_bfloat162*>(dk + off + t8 * 8) =
-              __floats2bfloat162_rn(dka[4 * t8 + 2] * scale, dka[4 * t8 + 3] * scale);
-          *reinterpret_cast<__nv_bfloat162*>(dv + off + t8 * 8) =
-              __floats2bfloat162_rn(dva[4 * t8 + 2], dva[4 * t8 + 3]);
+          store2<E>(dk + off + t8 * 8, dka[4 * t8 + 2] * scale, dka[4 * t8 + 3] * scale);
+          store2<E>(dv + off + t8 * 8, dva[4 * t8 + 2], dva[4 * t8 + 3]);
         }
       }
     } else {
@@ -648,10 +648,10 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
 // dV's): adds the tile's `count` slots from `first` in item order (count
 // 0: no query attends the tile, write zeros; count < 0: an item wrote it
 // directly).  Threads map to rows as the consumers' accumulators do.
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(256)
 flash_bwd_dkv_sum_kernel(const float* __restrict__ partial, const int* __restrict__ combos,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv, int sk, int g, int nkt,
+                         E* __restrict__ dk, E* __restrict__ dv, int sk, int g, int nkt,
                          float scale) {
   const int c = blockIdx.x, j = blockIdx.y, first = combos[2 * c], count = combos[2 * c + 1];
   if (count < 0) return;
@@ -666,22 +666,18 @@ flash_bwd_dkv_sum_kernel(const float* __restrict__ partial, const int* __restric
     a.w += x.w;
   }
   const bool is_v = j >= D / 8;
-  bf16* out = is_v ? dv : dk;
+  E* out = is_v ? dv : dk;
   const float f = is_v ? 1.f : scale;
   const int kt = c % nkt, kvh = (c / nkt) % g, bi = c / nkt / g;
   const int w = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
   const int kpos0 = kt * KV_BK + 64 * w + warp * 16 + (lane >> 2), kpos1 = kpos0 + 8;
   const size_t kstride = size_t(g) * D;
   const size_t col = size_t(kvh) * D + (is_v ? j - D / 8 : j) * 8 + (lane & 3) * 2;
-  if (kpos0 < sk)
-    *reinterpret_cast<__nv_bfloat162*>(out + (size_t(bi) * sk + kpos0) * kstride + col) =
-        __floats2bfloat162_rn(a.x * f, a.y * f);
-  if (kpos1 < sk)
-    *reinterpret_cast<__nv_bfloat162*>(out + (size_t(bi) * sk + kpos1) * kstride + col) =
-        __floats2bfloat162_rn(a.z * f, a.w * f);
+  if (kpos0 < sk) store2<E>(out + (size_t(bi) * sk + kpos0) * kstride + col, a.x * f, a.y * f);
+  if (kpos1 < sk) store2<E>(out + (size_t(bi) * sk + kpos1) * kstride + col, a.z * f, a.w * f);
 }
 
-template <int D>
+template <int D, typename E>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, void* dk, void* dv, const int* items, const int* offsets,
                const int* combos, float* partial, int nblocks, int b, int s, int sk, int h,
@@ -689,24 +685,64 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
   if (nblocks > 0) {
     CUtensorMap tq, tdo, tk, tv;
     int e;
-    if ((e = make_map(&tq, q, D, h, s, b, KV_BQ)) || (e = make_map(&tdo, dout, D, h, s, b, KV_BQ)) ||
-        (e = make_map(&tk, k, D, g, sk, b, KV_BK)) || (e = make_map(&tv, v, D, g, sk, b, KV_BK)))
+    if ((e = make_map<E>(&tq, q, D, h, s, b, KV_BQ)) ||
+        (e = make_map<E>(&tdo, dout, D, h, s, b, KV_BQ)) ||
+        (e = make_map<E>(&tk, k, D, g, sk, b, KV_BK)) ||
+        (e = make_map<E>(&tv, v, D, g, sk, b, KV_BK)))
       return e;
     const int bytes = DkvSmem<D>::ALLOC;
-    cudaError_t ce = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
+    cudaError_t ce = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D, E>,
                                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (ce != cudaSuccess) return int(ce);
-    flash_bwd_dkv_kernel<D><<<nblocks, KV_THREADS, bytes, stream>>>(
+    flash_bwd_dkv_kernel<D, E><<<nblocks, KV_THREADS, bytes, stream>>>(
         tq, tdo, tk, tv, static_cast<const float*>(lse), static_cast<const float*>(delta), items,
-        offsets, partial, static_cast<bf16*>(dk), static_cast<bf16*>(dv), s, sk, h, g, scale,
+        offsets, partial, static_cast<E*>(dk), static_cast<E*>(dv), s, sk, h, g, scale,
         causal, window);
     ce = cudaGetLastError();
     if (ce != cudaSuccess) return int(ce);
   }
   const int nkt = (sk + KV_BK - 1) / KV_BK;
-  flash_bwd_dkv_sum_kernel<D><<<dim3(b * g * nkt, D / 4), 256, 0, stream>>>(
-      partial, combos, static_cast<bf16*>(dk), static_cast<bf16*>(dv), sk, g, nkt, scale);
+  flash_bwd_dkv_sum_kernel<D, E><<<dim3(b * g * nkt, D / 4), 256, 0, stream>>>(
+      partial, combos, static_cast<E*>(dk), static_cast<E*>(dv), sk, g, nkt, scale);
   return int(cudaGetLastError());
+}
+
+template <typename E>
+int dq_entry(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+             const void* delta, void* dq, const void* plan, int nblocks, int b, int s, int sk,
+             int h, int g, int d, float scale, int causal, int window, void* stream) {
+  if (s == 0 || b == 0) return 0;
+  if (sk == 0 || g <= 0 || h % g != 0 || nblocks <= 0) return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* pl = static_cast<const int*>(plan);
+  if (d == 128)
+    return launch_dq<128, E>(q, k, v, dout, lse, delta, dq, pl, nblocks, b, s, sk, h, g, scale,
+                             causal, window, st);
+  if (d == 64)
+    return launch_dq<64, E>(q, k, v, dout, lse, delta, dq, pl, nblocks, b, s, sk, h, g, scale,
+                            causal, window, st);
+  return int(cudaErrorInvalidValue);
+}
+
+template <typename E>
+int dkv_entry(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, void* dk, void* dv, const void* items, const void* offsets,
+              const void* combos, void* partial, int nblocks, int b, int s, int sk, int h, int g,
+              int d, float scale, int causal, int window, void* stream) {
+  if (sk == 0 || b == 0) return 0;
+  if (g <= 0 || h % g != 0) return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* it = static_cast<const int*>(items);
+  const int* of = static_cast<const int*>(offsets);
+  const int* co = static_cast<const int*>(combos);
+  float* pp = static_cast<float*>(partial);
+  if (d == 128)
+    return launch_dkv<128, E>(q, k, v, dout, lse, delta, dk, dv, it, of, co, pp, nblocks, b, s,
+                              sk, h, g, scale, causal, window, st);
+  if (d == 64)
+    return launch_dkv<64, E>(q, k, v, dout, lse, delta, dk, dv, it, of, co, pp, nblocks, b, s,
+                             sk, h, g, scale, causal, window, st);
+  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -722,17 +758,18 @@ extern "C" int tgt_flash_bwd_dq_bf16(const void* q, const void* k, const void* v
                                      void* dq, const void* plan, int nblocks, int b, int s,
                                      int sk, int h, int g, int d, float scale, int causal,
                                      int window, void* stream) {
-  if (s == 0 || b == 0) return 0;
-  if (sk == 0 || g <= 0 || h % g != 0 || nblocks <= 0) return int(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* pl = static_cast<const int*>(plan);
-  if (d == 128)
-    return launch_dq<128>(q, k, v, dout, lse, delta, dq, pl, nblocks, b, s, sk, h, g, scale,
-                          causal, window, st);
-  if (d == 64)
-    return launch_dq<64>(q, k, v, dout, lse, delta, dq, pl, nblocks, b, s, sk, h, g, scale,
-                         causal, window, st);
-  return int(cudaErrorInvalidValue);
+  return dq_entry<bf16>(q, k, v, dout, lse, delta, dq, plan, nblocks, b, s, sk, h, g, d, scale,
+                        causal, window, stream);
+}
+
+// The same with q, k, v, dout and dq float16.
+extern "C" int tgt_flash_bwd_dq_f16(const void* q, const void* k, const void* v,
+                                    const void* dout, const void* lse, const void* delta,
+                                    void* dq, const void* plan, int nblocks, int b, int s,
+                                    int sk, int h, int g, int d, float scale, int causal,
+                                    int window, void* stream) {
+  return dq_entry<f16>(q, k, v, dout, lse, delta, dq, plan, nblocks, b, s, sk, h, g, d, scale,
+                       causal, window, stream);
 }
 
 // Same inputs; dk = dS^T Q * scale and dv = P^T dO, summed over the h/g
@@ -749,20 +786,19 @@ extern "C" int tgt_flash_bwd_dkv_bf16(const void* q, const void* k, const void* 
                                       const void* offsets, const void* combos, void* partial,
                                       int nblocks, int b, int s, int sk, int h, int g, int d,
                                       float scale, int causal, int window, void* stream) {
-  if (sk == 0 || b == 0) return 0;
-  if (g <= 0 || h % g != 0) return int(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* it = static_cast<const int*>(items);
-  const int* of = static_cast<const int*>(offsets);
-  const int* co = static_cast<const int*>(combos);
-  float* pp = static_cast<float*>(partial);
-  if (d == 128)
-    return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, it, of, co, pp, nblocks, b, s, sk,
-                           h, g, scale, causal, window, st);
-  if (d == 64)
-    return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, it, of, co, pp, nblocks, b, s, sk,
-                          h, g, scale, causal, window, st);
-  return int(cudaErrorInvalidValue);
+  return dkv_entry<bf16>(q, k, v, dout, lse, delta, dk, dv, items, offsets, combos, partial,
+                         nblocks, b, s, sk, h, g, d, scale, causal, window, stream);
+}
+
+// The same with q, k, v, dout, dk and dv float16.
+extern "C" int tgt_flash_bwd_dkv_f16(const void* q, const void* k, const void* v,
+                                     const void* dout, const void* lse, const void* delta,
+                                     void* dk, void* dv, const void* items,
+                                     const void* offsets, const void* combos, void* partial,
+                                     int nblocks, int b, int s, int sk, int h, int g, int d,
+                                     float scale, int causal, int window, void* stream) {
+  return dkv_entry<f16>(q, k, v, dout, lse, delta, dk, dv, items, offsets, combos, partial,
+                        nblocks, b, s, sk, h, g, d, scale, causal, window, stream);
 }
 
 // Dynamic shared memory of one flash_bwd_dq block at head dim d (0: d

@@ -1,7 +1,7 @@
 // Flash decode for Hopper (sm_90a): g consecutive queries against the
 // live prefix of a KV cache, GQA, causal, optional sliding window, f32 out.
-// The cache is bf16 or f32 (queries of the same type), or int8 with f32
-// per-(position, kv head) scales (bf16 or f32 queries).
+// The cache is bf16, float16 or f32 (queries of the same type), or int8
+// with f32 per-(position, kv head) scales (bf16, float16 or f32 queries).
 //
 // Replaces: torchgpipe_tpu/ops/flash_attention.py:_decode_kernel, both its
 // float-cache variant and its int8-cache variant (quant=True).
@@ -42,6 +42,8 @@
 //   its 64 rows here, and bytes, not the tensor rate, set the pace, so
 //   mma.sync is the right tool.  bf16 x bf16 products are exact in f32;
 //   int8 widens exactly to bf16 and the score is scaled by s_k per key;
+//   float16 queries take mma.sync's f16 form against an f16 cache, and
+//   against an int8 cache widened exactly to f16;
 //   f32 queries against an int8 cache are split into three bf16 parts
 //   (hi + mid + lo carries all 24 bits).  The 1/sqrt(hd) scale (times
 //   log2 e) goes on the f32 score.  An f32 cache keeps full f32 products:
@@ -107,6 +109,10 @@ struct Elem<bf16> {
   static constexpr CUtensorMapDataType TYPE = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 };
 template <>
+struct Elem<f16> {
+  static constexpr CUtensorMapDataType TYPE = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+};
+template <>
 struct Elem<float> {
   static constexpr CUtensorMapDataType TYPE = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
 };
@@ -123,7 +129,8 @@ template <typename TQ, typename TK, int HD, int RP>
 struct Cfg {
   static constexpr bool QUANT = sizeof(TK) == 1;
   static constexpr bool MMA = sizeof(TK) <= 2;         // scores on the tensor cores
-  static constexpr int NQ = MMA && sizeof(TQ) == 4 ? 3 : 1;  // bf16 parts of q
+  static constexpr int NQ = MMA && sizeof(TQ) == 4 ? 3 : 1;  // 16-bit parts of q
+  typedef std::conditional_t<is_f16<TQ>, f16, bf16> ME;     // the mma operands' type
   static constexpr int ES = sizeof(TK);
   static constexpr int RB = HD * ES;                   // bytes of a tile row
   static constexpr int CBW = RB < 128 ? RB : 128;      // column block width
@@ -131,7 +138,7 @@ struct Cfg {
   static constexpr int TILE = KT * RB;                 // bytes of a K (or V) tile
   static constexpr int STAGES = clampi(RING_BYTES / (2 * TILE), 2, 8);
   static constexpr int MT = (RP + 15) / 16;            // m16 tiles of the rows
-  static constexpr int QLD = HD + 8;                   // bf16 pitch of the q parts
+  static constexpr int QLD = HD + 8;                   // ME pitch of the q parts
   static constexpr int PP = RP + 4;                    // pitch of P's key rows
   // P V: a thread owns DPT head dims of every row over one of KS key
   // slices (keys ks, ks + KS, ...), RP * DPT <= 64 accumulators.
@@ -140,7 +147,7 @@ struct Cfg {
   static constexpr int KS = CTHREADS / NDG;            // key slices
   static constexpr int K = 0;                          // [stage][TILE]
   static constexpr int V = STAGES * TILE;
-  static constexpr int Q = 2 * STAGES * TILE;          // bf16 [NQ][MT*16][QLD] or f32 [RP][HD]
+  static constexpr int Q = 2 * STAGES * TILE;          // ME [NQ][MT*16][QLD] or f32 [RP][HD]
   static constexpr int Q_BYTES = MMA ? NQ * MT * 16 * QLD * 2 : RP * HD * 4;
   static constexpr int S = Q + Q_BYTES;                // f32 [RP][KT] scores (log2 units)
   static constexpr int P = S + RP * KT * 4;            // f32 [KT][PP] weights
@@ -180,7 +187,15 @@ __device__ __forceinline__ int live_pos0(const Args& a) {
 }
 
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(f16 x) { return __half2float(x); }
 __device__ __forceinline__ float to_f(float x) { return x; }
+
+// A float rounded to nearest as an mma operand element (bf16 or f16).
+template <typename E>
+__device__ __forceinline__ E to_e(float x) {
+  if constexpr (is_f16<E>) return __float2half_rn(x);
+  else return __float2bfloat16_rn(x);
+}
 
 // A bf16 is the high half of the float with the same bits.
 __device__ __forceinline__ float bf16_lo(uint32_t w) { return __uint_as_float(w << 16); }
@@ -192,10 +207,11 @@ __device__ __forceinline__ float ubyte(uint32_t u, int e) {
   return __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7640 | e)) - 8388736.f;
 }
 
-// Two int8 (the low 16 bits of w) as a bf16 pair, exactly.
-__device__ __forceinline__ uint32_t int8x2_bf16(uint32_t w) {
+// Two int8 (the low 16 bits of w) as a bf16 (or f16: E) pair, exactly.
+template <typename E>
+__device__ __forceinline__ uint32_t int8x2(uint32_t w) {
   const uint32_t u = w ^ 0x8080u;
-  return bf16x2(ubyte(u, 0), ubyte(u, 1));
+  return pack2<E>(ubyte(u, 0), ubyte(u, 1));
 }
 
 // N consecutive elements of a cache row (one 16-byte chunk or less, or
@@ -213,6 +229,25 @@ __device__ __forceinline__ void widen(const bf16*, const uint8_t* p, float* out)
   } else {
     const uint32_t w = *reinterpret_cast<const uint32_t*>(p);
     out[0] = bf16_lo(w); out[1] = bf16_hi(w);
+  }
+}
+template <int N>
+__device__ __forceinline__ void widen(const f16*, const uint8_t* p, float* out) {
+  uint32_t x[4];
+  if constexpr (N == 8) {
+    const uint4 w = *reinterpret_cast<const uint4*>(p);
+    x[0] = w.x; x[1] = w.y; x[2] = w.z; x[3] = w.w;
+  } else if constexpr (N == 4) {
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+    x[0] = w.x; x[1] = w.y;
+  } else {
+    x[0] = *reinterpret_cast<const uint32_t*>(p);
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) {
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&x[i]));
+    out[2 * i] = f.x;
+    out[2 * i + 1] = f.y;
   }
 }
 template <int N>
@@ -325,7 +360,8 @@ flash_decode_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constan
   }
 
   // Consumers.  The group's rows of q into shared memory (zeros past nrows):
-  // bf16 parts for the tensor cores, or f32 for an f32 cache.
+  // bf16 (f16 for f16 queries) parts for the tensor cores, or f32 for an
+  // f32 cache.
   constexpr int QROWS = C::MMA ? C::MT * 16 : RP;
   const int hd = a.hd;
   for (int idx = tid; idx < QROWS * HD; idx += CTHREADS) {
@@ -336,12 +372,13 @@ flash_decode_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constan
       x = to_f(q[((size_t(bi) * a.g + gi / r) * a.nh + kvh * r + gi % r) * hd + d]);
     }
     if constexpr (C::MMA) {
-      bf16* sq = reinterpret_cast<bf16*>(sm + C::Q);
+      typedef typename C::ME ME;
+      ME* sq = reinterpret_cast<ME*>(sm + C::Q);
 #pragma unroll
       for (int p = 0; p < C::NQ; ++p) {
-        const bf16 hi = __float2bfloat16_rn(x);
+        const ME hi = to_e<ME>(x);
         sq[(p * QROWS + i) * C::QLD + d] = hi;
-        x -= __bfloat162float(hi);
+        x -= to_f(hi);
       }
     } else {
       reinterpret_cast<float*>(sm + C::Q)[i * HD + d] = x;
@@ -403,9 +440,9 @@ flash_decode_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constan
           for (int nt = 0; nt < 2; ++nt) {
             const int key = warp * 16 + nt * 8 + (lane >> 2);
             const uint8_t* row = sm + C::K + st * C::TILE;
-            kb[2 * nt] = int8x2_bf16(
+            kb[2 * nt] = int8x2<typename C::ME>(
                 *reinterpret_cast<const uint16_t*>(row + tile_off<C>(key, kk * 16 + cq)));
-            kb[2 * nt + 1] = int8x2_bf16(
+            kb[2 * nt + 1] = int8x2<typename C::ME>(
                 *reinterpret_cast<const uint16_t*>(row + tile_off<C>(key, kk * 16 + cq + 8)));
           }
         } else {
@@ -419,8 +456,8 @@ flash_decode_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constan
             uint32_t qa[4];
             const int qrow = p * C::MT * 16 + mt * 16 + (li & 1) * 8 + lr;
             ldmatrix_x4(qa, base + C::Q + (qrow * C::QLD + kk * 16 + (li >> 1) * 8) * 2);
-            mma16816(acc[mt][0], qa, kb[0], kb[1]);
-            mma16816(acc[mt][1], qa, kb[2], kb[3]);
+            mma16816<typename C::ME>(acc[mt][0], qa, kb[0], kb[1]);
+            mma16816<typename C::ME>(acc[mt][1], qa, kb[2], kb[3]);
           }
       }
 #pragma unroll
@@ -676,7 +713,7 @@ int by_head_dim(const Ptrs& p, int b, int hd, const Args& a, cudaStream_t st) {
 // q [b, g, nh, hd]; ck/cv [b, max_len, nkv, hd], contiguous, 16-byte
 // aligned, hd <= 128 with hd * sizeof(cache element) a multiple of 16;
 // out [b, g, nh*hd] f32.  Element types by code (0 bf16, 1 f32,
-// 2 int8): q_type 0 or 1; kv_type equal to q_type, or 2 with
+// 2 int8, 3 f16): q_type 0, 1 or 3; kv_type equal to q_type, or 2 with
 // k_scale/v_scale f32 [b, nkv, max_len].  pos0: the int32 at `pos_dev`
 // (device memory) or, when it is null, `pos_host`; clamped to [0,
 // max_len - g].  window <= 0 means none.  `want`: the most chunks a
@@ -704,9 +741,11 @@ extern "C" int tgt_flash_decode(const void* q, const void* ck, const void* cv,
     if (k_scale == nullptr || v_scale == nullptr) return int(cudaErrorInvalidValue);
     if (q_type == 0) return by_head_dim<bf16, int8_t>(p, b, hd, a, st);
     if (q_type == 1) return by_head_dim<float, int8_t>(p, b, hd, a, st);
+    if (q_type == 3) return by_head_dim<f16, int8_t>(p, b, hd, a, st);
   } else if (kv_type == q_type) {
     if (q_type == 0) return by_head_dim<bf16, bf16>(p, b, hd, a, st);
     if (q_type == 1) return by_head_dim<float, float>(p, b, hd, a, st);
+    if (q_type == 3) return by_head_dim<f16, f16>(p, b, hd, a, st);
   }
   return int(cudaErrorInvalidValue);
 }

@@ -37,6 +37,9 @@
 //   other's products occupy the tensor cores.
 // * K and V stages are released separately (K once S is done, V once PV
 //   is), so the producer refills K a whole softmax earlier.
+// * Element type E: bf16 (tgt_flash_fwd_bf16) or float16 (tgt_flash_fwd_f16),
+//   the same kernel with wgmma's f16 form, f16 tensor maps and P packed to
+//   f16; m, l, O and the LSE stay f32 for both.
 // Causal tiles above the diagonal and, with a window, tiles below the band
 // are never loaded; element masks run only on tiles that straddle an edge.
 // Rows and keys past the end arrive as zeros from TMA and are masked.  A
@@ -77,12 +80,12 @@ struct FwdSmem {
 
 // sacc = Q K^T for one warpgroup: Q rows at `qa`, a K tile at `ka`, both
 // K-major; committed as one group.
-template <int D>
+template <int D, typename E>
 __device__ __forceinline__ void qk_product(float (&sacc)[BK / 2], uint32_t qa, uint32_t ka) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32u;   // k16 step inside a 64-column block
-    wgmma_ss<BK, 0>(sacc, desc_k(qa + (kk / 4) * BQ * 128 + off),
+    wgmma_ss<BK, 0, E>(sacc, desc_k(qa + (kk / 4) * BQ * 128 + off),
                     desc_k(ka + (kk / 4) * BK * 128 + off), kk > 0);
   }
   wgmma_commit();
@@ -91,7 +94,7 @@ __device__ __forceinline__ void qk_product(float (&sacc)[BK / 2], uint32_t qa, u
 // One consumer warpgroup's online-softmax state: the O accumulator, the
 // row max m (raw scores) and sum l of its thread's two rows, and P of the
 // current tile as A fragments.
-template <int D>
+template <int D, typename E>
 struct Softmax {
   float o[D / 2];
   float m[2], l[2];
@@ -105,7 +108,7 @@ struct Softmax {
   }
 
   // Masks S (keys k0 .. k0+127, rows qpos0 and +8) where `edge`, updates
-  // m and l, rescales O and packs P = exp2(S * sl2 - m * sl2) to bf16.
+  // m and l, rescales O and packs P = exp2(S * sl2 - m * sl2) to E.
   // A masked score is -inf (p = 0); a row with every key masked so far
   // keeps m = -inf and its exponent offset at 0 (FlashAttention-2's rule).
   __device__ __forceinline__ void tile(float (&sacc)[BK / 2], bool edge, int k0, int qpos0,
@@ -152,8 +155,8 @@ struct Softmax {
       const float p3 = exp2_fast(fmaf(sacc[4 * t + 3], sl2, -ms1));
       l0 += p0 + p1;
       l1 += p2 + p3;
-      pa[t >> 1][(t & 1) * 2] = bf16x2(p0, p1);
-      pa[t >> 1][(t & 1) * 2 + 1] = bf16x2(p2, p3);
+      pa[t >> 1][(t & 1) * 2] = pack2<E>(p0, p1);
+      pa[t >> 1][(t & 1) * 2 + 1] = pack2<E>(p2, p3);
     }
     l[0] = l0;
     l[1] = l1;
@@ -163,7 +166,7 @@ struct Softmax {
   __device__ __forceinline__ void pv_product(uint32_t va) {
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_rs<D, 1>(o, pa[kk], desc_mn(va + kk * 2048, BK * 128), 1);
+      wgmma_rs<D, 1, E>(o, pa[kk], desc_mn(va + kk * 2048, BK * 128), 1);
     wgmma_commit();
   }
 
@@ -173,10 +176,10 @@ struct Softmax {
 // One 128-row query tile of a launch (n >= 1: the diagonal tile is live).
 typedef QueryTile<BQ, BK> Tile;
 
-template <int D>
+template <int D, typename E>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                 const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                 const __grid_constant__ CUtensorMap tv, E* __restrict__ o,
                  float* __restrict__ lse, const int* __restrict__ plan, int b, int s, int sk,
                  int h, int g, float scale, int causal, int window) {
   typedef FwdSmem<D> L;
@@ -254,7 +257,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   const int me = BAR_TURN + w, other = BAR_TURN + (w ^ 1);
   const size_t qstride = size_t(h) * D;
 
-  Softmax<D> sm_state;
+  Softmax<D, E> sm_state;
   float sacc[BK / 2];
   int it = 0;
   uint32_t qph = 0;
@@ -277,7 +280,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       bar_sync(me, 256);
       fence_regs(sacc);
       wgmma_fence();
-      qk_product<D>(sacc, qa, base + L::K + st * L::KV_TILE);
+      qk_product<D, E>(sacc, qa, base + L::K + st * L::KV_TILE);
       bar_arrive(other, 256);
       wgmma_wait<0>();
       fence_regs(sacc);
@@ -309,7 +312,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
         fence_regs(sacc);
         wgmma_fence();
         sm_state.pv_product(va);
-        qk_product<D>(sacc, qa, base + L::K + st1 * L::KV_TILE);
+        qk_product<D, E>(sacc, qa, base + L::K + st1 * L::KV_TILE);
         bar_arrive(other, 256);
         wgmma_wait<0>();
         sm_state.fence();
@@ -348,34 +351,48 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       const int qpos = qpos0 + 8 * r;
       if (qpos >= s) continue;
       const float inv = r ? i1 : i0;
-      bf16* dst = o + (size_t(t.bi) * s + qpos) * qstride + size_t(t.hi) * D + cq;
+      E* dst = o + (size_t(t.bi) * s + qpos) * qstride + size_t(t.hi) * D + cq;
 #pragma unroll
       for (int c = 0; c < D / 8; ++c)
-        *reinterpret_cast<__nv_bfloat162*>(dst + c * 8) =
-            __floats2bfloat162_rn(oacc[4 * c + 2 * r] * inv, oacc[4 * c + 2 * r + 1] * inv);
+        store2<E>(dst + c * 8, oacc[4 * c + 2 * r] * inv, oacc[4 * c + 2 * r + 1] * inv);
       if ((lane & 3) == 0)
         lse[bh * s + qpos] = (sm_state.m[r] * sl2 + log2f(r ? l1 : l0)) * LN2;
     }
   }
 }
 
-template <int D>
+template <int D, typename E>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, const int* plan,
            int nblocks, int b, int s, int sk, int h, int g, float scale, int causal, int window,
            cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int e;
-  if ((e = make_map(&tq, q, D, h, s, b, BQ)) || (e = make_map(&tk, k, D, g, sk, b, BK)) ||
-      (e = make_map(&tv, v, D, g, sk, b, BK)))
+  if ((e = make_map<E>(&tq, q, D, h, s, b, BQ)) || (e = make_map<E>(&tk, k, D, g, sk, b, BK)) ||
+      (e = make_map<E>(&tv, v, D, g, sk, b, BK)))
     return e;
   const int bytes = FwdSmem<D>::ALLOC;
-  cudaError_t ce = cudaFuncSetAttribute(flash_fwd_kernel<D>,
+  cudaError_t ce = cudaFuncSetAttribute(flash_fwd_kernel<D, E>,
                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (ce != cudaSuccess) return int(ce);
-  flash_fwd_kernel<D><<<nblocks, THREADS, bytes, stream>>>(
-      tq, tk, tv, static_cast<bf16*>(o), static_cast<float*>(lse), plan, b, s, sk, h, g, scale,
+  flash_fwd_kernel<D, E><<<nblocks, THREADS, bytes, stream>>>(
+      tq, tk, tv, static_cast<E*>(o), static_cast<float*>(lse), plan, b, s, sk, h, g, scale,
       causal, window);
   return int(cudaGetLastError());
+}
+
+template <typename E>
+int forward(const void* q, const void* k, const void* v, void* o, void* lse, const void* plan,
+            int nblocks, int b, int s, int sk, int h, int g, int d, float scale, int causal,
+            int window, void* stream) {
+  if (s == 0 || b == 0) return 0;
+  if (sk == 0 || g <= 0 || h % g != 0 || nblocks <= 0) return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* pl = static_cast<const int*>(plan);
+  if (d == 128)
+    return launch<128, E>(q, k, v, o, lse, pl, nblocks, b, s, sk, h, g, scale, causal, window, st);
+  if (d == 64)
+    return launch<64, E>(q, k, v, o, lse, pl, nblocks, b, s, sk, h, g, scale, causal, window, st);
+  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -389,15 +406,17 @@ extern "C" int tgt_flash_fwd_bf16(const void* q, const void* k, const void* v, v
                                   void* lse, const void* plan, int nblocks, int b, int s, int sk,
                                   int h, int g, int d, float scale, int causal, int window,
                                   void* stream) {
-  if (s == 0 || b == 0) return 0;
-  if (sk == 0 || g <= 0 || h % g != 0 || nblocks <= 0) return int(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* pl = static_cast<const int*>(plan);
-  if (d == 128)
-    return launch<128>(q, k, v, o, lse, pl, nblocks, b, s, sk, h, g, scale, causal, window, st);
-  if (d == 64)
-    return launch<64>(q, k, v, o, lse, pl, nblocks, b, s, sk, h, g, scale, causal, window, st);
-  return int(cudaErrorInvalidValue);
+  return forward<bf16>(q, k, v, o, lse, plan, nblocks, b, s, sk, h, g, d, scale, causal, window,
+                       stream);
+}
+
+// The same with q, k, v and o float16.
+extern "C" int tgt_flash_fwd_f16(const void* q, const void* k, const void* v, void* o,
+                                 void* lse, const void* plan, int nblocks, int b, int s, int sk,
+                                 int h, int g, int d, float scale, int causal, int window,
+                                 void* stream) {
+  return forward<f16>(q, k, v, o, lse, plan, nblocks, b, s, sk, h, g, d, scale, causal, window,
+                      stream);
 }
 
 // Dynamic shared memory of one block at head dim d (0: d not taken).

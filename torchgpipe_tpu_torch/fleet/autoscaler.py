@@ -55,7 +55,10 @@ class Autoscaler:
 
     ``service_time_s`` prices a request; ``cost_model=`` and ``pipe=``
     (measured pricing) raise ``NotImplementedError`` naming ROADMAP.md
-    queue A item 5.6.
+    queue A item 5.6.  ``tokens_per_request`` (default 8) is taken and
+    stored as ``int`` in the reference's place; in the reference only the
+    ``CostModel`` price reads it (the decode tokens a request costs), so
+    nothing here reads it until that pricing is ported (item 5.6).
     """
 
     def __init__(
@@ -66,6 +69,7 @@ class Autoscaler:
         cost_model: Optional[Any] = None,
         pipe: Optional[Any] = None,
         service_time_s: Optional[float] = None,
+        tokens_per_request: int = 8,
         window_s: float = 1.0,
         headroom: float = 1.3,
         min_replicas: int = 1,
@@ -96,6 +100,7 @@ class Autoscaler:
         self.router = router
         self.slo = slo
         self.service_time_s = service_time_s
+        self.tokens_per_request = int(tokens_per_request)
         self.window_s = float(window_s)
         self.headroom = float(headroom)
         n_total = len(router.replicas)

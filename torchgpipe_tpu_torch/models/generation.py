@@ -65,6 +65,8 @@ from torchgpipe_tpu_torch.models.transformer import (  # noqa: F401 (re-exported
     _head_w,
     _mlp_out,
     _w,
+    llama,
+    llama_tied,
     not_ported,
     resolve_device,
 )
@@ -1073,3 +1075,82 @@ def mpmd_params_for_generation(
                 p.grad = None
         out.append(layer)
     return torch.nn.Sequential(*out)
+
+
+def spmd_params_for_generation(pipe: Any, params: Any, device: Device = None
+                               ) -> torch.nn.Sequential:
+    """The flat model :func:`generate` takes from an
+    ``torchgpipe_tpu_torch.spmd.SpmdGPipe`` built on ``llama_spmd(cfg,
+    n_stages)`` (train with the SPMD engine, decode with the same weights):
+    ``params`` is the engine's GLOBAL tree (``init``'s, or ``gather``'s on
+    rank 0; blocks stacked ``[n_stages, ...]``), unstacked into ``[embed,
+    block_0 .. block_{L-1}, head]`` on ``device`` (``cuda`` unless named),
+    the head taken from ``post`` or, under a parametric loss layer, from
+    ``params['loss']``; a tied head holds the embedding's table."""
+    from torchgpipe_tpu_torch.spmd import _tree_map
+
+    cfg = pipe.pre.cfg
+    model = (llama_tied if cfg.tie_embeddings else llama)(cfg, device=device)
+    head = params["post"] if pipe.post is not None else params.get("loss")
+    if head is None:
+        raise ValueError(
+            "no head params: the engine has neither a post layer nor a "
+            "parametric loss layer holding the lm head")
+    per = cfg.n_layers // pipe.n_stages
+    with torch.no_grad():
+        _copy_into(model[0], params["pre"], "pre")
+        for g in range(cfg.n_layers):
+            j, c = divmod(g, per)
+            blk = _tree_map(lambda a: a[j], params["blocks"][c])
+            _copy_into(model[1 + g], blk, f"block {g}")
+        _copy_into(model[-1], head, "head", tied=cfg.tie_embeddings)
+    return model
+
+
+def _copy_into(layer: torch.nn.Module, tree: Any, what: str, tied: bool = False) -> None:
+    """Copy a params tree into a layer's ``params()`` leaf by leaf; a tied
+    head's ``table`` (the embedding's, already copied) is not in the
+    tree."""
+    from torchgpipe_tpu_torch.spmd import _items
+
+    src, ours = dict(_items(tree)), dict(_items(layer.params()))
+    if tied:
+        ours.pop(("table",), None)
+    if set(ours) != set(src):
+        raise ValueError(f"{what}: params {sorted(map(str, src))} != the model's "
+                         f"{sorted(map(str, ours))}")
+    for path, dst in ours.items():
+        dst.copy_(src[path].to(dst.device, dst.dtype))
+
+
+def spmd_params_from_flat(pipe: Any, flat: Any) -> dict:
+    """The inverse of :func:`spmd_params_for_generation`: an ``SpmdGPipe``
+    params tree (GLOBAL; ``pipe.place`` takes this rank's part) from a flat
+    model ``[embed, blocks..., head]`` (a ``generate`` model, an HF
+    import), the blocks grouped per stage and stacked ``[n_stages, ...]``.
+    The head lands under ``post`` (or ``loss`` for a parametric loss
+    layer) with the tied pre-param entries stripped, as the engine
+    splices those from ``pre``.  Tensors are copies, on the model's
+    device."""
+    from torchgpipe_tpu_torch.spmd import _stack, _tree_map
+
+    layers = list(flat)
+    n = pipe.n_stages
+    blocks = layers[1:-1]
+    if len(blocks) % n != 0:
+        raise ValueError(
+            f"{len(blocks)} block params do not divide into n_stages={n} "
+            "stage chains")
+    per = len(blocks) // n
+
+    def tree(layer: torch.nn.Module) -> dict:
+        return _tree_map(lambda t: t.detach().clone(), layer.params())
+
+    stages = [tuple(tree(b) for b in blocks[j * per:(j + 1) * per]) for j in range(n)]
+    params = {"pre": tree(layers[0]), "blocks": _stack(stages)}
+    head = tree(layers[-1])
+    tie_keys = pipe._tie_post if pipe.post is not None else pipe._tie_loss
+    for k in tie_keys:
+        head.pop(k, None)
+    params["post" if pipe.post is not None else "loss"] = head
+    return params

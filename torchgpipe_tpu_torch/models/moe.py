@@ -35,7 +35,7 @@ Scatter-adds that would sum in an order set by atomics on the card are
 written as a permutation and a sum over the ``k`` choices, so a step
 repeats bit for bit (a captured Engine replay equals the eager step).
 ``MoEConfig.ep_axis`` (expert parallelism) and ``llama_moe_spmd`` wait
-for the SPMD engine (ROADMAP.md A.5.4).
+for the SPMD engine's expert-parallel sub-slice (ROADMAP.md A.5.4e).
 """
 
 from __future__ import annotations
@@ -125,7 +125,7 @@ def validate(moe: MoEConfig) -> None:
             )
     if moe.ep_axis is not None:
         raise not_ported("expert parallelism over an ep mesh axis "
-                         "(moe=MoEConfig(ep_axis=...))", "5.4")
+                         "(moe=MoEConfig(ep_axis=...), A.5.4e)", "5.4")
 
 
 # --------------------------------------------------------------------- #
@@ -526,3 +526,10 @@ __all__ = [
     "moe_transformer_block",
     "router_stats",
 ]
+
+
+def llama_moe_spmd(cfg: TransformerConfig, moe: MoEConfig, n_stages: int, **kw: Any) -> Any:
+    """The reference's ``(block, pre, post)`` of a MoE Llama for the SPMD
+    engine: not ported yet (its expert parallelism, ROADMAP.md A.5.4e)."""
+    raise not_ported("models.moe.llama_moe_spmd (SPMD MoE with expert parallelism, "
+                     "A.5.4e)", "5.4")

@@ -809,6 +809,8 @@ class ChunkedLMLoss(LMHead):
         return head
 
 
+# The reference's refusal, word for word; its advice holds in the port:
+# llama_spmd below with torchgpipe_tpu_torch.spmd.SpmdGPipe.
 _TIE_MPMD = (
     "tie_embeddings is an SPMD-engine feature: the MPMD layer "
     "list places the embedding and the head on different stage "
@@ -957,6 +959,42 @@ def llama_tied(
     if not cfg.tie_embeddings:
         raise ValueError("llama_tied needs cfg.tie_embeddings=True; use llama(cfg)")
     return _init(Llama(cfg, device=device), generator)
+
+
+def llama_spmd(
+    cfg: TransformerConfig, n_stages: int, *, gather_logits: bool = True,
+    device: Device = None,
+) -> Tuple[nn.Sequential, TokenEmbedding, LMHead]:
+    """``(block, pre, post)`` for ``torchgpipe_tpu_torch.spmd.SpmdGPipe``:
+    each stage runs ``n_layers // n_stages`` blocks (an ``nn.Sequential``
+    named ``stage``), ``pre`` is the embedding and ``post`` the head, on
+    ``device`` (``cuda`` unless named).  The layers are templates: the
+    engine draws and holds the parameters (``SpmdGPipe.init``).  Under
+    ``tie_embeddings`` the head holds the embedding's ``table`` and names
+    it in ``tie_pre``: the engine splices the embedding's into the head,
+    so the tied gradient sums into the embedding's.  ``gather_logits=
+    False`` (vocab-sharded logits under tensor parallelism) is queue A
+    item 5.4."""
+    if cfg.n_layers % n_stages != 0:
+        raise ValueError(
+            f"n_layers={cfg.n_layers} must divide evenly into {n_stages} stages"
+        )
+    if not gather_logits:
+        raise not_ported("llama_spmd(gather_logits=False) (vocab-parallel logits)",
+                         "5.4")
+    dev = resolve_device(device)
+    per = cfg.n_layers // n_stages
+    block = nn.Sequential(*[TransformerBlock(cfg, device=dev) for _ in range(per)])
+    block.name = "stage"
+    for i, layer in enumerate(block):
+        layer.name = f"b{i}"
+    pre = TokenEmbedding(cfg, device=dev)
+    pre.name = "embed"
+    post = LMHead(cfg, device=dev, table=pre.table if cfg.tie_embeddings else None)
+    post.name = "head"
+    if cfg.tie_embeddings:
+        post.tie_pre = ("table",)
+    return block, pre, post
 
 
 def chunked_lm_loss(

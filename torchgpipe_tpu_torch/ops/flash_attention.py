@@ -5,7 +5,8 @@ Counterpart of ``torchgpipe_tpu/ops/flash_attention.py``.  On the TPU
 each pass exists twice (K/V resident in VMEM, or streamed on a grid
 axis) because of VMEM size; on Hopper one tile loop serves every length.
 
-* :func:`flash_attention` launches ``csrc/flash_fwd.cu`` (replaces
+* :func:`flash_attention` launches ``csrc/flash_fwd.cu``, bfloat16 or
+  float16 (replaces
   ``_fwd_kernel`` and ``_fwd_stream_kernel``).  It is differentiable: a
   ``torch.autograd.Function`` saves ``(q, k, v, o, lse)``, as the
   reference's ``_flash_vjp_fwd`` does, and its backward launches
@@ -19,7 +20,7 @@ axis) because of VMEM size; on Hopper one tile loop serves every length.
   :func:`dkv_schedule`: the causal dK/dV loops cut so that every SM holds
   the mean work), so the CPU tests cover the balance.
 * :func:`flash_decode_attention` launches ``csrc/flash_decode.cu``, which
-  replaces ``_decode_kernel``: a bf16 or float32 cache, or an int8 cache
+  replaces ``_decode_kernel``: a bf16, float16 or float32 cache, or an int8 cache
   with float32 per-(position, kv head) scales (the ``quant=True``
   variant), dequantized in registers, at any head dim up to 128 whose
   cache row TMA can map (:func:`supports_decode`).  ``pos0`` may be a
@@ -36,7 +37,10 @@ axis) because of VMEM size; on Hopper one tile loop serves every length.
   :func:`flash_bwd_dkv_f32`) and :func:`flash_decode_simt` launch
   ``csrc/flash_simt.cu``, CUDA-core kernels for the shapes TMA cannot map:
   a float32 head dim that is not a multiple of 4, a decode cache row that
-  is not a multiple of 16 bytes.
+  is not a multiple of 16 bytes.  :func:`flash_attention_wide` (with
+  :func:`flash_bwd_dq_wide` and :func:`flash_bwd_dkv_wide`) and
+  :func:`flash_decode_wide` launch the same kernels at head dims 129 to
+  256 (Gemma's 256) in bfloat16, float16 or float32.
 * :func:`attention_route` says which of these a shape runs on (a
   bfloat16 head dim below 128 is zero-padded for the tensor-core
   kernels); :func:`attention` and :func:`decode_attention` follow it.
@@ -85,7 +89,11 @@ DECODE_ROWS = 32      # query rows a decode block holds (MAX_ROWS)
 # pace).  Measurements in PERF.md.
 DECODE_WAVE = {False: 1, True: 2}
 # Element-type codes of csrc/flash_decode.cu.
-_DECODE_TYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2}
+_DECODE_TYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2,
+                 torch.float16: 3}
+# Element types of the tensor-core forward and backward kernels, by the
+# suffix of their C entry points.
+_HALF_TYPES = {torch.bfloat16: "bf16", torch.float16: "f16"}
 
 # C signatures (csrc/*.cu): pointers and the stream as c_void_p.
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -256,13 +264,13 @@ def supports(
     q_shape: Tuple[int, ...], k_shape: Tuple[int, ...],
     dtype: torch.dtype = torch.bfloat16,
 ) -> bool:
-    """Whether ``csrc/flash_fwd.cu`` takes these shapes: bfloat16, head
-    dim 64 or 128, ``h`` a multiple of ``g``.  Any sequence length (the
-    ragged last tile is masked)."""
+    """Whether ``csrc/flash_fwd.cu`` takes these shapes: bfloat16 or
+    float16, head dim 64 or 128, ``h`` a multiple of ``g``.  Any sequence
+    length (the ragged last tile is masked)."""
     b, s, h, d = q_shape
     g = k_shape[2]
     return (
-        dtype == torch.bfloat16 and d in FWD_HEAD_DIMS and g > 0 and h % g == 0
+        dtype in _HALF_TYPES and d in FWD_HEAD_DIMS and g > 0 and h % g == 0
         and k_shape[3] == d
     )
 
@@ -272,8 +280,8 @@ def supports_decode(
     window: Optional[int], dtype: torch.dtype = torch.bfloat16,
 ) -> bool:
     """Whether ``csrc/flash_decode.cu`` takes these shapes: a bfloat16,
-    float32 or int8 cache (``dtype``), a head dim up to 128 whose cache
-    row is a multiple of 16 bytes (TMA's stride rule: bf16 ``hd % 8``,
+    float16, float32 or int8 cache (``dtype``), a head dim up to 128 whose
+    cache row is a multiple of 16 bytes (TMA's stride rule: bf16 and f16 ``hd % 8``,
     float32 ``hd % 4``, int8 ``hd % 16``), ``nh`` a multiple of ``nkv``.
     Any cache length and any number of query rows (a block holds at most
     32 of a kv head's ``g * nh / nkv`` rows; more rows take more
@@ -552,12 +560,12 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _check_fwd_dtype(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """The forward kernel is bf16 only: float32 attention on the card is
-    refused, never routed to the plain version."""
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
+    """The forward kernel is bf16 or f16 (one type for q/k/v): float32
+    attention on the card is refused, never routed to the plain version."""
+    if q.dtype not in _HALF_TYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             f"flash_fwd kernel takes bfloat16 q/k/v, got {q.dtype}/"
-            f"{k.dtype}/{v.dtype}"
+            f"{k.dtype}/{v.dtype} (or float16 ones)"
         )
 
 
@@ -586,7 +594,8 @@ def _flash_fwd(
     o = torch.empty_like(q)
     lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
     plan, nblocks = _fwd_plan(q.device, b, s, sk, h, bool(causal), window)
-    fn = _build.function("flash_fwd", "tgt_flash_fwd_bf16", _FWD_ARGS)
+    fn = _build.function("flash_fwd", f"tgt_flash_fwd_{_HALF_TYPES[q.dtype]}",
+                         _FWD_ARGS)
     rc = fn(
         _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse), _ptr(plan), nblocks,
         b, s, sk, h, g, d, float(sm_scale), int(causal),
@@ -605,10 +614,10 @@ def _flash_fwd(
 def _check_bwd(what: str, q, k, v, do, lse, delta) -> None:
     _check_cuda(what, q, k, v, do, lse, delta)
     _check_tma(what, q, k, v, do)
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v, do)):
+    if q.dtype not in _HALF_TYPES or any(t.dtype != q.dtype for t in (k, v, do)):
         raise TypeError(
-            f"{what} kernel takes bfloat16 q/k/v/do, got {q.dtype}/{k.dtype}/"
-            f"{v.dtype}/{do.dtype}"
+            f"{what} kernel takes bfloat16 q/k/v/do, got "
+            f"{q.dtype}/{k.dtype}/{v.dtype}/{do.dtype} (or float16 ones)"
         )
     b, s, h, _ = q.shape
     if lse.dtype != torch.float32 or delta.dtype != torch.float32 \
@@ -644,7 +653,8 @@ def flash_bwd_dq(
     dq = torch.empty_like(q)
     plan, nblocks = _fwd_plan(q.device, b, s, sk, h, bool(causal), window,
                               tile=(DQ_ROWS, DQ_KEYS))
-    fn = _build.function("flash_bwd", "tgt_flash_bwd_dq_bf16", _BWD_DQ_ARGS)
+    fn = _build.function("flash_bwd", f"tgt_flash_bwd_dq_{_HALF_TYPES[q.dtype]}",
+                         _BWD_DQ_ARGS)
     rc = fn(
         _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dq),
         _ptr(plan), nblocks, b, s, sk, h, g, d, float(sm_scale), int(causal),
@@ -680,7 +690,8 @@ def flash_bwd_dkv(
     at_combos = at_offsets + nblocks + 1
     partial = torch.empty(max(slots, 1) * 256 * d, dtype=torch.float32,
                           device=q.device)
-    fn = _build.function("flash_bwd", "tgt_flash_bwd_dkv_bf16", _BWD_DKV_ARGS)
+    fn = _build.function("flash_bwd", f"tgt_flash_bwd_dkv_{_HALF_TYPES[q.dtype]}",
+                         _BWD_DKV_ARGS)
     rc = fn(
         _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dk),
         _ptr(dv), _ptr(plan), _ptr(plan[at_offsets:]), _ptr(plan[at_combos:]),
@@ -693,6 +704,25 @@ def flash_bwd_dkv(
 
 
 flash_bwd_dkv.launches = 0
+
+
+def _flash_backward(ctx, do, dq_fn, dkv_fn):
+    """The backward of a flash ``autograd.Function`` that saved ``(q, k,
+    v, o, lse)``: its dQ and dK/dV kernels, or, for CPU tensors, one call
+    of the plain version."""
+    q, k, v, o, lse = ctx.saved_tensors
+    causal, sm_scale, window = ctx.args
+    do = do.contiguous()
+    delta = _delta(do, o)
+    if q.device.type in _PLAIN_DEVICES:
+        dq, dk, dv = _reference_grads(
+            q, k, v, do, lse, delta, causal, sm_scale, window
+        )
+    else:
+        kw = dict(causal=causal, sm_scale=sm_scale, window=window)
+        dq = dq_fn(q, k, v, do, lse, delta, **kw)
+        dk, dv = dkv_fn(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv, None, None, None
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -710,19 +740,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        causal, sm_scale, window = ctx.args
-        do = do.contiguous()
-        delta = _delta(do, o)
-        if q.device.type in _PLAIN_DEVICES:
-            dq, dk, dv = _reference_grads(
-                q, k, v, do, lse, delta, causal, sm_scale, window
-            )
-        else:
-            kw = dict(causal=causal, sm_scale=sm_scale, window=window)
-            dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
-            dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
-        return dq, dk, dv, None, None, None
+        return _flash_backward(ctx, do, flash_bwd_dq, flash_bwd_dkv)
 
 
 def flash_attention(
@@ -771,6 +789,10 @@ def _check_scales(
                     f"(positions last), got {t.dtype} {list(t.shape)}"
                 )
     return quant
+
+
+# Query types of the decode kernels: a cache of the same type, or int8.
+_QUERY_TYPES = (torch.bfloat16, torch.float16, torch.float32)
 
 
 def _decode_args(
@@ -834,12 +856,11 @@ def flash_decode_attention(
         raise ValueError(f"flash_decode_attention: unsupported device {q.device}")
     scales = (k_scale, v_scale) if quant else ()
     _check_cuda("flash_decode_attention", q, ck, cv, *scales)
-    if q.dtype not in (torch.bfloat16, torch.float32) or (
-        not quant and ck.dtype != q.dtype
-    ):
+    if q.dtype not in _QUERY_TYPES or (not quant and ck.dtype != q.dtype):
         raise TypeError(
-            f"flash_decode kernel takes a bfloat16 or float32 q with a cache "
-            f"of its type or an int8 cache, got {q.dtype}/{ck.dtype}/{cv.dtype}"
+            f"flash_decode kernel takes a bfloat16, float16 or float32 q with "
+            f"a cache of its type or an int8 cache, got {q.dtype}/{ck.dtype}/"
+            f"{cv.dtype}"
         )
     if not supports_decode(q.shape, ck.shape, window, ck.dtype) \
             or cv.shape != ck.shape:
@@ -879,18 +900,20 @@ flash_decode_attention.launches_int8 = 0
 
 
 # --------------------------------------------------------------------- #
-# float32 and decode where TMA cannot map the rows: csrc/flash_simt.cu  #
+# what TMA cannot map, and head dims 129-256: csrc/flash_simt.cu        #
 # --------------------------------------------------------------------- #
 
-SIMT_HEAD_DIM_MAX = 128   # csrc/flash_simt.cu DMAX
-# q, k, v, o, lse, b, s, sk, h, g, d, scale, causal, window, stream
-_FWD_F32_ARGS = [_P] * 5 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
+SIMT_HEAD_DIM_MAX = 128   # the float32 and decode routes below the wide dims
+WIDE_HEAD_DIM_MAX = 256   # csrc/flash_simt.cu DMAX
+_SIMT_TYPES = (torch.bfloat16, torch.float16, torch.float32)
+# q, k, v, o, lse, b, s, sk, h, g, d, scale, causal, window, type, stream
+_FWD_SIMT_ARGS = [_P] * 5 + [_I] * 6 + [ctypes.c_float, _I, _I, _I, _P]
 # q, k, v, dout, lse, delta, dq, b, s, sk, h, g, d, scale, causal, window,
-# stream
-_BWD_DQ_F32_ARGS = [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
+# type, stream
+_BWD_DQ_SIMT_ARGS = [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _I, _I, _P]
 # q, k, v, dout, lse, delta, dk, dv, b, s, sk, h, g, d, scale, causal,
-# window, stream
-_BWD_DKV_F32_ARGS = [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _I, _P]
+# window, type, stream
+_BWD_DKV_SIMT_ARGS = [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _I, _I, _P]
 # q, ck, cv, k_scale, v_scale, out, pos_dev, pos_host, b, g, nh, nkv, hd,
 # max_len, window, scale, q_type, kv_type, stream
 _DECODE_SIMT_ARGS = [_P] * 7 + [_I] * 8 + [ctypes.c_float, _I, _I, _P]
@@ -901,7 +924,8 @@ def supports_f32(
     dtype: torch.dtype = torch.float32,
 ) -> bool:
     """Whether the float32 kernels of ``csrc/flash_simt.cu`` take these
-    shapes: float32, any head dim up to 128, ``h`` a multiple of ``g``."""
+    shapes on the float32 route: float32, any head dim up to 128, ``h`` a
+    multiple of ``g``."""
     b, s, h, d = q_shape
     g = k_shape[2]
     return (
@@ -910,20 +934,48 @@ def supports_f32(
     )
 
 
+def supports_wide(
+    q_shape: Tuple[int, ...], k_shape: Tuple[int, ...],
+    dtype: torch.dtype = torch.bfloat16,
+) -> bool:
+    """Whether ``csrc/flash_simt.cu`` takes these shapes on the wide route:
+    bfloat16, float16 or float32, a head dim from 129 to 256, ``h`` a
+    multiple of ``g``."""
+    b, s, h, d = q_shape
+    g = k_shape[2]
+    return (
+        dtype in _SIMT_TYPES and SIMT_HEAD_DIM_MAX < d <= WIDE_HEAD_DIM_MAX
+        and g > 0 and h % g == 0 and k_shape[3] == d
+    )
+
+
+def _decode_dims_ok(q_shape, k_shape, window, dtype, lo: int, hi: int) -> bool:
+    b, g, nh, hd = q_shape
+    nkv = k_shape[2]
+    return (
+        dtype in _DECODE_TYPES and lo < hd <= hi
+        and k_shape[3] == hd and nkv > 0 and nh % nkv == 0
+        and (window is None or window >= 1)
+    )
+
+
 def supports_decode_simt(
     q_shape: Tuple[int, ...], k_shape: Tuple[int, ...],
     window: Optional[int], dtype: torch.dtype = torch.bfloat16,
 ) -> bool:
     """Whether the decode of ``csrc/flash_simt.cu`` takes these shapes: a
-    bfloat16, float32 or int8 cache (``dtype``), any head dim up to 128,
-    ``nh`` a multiple of ``nkv``."""
-    b, g, nh, hd = q_shape
-    nkv = k_shape[2]
-    return (
-        dtype in _DECODE_TYPES and 0 < hd <= SIMT_HEAD_DIM_MAX
-        and k_shape[3] == hd and nkv > 0 and nh % nkv == 0
-        and (window is None or window >= 1)
-    )
+    bfloat16, float16, float32 or int8 cache (``dtype``), any head dim up
+    to 128, ``nh`` a multiple of ``nkv``."""
+    return _decode_dims_ok(q_shape, k_shape, window, dtype, 0, SIMT_HEAD_DIM_MAX)
+
+
+def supports_decode_wide(
+    q_shape: Tuple[int, ...], k_shape: Tuple[int, ...],
+    window: Optional[int], dtype: torch.dtype = torch.bfloat16,
+) -> bool:
+    """:func:`supports_decode_simt` at head dims 129 to 256."""
+    return _decode_dims_ok(q_shape, k_shape, window, dtype, SIMT_HEAD_DIM_MAX,
+                           WIDE_HEAD_DIM_MAX)
 
 
 def _check_f32(what: str, *ts: torch.Tensor) -> None:
@@ -945,6 +997,72 @@ def _check_f32_shapes(what: str, q, k, v, do=None) -> None:
         )
 
 
+def _check_wide(what: str, q, k, v, do=None, lse=None, delta=None) -> None:
+    """The wide wrappers' checks: one element type for q/k/v (and do),
+    float32 lse/delta, the :func:`supports_wide` shapes."""
+    ts = [t for t in (q, k, v, do) if t is not None]
+    _check_cuda(what, *ts, *[t for t in (lse, delta) if t is not None])
+    if q.dtype not in _SIMT_TYPES or any(t.dtype != q.dtype for t in ts):
+        raise TypeError(
+            f"{what} kernel takes bfloat16, float16 or float32 operands of one "
+            f"type, got {'/'.join(str(t.dtype) for t in ts)}"
+        )
+    if any(t is not None and t.dtype != torch.float32 for t in (lse, delta)):
+        raise TypeError(f"{what}: lse and delta must be float32")
+    if not supports_wide(q.shape, k.shape, q.dtype) or v.shape != k.shape \
+            or (do is not None and do.shape != q.shape):
+        raise ValueError(
+            f"{what} kernel does not take q {tuple(q.shape)}, k "
+            f"{tuple(k.shape)}, v {tuple(v.shape)}: head dim must be from "
+            f"{SIMT_HEAD_DIM_MAX + 1} to {WIDE_HEAD_DIM_MAX} and h a multiple of g"
+        )
+
+
+def _simt_fwd(what, q, k, v, causal, sm_scale, window):
+    """``(out, lse)`` from ``csrc/flash_simt.cu``'s forward (checked
+    CUDA tensors of one type)."""
+    b, s, h, d = q.shape
+    sk, g = k.shape[1], k.shape[2]
+    o = torch.empty_like(q)
+    lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
+    fn = _build.function("flash_simt", "tgt_flash_fwd_simt", _FWD_SIMT_ARGS)
+    rc = fn(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse), b, s, sk, h, g, d,
+        float(sm_scale), int(causal), 0 if window is None else int(window),
+        _DECODE_TYPES[q.dtype], _stream(q),
+    )
+    _build.check(rc, what)
+    return o, lse
+
+
+def _simt_dq(what, q, k, v, do, lse, delta, causal, sm_scale, window):
+    b, s, h, d = q.shape
+    sk, g = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q)
+    fn = _build.function("flash_simt", "tgt_flash_bwd_dq_simt", _BWD_DQ_SIMT_ARGS)
+    rc = fn(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dq),
+        b, s, sk, h, g, d, float(sm_scale), int(causal),
+        0 if window is None else int(window), _DECODE_TYPES[q.dtype], _stream(q),
+    )
+    _build.check(rc, what)
+    return dq
+
+
+def _simt_dkv(what, q, k, v, do, lse, delta, causal, sm_scale, window):
+    b, s, h, d = q.shape
+    sk, g = k.shape[1], k.shape[2]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = _build.function("flash_simt", "tgt_flash_bwd_dkv_simt", _BWD_DKV_SIMT_ARGS)
+    rc = fn(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dk),
+        _ptr(dv), b, s, sk, h, g, d, float(sm_scale), int(causal),
+        0 if window is None else int(window), _DECODE_TYPES[q.dtype], _stream(q),
+    )
+    _build.check(rc, what)
+    return dk, dv
+
+
 def _flash_fwd_f32(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     sm_scale: float, window: Optional[int],
@@ -957,19 +1075,9 @@ def _flash_fwd_f32(
         raise ValueError(f"flash_attention_f32: unsupported device {q.device}")
     _check_f32("flash_fwd_f32", q, k, v)
     _check_f32_shapes("flash_fwd_f32", q, k, v)
-    b, s, h, d = q.shape
-    sk, g = k.shape[1], k.shape[2]
-    o = torch.empty_like(q)
-    lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
-    fn = _build.function("flash_simt", "tgt_flash_fwd_f32", _FWD_F32_ARGS)
-    rc = fn(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(lse), b, s, sk, h, g, d,
-        float(sm_scale), int(causal), 0 if window is None else int(window),
-        _stream(q),
-    )
-    _build.check(rc, "flash_fwd_f32")
+    out = _simt_fwd("flash_fwd_f32", q, k, v, causal, sm_scale, window)
     _count(flash_attention_f32)
-    return o, lse
+    return out
 
 
 def flash_bwd_dq_f32(
@@ -988,16 +1096,8 @@ def flash_bwd_dq_f32(
         raise ValueError(f"flash_bwd_dq_f32: unsupported device {q.device}")
     _check_f32("flash_bwd_dq_f32", q, k, v, do, lse, delta)
     _check_f32_shapes("flash_bwd_dq_f32", q, k, v, do)
-    b, s, h, d = q.shape
-    sk, g = k.shape[1], k.shape[2]
-    dq = torch.empty_like(q)
-    fn = _build.function("flash_simt", "tgt_flash_bwd_dq_f32", _BWD_DQ_F32_ARGS)
-    rc = fn(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dq),
-        b, s, sk, h, g, d, float(sm_scale), int(causal),
-        0 if window is None else int(window), _stream(q),
-    )
-    _build.check(rc, "flash_bwd_dq_f32")
+    dq = _simt_dq("flash_bwd_dq_f32", q, k, v, do, lse, delta, causal, sm_scale,
+                  window)
     _count(flash_bwd_dq_f32)
     return dq
 
@@ -1020,18 +1120,10 @@ def flash_bwd_dkv_f32(
         raise ValueError(f"flash_bwd_dkv_f32: unsupported device {q.device}")
     _check_f32("flash_bwd_dkv_f32", q, k, v, do, lse, delta)
     _check_f32_shapes("flash_bwd_dkv_f32", q, k, v, do)
-    b, s, h, d = q.shape
-    sk, g = k.shape[1], k.shape[2]
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = _build.function("flash_simt", "tgt_flash_bwd_dkv_f32", _BWD_DKV_F32_ARGS)
-    rc = fn(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dk),
-        _ptr(dv), b, s, sk, h, g, d, float(sm_scale), int(causal),
-        0 if window is None else int(window), _stream(q),
-    )
-    _build.check(rc, "flash_bwd_dkv_f32")
+    out = _simt_dkv("flash_bwd_dkv_f32", q, k, v, do, lse, delta, causal,
+                    sm_scale, window)
     _count(flash_bwd_dkv_f32)
-    return dk, dv
+    return out
 
 
 flash_bwd_dkv_f32.launches = 0
@@ -1050,19 +1142,7 @@ class _FlashAttentionF32(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        causal, sm_scale, window = ctx.args
-        do = do.contiguous()
-        delta = _delta(do, o)
-        if q.device.type in _PLAIN_DEVICES:
-            dq, dk, dv = _reference_grads(
-                q, k, v, do, lse, delta, causal, sm_scale, window
-            )
-        else:
-            kw = dict(causal=causal, sm_scale=sm_scale, window=window)
-            dq = flash_bwd_dq_f32(q, k, v, do, lse, delta, **kw)
-            dk, dv = flash_bwd_dkv_f32(q, k, v, do, lse, delta, **kw)
-        return dq, dk, dv, None, None, None
+        return _flash_backward(ctx, do, flash_bwd_dq_f32, flash_bwd_dkv_f32)
 
 
 def flash_attention_f32(
@@ -1081,6 +1161,143 @@ def flash_attention_f32(
 flash_attention_f32.launches = 0
 
 
+def _flash_fwd_wide(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+    sm_scale: float, window: Optional[int],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)`` at a head dim from 129 to 256: ``csrc/flash_simt.cu``
+    on CUDA tensors, the plain version on CPU tensors."""
+    if q.device.type in _PLAIN_DEVICES:
+        return _reference_fwd(q, k, v, causal, sm_scale, window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_wide: unsupported device {q.device}")
+    _check_wide("flash_fwd_wide", q, k, v)
+    out = _simt_fwd("flash_fwd_wide", q, k, v, causal, sm_scale, window)
+    _count(flash_attention_wide)
+    return out
+
+
+def flash_bwd_dq_wide(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, *, causal: bool, sm_scale: float,
+    window: Optional[int],
+) -> torch.Tensor:
+    """dQ of :func:`flash_attention_wide` (its element type):
+    ``csrc/flash_simt.cu`` on CUDA tensors, the plain version on CPU
+    tensors."""
+    if q.device.type == "cpu":
+        return _reference_grads(
+            q, k, v, do, lse, delta, causal, sm_scale, window
+        )[0]
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_bwd_dq_wide: unsupported device {q.device}")
+    _check_wide("flash_bwd_dq_wide", q, k, v, do, lse, delta)
+    dq = _simt_dq("flash_bwd_dq_wide", q, k, v, do, lse, delta, causal,
+                  sm_scale, window)
+    _count(flash_bwd_dq_wide)
+    return dq
+
+
+flash_bwd_dq_wide.launches = 0
+
+
+def flash_bwd_dkv_wide(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, *, causal: bool, sm_scale: float,
+    window: Optional[int],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dK, dV)`` of :func:`flash_attention_wide`, summed over each kv
+    head's query heads, from the same inputs as :func:`flash_bwd_dq_wide`."""
+    if q.device.type == "cpu":
+        return _reference_grads(
+            q, k, v, do, lse, delta, causal, sm_scale, window
+        )[1:]
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_bwd_dkv_wide: unsupported device {q.device}")
+    _check_wide("flash_bwd_dkv_wide", q, k, v, do, lse, delta)
+    out = _simt_dkv("flash_bwd_dkv_wide", q, k, v, do, lse, delta, causal,
+                    sm_scale, window)
+    _count(flash_bwd_dkv_wide)
+    return out
+
+
+flash_bwd_dkv_wide.launches = 0
+
+
+class _FlashAttentionWide(torch.autograd.Function):
+    """:class:`_FlashAttention` at head dims 129 to 256: forward and
+    backward through ``csrc/flash_simt.cu``, or the plain version on the
+    CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, window):
+        o, lse = _flash_fwd_wide(q, k, v, causal, sm_scale, window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, sm_scale, window)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        return _flash_backward(ctx, do, flash_bwd_dq_wide, flash_bwd_dkv_wide)
+
+
+def flash_attention_wide(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+    causal: bool = True, sm_scale: Optional[float] = None,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """:func:`flash_attention` at a head dim from 129 to 256 (Gemma's 256)
+    in bfloat16, float16 or float32, on the CUDA cores.  Differentiable
+    in ``q``, ``k`` and ``v``."""
+    sm_scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
+    _validate_window(causal, window)
+    return _FlashAttentionWide.apply(q, k, v, causal, sm_scale, window)
+
+
+flash_attention_wide.launches = 0
+
+
+def _decode_simt_call(fn, what, gate, dims, q, ck, cv, pos0, window,
+                      k_scale, v_scale) -> torch.Tensor:
+    """The decode of ``csrc/flash_simt.cu`` behind :func:`flash_decode_simt`
+    and :func:`flash_decode_wide` (``gate`` their shape test, ``dims``
+    what it takes, for the refusal); counts one launch on ``fn``."""
+    quant, pos_dev, pos0 = _decode_args(q, ck, cv, pos0, window, k_scale, v_scale)
+    b, g, nh, hd = q.shape
+    max_len, nkv = ck.shape[1], ck.shape[2]
+    if q.device.type == "cpu":
+        return flash_decode_reference(q, ck, cv, pos0, window=window,
+                                      k_scale=k_scale, v_scale=v_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {q.device}")
+    scales = (k_scale, v_scale) if quant else ()
+    _check_cuda(what, q, ck, cv, *scales)
+    if q.dtype not in _QUERY_TYPES or (not quant and ck.dtype != q.dtype):
+        raise TypeError(
+            f"{what} kernel takes a bfloat16, float16 or float32 q with a "
+            f"cache of its type or an int8 cache, got {q.dtype}/{ck.dtype}/"
+            f"{cv.dtype}"
+        )
+    if not gate(q.shape, ck.shape, window, ck.dtype) or cv.shape != ck.shape:
+        raise ValueError(
+            f"{what} kernel does not take q {tuple(q.shape)}, cache "
+            f"{tuple(ck.shape)}: head dim must be {dims}"
+        )
+    out = torch.empty((b, g, nh * hd), dtype=torch.float32, device=q.device)
+    ks_p, vs_p = (_ptr(k_scale), _ptr(v_scale)) if quant else (None, None)
+    call = _build.function("flash_simt", "tgt_flash_decode_simt", _DECODE_SIMT_ARGS)
+    rc = call(
+        _ptr(q), _ptr(ck), _ptr(cv), ks_p, vs_p, _ptr(out),
+        None if pos_dev is None else _ptr(pos_dev),
+        0 if pos_dev is not None else pos0, b, g, nh, nkv, hd, max_len,
+        0 if window is None else int(window), float(hd ** -0.5),
+        _DECODE_TYPES[q.dtype], _DECODE_TYPES[ck.dtype], _stream(q),
+    )
+    _build.check(rc, what)
+    _count(fn)
+    return out
+
+
 def flash_decode_simt(
     q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, pos0: Any, *,
     window: Optional[int] = None,
@@ -1090,46 +1307,29 @@ def flash_decode_simt(
     """:func:`flash_decode_attention` at any head dim up to 128 (the
     decode of ``csrc/flash_simt.cu``, on the CUDA cores): the same
     arguments, the same ``pos0`` forms, float32 ``[b, g, nh*hd]``."""
-    quant, pos_dev, pos0 = _decode_args(q, ck, cv, pos0, window, k_scale, v_scale)
-    b, g, nh, hd = q.shape
-    max_len, nkv = ck.shape[1], ck.shape[2]
-    if q.device.type == "cpu":
-        return flash_decode_reference(q, ck, cv, pos0, window=window,
-                                      k_scale=k_scale, v_scale=v_scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_decode_simt: unsupported device {q.device}")
-    scales = (k_scale, v_scale) if quant else ()
-    _check_cuda("flash_decode_simt", q, ck, cv, *scales)
-    if q.dtype not in (torch.bfloat16, torch.float32) or (
-        not quant and ck.dtype != q.dtype
-    ):
-        raise TypeError(
-            f"flash_decode_simt kernel takes a bfloat16 or float32 q with a "
-            f"cache of its type or an int8 cache, got {q.dtype}/{ck.dtype}/"
-            f"{cv.dtype}"
-        )
-    if not supports_decode_simt(q.shape, ck.shape, window, ck.dtype) \
-            or cv.shape != ck.shape:
-        raise ValueError(
-            f"flash_decode_simt kernel does not take q {tuple(q.shape)}, cache "
-            f"{tuple(ck.shape)}: head dim must be at most {SIMT_HEAD_DIM_MAX}"
-        )
-    out = torch.empty((b, g, nh * hd), dtype=torch.float32, device=q.device)
-    ks_p, vs_p = (_ptr(k_scale), _ptr(v_scale)) if quant else (None, None)
-    fn = _build.function("flash_simt", "tgt_flash_decode_simt", _DECODE_SIMT_ARGS)
-    rc = fn(
-        _ptr(q), _ptr(ck), _ptr(cv), ks_p, vs_p, _ptr(out),
-        None if pos_dev is None else _ptr(pos_dev),
-        0 if pos_dev is not None else pos0, b, g, nh, nkv, hd, max_len,
-        0 if window is None else int(window), float(hd ** -0.5),
-        _DECODE_TYPES[q.dtype], _DECODE_TYPES[ck.dtype], _stream(q),
-    )
-    _build.check(rc, "flash_decode_simt")
-    _count(flash_decode_simt)
-    return out
+    return _decode_simt_call(
+        flash_decode_simt, "flash_decode_simt", supports_decode_simt,
+        f"at most {SIMT_HEAD_DIM_MAX}", q, ck, cv, pos0, window, k_scale, v_scale)
 
 
 flash_decode_simt.launches = 0
+
+
+def flash_decode_wide(
+    q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, pos0: Any, *,
+    window: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """:func:`flash_decode_simt` at head dims 129 to 256 (Gemma's 256):
+    the same kernel, arguments and output."""
+    return _decode_simt_call(
+        flash_decode_wide, "flash_decode_wide", supports_decode_wide,
+        f"from {SIMT_HEAD_DIM_MAX + 1} to {WIDE_HEAD_DIM_MAX}", q, ck, cv, pos0,
+        window, k_scale, v_scale)
+
+
+flash_decode_wide.launches = 0
 
 
 # --------------------------------------------------------------------- #
@@ -1451,9 +1651,10 @@ class Route(NamedTuple):
     (the head dim zero-padded to ``head_dim`` for the tensor-core kernel),
     ``"f32"`` (float32: the 3xTF32 forward of ``csrc/flash_fwd_tf32.cu``
     with the 3xTF32 backward of ``csrc/flash_bwd_tf32.cu``), ``"simt"`` (the CUDA-core
-    kernels of ``csrc/flash_simt.cu``, for rows TMA cannot map) or
-    ``"none"`` (no kernel takes it: the plain version on the CPU, refused
-    on the card); ``head_dim`` is the dim the work runs at."""
+    kernels of ``csrc/flash_simt.cu``, for rows TMA cannot map),
+    ``"wide"`` (the same kernels at head dims 129 to 256) or ``"none"``
+    (no kernel takes it: the plain version on the CPU, refused on the
+    card); ``head_dim`` is the dim the work runs at."""
 
     kind: str
     head_dim: int
@@ -1469,30 +1670,34 @@ def attention_route(
     reference's callers route around its kernels' limits.
 
     Forward and backward (the training block, the prefill): a
-    :func:`supports` shape runs the tensor-core kernels; bfloat16 with a
+    :func:`supports` shape runs the tensor-core kernels (bfloat16 or
+    float16); bfloat16 or float16 with a
     head dim below 128 that is not instantiated (d=32, Phi-2's 80) is
     zero-padded to the next instantiated dim, as the reference pads to
     128 lanes (exact: the zero columns add nothing to ``q·k`` and give
     zero output columns, sliced off); float32 up to d=128 runs the 3xTF32
     forward and backward (:func:`supports_tf32`: ``d % 4 == 0``) or, at
-    other dims, the CUDA-core forward and backward.  Decode
-    (``decode=True``, the cache in ``cache_dtype``): a
-    :func:`supports_decode` shape (any head dim up to 128 whose cache row
-    is a multiple of 16 bytes) runs the tensor-core decode, any other
-    head dim up to 128 the CUDA-core one.  A decode is never padded: that
-    would copy the whole cache every token.  Anything else (float16, a
-    head dim above 128) has no kernel yet.  Answers are cached by shape:
-    a decode step asks once a layer."""
+    other dims, the CUDA-core forward and backward.  Head dims from 129 to
+    256 (Gemma's 256) run the CUDA-core kernels in bfloat16, float16 or
+    float32 (``"wide"``).  Decode (``decode=True``, the cache in
+    ``cache_dtype``): a :func:`supports_decode` shape (any head dim up to
+    128 whose cache row is a multiple of 16 bytes) runs the tensor-core
+    decode, any other head dim up to 128 the CUDA-core one, head dims 129
+    to 256 the wide one.  A decode is never padded: that would copy the
+    whole cache every token.  Anything else (another dtype, a head dim
+    above 256) has no kernel.  Answers are cached by shape: a decode step
+    asks once a layer."""
     d = q_shape[-1]
     if decode:
         cdt = dtype if cache_dtype is None else cache_dtype
-        if dtype not in (torch.bfloat16, torch.float32) \
-                or cdt not in (dtype, torch.int8):
+        if dtype not in _QUERY_TYPES or cdt not in (dtype, torch.int8):
             return Route("none", d)
         if supports_decode(q_shape, k_shape, window, cdt):
             return Route("kernel", d)
         if supports_decode_simt(q_shape, k_shape, window, cdt):
             return Route("simt", d)
+        if supports_decode_wide(q_shape, k_shape, window, cdt):
+            return Route("wide", d)
         return Route("none", d)
     if supports(q_shape, k_shape, dtype):
         return Route("kernel", d)
@@ -1504,6 +1709,8 @@ def attention_route(
     if padded is not None and supports(
             (*q_shape[:-1], padded), (*k_shape[:-1], padded), dtype):
         return Route("pad", padded)
+    if supports_wide(q_shape, k_shape, dtype):
+        return Route("wide", d)
     return Route("none", d)
 
 
@@ -1512,8 +1719,8 @@ def _no_kernel(q: torch.Tensor, k_shape: Tuple[int, ...], what: str) -> None:
     if q.device.type not in _PLAIN_DEVICES:
         raise ValueError(
             f"{what}: no CUDA kernel takes {q.dtype} q {tuple(q.shape)} with "
-            f"k/cache {tuple(k_shape)} (bfloat16 and float32 up to head dim "
-            f"{SIMT_HEAD_DIM_MAX} are taken)"
+            f"k/cache {tuple(k_shape)} (bfloat16, float16 and float32 up to "
+            f"head dim {WIDE_HEAD_DIM_MAX} are taken)"
         )
 
 
@@ -1524,8 +1731,8 @@ def attention(
     """Differentiable attention as :func:`attention_route` routes it:
     :func:`flash_attention`, :func:`flash_attention` on ``q``/``k``/``v``
     zero-padded in the head dim (``sm_scale`` of the real dim) with the
-    output sliced back, :func:`flash_attention_tf32` or
-    :func:`flash_attention_f32`.  On the CPU each runs its plain version;
+    output sliced back, :func:`flash_attention_tf32`,
+    :func:`flash_attention_f32` or :func:`flash_attention_wide`.  On the CPU each runs its plain version;
     on the card a shape no kernel takes raises.  The training block and
     the prefill call this."""
     d = q.shape[-1]
@@ -1538,6 +1745,8 @@ def attention(
         return flash_attention_tf32(q, k, v, causal=causal, window=window)
     if route.kind == "simt":
         return flash_attention_f32(q, k, v, causal=causal, window=window)
+    if route.kind == "wide":
+        return flash_attention_wide(q, k, v, causal=causal, window=window)
     if route.kind == "pad":
         pad = (0, route.head_dim - d)
         out = flash_attention(
@@ -1555,8 +1764,9 @@ def decode_attention(
 ) -> torch.Tensor:
     """Decode attention of ``g`` queries against a cache as
     :func:`attention_route` routes it (``decode=True``):
-    :func:`flash_decode_attention` (any head dim it maps) or
-    :func:`flash_decode_simt` over the whole cache, never padded.  On the card a shape no kernel takes
+    :func:`flash_decode_attention` (any head dim it maps),
+    :func:`flash_decode_simt` or :func:`flash_decode_wide` over the whole
+    cache, never padded.  On the card a shape no kernel takes
     raises.  Float32 ``[b, g, nh*hd]``."""
     route = attention_route(q.shape, ck.shape, q.dtype, window=window,
                             decode=True, cache_dtype=ck.dtype)
@@ -1565,6 +1775,8 @@ def decode_attention(
         return flash_decode_attention(q, ck, cv, pos0, **kw)
     if route.kind == "simt":
         return flash_decode_simt(q, ck, cv, pos0, **kw)
+    if route.kind == "wide":
+        return flash_decode_wide(q, ck, cv, pos0, **kw)
     _no_kernel(q, ck.shape, "decode_attention")
     return flash_decode_reference(q, ck, cv, pos0, **kw)
 
@@ -1574,6 +1786,8 @@ def reset_launches() -> None:
     for fn in (flash_attention, flash_bwd_dq, flash_bwd_dkv,
                flash_decode_attention, flash_attention_tf32, flash_attention_f32,
                flash_bwd_dq_f32, flash_bwd_dkv_f32, flash_decode_simt,
-               tf32_bwd_split, flash_bwd_dq_tf32, flash_bwd_dkv_tf32):
+               tf32_bwd_split, flash_bwd_dq_tf32, flash_bwd_dkv_tf32,
+               flash_attention_wide, flash_bwd_dq_wide, flash_bwd_dkv_wide,
+               flash_decode_wide):
         fn.launches = 0
     flash_decode_attention.launches_int8 = 0

@@ -1,0 +1,1489 @@
+"""The SPMD pipeline engine over ``torch.distributed``: one process per mesh
+position, pipeline parallelism (``pp``) composed with data parallelism
+(``dp``).
+
+Counterpart of ``torchgpipe_tpu/spmd.py``.  The reference expresses the
+whole GPipe schedule as one ``shard_map``-ped program over a
+``jax.sharding.Mesh``: stage hand-offs are ``ppermute``, reductions
+``psum``.  In PyTorch's idiom the same engine is one process per mesh
+position:
+
+* :func:`make_mesh` gives this process its ``(pp, dp)`` coordinates
+  (``pp`` outermost, as the reference's axis order) and one process group
+  per axis;
+* each process holds its stage's slice of the stacked ``[n_stages, ...]``
+  block parameters and the replicated ``pre``/``post`` (embedding / head)
+  parameters (:meth:`SpmdGPipe.init`, :meth:`~SpmdGPipe.place`);
+* activations go to the next ``pp`` rank and their gradients to the
+  previous one by point-to-point ``isend``/``recv``;
+* ``pre``/``post`` gradients are summed over ``pp`` and every gradient is
+  averaged over ``dp`` by ``all_reduce`` (the pre/post ones in one
+  reduction over every rank), as the reference's ``psum`` and ``pmean``
+  do.
+
+The backend is the caller's: ``nccl`` where each rank has a card of its
+own, or ``gloo``, which stages every transfer through host memory (ranks
+sharing one card, which NCCL does not take).  All compute stays on each
+rank's device; the host staging is counted (:attr:`Mesh.staged_bytes`).
+
+Schedules: ``'fill_drain'`` (GPipe) and ``'1f1b'`` (PipeDream-flush,
+ordered by the reference's closed-form tick table :func:`fwd_tick` /
+:func:`bwd_tick`).  Checkpoint modes ``'always'``, ``'except_last'`` and
+``'never'`` follow the port's :mod:`~torchgpipe_tpu_torch.checkpoint`: a
+checkpointed cell runs its forward without a graph, keeping its input,
+and recomputes in its backward.  Under a row-decomposable loss
+(``loss_reduction`` ``'mean'``/``'sum'``) the fill-drain head and loss are
+sharded over ``pp`` (each stage runs them on 1/n of the batch), and
+ragged batches are edge-padded and masked out exactly.
+
+Parameters are trees in the reference's layout (``{"pre", "blocks",
+"post"}``; an ``nn.Sequential`` as a tuple of its children's trees, a
+layer as the dict of its parameters by name), with torch tensors as
+leaves; the engine runs a layer on a tree through
+``torch.func.functional_call``.
+
+Not ported yet, raising ``NotImplementedError`` that names ROADMAP.md
+queue A item 5.4 and its sub-slice: tensor and sequence parallelism (b),
+FSDP / ZeRO (c), the interleaved and zero-bubble schedules (d), expert
+parallelism, ``rng=``, megasteps, tracing and the fault hooks (e);
+``remat_policy`` is item 2 (A.2.12).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
+
+import torch
+import torch.distributed as dist
+from torch import nn
+from torch.func import functional_call
+
+from torchgpipe_tpu_torch import checkpoint as _ckpt
+from torchgpipe_tpu_torch import microbatch
+from torchgpipe_tpu_torch.auxgrad import aux_scale
+from torchgpipe_tpu_torch.models.transformer import not_ported
+from torchgpipe_tpu_torch.skip.layout import pop_keys, stash_keys
+
+Pytree = Any
+
+__all__ = ["Mesh", "P", "SpmdGPipe", "broadcast_specs", "bwd_tick", "fwd_tick",
+           "layer_param_specs", "make_mesh", "module_tree", "spec_mentions"]
+
+
+# --------------------------------------------------------------------- #
+# partition specs                                                       #
+# --------------------------------------------------------------------- #
+
+
+class P(tuple):
+    """A partition spec: one entry per leading dim of a leaf, each a mesh
+    axis name, a tuple of names, or None (replicated); the port's
+    counterpart of ``jax.sharding.PartitionSpec``."""
+
+    def __new__(cls, *axes: Any) -> "P":
+        return super().__new__(cls, axes)
+
+    def __repr__(self) -> str:
+        return f"P({', '.join(map(repr, self))})"
+
+
+def _children(layer: nn.Module) -> Optional[Union[tuple, dict]]:
+    """The children of a compound layer: an ``nn.Sequential``'s as a
+    tuple (the reference's ``chain``), else None."""
+    if isinstance(layer, nn.Sequential):
+        return tuple(layer)
+    return None
+
+
+def _row_coupled(layer: nn.Module) -> list:
+    """Row-coupled mechanisms in ``layer`` whose auxiliary terms see ragged
+    padding rows (batch-norm statistics average over the padded micro-batch;
+    a MoE balance penalty counts the duplicated tokens).  Task-loss
+    gradients stay exact either way — this feeds the one-time ragged-batch
+    warning in :meth:`SpmdGPipe.train_step`."""
+    from torchgpipe_tpu_torch.batchnorm import DeferredBatchNorm
+    from torchgpipe_tpu_torch.ops.nn import BatchNorm
+
+    out = []
+    for m in layer.modules():
+        if isinstance(m, DeferredBatchNorm):
+            out.append("deferred_batch_norm statistics")
+        elif isinstance(m, BatchNorm):
+            out.append("batch_norm statistics")
+        moe = getattr(m, "moe", None)
+        if getattr(moe, "balance_weight", 0.0) > 0.0:
+            out.append("MoE balance_weight penalty")
+    return out
+
+
+def _declared_axes(layer: nn.Module, key: str) -> list:
+    """Collect ``meta[key]`` declarations (a layer's ``meta`` dict),
+    recursing into children."""
+    out = []
+    for m in layer.modules():
+        meta = getattr(m, "meta", None)
+        if isinstance(meta, dict) and key in meta:
+            out.append(meta[key])
+    return out
+
+
+def layer_param_specs(layer: nn.Module, stage_axis: Optional[str] = None) -> Pytree:
+    """:class:`P` tree *prefix* for a layer's params.
+
+    ``stage_axis`` names the leading stacked-stage dim for pipeline blocks
+    (specs get it prepended); pass ``None`` for un-stacked layers (pre/post),
+    whose declared specs apply as-is.
+
+    Layers declare sharded leaves via ``meta['param_specs']`` — a dict naming
+    *every* param key with its per-stage spec.  A declared value may itself
+    be a dict (a sub-layer's specs) or a bare ``P`` prefix covering that
+    subtree.  Undeclared layers get a single ``P(stage_axis)`` prefix
+    covering their whole params subtree (stacked-stage dim sharded,
+    everything else replicated).  Compound layers (``nn.Sequential``)
+    recurse; fully-replicated subtrees collapse back to one prefix spec.
+    The result broadcasts to per-leaf form via :func:`broadcast_specs`.
+    """
+    repl = P(stage_axis) if stage_axis else P()
+    children = _children(layer)
+    if children is not None:
+        sub = tuple(layer_param_specs(c, stage_axis) for c in children)
+        if all(isinstance(v, P) and v == repl for v in sub):
+            return repl
+        return sub
+    meta = getattr(layer, "meta", None)
+    declared = meta.get("param_specs") if isinstance(meta, dict) else None
+    if declared:
+
+        def with_stage(s):
+            if isinstance(s, P):
+                return P(stage_axis, *tuple(s)) if stage_axis else s
+            return {k: with_stage(v) for k, v in s.items()}
+
+        return {k: with_stage(s) for k, s in declared.items()}
+    return repl
+
+
+def spec_mentions(spec: P, axis: str) -> bool:
+    """True if a partition spec shards any dim over ``axis``."""
+    for ax in spec:
+        if ax is None:
+            continue
+        if axis in (ax if isinstance(ax, tuple) else (ax,)):
+            return True
+    return False
+
+
+def broadcast_specs(prefix: Pytree, tree: Pytree) -> Pytree:
+    """Expand a spec tree-prefix to one :class:`P` per leaf of ``tree``
+    (the broadcasting ``shard_map`` applies to its in_specs)."""
+    if isinstance(prefix, P):
+        return _tree_map(lambda _: prefix, tree)
+    if isinstance(prefix, Mapping) and isinstance(tree, Mapping):
+        if set(prefix) != set(tree):
+            raise ValueError(
+                f"spec keys {sorted(prefix)} do not match tree keys {sorted(tree)}")
+        return {k: broadcast_specs(prefix[k], tree[k]) for k in tree}
+    if isinstance(prefix, (tuple, list)) and isinstance(tree, (tuple, list)):
+        if len(prefix) != len(tree):
+            raise ValueError(
+                f"spec tuple of {len(prefix)} does not match tree tuple of {len(tree)}")
+        return type(tree)(broadcast_specs(p, t) for p, t in zip(prefix, tree))
+    raise ValueError(
+        f"spec {type(prefix).__name__} does not match tree {type(tree).__name__}")
+
+
+# --------------------------------------------------------------------- #
+# parameter trees                                                       #
+# --------------------------------------------------------------------- #
+
+
+def _is_node(t: Any) -> bool:
+    return isinstance(t, (Mapping, tuple, list)) and not isinstance(t, P)
+
+
+def _tree_map(fn: Callable, tree: Pytree, *rest: Pytree) -> Pytree:
+    """``fn`` over the leaves of ``tree`` (nested dicts, tuples, lists),
+    with the leaves at the same place in ``rest``."""
+    if isinstance(tree, Mapping):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)) and not isinstance(tree, P):
+        return type(tree)(_tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def _leaves(tree: Pytree) -> List[Any]:
+    out: List[Any] = []
+    _tree_map(out.append, tree)
+    return out
+
+
+def _items(tree: Pytree, path: tuple = ()) -> List[Tuple[tuple, Any]]:
+    """``(path, leaf)`` pairs in the tree's own order."""
+    if isinstance(tree, Mapping):
+        return [kv for k, v in tree.items() for kv in _items(v, path + (k,))]
+    if isinstance(tree, (tuple, list)) and not isinstance(tree, P):
+        return [kv for i, v in enumerate(tree) for kv in _items(v, path + (i,))]
+    return [(path, tree)]
+
+
+def _get(tree: Pytree, path: tuple) -> Any:
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _stack(trees: Sequence[Pytree]) -> Pytree:
+    return _tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def module_tree(module: nn.Module, leaf: Callable[[str, torch.Tensor], Any] = None,
+                skip: Sequence[str] = ()) -> Pytree:
+    """A module's parameters in the reference's tree layout: an
+    ``nn.Sequential`` as the tuple of its children's trees, any other
+    module as the dict of its own parameters and its children's trees by
+    name (a parameter-less layer as ``()``).  Each leaf is ``leaf(dotted
+    name, parameter)`` (default: the parameter); top-level names in
+    ``skip`` are left out (a tied head's spliced ``table``)."""
+    leaf = leaf or (lambda name, p: p)
+
+    def walk(m: nn.Module, prefix: str, top: bool) -> Pytree:
+        if isinstance(m, nn.Sequential):
+            return tuple(walk(c, f"{prefix}{i}.", False) for i, c in enumerate(m))
+        out: Dict[str, Any] = {}
+        for name, p in m._parameters.items():
+            if p is not None and not (top and name in skip):
+                out[name] = leaf(prefix + name, p)
+        for name, c in m._modules.items():
+            sub = walk(c, f"{prefix}{name}.", False)
+            if _leaves(sub):
+                out[name] = sub
+        return out if out else ()
+
+    return walk(module, "", True)
+
+
+def _call(module: nn.Module, names: Pytree, tree: Pytree, *args: Any) -> Any:
+    """``module(*args)`` with its parameters taken from ``tree`` (the
+    layout of :func:`module_tree`; ``names`` the same tree of dotted
+    names)."""
+    mapping = {name: _get(tree, path) for path, name in _items(names)}
+    return functional_call(module, mapping, args)
+
+
+# --------------------------------------------------------------------- #
+# the mesh                                                              #
+# --------------------------------------------------------------------- #
+
+# dtype codes of the point-to-point header
+_DTYPES = [torch.float32, torch.bfloat16, torch.float16, torch.float64,
+           torch.int64, torch.int32, torch.int8, torch.uint8, torch.bool]
+_HEADER = 8   # dtype code, ndim, up to 6 dims
+
+
+class Mesh:
+    """This process's place in a ``('pp', 'dp')`` mesh of processes:
+    ``axis_names``, ``shape`` (axis -> size), ``coords`` (axis -> this
+    rank's index), ``groups`` (axis -> the process group of the ranks that
+    differ from this one only along it), ``device`` and ``backend``.
+    Global rank ``r`` sits at ``pp = r // dp``, ``dp = r % dp``.
+
+    The transfers below stage through host memory when the backend is
+    ``gloo`` and the device a card; ``staged_bytes`` counts the bytes
+    copied between the device and the host for them."""
+
+    def __init__(self, n_stages: int, dp: int, device: torch.device, backend: str,
+                 groups: Dict[str, Any]):
+        self.axis_names = ("pp", "dp")
+        self.shape = {"pp": n_stages, "dp": dp}
+        self.rank = dist.get_rank()
+        self.coords = {"pp": self.rank // dp, "dp": self.rank % dp}
+        self.groups = groups
+        self.device = device
+        self.backend = backend
+        self.staged_bytes = 0
+        self._pending: List[Tuple[Any, torch.Tensor]] = []
+        # Pinned host buffers of the reductions, by shape and dtype, reused
+        # step after step (a copy to or from pinned memory runs at the
+        # link's rate; a pageable one is staged again by the driver).
+        self._pinned: Dict[Tuple[tuple, torch.dtype], torch.Tensor] = {}
+
+    def __repr__(self) -> str:
+        return (f"Mesh(shape={self.shape}, coords={self.coords}, "
+                f"device={self.device}, backend={self.backend!r})")
+
+    def rank_of(self, pp: int, dp: int) -> int:
+        return pp * self.shape["dp"] + dp
+
+    @property
+    def staged(self) -> bool:
+        return self.backend == "gloo" and self.device.type != "cpu"
+
+    def _host(self, t: torch.Tensor) -> torch.Tensor:
+        if not self.staged:
+            return t.contiguous()
+        self.staged_bytes += t.numel() * t.element_size()
+        return t.detach().to("cpu").contiguous()
+
+    def _back(self, t: torch.Tensor) -> torch.Tensor:
+        if not self.staged:
+            return t
+        self.staged_bytes += t.numel() * t.element_size()
+        return t.to(self.device)
+
+    def send(self, t: torch.Tensor, dst: int, tag: int) -> None:
+        """Post a send of ``t`` to global rank ``dst`` (a header with its
+        dtype and shape, then the payload); :meth:`flush` waits for it."""
+        t = self._host(t.detach())
+        if t.ndim > _HEADER - 2:
+            raise ValueError(f"a transfer of {t.ndim} dims (at most {_HEADER - 2})")
+        head = torch.zeros(_HEADER, dtype=torch.int64, device=t.device)
+        head[0], head[1] = _DTYPES.index(t.dtype), t.ndim
+        head[2:2 + t.ndim] = torch.tensor(t.shape, dtype=torch.int64)
+        for x in (head, t):
+            self._pending.append((dist.isend(x, dst, tag=tag), x))
+
+    def recv(self, src: int, tag: int) -> torch.Tensor:
+        """The next tensor global rank ``src`` sent with ``tag``, on this
+        rank's device."""
+        dev = "cpu" if self.staged else self.device
+        head = torch.empty(_HEADER, dtype=torch.int64, device=dev)
+        dist.recv(head, src, tag=tag)
+        h = head.tolist()
+        t = torch.empty(h[2:2 + h[1]], dtype=_DTYPES[h[0]], device=dev)
+        dist.recv(t, src, tag=tag)
+        return self._back(t)
+
+    def flush(self) -> None:
+        """Wait for every posted send."""
+        for work, _ in self._pending:
+            work.wait()
+        self._pending.clear()
+
+    def all_reduce(self, t: torch.Tensor, axis: Optional[str],
+                   scale: float = 1.0) -> torch.Tensor:
+        """The sum of ``t`` over ``axis`` (None: every rank of the mesh)
+        times ``scale``, in ``t``'s dtype (a bf16 gradient is summed in
+        bf16, half the bytes of a float32 sum through the host)."""
+        size = self.shape["pp"] * self.shape["dp"] if axis is None else self.shape[axis]
+        if size == 1:
+            return t if scale == 1.0 else t * scale
+        if self.staged:
+            key = (tuple(t.shape), t.dtype)
+            buf = self._pinned.get(key)
+            if buf is None:
+                buf = self._pinned[key] = torch.empty(t.shape, dtype=t.dtype,
+                                                      pin_memory=True)
+            buf.copy_(t.detach())
+            self.staged_bytes += 2 * t.numel() * t.element_size()
+        else:
+            buf = t.detach().clone()
+        dist.all_reduce(buf, group=None if axis is None else self.groups[axis])
+        if scale != 1.0:
+            buf.mul_(scale)
+        return buf.to(self.device) if self.staged else buf
+
+    def broadcast(self, t: Optional[torch.Tensor], src: int, axis: str) -> torch.Tensor:
+        """Global rank ``src``'s ``t`` on every rank of ``axis`` (shape and
+        dtype travel with it)."""
+        if self.shape[axis] == 1:
+            return t
+        objs = [None if t is None else (tuple(t.shape), t.dtype)]
+        dist.broadcast_object_list(objs, src=src, group=self.groups[axis])
+        shape, dtype = objs[0]
+        dev = "cpu" if self.staged else self.device
+        buf = self._host(t) if self.rank == src else torch.empty(shape, dtype=dtype, device=dev)
+        dist.broadcast(buf, src=src, group=self.groups[axis])
+        return buf.to(self.device) if self.rank == src else self._back(buf)
+
+    def all_gather(self, t: torch.Tensor, axis: str) -> List[torch.Tensor]:
+        """Every rank's ``t`` along ``axis``, in axis order."""
+        if self.shape[axis] == 1:
+            return [t]
+        buf = self._host(t)
+        out = [torch.empty_like(buf) for _ in range(self.shape[axis])]
+        dist.all_gather(out, buf, group=self.groups[axis])
+        return [self._back(o) for o in out]
+
+
+def make_mesh(
+    n_stages: int,
+    dp: int = 1,
+    sp: int = 1,
+    *,
+    tp: int = 1,
+    ep: int = 1,
+    backend: Optional[str] = None,
+    device: Any = None,
+) -> Mesh:
+    """This process's :class:`Mesh` over a ``('pp', 'dp')`` layout of
+    ``n_stages * dp`` processes, ``pp`` outermost as in the reference.
+
+    ``torch.distributed`` must be initialised by the caller with that
+    world size (``init_process_group(backend, init_method=..., rank=,
+    world_size=)``).  One process group per axis is made here (every rank
+    calls this, in the same order).  ``backend`` is the groups' backend
+    (default: the default group's); with ``gloo`` a card's transfers stage
+    through the host.  ``device`` defaults to the card (``cuda``, the local
+    rank — ``LOCAL_RANK``, else the global rank — modulo the device count);
+    it is the CPU only when asked.  ``sp``, ``tp`` and ``ep`` above 1 are
+    ROADMAP.md queue A item 5.4 (sub-slices b and e)."""
+    if sp > 1 or tp > 1:
+        raise not_ported("make_mesh(sp=, tp=) (sequence and tensor parallelism, "
+                         "A.5.4b)", "5.4")
+    if ep > 1:
+        raise not_ported("make_mesh(ep=) (expert parallelism, A.5.4e)", "5.4")
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError(
+            "make_mesh needs torch.distributed initialised with world size "
+            f"n_stages * dp = {n_stages * dp} (one process per mesh position): "
+            "call torch.distributed.init_process_group(backend, init_method="
+            "'tcp://localhost:<port>', rank=, world_size=) first"
+        )
+    need = n_stages * dp
+    world = dist.get_world_size()
+    if world != need:
+        raise ValueError(f"need {need} devices, have {world} processes")
+    backend = backend or dist.get_backend()
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain PyTorch path on the CPU"
+            )
+        local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+        device = torch.device("cuda", local % torch.cuda.device_count())
+    device = torch.device(device)
+    rank = dist.get_rank()
+    groups: Dict[str, Any] = {}
+    for d in range(dp):   # pp groups: the ranks of one dp lane
+        g = dist.new_group([j * dp + d for j in range(n_stages)], backend=backend)
+        if rank % dp == d:
+            groups["pp"] = g
+    for j in range(n_stages):   # dp groups: the ranks of one stage
+        g = dist.new_group([j * dp + d for d in range(dp)], backend=backend)
+        if rank // dp == j:
+            groups["dp"] = g
+    return Mesh(n_stages, dp, device, backend, groups)
+
+
+# --------------------------------------------------------------------- #
+# the 1F1B closed form                                                  #
+# --------------------------------------------------------------------- #
+
+
+def fwd_tick(i: int, j: int, n: int) -> int:
+    """The tick at which stage ``j`` of ``n`` runs micro-batch ``i``'s
+    forward under 1F1B: ``i + j`` in the warm-up (``i <= n - 1 - j``),
+    ``2i + j`` in the steady state (the reference's closed form)."""
+    return i + j if i <= n - 1 - j else 2 * i + j
+
+
+def bwd_tick(i: int, j: int, n: int) -> int:
+    """The tick of micro-batch ``i``'s backward on stage ``j``:
+    ``2n - 1 + 2i - j``."""
+    return 2 * n - 1 + 2 * i - j
+
+
+def _pad_batch(tree: Pytree, pad: int) -> Pytree:
+    """Pad dim 0 by ``pad`` rows, edge-replicating the last row — replicas
+    are valid inputs for any layer/loss (no NaN traps from zero tokens);
+    the ragged-batch mask zeroes their loss and gradient contribution."""
+    if pad == 0:
+        return tree
+    return _tree_map(
+        lambda a: torch.cat([a, a[-1:].expand(pad, *a.shape[1:])], 0), tree)
+
+
+# message tags: kind * _TAG + micro-batch
+_TAG = 1 << 16
+_ACT, _GRAD, _SLICE, _SLICE_GRAD, _GATHER = 1, 2, 3, 4, 5
+
+
+class _Cell:
+    """One micro-batch's cell on this stage: its input (a leaf that
+    requires grad when a gradient must leave it), and its output's graph
+    unless checkpointed (then recomputed in the backward)."""
+
+    __slots__ = ("h", "x", "y", "ckpt")
+
+    def __init__(self, h, x, y, ckpt):
+        self.h, self.x, self.y, self.ckpt = h, x, y, ckpt
+
+
+class SpmdGPipe:
+    """GPipe over a stacked block, one process per mesh position.
+
+    Args (the reference's, same names and defaults):
+      block: the per-stage computation (an ``nn.Module``; an
+        ``nn.Sequential`` of sub-layers for a multi-layer stage).  Its
+        input and output must have one shape and dtype.
+      n_stages: pipeline depth; must equal the ``pp`` mesh axis size.
+      mesh: this process's :class:`Mesh` (:func:`make_mesh`).
+      chunks: micro-batches per mini-batch (m).
+      loss_fn: ``loss_fn(output, target) -> scalar``, or a parametric loss
+        layer (an ``nn.Module`` called as ``loss_fn(y, target)``, e.g.
+        ``models.transformer.chunked_lm_loss``; its params live under
+        ``params["loss"]``, replicated over pp).
+      pre / post: optional layers applied before stage 0 / after stage
+        n-1 (e.g. embedding / LM head), replicated over ``pp``, their
+        gradients summed over it.  A ``post`` with a ``tie_pre`` tuple of
+        names (``models.transformer.llama_spmd`` under
+        ``tie_embeddings``) reads those parameters of ``pre`` (the tied
+        embedding): they are spliced in at apply time and their
+        gradients sum into ``grads["pre"]``.
+      checkpoint: 'always', 'except_last' or 'never'.
+      loss_reduction: 'mean' (default) or 'sum' declares that ``post`` and
+        ``loss_fn`` decompose over batch rows that way, which shards the
+        fill-drain head and loss over ``pp`` and admits ragged batches;
+        ``None`` runs the head replicated on the last stage.
+      schedule: 'fill_drain' or '1f1b'.
+      dp_axis: the data-parallel axis name ('dp'), or None.
+
+    The reference's other knobs are taken so that its calls transcribe:
+    ``scan_unroll``, ``send_ahead`` and ``gather_schedule`` shape its
+    compiled scan and are validated but change nothing here; the ones of
+    later sub-slices raise ``NotImplementedError`` naming their queue
+    item.
+    """
+
+    def __init__(
+        self,
+        block: nn.Module,
+        n_stages: int,
+        mesh: Mesh,
+        chunks: int,
+        loss_fn: Callable,
+        pre: Optional[nn.Module] = None,
+        post: Optional[nn.Module] = None,
+        checkpoint: str = "always",
+        remat_policy: Optional[Callable] = None,
+        pp_axis: str = "pp",
+        dp_axis: Optional[str] = None,
+        sp_axis: Optional[str] = None,
+        tp_axis: Optional[str] = None,
+        ep_axis: Optional[str] = None,
+        loss_reduction: Optional[str] = "mean",
+        fsdp: bool = False,
+        schedule: str = "fill_drain",
+        virtual_stages: int = 1,
+        scan_unroll: Union[int, bool] = 1,
+        send_ahead: bool = True,
+        megastep: int = 1,
+        hbm_budget_bytes: Optional[int] = None,
+        tracer: Any = None,
+        partition_rules: Any = None,
+        zero_update: Union[bool, int] = False,
+        gather_schedule: str = "block",
+    ) -> None:
+        self.block, self.n_stages, self.mesh, self.chunks = block, n_stages, mesh, chunks
+        self.loss_fn, self.pre, self.post = loss_fn, pre, post
+        self.checkpoint, self.remat_policy = checkpoint, remat_policy
+        self.pp_axis, self.dp_axis = pp_axis, dp_axis
+        self.sp_axis, self.tp_axis, self.ep_axis = sp_axis, tp_axis, ep_axis
+        self.loss_reduction, self.fsdp, self.schedule = loss_reduction, fsdp, schedule
+        self.virtual_stages, self.scan_unroll = virtual_stages, scan_unroll
+        self.send_ahead, self.megastep = send_ahead, megastep
+        self.hbm_budget_bytes, self.tracer = hbm_budget_bytes, tracer
+        self.partition_rules, self.zero_update = partition_rules, zero_update
+        self.gather_schedule = gather_schedule
+        self._validate()
+
+    def __repr__(self) -> str:
+        axes = {name: self.mesh.shape[name] for name in self.mesh.axis_names}
+        extras = "".join(
+            f", {k}={v!r}"
+            for k, v, default in (
+                ("loss_reduction", self.loss_reduction, "mean"),
+                ("fsdp", self.fsdp, False),
+                ("schedule", self.schedule, "fill_drain"),
+                ("virtual_stages", self.virtual_stages, 1),
+                ("scan_unroll", self.scan_unroll, 1),
+                ("send_ahead", self.send_ahead, True),
+                ("megastep", self.megastep, 1),
+                ("zero_update", self.zero_update, False),
+                ("gather_schedule", self.gather_schedule, "block"),
+            )
+            if v != default
+        )
+        name = getattr(self.block, "name", None) or type(self.block).__name__
+        return (
+            f"SpmdGPipe(block={name!r}, n_stages={self.n_stages}, "
+            f"chunks={self.chunks}, checkpoint={self.checkpoint!r}, "
+            f"mesh={axes}{extras})"
+        )
+
+    # ------------------------------------------------------------------ #
+    # validation (the reference's __post_init__)                         #
+    # ------------------------------------------------------------------ #
+
+    def _validate(self) -> None:
+        if self.pp_axis not in self.mesh.axis_names:
+            raise ValueError(f"mesh has no {self.pp_axis!r} axis: {self.mesh}")
+        self._loss_is_layer = isinstance(self.loss_fn, nn.Module)
+        loss_lyr = self.loss_fn if self._loss_is_layer else None
+        for what, lyr in (("block", self.block), ("pre", self.pre),
+                          ("post", self.post), ("loss", loss_lyr)):
+            if lyr is not None and (stash_keys(lyr) or pop_keys(lyr)):
+                name = getattr(lyr, "name", None) or type(lyr).__name__
+                raise ValueError(
+                    f"SPMD engine does not support cross-stage skip "
+                    f"connections, but {what} layer {name!r} declares "
+                    "stash/pop. Resolve the skips inside a chain() stage "
+                    "(runnable demo: examples/spmd_skips.py), or use the "
+                    "MPMD GPipe engine for cross-stage skip routing."
+                )
+        if self.loss_reduction not in ("mean", "sum", None):
+            raise ValueError("loss_reduction must be 'mean', 'sum' or None")
+        self._tie_post = tuple(getattr(self.post, "tie_pre", ()) or ())
+        self._tie_loss = tuple(getattr(loss_lyr, "tie_pre", ()) or ())
+        for what, lyr, keys in (("post", self.post, self._tie_post),
+                                ("loss", loss_lyr, self._tie_loss)):
+            missing = [k for k in keys if k not in lyr._parameters]
+            if missing:
+                raise ValueError(
+                    f"the {what} layer ties {missing} to pre but holds no such "
+                    "parameter: build it holding pre's (lm_head(cfg, "
+                    "table=embed.table); models.transformer.llama_spmd does)")
+        if self._tie_post or self._tie_loss:
+            if self.pre is None:
+                raise ValueError(
+                    "meta['tie_pre'] asks for pre-param splicing, but the "
+                    "engine has no pre layer to take them from"
+                )
+            if self.schedule != "fill_drain":
+                raise ValueError(
+                    f"weight tying (meta['tie_pre']) is supported on the "
+                    f"fill_drain schedule, not {self.schedule!r}: the "
+                    "explicit-gradient schedules hand-accumulate per-cell "
+                    "cotangents and do not yet route the tied "
+                    "contribution into grads['pre'].  Use "
+                    "schedule='fill_drain', or untie"
+                )
+        if not (
+            self.scan_unroll is True
+            or (isinstance(self.scan_unroll, int)
+                and not isinstance(self.scan_unroll, bool)
+                and self.scan_unroll >= 1)
+        ):
+            raise ValueError(
+                f"scan_unroll must be True or an int >= 1, got "
+                f"{self.scan_unroll!r}"
+            )
+        if not (isinstance(self.megastep, int) and not isinstance(self.megastep, bool)
+                and self.megastep >= 1):
+            raise ValueError(f"megastep must be an int >= 1, got {self.megastep!r}")
+        if self.mesh.shape[self.pp_axis] != self.n_stages:
+            raise ValueError(
+                f"pp mesh axis size {self.mesh.shape[self.pp_axis]} != "
+                f"n_stages {self.n_stages}"
+            )
+        for ax in (self.dp_axis, self.sp_axis, self.tp_axis, self.ep_axis):
+            if ax is not None and ax not in self.mesh.axis_names:
+                raise ValueError(f"mesh has no {ax!r} axis: {self.mesh}")
+        if self.checkpoint not in ("always", "except_last", "never", "offload"):
+            raise ValueError(
+                "SPMD engine supports checkpoint="
+                "'always'|'except_last'|'never'|'offload'"
+            )
+        if self.gather_schedule not in ("block", "use"):
+            raise ValueError(
+                "gather_schedule must be 'block' (gather each param once "
+                "per block scan body) or 'use' (model per-use-site "
+                f"gathering), got {self.gather_schedule!r}"
+            )
+        if self.schedule not in ("fill_drain", "1f1b", "interleaved", "zb"):
+            raise ValueError(
+                "schedule must be 'fill_drain', '1f1b', 'interleaved' or 'zb'")
+        if self.schedule == "1f1b":
+            if self.loss_reduction is None:
+                raise ValueError(
+                    "schedule='1f1b' computes per-micro-batch losses inside "
+                    "the schedule, so the loss must decompose over "
+                    "micro-batches: set loss_reduction='mean' or 'sum'"
+                )
+            if self.remat_policy is not None:
+                raise ValueError(
+                    "schedule='1f1b' hand-writes the per-cell recompute; "
+                    "remat_policy does not apply (use schedule='fill_drain')"
+                )
+        elif self.virtual_stages != 1 and self.schedule != "interleaved":
+            raise ValueError("virtual_stages only applies to schedule='interleaved'")
+        if self.remat_policy is not None and self.checkpoint == "never":
+            raise ValueError(
+                "remat_policy only applies with checkpoint='always', "
+                "'except_last' or 'offload'"
+            )
+        # What later sub-slices of ROADMAP.md A.5.4 bring.
+        if self.tp_axis is not None or self.sp_axis is not None:
+            raise not_ported("SpmdGPipe(tp_axis=, sp_axis=) (tensor and sequence "
+                             "parallelism, A.5.4b)", "5.4")
+        if self.fsdp or self.zero_update:
+            raise not_ported("SpmdGPipe(fsdp=, zero_update=) (ZeRO/FSDP, A.5.4c)", "5.4")
+        if self.schedule in ("interleaved", "zb"):
+            raise not_ported(f"SpmdGPipe(schedule={self.schedule!r}) (the interleaved "
+                             "and zero-bubble schedules, A.5.4d)", "5.4")
+        if self.ep_axis is not None:
+            raise not_ported("SpmdGPipe(ep_axis=) (expert parallelism, A.5.4e)", "5.4")
+        if self.checkpoint == "offload":
+            raise not_ported("SpmdGPipe(checkpoint='offload') (A.5.4e)", "5.4")
+        if self.remat_policy is not None:
+            raise not_ported("SpmdGPipe(remat_policy=)", "2")
+        if self.megastep != 1:
+            raise not_ported("SpmdGPipe(megastep=) (A.5.4e)", "5.4")
+        if self.tracer is not None or self.partition_rules is not None \
+                or self.hbm_budget_bytes is not None:
+            raise not_ported("SpmdGPipe(tracer=, partition_rules=, hbm_budget_bytes=) "
+                             "(the static-analysis and tracing layer, A.5.6)", "5.6")
+        self._blocks_spec = layer_param_specs(self.block, self.pp_axis)
+        self._stage = self.mesh.coords[self.pp_axis]
+        self._lane = self.mesh.coords[self.dp_axis] if self.dp_axis else 0
+        self._dp = self.mesh.shape[self.dp_axis] if self.dp_axis else 1
+        self._names = {
+            "blocks": module_tree(self.block, lambda n, p: n),
+            "pre": module_tree(self.pre, lambda n, p: n) if self.pre is not None else None,
+            "post": module_tree(self.post, lambda n, p: n) if self.post is not None else None,
+            "loss": module_tree(self.loss_fn, lambda n, p: n) if self._loss_is_layer else None,
+        }
+        self._warned_ragged_coupled = False
+
+    # ------------------------------------------------------------------ #
+    # parameters                                                         #
+    # ------------------------------------------------------------------ #
+
+    def _layers(self) -> List[Tuple[str, nn.Module]]:
+        out = [("pre", self.pre), ("blocks", self.block), ("post", self.post)]
+        if self._loss_is_layer:
+            out.append(("loss", self.loss_fn))
+        return [(k, m) for k, m in out if m is not None]
+
+    @staticmethod
+    def _check_stateless(layer: nn.Module, what: str) -> None:
+        if any(True for _ in layer.buffers()):
+            raise ValueError(
+                f"SPMD engine requires stateless layers, but {what} carries "
+                "state (e.g. BatchNorm running stats). Use the MPMD GPipe "
+                "engine, or a stateless normalization (LayerNorm/RMSNorm)."
+            )
+
+    def _tree(self, key: str, layer: nn.Module) -> Pytree:
+        skip = self._tie_post if key == "post" else self._tie_loss if key == "loss" else ()
+        return module_tree(layer, skip=skip)
+
+    @torch.no_grad()
+    def init(self, generator: Optional[torch.Generator], in_spec: Any) -> dict:
+        """``{'pre', 'blocks', 'post'[, 'loss']}`` params, the blocks
+        stacked on a leading ``[n_stages]`` axis, the same on every rank:
+        each layer is drawn in turn from ``generator`` (its
+        ``reset_parameters(generator)``: pre, stage 0 .. n-1's block, post,
+        loss; a layer without one keeps its constructed values).  The tree
+        lies where the layers do (host memory for layers built on the CPU
+        or the meta device's shapes); :meth:`place` takes this rank's part
+        to its device.  ``in_spec`` is an example input (a tensor, or
+        ``(shape, dtype)``): the block must preserve the shape and dtype of
+        the activations it receives."""
+        for key, layer in self._layers():
+            self._check_stateless(layer, key)
+        shape, dtype = ((tuple(in_spec.shape), in_spec.dtype)
+                        if isinstance(in_spec, torch.Tensor) else in_spec)
+        x = torch.zeros(shape, dtype=dtype, device="meta")
+        if self.pre is not None:
+            x = _call(self.pre, self._names["pre"],
+                      _tree_map(lambda t: t.to("meta"), module_tree(self.pre)), x)
+        y = _call(self.block, self._names["blocks"],
+                  _tree_map(lambda t: t.to("meta"), module_tree(self.block)), x)
+        if not isinstance(y, torch.Tensor) or y.shape != x.shape or y.dtype != x.dtype:
+            raise ValueError(
+                "SPMD pipeline blocks must preserve activation shape/dtype "
+                f"(got {tuple(x.shape)} {x.dtype} -> "
+                f"{tuple(getattr(y, 'shape', ()))} {getattr(y, 'dtype', None)}); "
+                "use the MPMD GPipe engine for heterogeneous stages"
+            )
+
+        def reset(layer: nn.Module) -> None:
+            if hasattr(layer, "reset_parameters"):
+                layer.reset_parameters(generator)
+            elif isinstance(layer, nn.Sequential):
+                for child in layer:
+                    reset(child)
+
+        def draw(layer: nn.Module, key: str) -> Pytree:
+            if generator is not None:
+                reset(layer)
+            return _tree_map(lambda t: t.detach().clone(), self._tree(key, layer))
+
+        params: dict = {}
+        if self.pre is not None:
+            params["pre"] = draw(self.pre, "pre")
+        params["blocks"] = _stack([draw(self.block, "blocks") for _ in range(self.n_stages)])
+        if self.post is not None:
+            params["post"] = draw(self.post, "post")
+        if self._loss_is_layer:
+            params["loss"] = draw(self.loss_fn, "loss")
+        return params
+
+    @torch.no_grad()
+    def place(self, params: dict) -> dict:
+        """This rank's part of a global params tree (blocks ``[n_stages,
+        ...]``) on its device: the stage's ``[1, ...]`` slice of the blocks
+        and the replicated pre/post/loss trees, as copies.  Keys the engine
+        owns no layout for pass through."""
+        self._check_global(params)
+        j, dev = self._stage, self.mesh.device
+        out = dict(params)
+        for key in ("pre", "post", "loss"):
+            if key in params:
+                out[key] = _tree_map(lambda a: a.to(dev, copy=True), params[key])
+        out["blocks"] = _tree_map(lambda a: a[j:j + 1].to(dev, copy=True), params["blocks"])
+        return out
+
+    def place_tree(self, tree: Pytree) -> Pytree:
+        """Every tensor leaf of ``tree`` on this rank's device (optimizer
+        state, restored host arrays)."""
+        return _tree_map(
+            lambda a: a.to(self.mesh.device) if isinstance(a, torch.Tensor) else a, tree)
+
+    def gather(self, tree: dict) -> Optional[dict]:
+        """The global tree (blocks ``[n_stages, ...]``) of per-rank trees
+        (params or grads, as :meth:`place` and :meth:`train_step` give
+        them), assembled in host memory on global rank 0 from the ranks of
+        dp lane 0; None on every other rank.  For tests and checkpoints."""
+        mesh, n = self.mesh, self.n_stages
+        leaves = [a for _, a in _items(tree["blocks"])]
+        if mesh.rank == 0:
+            stages = [[a.detach().cpu() for a in leaves]]
+            for j in range(1, n):
+                src = mesh.rank_of(j, 0)
+                stages.append([mesh.recv(src, _GATHER * _TAG + k).cpu()
+                               for k in range(len(leaves))])
+            out = {k: _tree_map(lambda a: a.detach().cpu(), v)
+                   for k, v in tree.items() if k != "blocks"}
+            flat = [torch.cat(parts, 0) for parts in zip(*stages)]
+            paths = [p for p, _ in _items(tree["blocks"])]
+            out["blocks"] = self._rebuild(tree["blocks"], dict(zip(paths, flat)))
+            return out
+        if self._lane == 0:
+            for k, a in enumerate(leaves):
+                mesh.send(a, 0, _GATHER * _TAG + k)
+            mesh.flush()
+        return None
+
+    @staticmethod
+    def _rebuild(tree: Pytree, by_path: Dict[tuple, Any], path: tuple = ()) -> Pytree:
+        if isinstance(tree, Mapping):
+            return {k: SpmdGPipe._rebuild(v, by_path, path + (k,)) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(SpmdGPipe._rebuild(v, by_path, path + (i,))
+                              for i, v in enumerate(tree))
+        return by_path[path]
+
+    def _check_structure(self, params: Any) -> None:
+        if not isinstance(params, dict) or "blocks" not in params:
+            raise ValueError(
+                "params must be the dict returned by SpmdGPipe.init "
+                "(keys 'blocks' and, when pre/post are set, 'pre'/'post'); "
+                f"got {type(params).__name__} with keys "
+                f"{sorted(params) if isinstance(params, dict) else 'n/a'}"
+            )
+        checks = [("pre", self.pre), ("post", self.post)]
+        if self._loss_is_layer:
+            checks.append(("loss", self.loss_fn))
+        for key, layer in checks:
+            if (layer is not None) != (key in params):
+                raise ValueError(
+                    f"engine {'defines' if layer is not None else 'has no'} "
+                    f"{key!r} layer but params "
+                    f"{'lacks' if layer is not None else 'contains'} a "
+                    f"{key!r} entry — params must come from THIS engine's "
+                    "init (pre/post configuration must match)"
+                )
+        for key, keys in (("post", self._tie_post), ("loss", self._tie_loss)):
+            entry = params.get(key)
+            if not (keys and isinstance(entry, dict)):
+                continue
+            dup = [k for k in keys if k in entry]
+            if dup:
+                raise ValueError(
+                    f"params[{key!r}] contains tied pre-param entr"
+                    f"{'ies' if len(dup) > 1 else 'y'} {dup}: the engine "
+                    "splices these from params['pre'] at apply time "
+                    "(meta['tie_pre']), and a duplicated tensor would be "
+                    "updated twice by an optimizer.  Drop them — e.g. "
+                    "assemble imported weights with "
+                    "models.generation.spmd_params_from_flat"
+                )
+        for key, layer in self._layers():
+            want = self._tree(key, layer)
+            got_paths = [p for p, _ in _items(params[key])]
+            want_items = _items(want)
+            if sorted(map(str, got_paths)) != sorted(str(p) for p, _ in want_items):
+                raise ValueError(
+                    f"params[{key!r}] has leaves {sorted(map(str, got_paths))}, "
+                    f"the engine's {key} layer {sorted(str(p) for p, _ in want_items)}: "
+                    "params were initialized for a different pipeline "
+                    "configuration"
+                )
+
+    def _check_leading(self, params: dict, want: int, what: str) -> None:
+        for leaf in _leaves(params["blocks"]):
+            got = tuple(leaf.shape[:1])
+            if got != (want,):
+                raise ValueError(
+                    f"block param leaf has leading dims {got}, expected "
+                    f"({want},) (= {what}); params were initialized for a "
+                    "different pipeline configuration"
+                )
+            break  # leading-dim layout is uniform; one leaf suffices
+
+    def _check_global(self, params: Any) -> None:
+        self._check_structure(params)
+        self._check_leading(params, self.n_stages, "(n_stages,)")
+        self._check_spec_shapes(params["blocks"], broadcast_specs(self._blocks_spec,
+                                                                  params["blocks"]))
+
+    def _check_params(self, params: Any) -> None:
+        """Validation of this rank's params tree (:meth:`place`'s result)
+        before the step: structure, this stage's ``[1, ...]`` slice of the
+        blocks, and every leaf on this rank's device."""
+        self._check_structure(params)
+        self._check_leading(params, 1, "this rank's slice of (n_stages,): "
+                            "pass the tree through SpmdGPipe.place")
+        for key, _ in self._layers():
+            for path, a in _items(params[key]):
+                if a.device != self.mesh.device:
+                    raise ValueError(
+                        f"params[{key!r}] leaf {path} is on {a.device}, this rank's "
+                        f"device is {self.mesh.device}: pass the tree through "
+                        "SpmdGPipe.place")
+
+    def _check_spec_shapes(self, blocks: Pytree, specs: Pytree) -> None:
+        """Every sharded dim must divide by its mesh-axis size — checked
+        eagerly for a didactic error."""
+
+        def chk(a, spec):
+            if len(tuple(spec)) > len(a.shape):
+                raise ValueError(
+                    f"partition spec {spec} names {len(tuple(spec))} "
+                    f"dims but the param has shape {tuple(a.shape)} "
+                    f"({len(a.shape)} dims); trim the rule's spec"
+                )
+            for i, ax in enumerate(spec):
+                if ax is None:
+                    continue
+                axes = ax if isinstance(ax, tuple) else (ax,)
+                for a_ in axes:
+                    if a_ not in self.mesh.shape:
+                        raise ValueError(
+                            f"partition spec {spec} mentions mesh axis "
+                            f"{a_!r} which this mesh (axes "
+                            f"{list(self.mesh.axis_names)}) does not "
+                            "have; fix the param_specs declaration or add "
+                            "the axis to the mesh"
+                        )
+                size = 1
+                for a_ in axes:
+                    size *= self.mesh.shape[a_]
+                if a.shape[i] % size != 0:
+                    raise ValueError(
+                        f"param dim {i} of shape {tuple(a.shape)} is sharded over "
+                        f"mesh axes {axes} (size {size}) but is not "
+                        "divisible by it; adjust the model dims"
+                    )
+
+        _tree_map(chk, blocks, specs)
+
+    def _check_batch(self, x: Pytree, target: Optional[Pytree] = None, *,
+                     ragged_ok: bool = False) -> int:
+        """The number of padding rows a ragged batch needs (0 when already
+        divisible); ``ragged_ok`` callers pad and mask instead of raising."""
+        b = microbatch.batch_size(x)
+        pad = (-b) % (self.chunks * self._dp)
+        if pad and not ragged_ok:
+            raise ValueError(
+                f"batch size {b} must be divisible by chunks*dp*ep = "
+                f"{self.chunks}*{self._dp}*1 = {self.chunks * self._dp} here: "
+                "ragged batches need a row-decomposable loss to weight the "
+                "padding out — set loss_reduction='mean' or 'sum' (or use "
+                "the MPMD GPipe engine, whose scheduler runs ragged "
+                "micro-batches natively)"
+            )
+        return pad
+
+    # ------------------------------------------------------------------ #
+    # data layout                                                        #
+    # ------------------------------------------------------------------ #
+
+    def _local_microbatches(self, tree: Pytree) -> List[Pytree]:
+        """This dp lane's ``m`` micro-batches of a padded global batch:
+        ``[B] -> [m, B/m]`` (micro-batch major), lane ``d`` keeping rows
+        ``[d*b, (d+1)*b)`` of each (``b = B / (m * dp)``), the reference's
+        data spec ``P(None, dp)``."""
+        m, dp, d = self.chunks, self._dp, self._lane
+        dev = self.mesh.device
+
+        def part(a, i):
+            b = a.shape[0] // (m * dp)
+            return a.reshape(m, dp * b, *a.shape[1:])[i, d * b:(d + 1) * b].to(dev)
+
+        return [_tree_map(lambda a: part(a, i), tree) for i in range(m)]
+
+    # ------------------------------------------------------------------ #
+    # cells                                                              #
+    # ------------------------------------------------------------------ #
+
+    def _run_block(self, blocks: Pytree, x: torch.Tensor) -> torch.Tensor:
+        p = _tree_map(lambda a: a[0], blocks)
+        return _call(self.block, self._names["blocks"], p, x)
+
+    def _run_pre(self, leaves: dict, x: Pytree, train: bool) -> torch.Tensor:
+        return _call(self.pre, self._names["pre"], leaves["pre"], x)
+
+    def _tied(self, own: Pytree, pre: Pytree, keys: Tuple[str, ...]) -> Pytree:
+        """Splice tied pre-param entries into a post/loss layer's tree:
+        the same tensor, so autograd sums both paths' gradients into the
+        pre leaf."""
+        if not keys:
+            return own
+        return dict(own, **{k: pre[k] for k in keys})
+
+    def _run_post(self, leaves: dict, y: torch.Tensor) -> torch.Tensor:
+        p = self._tied(leaves["post"], leaves.get("pre", ()), self._tie_post)
+        names = self._names["post"]
+        if self._tie_post:
+            names = dict(names, **{k: k for k in self._tie_post})
+        return _call(self.post, names, p, y)
+
+    def _loss_call(self, leaves: dict, y: Any, tgt: Any) -> torch.Tensor:
+        """The engine's one loss entry point: a plain ``loss_fn(y, tgt)``
+        callable, or a parametric loss layer with its own params."""
+        if self._loss_is_layer:
+            p = self._tied(leaves["loss"], leaves.get("pre", ()), self._tie_loss)
+            names = self._names["loss"]
+            if self._tie_loss:
+                names = dict(names, **{k: k for k in self._tie_loss})
+            return _call(self.loss_fn, names, p, y, tgt)
+        return self.loss_fn(y, tgt)
+
+    def _masked_loss_sum(self, leaves: dict, y: Any, tgt: Any,
+                         mask: torch.Tensor) -> torch.Tensor:
+        """``Σ_rows mask · loss_fn(row)``: a loss layer with ``row_loss``
+        (``[B]`` per-row losses) in one call, any other loss one batch-1
+        row at a time.  Padded rows add zero to value and gradient."""
+        if self._loss_is_layer and hasattr(self.loss_fn, "row_loss"):
+            p = self._tied(leaves["loss"], leaves.get("pre", ()), self._tie_loss)
+            names = self._names["loss"]
+            if self._tie_loss:
+                names = dict(names, **{k: k for k in self._tie_loss})
+            mapping = {name: _get(p, path) for path, name in _items(names)}
+            from torch.nn.utils.stateless import _reparametrize_module
+
+            with _reparametrize_module(self.loss_fn, mapping):
+                rows = self.loss_fn.row_loss(y, tgt).float()
+            return (rows * mask).sum()
+        b = mask.shape[0]
+        rows = torch.stack([
+            self._loss_call(leaves, _tree_map(lambda a: a[r:r + 1], y),
+                            _tree_map(lambda a: a[r:r + 1], tgt)).float()
+            for r in range(b)])
+        return (rows * mask).sum()
+
+    def _mask_mean_scale(self, mask_local: torch.Tensor) -> torch.Tensor:
+        """The scale turning a lane-local masked row-loss sum into a value
+        whose dp mean is the global masked mean: dp over the real row
+        count (summed over dp from the mask itself)."""
+        n_real = self.mesh.all_reduce(mask_local.sum().float(), self.dp_axis) \
+            if self.dp_axis else mask_local.sum().float()
+        return self._dp / n_real
+
+    def _cell_forward(self, blocks: Pytree, h: torch.Tensor, ckpt: bool,
+                      need_grad: bool) -> Tuple[torch.Tensor, _Cell]:
+        """One cell's forward: the block on a leaf copy of the input,
+        without a graph when checkpointed (recomputed by
+        :meth:`_cell_backward`)."""
+        x = h.detach()
+        if need_grad:
+            x.requires_grad_()
+        with aux_scale(1.0 / self.chunks):
+            if ckpt:
+                with torch.no_grad(), _ckpt.phase(checkpointing=True):
+                    y = self._run_block(blocks, x)
+                return y, _Cell(h, x, None, True)
+            y = self._run_block(blocks, x)
+        return y.detach(), _Cell(h, x, y, False)
+
+    def _cell_backward(self, blocks: Pytree, cell: _Cell, gy: torch.Tensor
+                       ) -> Optional[torch.Tensor]:
+        """Apply ``gy`` to the cell's output (recomputing it first when
+        checkpointed); returns its input's gradient, if it takes one."""
+        y = cell.y
+        if cell.ckpt:
+            with aux_scale(1.0 / self.chunks), _ckpt.phase(recomputing=True):
+                y = self._run_block(blocks, cell.x)
+        torch.autograd.backward(y, gy)
+        cell.y = None
+        return cell.x.grad if cell.x.requires_grad else None
+
+    def _stage_input(self, leaves: dict, x_mb: List[Pytree], i: int) -> torch.Tensor:
+        """Stage 0: ``pre`` of micro-batch ``i`` (its graph kept for the
+        pre gradients) or the micro-batch itself; later stages: the
+        previous stage's activation."""
+        if self._stage > 0:
+            return self.mesh.recv(self.mesh.rank_of(self._stage - 1, self._lane),
+                                  _ACT * _TAG + i)
+        if self.pre is None:
+            return x_mb[i]
+        with aux_scale(1.0 / self.chunks):
+            return self._run_pre(leaves, x_mb[i], True)
+
+    def _need_input_grad(self, h: torch.Tensor) -> bool:
+        return torch.is_floating_point(h) and (self._stage > 0 or self.pre is not None)
+
+    def _send_input_grad(self, cell: _Cell, g: Optional[torch.Tensor], i: int) -> None:
+        if g is None:
+            return
+        if self._stage > 0:
+            self.mesh.send(g, self.mesh.rank_of(self._stage - 1, self._lane),
+                           _GRAD * _TAG + i)
+        elif cell.h.requires_grad:   # stage 0: into pre's parameters
+            torch.autograd.backward(cell.h, g)
+
+    # ------------------------------------------------------------------ #
+    # the step                                                           #
+    # ------------------------------------------------------------------ #
+
+    def _leaf_copy(self, params: dict) -> dict:
+        """Leaves sharing ``params``' storage that collect gradients."""
+        out = {}
+        for key, _ in self._layers():
+            out[key] = _tree_map(lambda a: a.detach().requires_grad_(a.is_floating_point()),
+                                 params[key])
+        return out
+
+    def _head_slices(self, leaves: dict, outs: Optional[List[torch.Tensor]],
+                     tgt: Pytree, mask: Optional[torch.Tensor],
+                     mean_scale: Optional[torch.Tensor]) -> Tuple[torch.Tensor,
+                                                                  Optional[List[torch.Tensor]]]:
+        """The fill-drain loss side.  With a decomposable loss and a lane
+        batch that divides by n (n > 1), the head and loss are sharded
+        over pp: the last stage sends slice s of its gathered outputs to
+        stage s, every stage runs the head and loss on its slice and
+        returns the slice's gradient.  Otherwise the last stage runs them
+        on the whole lane batch.  Returns this rank's loss term and, on
+        the last stage, the micro-batch output gradients."""
+        n, j, mesh = self.n_stages, self._stage, self.mesh
+        last = mesh.rank_of(n - 1, self._lane)
+        m = self.chunks
+        B = microbatch.batch_size(tgt)
+        sharded = self.loss_reduction is not None and B % n == 0 and n > 1
+        if not sharded:
+            if j != n - 1:
+                return torch.zeros((), device=mesh.device), None
+            g = torch.cat(outs, 0).requires_grad_()
+            loss = self._loss_over(leaves, g, tgt, mask, mean_scale, 1)
+            loss.backward()
+            return loss.detach(), list(g.grad.chunk(m, 0))
+        per = B // n
+        if j == n - 1:
+            gathered = torch.cat(outs, 0)
+            for s in range(n - 1):
+                mesh.send(gathered[s * per:(s + 1) * per], mesh.rank_of(s, self._lane),
+                          _SLICE * _TAG)
+            mine = gathered[(n - 1) * per:].detach()
+        else:
+            mine = mesh.recv(last, _SLICE * _TAG)
+        mine.requires_grad_()
+        sl = slice(j * per, (j + 1) * per)
+        loss = self._loss_over(
+            leaves, mine, _tree_map(lambda a: a[sl], tgt),
+            None if mask is None else mask[sl], mean_scale, n)
+        loss.backward()
+        if j != n - 1:
+            mesh.send(mine.grad, last, _SLICE_GRAD * _TAG)
+            return loss.detach(), None
+        grads = [mesh.recv(mesh.rank_of(s, self._lane), _SLICE_GRAD * _TAG)
+                 for s in range(n - 1)] + [mine.grad]
+        return loss.detach(), list(torch.cat(grads, 0).chunk(m, 0))
+
+    def _loss_over(self, leaves: dict, y: torch.Tensor, tgt: Pytree,
+                   mask: Optional[torch.Tensor], mean_scale: Optional[torch.Tensor],
+                   n_slices: int) -> torch.Tensor:
+        """Head and loss of ``y`` (a slice of ``n_slices``), as the
+        reference's fill-drain ``loss_of``."""
+        if self.post is not None:
+            with aux_scale(1.0 / n_slices):
+                y = self._run_post(leaves, y)
+        if mask is not None:
+            l = self._masked_loss_sum(leaves, y, tgt, mask)
+            return l * mean_scale if self.loss_reduction == "mean" else l
+        l = self._loss_call(leaves, y, tgt).float()
+        return l / n_slices if self.loss_reduction == "mean" and n_slices > 1 else l
+
+    def _cell_mb_loss(self, leaves: dict, y: torch.Tensor, tgt_i: Pytree,
+                      mask_i: Optional[torch.Tensor],
+                      mean_scale: Optional[torch.Tensor]) -> torch.Tensor:
+        """Per-micro-batch head + loss for a final 1F1B cell (aux scale
+        1/m); with ``mask_i`` the masked row sum scaled so the sum over
+        cells and the dp mean give the exact loss over the real rows."""
+        if self.post is not None:
+            with aux_scale(1.0 / self.chunks):
+                y = self._run_post(leaves, y)
+        if mask_i is not None:
+            s = self._masked_loss_sum(leaves, y, tgt_i, mask_i)
+            if self.loss_reduction == "mean":
+                s = s * (self.chunks * mean_scale)
+            loss_i = s
+        else:
+            loss_i = self._loss_call(leaves, y, tgt_i).float()
+        if self.loss_reduction == "mean":
+            loss_i = loss_i / self.chunks
+        return loss_i
+
+    def _fill_drain(self, leaves, x_mb, tgt_mb, mask_mb, mean_scale, stop):
+        n, m, j, mesh = self.n_stages, self.chunks, self._stage, self.mesh
+        blocks = leaves["blocks"]
+        cells, outs = [], []
+        for i in range(m):
+            h = self._stage_input(leaves, x_mb, i)
+            y, cell = self._cell_forward(blocks, h, i < stop, self._need_input_grad(h))
+            cells.append(cell)
+            if j < n - 1:
+                mesh.send(y, mesh.rank_of(j + 1, self._lane), _ACT * _TAG + i)
+            else:
+                outs.append(y)
+        tgt = microbatch.gather(tgt_mb)
+        mask = torch.cat(mask_mb) if mask_mb is not None else None
+        loss, gys = self._head_slices(leaves, outs, tgt, mask, mean_scale)
+        for i in reversed(range(m)):
+            gy = gys[i] if j == n - 1 else mesh.recv(mesh.rank_of(j + 1, self._lane),
+                                                     _GRAD * _TAG + i)
+            g = self._cell_backward(blocks, cells[i], gy)
+            self._send_input_grad(cells[i], g, i)
+            cells[i] = None
+        return loss
+
+    def _one_f_one_b(self, leaves, x_mb, tgt_mb, mask_mb, mean_scale, stop):
+        n, m, j, mesh = self.n_stages, self.chunks, self._stage, self.mesh
+        blocks = leaves["blocks"]
+        ops = sorted([(fwd_tick(i, j, n), "F", i) for i in range(m)]
+                     + [(bwd_tick(i, j, n), "B", i) for i in range(m)])
+        cells: Dict[int, _Cell] = {}
+        outs: Dict[int, torch.Tensor] = {}
+        loss = torch.zeros((), device=mesh.device)
+        for _, op, i in ops:
+            if op == "F":
+                h = self._stage_input(leaves, x_mb, i)
+                y, cells[i] = self._cell_forward(blocks, h, i < stop,
+                                                 self._need_input_grad(h))
+                if j < n - 1:
+                    mesh.send(y, mesh.rank_of(j + 1, self._lane), _ACT * _TAG + i)
+                else:
+                    outs[i] = y
+                continue
+            if j == n - 1:
+                y = outs.pop(i).requires_grad_()
+                l_i = self._cell_mb_loss(leaves, y, tgt_mb[i],
+                                         None if mask_mb is None else mask_mb[i],
+                                         mean_scale)
+                l_i.backward()
+                loss = loss + l_i.detach()
+                gy = y.grad
+            else:
+                gy = mesh.recv(mesh.rank_of(j + 1, self._lane), _GRAD * _TAG + i)
+            cell = cells.pop(i)
+            self._send_input_grad(cell, self._cell_backward(blocks, cell, gy), i)
+        return loss
+
+    def train_step(self, params: dict, x: Pytree, target: Pytree,
+                   rng: Optional[Any] = None) -> Tuple[torch.Tensor, dict]:
+        """One pipelined forward+backward on this rank; returns ``(loss,
+        grads)``: the global loss (float32, on every rank) and this rank's
+        gradient tree (the layout of :meth:`place`'s: this stage's
+        ``[1, ...]`` block slice, the pre/post/loss trees summed over pp;
+        every leaf averaged over dp).
+
+        ``x``/``target`` are the full mini-batch ``[B, ...]`` on every
+        rank (each takes its dp lane's rows).  A ragged ``B`` (not
+        divisible by chunks·dp) is accepted whenever the loss is
+        row-decomposable: the batch is edge-padded and a mask weights the
+        padding out of the loss and every gradient exactly.  ``params``
+        is not changed."""
+        if rng is not None:
+            raise not_ported("SpmdGPipe.train_step(rng=) (per-cell dropout keys, "
+                             "A.5.4e)", "5.4")
+        self._check_params(params)
+        pad = self._check_batch(x, target, ragged_ok=self.loss_reduction is not None)
+        if pad and not self._warned_ragged_coupled:
+            self._warned_ragged_coupled = True
+            coupled = list(dict.fromkeys(
+                c for lyr in (self.block, self.pre, self.post) if lyr is not None
+                for c in _row_coupled(lyr)))
+            if coupled:
+                import warnings
+
+                warnings.warn(
+                    "ragged batch padded with duplicated edge rows, and the "
+                    f"model has row-coupled auxiliary terms ({', '.join(coupled)}) "
+                    "that will see those padding rows; task-loss gradients "
+                    "remain exact, but pad to a divisible batch yourself if "
+                    "the auxiliary terms must be padding-free (see "
+                    "SpmdGPipe.train_step docstring)",
+                    stacklevel=2,
+                )
+        mask_mb = mean_scale = None
+        if pad:
+            b_real = microbatch.batch_size(x)
+            mask = torch.cat([torch.ones(b_real), torch.zeros(pad)])
+            x, target = _pad_batch(x, pad), _pad_batch(target, pad)
+            mask_mb = self._local_microbatches(mask)
+            if self.loss_reduction == "mean":
+                mean_scale = self._mask_mean_scale(torch.cat(mask_mb))
+        x_mb = self._local_microbatches(x)
+        tgt_mb = self._local_microbatches(target)
+        stop = _ckpt.checkpoint_stop(self.checkpoint, self.chunks, train=True)
+        leaves = self._leaf_copy(params)
+        run = self._one_f_one_b if self.schedule == "1f1b" else self._fill_drain
+        try:
+            loss = run(leaves, x_mb, tgt_mb, mask_mb, mean_scale, stop)
+        finally:
+            self.mesh.flush()
+        return self._reduce(loss, leaves)
+
+    def _reduce(self, loss: torch.Tensor, leaves: dict) -> Tuple[torch.Tensor, dict]:
+        """The loss and the pre/post/loss gradients summed over pp and
+        averaged over dp (one reduction over every rank), the block
+        gradients averaged over dp: the reference's psum / pmean."""
+        mesh, inv = self.mesh, 1.0 / self._dp
+        both = None if self.dp_axis else self.pp_axis   # pp and dp, or pp alone
+        loss = mesh.all_reduce(loss.float(), both, inv)
+        grads = {}
+        for key, _ in self._layers():
+            g = _tree_map(lambda a: torch.zeros_like(a) if a.grad is None else a.grad,
+                          leaves[key])
+            if key == "blocks":
+                grads[key] = (_tree_map(lambda t: mesh.all_reduce(t, self.dp_axis, inv), g)
+                              if self.dp_axis else g)
+            else:
+                grads[key] = _tree_map(lambda t: mesh.all_reduce(t, both, inv), g)
+        return loss, grads
+
+    # ------------------------------------------------------------------ #
+    # training with an optimizer                                         #
+    # ------------------------------------------------------------------ #
+
+    def make_train_step(self, optimizer: Callable[..., torch.optim.Optimizer], *,
+                        donate: bool = True, megastep: Optional[int] = None,
+                        zero: Any = None) -> Callable[..., torch.Tensor]:
+        """``step(params, x, target) -> loss``: :meth:`train_step`, then
+        one ``torch.optim`` optimizer over this rank's leaves of ``params``
+        (``optimizer`` is a factory taking an iterable of tensors, e.g.
+        ``functools.partial(torch.optim.SGD, lr=0.1)``), updated in place
+        as the port's ``GPipe.make_train_step`` does.  The optimizer is
+        built at the first call, over that call's ``params`` tensors
+        (``step.optimizer``); later calls must pass the same tree.
+        ``donate`` changes nothing here (the update is in place);
+        ``megastep`` above 1 and ``zero`` are ROADMAP.md A.5.4."""
+        K = self.megastep if megastep is None else int(megastep)
+        if K != 1:
+            raise not_ported("SpmdGPipe.make_train_step(megastep=) (A.5.4e)", "5.4")
+        if zero:
+            raise not_ported("SpmdGPipe.make_train_step(zero=) (A.5.4c)", "5.4")
+
+        def flat(params: dict) -> List[torch.Tensor]:
+            return [a for key, _ in self._layers() for a in _leaves(params[key])]
+
+        def step(params: dict, x: Pytree, target: Pytree,
+                 rng: Optional[Any] = None) -> torch.Tensor:
+            tensors = flat(params)
+            if step.optimizer is None:
+                step.tensors = tensors
+                step.optimizer = optimizer(tensors)
+            elif len(tensors) != len(step.tensors) or any(
+                    a is not b for a, b in zip(tensors, step.tensors)):
+                raise ValueError(
+                    "this step's optimizer was built over another params tree; "
+                    "pass the tree of the first call (updated in place)")
+            loss, grads = self.train_step(params, x, target, rng)
+            for t, g in zip(tensors, flat(grads)):
+                t.grad = g
+            step.optimizer.step()
+            for t in tensors:
+                t.grad = None
+            return loss
+
+        step.optimizer = None
+        step.tensors = []
+        step.pipe = self
+        step.megastep = 1
+        return step
+
+    # ------------------------------------------------------------------ #
+    # inference                                                          #
+    # ------------------------------------------------------------------ #
+
+    @torch.no_grad()
+    def _forward_outputs(self, params: dict, x_mb: List[Pytree]) -> Optional[List[Any]]:
+        """The no-grad fill-drain forward; the last stage's micro-batch
+        outputs (None elsewhere)."""
+        n, j, mesh = self.n_stages, self._stage, self.mesh
+        outs = []
+        for i in range(self.chunks):
+            if j > 0:
+                h = mesh.recv(mesh.rank_of(j - 1, self._lane), _ACT * _TAG + i)
+            elif self.pre is not None:
+                h = self._run_pre(params, x_mb[i], False)
+            else:
+                h = x_mb[i]
+            y = self._run_block(params["blocks"], h)
+            if j < n - 1:
+                mesh.send(y, mesh.rank_of(j + 1, self._lane), _ACT * _TAG + i)
+            else:
+                outs.append(y)
+        mesh.flush()
+        return outs if j == n - 1 else None
+
+    @torch.no_grad()
+    def apply(self, params: dict, x: Pytree) -> torch.Tensor:
+        """Pipelined inference forward; the gathered outputs ``[B, ...]``
+        (``post`` applied) on every rank.  Ragged batches are edge-padded
+        through the pipeline and the padding rows sliced off."""
+        self._check_params(params)
+        pad = self._check_batch(x, ragged_ok=True)
+        b_real = microbatch.batch_size(x)
+        outs = self._forward_outputs(params, self._local_microbatches(_pad_batch(x, pad)))
+        last = self.mesh.rank_of(self.n_stages - 1, self._lane)
+        out = None
+        if outs is not None:
+            out = torch.stack([self._run_post(params, y) if self.post is not None else y
+                               for y in outs])                     # [m, b, ...]
+        out = self.mesh.broadcast(out, last, self.pp_axis)
+        if self.dp_axis and self._dp > 1:
+            lanes = self.mesh.all_gather(out, self.dp_axis)     # dp x [m, b, ...]
+            out = torch.cat(lanes, 1)
+        out = out.reshape(-1, *out.shape[2:])
+        return out[:b_real] if pad else out
+
+    @torch.no_grad()
+    def eval_loss(self, params: dict, x: Pytree, target: Pytree) -> torch.Tensor:
+        """Loss on a mini-batch without gradients: per micro-batch on the
+        last stage (a decomposable loss), summed over pp, averaged over dp.
+        ``loss_reduction=None`` and ragged batches compute the loss on
+        :meth:`apply`'s gathered outputs instead."""
+        self._check_params(params)
+        pad = self._check_batch(x, target, ragged_ok=True)
+        if self.loss_reduction is None or pad:
+            out = self.apply(params, x)
+            return self._loss_call(params, out, target.to(out.device)
+                                   if isinstance(target, torch.Tensor) else target).float()
+        outs = self._forward_outputs(params, self._local_microbatches(x))
+        tgt_mb = self._local_microbatches(target)
+        loss = torch.zeros((), device=self.mesh.device)
+        if outs is not None:
+            for y, t in zip(outs, tgt_mb):
+                if self.post is not None:
+                    y = self._run_post(params, y)
+                l_i = self._loss_call(params, y, t).float()
+                loss = loss + (l_i / self.chunks if self.loss_reduction == "mean" else l_i)
+        return self.mesh.all_reduce(
+            loss, None if self.dp_axis else self.pp_axis,
+            1.0 / self._dp if self.loss_reduction == "mean" else 1.0)

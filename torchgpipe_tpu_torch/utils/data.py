@@ -15,9 +15,9 @@ Arrays are host numpy arrays (int32 tokens, float32 weights), as the
 reference's; :func:`prefetch_to_device` turns them into tensors on the
 card; :func:`prefetch_to_pipe` onto a pipe's first stage.
 
-The SPMD placements (``pipe_data_sharding`` of an SPMD pipe,
-``global_batch_from_local``) are not ported yet (ROADMAP.md, queue A
-item 5.4).
+:func:`pipe_data_sharding` places a batch for a ``GPipe``, a
+``DistributedGPipe`` or an ``SpmdGPipe`` rank; :func:`global_batch_from_local`
+assembles an SPMD rank's global batch from every process's local shard.
 """
 
 from __future__ import annotations
@@ -245,18 +245,22 @@ def pipe_data_sharding(pipe: Any, *, stacked: bool = False) -> torch.device:
     """Where a full training batch of ``pipe`` belongs, what
     :func:`prefetch_to_device`'s ``device`` should be: a ``GPipe``'s
     first stage's device (micro-batches enter there), a
-    ``DistributedGPipe`` rank's own device.  ``stacked`` (megastep's
-    ``[K, ...]`` batches) changes nothing for these: every dimension
-    rides along."""
+    ``DistributedGPipe`` rank's or an ``SpmdGPipe`` rank's own device (the
+    SPMD engine takes the global batch on every rank and keeps its dp
+    lane's rows).  ``stacked`` (megastep's ``[K, ...]`` batches) changes
+    nothing for these: every dimension rides along."""
     from torchgpipe_tpu_torch.distributed.gpipe import DistributedGPipe
     from torchgpipe_tpu_torch.gpipe import GPipe
-    from torchgpipe_tpu_torch.models.transformer import not_ported
+    from torchgpipe_tpu_torch.spmd import SpmdGPipe
 
     if isinstance(pipe, GPipe):
         return pipe.devices[0]
     if isinstance(pipe, DistributedGPipe):
         return pipe.device
-    raise not_ported(f"pipe_data_sharding of {type(pipe).__name__} (SPMD)", "5.4")
+    if isinstance(pipe, SpmdGPipe):
+        return pipe.mesh.device
+    raise TypeError(f"pipe_data_sharding takes a GPipe, DistributedGPipe or SpmdGPipe, "
+                    f"got {type(pipe).__name__}")
 
 
 def prefetch_to_pipe(
@@ -272,10 +276,32 @@ def prefetch_to_pipe(
 
 
 def global_batch_from_local(mesh: Any, spec: Any, local_batch: Pytree) -> Pytree:
-    """A global sharded batch from each process's shard: not ported yet."""
-    from torchgpipe_tpu_torch.models.transformer import not_ported
+    """The global batch from each process's local shard, on every process
+    of ``mesh`` (a ``torchgpipe_tpu_torch.spmd.Mesh``), on its device: the
+    multi-process data recipe, where each process loads only its own slice
+    (e.g. its dp lane's examples) and ``SpmdGPipe.train_step`` takes the
+    global batch.
 
-    raise not_ported("utils.data.global_batch_from_local (multi-host SPMD)", "5.4")
+    ``spec`` is a partition spec of the batch dim (``spmd.P("dp")``, or a
+    tuple of axis names; ``spmd.P()`` / None: replicated): the local
+    shards are concatenated along dim 0 in the order of the named axes'
+    indices (an all-gather over each axis, the first named outermost), as
+    the reference's ``NamedSharding`` lays them out.  With every named
+    axis of size 1 this is a copy to the device."""
+    axes = spec[0] if spec is not None and len(spec) else None
+    axes = () if axes is None else (axes if isinstance(axes, tuple) else (axes,))
+    for ax in axes:
+        if ax not in mesh.shape:
+            raise ValueError(f"spec {spec} names axis {ax!r}, not one of the mesh's "
+                             f"{list(mesh.axis_names)}")
+
+    def leaf(t: torch.Tensor) -> torch.Tensor:
+        t = t.to(mesh.device)
+        for ax in reversed(axes):
+            t = torch.cat(mesh.all_gather(t, ax), 0)
+        return t
+
+    return pytree.tree_map(leaf, local_batch)
 
 
 __all__ = ["Packing", "global_batch_from_local", "pack_documents", "packed_batches",
