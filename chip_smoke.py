@@ -81,7 +81,7 @@ they need) and prints no kernels line; by default every phase runs:
    on phase 6's tokens.
 6c. speculative: ``speculative_generate`` with phase 6's model as the
    target and a random benchmarks/llama_speed.py ``1b`` draft (batch 2,
-   prompt 512, 64 new tokens, gamma 4, greedy): launch counts against
+   prompt 512, 32 new tokens, gamma 4, greedy): launch counts against
    ``SpecStats``, the teacher-forced check, agreement with ``generate``;
    then the target as its own draft (acceptance >= 0.8).
 6d. beam: ``beam_search`` of one prompt with 4 beams, 32 tokens, and
@@ -274,6 +274,21 @@ they need) and prints no kernels line; by default every phase runs:
    version's tokens and a teacher-forced forward.  Each rank's launches
    (the wide kernels), step ms, bytes staged through the host and peak
    memory; a ``{"spmd": ...}`` line.
+26. spmd_tp_sp: tensor and sequence parallelism in ``SpmdGPipe`` at
+   Llama-3-8B's published widths in bf16, 2 blocks, one a stage, batch 2
+   x seq 4096: one world of four rank processes over gloo on this card
+   (``--tpsp-*``), three meshes on it: 26a pp=2 x tp=2 with
+   vocab-sharded logits and ``vocab_parallel_cross_entropy``, 26b pp=2 x
+   sp=2 on the ring (its blocks on flash_fwd / flash_bwd_dq /
+   flash_bwd_dkv, merged by LSE), 26c the same mesh on Ulysses.  Each
+   case's loss and every gradient leaf (each rank's shards) against one
+   sequential oracle run here on the card, each rank's launch counts
+   exact (26b's lane r: 3(r+1) forwards, 2(r+1) of each backward), 26b
+   against 26c, ``gather`` of 26a's placement bitwise the drawn tree,
+   the loss lower after an SGD step; each rank's step ms, bytes staged
+   through the host by kind, peak memory; a ``{"spmd_tp_sp": ...}``
+   line.  The ranks share one card: host staging, not multi-card
+   scaling.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Then one JSON line per kernel (time, launches, bound, plain and
@@ -643,6 +658,13 @@ def phase_fwd(torch, tfa, card, gqa_sdpa):
         # benchmarks/llama_megastep.py's 32 (dim 256 over 8 heads, to 64).
         ("pad_d80", 4, 32, 32, 2048, None, 80, True),
         ("pad_d32", 4, 8, 4, 2048, None, 32, True),
+        # Phase 26's blocks (Llama-3-8B's 32 / 8 heads of 128, one row): a
+        # ring step's diagonal block (causal) and an earlier lane's block
+        # (whole) at 2048 positions; a tp lane's 16 / 4 heads over 4096
+        # positions, which is Ulysses' shape too.
+        ("ring_diag", 1, 32, 8, 2048, None, 128, True),
+        ("ring_block", 1, 32, 8, 2048, None, 128, False),
+        ("tp_lane", 1, 16, 4, 4096, None, 128, True),
     ]
     import torch.nn.functional as F
 
@@ -783,15 +805,15 @@ def phase_decode(torch, tfa, tg, card):
         ("ragged1000", *llama, 1, 999, None, 1000),
         ("g5_rows20", *llama, 5, 1100, None, 1152),
         ("g5_rows20_window256", *llama, 5, 900, 256, 1152),
-        # Phase 6c (prompt 512, 64 new, gamma 4: buffers of 512 + 64 + 5 =
-        # 581 positions, one row at a time): the 1b draft's decode reads
-        # 513..581 live keys at hd 64; the target's verify, 5 queries (20
-        # rows per kv head) at 517..581.
-        ("draft_hd64_len513", 1, 32, 8, 64, 1, 512, None, 581),
-        ("draft_hd64_len548", 1, 32, 8, 64, 1, 547, None, 581),
-        ("draft_hd64_len581", 1, 32, 8, 64, 1, 580, None, 581),
-        ("verify_rows20_len517", 1, 32, 8, 128, 5, 512, None, 581),
-        ("verify_rows20_len581", 1, 32, 8, 128, 5, 576, None, 581),
+        # Phase 6c (prompt 512, 32 new, gamma 4: buffers of 512 + 32 + 5 =
+        # 549 positions, one row at a time): the 1b draft's decode reads
+        # 513..549 live keys at hd 64; the target's verify, 5 queries (20
+        # rows per kv head) at 517..549.
+        ("draft_hd64_len513", 1, 32, 8, 64, 1, 512, None, 549),
+        ("draft_hd64_len532", 1, 32, 8, 64, 1, 531, None, 549),
+        ("draft_hd64_len549", 1, 32, 8, 64, 1, 548, None, 549),
+        ("verify_rows20_len517", 1, 32, 8, 128, 5, 512, None, 549),
+        ("verify_rows20_len549", 1, 32, 8, 128, 5, 544, None, 549),
         # Phase 21 (GPT-2 XL, prompt 512, 64 new: buffers of 576): MHA, one
         # query row per kv head (25 heads) at hd 64, 513..576 live keys.
         ("gpt2_xl_len513", 4, 25, 25, 64, 1, 512, None, 576),
@@ -985,6 +1007,12 @@ def phase_bwd(torch, tfa, card):
         # 64) with the real dim's scale, the gradients sliced back.
         ("pad_d80", 4, 32, 32, 2048, 80, None, True),
         ("pad_d32", 4, 8, 4, 2048, 32, None, True),
+        # Phase 3's rows of phase 26: a ring step's blocks with their own
+        # LSE (the ring passes the merged one; phase 26 holds that), a tp
+        # lane's and Ulysses' heads.
+        ("ring_diag", 1, 32, 8, 2048, 128, None, True),
+        ("ring_block", 1, 32, 8, 2048, 128, None, False),
+        ("tp_lane", 1, 16, 4, 4096, 128, None, True),
     ]
     import torch.nn.functional as F
 
@@ -1059,7 +1087,8 @@ def phase_bwd(torch, tfa, card):
                   f"worst row err/tol {({n: round(r, 2) for n, r in seen.items()})}",
                   flush=True)
             del cut
-        if name not in ("main", "long12288", "vit_l16", "pad_d80", "pad_d32"):
+        if name not in ("main", "long12288", "vit_l16", "pad_d80", "pad_d32", "ring_block",
+                        "tp_lane"):
             continue
         # (At the padded dims: the kernels on the padded operands.)
         dq_call = lambda: tfa.flash_bwd_dq(qk, kk, vk, dok, lse, delta, **kw)  # noqa: E731
@@ -1331,7 +1360,7 @@ def phase_slice_int8(torch, tfa, tg, card, cfg, model, prompt, bf16_out,
 
 
 def phase_speculative(torch, tfa, tt, tg, card, seed, cfg, model, prompt,
-                      new_tokens: int = 64, gamma: int = 4):
+                      new_tokens: int = 32, gamma: int = 4):
     """``speculative_generate`` with phase 6's model as the target and a
     random ``1b`` draft (b=2, prompt 512, gamma 4, greedy): launch counts
     against ``SpecStats``, the teacher-forced check, agreement with greedy
@@ -2564,6 +2593,10 @@ def phase_train_graph(torch, tfa, tt, card, seed: int, balance):
 # must stand 10 times farther: a policy that did not compute in bf16
 # would sit as close as float32.
 WITNESS_FACTOR, WITNESS_BF16_RATIO = 2.0, 10.0
+# The witness's rows: the first 128 of the batch (8 a micro-batch), each
+# precision at that sub-batch.  Its two float64 ResNet-101 steps were the
+# slowest work of the phase at all 512 rows.
+WITNESS_ROWS = 128
 
 
 def grad_distance(F, got, want):
@@ -2629,24 +2662,29 @@ def phase_precision(torch, tfa, tt, card, seed: int, resnet_balance, graph,
     g32 = [p.grad.clone() for p in f32.parameters()]
     del f32
 
-    # The witness: a plain float64 copy and the policy at float64 (on a
-    # copy, so that `layers` takes bf16's below), the loss in float64.
+    # The witness, at its sub-batch: a plain float64 copy and the policy
+    # at float64 (on a copy, so that `layers` takes bf16's below), the
+    # loss in float64, beside float32 and (below) bf16 at those rows.
     def loss64(out, tgt):
         return F.cross_entropy(out.double(), tgt)
 
+    xw, yw = x[:WITNESS_ROWS], y[:WITNESS_ROWS]
     wit = {}
-    for what in ("float64", "policy float64"):
+    for what in ("float32", "float64", "policy float64"):
         restore(layers, snapshot)
-        if what == "float64":
+        if what == "float32":
+            m = resnet(copy.deepcopy(layers))
+            wl, _, _ = m.value_and_grad(xw, yw, loss_fn)
+        elif what == "float64":
             m = resnet([layer.double() for layer in copy.deepcopy(layers)])
-            wl, _, _ = m.value_and_grad(x.double(), y, loss64)
+            wl, _, _ = m.value_and_grad(xw.double(), yw, loss64)
         else:
             m = resnet(copy.deepcopy(layers), compute_dtype=torch.float64)
-            wl, _, _ = m.value_and_grad(x, y, loss64)
+            wl, _, _ = m.value_and_grad(xw, yw, loss64)
         wit[what] = (wl.item(), [p.grad for p in m.parameters()])
         del m, wl
-    (l64, g64), lpol = wit["float64"], wit["policy float64"][0]
-    w32 = grad_distance(F, g32, g64)
+    (l64, g64), lpol, (lw32, g32w) = wit["float64"], wit["policy float64"][0], wit["float32"]
+    w32 = grad_distance(F, g32w, g64)
     wpol = grad_distance(F, wit["policy float64"][1], g64)
     del wit["policy float64"]
     restore(layers, snapshot)
@@ -2656,6 +2694,9 @@ def phase_precision(torch, tfa, tt, card, seed: int, resnet_balance, graph,
                                       lambda: model.value_and_grad(x, y, loss_fn))
     expect_launches(s16["launches"], {}, "a bf16 ResNet-101 step")
     g16 = [p.grad.clone() for p in model.parameters()]
+    restore(layers, snapshot)
+    model.value_and_grad(xw, yw, loss_fn)
+    g16w = [p.grad.clone() for p in model.parameters()]
     # bf16 keeps 8 bits: each rounding moves a value by up to 2^-9 of
     # itself.  The loss is a mean over 512 x 1000 log-probabilities, so
     # the roundings of ~300 layers average out in it: within 1e-2
@@ -2673,10 +2714,11 @@ def phase_precision(torch, tfa, tt, card, seed: int, resnet_balance, graph,
         fail(f"precision: bf16 ResNet-101 vs float32: loss {l16.item()} vs {l32.item()} "
              f"({lrel:.3e} relative, tol 1e-2), gradient leaves not finite float32 of "
              f"the masters' shapes: {bad[:8]}")
-    w16 = grad_distance(F, g16, g64)
-    del g32, g64, wit
-    print(f"precision: ResNet-101 witness, gradients against a plain float64 copy (loss "
-          f"{l64:.7f}; float32 {l32.item():.7f}, policy float64 {lpol:.7f}): plain float32 "
+    w16 = grad_distance(F, g16w, g64)
+    del g32, g64, wit, g32w, g16w
+    print(f"precision: ResNet-101 witness on the first {WITNESS_ROWS} rows, gradients "
+          f"against a plain float64 copy (loss "
+          f"{l64:.7f}; float32 {lw32:.7f}, policy float64 {lpol:.7f}): plain float32 "
           f"{w32[0]:.3e} over all leaves, worst leaf {w32[1]:.3e}, worst cosine "
           f"{w32[2]:.6f}; the policy at float64 {wpol[0]:.3e}, worst leaf {wpol[1]:.3e}, "
           f"worst cosine {wpol[2]:.6f} (tol {WITNESS_FACTOR:g} times float32's); the policy at bf16 {w16[0]:.3e}, worst leaf {w16[1]:.3e}, "
@@ -5784,6 +5826,353 @@ def phase_spmd(torch, tfa, tt, tg, card, seed: int):
     return result
 
 
+# --------------------------------------------------------------------- #
+# phase 26: tensor and sequence parallelism in the SPMD engine           #
+# --------------------------------------------------------------------- #
+
+# Llama-3-8B's published widths (LLAMA3_8B: dim 4096, 32 query and 8 kv
+# heads of 128, ffn 14336, vocab 128256, untied) in bf16, cut to 2 of its
+# 32 blocks, one a stage; batch 2 x seq 4096 in 2 micro-batches,
+# 'except_last', fill-drain, one SGD step at TRAIN_LR.  One world of 4
+# rank processes over gloo on this card runs the three cases, one
+# make_mesh each: 26a pp=2 x tp=2 (vocab-sharded logits through
+# vocab_parallel_cross_entropy), 26b pp=2 x sp=2 on the ring, 26c the same
+# mesh on Ulysses.  The ranks share one card, so the phase proves the
+# engine and the kernels and measures host staging, not multi-card
+# scaling.
+TP_SP_CFG = dict(LLAMA3_8B, n_layers=2)
+TP_SP_BATCH, TP_SP_SEQ, TP_SP_CHUNKS = 2, 4096, 2
+TP_SP_CASES = {"a": dict(sp=1, tp=2, impl="ring"), "b": dict(sp=2, tp=1, impl="ring"),
+               "c": dict(sp=2, tp=1, impl="ulysses")}
+TP_SP_WORLD = 4
+TP_SP_DEADLINE_S = 420
+# A rank's launches in a step: its one block at 2 micro-batches under
+# 'except_last' is two forwards and one recompute, two backwards: at the
+# tp lanes' 16 q / 4 kv heads (26a) and on Ulysses' 16 / 4 heads over the
+# whole sequence (26c).
+TP_SP_LAUNCHES = {"flash_fwd": TP_SP_CHUNKS + TP_SP_CHUNKS - 1,
+                  "flash_bwd_dq": TP_SP_CHUNKS, "flash_bwd_dkv": TP_SP_CHUNKS}
+
+
+def ring_launches(r: int) -> dict:
+    """26b on sp lane ``r``: each attention call runs the blocks of lanes
+    0..r (its own causal, the earlier ones whole, the later one skipped),
+    one tile each at 2048 positions (kv_block_size 2048), so 3 (r + 1)
+    forwards and 2 (r + 1) of each backward."""
+    return {k: v * (r + 1) for k, v in TP_SP_LAUNCHES.items()}
+
+
+def tp_sp_cfg(tt, torch, case):
+    c = TP_SP_CASES[case]
+    return tt.TransformerConfig(**TP_SP_CFG, dtype=torch.bfloat16,
+                                tp_axis="tp" if c["tp"] > 1 else None,
+                                sp_axis="sp" if c["sp"] > 1 else None, sp_impl=c["impl"])
+
+
+def tp_sp_engine(torch, tt, spmd, mesh, case, device):
+    """Phase 26's engine of ``case``; its layers on ``device`` ("meta":
+    an engine that runs on the trees alone)."""
+    cfg = tp_sp_cfg(tt, torch, case)
+    block, pre, post = tt.llama_spmd(cfg, 2, device=device,
+                                     gather_logits=cfg.tp_axis is None)
+    loss = tt.cross_entropy if cfg.tp_axis is None else \
+        tt.vocab_parallel_cross_entropy(cfg.tp_axis)
+    return spmd.SpmdGPipe(block, 2, mesh, chunks=TP_SP_CHUNKS, loss_fn=loss, pre=pre,
+                          post=post, checkpoint="except_last", tp_axis=cfg.tp_axis,
+                          sp_axis=cfg.sp_axis)
+
+
+def tp_sp_batch(torch, seed: int):
+    """Tokens of the seed and their next tokens as the aligned labels
+    (pre-shifted: a loss that shifts inside would cut across the sp
+    shards)."""
+    import numpy as np
+
+    tokens = torch.from_numpy(np.random.default_rng(seed + 26).integers(
+        0, TP_SP_CFG["vocab"], (TP_SP_BATCH, TP_SP_SEQ)))
+    return tokens, torch.roll(tokens, -1, 1)
+
+
+def tp_sp_init(torch, pipe, seed: int):
+    """The global params tree of the seed (one generator on the card, the
+    same on every rank and in the oracle), on the card (3.2 GB: each
+    case's ``place`` slices it there)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 26)
+    tree = pipe.init(gen, ((TP_SP_BATCH, TP_SP_SEQ), torch.int64))
+    spmd_free_templates(pipe)
+    torch.cuda.empty_cache()
+    return tree
+
+
+def fingerprint(torch, tree) -> list:
+    """Per leaf: the float64 sum and sum of squares (on the card)."""
+    from torchgpipe_tpu_torch import spmd
+
+    out = []
+    for _, a in spmd._items(tree):
+        d = a.cuda().double()
+        out.append([d.sum().item(), (d * d).sum().item()])
+    return out
+
+
+def tp_sp_rank_main(args) -> None:
+    """One rank of phase 26 (started by the parent over gloo on this
+    card): cases a, b and c in turn, each on its own mesh of the one
+    process group; per case a timed ``train_step``, each gradient leaf
+    against the oracle's (its shard), an SGD step and ``eval_loss``."""
+    import torch
+    import torch.distributed as dist
+
+    from torchgpipe_tpu_torch import spmd
+    from torchgpipe_tpu_torch.models import transformer as tt
+    from torchgpipe_tpu_torch.ops import flash_attention as tfa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, out = args.tpsp_rank, args.tpsp_out
+    t_start = time.perf_counter()
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{args.tpsp_port}",
+                            rank=rank, world_size=TP_SP_WORLD)
+    try:
+        oracle = torch.load(os.path.join(out, "oracle.pt"), mmap=True)
+        tokens, labels = tp_sp_batch(torch, args.seed)
+        report = {"rank": rank, "cases": {}}
+        tree = None
+        for case, c in TP_SP_CASES.items():
+            t_case = time.perf_counter()
+            mesh = spmd.make_mesh(2, 1, c["sp"], tp=c["tp"])
+            pipe = tp_sp_engine(torch, tt, spmd, mesh, case,
+                                "cuda" if tree is None else "meta")
+            if tree is None:
+                tree = tp_sp_init(torch, pipe, args.seed)
+                report["ready_s"] = time.perf_counter() - t_start
+                report["fingerprint_equal"] = fingerprint(torch, tree) == oracle["fingerprint"]
+            params = pipe.place(tree)
+            rep = {"coords": mesh.coords}
+            if case == "a":
+                back = pipe.gather(params)
+                if rank == 0:
+                    rep["gather_bitwise"] = all(
+                        torch.equal(x, y.cpu()) for (_, x), (_, y) in
+                        zip(spmd._items(back), spmd._items(tree)))
+                del back
+            if case == list(TP_SP_CASES)[-1]:
+                tree = None      # the last case's placement holds what it needs
+                torch.cuda.empty_cache()
+            rep["setup_s"] = time.perf_counter() - t_case
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            tfa.reset_launches()
+            b0, by0 = mesh.staged_bytes, dict(mesh.staged_by)
+            t0 = time.perf_counter()
+            loss, grads = pipe.train_step(params, tokens, labels)
+            torch.cuda.synchronize()
+            rep["step_ms"] = (time.perf_counter() - t0) * 1e3
+            rep["launches"] = kernel_launches(tfa)
+            rep["staged_bytes"] = mesh.staged_bytes - b0
+            rep["staged_by"] = {k: v - by0.get(k, 0) for k, v in mesh.staged_by.items()}
+            rep["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            rep["loss"] = loss.item()
+            t_check = time.perf_counter()
+            # Each leaf of this rank's gradients against its shard of the
+            # oracle's (the parent divides by the whole leaf's max).
+            errs = {}
+            for key in ("pre", "blocks", "post"):
+                specs = spmd.broadcast_specs(pipe._specs[key], grads[key])
+                for (path, g), (_, spec) in zip(spmd._items(grads[key]), spmd._items(specs)):
+                    want = pipe._shard(dict(spmd._items(oracle["grads"][key]))[path], spec)
+                    errs[str((key,) + path)] = max(
+                        (a.float() - b.float()).abs().max().item()
+                        for a, b in zip(g.reshape(-1).split(1 << 24),
+                                        want.reshape(-1).split(1 << 24)))
+                    del want
+            rep["grad_err"] = errs
+            with torch.no_grad():
+                for key in ("pre", "blocks", "post"):
+                    for (_, t), (_, g) in zip(spmd._items(params[key]),
+                                              spmd._items(grads[key])):
+                        t.sub_(TRAIN_LR * g)
+            del grads
+            rep["check_s"] = time.perf_counter() - t_check
+            t_eval = time.perf_counter()
+            rep["loss_after"] = pipe.eval_loss(params, tokens, labels).item()
+            rep["eval_s"] = time.perf_counter() - t_eval
+            report["cases"][case] = rep
+            del params, pipe
+            gc.collect()
+            torch.cuda.empty_cache()
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(report, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_sp_oracle(torch, tfa, tt, seed: int, out: str):
+    """Phase 26's sequential oracle on the card: the unsharded model at
+    the same weights and batch, pre, both blocks and the head in turn,
+    ``cross_entropy``; its loss and time, its gradients (with each leaf's
+    max) and the params' fingerprint saved for the ranks."""
+    from torchgpipe_tpu_torch import spmd
+
+    class Stand:
+        axis_names, shape = ("pp", "dp"), {"pp": 2, "dp": 1}
+        coords, device = {"pp": 0, "dp": 0}, torch.device("cuda")
+
+    cfg = tt.TransformerConfig(**TP_SP_CFG, dtype=torch.bfloat16)
+    block, pre, post = tt.llama_spmd(cfg, 2, device="cuda")
+    pipe = spmd.SpmdGPipe(block, 2, Stand(), chunks=TP_SP_CHUNKS, loss_fn=tt.cross_entropy,
+                          pre=pre, post=post)
+    tree = tp_sp_init(torch, pipe, seed)
+    tokens, labels = (t.cuda() for t in tp_sp_batch(torch, seed))
+    leaves = {k: spmd._tree_map(lambda a: a.detach().requires_grad_(), tree[k])
+              for k in ("pre", "blocks", "post")}
+    tfa.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    h = pipe._run_pre(leaves, tokens, True)
+    for j in range(2):
+        h = spmd._call(pipe.block, pipe._names["blocks"],
+                       spmd._tree_map(lambda a: a[j], leaves["blocks"]), h)
+    loss = tt.cross_entropy(pipe._run_post(leaves, h), labels)
+    loss.backward()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = kernel_launches(tfa)
+    del h
+    grads = {k: spmd._tree_map(lambda a: a.grad.detach().cpu(), leaves[k]) for k in leaves}
+    scale = {str((k,) + p): _leaf_max(torch, a.grad)
+             for k in leaves for p, a in spmd._items(leaves[k])}
+    torch.save({"grads": grads, "fingerprint": fingerprint(torch, tree)},
+               os.path.join(out, "oracle.pt"))
+    del leaves, grads, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    return loss.item(), scale, ms, peak, launches
+
+
+def _leaf_max(torch, g) -> float:
+    return max(c.float().abs().max().item() for c in g.reshape(-1).split(1 << 24))
+
+
+def tp_sp_ranks(torch, seed: int, out: str):
+    """Phase 26's four rank processes; their reports and the seconds."""
+    import socket
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    t0 = time.perf_counter()
+    for rank in range(TP_SP_WORLD):
+        log = open(os.path.join(out, f"rank{rank}.log"), "wb")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+             "--tpsp-rank", str(rank), "--tpsp-port", str(port), "--tpsp-out", out],
+            stdout=log, stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")), log))
+    try:
+        rcs = [p.wait(timeout=max(1.0, TP_SP_DEADLINE_S - (time.perf_counter() - t0)))
+               for p, _ in procs]
+    except subprocess.TimeoutExpired:
+        rcs = None
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    if rcs != [0] * TP_SP_WORLD:
+        logs = ""
+        for rank in range(TP_SP_WORLD):
+            with open(os.path.join(out, f"rank{rank}.log"), errors="replace") as f:
+                logs += f"--- rank {rank}\n" + f.read()[-4000:]
+        fail(f"spmd_tp_sp: rank exit codes {rcs} (None: killed after "
+             f"{TP_SP_DEADLINE_S}s)\n{logs}")
+    reports = []
+    for rank in range(TP_SP_WORLD):
+        with open(os.path.join(out, f"rank{rank}.json")) as f:
+            reports.append(json.load(f))
+    return reports, time.perf_counter() - t0
+
+
+def phase_tp_sp(torch, tfa, tt, card, seed: int):
+    """Phase 26: tensor and sequence parallelism at Llama-3-8B width over
+    gloo on this card (26a pp=2 x tp=2, 26b pp=2 x sp=2 ring, 26c the same
+    on Ulysses) against one sequential oracle here."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        ref_loss, scale, ref_ms, ref_peak, ref_launches = tp_sp_oracle(torch, tfa, tt, seed,
+                                                                       out)
+        reps, ranks_s = tp_sp_ranks(torch, seed, out)
+    if not all(r["fingerprint_equal"] for r in reps):
+        fail("spmd_tp_sp: a rank drew other params than the oracle's")
+    if not reps[0]["cases"]["a"].get("gather_bitwise"):
+        fail("spmd_tp_sp 26a: gather of the tp placement is not bitwise the global tree")
+    res = {}
+    for case in TP_SP_CASES:
+        rows = [r["cases"][case] for r in reps]
+        loss = rows[0]["loss"]
+        if any(abs(r["loss"] - ref_loss) > SPMD_LOSS_REL * abs(ref_loss) for r in rows):
+            fail(f"spmd_tp_sp 26{case}: losses {[r['loss'] for r in rows]} vs the "
+                 f"oracle's {ref_loss} (rel tol {SPMD_LOSS_REL})")
+        worst = {}
+        for r in rows:
+            for k, e in r["grad_err"].items():
+                worst[k] = max(worst.get(k, 0.0), e / max(scale[k], 1e-30))
+        bad = {k: v for k, v in worst.items() if v > SPMD_GRAD_REL}
+        if bad or set(worst) != set(scale):
+            fail(f"spmd_tp_sp 26{case}: gradients against the oracle beyond "
+                 f"{SPMD_GRAD_REL} of each leaf's max: {bad}")
+        for r, rep in zip(rows, reps):
+            want = ring_launches(r["coords"]["sp"]) if case == "b" else TP_SP_LAUNCHES
+            expect_launches(r["launches"], want, f"26{case} rank {rep['rank']}")
+        after = [r["loss_after"] for r in rows]
+        if not all(math.isfinite(x) and x < loss for x in after):
+            fail(f"spmd_tp_sp 26{case}: eval_loss after the SGD step {after} "
+                 f"vs {loss} before")
+        res[case] = {"loss": loss, "loss_after_step": after[0],
+                     "grad_worst_rel": max(worst.values()), "leaves": len(worst),
+                     "step_ms": [r["step_ms"] for r in rows],
+                     "staged_bytes": [r["staged_bytes"] for r in rows],
+                     "staged_by": [r["staged_by"] for r in rows],
+                     "peak_gib": [r["peak_gib"] for r in rows],
+                     "launches": [r["launches"] for r in rows],
+                     "seconds": {k: max(r[k] for r in rows)
+                                 for k in ("setup_s", "check_s", "eval_s")}}
+    if abs(res["b"]["loss"] - res["c"]["loss"]) > SPMD_LOSS_REL * abs(res["b"]["loss"]):
+        fail(f"spmd_tp_sp: ring loss {res['b']['loss']} vs Ulysses {res['c']['loss']}")
+    names = {"a": "pp=2 x tp=2, vocab-sharded logits + vocab_parallel_cross_entropy",
+             "b": "pp=2 x sp=2, ring", "c": "pp=2 x sp=2, Ulysses"}
+    for case, row in res.items():
+        print(f"spmd_tp_sp 26{case}: Llama-3-8B width (dim 4096, 32/8 heads of 128, ffn "
+              f"14336, vocab 128256), bf16, 2 blocks; batch {TP_SP_BATCH} x seq "
+              f"{TP_SP_SEQ}, chunks {TP_SP_CHUNKS}, except_last, fill-drain; {names[case]} "
+              f"over gloo (4 processes on this card: host staging, not multi-card "
+              f"scaling): loss {row['loss']:.6f} vs the oracle's {ref_loss:.6f}, "
+              f"{row['leaves']} gradient leaves, worst {row['grad_worst_rel']:.3e} of its "
+              f"max (tol {SPMD_GRAD_REL}); eval_loss after one SGD step "
+              f"{row['loss_after_step']:.6f}; step_ms by rank {row['step_ms']}; bytes "
+              f"staged through the host a step by rank {row['staged_bytes']}, by kind "
+              f"{row['staged_by']}; peak GiB {row['peak_gib']}; launches by rank "
+              f"{row['launches']}; slowest rank's seconds beside the step {row['seconds']} "
+              f"[{card}]", flush=True)
+    print(f"spmd_tp_sp: the oracle's step {ref_ms:.1f} ms, peak {ref_peak:.2f} GiB, "
+          f"launches {ref_launches}; ranks ran in {ranks_s:.1f}s (started in "
+          f"{max(r['ready_s'] for r in reps):.1f}s); the phase "
+          f"{time.perf_counter() - t_phase:.1f}s [{card}]", flush=True)
+    result = {"card": card, "oracle_loss": ref_loss, "oracle_ms": ref_ms,
+              "oracle_peak_gib": ref_peak, "cases": res, "ranks_s": ranks_s,
+              "launches_tp": res["a"]["launches"][0], "launches_ring": res["b"]["launches"],
+              "launches_ulysses": res["c"]["launches"][0]}
+    print(json.dumps({"spmd_tp_sp": result}), flush=True)
+    return result
+
+
 PHASES = {
     "3": "fwd", "4": "decode", "5": "bwd", "5b": "simt", "6": "generate", "6b": "generate_int8",
     "6c": "speculative", "6d": "beam", "7": "profile", "9": "serving",
@@ -5791,7 +6180,7 @@ PHASES = {
     "12": "train_graph", "13": "precision", "14": "offload", "15": "lora", "16": "unet",
     "17": "timeline", "18": "vit_l16", "19": "amoebanetd", "20": "t5",
     "21": "gpt2_xl_generate", "22": "mixtral_moe", "23": "distributed", "24": "fleet",
-    "25": "spmd",
+    "25": "spmd", "26": "spmd_tp_sp",
 }
 PHASE_ORDER = list(PHASES)
 PHASE_NEEDS = {"6b": ["6"], "6c": ["6"], "6d": ["6"], "7": ["6"], "9": ["6"], "24": ["6"],
@@ -5836,12 +6225,19 @@ def main() -> None:
         ap.add_argument(opt, type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--spmd-case", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--spmd-out", default=None, help=argparse.SUPPRESS)
+    # A rank process of phase 26 (started by that phase).
+    for opt in ("--tpsp-rank", "--tpsp-port"):
+        ap.add_argument(opt, type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tpsp-out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.dist_rank is not None:
         dist_rank_main(args)
         return
     if args.spmd_rank is not None:
         spmd_rank_main(args)
+        return
+    if args.tpsp_rank is not None:
+        tp_sp_rank_main(args)
         return
     run = select_phases(args.phases)
 
@@ -5961,8 +6357,9 @@ def main() -> None:
            ("22", lambda: phase_mixtral(torch, tfa, tt, tg, card, args.seed))],
           "18-22 (vit_l16, amoebanetd, t5, gpt2_xl_generate, mixtral_moe)")
     timed([("23", lambda: phase_distributed(torch, tfa, tt, card, args.seed)),
-           ("25", lambda: phase_spmd(torch, tfa, tt, tg, card, args.seed))],
-          "23, 25 (distributed, spmd)")
+           ("25", lambda: phase_spmd(torch, tfa, tt, tg, card, args.seed)),
+           ("26", lambda: phase_tp_sp(torch, tfa, tt, card, args.seed))],
+          "23, 25, 26 (distributed, spmd, spmd_tp_sp)")
 
     if run != set(PHASES):
         print(f"chip_smoke: phases {sorted(run, key=PHASE_ORDER.index)} of {len(PHASES)} "
@@ -5981,7 +6378,7 @@ def main() -> None:
     precision_resnet, precision_llama = r["13"]
     lora_run, unet_row, vit_run, amoeba, t5_run = r["15"], r["16"], r["18"], r["19"], r["20"]
     gpt2, mixtral, int8w, simt = r["21"], r["22"], r["9b"], r["5b"]
-    dist, spmd_run = r["23"], r["25"]
+    dist, spmd_run, tp_sp = r["23"], r["25"], r["26"]
 
     src = "torchgpipe_tpu_torch/csrc/"
     ref = "torchgpipe_tpu/ops/flash_attention.py"
@@ -6009,7 +6406,11 @@ def main() -> None:
              "f16_llama_generate": simt["paths"]["f16_llama"]["generate"],
              "distributed": dist["launches_sum"],
              "spmd_rank": spmd_run["launches_a_rank"],
-             "spmd_generate": spmd_run["generate_launches"]}
+             "spmd_generate": spmd_run["generate_launches"],
+             "spmd_tp_rank": tp_sp["launches_tp"],
+             "spmd_ring_rank0": tp_sp["launches_ring"][0],
+             "spmd_ring_rank1": tp_sp["launches_ring"][1],
+             "spmd_ulysses_rank": tp_sp["launches_ulysses"]}
 
     def by_path(name):
         return {p: n.get(name, 0) for p, n in paths.items()}
@@ -6066,7 +6467,9 @@ def main() -> None:
                                "library_ms_by_backend": long["lib_by_backend"]},
                 "path_shapes": {"vit_l16": bwd_path(bwd["vit_l16"], key, causal=False),
                                 "pad_d80": bwd_path(bwd["pad_d80"], key, head_dim="80->128"),
-                                "pad_d32": bwd_path(bwd["pad_d32"], key, head_dim="32->64")}}
+                                "pad_d32": bwd_path(bwd["pad_d32"], key, head_dim="32->64"),
+                                "ring_block": bwd_path(bwd["ring_block"], key, causal=False),
+                                "tp_lane": bwd_path(bwd["tp_lane"], key)}}
 
     srows, sworst = simt["rows"], simt["worst"]
 
@@ -6102,7 +6505,8 @@ def main() -> None:
          "long_shape": shape_entry(fwd["long12288"]),
          "path_shapes": {n: shape_entry(fwd[n])
                          for n in ("spec_draft_d64", "spec_target", "beam_prefill",
-                                   "vit_l16", "gpt2_xl_prefill", "pad_d80", "pad_d32")}},
+                                   "vit_l16", "gpt2_xl_prefill", "pad_d80", "pad_d32",
+                                   "ring_diag", "ring_block", "tp_lane")}},
         decode_entry("flash_decode", "bf16", "generate"),
         decode_entry("flash_decode_int8", "int8", "generate_int8"),
         bwd_entry("flash_bwd_dq", "dq", 538, 411),

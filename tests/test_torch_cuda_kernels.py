@@ -961,3 +961,73 @@ def test_wide_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="head dim"):
         tfa.flash_decode_wide(torch.zeros(1, 1, 4, 320, device=cuda_device).bfloat16(),
                               c, c, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b,s,h,g,d", [("bfloat16", 1, 1024, 16, 4, 128),
+                                            ("float16", 2, 512, 8, 2, 64),
+                                            ("float32", 1, 512, 8, 2, 64),
+                                            ("bfloat16", 1, 256, 4, 4, 256),
+                                            ("bfloat16", 1, 512, 8, 2, 80)])
+def test_ring_blocks_merged_by_lse_match_flash_over_the_whole_sequence(
+        cuda_device, dtype, b, s, h, g, d):
+    """Lane 1 of a causal ring of two, in one process: its queries against
+    its own (diagonal, causal) block and lane 0's (whole) block, each
+    through the forward of its ``attention_route`` (``flash_fwd``; the
+    3xTF32, wide and zero-padded routes in the other rows) and merged by
+    LSE (``parallel.ring_attention.merge_block``), then the backward of
+    each block through the route's dQ and dK/dV kernels with the merged
+    LSE (``block_grads``), against the route over the whole sequence
+    (its second half's rows; the first half's output cotangent zero).
+    Output to FWD_TOL, LSE to 2e-3 (chip_smoke.py's LSE_TOL), the
+    gradients row by row."""
+    from torchgpipe_tpu_torch.parallel.ring_attention import (
+        block_grads, merge_block, ring_tiles, tile_fns)
+
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda_device).to(dt)
+
+    def launches():
+        fwd = (tfa.flash_attention, tfa.flash_attention_tf32, tfa.flash_attention_f32,
+               tfa.flash_attention_wide)
+        dq = (tfa.flash_bwd_dq, tfa.flash_bwd_dq_tf32, tfa.flash_bwd_dq_f32,
+              tfa.flash_bwd_dq_wide)
+        dkv = (tfa.flash_bwd_dkv, tfa.flash_bwd_dkv_tf32, tfa.flash_bwd_dkv_f32,
+               tfa.flash_bwd_dkv_wide)
+        return tuple(sum(f.launches for f in fs) for fs in (fwd, dq, dkv))
+
+    qf, kf, vf = rand(b, 2 * s, h, d), rand(b, 2 * s, g, d), rand(b, 2 * s, g, d)
+    do1 = rand(b, s, h, d)
+    q1 = qf[:, s:].contiguous()
+    kv = {0: (kf[:, :s].contiguous(), vf[:, :s].contiguous()),
+          1: (kf[:, s:].contiguous(), vf[:, s:].contiguous())}
+    scale = d ** -0.5
+    fwd, bwd = tile_fns(q1, kv[0][0])
+    o = torch.zeros(b, s, h, d, dtype=torch.float32, device=cuda_device)
+    lse = torch.full((b * h, s), float("-inf"), device=cuda_device)
+    tfa.reset_launches()
+    for src in (1, 0):
+        merge_block(o, lse, q1, *kv[src], ring_tiles(1, src, s, 1, True), fwd, scale)
+    out = o.to(dt)
+    delta = tfa._delta(do1, out)
+    dq = torch.zeros(q1.shape, dtype=torch.float32, device=cuda_device)
+    dkv = {src: (torch.zeros(b, s, g, d, device=cuda_device),
+                 torch.zeros(b, s, g, d, device=cuda_device)) for src in (0, 1)}
+    for src in (1, 0):
+        block_grads(dq, *dkv[src], q1, *kv[src], do1, lse, delta,
+                    ring_tiles(1, src, s, 1, True), bwd, scale)
+    torch.cuda.synchronize()
+    assert launches() == (2, 2, 2)
+    ref_o, ref_lse = fwd(qf, kf, vf, True, scale)
+    assert (out.float() - ref_o[:, s:].float()).abs().max().item() <= FWD_TOL
+    assert (lse - ref_lse.reshape(b * h, 2 * s)[:, s:]).abs().max().item() <= 2e-3
+    leaves = [t.clone().requires_grad_() for t in (qf, kf, vf)]
+    tfa.attention(*leaves, causal=True).backward(torch.cat([torch.zeros_like(do1), do1], 1))
+    dqf, dkf, dvf = (t.grad for t in leaves)
+    assert bwd_row_ratio(dq.to(dt), dqf[:, s:]) <= 1.0
+    for src, sl in ((0, slice(0, s)), (1, slice(s, 2 * s))):
+        assert bwd_row_ratio(dkv[src][0].to(dt), dkf[:, sl]) <= 1.0, src
+        assert bwd_row_ratio(dkv[src][1].to(dt), dvf[:, sl]) <= 1.0, src

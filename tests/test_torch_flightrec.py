@@ -159,10 +159,20 @@ def test_peer_death_records_and_dumps_before_raising(tmp_path):
 
 
 def test_watchdog_flags_silence_then_clears(tmp_path):
-    rec = FlightRecorder(rank=0, worker="w0", dump_path=str(tmp_path / "wd.json"))
+    """The recorder's clock is the test's: silence lasts exactly as long as
+    the test advances it, however late the watchdog's thread polls on a
+    loaded host (with the wall clock, a poll delayed past the timeout
+    after the resumed activity read a second silence and the flag never
+    cleared)."""
+    now = [100.0]
+    rec = FlightRecorder(rank=0, worker="w0", dump_path=str(tmp_path / "wd.json"),
+                         clock=lambda: now[0])
     rec.record("forward_begin")
     reg = MetricsRegistry()
     with StallWatchdog(rec, timeout=0.15, poll=0.03, registry=reg) as wd:
+        time.sleep(0.1)          # polls at a still clock: no silence
+        assert not wd.stalled
+        now[0] += 1.0            # one second of silence, past the timeout
         deadline = time.monotonic() + 5.0
         while not wd.stalled and time.monotonic() < deadline:
             time.sleep(0.03)

@@ -186,7 +186,10 @@ def test_port_imports_no_jax_and_no_reference_package():
         "import torchgpipe_tpu_torch.fleet.prefix_cache, torchgpipe_tpu_torch.fleet.migration\n"
         "import torchgpipe_tpu_torch.fleet.speculative, torchgpipe_tpu_torch.fleet.autoscaler\n"
         "import torchgpipe_tpu_torch.fleet.rollout, torchgpipe_tpu_torch.fleet.trace\n"
-        "import torchgpipe_tpu_torch.spmd\n"
+        "import torchgpipe_tpu_torch.spmd, torchgpipe_tpu_torch.parallel\n"
+        "import torchgpipe_tpu_torch.parallel.axes, torchgpipe_tpu_torch.parallel.tensor\n"
+        "import torchgpipe_tpu_torch.parallel.ring_attention\n"
+        "import torchgpipe_tpu_torch.parallel.ulysses\n"
         "import torchgpipe_tpu_torch.obs.reporter, torchgpipe_tpu_torch.obs.reqtrace\n"
         "import torchgpipe_tpu_torch.obs.slo, torchgpipe_tpu_torch.utils.hw\n"
         "import torchgpipe_tpu_torch.analysis, torchgpipe_tpu_torch.analysis.diagnostics\n"

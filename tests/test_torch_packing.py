@@ -260,9 +260,9 @@ def test_packed_attention_equals_separate_documents(causal, window):
 
 def test_packed_attention_rejects_sp_axis(corpus, weights, cpu_devices):
     """A packed batch under a sequence-parallel axis: the reference's
-    embedding and block refuse it (inside a bound ``sp`` axis); the
-    port, whose configs cannot name one, refuses a config swapped to one
-    with the same texts."""
+    embedding and block refuse it (inside a bound ``sp`` axis), and so do
+    the port's inside a bound one (``parallel.bind_axes``), with the same
+    texts."""
     from jax.experimental.shard_map import shard_map
     from jax.sharding import Mesh, PartitionSpec as P
 
@@ -286,11 +286,17 @@ def test_packed_attention_rejects_sp_axis(corpus, weights, cpu_devices):
     model = params_from_jax(TCFG, weights, device="cpu")
     for layer in model:
         layer.cfg = dataclasses.replace(TCFG, sp_axis="sp")
-    with pytest.raises(ValueError) as te_emb:
-        model[0](_t(x))
-    with pytest.raises(ValueError) as te_blk:
-        model[1]((torch.zeros(1, S, KW["dim"]), _t(x)["segment_ids"][:1],
-                  _t(x)["positions"][:1]))
+    from types import SimpleNamespace
+
+    from torchgpipe_tpu_torch.parallel import bind_axes
+
+    sp_mesh = SimpleNamespace(shape={"sp": 2}, coords={"sp": 0})
+    with bind_axes(sp_mesh, ["sp"]):
+        with pytest.raises(ValueError) as te_emb:
+            model[0](_t(x))
+        with pytest.raises(ValueError) as te_blk:
+            model[1]((torch.zeros(1, S, KW["dim"]), _t(x)["segment_ids"][:1],
+                      _t(x)["positions"][:1]))
     assert str(te_emb.value) == str(je_emb.value)
     assert str(te_blk.value) == str(je_blk.value)
     with pytest.raises(ValueError) as je:

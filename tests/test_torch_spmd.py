@@ -190,7 +190,7 @@ def mse(out, tgt):
     (dict(dp_axis="data"), ValueError, "mesh has no 'data' axis"),
     (dict(pp_axis="stages"), ValueError, "mesh has no 'stages' axis"),
     (dict(virtual_stages=2), ValueError, "virtual_stages only applies"),
-    (dict(tp_axis="pp"), NotImplementedError, r"A\.5\.4b.*queue A item 5\.4"),
+    (dict(sp_axis="dp", loss_reduction=None), ValueError, "decomposable loss"),
     (dict(fsdp=True), NotImplementedError, r"A\.5\.4c.*queue A item 5\.4"),
     (dict(schedule="zb"), NotImplementedError, r"A\.5\.4d.*queue A item 5\.4"),
     (dict(schedule="interleaved", virtual_stages=2), NotImplementedError, r"A\.5\.4d"),
@@ -305,13 +305,15 @@ def test_specs_and_trees():
 
 
 def test_make_mesh_needs_a_process_group_and_refuses_later_axes():
-    with pytest.raises(NotImplementedError, match=r"A\.5\.4b.*queue A item 5\.4"):
-        spmd.make_mesh(2, 1, 2)
+    """``ep`` is sub-slice e; sp and tp (sub-slice b) need a process
+    group of ``pp * dp * sp * tp`` ranks like the rest."""
     with pytest.raises(NotImplementedError, match=r"A\.5\.4e"):
         spmd.make_mesh(2, ep=2)
     if not torch.distributed.is_initialized():
         with pytest.raises(RuntimeError, match="init_process_group"):
             spmd.make_mesh(2)
+        with pytest.raises(RuntimeError, match=r"n_stages \* dp \* sp \* tp = 4"):
+            spmd.make_mesh(2, 1, 2)
 
 
 def test_1f1b_closed_form_is_a_legal_schedule():

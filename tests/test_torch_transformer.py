@@ -123,16 +123,29 @@ def test_init_distributions_follow_reference():
 
 @pytest.mark.parametrize(
     # lora_rank is ported (tests/test_torch_lora.py), and so are tied
-    # embeddings and learned positions (tests/test_torch_arch_knobs.py);
-    # their slots hold the parallel axes in other combinations.
+    # embeddings and learned positions (tests/test_torch_arch_knobs.py),
+    # and the parallel axes (tests/test_torch_tensor_parallel.py,
+    # test_torch_ring_attention.py, test_torch_ulysses.py).
     "knob", [{"tp_axis": "tp"}, {"sp_axis": "sp"},
              {"tp_axis": "tp", "sp_axis": "sp"},
              {"sp_axis": "sp", "sp_impl": "ulysses"}]
 )
 def test_unported_knobs_raise_with_roadmap_item(knob):
-    cfg = tt.TransformerConfig(vocab=64, dim=64, n_layers=1, n_heads=2, **knob)
+    """The parallel axes build, and outside an engine that binds them the
+    model computes the unsharded math; what still waits for its queue
+    item (a MoE expert-parallel axis) raises naming it."""
+    from torchgpipe_tpu_torch.models.moe import MoEConfig, moe_mlp
+
+    cfg = tt.TransformerConfig(vocab=64, dim=64, n_layers=1, n_heads=2,
+                               dtype=torch.float32, **knob)
+    plain = tt.TransformerConfig(vocab=64, dim=64, n_layers=1, n_heads=2,
+                                 dtype=torch.float32)
+    tokens = torch.arange(12).reshape(2, 6) % 64
+    torch.testing.assert_close(tt.llama(cfg, device="cpu")(tokens),
+                               tt.llama(plain, device="cpu")(tokens), rtol=0, atol=0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.llama(cfg, device="cpu")
+        moe_mlp(plain, MoEConfig(ep_axis=knob.get("tp_axis") or knob["sp_axis"]),
+                device="cpu")
 
 
 def test_no_device_without_card_raises(monkeypatch):

@@ -190,21 +190,23 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def run_port(inputs, pp, dp, out, timeout=240):
-    """Every case of ``inputs`` on ``pp * dp`` rank processes; returns
-    rank 0's results by case name."""
-    path = os.path.join(out, f"inputs_{pp}x{dp}.pt")
+def run_port(inputs, pp, dp, out, timeout=240, sp=1, tp=1):
+    """Every case of ``inputs`` on ``pp * dp * sp * tp`` rank processes;
+    returns rank 0's results by case name (with ``"ranks"``, every rank's
+    own file, where a case writes one per rank)."""
+    tag = f"{pp}x{dp}" + (f"x{sp}x{tp}" if sp * tp > 1 else "")
+    path = os.path.join(out, f"inputs_{tag}.pt")
     torch.save(inputs, path)
-    res = os.path.join(out, f"res_{pp}x{dp}")
+    res = os.path.join(out, f"res_{tag}")
     os.makedirs(res, exist_ok=True)
-    world, port = pp * dp, _free_port()
+    world, port = pp * dp * sp * tp, _free_port()
     procs = []
     for rank in range(world):
         log = open(os.path.join(res, f"rank{rank}.log"), "wb")
         procs.append((subprocess.Popen(
             [sys.executable, SCRIPT, "--rank", str(rank), "--world", str(world),
-             "--port", str(port), "--pp", str(pp), "--dp", str(dp), "--inputs", path,
-             "--out", res],
+             "--port", str(port), "--pp", str(pp), "--dp", str(dp), "--sp", str(sp),
+             "--tp", str(tp), "--inputs", path, "--out", res],
             cwd=REPO, env=cpu_subproc_env(OMP_NUM_THREADS="1"), stdout=log,
             stderr=subprocess.STDOUT), log))
     deadline = time.time() + timeout
@@ -222,16 +224,24 @@ def run_port(inputs, pp, dp, out, timeout=240):
         raise AssertionError(f"rank exit codes {rcs}:\n{logs}")
     out = {name: torch.load(os.path.join(res, name + ".pt"), weights_only=True)
            for name in inputs}
+    for name in inputs:
+        per_rank = [os.path.join(res, f"{name}_rank{r}.pt") for r in range(world)]
+        if os.path.exists(per_rank[0]):
+            out[name]["ranks"] = [torch.load(f, weights_only=True) for f in per_rank]
     extra = os.path.join(res, "global_batch.pt")
     if os.path.exists(extra):
         out[f"global_batch_{pp}x{dp}"] = torch.load(extra, weights_only=True)
+    extra = os.path.join(res, "global_batch_sp.pt")
+    if os.path.exists(extra):
+        out[f"global_batch_sp_{tag}"] = torch.load(extra, weights_only=True)
     return out
 
 
 def run_port_worlds(inputs_by_shape, out):
-    """:func:`run_port` for each ``(pp, dp): inputs`` in turn; every
-    case's rank-0 results by name."""
+    """:func:`run_port` for each ``(pp, dp[, sp, tp]): inputs`` in turn;
+    every case's rank-0 results by name."""
     res = {}
-    for (pp, dp), inputs in inputs_by_shape.items():
-        res.update(run_port(inputs, pp, dp, out))
+    for shape, inputs in inputs_by_shape.items():
+        pp, dp, sp, tp = (*shape, 1, 1)[:4]
+        res.update(run_port(inputs, pp, dp, out, sp=sp, tp=tp))
     return res

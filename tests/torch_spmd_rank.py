@@ -1,10 +1,12 @@
 """One rank of a torchgpipe_tpu_torch.spmd world on the CPU, over gloo.
 
-Run by tests/test_torch_spmd.py and tests/test_torch_spmd_1f1b.py as
-``pp * dp`` OS processes:
+Run by tests/test_torch_spmd.py, tests/test_torch_spmd_1f1b.py and the
+tensor- and sequence-parallel tests (tests/test_torch_tensor_parallel.py,
+test_torch_ring_attention.py, test_torch_ulysses.py) as ``pp * dp * sp *
+tp`` OS processes:
 
     python tests/torch_spmd_rank.py --rank R --world W --port P \\
-        --pp PP --dp DP --inputs inputs.pt --out DIR
+        --pp PP --dp DP [--sp SP --tp TP] --inputs inputs.pt --out DIR
 
 ``inputs.pt`` maps case names to ``{"spec", "params", "x", "tgt"}``: the
 case's description (see :func:`build`), the global params tree in the
@@ -15,7 +17,10 @@ global gradient tree) for a train case, ``{"loss", "params"}`` after one
 ``make_train_step`` SGD step (lr 0.1) for a ``step`` case, ``{"out",
 "loss"}`` for an ``apply`` case; a world with dp > 1 also writes
 ``global_batch.pt`` (``utils.data.global_batch_from_local`` of each
-rank's rows).
+rank's rows).  A ``place`` case writes the gathered placement on rank 0
+and every rank's own tree to ``DIR/<case>_rank<r>.pt``; an ``op`` case
+(``ring``, ``ulysses`` or ``tensor``: :func:`run_op`) runs one parallel
+primitive on this rank's shard of ``{"q", "k", "v", "do"}`` or ``{"x"}``.
 """
 
 import argparse
@@ -28,7 +33,7 @@ from torch import nn
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from torchgpipe_tpu_torch import skip  # noqa: E402
+from torchgpipe_tpu_torch import parallel, skip  # noqa: E402
 from torchgpipe_tpu_torch import spmd  # noqa: E402
 from torchgpipe_tpu_torch.models import transformer as tt  # noqa: E402
 from torchgpipe_tpu_torch.ops.nn import GELU, Dense, LayerNorm  # noqa: E402
@@ -47,9 +52,14 @@ def mse_sum(out, tgt):
 
 
 def llama_cfg(spec):
-    return tt.TransformerConfig(
-        vocab=64, dim=32, n_layers=spec["n_layers"], n_heads=4, n_kv_heads=2,
-        tie_embeddings=spec.get("tied", False), dtype=torch.float32)
+    """The case's config: the parity tests' Llama, with the case's tp/sp
+    axes and knobs (``spec["cfg"]``)."""
+    kw = dict(vocab=64, dim=32, n_layers=spec["n_layers"], n_heads=4, n_kv_heads=2,
+              tie_embeddings=spec.get("tied", False), dtype=torch.float32,
+              tp_axis="tp" if spec.get("tp", 1) > 1 else None,
+              sp_axis="sp" if spec.get("sp", 1) > 1 else None)
+    kw.update(spec.get("cfg", {}))
+    return tt.TransformerConfig(**kw)
 
 
 def u_stage():
@@ -73,9 +83,12 @@ def build(spec, mesh):
               dp_axis="dp" if spec["dp"] > 1 or spec.get("dp_axis") else None)
     n = spec["pp"]
     if spec["model"] == "llama":
-        block, pre, post = tt.llama_spmd(llama_cfg(spec), n, device="cpu")
-        return spmd.SpmdGPipe(block, n, mesh, loss_fn=tt.cross_entropy, pre=pre,
-                              post=post, **kw)
+        cfg = llama_cfg(spec)
+        gather = spec.get("gather_logits", True)
+        block, pre, post = tt.llama_spmd(cfg, n, device="cpu", gather_logits=gather)
+        loss = tt.cross_entropy if gather else tt.vocab_parallel_cross_entropy(cfg.tp_axis)
+        return spmd.SpmdGPipe(block, n, mesh, loss_fn=loss, pre=pre, post=post,
+                              tp_axis=cfg.tp_axis, sp_axis=cfg.sp_axis, **kw)
     loss = mse_sum if kw["loss_reduction"] == "sum" else mse
     if spec["model"] == "skips":
         return spmd.SpmdGPipe(u_stage(), n, mesh, loss_fn=loss, **kw)
@@ -87,10 +100,62 @@ def build(spec, mesh):
     return spmd.SpmdGPipe(block, n, mesh, loss_fn=loss, pre=pre, post=post, **kw)
 
 
+def run_op(spec, case, mesh):
+    """One parallel primitive on this rank's shard; the results gathered
+    over the axis (``sp``: the sequence dim of ``out``/``dq``/``dk``/``dv``;
+    ``tp``: each lane's values stacked) for rank 0."""
+    if spec["op"] == "tensor":
+        with parallel.bind_axes(mesh, ["tp"]) as (ax,):
+            x = case["x"].clone().requires_grad_()
+            lane = float(ax.index + 1)
+            res = {}
+            y = parallel.psum_grad(x, "tp")
+            (y * lane).sum().backward()
+            res["psum_grad"], x.grad = x.grad, None
+            y = parallel.psum_value(x * lane, "tp")
+            (y * case["x"]).sum().backward()
+            res["psum_value"], res["psum_value_grad"], x.grad = y.detach(), x.grad, None
+            y = parallel.pmax_stop(x * lane, "tp")
+            (y * case["x"]).sum().backward()
+            res["pmax_stop"], res["pmax_stop_grad"], x.grad = y.detach(), x.grad, None
+            y = parallel.all_gather_value(x * lane, "tp", -1)
+            (y * torch.arange(y.numel(), dtype=y.dtype).reshape(y.shape)).sum().backward()
+            res["all_gather_value"], res["all_gather_value_grad"] = y.detach(), x.grad
+            # Megatron's cross-entropy over this lane's vocab shard, and the
+            # same logits shifted by 5e4 (the max shift keeps it finite).
+            v = case["logits"].shape[-1] // ax.size
+            for key, shift in (("vpce", 0.0), ("vpce_shift", 5e4)):
+                loc = (case["logits"][..., ax.index * v:(ax.index + 1) * v] + shift
+                       ).requires_grad_()
+                loss = tt.vocab_parallel_cross_entropy("tp")(loc, case["labels"])
+                loss.backward()
+                res[key], res[key + "_grad"] = loss.detach().reshape(1), loc.grad
+            return {k: torch.stack(mesh.all_gather(v, "tp")) for k, v in res.items()}
+    sp, r = mesh.shape["sp"], mesh.coords["sp"]
+
+    def shard(t):
+        s = t.shape[1] // sp
+        return t[:, r * s:(r + 1) * s].contiguous()
+
+    q, k, v = (shard(case[n]).requires_grad_() for n in ("q", "k", "v"))
+    with parallel.bind_axes(mesh, ["sp"]):
+        if spec["op"] == "ring":
+            out = parallel.ring_attention(q, k, v, "sp", causal=spec["causal"],
+                                          kv_block_size=spec.get("kv_block_size", 2048))
+        else:
+            out = parallel.ulysses_attention(q, k, v, "sp", causal=spec["causal"],
+                                             window=spec.get("window"))
+        out.backward(shard(case["do"]))
+    return {n: torch.cat(mesh.all_gather(t.detach(), "sp"), 1)
+            for n, t in (("out", out), ("dq", q.grad), ("dk", k.grad), ("dv", v.grad))}
+
+
 def main():
     ap = argparse.ArgumentParser()
     for name in ("rank", "world", "port", "pp", "dp"):
         ap.add_argument(f"--{name}", type=int, required=True)
+    ap.add_argument("--sp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--inputs", required=True)
     ap.add_argument("--out", required=True)
     a = ap.parse_args()
@@ -98,12 +163,23 @@ def main():
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{a.port}",
                             rank=a.rank, world_size=a.world)
     try:
-        mesh = spmd.make_mesh(a.pp, a.dp, device="cpu")
+        mesh = spmd.make_mesh(a.pp, a.dp, a.sp, tp=a.tp, device="cpu")
         cases = torch.load(a.inputs, weights_only=True)
         for name, case in cases.items():
             spec = case["spec"]
+            if spec.get("op"):
+                res = run_op(spec, case, mesh)
+                if a.rank == 0:
+                    torch.save(res, os.path.join(a.out, name + ".pt"))
+                continue
             pipe = build(spec, mesh)
             params = pipe.place(case["params"])
+            if spec.get("place"):   # this rank's placement; the gathered tree
+                torch.save(params, os.path.join(a.out, f"{name}_rank{a.rank}.pt"))
+                back = pipe.gather(params)
+                if a.rank == 0:
+                    torch.save({"params": back}, os.path.join(a.out, name + ".pt"))
+                continue
             if spec.get("apply"):
                 out = pipe.apply(params, case["x"])
                 loss = pipe.eval_loss(params, case["x"], case["tgt"])
@@ -122,6 +198,11 @@ def main():
             grads = pipe.gather(grads)
             if a.rank == 0:
                 torch.save({"loss": loss, "grads": grads}, os.path.join(a.out, name + ".pt"))
+        if a.sp > 1:   # every rank's own positions, assembled over sp on dim 1
+            local = torch.arange(6, dtype=torch.float32).reshape(2, 3) + 10 * mesh.coords["sp"]
+            got = global_batch_from_local(mesh, spmd.P(None, "sp"), local)
+            if a.rank == 0:
+                torch.save({"global": got}, os.path.join(a.out, "global_batch_sp.pt"))
         if a.dp > 1:   # every rank's own rows, assembled over dp
             local = torch.arange(6, dtype=torch.float32).reshape(3, 2) + 10 * a.rank
             got = global_batch_from_local(mesh, spmd.P("dp"), local)

@@ -1086,10 +1086,13 @@ def spmd_params_for_generation(pipe: Any, params: Any, device: Device = None
     rank 0; blocks stacked ``[n_stages, ...]``), unstacked into ``[embed,
     block_0 .. block_{L-1}, head]`` on ``device`` (``cuda`` unless named),
     the head taken from ``post`` or, under a parametric loss layer, from
-    ``params['loss']``; a tied head holds the embedding's table."""
+    ``params['loss']``; a tied head holds the embedding's table.  A tree
+    trained under tensor or sequence parallelism decodes the same way:
+    ``gather`` reassembles its tp-sharded leaves, and the model's config
+    drops the parallel axes (it runs unsharded)."""
     from torchgpipe_tpu_torch.spmd import _tree_map
 
-    cfg = pipe.pre.cfg
+    cfg = dataclasses.replace(pipe.pre.cfg, tp_axis=None, sp_axis=None)
     model = (llama_tied if cfg.tie_embeddings else llama)(cfg, device=device)
     head = params["post"] if pipe.post is not None else params.get("loss")
     if head is None:

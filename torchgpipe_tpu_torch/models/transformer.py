@@ -44,6 +44,14 @@ from torch import nn
 from torchgpipe_tpu_torch.models.quant import QuantWeight, dequantize_weight, refuse_quantized
 from torchgpipe_tpu_torch.ops.flash_attention import _validate_window, attention
 from torchgpipe_tpu_torch.ops.losses import chunked_softmax_xent
+from torchgpipe_tpu_torch.parallel.axes import BoundAxis, axis_bound
+from torchgpipe_tpu_torch.parallel.ring_attention import attention as sp_attention
+from torchgpipe_tpu_torch.parallel.tensor import (
+    all_gather_value,
+    pmax_stop,
+    psum_grad,
+    psum_value,
+)
 
 Device = Union[str, torch.device, None]
 
@@ -74,9 +82,9 @@ def not_ported(what: str, item: str) -> NotImplementedError:
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """Field-for-field copy of the reference config (``dtype`` is a
-    ``torch.dtype``).  Knobs the port does not serve yet are kept so a
-    reference config transcribes unchanged; :meth:`check_ported` raises
-    on them."""
+    ``torch.dtype``).  ``tp_axis`` and ``sp_axis`` name the mesh axes the
+    layers collect over inside ``spmd.SpmdGPipe`` (``parallel.axis_bound``);
+    elsewhere the layers compute the unsharded math."""
 
     vocab: int = 32000
     dim: int = 512
@@ -162,10 +170,8 @@ class TransformerConfig:
         _act_fn(self.act)
 
     def check_ported(self) -> None:
-        """Raise on knobs whose reference feature is not ported yet."""
+        """The reference's checks of the knobs (every knob is ported)."""
         self.validate_arch()
-        if self.tp_axis is not None or self.sp_axis is not None:
-            raise not_ported("tensor/sequence parallelism (tp_axis, sp_axis)", "5.4")
 
 
 def _normal(
@@ -283,9 +289,21 @@ def _maybe_rope(
 # --------------------------------------------------------------------- #
 
 
+def _local_vocab_ids(
+    ids: torch.Tensor, ax: BoundAxis, v_loc: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Global token ids on this lane's vocab shard: ``(idx, in_range)``,
+    ``idx`` clipped into ``[0, v_loc)`` and ``in_range`` marking the ids
+    the lane owns.  Shared by the vocab-parallel lookup and
+    cross-entropy's target-logit gather."""
+    local = ids - ax.index * v_loc
+    in_range = (local >= 0) & (local < v_loc)
+    return local.clamp(0, v_loc - 1), in_range
+
+
 def _embed(
     cfg: TransformerConfig, p: Mapping[str, torch.Tensor], tokens: torch.Tensor,
-    pos0: Any = 0,
+    pos0: Any = 0, tp: Optional[BoundAxis] = None,
 ) -> torch.Tensor:
     """Token lookup with the optional ``embed_scale``, the learned
     position rows (``p["pos"]``, GPT-2 class) and the embedding LayerNorm
@@ -297,8 +315,15 @@ def _embed(
     batch's within-document positions).  ``F.embedding``'s backward
     sums each row's gradients in a fixed order on the card (advanced
     indexing's adds with atomics, in any order), so a training step
-    repeats bit for bit."""
-    x = F.embedding(tokens, p["table"])
+    repeats bit for bit.  Under a bound ``tp`` axis the table is this
+    lane's vocab shard: tokens it does not own contribute zero rows, and
+    the lanes' rows sum (Megatron's parallel embedding)."""
+    if tp is not None:
+        idx, in_range = _local_vocab_ids(tokens, tp, p["table"].shape[0])
+        rows = torch.where(in_range[..., None], F.embedding(idx, p["table"]), 0)
+        x = psum_value(rows, tp.name)
+    else:
+        x = F.embedding(tokens, p["table"])
     if cfg.embed_scale is not None:
         x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype)
     if "pos" in p:
@@ -331,16 +356,20 @@ def _w(cfg: TransformerConfig, p: Mapping[str, Any], key: str) -> torch.Tensor:
 
 def _block_qkv(
     cfg: TransformerConfig, p: Mapping[str, torch.Tensor], x: torch.Tensor,
-    pos: Any,
+    pos: Any, tp: Optional[BoundAxis] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """ln1 (pre-norm only), q/k/v projections (+ Qwen2 biases), head
     reshape, Qwen3 per-head q/k RMSNorm, rotary at ``pos``.
-    ``x: [b, g, dim]``."""
+    ``x: [b, g, dim]``.  Under a bound ``tp`` axis the projections are
+    this lane's heads (head counts come from the weights' shapes) and the
+    region's entry sums the input's gradient over the lanes."""
     b, g, _ = x.shape
     hd = cfg.head_dim
     # Post-norm (BERT class): the attention branch reads x raw; ln1
     # normalizes the residual sum in _block_attn_out instead.
     h = x if cfg.norm_position == "post" else _block_norm(cfg, p, "ln1", x)
+    if tp is not None:
+        h = psum_grad(h, tp.name)
     q, k, v = h @ _w(cfg, p, "wq"), h @ _w(cfg, p, "wk"), h @ _w(cfg, p, "wv")
     if "lora" in p:
         lo = p["lora"]
@@ -363,11 +392,13 @@ MlpFn = Callable[[Any, torch.Tensor], torch.Tensor]
 
 def _mlp_out(
     cfg: TransformerConfig, p: Mapping[str, torch.Tensor], h: torch.Tensor,
-    mlp: Optional[MlpFn] = None,
+    mlp: Optional[MlpFn] = None, tp: Optional[BoundAxis] = None,
 ) -> torch.Tensor:
     """Gated (SwiGLU/GeGLU) or classic (fc -> act -> proj) feed-forward,
     or, for a block whose params carry ``"mlp"`` (a custom feed-forward,
-    the MoE family), ``mlp(p["mlp"], h)``."""
+    the MoE family), ``mlp(p["mlp"], h)``.  Under a bound ``tp`` axis the
+    dense forms are a tensor-parallel region over this lane's hidden
+    units, the output bias added once after the lanes' sum."""
     if "mlp" in p:
         if mlp is None:
             raise ValueError(
@@ -376,32 +407,43 @@ def _mlp_out(
                 "configuration to prefill()/generate()"
             )
         return mlp(p["mlp"], h).to(h.dtype)
+    if tp is not None:
+        h = psum_grad(h, tp.name)
     if "w_fc" in p:
         hid = _act_fn(cfg.act)(h @ _w(cfg, p, "w_fc") + p["b_fc"])
-        return hid @ _w(cfg, p, "w_proj") + p["b_proj"]
+        out = hid @ _w(cfg, p, "w_proj")
+        if tp is not None:
+            out = psum_value(out, tp.name)
+        return out + p["b_proj"]
     gate = _act_fn(cfg.act)(h @ _w(cfg, p, "w_gate"))
-    return (gate * (h @ _w(cfg, p, "w_up"))) @ _w(cfg, p, "w_down")
+    out = (gate * (h @ _w(cfg, p, "w_up"))) @ _w(cfg, p, "w_down")
+    return psum_value(out, tp.name) if tp is not None else out
 
 
 def _block_attn_out(
     cfg: TransformerConfig, p: Mapping[str, torch.Tensor], x: torch.Tensor,
     attn: torch.Tensor, mlp: Optional[MlpFn] = None,
+    tp: Optional[BoundAxis] = None,
 ) -> torch.Tensor:
     """wo projection (+ bias), attention residual, ln2 (parallel or
     sequential residual), MLP residual (``mlp`` for a block with an
     ``"mlp"`` feed-forward); post-norm: ``ln1(x + o)``, then ``ln2`` of
-    the MLP's residual sum.  ``attn: [b, g, nh*hd]``."""
+    the MLP's residual sum.  ``attn: [b, g, nh*hd]``.  Under a bound
+    ``tp`` axis ``wo`` is row-parallel: the lanes' partial outputs sum at
+    the region's exit, and ``bo`` is added once after it."""
     attn = attn.to(x.dtype)
     o = attn @ _w(cfg, p, "wo")
     if "lora" in p:
         o = o + _lora_delta(cfg, p["lora"], attn, "oa", "ob")
+    if tp is not None:
+        o = psum_value(o, tp.name)
     if "bo" in p:
         o = o + p["bo"]
     if cfg.norm_position == "post":
         x = _block_norm(cfg, p, "ln1", x + o)
-        return _block_norm(cfg, p, "ln2", x + _mlp_out(cfg, p, x, mlp))
+        return _block_norm(cfg, p, "ln2", x + _mlp_out(cfg, p, x, mlp, tp))
     h = _block_norm(cfg, p, "ln2", x if cfg.parallel_residual else x + o)
-    return x + o + _mlp_out(cfg, p, h, mlp)
+    return x + o + _mlp_out(cfg, p, h, mlp, tp)
 
 
 # --------------------------------------------------------------------- #
@@ -420,10 +462,9 @@ def _is_packed_act(x: Any) -> bool:
 
 
 def _refuse_packed_sp(cfg: TransformerConfig, what: str) -> None:
-    """The reference's refusal of a packed batch under a sequence-parallel
-    axis (``sp_axis`` is not ported: a config that names one is refused
-    at construction, so this guards a config swapped in afterwards)."""
-    if cfg.sp_axis is not None:
+    """The reference's refusal of a packed batch under a bound
+    sequence-parallel axis."""
+    if axis_bound(cfg.sp_axis) is not None:
         raise ValueError(
             f"{what} do not compose with a bound sequence-parallel axis; "
             "drop cfg.sp_axis for packed training"
@@ -487,6 +528,110 @@ class _Layer(nn.Module):
         return p
 
 
+def _vocab_meta(cfg: TransformerConfig, table_spec: dict) -> dict:
+    """The vocab-parallel embedding's and head's ``meta``: their tp axis,
+    the param sharding (under a tp axis) and the vocab divisibility check."""
+    tp = cfg.tp_axis
+
+    def validate_mesh(mesh: Any) -> None:
+        if tp is None or tp not in mesh.axis_names:
+            return
+        size = mesh.shape[tp]
+        if cfg.vocab % size != 0:
+            raise ValueError(
+                f"vocab={cfg.vocab} is not divisible by the tp mesh axis "
+                f"size {size}; the vocab-parallel embedding/head shard the "
+                "vocabulary dimension across tp lanes"
+            )
+
+    meta = {"tp_axis": tp, "validate_mesh": validate_mesh}
+    if tp is not None:
+        meta["param_specs"] = table_spec
+    return meta
+
+
+def _block_meta(cfg: TransformerConfig, mlp: Optional[nn.Module]) -> dict:
+    """The block's ``meta``, the reference's: the sp/tp axes it collects
+    over, ``validate_mesh`` (tp must divide the head and hidden counts;
+    the ring refuses a window; Ulysses needs the local head counts
+    divisible by sp) and, when anything is sharded, ``param_specs``:
+    column-parallel projections over tp on their output dim, row-parallel
+    ones on their input dim, per-hidden biases with their hidden dim."""
+    from torchgpipe_tpu_torch.spmd import P
+
+    tp, nh, nkv, hidden = cfg.tp_axis, cfg.n_heads, cfg.kv_heads, cfg.mlp_hidden
+    mlp_meta = getattr(mlp, "meta", None)
+    mlp_meta = mlp_meta if isinstance(mlp_meta, dict) else {}
+
+    def validate_mesh(mesh: Any) -> None:
+        if tp is not None and tp in mesh.axis_names:
+            size = mesh.shape[tp]
+            checks = [("n_heads", nh), ("kv_heads", nkv)]
+            if mlp is None:
+                checks.append(("mlp_hidden", hidden))
+            for what, count in checks:
+                if count % size != 0:
+                    raise ValueError(
+                        f"{what}={count} is not divisible by the tp mesh "
+                        f"axis size {size}; tensor parallelism shards whole "
+                        "heads / hidden units across lanes"
+                    )
+        sp_on = cfg.sp_axis is not None and cfg.sp_axis in mesh.axis_names
+        if cfg.attn_window is not None and cfg.sp_impl == "ring" and sp_on:
+            raise ValueError(
+                "attn_window does not compose with sp_impl='ring' (the "
+                "ring would need per-step band skipping); use "
+                "sp_impl='ulysses' — its local full-sequence attention "
+                "windows exactly — or drop the sp axis"
+            )
+        if cfg.sp_impl == "ulysses" and sp_on:
+            sp_size = mesh.shape[cfg.sp_axis]
+            tp_size = mesh.shape[tp] if tp is not None and tp in mesh.axis_names else 1
+            for what, count in (("n_heads", nh), ("kv_heads", nkv)):
+                if (count // tp_size) % sp_size != 0:
+                    raise ValueError(
+                        f"sp_impl='ulysses' shards attention heads: local "
+                        f"{what} ({count}//tp={count // tp_size}) must be "
+                        f"divisible by the {cfg.sp_axis!r} axis size "
+                        f"({sp_size}); use sp_impl='ring' for this head "
+                        "count"
+                    )
+        if "validate_mesh" in mlp_meta:
+            mlp_meta["validate_mesh"](mesh)
+
+    mlp_specs = mlp_meta.get("param_specs")
+    specs: Optional[dict] = None
+    if tp is not None or mlp_specs is not None:
+        col, row = (P(), P()) if tp is None else (P(None, tp), P(tp, None))
+        specs = {"ln1": P(), "wq": col, "wk": col, "wv": col, "wo": row, "ln2": P()}
+        if cfg.norm == "layernorm":
+            specs.update(ln1b=P(), ln2b=P())
+        if cfg.attn_out_bias:
+            specs["bo"] = P()          # per-dim, added after the lanes' sum
+        if cfg.attn_bias:
+            bias = P() if tp is None else P(tp)
+            specs.update(bq=bias, bk=bias, bv=bias)
+        if cfg.qk_norm:
+            specs.update(qn=P(), kn=P())
+        if cfg.lora_rank:
+            specs["lora"] = {"qa": P(), "qb": P(None, tp), "ka": P(), "kb": P(None, tp),
+                             "va": P(), "vb": P(None, tp),
+                             "oa": P(tp, None) if tp is not None else P(), "ob": P()}
+        if mlp is None and cfg.mlp_impl == "classic":
+            specs.update(w_fc=P(None, tp), b_fc=P() if tp is None else P(tp),
+                         w_proj=P(tp, None), b_proj=P())
+        elif mlp is None:
+            specs.update(w_gate=P(None, tp), w_up=P(None, tp), w_down=P(tp, None))
+        else:
+            specs["mlp"] = mlp_specs if mlp_specs is not None else P()
+    meta = {"kind": "transformer_block", "sp_axis": cfg.sp_axis, "tp_axis": tp,
+            "validate_mesh": validate_mesh, "param_specs": specs}
+    for key in ("ep_axis", "moe", "balance_weight"):
+        if key in mlp_meta:
+            meta[key] = mlp_meta[key]
+    return meta
+
+
 class LoRA(_Layer):
     """A block's adapters: ``A`` (``qa``/``ka``/``va``/``oa``) and ``B``
     (``qb``/``kb``/``vb``/``ob``) factors on the q/k/v/o projections, in
@@ -515,7 +660,10 @@ class LoRA(_Layer):
 class TokenEmbedding(_Layer):
     """Token lookup ``table[tokens]`` with optional ``embed_scale``, the
     learned position table ``pos`` (``pos_emb='learned'``) and the
-    embedding LayerNorm ``eln``/``elnb`` (``embed_layernorm``)."""
+    embedding LayerNorm ``eln``/``elnb`` (``embed_layernorm``).  Under a
+    bound ``cfg.tp_axis`` the table is vocab-parallel (each lane holds
+    ``vocab/tp`` rows); under a bound ``cfg.sp_axis`` a shard reads the
+    position rows of its global positions."""
 
     def __init__(self, cfg: TransformerConfig, *, device: Device = None):
         super().__init__()
@@ -528,6 +676,14 @@ class TokenEmbedding(_Layer):
         if cfg.embed_layernorm:
             self.eln = _param((cfg.dim,), torch.float32, dev)
             self.elnb = _param((cfg.dim,), torch.float32, dev)
+        from torchgpipe_tpu_torch.spmd import P
+
+        spec = {"table": P(cfg.tp_axis)}
+        if cfg.pos_emb == "learned":
+            spec["pos"] = P()
+        if cfg.embed_layernorm:
+            spec.update(eln=P(), elnb=P())
+        self.meta = _vocab_meta(cfg, spec)
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
@@ -564,9 +720,13 @@ class TokenEmbedding(_Layer):
     def forward(self, tokens: Any) -> Any:
         """Token ids ``[b, s]`` to ``[b, s, dim]``; a packed batch dict to
         the packed activation ``(hidden, segment_ids, positions)``."""
+        tp = axis_bound(self.cfg.tp_axis)
         if not _is_packed_batch(tokens):
-            self._check_len(tokens.shape[-1], False)
-            return _embed(self.cfg, self.params(), tokens)
+            sp = axis_bound(self.cfg.sp_axis)
+            if sp is None:
+                self._check_len(tokens.shape[-1], False)
+            pos0 = 0 if sp is None else sp.index * tokens.shape[-1]
+            return _embed(self.cfg, self.params(), tokens, pos0, tp)
         seg, pos = tokens["segment_ids"], tokens.get("positions")
         if pos is None:
             raise ValueError(
@@ -577,7 +737,7 @@ class TokenEmbedding(_Layer):
         _refuse_packed_sp(self.cfg, "packed batches")
         ids = tokens["tokens"]
         self._check_len(ids.shape[-1], True)
-        return _embed(self.cfg, self.params(), ids, pos), seg, pos
+        return _embed(self.cfg, self.params(), ids, pos, tp), seg, pos
 
 
 class TransformerBlock(_Layer):
@@ -643,6 +803,7 @@ class TransformerBlock(_Layer):
             self.lora = LoRA(cfg, dev)
         if mlp is not None:
             self.mlp = mlp
+        self.meta = _block_meta(cfg, mlp)
 
     def params(self) -> dict:
         """The reference's param dict: the block's own leaves, the
@@ -678,7 +839,12 @@ class TransformerBlock(_Layer):
 
     def forward(self, x: Any) -> Any:
         """``[b, s, dim]``, or the packed ``(hidden, seg, pos)`` (rotary
-        at ``pos``, attention through :func:`segment_attention`)."""
+        at ``pos``, attention through :func:`segment_attention`).  Under a
+        bound ``cfg.sp_axis`` (inside ``SpmdGPipe``) ``x`` is this lane's
+        sequence shard: rotary at its global positions, attention by
+        ``cfg.sp_impl`` (the ring or Ulysses); under a bound
+        ``cfg.tp_axis`` the weights are this lane's heads and hidden units
+        (Megatron regions, ``parallel.tensor``)."""
         refuse_quantized(self, "this transformer block")
         cfg, p = self.cfg, self.params()
         packed = _is_packed_act(x)
@@ -686,14 +852,20 @@ class TransformerBlock(_Layer):
             _refuse_packed_sp(cfg, "packed batches (segment_ids)")
             x, seg, pos = x
         b, s, _ = x.shape
-        q, k, v = _block_qkv(cfg, p, x, pos if packed else 0)
+        sp, tp = axis_bound(cfg.sp_axis), axis_bound(cfg.tp_axis)
+        if not packed:
+            pos = 0 if sp is None else sp.index * s
+        q, k, v = _block_qkv(cfg, p, x, pos, tp)
         if packed:
             attn = segment_attention(q, k, v, seg, causal=cfg.causal,
                                      window=cfg.attn_window)
+        elif sp is not None:
+            attn = sp_attention(q, k, v, axis_name=cfg.sp_axis, causal=cfg.causal,
+                                impl=cfg.sp_impl, window=cfg.attn_window)
         else:
             attn = attention(q, k, v, causal=cfg.causal, window=cfg.attn_window)
         mlp = None if "mlp" not in self._modules else (lambda _, h: self.mlp(h))
-        out = _block_attn_out(cfg, p, x, attn.reshape(b, s, -1), mlp)
+        out = _block_attn_out(cfg, p, x, attn.reshape(b, s, -1), mlp, tp)
         return (out, seg, pos) if packed else out
 
 
@@ -724,13 +896,21 @@ class LMHead(_Layer):
     config (``tie_embeddings``) has no ``w``: given ``table`` (the
     embedding's parameter), the head registers that same parameter and
     projects with its transpose, so its param dict is the reference's
-    spliced tied head ``{scale, [bias,] table}``."""
+    spliced tied head ``{scale, [bias,] table}``.
+
+    Under a bound ``cfg.tp_axis`` the projection is vocab-parallel (the
+    Megatron column-parallel output layer): with ``gather_logits`` the
+    lanes' logit shards are gathered into full ``[.., vocab]`` logits, so
+    any loss works; without, each lane keeps its ``[.., vocab/tp]`` shard
+    for :func:`vocab_parallel_cross_entropy` (1/tp of the logits' memory),
+    and ``SpmdGPipe.apply`` gathers them (``meta['out_gather']``)."""
 
     def __init__(self, cfg: TransformerConfig, *, device: Device = None,
-                 table: Optional[nn.Parameter] = None):
+                 table: Optional[nn.Parameter] = None, gather_logits: bool = True):
         super().__init__()
         cfg.check_ported()
         self.cfg = cfg
+        self.gather_logits = gather_logits
         dev = resolve_device(device)
         self.scale = _param((cfg.dim,), torch.float32, dev)
         if cfg.norm == "layernorm":
@@ -739,6 +919,14 @@ class LMHead(_Layer):
             self.w = _param((cfg.dim, cfg.vocab), cfg.dtype, dev)
         elif table is not None:
             self.table = table
+        from torchgpipe_tpu_torch.spmd import P
+
+        spec = {"scale": P(), "bias": P()} if cfg.norm == "layernorm" else {"scale": P()}
+        if not cfg.tie_embeddings:
+            spec["w"] = P(None, cfg.tp_axis)
+        self.meta = _vocab_meta(cfg, spec)
+        if cfg.tp_axis is not None and not gather_logits:
+            self.meta["out_gather"] = (cfg.tp_axis, -1)
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
@@ -758,7 +946,12 @@ class LMHead(_Layer):
         if _is_packed_act(x):
             x = x[0]   # logits come from the hidden plane
         p = self.params()
-        return _block_norm(self.cfg, p, "scale", x) @ _head_w(self.cfg, p)
+        h = _block_norm(self.cfg, p, "scale", x)
+        tp = axis_bound(self.cfg.tp_axis)
+        if tp is None:
+            return h @ _head_w(self.cfg, p)
+        logits = psum_grad(h, tp.name) @ _head_w(self.cfg, p)      # [.., vocab/tp]
+        return all_gather_value(logits, tp.name, -1) if self.gather_logits else logits
 
 
 class ChunkedLMLoss(LMHead):
@@ -775,8 +968,19 @@ class ChunkedLMLoss(LMHead):
 
     def __init__(self, cfg: TransformerConfig, *, chunk: int = 8192,
                  device: Device = None):
+        if cfg.tie_embeddings and cfg.tp_axis is not None:
+            raise ValueError(
+                "chunked_lm_loss cannot tie to a vocab-parallel embedding: "
+                "the tp-sharded table would hand this loss a [vocab/tp, dim] "
+                "local shard while the labels index the GLOBAL vocabulary — "
+                "the loss would silently normalize over 1/tp of the "
+                "vocabulary.  Use vocab_parallel_cross_entropy with "
+                "lm_head(gather_logits=False) for tp models, or untie"
+            )
         super().__init__(cfg, device=device)
         self.chunk = chunk
+        # Local head weights only, as the reference's: no vocab sharding.
+        self.meta = {}
 
     def row_loss(self, y: Any, labels: Any) -> torch.Tensor:
         """``[b]`` per-row losses: each row's token mean, or its
@@ -865,6 +1069,31 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return -ll.mean()
 
 
+def vocab_parallel_cross_entropy(axis: Optional[str]) -> Callable:
+    """Cross-entropy over vocab-sharded logits (``LMHead(gather_logits=
+    False)``), the reference's: the full-vocabulary log-sum-exp and the
+    target logit are assembled with tp collectives, so no lane holds full
+    logits (Megatron's parallel cross-entropy).  Returns ``loss_fn(
+    local_logits, labels)``; with ``axis`` unbound it is
+    :func:`cross_entropy`."""
+
+    def loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        ax = axis_bound(axis)
+        if ax is None:
+            return cross_entropy(logits, labels)
+        logits = logits.float()
+        # The max's gradient contribution cancels: a constant shift.
+        m = pmax_stop(logits.amax(-1), axis)
+        se = psum_value(torch.exp(logits - m[..., None]).sum(-1), axis)
+        z = torch.log(se) + m
+        idx, in_range = _local_vocab_ids(labels.long(), ax, logits.shape[-1])
+        tl = logits.gather(-1, idx[..., None])[..., 0]
+        tl = psum_value(torch.where(in_range, tl, 0.0), axis)
+        return (z - tl).mean()
+
+    return loss
+
+
 def _packed_token_nll(logits: Any, target: Any) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-position negative log-likelihood and its real-token weights
     for the packed/padded target ``{"labels", "weights"}``."""
@@ -926,9 +1155,10 @@ def transformer_block(
 def lm_head(
     cfg: TransformerConfig, *, device: Device = None,
     generator: Optional[torch.Generator] = None,
-    table: Optional[nn.Parameter] = None,
+    table: Optional[nn.Parameter] = None, gather_logits: bool = True,
 ) -> LMHead:
-    return _init(LMHead(cfg, device=device, table=table), generator)
+    return _init(LMHead(cfg, device=device, table=table, gather_logits=gather_logits),
+                 generator)
 
 
 def llama(
@@ -972,16 +1202,15 @@ def llama_spmd(
     engine draws and holds the parameters (``SpmdGPipe.init``).  Under
     ``tie_embeddings`` the head holds the embedding's ``table`` and names
     it in ``tie_pre``: the engine splices the embedding's into the head,
-    so the tied gradient sums into the embedding's.  ``gather_logits=
-    False`` (vocab-sharded logits under tensor parallelism) is queue A
-    item 5.4."""
+    so the tied gradient sums into the embedding's.  Under
+    ``cfg.tp_axis`` the embedding and the head are vocab-parallel; pass
+    ``gather_logits=False`` (with ``loss_fn=vocab_parallel_cross_entropy(
+    cfg.tp_axis)``) to keep the logits vocab-sharded through the loss,
+    1/tp of the logits' memory."""
     if cfg.n_layers % n_stages != 0:
         raise ValueError(
             f"n_layers={cfg.n_layers} must divide evenly into {n_stages} stages"
         )
-    if not gather_logits:
-        raise not_ported("llama_spmd(gather_logits=False) (vocab-parallel logits)",
-                         "5.4")
     dev = resolve_device(device)
     per = cfg.n_layers // n_stages
     block = nn.Sequential(*[TransformerBlock(cfg, device=dev) for _ in range(per)])
@@ -990,7 +1219,8 @@ def llama_spmd(
         layer.name = f"b{i}"
     pre = TokenEmbedding(cfg, device=dev)
     pre.name = "embed"
-    post = LMHead(cfg, device=dev, table=pre.table if cfg.tie_embeddings else None)
+    post = LMHead(cfg, device=dev, table=pre.table if cfg.tie_embeddings else None,
+                  gather_logits=gather_logits)
     post.name = "head"
     if cfg.tie_embeddings:
         post.tie_pre = ("table",)

@@ -22,7 +22,7 @@ numpy arrays (or anything ``np.asarray`` takes), flattened to the names
 keys, ``[0]`` for sequence items, dict keys in sorted order.  This module
 computes those names itself; it imports no JAX.
 
-Not ported (each raises, ROADMAP.md queue A item 5): the orbax
+Not ported (each raises, ROADMAP.md queue A item 5.4, sub-slice e): the orbax
 ``sharded=True`` backend, and more than one process (the reference
 fences its filesystem surgery with cross-process barriers).
 """

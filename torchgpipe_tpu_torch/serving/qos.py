@@ -28,7 +28,7 @@ a slot, never a shape):
   BITWISE what an unpreempted run emits (``tests/test_torch_qos.py``).
 
 One :class:`QosPolicy` instance serves a whole fleet of engines (the
-fleet itself is not ported yet, ROADMAP.md queue A item 5): build it on
+replicas behind a ``fleet.Router``): build it on
 the SHARED base registry and pass the same object to every engine (a
 per-replica labeled view would split a tenant's spend into per-replica
 series that cannot be summed back by the read path).

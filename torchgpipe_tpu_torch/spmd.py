@@ -1,6 +1,6 @@
 """The SPMD pipeline engine over ``torch.distributed``: one process per mesh
-position, pipeline parallelism (``pp``) composed with data parallelism
-(``dp``).
+position, pipeline parallelism (``pp``) composed with data (``dp``),
+sequence (``sp``) and tensor (``tp``) parallelism.
 
 Counterpart of ``torchgpipe_tpu/spmd.py``.  The reference expresses the
 whole GPipe schedule as one ``shard_map``-ped program over a
@@ -8,33 +8,44 @@ whole GPipe schedule as one ``shard_map``-ped program over a
 ``psum``.  In PyTorch's idiom the same engine is one process per mesh
 position:
 
-* :func:`make_mesh` gives this process its ``(pp, dp)`` coordinates
-  (``pp`` outermost, as the reference's axis order) and one process group
-  per axis;
+* :func:`make_mesh` gives this process its coordinates on ``('pp',
+  'dp'[, 'sp'][, 'tp'])`` (``pp`` outermost, ``tp`` innermost, as the
+  reference's axis order) and one process group per set of axes;
 * each process holds its stage's slice of the stacked ``[n_stages, ...]``
-  block parameters and the replicated ``pre``/``post`` (embedding / head)
-  parameters (:meth:`SpmdGPipe.init`, :meth:`~SpmdGPipe.place`);
+  block parameters and the ``pre``/``post`` (embedding / head)
+  parameters, every leaf that a layer's ``meta['param_specs']`` shards
+  over ``tp`` cut to its lane's slice (:meth:`SpmdGPipe.init`,
+  :meth:`~SpmdGPipe.place`);
 * activations go to the next ``pp`` rank and their gradients to the
   previous one by point-to-point ``isend``/``recv``;
-* ``pre``/``post`` gradients are summed over ``pp`` and every gradient is
-  averaged over ``dp`` by ``all_reduce`` (the pre/post ones in one
-  reduction over every rank), as the reference's ``psum`` and ``pmean``
-  do.
+* the batch is split over ``dp`` on its rows and over ``sp`` on its
+  sequence; the engine binds its ``tp`` and ``sp`` axes around each step
+  (``parallel.axes``), and the layers run their collectives over them:
+  Megatron's all-reduces (``parallel.tensor``), the ring or Ulysses
+  (``parallel.ring_attention``, ``parallel.ulysses``);
+* ``pre``/``post`` gradients are summed over ``pp``, every gradient is
+  averaged over ``dp`` and averaged (or, for a summed loss, summed) over
+  ``sp`` by ``all_reduce`` (the pre/post ones in one reduction over the
+  rank's pp x dp x sp group), as the reference's ``psum`` and ``pmean``
+  do; never over ``tp``, whose sharded leaves differ from lane to lane.
 
 The backend is the caller's: ``nccl`` where each rank has a card of its
 own, or ``gloo``, which stages every transfer through host memory (ranks
 sharing one card, which NCCL does not take).  All compute stays on each
-rank's device; the host staging is counted (:attr:`Mesh.staged_bytes`).
+rank's device; the host staging is counted (:attr:`Mesh.staged_bytes`,
+by kind in :attr:`Mesh.staged_by`).
 
 Schedules: ``'fill_drain'`` (GPipe) and ``'1f1b'`` (PipeDream-flush,
 ordered by the reference's closed-form tick table :func:`fwd_tick` /
-:func:`bwd_tick`).  Checkpoint modes ``'always'``, ``'except_last'`` and
-``'never'`` follow the port's :mod:`~torchgpipe_tpu_torch.checkpoint`: a
-checkpointed cell runs its forward without a graph, keeping its input,
-and recomputes in its backward.  Under a row-decomposable loss
-(``loss_reduction`` ``'mean'``/``'sum'``) the fill-drain head and loss are
-sharded over ``pp`` (each stage runs them on 1/n of the batch), and
-ragged batches are edge-padded and masked out exactly.
+:func:`bwd_tick`; not with ``sp``, as in the reference).  Checkpoint
+modes ``'always'``, ``'except_last'`` and ``'never'`` follow the port's
+:mod:`~torchgpipe_tpu_torch.checkpoint`: a checkpointed cell runs its
+forward without a graph, keeping its input, and recomputes in its
+backward (its tp all-reduces and ring transfers with it, in the same
+order on every lane).  Under a row-decomposable loss (``loss_reduction``
+``'mean'``/``'sum'``) the fill-drain head and loss are sharded over
+``pp`` (each stage runs them on 1/n of the batch), and ragged batches
+are edge-padded and masked out exactly.
 
 Parameters are trees in the reference's layout (``{"pre", "blocks",
 "post"}``; an ``nn.Sequential`` as a tuple of its children's trees, a
@@ -43,14 +54,15 @@ leaves; the engine runs a layer on a tree through
 ``torch.func.functional_call``.
 
 Not ported yet, raising ``NotImplementedError`` that names ROADMAP.md
-queue A item 5.4 and its sub-slice: tensor and sequence parallelism (b),
-FSDP / ZeRO (c), the interleaved and zero-bubble schedules (d), expert
-parallelism, ``rng=``, megasteps, tracing and the fault hooks (e);
-``remat_policy`` is item 2 (A.2.12).
+queue A item 5.4 and its sub-slice: FSDP / ZeRO (c), the interleaved and
+zero-bubble schedules (d), expert parallelism, ``rng=``, megasteps,
+tracing and the fault hooks (e); ``remat_policy`` is item 2 (A.2.12).
 """
 
 from __future__ import annotations
 
+import itertools
+import math
 import os
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
@@ -63,6 +75,7 @@ from torchgpipe_tpu_torch import checkpoint as _ckpt
 from torchgpipe_tpu_torch import microbatch
 from torchgpipe_tpu_torch.auxgrad import aux_scale
 from torchgpipe_tpu_torch.models.transformer import not_ported
+from torchgpipe_tpu_torch.parallel.axes import axis_bound, bind_axes
 from torchgpipe_tpu_torch.skip.layout import pop_keys, stash_keys
 
 Pytree = Any
@@ -280,29 +293,55 @@ def _call(module: nn.Module, names: Pytree, tree: Pytree, *args: Any) -> Any:
 _DTYPES = [torch.float32, torch.bfloat16, torch.float16, torch.float64,
            torch.int64, torch.int32, torch.int8, torch.uint8, torch.bool]
 _HEADER = 8   # dtype code, ndim, up to 6 dims
+# message tags: kind * _TAG + micro-batch (or leaf); the sequence-parallel
+# ring and all-to-all own kinds of their own, apart from the pp hand-offs
+_TAG = 1 << 16
+_ACT, _GRAD, _SLICE, _SLICE_GRAD, _GATHER, _RING, _A2A = 1, 2, 3, 4, 5, 6, 7
+
+
+def _rank_at(shape: Mapping[str, int], at: Mapping[str, int]) -> int:
+    """The global rank at coordinates ``at``: row-major over ``shape``'s
+    axes in their order."""
+    r = 0
+    for name, size in shape.items():
+        r = r * size + at[name]
+    return r
+
+
+def _coords_at(shape: Mapping[str, int], rank: int) -> Dict[str, int]:
+    """The inverse of :func:`_rank_at`."""
+    out = {}
+    for name in reversed(tuple(shape)):
+        rank, out[name] = divmod(rank, shape[name])
+    return {name: out[name] for name in shape}
 
 
 class Mesh:
-    """This process's place in a ``('pp', 'dp')`` mesh of processes:
-    ``axis_names``, ``shape`` (axis -> size), ``coords`` (axis -> this
-    rank's index), ``groups`` (axis -> the process group of the ranks that
-    differ from this one only along it), ``device`` and ``backend``.
-    Global rank ``r`` sits at ``pp = r // dp``, ``dp = r % dp``.
+    """This process's place in a ``('pp', 'dp'[, 'sp'][, 'tp'])`` mesh of
+    processes: ``axis_names``, ``shape`` (axis -> size), ``coords`` (axis
+    -> this rank's index), ``device`` and ``backend``.  Global ranks are
+    numbered row-major over the axes in that order (``tp`` innermost), as
+    the reference lays its device array out.  :meth:`group` is the process
+    group of the ranks that differ from this one only along some axes
+    (one per non-trivial set of axes, made by :func:`make_mesh`).
 
     The transfers below stage through host memory when the backend is
     ``gloo`` and the device a card; ``staged_bytes`` counts the bytes
-    copied between the device and the host for them."""
+    copied between the device and the host for them, and ``staged_by``
+    the same bytes by kind (``'grads'``, ``'pp'``, ``'tp'``, ``'sp'`` ...:
+    what moved them)."""
 
-    def __init__(self, n_stages: int, dp: int, device: torch.device, backend: str,
-                 groups: Dict[str, Any]):
-        self.axis_names = ("pp", "dp")
-        self.shape = {"pp": n_stages, "dp": dp}
+    def __init__(self, shape: Mapping[str, int], device: torch.device, backend: str,
+                 groups: Dict[Tuple[str, ...], Any]):
+        self.axis_names = tuple(shape)
+        self.shape = dict(shape)
         self.rank = dist.get_rank()
-        self.coords = {"pp": self.rank // dp, "dp": self.rank % dp}
+        self.coords = _coords_at(self.shape, self.rank)
         self.groups = groups
         self.device = device
         self.backend = backend
         self.staged_bytes = 0
+        self.staged_by: Dict[str, int] = {}
         self._pending: List[Tuple[Any, torch.Tensor]] = []
         # Pinned host buffers of the reductions, by shape and dtype, reused
         # step after step (a copy to or from pinned memory runs at the
@@ -313,23 +352,52 @@ class Mesh:
         return (f"Mesh(shape={self.shape}, coords={self.coords}, "
                 f"device={self.device}, backend={self.backend!r})")
 
-    def rank_of(self, pp: int, dp: int) -> int:
-        return pp * self.shape["dp"] + dp
+    def rank_of(self, pp: Optional[int] = None, dp: Optional[int] = None,
+                **others: int) -> int:
+        """The global rank at these coordinates; an axis not given keeps
+        this rank's."""
+        at = dict(self.coords, **others)
+        if pp is not None:
+            at["pp"] = pp
+        if dp is not None:
+            at["dp"] = dp
+        return _rank_at(self.shape, at)
+
+    def _axes(self, axis: Union[None, str, Sequence[str]]) -> Tuple[str, ...]:
+        if axis is None:
+            return self.axis_names
+        names = (axis,) if isinstance(axis, str) else tuple(axis)
+        return tuple(a for a in self.axis_names if a in names)
+
+    def size(self, axis: Union[None, str, Sequence[str]]) -> int:
+        n = 1
+        for a in self._axes(axis):
+            n *= self.shape[a]
+        return n
+
+    def group(self, axis: Union[None, str, Sequence[str]]) -> Any:
+        """The process group along ``axis`` (a name, names, or None: every
+        axis); None when it holds this rank alone."""
+        return self.groups.get(self._axes(axis))
 
     @property
     def staged(self) -> bool:
         return self.backend == "gloo" and self.device.type != "cpu"
 
-    def _host(self, t: torch.Tensor) -> torch.Tensor:
+    def _count(self, nbytes: int, kind: str) -> None:
+        self.staged_bytes += nbytes
+        self.staged_by[kind] = self.staged_by.get(kind, 0) + nbytes
+
+    def _host(self, t: torch.Tensor, kind: str = "pp") -> torch.Tensor:
         if not self.staged:
             return t.contiguous()
-        self.staged_bytes += t.numel() * t.element_size()
+        self._count(t.numel() * t.element_size(), kind)
         return t.detach().to("cpu").contiguous()
 
-    def _back(self, t: torch.Tensor) -> torch.Tensor:
+    def _back(self, t: torch.Tensor, kind: str = "pp") -> torch.Tensor:
         if not self.staged:
             return t
-        self.staged_bytes += t.numel() * t.element_size()
+        self._count(t.numel() * t.element_size(), kind)
         return t.to(self.device)
 
     def send(self, t: torch.Tensor, dst: int, tag: int) -> None:
@@ -361,13 +429,14 @@ class Mesh:
             work.wait()
         self._pending.clear()
 
-    def all_reduce(self, t: torch.Tensor, axis: Optional[str],
-                   scale: float = 1.0) -> torch.Tensor:
-        """The sum of ``t`` over ``axis`` (None: every rank of the mesh)
-        times ``scale``, in ``t``'s dtype (a bf16 gradient is summed in
-        bf16, half the bytes of a float32 sum through the host)."""
-        size = self.shape["pp"] * self.shape["dp"] if axis is None else self.shape[axis]
-        if size == 1:
+    def all_reduce(self, t: torch.Tensor, axis: Union[None, str, Sequence[str]],
+                   scale: float = 1.0, *, op: str = "sum",
+                   kind: str = "grads") -> torch.Tensor:
+        """The sum (``op='max'``: the maximum) of ``t`` over ``axis`` (a
+        name, names, or None: every rank of the mesh) times ``scale``, in
+        ``t``'s dtype (a bf16 gradient is summed in bf16, half the bytes of
+        a float32 sum through the host)."""
+        if self.size(axis) == 1:
             return t if scale == 1.0 else t * scale
         if self.staged:
             key = (tuple(t.shape), t.dtype)
@@ -376,10 +445,11 @@ class Mesh:
                 buf = self._pinned[key] = torch.empty(t.shape, dtype=t.dtype,
                                                       pin_memory=True)
             buf.copy_(t.detach())
-            self.staged_bytes += 2 * t.numel() * t.element_size()
+            self._count(2 * t.numel() * t.element_size(), kind)
         else:
             buf = t.detach().clone()
-        dist.all_reduce(buf, group=None if axis is None else self.groups[axis])
+        dist.all_reduce(buf, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                        group=self.group(axis))
         if scale != 1.0:
             buf.mul_(scale)
         return buf.to(self.device) if self.staged else buf
@@ -390,21 +460,62 @@ class Mesh:
         if self.shape[axis] == 1:
             return t
         objs = [None if t is None else (tuple(t.shape), t.dtype)]
-        dist.broadcast_object_list(objs, src=src, group=self.groups[axis])
+        dist.broadcast_object_list(objs, src=src, group=self.group(axis))
         shape, dtype = objs[0]
         dev = "cpu" if self.staged else self.device
         buf = self._host(t) if self.rank == src else torch.empty(shape, dtype=dtype, device=dev)
-        dist.broadcast(buf, src=src, group=self.groups[axis])
+        dist.broadcast(buf, src=src, group=self.group(axis))
         return buf.to(self.device) if self.rank == src else self._back(buf)
 
-    def all_gather(self, t: torch.Tensor, axis: str) -> List[torch.Tensor]:
+    def all_gather(self, t: torch.Tensor, axis: str, kind: str = "pp") -> List[torch.Tensor]:
         """Every rank's ``t`` along ``axis``, in axis order."""
         if self.shape[axis] == 1:
             return [t]
-        buf = self._host(t)
+        buf = self._host(t, kind)
         out = [torch.empty_like(buf) for _ in range(self.shape[axis])]
-        dist.all_gather(out, buf, group=self.groups[axis])
-        return [self._back(o) for o in out]
+        dist.all_gather(out, buf, group=self.group(axis))
+        return [t if i == self.coords[axis] else self._back(o, kind)
+                for i, o in enumerate(out)]
+
+    def all_to_all(self, chunks: Sequence[torch.Tensor], axis: str,
+                   kind: str = "sp") -> List[torch.Tensor]:
+        """``chunks[p]`` to lane ``p`` of ``axis``; what each lane sent
+        this one, in lane order (every lane's chunks of one shape), by
+        point-to-point transfers."""
+        me, n = self.coords[axis], self.shape[axis]
+        out: List[Optional[torch.Tensor]] = [None] * n
+        out[me] = chunks[me]
+        works = []
+        for p in range(n):
+            if p != me:
+                buf = self._host(chunks[p].detach(), kind)
+                works.append((dist.isend(buf, self.rank_of(**{axis: p}), tag=_A2A * _TAG),
+                              buf))
+        dev = "cpu" if self.staged else self.device
+        for p in range(n):
+            if p != me:
+                buf = torch.empty(chunks[p].shape, dtype=chunks[p].dtype, device=dev)
+                dist.recv(buf, self.rank_of(**{axis: p}), tag=_A2A * _TAG)
+                out[p] = self._back(buf, kind)
+        for work, _ in works:
+            work.wait()
+        return out
+
+    def shift(self, t: torch.Tensor, axis: str, kind: str = "sp") -> torch.Tensor:
+        """Send ``t`` to the next lane of ``axis`` (a ring) and return what
+        the previous lane sent this one."""
+        me, n = self.coords[axis], self.shape[axis]
+        if n == 1:
+            return t
+        buf = self._host(t.detach(), kind)
+        work = dist.isend(buf, self.rank_of(**{axis: (me + 1) % n}), tag=_RING * _TAG)
+        got = torch.empty(t.shape, dtype=t.dtype, device="cpu" if self.staged else self.device)
+        dist.recv(got, self.rank_of(**{axis: (me - 1) % n}), tag=_RING * _TAG)
+        work.wait()
+        return self._back(got, kind)
+
+
+_AXIS_ORDER = ("pp", "dp", "sp", "tp")
 
 
 def make_mesh(
@@ -417,31 +528,33 @@ def make_mesh(
     backend: Optional[str] = None,
     device: Any = None,
 ) -> Mesh:
-    """This process's :class:`Mesh` over a ``('pp', 'dp')`` layout of
-    ``n_stages * dp`` processes, ``pp`` outermost as in the reference.
+    """This process's :class:`Mesh` over a ``('pp', 'dp'[, 'sp'][, 'tp'])``
+    layout of ``n_stages * dp * sp * tp`` processes: the reference's axis
+    order, ``tp`` innermost (its two all-reduces a block are the chattiest
+    traffic), then ``sp``, ``dp``, and ``pp`` outermost; ``sp`` and ``tp``
+    are left out at size 1, as the reference leaves them.
 
     ``torch.distributed`` must be initialised by the caller with that
     world size (``init_process_group(backend, init_method=..., rank=,
-    world_size=)``).  One process group per axis is made here (every rank
-    calls this, in the same order).  ``backend`` is the groups' backend
-    (default: the default group's); with ``gloo`` a card's transfers stage
-    through the host.  ``device`` defaults to the card (``cuda``, the local
-    rank — ``LOCAL_RANK``, else the global rank — modulo the device count);
-    it is the CPU only when asked.  ``sp``, ``tp`` and ``ep`` above 1 are
-    ROADMAP.md queue A item 5.4 (sub-slices b and e)."""
-    if sp > 1 or tp > 1:
-        raise not_ported("make_mesh(sp=, tp=) (sequence and tensor parallelism, "
-                         "A.5.4b)", "5.4")
+    world_size=)``).  One process group per set of axes is made here
+    (every rank calls this, in the same order).  ``backend`` is the groups'
+    backend (default: the default group's); with ``gloo`` a card's
+    transfers stage through the host.  ``device`` defaults to the card
+    (``cuda``, the local rank — ``LOCAL_RANK``, else the global rank —
+    modulo the device count); it is the CPU only when asked.  ``ep`` above
+    1 is ROADMAP.md queue A item 5.4 (sub-slice e)."""
     if ep > 1:
         raise not_ported("make_mesh(ep=) (expert parallelism, A.5.4e)", "5.4")
+    sizes = {"pp": n_stages, "dp": dp, "sp": sp, "tp": tp}
+    shape = {a: sizes[a] for a in _AXIS_ORDER if a in ("pp", "dp") or sizes[a] > 1}
+    need = n_stages * dp * sp * tp
     if not dist.is_available() or not dist.is_initialized():
         raise RuntimeError(
             "make_mesh needs torch.distributed initialised with world size "
-            f"n_stages * dp = {n_stages * dp} (one process per mesh position): "
+            f"n_stages * dp * sp * tp = {need} (one process per mesh position): "
             "call torch.distributed.init_process_group(backend, init_method="
             "'tcp://localhost:<port>', rank=, world_size=) first"
         )
-    need = n_stages * dp
     world = dist.get_world_size()
     if world != need:
         raise ValueError(f"need {need} devices, have {world} processes")
@@ -455,17 +568,23 @@ def make_mesh(
         local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
         device = torch.device("cuda", local % torch.cuda.device_count())
     device = torch.device(device)
-    rank = dist.get_rank()
-    groups: Dict[str, Any] = {}
-    for d in range(dp):   # pp groups: the ranks of one dp lane
-        g = dist.new_group([j * dp + d for j in range(n_stages)], backend=backend)
-        if rank % dp == d:
-            groups["pp"] = g
-    for j in range(n_stages):   # dp groups: the ranks of one stage
-        g = dist.new_group([j * dp + d for d in range(dp)], backend=backend)
-        if rank // dp == j:
-            groups["dp"] = g
-    return Mesh(n_stages, dp, device, backend, groups)
+    names = tuple(shape)
+    mine = _coords_at(shape, dist.get_rank())
+    groups: Dict[Tuple[str, ...], Any] = {}
+    # Every set of axes of more than one rank, in a fixed order: a group
+    # per assignment of the other axes' coordinates.
+    for k in range(1, len(names) + 1):
+        for axes in itertools.combinations(names, k):
+            if math.prod(shape[a] for a in axes) == 1:
+                continue
+            rest = [a for a in names if a not in axes]
+            for fixed in itertools.product(*(range(shape[a]) for a in rest)):
+                members = [_rank_at(shape, dict(zip(rest, fixed), **dict(zip(axes, free))))
+                           for free in itertools.product(*(range(shape[a]) for a in axes))]
+                g = dist.new_group(sorted(members), backend=backend)
+                if all(mine[a] == v for a, v in zip(rest, fixed)):
+                    groups[axes] = g
+    return Mesh(shape, device, backend, groups)
 
 
 # --------------------------------------------------------------------- #
@@ -496,9 +615,25 @@ def _pad_batch(tree: Pytree, pad: int) -> Pytree:
         lambda a: torch.cat([a, a[-1:].expand(pad, *a.shape[1:])], 0), tree)
 
 
-# message tags: kind * _TAG + micro-batch
-_TAG = 1 << 16
-_ACT, _GRAD, _SLICE, _SLICE_GRAD, _GATHER = 1, 2, 3, 4, 5
+
+
+def _assemble(spec: P, sizes: Mapping[str, int],
+              piece: Callable[[Dict[str, int]], torch.Tensor]) -> torch.Tensor:
+    """A global leaf from its shards: ``piece(coords)`` is the shard at
+    those coordinates of the axes ``spec`` names, concatenated along each
+    sharded dim in the row-major order of its axes."""
+    entries = [(dim, ax if isinstance(ax, tuple) else (ax,))
+               for dim, ax in enumerate(spec) if ax is not None]
+
+    def rec(i: int, at: Dict[str, int]) -> torch.Tensor:
+        if i == len(entries):
+            return piece(at)
+        dim, axes = entries[i]
+        return torch.cat([rec(i + 1, dict(at, **dict(zip(axes, combo))))
+                          for combo in itertools.product(*(range(sizes[a]) for a in axes))],
+                         dim)
+
+    return rec(0, {})
 
 
 class _Cell:
@@ -693,6 +828,11 @@ class SpmdGPipe:
                 "per block scan body) or 'use' (model per-use-site "
                 f"gathering), got {self.gather_schedule!r}"
             )
+        if self.sp_axis is not None and self.loss_reduction is None:
+            raise ValueError(
+                "sequence parallelism needs a batch/token-decomposable loss: "
+                "set loss_reduction='mean' or 'sum'"
+            )
         if self.schedule not in ("fill_drain", "1f1b", "interleaved", "zb"):
             raise ValueError(
                 "schedule must be 'fill_drain', '1f1b', 'interleaved' or 'zb'")
@@ -708,6 +848,22 @@ class SpmdGPipe:
                     "schedule='1f1b' hand-writes the per-cell recompute; "
                     "remat_policy does not apply (use schedule='fill_drain')"
                 )
+            if self.sp_axis is not None:
+                # The reference's reason (a collective permute inside a
+                # branch only some stages take) has a counterpart here: a
+                # recomputed cell reissues its ring transfers, and only
+                # fill-drain keeps every sp lane's cells in one order.
+                raise ValueError(
+                    "schedule='1f1b' does not compose with sequence "
+                    "parallelism: ring attention's sp ppermutes would sit "
+                    "inside the schedule's fwd/bwd conditional, whose "
+                    "branches only some pipeline stages execute on a given "
+                    "tick — collective-permute participation is global, so "
+                    "lanes in the other branch would never join (verified "
+                    "failure on the host backend).  psum-based tensor "
+                    "parallelism is fine (group-local all-reduce); use "
+                    "schedule='fill_drain' for sp"
+                )
         elif self.virtual_stages != 1 and self.schedule != "interleaved":
             raise ValueError("virtual_stages only applies to schedule='interleaved'")
         if self.remat_policy is not None and self.checkpoint == "never":
@@ -715,10 +871,30 @@ class SpmdGPipe:
                 "remat_policy only applies with checkpoint='always', "
                 "'except_last' or 'offload'"
             )
+        # Layers may declare mesh-validation hooks (the tensor-parallel
+        # block checks that the tp size divides its head counts: flat-dim
+        # divisibility alone would split a head across lanes).
+        for lyr in (self.block, self.pre, self.post):
+            if lyr is not None:
+                for validate in _declared_axes(lyr, "validate_mesh"):
+                    validate(self.mesh)
+        # Layers that collect over a sequence or tensor axis declare it; a
+        # mismatch with the engine's axes would silently compute
+        # shard-local attention or partial sums, so fail loudly instead.
+        for key, mine in (("sp_axis", self.sp_axis), ("tp_axis", self.tp_axis),
+                          ("ep_axis", self.ep_axis)):
+            declared = set()
+            for lyr in (self.block, self.pre, self.post):
+                if lyr is not None:
+                    declared.update(_declared_axes(lyr, key))
+            if declared and declared != {mine}:
+                raise ValueError(
+                    f"model layers declare {key} {sorted(map(str, declared))} "
+                    f"but the engine was given {key}={mine!r}; set "
+                    f"both from the same value (e.g. TransformerConfig.{key} "
+                    f"and SpmdGPipe.{key})"
+                )
         # What later sub-slices of ROADMAP.md A.5.4 bring.
-        if self.tp_axis is not None or self.sp_axis is not None:
-            raise not_ported("SpmdGPipe(tp_axis=, sp_axis=) (tensor and sequence "
-                             "parallelism, A.5.4b)", "5.4")
         if self.fsdp or self.zero_update:
             raise not_ported("SpmdGPipe(fsdp=, zero_update=) (ZeRO/FSDP, A.5.4c)", "5.4")
         if self.schedule in ("interleaved", "zb"):
@@ -737,9 +913,15 @@ class SpmdGPipe:
             raise not_ported("SpmdGPipe(tracer=, partition_rules=, hbm_budget_bytes=) "
                              "(the static-analysis and tracing layer, A.5.6)", "5.6")
         self._blocks_spec = layer_param_specs(self.block, self.pp_axis)
+        self._specs = {"blocks": self._blocks_spec}
+        for key, lyr in (("pre", self.pre), ("post", self.post), ("loss", loss_lyr)):
+            if lyr is not None:
+                self._specs[key] = layer_param_specs(lyr, None)
         self._stage = self.mesh.coords[self.pp_axis]
         self._lane = self.mesh.coords[self.dp_axis] if self.dp_axis else 0
         self._dp = self.mesh.shape[self.dp_axis] if self.dp_axis else 1
+        self._sp = self.mesh.shape[self.sp_axis] if self.sp_axis else 1
+        self._sp_lane = self.mesh.coords[self.sp_axis] if self.sp_axis else 0
         self._names = {
             "blocks": module_tree(self.block, lambda n, p: n),
             "pre": module_tree(self.pre, lambda n, p: n) if self.pre is not None else None,
@@ -826,17 +1008,31 @@ class SpmdGPipe:
     @torch.no_grad()
     def place(self, params: dict) -> dict:
         """This rank's part of a global params tree (blocks ``[n_stages,
-        ...]``) on its device: the stage's ``[1, ...]`` slice of the blocks
-        and the replicated pre/post/loss trees, as copies.  Keys the engine
-        owns no layout for pass through."""
+        ...]``) on its device, as copies: the stage's ``[1, ...]`` slice of
+        the blocks, every leaf that a layer's ``param_specs`` shards over
+        ``tp`` cut to this lane's slice along its partitioned dim, the rest
+        of pre/post/loss whole.  Keys the engine owns no layout for pass
+        through."""
         self._check_global(params)
-        j, dev = self._stage, self.mesh.device
         out = dict(params)
-        for key in ("pre", "post", "loss"):
-            if key in params:
-                out[key] = _tree_map(lambda a: a.to(dev, copy=True), params[key])
-        out["blocks"] = _tree_map(lambda a: a[j:j + 1].to(dev, copy=True), params["blocks"])
+        for key, _ in self._layers():
+            out[key] = _tree_map(self._shard, params[key],
+                                 broadcast_specs(self._specs[key], params[key]))
         return out
+
+    def _shard(self, a: torch.Tensor, spec: P) -> torch.Tensor:
+        """A contiguous copy on this rank's device of its slice of global
+        leaf ``a`` under ``spec`` (several axes on one dim: row-major)."""
+        for dim, ax in enumerate(spec):
+            if ax is None:
+                continue
+            idx, n = 0, 1
+            for name in (ax if isinstance(ax, tuple) else (ax,)):
+                idx, n = idx * self.mesh.shape[name] + self.mesh.coords[name], \
+                    n * self.mesh.shape[name]
+            per = a.shape[dim] // n
+            a = a.narrow(dim, idx * per, per)
+        return torch.empty(a.shape, dtype=a.dtype, device=self.mesh.device).copy_(a)
 
     def place_tree(self, tree: Pytree) -> Pytree:
         """Every tensor leaf of ``tree`` on this rank's device (optimizer
@@ -845,29 +1041,42 @@ class SpmdGPipe:
             lambda a: a.to(self.mesh.device) if isinstance(a, torch.Tensor) else a, tree)
 
     def gather(self, tree: dict) -> Optional[dict]:
-        """The global tree (blocks ``[n_stages, ...]``) of per-rank trees
-        (params or grads, as :meth:`place` and :meth:`train_step` give
-        them), assembled in host memory on global rank 0 from the ranks of
-        dp lane 0; None on every other rank.  For tests and checkpoints."""
-        mesh, n = self.mesh, self.n_stages
-        leaves = [a for _, a in _items(tree["blocks"])]
-        if mesh.rank == 0:
-            stages = [[a.detach().cpu() for a in leaves]]
-            for j in range(1, n):
-                src = mesh.rank_of(j, 0)
-                stages.append([mesh.recv(src, _GATHER * _TAG + k).cpu()
-                               for k in range(len(leaves))])
-            out = {k: _tree_map(lambda a: a.detach().cpu(), v)
-                   for k, v in tree.items() if k != "blocks"}
-            flat = [torch.cat(parts, 0) for parts in zip(*stages)]
-            paths = [p for p, _ in _items(tree["blocks"])]
-            out["blocks"] = self._rebuild(tree["blocks"], dict(zip(paths, flat)))
-            return out
-        if self._lane == 0:
-            for k, a in enumerate(leaves):
-                mesh.send(a, 0, _GATHER * _TAG + k)
+        """The global tree (blocks ``[n_stages, ...]``, tp-sharded leaves
+        whole) of per-rank trees (params or grads, as :meth:`place` and
+        :meth:`train_step` give them), assembled in host memory on global
+        rank 0 from the ranks of dp and sp lane 0; None on every other
+        rank.  For tests and checkpoints."""
+        mesh = self.mesh
+        keys = [k for k, _ in self._layers()]
+        leaves = [(key, path, a, spec) for key in keys
+                  for (path, a), (_, spec) in zip(
+                      _items(tree[key]), _items(broadcast_specs(self._specs[key], tree[key])))]
+
+        def axes_of(spec: P) -> List[str]:
+            return [n for ax in spec if ax is not None
+                    for n in (ax if isinstance(ax, tuple) else (ax,))]
+
+        if mesh.rank != 0:
+            for k, (_, _, a, spec) in enumerate(leaves):
+                mine = axes_of(spec)
+                if all(mesh.coords[n] == 0 for n in mesh.axis_names if n not in mine) \
+                        and any(mesh.coords[n] != 0 for n in mine):
+                    mesh.send(a, 0, _GATHER * _TAG + k)
             mesh.flush()
-        return None
+            return None
+        out = {k: v for k, v in tree.items() if k not in keys}
+        whole: Dict[str, Dict[tuple, torch.Tensor]] = {key: {} for key in keys}
+        for k, (key, path, a, spec) in enumerate(leaves):
+            def piece(at: Dict[str, int], a=a, k=k) -> torch.Tensor:
+                if not any(at.values()):
+                    return a.detach().cpu()
+                src = mesh.rank_of(**{n: at.get(n, 0) for n in mesh.axis_names})
+                return mesh.recv(src, _GATHER * _TAG + k).cpu()
+
+            whole[key][path] = _assemble(spec, mesh.shape, piece)
+        for key in keys:
+            out[key] = self._rebuild(tree[key], whole[key])
+        return out
 
     @staticmethod
     def _rebuild(tree: Pytree, by_path: Dict[tuple, Any], path: tuple = ()) -> Pytree:
@@ -939,8 +1148,9 @@ class SpmdGPipe:
     def _check_global(self, params: Any) -> None:
         self._check_structure(params)
         self._check_leading(params, self.n_stages, "(n_stages,)")
-        self._check_spec_shapes(params["blocks"], broadcast_specs(self._blocks_spec,
-                                                                  params["blocks"]))
+        for key, _ in self._layers():
+            self._check_spec_shapes(params[key], broadcast_specs(self._specs[key],
+                                                                 params[key]))
 
     def _check_params(self, params: Any) -> None:
         """Validation of this rank's params tree (:meth:`place`'s result)
@@ -1008,23 +1218,39 @@ class SpmdGPipe:
                 "the MPMD GPipe engine, whose scheduler runs ragged "
                 "micro-batches natively)"
             )
+        if self.sp_axis:
+            trees = [("input", x)] + ([("target", target)] if target is not None else [])
+            for what, tree in trees:
+                for leaf in _leaves(tree):
+                    if leaf.ndim < 2 or leaf.shape[1] % self._sp != 0:
+                        raise ValueError(
+                            f"sequence parallelism shards data dim 1 over "
+                            f"{self.sp_axis}={self._sp}; got {what} leaf shape "
+                            f"{tuple(leaf.shape)}"
+                        )
         return pad
 
     # ------------------------------------------------------------------ #
     # data layout                                                        #
     # ------------------------------------------------------------------ #
 
-    def _local_microbatches(self, tree: Pytree) -> List[Pytree]:
+    def _local_microbatches(self, tree: Pytree, seq: bool = True) -> List[Pytree]:
         """This dp lane's ``m`` micro-batches of a padded global batch:
         ``[B] -> [m, B/m]`` (micro-batch major), lane ``d`` keeping rows
-        ``[d*b, (d+1)*b)`` of each (``b = B / (m * dp)``), the reference's
-        data spec ``P(None, dp)``."""
+        ``[d*b, (d+1)*b)`` of each (``b = B / (m * dp)``), and, under an sp
+        axis (``seq``), sp lane ``r`` positions ``[r*s, (r+1)*s)`` of dim 1
+        (``s = S / sp``): the reference's data spec ``P(None, dp, sp)``."""
         m, dp, d = self.chunks, self._dp, self._lane
+        sp, r = (self._sp, self._sp_lane) if seq else (1, 0)
         dev = self.mesh.device
 
         def part(a, i):
             b = a.shape[0] // (m * dp)
-            return a.reshape(m, dp * b, *a.shape[1:])[i, d * b:(d + 1) * b].to(dev)
+            a = a.reshape(m, dp * b, *a.shape[1:])[i, d * b:(d + 1) * b]
+            if sp > 1:
+                s = a.shape[1] // sp
+                a = a[:, r * s:(r + 1) * s]
+            return a.to(dev)
 
         return [_tree_map(lambda a: part(a, i), tree) for i in range(m)]
 
@@ -1092,7 +1318,7 @@ class SpmdGPipe:
         """The scale turning a lane-local masked row-loss sum into a value
         whose dp mean is the global masked mean: dp over the real row
         count (summed over dp from the mask itself)."""
-        n_real = self.mesh.all_reduce(mask_local.sum().float(), self.dp_axis) \
+        n_real = self.mesh.all_reduce(mask_local.sum().float(), self.dp_axis, kind="loss") \
             if self.dp_axis else mask_local.sum().float()
         return self._dp / n_real
 
@@ -1335,7 +1561,7 @@ class SpmdGPipe:
             b_real = microbatch.batch_size(x)
             mask = torch.cat([torch.ones(b_real), torch.zeros(pad)])
             x, target = _pad_batch(x, pad), _pad_batch(target, pad)
-            mask_mb = self._local_microbatches(mask)
+            mask_mb = self._local_microbatches(mask, seq=False)
             if self.loss_reduction == "mean":
                 mean_scale = self._mask_mean_scale(torch.cat(mask_mb))
         x_mb = self._local_microbatches(x)
@@ -1344,27 +1570,46 @@ class SpmdGPipe:
         leaves = self._leaf_copy(params)
         run = self._one_f_one_b if self.schedule == "1f1b" else self._fill_drain
         try:
-            loss = run(leaves, x_mb, tgt_mb, mask_mb, mean_scale, stop)
+            with self._bound():
+                loss = run(leaves, x_mb, tgt_mb, mask_mb, mean_scale, stop)
         finally:
             self.mesh.flush()
         return self._reduce(loss, leaves)
 
+    def _bound(self) -> Any:
+        """The context binding this engine's tp and sp axes for the layers
+        it runs (:func:`~torchgpipe_tpu_torch.parallel.axes.axis_bound`);
+        their host staging counts under ``'tp'`` and ``'sp'``."""
+        return bind_axes(self.mesh, [self.tp_axis, self.sp_axis], ["tp", "sp"])
+
+    def _reduction(self) -> Tuple[Tuple[str, ...], Tuple[str, ...], float]:
+        """``(axes of the loss and the pre/post/loss gradients, axes of the
+        block gradients, scale)``: summed over pp, averaged over dp, and
+        over sp averaged (``loss_reduction='mean'``) or summed (``'sum'``),
+        the reference's psum / pmean.  Never over tp: a vocab-sharded
+        table's gradients differ from lane to lane, and a tp-replicated
+        leaf's are already equal on every lane."""
+        sp = tuple(a for a in (self.sp_axis,) if a)
+        blocks = tuple(a for a in (self.dp_axis,) if a) + sp
+        scale = 1.0 / self._dp
+        if sp and self.loss_reduction == "mean":
+            scale /= self._sp
+        return (self.pp_axis,) + blocks, blocks, scale
+
     def _reduce(self, loss: torch.Tensor, leaves: dict) -> Tuple[torch.Tensor, dict]:
-        """The loss and the pre/post/loss gradients summed over pp and
-        averaged over dp (one reduction over every rank), the block
-        gradients averaged over dp: the reference's psum / pmean."""
-        mesh, inv = self.mesh, 1.0 / self._dp
-        both = None if self.dp_axis else self.pp_axis   # pp and dp, or pp alone
-        loss = mesh.all_reduce(loss.float(), both, inv)
+        """The loss and every gradient reduced as :meth:`_reduction` says,
+        each pre/post/loss leaf in one reduction over its pp x dp x sp
+        group."""
+        mesh = self.mesh
+        every, blocks, scale = self._reduction()
+        loss = mesh.all_reduce(loss.float(), every, scale, kind="loss")
         grads = {}
         for key, _ in self._layers():
             g = _tree_map(lambda a: torch.zeros_like(a) if a.grad is None else a.grad,
                           leaves[key])
-            if key == "blocks":
-                grads[key] = (_tree_map(lambda t: mesh.all_reduce(t, self.dp_axis, inv), g)
-                              if self.dp_axis else g)
-            else:
-                grads[key] = _tree_map(lambda t: mesh.all_reduce(t, both, inv), g)
+            axes = blocks if key == "blocks" else every
+            grads[key] = _tree_map(lambda t: mesh.all_reduce(t, axes, scale), g) \
+                if axes else g
         return loss, grads
 
     # ------------------------------------------------------------------ #
@@ -1445,18 +1690,26 @@ class SpmdGPipe:
     @torch.no_grad()
     def apply(self, params: dict, x: Pytree) -> torch.Tensor:
         """Pipelined inference forward; the gathered outputs ``[B, ...]``
-        (``post`` applied) on every rank.  Ragged batches are edge-padded
-        through the pipeline and the padding rows sliced off."""
+        (``post`` applied) on every rank: a head that keeps its logits
+        vocab-sharded (``meta['out_gather']``) gathered over tp, the
+        sequence over sp.  Ragged batches are edge-padded through the
+        pipeline and the padding rows sliced off."""
         self._check_params(params)
         pad = self._check_batch(x, ragged_ok=True)
         b_real = microbatch.batch_size(x)
-        outs = self._forward_outputs(params, self._local_microbatches(_pad_batch(x, pad)))
-        last = self.mesh.rank_of(self.n_stages - 1, self._lane)
         out = None
-        if outs is not None:
-            out = torch.stack([self._run_post(params, y) if self.post is not None else y
-                               for y in outs])                     # [m, b, ...]
+        with self._bound():
+            outs = self._forward_outputs(params, self._local_microbatches(_pad_batch(x, pad)))
+            if outs is not None:
+                out = torch.stack([self._run_post(params, y) if self.post is not None else y
+                                   for y in outs])                     # [m, b, ...]
+                for axis, dim in (_declared_axes(self.post, "out_gather")
+                                  if self.post is not None else []):
+                    out = axis_bound(axis).all_gather(out, dim % out.ndim)
+        last = self.mesh.rank_of(self.n_stages - 1, self._lane)
         out = self.mesh.broadcast(out, last, self.pp_axis)
+        if self._sp > 1:
+            out = torch.cat(self.mesh.all_gather(out, self.sp_axis, kind="sp"), 2)
         if self.dp_axis and self._dp > 1:
             lanes = self.mesh.all_gather(out, self.dp_axis)     # dp x [m, b, ...]
             out = torch.cat(lanes, 1)
@@ -1466,24 +1719,27 @@ class SpmdGPipe:
     @torch.no_grad()
     def eval_loss(self, params: dict, x: Pytree, target: Pytree) -> torch.Tensor:
         """Loss on a mini-batch without gradients: per micro-batch on the
-        last stage (a decomposable loss), summed over pp, averaged over dp.
-        ``loss_reduction=None`` and ragged batches compute the loss on
-        :meth:`apply`'s gathered outputs instead."""
+        last stage (a decomposable loss), summed over pp, averaged over dp
+        and sp.  ``loss_reduction=None`` and ragged batches compute the
+        loss on :meth:`apply`'s gathered outputs instead."""
         self._check_params(params)
         pad = self._check_batch(x, target, ragged_ok=True)
         if self.loss_reduction is None or pad:
             out = self.apply(params, x)
             return self._loss_call(params, out, target.to(out.device)
                                    if isinstance(target, torch.Tensor) else target).float()
-        outs = self._forward_outputs(params, self._local_microbatches(x))
         tgt_mb = self._local_microbatches(target)
         loss = torch.zeros((), device=self.mesh.device)
-        if outs is not None:
-            for y, t in zip(outs, tgt_mb):
-                if self.post is not None:
-                    y = self._run_post(params, y)
-                l_i = self._loss_call(params, y, t).float()
-                loss = loss + (l_i / self.chunks if self.loss_reduction == "mean" else l_i)
-        return self.mesh.all_reduce(
-            loss, None if self.dp_axis else self.pp_axis,
-            1.0 / self._dp if self.loss_reduction == "mean" else 1.0)
+        with self._bound():
+            outs = self._forward_outputs(params, self._local_microbatches(x))
+            if outs is not None:
+                for y, t in zip(outs, tgt_mb):
+                    if self.post is not None:
+                        y = self._run_post(params, y)
+                    l_i = self._loss_call(params, y, t).float()
+                    loss = loss + (l_i / self.chunks if self.loss_reduction == "mean" else l_i)
+        every, _, _ = self._reduction()
+        mean = self.loss_reduction == "mean"
+        return self.mesh.all_reduce(loss, every,
+                                    1.0 / (self._dp * self._sp) if mean else 1.0,
+                                    kind="loss")

@@ -8,7 +8,7 @@ init_cache` and ``init_quant_cache`` allocate.  The reference's pool also
 holds a 4-byte ``length`` scalar, which the port keeps on the host (its
 frontiers live in the serving engine's lengths buffer), so the port's
 pool has no fixed part.  The rest of the reference's tuner (probes,
-planner, MFU prediction) is not ported yet (ROADMAP.md, queue A item 5).
+planner, MFU prediction) is not ported yet (ROADMAP.md, queue A item 5.6).
 """
 
 from __future__ import annotations

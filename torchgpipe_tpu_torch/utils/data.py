@@ -247,7 +247,8 @@ def pipe_data_sharding(pipe: Any, *, stacked: bool = False) -> torch.device:
     first stage's device (micro-batches enter there), a
     ``DistributedGPipe`` rank's or an ``SpmdGPipe`` rank's own device (the
     SPMD engine takes the global batch on every rank and keeps its dp
-    lane's rows).  ``stacked`` (megastep's ``[K, ...]`` batches) changes
+    lane's rows and, under an sp axis, its sp lane's share of dim 1, the
+    sequence).  ``stacked`` (megastep's ``[K, ...]`` batches) changes
     nothing for these: every dimension rides along."""
     from torchgpipe_tpu_torch.distributed.gpipe import DistributedGPipe
     from torchgpipe_tpu_torch.gpipe import GPipe
@@ -282,23 +283,27 @@ def global_batch_from_local(mesh: Any, spec: Any, local_batch: Pytree) -> Pytree
     (e.g. its dp lane's examples) and ``SpmdGPipe.train_step`` takes the
     global batch.
 
-    ``spec`` is a partition spec of the batch dim (``spmd.P("dp")``, or a
-    tuple of axis names; ``spmd.P()`` / None: replicated): the local
-    shards are concatenated along dim 0 in the order of the named axes'
-    indices (an all-gather over each axis, the first named outermost), as
-    the reference's ``NamedSharding`` lays them out.  With every named
-    axis of size 1 this is a copy to the device."""
-    axes = spec[0] if spec is not None and len(spec) else None
-    axes = () if axes is None else (axes if isinstance(axes, tuple) else (axes,))
-    for ax in axes:
-        if ax not in mesh.shape:
-            raise ValueError(f"spec {spec} names axis {ax!r}, not one of the mesh's "
-                             f"{list(mesh.axis_names)}")
+    ``spec`` is a partition spec of the leading dims (``spmd.P("dp")``;
+    ``spmd.P("dp", "sp")`` for a batch whose sequence, dim 1, is split
+    over sp too; an entry may be a tuple of axis names, or None:
+    replicated): the local shards are concatenated along each dim in the
+    order of its named axes' indices (an all-gather over each axis, the
+    first named outermost), as the reference's ``NamedSharding`` lays them
+    out.  With every named axis of size 1 this is a copy to the device."""
+    dims = []
+    for dim, entry in enumerate(tuple(spec) if spec is not None else ()):
+        axes = () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
+        for ax in axes:
+            if ax not in mesh.shape:
+                raise ValueError(f"spec {spec} names axis {ax!r}, not one of the mesh's "
+                                 f"{list(mesh.axis_names)}")
+        dims.append((dim, axes))
 
     def leaf(t: torch.Tensor) -> torch.Tensor:
         t = t.to(mesh.device)
-        for ax in reversed(axes):
-            t = torch.cat(mesh.all_gather(t, ax), 0)
+        for dim, axes in dims:
+            for ax in reversed(axes):
+                t = torch.cat(mesh.all_gather(t, ax), dim)
         return t
 
     return pytree.tree_map(leaf, local_batch)
