@@ -63,11 +63,13 @@ they need) and prints no kernels line; by default every phase runs:
    tensor-core kernels zero-padded and flash_decode at d=80; no CUDA-core
    kernel), tokens teacher-forced.  Float16 and head dims 129-256: the
    f16 instantiations of flash_fwd, flash_bwd_dq/dkv and flash_decode
-   (f16 and int8 caches) and flash_simt.cu's wide kernels (d=160/256 in
-   bf16, f16 and f32; their decode with bf16, f16 and int8 caches)
+   (f16 and int8 caches), the d=256 instantiations of flash_fwd and
+   flash_bwd_dq (bf16 and f16) and flash_simt.cu's wide kernels (d=160/256
+   in bf16, f16 and f32; their decode with bf16, f16 and int8 caches)
    against the plain versions (backward bitwise on a second call, device
-   pos0 bitwise), timed at the f16 path's and phase 25's shapes beside
-   SDPA; then a float16 Llama at Llama-3-8B's widths, 2 blocks, takes the
+   pos0 bitwise), timed at the f16 path's and phase 25's shapes and at
+   bf16 s=4096 d=256 beside SDPA (the d=256 kernels beside the simt ones
+   they replace); then a float16 Llama at Llama-3-8B's widths, 2 blocks, takes the
    same step (its loss beside a bf16 step at the same weights, a sanity
    bound) and ``generate``, launches gated on the f16 instantiations.
 6. slice: greedy ``generate`` at Llama-3-8B width (random weights from a
@@ -272,8 +274,9 @@ they need) and prints no kernels line; by default every phase runs:
    at the same weights; 25c ``spmd_params_for_generation`` of 25a's
    trained params and ``generate`` on the wide decode, against the plain
    version's tokens and a teacher-forced forward.  Each rank's launches
-   (the wide kernels), step ms, bytes staged through the host and peak
-   memory; a ``{"spmd": ...}`` line.
+   (the wide route: the d=256 forward and dQ, flash_simt's dK/dV; a
+   profile of 25a's step 2 shows the same CUDA functions), step ms, bytes
+   staged through the host and peak memory; a ``{"spmd": ...}`` line.
 26. spmd_tp_sp: tensor and sequence parallelism in ``SpmdGPipe`` at
    Llama-3-8B's published widths in bf16, 2 blocks, one a stage, batch 2
    x seq 4096: one world of four rank processes over gloo on this card
@@ -296,8 +299,10 @@ library yardsticks, the fastest SDPA backend by name; ``launches``
 counts one generate call for the forward
 and decode kernels, one ``generate(kv_quant=True)`` call for the int8
 decode variant, one training step for the backward kernels, phase 5b's
-float32 step for the 3xTF32 forward and backward, and 0 for flash_simt's
-kernels, which no path reaches; every path's counts are in
+float32 step for the 3xTF32 forward and backward, phase 25's rank step
+for the wide route's (the d=256 forward and dQ, flash_simt's dK/dV), and
+0 for flash_simt's other kernels, which no path reaches; every path's
+counts are in
 ``launches_by_path``, flash_simt's and the 3xTF32 kernels' 0 on every
 bf16 path at head dims 64 and 128), the card line,
 and the
@@ -318,6 +323,7 @@ import re
 import shutil
 import statistics
 import subprocess
+import sys
 import time
 import warnings
 
@@ -398,7 +404,11 @@ KERNEL_FUNCS = {
     "flash_bwd_dq_f16": ("flash_bwd", ("flash_bwd_dq_kernel",)),
     "flash_bwd_dkv_f16": ("flash_bwd", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_sum_kernel")),
     "flash_decode_f16": ("flash_decode", ("flash_decode_kernel", "flash_decode_merge")),
-    # head dims 129-256: flash_simt.cu's kernels at eight lanes a row.
+    # head dims 129-256: flash_simt.cu's kernels at eight lanes a row,
+    # except the forward and dQ at d=256 in bf16/f16 (the wide route's
+    # "tc" kernels: flash_fwd_kernel<256, .> and flash_bwd_dq_kernel<256, .>).
+    "flash_fwd_d256": ("flash_fwd", ("flash_fwd_kernel",)),
+    "flash_bwd_dq_d256": ("flash_bwd", ("flash_bwd_dq_kernel",)),
     "flash_fwd_wide": ("flash_simt", ("fwd_simt_kernel",)),
     "flash_bwd_dq_wide": ("flash_simt", ("dq_simt_kernel",)),
     "flash_bwd_dkv_wide": ("flash_simt", ("dkv_simt_kernel",)),
@@ -408,8 +418,9 @@ KERNEL_FUNCS = {
 # (wgmma) and UTMALDG (TMA tensor loads); the decode kernel's scores run on
 # mma.sync (HMMA) for bf16, f16 and int8 caches (an f32 cache keeps f32
 # products on the CUDA cores: no HMMA there).  SASS_COUNT: instantiations
-# each must show (d = 64 and 128, the tile dims, times bf16 and f16 for
-# flash_fwd and flash_bwd; the 3xTF32 kernels d = 64 and 128; decode: six
+# each must show (d = 64, 128 and 256 times bf16 and f16 for flash_fwd and
+# flash_bwd_dq, d = 64 and 128 for flash_bwd_dkv; the 3xTF32 kernels d =
+# 64 and 128; decode: six
 # query/cache type pairs x two tile dims x four row counts, any head dim
 # up to 128 running on one of the two tile dims).
 SASS_REQUIRED = {"flash_fwd": {"flash_fwd_kernel": ("HGMMA", "UTMALDG")},
@@ -419,7 +430,7 @@ SASS_REQUIRED = {"flash_fwd": {"flash_fwd_kernel": ("HGMMA", "UTMALDG")},
                  "flash_fwd_tf32": {"flash_fwd_tf32_kernel": ("HGMMA", "UTMALDG")},
                  "flash_bwd_tf32": {"flash_bwd_dq_tf32_kernel": ("HGMMA", "UTMALDG"),
                                     "flash_bwd_dkv_tf32_kernel": ("HGMMA", "UTMALDG")}}
-SASS_COUNT = {"flash_fwd_kernel": 4, "flash_bwd_dkv_kernel": 4, "flash_bwd_dq_kernel": 4,
+SASS_COUNT = {"flash_fwd_kernel": 6, "flash_bwd_dkv_kernel": 4, "flash_bwd_dq_kernel": 6,
               "flash_decode_kernel": 48, "flash_fwd_tf32_kernel": 2,
               "flash_bwd_dq_tf32_kernel": 2, "flash_bwd_dkv_tf32_kernel": 2}
 
@@ -497,7 +508,8 @@ def sass_check(build):
 
 def smem_dynamic(build):
     """Dynamic shared memory per block at d=128 of the redesigned kernels
-    (the decode kernel's at its main-path instantiation: bf16 cache, up to
+    (d=256 for their head-dim-256 instantiations; the decode kernel's at
+    its main-path instantiation: bf16 cache, up to
     4 rows a group; the 3xTF32 forward's and backward's at their main
     path's d=64), from their C interfaces."""
     import ctypes
@@ -517,8 +529,12 @@ def smem_dynamic(build):
             "flash_bwd_dkv_tf32": dkv_tf32(64), "flash_fwd_f32": simt(0, 128),
             "flash_bwd_dq_f32": simt(1, 128), "flash_bwd_dkv_f32": simt(2, 128),
             "flash_fwd_f16": fwd(128), "flash_bwd_dq_f16": dq(128),
-            "flash_bwd_dkv_f16": dkv(128), "flash_fwd_wide": simt(0, 256),
+            "flash_bwd_dkv_f16": dkv(128), "flash_fwd_d256": fwd(256),
+            "flash_bwd_dq_d256": dq(256), "flash_fwd_wide": simt(0, 256),
             "flash_bwd_dq_wide": simt(1, 256), "flash_bwd_dkv_wide": simt(2, 256)}
+
+
+DEVICE_MS_TRIES = 3
 
 
 def time_ms(torch, fn, reps: int, warmup: int = 2) -> float:
@@ -540,23 +556,47 @@ def device_ms(torch, fn, reps: int, warmup: int = 2, by_kernel: bool = False):
     by torch.profiler over ``reps`` calls.  Unlike ``time_ms`` it leaves
     out the host's time between launches, which at decode sizes is
     longer than the kernels.  ``by_kernel``: ``(total, {kernel name: ms
-    per call})``."""
+    per call})``.  The profiler can come back without some or all of the
+    device's events (late in this script's process it does): a record
+    with no device time, or with a kernel seen a number of times that
+    ``reps`` does not divide, is taken again, up to DEVICE_MS_TRIES
+    times.  After that a kernel counts its mean time as often a call as
+    it was seen a call, rounded (at least once), and a record with no
+    device time at all falls back to ``time_ms`` (CUDA events, the
+    host's gaps included); either is said on stderr."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    per = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            dev = getattr(e, "self_device_time_total", None)
-            per[e.key] = per.get(e.key, 0.0) + (e.self_cuda_time_total if dev is None
-                                                else dev) / 1e3 / reps
+    for _ in range(DEVICE_MS_TRIES):
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        seen = {}   # kernel: [device us, events]
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                dev = getattr(e, "self_device_time_total", None)
+                acc = seen.setdefault(e.key, [0.0, 0])
+                acc[0] += e.self_cuda_time_total if dev is None else dev
+                acc[1] += e.count
+        whole = all(n % reps == 0 for _, n in seen.values())
+        if whole and any(us > 0 for us, _ in seen.values()):
+            break
+    else:
+        if not any(us > 0 for us, _ in seen.values()):
+            print(f"device_ms: {DEVICE_MS_TRIES} profiles of {reps} calls recorded no device "
+                  f"time; timed with CUDA events instead", file=sys.stderr, flush=True)
+            total = time_ms(torch, fn, reps, warmup=0)
+            return (total, {}) if by_kernel else total
+        print(f"device_ms: {DEVICE_MS_TRIES} profiles of {reps} calls lost kernel events "
+              f"(last: {sorted(n for _, n in seen.values())} events); each kernel's mean "
+              f"time counted round(events / {reps}) times a call", file=sys.stderr,
+              flush=True)
+    per = {k: us / n * (n // reps if whole else max(1, round(n / reps))) / 1e3
+           for k, (us, n) in seen.items() if n}
     total = sum(per.values())
     return (total, per) if by_kernel else total
 
@@ -1189,6 +1229,8 @@ def kernel_launches(tfa):
             "flash_bwd_dq_f32": tfa.flash_bwd_dq_f32.launches,
             "flash_bwd_dkv_f32": tfa.flash_bwd_dkv_f32.launches,
             "flash_decode_simt": tfa.flash_decode_simt.launches,
+            "flash_fwd_d256": tfa.flash_attention_wide.launches_d256,
+            "flash_bwd_dq_d256": tfa.flash_bwd_dq_wide.launches_d256,
             "flash_fwd_wide": tfa.flash_attention_wide.launches,
             "flash_bwd_dq_wide": tfa.flash_bwd_dq_wide.launches,
             "flash_bwd_dkv_wide": tfa.flash_bwd_dkv_wide.launches,
@@ -4309,21 +4351,28 @@ def phase_simt(torch, tfa, tt, tg, card, seed: int):
 
 
 # Phase 5b, float16 and head dims 129-256 (ROADMAP C.3): the f16
-# instantiations of flash_fwd, flash_bwd_dq/dkv and flash_decode, and
-# flash_simt.cu's wide kernels (head dim 256, Gemma's, in bf16, f16 and
-# f32), against the plain versions at the shapes their paths give them
-# (the f16 Llama-3-8B-width step's micro-batch and generate; phase 25's
-# Gemma-7B-width micro-batch and generate) and at edges.  Tolerances:
-# float16 rounds where bf16 does at 2^-11 instead of 2^-8, so FWD_TOL,
-# BWD_ROW_TOL/BWD_FLOOR (derived for bf16 above) hold with room; the wide
-# kernels widen every element to f32 and compute as the plain versions
-# do, rounding their outputs once: FWD_TOL and the row tolerance for
-# bf16/f16, SIMT_F32_TOL and simt_rows for f32; the decode DECODE_TOL.
+# instantiations of flash_fwd, flash_bwd_dq/dkv and flash_decode, the
+# wide route (head dim 256, Gemma's: the forward and dQ in bf16/f16 on
+# flash_fwd's and flash_bwd_dq's d=256 instantiations, dK/dV, float32 and
+# d=160 on flash_simt.cu's wide kernels), against the plain versions at
+# the shapes their paths give them (the f16 Llama-3-8B-width step's
+# micro-batch and generate; phase 25's Gemma-7B-width micro-batch and
+# generate) and at edges; gemma_long (half of Gemma's 8192 context) is a
+# timing shape; bf16_d192 holds and times the 16-bit flash_simt.cu forward
+# and dQ, which take bf16 and f16 head dims 129-255.  Tolerances: float16 rounds where bf16 does at 2^-11
+# instead of 2^-8, so FWD_TOL, BWD_ROW_TOL/BWD_FLOOR (derived for bf16
+# above) hold with room; the d=256 tensor-core kernels round P and dS as
+# the d=128 ones do (the derivations above hold at any head dim); the
+# simt kernels widen every element to f32 and compute as the plain
+# versions do, rounding their outputs once: FWD_TOL and the row tolerance
+# for bf16/f16, SIMT_F32_TOL and simt_rows for f32; the decode DECODE_TOL.
 # (name, dtype, b, h, g, s, d, window, causal, route)
 WIDE_CASES = [("f16_train_microbatch", "f16", 2, 32, 8, 1024, 128, None, True, "kernel"),
               ("f16_d64_window", "f16", 2, 8, 2, 333, 64, 50, True, "kernel"),
               ("gemma_microbatch", "bf16", 2, 16, 16, 512, 256, None, True, "wide"),
               ("f16_d256_window", "f16", 1, 8, 4, 333, 256, 64, True, "wide"),
+              ("gemma_long", "bf16", 1, 16, 16, 4096, 256, None, True, "wide"),
+              ("bf16_d192", "bf16", 2, 16, 8, 512, 192, None, True, "wide"),
               ("f32_d160_nocausal", "f32", 1, 8, 2, 200, 160, None, False, "wide")]
 # (name, kind, b, g, nh, nkv, hd, pos0, window, max_len, route)
 WIDE_DECODE = [("f16_generate", "f16", 4, 1, 32, 8, 128, 527, None, 544, "kernel"),
@@ -4346,10 +4395,12 @@ def wide_f16_kernels(torch, tfa, tg, card):
         if route != want_route:
             fail(f"{kind} attention {name}: routed to {route}, expected {want_route}")
         wide = route == "wide"
+        tc = wide and tfa.wide_kernel((b, s, h, d), dtype) == "tc"
         fwd = tfa._flash_fwd_wide if wide else tfa._flash_fwd
         dqf = tfa.flash_bwd_dq_wide if wide else tfa.flash_bwd_dq
         dkvf = tfa.flash_bwd_dkv_wide if wide else tfa.flash_bwd_dkv
-        names = (("flash_fwd_wide", "flash_bwd_dq_wide", "flash_bwd_dkv_wide") if wide
+        names = (("flash_fwd_d256", "flash_bwd_dq_d256", "flash_bwd_dkv_wide") if tc
+                 else ("flash_fwd_wide", "flash_bwd_dq_wide", "flash_bwd_dkv_wide") if wide
                  else ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
         gen = torch.Generator(device="cuda").manual_seed(9)
         q, k, v = (torch.randn(b, s, n, d, generator=gen, device="cuda").to(dtype)
@@ -4379,20 +4430,30 @@ def wide_f16_kernels(torch, tfa, tg, card):
         if not (err <= tol and max(ratios) <= 1.0):
             fail(f"{kind} attention {name}: forward err {err:.3e} (tol {tol}), dq/dk/dv "
                  f"worst row err/tol {ratios}")
-        key = f"{'wide' if wide else 'f16'}_{kind}"
+        key = ("wide_tc" if tc else "wide_simt" if wide else "f16") + f"_{kind}"
         worst[key] = max(worst.get(key, 0.0), err)
         worst[key + "_bwd"] = max(worst.get(key + "_bwd", 0.0), *(
             (a.float() - c.float()).abs().max().item() for a, c in zip(got, want)))
+        worst[key + "_dq"] = max(worst.get(key + "_dq", 0.0),
+                                 (got[0].float() - want[0].float()).abs().max().item())
         print(f"{kind} attention {name} ({', '.join(names)}): b={b} s={s} h={h} g={g} d={d} "
               f"window={window} causal={causal} fwd max_abs_err={err:.3e} (tol {tol}) "
               f"dq/dk/dv worst row err/tol {[round(x, 4) for x in ratios]}; backward "
               f"bitwise equal on a second call [{card}]", flush=True)
-        if name not in ("f16_train_microbatch", "gemma_microbatch"):
+        if name not in ("f16_train_microbatch", "gemma_microbatch", "gemma_long", "bf16_d192"):
             continue
         calls = {"fwd": lambda: fwd(q, k, v, causal, scale, window),
                  "dq": lambda: dqf(q, k, v, do, lse, delta, **bkw),
                  "dkv": lambda: dkvf(q, k, v, do, lse, delta, **bkw)}
-        ms = {n: device_ms(torch, c, 5) for n, c in calls.items()}
+        if tc:
+            # The flash_simt.cu kernels the d=256 ones replace, in this run.
+            calls["fwd_simt"] = lambda: tfa._simt_fwd("fwd_simt", q, k, v, causal, scale,
+                                                      window)
+            calls["dq_simt"] = lambda: tfa._simt_dq("dq_simt", q, k, v, do, lse, delta,
+                                                    causal, scale, window)
+        # The simt kernels take 18-56 ms a call at s=4096: two calls each.
+        ms = {n: device_ms(torch, c, 2 if s > 1024 and n != "fwd" and n != "dq" else 5)
+              for n, c in calls.items()}
         plain_fwd = device_ms(torch, lambda: tfa._reference_fwd(q, k, v, causal, scale,
                                                                 window), 3, 1)
         plain_bwd = device_ms(torch, lambda: tfa._reference_grads(
@@ -4409,12 +4470,14 @@ def wide_f16_kernels(torch, tfa, tg, card):
         flops = {"fwd": 4.0 * b * h * d * pairs, "dq": 6.0 * b * h * d * pairs,
                  "dkv": 8.0 * b * h * d * pairs}
         # The least time is the 16-bit tensor-core rate's (the work a
-        # Hopper kernel could do there); the wide kernels run on the CUDA
+        # Hopper kernel could do there); the simt kernels run on the CUDA
         # cores, so their f32 FMA bound is printed beside.
         bounds = {n: bound(flops[n], nbytes[n]) for n in flops}
         fma = {n: bound(flops[n], nbytes[n], PEAK_F32_FLOPS)[0] for n in flops}
+        earlier = (f" (flash_simt.cu in this run: fwd {ms['fwd_simt']:.4f} dq "
+                   f"{ms['dq_simt']:.4f})" if tc else "")
         print(f"{kind} attention timing {name}, device ms per call: fwd {ms['fwd']:.4f} dq "
-              f"{ms['dq']:.4f} dkv {ms['dkv']:.4f}; bounds (16-bit tensor cores) "
+              f"{ms['dq']:.4f} dkv {ms['dkv']:.4f}{earlier}; bounds (16-bit tensor cores) "
               f"{ {n: round(x[0], 4) for n, x in bounds.items()} } (f32 FMA "
               f"{ {n: round(x, 4) for n, x in fma.items()} }); plain fwd {plain_fwd:.4f} "
               f"bwd {plain_bwd:.4f}; sdpa fwd {lib_f[2]:.4f} ({lib_f[1]}) bwd {lib_b[2]:.4f} "
@@ -5463,9 +5526,16 @@ SPMD_PROMPT, SPMD_NEW = 128, 16
 SPMD_DEADLINE_S = 420
 # A rank's launches in a step: its one block a stage under 'except_last'
 # at SPMD_CHUNKS micro-batches: two forwards and one recompute, two
-# backwards, on the wide kernels (head dim 256); none of the others.
-SPMD_LAUNCHES = {"flash_fwd_wide": SPMD_CHUNKS + SPMD_CHUNKS - 1,
-                 "flash_bwd_dq_wide": SPMD_CHUNKS, "flash_bwd_dkv_wide": SPMD_CHUNKS}
+# backwards, on the wide route (head dim 256: the forward and dQ on the
+# tensor-core kernels' d=256 instantiation, dK/dV on flash_simt.cu); none
+# of the others.  SPMD_PROFILE: the CUDA function (its instantiation) of
+# each of those counters and of the simt forward and dQ, whose launches a
+# profile of 25a's step 2 must show as the counters say.
+SPMD_LAUNCHES = {"flash_fwd_d256": SPMD_CHUNKS + SPMD_CHUNKS - 1,
+                 "flash_bwd_dq_d256": SPMD_CHUNKS, "flash_bwd_dkv_wide": SPMD_CHUNKS}
+SPMD_PROFILE = {"flash_fwd_d256": "flash_fwd_kernel<256", "flash_bwd_dq_d256":
+                "flash_bwd_dq_kernel<256", "flash_bwd_dkv_wide": "dkv_simt_kernel",
+                "flash_fwd_wide": "fwd_simt_kernel", "flash_bwd_dq_wide": "dq_simt_kernel"}
 SPMD_1F1B_LAUNCHES = {k: 2 * v for k, v in SPMD_LAUNCHES.items()}
 # bf16 tolerances of a pipelined step against the sequential oracle (or
 # 1F1B against fill-drain): the same products in bf16 batched otherwise
@@ -5553,12 +5623,21 @@ def spmd_rank_main(args) -> None:
         torch.cuda.empty_cache()
         report["ready_s"] = time.perf_counter() - t_start
 
-        def timed(fn):
+        def timed(fn, profiled=False):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             tfa.reset_launches()
+            card = card_line() if profiled else None
             b0, t0 = mesh.staged_bytes, time.perf_counter()
-            res = fn()
+            if profiled:   # which CUDA functions the step launched
+                out = []
+                rows = profile(torch, card, f"25{case} rank {rank}",
+                               lambda: out.append(fn()), top=0, cuda_only=True)[2]
+                res = out[0]
+                report["profile"] = {k: sum(n for _, n, key in rows if name in key)
+                                     for k, name in SPMD_PROFILE.items()}
+            else:
+                res = fn()
             torch.cuda.synchronize()
             report["step_ms"].append((time.perf_counter() - t0) * 1e3)
             report["staged_bytes"].append(mesh.staged_bytes - b0)
@@ -5588,7 +5667,7 @@ def spmd_rank_main(args) -> None:
                     t.sub_(SPMD_LR * gr)
             del local
             step = pipe.make_train_step(lambda ts: torch.optim.SGD(ts, lr=SPMD_LR))
-            loss2 = timed(lambda: step(params, tokens, tokens))
+            loss2 = timed(lambda: step(params, tokens, tokens), profiled=True)
             report["losses"].append(loss2.item())
             trained = pipe.gather(params)
             if rank == 0:
@@ -5747,6 +5826,11 @@ def phase_spmd(torch, tfa, tt, tg, card, seed: int):
              f"leaf's max: {bad}")
     for rep in ra:
         expect_launches(rep["launches"][0], SPMD_LAUNCHES, f"25a rank {rep['rank']} step 1")
+        expect_launches(rep["launches"][1], SPMD_LAUNCHES, f"25a rank {rep['rank']} step 2")
+        want = {k: SPMD_LAUNCHES.get(k, 0) for k in SPMD_PROFILE}
+        if rep["profile"] != want:
+            fail(f"spmd 25a rank {rep['rank']}: step 2's profile launched {rep['profile']} "
+                 f"of {SPMD_PROFILE}, expected {want}")
     for rep in rb:
         expect_launches(rep["launches"][1], SPMD_LAUNCHES, f"25b rank {rep['rank']} 1F1B")
     if not all(math.isfinite(x) for rep in ra + rb for x in rep["losses"]):
@@ -5773,7 +5857,7 @@ def phase_spmd(torch, tfa, tt, tg, card, seed: int):
     torch.cuda.synchronize()
     gen_ms = (time.perf_counter() - t0) * 1e3
     gen_launches = kernel_launches(tfa)
-    expect_launches(gen_launches, {"flash_fwd_wide": 2, "flash_decode_wide": 2 * SPMD_NEW},
+    expect_launches(gen_launches, {"flash_fwd_d256": 2, "flash_decode_wide": 2 * SPMD_NEW},
                     "25c generate")
     with plain_attention(tt, tg, tfa):
         plain = tg.generate(cfg, model, prompt, SPMD_NEW)
@@ -5797,7 +5881,8 @@ def phase_spmd(torch, tfa, tt, tg, card, seed: int):
           f"card): step-1 loss {loss_a:.6f} vs the sequential oracle's {ref_loss:.6f}; "
           f"{len(worst)} gradient leaves, worst {max(worst.values()):.3e} of its max (tol "
           f"{SPMD_GRAD_REL}); step 2 loss {ra[0]['losses'][1]:.6f}; launches a rank "
-          f"{[r['launches'][0] for r in ra]} (oracle, both blocks: {ref_launches}) [{card}]",
+          f"{[r['launches'][0] for r in ra]} (oracle, both blocks: {ref_launches}); step 2's "
+          f"profile a rank {[r['profile'] for r in ra]} [{card}]",
           flush=True)
     print(f"spmd 25b: pp=2 x dp=2, untied, 4 processes: 1F1B loss {loss_ob:.6f} vs "
           f"fill-drain {loss_fd:.6f}; {cmp['leaves']} gradient leaves, worst "
@@ -6566,22 +6651,46 @@ def main() -> None:
                 "library_ms_by_backend": lib[0],
                 "shape": "f16 b=2 s=1024 h=32 g=8 d=128 causal"}
 
-    def wide_entry(name, key, line):
-        row = wrows["gemma_microbatch"]
+    def wide_entry(name, key, line, takes, row_name, shape, err):
+        row = wrows[row_name]
         fwd_ = key == "fwd"
         lib = row["lib_fwd"] if fwd_ else row["lib_bwd"]
         return {"name": name, "route": "cuda", "source": src + "flash_simt.cu",
                 "replaces": f"{ref}:{line}", "launches": paths["spmd_rank"][name],
-                "launches_by_path": by_path(name),
-                "max_abs_err": max(v for k, v in wworst.items()
-                                   if k.startswith("wide") and k.endswith("_bwd") != fwd_),
-                "ms": row["ms"][key], "plain_ms": row["plain_fwd" if fwd_ else "plain_bwd"],
+                "launches_by_path": by_path(name), "max_abs_err": err,
+                "ms": row["ms"][key],
+                "plain_ms": row["plain_fwd" if fwd_ else "plain_bwd"],
                 "plain_covers": "forward" if fwd_ else "all three gradients",
                 "bound_ms": row["bounds"][key][0], "bound_by": row["bounds"][key][1],
                 "bound_fma_ms": row["fma"][key], "library_ms": lib[2],
-                "library_backend": lib[1], "library_ms_by_backend": lib[0],
-                "takes": "head dims 129-256 in bf16, f16 and f32",
-                "shape": "bf16 b=2 s=512 h=g=16 d=256 causal (phase 25's micro-batch)"}
+                "library_backend": lib[1], "library_ms_by_backend": lib[0], "takes": takes,
+                "shape": shape}
+
+    def d256_entry(name, key, line, source):
+        row, long = wrows["gemma_microbatch"], wrows["gemma_long"]
+        fwd_ = key == "fwd"
+        lib, llib = ((row["lib_fwd"], long["lib_fwd"]) if fwd_ else
+                     (row["lib_bwd"], long["lib_bwd"]))
+        err = "" if fwd_ else "_dq"
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": f"{ref}:{line}", "instantiation": "head dim 256, bf16 and f16",
+                "launches": paths["spmd_rank"][name], "launches_by_path": by_path(name),
+                "max_abs_err": max(wworst[f"wide_tc_{t}{err}"] for t in ("bf16", "f16")),
+                "ms": row["ms"][key], "earlier_kernel_ms": row["ms"][key + "_simt"],
+                "plain_ms": row["plain_fwd" if fwd_ else "plain_bwd"],
+                "plain_covers": "forward" if fwd_ else "all three gradients",
+                "bound_ms": row["bounds"][key][0], "bound_by": row["bounds"][key][1],
+                "library_ms": lib[2], "library_backend": lib[1],
+                "library_ms_by_backend": lib[0],
+                "shape": "bf16 b=2 s=512 h=g=16 d=256 causal (phase 25's micro-batch)",
+                "long_shape": {"shape": "bf16 b=1 s=4096 h=g=16 d=256 causal",
+                               "ms": long["ms"][key],
+                               "earlier_kernel_ms": long["ms"][key + "_simt"],
+                               "plain_ms": long["plain_fwd" if fwd_ else "plain_bwd"],
+                               "bound_ms": long["bounds"][key][0],
+                               "bound_by": long["bounds"][key][1],
+                               "share_of_bound": long["bounds"][key][0] / long["ms"][key],
+                               "library_ms": llib[2], "library_backend": llib[1]}}
 
     def decode_row_entry(name, row_name, wrapper, path, **extra):
         row = wrows[row_name]
@@ -6602,9 +6711,19 @@ def main() -> None:
                          launches_by_path={"f16_llama_generate": paths[
                              "f16_llama_generate"].get("flash_decode", 0)},
                          shape="f16 cache [4, 544, 8, 128] live 528 g=1"),
-        wide_entry("flash_fwd_wide", "fwd", 69),
-        wide_entry("flash_bwd_dq_wide", "dq", 538),
-        wide_entry("flash_bwd_dkv_wide", "dkv", 592),
+        d256_entry("flash_fwd_d256", "fwd", 69, "flash_fwd.cu"),
+        d256_entry("flash_bwd_dq_d256", "dq", 538, "flash_bwd.cu"),
+        wide_entry("flash_fwd_wide", "fwd", 69, "head dims 129-255 in bf16 and f16, "
+                   "129-256 in f32", "bf16_d192", "bf16 b=2 s=512 h=16 g=8 d=192 causal",
+                   wworst["wide_simt_bf16"]),
+        wide_entry("flash_bwd_dq_wide", "dq", 538, "head dims 129-255 in bf16 and f16, "
+                   "129-256 in f32", "bf16_d192", "bf16 b=2 s=512 h=16 g=8 d=192 causal",
+                   wworst["wide_simt_bf16_dq"]),
+        wide_entry("flash_bwd_dkv_wide", "dkv", 592, "head dims 129-256 in bf16, f16 and f32",
+                   "gemma_microbatch",
+                   "bf16 b=2 s=512 h=g=16 d=256 causal (phase 25's micro-batch)",
+                   max(v for k, v in wworst.items()
+                       if k.startswith("wide") and k.endswith("_bwd"))),
         decode_row_entry("flash_decode_wide", "gemma_generate", "flash_decode_wide",
                          "spmd_generate", source=src + "flash_simt.cu",
                          max_abs_err=wworst["decode_wide"],
@@ -6619,7 +6738,7 @@ def main() -> None:
             k["smem_dynamic_bytes"] = smem[k["name"]]
     for k in kernels:
         if k["name"] in ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_tf32",
-                         "flash_bwd_dkv_tf32"):
+                         "flash_bwd_dkv_tf32", "flash_bwd_dq_d256"):
             k["bitwise_repeat"] = True   # phases 5 and 5b fail otherwise
     for k in kernels[1:3]:
         k["device_pos0_bitwise"] = k["graph_replay"] = True   # phase 4 fails otherwise

@@ -4,7 +4,9 @@ routes, against the JAX reference.
 On the card float16 runs the tensor-core kernels' f16 instantiations
 (``flash_fwd``, ``flash_bwd_dq``/``dkv``, ``flash_decode``; zero-padded
 below 128 as bf16 is), and head dims 129 to 256 run ``flash_simt.cu``'s
-CUDA-core kernels in bf16, f16 and f32 (route ``"wide"``); above 256, or
+CUDA-core kernels in bf16, f16 and f32 (route ``"wide"``; the forward and
+dQ at exactly 256 in bf16 and f16 run the tensor-core kernels' d=256
+instantiation, ``wide_kernel``); above 256, or
 in another dtype, no kernel takes it (``"none"``, refused on the card).
 On the CPU every route runs its plain version, so the models here hold
 the algorithm against the reference; the kernels are held against those
@@ -83,6 +85,21 @@ def test_gates():
     assert not tfa.supports_decode_wide((1, 1, 4, 128), (1, 16, 4, 128), None, BF16)
 
 
+@pytest.mark.parametrize(
+    "d,dtype,want",
+    [(256, BF16, "tc"), (256, F16, "tc"), (256, F32, "simt"), (160, BF16, "simt"),
+     (160, F16, "simt"), (192, BF16, "simt"), (192, F16, "simt"), (160, F32, "simt"),
+     (136, BF16, "simt")],
+)
+def test_wide_kernel_table(d, dtype, want):
+    """The wide route's forward and dQ: the tensor-core kernels' d=256
+    instantiation for bf16 and f16 at head dim exactly 256, flash_simt.cu
+    for float32 and every other wide head dim."""
+    q, k = (2, 16, 8, d), (2, 16, 2, d)
+    assert tfa.attention_route(q, k, dtype).kind == "wide"
+    assert tfa.wide_kernel(q, dtype) == want
+
+
 def test_wide_wrappers_on_the_cpu_are_the_plain_versions():
     """On CPU tensors the wide wrappers run the plain versions and count
     no launch (the count is the card's)."""
@@ -97,7 +114,9 @@ def test_wide_wrappers_on_the_cpu_are_the_plain_versions():
     dec = tfa.decode_attention(q[:, :1].detach(), ck, ck, 30)
     assert torch.equal(dec, tfa.flash_decode_reference(q[:, :1].detach(), ck, ck, 30))
     assert (tfa.flash_attention_wide.launches, tfa.flash_bwd_dq_wide.launches,
-            tfa.flash_bwd_dkv_wide.launches, tfa.flash_decode_wide.launches) == (0, 0, 0, 0)
+            tfa.flash_bwd_dkv_wide.launches, tfa.flash_decode_wide.launches,
+            tfa.flash_attention_wide.launches_d256,
+            tfa.flash_bwd_dq_wide.launches_d256) == (0, 0, 0, 0, 0, 0)
 
 
 def _models(kw, jdtype, tdtype):

@@ -192,15 +192,16 @@ def test_flash_bwd_dq_is_bitwise_deterministic(cuda_device, b, s, h, g, d, windo
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", [0, 1, 2, 3])
+@pytest.mark.parametrize("mode", [0, 1, 2, 3, 4, 5])
 def test_hopper_tiles_wgmma_self_test(cuda_device, mode):
     """csrc/hopper_selftest.cu: one TMA-loaded, 128-byte-swizzled tile per
-    operand form of csrc/hopper_tiles.cuh, against torch.matmul.  Modes 0/1:
-    C[64, n] = A[64, 128] B[n, 128]^T (both K-major, n = 64 / 128); modes
-    2/3: C[64, n] = A[64, 64] B[64, n] (A from registers, B MN-major)."""
+    operand form of csrc/hopper_tiles.cuh, against torch.matmul.  Modes
+    0/1/4: C[64, n] = A[64, 128] B[n, 128]^T (both K-major, n = 64 / 128 /
+    32); modes 2/3/5: C[64, n] = A[64, 64] B[64, n] (A from registers, B
+    MN-major, n = 64 / 128 / 256: four column blocks in one product)."""
     gen = torch.Generator(device=cuda_device).manual_seed(mode)
-    n = 128 if mode % 2 else 64
-    if mode < 2:
+    n = {4: 32, 5: 256}.get(mode, 128 if mode % 2 else 64)
+    if mode in (0, 1, 4):
         a = torch.randn(64, 128, generator=gen, device=cuda_device).bfloat16()
         b = torch.randn(n, 128, generator=gen, device=cuda_device).bfloat16()
         want = a.float() @ b.float().T
@@ -860,13 +861,24 @@ def test_flash_decode_f16_matches_plain(cuda_device, kind, g, pos0, window, hd, 
     assert (dev - ref).abs().max().item() <= DECODE_TOL
 
 
-# Head dims 129-256 (Gemma's 256) on csrc/flash_simt.cu in bf16, float16
-# and float32.  The kernels widen every element to f32 and compute in f32
-# as the plain versions do, so the two differ by summation order before
-# each rounds its outputs once: one ulp of the output type for bf16/f16
-# (inside FWD_TOL and the row tolerance), and the float32 tolerances of
-# test_flash_simt_f32_matches_plain for float32.
+# Head dims 129-256 (Gemma's 256) on the wide route in bf16, float16 and
+# float32: csrc/flash_simt.cu, whose kernels widen every element to f32 and
+# compute in f32 as the plain versions do, so the two differ by summation
+# order before each rounds its outputs once: one ulp of the output type
+# for bf16/f16 (inside FWD_TOL and the row tolerance), and the float32
+# tolerances of test_flash_simt_f32_matches_plain for float32; except the
+# forward and dQ at d=256 in bf16/f16, on the tensor-core kernels' d=256
+# instantiation, which round P and dS as the d=128 kernels do (FWD_TOL and
+# the row tolerance, derived for those).
 WIDE_DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}
+
+
+def wide_launches():
+    """The wide route's forward, dQ and dK/dV counts on flash_simt.cu, then
+    the forward's and dQ's on the d=256 tensor-core kernels."""
+    return (tfa.flash_attention_wide.launches, tfa.flash_bwd_dq_wide.launches,
+            tfa.flash_bwd_dkv_wide.launches, tfa.flash_attention_wide.launches_d256,
+            tfa.flash_bwd_dq_wide.launches_d256)
 
 
 @pytest.mark.cuda
@@ -895,14 +907,17 @@ def test_flash_wide_matches_plain(cuda_device, kind, s, h, g, d, window, causal)
     got = (tfa.flash_bwd_dq_wide(q, k, v, do, lse, delta, **kw),
            *tfa.flash_bwd_dkv_wide(q, k, v, do, lse, delta, **kw))
     want = tfa._reference_bwd(q, k, v, o, lse, do, causal, scale, window)
-    before = (tfa.flash_attention_wide.launches, tfa.flash_bwd_dq_wide.launches,
-              tfa.flash_bwd_dkv_wide.launches)
+    before = wide_launches()
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
     out = tfa.attention(qg, kg, vg, causal=causal, window=window)
     routed = torch.autograd.grad(out, (qg, kg, vg), do)
     torch.cuda.synchronize()
-    assert (tfa.flash_attention_wide.launches, tfa.flash_bwd_dq_wide.launches,
-            tfa.flash_bwd_dkv_wide.launches) == tuple(n + 1 for n in before)
+    # bf16/f16 at d=256: the forward and dQ on the tensor-core kernels'
+    # d=256 instantiation; float32 and d=160 on flash_simt.cu.
+    tc = tfa.wide_kernel(q.shape, dtype) == "tc"
+    assert tc == (kind != "f32" and d == 256)
+    one = (0, 0, 1, 1, 1) if tc else (1, 1, 1, 0, 0)
+    assert wide_launches() == tuple(n + i for n, i in zip(before, one))
     assert torch.equal(out, o) and all(torch.equal(a, b) for a, b in zip(routed, got))
     assert o.dtype == dtype and all(t.dtype == dtype for t in got)
     assert (lse - ref_lse).abs().max().item() <= 2e-3
@@ -912,6 +927,48 @@ def test_flash_wide_matches_plain(cuda_device, kind, s, h, g, d, window, causal)
     else:
         assert (o.float() - ref_o.float()).abs().max().item() <= FWD_TOL
         assert all(bwd_row_ratio(a, b) <= 1.0 for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "f16"])
+@pytest.mark.parametrize(
+    "s,sk,h,g,window,causal",
+    [(512, 512, 16, 16, None, True), (333, 333, 4, 2, None, True),
+     (129, 129, 16, 16, None, True), (333, 333, 4, 2, 64, True),
+     (512, 512, 16, 16, 100, True), (129, 129, 4, 2, None, False),
+     (512, 512, 4, 2, None, False),
+     # sk != s, not causal: a ring block's shape (a whole earlier block).
+     (333, 512, 4, 2, None, False), (129, 333, 16, 16, None, False)],
+)
+def test_flash_d256_forward_and_dq_match_plain(cuda_device, kind, s, sk, h, g, window, causal):
+    """The wide route's forward and dQ at d=256 on the tensor-core kernels
+    (csrc/flash_fwd.cu and csrc/flash_bwd.cu, 64- and 32-key tiles) against
+    the plain versions: output to FWD_TOL, LSE to 2e-3, dQ row by row, dQ
+    bitwise on a second call, one launch each on the d=256 counters and
+    none on flash_simt.cu's."""
+    dtype = WIDE_DTYPES[kind]
+    gen = torch.Generator(device=cuda_device).manual_seed(s + sk + h)
+    q, do = (torch.randn(1, s, h, 256, generator=gen, device=cuda_device).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(1, sk, g, 256, generator=gen, device=cuda_device).to(dtype)
+            for _ in range(2))
+    assert tfa.wide_kernel(q.shape, dtype) == "tc"
+    scale = 256 ** -0.5
+    kw = dict(causal=causal, sm_scale=scale, window=window)
+    before = wide_launches()
+    o, lse = tfa._flash_fwd_wide(q, k, v, causal, scale, window)
+    delta = tfa._delta(do, o)
+    dq = tfa.flash_bwd_dq_wide(q, k, v, do, lse, delta, **kw)
+    again = tfa.flash_bwd_dq_wide(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert wide_launches() == (*before[:3], before[3] + 1, before[4] + 2)
+    ref_o, ref_lse = tfa._reference_fwd(q, k, v, causal, scale, window)
+    want = tfa._reference_grads(q, k, v, do, lse, delta, causal, scale, window)[0]
+    assert o.dtype == dtype and dq.dtype == dtype
+    assert (o.float() - ref_o.float()).abs().max().item() <= FWD_TOL
+    assert (lse - ref_lse).abs().max().item() <= 2e-3
+    assert bwd_row_ratio(dq, want) <= 1.0
+    assert torch.equal(dq, again)
 
 
 @pytest.mark.cuda
@@ -997,7 +1054,8 @@ def test_ring_blocks_merged_by_lse_match_flash_over_the_whole_sequence(
               tfa.flash_bwd_dq_wide)
         dkv = (tfa.flash_bwd_dkv, tfa.flash_bwd_dkv_tf32, tfa.flash_bwd_dkv_f32,
                tfa.flash_bwd_dkv_wide)
-        return tuple(sum(f.launches for f in fs) for fs in (fwd, dq, dkv))
+        return tuple(sum(f.launches + getattr(f, "launches_d256", 0) for f in fs)
+                     for fs in (fwd, dq, dkv))
 
     qf, kf, vf = rand(b, 2 * s, h, d), rand(b, 2 * s, g, d), rand(b, 2 * s, g, d)
     do1 = rand(b, s, h, d)

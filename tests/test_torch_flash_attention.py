@@ -176,6 +176,74 @@ def test_flash_attention_bf16_matches_jax():
     )
 
 
+# Head dim 256 (Gemma's) in bfloat16: the wide route, whose forward and dQ
+# run csrc/flash_fwd.cu's and csrc/flash_bwd.cu's d=256 instantiations on
+# the card (``wide_kernel`` answers "tc").  s = 200 is ragged for every
+# tile of the port's kernels (128 query rows; 64 or 32 keys); the
+# reference kernels need the sequence divisible by their block, so they
+# run at block_q = block_k = 40 there.  Tolerances as the bf16 cases
+# above: each side computes in float32 from the same bf16 inputs and
+# rounds the output once, so the forward differs by at most one bf16 ulp,
+# 2^-7 * |o| < 3e-2 (|o| < 4: an average of unit-normal V rows); dQ by a
+# bf16 ulp at the largest gradient plus the reference's own bf16 cast of
+# dq inside its kernel, 2^-6 of max |dq| (BF16_GRAD_REL_TOL).  The d=256
+# sums run over 256 head dims instead of 128, which moves the float32
+# summation noise (~1e-6 relative) and not the bf16 roundings.
+D256_CASES = [(256, None), (256, 64), (200, None), (200, 37)]
+
+
+def _d256_inputs(s, window, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v = _inputs(rng, 1, s, 4, 2, 256)
+    do = rng.standard_normal(q.shape, dtype=np.float32)
+    blocks = dict(block_q=40, block_k=40) if s % 128 else {}
+    kw = dict(causal=True, window=window)
+    return q, k, v, do, blocks, kw
+
+
+@pytest.mark.parametrize("s,window", D256_CASES)
+def test_flash_attention_d256_bf16_forward_matches_jax_kernel(s, window):
+    q, k, v, _, blocks, kw = _d256_inputs(s, window, 11)
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    ref = jfa.flash_attention(*jb, interpret=True, **blocks, **kw)
+    tb = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    assert tfa.attention_route(tb[0].shape, tb[1].shape, torch.bfloat16,
+                               window=window).kind == "wide"
+    assert tfa.wide_kernel(tb[0].shape, torch.bfloat16) == "tc"
+    tfa.reset_launches()
+    out, lse = tfa._flash_fwd_wide(*tb, True, 256 ** -0.5, window)
+    assert torch.equal(out, tfa.attention(*tb, **kw))
+    assert out.dtype == torch.bfloat16 and lse.shape == (4, s)
+    np.testing.assert_allclose(
+        out.float().numpy(), np.asarray(ref, np.float32), atol=BF16_TOL, rtol=0
+    )
+    # CPU: the plain version only, on neither counter.
+    assert (tfa.flash_attention_wide.launches, tfa.flash_attention_wide.launches_d256) == (0, 0)
+
+
+@pytest.mark.parametrize("s,window", D256_CASES)
+def test_flash_bwd_dq_d256_bf16_matches_jax_kernel(s, window):
+    """dQ of the wide wrapper (``flash_bwd_dq_wide`` from the forward's
+    own LSE and ``delta``) against ``jax.vjp`` through the reference's
+    Pallas backward kernels."""
+    q, k, v, do, blocks, kw = _d256_inputs(s, window, 12)
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, do)]
+    _, pull = jax.vjp(
+        lambda q, k, v: jfa.flash_attention(q, k, v, interpret=True, **blocks, **kw),
+        *jb[:3],
+    )
+    ref_dq = pull(jb[3])[0]
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, do))
+    scale = 256 ** -0.5
+    tfa.reset_launches()
+    o, lse = tfa._flash_fwd_wide(tq, tk, tv, True, scale, window)
+    dq = tfa.flash_bwd_dq_wide(tq, tk, tv, tdo, lse, tfa._delta(tdo, o), causal=True,
+                               sm_scale=scale, window=window)
+    assert dq.dtype == torch.bfloat16
+    _assert_grads_close([dq], [ref_dq], BF16_GRAD_REL_TOL)
+    assert (tfa.flash_bwd_dq_wide.launches, tfa.flash_bwd_dq_wide.launches_d256) == (0, 0)
+
+
 @pytest.mark.parametrize(
     "g,pos0,window,nh,nkv",
     [
@@ -304,6 +372,61 @@ def test_dq_schedule_runs_every_tile_once(b, s, sk, h, causal, window):
     assert offsets[0] == 0 and offsets[-1] == len(tiles)
     assert len(offsets) - 1 <= 132
     assert all(a < e for a, e in zip(offsets, offsets[1:]))
+
+
+def _live_key_tiles(q0, s, sk, causal, window, rows, keys):
+    """The key tiles holding a (query, key) pair that a query of the tile
+    from ``q0`` attends, by brute force over the pairs."""
+    qpos = np.arange(q0, min(q0 + rows, s))[:, None]
+    kpos = np.arange(sk)[None, :]
+    seen = np.ones((qpos.size, sk), bool)
+    if causal:
+        seen = (kpos <= qpos) & (qpos - kpos < (window or sk + s))
+    return sorted(set((np.nonzero(seen.any(0))[0] // keys).tolist()))
+
+
+# Head dim 256's tiles (``fwd_tile``/``dq_tile``: 64- and 32-key K/V
+# tiles) at the phase-25, timing and edge shapes.
+D256_SCHEDULE_SHAPES = [
+    (2, 512, 512, 16, True, None), (1, 4096, 4096, 16, True, None),
+    (1, 333, 333, 8, True, 64), (2, 129, 129, 4, True, None),
+    (1, 333, 512, 4, False, None), (2, 200, 200, 4, True, 37),
+    (2, 333, 200, 8, True, None),
+]
+
+
+def _check_runs_every_tile_once_on_live_keys(b, s, sk, h, causal, window, rows, keys):
+    offsets, tiles = tfa.fwd_schedule(b, s, sk, h, causal, window, 132, rows, keys)
+    nqt = -(-s // rows)
+    assert sorted(tiles) == list(range(b * h * nqt))
+    assert offsets[0] == 0 and offsets[-1] == len(tiles)
+    assert len(offsets) - 1 <= 132
+    assert all(a < e for a, e in zip(offsets, offsets[1:]))
+    if s * sk > 2 ** 22:
+        return
+    for j in range(nqt):
+        q0 = j * rows
+        first, n = tfa.fwd_key_tiles(q0, s, sk, causal, window, rows, keys)
+        assert list(range(first, first + n)) == _live_key_tiles(
+            q0, s, sk, causal, window, rows, keys)
+
+
+@pytest.mark.parametrize("b,s,sk,h,causal,window", D256_SCHEDULE_SHAPES)
+def test_dq_schedule_runs_every_tile_once_at_head_dim_256(b, s, sk, h, causal, window):
+    """flash_bwd_dq's work list at d=256 (128-row query tiles, 32-key K/V
+    tiles): every (head, query tile) once, and each query tile's key loop
+    (the kernel's ``QueryTile``, mirrored by ``fwd_key_tiles``) exactly
+    the key tiles holding a pair it attends."""
+    assert tfa.dq_tile(256) == (128, 32) and tfa.dq_tile(128) == (tfa.DQ_ROWS, tfa.DQ_KEYS)
+    _check_runs_every_tile_once_on_live_keys(b, s, sk, h, causal, window, *tfa.dq_tile(256))
+
+
+@pytest.mark.parametrize("b,s,sk,h,causal,window", D256_SCHEDULE_SHAPES)
+def test_fwd_schedule_runs_every_tile_once_at_head_dim_256(b, s, sk, h, causal, window):
+    """The forward's work list at d=256 (128-row query tiles, 64-key K/V
+    tiles), as the dQ test above."""
+    assert tfa.fwd_tile(256) == (128, 64) and tfa.fwd_tile(128) == (128, tfa.FWD_KEYS)
+    _check_runs_every_tile_once_on_live_keys(b, s, sk, h, causal, window, *tfa.fwd_tile(256))
 
 
 @pytest.mark.parametrize("b,s,h", [(2, 1024, 32), (1, 12288, 4)])

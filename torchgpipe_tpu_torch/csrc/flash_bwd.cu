@@ -49,6 +49,17 @@
 //   times the scale: no atomics, no partials.  The consumers take 240
 //   registers (setmaxnreg), the producer 24.  A warpgroup skips a key tile
 //   that none of its rows attends.
+//   Head dim 256 (Gemma's; bf16/f16, routed here by ops/flash_attention.py
+//   wide_kernel) changes two choices.  Q and dO as register fragments
+//   would be 128 registers a thread beside dQ's 128 f32 accumulators, over
+//   the 240 a consumer has, so S and dP read Q and dO from shared memory
+//   (SS, K-major; RS is off, as at d = 64).  Two Q/dO slots would be 256
+//   KB, so there is one (128 KB: the next tile's Q/dO load waits for this
+//   tile's last S and dP) and a three-stage ring of 32-key K/V tiles (96
+//   KB): S and dP are m64n32k16 chains of 16 k16 steps, dQ += dS K one
+//   m64n256k16 product a k16 step (hopper_tiles.cuh wgmma_rs_n256), and the
+//   work list is fwd_schedule's at keys=32 (ops/flash_attention.py
+//   dq_tile).
 // * flash_bwd_dkv (wgmma on swizzled tiles fed by TMA, hopper_tiles.cuh).
 //   - The schedule.  The causal work of a 128-key tile grows with its
 //     distance from the end, so one block per key tile leaves the launch
@@ -98,31 +109,29 @@ constexpr float LOG2E = 1.4426950408889634f;
 // ---- flash_bwd_dq ----------------------------------------------------------
 
 constexpr int DQ_BQ = 128;       // query rows per tile: two consumer warpgroups of 64
-constexpr int DQ_BK = 64;        // keys per K/V tile
 constexpr int DQ_STAGES = 3;
 constexpr int DQ_THREADS = 384;
 constexpr int DQ_TURN = 1;       // named barriers 1, 2: consumer w's turn to start products
 
-// Q and dO in two slots (the next tile's load while this one runs) and a
-// three-stage K/V ring: 225 KB at d = 128.
+// Up to d = 128: Q and dO in two slots (the next tile's load while this
+// one runs) and a three-stage ring of 64-key K/V tiles, 225 KB at d = 128.
+// At d = 256 two slots alone would be 256 KB: one Q/dO slot (128 KB) and
+// a three-stage ring of 32-key K/V tiles (96 KB), 225 KB again.
 template <int D>
 struct DqSmem {
-  static constexpr int Q_TILE = DQ_BQ * D * 2;   // bytes of Q (or dO)
-  static constexpr int KV_TILE = DQ_BK * D * 2;  // bytes of K (or V)
-  static constexpr int Q = 0;                    // [slot][Q_TILE]
-  static constexpr int DO = 2 * Q_TILE;
-  static constexpr int K = 4 * Q_TILE;           // [stage][KV_TILE]
+  static constexpr int BK = D == 256 ? 32 : 64;    // keys per K/V tile
+  static constexpr int SLOTS = D == 256 ? 1 : 2;   // Q/dO slots
+  static constexpr int Q_TILE = DQ_BQ * D * 2;     // bytes of Q (or dO)
+  static constexpr int KV_TILE = BK * D * 2;       // bytes of K (or V)
+  static constexpr int Q = 0;                      // [slot][Q_TILE]
+  static constexpr int DO = SLOTS * Q_TILE;
+  static constexpr int K = 2 * SLOTS * Q_TILE;     // [stage][KV_TILE]
   static constexpr int V = K + DQ_STAGES * KV_TILE;
   static constexpr int BAR = V + DQ_STAGES * KV_TILE;
-  // q_full[2], q_empty[2], kv_full[S], kv_empty[S]
-  static constexpr int BYTES = BAR + (4 + 2 * DQ_STAGES) * 8;
-  static constexpr int ALLOC = BYTES + 1024;     // room to align the base
+  // q_full[SLOTS], q_empty[SLOTS], kv_full[S], kv_empty[S]
+  static constexpr int BYTES = BAR + (2 * SLOTS + 2 * DQ_STAGES) * 8;
+  static constexpr int ALLOC = BYTES + 1024;       // room to align the base
 };
-
-// One 128-row query tile of a dQ launch: tile i is query tile nqt-1-i/bhn
-// of head i%bhn (ops/flash_attention.py fwd_schedule with rows=128,
-// keys=64).  Its live key tiles are jt0 .. jt0+n-1.
-typedef QueryTile<DQ_BQ, DQ_BK> DqTile;   // n = 0: a windowed tile past the keys (dQ = 0)
 
 template <int D, typename E>
 __global__ void __launch_bounds__(DQ_THREADS, 1)
@@ -135,12 +144,17 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                     int causal, int window) {
   typedef DqSmem<D> L;
   constexpr int NB = D / 64;         // 64-column blocks of a row
-  constexpr int BK = DQ_BK;
+  constexpr int BK = L::BK, SLOTS = L::SLOTS;
+  // One 128-row query tile of a dQ launch: tile i is query tile
+  // nqt-1-i/bhn of head i%bhn (ops/flash_attention.py fwd_schedule with
+  // dq_tile(d)).  Its live key tiles are jt0 .. jt0+n-1 (n = 0: a windowed
+  // tile past the keys, dQ = 0).
+  typedef QueryTile<DQ_BQ, BK> DqTile;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align1024(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::BAR);   // [slot]
-  uint64_t* q_empty = q_full + 2;
-  uint64_t* kv_full = q_empty + 2;
+  uint64_t* q_empty = q_full + SLOTS;
+  uint64_t* kv_full = q_empty + SLOTS;
   uint64_t* kv_empty = kv_full + DQ_STAGES;
   const int bhn = b * h, nqt = (s + DQ_BQ - 1) / DQ_BQ;
   const int first = plan[blockIdx.x], last = plan[blockIdx.x + 1];
@@ -148,7 +162,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
   const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
 
   if (tid == 0) {
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < SLOTS; ++i) {
       mbar_init(&q_full[i], 1);
       mbar_init(&q_empty[i], 8);     // one arrival per consumer warp
     }
@@ -162,15 +176,15 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
 
   if (wg == 2) {
     // Producer: one thread.  Per tile it TMA-loads Q and dO into the
-    // tile's slot (freed by the tile before last), then keeps the K/V ring
+    // tile's slot (freed SLOTS tiles earlier), then keeps the K/V ring
     // running over the tile's live key tiles, across tiles.
     reg_dealloc<24>();
     if (tid != 2 * 128) return;
     int it = 0;
     for (int x = first; x < last; ++x) {
       const DqTile t(tiles[x], bhn, nqt, h, g, s, sk, causal, window);
-      const int xi = x - first, slot = xi & 1;
-      mbar_wait(&q_empty[slot], ((xi >> 1) & 1) ^ 1);
+      const int xi = x - first, slot = xi % SLOTS;
+      mbar_wait(&q_empty[slot], ((xi / SLOTS) & 1) ^ 1);
       mbar_arrive_tx(&q_full[slot], 2 * L::Q_TILE);
       for (int c = 0; c < NB; ++c) {
         const int off = slot * L::Q_TILE + c * DQ_BQ * 128;
@@ -210,7 +224,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
   int it = 0;
   for (int x = first; x < last; ++x) {
     const DqTile t(tiles[x], bhn, nqt, h, g, s, sk, causal, window);
-    const int xi = x - first, slot = xi & 1;
+    const int xi = x - first, slot = xi % SLOTS;
     const int qw0 = t.q0 + 64 * w;
     const int qpos0 = qw0 + warp * 16 + rq;
     // This thread's two rows of lse (log2 units) and delta, read while the
@@ -221,12 +235,14 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
     const float lse1 = qpos0 + 8 < s ? lrow[qpos0 + 8] * LOG2E : 0.f;
     const float dl0 = qpos0 < s ? drow[qpos0] : 0.f;
     const float dl1 = qpos0 + 8 < s ? drow[qpos0 + 8] : 0.f;
-    mbar_wait(&q_full[slot], (xi >> 1) & 1);
+    mbar_wait(&q_full[slot], (xi / SLOTS) & 1);
     // At d = 128, this warp's 16 rows of Q and dO as A fragments of every
     // k16 step, read once per tile through the swizzle; S and dP then read
     // only K and V from shared memory, and the slot goes back to the
     // producer at once.  (At d = 64 the same fragments gave wrong dQ on the
-    // H100, not understood yet; d = 64 reads Q and dO from shared memory.)
+    // H100, not understood yet; d = 64 reads Q and dO from shared memory.
+    // At d = 256 they would be 128 registers a thread beside dQ's 128
+    // accumulators, over the 240 a consumer has: read from shared memory.)
     constexpr bool RS = D == 128;
     const uint32_t qa = base + L::Q + slot * L::Q_TILE + w * 64 * 128;
     const uint32_t oa = base + L::DO + slot * L::Q_TILE + w * 64 * 128;
@@ -261,7 +277,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
       const bool pass = w == 0 || x + 1 < last || j + 1 < t.n;   // arrive after this turn
       bar_sync(me, 256);
       if (!dead) {
-        // S = Q K^T and dP = dO V^T: [64 rows x 64 keys] each.
+        // S = Q K^T and dP = dO V^T: [64 rows x BK keys] each.
         float sc[BK / 2], dp[BK / 2];
         fence_regs(sc);
         fence_regs(dp);
@@ -326,7 +342,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
         if (j + 1 == t.n && lane == 0) mbar_arrive(&q_empty[slot]);   // the tile's last Q/dO read
       }
       if (!dead) {
-        // dQ += dS K (K as [keys, d]: MN-major, the transpose bit).
+        // dQ += dS K (K as [keys, d]: MN-major, the transpose bit; at d = 256
+        // one m64n256k16 product a k16 step).
         fence_regs(dqa);
         wgmma_fence();
 #pragma unroll
@@ -363,9 +380,10 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
               int h, int g, float scale, int causal, int window, cudaStream_t stream) {
   CUtensorMap tq, tdo, tk, tv;
   int e;
+  constexpr int BK = DqSmem<D>::BK;
   if ((e = make_map<E>(&tq, q, D, h, s, b, DQ_BQ)) ||
       (e = make_map<E>(&tdo, dout, D, h, s, b, DQ_BQ)) ||
-      (e = make_map<E>(&tk, k, D, g, sk, b, DQ_BK)) || (e = make_map<E>(&tv, v, D, g, sk, b, DQ_BK)))
+      (e = make_map<E>(&tk, k, D, g, sk, b, BK)) || (e = make_map<E>(&tv, v, D, g, sk, b, BK)))
     return e;
   const int bytes = DqSmem<D>::ALLOC;
   cudaError_t ce = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, E>,
@@ -721,6 +739,9 @@ int dq_entry(const void* q, const void* k, const void* v, const void* dout, cons
   if (d == 64)
     return launch_dq<64, E>(q, k, v, dout, lse, delta, dq, pl, nblocks, b, s, sk, h, g, scale,
                             causal, window, st);
+  if (d == 256)
+    return launch_dq<256, E>(q, k, v, dout, lse, delta, dq, pl, nblocks, b, s, sk, h, g, scale,
+                             causal, window, st);
   return int(cudaErrorInvalidValue);
 }
 
@@ -750,9 +771,10 @@ int dkv_entry(const void* q, const void* k, const void* v, const void* dout, con
 // q, dout, dq [b, s, h, d]; k, v [b, sk, g, d] bf16 contiguous (16-byte
 // aligned); lse, delta [b*h, s] f32 (lse in scaled-score units, as
 // flash_fwd writes it; delta = rowsum(dO * O)).  dq = dS K * scale.
-// window <= 0 means none.  `plan` int32: the work list of
-// ops/flash_attention.py fwd_schedule(rows=128, keys=64), nblocks + 1
-// offsets then the tiles.  Returns 0 or a cudaError_t.
+// window <= 0 means none; d = 64, 128 or 256.  `plan` int32: the work
+// list of ops/flash_attention.py fwd_schedule at dq_tile(d) (rows=128,
+// keys=64; keys=32 at d = 256), nblocks + 1 offsets then the tiles.
+// Returns 0 or a cudaError_t.
 extern "C" int tgt_flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                                      const void* dout, const void* lse, const void* delta,
                                      void* dq, const void* plan, int nblocks, int b, int s,
@@ -804,7 +826,10 @@ extern "C" int tgt_flash_bwd_dkv_f16(const void* q, const void* k, const void* v
 // Dynamic shared memory of one flash_bwd_dq block at head dim d (0: d
 // not taken).
 extern "C" int tgt_flash_bwd_dq_smem_bytes(int d) {
-  return d == 128 ? DqSmem<128>::ALLOC : d == 64 ? DqSmem<64>::ALLOC : 0;
+  return d == 128   ? DqSmem<128>::ALLOC
+         : d == 64  ? DqSmem<64>::ALLOC
+         : d == 256 ? DqSmem<256>::ALLOC
+                    : 0;
 }
 
 // Dynamic shared memory of one flash_bwd_dkv block at head dim d (0: d

@@ -22,11 +22,11 @@
 //   sequence has tiles of 1 .. s/128 key tiles, and a plain round robin
 //   left its busiest block 1.34x the mean at s = 12288.  Three
 //   warpgroups: warpgroup 2 is the producer, one thread issuing TMA loads
-//   (hopper_tiles.cuh) of each Q tile and of 128-key K and V tiles into a
-//   two-stage ring, each on its own mbarrier, with its registers given
+//   (hopper_tiles.cuh) of each Q tile and of 128-key (d = 256: 64-key) K
+//   and V tiles into a two-stage ring, each on its own mbarrier, with its registers given
 //   back (setmaxnreg).  Warpgroups 0 and 1 are the consumers, 64 query
 //   rows each, with 240 registers a thread.
-// * S = Q K^T is one wgmma m64n128k16 chain from shared memory (Q and K
+// * S = Q K^T is one wgmma m64nBKk16 chain from shared memory (Q and K
 //   K-major).  The online softmax runs on the accumulator registers (row
 //   max and sum over a row's four lanes by shuffles); P is packed to bf16
 //   A fragments in place and O += P V runs from registers with V read
@@ -40,6 +40,16 @@
 // * Element type E: bf16 (tgt_flash_fwd_bf16) or float16 (tgt_flash_fwd_f16),
 //   the same kernel with wgmma's f16 form, f16 tensor maps and P packed to
 //   f16; m, l, O and the LSE stay f32 for both.
+// * Head dims 64, 128 and 256 (Gemma's; ops/flash_attention.py routes
+//   bf16/f16 d = 256 here through wide_kernel, other wide dims to
+//   flash_simt.cu).  At d = 256 the K/V tiles are 64 keys (BK_OF): a
+//   128-row Q tile is 64 KB and two stages of 64-key K and V 128 KB, 192 KB
+//   of the 227 KB a block may have, where 128-key tiles would need 320 KB.
+//   Each consumer thread then holds 128 f32 accumulators of O, 32 of S and
+//   16 registers of P under setmaxnreg 240; S = Q K^T is 16 k16 steps of
+//   m64n64k16 across Q's and K's four 64-column blocks, and O += P V one
+//   m64n256k16 product a k16 step (hopper_tiles.cuh wgmma_rs_n256; it
+//   timed within 2% of two m64n128k16 halves, PERF.md).
 // Causal tiles above the diagonal and, with a window, tiles below the band
 // are never loaded; element masks run only on tiles that straddle an edge.
 // Rows and keys past the end arrive as zeros from TMA and are masked.  A
@@ -58,15 +68,21 @@ namespace {
 using namespace hopper;
 
 constexpr int BQ = 128;              // query rows per block (two warpgroups)
-constexpr int BK = 128;              // keys per K/V tile
+// Keys per K/V tile: 128 up to d = 128; 64 at d = 256, where 128-key
+// tiles in two stages would need 320 KB of shared memory.
+template <int D>
+constexpr int BK_OF = D == 256 ? 64 : 128;
 constexpr int STAGES = 2;
 constexpr int THREADS = 384;
 constexpr int BAR_TURN = 1;          // named barriers 1, 2: consumer w's turn
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
+// d = 128: Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB; d = 256: Q 64 KB
+// + 2 x (K 32 KB + V 32 KB) = 192 KB.
 template <int D>
 struct FwdSmem {
+  static constexpr int BK = BK_OF<D>;
   static constexpr int Q_TILE = BQ * D * 2;   // bytes
   static constexpr int KV_TILE = BK * D * 2;
   static constexpr int Q = 0;
@@ -80,7 +96,7 @@ struct FwdSmem {
 
 // sacc = Q K^T for one warpgroup: Q rows at `qa`, a K tile at `ka`, both
 // K-major; committed as one group.
-template <int D, typename E>
+template <int D, int BK, typename E>
 __device__ __forceinline__ void qk_product(float (&sacc)[BK / 2], uint32_t qa, uint32_t ka) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
@@ -94,7 +110,7 @@ __device__ __forceinline__ void qk_product(float (&sacc)[BK / 2], uint32_t qa, u
 // One consumer warpgroup's online-softmax state: the O accumulator, the
 // row max m (raw scores) and sum l of its thread's two rows, and P of the
 // current tile as A fragments.
-template <int D, typename E>
+template <int D, int BK, typename E>
 struct Softmax {
   float o[D / 2];
   float m[2], l[2];
@@ -107,7 +123,7 @@ struct Softmax {
     l[0] = l[1] = 0.f;
   }
 
-  // Masks S (keys k0 .. k0+127, rows qpos0 and +8) where `edge`, updates
+  // Masks S (keys k0 .. k0+BK-1, rows qpos0 and +8) where `edge`, updates
   // m and l, rescales O and packs P = exp2(S * sl2 - m * sl2) to E.
   // A masked score is -inf (p = 0); a row with every key masked so far
   // keeps m = -inf and its exponent offset at 0 (FlashAttention-2's rule).
@@ -162,7 +178,8 @@ struct Softmax {
     l[1] = l1;
   }
 
-  // O += P V for a V tile at `va` (MN-major), committed as one group.
+  // O += P V for a V tile at `va` (MN-major), committed as one group; at
+  // d = 256 one m64n256k16 product a k16 step, 128 accumulators a thread.
   __device__ __forceinline__ void pv_product(uint32_t va) {
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
@@ -173,9 +190,6 @@ struct Softmax {
   __device__ __forceinline__ void fence() { fence_regs(o); }
 };
 
-// One 128-row query tile of a launch (n >= 1: the diagonal tile is live).
-typedef QueryTile<BQ, BK> Tile;
-
 template <int D, typename E>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
@@ -183,7 +197,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
                  float* __restrict__ lse, const int* __restrict__ plan, int b, int s, int sk,
                  int h, int g, float scale, int causal, int window) {
   typedef FwdSmem<D> L;
+  constexpr int BK = L::BK;
   constexpr int NB = D / 64;         // 64-column blocks of a row
+  // One 128-row query tile of a launch (n >= 1: the diagonal tile is live).
+  typedef QueryTile<BQ, BK> Tile;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align1024(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + L::BAR);
@@ -257,7 +274,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   const int me = BAR_TURN + w, other = BAR_TURN + (w ^ 1);
   const size_t qstride = size_t(h) * D;
 
-  Softmax<D, E> sm_state;
+  Softmax<D, BK, E> sm_state;
   float sacc[BK / 2];
   int it = 0;
   uint32_t qph = 0;
@@ -280,7 +297,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
       bar_sync(me, 256);
       fence_regs(sacc);
       wgmma_fence();
-      qk_product<D, E>(sacc, qa, base + L::K + st * L::KV_TILE);
+      qk_product<D, BK, E>(sacc, qa, base + L::K + st * L::KV_TILE);
       bar_arrive(other, 256);
       wgmma_wait<0>();
       fence_regs(sacc);
@@ -312,7 +329,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
         fence_regs(sacc);
         wgmma_fence();
         sm_state.pv_product(va);
-        qk_product<D, E>(sacc, qa, base + L::K + st1 * L::KV_TILE);
+        qk_product<D, BK, E>(sacc, qa, base + L::K + st1 * L::KV_TILE);
         bar_arrive(other, 256);
         wgmma_wait<0>();
         sm_state.fence();
@@ -367,6 +384,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, cons
            cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int e;
+  constexpr int BK = BK_OF<D>;
   if ((e = make_map<E>(&tq, q, D, h, s, b, BQ)) || (e = make_map<E>(&tk, k, D, g, sk, b, BK)) ||
       (e = make_map<E>(&tv, v, D, g, sk, b, BK)))
     return e;
@@ -392,6 +410,8 @@ int forward(const void* q, const void* k, const void* v, void* o, void* lse, con
     return launch<128, E>(q, k, v, o, lse, pl, nblocks, b, s, sk, h, g, scale, causal, window, st);
   if (d == 64)
     return launch<64, E>(q, k, v, o, lse, pl, nblocks, b, s, sk, h, g, scale, causal, window, st);
+  if (d == 256)
+    return launch<256, E>(q, k, v, o, lse, pl, nblocks, b, s, sk, h, g, scale, causal, window, st);
   return int(cudaErrorInvalidValue);
 }
 
@@ -421,5 +441,8 @@ extern "C" int tgt_flash_fwd_f16(const void* q, const void* k, const void* v, vo
 
 // Dynamic shared memory of one block at head dim d (0: d not taken).
 extern "C" int tgt_flash_fwd_smem_bytes(int d) {
-  return d == 128 ? FwdSmem<128>::ALLOC : d == 64 ? FwdSmem<64>::ALLOC : 0;
+  return d == 128   ? FwdSmem<128>::ALLOC
+         : d == 64  ? FwdSmem<64>::ALLOC
+         : d == 256 ? FwdSmem<256>::ALLOC
+                    : 0;
 }

@@ -3,9 +3,12 @@
 // instantiation for:
 //
 // * float32 q/k/v at a head dim TMA cannot map (d % 4 != 0, up to 128),
-//   and bf16, float16 or float32 q/k/v at head dims 129 to 256 (Gemma's
-//   256): the forward (O and the per-row logsumexp), dQ, and dK/dV summed
-//   over each kv head's query heads.  Replaces:
+//   and wide head dims: the forward (O and the per-row logsumexp) and dQ
+//   in bf16 or float16 at head dims 129 to 255 and in float32 at 129 to
+//   256 (bf16 and float16 at exactly 256, Gemma's, run flash_fwd.cu's and
+//   flash_bwd.cu's d = 256 instantiations: ops/flash_attention.py
+//   wide_kernel), and dK/dV summed over each kv head's query heads at
+//   every wide head dim in all three types.  Replaces:
 //   torchgpipe_tpu/ops/flash_attention.py:_fwd_kernel, :_dq_kernel and
 //   :_dkv_kernel at those shapes (the Pallas kernels take any d % 128 == 0
 //   and load their operands `.astype(jnp.float32)`), which the wgmma
@@ -46,8 +49,8 @@
 // Bounds (H100): the forward and backward do ~4 (fwd) and ~10 (bwd)
 // FLOPs per (query, key, dim) against 67 TFLOP/s of f32 FMA; decode reads
 // the live K and V prefix once per query head and row, against 3.35 TB/s
-// for the bytes it must move (once).  A tensor-core design at d = 256 is a
-// later step (ROADMAP B).
+// for the bytes it must move (once).  Tensor-core designs of dK/dV and the
+// decode at d = 256 are later steps (ROADMAP B follow-up 11).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>

@@ -9,6 +9,10 @@
 //              registers, B MN-major from shared memory with the transpose
 //              bit (O += P V, dV += P^T dO); `block` is the descriptor's
 //              column block stride (64 rows x 128 bytes in the kernels).
+//   mode 4:    as mode 0 at N = 32 (S = Q K^T of the d = 256 dQ kernel's
+//              32-key tiles).
+//   mode 5:    as mode 2 at N = 256, B over four column blocks (O += P V
+//              and dQ += dS K at d = 256: one m64n256k16 product a step).
 // A and B are bf16 row-major, C float32 row-major.
 
 #include "hopper_tiles.cuh"
@@ -119,36 +123,42 @@ int smem_attr(K kernel, int bytes) {
 }  // namespace
 
 // a, b bf16 and c float32 (shapes per mode, above); block: the MN-major
-// descriptor's column block stride in bytes (modes 2, 3).  Returns
+// descriptor's column block stride in bytes (modes 2, 3, 5).  Returns
 // cudaGetLastError().
 extern "C" int tgt_hopper_selftest(int mode, const void* a, const void* b, void* c, int block,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* out = static_cast<float*>(c);
   CUtensorMap ta, tb;
-  const int n = (mode % 2) ? 128 : 64;
+  const int n = mode == 4 ? 32 : mode == 5 ? 256 : (mode % 2) ? 128 : 64;
   int e = 0;
-  if (mode < 2) {
+  if (mode < 2 || mode == 4) {
     const int bytes = 1024 + 2 * (64 + n) * 128 + 8;
     if ((e = make_map(&ta, a, 128, 1, 64, 1, 64)) || (e = make_map(&tb, b, 128, 1, n, 1, n)))
       return e;
-    if (n == 64) {
+    if (n == 32) {
+      if ((e = smem_attr(selftest_ss<32>, bytes))) return e;
+      selftest_ss<32><<<1, 128, bytes, st>>>(ta, tb, out);
+    } else if (n == 64) {
       if ((e = smem_attr(selftest_ss<64>, bytes))) return e;
       selftest_ss<64><<<1, 128, bytes, st>>>(ta, tb, out);
     } else {
       if ((e = smem_attr(selftest_ss<128>, bytes))) return e;
       selftest_ss<128><<<1, 128, bytes, st>>>(ta, tb, out);
     }
-  } else if (mode < 4) {
+  } else if (mode < 6) {
     const int bytes = 1024 + n * 128 + 8;
     if ((e = make_map(&tb, b, n, 1, 64, 1, 64))) return e;
     const __nv_bfloat16* pa = static_cast<const __nv_bfloat16*>(a);
     if (n == 64) {
       if ((e = smem_attr(selftest_rs<64>, bytes))) return e;
       selftest_rs<64><<<1, 128, bytes, st>>>(pa, tb, out, block);
-    } else {
+    } else if (n == 128) {
       if ((e = smem_attr(selftest_rs<128>, bytes))) return e;
       selftest_rs<128><<<1, 128, bytes, st>>>(pa, tb, out, block);
+    } else {
+      if ((e = smem_attr(selftest_rs<256>, bytes))) return e;
+      selftest_rs<256><<<1, 128, bytes, st>>>(pa, tb, out, block);
     }
   } else {
     return int(cudaErrorInvalidValue);

@@ -40,7 +40,9 @@ axis) because of VMEM size; on Hopper one tile loop serves every length.
   is not a multiple of 16 bytes.  :func:`flash_attention_wide` (with
   :func:`flash_bwd_dq_wide` and :func:`flash_bwd_dkv_wide`) and
   :func:`flash_decode_wide` launch the same kernels at head dims 129 to
-  256 (Gemma's 256) in bfloat16, float16 or float32.
+  256 in bfloat16, float16 or float32, except the forward and dQ at head
+  dim 256 (Gemma's) in bfloat16 or float16, which run the tensor-core
+  kernels' d=256 instantiation (:func:`wide_kernel`).
 * :func:`attention_route` says which of these a shape runs on (a
   bfloat16 head dim below 128 is zero-padded for the tensor-core
   kernels); :func:`attention` and :func:`decode_attention` follow it.
@@ -54,9 +56,11 @@ inputs lie on the CPU, or on the meta device, where nothing runs and
 launches in its ``launches`` attribute; the decode wrapper keeps one
 count per variant, ``launches`` for a bf16/float32 cache and
 ``launches_int8`` for an int8 cache, and adds one to exactly one of them
-a launch.  A launch recorded into a CUDA graph capture is not counted
-(its replays launch the kernel without the wrapper; ``chip_smoke.py``
-counts those from a profile).  The plain versions never touch them.  :func:`reset_launches`
+a launch; so do the wide forward and dQ wrappers, ``launches`` for
+``csrc/flash_simt.cu`` and ``launches_d256`` for the tensor-core kernels.
+A launch recorded into a CUDA graph capture is not counted (its replays
+launch the kernel without the wrapper; ``chip_smoke.py`` counts those
+from a profile).  The plain versions never touch them.  :func:`reset_launches`
 sets every count to 0.
 """
 
@@ -264,9 +268,12 @@ def supports(
     q_shape: Tuple[int, ...], k_shape: Tuple[int, ...],
     dtype: torch.dtype = torch.bfloat16,
 ) -> bool:
-    """Whether ``csrc/flash_fwd.cu`` takes these shapes: bfloat16 or
-    float16, head dim 64 or 128, ``h`` a multiple of ``g``.  Any sequence
-    length (the ragged last tile is masked)."""
+    """Whether ``csrc/flash_fwd.cu`` takes these shapes on the kernel
+    route: bfloat16 or float16, head dim 64 or 128, ``h`` a multiple of
+    ``g``.  Any sequence length (the ragged last tile is masked).  Its
+    head-dim-256 instantiation (and ``csrc/flash_bwd.cu``'s dQ) runs on
+    the wide route (:func:`supports_wide`, :func:`wide_kernel`), beside
+    the CUDA-core dK/dV and decode there."""
     b, s, h, d = q_shape
     g = k_shape[2]
     return (
@@ -333,24 +340,41 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
 # --------------------------------------------------------------------- #
 
 FWD_ROWS = 128     # query rows per forward tile (csrc/flash_fwd.cu BQ)
-FWD_KEYS = 128     # keys per K/V tile (BK)
+FWD_KEYS = 128     # keys per K/V tile (BK_OF) up to head dim 128
 DQ_ROWS = 128      # query rows per dQ tile (csrc/flash_bwd.cu DQ_BQ)
-DQ_KEYS = 64       # keys per dQ K/V tile (DQ_BK)
+DQ_KEYS = 64       # keys per dQ K/V tile (DqSmem::BK) up to head dim 128
+# Head dim 256 on the tensor-core forward and dQ (the wide route's "tc"
+# kernels, :func:`wide_kernel`): smaller K/V tiles, so that a block's
+# tiles fit its 227 KB of shared memory.
+TC_WIDE_HEAD_DIM = 256
+FWD_KEYS_D256 = 64
+DQ_KEYS_D256 = 32
 
 
-def _fwd_live_tiles(q0: int, s: int, sk: int, causal: bool,
-                    window: Optional[int], rows: int = FWD_ROWS,
-                    keys: int = FWD_KEYS) -> int:
-    """Key tiles the query tile of ``rows`` rows from ``q0`` reads (the
-    kernels' ``Tile``/``DqTile``): up to the diagonal, from the window's
-    first."""
+def fwd_tile(d: int) -> Tuple[int, int]:
+    """``(rows, keys)`` of ``csrc/flash_fwd.cu``'s tiles at head dim ``d``."""
+    return FWD_ROWS, FWD_KEYS_D256 if d == TC_WIDE_HEAD_DIM else FWD_KEYS
+
+
+def dq_tile(d: int) -> Tuple[int, int]:
+    """``(rows, keys)`` of ``csrc/flash_bwd.cu``'s dQ tiles at head dim
+    ``d``."""
+    return DQ_ROWS, DQ_KEYS_D256 if d == TC_WIDE_HEAD_DIM else DQ_KEYS
+
+
+def fwd_key_tiles(q0: int, s: int, sk: int, causal: bool,
+                  window: Optional[int], rows: int = FWD_ROWS,
+                  keys: int = FWD_KEYS) -> Tuple[int, int]:
+    """``(first, n)``: the key tiles ``first .. first+n-1`` that the query
+    tile of ``rows`` rows from ``q0`` reads (csrc/hopper_tiles.cuh
+    ``QueryTile``): up to the diagonal, from the window's first."""
     nkt = -(-sk // keys)
     first = 0
     if causal:
         nkt = min(nkt, (min(q0 + rows, s) - 1) // keys + 1)
         if window is not None:
             first = max(q0 - (window - 1), 0) // keys
-    return max(nkt - first, 0)
+    return first, max(nkt - first, 0)
 
 
 def fwd_schedule(
@@ -359,7 +383,8 @@ def fwd_schedule(
 ) -> Tuple[List[int], List[int]]:
     """``(offsets, tiles)`` of a persistent kernel over query tiles of
     ``rows`` rows and K/V tiles of ``keys`` keys (the forward's 128/128 by
-    default; ``flash_bwd_dq`` takes :data:`DQ_ROWS`/:data:`DQ_KEYS`):
+    default; the kernels take :func:`fwd_tile` and :func:`dq_tile` of their
+    head dim):
     block ``i`` runs ``tiles[offsets[i]:offsets[i+1]]``.  Tile ``t`` is
     query tile ``nqt-1-t//(b*h)`` of head ``t % (b*h)``.  Longest
     processing time first: tiles sorted by their key-tile count (plus one
@@ -370,8 +395,8 @@ def fwd_schedule(
     bhn = b * h
     n = nqt * bhn
     blocks = min(n_sms, n)
-    cost = [_fwd_live_tiles((nqt - 1 - t // bhn) * rows, s, sk, causal,
-                            window, rows, keys) + 1 for t in range(n)]
+    cost = [fwd_key_tiles((nqt - 1 - t // bhn) * rows, s, sk, causal,
+                          window, rows, keys)[1] + 1 for t in range(n)]
     heap = [(0, i) for i in range(blocks)]
     lists: List[List[int]] = [[] for _ in range(blocks)]
     for t in sorted(range(n), key=lambda t: (-cost[t], t)):
@@ -582,8 +607,6 @@ def _flash_fwd(
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     _check_cuda("flash_attention", q, k, v)
     _check_tma("flash_attention", q, k, v)
-    b, s, h, d = q.shape
-    sk, g = k.shape[1], k.shape[2]
     _check_fwd_dtype(q, k, v)
     if not supports(q.shape, k.shape, q.dtype) or v.shape != k.shape:
         raise ValueError(
@@ -591,9 +614,20 @@ def _flash_fwd(
             f"{tuple(k.shape)}, v {tuple(v.shape)}: head dim must be one "
             f"of {FWD_HEAD_DIMS} and h a multiple of g"
         )
+    out = _tc_fwd("flash_fwd", q, k, v, causal, sm_scale, window)
+    _count(flash_attention)
+    return out
+
+
+def _tc_fwd(what, q, k, v, causal, sm_scale, window):
+    """``(out, lse)`` from ``csrc/flash_fwd.cu`` (checked CUDA tensors of
+    one 16-bit type, at an instantiated head dim)."""
+    b, s, h, d = q.shape
+    sk, g = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
     lse = torch.empty((b * h, s), dtype=torch.float32, device=q.device)
-    plan, nblocks = _fwd_plan(q.device, b, s, sk, h, bool(causal), window)
+    plan, nblocks = _fwd_plan(q.device, b, s, sk, h, bool(causal), window,
+                              tile=fwd_tile(d))
     fn = _build.function("flash_fwd", f"tgt_flash_fwd_{_HALF_TYPES[q.dtype]}",
                          _FWD_ARGS)
     rc = fn(
@@ -601,8 +635,7 @@ def _flash_fwd(
         b, s, sk, h, g, d, float(sm_scale), int(causal),
         0 if window is None else int(window), _stream(q),
     )
-    _build.check(rc, "flash_fwd")
-    _count(flash_attention)
+    _build.check(rc, what)
     return o, lse
 
 
@@ -648,11 +681,22 @@ def flash_bwd_dq(
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd_dq: unsupported device {q.device}")
     _check_bwd("flash_bwd_dq", q, k, v, do, lse, delta)
+    dq = _tc_dq("flash_bwd_dq", q, k, v, do, lse, delta, causal, sm_scale, window)
+    _count(flash_bwd_dq)
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def _tc_dq(what, q, k, v, do, lse, delta, causal, sm_scale, window):
+    """dQ from ``csrc/flash_bwd.cu`` (checked CUDA tensors of one 16-bit
+    type, at an instantiated head dim)."""
     b, s, h, d = q.shape
     sk, g = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
     plan, nblocks = _fwd_plan(q.device, b, s, sk, h, bool(causal), window,
-                              tile=(DQ_ROWS, DQ_KEYS))
+                              tile=dq_tile(d))
     fn = _build.function("flash_bwd", f"tgt_flash_bwd_dq_{_HALF_TYPES[q.dtype]}",
                          _BWD_DQ_ARGS)
     rc = fn(
@@ -660,12 +704,8 @@ def flash_bwd_dq(
         _ptr(plan), nblocks, b, s, sk, h, g, d, float(sm_scale), int(causal),
         0 if window is None else int(window), _stream(q),
     )
-    _build.check(rc, "flash_bwd_dq")
-    _count(flash_bwd_dq)
+    _build.check(rc, what)
     return dq
-
-
-flash_bwd_dq.launches = 0
 
 
 def flash_bwd_dkv(
@@ -938,15 +978,26 @@ def supports_wide(
     q_shape: Tuple[int, ...], k_shape: Tuple[int, ...],
     dtype: torch.dtype = torch.bfloat16,
 ) -> bool:
-    """Whether ``csrc/flash_simt.cu`` takes these shapes on the wide route:
-    bfloat16, float16 or float32, a head dim from 129 to 256, ``h`` a
-    multiple of ``g``."""
+    """Whether the wide route takes these shapes: bfloat16, float16 or
+    float32, a head dim from 129 to 256, ``h`` a multiple of ``g``.
+    :func:`wide_kernel` says which kernels run them."""
     b, s, h, d = q_shape
     g = k_shape[2]
     return (
         dtype in _SIMT_TYPES and SIMT_HEAD_DIM_MAX < d <= WIDE_HEAD_DIM_MAX
         and g > 0 and h % g == 0 and k_shape[3] == d
     )
+
+
+def wide_kernel(q_shape: Tuple[int, ...], dtype: torch.dtype) -> str:
+    """Which kernels a wide-route shape's forward and dQ run on: ``"tc"``,
+    the tensor-core kernels of ``csrc/flash_fwd.cu`` and
+    ``csrc/flash_bwd.cu`` at their head-dim-256 instantiation (bfloat16 or
+    float16 at head dim exactly 256, Gemma's), or ``"simt"``, the CUDA-core
+    kernels of ``csrc/flash_simt.cu`` (float32, and the other head dims
+    from 129 to 255).  dK/dV and the decode run on ``flash_simt.cu`` at
+    every wide shape."""
+    return "tc" if dtype in _HALF_TYPES and q_shape[-1] == TC_WIDE_HEAD_DIM else "simt"
 
 
 def _decode_dims_ok(q_shape, k_shape, window, dtype, lo: int, hi: int) -> bool:
@@ -1165,15 +1216,23 @@ def _flash_fwd_wide(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     sm_scale: float, window: Optional[int],
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(out, lse)`` at a head dim from 129 to 256: ``csrc/flash_simt.cu``
-    on CUDA tensors, the plain version on CPU tensors."""
+    """``(out, lse)`` at a head dim from 129 to 256 on the kernel
+    :func:`wide_kernel` names (``csrc/flash_fwd.cu`` at d=256 in bfloat16
+    or float16, counted in ``flash_attention_wide.launches_d256``;
+    ``csrc/flash_simt.cu`` otherwise, in ``launches``) for CUDA tensors,
+    the plain version for CPU tensors."""
     if q.device.type in _PLAIN_DEVICES:
         return _reference_fwd(q, k, v, causal, sm_scale, window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_wide: unsupported device {q.device}")
     _check_wide("flash_fwd_wide", q, k, v)
-    out = _simt_fwd("flash_fwd_wide", q, k, v, causal, sm_scale, window)
-    _count(flash_attention_wide)
+    if wide_kernel(q.shape, q.dtype) == "tc":
+        _check_tma("flash_fwd_wide", q, k, v)
+        out = _tc_fwd("flash_fwd_wide", q, k, v, causal, sm_scale, window)
+        _count(flash_attention_wide, "launches_d256")
+    else:
+        out = _simt_fwd("flash_fwd_wide", q, k, v, causal, sm_scale, window)
+        _count(flash_attention_wide)
     return out
 
 
@@ -1182,8 +1241,10 @@ def flash_bwd_dq_wide(
     lse: torch.Tensor, delta: torch.Tensor, *, causal: bool, sm_scale: float,
     window: Optional[int],
 ) -> torch.Tensor:
-    """dQ of :func:`flash_attention_wide` (its element type):
-    ``csrc/flash_simt.cu`` on CUDA tensors, the plain version on CPU
+    """dQ of :func:`flash_attention_wide` (its element type) on the kernel
+    :func:`wide_kernel` names (``csrc/flash_bwd.cu`` at d=256 in bfloat16
+    or float16, counted in ``launches_d256``; ``csrc/flash_simt.cu``
+    otherwise, in ``launches``) for CUDA tensors, the plain version for CPU
     tensors."""
     if q.device.type == "cpu":
         return _reference_grads(
@@ -1192,13 +1253,20 @@ def flash_bwd_dq_wide(
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd_dq_wide: unsupported device {q.device}")
     _check_wide("flash_bwd_dq_wide", q, k, v, do, lse, delta)
-    dq = _simt_dq("flash_bwd_dq_wide", q, k, v, do, lse, delta, causal,
-                  sm_scale, window)
-    _count(flash_bwd_dq_wide)
+    if wide_kernel(q.shape, q.dtype) == "tc":
+        _check_tma("flash_bwd_dq_wide", q, k, v, do)
+        dq = _tc_dq("flash_bwd_dq_wide", q, k, v, do, lse, delta, causal,
+                    sm_scale, window)
+        _count(flash_bwd_dq_wide, "launches_d256")
+    else:
+        dq = _simt_dq("flash_bwd_dq_wide", q, k, v, do, lse, delta, causal,
+                      sm_scale, window)
+        _count(flash_bwd_dq_wide)
     return dq
 
 
 flash_bwd_dq_wide.launches = 0
+flash_bwd_dq_wide.launches_d256 = 0
 
 
 def flash_bwd_dkv_wide(
@@ -1225,9 +1293,9 @@ flash_bwd_dkv_wide.launches = 0
 
 
 class _FlashAttentionWide(torch.autograd.Function):
-    """:class:`_FlashAttention` at head dims 129 to 256: forward and
-    backward through ``csrc/flash_simt.cu``, or the plain version on the
-    CPU."""
+    """:class:`_FlashAttention` at head dims 129 to 256: forward, dQ
+    and dK/dV through the kernels :func:`wide_kernel` names, or the plain
+    version on the CPU."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale, window):
@@ -1247,14 +1315,16 @@ def flash_attention_wide(
     window: Optional[int] = None,
 ) -> torch.Tensor:
     """:func:`flash_attention` at a head dim from 129 to 256 (Gemma's 256)
-    in bfloat16, float16 or float32, on the CUDA cores.  Differentiable
-    in ``q``, ``k`` and ``v``."""
+    in bfloat16, float16 or float32: on the CUDA cores, except the forward
+    and dQ at d=256 in bfloat16 or float16 (the tensor cores,
+    :func:`wide_kernel`).  Differentiable in ``q``, ``k`` and ``v``."""
     sm_scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
     _validate_window(causal, window)
     return _FlashAttentionWide.apply(q, k, v, causal, sm_scale, window)
 
 
 flash_attention_wide.launches = 0
+flash_attention_wide.launches_d256 = 0
 
 
 def _decode_simt_call(fn, what, gate, dims, q, ck, cv, pos0, window,
@@ -1652,7 +1722,8 @@ class Route(NamedTuple):
     ``"f32"`` (float32: the 3xTF32 forward of ``csrc/flash_fwd_tf32.cu``
     with the 3xTF32 backward of ``csrc/flash_bwd_tf32.cu``), ``"simt"`` (the CUDA-core
     kernels of ``csrc/flash_simt.cu``, for rows TMA cannot map),
-    ``"wide"`` (the same kernels at head dims 129 to 256) or ``"none"``
+    ``"wide"`` (head dims 129 to 256: the same kernels, or the tensor-core
+    forward and dQ at d=256, :func:`wide_kernel`) or ``"none"``
     (no kernel takes it: the plain version on the CPU, refused on the
     card); ``head_dim`` is the dim the work runs at."""
 
@@ -1678,8 +1749,9 @@ def attention_route(
     zero output columns, sliced off); float32 up to d=128 runs the 3xTF32
     forward and backward (:func:`supports_tf32`: ``d % 4 == 0``) or, at
     other dims, the CUDA-core forward and backward.  Head dims from 129 to
-    256 (Gemma's 256) run the CUDA-core kernels in bfloat16, float16 or
-    float32 (``"wide"``).  Decode (``decode=True``, the cache in
+    256 run the CUDA-core kernels in bfloat16, float16 or float32
+    (``"wide"``), except the forward and dQ at 256 (Gemma's) in bfloat16
+    or float16, which run the tensor-core kernels (:func:`wide_kernel`).  Decode (``decode=True``, the cache in
     ``cache_dtype``): a :func:`supports_decode` shape (any head dim up to
     128 whose cache row is a multiple of 16 bytes) runs the tensor-core
     decode, any other head dim up to 128 the CUDA-core one, head dims 129
@@ -1791,3 +1863,4 @@ def reset_launches() -> None:
                flash_decode_wide):
         fn.launches = 0
     flash_decode_attention.launches_int8 = 0
+    flash_attention_wide.launches_d256 = flash_bwd_dq_wide.launches_d256 = 0
