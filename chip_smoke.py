@@ -244,7 +244,7 @@ they need) and prints no kernels line; by default every phase runs:
 24. fleet (run after 9b, on phase 6's model, shared by every replica):
    ``fleet.Router`` over two ``Engine`` replicas (phase 9's
    configuration, each with its own pool and captured programs, warmed
-   up first) on a seeded ``fleet.synthetic_trace`` of 48 requests (4
+   up first) on a seeded ``fleet.synthetic_trace`` of 32 requests (4
    tenants, 256-512-token system prompts), a FlightRecorder on each
    replica and the router; replica r0 dies mid-trace
    (``faults.inject(die_at_step=...)``) and its requests resume on r1
@@ -405,10 +405,14 @@ KERNEL_FUNCS = {
     "flash_bwd_dkv_f16": ("flash_bwd", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_sum_kernel")),
     "flash_decode_f16": ("flash_decode", ("flash_decode_kernel", "flash_decode_merge")),
     # head dims 129-256: flash_simt.cu's kernels at eight lanes a row,
-    # except the forward and dQ at d=256 in bf16/f16 (the wide route's
-    # "tc" kernels: flash_fwd_kernel<256, .> and flash_bwd_dq_kernel<256, .>).
+    # except at d=256 with bf16/f16 operands or caches (and int8 caches):
+    # the wide route's "tc" kernels, flash_fwd_kernel<256, .>,
+    # flash_bwd_dq_kernel<256, .>, flash_bwd_dkv_kernel<256, .> and
+    # flash_decode_kernel<., ., 256, .>.
     "flash_fwd_d256": ("flash_fwd", ("flash_fwd_kernel",)),
     "flash_bwd_dq_d256": ("flash_bwd", ("flash_bwd_dq_kernel",)),
+    "flash_bwd_dkv_d256": ("flash_bwd", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_sum_kernel")),
+    "flash_decode_d256": ("flash_decode", ("flash_decode_kernel", "flash_decode_merge")),
     "flash_fwd_wide": ("flash_simt", ("fwd_simt_kernel",)),
     "flash_bwd_dq_wide": ("flash_simt", ("dq_simt_kernel",)),
     "flash_bwd_dkv_wide": ("flash_simt", ("dkv_simt_kernel",)),
@@ -418,11 +422,12 @@ KERNEL_FUNCS = {
 # (wgmma) and UTMALDG (TMA tensor loads); the decode kernel's scores run on
 # mma.sync (HMMA) for bf16, f16 and int8 caches (an f32 cache keeps f32
 # products on the CUDA cores: no HMMA there).  SASS_COUNT: instantiations
-# each must show (d = 64, 128 and 256 times bf16 and f16 for flash_fwd and
-# flash_bwd_dq, d = 64 and 128 for flash_bwd_dkv; the 3xTF32 kernels d =
-# 64 and 128; decode: six
-# query/cache type pairs x two tile dims x four row counts, any head dim
-# up to 128 running on one of the two tile dims).
+# each must show (d = 64, 128 and 256 times bf16 and f16 for flash_fwd,
+# flash_bwd_dq and flash_bwd_dkv; the 3xTF32 kernels d = 64 and 128;
+# decode: six query/cache type pairs x two tile dims x four row counts,
+# any head dim up to 128 running on one of the two tile dims, and the
+# five pairs whose cache is 16-bit or int8 x four row counts at the 256
+# tile dim).
 SASS_REQUIRED = {"flash_fwd": {"flash_fwd_kernel": ("HGMMA", "UTMALDG")},
                  "flash_bwd": {"flash_bwd_dkv_kernel": ("HGMMA", "UTMALDG"),
                                "flash_bwd_dq_kernel": ("HGMMA", "UTMALDG")},
@@ -430,8 +435,8 @@ SASS_REQUIRED = {"flash_fwd": {"flash_fwd_kernel": ("HGMMA", "UTMALDG")},
                  "flash_fwd_tf32": {"flash_fwd_tf32_kernel": ("HGMMA", "UTMALDG")},
                  "flash_bwd_tf32": {"flash_bwd_dq_tf32_kernel": ("HGMMA", "UTMALDG"),
                                     "flash_bwd_dkv_tf32_kernel": ("HGMMA", "UTMALDG")}}
-SASS_COUNT = {"flash_fwd_kernel": 6, "flash_bwd_dkv_kernel": 4, "flash_bwd_dq_kernel": 6,
-              "flash_decode_kernel": 48, "flash_fwd_tf32_kernel": 2,
+SASS_COUNT = {"flash_fwd_kernel": 6, "flash_bwd_dkv_kernel": 6, "flash_bwd_dq_kernel": 6,
+              "flash_decode_kernel": 68, "flash_fwd_tf32_kernel": 2,
               "flash_bwd_dq_tf32_kernel": 2, "flash_bwd_dkv_tf32_kernel": 2}
 
 
@@ -518,6 +523,7 @@ def smem_dynamic(build):
     dq = build.function("flash_bwd", "tgt_flash_bwd_dq_smem_bytes", [ctypes.c_int])
     dkv = build.function("flash_bwd", "tgt_flash_bwd_dkv_smem_bytes", [ctypes.c_int])
     dec = build.function("flash_decode", "tgt_flash_decode_smem_bytes", [])
+    dec256 = build.function("flash_decode", "tgt_flash_decode_d256_smem_bytes", [])
     simt = build.function("flash_simt", "tgt_flash_simt_smem_bytes", [ctypes.c_int] * 2)
     tf32 = build.function("flash_fwd_tf32", "tgt_flash_fwd_tf32_smem_bytes", [ctypes.c_int])
     dq_tf32 = build.function("flash_bwd_tf32", "tgt_flash_bwd_dq_tf32_smem_bytes", [ctypes.c_int])
@@ -530,7 +536,8 @@ def smem_dynamic(build):
             "flash_bwd_dq_f32": simt(1, 128), "flash_bwd_dkv_f32": simt(2, 128),
             "flash_fwd_f16": fwd(128), "flash_bwd_dq_f16": dq(128),
             "flash_bwd_dkv_f16": dkv(128), "flash_fwd_d256": fwd(256),
-            "flash_bwd_dq_d256": dq(256), "flash_fwd_wide": simt(0, 256),
+            "flash_bwd_dq_d256": dq(256), "flash_bwd_dkv_d256": dkv(256),
+            "flash_decode_d256": dec256(), "flash_fwd_wide": simt(0, 256),
             "flash_bwd_dq_wide": simt(1, 256), "flash_bwd_dkv_wide": simt(2, 256)}
 
 
@@ -1233,6 +1240,8 @@ def kernel_launches(tfa):
             "flash_bwd_dq_d256": tfa.flash_bwd_dq_wide.launches_d256,
             "flash_fwd_wide": tfa.flash_attention_wide.launches,
             "flash_bwd_dq_wide": tfa.flash_bwd_dq_wide.launches,
+            "flash_bwd_dkv_d256": tfa.flash_bwd_dkv_wide.launches_d256,
+            "flash_decode_d256": tfa.flash_decode_wide.launches_d256,
             "flash_bwd_dkv_wide": tfa.flash_bwd_dkv_wide.launches,
             "flash_decode_wide": tfa.flash_decode_wide.launches}
 
@@ -4352,17 +4361,19 @@ def phase_simt(torch, tfa, tt, tg, card, seed: int):
 
 # Phase 5b, float16 and head dims 129-256 (ROADMAP C.3): the f16
 # instantiations of flash_fwd, flash_bwd_dq/dkv and flash_decode, the
-# wide route (head dim 256, Gemma's: the forward and dQ in bf16/f16 on
-# flash_fwd's and flash_bwd_dq's d=256 instantiations, dK/dV, float32 and
-# d=160 on flash_simt.cu's wide kernels), against the plain versions at
+# wide route (head dim 256, Gemma's: the forward, dQ and dK/dV in bf16/f16
+# on flash_fwd.cu's and flash_bwd.cu's d=256 instantiations and the decode
+# of bf16/f16/int8 caches on flash_decode.cu's 256 tiles; float32, d=160
+# and d=192 on flash_simt.cu's wide kernels), against the plain versions at
 # the shapes their paths give them (the f16 Llama-3-8B-width step's
 # micro-batch and generate; phase 25's Gemma-7B-width micro-batch and
 # generate) and at edges; gemma_long (half of Gemma's 8192 context) is a
-# timing shape; bf16_d192 holds and times the 16-bit flash_simt.cu forward
-# and dQ, which take bf16 and f16 head dims 129-255.  Tolerances: float16 rounds where bf16 does at 2^-11
-# instead of 2^-8, so FWD_TOL, BWD_ROW_TOL/BWD_FLOOR (derived for bf16
+# timing shape; bf16_d192 holds and times the 16-bit flash_simt.cu forward,
+# dQ and dK/dV, which take bf16 and f16 head dims 129-255.  Tolerances:
+# float16 rounds where bf16 does at 2^-11 instead of 2^-8, so FWD_TOL, BWD_ROW_TOL/BWD_FLOOR (derived for bf16
 # above) hold with room; the d=256 tensor-core kernels round P and dS as
-# the d=128 ones do (the derivations above hold at any head dim); the
+# the d=128 ones do (the derivations above hold at any head dim; dK/dV's
+# P^T crosses between its warpgroups in f32, unrounded); the
 # simt kernels widen every element to f32 and compute as the plain
 # versions do, rounding their outputs once: FWD_TOL and the row tolerance
 # for bf16/f16, SIMT_F32_TOL and simt_rows for f32; the decode DECODE_TOL.
@@ -4379,7 +4390,16 @@ WIDE_DECODE = [("f16_generate", "f16", 4, 1, 32, 8, 128, 527, None, 544, "kernel
                ("f16_int8", "f16int8", 2, 5, 8, 4, 64, 300, 64, 517, "kernel"),
                ("gemma_generate", "bf16", 2, 1, 16, 16, 256, 135, None, 144, "wide"),
                ("f16_d256", "f16", 2, 2, 8, 2, 256, 1000, 9, 1152, "wide"),
-               ("int8_d256", "int8", 2, 1, 8, 8, 256, 500, None, 517, "wide")]
+               ("int8_d256", "int8", 2, 1, 8, 8, 256, 500, None, 517, "wide"),
+               ("gemma_long_cache", "bf16", 1, 1, 16, 16, 256, 4095, None, 4160, "wide"),
+               ("bf16_d192_generate", "bf16", 2, 1, 16, 8, 192, 135, None, 144, "wide")]
+# The decode rows timed: the f16 generate's, 25c's (gemma_generate, on the
+# d=256 tiles of flash_decode.cu, beside flash_simt.cu's decode it
+# replaced), a long live cache at Gemma's width (4096 of its 8192
+# positions: the share of the bytes bound) and a d=192 cache (flash_simt.cu,
+# which keeps head dims 129-255).
+WIDE_DECODE_TIMED = ("f16_generate", "gemma_generate", "gemma_long_cache",
+                     "bf16_d192_generate")
 HALF = {"f16": "float16", "bf16": "bfloat16", "f32": "float32"}
 
 
@@ -4399,7 +4419,7 @@ def wide_f16_kernels(torch, tfa, tg, card):
         fwd = tfa._flash_fwd_wide if wide else tfa._flash_fwd
         dqf = tfa.flash_bwd_dq_wide if wide else tfa.flash_bwd_dq
         dkvf = tfa.flash_bwd_dkv_wide if wide else tfa.flash_bwd_dkv
-        names = (("flash_fwd_d256", "flash_bwd_dq_d256", "flash_bwd_dkv_wide") if tc
+        names = (("flash_fwd_d256", "flash_bwd_dq_d256", "flash_bwd_dkv_d256") if tc
                  else ("flash_fwd_wide", "flash_bwd_dq_wide", "flash_bwd_dkv_wide") if wide
                  else ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
         gen = torch.Generator(device="cuda").manual_seed(9)
@@ -4436,6 +4456,8 @@ def wide_f16_kernels(torch, tfa, tg, card):
             (a.float() - c.float()).abs().max().item() for a, c in zip(got, want)))
         worst[key + "_dq"] = max(worst.get(key + "_dq", 0.0),
                                  (got[0].float() - want[0].float()).abs().max().item())
+        worst[key + "_dkv"] = max(worst.get(key + "_dkv", 0.0), *(
+            (a.float() - c.float()).abs().max().item() for a, c in zip(got[1:], want[1:])))
         print(f"{kind} attention {name} ({', '.join(names)}): b={b} s={s} h={h} g={g} d={d} "
               f"window={window} causal={causal} fwd max_abs_err={err:.3e} (tol {tol}) "
               f"dq/dk/dv worst row err/tol {[round(x, 4) for x in ratios]}; backward "
@@ -4451,8 +4473,10 @@ def wide_f16_kernels(torch, tfa, tg, card):
                                                       window)
             calls["dq_simt"] = lambda: tfa._simt_dq("dq_simt", q, k, v, do, lse, delta,
                                                     causal, scale, window)
+            calls["dkv_simt"] = lambda: tfa._simt_dkv("dkv_simt", q, k, v, do, lse, delta,
+                                                      causal, scale, window)
         # The simt kernels take 18-56 ms a call at s=4096: two calls each.
-        ms = {n: device_ms(torch, c, 2 if s > 1024 and n != "fwd" and n != "dq" else 5)
+        ms = {n: device_ms(torch, c, 2 if s > 1024 and n.endswith("_simt") else 5)
               for n, c in calls.items()}
         plain_fwd = device_ms(torch, lambda: tfa._reference_fwd(q, k, v, causal, scale,
                                                                 window), 3, 1)
@@ -4475,7 +4499,7 @@ def wide_f16_kernels(torch, tfa, tg, card):
         bounds = {n: bound(flops[n], nbytes[n]) for n in flops}
         fma = {n: bound(flops[n], nbytes[n], PEAK_F32_FLOPS)[0] for n in flops}
         earlier = (f" (flash_simt.cu in this run: fwd {ms['fwd_simt']:.4f} dq "
-                   f"{ms['dq_simt']:.4f})" if tc else "")
+                   f"{ms['dq_simt']:.4f} dkv {ms['dkv_simt']:.4f})" if tc else "")
         print(f"{kind} attention timing {name}, device ms per call: fwd {ms['fwd']:.4f} dq "
               f"{ms['dq']:.4f} dkv {ms['dkv']:.4f}{earlier}; bounds (16-bit tensor cores) "
               f"{ {n: round(x[0], 4) for n, x in bounds.items()} } (f32 FMA "
@@ -4501,7 +4525,8 @@ def wide_f16_kernels(torch, tfa, tg, card):
                                     cache_dtype=ck.dtype).kind
         if route != want_route:
             fail(f"decode {name}: routed to {route}, expected {want_route}")
-        key = ("flash_decode_wide" if route == "wide" else
+        tc = route == "wide" and tfa.wide_kernel(q.shape, ck.dtype, decode=True) == "tc"
+        key = ("flash_decode_d256" if tc else "flash_decode_wide" if route == "wide" else
                "flash_decode_int8" if kind.endswith("int8") else "flash_decode")
         tfa.reset_launches()
         out = tfa.decode_attention(q, ck, cv, pos0, window=window, **sc)
@@ -4513,7 +4538,7 @@ def wide_f16_kernels(torch, tfa, tg, card):
             fail(f"decode {name}: two calls launched {counts}, expected 2 of {key}")
         ref = tfa.flash_decode_reference(q, ck, cv, pos0, window=window, **sc)
         err = (out - ref).abs().max().item()
-        wkey = "decode_wide" if route == "wide" else "decode_f16"
+        wkey = "decode_d256" if tc else "decode_wide" if route == "wide" else "decode_f16"
         worst[wkey] = max(worst.get(wkey, 0.0), err)
         if not (err <= DECODE_TOL and torch.equal(out, dev)):
             fail(f"decode {name} ({key}): max abs err {err:.3e} (tol {DECODE_TOL}), "
@@ -4521,7 +4546,7 @@ def wide_f16_kernels(torch, tfa, tg, card):
         print(f"decode {name} ({key}): {kind} q {str(qdt)[6:]} cache=[{b},{max_len},{nkv},"
               f"{hd}] g={g} pos0={pos0} window={window} max_abs_err={err:.3e} (tol "
               f"{DECODE_TOL}); device pos0 bitwise equal [{card}]", flush=True)
-        if name not in ("f16_generate", "gemma_generate"):
+        if name not in WIDE_DECODE_TIMED:
             continue
         live = pos0 + g
         sets = [(q, ck, cv)] + [tuple(torch.randn_like(t) for t in (q, ck, cv))
@@ -4541,10 +4566,18 @@ def wide_f16_kernels(torch, tfa, tg, card):
                                      e[:, :live].transpose(1, 2)) for a, c, e in sets],
                             False, 40)
         bms, by = decode_bound(b, nh, nkv, hd, live, g, 2, False)
+        simt_ms = None
+        if tc:   # flash_simt.cu's decode, which the d=256 tiles replace, in this run
+            simt_ms = device_ms(torch, cycle(lambda a, c, e: tfa._decode_simt_call(
+                tfa.flash_decode_simt, "decode_simt", tfa.supports_decode_wide, "", a, c, e,
+                pos0, None, None, None)), 10)
         print(f"decode timing {name} ({key}): cache=[{b},{max_len},{nkv},{hd}] live={live} "
-              f"g={g}: ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={lib[2]:.4f} ({lib[1]}) "
+              f"g={g}: ms={ms:.4f}"
+              f"{'' if simt_ms is None else f' (flash_simt.cu in this run: {simt_ms:.4f})'} "
+              f"plain_ms={plain_ms:.4f} sdpa_ms={lib[2]:.4f} ({lib[1]}) "
               f"bound_ms={bms:.4f} ({by}) [{card}]", flush=True)
-        rows[name] = dict(ms=ms, plain_ms=plain_ms, lib=lib, bound_ms=bms, bound_by=by)
+        rows[name] = dict(ms=ms, simt_ms=simt_ms, plain_ms=plain_ms, lib=lib, bound_ms=bms,
+                          bound_by=by)
         del sets
     torch.cuda.empty_cache()
     return worst, rows
@@ -4910,8 +4943,10 @@ def phase_distributed(torch, tfa, tt, card, seed: int):
 # vocab, 4 tenants whose system prompts are 256-512 tokens, suffixes of
 # 16-128 and budgets of 32-96 new tokens (prompt + budget <= 1152, the
 # serving pool's max_len).  Arrivals by router step: 16 at once, then 4
-# every 8 steps; replica r0 dies before its own step 30, mid-decode.
-FLEET_TRACE = dict(n_requests=48, vocab=128256, n_tenants=4, prefix_len=(256, 512),
+# every 8 steps; replica r0 dies before its own step 30, mid-decode.  32
+# requests keep the phase short within the run's limit: the arrivals
+# still run past r0's death, and 24d/24e take theirs from the first 20.
+FLEET_TRACE = dict(n_requests=32, vocab=128256, n_tenants=4, prefix_len=(256, 512),
                    suffix_len=(16, 128), new_tokens=(32, 96), max_len=1152)
 FLEET_FIRST, FLEET_EVERY, FLEET_BATCH, FLEET_DIE_AT = 16, 8, 4, 30
 # The prefix cache: up to 4 of a replica's 8 slots pinned as donors, and
@@ -5526,16 +5561,17 @@ SPMD_PROMPT, SPMD_NEW = 128, 16
 SPMD_DEADLINE_S = 420
 # A rank's launches in a step: its one block a stage under 'except_last'
 # at SPMD_CHUNKS micro-batches: two forwards and one recompute, two
-# backwards, on the wide route (head dim 256: the forward and dQ on the
-# tensor-core kernels' d=256 instantiation, dK/dV on flash_simt.cu); none
-# of the others.  SPMD_PROFILE: the CUDA function (its instantiation) of
-# each of those counters and of the simt forward and dQ, whose launches a
-# profile of 25a's step 2 must show as the counters say.
+# backwards, on the wide route (head dim 256: the forward, dQ and dK/dV on
+# the tensor-core kernels' d=256 instantiation); none of the others.
+# SPMD_PROFILE: the CUDA function (its instantiation) of each of those
+# counters and of the simt forward, dQ and dK/dV, whose launches a
+# profile of 25a's step 2 must show as the counters say (none on simt).
 SPMD_LAUNCHES = {"flash_fwd_d256": SPMD_CHUNKS + SPMD_CHUNKS - 1,
-                 "flash_bwd_dq_d256": SPMD_CHUNKS, "flash_bwd_dkv_wide": SPMD_CHUNKS}
+                 "flash_bwd_dq_d256": SPMD_CHUNKS, "flash_bwd_dkv_d256": SPMD_CHUNKS}
 SPMD_PROFILE = {"flash_fwd_d256": "flash_fwd_kernel<256", "flash_bwd_dq_d256":
-                "flash_bwd_dq_kernel<256", "flash_bwd_dkv_wide": "dkv_simt_kernel",
-                "flash_fwd_wide": "fwd_simt_kernel", "flash_bwd_dq_wide": "dq_simt_kernel"}
+                "flash_bwd_dq_kernel<256", "flash_bwd_dkv_d256": "flash_bwd_dkv_kernel<256",
+                "flash_fwd_wide": "fwd_simt_kernel", "flash_bwd_dq_wide": "dq_simt_kernel",
+                "flash_bwd_dkv_wide": "dkv_simt_kernel"}
 SPMD_1F1B_LAUNCHES = {k: 2 * v for k, v in SPMD_LAUNCHES.items()}
 # bf16 tolerances of a pipelined step against the sequential oracle (or
 # 1F1B against fill-drain): the same products in bf16 batched otherwise
@@ -5857,7 +5893,7 @@ def phase_spmd(torch, tfa, tt, tg, card, seed: int):
     torch.cuda.synchronize()
     gen_ms = (time.perf_counter() - t0) * 1e3
     gen_launches = kernel_launches(tfa)
-    expect_launches(gen_launches, {"flash_fwd_d256": 2, "flash_decode_wide": 2 * SPMD_NEW},
+    expect_launches(gen_launches, {"flash_fwd_d256": 2, "flash_decode_d256": 2 * SPMD_NEW},
                     "25c generate")
     with plain_attention(tt, tg, tfa):
         plain = tg.generate(cfg, model, prompt, SPMD_NEW)
@@ -6671,7 +6707,7 @@ def main() -> None:
         fwd_ = key == "fwd"
         lib, llib = ((row["lib_fwd"], long["lib_fwd"]) if fwd_ else
                      (row["lib_bwd"], long["lib_bwd"]))
-        err = "" if fwd_ else "_dq"
+        err = {"fwd": "", "dq": "_dq", "dkv": "_dkv"}[key]
         return {"name": name, "route": "cuda", "source": src + source,
                 "replaces": f"{ref}:{line}", "instantiation": "head dim 256, bf16 and f16",
                 "launches": paths["spmd_rank"][name], "launches_by_path": by_path(name),
@@ -6713,23 +6749,37 @@ def main() -> None:
                          shape="f16 cache [4, 544, 8, 128] live 528 g=1"),
         d256_entry("flash_fwd_d256", "fwd", 69, "flash_fwd.cu"),
         d256_entry("flash_bwd_dq_d256", "dq", 538, "flash_bwd.cu"),
+        d256_entry("flash_bwd_dkv_d256", "dkv", 592, "flash_bwd.cu"),
         wide_entry("flash_fwd_wide", "fwd", 69, "head dims 129-255 in bf16 and f16, "
                    "129-256 in f32", "bf16_d192", "bf16 b=2 s=512 h=16 g=8 d=192 causal",
                    wworst["wide_simt_bf16"]),
         wide_entry("flash_bwd_dq_wide", "dq", 538, "head dims 129-255 in bf16 and f16, "
                    "129-256 in f32", "bf16_d192", "bf16 b=2 s=512 h=16 g=8 d=192 causal",
                    wworst["wide_simt_bf16_dq"]),
-        wide_entry("flash_bwd_dkv_wide", "dkv", 592, "head dims 129-256 in bf16, f16 and f32",
-                   "gemma_microbatch",
-                   "bf16 b=2 s=512 h=g=16 d=256 causal (phase 25's micro-batch)",
-                   max(v for k, v in wworst.items()
-                       if k.startswith("wide") and k.endswith("_bwd"))),
-        decode_row_entry("flash_decode_wide", "gemma_generate", "flash_decode_wide",
+        wide_entry("flash_bwd_dkv_wide", "dkv", 592, "head dims 129-255 in bf16 and f16, "
+                   "129-256 in f32", "bf16_d192", "bf16 b=2 s=512 h=16 g=8 d=192 causal",
+                   wworst["wide_simt_bf16_dkv"]),
+        decode_row_entry("flash_decode_d256", "gemma_generate", "flash_decode_d256",
+                         "spmd_generate", source=src + "flash_decode.cu",
+                         instantiation="head dim 256: bf16, f16 and int8 caches",
+                         max_abs_err=wworst["decode_d256"],
+                         launches_by_path=by_path("flash_decode_d256"),
+                         earlier_kernel_ms=wrows["gemma_generate"]["simt_ms"],
+                         shape="bf16 cache [2, 144, 16, 256] live 136 g=1 (25c)",
+                         long_cache={"shape": "bf16 cache [1, 4160, 16, 256] live 4096 g=1",
+                                     **{k: wrows["gemma_long_cache"][k] for k in (
+                                         "ms", "simt_ms", "plain_ms", "bound_ms", "bound_by")},
+                                     "share_of_bound": wrows["gemma_long_cache"]["bound_ms"]
+                                     / wrows["gemma_long_cache"]["ms"],
+                                     "library_ms": wrows["gemma_long_cache"]["lib"][2],
+                                     "library_backend": wrows["gemma_long_cache"]["lib"][1]}),
+        decode_row_entry("flash_decode_wide", "bf16_d192_generate", "flash_decode_wide",
                          "spmd_generate", source=src + "flash_simt.cu",
                          max_abs_err=wworst["decode_wide"],
                          launches_by_path=by_path("flash_decode_wide"),
-                         takes="head dims 129-256, bf16, f16, f32 and int8 caches",
-                         shape="bf16 cache [2, 144, 16, 256] live 136 g=1 (25c)"),
+                         takes="head dims 129-255 (bf16, f16, f32 and int8 caches) and f32 "
+                               "caches at 256",
+                         shape="bf16 cache [2, 144, 8, 192] live 136 g=1"),
     ]
     smem = smem_dynamic(_build)
     for k in kernels:
@@ -6738,7 +6788,7 @@ def main() -> None:
             k["smem_dynamic_bytes"] = smem[k["name"]]
     for k in kernels:
         if k["name"] in ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_tf32",
-                         "flash_bwd_dkv_tf32", "flash_bwd_dq_d256"):
+                         "flash_bwd_dkv_tf32", "flash_bwd_dq_d256", "flash_bwd_dkv_d256"):
             k["bitwise_repeat"] = True   # phases 5 and 5b fail otherwise
     for k in kernels[1:3]:
         k["device_pos0_bitwise"] = k["graph_replay"] = True   # phase 4 fails otherwise

@@ -100,6 +100,21 @@ def test_wide_kernel_table(d, dtype, want):
     assert tfa.wide_kernel(q, dtype) == want
 
 
+@pytest.mark.parametrize(
+    "d,qdt,cache,want",
+    [(256, BF16, BF16, "tc"), (256, F16, F16, "tc"), (256, BF16, I8, "tc"),
+     (256, F32, I8, "tc"), (256, F32, F32, "simt"), (192, BF16, BF16, "simt"),
+     (160, BF16, I8, "simt"), (136, F16, F16, "simt")],
+)
+def test_wide_decode_kernel_table(d, qdt, cache, want):
+    """The wide route's decode: flash_decode.cu's 256 tiles for a bf16,
+    f16 or int8 cache at head dim exactly 256 (Gemma's), flash_simt.cu for
+    a float32 cache and every other wide head dim."""
+    q, k = (2, 1, 8, d), (2, 64, 2, d)
+    assert tfa.attention_route(q, k, qdt, decode=True, cache_dtype=cache).kind == "wide"
+    assert tfa.wide_kernel(q, cache, decode=True) == want
+
+
 def test_wide_wrappers_on_the_cpu_are_the_plain_versions():
     """On CPU tensors the wide wrappers run the plain versions and count
     no launch (the count is the card's)."""
@@ -115,8 +130,9 @@ def test_wide_wrappers_on_the_cpu_are_the_plain_versions():
     assert torch.equal(dec, tfa.flash_decode_reference(q[:, :1].detach(), ck, ck, 30))
     assert (tfa.flash_attention_wide.launches, tfa.flash_bwd_dq_wide.launches,
             tfa.flash_bwd_dkv_wide.launches, tfa.flash_decode_wide.launches,
-            tfa.flash_attention_wide.launches_d256,
-            tfa.flash_bwd_dq_wide.launches_d256) == (0, 0, 0, 0, 0, 0)
+            tfa.flash_attention_wide.launches_d256, tfa.flash_bwd_dq_wide.launches_d256,
+            tfa.flash_bwd_dkv_wide.launches_d256,
+            tfa.flash_decode_wide.launches_d256) == (0, 0, 0, 0, 0, 0, 0, 0)
 
 
 def _models(kw, jdtype, tdtype):

@@ -867,18 +867,18 @@ def test_flash_decode_f16_matches_plain(cuda_device, kind, g, pos0, window, hd, 
 # order before each rounds its outputs once: one ulp of the output type
 # for bf16/f16 (inside FWD_TOL and the row tolerance), and the float32
 # tolerances of test_flash_simt_f32_matches_plain for float32; except the
-# forward and dQ at d=256 in bf16/f16, on the tensor-core kernels' d=256
-# instantiation, which round P and dS as the d=128 kernels do (FWD_TOL and
-# the row tolerance, derived for those).
+# forward, dQ and dK/dV at d=256 in bf16/f16, on the tensor-core kernels'
+# d=256 instantiation, which round P and dS as the d=128 kernels do
+# (FWD_TOL and the row tolerance, derived for those).
 WIDE_DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}
 
 
 def wide_launches():
     """The wide route's forward, dQ and dK/dV counts on flash_simt.cu, then
-    the forward's and dQ's on the d=256 tensor-core kernels."""
+    the same three on the d=256 tensor-core kernels."""
     return (tfa.flash_attention_wide.launches, tfa.flash_bwd_dq_wide.launches,
             tfa.flash_bwd_dkv_wide.launches, tfa.flash_attention_wide.launches_d256,
-            tfa.flash_bwd_dq_wide.launches_d256)
+            tfa.flash_bwd_dq_wide.launches_d256, tfa.flash_bwd_dkv_wide.launches_d256)
 
 
 @pytest.mark.cuda
@@ -912,11 +912,11 @@ def test_flash_wide_matches_plain(cuda_device, kind, s, h, g, d, window, causal)
     out = tfa.attention(qg, kg, vg, causal=causal, window=window)
     routed = torch.autograd.grad(out, (qg, kg, vg), do)
     torch.cuda.synchronize()
-    # bf16/f16 at d=256: the forward and dQ on the tensor-core kernels'
-    # d=256 instantiation; float32 and d=160 on flash_simt.cu.
+    # bf16/f16 at d=256: the forward, dQ and dK/dV on the tensor-core
+    # kernels' d=256 instantiation; float32 and d=160 on flash_simt.cu.
     tc = tfa.wide_kernel(q.shape, dtype) == "tc"
     assert tc == (kind != "f32" and d == 256)
-    one = (0, 0, 1, 1, 1) if tc else (1, 1, 1, 0, 0)
+    one = (0, 0, 0, 1, 1, 1) if tc else (1, 1, 1, 0, 0, 0)
     assert wide_launches() == tuple(n + i for n, i in zip(before, one))
     assert torch.equal(out, o) and all(torch.equal(a, b) for a, b in zip(routed, got))
     assert o.dtype == dtype and all(t.dtype == dtype for t in got)
@@ -929,17 +929,31 @@ def test_flash_wide_matches_plain(cuda_device, kind, s, h, g, d, window, causal)
         assert all(bwd_row_ratio(a, b) <= 1.0 for a, b in zip(got, want))
 
 
+# The d=256 shapes of the tensor-core kernels: phase 25's micro-batch (h =
+# g = 16), GQA, ragged tiles (129, 333), windows, no mask, and a ring
+# block's sk != s.
+D256_SHAPES = [(512, 512, 16, 16, None, True), (333, 333, 4, 2, None, True),
+               (129, 129, 16, 16, None, True), (333, 333, 4, 2, 64, True),
+               (512, 512, 16, 16, 100, True), (129, 129, 4, 2, None, False),
+               (512, 512, 4, 2, None, False),
+               # sk != s, not causal: a ring block's shape (a whole earlier block).
+               (333, 512, 4, 2, None, False), (129, 333, 16, 16, None, False)]
+
+
+def _d256_inputs(device, kind, s, sk, h, g):
+    dtype = WIDE_DTYPES[kind]
+    gen = torch.Generator(device=device).manual_seed(s + sk + h)
+    q, do = (torch.randn(1, s, h, 256, generator=gen, device=device).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(1, sk, g, 256, generator=gen, device=device).to(dtype)
+            for _ in range(2))
+    assert tfa.wide_kernel(q.shape, dtype) == "tc"
+    return q, k, v, do
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["bf16", "f16"])
-@pytest.mark.parametrize(
-    "s,sk,h,g,window,causal",
-    [(512, 512, 16, 16, None, True), (333, 333, 4, 2, None, True),
-     (129, 129, 16, 16, None, True), (333, 333, 4, 2, 64, True),
-     (512, 512, 16, 16, 100, True), (129, 129, 4, 2, None, False),
-     (512, 512, 4, 2, None, False),
-     # sk != s, not causal: a ring block's shape (a whole earlier block).
-     (333, 512, 4, 2, None, False), (129, 333, 16, 16, None, False)],
-)
+@pytest.mark.parametrize("s,sk,h,g,window,causal", D256_SHAPES)
 def test_flash_d256_forward_and_dq_match_plain(cuda_device, kind, s, sk, h, g, window, causal):
     """The wide route's forward and dQ at d=256 on the tensor-core kernels
     (csrc/flash_fwd.cu and csrc/flash_bwd.cu, 64- and 32-key tiles) against
@@ -947,12 +961,7 @@ def test_flash_d256_forward_and_dq_match_plain(cuda_device, kind, s, sk, h, g, w
     bitwise on a second call, one launch each on the d=256 counters and
     none on flash_simt.cu's."""
     dtype = WIDE_DTYPES[kind]
-    gen = torch.Generator(device=cuda_device).manual_seed(s + sk + h)
-    q, do = (torch.randn(1, s, h, 256, generator=gen, device=cuda_device).to(dtype)
-             for _ in range(2))
-    k, v = (torch.randn(1, sk, g, 256, generator=gen, device=cuda_device).to(dtype)
-            for _ in range(2))
-    assert tfa.wide_kernel(q.shape, dtype) == "tc"
+    q, k, v, do = _d256_inputs(cuda_device, kind, s, sk, h, g)
     scale = 256 ** -0.5
     kw = dict(causal=causal, sm_scale=scale, window=window)
     before = wide_launches()
@@ -961,7 +970,7 @@ def test_flash_d256_forward_and_dq_match_plain(cuda_device, kind, s, sk, h, g, w
     dq = tfa.flash_bwd_dq_wide(q, k, v, do, lse, delta, **kw)
     again = tfa.flash_bwd_dq_wide(q, k, v, do, lse, delta, **kw)
     torch.cuda.synchronize()
-    assert wide_launches() == (*before[:3], before[3] + 1, before[4] + 2)
+    assert wide_launches() == (*before[:3], before[3] + 1, before[4] + 2, before[5])
     ref_o, ref_lse = tfa._reference_fwd(q, k, v, causal, scale, window)
     want = tfa._reference_grads(q, k, v, do, lse, delta, causal, scale, window)[0]
     assert o.dtype == dtype and dq.dtype == dtype
@@ -972,32 +981,78 @@ def test_flash_d256_forward_and_dq_match_plain(cuda_device, kind, s, sk, h, g, w
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "f16"])
+@pytest.mark.parametrize("s,sk,h,g,window,causal", D256_SHAPES)
+def test_flash_d256_dkv_matches_plain(cuda_device, kind, s, sk, h, g, window, causal):
+    """dK/dV at d=256 on csrc/flash_bwd.cu (64-key items, dV and dK split
+    between the consumer warpgroups) against the plain version from the
+    kernels' own O and LSE: row by row, bitwise on a second call, one
+    launch a call on ``flash_bwd_dkv_wide.launches_d256`` and none on
+    flash_simt.cu's."""
+    q, k, v, do = _d256_inputs(cuda_device, kind, s, sk, h, g)
+    scale = 256 ** -0.5
+    kw = dict(causal=causal, sm_scale=scale, window=window)
+    o, lse = tfa._flash_fwd_wide(q, k, v, causal, scale, window)
+    delta = tfa._delta(do, o)
+    before = wide_launches()
+    got = tfa.flash_bwd_dkv_wide(q, k, v, do, lse, delta, **kw)
+    again = tfa.flash_bwd_dkv_wide(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert wide_launches() == (*before[:5], before[5] + 2)
+    want = tfa._reference_grads(q, k, v, do, lse, delta, causal, scale, window)[1:]
+    assert all(t.dtype == q.dtype for t in got)
+    assert all(bwd_row_ratio(a, b) <= 1.0 for a, b in zip(got, want))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# The wide decode: at head dim 256 with a bf16, f16 or int8 cache on
+# csrc/flash_decode.cu's 256 tiles (bf16/f32/f16 queries against int8;
+# rows per kv head 4, 8, 12, 20 and 32: every row count of the kernel); a
+# float32 cache at 256 and head dim 160 on flash_simt.cu.  Both hold the
+# float32 decode tolerance: their scores and P V run in f32 as the plain
+# version's do.
+@pytest.mark.cuda
 @pytest.mark.parametrize(
     "kind,g,pos0,window,hd,L",
     [("bf16", 1, 1087, None, 256, 1152), ("f16", 5, 600, 256, 256, 1152),
      ("f32", 1, 527, None, 160, 544), ("int8", 1, 1087, None, 256, 1152),
-     ("bf16", 1, 9999, None, 256, 10000)],
+     ("bf16", 1, 9999, None, 256, 10000), ("f32", 2, 300, 64, 256, 544),
+     ("int8", 3, 300, 64, 256, 517), ("f32int8", 2, 500, None, 256, 517),
+     ("f16int8", 8, 700, None, 256, 1152), ("bf16", 8, 135, None, 256, 144)],
 )
 def test_flash_decode_wide_matches_plain(cuda_device, kind, g, pos0, window, hd, L):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    if kind == "f16":
+    if kind.startswith("f16"):
         q = torch.randn(2, g, 8, hd, generator=gen, device=cuda_device).half()
-        ck, cv = (torch.randn(2, L, 2, hd, generator=gen, device=cuda_device).half()
-                  for _ in range(2))
-        sc = {}
+        if kind == "f16int8":
+            ck, ks = _int8_cache(gen, 2, L, 2, hd, cuda_device)
+            cv, vs = _int8_cache(gen, 2, L, 2, hd, cuda_device)
+            sc = dict(k_scale=ks, v_scale=vs)
+        else:
+            ck, cv = (torch.randn(2, L, 2, hd, generator=gen, device=cuda_device).half()
+                      for _ in range(2))
+            sc = {}
+    elif kind == "f32int8":
+        q, ck, cv, sc = _decode_inputs(gen, 2, g, 8, 2, hd, L, "int8", cuda_device)
+        q = q.float()
     else:
         q, ck, cv, sc = _decode_inputs(gen, 2, g, 8, 2, hd, L, kind, cuda_device)
     assert tfa.attention_route(q.shape, ck.shape, q.dtype, window=window, decode=True,
                                cache_dtype=ck.dtype).kind == "wide"
-    before = tfa.flash_decode_wide.launches
+    tc = tfa.wide_kernel(q.shape, ck.dtype, decode=True) == "tc"
+    assert tc == (hd == 256 and ck.dtype != torch.float32)
+    before = (tfa.flash_decode_wide.launches, tfa.flash_decode_wide.launches_d256)
     host = tfa.decode_attention(q, ck, cv, pos0, window=window, **sc)
     dev = tfa.decode_attention(
         q, ck, cv, torch.tensor(pos0, dtype=torch.int32, device=cuda_device),
         window=window, **sc)
+    again = tfa.decode_attention(q, ck, cv, pos0, window=window, **sc)
     ref = tfa.flash_decode_reference(q, ck, cv, pos0, window=window, **sc)
     torch.cuda.synchronize()
-    assert tfa.flash_decode_wide.launches == before + 2
-    assert torch.equal(host, dev)
+    three = (0, 3) if tc else (3, 0)
+    assert (tfa.flash_decode_wide.launches, tfa.flash_decode_wide.launches_d256) == (
+        before[0] + three[0], before[1] + three[1])
+    assert torch.equal(host, dev) and torch.equal(host, again)
     assert (dev - ref).abs().max().item() <= DECODE_TOL
 
 

@@ -397,10 +397,10 @@ def test_gpt2_class_generate_decodes_through_flash_decode_at_mha(cuda_device):
 # few 2^-8 of each leaf's scale: the loss to 2^-6 relative, gradients to
 # 2^-4 of each leaf's max, tokens by the teacher-forced check.
 # float16 at d=64 (the tensor-core kernels' f16 instantiations) and bf16
-# at d=256 (the wide route: the forward and dQ on the tensor-core kernels'
-# d=256 instantiation, dK/dV on flash_simt.cu, computing in f32 and
-# rounding once, with bf16 products between the blocks): both round as the
-# bf16 d=32 case does or more finely, so its tolerances hold.
+# at d=256 (the wide route: the forward, dQ and dK/dV on the tensor-core
+# kernels' d=256 instantiation, rounding P and dS as the d=128 kernels
+# do): both round as the bf16 d=32 case does or more finely, so its
+# tolerances hold.
 ROUTE_CASES = {
     "float32": (dict(dtype=torch.float32), 1e-5, 1e-4),
     "bf16_d32": (dict(dtype=torch.bfloat16, n_head_dim=32), 2 ** -6, 2 ** -4),
@@ -430,8 +430,9 @@ def test_routed_llama_trains_and_generates_as_on_the_cpu(cuda_device, case):
         results.append((float(loss), [p.grad.float().cpu() for p in pipe.parameters()]))
     train_f32, train_fwd = tfa.flash_attention_tf32.launches, tfa.flash_attention.launches
     train_wide = (tfa.flash_attention_wide.launches_d256, tfa.flash_bwd_dq_wide.launches_d256,
-                  tfa.flash_bwd_dkv_wide.launches)
-    simt_wide = (tfa.flash_attention_wide.launches, tfa.flash_bwd_dq_wide.launches)
+                  tfa.flash_bwd_dkv_wide.launches_d256)
+    simt_wide = (tfa.flash_attention_wide.launches, tfa.flash_bwd_dq_wide.launches,
+                 tfa.flash_bwd_dkv_wide.launches)
     assert tfa.flash_attention_f32.launches == 0
     (lc, gc), (lh, gh) = results
     assert lc == pytest.approx(lh, rel=loss_rtol)
@@ -446,10 +447,10 @@ def test_routed_llama_trains_and_generates_as_on_the_cpu(cuda_device, case):
         assert (tfa.flash_bwd_dq_f32.launches, tfa.flash_bwd_dkv_f32.launches) == (0, 0)
     elif case == "bf16_d256":
         assert train_f32 == 0 and train_fwd == 0 and min(train_wide) > 0
-        assert simt_wide == (0, 0)
+        assert simt_wide == (0, 0, 0)
     else:
         assert train_f32 == 0 and train_fwd > 0 and tfa.flash_bwd_dq.launches > 0
-        assert train_wide == (0, 0, 0) and simt_wide == (0, 0)
+        assert train_wide == (0, 0, 0) and simt_wide == (0, 0, 0)
     prompt = tokens[:2, :64]
     tfa.reset_launches()
     out = tg.generate(cfg, card, prompt, 12)
@@ -464,12 +465,13 @@ def test_routed_llama_trains_and_generates_as_on_the_cpu(cuda_device, case):
     else:
         # prefill through the padded kernel (d=32), the f16 kernel, or the
         # wide one (d=256); decode through flash_decode at the real d (a
-        # cache is never padded), or the wide decode at d=256.
+        # cache is never padded), at d=256 on its 256 tiles (the wide
+        # decode's launches_d256; none on flash_simt.cu).
         wide = case == "bf16_d256"
         assert (tfa.flash_attention.launches, tfa.flash_attention_wide.launches_d256,
                 tfa.flash_attention_wide.launches) == ((0, 2, 0) if wide else (2, 0, 0))
-        assert (tfa.flash_decode_attention.launches, tfa.flash_decode_wide.launches) == \
-            ((0, 2 * 12) if wide else (2 * 12, 0))
+        assert (tfa.flash_decode_attention.launches, tfa.flash_decode_wide.launches_d256,
+                tfa.flash_decode_wide.launches) == ((0, 2 * 12, 0) if wide else (2 * 12, 0, 0))
         assert tfa.flash_decode_simt.launches == 0
         with torch.inference_mode():
             logits = card(torch.cat([prompt, out[:, :-1]], 1))[:, 63:].float()

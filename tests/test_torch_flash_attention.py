@@ -30,6 +30,8 @@ gradient, 2^-7 of max |grad|; 2^-6 allows a second rounding where the
 reference casts dq to bfloat16 inside its kernel.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -99,8 +101,8 @@ def _torch_grads(q, k, v, do, dtype=torch.float32, **kw):
     return torch.autograd.grad(out, (qt, kt, vt), torch.from_numpy(do).to(dtype))
 
 
-def _assert_grads_close(got, want, rel):
-    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+def _assert_grads_close(got, want, rel, names=("dq", "dk", "dv")):
+    for name, a, b in zip(names, got, want):
         b = np.asarray(b, np.float32)
         assert tuple(a.shape) == b.shape, name
         np.testing.assert_allclose(
@@ -221,18 +223,27 @@ def test_flash_attention_d256_bf16_forward_matches_jax_kernel(s, window):
     assert (tfa.flash_attention_wide.launches, tfa.flash_attention_wide.launches_d256) == (0, 0)
 
 
-@pytest.mark.parametrize("s,window", D256_CASES)
-def test_flash_bwd_dq_d256_bf16_matches_jax_kernel(s, window):
-    """dQ of the wide wrapper (``flash_bwd_dq_wide`` from the forward's
-    own LSE and ``delta``) against ``jax.vjp`` through the reference's
-    Pallas backward kernels."""
-    q, k, v, do, blocks, kw = _d256_inputs(s, window, 12)
+@functools.lru_cache(maxsize=None)
+def _d256_jax_grads(s, window, seed):
+    """dQ, dK and dV of ``_d256_inputs(s, window, seed)`` through
+    ``jax.vjp`` of the reference's Pallas kernels in bf16 (one pull, which
+    the dQ and the dK/dV tests share)."""
+    q, k, v, do, blocks, kw = _d256_inputs(s, window, seed)
     jb = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, do)]
     _, pull = jax.vjp(
         lambda q, k, v: jfa.flash_attention(q, k, v, interpret=True, **blocks, **kw),
         *jb[:3],
     )
-    ref_dq = pull(jb[3])[0]
+    return tuple(np.asarray(x, np.float32) for x in pull(jb[3]))
+
+
+@pytest.mark.parametrize("s,window", D256_CASES)
+def test_flash_bwd_dq_d256_bf16_matches_jax_kernel(s, window):
+    """dQ of the wide wrapper (``flash_bwd_dq_wide`` from the forward's
+    own LSE and ``delta``) against ``jax.vjp`` through the reference's
+    Pallas backward kernels."""
+    q, k, v, do, _, _ = _d256_inputs(s, window, 12)
+    ref_dq = _d256_jax_grads(s, window, 12)[0]
     tq, tk, tv, tdo = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, do))
     scale = 256 ** -0.5
     tfa.reset_launches()
@@ -242,6 +253,86 @@ def test_flash_bwd_dq_d256_bf16_matches_jax_kernel(s, window):
     assert dq.dtype == torch.bfloat16
     _assert_grads_close([dq], [ref_dq], BF16_GRAD_REL_TOL)
     assert (tfa.flash_bwd_dq_wide.launches, tfa.flash_bwd_dq_wide.launches_d256) == (0, 0)
+
+
+@pytest.mark.parametrize("s,window", D256_CASES)
+def test_flash_bwd_dkv_d256_bf16_matches_jax_kernel(s, window):
+    """dK and dV of the wide wrapper (``flash_bwd_dkv_wide``, whose card
+    route is ``csrc/flash_bwd.cu``'s d=256 instantiation) from the
+    forward's own LSE and ``delta``, against the dQ test's ``jax.vjp``
+    through the reference's Pallas backward kernels (GQA r = 2: the
+    reference sums its per-query-head dK/dV over each group after its
+    kernel, the port inside).  Tolerance BF16_GRAD_REL_TOL, as for dQ:
+    each side forms dK/dV in float32 and rounds to bf16, a bf16 ulp at the
+    largest gradient, 2^-7 of max |grad|; 2^-6 leaves room for the
+    reference's rounding of each query head's share before the group
+    sum."""
+    q, k, v, do, _, _ = _d256_inputs(s, window, 12)
+    _, ref_dk, ref_dv = _d256_jax_grads(s, window, 12)
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, do))
+    assert tfa.wide_kernel(tq.shape, torch.bfloat16) == "tc"
+    scale = 256 ** -0.5
+    tfa.reset_launches()
+    o, lse = tfa._flash_fwd_wide(tq, tk, tv, True, scale, window)
+    dk, dv = tfa.flash_bwd_dkv_wide(tq, tk, tv, tdo, lse, tfa._delta(tdo, o), causal=True,
+                                    sm_scale=scale, window=window)
+    assert dk.dtype == dv.dtype == torch.bfloat16 and dk.shape == dv.shape == tk.shape
+    _assert_grads_close([dk, dv], [ref_dk, ref_dv], BF16_GRAD_REL_TOL, names=("dk", "dv"))
+    assert (tfa.flash_bwd_dkv_wide.launches, tfa.flash_bwd_dkv_wide.launches_d256) == (0, 0)
+
+
+# The decode at head dim 256 (Gemma's generate): on the card the wide
+# route runs csrc/flash_decode.cu's 256 tiles for a bf16, f16 or int8
+# cache.  The reference's decode takes hd = 256 at max_len >= 256
+# (``supports_decode``).  Cases: 25c's g = 1, a speculative verify's g = 4
+# with a window (16 rows a kv head), an int8 cache with its scales (g = 1
+# and g = 3 with a window).  bf16: both sides hold the same bf16 inputs in
+# float32 and compute in float32, so the float32 tolerance F32_TOL holds
+# (summation order and the exp, ~1e-6).  int8: both dequantize the same
+# int8 rows and float32 scales; the port's plain version scales V rows
+# where the reference scales weights (one float32 rounding apart),
+# DECODE_TOL = 2e-5 as tests/test_torch_kv_quant.py states it.
+DECODE_TOL = 2e-5
+
+
+@pytest.mark.parametrize("g,pos0,window,quant",
+                         [(1, 135, None, False), (4, 200, 64, False),
+                          (1, 255, None, True), (3, 100, 37, True)])
+def test_flash_decode_d256_matches_jax_kernel(g, pos0, window, quant):
+    from torchgpipe_tpu.models import generation as jg
+
+    rng = np.random.default_rng(20 + g)
+    b, max_len, nh, nkv, hd = 2, 256, 8, 2, 256
+    mk = lambda *shape: rng.standard_normal(shape, dtype=np.float32)  # noqa: E731
+    q = mk(b, g, nh, hd)
+    kf, vf = mk(b, max_len, nkv, hd), mk(b, max_len, nkv, hd)
+    if quant:
+        (ck, cks), (cv, cvs) = (tuple(np.array(a) for a in jg._quant_rows(jnp.asarray(x)))
+                                for x in (kf, vf))
+        cks, cvs = (np.ascontiguousarray(a.transpose(0, 2, 1)) for a in (cks, cvs))
+        jq, jk, jv = jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv)
+        tq, tk, tv = (torch.from_numpy(a) for a in (q, ck, cv))
+        jsc = dict(k_scale=jnp.asarray(cks), v_scale=jnp.asarray(cvs))
+        tsc = dict(k_scale=torch.from_numpy(cks), v_scale=torch.from_numpy(cvs))
+        tol = DECODE_TOL
+    else:
+        tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, kf, vf))
+        jq, jk, jv = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                      for t in (tq, tk, tv))
+        jsc, tsc, tol = {}, {}, F32_TOL
+    assert jfa.supports_decode(q.shape, kf.shape, window)
+    ref = jfa.flash_decode_attention(jq, jk, jv, jnp.asarray(pos0, jnp.int32),
+                                     window=window, interpret=True, **jsc)
+    assert tfa.attention_route(tq.shape, tk.shape, tq.dtype, window=window, decode=True,
+                               cache_dtype=tk.dtype).kind == "wide"
+    assert tfa.wide_kernel(tq.shape, tk.dtype, decode=True) == "tc"
+    tfa.reset_launches()
+    out = tfa.decode_attention(tq, tk, tv, pos0, window=window, **tsc)
+    assert out.dtype == torch.float32 and out.shape == (b, g, nh * hd)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref, np.float32), atol=tol,
+                               rtol=tol if quant else 0)
+    # CPU: the plain version, on neither counter.
+    assert (tfa.flash_decode_wide.launches, tfa.flash_decode_wide.launches_d256) == (0, 0)
 
 
 @pytest.mark.parametrize(
@@ -535,16 +626,16 @@ _DKV_SHAPES = [
 ]
 
 
-def _attended_tile_pairs(b, s, sk, h, causal, window):
-    """Every (batch, query head, 64-query tile, 128-key tile) holding at
-    least one attended (query, key) pair.  Over a tile pair, q - k takes
-    every integer from q0 - k_last to q_last - k0, so a pair attends iff
-    that range meets [0, window)."""
+def _attended_tile_pairs(b, s, sk, h, causal, window, keys=128, queries=64):
+    """Every (batch, query head, ``queries``-query tile, ``keys``-key tile)
+    holding at least one attended (query, key) pair.  Over a tile pair, q -
+    k takes every integer from q0 - k_last to q_last - k0, so a pair
+    attends iff that range meets [0, window)."""
     out = set()
-    for jq in range(-(-s // 64)):
-        q0, q_last = jq * 64, min(jq * 64 + 63, s - 1)
-        for kt in range(-(-sk // 128)):
-            k0, k_last = kt * 128, min(kt * 128 + 127, sk - 1)
+    for jq in range(-(-s // queries)):
+        q0, q_last = jq * queries, min(jq * queries + queries - 1, s - 1)
+        for kt in range(-(-sk // keys)):
+            k0, k_last = kt * keys, min(kt * keys + keys - 1, sk - 1)
             if causal and (q_last - k0 < 0 or (window is not None
                                                and q0 - k_last >= window)):
                 continue
@@ -552,10 +643,9 @@ def _attended_tile_pairs(b, s, sk, h, causal, window):
     return out
 
 
-@pytest.mark.parametrize("b,s,sk,h,g,causal,window", _DKV_SHAPES)
-def test_dkv_schedule_covers_every_tile_pair_once(b, s, sk, h, g, causal, window):
-    sch = tfa.dkv_schedule(b, s, sk, h, g, causal, window, 132)
-    r, nkt = h // g, -(-sk // 128)
+def _check_dkv_schedule(b, s, sk, h, g, causal, window, keys, queries, whole=False):
+    sch = tfa.dkv_schedule(b, s, sk, h, g, causal, window, 132, keys, queries, whole)
+    r, nkt = h // g, -(-sk // keys)
     seen = {}
     for bi, kvh, kt, jq0, ntile, it0, it1, _ in sch.items:
         assert 0 <= it0 < it1 <= r * ntile
@@ -563,7 +653,7 @@ def test_dkv_schedule_covers_every_tile_pair_once(b, s, sk, h, g, causal, window
             key = (bi, kvh * r + t // ntile, jq0 + t % ntile, kt)
             seen[key] = seen.get(key, 0) + 1
     assert set(seen.values()) <= {1}
-    assert set(seen) == _attended_tile_pairs(b, s, sk, h, causal, window)
+    assert set(seen) == _attended_tile_pairs(b, s, sk, h, causal, window, keys, queries)
     # Blocks: at most one per SM, each with a contiguous run of items.
     assert sch.offsets[0] == 0 and sch.offsets[-1] == len(sch.items)
     assert len(sch.offsets) - 1 <= 132
@@ -586,6 +676,12 @@ def test_dkv_schedule_covers_every_tile_pair_once(b, s, sk, h, g, causal, window
             assert [it[7] for it in pieces] == list(range(first, first + count))
             slots.extend(range(first, first + count))
     assert sorted(slots) == list(range(sch.slots))
+    return sch
+
+
+@pytest.mark.parametrize("b,s,sk,h,g,causal,window", _DKV_SHAPES)
+def test_dkv_schedule_covers_every_tile_pair_once(b, s, sk, h, g, causal, window):
+    _check_dkv_schedule(b, s, sk, h, g, causal, window, 128, 64)
 
 
 @pytest.mark.parametrize("b,s,h,g", [(2, 1024, 32, 8), (1, 12288, 4, 1)])
@@ -599,6 +695,44 @@ def test_dkv_schedule_balances_the_timing_shapes(b, s, h, g):
     assert max(loads) <= 1.15 * sum(loads) / 132
     # Pure: the same call gives the same list (the sums' order rests on it).
     assert tfa.dkv_schedule(b, s, s, h, g, True, None, 132) == sch
+
+
+# dK/dV at head dim 256 (``dkv_tile(256)``: 64-key items, 64-query Q/dO
+# tiles) at phase 25's micro-batch, the s=4096 timing shape and edges:
+# ragged tiles, windows, GQA, no mask with sk != s.
+_DKV_D256_SHAPES = [
+    (2, 512, 512, 16, 16, True, None), (1, 4096, 4096, 16, 16, True, None),
+    (1, 333, 333, 8, 4, True, 64), (2, 129, 129, 4, 2, True, None),
+    (1, 333, 512, 4, 2, False, None), (2, 200, 200, 4, 2, True, 37),
+]
+
+
+@pytest.mark.parametrize("b,s,sk,h,g,causal,window", _DKV_D256_SHAPES)
+def test_dkv_schedule_covers_every_tile_pair_once_at_head_dim_256(b, s, sk, h, g, causal,
+                                                                  window):
+    """The d=256 work list: every (query head, 64-query tile, 64-key tile)
+    pair that attends once, slots in item order, no block over ``ceil(mean
+    work)``; at phase 25's and the s=4096 shapes (many short combos) as
+    whole combos, longest first onto the least loaded block, with no
+    partials.  Each cut item's f32 scratch slot is the kernel's [2 (dK,
+    dV)][d/8 float4][2 * keys threads] layout, 2 * keys * d floats (128
+    keys at d <= 128)."""
+    assert tfa.dkv_tile(256) == (64, 64)
+    assert tfa.dkv_tile(128) == tfa.dkv_tile(64) == (tfa.DKV_KEYS, tfa.DKV_QUERIES)
+    for d in (64, 128, 256):
+        assert tfa.dkv_slot_floats(d) == 2 * (d // 8) * (2 * tfa.dkv_tile(d)[0]) * 4
+    sch = _check_dkv_schedule(b, s, sk, h, g, causal, window, *tfa.dkv_tile(256), True)
+    loads = [sum(it[6] - it[5] for it in sch.items[a:e])
+             for a, e in zip(sch.offsets, sch.offsets[1:])]
+    assert max(loads) <= -(-sum(loads) // min(132, sum(loads)))
+    if (b, s, h) in ((2, 512, 16), (1, 4096, 16)):
+        assert sch.slots == 0 and all(it[7] == -1 for it in sch.items)
+    # Pure: the same call gives the same list (the sums' order rests on it).
+    assert tfa.dkv_schedule(b, s, sk, h, g, causal, window, 132, *tfa.dkv_tile(256),
+                            True) == sch
+    # Without ``whole`` (the d <= 128 and 3xTF32 kernels) the same tiles
+    # take the cut list, which covers every pair once too.
+    _check_dkv_schedule(b, s, sk, h, g, causal, window, *tfa.dkv_tile(256))
 
 
 # The persistent forward's tile list (``fwd_schedule``): the shapes of

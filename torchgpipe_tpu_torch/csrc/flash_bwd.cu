@@ -84,6 +84,17 @@
 //     64 more, so the consumers take 240 registers (setmaxnreg) and the
 //     producer 24.  A warpgroup skips a query tile that none of its keys
 //     attends.
+//   - Head dim 256 (Gemma's; bf16/f16, routed here by ops/flash_attention.py
+//     wide_kernel).  dK and dV of 64 keys would be 256 f32 accumulators a
+//     thread, over the 240 a consumer has, and the 128-key K/V slots alone
+//     256 KB.  So the two consumers split the work by product instead of
+//     by keys: an item is 64 keys (dkv_tile), which both take; warpgroup 0
+//     runs S^T = K Q^T, forms P^T and owns dV += P^T dO, warpgroup 1 runs
+//     dP^T = V dO^T and owns dK += dS^T Q (128 accumulators each, one
+//     m64n256k16 product a k16 step), and P^T passes from 0 to 1 through
+//     shared memory (f32, two 16 KB buffers on named barriers), so nothing
+//     is computed twice.  One K/V slot (64 KB) and a two-stage ring of
+//     64-query Q/dO tiles (128 KB) fit beside it.
 //   - The sum stays deterministic.  An item that holds its key tile's whole
 //     loop writes bf16 dK/dV itself.  Otherwise each item writes its f32
 //     partials to its own slot of a scratch tensor, in the accumulators'
@@ -397,32 +408,48 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
 
 // ---- flash_bwd_dkv ---------------------------------------------------------
 
-constexpr int KV_BK = 128;       // keys per item: two consumer warpgroups of 64
 constexpr int KV_BQ = 64;        // queries per Q/dO tile
-constexpr int KV_STAGES = 3;
 constexpr int KV_THREADS = 384;
+constexpr int PX_FULL = 1;       // named barriers 1, 2: a P^T buffer written (d = 256)
+constexpr int PX_EMPTY = 3;      // named barriers 3, 4: a P^T buffer read
 // An item: batch, kv head, key tile, first live query tile, live query
 // tiles per head, iterations [it0, it1) of the loop over (query head,
 // query tile), scratch slot (-1: write bf16 directly).
 constexpr int ITEM_INTS = 8;
 
-// K and V have two slots each (consecutive items alternate), so the next
-// item's K/V and first Q tiles load while the current item finishes.  At
-// d = 128 the layout takes 232016 of the 232448 bytes a block may have.
+// Up to d = 128: an item is 128 keys, 64 per consumer warpgroup, each
+// holding dK and dV for its keys; K and V have two slots each (consecutive
+// items alternate), so the next item's K/V and first Q tiles load while
+// the current item finishes, and Q/dO run in a three-stage ring.  At d =
+// 128 the layout takes 232016 of the 232448 bytes a block may have.
+// At d = 256 (SPLIT) dK and dV of 64 keys would be 256 accumulators a
+// thread, over the 240 a consumer has, and two 128-key K/V slots alone
+// 256 KB: an item is 64 keys that both warpgroups take, warpgroup 0
+// forming P^T and owning dV, warpgroup 1 forming dS^T and owning dK (128
+// accumulators each), with P^T passed through shared memory (two f32
+// buffers); one K/V slot (64 KB) and a two-stage Q/dO ring (128 KB):
+// 231472 bytes.
 template <int D>
 struct DkvSmem {
-  static constexpr int KV_TILE = KV_BK * D * 2;  // bytes of K (or V)
-  static constexpr int Q_TILE = KV_BQ * D * 2;   // bytes of a Q (or dO) tile
-  static constexpr int K = 0;                    // [slot][KV_TILE]
-  static constexpr int V = 2 * KV_TILE;
-  static constexpr int Q = 4 * KV_TILE;
-  static constexpr int DO = Q + KV_STAGES * Q_TILE;
-  static constexpr int LSE = DO + KV_STAGES * Q_TILE;    // [stage][KV_BQ] f32
-  static constexpr int DELTA = LSE + KV_STAGES * KV_BQ * 4;
-  static constexpr int BAR = DELTA + KV_STAGES * KV_BQ * 4;
-  // full[S], empty[S], kv_full[2], kv_empty[2]
-  static constexpr int BYTES = BAR + (2 * KV_STAGES + 4) * 8;
+  static constexpr bool SPLIT = D == 256;
+  static constexpr int BK = SPLIT ? 64 : 128;         // keys per item
+  static constexpr int KV_SLOTS = SPLIT ? 1 : 2;
+  static constexpr int STAGES = SPLIT ? 2 : 3;        // Q/dO ring
+  static constexpr int KV_TILE = BK * D * 2;          // bytes of K (or V)
+  static constexpr int Q_TILE = KV_BQ * D * 2;        // bytes of a Q (or dO) tile
+  static constexpr int K = 0;                         // [slot][KV_TILE]
+  static constexpr int V = KV_SLOTS * KV_TILE;
+  static constexpr int Q = 2 * KV_SLOTS * KV_TILE;    // [stage][Q_TILE]
+  static constexpr int DO = Q + STAGES * Q_TILE;
+  static constexpr int PX = DO + STAGES * Q_TILE;     // f32 [2][KV_BQ / 8][128] float4
+  static constexpr int PX_BUF = 128 * KV_BQ / 2 * 4;  // bytes of one P^T buffer
+  static constexpr int LSE = PX + (SPLIT ? 2 * PX_BUF : 0);   // [stage][KV_BQ] f32
+  static constexpr int DELTA = LSE + STAGES * KV_BQ * 4;
+  static constexpr int BAR = DELTA + STAGES * KV_BQ * 4;
+  // full[S], empty[S], kv_full[slots], kv_empty[slots]
+  static constexpr int BYTES = BAR + (2 * STAGES + 2 * KV_SLOTS) * 8;
   static constexpr int ALLOC = BYTES + 1024;  // room to align the base
+  static_assert(ALLOC <= 232448, "a block's shared memory");
 };
 
 template <int D, typename E>
@@ -437,12 +464,13 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                      float scale, int causal, int window) {
   typedef DkvSmem<D> L;
   constexpr int NB = D / 64;         // 64-column blocks of a row
+  constexpr int BK = L::BK, STAGES = L::STAGES, SLOTS = L::KV_SLOTS;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BAR);
-  uint64_t* empty = full + KV_STAGES;
-  uint64_t* kv_full = empty + KV_STAGES;   // [slot]
-  uint64_t* kv_empty = kv_full + 2;
+  uint64_t* empty = full + STAGES;
+  uint64_t* kv_full = empty + STAGES;   // [slot]
+  uint64_t* kv_empty = kv_full + SLOTS;
   float* s_lse = reinterpret_cast<float*>(sm + L::LSE);
   float* s_delta = reinterpret_cast<float*>(sm + L::DELTA);
   const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
@@ -450,11 +478,11 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
   const int r = h / g;
 
   if (tid == 0) {
-    for (int i = 0; i < KV_STAGES; ++i) {
+    for (int i = 0; i < STAGES; ++i) {
       mbar_init(&full[i], 32);       // the producer warp's lanes, lane 0 with the bytes
       mbar_init(&empty[i], 8);       // one arrival per consumer warp
     }
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < SLOTS; ++i) {
       mbar_init(&kv_full[i], 1);
       mbar_init(&kv_empty[i], 8);
     }
@@ -471,17 +499,23 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
     for (int i = first; i < last; ++i) {
       const int* it = items + ITEM_INTS * i;
       const int bi = it[0], kvh = it[1], kt = it[2], jq0 = it[3], ntile = it[4];
-      const int slot = (i - first) & 1;
-      mbar_wait(&kv_empty[slot], (((i - first) >> 1) & 1) ^ 1);
-      if (lane == 0) {
-        uint64_t* bar = &kv_full[slot];
-        mbar_arrive_tx(bar, 2 * L::KV_TILE);
-        for (int c = 0; c < NB; ++c) {
-          const int off = slot * L::KV_TILE + c * KV_BK * 128;
-          tma_load_4d(sm + L::K + off, &tk, bar, c * 64, kvh, kt * KV_BK, bi);
-          tma_load_4d(sm + L::V + off, &tv, bar, c * 64, kvh, kt * KV_BK, bi);
+      const int slot = (i - first) % SLOTS;
+      auto load_kv = [&]() {
+        mbar_wait(&kv_empty[slot], (((i - first) / SLOTS) & 1) ^ 1);
+        if (lane == 0) {
+          uint64_t* bar = &kv_full[slot];
+          mbar_arrive_tx(bar, 2 * L::KV_TILE);
+          for (int c = 0; c < NB; ++c) {
+            const int off = slot * L::KV_TILE + c * BK * 128;
+            tma_load_4d(sm + L::K + off, &tk, bar, c * 64, kvh, kt * BK, bi);
+            tma_load_4d(sm + L::V + off, &tv, bar, c * 64, kvh, kt * BK, bi);
+          }
         }
-      }
+      };
+      // With one K/V slot (d = 256) a later item's K/V waits until the
+      // last item is done with the slot: its first Q/dO tiles go ahead.
+      const int kv_at = SLOTS > 1 || i == first ? -1 : min(it[5] + STAGES, it[6]) - 1;
+      if (kv_at < 0) load_kv();
       for (int t = it[5]; t < it[6]; ++t) {
         const int hh = kvh * r + t / ntile, q0 = (jq0 + t % ntile) * KV_BQ;
         mbar_wait(&empty[stage], phase ^ 1);
@@ -502,16 +536,16 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
         } else {
           mbar_arrive(&full[stage]);
         }
-        if (++stage == KV_STAGES) {
+        if (++stage == STAGES) {
           stage = 0;
           phase ^= 1;
         }
+        if (t == kv_at) load_kv();
       }
     }
     return;
   }
 
-  // Consumers: warpgroup w owns keys kt*128 + 64w .. +63 of each item.
   reg_alloc<240>();
   const int w = wg, warp = (tid >> 5) & 3;
   const int rq = lane >> 2, cq = (lane & 3) * 2;
@@ -519,143 +553,302 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t base = smem_u32(sm);
   int stage = 0;
   uint32_t phase = 0;
-  for (int i = first; i < last; ++i) {
-    const int* it = items + ITEM_INTS * i;
-    const int bi = it[0], kvh = it[1], kt = it[2], jq0 = it[3], ntile = it[4];
-    const int slot = it[7];
-    const int kw0 = kt * KV_BK + 64 * w;
-    const int kpos0 = kw0 + warp * 16 + rq, kpos1 = kpos0 + 8;
-    const int kv_slot = (i - first) & 1;
-    const uint32_t ka = base + L::K + kv_slot * L::KV_TILE + w * 64 * 128;
-    const uint32_t va = base + L::V + kv_slot * L::KV_TILE + w * 64 * 128;
-    float dka[D / 2], dva[D / 2];
-#pragma unroll
-    for (int n = 0; n < D / 2; ++n) dka[n] = dva[n] = 0.f;
-    mbar_wait(&kv_full[kv_slot], ((i - first) >> 1) & 1);
 
-    for (int t = it[5]; t < it[6]; ++t) {
-      const int q0 = (jq0 + t % ntile) * KV_BQ;
-      mbar_wait(&full[stage], phase);
-      const bool dead = kw0 >= sk || (causal && (q0 + KV_BQ - 1 < kw0 ||
-                                                 (window > 0 && q0 - (kw0 + 63) >= window)));
-      if (!dead) {
-        const bool edge = q0 + KV_BQ > s || kw0 + 64 > sk ||
-                          (causal && (kw0 + 63 > q0 ||
-                                      (window > 0 && q0 + KV_BQ - 1 - kw0 >= window)));
-        const uint32_t qa = base + L::Q + stage * L::Q_TILE;
-        const uint32_t oa = base + L::DO + stage * L::Q_TILE;
-        const float* sl = s_lse + stage * KV_BQ;
-        const float* sd = s_delta + stage * KV_BQ;
+  if constexpr (L::SPLIT) {
+    // Both warpgroups take the item's 64 keys.  Warpgroup 0: S^T = K Q^T,
+    // P^T, dV += P^T dO; warpgroup 1: dP^T = V dO^T, dS^T = P^T * (dP^T -
+    // delta) with P^T read from warpgroup 0's buffer (the same register
+    // layout: thread t reads what thread t wrote), dK += dS^T Q.  The
+    // buffers alternate; warpgroup 0 waits until a buffer has been read
+    // before writing it again (warpgroup 1 frees both at the start, and
+    // warpgroup 0 takes those two frees back at the end, so every named
+    // barrier completes as often as it is begun).
+    const int t = tid & 127;
+    float4* px = reinterpret_cast<float4*>(sm + L::PX);
+    if (w == 1) {
+      bar_arrive(PX_EMPTY, 256);
+      bar_arrive(PX_EMPTY + 1, 256);
+    }
+    int nx = 0;   // P^T exchanges so far
+    for (int i = first; i < last; ++i) {
+      const int* it = items + ITEM_INTS * i;
+      const int bi = it[0], kvh = it[1], kt = it[2], jq0 = it[3], ntile = it[4];
+      const int slot = it[7];
+      const int k0 = kt * BK;
+      const int kpos0 = k0 + warp * 16 + rq, kpos1 = kpos0 + 8;
+      // The product's A operand: K (S^T) or V (dP^T).
+      const uint32_t ka = base + (w == 0 ? L::K : L::V);
+      float acc[D / 2];   // dV (warpgroup 0) or dK (warpgroup 1): [64 keys x d]
+#pragma unroll
+      for (int n = 0; n < D / 2; ++n) acc[n] = 0.f;
+      mbar_wait(&kv_full[0], (i - first) & 1);
 
-        // S^T = K Q^T and dP^T = V dO^T: [64 keys x 64 queries] each.
-        float st[KV_BQ / 2], dpt[KV_BQ / 2];
-        fence_regs(st);
-        fence_regs(dpt);
-        wgmma_fence();
+      for (int tt = it[5]; tt < it[6]; ++tt) {
+        const int q0 = (jq0 + tt % ntile) * KV_BQ;
+        mbar_wait(&full[stage], phase);
+        const bool dead = k0 >= sk || (causal && (q0 + KV_BQ - 1 < k0 ||
+                                                  (window > 0 && q0 - (k0 + 63) >= window)));
+        if (!dead) {
+          const bool edge = q0 + KV_BQ > s || k0 + 64 > sk ||
+                            (causal && (k0 + 63 > q0 ||
+                                        (window > 0 && q0 + KV_BQ - 1 - k0 >= window)));
+          const uint32_t qa = base + L::Q + stage * L::Q_TILE;
+          const uint32_t oa = base + L::DO + stage * L::Q_TILE;
+          // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (1): [64 keys x 64 queries].
+          const uint32_t ba = w == 0 ? qa : oa;
+          float st[KV_BQ / 2];
+          fence_regs(st);
+          wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          const uint32_t off = (kk / 4) * KV_BK * 128 + (kk % 4) * 32;
-          wgmma_ss<KV_BQ, 0, E>(st, desc_k(ka + off),
-                             desc_k(qa + (kk / 4) * KV_BQ * 128 + (kk % 4) * 32), kk > 0);
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const uint32_t off = (kk / 4) * BK * 128 + (kk % 4) * 32;
+            wgmma_ss<KV_BQ, 0, E>(st, desc_k(ka + off),
+                               desc_k(ba + (kk / 4) * KV_BQ * 128 + (kk % 4) * 32), kk > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(st);
+          const int buf = nx & 1;
+          float4* xb = px + buf * (KV_BQ / 8) * 128;
+          uint32_t fa[KV_BQ / 16][4];   // P^T or dS^T as A fragments
+          if (w == 0) {
+            // P^T = exp2(S^T * scale * log2e - lse[q]); masked pairs (only
+            // on tiles that straddle an edge) get p = 0.
+            const float* sl = s_lse + stage * KV_BQ;
+            if (edge) {
+#pragma unroll
+              for (int t8 = 0; t8 < KV_BQ / 8; ++t8)
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                  if (!visible(q0 + t8 * 8 + cq + (e & 1), e < 2 ? kpos0 : kpos1, s, sk, causal,
+                               window))
+                    st[4 * t8 + e] = -CUDART_INF_F;
+            }
+#pragma unroll
+            for (int t8 = 0; t8 < KV_BQ / 8; ++t8) {
+              const float2 l2 = *reinterpret_cast<const float2*>(sl + t8 * 8 + cq);
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                st[4 * t8 + e] = exp2_fast(fmaf(st[4 * t8 + e], sl2, (e & 1) ? -l2.y : -l2.x));
+            }
+            bar_sync(PX_EMPTY + buf, 256);
+#pragma unroll
+            for (int t8 = 0; t8 < KV_BQ / 8; ++t8)
+              xb[t8 * 128 + t] = make_float4(st[4 * t8], st[4 * t8 + 1], st[4 * t8 + 2],
+                                             st[4 * t8 + 3]);
+            bar_arrive(PX_FULL + buf, 256);
+#pragma unroll
+            for (int t8 = 0; t8 < KV_BQ / 8; ++t8) {
+              fa[t8 >> 1][(t8 & 1) * 2] = pack2<E>(st[4 * t8], st[4 * t8 + 1]);
+              fa[t8 >> 1][(t8 & 1) * 2 + 1] = pack2<E>(st[4 * t8 + 2], st[4 * t8 + 3]);
+            }
+          } else {
+            // dS^T = P^T * (dP^T - delta[q]).
+            const float* sd = s_delta + stage * KV_BQ;
+            bar_sync(PX_FULL + buf, 256);
+#pragma unroll
+            for (int t8 = 0; t8 < KV_BQ / 8; ++t8) {
+              const float4 p = xb[t8 * 128 + t];
+              const float2 dl = *reinterpret_cast<const float2*>(sd + t8 * 8 + cq);
+              fa[t8 >> 1][(t8 & 1) * 2] =
+                  pack2<E>(p.x * (st[4 * t8] - dl.x), p.y * (st[4 * t8 + 1] - dl.y));
+              fa[t8 >> 1][(t8 & 1) * 2 + 1] =
+                  pack2<E>(p.z * (st[4 * t8 + 2] - dl.x), p.w * (st[4 * t8 + 3] - dl.y));
+            }
+            bar_arrive(PX_EMPTY + buf, 256);
+          }
+          ++nx;
+          // dV += P^T dO or dK += dS^T Q (dO, Q as [queries, d]: MN-major;
+          // one m64n256k16 product a k16 step).
+          const uint32_t ma = w == 0 ? oa : qa;
+          fence_regs(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int kq = 0; kq < KV_BQ / 16; ++kq)
+            wgmma_rs<D, 1, E>(acc, fa[kq], desc_mn(ma + kq * 2048, KV_BQ * 128), 1);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(acc);
         }
-        wgmma_commit();
-#pragma unroll
-        for (int kk = 0; kk < D / 16; ++kk) {
-          const uint32_t off = (kk / 4) * KV_BK * 128 + (kk % 4) * 32;
-          wgmma_ss<KV_BQ, 0, E>(dpt, desc_k(va + off),
-                             desc_k(oa + (kk / 4) * KV_BQ * 128 + (kk % 4) * 32), kk > 0);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[stage]);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
         }
-        wgmma_commit();
-
-        // P^T = exp2(S^T * scale * log2e - lse[q]) while dP^T finishes;
-        // masked pairs (only on tiles that straddle an edge) get p = 0.
-        wgmma_wait<1>();
-        fence_regs(st);
-        if (edge) {
-#pragma unroll
-          for (int t8 = 0; t8 < KV_BQ / 8; ++t8)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              if (!visible(q0 + t8 * 8 + cq + (e & 1), e < 2 ? kpos0 : kpos1, s, sk, causal,
-                           window))
-                st[4 * t8 + e] = -CUDART_INF_F;
-        }
-#pragma unroll
-        for (int t8 = 0; t8 < KV_BQ / 8; ++t8) {
-          const float2 l2 = *reinterpret_cast<const float2*>(sl + t8 * 8 + cq);
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            st[4 * t8 + e] = exp2_fast(fmaf(st[4 * t8 + e], sl2, (e & 1) ? -l2.y : -l2.x));
-        }
-        // dS^T = P^T * (dP^T - delta[q]); both packed as A fragments.
-        wgmma_wait<0>();
-        fence_regs(dpt);
-        uint32_t pa[KV_BQ / 16][4], dsa[KV_BQ / 16][4];
-#pragma unroll
-        for (int t8 = 0; t8 < KV_BQ / 8; ++t8) {
-          const float2 dl = *reinterpret_cast<const float2*>(sd + t8 * 8 + cq);
-          float ds[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            ds[e] = st[4 * t8 + e] * (dpt[4 * t8 + e] - ((e & 1) ? dl.y : dl.x));
-          pa[t8 >> 1][(t8 & 1) * 2] = pack2<E>(st[4 * t8], st[4 * t8 + 1]);
-          pa[t8 >> 1][(t8 & 1) * 2 + 1] = pack2<E>(st[4 * t8 + 2], st[4 * t8 + 3]);
-          dsa[t8 >> 1][(t8 & 1) * 2] = pack2<E>(ds[0], ds[1]);
-          dsa[t8 >> 1][(t8 & 1) * 2 + 1] = pack2<E>(ds[2], ds[3]);
-        }
-
-        // dV += P^T dO and dK += dS^T Q (dO, Q as [queries, d]: MN-major).
-        fence_regs(dva);
-        fence_regs(dka);
-        wgmma_fence();
-#pragma unroll
-        for (int kq = 0; kq < KV_BQ / 16; ++kq)
-          wgmma_rs<D, 1, E>(dva, pa[kq], desc_mn(oa + kq * 2048, KV_BQ * 128), 1);
-#pragma unroll
-        for (int kq = 0; kq < KV_BQ / 16; ++kq)
-          wgmma_rs<D, 1, E>(dka, dsa[kq], desc_mn(qa + kq * 2048, KV_BQ * 128), 1);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(dva);
-        fence_regs(dka);
       }
       __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[stage]);
-      if (++stage == KV_STAGES) {
-        stage = 0;
-        phase ^= 1;
+      if (lane == 0) mbar_arrive(&kv_empty[0]);
+
+      const float f = w == 0 ? 1.f : scale;
+      if (slot < 0) {
+        E* out = w == 0 ? dv : dk;
+        const size_t kstride = size_t(g) * D;
+        const size_t col = size_t(kvh) * D + cq;
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int kpos = rr ? kpos1 : kpos0;
+          if (kpos >= sk) continue;
+          E* dst = out + (size_t(bi) * sk + kpos) * kstride + col;
+#pragma unroll
+          for (int t8 = 0; t8 < D / 8; ++t8)
+            store2<E>(dst + t8 * 8, acc[4 * t8 + 2 * rr] * f, acc[4 * t8 + 2 * rr + 1] * f);
+        }
+      } else {
+        // Slot layout: [2 (dK, dV)][D/8 float4 columns][128 threads].
+        float4* pp = reinterpret_cast<float4*>(partial + size_t(slot) * 2 * BK * D) +
+                     (w == 0 ? D / 8 : 0) * 128;
+#pragma unroll
+        for (int c = 0; c < D / 8; ++c)
+          pp[c * 128 + t] = make_float4(acc[4 * c], acc[4 * c + 1], acc[4 * c + 2], acc[4 * c + 3]);
       }
     }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&kv_empty[kv_slot]);
+    if (w == 0) {
+      bar_sync(PX_EMPTY + (nx & 1), 256);
+      bar_sync(PX_EMPTY + ((nx + 1) & 1), 256);
+    }
+    return;
+  } else {
+    // Consumers: warpgroup w owns keys kt*128 + 64w .. +63 of each item.
+    for (int i = first; i < last; ++i) {
+      const int* it = items + ITEM_INTS * i;
+      const int bi = it[0], kvh = it[1], kt = it[2], jq0 = it[3], ntile = it[4];
+      const int slot = it[7];
+      const int kw0 = kt * BK + 64 * w;
+      const int kpos0 = kw0 + warp * 16 + rq, kpos1 = kpos0 + 8;
+      const int kv_slot = (i - first) & 1;
+      const uint32_t ka = base + L::K + kv_slot * L::KV_TILE + w * 64 * 128;
+      const uint32_t va = base + L::V + kv_slot * L::KV_TILE + w * 64 * 128;
+      float dka[D / 2], dva[D / 2];
+#pragma unroll
+      for (int n = 0; n < D / 2; ++n) dka[n] = dva[n] = 0.f;
+      mbar_wait(&kv_full[kv_slot], ((i - first) >> 1) & 1);
 
-    if (slot < 0) {
-      const size_t kstride = size_t(g) * D;
-      const size_t col = size_t(kvh) * D + cq;
-      if (kpos0 < sk) {
-        const size_t off = (size_t(bi) * sk + kpos0) * kstride + col;
+      for (int t = it[5]; t < it[6]; ++t) {
+        const int q0 = (jq0 + t % ntile) * KV_BQ;
+        mbar_wait(&full[stage], phase);
+        const bool dead = kw0 >= sk || (causal && (q0 + KV_BQ - 1 < kw0 ||
+                                                   (window > 0 && q0 - (kw0 + 63) >= window)));
+        if (!dead) {
+          const bool edge = q0 + KV_BQ > s || kw0 + 64 > sk ||
+                            (causal && (kw0 + 63 > q0 ||
+                                        (window > 0 && q0 + KV_BQ - 1 - kw0 >= window)));
+          const uint32_t qa = base + L::Q + stage * L::Q_TILE;
+          const uint32_t oa = base + L::DO + stage * L::Q_TILE;
+          const float* sl = s_lse + stage * KV_BQ;
+          const float* sd = s_delta + stage * KV_BQ;
+
+          // S^T = K Q^T and dP^T = V dO^T: [64 keys x 64 queries] each.
+          float st[KV_BQ / 2], dpt[KV_BQ / 2];
+          fence_regs(st);
+          fence_regs(dpt);
+          wgmma_fence();
 #pragma unroll
-        for (int t8 = 0; t8 < D / 8; ++t8) {
-          store2<E>(dk + off + t8 * 8, dka[4 * t8] * scale, dka[4 * t8 + 1] * scale);
-          store2<E>(dv + off + t8 * 8, dva[4 * t8], dva[4 * t8 + 1]);
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const uint32_t off = (kk / 4) * BK * 128 + (kk % 4) * 32;
+            wgmma_ss<KV_BQ, 0, E>(st, desc_k(ka + off),
+                               desc_k(qa + (kk / 4) * KV_BQ * 128 + (kk % 4) * 32), kk > 0);
+          }
+          wgmma_commit();
+#pragma unroll
+          for (int kk = 0; kk < D / 16; ++kk) {
+            const uint32_t off = (kk / 4) * BK * 128 + (kk % 4) * 32;
+            wgmma_ss<KV_BQ, 0, E>(dpt, desc_k(va + off),
+                               desc_k(oa + (kk / 4) * KV_BQ * 128 + (kk % 4) * 32), kk > 0);
+          }
+          wgmma_commit();
+
+          // P^T = exp2(S^T * scale * log2e - lse[q]) while dP^T finishes;
+          // masked pairs (only on tiles that straddle an edge) get p = 0.
+          wgmma_wait<1>();
+          fence_regs(st);
+          if (edge) {
+#pragma unroll
+            for (int t8 = 0; t8 < KV_BQ / 8; ++t8)
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+                if (!visible(q0 + t8 * 8 + cq + (e & 1), e < 2 ? kpos0 : kpos1, s, sk, causal,
+                             window))
+                  st[4 * t8 + e] = -CUDART_INF_F;
+          }
+#pragma unroll
+          for (int t8 = 0; t8 < KV_BQ / 8; ++t8) {
+            const float2 l2 = *reinterpret_cast<const float2*>(sl + t8 * 8 + cq);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              st[4 * t8 + e] = exp2_fast(fmaf(st[4 * t8 + e], sl2, (e & 1) ? -l2.y : -l2.x));
+          }
+          // dS^T = P^T * (dP^T - delta[q]); both packed as A fragments.
+          wgmma_wait<0>();
+          fence_regs(dpt);
+          uint32_t pa[KV_BQ / 16][4], dsa[KV_BQ / 16][4];
+#pragma unroll
+          for (int t8 = 0; t8 < KV_BQ / 8; ++t8) {
+            const float2 dl = *reinterpret_cast<const float2*>(sd + t8 * 8 + cq);
+            float ds[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              ds[e] = st[4 * t8 + e] * (dpt[4 * t8 + e] - ((e & 1) ? dl.y : dl.x));
+            pa[t8 >> 1][(t8 & 1) * 2] = pack2<E>(st[4 * t8], st[4 * t8 + 1]);
+            pa[t8 >> 1][(t8 & 1) * 2 + 1] = pack2<E>(st[4 * t8 + 2], st[4 * t8 + 3]);
+            dsa[t8 >> 1][(t8 & 1) * 2] = pack2<E>(ds[0], ds[1]);
+            dsa[t8 >> 1][(t8 & 1) * 2 + 1] = pack2<E>(ds[2], ds[3]);
+          }
+
+          // dV += P^T dO and dK += dS^T Q (dO, Q as [queries, d]: MN-major).
+          fence_regs(dva);
+          fence_regs(dka);
+          wgmma_fence();
+#pragma unroll
+          for (int kq = 0; kq < KV_BQ / 16; ++kq)
+            wgmma_rs<D, 1, E>(dva, pa[kq], desc_mn(oa + kq * 2048, KV_BQ * 128), 1);
+#pragma unroll
+          for (int kq = 0; kq < KV_BQ / 16; ++kq)
+            wgmma_rs<D, 1, E>(dka, dsa[kq], desc_mn(qa + kq * 2048, KV_BQ * 128), 1);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dva);
+          fence_regs(dka);
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[stage]);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
         }
       }
-      if (kpos1 < sk) {
-        const size_t off = (size_t(bi) * sk + kpos1) * kstride + col;
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&kv_empty[kv_slot]);
+
+      if (slot < 0) {
+        const size_t kstride = size_t(g) * D;
+        const size_t col = size_t(kvh) * D + cq;
+        if (kpos0 < sk) {
+          const size_t off = (size_t(bi) * sk + kpos0) * kstride + col;
 #pragma unroll
-        for (int t8 = 0; t8 < D / 8; ++t8) {
-          store2<E>(dk + off + t8 * 8, dka[4 * t8 + 2] * scale, dka[4 * t8 + 3] * scale);
-          store2<E>(dv + off + t8 * 8, dva[4 * t8 + 2], dva[4 * t8 + 3]);
+          for (int t8 = 0; t8 < D / 8; ++t8) {
+            store2<E>(dk + off + t8 * 8, dka[4 * t8] * scale, dka[4 * t8 + 1] * scale);
+            store2<E>(dv + off + t8 * 8, dva[4 * t8], dva[4 * t8 + 1]);
+          }
         }
-      }
-    } else {
-      // Slot layout: [2 (dK, dV)][D/8 float4 columns][256 consumer threads].
-      float4* pp = reinterpret_cast<float4*>(partial + size_t(slot) * 256 * D);
+        if (kpos1 < sk) {
+          const size_t off = (size_t(bi) * sk + kpos1) * kstride + col;
 #pragma unroll
-      for (int c = 0; c < D / 8; ++c) {
-        pp[c * 256 + tid] = make_float4(dka[4 * c], dka[4 * c + 1], dka[4 * c + 2], dka[4 * c + 3]);
-        pp[(D / 8 + c) * 256 + tid] =
-            make_float4(dva[4 * c], dva[4 * c + 1], dva[4 * c + 2], dva[4 * c + 3]);
+          for (int t8 = 0; t8 < D / 8; ++t8) {
+            store2<E>(dk + off + t8 * 8, dka[4 * t8 + 2] * scale, dka[4 * t8 + 3] * scale);
+            store2<E>(dv + off + t8 * 8, dva[4 * t8 + 2], dva[4 * t8 + 3]);
+          }
+        }
+      } else {
+        // Slot layout: [2 (dK, dV)][D/8 float4 columns][256 consumer threads].
+        float4* pp = reinterpret_cast<float4*>(partial + size_t(slot) * 2 * BK * D);
+#pragma unroll
+        for (int c = 0; c < D / 8; ++c) {
+          pp[c * 256 + tid] =
+              make_float4(dka[4 * c], dka[4 * c + 1], dka[4 * c + 2], dka[4 * c + 3]);
+          pp[(D / 8 + c) * 256 + tid] =
+              make_float4(dva[4 * c], dva[4 * c + 1], dva[4 * c + 2], dva[4 * c + 3]);
+        }
       }
     }
   }
@@ -665,19 +858,22 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
 // layout (j < D/8: dK columns 8j .. 8j+7 of the thread's two rows, else
 // dV's): adds the tile's `count` slots from `first` in item order (count
 // 0: no query attends the tile, write zeros; count < 0: an item wrote it
-// directly).  Threads map to rows as the consumers' accumulators do.
+// directly).  Threads map to rows as the consumers' accumulators do: 2 *
+// BK of them, 128 for each 64 keys (d = 256: one warpgroup's layout, which
+// dK and dV share).
 template <int D, typename E>
 __global__ void __launch_bounds__(256)
 flash_bwd_dkv_sum_kernel(const float* __restrict__ partial, const int* __restrict__ combos,
                          E* __restrict__ dk, E* __restrict__ dv, int sk, int g, int nkt,
                          float scale) {
+  constexpr int BK = DkvSmem<D>::BK, T = 2 * BK;
   const int c = blockIdx.x, j = blockIdx.y, first = combos[2 * c], count = combos[2 * c + 1];
   if (count < 0) return;
   const int tid = threadIdx.x;
   float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int n = 0; n < count; ++n) {
     const float4 x =
-        reinterpret_cast<const float4*>(partial + size_t(first + n) * 256 * D)[j * 256 + tid];
+        reinterpret_cast<const float4*>(partial + size_t(first + n) * T * D)[j * T + tid];
     a.x += x.x;
     a.y += x.y;
     a.z += x.z;
@@ -688,7 +884,7 @@ flash_bwd_dkv_sum_kernel(const float* __restrict__ partial, const int* __restric
   const float f = is_v ? 1.f : scale;
   const int kt = c % nkt, kvh = (c / nkt) % g, bi = c / nkt / g;
   const int w = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
-  const int kpos0 = kt * KV_BK + 64 * w + warp * 16 + (lane >> 2), kpos1 = kpos0 + 8;
+  const int kpos0 = kt * BK + 64 * w + warp * 16 + (lane >> 2), kpos1 = kpos0 + 8;
   const size_t kstride = size_t(g) * D;
   const size_t col = size_t(kvh) * D + (is_v ? j - D / 8 : j) * 8 + (lane & 3) * 2;
   if (kpos0 < sk) store2<E>(out + (size_t(bi) * sk + kpos0) * kstride + col, a.x * f, a.y * f);
@@ -698,15 +894,16 @@ flash_bwd_dkv_sum_kernel(const float* __restrict__ partial, const int* __restric
 template <int D, typename E>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, void* dk, void* dv, const int* items, const int* offsets,
-               const int* combos, float* partial, int nblocks, int b, int s, int sk, int h,
-               int g, float scale, int causal, int window, cudaStream_t stream) {
+               const int* combos, float* partial, int nblocks, int sum, int b, int s, int sk,
+               int h, int g, float scale, int causal, int window, cudaStream_t stream) {
+  constexpr int BK = DkvSmem<D>::BK;
   if (nblocks > 0) {
     CUtensorMap tq, tdo, tk, tv;
     int e;
     if ((e = make_map<E>(&tq, q, D, h, s, b, KV_BQ)) ||
         (e = make_map<E>(&tdo, dout, D, h, s, b, KV_BQ)) ||
-        (e = make_map<E>(&tk, k, D, g, sk, b, KV_BK)) ||
-        (e = make_map<E>(&tv, v, D, g, sk, b, KV_BK)))
+        (e = make_map<E>(&tk, k, D, g, sk, b, BK)) ||
+        (e = make_map<E>(&tv, v, D, g, sk, b, BK)))
       return e;
     const int bytes = DkvSmem<D>::ALLOC;
     cudaError_t ce = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D, E>,
@@ -719,8 +916,9 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
     ce = cudaGetLastError();
     if (ce != cudaSuccess) return int(ce);
   }
-  const int nkt = (sk + KV_BK - 1) / KV_BK;
-  flash_bwd_dkv_sum_kernel<D, E><<<dim3(b * g * nkt, D / 4), 256, 0, stream>>>(
+  if (!sum) return 0;   // every key tile written by its one item
+  const int nkt = (sk + BK - 1) / BK;
+  flash_bwd_dkv_sum_kernel<D, E><<<dim3(b * g * nkt, D / 4), 2 * BK, 0, stream>>>(
       partial, combos, static_cast<E*>(dk), static_cast<E*>(dv), sk, g, nkt, scale);
   return int(cudaGetLastError());
 }
@@ -748,8 +946,8 @@ int dq_entry(const void* q, const void* k, const void* v, const void* dout, cons
 template <typename E>
 int dkv_entry(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, void* dk, void* dv, const void* items, const void* offsets,
-              const void* combos, void* partial, int nblocks, int b, int s, int sk, int h, int g,
-              int d, float scale, int causal, int window, void* stream) {
+              const void* combos, void* partial, int nblocks, int sum, int b, int s, int sk,
+              int h, int g, int d, float scale, int causal, int window, void* stream) {
   if (sk == 0 || b == 0) return 0;
   if (g <= 0 || h % g != 0) return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -758,11 +956,14 @@ int dkv_entry(const void* q, const void* k, const void* v, const void* dout, con
   const int* co = static_cast<const int*>(combos);
   float* pp = static_cast<float*>(partial);
   if (d == 128)
-    return launch_dkv<128, E>(q, k, v, dout, lse, delta, dk, dv, it, of, co, pp, nblocks, b, s,
-                              sk, h, g, scale, causal, window, st);
+    return launch_dkv<128, E>(q, k, v, dout, lse, delta, dk, dv, it, of, co, pp, nblocks, sum,
+                              b, s, sk, h, g, scale, causal, window, st);
   if (d == 64)
-    return launch_dkv<64, E>(q, k, v, dout, lse, delta, dk, dv, it, of, co, pp, nblocks, b, s,
-                             sk, h, g, scale, causal, window, st);
+    return launch_dkv<64, E>(q, k, v, dout, lse, delta, dk, dv, it, of, co, pp, nblocks, sum,
+                             b, s, sk, h, g, scale, causal, window, st);
+  if (d == 256)
+    return launch_dkv<256, E>(q, k, v, dout, lse, delta, dk, dv, it, of, co, pp, nblocks, sum,
+                              b, s, sk, h, g, scale, causal, window, st);
   return int(cudaErrorInvalidValue);
 }
 
@@ -801,15 +1002,19 @@ extern "C" int tgt_flash_bwd_dq_f16(const void* q, const void* k, const void* v,
 // [n, 8] (see ITEM_INTS), `offsets` int32 [nblocks + 1] (block i runs
 // items offsets[i] .. offsets[i+1]-1), `combos` int32 [b * g * nkt, 2]
 // (first slot and slot count of each key tile, -1 when an item writes it
-// directly), `partial` f32 [slots, 256 * d].  Returns 0 or a cudaError_t.
+// directly), `partial` f32 [slots, 2 * keys * d].  Key tiles of 128 keys
+// (64 at d = 256: ops/flash_attention.py dkv_tile).  `sum` = 0 when every
+// combo is written by its one item (no slots, no unattended key tile):
+// the sum kernel is not launched (the wrapper passes 0 only at d = 256).  d = 64, 128 or 256.  Returns 0 or a
+// cudaError_t.
 extern "C" int tgt_flash_bwd_dkv_bf16(const void* q, const void* k, const void* v,
                                       const void* dout, const void* lse, const void* delta,
                                       void* dk, void* dv, const void* items,
                                       const void* offsets, const void* combos, void* partial,
-                                      int nblocks, int b, int s, int sk, int h, int g, int d,
-                                      float scale, int causal, int window, void* stream) {
+                                      int nblocks, int sum, int b, int s, int sk, int h, int g,
+                                      int d, float scale, int causal, int window, void* stream) {
   return dkv_entry<bf16>(q, k, v, dout, lse, delta, dk, dv, items, offsets, combos, partial,
-                         nblocks, b, s, sk, h, g, d, scale, causal, window, stream);
+                         nblocks, sum, b, s, sk, h, g, d, scale, causal, window, stream);
 }
 
 // The same with q, k, v, dout, dk and dv float16.
@@ -817,10 +1022,10 @@ extern "C" int tgt_flash_bwd_dkv_f16(const void* q, const void* k, const void* v
                                      const void* dout, const void* lse, const void* delta,
                                      void* dk, void* dv, const void* items,
                                      const void* offsets, const void* combos, void* partial,
-                                     int nblocks, int b, int s, int sk, int h, int g, int d,
-                                     float scale, int causal, int window, void* stream) {
+                                     int nblocks, int sum, int b, int s, int sk, int h, int g,
+                                     int d, float scale, int causal, int window, void* stream) {
   return dkv_entry<f16>(q, k, v, dout, lse, delta, dk, dv, items, offsets, combos, partial,
-                        nblocks, b, s, sk, h, g, d, scale, causal, window, stream);
+                        nblocks, sum, b, s, sk, h, g, d, scale, causal, window, stream);
 }
 
 // Dynamic shared memory of one flash_bwd_dq block at head dim d (0: d
@@ -835,5 +1040,8 @@ extern "C" int tgt_flash_bwd_dq_smem_bytes(int d) {
 // Dynamic shared memory of one flash_bwd_dkv block at head dim d (0: d
 // not taken).
 extern "C" int tgt_flash_bwd_dkv_smem_bytes(int d) {
-  return d == 128 ? DkvSmem<128>::ALLOC : d == 64 ? DkvSmem<64>::ALLOC : 0;
+  return d == 128   ? DkvSmem<128>::ALLOC
+         : d == 64  ? DkvSmem<64>::ALLOC
+         : d == 256 ? DkvSmem<256>::ALLOC
+                    : 0;
 }

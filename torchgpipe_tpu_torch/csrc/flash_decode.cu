@@ -33,7 +33,10 @@
 //   mbarrier; its lanes copy an int8 cache's scales beside each tile.  The
 //   ring holds 96 KB (3 to 8 stages at bf16/int8), so ~64 KB per block are
 //   in flight (Little's law at 3.35 TB/s asks for tens of KB per SM); two
-//   blocks fit on an SM.  An int8 cache moves as int8 and is widened in registers.
+//   blocks fit on an SM.  At head dim 256 a bf16 tile is 32 KB: the ring
+//   holds 128 KB (two stages of K and V; four for int8) and one block
+//   takes an SM, so the split aims at one block an SM for every cache
+//   type.  An int8 cache moves as int8 and is widened in registers.
 // * Scores on the tensor cores.  A kv head's g*r query rows (row i is
 //   position pos0 + i / r, query head kvh*r + i % r, the reference's
 //   head-folded order) are the M side of mma.sync.m16n8k16 (padded to 16,
@@ -71,8 +74,9 @@
 //   behind an atomic count, measured ~7 us slower at a 1088-key cache.)
 // * Any head dim hd <= 128 whose cache row is a multiple of 16 bytes (TMA's
 //   stride rule: bf16 hd % 8, f32 hd % 4, int8 hd % 16), with no padded
-//   copy of the cache.  The tile layout is the template dim HD (64 for
-//   hd <= 64, else 128); the tensor maps take the real hd as the row, so
+//   copy of the cache, and hd = 256 (Gemma's) for a bf16, f16 or int8
+//   cache.  The tile layout is the template dim HD (64 for hd <= 64, 128
+//   up to 128, else 256); the tensor maps take the real hd as the row, so
 //   TMA reads hd columns from HBM and fills the rest of a column block
 //   with zeros (blocks wholly past hd, which only an f32 cache has, are
 //   not loaded and its score loop stops at hd).  Zero columns of q (zeroed
@@ -99,6 +103,7 @@ constexpr int CTHREADS = CWARPS * 32;
 constexpr int THREADS = CTHREADS + 32;
 constexpr int MAX_ROWS = 32;             // query rows a block holds (two m16 tiles)
 constexpr int RING_BYTES = 96 * 1024;
+constexpr int RING_BYTES_D256 = 128 * 1024;   // head dim 256: one block an SM
 constexpr int BAR_CONSUMERS = 1;         // named barrier of the consumer warps
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -124,7 +129,9 @@ struct Elem<int8_t> {
 constexpr int clampi(int x, int lo, int hi) { return x < lo ? lo : x > hi ? hi : x; }
 
 // Shared-memory layout of one block (offsets from a 1024-byte boundary).
-// RP: the group's query rows padded to 4, 8, 16 or 32.
+// RP: the group's query rows padded to 4, 8, 16 or 32.  BLOCKS: blocks an
+// SM, the launch bound (one at HD = 256, whose ring is 128 KB;
+// ops/flash_attention.py DECODE_WAVE_D256).
 template <typename TQ, typename TK, int HD, int RP>
 struct Cfg {
   static constexpr bool QUANT = sizeof(TK) == 1;
@@ -136,7 +143,9 @@ struct Cfg {
   static constexpr int CBW = RB < 128 ? RB : 128;      // column block width
   static constexpr int MASK = CBW == 128 ? 7 : 3;      // its swizzle
   static constexpr int TILE = KT * RB;                 // bytes of a K (or V) tile
-  static constexpr int STAGES = clampi(RING_BYTES / (2 * TILE), 2, 8);
+  static constexpr int BLOCKS = HD <= 128 && sizeof(TK) <= 2 ? 2 : 1;   // an SM
+  static constexpr int RING = HD <= 128 ? RING_BYTES : RING_BYTES_D256;
+  static constexpr int STAGES = clampi(RING / (2 * TILE), 2, 8);
   static constexpr int MT = (RP + 15) / 16;            // m16 tiles of the rows
   static constexpr int QLD = HD + 8;                   // ME pitch of the q parts
   static constexpr int PP = RP + 4;                    // pitch of P's key rows
@@ -291,7 +300,7 @@ __device__ __forceinline__ uint32_t tile_off(int key, int b) {
 // make one chunk.  ks/vs: the int8 cache's scales, f32
 // [b][nkv][max_len] (unused for a float cache).
 template <typename TQ, typename TK, int HD, int RP>
-__global__ void __launch_bounds__(THREADS, sizeof(TK) <= 2 ? 2 : 1)
+__global__ void __launch_bounds__(THREADS, (Cfg<TQ, TK, HD, RP>::BLOCKS))
 flash_decode_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
                const TQ* __restrict__ q, const float* __restrict__ ks,
                const float* __restrict__ vs, float* __restrict__ part,
@@ -698,20 +707,25 @@ int by_rows(const Ptrs& p, int b, const Args& a, cudaStream_t st) {
   return int(cudaErrorInvalidValue);
 }
 
-// The tile dim: 64 for hd <= 64, 128 for hd <= 128.  TMA needs the cache's
-// row (hd elements) to be a multiple of 16 bytes.
+// The tile dim: 64 for hd <= 64, 128 for hd <= 128, 256 for hd = 256
+// (Gemma's; 16-bit and int8 caches).  TMA needs the cache's row (hd
+// elements) to be a multiple of 16 bytes.
 template <typename TQ, typename TK>
 int by_head_dim(const Ptrs& p, int b, int hd, const Args& a, cudaStream_t st) {
   if (hd <= 0 || hd * int(sizeof(TK)) % 16 != 0) return int(cudaErrorInvalidValue);
   if (hd <= 64) return by_rows<TQ, TK, 64>(p, b, a, st);
   if (hd <= 128) return by_rows<TQ, TK, 128>(p, b, a, st);
+  if constexpr (sizeof(TK) <= 2) {
+    if (hd == 256) return by_rows<TQ, TK, 256>(p, b, a, st);
+  }
   return int(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // q [b, g, nh, hd]; ck/cv [b, max_len, nkv, hd], contiguous, 16-byte
-// aligned, hd <= 128 with hd * sizeof(cache element) a multiple of 16;
+// aligned, hd <= 128 with hd * sizeof(cache element) a multiple of 16, or
+// hd = 256 with a bf16, f16 or int8 cache;
 // out [b, g, nh*hd] f32.  Element types by code (0 bf16, 1 f32,
 // 2 int8, 3 f16): q_type 0, 1 or 3; kv_type equal to q_type, or 2 with
 // k_scale/v_scale f32 [b, nkv, max_len].  pos0: the int32 at `pos_dev`
@@ -753,3 +767,6 @@ extern "C" int tgt_flash_decode(const void* q, const void* ck, const void* cv,
 // Dynamic shared memory of one flash_decode_kernel block at the main path's
 // instantiation (bf16 cache, hd 128, up to 4 rows a group).
 extern "C" int tgt_flash_decode_smem_bytes() { return Cfg<bf16, bf16, 128, 4>::ALLOC; }
+
+// The same at head dim 256 (Gemma's generate: bf16 cache, up to 4 rows).
+extern "C" int tgt_flash_decode_d256_smem_bytes() { return Cfg<bf16, bf16, 256, 4>::ALLOC; }

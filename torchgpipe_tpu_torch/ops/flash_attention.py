@@ -40,9 +40,11 @@ axis) because of VMEM size; on Hopper one tile loop serves every length.
   is not a multiple of 16 bytes.  :func:`flash_attention_wide` (with
   :func:`flash_bwd_dq_wide` and :func:`flash_bwd_dkv_wide`) and
   :func:`flash_decode_wide` launch the same kernels at head dims 129 to
-  256 in bfloat16, float16 or float32, except the forward and dQ at head
-  dim 256 (Gemma's) in bfloat16 or float16, which run the tensor-core
-  kernels' d=256 instantiation (:func:`wide_kernel`).
+  256 in bfloat16, float16 or float32, except at head dim 256 (Gemma's):
+  there the forward, dQ and dK/dV in bfloat16 or float16 run the
+  tensor-core kernels' d=256 instantiation, and the decode of a bfloat16,
+  float16 or int8 cache ``csrc/flash_decode.cu``'s 256 tiles
+  (:func:`wide_kernel`).
 * :func:`attention_route` says which of these a shape runs on (a
   bfloat16 head dim below 128 is zero-padded for the tensor-core
   kernels); :func:`attention` and :func:`decode_attention` follow it.
@@ -56,7 +58,7 @@ inputs lie on the CPU, or on the meta device, where nothing runs and
 launches in its ``launches`` attribute; the decode wrapper keeps one
 count per variant, ``launches`` for a bf16/float32 cache and
 ``launches_int8`` for an int8 cache, and adds one to exactly one of them
-a launch; so do the wide forward and dQ wrappers, ``launches`` for
+a launch; so do the wide wrappers, ``launches`` for
 ``csrc/flash_simt.cu`` and ``launches_d256`` for the tensor-core kernels.
 A launch recorded into a CUDA graph capture is not counted (its replays
 launch the kernel without the wrapper; ``chip_smoke.py`` counts those
@@ -92,6 +94,9 @@ DECODE_ROWS = 32      # query rows a decode block holds (MAX_ROWS)
 # 32704-key cache), two for an int8 cache (its per-tile work sets the
 # pace).  Measurements in PERF.md.
 DECODE_WAVE = {False: 1, True: 2}
+# At head dim 256 a block's K/V ring takes 128 KB (csrc/flash_decode.cu
+# Cfg::RING), so one block fits an SM whatever the cache type.
+DECODE_WAVE_D256 = 1
 # Element-type codes of csrc/flash_decode.cu.
 _DECODE_TYPES = {torch.bfloat16: 0, torch.float32: 1, torch.int8: 2,
                  torch.float16: 3}
@@ -108,8 +113,8 @@ _FWD_ARGS = [_P] * 6 + [_I] * 7 + [ctypes.c_float, _I, _I, _P]
 # causal, window, stream
 _BWD_DQ_ARGS = [_P] * 8 + [_I] * 7 + [ctypes.c_float, _I, _I, _P]
 # q, k, v, dout, lse, delta, dk, dv, items, offsets, combos, partial,
-# nblocks, b, s, sk, h, g, d, scale, causal, window, stream
-_BWD_DKV_ARGS = [_P] * 12 + [_I] * 7 + [ctypes.c_float, _I, _I, _P]
+# nblocks, sum, b, s, sk, h, g, d, scale, causal, window, stream
+_BWD_DKV_ARGS = [_P] * 12 + [_I] * 8 + [ctypes.c_float, _I, _I, _P]
 # q, ck, cv, k_scale, v_scale, out, scratch, pos_dev, pos_host, b, g, nh,
 # nkv, hd, max_len, window, want, zmax, q_type, kv_type, stream
 _DECODE_ARGS = [_P] * 8 + [_I] * 12 + [_P]
@@ -421,8 +426,23 @@ def _fwd_plan(device: torch.device, *key,
             len(offsets) - 1)
 
 
-DKV_KEYS = 128     # keys per work item (csrc/flash_bwd.cu KV_BK)
+DKV_KEYS = 128     # keys per work item (csrc/flash_bwd.cu DkvSmem::BK) up to head dim 128
 DKV_QUERIES = 64   # queries per Q/dO tile (KV_BQ)
+# Head dim 256: 64-key items that both consumer warpgroups take (one owns
+# dV, the other dK), so that a block's tiles and accumulators fit.
+DKV_KEYS_D256 = 64
+
+
+def dkv_tile(d: int) -> Tuple[int, int]:
+    """``(keys, queries)`` of ``csrc/flash_bwd.cu``'s dK/dV items at head
+    dim ``d``: the key tile of an item and the Q/dO tile of its loop."""
+    return DKV_KEYS_D256 if d == TC_WIDE_HEAD_DIM else DKV_KEYS, DKV_QUERIES
+
+
+def dkv_slot_floats(d: int) -> int:
+    """Floats of one f32 scratch slot of the dK/dV kernel at head dim
+    ``d``: a cut item's dK and dV partials, ``2 * keys * d``."""
+    return 2 * dkv_tile(d)[0] * d
 
 
 class DkvSchedule(NamedTuple):
@@ -466,16 +486,21 @@ def dkv_schedule(
     b: int, s: int, sk: int, h: int, g: int, causal: bool,
     window: Optional[int], n_sms: int, keys: int = DKV_KEYS,
     queries: int = DKV_QUERIES,
+    whole: bool = False,
 ) -> DkvSchedule:
     """The balanced causal schedule of ``flash_bwd_dkv`` (``keys``-key
-    combos over ``queries``-query tiles: 128/64 by default,
-    ``flash_bwd_dkv_tf32`` takes :data:`TF32_DKV_TILES`): combos sorted
-    longest first fill the SMs in turn, each SM up to ``ceil(total /
-    n_sms)`` iterations, a combo cut where an SM fills (McNaughton's
-    wrap-around rule), so no SM holds more than the mean work plus one
-    iteration, and at most ``n_sms - 1`` combos are cut.  Pure and
-    deterministic: the kernel's sums depend on the slots, not on which
-    SM runs an item."""
+    combos over ``queries``-query tiles: 128/64 by default, 64/64 at head
+    dim 256 (:func:`dkv_tile`); ``flash_bwd_dkv_tf32`` takes
+    :data:`TF32_DKV_TILES`).  No SM holds more than ``per = ceil(total /
+    n_sms)`` iterations.  With ``whole`` (the head-dim-256 kernel, whose
+    64-key tiles make many short combos), where whole combos, longest
+    first onto the least loaded SM, stay within ``per`` (phase 25's and
+    the s=4096 shapes), each combo is one item that writes its output
+    itself: no partials.  Otherwise combos sorted longest first fill the
+    SMs in turn, each SM up to ``per``, a combo cut where an SM fills
+    (McNaughton's wrap-around rule), so at most ``n_sms - 1`` combos are
+    cut.  Pure and deterministic: the kernel's sums
+    depend on the slots, not on which SM runs an item."""
     r = h // g
     nkt = -(-sk // keys)
     combos = []   # (work, combo index, bi, kvh, kt, jq0, ntile)
@@ -486,36 +511,49 @@ def dkv_schedule(
                                              queries)
                 c = (bi * g + kvh) * nkt + kt
                 combos.append((r * ntile, c, bi, kvh, kt, jq0, ntile))
-    total = sum(c[0] for c in combos)
+    live = sorted((x for x in combos if x[0]), key=lambda x: (-x[0], x[1]))
+    total = sum(x[0] for x in live)
     table = [(0, 0)] * len(combos)
     if total == 0:
         return DkvSchedule([], [0], table, 0)
     per = -(-total // min(n_sms, total))
-    bins: List[List[list]] = [[]]
-    fill = 0
-    pieces: Dict[int, List[list]] = {}
-    for work, c, bi, kvh, kt, jq0, ntile in sorted(
-            (x for x in combos if x[0]), key=lambda x: (-x[0], x[1])):
-        it = 0
-        while it < work:
-            take = min(work - it, per - fill)
-            item = [bi, kvh, kt, jq0, ntile, it, it + take, -1]
-            bins[-1].append(item)
-            pieces.setdefault(c, []).append(item)
-            it += take
-            fill += take
-            if fill == per:
-                bins.append([])
-                fill = 0
+    bins: List[List[list]] = []
+    if whole:
+        heap = [(0, i) for i in range(min(n_sms, len(live)))]
+        dealt: List[List[list]] = [[] for _ in heap]
+        for work, c, bi, kvh, kt, jq0, ntile in live:
+            load, i = heapq.heappop(heap)
+            dealt[i].append([bi, kvh, kt, jq0, ntile, 0, work, -1])
+            heapq.heappush(heap, (load + work, i))
+        if max(load for load, _ in heap) <= per:
+            for x in live:
+                table[x[1]] = (0, -1)
+            bins = dealt
     slots = 0
-    for c in sorted(pieces):
-        if len(pieces[c]) == 1:
-            table[c] = (0, -1)
-            continue
-        table[c] = (slots, len(pieces[c]))
-        for item in pieces[c]:
-            item[7] = slots
-            slots += 1
+    if not bins:
+        bins = [[]]
+        fill = 0
+        pieces: Dict[int, List[list]] = {}
+        for work, c, bi, kvh, kt, jq0, ntile in live:
+            it = 0
+            while it < work:
+                take = min(work - it, per - fill)
+                item = [bi, kvh, kt, jq0, ntile, it, it + take, -1]
+                bins[-1].append(item)
+                pieces.setdefault(c, []).append(item)
+                it += take
+                fill += take
+                if fill == per:
+                    bins.append([])
+                    fill = 0
+        for c in sorted(pieces):
+            if len(pieces[c]) == 1:
+                table[c] = (0, -1)
+                continue
+            table[c] = (slots, len(pieces[c]))
+            for item in pieces[c]:
+                item[7] = slots
+                slots += 1
     items, offsets = [], [0]
     for blk in bins:
         if blk:
@@ -526,17 +564,20 @@ def dkv_schedule(
 
 @functools.lru_cache(maxsize=64)
 def _dkv_plan(device: torch.device, *key,
-              tile: Tuple[int, int] = (DKV_KEYS, DKV_QUERIES),
-              ) -> Tuple[torch.Tensor, int, int, int]:
-    """:func:`dkv_schedule` of ``key = (b, s, sk, h, g, causal, window)``
-    and ``tile = (keys, queries)`` on ``device``'s SMs as one int32 device
-    tensor (items, then offsets, then combos) with its block count, slot
-    count and where the offsets start."""
-    sch = dkv_schedule(*key, _sm_count(device), *tile)
+              tile: Tuple[int, int] = (DKV_KEYS, DKV_QUERIES), whole: bool = False,
+              ) -> Tuple[torch.Tensor, int, int, int, bool]:
+    """:func:`dkv_schedule` of ``key = (b, s, sk, h, g, causal, window)``,
+    ``tile = (keys, queries)`` and ``whole`` on ``device``'s SMs as one
+    int32 device tensor (items, then offsets, then combos) with its block
+    count, slot count, where the offsets start, and whether the sum kernel
+    runs: always without ``whole``; with it only where a combo needs it
+    (cut into slots, or no query attends it: zeros)."""
+    sch = dkv_schedule(*key, _sm_count(device), *tile, whole)
     flat = [v for it in sch.items for v in it] + sch.offsets + [
         v for c in sch.combos for v in c]
     return (torch.tensor(flat, dtype=torch.int32, device=device),
-            len(sch.offsets) - 1, sch.slots, 8 * len(sch.items))
+            len(sch.offsets) - 1, sch.slots, 8 * len(sch.items),
+            not whole or any(count >= 0 for _, count in sch.combos))
 
 
 def decode_groups(rows: int) -> Tuple[int, int]:
@@ -547,11 +588,14 @@ def decode_groups(rows: int) -> Tuple[int, int]:
     return ngroups, -(-rows // ngroups)
 
 
-def decode_want(b: int, nkv: int, ngroups: int, n_sms: int, quant: bool) -> int:
+def decode_want(b: int, nkv: int, ngroups: int, n_sms: int, quant: bool,
+                hd: int = DECODE_HEAD_DIMS[-1]) -> int:
     """The most chunks a (batch row, kv head, row group) is cut into:
-    :data:`DECODE_WAVE` blocks per SM (``quant``: an int8 cache) over the
-    ``b * nkv * ngroups`` block rows, at least 1."""
-    return max(1, DECODE_WAVE[quant] * n_sms // (b * nkv * ngroups))
+    :data:`DECODE_WAVE` blocks per SM (``quant``: an int8 cache;
+    :data:`DECODE_WAVE_D256` at head dim ``hd`` 256) over the ``b * nkv *
+    ngroups`` block rows, at least 1."""
+    wave = DECODE_WAVE_D256 if hd > DECODE_HEAD_DIMS[-1] else DECODE_WAVE[quant]
+    return max(1, wave * n_sms // (b * nkv * ngroups))
 
 
 def decode_split(pos0: int, g: int, window: Optional[int],
@@ -722,28 +766,38 @@ def flash_bwd_dkv(
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd_dkv: unsupported device {q.device}")
     _check_bwd("flash_bwd_dkv", q, k, v, do, lse, delta)
+    out = _tc_dkv("flash_bwd_dkv", q, k, v, do, lse, delta, causal, sm_scale, window)
+    _count(flash_bwd_dkv)
+    return out
+
+
+flash_bwd_dkv.launches = 0
+
+
+def _tc_dkv(what, q, k, v, do, lse, delta, causal, sm_scale, window):
+    """``(dK, dV)`` from ``csrc/flash_bwd.cu`` (checked CUDA tensors of one
+    16-bit type, at an instantiated head dim): the work list of
+    :func:`dkv_schedule` at :func:`dkv_tile`, an f32 scratch slot
+    (:func:`dkv_slot_floats`) for each cut item."""
     b, s, h, d = q.shape
     sk, g = k.shape[1], k.shape[2]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    plan, nblocks, slots, at_offsets = _dkv_plan(
-        q.device, b, s, sk, h, g, bool(causal), window)
+    plan, nblocks, slots, at_offsets, needs_sum = _dkv_plan(
+        q.device, b, s, sk, h, g, bool(causal), window, tile=dkv_tile(d),
+        whole=d == TC_WIDE_HEAD_DIM)
     at_combos = at_offsets + nblocks + 1
-    partial = torch.empty(max(slots, 1) * 256 * d, dtype=torch.float32,
+    partial = torch.empty(max(slots, 1) * dkv_slot_floats(d), dtype=torch.float32,
                           device=q.device)
     fn = _build.function("flash_bwd", f"tgt_flash_bwd_dkv_{_HALF_TYPES[q.dtype]}",
                          _BWD_DKV_ARGS)
     rc = fn(
         _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta), _ptr(dk),
         _ptr(dv), _ptr(plan), _ptr(plan[at_offsets:]), _ptr(plan[at_combos:]),
-        _ptr(partial), nblocks, b, s, sk, h, g, d, float(sm_scale),
+        _ptr(partial), nblocks, int(needs_sum), b, s, sk, h, g, d, float(sm_scale),
         int(causal), 0 if window is None else int(window), _stream(q),
     )
-    _build.check(rc, "flash_bwd_dkv")
-    _count(flash_bwd_dkv)
+    _build.check(rc, what)
     return dk, dv
-
-
-flash_bwd_dkv.launches = 0
 
 
 def _flash_backward(ctx, do, dq_fn, dkv_fn):
@@ -909,10 +963,28 @@ def flash_decode_attention(
             f"{tuple(ck.shape)}: head dim must be at most "
             f"{DECODE_HEAD_DIMS[-1]} with a cache row of a multiple of 16 bytes"
         )
-    _check_tma("flash_decode_attention", ck, cv)
+    out = _tc_decode("flash_decode", q, ck, cv, quant, pos_dev, pos0, window,
+                     k_scale, v_scale)
+    if quant:
+        _count(flash_decode_attention, "launches_int8")
+    else:
+        _count(flash_decode_attention)
+    return out
+
+
+flash_decode_attention.launches = 0
+flash_decode_attention.launches_int8 = 0
+
+
+def _tc_decode(what, q, ck, cv, quant, pos_dev, pos0, window, k_scale, v_scale):
+    """Float32 ``[b, g, nh*hd]`` from ``csrc/flash_decode.cu`` (checked CUDA
+    tensors and ``pos0`` forms, at a head dim one of its tile dims takes)."""
+    b, g, nh, hd = q.shape
+    max_len, nkv = ck.shape[1], ck.shape[2]
+    _check_tma(what, ck, cv)
     rows = g * (nh // nkv)
     ngroups, _ = decode_groups(rows)
-    want = decode_want(b, nkv, ngroups, _sm_count(q.device), quant)
+    want = decode_want(b, nkv, ngroups, _sm_count(q.device), quant, hd)
     zmax = decode_zmax(max_len, want)
     out = torch.empty((b, g, nh * hd), dtype=torch.float32, device=q.device)
     scratch = torch.empty(
@@ -927,16 +999,8 @@ def flash_decode_attention(
         0 if window is None else int(window), want, zmax,
         _DECODE_TYPES[q.dtype], _DECODE_TYPES[ck.dtype], _stream(q),
     )
-    _build.check(rc, "flash_decode")
-    if quant:
-        _count(flash_decode_attention, "launches_int8")
-    else:
-        _count(flash_decode_attention)
+    _build.check(rc, what)
     return out
-
-
-flash_decode_attention.launches = 0
-flash_decode_attention.launches_int8 = 0
 
 
 # --------------------------------------------------------------------- #
@@ -989,15 +1053,22 @@ def supports_wide(
     )
 
 
-def wide_kernel(q_shape: Tuple[int, ...], dtype: torch.dtype) -> str:
-    """Which kernels a wide-route shape's forward and dQ run on: ``"tc"``,
-    the tensor-core kernels of ``csrc/flash_fwd.cu`` and
-    ``csrc/flash_bwd.cu`` at their head-dim-256 instantiation (bfloat16 or
-    float16 at head dim exactly 256, Gemma's), or ``"simt"``, the CUDA-core
-    kernels of ``csrc/flash_simt.cu`` (float32, and the other head dims
-    from 129 to 255).  dK/dV and the decode run on ``flash_simt.cu`` at
-    every wide shape."""
-    return "tc" if dtype in _HALF_TYPES and q_shape[-1] == TC_WIDE_HEAD_DIM else "simt"
+def wide_kernel(q_shape: Tuple[int, ...], dtype: torch.dtype, *,
+                decode: bool = False) -> str:
+    """Which kernels a wide-route shape runs on: ``"tc"``, the tensor-core
+    kernels at their head-dim-256 instantiation (Gemma's head dim, exactly
+    256), or ``"simt"``, the CUDA-core kernels of ``csrc/flash_simt.cu``
+    (the other head dims from 129 to 255, and float32).  Forward, dQ and
+    dK/dV (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``): ``"tc"`` for
+    bfloat16 or float16 ``dtype``.  The decode (``decode=True``, ``dtype``
+    the cache's; ``csrc/flash_decode.cu``): ``"tc"`` for a bfloat16,
+    float16 or int8 cache."""
+    types = _DECODE_TC_WIDE if decode else _HALF_TYPES
+    return "tc" if dtype in types and q_shape[-1] == TC_WIDE_HEAD_DIM else "simt"
+
+
+# Cache types of the decode's head-dim-256 instantiation.
+_DECODE_TC_WIDE = (torch.bfloat16, torch.float16, torch.int8)
 
 
 def _decode_dims_ok(q_shape, k_shape, window, dtype, lo: int, hi: int) -> bool:
@@ -1275,7 +1346,10 @@ def flash_bwd_dkv_wide(
     window: Optional[int],
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dK, dV)`` of :func:`flash_attention_wide`, summed over each kv
-    head's query heads, from the same inputs as :func:`flash_bwd_dq_wide`."""
+    head's query heads, from the same inputs as :func:`flash_bwd_dq_wide`,
+    on the kernel :func:`wide_kernel` names (``csrc/flash_bwd.cu`` at d=256
+    in bfloat16 or float16, counted in ``launches_d256``;
+    ``csrc/flash_simt.cu`` otherwise, in ``launches``)."""
     if q.device.type == "cpu":
         return _reference_grads(
             q, k, v, do, lse, delta, causal, sm_scale, window
@@ -1283,13 +1357,20 @@ def flash_bwd_dkv_wide(
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd_dkv_wide: unsupported device {q.device}")
     _check_wide("flash_bwd_dkv_wide", q, k, v, do, lse, delta)
-    out = _simt_dkv("flash_bwd_dkv_wide", q, k, v, do, lse, delta, causal,
-                    sm_scale, window)
-    _count(flash_bwd_dkv_wide)
+    if wide_kernel(q.shape, q.dtype) == "tc":
+        _check_tma("flash_bwd_dkv_wide", q, k, v, do)
+        out = _tc_dkv("flash_bwd_dkv_wide", q, k, v, do, lse, delta, causal,
+                      sm_scale, window)
+        _count(flash_bwd_dkv_wide, "launches_d256")
+    else:
+        out = _simt_dkv("flash_bwd_dkv_wide", q, k, v, do, lse, delta, causal,
+                        sm_scale, window)
+        _count(flash_bwd_dkv_wide)
     return out
 
 
 flash_bwd_dkv_wide.launches = 0
+flash_bwd_dkv_wide.launches_d256 = 0
 
 
 class _FlashAttentionWide(torch.autograd.Function):
@@ -1315,8 +1396,8 @@ def flash_attention_wide(
     window: Optional[int] = None,
 ) -> torch.Tensor:
     """:func:`flash_attention` at a head dim from 129 to 256 (Gemma's 256)
-    in bfloat16, float16 or float32: on the CUDA cores, except the forward
-    and dQ at d=256 in bfloat16 or float16 (the tensor cores,
+    in bfloat16, float16 or float32: on the CUDA cores, except at d=256 in
+    bfloat16 or float16 (the tensor cores for the forward, dQ and dK/dV,
     :func:`wide_kernel`).  Differentiable in ``q``, ``k`` and ``v``."""
     sm_scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
     _validate_window(causal, window)
@@ -1327,17 +1408,11 @@ flash_attention_wide.launches = 0
 flash_attention_wide.launches_d256 = 0
 
 
-def _decode_simt_call(fn, what, gate, dims, q, ck, cv, pos0, window,
-                      k_scale, v_scale) -> torch.Tensor:
-    """The decode of ``csrc/flash_simt.cu`` behind :func:`flash_decode_simt`
-    and :func:`flash_decode_wide` (``gate`` their shape test, ``dims``
-    what it takes, for the refusal); counts one launch on ``fn``."""
-    quant, pos_dev, pos0 = _decode_args(q, ck, cv, pos0, window, k_scale, v_scale)
-    b, g, nh, hd = q.shape
-    max_len, nkv = ck.shape[1], ck.shape[2]
-    if q.device.type == "cpu":
-        return flash_decode_reference(q, ck, cv, pos0, window=window,
-                                      k_scale=k_scale, v_scale=v_scale)
+def _decode_checks(what, gate, dims, q, ck, cv, quant, window, k_scale,
+                   v_scale) -> None:
+    """The refusals of a decode on the card behind :func:`flash_decode_simt`
+    and :func:`flash_decode_wide` (``gate`` their shape test, ``dims`` what
+    it takes, for the message)."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {q.device}")
     scales = (k_scale, v_scale) if quant else ()
@@ -1353,6 +1428,20 @@ def _decode_simt_call(fn, what, gate, dims, q, ck, cv, pos0, window,
             f"{what} kernel does not take q {tuple(q.shape)}, cache "
             f"{tuple(ck.shape)}: head dim must be {dims}"
         )
+
+
+def _decode_simt_call(fn, what, gate, dims, q, ck, cv, pos0, window,
+                      k_scale, v_scale) -> torch.Tensor:
+    """The decode of ``csrc/flash_simt.cu`` behind :func:`flash_decode_simt`
+    and :func:`flash_decode_wide` (``gate`` their shape test, ``dims`` what
+    it takes, for the refusal); counts one launch on ``fn``."""
+    quant, pos_dev, pos0 = _decode_args(q, ck, cv, pos0, window, k_scale, v_scale)
+    b, g, nh, hd = q.shape
+    max_len, nkv = ck.shape[1], ck.shape[2]
+    if q.device.type == "cpu":
+        return flash_decode_reference(q, ck, cv, pos0, window=window,
+                                      k_scale=k_scale, v_scale=v_scale)
+    _decode_checks(what, gate, dims, q, ck, cv, quant, window, k_scale, v_scale)
     out = torch.empty((b, g, nh * hd), dtype=torch.float32, device=q.device)
     ks_p, vs_p = (_ptr(k_scale), _ptr(v_scale)) if quant else (None, None)
     call = _build.function("flash_simt", "tgt_flash_decode_simt", _DECODE_SIMT_ARGS)
@@ -1391,15 +1480,25 @@ def flash_decode_wide(
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """:func:`flash_decode_simt` at head dims 129 to 256 (Gemma's 256):
-    the same kernel, arguments and output."""
-    return _decode_simt_call(
-        flash_decode_wide, "flash_decode_wide", supports_decode_wide,
-        f"from {SIMT_HEAD_DIM_MAX + 1} to {WIDE_HEAD_DIM_MAX}", q, ck, cv, pos0,
-        window, k_scale, v_scale)
+    """:func:`flash_decode_simt` at head dims 129 to 256: the same
+    arguments and output, on the kernel :func:`wide_kernel` names for the
+    cache (``decode=True``): at head dim 256 (Gemma's) with a bfloat16,
+    float16 or int8 cache, ``csrc/flash_decode.cu``'s 256 tiles (counted
+    in ``launches_d256``); else ``csrc/flash_simt.cu`` (``launches``)."""
+    what, dims = "flash_decode_wide", f"from {SIMT_HEAD_DIM_MAX + 1} to {WIDE_HEAD_DIM_MAX}"
+    if q.device.type == "cpu" or wide_kernel(q.shape, ck.dtype, decode=True) == "simt":
+        return _decode_simt_call(flash_decode_wide, what, supports_decode_wide, dims,
+                                 q, ck, cv, pos0, window, k_scale, v_scale)
+    quant, pos_dev, pos0 = _decode_args(q, ck, cv, pos0, window, k_scale, v_scale)
+    _decode_checks(what, supports_decode_wide, dims, q, ck, cv, quant, window,
+                   k_scale, v_scale)
+    out = _tc_decode(what, q, ck, cv, quant, pos_dev, pos0, window, k_scale, v_scale)
+    _count(flash_decode_wide, "launches_d256")
+    return out
 
 
 flash_decode_wide.launches = 0
+flash_decode_wide.launches_d256 = 0
 
 
 # --------------------------------------------------------------------- #
@@ -1642,7 +1741,7 @@ def flash_bwd_dkv_tf32(
     sk, g = k.shape[1], k.shape[2]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     dt = 64 if d <= 64 else 128
-    plan, nblocks, slots, at_offsets = _dkv_plan(
+    plan, nblocks, slots, at_offsets, _ = _dkv_plan(
         q.device, b, s, sk, h, g, bool(causal), window, tile=TF32_DKV_TILES[dt])
     at_combos = at_offsets + nblocks + 1
     partial = torch.empty(max(slots, 1) * 2 * TF32_DKV_TILES[dt][0] * dt,
@@ -1722,8 +1821,8 @@ class Route(NamedTuple):
     ``"f32"`` (float32: the 3xTF32 forward of ``csrc/flash_fwd_tf32.cu``
     with the 3xTF32 backward of ``csrc/flash_bwd_tf32.cu``), ``"simt"`` (the CUDA-core
     kernels of ``csrc/flash_simt.cu``, for rows TMA cannot map),
-    ``"wide"`` (head dims 129 to 256: the same kernels, or the tensor-core
-    forward and dQ at d=256, :func:`wide_kernel`) or ``"none"``
+    ``"wide"`` (head dims 129 to 256: the same kernels, or at d=256 the
+    tensor-core kernels, :func:`wide_kernel`) or ``"none"``
     (no kernel takes it: the plain version on the CPU, refused on the
     card); ``head_dim`` is the dim the work runs at."""
 
@@ -1750,12 +1849,13 @@ def attention_route(
     forward and backward (:func:`supports_tf32`: ``d % 4 == 0``) or, at
     other dims, the CUDA-core forward and backward.  Head dims from 129 to
     256 run the CUDA-core kernels in bfloat16, float16 or float32
-    (``"wide"``), except the forward and dQ at 256 (Gemma's) in bfloat16
-    or float16, which run the tensor-core kernels (:func:`wide_kernel`).  Decode (``decode=True``, the cache in
+    (``"wide"``), except at 256 (Gemma's) in bfloat16 or float16, which
+    runs the tensor-core kernels (:func:`wide_kernel`).  Decode (``decode=True``, the cache in
     ``cache_dtype``): a :func:`supports_decode` shape (any head dim up to
     128 whose cache row is a multiple of 16 bytes) runs the tensor-core
     decode, any other head dim up to 128 the CUDA-core one, head dims 129
-    to 256 the wide one.  A decode is never padded: that would copy the
+    to 256 the wide one (the tensor-core decode's 256 tiles at 256 for a
+    bfloat16, float16 or int8 cache).  A decode is never padded: that would copy the
     whole cache every token.  Anything else (another dtype, a head dim
     above 256) has no kernel.  Answers are cached by shape: a decode step
     asks once a layer."""
@@ -1864,3 +1964,4 @@ def reset_launches() -> None:
         fn.launches = 0
     flash_decode_attention.launches_int8 = 0
     flash_attention_wide.launches_d256 = flash_bwd_dq_wide.launches_d256 = 0
+    flash_bwd_dkv_wide.launches_d256 = flash_decode_wide.launches_d256 = 0
