@@ -270,13 +270,14 @@ they need) and prints no kernels line; by default every phase runs:
    re-run with hidden ``--spmd-*`` options): 25a pp=2 fill-drain, step 1's
    loss and every gradient leaf against a sequential oracle run here on
    the card with the same weights and batch, step 2 through
-   ``make_train_step``; 25b pp=2 x dp=2 1F1B against fill-drain (untied)
-   at the same weights; 25c ``spmd_params_for_generation`` of 25a's
+   ``make_train_step``; 25c ``spmd_params_for_generation`` of 25a's
    trained params and ``generate`` on the wide decode, against the plain
    version's tokens and a teacher-forced forward.  Each rank's launches
-   (the wide route: the d=256 forward and dQ, flash_simt's dK/dV; a
-   profile of 25a's step 2 shows the same CUDA functions), step ms, bytes
-   staged through the host and peak memory; a ``{"spmd": ...}`` line.
+   (the d=256 tensor-core forward, dQ and dK/dV; a profile of 25a's step
+   2 shows the same CUDA functions, none of flash_simt.cu's), step ms,
+   bytes staged through the host and peak memory; a ``{"spmd": ...}``
+   line.  (25b, 1F1B against fill-drain at pp=2 x dp=2, runs in phase
+   27's world.)
 26. spmd_tp_sp: tensor and sequence parallelism in ``SpmdGPipe`` at
    Llama-3-8B's published widths in bf16, 2 blocks, one a stage, batch 2
    x seq 4096: one world of four rank processes over gloo on this card
@@ -292,6 +293,24 @@ they need) and prints no kernels line; by default every phase runs:
    through the host by kind, peak memory; a ``{"spmd_tp_sp": ...}``
    line.  The ranks share one card: host staging, not multi-card
    scaling.
+27. spmd_zero_sched: ZeRO/FSDP and the interleaved and zero-bubble
+   schedules in ``SpmdGPipe`` at phase 25's Gemma-7B widths in bf16,
+   batch 4 x 512 in 2 micro-batches, one world of four rank processes
+   (pp=2 x dp=2 over gloo on this card, ``--spmd-case z``): 25b (1F1B
+   against fill-drain, untied); 27a ``fsdp=True`` with
+   ``make_train_step(zero=3)`` and AdamW, bitwise against the unsharded
+   AdamW of the gathered tensors, and the fsdp step's gradients against
+   the plain pipe's (tied); 27b ``make_train_step(zero=1)`` bitwise
+   against the ``zero=0`` update of the plain step's gradients;
+   27c ``schedule='interleaved'``, ``virtual_stages=2`` (4 blocks), fsdp,
+   against phase 25's sequential oracle at 4 blocks (run by rank 0);
+   27d ``schedule='zb'`` in ``'never'`` and ``'always'`` against 1F1B.
+   Each rank's launches exact per case (a profile of the zb step shows
+   none on flash_simt.cu), step ms, bytes staged through the host by kind
+   (``fsdp``, ``zero``, ``grads``, ``pp``, ``loss``), block and optimizer
+   bytes and peak at each ZeRO level, and ``simulate_pipeline``'s
+   projections of the measured cells for the four schedules; a
+   ``{"spmd_zero_sched": ...}`` line.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Then one JSON line per kernel (time, launches, bound, plain and
@@ -314,6 +333,7 @@ the package beside this script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -5572,7 +5592,6 @@ SPMD_PROFILE = {"flash_fwd_d256": "flash_fwd_kernel<256", "flash_bwd_dq_d256":
                 "flash_bwd_dq_kernel<256", "flash_bwd_dkv_d256": "flash_bwd_dkv_kernel<256",
                 "flash_fwd_wide": "fwd_simt_kernel", "flash_bwd_dq_wide": "dq_simt_kernel",
                 "flash_bwd_dkv_wide": "dkv_simt_kernel"}
-SPMD_1F1B_LAUNCHES = {k: 2 * v for k, v in SPMD_LAUNCHES.items()}
 # bf16 tolerances of a pipelined step against the sequential oracle (or
 # 1F1B against fill-drain): the same products in bf16 batched otherwise
 # (the pipeline's micro-batches and pp-sharded head; the oracle's whole
@@ -5594,14 +5613,18 @@ class _Stand:
 
 
 def spmd_engine(torch, tt, spmd, mesh, tied: bool, schedule: str, dp_axis,
-                device: str = "cuda"):
-    """Phase 25's engine; its layers on ``device`` ("meta" for an engine
-    that draws no params: the trees hold every tensor it runs on)."""
-    cfg = tt.TransformerConfig(**dict(GEMMA_7B, tie_embeddings=tied), dtype=torch.bfloat16)
-    block, pre, post = tt.llama_spmd(cfg, 2, device=device)
+                device: str = "cuda", **kw):
+    """Phase 25's engine (and phase 27's: ``kw`` are more ``SpmdGPipe``
+    arguments; ``virtual_stages=v`` gives 2v blocks); its layers on
+    ``device`` ("meta" for an engine that draws no params: the trees hold
+    every tensor it runs on)."""
+    blocks = 2 * kw.get("virtual_stages", 1)
+    cfg = tt.TransformerConfig(**dict(GEMMA_7B, tie_embeddings=tied, n_layers=blocks),
+                               dtype=torch.bfloat16)
+    block, pre, post = tt.llama_spmd(cfg, blocks, device=device)
     pipe = spmd.SpmdGPipe(block, 2, mesh, chunks=SPMD_CHUNKS, loss_fn=causal_lm_loss(tt),
-                          pre=pre, post=post, checkpoint="except_last", schedule=schedule,
-                          dp_axis=dp_axis)
+                          pre=pre, post=post, schedule=schedule, dp_axis=dp_axis,
+                          **dict(dict(checkpoint="except_last"), **kw))
     return cfg, pipe
 
 
@@ -5625,13 +5648,12 @@ def spmd_free_templates(pipe):
 
 
 def spmd_rank_main(args) -> None:
-    """One rank of phase 25, started by the parent as its own process over
-    gloo on this card.  Case ``a``: pp=2, dp=1, fill-drain, tied; step 1
-    by ``train_step`` (its gathered gradients written for the parent's
-    oracle), step 2 by ``make_train_step``; the gathered trained params
-    written for 25c.  Case ``b``: pp=2 x dp=2, untied; a fill-drain and a
-    1F1B step at the same params, the gathered gradients of both compared
-    on rank 0."""
+    """One rank of phase 25 (case ``a``) or 27 (case ``z``,
+    :func:`zero_sched_rank`), started by the parent as its own process
+    over gloo on this card.  Case ``a``: pp=2, dp=1, fill-drain, tied;
+    step 1 by ``train_step`` (its gathered gradients written for the
+    parent's oracle), step 2 by ``make_train_step``; the gathered trained
+    params written for 25c."""
     import torch
     import torch.distributed as dist
 
@@ -5648,11 +5670,13 @@ def spmd_rank_main(args) -> None:
     try:
         dp = world // 2
         mesh = spmd.make_mesh(2, dp)
+        if case == "z":
+            zero_sched_rank(torch, tfa, tt, spmd, mesh, args.seed,
+                            os.path.join(out, f"z_rank{rank}.json"))
+            return
         report = {"rank": rank, "coords": mesh.coords, "device": str(mesh.device),
                   "step_ms": [], "staged_bytes": [], "peak_gib": [], "launches": []}
-        schedules = ["fill_drain"] if case == "a" else ["fill_drain", "1f1b"]
-        _, pipe = spmd_engine(torch, tt, spmd, mesh, case == "a", schedules[0],
-                              "dp" if dp > 1 else None)
+        _, pipe = spmd_engine(torch, tt, spmd, mesh, True, "fill_drain", None)
         params, tokens = spmd_init(torch, pipe, args.seed)
         params = pipe.place(params)
         spmd_free_templates(pipe)
@@ -5684,39 +5708,22 @@ def spmd_rank_main(args) -> None:
         def flat(tree):
             return [a for k in ("pre", "blocks", "post") for _, a in spmd._items(tree[k])]
 
-        grads, local = {}, None
-        for sched in schedules:
-            eng = pipe if sched == schedules[0] else spmd_engine(
-                torch, tt, spmd, mesh, case == "a", sched, "dp" if dp > 1 else None,
-                "meta")[1]
-            loss, g = timed(lambda: eng.train_step(params, tokens, tokens))
-            report.setdefault("losses", []).append(loss.item())
-            # 25a's go to the parent's oracle; 25b compares on each rank.
-            grads[sched] = eng.gather(g) if case == "a" else g
-            local = g if case == "a" else None
-            del g
-        if case == "a":
-            # Step 1's SGD update from its gradients above, then step 2
-            # whole through make_train_step.
-            with torch.no_grad():
-                for t, gr in zip(flat(params), flat(local)):
-                    t.sub_(SPMD_LR * gr)
-            del local
-            step = pipe.make_train_step(lambda ts: torch.optim.SGD(ts, lr=SPMD_LR))
-            loss2 = timed(lambda: step(params, tokens, tokens), profiled=True)
-            report["losses"].append(loss2.item())
-            trained = pipe.gather(params)
-            if rank == 0:
-                torch.save(grads["fill_drain"], os.path.join(out, "grads_a.pt"))
-                torch.save(trained, os.path.join(out, "params_a.pt"))
-        else:
-            # This rank's gradients (its stage's blocks, the pre/post trees
-            # every rank holds) under 1F1B against fill-drain.
-            fd, ob = grads["fill_drain"], grads["1f1b"]
-            worst = max(spmd_rel_diff(torch, a, c)
-                        for (_, a), (_, c) in zip(spmd._items(ob), spmd._items(fd)))
-            report["1f1b_vs_fill_drain"] = {"worst_rel": worst, "leaves": len(
-                spmd._items(fd))}
+        loss, local = timed(lambda: pipe.train_step(params, tokens, tokens))
+        report["losses"] = [loss.item()]
+        grads = pipe.gather(local)   # for the parent's oracle
+        # Step 1's SGD update from its gradients above, then step 2 whole
+        # through make_train_step.
+        with torch.no_grad():
+            for t, gr in zip(flat(params), flat(local)):
+                t.sub_(SPMD_LR * gr)
+        del local
+        step = pipe.make_train_step(lambda ts: torch.optim.SGD(ts, lr=SPMD_LR))
+        loss2 = timed(lambda: step(params, tokens, tokens), profiled=True)
+        report["losses"].append(loss2.item())
+        trained = pipe.gather(params)
+        if rank == 0:
+            torch.save(grads, os.path.join(out, "grads_a.pt"))
+            torch.save(trained, os.path.join(out, "params_a.pt"))
         with open(os.path.join(out, f"{case}_rank{rank}.json"), "w") as f:
             json.dump(report, f)
     finally:
@@ -5768,6 +5775,10 @@ def spmd_ranks(torch, seed: int, case: str, world: int, out: str):
         for rank in range(world):
             with open(os.path.join(out, f"{case}_rank{rank}.log"), errors="replace") as f:
                 logs += f"--- rank {rank}\n" + f.read()[-4000:]
+            part = os.path.join(out, f"{case}_rank{rank}.json")
+            if os.path.exists(part):   # what a rank reported before it failed
+                with open(part) as f:
+                    logs += f"--- rank {rank}'s report so far\n" + f.read()[-6000:] + "\n"
         fail(f"spmd 25{case}: rank exit codes {rcs} (None: killed after "
              f"{SPMD_DEADLINE_S}s)\n{logs}")
     reports = []
@@ -5777,12 +5788,14 @@ def spmd_ranks(torch, seed: int, case: str, world: int, out: str):
     return reports, time.perf_counter() - t0
 
 
-def spmd_oracle(torch, tfa, tt, spmd, seed: int):
+def spmd_oracle(torch, tfa, tt, spmd, seed: int, tied: bool = True, v: int = 1):
     """25a's single-process sequential oracle on the card: the same params
-    and batch, pre, stage 0's block, stage 1's block, the tied head and
-    the loss, one after another; its loss and gradients on the host."""
-    _, pipe = spmd_engine(torch, tt, spmd, _Stand(2, 1, torch.device("cuda")), True,
-                          "fill_drain", None)
+    and batch, pre, the 2v blocks in their global order (block ``g`` of
+    an interleaved tree at ``[g % 2, g // 2]``), the head and the loss,
+    one after another; its loss and gradients on the host."""
+    sched, kw = ("interleaved", {"virtual_stages": v}) if v > 1 else ("fill_drain", {})
+    _, pipe = spmd_engine(torch, tt, spmd, _Stand(2, 1, torch.device("cuda")), tied, sched,
+                          None, **kw)
     params, tokens = spmd_init(torch, pipe, seed)
     spmd_free_templates(pipe)
     leaves = {k: spmd._tree_map(lambda a: a.detach().requires_grad_(), params[k])
@@ -5792,9 +5805,9 @@ def spmd_oracle(torch, tfa, tt, spmd, seed: int):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     h = pipe._run_pre(leaves, x, True)
-    for j in range(2):
-        h = spmd._call(pipe.block, pipe._names["blocks"],
-                       spmd._tree_map(lambda a: a[j], leaves["blocks"]), h)
+    for g in range(2 * v):
+        h = spmd._call(pipe.block, pipe._names["blocks"], spmd._tree_map(
+            lambda a: a[g % 2, g // 2] if v > 1 else a[g], leaves["blocks"]), h)
     loss = causal_lm_loss(tt)(pipe._run_post(leaves, h), x)
     loss.backward()
     torch.cuda.synchronize()
@@ -5831,9 +5844,9 @@ class plain_attention:
 def phase_spmd(torch, tfa, tt, tg, card, seed: int):
     """Phase 25: the SPMD engine at Gemma-7B width over gloo on this card.
     25a: the oracle here, then pp=2 fill-drain (tied) on 2 rank
-    processes; 25b: pp=2 x dp=2 1F1B against fill-drain (untied) on 4;
-    25c: spmd_params_for_generation of 25a's trained params, generate
-    SPMD_NEW tokens on the wide decode, against the plain version's."""
+    processes; 25c: spmd_params_for_generation of 25a's trained params,
+    generate SPMD_NEW tokens on the wide decode, against the plain
+    version's.  (25b runs in phase 27's world.)"""
     import tempfile
 
     import numpy as np
@@ -5848,7 +5861,6 @@ def phase_spmd(torch, tfa, tt, tg, card, seed: int):
         ra, a_s = spmd_ranks(torch, seed, "a", 2, out)
         grads = torch.load(os.path.join(out, "grads_a.pt"))
         trained = torch.load(os.path.join(out, "params_a.pt"))
-        rb, b_s = spmd_ranks(torch, seed, "b", 4, out)
     loss_a = ra[0]["losses"][0]
     if abs(loss_a - ref_loss) > SPMD_LOSS_REL * abs(ref_loss):
         fail(f"spmd 25a: step-1 loss {loss_a} vs the sequential oracle's {ref_loss} "
@@ -5867,17 +5879,8 @@ def phase_spmd(torch, tfa, tt, tg, card, seed: int):
         if rep["profile"] != want:
             fail(f"spmd 25a rank {rep['rank']}: step 2's profile launched {rep['profile']} "
                  f"of {SPMD_PROFILE}, expected {want}")
-    for rep in rb:
-        expect_launches(rep["launches"][1], SPMD_LAUNCHES, f"25b rank {rep['rank']} 1F1B")
-    if not all(math.isfinite(x) for rep in ra + rb for x in rep["losses"]):
-        fail(f"spmd: non-finite losses {[rep['losses'] for rep in ra + rb]}")
-    cmp = {"worst_rel": max(r["1f1b_vs_fill_drain"]["worst_rel"] for r in rb),
-           "leaves": sum(r["1f1b_vs_fill_drain"]["leaves"] for r in rb)}
-    loss_fd, loss_ob = rb[0]["losses"]
-    if abs(loss_ob - loss_fd) > SPMD_LOSS_REL * abs(loss_fd) or \
-            cmp["worst_rel"] > SPMD_GRAD_REL:
-        fail(f"spmd 25b: 1F1B loss {loss_ob} vs fill-drain {loss_fd}, worst gradient "
-             f"leaf {cmp['worst_rel']:.3e} of its max (tol {SPMD_GRAD_REL})")
+    if not all(math.isfinite(x) for rep in ra for x in rep["losses"]):
+        fail(f"spmd: non-finite losses {[rep['losses'] for rep in ra]}")
     # 25c: generate from 25a's trained params on the card.
     cfg = tt.TransformerConfig(**GEMMA_7B, dtype=torch.bfloat16)
     _, pipe = spmd_engine(torch, tt, spmd, _Stand(2, 1, torch.device("cuda")), True,
@@ -5907,10 +5910,9 @@ def phase_spmd(torch, tfa, tt, tg, card, seed: int):
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    step = {f"{c}{r['rank']}": r["step_ms"] for c, rs in (("a", ra), ("b", rb)) for r in rs}
-    staged = {f"{c}{r['rank']}": r["staged_bytes"] for c, rs in (("a", ra), ("b", rb))
-              for r in rs}
-    peak = {f"{c}{r['rank']}": r["peak_gib"] for c, rs in (("a", ra), ("b", rb)) for r in rs}
+    step = {f"a{r['rank']}": r["step_ms"] for r in ra}
+    staged = {f"a{r['rank']}": r["staged_bytes"] for r in ra}
+    peak = {f"a{r['rank']}": r["peak_gib"] for r in ra}
     print(f"spmd 25a: Gemma-7B width (dim 3072, 16 heads of 256, ffn 24576, vocab 256000, "
           f"tied, gelu_tanh), bf16, 2 blocks; batch {SPMD_BATCH} x seq {SPMD_SEQ}, chunks "
           f"{SPMD_CHUNKS}, except_last, fill-drain, pp=2 over gloo (2 processes on this "
@@ -5920,29 +5922,22 @@ def phase_spmd(torch, tfa, tt, tg, card, seed: int):
           f"{[r['launches'][0] for r in ra]} (oracle, both blocks: {ref_launches}); step 2's "
           f"profile a rank {[r['profile'] for r in ra]} [{card}]",
           flush=True)
-    print(f"spmd 25b: pp=2 x dp=2, untied, 4 processes: 1F1B loss {loss_ob:.6f} vs "
-          f"fill-drain {loss_fd:.6f}; {cmp['leaves']} gradient leaves, worst "
-          f"{cmp['worst_rel']:.3e} of its max; 1F1B launches a rank "
-          f"{[r['launches'][1] for r in rb]} [{card}]", flush=True)
     print(f"spmd 25c: generate 2 x {SPMD_PROMPT} + {SPMD_NEW} from 25a's trained params "
           f"(spmd_params_for_generation): {gen_ms:.1f} ms, launches {gen_launches}; tokens "
           f"equal to the plain version's {same:.3f}; teacher_forced_agree {agree:.4f} "
           f"max_gap {gap:.4f} [{card}]", flush=True)
     print(f"spmd: step_ms by rank {step}; bytes staged through the host a step {staged}; "
           f"peak GiB {peak}; the oracle's step {ref_ms:.1f} ms; ranks ran 25a in "
-          f"{a_s:.1f}s and 25b in {b_s:.1f}s, started in "
-          f"{max(r['ready_s'] for r in ra + rb):.1f}s; the phase "
+          f"{a_s:.1f}s, started in {max(r['ready_s'] for r in ra):.1f}s; the phase "
           f"{time.perf_counter() - t_phase:.1f}s [{card}]", flush=True)
     result = {"card": card, "loss_a": loss_a, "oracle_loss": ref_loss,
               "grad_worst_rel": max(worst.values()), "losses_a": ra[0]["losses"],
-              "losses_b": rb[0]["losses"], "1f1b_vs_fill_drain": cmp,
-              "launches": {f"a{r['rank']}": r["launches"] for r in ra}
-              | {f"b{r['rank']}": r["launches"] for r in rb},
+              "launches": {f"a{r['rank']}": r["launches"] for r in ra},
               "launches_a_rank": ra[0]["launches"][0], "generate_launches": gen_launches,
               "generate_ms": gen_ms, "tokens_equal_plain": same,
               "teacher_forced_agree": agree, "max_gap": gap, "step_ms": step,
               "staged_bytes": staged, "peak_gib": peak, "oracle_ms": ref_ms,
-              "ranks_s": {"a": a_s, "b": b_s}}
+              "ranks_s": {"a": a_s}}
     print(json.dumps({"spmd": result}), flush=True)
     return result
 
@@ -6294,6 +6289,412 @@ def phase_tp_sp(torch, tfa, tt, card, seed: int):
     return result
 
 
+# --------------------------------------------------------------------- #
+# phase 27: ZeRO/FSDP and the interleaved and zero-bubble schedules      #
+# --------------------------------------------------------------------- #
+
+# Phase 25's model (GEMMA_7B in bf16, batch SPMD_BATCH x SPMD_SEQ in
+# SPMD_CHUNKS micro-batches, 'except_last' where a schedule takes it) in
+# one world of four rank processes, pp=2 x dp=2 over gloo on this card.
+# AdamW at a rate whose first update (about lr a weight) is ~8 bf16 ulps
+# of a dim^-1/2 weight (2^-13 = 1.2e-4 at 0.0156), so every leaf moves
+# and a bitwise comparison of two updates means something.
+ZS_LR = 1e-3
+ZS_V = 2
+# A rank's launches in a step (its one block, or its ZS_V chunks, at C =
+# SPMD_CHUNKS micro-batches; every attention on the d=256 tensor-core
+# kernels, none on flash_simt.cu):
+# - fill-drain and 1F1B under 'except_last' (25b, 27a, 27b): C forwards
+#   and C - 1 recomputes, C dQ and C dK/dV (SPMD_LAUNCHES);
+# - zb 'never' (27d): C forwards; a micro-batch's B cell (its input's
+#   gradient) and then its W cell (the weights', from the same graph) each
+#   pass through attention's backward: 2C dQ and 2C dK/dV;
+# - zb 'always': as 'never', plus each micro-batch's one recompute, in B:
+#   2C forwards;
+# - interleaved (27c, 'except_last': the cells of micro-batch C - 1 keep
+#   their graphs): ZS_V chunks of C forwards and C - 1 recomputes, ZS_V * C
+#   dQ and dK/dV;
+# - the 4-block sequential oracle (27c, no checkpoint): 4 of each.
+_C = SPMD_CHUNKS
+ZS_LAUNCHES = {
+    "fill_drain": SPMD_LAUNCHES, "1f1b": SPMD_LAUNCHES,
+    "zb_never": {"flash_fwd_d256": _C, "flash_bwd_dq_d256": 2 * _C,
+                 "flash_bwd_dkv_d256": 2 * _C},
+    "zb_always": {"flash_fwd_d256": 2 * _C, "flash_bwd_dq_d256": 2 * _C,
+                  "flash_bwd_dkv_d256": 2 * _C},
+    "interleaved": {"flash_fwd_d256": ZS_V * (2 * _C - 1), "flash_bwd_dq_d256": ZS_V * _C,
+                    "flash_bwd_dkv_d256": ZS_V * _C},
+    "zero3": SPMD_LAUNCHES, "zero1": SPMD_LAUNCHES,
+}
+ZS_ORACLE_LAUNCHES = {k: 2 * ZS_V for k in SPMD_LAUNCHES}
+# At dp=2 ZeRO-3 stores half of each chosen block leaf and ZeRO-1 half of
+# each leaf's state (each segment padded to a multiple of dp).
+ZS_MEMORY_MAX = 0.55
+
+
+@contextlib.contextmanager
+def cell_clock(torch, pipe, events, fwd_keys, bwd_keys):
+    """Within it, every cell of ``pipe``'s steps is timed on the card
+    (synchronized before and after): ``(name, stage, micro-batch, start,
+    end)`` into ``events``; the k-th forward cell is ``fwd_keys[k]``
+    (``(stage, micro-batch)``; a global block for an interleaved pipe),
+    the k-th backward ``bwd_keys[k]``."""
+    def clocked(fn, name, keys):
+        def run(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            stage, mb = keys[sum(e[0] == name for e in events)]
+            events.append((name, stage, mb, t0, time.perf_counter()))
+            return out
+        return run
+
+    pipe._cell_forward = clocked(pipe._cell_forward, "fwd", fwd_keys)
+    pipe._cell_backward = clocked(pipe._cell_backward, "bwd", bwd_keys)
+    try:
+        yield
+    finally:
+        del pipe._cell_forward, pipe._cell_backward
+
+
+def fsdp_lane(spmd, pipe, tree):
+    """This dp lane's fsdp storage shards of a tree of full block tensors
+    (views; pre and post as they are)."""
+    dp, d = pipe._dp, pipe._lane
+    return dict(tree, blocks=spmd._tree_map(
+        lambda a, dim: a if dim < 0 else a.narrow(dim, d * (a.shape[dim] // dp),
+                                                  a.shape[dim] // dp),
+        tree["blocks"], pipe._fsdp_dims))
+
+
+def zero_sched_rank(torch, tfa, tt, spmd, mesh, seed: int, path: str) -> None:
+    """Phase 27 on one rank of the pp=2 x dp=2 world, its report written
+    to ``path`` as each part ends: each case's step ms, bytes staged by
+    kind, peak and launches, the comparisons, block and optimizer bytes at
+    each ZeRO level, and the cells of a 1F1B and an interleaved step timed
+    one by one."""
+    import torch.distributed as dist
+
+    from torchgpipe_tpu_torch.parallel.interleaved import BWD, FWD, interleaved_tables
+
+    t_start = time.perf_counter()
+    rank, stage, m = mesh.rank, mesh.coords["pp"], SPMD_CHUNKS
+    card = card_line()
+    rep = {"rank": rank, "coords": mesh.coords, "cases": {}, "cmp": {}, "memory": {}}
+
+    def adamw(ts):
+        return torch.optim.AdamW(ts, lr=ZS_LR)
+
+    def case(name, fn, profiled=False):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tfa.reset_launches()
+        by0, t0 = dict(mesh.staged_by), time.perf_counter()
+        if profiled:   # which CUDA functions the step launched
+            box = []
+            rows = profile(torch, card, f"27 {name} rank {rank}", lambda: box.append(fn()),
+                           top=0, cuda_only=True)[2]
+            res = box[0]
+            rep["profile"] = {k: sum(n for _, n, key in rows if pat in key)
+                              for k, pat in SPMD_PROFILE.items()}
+        else:
+            res = fn()
+        torch.cuda.synchronize()
+        loss = res[0] if isinstance(res, tuple) else res
+        rep["cases"][name] = {
+            "ms": (time.perf_counter() - t0) * 1e3, "loss": loss.item(),
+            "staged": {k: v - by0.get(k, 0) for k, v in mesh.staged_by.items()
+                       if v != by0.get(k, 0)},
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": kernel_launches(tfa), "profiled": profiled}
+        return res
+
+    def leaves(tree, key=None):
+        return [a for k in ("pre", "blocks", "post") if key in (None, k)
+                for _, a in spmd._items(tree[k])]
+
+    def worst(got, want):
+        return max(spmd_rel_diff(torch, a, b) for a, b in zip(leaves(got), leaves(want)))
+
+    def same(got, want):
+        return all(torch.equal(a, b) for a, b in zip(leaves(got), leaves(want)))
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    def memory(params, grads, opt, name, peak_of):
+        """Block params, grads and optimizer state, all state, and the
+        peak of case ``peak_of``."""
+        pre = len(leaves(params, "pre"))
+        blocks = range(pre, pre + len(leaves(params, "blocks")))
+
+        def state(idx):
+            return nbytes(v for i in idx for v in opt.state.get(opt.zero_segments[i], {})
+                          .values() if isinstance(v, torch.Tensor) and v.ndim)
+
+        rep["memory"][name] = {
+            "block_param": nbytes(leaves(params, "blocks")),
+            "block_grad": nbytes(leaves(grads, "blocks")), "block_state": state(blocks),
+            "state": state(range(len(opt.zero_segments))),
+            "peak_gib": rep["cases"][peak_of]["peak_gib"]}
+
+    def cmp(name, got, want, loss_got, loss_want):
+        rep["cmp"][name] = {"loss": [loss_got, loss_want], "worst": worst(got, want),
+                            "bitwise": same(got, want) and loss_got == loss_want}
+
+    def save():
+        rep["s"] = time.perf_counter() - t_start
+        with open(path, "w") as f:
+            json.dump(rep, f)
+
+    def fresh(tied, schedule, copies=1, stagger=False, **kw):
+        """A part's engine, ``copies`` placements of its params and its
+        batch: the global tree drawn (the engine's layer templates freed
+        after) once every rank has freed the last part's memory, with
+        ``stagger`` the dp lanes in turn (four ranks share the card)."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        for turn in range(mesh.shape["dp"] if stagger else 1):
+            if not stagger or mesh.coords["dp"] == turn:
+                _, pipe = spmd_engine(torch, tt, spmd, mesh, tied, schedule, "dp", **kw)
+                params, tokens = spmd_init(torch, pipe, seed)
+                spmd_free_templates(pipe)
+                placed = [pipe.place(params) for _ in range(copies)]
+                del params
+                gc.collect()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        return pipe, placed, tokens
+
+    def stash(pipe):
+        """The results of ``pipe``'s train_steps from here on, as the
+        ``make_train_step`` that calls them got them (until ``del
+        pipe.train_step``): what a sharded update consumed, for its
+        unsharded oracle."""
+        box, run = [], pipe.train_step
+
+        def keep(*a, **k):
+            box.append(run(*a, **k))
+            return box[-1]
+
+        pipe.train_step = keep
+        return box
+
+    # 25b and 27d: untied, 2 blocks; fill-drain, 1F1B and zb at one set of
+    # weights (the 1F1B step's cells timed one by one).
+    fd, (local,), tokens = fresh(False, "fill_drain")
+    rep["ready_s"] = time.perf_counter() - t_start
+    loss_fd, g_fd = case("fill_drain", lambda: fd.train_step(local, tokens, tokens))
+    e1 = spmd_engine(torch, tt, spmd, mesh, False, "1f1b", "dp", "meta")[1]
+    events = []   # the world's second step: its cells warm
+    with cell_clock(torch, e1, events, [(stage, i) for i in range(m)],
+                    [(stage, i) for i in range(m)]):
+        loss_1f, g_1f = case("1f1b", lambda: e1.train_step(local, tokens, tokens))
+    rep["cells_1f1b"] = events
+    cmp("1f1b_vs_fill_drain", g_1f, g_fd, loss_1f.item(), loss_fd.item())
+    del g_fd
+    for ckpt in ("never", "always"):
+        ez = spmd_engine(torch, tt, spmd, mesh, False, "zb", "dp", "meta", checkpoint=ckpt)[1]
+        loss_z, g = case(f"zb_{ckpt}", lambda: ez.train_step(local, tokens, tokens),
+                         profiled=ckpt == "never" and rank == 0)
+        cmp(f"zb_{ckpt}", g, g_1f, loss_z.item(), loss_1f.item())
+        del g
+    del g_1f, local
+    save()
+
+    # 27a: tied, fsdp; make_train_step(zero=3) against one AdamW over the
+    # full tensors fed the step's own gradients, both gathered over dp.
+    fp, (z3,), tokens = fresh(True, "fill_drain", fsdp=True)
+    full = {k: spmd._tree_map(lambda a: a.detach().clone(),
+                              fp._gather_fsdp(z3[k]) if k == "blocks" else z3[k])
+            for k in ("pre", "blocks", "post")}
+    step3 = fp.make_train_step(adamw, zero=3)
+    box = stash(fp)
+    case("zero3", lambda: step3(z3, tokens, tokens))
+    del fp.train_step
+    loss3, g3 = box.pop()
+    gfull = dict(g3, blocks=fp._gather_fsdp(g3["blocks"]))
+    opt = adamw(leaves(full))
+    for t, g in zip(leaves(full), leaves(gfull)):
+        t.grad = g
+    opt.step()
+    del opt, gfull
+    cmp("zero3", z3, fsdp_lane(spmd, fp, full), loss3.item(), loss3.item())
+    memory(z3, g3, step3.optimizer, "zero3", "zero3")
+    del step3, full, z3
+    save()
+
+    # 27b: make_train_step(zero=1) against the zero=0 update of the same
+    # gradients from the same weights; 27a's fsdp gradients against them.
+    pn, (p1, p0), _ = fresh(True, "fill_drain", copies=2)
+    p0 = spmd._tree_map(lambda a: a.cpu(), p0)
+    step1 = pn.make_train_step(adamw, zero=1)
+    box = stash(pn)
+    case("zero1", lambda: step1(p1, tokens, tokens))
+    del pn.train_step
+    loss_n, gn = box.pop()
+    cmp("fsdp_vs_plain", g3, fsdp_lane(spmd, fp, gn), loss3.item(), loss_n.item())
+    del g3
+    p0 = pn.place_tree(p0)
+    opt0 = pn.zero_opt_state(adamw, p0, zero=0)
+    pn._zero_apply(opt0, leaves(gn))
+    cmp("zero1", p1, p0, loss_n.item(), loss_n.item())
+    memory(p0, gn, opt0, "zero0", "zero1")
+    memory(p1, gn, step1.optimizer, "zero1", "zero1")
+    del opt0, step1, p0, p1, gn
+    save()
+
+    # 27c: interleaved, 4 blocks (2 a rank), untied, fsdp; its cells timed.
+    il, (pi,), tokens = fresh(False, "interleaved", stagger=True, fsdp=True,
+                              virtual_stages=ZS_V)
+    tb = interleaved_tables(2, m, ZS_V)
+    col = [(int(tb.kind[t, stage]), int(tb.chunk[t, stage]), int(tb.mb[t, stage]))
+           for t in range(tb.ticks)]
+    events = []
+    with cell_clock(torch, il, events, [(c * 2 + stage, i) for k, c, i in col if k == FWD],
+                    [(c * 2 + stage, i) for k, c, i in col if k == BWD]):
+        loss_i, gi = case("interleaved", lambda: il.train_step(pi, tokens, tokens))
+    rep["cells_interleaved"] = events
+    del pi
+    g_glob = il.gather(gi)
+    del gi
+    if rank == 0:   # phase 25's sequential oracle at 4 blocks
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref_loss, ref_grads, ref_ms, ref_launches = spmd_oracle(
+            torch, tfa, tt, spmd, seed, tied=False, v=ZS_V)
+        got = dict(spmd._items(g_glob))
+        w = [spmd_rel_diff(torch, got[p].cuda(), want.cuda())
+             for p, want in spmd._items(ref_grads)]
+        rep["cmp"]["interleaved"] = {"loss": [loss_i.item(), ref_loss], "worst": max(w),
+                                     "leaves": len(w), "of": len(got), "oracle_ms": ref_ms,
+                                     "oracle_launches": ref_launches}
+    save()
+
+
+def phase_zero_sched(torch, card, seed: int):
+    """Phase 27: ZeRO/FSDP and the interleaved and zero-bubble schedules
+    on one world of four rank processes (:func:`zero_sched_rank`); 25b
+    runs there too.  Gates: the launches of every case on every rank (a
+    profile of the zb step: none on flash_simt.cu), 25b and 27d within
+    SPMD_LOSS_REL / SPMD_GRAD_REL of 1F1B, 27a and 27b bitwise, 27a's
+    fsdp step against the plain pipe's and 27c against the oracle within
+    the same tolerances, ZeRO-3's block bytes and ZeRO-1's optimizer
+    bytes at most ZS_MEMORY_MAX of zero=0's on every rank."""
+    import tempfile
+
+    from torchgpipe_tpu_torch.utils import tracing
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()   # the four ranks take the card
+    parent_gib = torch.cuda.memory_reserved() / 2**30
+    with tempfile.TemporaryDirectory() as out:
+        reps, world_s = spmd_ranks(torch, seed, "z", 4, out)
+
+    def close(loss, want, worst):
+        return abs(loss - want) <= SPMD_LOSS_REL * abs(want) and worst <= SPMD_GRAD_REL
+
+    for rep in reps:
+        r, c = rep["rank"], rep["cmp"]
+        for name, row in rep["cases"].items():
+            expect_launches(row["launches"], ZS_LAUNCHES[name], f"27 {name} rank {r}")
+            if not math.isfinite(row["loss"]):
+                fail(f"spmd_zero_sched {name} rank {r}: loss {row['loss']}")
+        for name in ("1f1b_vs_fill_drain", "zb_never", "zb_always", "fsdp_vs_plain"):
+            if not close(*c[name]["loss"], c[name]["worst"]):
+                fail(f"spmd_zero_sched {name} rank {r}: losses {c[name]['loss']}, worst "
+                     f"gradient leaf {c[name]['worst']:.3e} of its max (tols "
+                     f"{SPMD_LOSS_REL}, {SPMD_GRAD_REL})")
+        for name in ("zero3", "zero1"):
+            if not c[name]["bitwise"]:
+                fail(f"spmd_zero_sched {name} rank {r}: the update is not bitwise the "
+                     f"unsharded one (losses {c[name]['loss']}, worst leaf "
+                     f"{c[name]['worst']:.3e})")
+        mem = rep["memory"]
+        ratios = {"zero3_block": mem["zero3"]["block_param"] / mem["zero0"]["block_param"],
+                  "zero1_state": mem["zero1"]["state"] / mem["zero0"]["state"]}
+        rep["ratios"] = ratios
+        if max(ratios.values()) > ZS_MEMORY_MAX:
+            fail(f"spmd_zero_sched rank {r}: memory ratios {ratios} against zero=0 "
+                 f"(at most {ZS_MEMORY_MAX})")
+    want = {k: ZS_LAUNCHES["zb_never"].get(k, 0) for k in SPMD_PROFILE}
+    if reps[0]["profile"] != want:
+        fail(f"spmd_zero_sched rank 0: the zb step's profile launched {reps[0]['profile']} "
+             f"of {SPMD_PROFILE}, expected {want}")
+    il = reps[0]["cmp"]["interleaved"]
+    if not close(*il["loss"], il["worst"]) or il["leaves"] != il["of"]:
+        fail(f"spmd_zero_sched 27c: interleaved {il} against the sequential oracle")
+    expect_launches(il["oracle_launches"], ZS_ORACLE_LAUNCHES, "27c oracle")
+    # simulate_pipeline of the measured cells: the 1F1B step's on 2
+    # stages, the interleaved step's as 4 global blocks.
+    lane0 = [rep for rep in reps if rep["coords"]["dp"] == 0]
+    cells = {k: [tracing.TimelineEvent(*e) for rep in lane0 for e in rep[k]]
+             for k in ("cells_1f1b", "cells_interleaved")}
+    proj = {s: tracing.simulate_pipeline(cells["cells_1f1b"], 2, s)
+            for s in ("fill_drain", "1f1b", "zb")}
+    proj["interleaved"] = tracing.simulate_pipeline(cells["cells_interleaved"], 2 * ZS_V,
+                                                    "interleaved", ZS_V)
+    step = {name: [round(rep["cases"][name]["ms"], 1) for rep in reps]
+            for name in reps[0]["cases"]}
+    staged = {name: reps[0]["cases"][name]["staged"] for name in reps[0]["cases"]}
+    peak = {name: [round(rep["cases"][name]["peak_gib"], 2) for rep in reps]
+            for name in reps[0]["cases"]}
+    mem = {rep["rank"]: rep["memory"] for rep in reps}
+    c0 = reps[0]["cmp"]
+    print(f"spmd_zero_sched: Gemma-7B width (dim 3072, 16 heads of 256, ffn 24576, vocab "
+          f"256000), bf16, batch {SPMD_BATCH} x seq {SPMD_SEQ}, chunks {SPMD_CHUNKS}, pp=2 x "
+          f"dp=2 over gloo (4 processes on this card) [{card}]", flush=True)
+    print(f"spmd_zero_sched 25b: 1F1B loss {c0['1f1b_vs_fill_drain']['loss'][0]:.6f} vs "
+          f"fill-drain {c0['1f1b_vs_fill_drain']['loss'][1]:.6f}, worst gradient leaf by rank "
+          f"{[round(rep['cmp']['1f1b_vs_fill_drain']['worst'], 6) for rep in reps]} of its "
+          f"max", flush=True)
+    for name in ("zb_never", "zb_always"):
+        print(f"spmd_zero_sched 27d {name}: loss {c0[name]['loss'][0]:.6f} vs 1F1B "
+              f"{c0[name]['loss'][1]:.6f}; worst leaf by rank "
+              f"{[rep['cmp'][name]['worst'] for rep in reps]}; bitwise by rank "
+              f"{[rep['cmp'][name]['bitwise'] for rep in reps]}", flush=True)
+    print(f"spmd_zero_sched 27a: fsdp zero=3 AdamW (lr {ZS_LR}) bitwise the unsharded "
+          f"AdamW of the gathered tensors fed the same gradients, on every rank (loss "
+          f"{c0['zero3']['loss'][0]:.6f}); fsdp vs plain: losses "
+          f"{c0['fsdp_vs_plain']['loss']}, worst leaf by rank "
+          f"{[rep['cmp']['fsdp_vs_plain']['worst'] for rep in reps]}, bitwise by rank "
+          f"{[rep['cmp']['fsdp_vs_plain']['bitwise'] for rep in reps]}; 27b: zero=1 bitwise "
+          f"the zero=0 update on every rank", flush=True)
+    print(f"spmd_zero_sched 27c: interleaved v={ZS_V} (4 blocks), fsdp, untied: loss "
+          f"{il['loss'][0]:.6f} vs the sequential oracle's {il['loss'][1]:.6f}; {il['leaves']} "
+          f"gradient leaves, worst {il['worst']:.3e} of its max; the oracle {il['oracle_ms']:.1f}"
+          f" ms, launches {il['oracle_launches']}", flush=True)
+    print(f"spmd_zero_sched: step ms by case, ranks 0-3 {step}; bytes staged through the "
+          f"host by kind, rank 0 {staged}; peak GiB by case, ranks 0-3 {peak}", flush=True)
+    print(f"spmd_zero_sched: block params / grads / optimizer state, all state, peak GiB by "
+          f"rank and ZeRO level {mem}; ratios to zero=0 {[rep['ratios'] for rep in reps]}",
+          flush=True)
+    print(f"spmd_zero_sched: launches a rank (rank 0) "
+          f"{ {n: {k: v for k, v in row['launches'].items() if v} for n, row in reps[0]['cases'].items()} }"
+          f"; the zb 'never' step's profile on rank 0 {reps[0]['profile']}", flush=True)
+    print(f"spmd_zero_sched: simulate_pipeline (makespan s, busy, bubble) of the 1F1B "
+          f"step's cells on 2 stages and the interleaved step's as 4 global blocks (zb: B "
+          f"and W halves of each measured backward) {proj}; the world {world_s:.1f}s, "
+          f"started in {max(rep['ready_s'] for rep in reps):.1f}s, this process holding "
+          f"{parent_gib:.2f} GiB; the phase {time.perf_counter() - t_phase:.1f}s [{card}]",
+          flush=True)
+    result = {"card": card, "step_ms": step, "staged_bytes": staged, "peak_gib": peak,
+              "memory": mem,
+              "ratios": [rep["ratios"] for rep in reps], "cmp": {rep["rank"]: rep["cmp"]
+                                                                for rep in reps},
+              "launches": {rep["rank"]: {n: row["launches"] for n, row in rep["cases"].items()}
+                           for rep in reps},
+              "profile": reps[0]["profile"], "projections": proj,
+              "world_s": world_s}
+    print(json.dumps({"spmd_zero_sched": result}), flush=True)
+    return result
+
+
 PHASES = {
     "3": "fwd", "4": "decode", "5": "bwd", "5b": "simt", "6": "generate", "6b": "generate_int8",
     "6c": "speculative", "6d": "beam", "7": "profile", "9": "serving",
@@ -6301,7 +6702,7 @@ PHASES = {
     "12": "train_graph", "13": "precision", "14": "offload", "15": "lora", "16": "unet",
     "17": "timeline", "18": "vit_l16", "19": "amoebanetd", "20": "t5",
     "21": "gpt2_xl_generate", "22": "mixtral_moe", "23": "distributed", "24": "fleet",
-    "25": "spmd", "26": "spmd_tp_sp",
+    "25": "spmd", "26": "spmd_tp_sp", "27": "spmd_zero_sched",
 }
 PHASE_ORDER = list(PHASES)
 PHASE_NEEDS = {"6b": ["6"], "6c": ["6"], "6d": ["6"], "7": ["6"], "9": ["6"], "24": ["6"],
@@ -6479,8 +6880,9 @@ def main() -> None:
           "18-22 (vit_l16, amoebanetd, t5, gpt2_xl_generate, mixtral_moe)")
     timed([("23", lambda: phase_distributed(torch, tfa, tt, card, args.seed)),
            ("25", lambda: phase_spmd(torch, tfa, tt, tg, card, args.seed)),
-           ("26", lambda: phase_tp_sp(torch, tfa, tt, card, args.seed))],
-          "23, 25, 26 (distributed, spmd, spmd_tp_sp)")
+           ("26", lambda: phase_tp_sp(torch, tfa, tt, card, args.seed)),
+           ("27", lambda: phase_zero_sched(torch, card, args.seed))],
+          "23, 25-27 (distributed, spmd, spmd_tp_sp, spmd_zero_sched)")
 
     if run != set(PHASES):
         print(f"chip_smoke: phases {sorted(run, key=PHASE_ORDER.index)} of {len(PHASES)} "
@@ -6499,7 +6901,7 @@ def main() -> None:
     precision_resnet, precision_llama = r["13"]
     lora_run, unet_row, vit_run, amoeba, t5_run = r["15"], r["16"], r["18"], r["19"], r["20"]
     gpt2, mixtral, int8w, simt = r["21"], r["22"], r["9b"], r["5b"]
-    dist, spmd_run, tp_sp = r["23"], r["25"], r["26"]
+    dist, spmd_run, tp_sp, zero_sched = r["23"], r["25"], r["26"], r["27"]
 
     src = "torchgpipe_tpu_torch/csrc/"
     ref = "torchgpipe_tpu/ops/flash_attention.py"
@@ -6531,7 +6933,9 @@ def main() -> None:
              "spmd_tp_rank": tp_sp["launches_tp"],
              "spmd_ring_rank0": tp_sp["launches_ring"][0],
              "spmd_ring_rank1": tp_sp["launches_ring"][1],
-             "spmd_ulysses_rank": tp_sp["launches_ulysses"]}
+             "spmd_ulysses_rank": tp_sp["launches_ulysses"],
+             **{f"spmd_{name}_rank": launches for name, launches in
+                zero_sched["launches"][0].items()}}
 
     def by_path(name):
         return {p: n.get(name, 0) for p, n in paths.items()}

@@ -191,17 +191,22 @@ def mse(out, tgt):
     (dict(pp_axis="stages"), ValueError, "mesh has no 'stages' axis"),
     (dict(virtual_stages=2), ValueError, "virtual_stages only applies"),
     (dict(sp_axis="dp", loss_reduction=None), ValueError, "decomposable loss"),
-    (dict(fsdp=True), NotImplementedError, r"A\.5\.4c.*queue A item 5\.4"),
-    (dict(schedule="zb"), NotImplementedError, r"A\.5\.4d.*queue A item 5\.4"),
-    (dict(schedule="interleaved", virtual_stages=2), NotImplementedError, r"A\.5\.4d"),
+    (dict(fsdp=True), ValueError, "fsdp shards parameters over the data-parallel lanes"),
+    (dict(schedule="zb", checkpoint="except_last"), ValueError, "no zb counterpart"),
+    (dict(schedule="interleaved", virtual_stages=1), ValueError, "virtual_stages >= 2"),
+    (dict(schedule="interleaved", virtual_stages=2, chunks=3), ValueError,
+     r"chunks \(3\) divisible by n_stages \(2\)"),
+    (dict(schedule="1f1b", virtual_stages=2), ValueError, "virtual_stages only applies"),
+    (dict(zero_update=2), ValueError, "zero=2 is not a supported ZeRO level"),
     (dict(ep_axis="dp"), NotImplementedError, r"A\.5\.4e.*queue A item 5\.4"),
     (dict(checkpoint="offload"), NotImplementedError, r"queue A item 5\.4"),
     (dict(remat_policy=lambda *a: None), NotImplementedError, r"queue A item 2\b"),
     (dict(megastep=2), NotImplementedError, r"queue A item 5\.4"),
 ])
 def test_constructor_validation(kw, exc, match):
+    kw = dict(dict(chunks=2), **kw)
     with pytest.raises(exc, match=match):
-        spmd.SpmdGPipe(mlp_block(), 2, fake_mesh(2), chunks=2, loss_fn=mse, **kw)
+        spmd.SpmdGPipe(mlp_block(), 2, fake_mesh(2), loss_fn=mse, **kw)
 
 
 def test_constructor_checks_mesh_and_skips():

@@ -39,7 +39,8 @@ WORLDS = {
         "tp_place": dict(LLAMA, place=True),
         "tp_ops": dict(op="tensor"),
     },
-    (2, 2, 1, 2): {"tp_dp": dict(LLAMA, batch=8, checkpoint="never")},
+    (2, 2, 1, 2): {"tp_dp": dict(LLAMA, batch=8, checkpoint="never"),
+                   "tp_dp_fsdp": dict(LLAMA, batch=8, checkpoint="never", fsdp=True)},
     (2, 1, 2, 2): {"tp_sp": dict(LLAMA, checkpoint="always")},
 }
 CASES = {name: dict(spec, pp=pp, dp=dp, sp=sp, tp=tp)
@@ -61,7 +62,8 @@ def test_train_step_matches_the_sequential_oracle(results, name):
     leaves gathered) equal the unsharded oracle's: vocab-parallel
     embedding and head, column/row-parallel blocks, Megatron's
     cross-entropy over sharded logits, 1F1B, the classic (GPT-2 class)
-    block with its biases, and tp with dp and with sp (the ring)."""
+    block with its biases, and tp with dp (with fsdp too: the dims tp
+    leaves free sharded over dp) and with sp (the ring)."""
     port, want = results
     np.testing.assert_allclose(float(port[name]["loss"]), want[name]["loss"],
                                rtol=tpp.LOSS_RTOL)

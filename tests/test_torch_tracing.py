@@ -137,10 +137,12 @@ def test_simulate_pipeline_refusals():
     with pytest.raises(ValueError) as te:
         ttr.simulate_pipeline(ev, 1, "gpipe")
     assert str(te.value) == str(je.value)
-    for schedule in ("1f1b", "zb", "interleaved"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A item 5.6"):
-            ttr.simulate_pipeline(ev, 2, schedule, virtual_stages=2 if
-                                  schedule == "interleaved" else 1)
+    for schedule, n, v in (("1f1b", 2, 2), ("interleaved", 2, 1), ("interleaved", 3, 2)):
+        with pytest.raises(ValueError) as je:
+            jtr.simulate_pipeline(_events(jtr, [("fwd", 0, 0, 0.0, 1.0)]), n, schedule, v)
+        with pytest.raises(ValueError) as te:
+            ttr.simulate_pipeline(ev, n, schedule, v)
+        assert str(te.value) == str(je.value)
 
 
 def test_fused_tracer_refusal_text():

@@ -66,12 +66,13 @@ def reference(spec, devices):
     kw = dict(chunks=m, checkpoint=spec.get("checkpoint", "always"),
               schedule=spec.get("schedule", "fill_drain"),
               loss_reduction=spec.get("loss_reduction", "mean"),
-              dp_axis="dp" if dp > 1 or spec.get("dp_axis") else None)
+              dp_axis="dp" if dp > 1 or spec.get("dp_axis") else None,
+              fsdp=spec.get("fsdp", False), virtual_stages=spec.get("v", 1))
     key = jax.random.PRNGKey(spec.get("seed", 0))
     if spec["model"] == "llama":
         cfg = TransformerConfig(vocab=64, dim=32, n_layers=spec["n_layers"], n_heads=4,
                                 n_kv_heads=2, tie_embeddings=spec.get("tied", False))
-        block, pre, post = llama_spmd(cfg, n)
+        block, pre, post = llama_spmd(cfg, n * kw["virtual_stages"])
         pipe = SpmdGPipe(block, n, mesh, loss_fn=cross_entropy, pre=pre, post=post, **kw)
         tokens = jax.random.randint(jax.random.PRNGKey(1), (B, 8), 0, 64)
         params = pipe.init(key, jax.ShapeDtypeStruct(tokens.shape, tokens.dtype))
@@ -137,7 +138,10 @@ def port_inputs(spec, pipe, params, x, tgt):
 
 
 def numbers(spec, pipe, params, x, tgt):
-    """The reference's step (or apply) of a case."""
+    """The reference's step (or apply) of a case; none for a port-only
+    ``zero`` case."""
+    if spec.get("zero"):
+        return {}
     if spec.get("step"):
         loss, grads = pipe.train_step(params, x, tgt)
         new = jax.tree_util.tree_map(lambda p, g: p - 0.1 * g, params, grads)

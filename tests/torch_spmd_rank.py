@@ -17,7 +17,8 @@ global gradient tree) for a train case, ``{"loss", "params"}`` after one
 ``make_train_step`` SGD step (lr 0.1) for a ``step`` case, ``{"out",
 "loss"}`` for an ``apply`` case; a world with dp > 1 also writes
 ``global_batch.pt`` (``utils.data.global_batch_from_local`` of each
-rank's rows).  A ``place`` case writes the gathered placement on rank 0
+rank's rows); a ``zero`` case (:func:`run_zero`) writes whether each
+ZeRO update was bitwise its unsharded one, gathered from every rank.  A ``place`` case writes the gathered placement on rank 0
 and every rank's own tree to ``DIR/<case>_rank<r>.pt``; an ``op`` case
 (``ring``, ``ulysses`` or ``tensor``: :func:`run_op`) runs one parallel
 primitive on this rank's shard of ``{"q", "k", "v", "do"}`` or ``{"x"}``.
@@ -80,12 +81,14 @@ def build(spec, mesh):
     kw = dict(chunks=spec["chunks"], checkpoint=spec.get("checkpoint", "always"),
               schedule=spec.get("schedule", "fill_drain"),
               loss_reduction=spec.get("loss_reduction", "mean"),
-              dp_axis="dp" if spec["dp"] > 1 or spec.get("dp_axis") else None)
+              dp_axis="dp" if spec["dp"] > 1 or spec.get("dp_axis") else None,
+              fsdp=spec.get("fsdp", False), virtual_stages=spec.get("v", 1))
     n = spec["pp"]
     if spec["model"] == "llama":
         cfg = llama_cfg(spec)
         gather = spec.get("gather_logits", True)
-        block, pre, post = tt.llama_spmd(cfg, n, device="cpu", gather_logits=gather)
+        block, pre, post = tt.llama_spmd(cfg, n * kw["virtual_stages"], device="cpu",
+                                         gather_logits=gather)
         loss = tt.cross_entropy if gather else tt.vocab_parallel_cross_entropy(cfg.tp_axis)
         return spmd.SpmdGPipe(block, n, mesh, loss_fn=loss, pre=pre, post=post,
                               tp_axis=cfg.tp_axis, sp_axis=cfg.sp_axis, **kw)
@@ -150,6 +153,77 @@ def run_op(spec, case, mesh):
             for n, t in (("out", out), ("dq", q.grad), ("dk", k.grad), ("dv", v.grad))}
 
 
+# The optimizers of a ``zero`` case: elementwise updates with state.
+ZERO_OPTS = {
+    "sgd": lambda ts: torch.optim.SGD(ts, lr=0.1, momentum=0.9),
+    "adam": lambda ts: torch.optim.Adam(ts, lr=1e-2),
+    "adamw": lambda ts: torch.optim.AdamW(ts, lr=1e-2, weight_decay=0.1),
+}
+
+
+def state_numel(opt):
+    """Elements of ``opt``'s per-parameter state tensors on this rank."""
+    return sum(v.numel() for st in opt.state.values() for v in st.values()
+               if isinstance(v, torch.Tensor) and v.ndim)
+
+
+def run_zero(spec, case, mesh):
+    """Two ``make_train_step`` updates for each of :data:`ZERO_OPTS`:
+    ``zero=1`` against ``zero=0`` on dp-replicated params, and an fsdp
+    pipe's ``zero=3`` against the unsharded update of this lane's
+    gathered tensors (fed the fsdp step's gradients, gathered); whether
+    each trajectory's losses and params are bitwise equal, and this
+    rank's state and block sizes."""
+    x, y = case["x"], case["tgt"]
+    res = {}
+    for name, opt in ZERO_OPTS.items():
+        pipe = build(dict(spec, fsdp=False), mesh)
+        ref, z1 = pipe.place(case["params"]), pipe.place(case["params"])
+        s0, s1 = pipe.make_train_step(opt, zero=0), pipe.make_train_step(opt, zero=1)
+        same = all(torch.equal(s0(ref, x, y), s1(z1, x, y)) for _ in range(2))
+        same = same and all(torch.equal(a, b) for a, b in zip(pipe._flat(ref), pipe._flat(z1)))
+        res[f"{name}_zero1"] = same
+        fp = build(dict(spec, fsdp=True), mesh)
+        z3 = fp.place(case["params"])
+        s3 = fp.make_train_step(opt, zero=3)
+        full = {k: spmd._tree_map(lambda a: a.detach().clone(),
+                                  fp._gather_fsdp(v) if k == "blocks" else v)
+                for k, v in z3.items()}
+        unsharded = opt(fp._flat(full))
+
+        def lane(tree):   # this lane's storage shards of a full tree
+            out = dict(tree)
+            out["blocks"] = spmd._tree_map(
+                lambda a, d: a if d < 0 else a.narrow(
+                    d, mesh.coords["dp"] * (a.shape[d] // mesh.shape["dp"]),
+                    a.shape[d] // mesh.shape["dp"]).clone(),
+                tree["blocks"], fp._fsdp_dims)
+            return out
+
+        same = True
+        for _ in range(2):
+            loss_o, g = fp.train_step(lane(full), x, y)
+            g = dict(g, blocks=fp._gather_fsdp(g["blocks"]))
+            for t, gr in zip(fp._flat(full), fp._flat(g)):
+                t.grad = gr
+            unsharded.step()
+            same = same and torch.equal(s3(z3, x, y), loss_o)
+        same = same and all(torch.equal(a, b) for a, b in
+                            zip(fp._flat(z3), fp._flat(lane(full))))
+        res[f"{name}_zero3"] = same
+        res[f"{name}_state"] = torch.tensor([
+            state_numel(s0.optimizer), state_numel(s1.optimizer),
+            state_numel(s3.optimizer), state_numel(unsharded)])
+    res["block_numel"] = torch.tensor([
+        sum(a.numel() for a in spmd._leaves(ref["blocks"])),
+        sum(a.numel() for a in spmd._leaves(z3["blocks"]))])
+    def every_rank(v):   # [pp, dp, ...] on rank 0
+        v = torch.stack(mesh.all_gather(torch.as_tensor(v, dtype=torch.int64), "dp"))
+        return torch.stack(mesh.all_gather(v, "pp"))
+
+    return {k: every_rank(v) for k, v in res.items()}
+
+
 def main():
     ap = argparse.ArgumentParser()
     for name in ("rank", "world", "port", "pp", "dp"):
@@ -167,8 +241,8 @@ def main():
         cases = torch.load(a.inputs, weights_only=True)
         for name, case in cases.items():
             spec = case["spec"]
-            if spec.get("op"):
-                res = run_op(spec, case, mesh)
+            if spec.get("op") or spec.get("zero"):
+                res = (run_zero if spec.get("zero") else run_op)(spec, case, mesh)
                 if a.rank == 0:
                     torch.save(res, os.path.join(a.out, name + ".pt"))
                 continue

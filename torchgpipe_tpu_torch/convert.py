@@ -166,23 +166,29 @@ def spmd_params_from_jax(cfg: TransformerConfig, params: Mapping[str, Any],
                          device: Device = None) -> dict:
     """A reference ``SpmdGPipe``'s params of ``llama_spmd(cfg, n)`` (numpy
     leaves, ``{"pre", "blocks", "post"}``, blocks stacked ``[n_stages,
-    ...]``) as the port's tree of the same layout for
+    ...]``, or ``[n_stages, virtual_stages, ...]`` from an interleaved
+    pipe over ``llama_spmd(cfg, n * v)``) as the port's tree of the same layout for
     ``torchgpipe_tpu_torch.spmd.SpmdGPipe`` (its ``place`` takes it),
     on ``device`` (``cuda`` unless named).  The structure and every shape
     are checked against the port's ``llama_spmd`` (on the meta device);
     a tied head carries no ``table``, as the reference's does not."""
     from torchgpipe_tpu_torch.models.transformer import llama_spmd, resolve_device
-    from torchgpipe_tpu_torch.spmd import module_tree
+    from torchgpipe_tpu_torch.spmd import _get, _items, module_tree
 
-    leaves = [a for a in _np_leaves(params["blocks"])]
+    leaves = _items(params["blocks"])
     if not leaves:
         raise ValueError("the reference's blocks tree has no leaves")
-    n = int(np.shape(leaves[0])[0])
-    block, pre, post = llama_spmd(cfg, n, device="meta")
+    path, leaf = leaves[0]
+    lead = tuple(int(d) for d in np.shape(leaf)[:1])
+    block, pre, post = llama_spmd(cfg, lead[0], device="meta")
+    if np.ndim(leaf) == _get(module_tree(block), path).ndim + 2:
+        # An interleaved pipe's [n_stages, virtual_stages, ...] blocks.
+        lead = tuple(int(d) for d in np.shape(leaf)[:2])
+        block, pre, post = llama_spmd(cfg, lead[0] * lead[1], device="meta")
     skip = tuple(getattr(post, "tie_pre", ()))
     want = {"pre": module_tree(pre), "post": module_tree(post, skip=skip),
             "blocks": module_tree(block,
-                                  lambda name, p: torch.empty((n, *p.shape), device="meta"))}
+                                  lambda name, p: torch.empty((*lead, *p.shape), device="meta"))}
     if set(params) != set(want):
         raise ValueError(f"reference keys {sorted(params)} != {sorted(want)}")
     dev = resolve_device(device)
@@ -204,14 +210,6 @@ def spmd_params_from_jax(cfg: TransformerConfig, params: Mapping[str, Any],
         return t.to(device=dev, dtype=ours.dtype)
 
     return {k: load(want[k], params[k], k) for k in ("pre", "blocks", "post")}
-
-
-def _np_leaves(tree: Any) -> list:
-    if isinstance(tree, Mapping):
-        return [x for v in tree.values() for x in _np_leaves(v)]
-    if isinstance(tree, (tuple, list)):
-        return [x for v in tree for x in _np_leaves(v)]
-    return [tree]
 
 
 def _copy(dst: torch.Tensor, src: Any, what: str, transpose=None) -> None:

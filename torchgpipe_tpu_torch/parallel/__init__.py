@@ -3,9 +3,9 @@
 Counterpart of ``torchgpipe_tpu/parallel``: Megatron tensor parallelism
 (:mod:`.tensor`), ring attention (:mod:`.ring_attention`) and Ulysses
 (:mod:`.ulysses`) over the ``tp`` and ``sp`` axes that
-:class:`~torchgpipe_tpu_torch.spmd.SpmdGPipe` binds (:mod:`.axes`).  The
-interleaved and zero-bubble schedule tables are ROADMAP.md queue A item
-5.4 (sub-slice d).
+:class:`~torchgpipe_tpu_torch.spmd.SpmdGPipe` binds (:mod:`.axes`), and
+the static tables of its interleaved (:mod:`.interleaved`) and
+zero-bubble (:mod:`.zerobubble`) schedules.
 """
 
 from torchgpipe_tpu_torch.parallel.axes import (  # noqa: F401

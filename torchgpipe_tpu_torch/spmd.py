@@ -35,17 +35,33 @@ sharing one card, which NCCL does not take).  All compute stays on each
 rank's device; the host staging is counted (:attr:`Mesh.staged_bytes`,
 by kind in :attr:`Mesh.staged_by`).
 
-Schedules: ``'fill_drain'`` (GPipe) and ``'1f1b'`` (PipeDream-flush,
+Schedules: ``'fill_drain'`` (GPipe), ``'1f1b'`` (PipeDream-flush,
 ordered by the reference's closed-form tick table :func:`fwd_tick` /
-:func:`bwd_tick`; not with ``sp``, as in the reference).  Checkpoint
-modes ``'always'``, ``'except_last'`` and ``'never'`` follow the port's
+:func:`bwd_tick`), ``'interleaved'`` (Megatron's virtual stages: blocks
+stored ``[n, v, ...]``, rank ``j``'s chunk ``c`` global block ``c*n + j``)
+and ``'zb'`` (zero-bubble: a backward split into an input-gradient B cell
+and a weight-gradient W cell), the last two run in the order of the
+reference's static tables (:mod:`~torchgpipe_tpu_torch.parallel.interleaved`,
+:mod:`~torchgpipe_tpu_torch.parallel.zerobubble`); none but fill-drain
+with ``sp``, as in the reference.  Checkpoint modes ``'always'``,
+``'except_last'`` and ``'never'`` follow the port's
 :mod:`~torchgpipe_tpu_torch.checkpoint`: a checkpointed cell runs its
 forward without a graph, keeping its input, and recomputes in its
 backward (its tp all-reduces and ring transfers with it, in the same
-order on every lane).  Under a row-decomposable loss (``loss_reduction``
-``'mean'``/``'sum'``) the fill-drain head and loss are sharded over
-``pp`` (each stage runs them on 1/n of the batch), and ragged batches
-are edge-padded and masked out exactly.
+order on every lane); ``'zb'`` takes ``'never'`` and ``'always'``.
+Under a row-decomposable loss (``loss_reduction`` ``'mean'``/``'sum'``)
+the fill-drain head and loss are sharded over ``pp`` (each stage runs
+them on 1/n of the batch), and ragged batches are edge-padded and
+masked out exactly.
+
+``fsdp=True`` stores each block leaf sharded over ``dp`` on its first
+free dim that ``dp`` divides (:meth:`SpmdGPipe._fsdp_layout`); every step
+all-gathers the full tensors once, runs the schedule on them and
+reduce-scatters their gradients back (:meth:`Mesh.reduce_scatter`).  The
+ZeRO levels of :meth:`SpmdGPipe.make_train_step` (``zero=``): 0, the
+plain update; 1, the optimizer over this dp lane's 1/dp segment of each
+flattened leaf, the updated segments all-gathered back; 3, the plain
+update of the fsdp storage shards.
 
 Parameters are trees in the reference's layout (``{"pre", "blocks",
 "post"}``; an ``nn.Sequential`` as a tuple of its children's trees, a
@@ -54,9 +70,10 @@ leaves; the engine runs a layer on a tree through
 ``torch.func.functional_call``.
 
 Not ported yet, raising ``NotImplementedError`` that names ROADMAP.md
-queue A item 5.4 and its sub-slice: FSDP / ZeRO (c), the interleaved and
-zero-bubble schedules (d), expert parallelism, ``rng=``, megasteps,
-tracing and the fault hooks (e); ``remat_policy`` is item 2 (A.2.12).
+queue A item 5.4 (sub-slice e): expert parallelism, ``rng=``, megasteps,
+``checkpoint='offload'`` and the fault hooks; ``tracer=``,
+``partition_rules=`` and ``hbm_budget_bytes=`` name item 5.6, and
+``remat_policy`` item 2 (A.2.12).
 """
 
 from __future__ import annotations
@@ -328,8 +345,8 @@ class Mesh:
     The transfers below stage through host memory when the backend is
     ``gloo`` and the device a card; ``staged_bytes`` counts the bytes
     copied between the device and the host for them, and ``staged_by``
-    the same bytes by kind (``'grads'``, ``'pp'``, ``'tp'``, ``'sp'`` ...:
-    what moved them)."""
+    the same bytes by kind (``'grads'``, ``'pp'``, ``'tp'``, ``'sp'``,
+    ``'fsdp'``, ``'zero'`` ...: what moved them)."""
 
     def __init__(self, shape: Mapping[str, int], device: torch.device, backend: str,
                  groups: Dict[Tuple[str, ...], Any]):
@@ -429,6 +446,15 @@ class Mesh:
             work.wait()
         self._pending.clear()
 
+    def _pinned_copy(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` copied into the pinned host buffer of its shape and dtype
+        (made at first use, reused step after step)."""
+        key = (tuple(t.shape), t.dtype)
+        buf = self._pinned.get(key)
+        if buf is None:
+            buf = self._pinned[key] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return buf.copy_(t.detach())
+
     def all_reduce(self, t: torch.Tensor, axis: Union[None, str, Sequence[str]],
                    scale: float = 1.0, *, op: str = "sum",
                    kind: str = "grads") -> torch.Tensor:
@@ -439,12 +465,7 @@ class Mesh:
         if self.size(axis) == 1:
             return t if scale == 1.0 else t * scale
         if self.staged:
-            key = (tuple(t.shape), t.dtype)
-            buf = self._pinned.get(key)
-            if buf is None:
-                buf = self._pinned[key] = torch.empty(t.shape, dtype=t.dtype,
-                                                      pin_memory=True)
-            buf.copy_(t.detach())
+            buf = self._pinned_copy(t)
             self._count(2 * t.numel() * t.element_size(), kind)
         else:
             buf = t.detach().clone()
@@ -453,6 +474,30 @@ class Mesh:
         if scale != 1.0:
             buf.mul_(scale)
         return buf.to(self.device) if self.staged else buf
+
+    def reduce_scatter(self, t: torch.Tensor, axis: str, dim: int, scale: float = 1.0, *,
+                       kind: str = "fsdp") -> torch.Tensor:
+        """This lane's ``dim``-slice of the sum of ``t`` over ``axis``
+        times ``scale``: lane ``i`` of ``n`` gets rows ``[i*s, (i+1)*s)``
+        of ``dim`` (``s = t.shape[dim] / n``), in ``t``'s dtype.  FSDP's
+        gradient reduction (``'fsdp'``); at two lanes the sum is the same
+        two addends as :meth:`all_reduce`'s."""
+        n = self.shape[axis]
+        if n == 1:
+            return t if scale == 1.0 else t * scale
+        src = t.detach().movedim(dim, 0).contiguous()
+        if self.staged:
+            nbytes = src.numel() * src.element_size()
+            self._count(nbytes + nbytes // n, kind)
+            src = self._pinned_copy(src)
+        out = torch.empty((src.shape[0] // n, *src.shape[1:]), dtype=src.dtype,
+                          device=src.device)
+        dist.reduce_scatter_tensor(out, src, group=self.group(axis))
+        if scale != 1.0:
+            out.mul_(scale)
+        if self.staged:
+            out = out.to(self.device)
+        return out.movedim(0, dim).contiguous()
 
     def broadcast(self, t: Optional[torch.Tensor], src: int, axis: str) -> torch.Tensor:
         """Global rank ``src``'s ``t`` on every rank of ``axis`` (shape and
@@ -639,12 +684,15 @@ def _assemble(spec: P, sizes: Mapping[str, int],
 class _Cell:
     """One micro-batch's cell on this stage: its input (a leaf that
     requires grad when a gradient must leave it), and its output's graph
-    unless checkpointed (then recomputed in the backward)."""
+    unless checkpointed (then recomputed in the backward).  A zero-bubble
+    cell also keeps, from its B half to its W half, the output's
+    cotangent ``gy`` and the input's gradient ``g``."""
 
-    __slots__ = ("h", "x", "y", "ckpt")
+    __slots__ = ("h", "x", "y", "ckpt", "gy", "g")
 
     def __init__(self, h, x, y, ckpt):
         self.h, self.x, self.y, self.ckpt = h, x, y, ckpt
+        self.gy = self.g = None
 
 
 class SpmdGPipe:
@@ -673,8 +721,14 @@ class SpmdGPipe:
         ``loss_fn`` decompose over batch rows that way, which shards the
         fill-drain head and loss over ``pp`` and admits ragged batches;
         ``None`` runs the head replicated on the last stage.
-      schedule: 'fill_drain' or '1f1b'.
+      schedule: 'fill_drain', '1f1b', 'interleaved' (with
+        ``virtual_stages`` >= 2 chunks a rank, ``chunks`` a multiple of
+        ``n_stages``) or 'zb' (checkpoint 'never' or 'always').
       dp_axis: the data-parallel axis name ('dp'), or None.
+      fsdp: store the block leaves sharded over ``dp_axis`` (ZeRO-3);
+        needs ``dp_axis``.
+      zero_update: the default ZeRO level of :meth:`make_train_step`
+        (0/False, 1/True, or 3 under fsdp).
 
     The reference's other knobs are taken so that its calls transcribe:
     ``scan_unroll``, ``send_ahead`` and ``gather_schedule`` shape its
@@ -822,12 +876,23 @@ class SpmdGPipe:
                 "SPMD engine supports checkpoint="
                 "'always'|'except_last'|'never'|'offload'"
             )
+        if self.fsdp and self.dp_axis is None:
+            raise ValueError(
+                "fsdp shards parameters over the data-parallel lanes: set "
+                "dp_axis (and give the mesh a dp axis of size > 1)"
+            )
+        if self.fsdp and self.ep_axis is not None:
+            raise ValueError(
+                "fsdp + ep is not supported: expert weights are already "
+                "sharded over ep; shard the rest with tp instead"
+            )
         if self.gather_schedule not in ("block", "use"):
             raise ValueError(
                 "gather_schedule must be 'block' (gather each param once "
                 "per block scan body) or 'use' (model per-use-site "
                 f"gathering), got {self.gather_schedule!r}"
             )
+        self._zero_level(self.zero_update)   # validate the declared level
         if self.sp_axis is not None and self.loss_reduction is None:
             raise ValueError(
                 "sequence parallelism needs a batch/token-decomposable loss: "
@@ -836,16 +901,51 @@ class SpmdGPipe:
         if self.schedule not in ("fill_drain", "1f1b", "interleaved", "zb"):
             raise ValueError(
                 "schedule must be 'fill_drain', '1f1b', 'interleaved' or 'zb'")
-        if self.schedule == "1f1b":
+        if self.schedule == "interleaved":
+            if self.virtual_stages < 2:
+                raise ValueError(
+                    "schedule='interleaved' needs virtual_stages >= 2 "
+                    "(with one chunk per device it degenerates to "
+                    "schedule='1f1b' — use that instead)"
+                )
+            if self.chunks % self.n_stages != 0:
+                raise ValueError(
+                    f"schedule='interleaved' needs chunks ({self.chunks}) "
+                    f"divisible by n_stages ({self.n_stages}): Megatron's "
+                    "micro-batch grouping (arXiv:2104.04473 §2.2) assumes "
+                    "full groups"
+                )
+        elif self.virtual_stages != 1:
+            raise ValueError("virtual_stages only applies to schedule='interleaved'")
+        if self.schedule == "zb" and self.remat_policy is not None:
+            raise ValueError(
+                "remat_policy has no effect under schedule='zb': the "
+                "recompute split is explicit in the schedule (B cells "
+                "recompute whole cells under checkpoint='always'; "
+                "checkpoint='never' stores vjp residuals outright)"
+            )
+        if self.schedule == "zb" and self.checkpoint == "except_last":
+            raise ValueError(
+                "schedule='zb' supports checkpoint='never' (vjp residuals "
+                "stored at forward time, replayed by both backward halves "
+                "— zero recompute, O(pipeline window) residual memory) and "
+                "checkpoint='always' (the B cell recomputes the forward "
+                "once and banks its vjp for the immediately-following W "
+                "cell — O(1) residual slots for ~one extra forward per "
+                "micro-batch); 'except_last' has no zb counterpart.  Use "
+                "schedule='1f1b' for checkpoint='except_last'"
+            )
+        if self.schedule in ("1f1b", "interleaved", "zb"):
+            sched = f"schedule={self.schedule!r}"
             if self.loss_reduction is None:
                 raise ValueError(
-                    "schedule='1f1b' computes per-micro-batch losses inside "
+                    f"{sched} computes per-micro-batch losses inside "
                     "the schedule, so the loss must decompose over "
                     "micro-batches: set loss_reduction='mean' or 'sum'"
                 )
             if self.remat_policy is not None:
                 raise ValueError(
-                    "schedule='1f1b' hand-writes the per-cell recompute; "
+                    f"{sched} hand-writes the per-cell recompute; "
                     "remat_policy does not apply (use schedule='fill_drain')"
                 )
             if self.sp_axis is not None:
@@ -854,7 +954,7 @@ class SpmdGPipe:
                 # recomputed cell reissues its ring transfers, and only
                 # fill-drain keeps every sp lane's cells in one order.
                 raise ValueError(
-                    "schedule='1f1b' does not compose with sequence "
+                    f"{sched} does not compose with sequence "
                     "parallelism: ring attention's sp ppermutes would sit "
                     "inside the schedule's fwd/bwd conditional, whose "
                     "branches only some pipeline stages execute on a given "
@@ -864,8 +964,6 @@ class SpmdGPipe:
                     "parallelism is fine (group-local all-reduce); use "
                     "schedule='fill_drain' for sp"
                 )
-        elif self.virtual_stages != 1 and self.schedule != "interleaved":
-            raise ValueError("virtual_stages only applies to schedule='interleaved'")
         if self.remat_policy is not None and self.checkpoint == "never":
             raise ValueError(
                 "remat_policy only applies with checkpoint='always', "
@@ -895,11 +993,6 @@ class SpmdGPipe:
                     f"and SpmdGPipe.{key})"
                 )
         # What later sub-slices of ROADMAP.md A.5.4 bring.
-        if self.fsdp or self.zero_update:
-            raise not_ported("SpmdGPipe(fsdp=, zero_update=) (ZeRO/FSDP, A.5.4c)", "5.4")
-        if self.schedule in ("interleaved", "zb"):
-            raise not_ported(f"SpmdGPipe(schedule={self.schedule!r}) (the interleaved "
-                             "and zero-bubble schedules, A.5.4d)", "5.4")
         if self.ep_axis is not None:
             raise not_ported("SpmdGPipe(ep_axis=) (expert parallelism, A.5.4e)", "5.4")
         if self.checkpoint == "offload":
@@ -913,13 +1006,36 @@ class SpmdGPipe:
             raise not_ported("SpmdGPipe(tracer=, partition_rules=, hbm_budget_bytes=) "
                              "(the static-analysis and tracing layer, A.5.6)", "5.6")
         self._blocks_spec = layer_param_specs(self.block, self.pp_axis)
+        v = self.virtual_stages
+        if v > 1:
+            # Blocks are stored [n, v, ...] (stage dim over pp, chunk dim
+            # rank-local): declared per-stage specs gain a replicated chunk
+            # dim at position 1; bare P(pp) prefixes leave it replicated.
+            def with_chunk_dim(spec):
+                if isinstance(spec, P):
+                    return spec if len(spec) <= 1 else P(spec[0], None, *tuple(spec)[1:])
+                if isinstance(spec, Mapping):
+                    return {k: with_chunk_dim(x) for k, x in spec.items()}
+                return type(spec)(with_chunk_dim(x) for x in spec)
+
+            self._blocks_spec = with_chunk_dim(self._blocks_spec)
+        # Every block leaf's global shape ([n, ...], or [n, v, ...]): the
+        # layers hold whole tensors, tp shards included.
+        lead = (self.n_stages,) + ((v,) if v > 1 else ())
+        self._global_blocks = module_tree(
+            self.block, lambda name, p: torch.empty((*lead, *p.shape), device="meta"))
+        self._dp = self.mesh.shape[self.dp_axis] if self.dp_axis else 1
+        self._fsdp_dims = None
         self._specs = {"blocks": self._blocks_spec}
+        if self.fsdp:
+            # The storage layout: each chosen leaf also sharded over dp.
+            self._fsdp_dims, self._specs["blocks"] = self._fsdp_layout(
+                self._global_blocks, self._dp)
         for key, lyr in (("pre", self.pre), ("post", self.post), ("loss", loss_lyr)):
             if lyr is not None:
                 self._specs[key] = layer_param_specs(lyr, None)
         self._stage = self.mesh.coords[self.pp_axis]
         self._lane = self.mesh.coords[self.dp_axis] if self.dp_axis else 0
-        self._dp = self.mesh.shape[self.dp_axis] if self.dp_axis else 1
         self._sp = self.mesh.shape[self.sp_axis] if self.sp_axis else 1
         self._sp_lane = self.mesh.coords[self.sp_axis] if self.sp_axis else 0
         self._names = {
@@ -929,6 +1045,52 @@ class SpmdGPipe:
             "loss": module_tree(self.loss_fn, lambda n, p: n) if self._loss_is_layer else None,
         }
         self._warned_ragged_coupled = False
+        self._loopback: Dict[int, torch.Tensor] = {}
+
+    # ------------------------------------------------------------------ #
+    # FSDP (ZeRO-3-style parameter sharding over dp)                     #
+    # ------------------------------------------------------------------ #
+
+    def _fsdp_layout(self, blocks: Pytree, dp: int) -> Tuple[Pytree, Pytree]:
+        """The fsdp storage layout at data-parallel width ``dp``: per
+        block leaf (``blocks``: global shapes, ``[n, ...]`` or ``[n, v,
+        ...]``), the dim sharded over dp (-1 = replicated) and the
+        storage specs (the leaf's spec with ``dp_axis`` at that dim)."""
+        base = broadcast_specs(self._blocks_spec, blocks)
+
+        def choose(spec: P, leaf: Any) -> int:
+            # First dim after the stacked-stage dim (0) that no other axis
+            # shards and that divides by dp; small/indivisible leaves (e.g.
+            # norm scales) stay replicated.
+            for i in range(1, len(leaf.shape)):
+                taken = spec[i] if i < len(spec) else None
+                if taken is None and leaf.shape[i] % dp == 0 and leaf.shape[i] >= dp:
+                    return i
+            return -1
+
+        dims = _tree_map(choose, base, blocks)
+
+        def augment(spec: P, dim: int) -> P:
+            if dim < 0:
+                return spec
+            parts = list(spec) + [None] * (dim + 1 - len(spec))
+            parts[dim] = self.dp_axis
+            return P(*parts)
+
+        return dims, _tree_map(augment, base, dims)
+
+    def _gather_fsdp(self, blocks_local: Pytree) -> Pytree:
+        """Full block tensors from this rank's dp shards (all-gathered over
+        dp, staged under ``'fsdp'``), as new leaves that collect the
+        step's gradients; a replicated leaf is passed through."""
+
+        def gather(a: torch.Tensor, dim: int) -> torch.Tensor:
+            if dim < 0:
+                return a
+            full = torch.cat(self.mesh.all_gather(a.detach(), self.dp_axis, kind="fsdp"), dim)
+            return full.requires_grad_(a.requires_grad)
+
+        return _tree_map(gather, blocks_local, self._fsdp_dims)
 
     # ------------------------------------------------------------------ #
     # parameters                                                         #
@@ -998,7 +1160,15 @@ class SpmdGPipe:
         params: dict = {}
         if self.pre is not None:
             params["pre"] = draw(self.pre, "pre")
-        params["blocks"] = _stack([draw(self.block, "blocks") for _ in range(self.n_stages)])
+        n, v = self.n_stages, self.virtual_stages
+        drawn = [draw(self.block, "blocks") for _ in range(n * v)]
+        if v == 1:
+            params["blocks"] = _stack(drawn)
+        else:
+            # [n, v, ...]: stage j's chunk c is global block c*n + j (the
+            # Megatron round-robin), the blocks drawn in global order.
+            params["blocks"] = _stack([_stack([drawn[c * n + j] for c in range(v)])
+                                       for j in range(n)])
         if self.post is not None:
             params["post"] = draw(self.post, "post")
         if self._loss_is_layer:
@@ -1008,11 +1178,13 @@ class SpmdGPipe:
     @torch.no_grad()
     def place(self, params: dict) -> dict:
         """This rank's part of a global params tree (blocks ``[n_stages,
-        ...]``) on its device, as copies: the stage's ``[1, ...]`` slice of
-        the blocks, every leaf that a layer's ``param_specs`` shards over
-        ``tp`` cut to this lane's slice along its partitioned dim, the rest
-        of pre/post/loss whole.  Keys the engine owns no layout for pass
-        through."""
+        ...]``, ``[n_stages, virtual_stages, ...]`` interleaved) on its
+        device, as copies: the stage's ``[1, ...]`` slice of the blocks,
+        every leaf that a layer's ``param_specs`` shards over ``tp`` cut to
+        this lane's slice along its partitioned dim, under ``fsdp`` each
+        block leaf the chooser picks (:meth:`_fsdp_layout`) cut to this dp
+        lane's 1/dp, the rest of pre/post/loss whole.  Keys the engine
+        owns no layout for pass through."""
         self._check_global(params)
         out = dict(params)
         for key, _ in self._layers():
@@ -1041,11 +1213,11 @@ class SpmdGPipe:
             lambda a: a.to(self.mesh.device) if isinstance(a, torch.Tensor) else a, tree)
 
     def gather(self, tree: dict) -> Optional[dict]:
-        """The global tree (blocks ``[n_stages, ...]``, tp-sharded leaves
-        whole) of per-rank trees (params or grads, as :meth:`place` and
-        :meth:`train_step` give them), assembled in host memory on global
-        rank 0 from the ranks of dp and sp lane 0; None on every other
-        rank.  For tests and checkpoints."""
+        """The global tree (blocks ``[n_stages, ...]``, tp- and
+        fsdp-sharded leaves whole) of per-rank trees (params or grads, as
+        :meth:`place` and :meth:`train_step` give them), assembled in host
+        memory on global rank 0 from the ranks that hold each piece; None
+        on every other rank.  For tests and checkpoints."""
         mesh = self.mesh
         keys = [k for k, _ in self._layers()]
         leaves = [(key, path, a, spec) for key in keys
@@ -1134,20 +1306,22 @@ class SpmdGPipe:
                     "configuration"
                 )
 
-    def _check_leading(self, params: dict, want: int, what: str) -> None:
+    def _check_leading(self, params: dict, want: Tuple[int, ...], what: str) -> None:
         for leaf in _leaves(params["blocks"]):
-            got = tuple(leaf.shape[:1])
-            if got != (want,):
+            got = tuple(leaf.shape[:len(want)])
+            if got != want:
                 raise ValueError(
                     f"block param leaf has leading dims {got}, expected "
-                    f"({want},) (= {what}); params were initialized for a "
+                    f"{want} (= {what}); params were initialized for a "
                     "different pipeline configuration"
                 )
             break  # leading-dim layout is uniform; one leaf suffices
 
     def _check_global(self, params: Any) -> None:
         self._check_structure(params)
-        self._check_leading(params, self.n_stages, "(n_stages,)")
+        v = self.virtual_stages
+        self._check_leading(params, (self.n_stages,) if v == 1 else (self.n_stages, v),
+                            "(n_stages,)" if v == 1 else "(n_stages, virtual_stages)")
         for key, _ in self._layers():
             self._check_spec_shapes(params[key], broadcast_specs(self._specs[key],
                                                                  params[key]))
@@ -1155,10 +1329,15 @@ class SpmdGPipe:
     def _check_params(self, params: Any) -> None:
         """Validation of this rank's params tree (:meth:`place`'s result)
         before the step: structure, this stage's ``[1, ...]`` slice of the
-        blocks, and every leaf on this rank's device."""
+        blocks (``[1, v, ...]`` interleaved; the chunk dim cut over dp
+        where fsdp shards it), and every leaf on this rank's device."""
         self._check_structure(params)
-        self._check_leading(params, 1, "this rank's slice of (n_stages,): "
-                            "pass the tree through SpmdGPipe.place")
+        want, what = (1,), "this rank's slice of (n_stages,)"
+        if self.virtual_stages > 1:
+            first = _leaves(self._fsdp_dims)[0] if self.fsdp else -1
+            v = self.virtual_stages // (self._dp if first == 1 else 1)
+            want, what = (1, v), "this rank's slice of (n_stages, virtual_stages)"
+        self._check_leading(params, want, what + ": pass the tree through SpmdGPipe.place")
         for key, _ in self._layers():
             for path, a in _items(params[key]):
                 if a.device != self.mesh.device:
@@ -1342,13 +1521,15 @@ class SpmdGPipe:
                        ) -> Optional[torch.Tensor]:
         """Apply ``gy`` to the cell's output (recomputing it first when
         checkpointed); returns its input's gradient, if it takes one."""
-        y = cell.y
-        if cell.ckpt:
-            with aux_scale(1.0 / self.chunks), _ckpt.phase(recomputing=True):
-                y = self._run_block(blocks, cell.x)
+        y = self._recompute(blocks, cell) if cell.ckpt else cell.y
         torch.autograd.backward(y, gy)
         cell.y = None
         return cell.x.grad if cell.x.requires_grad else None
+
+    def _recompute(self, blocks: Pytree, cell: _Cell) -> torch.Tensor:
+        """A checkpointed cell's output again, with its graph."""
+        with aux_scale(1.0 / self.chunks), _ckpt.phase(recomputing=True):
+            return self._run_block(blocks, cell.x)
 
     def _stage_input(self, leaves: dict, x_mb: List[Pytree], i: int) -> torch.Tensor:
         """Stage 0: ``pre`` of micro-batch ``i`` (its graph kept for the
@@ -1507,17 +1688,155 @@ class SpmdGPipe:
                     outs[i] = y
                 continue
             if j == n - 1:
-                y = outs.pop(i).requires_grad_()
-                l_i = self._cell_mb_loss(leaves, y, tgt_mb[i],
-                                         None if mask_mb is None else mask_mb[i],
-                                         mean_scale)
-                l_i.backward()
-                loss = loss + l_i.detach()
-                gy = y.grad
+                l_i, gy = self._last_cell_loss(leaves, outs.pop(i), tgt_mb, mask_mb,
+                                               mean_scale, i)
+                loss = loss + l_i
             else:
                 gy = mesh.recv(mesh.rank_of(j + 1, self._lane), _GRAD * _TAG + i)
             cell = cells.pop(i)
             self._send_input_grad(cell, self._cell_backward(blocks, cell, gy), i)
+        return loss
+
+    def _last_cell_loss(self, leaves: dict, y: torch.Tensor, tgt_mb: List[Pytree],
+                        mask_mb: Optional[List[torch.Tensor]],
+                        mean_scale: Optional[torch.Tensor], i: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The explicit-gradient schedules' loss cell: micro-batch ``i``'s
+        head and loss on the model's last output ``y`` (post/loss
+        gradients accumulated), its loss and ``y``'s gradient."""
+        y = y.requires_grad_()
+        l_i = self._cell_mb_loss(leaves, y, tgt_mb[i],
+                                 None if mask_mb is None else mask_mb[i], mean_scale)
+        l_i.backward()
+        return l_i.detach(), y.grad
+
+    # interleaved: rank j's chunk c is global block c*n + j --------------- #
+
+    def _chunk_trees(self, blocks: Pytree) -> List[Pytree]:
+        """Per chunk ``c`` of this stage, ``[1, ...]`` leaves viewing
+        ``blocks[:, c]`` (no copy) that collect that chunk's gradients;
+        :meth:`_chunk_grads` stacks them back."""
+        return [_tree_map(lambda a: a[:, c].detach().requires_grad_(a.requires_grad), blocks)
+                for c in range(self.virtual_stages)]
+
+    @staticmethod
+    def _chunk_grads(blocks: Pytree, chunks: List[Pytree]) -> None:
+        for path, a in _items(blocks):
+            if a.requires_grad:
+                parts = [_get(ch, path) for ch in chunks]
+                a.grad = torch.stack([torch.zeros_like(t) if t.grad is None else t.grad
+                                      for t in parts], 1)
+
+    def _hand(self, t: torch.Tensor, stage: int, kind: int, c: int, i: int) -> None:
+        """Send ``t`` to ``stage`` of this dp lane, tagged by kind, chunk
+        and micro-batch; to this rank's own stage (n=1) it stays here."""
+        tag = kind * _TAG + c * self.chunks + i
+        if stage == self._stage:
+            self._loopback[tag] = t.detach()
+        else:
+            self.mesh.send(t, self.mesh.rank_of(stage, self._lane), tag)
+
+    def _take(self, stage: int, kind: int, c: int, i: int) -> torch.Tensor:
+        """What :meth:`_hand` sent this rank from ``stage`` under that tag."""
+        tag = kind * _TAG + c * self.chunks + i
+        if stage == self._stage:
+            return self._loopback.pop(tag)
+        return self.mesh.recv(self.mesh.rank_of(stage, self._lane), tag)
+
+    def _interleaved(self, leaves, x_mb, tgt_mb, mask_mb, mean_scale, stop):
+        """This rank's column of :func:`~torchgpipe_tpu_torch.parallel.interleaved.interleaved_tables`,
+        tick by tick.  Chunk ``c``'s output on the last stage goes to
+        chunk ``c+1`` on stage 0, its gradient the other way; the loss
+        seeds at the last stage's last chunk, ``pre`` runs at stage 0's
+        chunk 0."""
+        from torchgpipe_tpu_torch.parallel.interleaved import BWD, FWD, interleaved_tables
+
+        n, v, j = self.n_stages, self.virtual_stages, self._stage
+        tb = interleaved_tables(n, self.chunks, v)
+        chunks = self._chunk_trees(leaves["blocks"])
+        cells: Dict[Tuple[int, int], _Cell] = {}
+        outs: Dict[int, torch.Tensor] = {}
+        loss = torch.zeros((), device=self.mesh.device)
+        for t in range(tb.ticks):
+            k, c, i = int(tb.kind[t, j]), int(tb.chunk[t, j]), int(tb.mb[t, j])
+            if k == FWD:
+                h = (self._stage_input(leaves, x_mb, i) if j == 0 and c == 0
+                     else self._take(j - 1 if j else n - 1, _ACT, c, i))
+                need = torch.is_floating_point(h) and (j > 0 or c > 0 or self.pre is not None)
+                y, cells[c, i] = self._cell_forward(chunks[c], h, i < stop, need)
+                if j < n - 1:
+                    self._hand(y, j + 1, _ACT, c, i)
+                elif c < v - 1:
+                    self._hand(y, 0, _ACT, c + 1, i)
+                else:
+                    outs[i] = y
+            elif k == BWD:
+                if j == n - 1 and c == v - 1:
+                    l_i, gy = self._last_cell_loss(leaves, outs.pop(i), tgt_mb, mask_mb,
+                                                   mean_scale, i)
+                    loss = loss + l_i
+                else:
+                    gy = self._take(j + 1 if j < n - 1 else 0, _GRAD, c, i)
+                cell = cells.pop((c, i))
+                g = self._cell_backward(chunks[c], cell, gy)
+                if g is None:
+                    continue
+                if j > 0:
+                    self._hand(g, j - 1, _GRAD, c, i)
+                elif c > 0:
+                    self._hand(g, n - 1, _GRAD, c - 1, i)
+                elif cell.h.requires_grad:   # stage 0, chunk 0: into pre's parameters
+                    torch.autograd.backward(cell.h, g)
+        self._chunk_grads(leaves["blocks"], chunks)
+        return loss
+
+    def _zero_bubble(self, leaves, x_mb, tgt_mb, mask_mb, mean_scale, stop):
+        """This rank's column of :func:`~torchgpipe_tpu_torch.parallel.zerobubble.zero_bubble_tables`.
+        A B cell computes only its input's gradient
+        (``torch.autograd.grad``, the graph retained) and sends it
+        upstream at once; the W cell after it computes the block's (and,
+        on stage 0, ``pre``'s) weight gradients from the same graph.
+        ``'never'`` keeps the forward's graph from F to W; ``'always'``
+        recomputes once, in B, and W uses B's graph."""
+        from torchgpipe_tpu_torch.parallel.zerobubble import B, F, W, zero_bubble_tables
+
+        n, j, mesh = self.n_stages, self._stage, self.mesh
+        tb = zero_bubble_tables(n, self.chunks)
+        blocks = leaves["blocks"]
+        weights = [a for a in _leaves(blocks) if a.requires_grad]
+        cells: Dict[int, _Cell] = {}
+        outs: Dict[int, torch.Tensor] = {}
+        loss = torch.zeros((), device=mesh.device)
+        for t in range(tb.ticks):
+            k, i = int(tb.kind[t, j]), int(tb.mb[t, j])
+            if k == F:
+                h = self._stage_input(leaves, x_mb, i)
+                y, cells[i] = self._cell_forward(blocks, h, self.checkpoint == "always",
+                                                 self._need_input_grad(h))
+                if j < n - 1:
+                    mesh.send(y, mesh.rank_of(j + 1, self._lane), _ACT * _TAG + i)
+                else:
+                    outs[i] = y
+            elif k == B:
+                if j == n - 1:
+                    l_i, gy = self._last_cell_loss(leaves, outs.pop(i), tgt_mb, mask_mb,
+                                                   mean_scale, i)
+                    loss = loss + l_i
+                else:
+                    gy = mesh.recv(mesh.rank_of(j + 1, self._lane), _GRAD * _TAG + i)
+                cell = cells[i]
+                if cell.ckpt:
+                    cell.y = self._recompute(blocks, cell)
+                cell.gy = gy
+                if cell.x.requires_grad:
+                    cell.g, = torch.autograd.grad(cell.y, cell.x, gy, retain_graph=True)
+                    if j > 0:
+                        mesh.send(cell.g, mesh.rank_of(j - 1, self._lane), _GRAD * _TAG + i)
+            elif k == W:
+                cell = cells.pop(i)
+                torch.autograd.backward(cell.y, cell.gy, inputs=weights)
+                if j == 0 and cell.g is not None and cell.h.requires_grad:
+                    torch.autograd.backward(cell.h, cell.g)   # pre's parameters
         return loss
 
     def train_step(self, params: dict, x: Pytree, target: Pytree,
@@ -1525,8 +1844,9 @@ class SpmdGPipe:
         """One pipelined forward+backward on this rank; returns ``(loss,
         grads)``: the global loss (float32, on every rank) and this rank's
         gradient tree (the layout of :meth:`place`'s: this stage's
-        ``[1, ...]`` block slice, the pre/post/loss trees summed over pp;
-        every leaf averaged over dp).
+        ``[1, ...]`` block slice, under fsdp this lane's dp shard of it,
+        reduce-scattered; the pre/post/loss trees summed over pp; every
+        leaf averaged over dp).
 
         ``x``/``target`` are the full mini-batch ``[B, ...]`` on every
         rank (each takes its dp lane's rows).  A ragged ``B`` (not
@@ -1568,13 +1888,18 @@ class SpmdGPipe:
         tgt_mb = self._local_microbatches(target)
         stop = _ckpt.checkpoint_stop(self.checkpoint, self.chunks, train=True)
         leaves = self._leaf_copy(params)
-        run = self._one_f_one_b if self.schedule == "1f1b" else self._fill_drain
+        # Under fsdp every schedule runs on the full block tensors,
+        # all-gathered over dp once a step.
+        cells = dict(leaves, blocks=self._gather_fsdp(leaves["blocks"])) if self.fsdp \
+            else leaves
+        run = {"1f1b": self._one_f_one_b, "interleaved": self._interleaved,
+               "zb": self._zero_bubble}.get(self.schedule, self._fill_drain)
         try:
             with self._bound():
-                loss = run(leaves, x_mb, tgt_mb, mask_mb, mean_scale, stop)
+                loss = run(cells, x_mb, tgt_mb, mask_mb, mean_scale, stop)
         finally:
             self.mesh.flush()
-        return self._reduce(loss, leaves)
+        return self._reduce(loss, leaves, cells["blocks"])
 
     def _bound(self) -> Any:
         """The context binding this engine's tp and sp axes for the layers
@@ -1596,64 +1921,231 @@ class SpmdGPipe:
             scale /= self._sp
         return (self.pp_axis,) + blocks, blocks, scale
 
-    def _reduce(self, loss: torch.Tensor, leaves: dict) -> Tuple[torch.Tensor, dict]:
+    def _reduce(self, loss: torch.Tensor, leaves: dict,
+                blocks: Pytree) -> Tuple[torch.Tensor, dict]:
         """The loss and every gradient reduced as :meth:`_reduction` says,
         each pre/post/loss leaf in one reduction over its pp x dp x sp
-        group."""
+        group; under fsdp each gathered block tensor's gradient (of
+        ``blocks``) reduce-scattered back to this lane's shard."""
         mesh = self.mesh
-        every, blocks, scale = self._reduction()
+        every, block_axes, scale = self._reduction()
         loss = mesh.all_reduce(loss.float(), every, scale, kind="loss")
         grads = {}
         for key, _ in self._layers():
+            if key == "blocks" and self.fsdp:
+                grads[key] = _tree_map(self._reduce_fsdp, blocks, self._fsdp_dims)
+                continue
             g = _tree_map(lambda a: torch.zeros_like(a) if a.grad is None else a.grad,
                           leaves[key])
-            axes = blocks if key == "blocks" else every
+            axes = block_axes if key == "blocks" else every
             grads[key] = _tree_map(lambda t: mesh.all_reduce(t, axes, scale), g) \
                 if axes else g
         return loss, grads
+
+    def _reduce_fsdp(self, a: torch.Tensor, dim: int) -> torch.Tensor:
+        """A gathered block tensor's gradient as this lane's shard: summed
+        over dp and cut on ``dim`` (reduce-scatter, staged under
+        ``'fsdp'``), divided by dp; a replicated leaf (``dim`` -1) reduced
+        as every other block gradient."""
+        _, axes, scale = self._reduction()
+        g = torch.zeros_like(a) if a.grad is None else a.grad
+        if dim < 0:
+            return self.mesh.all_reduce(g, axes, scale)
+        sp = tuple(x for x in axes if x != self.dp_axis)
+        g = self.mesh.reduce_scatter(g, self.dp_axis, dim, 1.0 if sp else scale)
+        return self.mesh.all_reduce(g, sp, scale) if sp else g
 
     # ------------------------------------------------------------------ #
     # training with an optimizer                                         #
     # ------------------------------------------------------------------ #
 
+    # ZeRO-style sharded optimizer update (optimizer state over dp) ----- #
+
+    def _zero_level(self, zero: Any = None) -> int:
+        """Normalize a ``zero=`` argument to a ZeRO LEVEL (0, 1 or 3).
+
+        ``None`` reads the pipe's declared :attr:`zero_update`; a bool
+        maps ``False -> 0`` and ``True`` to the natural level for the
+        layout (3 under fsdp, else 1).  Levels and layouts must agree:
+        ZeRO-1's segment math needs dp-REPLICATED params, and ZeRO-3 IS
+        the fsdp storage layout's update, so ``zero=1`` under fsdp and
+        ``zero=3`` without fsdp are both refused (there is no ZeRO-2:
+        gradients already leave the fsdp step reduce-scattered)."""
+        if zero is None:
+            zero = self.zero_update
+        if isinstance(zero, bool):
+            level = ((3 if self.fsdp else 1) if zero else 0)
+        elif isinstance(zero, int):
+            level = zero
+        else:
+            raise ValueError(
+                f"zero must be a bool or a ZeRO level int, got {zero!r}"
+            )
+        if level not in (0, 1, 3):
+            raise ValueError(
+                f"zero={level} is not a supported ZeRO level: use 0/False "
+                "(replicated update), 1/True (optimizer state sharded "
+                "over dp), or 3 (fully-sharded params+grads+state, "
+                "requires fsdp=True).  Level 2 does not exist here: "
+                "gradients already leave the fsdp step reduce-scattered, "
+                "and without fsdp the grad tree is transient inside the "
+                "fused step program"
+            )
+        if level == 1 and self.fsdp:
+            raise ValueError(
+                "zero=1 under fsdp is incoherent: the ZeRO-1 segment math "
+                "assumes dp-REPLICATED params, but fsdp stores them "
+                "sharded over dp (their optimizer state is already "
+                "dp-partitioned alongside).  Use zero=3 (or zero=True, "
+                "which resolves to 3 under fsdp)"
+            )
+        if level == 3 and not self.fsdp:
+            raise ValueError(
+                "zero=3 IS the fully-sharded (gather-at-use) layout's "
+                "update: params, grads and optimizer state all live "
+                "sharded over dp.  Construct the pipe with fsdp=True to "
+                "get that storage layout (zero=1 shards optimizer state "
+                "only and works with replicated params)"
+            )
+        return level
+
+    def _zero_check(self, level: int = 1) -> None:
+        if level == 0:
+            return
+        if self.dp_axis is None or self.mesh.shape[self.dp_axis] < 2:
+            raise ValueError(
+                "the ZeRO-sharded optimizer update partitions state over "
+                "the data-parallel lanes: it needs dp_axis set and a dp "
+                "mesh axis of size >= 2 (arXiv:2004.13336 — with one "
+                "replica there is nothing to shard; use zero=False)"
+            )
+
+    def _flat(self, tree: dict) -> List[torch.Tensor]:
+        """This rank's leaves of a params (or grads) tree, in the engine's
+        order (pre, blocks, post, loss)."""
+        return [a for key, _ in self._layers() for a in _leaves(tree[key])]
+
+    def _zero_machinery(self, optimizer: Callable[..., torch.optim.Optimizer], params: dict
+                        ) -> Tuple[torch.optim.Optimizer, List[torch.Tensor]]:
+        """ZeRO-1's optimizer and its tensors: each of this rank's leaves
+        flattened, padded to a multiple of dp, and this dp lane's segment
+        of it copied out (:meth:`_zero_segment`); ``optimizer`` over the
+        segments, so each lane holds 1/dp of every mirrored state leaf.
+        A segment is rank-local, so no layout axis enters its shape (the
+        reference's ``_zero_axes`` dims); the layout's specs
+        (``meta['param_specs']``) must leave every leaf dp-replicated."""
+        for key, _ in self._layers():
+            specs = broadcast_specs(self._specs[key], params[key])
+            for (path, _), (_, spec) in zip(_items(params[key]), _items(specs)):
+                for e in spec:
+                    axes_ = e if isinstance(e, tuple) else (e,)
+                    if e is not None and self.dp_axis in axes_:
+                        leaf = "/".join(map(str, (key,) + path))
+                        raise ValueError(
+                            f"zero=True needs dp-replicated parameters, but "
+                            f"the layout shards leaf {leaf!r} over the dp "
+                            f"axis ({spec}) — its optimizer state is already "
+                            "dp-partitioned alongside the param; use "
+                            "zero=False (or fsdp) for this layout"
+                        )
+        segments = [self._zero_segment(a) for a in self._flat(params)]
+        return optimizer(segments), segments
+
+    def _zero_segment(self, a: torch.Tensor) -> torch.Tensor:
+        """This dp lane's segment of ``a`` flattened and zero-padded to a
+        multiple of dp (a copy)."""
+        flat = a.detach().reshape(-1)
+        seg = -(-flat.numel() // self._dp)   # ceil: the dp padding
+        if seg * self._dp > flat.numel():
+            flat = torch.cat([flat, flat.new_zeros(seg * self._dp - flat.numel())])
+        return flat[self._lane * seg:(self._lane + 1) * seg].clone()
+
+    @staticmethod
+    def _zero_state_check(opt: torch.optim.Optimizer) -> None:
+        for p in opt.zero_segments:
+            for leaf in opt.state.get(p, {}).values():
+                if isinstance(leaf, torch.Tensor) and leaf.ndim and leaf.shape != p.shape:
+                    raise ValueError(
+                        "the ZeRO-sharded update supports optimizers whose "
+                        "state mirrors the params leaf-for-leaf plus scalar "
+                        "counters (adam/adamw/sgd-momentum shape); this "
+                        f"optimizer's state has a leaf of shape {tuple(leaf.shape)} "
+                        "that matches neither — use zero=False for it"
+                    )
+
+    def zero_opt_state(self, optimizer: Callable[..., torch.optim.Optimizer],
+                       params: dict, zero: Any = None) -> torch.optim.Optimizer:
+        """The ``torch.optim`` optimizer (``optimizer``: a factory taking
+        an iterable of tensors) that holds this rank's share of the state
+        at ZeRO ``zero`` (None: True, the pipe's natural level): level 0
+        over this rank's leaves of ``params``; level 1 over this dp lane's
+        1/dp segment of each (:meth:`_zero_machinery`), the updated
+        segments all-gathered back into the leaves by
+        :meth:`make_train_step`; level 3 over the fsdp storage shards
+        (1/dp of each chosen block leaf), which is the plain update of the
+        storage layout.  Each level is bitwise-equal to the unsharded
+        update for elementwise optimizers (SGD, Adam, AdamW)."""
+        level = self._zero_level(True if zero is None else zero)
+        self._zero_check(level)
+        if level == 1:
+            opt, segments = self._zero_machinery(optimizer, params)
+        else:
+            segments = self._flat(params)
+            opt = optimizer(segments)
+        opt.zero_level, opt.zero_params, opt.zero_segments = level, self._flat(params), segments
+        return opt
+
+    def _zero_apply(self, opt: torch.optim.Optimizer, grads: List[torch.Tensor]) -> None:
+        """One update of ``opt`` (:meth:`zero_opt_state`'s) from this
+        rank's gradients, the parameters changed in place."""
+        if opt.zero_level == 1:
+            for s, g in zip(opt.zero_segments, grads):
+                s.grad = self._zero_segment(g)
+        else:
+            for t, g in zip(opt.zero_segments, grads):
+                t.grad = g
+        opt.step()
+        for t in opt.zero_segments:
+            t.grad = None
+        if opt.zero_level == 1:
+            self._zero_state_check(opt)
+            with torch.no_grad():
+                for t, s in zip(opt.zero_params, opt.zero_segments):
+                    full = torch.cat(self.mesh.all_gather(s, self.dp_axis, kind="zero"))
+                    t.copy_(full[:t.numel()].view(t.shape))
+
     def make_train_step(self, optimizer: Callable[..., torch.optim.Optimizer], *,
                         donate: bool = True, megastep: Optional[int] = None,
                         zero: Any = None) -> Callable[..., torch.Tensor]:
         """``step(params, x, target) -> loss``: :meth:`train_step`, then
-        one ``torch.optim`` optimizer over this rank's leaves of ``params``
+        one ``torch.optim`` update of this rank's leaves of ``params``
         (``optimizer`` is a factory taking an iterable of tensors, e.g.
-        ``functools.partial(torch.optim.SGD, lr=0.1)``), updated in place
-        as the port's ``GPipe.make_train_step`` does.  The optimizer is
-        built at the first call, over that call's ``params`` tensors
-        (``step.optimizer``); later calls must pass the same tree.
+        ``functools.partial(torch.optim.SGD, lr=0.1)``), in place as the
+        port's ``GPipe.make_train_step`` does.  The optimizer is built at
+        the first call by :meth:`zero_opt_state` at ZeRO level ``zero``
+        (None: the pipe's ``zero_update``), over that call's ``params``
+        tensors (``step.optimizer``); later calls must pass the same tree.
         ``donate`` changes nothing here (the update is in place);
-        ``megastep`` above 1 and ``zero`` are ROADMAP.md A.5.4."""
+        ``megastep`` above 1 is ROADMAP.md A.5.4e."""
         K = self.megastep if megastep is None else int(megastep)
         if K != 1:
             raise not_ported("SpmdGPipe.make_train_step(megastep=) (A.5.4e)", "5.4")
-        if zero:
-            raise not_ported("SpmdGPipe.make_train_step(zero=) (A.5.4c)", "5.4")
-
-        def flat(params: dict) -> List[torch.Tensor]:
-            return [a for key, _ in self._layers() for a in _leaves(params[key])]
+        level = self._zero_level(zero)
+        self._zero_check(level)
 
         def step(params: dict, x: Pytree, target: Pytree,
                  rng: Optional[Any] = None) -> torch.Tensor:
-            tensors = flat(params)
+            tensors = self._flat(params)
             if step.optimizer is None:
                 step.tensors = tensors
-                step.optimizer = optimizer(tensors)
+                step.optimizer = self.zero_opt_state(optimizer, params, zero=level)
             elif len(tensors) != len(step.tensors) or any(
                     a is not b for a, b in zip(tensors, step.tensors)):
                 raise ValueError(
                     "this step's optimizer was built over another params tree; "
                     "pass the tree of the first call (updated in place)")
             loss, grads = self.train_step(params, x, target, rng)
-            for t, g in zip(tensors, flat(grads)):
-                t.grad = g
-            step.optimizer.step()
-            for t in tensors:
-                t.grad = None
+            self._zero_apply(step.optimizer, self._flat(grads))
             return loss
 
         step.optimizer = None
@@ -1668,9 +2160,15 @@ class SpmdGPipe:
 
     @torch.no_grad()
     def _forward_outputs(self, params: dict, x_mb: List[Pytree]) -> Optional[List[Any]]:
-        """The no-grad fill-drain forward; the last stage's micro-batch
+        """The no-grad forward (fill-drain, or the interleaved forward
+        tables over the n*v virtual stages); the last stage's micro-batch
         outputs (None elsewhere)."""
         n, j, mesh = self.n_stages, self._stage, self.mesh
+        blocks = self._gather_fsdp(params["blocks"]) if self.fsdp else params["blocks"]
+        if self.virtual_stages > 1:
+            outs = self._forward_interleaved(params, blocks, x_mb)
+            mesh.flush()
+            return outs
         outs = []
         for i in range(self.chunks):
             if j > 0:
@@ -1679,13 +2177,38 @@ class SpmdGPipe:
                 h = self._run_pre(params, x_mb[i], False)
             else:
                 h = x_mb[i]
-            y = self._run_block(params["blocks"], h)
+            y = self._run_block(blocks, h)
             if j < n - 1:
                 mesh.send(y, mesh.rank_of(j + 1, self._lane), _ACT * _TAG + i)
             else:
                 outs.append(y)
         mesh.flush()
         return outs if j == n - 1 else None
+
+    def _forward_interleaved(self, params: dict, blocks: Pytree,
+                             x_mb: List[Pytree]) -> Optional[List[Any]]:
+        """This rank's forward cells of :func:`~torchgpipe_tpu_torch.parallel.interleaved.interleaved_forward_tables`."""
+        from torchgpipe_tpu_torch.parallel.interleaved import FWD, interleaved_forward_tables
+
+        n, v, j = self.n_stages, self.virtual_stages, self._stage
+        tb = interleaved_forward_tables(n, self.chunks, v)
+        outs: Dict[int, torch.Tensor] = {}
+        for t in range(tb.ticks):
+            if int(tb.kind[t, j]) != FWD:
+                continue
+            c, i = int(tb.chunk[t, j]), int(tb.mb[t, j])
+            if j == 0 and c == 0:
+                h = self._run_pre(params, x_mb[i], False) if self.pre is not None else x_mb[i]
+            else:
+                h = self._take(j - 1 if j else n - 1, _ACT, c, i)
+            y = self._run_block(_tree_map(lambda a: a[:, c], blocks), h)
+            if j < n - 1:
+                self._hand(y, j + 1, _ACT, c, i)
+            elif c < v - 1:
+                self._hand(y, 0, _ACT, c + 1, i)
+            else:
+                outs[i] = y
+        return [outs[i] for i in range(self.chunks)] if j == n - 1 else None
 
     @torch.no_grad()
     def apply(self, params: dict, x: Pytree) -> torch.Tensor:

@@ -25,8 +25,7 @@ Usage::
     print(tracer.summary())
     simulate_pipeline(tracer.events, n_stages=len(balance))
 
-Not ported here (ROADMAP.md queue A item 5.6): ``recommend_schedule``
-and the 1F1B, interleaved and zero-bubble projections.
+Not ported here (ROADMAP.md queue A item 5.6): ``recommend_schedule``.
 """
 
 from __future__ import annotations
@@ -36,12 +35,10 @@ import dataclasses
 import json
 import os
 import time
-from typing import Any, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Iterator, List, Optional, Tuple
 
 import torch
 import torch.utils._pytree as pytree
-
-from torchgpipe_tpu_torch.models.transformer import not_ported
 
 
 @dataclasses.dataclass
@@ -168,24 +165,43 @@ def simulate_pipeline(
     schedule: str = "fill_drain",
     virtual_stages: int = 1,
 ) -> Optional[Tuple[float, float, float]]:
-    """Project measured per-cell times (a ``sync=True`` timeline) onto
-    the fill-drain schedule with perfect overlap: per phase,
+    """Project measured per-cell times (a ``sync=True`` timeline) onto a
+    pipeline schedule with perfect overlap.  ``'fill_drain'``: per phase,
     ``finish(i, j) = max(finish(i-1, j), finish(i, j-1)) + t(i, j)``,
-    forward and backward separated by the loss barrier.  Cells observed
-    over several steps are averaged into one step; barrier spans
-    (negative micro-batch or stage) are left out.  Returns
+    forward and backward separated by the loss barrier.  ``'1f1b'``: each
+    stage runs its PipeDream-flush order (``pipeline.one_f1b_orders``), an
+    op starting when its stage is free and its producer finished (fwd
+    needs the upstream fwd; bwd the downstream bwd, or the same cell's fwd
+    on the last stage).  ``'interleaved'``: the measured stages are read
+    as the ``n_stages`` GLOBAL blocks of a virtual-stage layout, block
+    ``g`` on device ``g % (n_stages // v)`` as chunk ``g // (n_stages //
+    v)``, each device running its table order
+    (:mod:`~torchgpipe_tpu_torch.parallel.interleaved`): "what would this
+    measured run cost interleaved on n/v devices?".  ``'zb'``: the
+    measured fused backward split into equal B and W halves (the
+    dense-layer FLOP model: state it when quoting), scheduled by the
+    zero-bubble order (:mod:`~torchgpipe_tpu_torch.parallel.zerobubble`).
+    Cells observed over several steps are averaged into one step; barrier
+    spans (negative micro-batch or stage) are left out.  Returns
     ``(makespan_seconds, busy_fraction, bubble_fraction)``, or None
-    without cells; compare the bubble with the analytic
+    without cells; compare the fill-drain bubble with the analytic
     ``(n - 1) / (m + n - 1)`` of uniform cells: the gap is stage
     imbalance."""
     if schedule not in ("fill_drain", "1f1b", "interleaved", "zb"):
         raise ValueError(
             "schedule must be 'fill_drain', '1f1b', 'interleaved' or 'zb'"
         )
-    if schedule != "fill_drain" or virtual_stages != 1:
-        raise not_ported(
-            f"simulate_pipeline(schedule={schedule!r}, virtual_stages="
-            f"{virtual_stages}) (the schedule projections)", "5.6")
+    if schedule == "interleaved":
+        if virtual_stages < 2:
+            raise ValueError("interleaved projection needs virtual_stages >= 2")
+        if n_stages % virtual_stages != 0:
+            raise ValueError(
+                f"n_stages ({n_stages}) must divide by virtual_stages "
+                f"({virtual_stages}): measured stages become the global "
+                "blocks of the virtual layout"
+            )
+    elif virtual_stages != 1:
+        raise ValueError("virtual_stages only applies to 'interleaved'")
     events = [e for e in events if e.mbatch >= 0 and e.stage >= 0]
     if not events:
         return None
@@ -198,22 +214,152 @@ def simulate_pipeline(
     by_phase: dict = {}
     for (name, i, j), total in sums.items():
         by_phase.setdefault(name, {})[(i, j)] = total / counts[(name, i, j)]
-    makespan = 0.0
-    for cells in by_phase.values():
-        m = 1 + max(i for i, _ in cells)
-        n = 1 + max(j for _, j in cells)
-        finish = [[0.0] * n for _ in range(m)]
-        for i in range(m):
-            for j in range(n):
-                prev = max(finish[i - 1][j] if i else 0.0,
-                           finish[i][j - 1] if j else 0.0)
-                finish[i][j] = prev + cells.get((i, j), 0.0)
-        makespan += finish[m - 1][n - 1]
-    if makespan <= 0:
+    if schedule == "1f1b":
+        makespan = _simulate_1f1b(by_phase, n_stages)
+    elif schedule == "interleaved":
+        makespan = _simulate_interleaved(by_phase, n_stages, virtual_stages)
+    elif schedule == "zb":
+        makespan = _simulate_zb(by_phase, n_stages)
+    else:
+        makespan = 0.0
+        for cells in by_phase.values():
+            m = 1 + max(i for i, _ in cells)
+            n = 1 + max(j for _, j in cells)
+            finish = [[0.0] * n for _ in range(m)]
+            for i in range(m):
+                for j in range(n):
+                    prev = max(finish[i - 1][j] if i else 0.0,
+                               finish[i][j - 1] if j else 0.0)
+                    finish[i][j] = prev + cells.get((i, j), 0.0)
+            makespan += finish[m - 1][n - 1]
+    if makespan is None or makespan <= 0:
         return None
+    # busy/bubble are per EXECUTION UNIT: devices (n/v of the measured
+    # global blocks) for the interleaved projection, stages otherwise.
+    units = n_stages // virtual_stages if schedule == "interleaved" else n_stages
     busy = sum(c for cells in by_phase.values() for c in cells.values()) / (
-        n_stages * makespan)
+        units * makespan)
     return makespan, busy, 1.0 - busy
+
+
+def _list_schedule(orders: Any, dep_fn: Callable, time_fn: Callable) -> Optional[float]:
+    """The projections' dependency-driven list scheduler: each unit runs
+    its ``orders`` row in order, an op starting when its unit is free and
+    ``dep_fn(op, j)`` (or None) has finished; ``time_fn(op, j)`` prices
+    the op.  The makespan, or None on a deadlock."""
+    n = len(orders)
+    done: dict = {}
+    pos = [0] * n
+    unit_free = [0.0] * n
+    total = sum(len(o) for o in orders)
+    scheduled = 0
+    while scheduled < total:
+        progressed = False
+        for j in range(n):
+            while pos[j] < len(orders[j]):
+                op = orders[j][pos[j]]
+                dep = dep_fn(op, j)
+                if dep is not None and dep not in done:
+                    break
+                start = max(unit_free[j], done[dep] if dep is not None else 0.0)
+                finish = start + time_fn(op, j)
+                done[op + (j,)] = finish
+                unit_free[j] = finish
+                pos[j] += 1
+                scheduled += 1
+                progressed = True
+        if not progressed:
+            return None
+    return max(unit_free)
+
+
+def _simulate_interleaved(by_phase: dict, n_blocks: int, v: int) -> Optional[float]:
+    """Completion times of the interleaved op order: measured cell ``(i,
+    g)`` is micro-batch ``i`` on global block ``g = c*n + dev`` (n =
+    n_blocks // v devices); fwd g needs fwd g-1, bwd g needs bwd g+1, the
+    last block's bwd its own fwd."""
+    from torchgpipe_tpu_torch.parallel.interleaved import (
+        BWD, FWD, _cell_sequence, _producer)
+
+    fwd = by_phase.get("fwd", {})
+    bwd = by_phase.get("bwd", {})
+    if not fwd:
+        return None
+    n = n_blocks // v
+    m = 1 + max(i for i, _ in fwd)
+    if m % n != 0:
+        raise ValueError(
+            f"interleaved projection needs the measured micro-batch count "
+            f"({m}) divisible by the device count n_stages//virtual_stages "
+            f"({n})"
+        )
+    orders = [_cell_sequence(n, m, v, j) for j in range(n)]
+
+    def dep_fn(op, j):
+        kind, c, i = op
+        dep = _producer(n, v, kind, c, i, j)
+        if dep is None and kind == BWD:
+            return (FWD, c, i, j)   # the loss seed: its own forward
+        return dep
+
+    def time_fn(op, j):
+        kind, c, i = op
+        return (fwd if kind == FWD else bwd).get((i, c * n + j), 0.0)
+
+    return _list_schedule(orders, dep_fn, time_fn)
+
+
+def _simulate_zb(by_phase: dict, n: int) -> Optional[float]:
+    """Zero-bubble projection: each measured backward split into a B and
+    a W half of equal time, in the zero-bubble op order."""
+    from torchgpipe_tpu_torch.parallel.zerobubble import B, F, _dep, _zb_sequence
+
+    fwd = by_phase.get("fwd", {})
+    bwd = by_phase.get("bwd", {})
+    if not fwd:
+        return None
+    m = 1 + max(i for i, _ in fwd)
+    orders = [_zb_sequence(n, m, j) for j in range(n)]
+
+    def dep_fn(op, j):
+        kind, i = op
+        dep = _dep(n, kind, i, j)
+        if dep is not None:
+            return dep
+        if kind == B and j == n - 1:
+            return (F, i, j)   # the loss seed: its own forward
+        if kind not in (F, B):
+            return (B, i, j)   # W after its own B
+        return None
+
+    def time_fn(op, j):
+        kind, i = op
+        return fwd.get((i, j), 0.0) if kind == F else bwd.get((i, j), 0.0) / 2.0
+
+    return _list_schedule(orders, dep_fn, time_fn)
+
+
+def _simulate_1f1b(by_phase: dict, n: int) -> Optional[float]:
+    """Completion times of the PipeDream-flush order."""
+    from torchgpipe_tpu_torch.pipeline import one_f1b_orders
+
+    fwd = by_phase.get("fwd", {})
+    bwd = by_phase.get("bwd", {})
+    if not fwd:
+        return None
+    m = 1 + max(i for i, _ in fwd)
+
+    def dep_fn(op, j):
+        kind, i = op
+        if kind == "fwd":
+            return ("fwd", i, j - 1) if j > 0 else None
+        return ("bwd", i, j + 1) if j < n - 1 else ("fwd", i, j)
+
+    def time_fn(op, j):
+        kind, i = op
+        return (fwd if kind == "fwd" else bwd).get((i, j), 0.0)
+
+    return _list_schedule(one_f1b_orders(m, n), dep_fn, time_fn)
 
 
 __all__ = ["Timeline", "TimelineEvent", "device_trace", "simulate_pipeline"]
