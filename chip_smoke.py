@@ -69,11 +69,16 @@ they need) and prints no kernels line; by default every phase runs:
    against the plain versions (backward bitwise on a second call, device
    pos0 bitwise), timed at the f16 path's and phase 25's shapes and at
    bf16 s=4096 d=256 beside SDPA (the d=256 kernels beside the simt ones
-   they replace); then a float16 Llama at Llama-3-8B's widths, 2 blocks, takes the
+   they replace); head dims 384 and 512 (the reference's multiples of
+   128 above 256: flash_simt.cu at sixteen lanes a row) in bf16 and f32,
+   their decode over bf16 and int8 caches with 300-511 live keys, against
+   the plain versions, timed at bf16 b=1 s=512 h=8 g=4 beside SDPA and
+   their bounds (the kernels line's ``head_dims_384_512``); then a float16 Llama at Llama-3-8B's widths, 2 blocks, takes the
    same step (its loss beside a bf16 step at the same weights, a sanity
    bound) and ``generate``, launches gated on the f16 instantiations.
 6. slice: greedy ``generate`` at Llama-3-8B width (random weights from a
-   seed, 32 layers, batch 4, prompt 1024, 128 new tokens), with the
+   seed, 16 of its 32 layers: GEN_BLOCKS, batch 4, prompt 1024, 128 new
+   tokens), with the
    kernels' launch counts read around that one call, prefill logits of
    the kernel path against the plain path, and the generated tokens
    against a teacher-forced full forward.
@@ -275,9 +280,16 @@ they need) and prints no kernels line; by default every phase runs:
    version's tokens and a teacher-forced forward.  Each rank's launches
    (the d=256 tensor-core forward, dQ and dK/dV; a profile of 25a's step
    2 shows the same CUDA functions, none of flash_simt.cu's), step ms,
-   bytes staged through the host and peak memory; a ``{"spmd": ...}``
-   line.  (25b, 1F1B against fill-drain at pp=2 x dp=2, runs in phase
-   27's world.)
+   bytes staged through the host and peak memory.  Then, on each rank
+   from 25a's trained params: 25d, ``make_train_step(megastep=2)`` (SGD
+   with momentum) over two stacked batches bitwise against
+   ``resilience.StepGuard`` around two single steps (losses, params,
+   momentum), and a guarded step under ``faults.inject(nan_at=(1, 0))``
+   skipped with params and momentum bitwise as before; 25e, one
+   ``checkpoint='offload'`` step bitwise a ``'never'`` step (both peaks
+   and the offloaded bytes printed); each call's launches exact.  A
+   ``{"spmd": ...}`` line.  (25b, 1F1B against fill-drain at pp=2 x dp=2,
+   runs in phase 27's world.)
 26. spmd_tp_sp: tensor and sequence parallelism in ``SpmdGPipe`` at
    Llama-3-8B's published widths in bf16, 2 blocks, one a stage, batch 2
    x seq 4096: one world of four rank processes over gloo on this card
@@ -311,6 +323,19 @@ they need) and prints no kernels line; by default every phase runs:
    bytes and peak at each ZeRO level, and ``simulate_pipeline``'s
    projections of the measured cells for the four schedules; a
    ``{"spmd_zero_sched": ...}`` line.
+28. spmd_moe_ep: expert parallelism in ``SpmdGPipe`` at phase 22's
+   Mixtral-8x7B widths in bf16 (8 experts, top-2, balance weight 0.02), 2
+   blocks, one a stage, batch 8 x 1024 in 4 micro-batches,
+   'except_last', dispatch 'sparse' at capacity factor E/k (no token
+   drops): one world of four rank processes, pp=2 x ep=2 over gloo on
+   this card (``--spmd-case e``), each rank 4 of the 8 experts.  Step
+   1's loss and every gradient shard against a sequential oracle run here
+   first (the unsharded model, ``ep_axis=None``, row by row in the lanes'
+   order; its gradients written for the ranks, each reading its shard),
+   two SGD steps with the loss lower after them, ``router_stats`` on each
+   lane, each rank's launches exact; each rank's step ms, bytes staged
+   through the host by kind (``ep``: the experts' all-to-alls;
+   ``grads``), peak memory; a ``{"spmd_moe_ep": ...}`` line.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after.  Then one JSON line per kernel (time, launches, bound, plain and
@@ -319,8 +344,8 @@ counts one generate call for the forward
 and decode kernels, one ``generate(kv_quant=True)`` call for the int8
 decode variant, one training step for the backward kernels, phase 5b's
 float32 step for the 3xTF32 forward and backward, phase 25's rank step
-for the wide route's (the d=256 forward and dQ, flash_simt's dK/dV), and
-0 for flash_simt's other kernels, which no path reaches; every path's
+for the wide route's (the d=256 forward, dQ and dK/dV), and 0 for
+flash_simt's kernels, which no path reaches; every path's
 counts are in
 ``launches_by_path``, flash_simt's and the 3xTF32 kernels' 0 on every
 bf16 path at head dims 64 and 128), the card line,
@@ -529,6 +554,21 @@ def sass_check(build):
         f"{f} x{len(c)} (fewest per instantiation: "
         f"{ {op: min(x[op] for x in c if op in x) for op in c[0]} })"
         for f, c in seen.items()), flush=True)
+
+
+# What the wide simt kernels take (the kernels line's ``takes``).
+WIDE_TAKES = "head dims 129-255, 384 and 512 in bf16 and f16; 129-256, 384 and 512 in f32"
+
+
+def smem_simt(which, d):
+    """flash_simt.cu's dynamic shared memory per block (``which``: 0
+    forward, 1 dQ, 2 dK/dV) at head dim ``d``."""
+    import ctypes
+
+    from torchgpipe_tpu_torch.ops import _build
+
+    return _build.function("flash_simt", "tgt_flash_simt_smem_bytes", [ctypes.c_int] * 2)(
+        which, d)
 
 
 def smem_dynamic(build):
@@ -922,7 +962,7 @@ def phase_decode(torch, tfa, tg, card):
 
     # Timing at the main path's shape: g=1 at live length 1088 (the middle
     # of the decode run's 1025..1152), cycling four caches (76 MB of bf16 >
-    # the 50 MB L2) as the 32 layers' caches cycle in the real loop; and at
+    # the 50 MB L2) as the layers' caches cycle in the real loop; and at
     # a long cache (live 32704 of 32768: 537 MB of bf16, past L2 alone).
     b, nh, nkv, hd = llama
     timing = {}
@@ -1187,6 +1227,12 @@ def phase_bwd(torch, tfa, card):
 
 LLAMA3_8B = dict(vocab=128256, dim=4096, n_layers=32, n_heads=32, n_kv_heads=8,
                  mlp_ratio=5.25)
+# The generation model of phases 6-9b and 24 (generate, the int8 cache,
+# speculative decoding's target, beam search, the profile, the Engine, int8
+# weights, the fleet): Llama-3-8B's widths cut to 16 of its 32 blocks, to
+# keep the whole run inside its time as the SPMD phases grow (all 32 until
+# PR 20; their numbers in PERF.md are at 32).
+GEN_BLOCKS = 16
 # benchmarks/llama_speed.py preset "1b": the speculative phase's draft.
 LLAMA_1B = dict(vocab=128256, dim=2048, n_layers=16, n_heads=32, n_kv_heads=8,
                 mlp_ratio=6.0)
@@ -1313,7 +1359,7 @@ def llama_cfg(tt, torch, preset):
 
 def phase_slice(torch, tfa, tt, tg, card, seed: int, new_tokens: int = 128,
                 reps: int = 3):
-    cfg = llama_cfg(tt, torch, LLAMA3_8B)
+    cfg = llama_cfg(tt, torch, dict(LLAMA3_8B, n_layers=GEN_BLOCKS))
     b, s = 4, 1024
     gen = torch.Generator(device="cuda").manual_seed(seed)
     t0 = time.perf_counter()
@@ -1587,7 +1633,7 @@ def phase_profile(torch, tg, card, cfg, model, prompt, steps: int = 16) -> None:
 
 # Phase 9: the serving Engine on phase 6's model.  ``Engine(cfg, model,
 # num_slots=8, max_len=1152, prefill_chunk=(8, 64, 256))``, greedy: a bf16
-# pool of 32 layers x K and V x [8, 1152, 8, 128] = 1.21 GB.
+# pool of GEN_BLOCKS (16) layers x K and V x [8, 1152, 8, 128] = 0.60 GB.
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_LADDER = 8, 1152, (8, 64, 256)
 SERVE_STATS = {"prefill@8": 1, "prefill@64": 1, "prefill@256": 1, "decode": 1}
 
@@ -4389,7 +4435,11 @@ def phase_simt(torch, tfa, tt, tg, card, seed: int):
 # micro-batch and generate; phase 25's Gemma-7B-width micro-batch and
 # generate) and at edges; gemma_long (half of Gemma's 8192 context) is a
 # timing shape; bf16_d192 holds and times the 16-bit flash_simt.cu forward,
-# dQ and dK/dV, which take bf16 and f16 head dims 129-255.  Tolerances:
+# dQ and dK/dV, which take bf16 and f16 head dims 129-255; the *_d384 and
+# *_d512 rows hold and time flash_simt.cu at the reference's multiples of
+# 128 above 256 (sixteen lanes a row, 16-key dQ and 16-query dK/dV
+# tiles), bf16 and f32, and their decode over bf16 and int8 caches with
+# live lengths of 300 to 511.  Tolerances:
 # float16 rounds where bf16 does at 2^-11 instead of 2^-8, so FWD_TOL, BWD_ROW_TOL/BWD_FLOOR (derived for bf16
 # above) hold with room; the d=256 tensor-core kernels round P and dS as
 # the d=128 ones do (the derivations above hold at any head dim; dK/dV's
@@ -4404,7 +4454,14 @@ WIDE_CASES = [("f16_train_microbatch", "f16", 2, 32, 8, 1024, 128, None, True, "
               ("f16_d256_window", "f16", 1, 8, 4, 333, 256, 64, True, "wide"),
               ("gemma_long", "bf16", 1, 16, 16, 4096, 256, None, True, "wide"),
               ("bf16_d192", "bf16", 2, 16, 8, 512, 192, None, True, "wide"),
-              ("f32_d160_nocausal", "f32", 1, 8, 2, 200, 160, None, False, "wide")]
+              ("f32_d160_nocausal", "f32", 1, 8, 2, 200, 160, None, False, "wide"),
+              ("bf16_d384", "bf16", 1, 8, 4, 512, 384, None, True, "wide"),
+              ("f32_d384_window", "f32", 1, 4, 2, 300, 384, 64, True, "wide"),
+              ("bf16_d512", "bf16", 1, 8, 4, 512, 512, None, True, "wide"),
+              ("f32_d512", "f32", 1, 4, 2, 257, 512, None, False, "wide")]
+# The rows timed beside their bounds, plain versions and SDPA.
+WIDE_TIMED = ("f16_train_microbatch", "gemma_microbatch", "gemma_long", "bf16_d192",
+              "bf16_d384", "bf16_d512")
 # (name, kind, b, g, nh, nkv, hd, pos0, window, max_len, route)
 WIDE_DECODE = [("f16_generate", "f16", 4, 1, 32, 8, 128, 527, None, 544, "kernel"),
                ("f16_int8", "f16int8", 2, 5, 8, 4, 64, 300, 64, 517, "kernel"),
@@ -4412,14 +4469,18 @@ WIDE_DECODE = [("f16_generate", "f16", 4, 1, 32, 8, 128, 527, None, 544, "kernel
                ("f16_d256", "f16", 2, 2, 8, 2, 256, 1000, 9, 1152, "wide"),
                ("int8_d256", "int8", 2, 1, 8, 8, 256, 500, None, 517, "wide"),
                ("gemma_long_cache", "bf16", 1, 1, 16, 16, 256, 4095, None, 4160, "wide"),
-               ("bf16_d192_generate", "bf16", 2, 1, 16, 8, 192, 135, None, 144, "wide")]
+               ("bf16_d192_generate", "bf16", 2, 1, 16, 8, 192, 135, None, 144, "wide"),
+               ("bf16_d384_generate", "bf16", 1, 1, 8, 4, 384, 299, None, 320, "wide"),
+               ("int8_d384", "int8", 1, 3, 8, 4, 384, 300, 64, 517, "wide"),
+               ("bf16_d512_generate", "bf16", 1, 1, 8, 4, 512, 299, None, 320, "wide"),
+               ("int8_d512", "int8", 1, 1, 8, 2, 512, 510, None, 512, "wide")]
 # The decode rows timed: the f16 generate's, 25c's (gemma_generate, on the
 # d=256 tiles of flash_decode.cu, beside flash_simt.cu's decode it
 # replaced), a long live cache at Gemma's width (4096 of its 8192
 # positions: the share of the bytes bound) and a d=192 cache (flash_simt.cu,
 # which keeps head dims 129-255).
 WIDE_DECODE_TIMED = ("f16_generate", "gemma_generate", "gemma_long_cache",
-                     "bf16_d192_generate")
+                     "bf16_d192_generate", "bf16_d384_generate", "bf16_d512_generate")
 HALF = {"f16": "float16", "bf16": "bfloat16", "f32": "float32"}
 
 
@@ -4482,7 +4543,7 @@ def wide_f16_kernels(torch, tfa, tg, card):
               f"window={window} causal={causal} fwd max_abs_err={err:.3e} (tol {tol}) "
               f"dq/dk/dv worst row err/tol {[round(x, 4) for x in ratios]}; backward "
               f"bitwise equal on a second call [{card}]", flush=True)
-        if name not in ("f16_train_microbatch", "gemma_microbatch", "gemma_long", "bf16_d192"):
+        if name not in WIDE_TIMED:
             continue
         calls = {"fwd": lambda: fwd(q, k, v, causal, scale, window),
                  "dq": lambda: dqf(q, k, v, do, lse, delta, **bkw),
@@ -5601,6 +5662,8 @@ SPMD_PROFILE = {"flash_fwd_d256": "flash_fwd_kernel<256", "flash_bwd_dq_d256":
 # max.  25c: the decode's tokens against the plain version's on the card
 # by the teacher-forced check (TF_AGREE, TF_GAP), as phase 6's.
 SPMD_LOSS_REL, SPMD_GRAD_REL = 2 ** -6, 2 ** -4
+# 25e's 'never' and 'offload' steps: no recompute.
+SPMD_NEVER_LAUNCHES = {k: SPMD_CHUNKS for k in SPMD_LAUNCHES}
 
 
 class _Stand:
@@ -5648,8 +5711,9 @@ def spmd_free_templates(pipe):
 
 
 def spmd_rank_main(args) -> None:
-    """One rank of phase 25 (case ``a``) or 27 (case ``z``,
-    :func:`zero_sched_rank`), started by the parent as its own process
+    """One rank of phase 25 (case ``a``), 27 (case ``z``,
+    :func:`zero_sched_rank`) or 28 (case ``e``, :func:`moe_ep_rank`),
+    started by the parent as its own process
     over gloo on this card.  Case ``a``: pp=2, dp=1, fill-drain, tied;
     step 1 by ``train_step`` (its gathered gradients written for the
     parent's oracle), step 2 by ``make_train_step``; the gathered trained
@@ -5668,6 +5732,9 @@ def spmd_rank_main(args) -> None:
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{args.spmd_port}",
                             rank=rank, world_size=world)
     try:
+        if case == "e":
+            moe_ep_rank(torch, tfa, tt, spmd, spmd.make_mesh(2, 1, ep=2), args.seed, out)
+            return
         dp = world // 2
         mesh = spmd.make_mesh(2, dp)
         if case == "z":
@@ -5724,10 +5791,80 @@ def spmd_rank_main(args) -> None:
         if rank == 0:
             torch.save(grads, os.path.join(out, "grads_a.pt"))
             torch.save(trained, os.path.join(out, "params_a.pt"))
+        del trained, grads, step
+        knobs_rank(torch, tfa, tt, spmd, mesh, pipe, params, tokens, args.seed, report, timed)
         with open(os.path.join(out, f"{case}_rank{rank}.json"), "w") as f:
             json.dump(report, f)
     finally:
         dist.destroy_process_group()
+
+
+def knobs_rank(torch, tfa, tt, spmd, mesh, pipe, params, tokens, seed, report, timed):
+    """25d and 25e on one rank of phase 25's pp=2 world, from 25a's
+    trained params (copies: 25c generates from the originals).  25d:
+    ``make_train_step(megastep=2)`` (SGD with momentum, so there is
+    optimizer state) over two stacked batches against StepGuard around two
+    single steps, bitwise (losses, params, momentum); then a guarded step
+    under ``faults.inject(nan_at=(1, 0))`` (stage 1's first cell
+    poisoned): skipped, params and momentum bitwise as before.  25e: one
+    ``checkpoint='offload'`` step against a ``'never'`` step: loss and
+    every gradient bitwise, both peaks."""
+    import functools
+
+    import numpy as np
+
+    from torchgpipe_tpu_torch.resilience import StepGuard, faults
+
+    def clone(tree):
+        return {k: spmd._tree_map(lambda a: a.detach().clone(), v) for k, v in tree.items()}
+
+    def flat(tree):
+        return [a for k in ("pre", "blocks", "post") for _, a in spmd._items(tree[k])]
+
+    def state(step):
+        return [v for st in step.optimizer.state.values() for v in st.values()
+                if isinstance(v, torch.Tensor)]
+
+    def same(a, b):
+        return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+    t0 = time.perf_counter()
+    sgd = functools.partial(torch.optim.SGD, lr=SPMD_LR, momentum=0.9)
+    second = torch.from_numpy(np.random.default_rng(seed + 250).integers(
+        0, GEMMA_7B["vocab"], tokens.shape))
+    xs = torch.stack([tokens, second])
+    pa, pb = clone(params), clone(params)
+    mega = pipe.make_train_step(sgd, megastep=2)
+    losses, finite = timed(lambda: mega(pa, xs, xs))
+    single = pipe.make_train_step(sgd)
+    guard = StepGuard(single)
+    singles = torch.stack([timed(lambda k=k: guard(pb, xs[k], xs[k])) for k in range(2)])
+    report["25d"] = {"bitwise": bool(torch.equal(losses, singles) and same(flat(pa), flat(pb))
+                                     and same(state(mega), state(single))),
+                     "finite": finite.tolist(), "losses": losses.tolist()}
+    del pa
+    before = [t.clone() for t in flat(pb) + state(single)]
+    with faults.inject(nan_at=(1, 0)):
+        bad = timed(lambda: guard(pb, tokens, tokens))
+    report["25d"].update(
+        poisoned_loss=bad.item(), skipped=guard.stats.skipped, steps=guard.stats.steps,
+        skip_bitwise=bool(same(flat(pb) + state(single), before)))
+    del pb, before, mega, single, guard
+    gc.collect()
+    torch.cuda.empty_cache()
+    got = {}
+    for mode in ("never", "offload"):
+        _, e = spmd_engine(torch, tt, spmd, mesh, True, "fill_drain", None, "meta",
+                           checkpoint=mode)
+        loss, g = timed(lambda: e.train_step(params, tokens, tokens))
+        got[mode] = (loss, flat(g))
+        if mode == "offload":
+            report["25e_offload_stats"] = dict(e.offload_stats)
+    report["25e"] = {"bitwise": bool(torch.equal(got["never"][0], got["offload"][0])
+                                     and same(got["never"][1], got["offload"][1])),
+                     "loss": got["never"][0].item()}
+    report["25de_s"] = time.perf_counter() - t0
+    del got
 
 
 def spmd_rel_diff(torch, got, want, chunk: int = 1 << 24) -> float:
@@ -5881,6 +6018,22 @@ def phase_spmd(torch, tfa, tt, tg, card, seed: int):
                  f"of {SPMD_PROFILE}, expected {want}")
     if not all(math.isfinite(x) for rep in ra for x in rep["losses"]):
         fail(f"spmd: non-finite losses {[rep['losses'] for rep in ra]}")
+    # 25d and 25e: the timed steps after 25a's two (timed() appends each).
+    for rep in ra:
+        d, r = rep["25d"], rep["rank"]
+        if not (d["bitwise"] and d["finite"] == [True, True]):
+            fail(f"spmd 25d rank {r}: make_train_step(megastep=2) against two guarded "
+                 f"steps: bitwise {d['bitwise']}, finite {d['finite']}")
+        if not (d["skip_bitwise"] and d["skipped"] == 1 and d["steps"] == 2
+                and not math.isfinite(d["poisoned_loss"])):
+            fail(f"spmd 25d rank {r}: the poisoned guarded step: {d}")
+        if not rep["25e"]["bitwise"]:
+            fail(f"spmd 25e rank {r}: the 'offload' step is not bitwise the 'never' step")
+        knob_launches = rep["launches"][2:]
+        want = ([{k: 2 * v for k, v in SPMD_LAUNCHES.items()}]
+                + [SPMD_LAUNCHES] * 3 + [SPMD_NEVER_LAUNCHES] * 2)
+        for k, (got, w) in enumerate(zip(knob_launches, want)):
+            expect_launches(got, w, f"25d/25e rank {r}, timed call {k}")
     # 25c: generate from 25a's trained params on the card.
     cfg = tt.TransformerConfig(**GEMMA_7B, dtype=torch.bfloat16)
     _, pipe = spmd_engine(torch, tt, spmd, _Stand(2, 1, torch.device("cuda")), True,
@@ -5910,9 +6063,9 @@ def phase_spmd(torch, tfa, tt, tg, card, seed: int):
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    step = {f"a{r['rank']}": r["step_ms"] for r in ra}
-    staged = {f"a{r['rank']}": r["staged_bytes"] for r in ra}
-    peak = {f"a{r['rank']}": r["peak_gib"] for r in ra}
+    step = {f"a{r['rank']}": r["step_ms"][:2] for r in ra}
+    staged = {f"a{r['rank']}": r["staged_bytes"][:2] for r in ra}
+    peak = {f"a{r['rank']}": r["peak_gib"][:2] for r in ra}
     print(f"spmd 25a: Gemma-7B width (dim 3072, 16 heads of 256, ffn 24576, vocab 256000, "
           f"tied, gelu_tanh), bf16, 2 blocks; batch {SPMD_BATCH} x seq {SPMD_SEQ}, chunks "
           f"{SPMD_CHUNKS}, except_last, fill-drain, pp=2 over gloo (2 processes on this "
@@ -5926,6 +6079,15 @@ def phase_spmd(torch, tfa, tt, tg, card, seed: int):
           f"(spmd_params_for_generation): {gen_ms:.1f} ms, launches {gen_launches}; tokens "
           f"equal to the plain version's {same:.3f}; teacher_forced_agree {agree:.4f} "
           f"max_gap {gap:.4f} [{card}]", flush=True)
+    d0 = ra[0]["25d"]
+    print(f"spmd 25d: make_train_step(megastep=2) (SGD momentum 0.9) bitwise two StepGuard "
+          f"steps on every rank, losses {d0['losses']}; a step under faults.inject(nan_at="
+          f"(1, 0)) gave loss {d0['poisoned_loss']} and was skipped with params and momentum "
+          f"bitwise; 25e: checkpoint='offload' bitwise 'never' on every rank, offload stats "
+          f"by rank {[r['25e_offload_stats'] for r in ra]}; step ms by rank (megastep, 2 "
+          f"guarded, poisoned, never, offload) {[r['step_ms'][2:] for r in ra]}, peak GiB "
+          f"{[r['peak_gib'][2:] for r in ra]}; 25d-e took "
+          f"{[round(r['25de_s'], 1) for r in ra]} s [{card}]", flush=True)
     print(f"spmd: step_ms by rank {step}; bytes staged through the host a step {staged}; "
           f"peak GiB {peak}; the oracle's step {ref_ms:.1f} ms; ranks ran 25a in "
           f"{a_s:.1f}s, started in {max(r['ready_s'] for r in ra):.1f}s; the phase "
@@ -5937,7 +6099,10 @@ def phase_spmd(torch, tfa, tt, tg, card, seed: int):
               "generate_ms": gen_ms, "tokens_equal_plain": same,
               "teacher_forced_agree": agree, "max_gap": gap, "step_ms": step,
               "staged_bytes": staged, "peak_gib": peak, "oracle_ms": ref_ms,
-              "ranks_s": {"a": a_s}}
+              "ranks_s": {"a": a_s},
+              "knobs": {f"a{r['rank']}": {"25d": r["25d"], "25e": r["25e"],
+                                          "offload_stats": r["25e_offload_stats"],
+                                          "seconds": r["25de_s"]} for r in ra}}
     print(json.dumps({"spmd": result}), flush=True)
     return result
 
@@ -6447,6 +6612,7 @@ def zero_sched_rank(torch, tfa, tt, spmd, mesh, seed: int, path: str) -> None:
 
     def save():
         rep["s"] = time.perf_counter() - t_start
+        rep.setdefault("parts_s", []).append(round(rep["s"], 1))   # at each part's end
         with open(path, "w") as f:
             json.dump(rep, f)
 
@@ -6680,7 +6846,8 @@ def phase_zero_sched(torch, card, seed: int):
     print(f"spmd_zero_sched: simulate_pipeline (makespan s, busy, bubble) of the 1F1B "
           f"step's cells on 2 stages and the interleaved step's as 4 global blocks (zb: B "
           f"and W halves of each measured backward) {proj}; the world {world_s:.1f}s, "
-          f"started in {max(rep['ready_s'] for rep in reps):.1f}s, this process holding "
+          f"started in {max(rep['ready_s'] for rep in reps):.1f}s (rank 0's seconds at the "
+          f"end of 25b/27d, 27a, 27b, 27c: {reps[0]['parts_s']}), this process holding "
           f"{parent_gib:.2f} GiB; the phase {time.perf_counter() - t_phase:.1f}s [{card}]",
           flush=True)
     result = {"card": card, "step_ms": step, "staged_bytes": staged, "peak_gib": peak,
@@ -6695,6 +6862,275 @@ def phase_zero_sched(torch, card, seed: int):
     return result
 
 
+# --------------------------------------------------------------------- #
+# phase 28: expert parallelism in the SPMD engine                        #
+# --------------------------------------------------------------------- #
+
+# Phase 22's Mixtral-8x7B widths (MIXTRAL: dim 4096, 32/8 heads, hidden
+# 14336, vocab 32000; 8 experts, top-2, balance weight 0.02) in bf16, 2
+# of its 32 blocks, one a stage; batch 8 x seq 1024 in 4 micro-batches,
+# 'except_last', fill-drain.  One world of four rank processes over gloo
+# on this card, pp=2 x ep=2: each rank holds its stage's block with 4 of
+# the 8 experts (3 x 4096 x 14336 bf16 a expert: 1.41 GB a rank) and one
+# row of each micro-batch.  Dispatch 'sparse' at capacity factor E/k = 4
+# (capacity = the lane's tokens: no token drops): Mixtral's own
+# 'dropless' takes no ep axis (its ragged segments have data-dependent
+# sizes; the reference refuses it), and phase 22 holds 'sparse' at E/k
+# to 'dropless'.
+EP_MOE = dict(MIXTRAL_MOE, dispatch="sparse", capacity_factor=8 / 2, ep_axis="ep")
+EP_WORLD, EP_DEADLINE_S = 4, 360
+# A rank's launches a step, written before the phase first ran: its one
+# block under 'except_last' at MIXTRAL_CHUNKS micro-batches, head dim 128
+# on the bf16 tensor-core kernels: 4 forwards and 3 recomputes, 4 dQ and
+# 4 dK/dV; eval_loss 4 forwards.  The oracle (below) runs each of the 8
+# rows through both blocks without checkpoints: 16 of each.
+EP_LAUNCHES = {"flash_fwd": 2 * MIXTRAL_CHUNKS - 1, "flash_bwd_dq": MIXTRAL_CHUNKS,
+               "flash_bwd_dkv": MIXTRAL_CHUNKS}
+EP_EVAL_LAUNCHES = {"flash_fwd": MIXTRAL_CHUNKS}
+EP_ORACLE_LAUNCHES = {k: 2 * MIXTRAL_BATCH for k in EP_LAUNCHES}
+# The oracle runs the unsharded model (ep_axis None, the same dispatch)
+# row by row in the order the lanes hold the rows, so each row's routing,
+# capacity and products are the lane's.  The loss: phase 22's 1e-6
+# relative (the float32 mean over the same bf16 logits in another order).
+# The gradients cannot keep phase 22's 2^-7 of a leaf's max (there the
+# two steps sum the same micro-batches' bf16 gradients in the same
+# order): a rank sums its 4 rows' bf16 gradients (3 roundings of the
+# running sum, each up to 2^-9 of it) and then the 2 ep lanes' (1 more),
+# the oracle its 8 rows' (7): up to 11 x 2^-9 = 2.1% of max |g| apart,
+# so EP_GRAD_REL = 2^-5 (3.1%; measured at first 1.36%).
+EP_LOSS_REL, EP_GRAD_REL = 1e-6, 2 ** -5
+
+
+def moe_ep_engine(torch, tt, spmd, mesh, device: str, ep: bool = True):
+    """Phase 28's engine: ``llama_moe_spmd`` at MIXTRAL widths on
+    ``device`` ("meta": a template that draws nothing)."""
+    from torchgpipe_tpu_torch.models import moe as tm
+
+    cfg = tt.TransformerConfig(**MIXTRAL, dtype=torch.bfloat16)
+    moe = tm.MoEConfig(**dict(EP_MOE, ep_axis="ep" if ep else None))
+    block, pre, post = tm.llama_moe_spmd(cfg, moe, 2, device=device)
+    pipe = spmd.SpmdGPipe(block, 2, mesh, chunks=MIXTRAL_CHUNKS, loss_fn=causal_lm_loss(tt),
+                          pre=pre, post=post, checkpoint="except_last",
+                          ep_axis="ep" if ep else None)
+    return cfg, moe, pipe
+
+
+def moe_ep_batch(torch, seed: int):
+    import numpy as np
+
+    return torch.from_numpy(np.random.default_rng(seed + 28).integers(
+        0, MIXTRAL["vocab"], (MIXTRAL_BATCH, MIXTRAL_SEQ)))
+
+
+def moe_ep_oracle(torch, tfa, tt, spmd, seed: int, path: str):
+    """Phase 28's sequential oracle here on the card: the same global
+    params (the ranks' draw) through the unsharded MoE model (ep_axis
+    None, the same 'sparse' dispatch and capacity factor), one row at a
+    time in the lanes' order (micro-batch i's rows 2i and 2i + 1, lanes 0
+    and 1): pre, both blocks, the head and the loss of each row, its
+    gradient seeded with 1/8 (the mean over rows) and the balance
+    penalty's with aux scale 1/8 (the engine's 1/m a cell, averaged over
+    the ep lanes).  The gradient tree goes to ``path`` for the ranks,
+    which each read their shard of it."""
+    from torchgpipe_tpu_torch.auxgrad import aux_scale
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, _, pipe = moe_ep_engine(torch, tt, spmd, _Stand(2, 1, torch.device("cuda")), "cuda",
+                               ep=False)
+    params = pipe.init(torch.Generator(device="cuda").manual_seed(seed + 28),
+                       ((MIXTRAL_BATCH, MIXTRAL_SEQ), torch.int64))
+    spmd_free_templates(pipe)
+    leaves = {k: spmd._tree_map(lambda a: a.detach().requires_grad_(), params[k])
+              for k in ("pre", "blocks", "post")}
+    del params
+    tokens = moe_ep_batch(torch, seed).cuda()
+    rows = tokens.shape[0]
+    tfa.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = 0.0
+    for r in range(rows):
+        x = tokens[r:r + 1]
+        with aux_scale(1.0 / rows):
+            h = pipe._run_pre(leaves, x, True)
+            for g in range(2):
+                h = spmd._call(pipe.block, pipe._names["blocks"],
+                               spmd._tree_map(lambda a: a[g], leaves["blocks"]), h)
+            row = causal_lm_loss(tt)(pipe._run_post(leaves, h), x).float()
+        (row / rows).backward()
+        loss += row.item() / rows
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = kernel_launches(tfa)
+    grads = {k: spmd._tree_map(lambda a: a.grad.detach().cpu(), leaves[k]) for k in leaves}
+    del leaves, h
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    torch.save({"loss": loss, "grads": grads}, path)
+    return {"loss": loss, "ms": ms, "peak_gib": peak, "launches": launches,
+            "save_s": time.perf_counter() - t1}
+
+
+def moe_ep_rank(torch, tfa, tt, spmd, mesh, seed: int, out: str) -> None:
+    """Phase 28 on one rank of the pp=2 x ep=2 world: step 1 by
+    ``train_step`` (its loss and every gradient of this rank's shard,
+    expert leaves this lane's 4 experts, against the oracle's, read from
+    its file), an SGD update, step 2 by ``make_train_step``, then
+    ``eval_loss``; ``router_stats`` of this rank's block router on its
+    lane's rows; each step's ms, bytes staged by kind (``'ep'`` the
+    experts' all-to-alls, ``'grads'`` the gradient reductions), peak and
+    launches, written to ``out/e_rank<r>.json``."""
+    import torch.distributed as dist
+
+    from torchgpipe_tpu_torch.models import moe as tm
+
+    t_start = time.perf_counter()
+    rank = mesh.rank
+    rep = {"rank": rank, "coords": mesh.coords, "steps": []}
+    path = os.path.join(out, f"e_rank{rank}.json")
+    cfg, moe, pipe = moe_ep_engine(torch, tt, spmd, mesh, "cuda")
+    params = pipe.init(torch.Generator(device="cuda").manual_seed(seed + 28),
+                       ((MIXTRAL_BATCH, MIXTRAL_SEQ), torch.int64))
+    local = pipe.place(params)
+    del params
+    spmd_free_templates(pipe)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = moe_ep_batch(torch, seed)
+    rep["expert_bytes"] = sum(a.numel() * a.element_size()
+                              for path_, a in spmd._items(local["blocks"])
+                              if path_[-1] in ("w_gate", "w_up", "w_down"))
+    dist.barrier()
+    rep["ready_s"] = time.perf_counter() - t_start
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tfa.reset_launches()
+        by0, t0 = dict(mesh.staged_by), time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        rep["steps"].append({
+            "name": name, "ms": (time.perf_counter() - t0) * 1e3,
+            "staged": {k: v - by0.get(k, 0) for k, v in mesh.staged_by.items()
+                       if v != by0.get(k, 0)},
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": kernel_launches(tfa)})
+        return res
+
+    def flat(tree):
+        return [(k, p, a) for k in ("pre", "blocks", "post") for p, a in spmd._items(tree[k])]
+
+    loss1, grads = timed("step1", lambda: pipe.train_step(local, tokens, tokens))
+    # This rank's shard of the oracle's gradients, read from its file.
+    ref = torch.load(os.path.join(out, "oracle.pt"), mmap=True, weights_only=True)
+    worst = {}
+    for (key, p, g), (_, spec) in zip(flat(grads), [
+            (k, sp) for k in ("pre", "blocks", "post")
+            for _, sp in spmd._items(spmd.broadcast_specs(pipe._specs[k], grads[k]))]):
+        want = pipe._shard(spmd._get(ref["grads"][key], p), spec)
+        worst["/".join(map(str, (key,) + p))] = spmd_rel_diff(torch, g, want)
+    rep["step1"] = {"loss": loss1.item(), "oracle_loss": ref["loss"], "worst": worst}
+    del ref
+    with torch.no_grad():
+        for (_, _, t), (_, _, g) in zip(flat(local), flat(grads)):
+            t.sub_(TRAIN_LR * g)
+    del grads
+    step = pipe.make_train_step(lambda ts: torch.optim.SGD(ts, lr=TRAIN_LR))
+    loss2 = timed("step2", lambda: step(local, tokens, tokens))
+    loss3 = timed("eval", lambda: pipe.eval_loss(local, tokens, tokens))
+    rep["losses"] = [loss1.item(), loss2.item(), loss3.item()]
+    # router_stats of this rank's block router on its lane's rows of
+    # micro-batch 0 (after the embedding and the block's ln2).
+    with torch.no_grad():
+        lane_rows = pipe._local_microbatches(tokens)[0]
+        h = pipe._run_pre(local, lane_rows, False)
+        blk = spmd._tree_map(lambda a: a[0], local["blocks"][0])
+        load, importance, balance = tm.router_stats(
+            blk["mlp"]["router"], tt._block_norm(cfg, blk, "ln2", h), moe)
+    rep["router_stats"] = {"load": load.tolist(), "importance": importance.tolist(),
+                           "balance": balance.item()}
+    rep["s"] = time.perf_counter() - t_start
+    with open(path, "w") as f:
+        json.dump(rep, f)
+
+
+def phase_moe_ep(torch, tfa, tt, card, seed: int):
+    """Phase 28: expert parallelism (pp=2 x ep=2) at Mixtral-8x7B width on
+    four gloo rank processes on this card (:func:`moe_ep_rank`), against
+    the sequential oracle here (:func:`moe_ep_oracle`).  Gates: step 1's
+    loss and every gradient shard within EP_LOSS_REL / EP_GRAD_REL of the
+    oracle's, the loss lower after two SGD steps, every launch count,
+    router_stats sane on every lane."""
+    import tempfile
+
+    from torchgpipe_tpu_torch import spmd
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        orc = moe_ep_oracle(torch, tfa, tt, spmd, seed, os.path.join(out, "oracle.pt"))
+        expect_launches(orc["launches"], EP_ORACLE_LAUNCHES, "28's oracle")
+        gc.collect()
+        torch.cuda.empty_cache()   # the four ranks take the card
+        reps, world_s = spmd_ranks(torch, seed, "e", EP_WORLD, out)
+    for rep in reps:
+        r, s1 = rep["rank"], rep["step1"]
+        if abs(s1["loss"] - orc["loss"]) > EP_LOSS_REL * abs(orc["loss"]):
+            fail(f"spmd_moe_ep rank {r}: step-1 loss {s1['loss']} vs the sequential "
+                 f"oracle's {orc['loss']} (rel tol {EP_LOSS_REL})")
+        bad = {k: v for k, v in s1["worst"].items() if not v <= EP_GRAD_REL}
+        if bad:
+            fail(f"spmd_moe_ep rank {r}: gradient shards beyond {EP_GRAD_REL} of each leaf's "
+                 f"max against the oracle: {bad}")
+        losses = rep["losses"]
+        if not (all(math.isfinite(v) for v in losses) and losses[2] < losses[0]):
+            fail(f"spmd_moe_ep rank {r}: losses {losses} (step 1, step 2, eval after two SGD "
+                 "steps): not finite or not lower")
+        for row, want in zip(rep["steps"], (EP_LAUNCHES, EP_LAUNCHES, EP_EVAL_LAUNCHES)):
+            expect_launches(row["launches"], want, f"28 {row['name']} rank {r}")
+        st = rep["router_stats"]
+        if not (abs(sum(st["load"]) - 1) < 1e-5 and abs(sum(st["importance"]) - 1) < 1e-5
+                and st["balance"] >= 1 - 1e-5 and math.isfinite(st["balance"])):
+            fail(f"spmd_moe_ep rank {r}: router_stats {st}")
+    by = {name: {f"r{rep['rank']}": row for rep in reps for row in rep["steps"]
+                 if row["name"] == name} for name in ("step1", "step2", "eval")}
+    steps = {n: [round(v["ms"], 1) for v in rows.values()] for n, rows in by.items()}
+    staged = {n: {k: row["staged"] for k, row in rows.items()} for n, rows in by.items()}
+    peaks = {n: [round(v["peak_gib"], 2) for v in rows.values()] for n, rows in by.items()}
+    worst = max(v for rep in reps for v in rep["step1"]["worst"].values())
+    print(f"spmd_moe_ep: Mixtral-8x7B width (dim 4096, 32/8 heads, hidden 14336, vocab "
+          f"32000, 8 experts top-2, balance 0.02), bf16, 2 blocks, batch {MIXTRAL_BATCH} x "
+          f"seq {MIXTRAL_SEQ}, chunks {MIXTRAL_CHUNKS}, except_last, fill-drain, dispatch "
+          f"'sparse' at capacity factor E/k; pp=2 x ep=2 over gloo (4 processes on this "
+          f"card: host staging, not multi-card scaling); {reps[0]['expert_bytes']} B of "
+          f"expert weights a rank [{card}]", flush=True)
+    print(f"spmd_moe_ep: step-1 loss {reps[0]['step1']['loss']:.7f} vs the sequential "
+          f"oracle's {orc['loss']:.7f} (rel {abs(reps[0]['step1']['loss'] - orc['loss']) / abs(orc['loss']):.3e}, "
+          f"tol {EP_LOSS_REL}); every rank's gradient shards, worst {worst:.3e} of its max "
+          f"(tol {EP_GRAD_REL}); losses by rank (step 1, step 2, eval after two SGD steps) "
+          f"{[rep['losses'] for rep in reps]}; router_stats by rank "
+          f"{[rep['router_stats'] for rep in reps]}", flush=True)
+    print(f"spmd_moe_ep: step ms by rank {steps}; bytes staged through the host by kind "
+          f"('ep' the all-to-alls, 'grads' the gradient reductions) {staged}; peak GiB "
+          f"{peaks}; launches a rank {reps[0]['steps'][0]['launches']}; the oracle "
+          f"{orc['ms']:.1f} ms, peak {orc['peak_gib']:.2f} GiB, launches {orc['launches']}, "
+          f"saved in {orc['save_s']:.1f}s; the world {world_s:.1f}s (started in "
+          f"{max(rep['ready_s'] for rep in reps):.1f}s); the phase "
+          f"{time.perf_counter() - t_phase:.1f}s [{card}]", flush=True)
+    result = {"card": card, "oracle": orc, "step1_loss": reps[0]["step1"]["loss"],
+              "grad_worst_rel": worst, "losses": {r["rank"]: r["losses"] for r in reps},
+              "step_ms": steps, "staged_bytes": staged, "peak_gib": peaks,
+              "launches_a_rank": reps[0]["steps"][0]["launches"],
+              "router_stats": {r["rank"]: r["router_stats"] for r in reps},
+              "expert_bytes_a_rank": reps[0]["expert_bytes"], "world_s": world_s}
+    print(json.dumps({"spmd_moe_ep": result}), flush=True)
+    return result
+
+
 PHASES = {
     "3": "fwd", "4": "decode", "5": "bwd", "5b": "simt", "6": "generate", "6b": "generate_int8",
     "6c": "speculative", "6d": "beam", "7": "profile", "9": "serving",
@@ -6702,7 +7138,7 @@ PHASES = {
     "12": "train_graph", "13": "precision", "14": "offload", "15": "lora", "16": "unet",
     "17": "timeline", "18": "vit_l16", "19": "amoebanetd", "20": "t5",
     "21": "gpt2_xl_generate", "22": "mixtral_moe", "23": "distributed", "24": "fleet",
-    "25": "spmd", "26": "spmd_tp_sp", "27": "spmd_zero_sched",
+    "25": "spmd", "26": "spmd_tp_sp", "27": "spmd_zero_sched", "28": "spmd_moe_ep",
 }
 PHASE_ORDER = list(PHASES)
 PHASE_NEEDS = {"6b": ["6"], "6c": ["6"], "6d": ["6"], "7": ["6"], "9": ["6"], "24": ["6"],
@@ -6881,8 +7317,9 @@ def main() -> None:
     timed([("23", lambda: phase_distributed(torch, tfa, tt, card, args.seed)),
            ("25", lambda: phase_spmd(torch, tfa, tt, tg, card, args.seed)),
            ("26", lambda: phase_tp_sp(torch, tfa, tt, card, args.seed)),
-           ("27", lambda: phase_zero_sched(torch, card, args.seed))],
-          "23, 25-27 (distributed, spmd, spmd_tp_sp, spmd_zero_sched)")
+           ("27", lambda: phase_zero_sched(torch, card, args.seed)),
+           ("28", lambda: phase_moe_ep(torch, tfa, tt, card, args.seed))],
+          "23, 25-28 (distributed, spmd, spmd_tp_sp, spmd_zero_sched, spmd_moe_ep)")
 
     if run != set(PHASES):
         print(f"chip_smoke: phases {sorted(run, key=PHASE_ORDER.index)} of {len(PHASES)} "
@@ -6902,6 +7339,7 @@ def main() -> None:
     lora_run, unet_row, vit_run, amoeba, t5_run = r["15"], r["16"], r["18"], r["19"], r["20"]
     gpt2, mixtral, int8w, simt = r["21"], r["22"], r["9b"], r["5b"]
     dist, spmd_run, tp_sp, zero_sched = r["23"], r["25"], r["26"], r["27"]
+    moe_ep = r["28"]
 
     src = "torchgpipe_tpu_torch/csrc/"
     ref = "torchgpipe_tpu/ops/flash_attention.py"
@@ -6935,7 +7373,8 @@ def main() -> None:
              "spmd_ring_rank1": tp_sp["launches_ring"][1],
              "spmd_ulysses_rank": tp_sp["launches_ulysses"],
              **{f"spmd_{name}_rank": launches for name, launches in
-                zero_sched["launches"][0].items()}}
+                zero_sched["launches"][0].items()},
+             "spmd_moe_ep_rank": moe_ep["launches_a_rank"]}
 
     def by_path(name):
         return {p: n.get(name, 0) for p, n in paths.items()}
@@ -7091,6 +7530,22 @@ def main() -> None:
                 "library_ms_by_backend": lib[0],
                 "shape": "f16 b=2 s=1024 h=32 g=8 d=128 causal"}
 
+    def big_dims(key):
+        # flash_simt.cu at head dims 384 and 512 (bf16): the same kernel's
+        # sixteen-lane instantiation, timed beside its bound, plain and SDPA.
+        out = {}
+        for d in (384, 512):
+            row = wrows[f"bf16_d{d}"]
+            lib = row["lib_fwd"] if key == "fwd" else row["lib_bwd"]
+            out[f"d{d}"] = {
+                "shape": f"bf16 b=1 s=512 h=8 g=4 d={d} causal", "ms": row["ms"][key],
+                "plain_ms": row["plain_fwd" if key == "fwd" else "plain_bwd"],
+                "bound_ms": row["bounds"][key][0], "bound_by": row["bounds"][key][1],
+                "bound_fma_ms": row["fma"][key], "library_ms": lib[2],
+                "library_backend": lib[1], "smem_dynamic_bytes": smem_simt(
+                    {"fwd": 0, "dq": 1, "dkv": 2}[key], d)}
+        return out
+
     def wide_entry(name, key, line, takes, row_name, shape, err):
         row = wrows[row_name]
         fwd_ = key == "fwd"
@@ -7104,7 +7559,7 @@ def main() -> None:
                 "bound_ms": row["bounds"][key][0], "bound_by": row["bounds"][key][1],
                 "bound_fma_ms": row["fma"][key], "library_ms": lib[2],
                 "library_backend": lib[1], "library_ms_by_backend": lib[0], "takes": takes,
-                "shape": shape}
+                "shape": shape, "head_dims_384_512": big_dims(key)}
 
     def d256_entry(name, key, line, source):
         row, long = wrows["gemma_microbatch"], wrows["gemma_long"]
@@ -7154,15 +7609,15 @@ def main() -> None:
         d256_entry("flash_fwd_d256", "fwd", 69, "flash_fwd.cu"),
         d256_entry("flash_bwd_dq_d256", "dq", 538, "flash_bwd.cu"),
         d256_entry("flash_bwd_dkv_d256", "dkv", 592, "flash_bwd.cu"),
-        wide_entry("flash_fwd_wide", "fwd", 69, "head dims 129-255 in bf16 and f16, "
-                   "129-256 in f32", "bf16_d192", "bf16 b=2 s=512 h=16 g=8 d=192 causal",
-                   wworst["wide_simt_bf16"]),
-        wide_entry("flash_bwd_dq_wide", "dq", 538, "head dims 129-255 in bf16 and f16, "
-                   "129-256 in f32", "bf16_d192", "bf16 b=2 s=512 h=16 g=8 d=192 causal",
-                   wworst["wide_simt_bf16_dq"]),
-        wide_entry("flash_bwd_dkv_wide", "dkv", 592, "head dims 129-255 in bf16 and f16, "
-                   "129-256 in f32", "bf16_d192", "bf16 b=2 s=512 h=16 g=8 d=192 causal",
-                   wworst["wide_simt_bf16_dkv"]),
+        wide_entry("flash_fwd_wide", "fwd", 69, WIDE_TAKES, "bf16_d192",
+                   "bf16 b=2 s=512 h=16 g=8 d=192 causal",
+                   max(wworst["wide_simt_bf16"], wworst["wide_simt_f32"])),
+        wide_entry("flash_bwd_dq_wide", "dq", 538, WIDE_TAKES, "bf16_d192",
+                   "bf16 b=2 s=512 h=16 g=8 d=192 causal",
+                   max(wworst["wide_simt_bf16_dq"], wworst["wide_simt_f32_dq"])),
+        wide_entry("flash_bwd_dkv_wide", "dkv", 592, WIDE_TAKES, "bf16_d192",
+                   "bf16 b=2 s=512 h=16 g=8 d=192 causal",
+                   max(wworst["wide_simt_bf16_dkv"], wworst["wide_simt_f32_dkv"])),
         decode_row_entry("flash_decode_d256", "gemma_generate", "flash_decode_d256",
                          "spmd_generate", source=src + "flash_decode.cu",
                          instantiation="head dim 256: bf16, f16 and int8 caches",
@@ -7181,9 +7636,15 @@ def main() -> None:
                          "spmd_generate", source=src + "flash_simt.cu",
                          max_abs_err=wworst["decode_wide"],
                          launches_by_path=by_path("flash_decode_wide"),
-                         takes="head dims 129-255 (bf16, f16, f32 and int8 caches) and f32 "
-                               "caches at 256",
-                         shape="bf16 cache [2, 144, 8, 192] live 136 g=1"),
+                         takes="head dims 129-255, 384 and 512 (bf16, f16, f32 and int8 "
+                               "caches) and f32 caches at 256",
+                         shape="bf16 cache [2, 144, 8, 192] live 136 g=1",
+                         head_dims_384_512={
+                             f"d{d}": {"shape": f"bf16 cache [1, 320, 4, {d}] live 300 g=1",
+                                       **{k: wrows[f"bf16_d{d}_generate"][k] for k in (
+                                           "ms", "plain_ms", "bound_ms", "bound_by")},
+                                       "library_ms": wrows[f"bf16_d{d}_generate"]["lib"][2]}
+                             for d in (384, 512)}),
     ]
     smem = smem_dynamic(_build)
     for k in kernels:

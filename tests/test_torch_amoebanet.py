@@ -25,6 +25,7 @@ two sides may differ by up to twice that: each gradient leaf to 5e-4 of
 its max |value|.
 """
 
+import functools
 import importlib
 
 import jax
@@ -65,12 +66,19 @@ def _data():
     return x, y
 
 
-def _models(deferred):
-    """The reference's layers and init, and the port's layers holding it."""
+@functools.lru_cache(maxsize=None)
+def _reference_init():
+    """The reference's layers and init (numpy), drawn once for the file."""
     jl = jamoeba.amoebanetd(**SMALL)
     jp, js, _ = sequential_init(jl, jax.random.PRNGKey(5),
                                 jax.ShapeDtypeStruct((2, SIZE, SIZE, 3), jnp.float32))
     jp, js = ([jax.tree_util.tree_map(np.asarray, t) for t in tree] for tree in (jp, js))
+    return jl, jp, js
+
+
+def _models(deferred):
+    """The reference's layers and init, and the port's layers holding it."""
+    jl, jp, js = _reference_init()
     layers = tamoeba.amoebanetd(**SMALL, device="cpu",
                                 generator=torch.Generator().manual_seed(1))
     if deferred:
@@ -119,6 +127,45 @@ def test_forward_gradients_and_states_match_jax(balance, deferred):
                                                               np.floating) else 0.0,
         want)
     assert_trees_close(floats, wfloats, BUF_REL_TOL, "states")
+
+
+# Three SGD steps (lr 0.01; on the card the (18, 256) net's loss rose at
+# 0.1 and 0.01) of both packages from the same weights on the same batch.
+# Step 1's loss is the parity test's (LOSS_RTOL).  Each later loss is the
+# network at weights each side moved by lr times its own gradients, and
+# this BatchNorm net amplifies float32 rounding from step to step: the
+# port's float32 trajectory lies 3e-6 (step 2) and 1.1e-2 (step 3) from
+# its own float64 one (the port's layers ``double()``, measured), and the
+# reference's float32 1.1e-6 and 1.1e-2, so two float32 sides may differ
+# by up to twice that: step 2 to STEP2_RTOL = 1e-4, step 3 to STEP3_RTOL =
+# 2^-5 (3.1e-2 >= 2.2e-2; measured between the packages: 6.9e-6 and
+# 5.7e-3).
+SGD_LR, STEP2_RTOL, STEP3_RTOL = 0.01, 1e-4, 2 ** -5
+
+
+def test_three_sgd_steps_follow_the_reference():
+    """Both packages' losses over three SGD steps at the cut-down shape:
+    the port follows the reference step for step, so whether the loss
+    rises over them is the model's doing, not the port's.  At this shape
+    neither package's loss rises: both fall at every step."""
+    jl, jp, js, layers = _models(False)
+    x, y = _data()
+    jpipe = JGPipe(jl, [4, 5], chunks=CHUNKS)
+    jparams, jstates = per_stage(jpipe, jp), per_stage(jpipe, js)
+    pipe = GPipe(layers, [4, 5], devices=["cpu"], chunks=CHUNKS)
+    step = pipe.make_train_step(functools.partial(torch.optim.SGD, lr=SGD_LR),
+                                torch_mean_loss)
+    want, got = [], []
+    for _ in range(3):
+        jloss, jgrads, jstates, _ = jpipe.value_and_grad(jparams, jstates, jnp.asarray(x),
+                                                         jnp.asarray(y), jax_mean_loss)
+        jparams = jax.tree_util.tree_map(lambda p, g: p - SGD_LR * g, jparams, jgrads)
+        want.append(float(jloss))
+        got.append(step(nchw(x), torch.from_numpy(y).long())[0].item())
+    assert got[0] == pytest.approx(want[0], rel=LOSS_RTOL)
+    assert got[1] == pytest.approx(want[1], rel=STEP2_RTOL)
+    assert got[2] == pytest.approx(want[2], rel=STEP3_RTOL)
+    assert want[0] > want[1] > want[2] and got[0] > got[1] > got[2]
 
 
 def test_amoebanetd_18_256_has_the_reference_structure():

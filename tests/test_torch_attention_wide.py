@@ -1,13 +1,15 @@
-"""float16 and head dims up to 256 (Gemma's) through the port's attention
-routes, against the JAX reference.
+"""float16 and head dims up to 256 (Gemma's), 384 and 512 through the
+port's attention routes, against the JAX reference.
 
 On the card float16 runs the tensor-core kernels' f16 instantiations
 (``flash_fwd``, ``flash_bwd_dq``/``dkv``, ``flash_decode``; zero-padded
 below 128 as bf16 is), and head dims 129 to 256 run ``flash_simt.cu``'s
 CUDA-core kernels in bf16, f16 and f32 (route ``"wide"``; the forward and
 dQ at exactly 256 in bf16 and f16 run the tensor-core kernels' d=256
-instantiation, ``wide_kernel``); above 256, or
-in another dtype, no kernel takes it (``"none"``, refused on the card).
+instantiation, ``wide_kernel``), and so do 384 and 512 (the reference's
+multiples of 128 above 256, up to the cap ``WIDE_HEAD_DIM_MAX``); any other
+head dim above 256, or another dtype, no kernel takes (``"none"``, refused
+on the card).
 On the CPU every route runs its plain version, so the models here hold
 the algorithm against the reference; the kernels are held against those
 plain versions by tests/test_torch_cuda_kernels.py and chip_smoke.py.
@@ -22,8 +24,18 @@ logits to 2^-5 of max |logit|, every gradient leaf to 2^-4 of its max
 numbers).  Head dim 256 at float32: the same float32 sums in other orders
 (~1e-6 relative): logits to 5e-5 absolute (as
 tests/test_torch_attention_route.py), gradients to 1e-4 of each leaf's
-max.
+max.  Head dims 384 and 512 against the reference's Pallas kernels in
+interpret mode (tests/test_torch_flash_attention.py's tolerances): the
+same float32 inputs and float32 arithmetic to F32_TOL (the output and
+the decode) and 1e-4 of each gradient's max; bf16 inputs rounded once
+on each side (the port's plain version computes in float32 from them,
+the reference's kernels too) to the bf16 output's half ulp at |o| < 4,
+BF16_TOL = 3e-2, and 2^-6 of each gradient's max; an int8 cache to
+DECODE_TOL = 2e-5 (the same dequantized rows, V scaled at another
+place, one float32 rounding apart).
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +45,7 @@ import torch
 
 from torchgpipe_tpu.layers import sequential_init
 from torchgpipe_tpu.models import transformer as jt
+from torchgpipe_tpu.ops import flash_attention as jfa
 from torchgpipe_tpu_torch.convert import params_from_jax
 from torchgpipe_tpu_torch.models import transformer as tt
 from torchgpipe_tpu_torch.ops import flash_attention as tfa
@@ -60,6 +73,17 @@ F16, BF16, F32, I8 = torch.float16, torch.bfloat16, torch.float32, torch.int8
      (160, F32, {"decode": True}, ("wide", 160)),
      (256, BF16, {"decode": True, "cache_dtype": I8}, ("wide", 256)),
      (320, BF16, {"decode": True}, ("none", 320)),
+     # 384 and 512, the reference's multiples of 128 above 256: the wide
+     # route (flash_simt.cu) in every type and for bf16 and int8 caches;
+     # 448 and 640 (not a multiple of 128, past the cap) none
+     (384, BF16, {}, ("wide", 384)), (384, F16, {"window": 16}, ("wide", 384)),
+     (384, F32, {}, ("wide", 384)), (512, BF16, {}, ("wide", 512)),
+     (512, F16, {}, ("wide", 512)), (512, F32, {}, ("wide", 512)),
+     (448, BF16, {}, ("none", 448)), (640, BF16, {}, ("none", 640)),
+     (384, BF16, {"decode": True}, ("wide", 384)),
+     (512, BF16, {"decode": True, "cache_dtype": I8}, ("wide", 512)),
+     (512, F32, {"decode": True}, ("wide", 512)),
+     (640, BF16, {"decode": True}, ("none", 640)),
      (128, F16, {"decode": True, "cache_dtype": BF16}, ("none", 128))],
 )
 def test_route_table(d, dtype, kw, want):
@@ -89,7 +113,7 @@ def test_gates():
     "d,dtype,want",
     [(256, BF16, "tc"), (256, F16, "tc"), (256, F32, "simt"), (160, BF16, "simt"),
      (160, F16, "simt"), (192, BF16, "simt"), (192, F16, "simt"), (160, F32, "simt"),
-     (136, BF16, "simt")],
+     (136, BF16, "simt"), (384, BF16, "simt"), (512, F16, "simt"), (512, F32, "simt")],
 )
 def test_wide_kernel_table(d, dtype, want):
     """The wide route's forward and dQ: the tensor-core kernels' d=256
@@ -104,7 +128,8 @@ def test_wide_kernel_table(d, dtype, want):
     "d,qdt,cache,want",
     [(256, BF16, BF16, "tc"), (256, F16, F16, "tc"), (256, BF16, I8, "tc"),
      (256, F32, I8, "tc"), (256, F32, F32, "simt"), (192, BF16, BF16, "simt"),
-     (160, BF16, I8, "simt"), (136, F16, F16, "simt")],
+     (160, BF16, I8, "simt"), (136, F16, F16, "simt"), (384, BF16, BF16, "simt"),
+     (512, BF16, I8, "simt")],
 )
 def test_wide_decode_kernel_table(d, qdt, cache, want):
     """The wide route's decode: flash_decode.cu's 256 tiles for a bf16,
@@ -185,3 +210,103 @@ def test_llama_forward_and_backward_match_jax(case):
             np.testing.assert_allclose(p.grad.float().numpy(), ref, rtol=0,
                                        atol=grad_rel * np.abs(ref).max(),
                                        err_msg=f"layer {i} {name}")
+
+
+# --------------------------------------------------------------------- #
+# head dims 384 and 512 against the reference's kernels (interpret mode) #
+# --------------------------------------------------------------------- #
+
+F32_TOL, BF16_TOL, F32_GRAD_REL, BF16_GRAD_REL, DECODE_TOL = 2e-5, 3e-2, 1e-4, 2 ** -6, 2e-5
+
+
+@functools.lru_cache(maxsize=None)
+def _big_dim_case(d, jdtype_name):
+    """Inputs, and the reference's output and ``jax.vjp`` gradients, of a
+    causal GQA call (b=1, s=128, h=4, g=2) at head dim ``d`` through
+    ``flash_attention``'s Pallas kernels in interpret mode."""
+    rng = np.random.default_rng(d)
+    q = rng.standard_normal((1, 128, 4, d), dtype=np.float32)
+    k, v = (rng.standard_normal((1, 128, 2, d), dtype=np.float32) for _ in range(2))
+    do = rng.standard_normal(q.shape, dtype=np.float32)
+    jdt = getattr(jnp, jdtype_name)
+    jq, jk, jv, jdo = (jnp.asarray(a, jdt) for a in (q, k, v, do))
+    assert jfa.supports(q.shape, k.shape)
+    out, pull = jax.vjp(
+        lambda q, k, v: jfa.flash_attention(q, k, v, causal=True, interpret=True),
+        jq, jk, jv)
+    return (q, k, v, do), np.asarray(out, np.float32), \
+        tuple(np.asarray(g, np.float32) for g in pull(jdo))
+
+
+@pytest.mark.parametrize("d", [384, 512])
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_big_head_dim_forward_and_grads_match_jax_kernels(d, dtype):
+    """The wide route at head dims 384 and 512 (on the card
+    csrc/flash_simt.cu's sixteen-lane kernels): the output and dQ, dK, dV
+    of ``attention`` on the CPU, its plain version, against the
+    reference's Pallas forward and backward kernels."""
+    (q, k, v, do), ref, ref_grads = _big_dim_case(d, "float32" if dtype == F32 else "bfloat16")
+    tq, tk, tv = (torch.from_numpy(a).to(dtype).requires_grad_() for a in (q, k, v))
+    assert tuple(tfa.attention_route(tq.shape, tk.shape, dtype)) == ("wide", d)
+    assert tfa.wide_kernel(tq.shape, dtype) == "simt"
+    tfa.reset_launches()
+    out = tfa.attention(tq, tk, tv)
+    out.backward(torch.from_numpy(do).to(dtype))
+    tol, rel = (F32_TOL, F32_GRAD_REL) if dtype == F32 else (BF16_TOL, BF16_GRAD_REL)
+    np.testing.assert_allclose(out.detach().float().numpy(), ref, atol=tol, rtol=0)
+    for name, t, want in zip(("dq", "dk", "dv"), (tq, tk, tv), ref_grads):
+        np.testing.assert_allclose(t.grad.float().numpy(), want, rtol=0,
+                                   atol=rel * np.abs(want).max(), err_msg=name)
+    assert (tfa.flash_attention_wide.launches, tfa.flash_bwd_dq_wide.launches,
+            tfa.flash_bwd_dkv_wide.launches) == (0, 0, 0)
+
+
+@pytest.mark.parametrize("d", [384, 512])
+@pytest.mark.parametrize("quant", [False, True])
+def test_big_head_dim_decode_matches_jax_kernel(d, quant):
+    """The wide decode at head dims 384 and 512 over a bf16 or an int8
+    cache (live length 332 of 384: the reference's decode needs max_len
+    >= 256), g = 2 query rows under a window, against the reference's
+    Pallas decode in interpret mode."""
+    from torchgpipe_tpu.models import generation as jg
+
+    rng = np.random.default_rng(d + quant)
+    b, max_len, nh, nkv, g, pos0, window = 1, 384, 4, 2, 2, 330, 200
+    q = rng.standard_normal((b, g, nh, d), dtype=np.float32)
+    kf, vf = (rng.standard_normal((b, max_len, nkv, d), dtype=np.float32) for _ in range(2))
+    if quant:
+        (ck, cks), (cv, cvs) = (tuple(np.array(a) for a in jg._quant_rows(jnp.asarray(x)))
+                                for x in (kf, vf))
+        cks, cvs = (np.ascontiguousarray(a.transpose(0, 2, 1)) for a in (cks, cvs))
+        jq, jk, jv = jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv)
+        tq, tk, tv = (torch.from_numpy(a) for a in (q, ck, cv))
+        jsc = dict(k_scale=jnp.asarray(cks), v_scale=jnp.asarray(cvs))
+        tsc = dict(k_scale=torch.from_numpy(cks), v_scale=torch.from_numpy(cvs))
+    else:
+        tq, tk, tv = (torch.from_numpy(a).to(BF16) for a in (q, kf, vf))
+        jq, jk, jv = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                      for t in (tq, tk, tv))
+        jsc, tsc = {}, {}
+    assert jfa.supports_decode(q.shape, kf.shape, window)
+    ref = jfa.flash_decode_attention(jq, jk, jv, jnp.asarray(pos0, jnp.int32),
+                                     window=window, interpret=True, **jsc)
+    assert tuple(tfa.attention_route(tq.shape, tk.shape, tq.dtype, window=window, decode=True,
+                                     cache_dtype=tk.dtype)) == ("wide", d)
+    assert tfa.wide_kernel(tq.shape, tk.dtype, decode=True) == "simt"
+    tfa.reset_launches()
+    out = tfa.decode_attention(tq, tk, tv, pos0, window=window, **tsc)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32),
+                               atol=DECODE_TOL if quant else F32_TOL, rtol=0)
+    assert tfa.flash_decode_wide.launches == 0
+
+
+class _OnTheCard:
+    """What ``_no_kernel`` reads of a CUDA tensor (this test needs no card)."""
+
+    shape, dtype, device = (1, 4, 2, 640), BF16, torch.device("cuda", 0)
+
+
+def test_no_kernel_names_the_cap():
+    """Above the cap the card refuses, naming what is taken and the cap."""
+    with pytest.raises(ValueError, match="above 512, the cap of csrc/flash_simt.cu"):
+        tfa._no_kernel(_OnTheCard(), (1, 4, 2, 640), "attention")

@@ -352,14 +352,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "dtype,n_head_dim",
-    [(torch.float16, 320), (torch.bfloat16, 320), (torch.float32, 384)],
+    [(torch.float16, 320), (torch.bfloat16, 320), (torch.float32, 640)],
 )
 def test_generation_on_the_card_raises_for_what_the_kernels_do_not_take(
     cuda_device, dtype, n_head_dim
 ):
     """prefill and generate call the kernels on the card and never fall
     back to the plain version: what no kernel takes (a head dim above
-    256) raises."""
+    256 other than 384 and 512) raises."""
     from torchgpipe_tpu_torch.models import generation as tg
     from torchgpipe_tpu_torch.models import transformer as tt
 
@@ -861,8 +861,9 @@ def test_flash_decode_f16_matches_plain(cuda_device, kind, g, pos0, window, hd, 
     assert (dev - ref).abs().max().item() <= DECODE_TOL
 
 
-# Head dims 129-256 (Gemma's 256) on the wide route in bf16, float16 and
-# float32: csrc/flash_simt.cu, whose kernels widen every element to f32 and
+# Head dims 129-256 (Gemma's 256), 384 and 512 on the wide route in bf16,
+# float16 and float32: csrc/flash_simt.cu (sixteen lanes a row at 384 and
+# 512, 16-key dQ and 16-query dK/dV tiles), whose kernels widen every element to f32 and
 # compute in f32 as the plain versions do, so the two differ by summation
 # order before each rounds its outputs once: one ulp of the output type
 # for bf16/f16 (inside FWD_TOL and the row tolerance), and the float32
@@ -886,7 +887,9 @@ def wide_launches():
 @pytest.mark.parametrize(
     "s,h,g,d,window,causal",
     [(512, 4, 4, 256, None, True), (333, 4, 2, 256, 50, True),
-     (200, 4, 1, 160, None, False), (129, 2, 2, 256, None, True)],
+     (200, 4, 1, 160, None, False), (129, 2, 2, 256, None, True),
+     (300, 4, 2, 384, None, True), (257, 2, 1, 512, 64, True),
+     (160, 4, 4, 512, None, False)],
 )
 def test_flash_wide_matches_plain(cuda_device, kind, s, h, g, d, window, causal):
     """The wide forward, dQ and dK/dV against the plain versions from the
@@ -1008,7 +1011,8 @@ def test_flash_d256_dkv_matches_plain(cuda_device, kind, s, sk, h, g, window, ca
 # The wide decode: at head dim 256 with a bf16, f16 or int8 cache on
 # csrc/flash_decode.cu's 256 tiles (bf16/f32/f16 queries against int8;
 # rows per kv head 4, 8, 12, 20 and 32: every row count of the kernel); a
-# float32 cache at 256 and head dim 160 on flash_simt.cu.  Both hold the
+# float32 cache at 256 and head dims 160, 384 and 512 (bf16 and int8
+# caches, live lengths from 261 to 512) on flash_simt.cu.  Both hold the
 # float32 decode tolerance: their scores and P V run in f32 as the plain
 # version's do.
 @pytest.mark.cuda
@@ -1018,7 +1022,9 @@ def test_flash_d256_dkv_matches_plain(cuda_device, kind, s, sk, h, g, window, ca
      ("f32", 1, 527, None, 160, 544), ("int8", 1, 1087, None, 256, 1152),
      ("bf16", 1, 9999, None, 256, 10000), ("f32", 2, 300, 64, 256, 544),
      ("int8", 3, 300, 64, 256, 517), ("f32int8", 2, 500, None, 256, 517),
-     ("f16int8", 8, 700, None, 256, 1152), ("bf16", 8, 135, None, 256, 144)],
+     ("f16int8", 8, 700, None, 256, 1152), ("bf16", 8, 135, None, 256, 144),
+     ("bf16", 2, 300, None, 384, 320), ("int8", 3, 300, 64, 384, 517),
+     ("bf16", 4, 260, 128, 512, 384), ("int8", 1, 511, None, 512, 512)],
 )
 def test_flash_decode_wide_matches_plain(cuda_device, kind, g, pos0, window, hd, L):
     gen = torch.Generator(device=cuda_device).manual_seed(0)

@@ -133,17 +133,29 @@ EP = MoEConfig(ep_axis="ep")
      {"entry": "speculative_generate", "draft_moe": EP}],
 )
 def test_unported_options_raise_with_roadmap_item(tiny, kwargs):
-    """MoE feed-forwards are ported; a MoE config with an expert-parallel
-    axis (ROADMAP queue A item 5.4, the SPMD engine) is what the
-    generation entry points still refuse."""
-    _, model, prompt = tiny
+    """MoE feed-forwards are ported, and since ROADMAP A.5.4e2 so is a MoE
+    config with an expert-parallel axis, which the generation entry
+    points used to refuse: outside the SPMD engine, which binds the axis,
+    every expert is local, so each entry point gives what it gives
+    without the axis, bit for bit."""
+    from torchgpipe_tpu_torch.models import moe as tm
+
+    _, _, prompt = tiny
+    prompt = prompt[:, :16]
+    model = tm.llama_moe(TCFG, MoEConfig(), device="cpu",
+                         generator=torch.Generator().manual_seed(0))
     kwargs = dict(kwargs)
     fn = getattr(tg, kwargs.pop("entry"))
-    args = {"generate": (prompt, 2), "prefill": (prompt, 130),
+    args = {"generate": (prompt, 2), "prefill": (prompt, 18),
             "beam_search": (prompt, 2),
             "speculative_generate": (TCFG, model, prompt, 2)}[fn.__name__]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A item 5"):
-        fn(TCFG, model, *args, device="cpu", **kwargs)
+    local = {k: MoEConfig() for k in kwargs}
+    if fn is tg.speculative_generate:
+        local["moe"] = kwargs["moe"] = MoEConfig()
+    got = fn(TCFG, model, *args, device="cpu", **kwargs)
+    want = fn(TCFG, model, *args, device="cpu", **local)
+    got, want = (x[0] if isinstance(x, tuple) else x for x in (got, want))
+    assert torch.equal(torch.as_tensor(got), torch.as_tensor(want))
 
 
 def test_generate_without_device_or_card_raises(tiny, monkeypatch):

@@ -504,8 +504,16 @@ def test_validation_errors_match_jax(kw):
 
 
 def test_ep_axis_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item 5.4"):
-        tm.moe_mlp(TCFG, tm.MoEConfig(ep_axis="ep"), device="cpu")
+    """``MoEConfig(ep_axis=)`` is ported (it used to raise item 5.4): the
+    layer declares the reference's meta, the expert leaves sharded over
+    the ep axis and the router replicated; the ep-parallel step itself is
+    held against the reference in tests/test_torch_spmd_moe_ep.py."""
+    layer = tm.moe_mlp(TCFG, tm.MoEConfig(ep_axis="ep"), device="cpu")
+    jmeta = jm.moe_mlp(JCFG, jm.MoEConfig(ep_axis="ep")).meta
+    assert layer.meta["ep_axis"] == jmeta["ep_axis"] == "ep"
+    assert {k: tuple(v) for k, v in layer.meta["param_specs"].items()} == \
+        {k: tuple(v) for k, v in jmeta["param_specs"].items()}
+    assert layer.meta["moe"] == jmeta["moe"]
 
 
 def test_llama_moe_refuses_a_tie_as_jax():

@@ -463,12 +463,24 @@ def test_rejections_leave_nothing_registered(weights):
 
 
 @pytest.mark.parametrize("kwargs,what", [
-    (dict(moe=MoEConfig(ep_axis="ep")), "moe="),   # MoE is served; ep (5.4) is not
+    (dict(moe=MoEConfig(ep_axis="ep")), "moe="),   # MoE is served, and since A.5.4e2 ep too
 ])
 def test_not_ported_arguments_name_their_item(weights, kwargs, what):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, queue A item 5\.4") as e:
-        Engine(TCFG, weights[1], num_slots=2, max_len=16, device="cpu", **kwargs)
-    assert what in str(e.value)
+    """What used to raise ROADMAP item 5.4 (a MoE config with an
+    expert-parallel axis) now serves: unbound outside the SPMD engine,
+    every expert is local, and a request's tokens equal those of the same
+    MoE model served without the axis.  A bad role is still refused."""
+    from torchgpipe_tpu_torch.models import moe as tm
+
+    model = tm.llama_moe(TCFG, MoEConfig(), device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+    outs = []
+    for moe in (kwargs["moe"], MoEConfig()):
+        eng = Engine(TCFG, model, num_slots=2, max_len=16, device="cpu", moe=moe)
+        rid = eng.submit(np.arange(5, dtype=np.int32), 4)
+        eng.run()
+        outs.append(eng.result(rid))
+    assert what == "moe=" and np.array_equal(outs[0], outs[1])
     with pytest.raises(ValueError, match="role must be"):
         Engine(TCFG, weights[1], num_slots=2, max_len=16, device="cpu", role="mixed")
 

@@ -198,10 +198,10 @@ def mse(out, tgt):
      r"chunks \(3\) divisible by n_stages \(2\)"),
     (dict(schedule="1f1b", virtual_stages=2), ValueError, "virtual_stages only applies"),
     (dict(zero_update=2), ValueError, "zero=2 is not a supported ZeRO level"),
-    (dict(ep_axis="dp"), NotImplementedError, r"A\.5\.4e.*queue A item 5\.4"),
-    (dict(checkpoint="offload"), NotImplementedError, r"queue A item 5\.4"),
+    (dict(ep_axis="dp", loss_reduction=None), ValueError, "batch-decomposable loss"),
+    (dict(checkpoint="offload", schedule="1f1b"), ValueError, "fill_drain feature"),
     (dict(remat_policy=lambda *a: None), NotImplementedError, r"queue A item 2\b"),
-    (dict(megastep=2), NotImplementedError, r"queue A item 5\.4"),
+    (dict(fsdp=True, dp_axis="dp", ep_axis="dp"), ValueError, r"fsdp \+ ep is not supported"),
 ])
 def test_constructor_validation(kw, exc, match):
     kw = dict(dict(chunks=2), **kw)
@@ -310,15 +310,16 @@ def test_specs_and_trees():
 
 
 def test_make_mesh_needs_a_process_group_and_refuses_later_axes():
-    """``ep`` is sub-slice e; sp and tp (sub-slice b) need a process
-    group of ``pp * dp * sp * tp`` ranks like the rest."""
-    with pytest.raises(NotImplementedError, match=r"A\.5\.4e"):
-        spmd.make_mesh(2, ep=2)
+    """ep, sp and tp need a process group of ``pp * dp * ep * sp * tp``
+    ranks like the rest (``ep``, sub-slice e, no longer raises
+    NotImplementedError)."""
     if not torch.distributed.is_initialized():
         with pytest.raises(RuntimeError, match="init_process_group"):
             spmd.make_mesh(2)
         with pytest.raises(RuntimeError, match=r"n_stages \* dp \* sp \* tp = 4"):
             spmd.make_mesh(2, 1, 2)
+        with pytest.raises(RuntimeError, match=r"n_stages \* dp \* sp \* tp \* ep = 8"):
+            spmd.make_mesh(2, 2, ep=2)
 
 
 def test_1f1b_closed_form_is_a_legal_schedule():

@@ -132,8 +132,9 @@ def test_init_distributions_follow_reference():
 )
 def test_unported_knobs_raise_with_roadmap_item(knob):
     """The parallel axes build, and outside an engine that binds them the
-    model computes the unsharded math; what still waits for its queue
-    item (a MoE expert-parallel axis) raises naming it."""
+    model computes the unsharded math; so does a MoE expert-parallel axis
+    (ROADMAP A.5.4e2, which used to raise): the layer declares it, and
+    unbound every expert is local."""
     from torchgpipe_tpu_torch.models.moe import MoEConfig, moe_mlp
 
     cfg = tt.TransformerConfig(vocab=64, dim=64, n_layers=1, n_heads=2,
@@ -143,9 +144,12 @@ def test_unported_knobs_raise_with_roadmap_item(knob):
     tokens = torch.arange(12).reshape(2, 6) % 64
     torch.testing.assert_close(tt.llama(cfg, device="cpu")(tokens),
                                tt.llama(plain, device="cpu")(tokens), rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        moe_mlp(plain, MoEConfig(ep_axis=knob.get("tp_axis") or knob["sp_axis"]),
-                device="cpu")
+    axis = knob.get("tp_axis") or knob["sp_axis"]
+    ep, local = (moe_mlp(plain, MoEConfig(ep_axis=a), device="cpu",
+                         generator=torch.Generator().manual_seed(0)) for a in (axis, None))
+    x = torch.randn(2, 6, 64, generator=torch.Generator().manual_seed(1))
+    assert ep.meta["ep_axis"] == axis and local.meta["ep_axis"] is None
+    torch.testing.assert_close(ep(x), local(x), rtol=0, atol=0)
 
 
 def test_no_device_without_card_raises(monkeypatch):

@@ -3,8 +3,8 @@ tests/test_torch_spmd_1f1b.py): the reference engine of a case, its
 numbers, and the port's ranks run as OS processes over gloo
 (tests/torch_spmd_rank.py).
 
-A case is a dict: ``model`` (``mlp``, ``llama`` or ``skips``; see
-``torch_spmd_rank.build``), ``pp``, ``dp``, ``chunks``, ``batch``,
+A case is a dict: ``model`` (``mlp``, ``llama``, ``moe`` or ``skips``; see
+``torch_spmd_rank.build``), ``pp``, ``dp`` (and ``ep``), ``chunks``, ``batch``,
 ``checkpoint``, ``schedule``, ``loss_reduction``, and flags (``pre_post``,
 ``tied``, ``apply``).  The reference runs in this process on the 8
 virtual CPU devices; the port's ranks get the reference's initial params
@@ -24,6 +24,7 @@ import torch
 
 from tests.subproc_env import REPO, cpu_subproc_env
 from torchgpipe_tpu.layers import chain
+from torchgpipe_tpu.models import moe as jmoe
 from torchgpipe_tpu.models.transformer import (
     TransformerConfig,
     cross_entropy,
@@ -62,13 +63,25 @@ def u_stage():
 def reference(spec, devices):
     """``(pipe, params, x, tgt)`` of the reference engine for a case."""
     n, dp, m, B = spec["pp"], spec["dp"], spec["chunks"], spec["batch"]
-    mesh = make_mesh(n, dp, devices=devices[:n * dp])
+    ep = spec.get("ep", 1)
+    mesh = make_mesh(n, dp, ep=ep, devices=devices[:n * dp * ep])
     kw = dict(chunks=m, checkpoint=spec.get("checkpoint", "always"),
               schedule=spec.get("schedule", "fill_drain"),
               loss_reduction=spec.get("loss_reduction", "mean"),
               dp_axis="dp" if dp > 1 or spec.get("dp_axis") else None,
               fsdp=spec.get("fsdp", False), virtual_stages=spec.get("v", 1))
     key = jax.random.PRNGKey(spec.get("seed", 0))
+    if spec["model"] == "moe":
+        cfg = TransformerConfig(vocab=64, dim=32, n_layers=spec["n_layers"], n_heads=4,
+                                n_kv_heads=2)
+        moe = jmoe.MoEConfig(**moe_kw(spec))
+        block, pre, post = jmoe.llama_moe_spmd(cfg, moe, n)
+        pipe = SpmdGPipe(block, n, mesh, loss_fn=cross_entropy, pre=pre, post=post,
+                         ep_axis="ep" if ep > 1 else None, **kw)
+        tokens = jax.random.randint(jax.random.PRNGKey(5), (B, 8), 0, 64)
+        labels = jax.random.randint(jax.random.PRNGKey(6), (B, 8), 0, 64)
+        params = pipe.init(key, jax.ShapeDtypeStruct(tokens.shape, tokens.dtype))
+        return pipe, params, tokens, labels
     if spec["model"] == "llama":
         cfg = TransformerConfig(vocab=64, dim=32, n_layers=spec["n_layers"], n_heads=4,
                                 n_kv_heads=2, tie_embeddings=spec.get("tied", False))
@@ -93,6 +106,18 @@ def reference(spec, devices):
     tgt = jax.random.normal(jax.random.PRNGKey(2), (B, d_out))
     params = pipe.init(key, jax.ShapeDtypeStruct((4, d_in), jnp.float32))
     return pipe, params, x, tgt
+
+
+def moe_kw(spec):
+    """A ``moe`` case's ``MoEConfig`` fields: 4 experts, top-2, capacity
+    factor 8 (no token drops at either the lane's or the whole batch's
+    token count), the case's dispatch, the ep axis on an ep world."""
+    kw = dict(n_experts=4, top_k=2, capacity_factor=8.0,
+              dispatch=spec.get("dispatch", "dense"),
+              balance_weight=spec.get("balance_weight", 0.0))
+    if spec.get("ep", 1) > 1:
+        kw["ep_axis"] = "ep"
+    return kw
 
 
 def to_torch(tree):
@@ -194,23 +219,23 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def run_port(inputs, pp, dp, out, timeout=240, sp=1, tp=1):
-    """Every case of ``inputs`` on ``pp * dp * sp * tp`` rank processes;
-    returns rank 0's results by case name (with ``"ranks"``, every rank's
-    own file, where a case writes one per rank)."""
-    tag = f"{pp}x{dp}" + (f"x{sp}x{tp}" if sp * tp > 1 else "")
+def run_port(inputs, pp, dp, out, timeout=240, sp=1, tp=1, ep=1):
+    """Every case of ``inputs`` on ``pp * dp * sp * tp * ep`` rank
+    processes; returns rank 0's results by case name (with ``"ranks"``,
+    every rank's own file, where a case writes one per rank)."""
+    tag = f"{pp}x{dp}" + (f"x{sp}x{tp}" if sp * tp > 1 else "") + (f"_ep{ep}" if ep > 1 else "")
     path = os.path.join(out, f"inputs_{tag}.pt")
     torch.save(inputs, path)
     res = os.path.join(out, f"res_{tag}")
     os.makedirs(res, exist_ok=True)
-    world, port = pp * dp * sp * tp, _free_port()
+    world, port = pp * dp * sp * tp * ep, _free_port()
     procs = []
     for rank in range(world):
         log = open(os.path.join(res, f"rank{rank}.log"), "wb")
         procs.append((subprocess.Popen(
             [sys.executable, SCRIPT, "--rank", str(rank), "--world", str(world),
              "--port", str(port), "--pp", str(pp), "--dp", str(dp), "--sp", str(sp),
-             "--tp", str(tp), "--inputs", path, "--out", res],
+             "--tp", str(tp), "--ep", str(ep), "--inputs", path, "--out", res],
             cwd=REPO, env=cpu_subproc_env(OMP_NUM_THREADS="1"), stdout=log,
             stderr=subprocess.STDOUT), log))
     deadline = time.time() + timeout
@@ -242,10 +267,10 @@ def run_port(inputs, pp, dp, out, timeout=240, sp=1, tp=1):
 
 
 def run_port_worlds(inputs_by_shape, out):
-    """:func:`run_port` for each ``(pp, dp[, sp, tp]): inputs`` in turn;
-    every case's rank-0 results by name."""
+    """:func:`run_port` for each ``(pp, dp[, sp, tp[, ep]]): inputs`` in
+    turn; every case's rank-0 results by name."""
     res = {}
     for shape, inputs in inputs_by_shape.items():
-        pp, dp, sp, tp = (*shape, 1, 1)[:4]
-        res.update(run_port(inputs, pp, dp, out, sp=sp, tp=tp))
+        pp, dp, sp, tp, ep = (*shape, 1, 1, 1)[:5]
+        res.update(run_port(inputs, pp, dp, out, sp=sp, tp=tp, ep=ep))
     return res

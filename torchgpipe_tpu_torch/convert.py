@@ -163,28 +163,40 @@ def params_from_jax(
 
 @torch.no_grad()
 def spmd_params_from_jax(cfg: TransformerConfig, params: Mapping[str, Any],
-                         device: Device = None) -> dict:
+                         device: Device = None, moe: Any = None) -> dict:
     """A reference ``SpmdGPipe``'s params of ``llama_spmd(cfg, n)`` (numpy
     leaves, ``{"pre", "blocks", "post"}``, blocks stacked ``[n_stages,
     ...]``, or ``[n_stages, virtual_stages, ...]`` from an interleaved
-    pipe over ``llama_spmd(cfg, n * v)``) as the port's tree of the same layout for
+    pipe over ``llama_spmd(cfg, n * v)``), or with ``moe`` (a
+    ``models.moe.MoEConfig``) of ``llama_moe_spmd(cfg, moe, n)``, as the
+    port's tree of the same layout for
     ``torchgpipe_tpu_torch.spmd.SpmdGPipe`` (its ``place`` takes it),
-    on ``device`` (``cuda`` unless named).  The structure and every shape
-    are checked against the port's ``llama_spmd`` (on the meta device);
-    a tied head carries no ``table``, as the reference's does not."""
+    on ``device`` (``cuda`` unless named).  The tree is the global one:
+    an expert-parallel pipe's expert leaves hold every expert, and each
+    rank's ``place`` keeps its ep lane's (``meta['param_specs']``).  The
+    structure and every shape are checked against the port's model (on
+    the meta device); a tied head carries no ``table``, as the
+    reference's does not."""
     from torchgpipe_tpu_torch.models.transformer import llama_spmd, resolve_device
     from torchgpipe_tpu_torch.spmd import _get, _items, module_tree
+
+    def model(n: int) -> Any:
+        if moe is None:
+            return llama_spmd(cfg, n, device="meta")
+        from torchgpipe_tpu_torch.models.moe import llama_moe_spmd
+
+        return llama_moe_spmd(cfg, moe, n, device="meta")
 
     leaves = _items(params["blocks"])
     if not leaves:
         raise ValueError("the reference's blocks tree has no leaves")
     path, leaf = leaves[0]
     lead = tuple(int(d) for d in np.shape(leaf)[:1])
-    block, pre, post = llama_spmd(cfg, lead[0], device="meta")
+    block, pre, post = model(lead[0])
     if np.ndim(leaf) == _get(module_tree(block), path).ndim + 2:
         # An interleaved pipe's [n_stages, virtual_stages, ...] blocks.
         lead = tuple(int(d) for d in np.shape(leaf)[:2])
-        block, pre, post = llama_spmd(cfg, lead[0] * lead[1], device="meta")
+        block, pre, post = model(lead[0] * lead[1])
     skip = tuple(getattr(post, "tie_pre", ()))
     want = {"pre": module_tree(pre), "post": module_tree(post, skip=skip),
             "blocks": module_tree(block,

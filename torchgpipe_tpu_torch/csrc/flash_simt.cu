@@ -3,18 +3,19 @@
 // instantiation for:
 //
 // * float32 q/k/v at a head dim TMA cannot map (d % 4 != 0, up to 128),
-//   and wide head dims: the forward (O and the per-row logsumexp) and dQ
-//   in bf16 or float16 at head dims 129 to 255 and in float32 at 129 to
-//   256 (bf16 and float16 at exactly 256, Gemma's, run flash_fwd.cu's and
-//   flash_bwd.cu's d = 256 instantiations: ops/flash_attention.py
-//   wide_kernel), and dK/dV summed over each kv head's query heads at
-//   every wide head dim in all three types.  Replaces:
+//   and wide head dims: the forward (O and the per-row logsumexp), dQ
+//   and dK/dV (summed over each kv head's query heads) in bf16, float16
+//   or float32 at head dims 129 to 255 and at 384 and 512 (any d up to
+//   DMAX runs), and in float32 at 256 (bf16 and float16 at exactly 256,
+//   Gemma's, run the d = 256 instantiations of flash_fwd.cu and
+//   flash_bwd.cu: ops/flash_attention.py wide_kernel).  Replaces:
 //   torchgpipe_tpu/ops/flash_attention.py:_fwd_kernel, :_dq_kernel and
 //   :_dkv_kernel at those shapes (the Pallas kernels take any d % 128 == 0
 //   and load their operands `.astype(jnp.float32)`), which the wgmma
 //   kernels have no tile for.
 // * decode at a head dim the tensor-core decode cannot map (a cache row
-//   not a multiple of 16 bytes, or hd from 129 to 256): g consecutive
+//   not a multiple of 16 bytes, hd from 129 to 255, 384 or 512, or a
+//   float32 cache at 256): g consecutive
 //   queries against the live prefix of a bf16, float16, f32 or int8 cache.
 //   Replaces :_decode_kernel at those dims; no padded copy of the cache
 //   is made.
@@ -26,31 +27,33 @@
 // once to the element type.
 //
 // * Forward and dQ: a block takes 32 query rows of one (batch, head), L
-//   threads a row (L = 4 up to d = 128, 8 up to d = 256: 128 or 256
-//   threads).  K and V stream through shared memory 32 keys at a time (row
-//   pitch d + 1, so the rows and the keys a warp reads at one step fall on
-//   distinct banks).  A thread scores 32/L keys of its row (keys c, c + L,
-//   ...), the row's max and sum meet by shuffles among the row's L lanes,
-//   and the thread owns head dims c, c + L, ... of the output (at most 32
-//   accumulators at either L).  Causal tiles above the diagonal and tiles
-//   below a window's band are never visited.  At d = 256 the tiles take
-//   103-140 KB of shared memory, above the 48 KB default, so each kernel
-//   opts in to its largest size once per device.
+//   threads a row (L = 4 up to d = 128, 8 up to d = 256, 16 up to d =
+//   512: 128, 256 or 512 threads).  K and V stream through shared memory
+//   32 keys at a time (16 in dQ at sixteen lanes; row pitch d + 1, so the
+//   rows and the keys a warp reads at one step fall on distinct banks).
+//   A thread scores keys c, c + L, ... of its row, the row's max and sum
+//   meet by shuffles among the row's L lanes, and the thread owns head
+//   dims c, c + L, ... of the output (at most 32 accumulators at any L).
+//   Causal tiles above the diagonal and tiles below a window's band are
+//   never visited.  From d = 256 the tiles take 103-202 KB of shared
+//   memory, above the 48 KB default, so each kernel opts in to its
+//   largest size once per device; at d = 512 whole 32-key K/V tiles and
+//   32-query Q/dO tiles together would pass the 227 KB opt-in, so dQ
+//   takes 16-key tiles and dK/dV 16-query tiles there (inner_tile).
 // * dK/dV: a block takes 32 keys of one (batch, kv head), L threads a key,
 //   and walks the query tiles (and query heads of the group) that see
 //   them, accumulating dK and dV in registers: no atomics.
 // * Decode: a block per (query head, query row, batch row).  The live keys
 //   go by in tiles of 128, one key a thread; the tile's max and sum meet
-//   through shared memory; thread t owns head dims t and t + 128 of the
-//   output.  The live length is read from the device (`pos_dev`) or taken
+//   through shared memory; thread t owns head dims t, t + 128, ... of
+//   the output.  The live length is read from the device (`pos_dev`) or taken
 //   from the host, as flash_decode.cu does, so a captured call replays at
 //   any length.
 //
 // Bounds (H100): the forward and backward do ~4 (fwd) and ~10 (bwd)
 // FLOPs per (query, key, dim) against 67 TFLOP/s of f32 FMA; decode reads
 // the live K and V prefix once per query head and row, against 3.35 TB/s
-// for the bytes it must move (once).  Tensor-core designs of dK/dV and the
-// decode at d = 256 are later steps (ROADMAP B follow-up 11).
+// for the bytes it must move (once).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -63,11 +66,18 @@ namespace {
 constexpr int BQ = 32;       // query rows of a forward / dQ block
 constexpr int BK = 32;       // keys of a K/V tile, and of a dK/dV block
 constexpr int ACC = 32;      // head dims a thread owns (d <= 32 * L)
-constexpr int DMAX = 256;    // largest head dim
+constexpr int DMAX = 512;    // largest head dim
 constexpr int THREADS = 128; // decode block
 constexpr int DEC_TILE = 128;  // decode keys per tile: one a thread
 constexpr int DEC_ACC = DMAX / THREADS;
 constexpr unsigned FULL = 0xffffffffu;
+
+// Lanes a row (or key) at head dim d: 4 up to 128, 8 up to 256, 16 above.
+__host__ __device__ constexpr int lanes(int d) { return d > 256 ? 16 : d > 128 ? 8 : 4; }
+
+// The dQ kernel's key tile and the dK/dV kernel's query tile at L lanes:
+// 16 at sixteen lanes, so that both fit the 227 KB opt-in at d = 512.
+__host__ __device__ constexpr int inner_tile(int L) { return L == 16 ? 16 : 32; }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -204,13 +214,14 @@ __global__ void __launch_bounds__(32 * L) dq_simt_kernel(
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dq, int s, int sk, int h, int g, int d,
     float scale, int causal, int window) {
+  constexpr int KT = inner_tile(L);  // keys a tile
   extern __shared__ float sm[];
   const int P = d + 1;
   float* Qs = sm;             // [BQ][P]
   float* Ds = Qs + BQ * P;    // dO [BQ][P]
-  float* Ks = Ds + BQ * P;    // [BK][P]
-  float* Vs = Ks + BK * P;    // [BK][P]
-  float* Ss = Vs + BK * P;    // dS [BQ][BK + 1]
+  float* Ks = Ds + BQ * P;    // [KT][P]
+  float* Vs = Ks + KT * P;    // [KT][P]
+  float* Ss = Vs + KT * P;    // dS [BQ][KT + 1]
   const int tid = threadIdx.x, r = tid / L, c = tid % L;
   const int q0 = blockIdx.x * BQ;
   const int bi = blockIdx.y / h, hi = blockIdx.y % h, kvh = hi / (h / g);
@@ -227,13 +238,13 @@ __global__ void __launch_bounds__(32 * L) dq_simt_kernel(
   for (int j = 0; j < ACC; ++j) acc[j] = 0.f;
   const T* kb = k + ((size_t)bi * sk * g + kvh) * d;
   const T* vb = v + ((size_t)bi * sk * g + kvh) * d;
-  for (int k0 = lo - lo % BK; k0 < hiq; k0 += BK) {
+  for (int k0 = lo - lo % KT; k0 < hiq; k0 += KT) {
     __syncthreads();
-    load_rows<32 * L>(Ks, P, kb, k0, BK, sk, g * d, d);
-    load_rows<32 * L>(Vs, P, vb, k0, BK, sk, g * d, d);
+    load_rows<32 * L>(Ks, P, kb, k0, KT, sk, g * d, d);
+    load_rows<32 * L>(Vs, P, vb, k0, KT, sk, g * d, d);
     __syncthreads();
 #pragma unroll
-    for (int jj = 0; jj < BK / L; ++jj) {
+    for (int jj = 0; jj < KT / L; ++jj) {
       const int kk = c + L * jj;
       float ds = 0.f;
       if (qi < s && visible(qi, k0 + kk, sk, causal, window)) {
@@ -245,11 +256,11 @@ __global__ void __launch_bounds__(32 * L) dq_simt_kernel(
         const float p = expf(sc * scale - lr);
         ds = p * (dp - dr);
       }
-      Ss[r * (BK + 1) + kk] = ds;
+      Ss[r * (KT + 1) + kk] = ds;
     }
     __syncwarp();
-    for (int kk = 0; kk < BK; ++kk) {
-      const float ds = Ss[r * (BK + 1) + kk];
+    for (int kk = 0; kk < KT; ++kk) {
+      const float ds = Ss[r * (KT + 1) + kk];
 #pragma unroll
       for (int j = 0; j < ACC; ++j)
         if (c + L * j < d) acc[j] = fmaf(ds, Ks[kk * P + c + L * j], acc[j]);
@@ -269,16 +280,17 @@ __global__ void __launch_bounds__(32 * L) dkv_simt_kernel(
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int s,
     int sk, int h, int g, int d, float scale, int causal, int window) {
+  constexpr int QT = inner_tile(L);  // queries a tile
   extern __shared__ float sm[];
   const int P = d + 1;
   float* Ks = sm;                  // [BK][P]
   float* Vs = Ks + BK * P;         // [BK][P]
-  float* Qs = Vs + BK * P;         // [BQ][P]
-  float* Ds = Qs + BQ * P;         // dO [BQ][P]
-  float* Pt = Ds + BQ * P;         // P^T [BK][BQ + 1]
-  float* St = Pt + BK * (BQ + 1);  // dS^T [BK][BQ + 1]
-  float* Ls = St + BK * (BQ + 1);  // lse [BQ]
-  float* Es = Ls + BQ;             // delta [BQ]
+  float* Qs = Vs + BK * P;         // [QT][P]
+  float* Ds = Qs + QT * P;         // dO [QT][P]
+  float* Pt = Ds + QT * P;         // P^T [BK][QT + 1]
+  float* St = Pt + BK * (QT + 1);  // dS^T [BK][QT + 1]
+  float* Ls = St + BK * (QT + 1);  // lse [QT]
+  float* Es = Ls + QT;             // delta [QT]
   const int tid = threadIdx.x, kr = tid / L, c = tid % L;
   const int k0 = blockIdx.x * BK;
   const int bi = blockIdx.y / g, kvh = blockIdx.y % g, rep = h / g;
@@ -299,17 +311,17 @@ __global__ void __launch_bounds__(32 * L) dkv_simt_kernel(
     const size_t qoff = ((size_t)bi * s * h + hi) * d;
     const float* lrow = lse + ((size_t)bi * h + hi) * s;
     const float* erow = delta + ((size_t)bi * h + hi) * s;
-    for (int q0 = qlo - qlo % BQ; q0 < qhi; q0 += BQ) {
+    for (int q0 = qlo - qlo % QT; q0 < qhi; q0 += QT) {
       __syncthreads();
-      load_rows<32 * L>(Qs, P, q + qoff, q0, BQ, s, h * d, d);
-      load_rows<32 * L>(Ds, P, dout + qoff, q0, BQ, s, h * d, d);
-      if (tid < BQ) {
+      load_rows<32 * L>(Qs, P, q + qoff, q0, QT, s, h * d, d);
+      load_rows<32 * L>(Ds, P, dout + qoff, q0, QT, s, h * d, d);
+      if (tid < QT) {
         Ls[tid] = q0 + tid < s ? lrow[q0 + tid] : 0.f;
         Es[tid] = q0 + tid < s ? erow[q0 + tid] : 0.f;
       }
       __syncthreads();
 #pragma unroll
-      for (int jj = 0; jj < BQ / L; ++jj) {
+      for (int jj = 0; jj < QT / L; ++jj) {
         const int qq = c + L * jj, qi = q0 + qq;
         float p = 0.f, ds = 0.f;
         if (qi < s && visible(qi, kj, sk, causal, window)) {
@@ -321,12 +333,12 @@ __global__ void __launch_bounds__(32 * L) dkv_simt_kernel(
           p = expf(sc * scale - Ls[qq]);
           ds = p * (dp - Es[qq]);
         }
-        Pt[kr * (BQ + 1) + qq] = p;
-        St[kr * (BQ + 1) + qq] = ds;
+        Pt[kr * (QT + 1) + qq] = p;
+        St[kr * (QT + 1) + qq] = ds;
       }
       __syncwarp();
-      for (int qq = 0; qq < BQ; ++qq) {
-        const float p = Pt[kr * (BQ + 1) + qq], ds = St[kr * (BQ + 1) + qq];
+      for (int qq = 0; qq < QT; ++qq) {
+        const float p = Pt[kr * (QT + 1) + qq], ds = St[kr * (QT + 1) + qq];
 #pragma unroll
         for (int j = 0; j < ACC; ++j) {
           if (c + L * j < d) {
@@ -438,10 +450,10 @@ __global__ void __launch_bounds__(THREADS) decode_simt_kernel(
 // Shared memory of one block (bytes) at head dim d: 0 forward, 1 dQ,
 // 2 dK/dV.
 int smem_bytes(int which, int d) {
-  const int P = d + 1;
+  const int P = d + 1, T = inner_tile(lanes(d));
   if (which == 0) return (BQ * P + 2 * BK * P + BQ * (BK + 1)) * 4;
-  if (which == 1) return (2 * BQ * P + 2 * BK * P + BQ * (BK + 1)) * 4;
-  return (2 * BK * P + 2 * BQ * P + 2 * BK * (BQ + 1) + 2 * BQ) * 4;
+  if (which == 1) return (2 * BQ * P + 2 * T * P + BQ * (T + 1)) * 4;
+  return (2 * BK * P + 2 * T * P + 2 * BK * (T + 1) + 2 * T) * 4;
 }
 
 // The kernel's dynamic shared memory limit raised to its largest size (d =
@@ -503,14 +515,21 @@ int run(int which, const Attn& a) {
   return int(cudaGetLastError());
 }
 
-// Element type by code (0 bf16, 1 f32, 3 f16, as flash_decode.cu's), and
-// four lanes a row up to d = 128, eight above.
+// The lanes a row of head dim a.d (lanes).
+template <typename T>
+int run_lanes(int which, const Attn& a) {
+  const int L = lanes(a.d);
+  if (L == 16) return run<T, 16>(which, a);
+  if (L == 8) return run<T, 8>(which, a);
+  return run<T, 4>(which, a);
+}
+
+// Element type by code (0 bf16, 1 f32, 3 f16, as flash_decode.cu's).
 int dispatch(int which, int type, const Attn& a) {
   if (!shape_ok(a.b, a.s, a.sk, a.h, a.g, a.d)) return int(cudaErrorInvalidValue);
-  const bool wide = a.d > 128;
-  if (type == 1) return wide ? run<float, 8>(which, a) : run<float, 4>(which, a);
-  if (type == 0) return wide ? run<__nv_bfloat16, 8>(which, a) : run<__nv_bfloat16, 4>(which, a);
-  if (type == 3) return wide ? run<__half, 8>(which, a) : run<__half, 4>(which, a);
+  if (type == 1) return run_lanes<float>(which, a);
+  if (type == 0) return run_lanes<__nv_bfloat16>(which, a);
+  if (type == 3) return run_lanes<__half>(which, a);
   return int(cudaErrorInvalidValue);
 }
 
@@ -533,7 +552,7 @@ int launch_decode(const void* q, const void* ck, const void* cv, const void* k_s
 extern "C" int tgt_flash_simt_smem_bytes(int which, int d) { return smem_bytes(which, d); }
 
 // q [b, s, h, d], k/v [b, sk, g, d], o [b, s, h, d] contiguous, all of the
-// element type `type` (0 bf16, 1 f32, 3 f16); lse [b*h, s] f32.  d <= 256.
+// element type `type` (0 bf16, 1 f32, 3 f16); lse [b*h, s] f32.  d <= 512.
 // window <= 0 means none.  Returns 0 or a cudaError_t.
 extern "C" int tgt_flash_fwd_simt(const void* q, const void* k, const void* v, void* o,
                                   void* lse, int b, int s, int sk, int h, int g, int d,
@@ -567,7 +586,7 @@ extern "C" int tgt_flash_bwd_dkv_simt(const void* q, const void* k, const void* 
 }
 
 // Decode: q [b, g, nh, hd]; ck/cv [b, max_len, nkv, hd] contiguous; out
-// [b, g, nh*hd] f32; hd <= 256.  Type codes as flash_decode.cu's (0 bf16,
+// [b, g, nh*hd] f32; hd <= 512.  Type codes as flash_decode.cu's (0 bf16,
 // 1 f32, 2 int8 with k_scale/v_scale f32 [b, nkv, max_len], 3 f16).
 // pos0: the int32 at `pos_dev` or, when it is null, `pos_host`; clamped to
 // [0, max_len - g].

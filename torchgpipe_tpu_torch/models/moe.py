@@ -31,11 +31,21 @@ routing, expert choice, megablocks-style dropless experts):
   loss.  :func:`router_stats` reports the same load, importance and
   penalty.
 
+* **Expert parallelism** (``MoEConfig.ep_axis``): under
+  ``torchgpipe_tpu_torch.spmd.SpmdGPipe(ep_axis=)`` each ep lane holds
+  ``E/ep`` experts (``meta['param_specs']`` shards ``w_gate``/``w_up``/
+  ``w_down`` on dim 0, the router replicated) and its own rows of the
+  batch; the capacity paths' ``[E, C, d]`` buffers go to the lanes that
+  own their experts by one all-to-all (``[E/ep, ep*C, d]``: split on the
+  experts, concatenated on the slots) and come back by its inverse
+  (``parallel.axes.all_to_all``), the capacity from the lane's own token
+  count.  With the axis unbound (``init``, an oracle, ``generate``) the
+  layer computes over every expert.  ``dropless`` and ``expert_choice``
+  refuse an ep axis, as the reference's do.
+
 Scatter-adds that would sum in an order set by atomics on the card are
 written as a permutation and a sum over the ``k`` choices, so a step
 repeats bit for bit (a captured Engine replay equals the eager step).
-``MoEConfig.ep_axis`` (expert parallelism) and ``llama_moe_spmd`` wait
-for the SPMD engine's expert-parallel sub-slice (ROADMAP.md A.5.4e).
 """
 
 from __future__ import annotations
@@ -50,16 +60,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from torchgpipe_tpu_torch.auxgrad import current_aux_scale
+from torchgpipe_tpu_torch.parallel.axes import all_to_all, axis_bound
 from torchgpipe_tpu_torch.models.transformer import (
     Device,
+    LMHead,
     Llama,
+    TokenEmbedding,
     TransformerBlock,
     TransformerConfig,
     _init,
     _Layer,
     _normal,
     _param,
-    not_ported,
     resolve_device,
 )
 
@@ -87,8 +99,7 @@ class MoEConfig:
 
 
 def validate(moe: MoEConfig) -> None:
-    """The reference's checks of ``moe_mlp``, its messages word for word,
-    then the refusal of ``ep_axis`` (not ported)."""
+    """The reference's checks of ``moe_mlp``, its messages word for word."""
     E, K = moe.n_experts, moe.top_k
     if K > E:
         raise ValueError(f"top_k={K} exceeds n_experts={E}")
@@ -123,9 +134,6 @@ def validate(moe: MoEConfig) -> None:
                 "construction (every expert takes exactly `capacity` "
                 "tokens); set balance_weight=0"
             )
-    if moe.ep_axis is not None:
-        raise not_ported("expert parallelism over an ep mesh axis "
-                         "(moe=MoEConfig(ep_axis=...), A.5.4e)", "5.4")
 
 
 # --------------------------------------------------------------------- #
@@ -340,7 +348,10 @@ def moe_forward(
     """The routed-expert SwiGLU of ``x [b, s, dim]`` with params
     ``router [dim, E]`` (float32), ``w_gate``/``w_up [E, dim, hidden]``,
     ``w_down [E, hidden, dim]``; returns ``x.dtype``.  With ``train``
-    and ``balance_weight > 0``, the penalty's gradient is injected."""
+    and ``balance_weight > 0``, the penalty's gradient is injected.
+    Under a bound ``moe.ep_axis`` the expert leaves are this lane's
+    ``E/ep`` experts and the capacity paths exchange their buffers with
+    the other lanes (the reference's two all-to-alls)."""
     b, s, d = x.shape
     t = b * s
     E, K = moe.n_experts, moe.top_k
@@ -378,6 +389,16 @@ def moe_forward(
 
     use_sparse = moe.dispatch == "sparse" or (
         moe.dispatch == "auto" and t * E * capacity > 1 << 24)
+    ep = axis_bound(moe.ep_axis)
+
+    def experts_ffn(expert_in: torch.Tensor) -> torch.Tensor:
+        # Under ep: [E, C, d] -> [E/ep, ep*C, d] to the lanes owning the
+        # experts, the local experts' SwiGLU, and the inverse exchange.
+        if ep is not None:
+            expert_in = all_to_all(expert_in, ep, 0, 1)
+        out = _expert_ffn(expert_in, p)
+        return out if ep is None else all_to_all(out, ep, 1, 0)
+
     if use_sparse:
         experts, gates, keep, slot = _sparse_assignment(probs, K, capacity)
         tok = torch.arange(K * t, device=x.device) % t
@@ -385,12 +406,12 @@ def moe_forward(
         e64, s64 = experts.long(), slot.long()
         expert_in = xf.new_zeros((E, capacity, d)).index_put(
             (e64, s64), contrib, accumulate=True)
-        out = _expert_ffn(expert_in, p)
+        out = experts_ffn(expert_in)
         picked = out[e64, s64] * (gates * keep.to(gates.dtype))[:, None].to(out.dtype)
         return finish(picked.reshape(K, t, d).sum(0))
     combine, dispatch = _top_k_dispatch(probs, K, capacity)
     expert_in = torch.einsum("tec,td->ecd", dispatch.to(xf.dtype), xf)
-    out = _expert_ffn(expert_in, p)
+    out = experts_ffn(expert_in)
     return finish(torch.einsum("tec,ecd->td", combine.to(out.dtype), out))
 
 
@@ -404,7 +425,10 @@ class MoEMLP(_Layer):
     ``router [dim, E]`` float32, ``w_gate``/``w_up [E, dim, hidden]``
     and ``w_down [E, hidden, dim]`` in ``cfg.dtype``.  Plug it into
     ``transformer_block(mlp=)``.  The injection of the balance penalty
-    follows the module's ``training`` flag (the reference's ``train``)."""
+    follows the module's ``training`` flag (the reference's ``train``).
+    ``meta`` is the reference's: the ep axis, ``validate_mesh`` (the ep
+    size must divide ``E``), the expert leaves' ``param_specs`` under an
+    ep axis, the balance weight and the static ``moe`` record."""
 
     def __init__(self, cfg: TransformerConfig, moe: MoEConfig, *, device: Device = None,
                  name: str = "moe"):
@@ -420,6 +444,7 @@ class MoEMLP(_Layer):
         self.w_gate = _param((E, dim, hidden), dt, dev)
         self.w_up = _param((E, dim, hidden), dt, dev)
         self.w_down = _param((E, hidden, dim), dt, dev)
+        self.meta = _moe_meta(cfg, moe)
 
     @torch.no_grad()
     def reset_parameters(self, gen: torch.Generator) -> None:
@@ -432,6 +457,34 @@ class MoEMLP(_Layer):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return moe_forward(self.moe, self.params(), x, train=self.training)
+
+
+def _moe_meta(cfg: TransformerConfig, moe: MoEConfig) -> dict:
+    """:class:`MoEMLP`'s ``meta`` (the reference's ``moe_mlp`` meta)."""
+    from torchgpipe_tpu_torch.spmd import P
+
+    E, ep = moe.n_experts, moe.ep_axis
+
+    def validate_mesh(mesh: Any) -> None:
+        if ep is None or ep not in mesh.axis_names:
+            return
+        size = mesh.shape[ep]
+        if E % size != 0:
+            raise ValueError(
+                f"n_experts={E} is not divisible by the ep mesh axis size "
+                f"{size}; expert parallelism places whole experts on lanes"
+            )
+
+    return {
+        "kind": "moe_mlp", "balance_weight": moe.balance_weight, "ep_axis": ep,
+        "validate_mesh": validate_mesh,
+        "param_specs": None if ep is None else {
+            "router": P(), "w_gate": P(ep), "w_up": P(ep), "w_down": P(ep)},
+        "moe": {"n_experts": E, "top_k": moe.top_k,
+                "capacity_factor": float(moe.capacity_factor), "dispatch": moe.dispatch,
+                "router": moe.router, "ep_axis": ep, "dim": cfg.dim,
+                "hidden": cfg.mlp_hidden, "itemsize": cfg.dtype.itemsize},
+    }
 
 
 def moe_mlp(
@@ -515,21 +568,42 @@ def llama_moe(
                  generator)
 
 
+def llama_moe_spmd(
+    cfg: TransformerConfig, moe: MoEConfig, n_stages: int, *,
+    gather_logits: bool = True, device: Device = None,
+) -> Tuple[nn.Sequential, TokenEmbedding, LMHead]:
+    """``(block, pre, post)`` for ``torchgpipe_tpu_torch.spmd.SpmdGPipe``:
+    each stage runs ``n_layers // n_stages`` MoE blocks (an
+    ``nn.Sequential`` named ``stage``, blocks ``b0 ..``), ``pre`` the
+    embedding and ``post`` the head, as
+    :func:`~torchgpipe_tpu_torch.models.transformer.llama_spmd` builds
+    them (``gather_logits`` as there; a tied head names ``tie_pre``).
+    Under ``moe.ep_axis`` pass the same axis as ``SpmdGPipe(ep_axis=)``."""
+    from torchgpipe_tpu_torch.models.transformer import spmd_ends
+
+    if cfg.n_layers % n_stages != 0:
+        raise ValueError(
+            f"n_layers={cfg.n_layers} must divide evenly into {n_stages} stages"
+        )
+    validate(moe)
+    dev = resolve_device(device)
+    block = nn.Sequential(*[TransformerBlock(cfg, device=dev, mlp=MoEMLP(cfg, moe, device=dev))
+                            for _ in range(cfg.n_layers // n_stages)])
+    block.name = "stage"
+    for i, layer in enumerate(block):
+        layer.name = f"b{i}"
+    return (block, *spmd_ends(cfg, gather_logits, dev))
+
+
 __all__ = [
     "MoEConfig",
     "MoEMLP",
     "add_aux_grad",
     "find_routers",
     "llama_moe",
+    "llama_moe_spmd",
     "moe_forward",
     "moe_mlp",
     "moe_transformer_block",
     "router_stats",
 ]
-
-
-def llama_moe_spmd(cfg: TransformerConfig, moe: MoEConfig, n_stages: int, **kw: Any) -> Any:
-    """The reference's ``(block, pre, post)`` of a MoE Llama for the SPMD
-    engine: not ported yet (its expert parallelism, ROADMAP.md A.5.4e)."""
-    raise not_ported("models.moe.llama_moe_spmd (SPMD MoE with expert parallelism, "
-                     "A.5.4e)", "5.4")

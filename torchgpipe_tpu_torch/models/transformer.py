@@ -1217,14 +1217,22 @@ def llama_spmd(
     block.name = "stage"
     for i, layer in enumerate(block):
         layer.name = f"b{i}"
-    pre = TokenEmbedding(cfg, device=dev)
+    return (block, *spmd_ends(cfg, gather_logits, dev))
+
+
+def spmd_ends(cfg: TransformerConfig, gather_logits: bool,
+              device: torch.device) -> Tuple[TokenEmbedding, LMHead]:
+    """The SPMD models' ``pre`` (the embedding, ``embed``) and ``post``
+    (the head, ``head``; under ``tie_embeddings`` holding the
+    embedding's ``table`` and naming it in ``tie_pre``)."""
+    pre = TokenEmbedding(cfg, device=device)
     pre.name = "embed"
-    post = LMHead(cfg, device=dev, table=pre.table if cfg.tie_embeddings else None,
+    post = LMHead(cfg, device=device, table=pre.table if cfg.tie_embeddings else None,
                   gather_logits=gather_logits)
     post.name = "head"
     if cfg.tie_embeddings:
         post.tie_pre = ("table",)
-    return block, pre, post
+    return pre, post
 
 
 def chunked_lm_loss(

@@ -40,7 +40,9 @@ axis) because of VMEM size; on Hopper one tile loop serves every length.
   is not a multiple of 16 bytes.  :func:`flash_attention_wide` (with
   :func:`flash_bwd_dq_wide` and :func:`flash_bwd_dkv_wide`) and
   :func:`flash_decode_wide` launch the same kernels at head dims 129 to
-  256 in bfloat16, float16 or float32, except at head dim 256 (Gemma's):
+  256 and at 384 and 512 (:data:`WIDE_HEAD_DIM_MAX`, the reference's
+  multiples of 128 above 256) in bfloat16, float16 or float32, except at
+  head dim 256 (Gemma's):
   there the forward, dQ and dK/dV in bfloat16 or float16 run the
   tensor-core kernels' d=256 instantiation, and the decode of a bfloat16,
   float16 or int8 cache ``csrc/flash_decode.cu``'s 256 tiles
@@ -1004,11 +1006,19 @@ def _tc_decode(what, q, ck, cv, quant, pos_dev, pos0, window, k_scale, v_scale):
 
 
 # --------------------------------------------------------------------- #
-# what TMA cannot map, and head dims 129-256: csrc/flash_simt.cu        #
+# what TMA cannot map, and head dims 129-512: csrc/flash_simt.cu        #
 # --------------------------------------------------------------------- #
 
 SIMT_HEAD_DIM_MAX = 128   # the float32 and decode routes below the wide dims
-WIDE_HEAD_DIM_MAX = 256   # csrc/flash_simt.cu DMAX
+# The wide route: every head dim from 129 to 256, and above 256 the
+# multiples of 128 the reference's kernels take, up to csrc/flash_simt.cu's
+# DMAX (a cap: 640 and up have no kernel on the card).
+WIDE_HEAD_DIM_MAX = 512
+
+
+def _wide_dim(d: int) -> bool:
+    return SIMT_HEAD_DIM_MAX < d <= 256 or (256 < d <= WIDE_HEAD_DIM_MAX and d % 128 == 0)
+
 _SIMT_TYPES = (torch.bfloat16, torch.float16, torch.float32)
 # q, k, v, o, lse, b, s, sk, h, g, d, scale, causal, window, type, stream
 _FWD_SIMT_ARGS = [_P] * 5 + [_I] * 6 + [ctypes.c_float, _I, _I, _I, _P]
@@ -1043,12 +1053,12 @@ def supports_wide(
     dtype: torch.dtype = torch.bfloat16,
 ) -> bool:
     """Whether the wide route takes these shapes: bfloat16, float16 or
-    float32, a head dim from 129 to 256, ``h`` a multiple of ``g``.
-    :func:`wide_kernel` says which kernels run them."""
+    float32, a head dim from 129 to 256 or 384 or 512, ``h`` a multiple
+    of ``g``.  :func:`wide_kernel` says which kernels run them."""
     b, s, h, d = q_shape
     g = k_shape[2]
     return (
-        dtype in _SIMT_TYPES and SIMT_HEAD_DIM_MAX < d <= WIDE_HEAD_DIM_MAX
+        dtype in _SIMT_TYPES and _wide_dim(d)
         and g > 0 and h % g == 0 and k_shape[3] == d
     )
 
@@ -1058,7 +1068,7 @@ def wide_kernel(q_shape: Tuple[int, ...], dtype: torch.dtype, *,
     """Which kernels a wide-route shape runs on: ``"tc"``, the tensor-core
     kernels at their head-dim-256 instantiation (Gemma's head dim, exactly
     256), or ``"simt"``, the CUDA-core kernels of ``csrc/flash_simt.cu``
-    (the other head dims from 129 to 255, and float32).  Forward, dQ and
+    (the other wide head dims, 129 to 255, 384 and 512, and float32).  Forward, dQ and
     dK/dV (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``): ``"tc"`` for
     bfloat16 or float16 ``dtype``.  The decode (``decode=True``, ``dtype``
     the cache's; ``csrc/flash_decode.cu``): ``"tc"`` for a bfloat16,
@@ -1095,9 +1105,9 @@ def supports_decode_wide(
     q_shape: Tuple[int, ...], k_shape: Tuple[int, ...],
     window: Optional[int], dtype: torch.dtype = torch.bfloat16,
 ) -> bool:
-    """:func:`supports_decode_simt` at head dims 129 to 256."""
-    return _decode_dims_ok(q_shape, k_shape, window, dtype, SIMT_HEAD_DIM_MAX,
-                           WIDE_HEAD_DIM_MAX)
+    """:func:`supports_decode_simt` at head dims 129 to 256, 384 and 512."""
+    return _wide_dim(q_shape[-1]) and _decode_dims_ok(
+        q_shape, k_shape, window, dtype, SIMT_HEAD_DIM_MAX, WIDE_HEAD_DIM_MAX)
 
 
 def _check_f32(what: str, *ts: torch.Tensor) -> None:
@@ -1136,7 +1146,8 @@ def _check_wide(what: str, q, k, v, do=None, lse=None, delta=None) -> None:
         raise ValueError(
             f"{what} kernel does not take q {tuple(q.shape)}, k "
             f"{tuple(k.shape)}, v {tuple(v.shape)}: head dim must be from "
-            f"{SIMT_HEAD_DIM_MAX + 1} to {WIDE_HEAD_DIM_MAX} and h a multiple of g"
+            f"{SIMT_HEAD_DIM_MAX + 1} to 256, 384 or {WIDE_HEAD_DIM_MAX} and h a "
+            "multiple of g"
         )
 
 
@@ -1287,7 +1298,7 @@ def _flash_fwd_wide(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     sm_scale: float, window: Optional[int],
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(out, lse)`` at a head dim from 129 to 256 on the kernel
+    """``(out, lse)`` at a wide head dim (:func:`supports_wide`) on the kernel
     :func:`wide_kernel` names (``csrc/flash_fwd.cu`` at d=256 in bfloat16
     or float16, counted in ``flash_attention_wide.launches_d256``;
     ``csrc/flash_simt.cu`` otherwise, in ``launches``) for CUDA tensors,
@@ -1374,7 +1385,7 @@ flash_bwd_dkv_wide.launches_d256 = 0
 
 
 class _FlashAttentionWide(torch.autograd.Function):
-    """:class:`_FlashAttention` at head dims 129 to 256: forward, dQ
+    """:class:`_FlashAttention` at the wide head dims: forward, dQ
     and dK/dV through the kernels :func:`wide_kernel` names, or the plain
     version on the CPU."""
 
@@ -1395,8 +1406,8 @@ def flash_attention_wide(
     causal: bool = True, sm_scale: Optional[float] = None,
     window: Optional[int] = None,
 ) -> torch.Tensor:
-    """:func:`flash_attention` at a head dim from 129 to 256 (Gemma's 256)
-    in bfloat16, float16 or float32: on the CUDA cores, except at d=256 in
+    """:func:`flash_attention` at a head dim from 129 to 256 (Gemma's 256),
+    384 or 512 in bfloat16, float16 or float32: on the CUDA cores, except at d=256 in
     bfloat16 or float16 (the tensor cores for the forward, dQ and dK/dV,
     :func:`wide_kernel`).  Differentiable in ``q``, ``k`` and ``v``."""
     sm_scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
@@ -1480,12 +1491,12 @@ def flash_decode_wide(
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """:func:`flash_decode_simt` at head dims 129 to 256: the same
+    """:func:`flash_decode_simt` at head dims 129 to 256, 384 and 512: the same
     arguments and output, on the kernel :func:`wide_kernel` names for the
     cache (``decode=True``): at head dim 256 (Gemma's) with a bfloat16,
     float16 or int8 cache, ``csrc/flash_decode.cu``'s 256 tiles (counted
     in ``launches_d256``); else ``csrc/flash_simt.cu`` (``launches``)."""
-    what, dims = "flash_decode_wide", f"from {SIMT_HEAD_DIM_MAX + 1} to {WIDE_HEAD_DIM_MAX}"
+    what, dims = "flash_decode_wide", f"from {SIMT_HEAD_DIM_MAX + 1} to 256, 384 or 512"
     if q.device.type == "cpu" or wide_kernel(q.shape, ck.dtype, decode=True) == "simt":
         return _decode_simt_call(flash_decode_wide, what, supports_decode_wide, dims,
                                  q, ck, cv, pos0, window, k_scale, v_scale)
@@ -1821,7 +1832,7 @@ class Route(NamedTuple):
     ``"f32"`` (float32: the 3xTF32 forward of ``csrc/flash_fwd_tf32.cu``
     with the 3xTF32 backward of ``csrc/flash_bwd_tf32.cu``), ``"simt"`` (the CUDA-core
     kernels of ``csrc/flash_simt.cu``, for rows TMA cannot map),
-    ``"wide"`` (head dims 129 to 256: the same kernels, or at d=256 the
+    ``"wide"`` (head dims 129 to 256, 384 and 512: the same kernels, or at d=256 the
     tensor-core kernels, :func:`wide_kernel`) or ``"none"``
     (no kernel takes it: the plain version on the CPU, refused on the
     card); ``head_dim`` is the dim the work runs at."""
@@ -1848,16 +1859,17 @@ def attention_route(
     zero output columns, sliced off); float32 up to d=128 runs the 3xTF32
     forward and backward (:func:`supports_tf32`: ``d % 4 == 0``) or, at
     other dims, the CUDA-core forward and backward.  Head dims from 129 to
-    256 run the CUDA-core kernels in bfloat16, float16 or float32
-    (``"wide"``), except at 256 (Gemma's) in bfloat16 or float16, which
+    256, and 384 and 512 (the reference's multiples of 128 above 256, to
+    :data:`WIDE_HEAD_DIM_MAX`), run the CUDA-core kernels in bfloat16,
+    float16 or float32 (``"wide"``), except at 256 (Gemma's) in bfloat16 or float16, which
     runs the tensor-core kernels (:func:`wide_kernel`).  Decode (``decode=True``, the cache in
     ``cache_dtype``): a :func:`supports_decode` shape (any head dim up to
     128 whose cache row is a multiple of 16 bytes) runs the tensor-core
     decode, any other head dim up to 128 the CUDA-core one, head dims 129
-    to 256 the wide one (the tensor-core decode's 256 tiles at 256 for a
+    to 256, 384 and 512 the wide one (the tensor-core decode's 256 tiles at 256 for a
     bfloat16, float16 or int8 cache).  A decode is never padded: that would copy the
     whole cache every token.  Anything else (another dtype, a head dim
-    above 256) has no kernel.  Answers are cached by shape: a decode step
+    from 257 to 511 that is not 384, or above 512) has no kernel.  Answers are cached by shape: a decode step
     asks once a layer."""
     d = q_shape[-1]
     if decode:
@@ -1892,7 +1904,8 @@ def _no_kernel(q: torch.Tensor, k_shape: Tuple[int, ...], what: str) -> None:
         raise ValueError(
             f"{what}: no CUDA kernel takes {q.dtype} q {tuple(q.shape)} with "
             f"k/cache {tuple(k_shape)} (bfloat16, float16 and float32 up to "
-            f"head dim {WIDE_HEAD_DIM_MAX} are taken)"
+            f"head dim 256, and 384 and {WIDE_HEAD_DIM_MAX}, are taken; above "
+            f"{WIDE_HEAD_DIM_MAX}, the cap of csrc/flash_simt.cu, none)"
         )
 
 

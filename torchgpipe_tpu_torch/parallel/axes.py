@@ -61,6 +61,29 @@ class BoundAxis:
         return self.mesh.shift(t, self.name, kind=self.kind)
 
 
+class _AllToAll(torch.autograd.Function):
+    """:meth:`BoundAxis.all_to_all` under autograd; its backward is the
+    inverse exchange (the split and concatenated dims swapped)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, ax: BoundAxis, split_dim: int, concat_dim: int):
+        ctx.args = (ax, split_dim, concat_dim)
+        return ax.all_to_all(x.contiguous(), split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        ax, split_dim, concat_dim = ctx.args
+        return ax.all_to_all(g.contiguous(), concat_dim, split_dim), None, None, None
+
+
+def all_to_all(x: torch.Tensor, ax: BoundAxis, split_dim: int, concat_dim: int
+               ) -> torch.Tensor:
+    """The differentiable all-to-all over a bound axis (``lax.all_to_all(...,
+    tiled=True)``): Ulysses' sequence/head swaps and the expert layer's
+    dispatch to the lanes that own its experts share it."""
+    return _AllToAll.apply(x, ax, split_dim, concat_dim)
+
+
 def axis_bound(name: Optional[str]) -> Optional[BoundAxis]:
     """The :class:`BoundAxis` of ``name`` while an engine runs a layer over
     it, else None (``name`` None too)."""

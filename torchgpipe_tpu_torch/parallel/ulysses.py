@@ -16,7 +16,7 @@ from typing import Any, Optional
 
 import torch
 
-from torchgpipe_tpu_torch.parallel.axes import BoundAxis, require_axis
+from torchgpipe_tpu_torch.parallel.axes import BoundAxis, all_to_all, require_axis
 
 __all__ = ["partition_rules", "ulysses_attention"]
 
@@ -30,31 +30,16 @@ def partition_rules(sp_axis: str, pp_axis: str = "pp") -> Any:
     raise not_ported("parallel.ulysses.partition_rules (analysis.partition_rules)", "5.6")
 
 
-class _AllToAll(torch.autograd.Function):
-    """All-to-all over a bound axis; its backward is the all-to-all with
-    the split and concatenated dims swapped."""
-
-    @staticmethod
-    def forward(ctx, x: torch.Tensor, ax: BoundAxis, split_dim: int, concat_dim: int):
-        ctx.args = (ax, split_dim, concat_dim)
-        return ax.all_to_all(x, split_dim, concat_dim)
-
-    @staticmethod
-    def backward(ctx, g: torch.Tensor):
-        ax, split_dim, concat_dim = ctx.args
-        return ax.all_to_all(g.contiguous(), concat_dim, split_dim), None, None, None
-
-
 def _swap_to_heads(x: torch.Tensor, ax: BoundAxis) -> torch.Tensor:
     """``[b, s_loc, h, d] -> [b, s, h/sp, d]``: shard heads, gather the
     sequence."""
-    return _AllToAll.apply(x, ax, 2, 1)
+    return all_to_all(x, ax, 2, 1)
 
 
 def _swap_to_seq(x: torch.Tensor, ax: BoundAxis) -> torch.Tensor:
     """``[b, s, h/sp, d] -> [b, s_loc, h, d]``: gather heads, shard the
     sequence."""
-    return _AllToAll.apply(x, ax, 1, 2)
+    return all_to_all(x, ax, 1, 2)
 
 
 def ulysses_attention(

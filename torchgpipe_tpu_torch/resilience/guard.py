@@ -143,7 +143,9 @@ class StepGuard:
     ``step.optimizers``' state (as ``make_train_step`` attaches them),
     and the tensors of the arguments at ``extra_state_argnums`` (state a
     step threads through its arguments and updates in place); a callable
-    without ``pipe`` protects only those.  They are copied before each
+    without ``pipe`` protects only those.  A step with a ``snapshot(args,
+    extra)`` method (``SpmdGPipe.make_train_step``'s, whose parameters are
+    its first argument) names its own.  They are copied before each
     step, so the guard holds one more copy of them.
 
     ``finite_of(outputs) -> tree`` sets what the finite check covers
@@ -191,6 +193,9 @@ class StepGuard:
         from torchgpipe_tpu_torch.gpipe import StateSnapshot, _tensors
 
         extra = [t for n in self.extra_state_argnums for t in _tensors(args[n])]
+        own = getattr(self._step, "snapshot", None)
+        if own is not None:   # a step whose state lives in its arguments (SpmdGPipe's)
+            return own(args, extra)
         pipe = getattr(self._step, "pipe", None)
         if pipe is None:
             return StateSnapshot(torch.nn.Module(), [], extra)

@@ -1,6 +1,6 @@
 """The SPMD pipeline engine over ``torch.distributed``: one process per mesh
 position, pipeline parallelism (``pp``) composed with data (``dp``),
-sequence (``sp``) and tensor (``tp``) parallelism.
+expert (``ep``), sequence (``sp``) and tensor (``tp``) parallelism.
 
 Counterpart of ``torchgpipe_tpu/spmd.py``.  The reference expresses the
 whole GPipe schedule as one ``shard_map``-ped program over a
@@ -9,8 +9,8 @@ whole GPipe schedule as one ``shard_map``-ped program over a
 position:
 
 * :func:`make_mesh` gives this process its coordinates on ``('pp',
-  'dp'[, 'sp'][, 'tp'])`` (``pp`` outermost, ``tp`` innermost, as the
-  reference's axis order) and one process group per set of axes;
+  'dp'[, 'ep'][, 'sp'][, 'tp'])`` (``pp`` outermost, ``tp`` innermost, as
+  the reference's axis order) and one process group per set of axes;
 * each process holds its stage's slice of the stacked ``[n_stages, ...]``
   block parameters and the ``pre``/``post`` (embedding / head)
   parameters, every leaf that a layer's ``meta['param_specs']`` shards
@@ -18,16 +18,21 @@ position:
   :meth:`~SpmdGPipe.place`);
 * activations go to the next ``pp`` rank and their gradients to the
   previous one by point-to-point ``isend``/``recv``;
-* the batch is split over ``dp`` on its rows and over ``sp`` on its
-  sequence; the engine binds its ``tp`` and ``sp`` axes around each step
+* the batch is split over ``dp`` x ``ep`` on its rows (expert
+  parallelism shards tokens too) and over ``sp`` on its sequence; the
+  engine binds its ``ep``, ``tp`` and ``sp`` axes around each step
   (``parallel.axes``), and the layers run their collectives over them:
-  Megatron's all-reduces (``parallel.tensor``), the ring or Ulysses
-  (``parallel.ring_attention``, ``parallel.ulysses``);
+  the experts' all-to-alls (``models.moe``), Megatron's all-reduces
+  (``parallel.tensor``), the ring or Ulysses (``parallel.ring_attention``,
+  ``parallel.ulysses``);
 * ``pre``/``post`` gradients are summed over ``pp``, every gradient is
   averaged over ``dp`` and averaged (or, for a summed loss, summed) over
-  ``sp`` by ``all_reduce`` (the pre/post ones in one reduction over the
-  rank's pp x dp x sp group), as the reference's ``psum`` and ``pmean``
-  do; never over ``tp``, whose sharded leaves differ from lane to lane.
+  ``ep`` and ``sp`` by ``all_reduce`` (the pre/post ones in one reduction
+  over the rank's pp x dp x ep x sp group), as the reference's ``psum``
+  and ``pmean`` do; never over ``tp``, whose sharded leaves differ from
+  lane to lane, and expert leaves (sharded over ``ep``) never over
+  ``ep``: the all-to-all's backward already brought every lane's tokens'
+  contributions home.
 
 The backend is the caller's: ``nccl`` where each rank has a card of its
 own, or ``gloo``, which stages every transfer through host memory (ranks
@@ -69,30 +74,42 @@ layer as the dict of its parameters by name), with torch tensors as
 leaves; the engine runs a layer on a tree through
 ``torch.func.functional_call``.
 
-Not ported yet, raising ``NotImplementedError`` that names ROADMAP.md
-queue A item 5.4 (sub-slice e): expert parallelism, ``rng=``, megasteps,
-``checkpoint='offload'`` and the fault hooks; ``tracer=``,
-``partition_rules=`` and ``hbm_budget_bytes=`` name item 5.6, and
-``remat_policy`` item 2 (A.2.12).
+The engine's own knobs: ``train_step(rng=)`` keys every cell (one key
+per step, micro-batch and layer of the whole model, so the masks do not
+depend on the schedule), ``megastep=K`` runs K guarded steps a call,
+``checkpoint='offload'`` (fill-drain) keeps each cell's saved tensors in
+pinned host memory, and ``resilience.faults.inject(nan_at=)`` poisons a
+cell's input; an exception raised in a cell keeps its type and gains a
+note naming its stage and micro-batch.
+
+Not ported, raising ``NotImplementedError`` that names ROADMAP.md:
+``tracer=``, ``partition_rules=`` and ``hbm_budget_bytes=`` (queue A item
+5.6) and ``remat_policy`` (item 2, A.2.12).
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
 import os
-from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
+from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call
 
+from torch.nn.utils.stateless import _reparametrize_module
+
 from torchgpipe_tpu_torch import checkpoint as _ckpt
 from torchgpipe_tpu_torch import microbatch
+from torchgpipe_tpu_torch import rng as _rng
 from torchgpipe_tpu_torch.auxgrad import aux_scale
 from torchgpipe_tpu_torch.models.transformer import not_ported
 from torchgpipe_tpu_torch.parallel.axes import axis_bound, bind_axes
+from torchgpipe_tpu_torch.resilience import faults as _faults
 from torchgpipe_tpu_torch.skip.layout import pop_keys, stash_keys
 
 Pytree = Any
@@ -334,7 +351,7 @@ def _coords_at(shape: Mapping[str, int], rank: int) -> Dict[str, int]:
 
 
 class Mesh:
-    """This process's place in a ``('pp', 'dp'[, 'sp'][, 'tp'])`` mesh of
+    """This process's place in a ``('pp', 'dp'[, 'ep'][, 'sp'][, 'tp'])`` mesh of
     processes: ``axis_names``, ``shape`` (axis -> size), ``coords`` (axis
     -> this rank's index), ``device`` and ``backend``.  Global ranks are
     numbered row-major over the axes in that order (``tp`` innermost), as
@@ -345,8 +362,8 @@ class Mesh:
     The transfers below stage through host memory when the backend is
     ``gloo`` and the device a card; ``staged_bytes`` counts the bytes
     copied between the device and the host for them, and ``staged_by``
-    the same bytes by kind (``'grads'``, ``'pp'``, ``'tp'``, ``'sp'``,
-    ``'fsdp'``, ``'zero'`` ...: what moved them)."""
+    the same bytes by kind (``'grads'``, ``'pp'``, ``'ep'``, ``'tp'``,
+    ``'sp'``, ``'fsdp'``, ``'zero'`` ...: what moved them)."""
 
     def __init__(self, shape: Mapping[str, int], device: torch.device, backend: str,
                  groups: Dict[Tuple[str, ...], Any]):
@@ -560,7 +577,7 @@ class Mesh:
         return self._back(got, kind)
 
 
-_AXIS_ORDER = ("pp", "dp", "sp", "tp")
+_AXIS_ORDER = ("pp", "dp", "ep", "sp", "tp")
 
 
 def make_mesh(
@@ -573,11 +590,12 @@ def make_mesh(
     backend: Optional[str] = None,
     device: Any = None,
 ) -> Mesh:
-    """This process's :class:`Mesh` over a ``('pp', 'dp'[, 'sp'][, 'tp'])``
-    layout of ``n_stages * dp * sp * tp`` processes: the reference's axis
-    order, ``tp`` innermost (its two all-reduces a block are the chattiest
-    traffic), then ``sp``, ``dp``, and ``pp`` outermost; ``sp`` and ``tp``
-    are left out at size 1, as the reference leaves them.
+    """This process's :class:`Mesh` over a ``('pp', 'dp'[, 'ep'][, 'sp'][,
+    'tp'])`` layout of ``n_stages * dp * ep * sp * tp`` processes: the
+    reference's axis order, ``tp`` innermost (its two all-reduces a block
+    are the chattiest traffic), then ``sp``, ``ep`` (one all-to-all pair a
+    MoE layer), ``dp``, and ``pp`` outermost; ``ep``, ``sp`` and ``tp`` are
+    left out at size 1, as the reference leaves them.
 
     ``torch.distributed`` must be initialised by the caller with that
     world size (``init_process_group(backend, init_method=..., rank=,
@@ -586,17 +604,15 @@ def make_mesh(
     backend (default: the default group's); with ``gloo`` a card's
     transfers stage through the host.  ``device`` defaults to the card
     (``cuda``, the local rank — ``LOCAL_RANK``, else the global rank —
-    modulo the device count); it is the CPU only when asked.  ``ep`` above
-    1 is ROADMAP.md queue A item 5.4 (sub-slice e)."""
-    if ep > 1:
-        raise not_ported("make_mesh(ep=) (expert parallelism, A.5.4e)", "5.4")
-    sizes = {"pp": n_stages, "dp": dp, "sp": sp, "tp": tp}
+    modulo the device count); it is the CPU only when asked."""
+    sizes = {"pp": n_stages, "dp": dp, "ep": ep, "sp": sp, "tp": tp}
     shape = {a: sizes[a] for a in _AXIS_ORDER if a in ("pp", "dp") or sizes[a] > 1}
-    need = n_stages * dp * sp * tp
+    need = n_stages * dp * ep * sp * tp
     if not dist.is_available() or not dist.is_initialized():
         raise RuntimeError(
             "make_mesh needs torch.distributed initialised with world size "
-            f"n_stages * dp * sp * tp = {need} (one process per mesh position): "
+            f"n_stages * dp * sp * tp{' * ep' if ep > 1 else ''} = {need} (one process "
+            "per mesh position): "
             "call torch.distributed.init_process_group(backend, init_method="
             "'tcp://localhost:<port>', rank=, world_size=) first"
         )
@@ -684,14 +700,18 @@ def _assemble(spec: P, sizes: Mapping[str, int],
 class _Cell:
     """One micro-batch's cell on this stage: its input (a leaf that
     requires grad when a gradient must leave it), and its output's graph
-    unless checkpointed (then recomputed in the backward).  A zero-bubble
+    unless checkpointed (then recomputed in the backward), its
+    micro-batch ``i``, its global stage ``g`` and its key (``rng=``: the
+    micro-batch's key and the whole-model index of the block's first
+    layer).  A zero-bubble
     cell also keeps, from its B half to its W half, the output's
     cotangent ``gy`` and the input's gradient ``g``."""
 
-    __slots__ = ("h", "x", "y", "ckpt", "gy", "g")
+    __slots__ = ("h", "x", "y", "ckpt", "i", "stage", "key", "gy", "g")
 
-    def __init__(self, h, x, y, ckpt):
+    def __init__(self, h, x, y, ckpt, i, stage, key):
         self.h, self.x, self.y, self.ckpt = h, x, y, ckpt
+        self.i, self.stage, self.key = i, stage, key
         self.gy = self.g = None
 
 
@@ -716,7 +736,11 @@ class SpmdGPipe:
         ``tie_embeddings``) reads those parameters of ``pre`` (the tied
         embedding): they are spliced in at apply time and their
         gradients sum into ``grads["pre"]``.
-      checkpoint: 'always', 'except_last' or 'never'.
+      checkpoint: 'always', 'except_last', 'never' or 'offload'
+        (fill-drain: no recompute, each cell's saved tensors in pinned
+        host memory from its forward to its backward,
+        ``checkpoint.Offload``; ``offload_stats`` has the last step's
+        bytes).
       loss_reduction: 'mean' (default) or 'sum' declares that ``post`` and
         ``loss_fn`` decompose over batch rows that way, which shards the
         fill-drain head and loss over ``pp`` and admits ragged batches;
@@ -725,10 +749,16 @@ class SpmdGPipe:
         ``virtual_stages`` >= 2 chunks a rank, ``chunks`` a multiple of
         ``n_stages``) or 'zb' (checkpoint 'never' or 'always').
       dp_axis: the data-parallel axis name ('dp'), or None.
+      ep_axis: the expert-parallel axis name ('ep'), or None: it shards
+        the batch like a second dp axis and the expert leaves over its
+        lanes (``models.moe.MoEConfig(ep_axis=)``); needs a
+        ``loss_reduction``.
       fsdp: store the block leaves sharded over ``dp_axis`` (ZeRO-3);
         needs ``dp_axis``.
       zero_update: the default ZeRO level of :meth:`make_train_step`
         (0/False, 1/True, or 3 under fsdp).
+      megastep: the default K of :meth:`make_train_step` (K guarded steps
+        a call).
 
     The reference's other knobs are taken so that its calls transcribe:
     ``scan_unroll``, ``send_ahead`` and ``gather_schedule`` shape its
@@ -876,6 +906,14 @@ class SpmdGPipe:
                 "SPMD engine supports checkpoint="
                 "'always'|'except_last'|'never'|'offload'"
             )
+        if self.checkpoint == "offload" and self.schedule != "fill_drain":
+            raise ValueError(
+                f"checkpoint='offload' is a fill_drain feature: the "
+                f"{self.schedule!r} schedule hand-writes its per-cell "
+                "recompute/residual machinery (no jax.checkpoint region "
+                "to attach the offload save policy to).  Use "
+                "schedule='fill_drain', or checkpoint='never'/'always'"
+            )
         if self.fsdp and self.dp_axis is None:
             raise ValueError(
                 "fsdp shards parameters over the data-parallel lanes: set "
@@ -897,6 +935,12 @@ class SpmdGPipe:
             raise ValueError(
                 "sequence parallelism needs a batch/token-decomposable loss: "
                 "set loss_reduction='mean' or 'sum'"
+            )
+        if self.ep_axis is not None and self.loss_reduction is None:
+            raise ValueError(
+                "expert parallelism shards the batch over the ep axis, so it "
+                "needs a batch-decomposable loss: set loss_reduction='mean' "
+                "or 'sum'"
             )
         if self.schedule not in ("fill_drain", "1f1b", "interleaved", "zb"):
             raise ValueError(
@@ -992,15 +1036,9 @@ class SpmdGPipe:
                     f"both from the same value (e.g. TransformerConfig.{key} "
                     f"and SpmdGPipe.{key})"
                 )
-        # What later sub-slices of ROADMAP.md A.5.4 bring.
-        if self.ep_axis is not None:
-            raise not_ported("SpmdGPipe(ep_axis=) (expert parallelism, A.5.4e)", "5.4")
-        if self.checkpoint == "offload":
-            raise not_ported("SpmdGPipe(checkpoint='offload') (A.5.4e)", "5.4")
+        # What later items of ROADMAP.md bring.
         if self.remat_policy is not None:
             raise not_ported("SpmdGPipe(remat_policy=)", "2")
-        if self.megastep != 1:
-            raise not_ported("SpmdGPipe(megastep=) (A.5.4e)", "5.4")
         if self.tracer is not None or self.partition_rules is not None \
                 or self.hbm_budget_bytes is not None:
             raise not_ported("SpmdGPipe(tracer=, partition_rules=, hbm_budget_bytes=) "
@@ -1036,6 +1074,11 @@ class SpmdGPipe:
                 self._specs[key] = layer_param_specs(lyr, None)
         self._stage = self.mesh.coords[self.pp_axis]
         self._lane = self.mesh.coords[self.dp_axis] if self.dp_axis else 0
+        self._ep = self.mesh.shape[self.ep_axis] if self.ep_axis else 1
+        # The batch rows are sharded over dp x ep (row-major: lane d*ep + e).
+        self._rows = self._dp * self._ep
+        self._row_lane = self._lane * self._ep + (
+            self.mesh.coords[self.ep_axis] if self.ep_axis else 0)
         self._sp = self.mesh.shape[self.sp_axis] if self.sp_axis else 1
         self._sp_lane = self.mesh.coords[self.sp_axis] if self.sp_axis else 0
         self._names = {
@@ -1046,6 +1089,13 @@ class SpmdGPipe:
         }
         self._warned_ragged_coupled = False
         self._loopback: Dict[int, torch.Tensor] = {}
+        # Layers a stage's block runs (the keys' layer index per cell).
+        self._per = len(self.block) if isinstance(self.block, nn.Sequential) else 1
+        self._key: Optional[_rng.Key] = None   # the running step's rng
+        self._where: Optional[Tuple[int, int, str]] = None   # the running cell
+        self._offload: Optional[_ckpt.Offload] = None
+        # Bytes of the last 'offload' step (checkpoint.Offload).
+        self.offload_stats = {"saved_bytes": 0, "moved_bytes": 0}
 
     # ------------------------------------------------------------------ #
     # FSDP (ZeRO-3-style parameter sharding over dp)                     #
@@ -1132,11 +1182,13 @@ class SpmdGPipe:
         shape, dtype = ((tuple(in_spec.shape), in_spec.dtype)
                         if isinstance(in_spec, torch.Tensor) else in_spec)
         x = torch.zeros(shape, dtype=dtype, device="meta")
-        if self.pre is not None:
-            x = _call(self.pre, self._names["pre"],
-                      _tree_map(lambda t: t.to("meta"), module_tree(self.pre)), x)
-        y = _call(self.block, self._names["blocks"],
-                  _tree_map(lambda t: t.to("meta"), module_tree(self.block)), x)
+        # Shapes only: a random layer draws from a placeholder key.
+        with _rng.scope(_rng.Key(torch.zeros((), dtype=torch.int64))):
+            if self.pre is not None:
+                x = _call(self.pre, self._names["pre"],
+                          _tree_map(lambda t: t.to("meta"), module_tree(self.pre)), x)
+            y = _call(self.block, self._names["blocks"],
+                      _tree_map(lambda t: t.to("meta"), module_tree(self.block)), x)
         if not isinstance(y, torch.Tensor) or y.shape != x.shape or y.dtype != x.dtype:
             raise ValueError(
                 "SPMD pipeline blocks must preserve activation shape/dtype "
@@ -1387,11 +1439,11 @@ class SpmdGPipe:
         """The number of padding rows a ragged batch needs (0 when already
         divisible); ``ragged_ok`` callers pad and mask instead of raising."""
         b = microbatch.batch_size(x)
-        pad = (-b) % (self.chunks * self._dp)
+        pad = (-b) % (self.chunks * self._rows)
         if pad and not ragged_ok:
             raise ValueError(
                 f"batch size {b} must be divisible by chunks*dp*ep = "
-                f"{self.chunks}*{self._dp}*1 = {self.chunks * self._dp} here: "
+                f"{self.chunks}*{self._dp}*{self._ep} = {self.chunks * self._rows} here: "
                 "ragged batches need a row-decomposable loss to weight the "
                 "padding out — set loss_reduction='mean' or 'sum' (or use "
                 "the MPMD GPipe engine, whose scheduler runs ragged "
@@ -1414,12 +1466,14 @@ class SpmdGPipe:
     # ------------------------------------------------------------------ #
 
     def _local_microbatches(self, tree: Pytree, seq: bool = True) -> List[Pytree]:
-        """This dp lane's ``m`` micro-batches of a padded global batch:
-        ``[B] -> [m, B/m]`` (micro-batch major), lane ``d`` keeping rows
-        ``[d*b, (d+1)*b)`` of each (``b = B / (m * dp)``), and, under an sp
+        """This lane's ``m`` micro-batches of a padded global batch: ``[B]
+        -> [m, B/m]`` (micro-batch major), row lane ``d`` of the ``dp *
+        ep`` lanes (``d = dp_index * ep + ep_index``) keeping rows ``[d*b,
+        (d+1)*b)`` of each (``b = B / (m * dp * ep)``), and, under an sp
         axis (``seq``), sp lane ``r`` positions ``[r*s, (r+1)*s)`` of dim 1
-        (``s = S / sp``): the reference's data spec ``P(None, dp, sp)``."""
-        m, dp, d = self.chunks, self._dp, self._lane
+        (``s = S / sp``): the reference's data spec ``P(None, (dp, ep),
+        sp)``."""
+        m, dp, d = self.chunks, self._rows, self._row_lane
         sp, r = (self._sp, self._sp_lane) if seq else (1, 0)
         dev = self.mesh.device
 
@@ -1437,12 +1491,45 @@ class SpmdGPipe:
     # cells                                                              #
     # ------------------------------------------------------------------ #
 
-    def _run_block(self, blocks: Pytree, x: torch.Tensor) -> torch.Tensor:
+    def _run_block(self, blocks: Pytree, x: torch.Tensor,
+                   key: Optional[Tuple[_rng.Key, int]] = None) -> torch.Tensor:
+        """The stage's block on ``x``; with a cell ``key`` (the
+        micro-batch's key and the whole-model index of the block's first
+        layer) each of its layers runs under its own key."""
         p = _tree_map(lambda a: a[0], blocks)
-        return _call(self.block, self._names["blocks"], p, x)
+        if key is None:
+            return _call(self.block, self._names["blocks"], p, x)
+        mb, first = key
+        mapping = {name: _get(p, path) for path, name in _items(self._names["blocks"])}
+        layers = list(self.block) if isinstance(self.block, nn.Sequential) else [self.block]
+        with _reparametrize_module(self.block, mapping):
+            for li, layer in enumerate(layers):
+                with _rng.scope(mb.fold(first + li)):
+                    x = layer(x)
+        return x
 
-    def _run_pre(self, leaves: dict, x: Pytree, train: bool) -> torch.Tensor:
-        return _call(self.pre, self._names["pre"], leaves["pre"], x)
+    def _cell_key(self, i: int, g: int) -> Optional[Tuple[_rng.Key, int]]:
+        """The key of micro-batch ``i``'s cell at global (virtual) stage
+        ``g``: ``fold_in(rng, i)``, and its layers at their index in the
+        whole model ``[pre, every block's layers, post]``, as the MPMD
+        ``GPipe`` numbers them; so every schedule (fill-drain, 1F1B,
+        zero-bubble, interleaved over the same global blocks) draws the
+        same masks."""
+        if self._key is None:
+            return None
+        return self._key.fold(i), 1 + g * self._per
+
+    def _end_key(self, i: int, post: bool) -> Optional[_rng.Key]:
+        """``pre``'s key for micro-batch ``i`` (layer 0), or ``post``'s for
+        its ``i``-th call (the layer after the last block)."""
+        if self._key is None:
+            return None
+        layer = 1 + self.n_stages * self.virtual_stages * self._per if post else 0
+        return self._key.fold(i).fold(layer)
+
+    def _run_pre(self, leaves: dict, x: Pytree, train: bool, i: int = 0) -> torch.Tensor:
+        with _rng.scope(self._end_key(i, False) if train else None):
+            return _call(self.pre, self._names["pre"], leaves["pre"], x)
 
     def _tied(self, own: Pytree, pre: Pytree, keys: Tuple[str, ...]) -> Pytree:
         """Splice tied pre-param entries into a post/loss layer's tree:
@@ -1452,12 +1539,14 @@ class SpmdGPipe:
             return own
         return dict(own, **{k: pre[k] for k in keys})
 
-    def _run_post(self, leaves: dict, y: torch.Tensor) -> torch.Tensor:
+    def _run_post(self, leaves: dict, y: torch.Tensor, i: Optional[int] = None
+                  ) -> torch.Tensor:
         p = self._tied(leaves["post"], leaves.get("pre", ()), self._tie_post)
         names = self._names["post"]
         if self._tie_post:
             names = dict(names, **{k: k for k in self._tie_post})
-        return _call(self.post, names, p, y)
+        with _rng.scope(None if i is None else self._end_key(i, True)):
+            return _call(self.post, names, p, y)
 
     def _loss_call(self, leaves: dict, y: Any, tgt: Any) -> torch.Tensor:
         """The engine's one loss entry point: a plain ``loss_fn(y, tgt)``
@@ -1495,41 +1584,64 @@ class SpmdGPipe:
 
     def _mask_mean_scale(self, mask_local: torch.Tensor) -> torch.Tensor:
         """The scale turning a lane-local masked row-loss sum into a value
-        whose dp mean is the global masked mean: dp over the real row
-        count (summed over dp from the mask itself)."""
-        n_real = self.mesh.all_reduce(mask_local.sum().float(), self.dp_axis, kind="loss") \
-            if self.dp_axis else mask_local.sum().float()
-        return self._dp / n_real
+        whose dp and ep means are the global masked mean: dp·ep over the
+        real row count (summed over dp and ep from the mask itself)."""
+        axes = tuple(a for a in (self.dp_axis, self.ep_axis) if a)
+        n_real = self.mesh.all_reduce(mask_local.sum().float(), axes, kind="loss") \
+            if axes else mask_local.sum().float()
+        return self._rows / n_real
 
     def _cell_forward(self, blocks: Pytree, h: torch.Tensor, ckpt: bool,
-                      need_grad: bool) -> Tuple[torch.Tensor, _Cell]:
-        """One cell's forward: the block on a leaf copy of the input,
-        without a graph when checkpointed (recomputed by
-        :meth:`_cell_backward`)."""
+                      need_grad: bool, i: int, g: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, _Cell]:
+        """Micro-batch ``i``'s cell forward at global stage ``g`` (default
+        this stage): the block on a leaf copy of the input, without a
+        graph when checkpointed (recomputed by :meth:`_cell_backward`);
+        under ``'offload'`` its saved tensors go to host memory."""
+        g = self._stage if g is None else g
+        self._where = (g, i, self._block_name())
+        key = self._cell_key(i, g)
         x = h.detach()
         if need_grad:
             x.requires_grad_()
         with aux_scale(1.0 / self.chunks):
             if ckpt:
                 with torch.no_grad(), _ckpt.phase(checkpointing=True):
-                    y = self._run_block(blocks, x)
-                return y, _Cell(h, x, None, True)
-            y = self._run_block(blocks, x)
-        return y.detach(), _Cell(h, x, y, False)
+                    y = self._run_block(blocks, x, key)
+                return y, _Cell(h, x, None, True, i, g, key)
+            if self._offload is None:
+                y = self._run_block(blocks, x, key)
+            else:
+                with self._offload.cell(i, self.mesh.device, [x, *_leaves(blocks)]):
+                    y = self._run_block(blocks, x, key)
+        return y.detach(), _Cell(h, x, y, False, i, g, key)
 
     def _cell_backward(self, blocks: Pytree, cell: _Cell, gy: torch.Tensor
                        ) -> Optional[torch.Tensor]:
         """Apply ``gy`` to the cell's output (recomputing it first when
-        checkpointed); returns its input's gradient, if it takes one."""
+        checkpointed; under ``'offload'`` its saved tensors fetched back,
+        the next cell's on their way); returns its input's gradient, if
+        it takes one."""
+        self._where = (cell.stage, cell.i, self._block_name())
+        if self._offload is not None:
+            dev = self.mesh.device
+            self._offload.before_backward(cell.i, dev, cell.i - 1 if cell.i else None, dev)
         y = self._recompute(blocks, cell) if cell.ckpt else cell.y
         torch.autograd.backward(y, gy)
         cell.y = None
         return cell.x.grad if cell.x.requires_grad else None
 
+    def _block_name(self, layer: Optional[nn.Module] = None, what: str = "block") -> str:
+        """``block 'stage'`` (or ``what`` and ``layer``'s name): a failing
+        cell's note."""
+        layer = self.block if layer is None else layer
+        return f"{what} {getattr(layer, 'name', type(layer).__name__)!r}"
+
     def _recompute(self, blocks: Pytree, cell: _Cell) -> torch.Tensor:
-        """A checkpointed cell's output again, with its graph."""
+        """A checkpointed cell's output again, with its graph (and its
+        key: the same masks)."""
         with aux_scale(1.0 / self.chunks), _ckpt.phase(recomputing=True):
-            return self._run_block(blocks, cell.x)
+            return self._run_block(blocks, cell.x, cell.key)
 
     def _stage_input(self, leaves: dict, x_mb: List[Pytree], i: int) -> torch.Tensor:
         """Stage 0: ``pre`` of micro-batch ``i`` (its graph kept for the
@@ -1540,8 +1652,9 @@ class SpmdGPipe:
                                   _ACT * _TAG + i)
         if self.pre is None:
             return x_mb[i]
+        self._where = (0, i, self._block_name(self.pre, "pre layer"))
         with aux_scale(1.0 / self.chunks):
-            return self._run_pre(leaves, x_mb[i], True)
+            return self._run_pre(leaves, x_mb[i], True, i)
 
     def _need_input_grad(self, h: torch.Tensor) -> bool:
         return torch.is_floating_point(h) and (self._stage > 0 or self.pre is not None)
@@ -1619,7 +1732,7 @@ class SpmdGPipe:
         reference's fill-drain ``loss_of``."""
         if self.post is not None:
             with aux_scale(1.0 / n_slices):
-                y = self._run_post(leaves, y)
+                y = self._run_post(leaves, y, self._stage)
         if mask is not None:
             l = self._masked_loss_sum(leaves, y, tgt, mask)
             return l * mean_scale if self.loss_reduction == "mean" else l
@@ -1628,13 +1741,13 @@ class SpmdGPipe:
 
     def _cell_mb_loss(self, leaves: dict, y: torch.Tensor, tgt_i: Pytree,
                       mask_i: Optional[torch.Tensor],
-                      mean_scale: Optional[torch.Tensor]) -> torch.Tensor:
+                      mean_scale: Optional[torch.Tensor], i: int) -> torch.Tensor:
         """Per-micro-batch head + loss for a final 1F1B cell (aux scale
         1/m); with ``mask_i`` the masked row sum scaled so the sum over
         cells and the dp mean give the exact loss over the real rows."""
         if self.post is not None:
             with aux_scale(1.0 / self.chunks):
-                y = self._run_post(leaves, y)
+                y = self._run_post(leaves, y, i)
         if mask_i is not None:
             s = self._masked_loss_sum(leaves, y, tgt_i, mask_i)
             if self.loss_reduction == "mean":
@@ -1651,8 +1764,8 @@ class SpmdGPipe:
         blocks = leaves["blocks"]
         cells, outs = [], []
         for i in range(m):
-            h = self._stage_input(leaves, x_mb, i)
-            y, cell = self._cell_forward(blocks, h, i < stop, self._need_input_grad(h))
+            h = _faults.spmd_corrupt_cell_input(j, i, self._stage_input(leaves, x_mb, i))
+            y, cell = self._cell_forward(blocks, h, i < stop, self._need_input_grad(h), i)
             cells.append(cell)
             if j < n - 1:
                 mesh.send(y, mesh.rank_of(j + 1, self._lane), _ACT * _TAG + i)
@@ -1681,7 +1794,7 @@ class SpmdGPipe:
             if op == "F":
                 h = self._stage_input(leaves, x_mb, i)
                 y, cells[i] = self._cell_forward(blocks, h, i < stop,
-                                                 self._need_input_grad(h))
+                                                 self._need_input_grad(h), i)
                 if j < n - 1:
                     mesh.send(y, mesh.rank_of(j + 1, self._lane), _ACT * _TAG + i)
                 else:
@@ -1706,7 +1819,7 @@ class SpmdGPipe:
         gradients accumulated), its loss and ``y``'s gradient."""
         y = y.requires_grad_()
         l_i = self._cell_mb_loss(leaves, y, tgt_mb[i],
-                                 None if mask_mb is None else mask_mb[i], mean_scale)
+                                 None if mask_mb is None else mask_mb[i], mean_scale, i)
         l_i.backward()
         return l_i.detach(), y.grad
 
@@ -1763,7 +1876,7 @@ class SpmdGPipe:
                 h = (self._stage_input(leaves, x_mb, i) if j == 0 and c == 0
                      else self._take(j - 1 if j else n - 1, _ACT, c, i))
                 need = torch.is_floating_point(h) and (j > 0 or c > 0 or self.pre is not None)
-                y, cells[c, i] = self._cell_forward(chunks[c], h, i < stop, need)
+                y, cells[c, i] = self._cell_forward(chunks[c], h, i < stop, need, i, c * n + j)
                 if j < n - 1:
                     self._hand(y, j + 1, _ACT, c, i)
                 elif c < v - 1:
@@ -1812,7 +1925,7 @@ class SpmdGPipe:
             if k == F:
                 h = self._stage_input(leaves, x_mb, i)
                 y, cells[i] = self._cell_forward(blocks, h, self.checkpoint == "always",
-                                                 self._need_input_grad(h))
+                                                 self._need_input_grad(h), i)
                 if j < n - 1:
                     mesh.send(y, mesh.rank_of(j + 1, self._lane), _ACT * _TAG + i)
                 else:
@@ -1825,6 +1938,7 @@ class SpmdGPipe:
                 else:
                     gy = mesh.recv(mesh.rank_of(j + 1, self._lane), _GRAD * _TAG + i)
                 cell = cells[i]
+                self._where = (j, i, self._block_name())
                 if cell.ckpt:
                     cell.y = self._recompute(blocks, cell)
                 cell.gy = gy
@@ -1834,6 +1948,7 @@ class SpmdGPipe:
                         mesh.send(cell.g, mesh.rank_of(j - 1, self._lane), _GRAD * _TAG + i)
             elif k == W:
                 cell = cells.pop(i)
+                self._where = (j, i, self._block_name())
                 torch.autograd.backward(cell.y, cell.gy, inputs=weights)
                 if j == 0 and cell.g is not None and cell.h.requires_grad:
                     torch.autograd.backward(cell.h, cell.g)   # pre's parameters
@@ -1845,19 +1960,27 @@ class SpmdGPipe:
         grads)``: the global loss (float32, on every rank) and this rank's
         gradient tree (the layout of :meth:`place`'s: this stage's
         ``[1, ...]`` block slice, under fsdp this lane's dp shard of it,
-        reduce-scattered; the pre/post/loss trees summed over pp; every
-        leaf averaged over dp).
+        reduce-scattered, an expert leaf this ep lane's experts; the
+        pre/post/loss trees summed over pp; every leaf averaged over dp
+        and over ep, where the batch is split).
 
         ``x``/``target`` are the full mini-batch ``[B, ...]`` on every
-        rank (each takes its dp lane's rows).  A ragged ``B`` (not
-        divisible by chunks·dp) is accepted whenever the loss is
+        rank (each takes its dp x ep lane's rows).  A ragged ``B`` (not
+        divisible by chunks·dp·ep) is accepted whenever the loss is
         row-decomposable: the batch is edge-padded and a mask weights the
         padding out of the loss and every gradient exactly.  ``params``
-        is not changed."""
-        if rng is not None:
-            raise not_ported("SpmdGPipe.train_step(rng=) (per-cell dropout keys, "
-                             "A.5.4e)", "5.4")
+        is not changed.
+
+        ``rng`` (an int seed or a 1-element integer tensor: a key of
+        ``torchgpipe_tpu_torch.rng``) keys every layer of every cell: the
+        block layer ``l`` of micro-batch ``i`` draws from ``fold_in(
+        fold_in(rng, i), l)``, ``l`` its index in the whole model (``pre``
+        0, then every stage's block layers, then ``post``), so a cell's
+        recompute draws the same masks and every schedule the same loss.
+        An exception raised in a cell keeps its type and gains a note
+        naming the stage and micro-batch."""
         self._check_params(params)
+        self._fault_check(for_train=True)
         pad = self._check_batch(x, target, ragged_ok=self.loss_reduction is not None)
         if pad and not self._warned_ragged_coupled:
             self._warned_ragged_coupled = True
@@ -1894,38 +2017,94 @@ class SpmdGPipe:
             else leaves
         run = {"1f1b": self._one_f_one_b, "interleaved": self._interleaved,
                "zb": self._zero_bubble}.get(self.schedule, self._fill_drain)
+        self._key = None if rng is None else _rng.Key(_rng.key_tensor(rng))
+        self._offload = _ckpt.Offload() if self.checkpoint == "offload" else None
         try:
-            with self._bound():
+            with self._bound(), self._annotate_cell_failure():
                 loss = run(cells, x_mb, tgt_mb, mask_mb, mean_scale, stop)
         finally:
             self.mesh.flush()
+            self._key = None
+            if self._offload is not None:
+                self.offload_stats = {"saved_bytes": self._offload.saved_bytes,
+                                      "moved_bytes": self._offload.moved_bytes}
+                self._offload = None
         return self._reduce(loss, leaves, cells["blocks"])
 
+    def _fault_check(self, *, for_train: bool = False) -> None:
+        """Refuse a ``faults.inject(nan_at=)`` plan the requested program
+        has no hook for, as the reference does: the fill-drain training
+        step and the non-interleaved forward poison their cells' inputs
+        (``faults.spmd_corrupt_cell_input``); a chaos run that injected
+        nothing would certify recovery code that never ran.  (The port
+        runs its cells eagerly, so it keeps no programs to key by
+        ``faults.plan_token()``.)"""
+        plan = _faults.active_plan()
+        bad_schedule = (self.schedule != "fill_drain" if for_train
+                        else self.schedule == "interleaved")
+        if plan is not None and plan.nan_at is not None and bad_schedule:
+            raise NotImplementedError(
+                "faults.inject(nan_at=...) is supported by the SPMD "
+                "fill_drain training step and the non-interleaved "
+                "apply/eval programs only (got "
+                f"schedule={self.schedule!r}); these are the paths with a "
+                "per-cell injection hook"
+            )
+
+    @contextlib.contextmanager
+    def _annotate_cell_failure(self) -> Iterator[None]:
+        """Give an exception raised in a cell the MPMD engine's (stage,
+        micro-batch) note, its type kept.  The cells run eagerly here, so
+        the failing cell is the one that ran (:attr:`_where`), not the
+        reference's abstract re-evaluation's guess."""
+        self._where = None
+        try:
+            yield
+        except Exception as e:  # noqa: BLE001 — annotate and re-raise as is
+            notes = getattr(e, "__notes__", None) or []
+            if self._where is not None and not any("pipeline stage" in n for n in notes):
+                stage, mb, what = self._where
+                e.add_note(f"raised in pipeline stage {stage}, micro-batch {mb} ({what}; "
+                           f"SPMD {self.schedule} schedule, rank {self.mesh.rank})")
+            raise
+
     def _bound(self) -> Any:
-        """The context binding this engine's tp and sp axes for the layers
-        it runs (:func:`~torchgpipe_tpu_torch.parallel.axes.axis_bound`);
-        their host staging counts under ``'tp'`` and ``'sp'``."""
-        return bind_axes(self.mesh, [self.tp_axis, self.sp_axis], ["tp", "sp"])
+        """The context binding this engine's ep, tp and sp axes for the
+        layers it runs (:func:`~torchgpipe_tpu_torch.parallel.axes.axis_bound`);
+        their host staging counts under ``'ep'``, ``'tp'`` and ``'sp'``."""
+        return bind_axes(self.mesh, [self.ep_axis, self.tp_axis, self.sp_axis],
+                         ["ep", "tp", "sp"])
 
     def _reduction(self) -> Tuple[Tuple[str, ...], Tuple[str, ...], float]:
         """``(axes of the loss and the pre/post/loss gradients, axes of the
         block gradients, scale)``: summed over pp, averaged over dp, and
-        over sp averaged (``loss_reduction='mean'``) or summed (``'sum'``),
-        the reference's psum / pmean.  Never over tp: a vocab-sharded
-        table's gradients differ from lane to lane, and a tp-replicated
-        leaf's are already equal on every lane."""
-        sp = tuple(a for a in (self.sp_axis,) if a)
+        over ep and sp averaged (``loss_reduction='mean'``) or summed
+        (``'sum'``), the reference's psum / pmean.  Never over tp: a
+        vocab-sharded table's gradients differ from lane to lane, and a
+        tp-replicated leaf's are already equal on every lane.  An expert
+        leaf (sharded over ep) leaves ep out of its axes
+        (:meth:`_leaf_axes`) and keeps the scale."""
+        sp = tuple(a for a in (self.ep_axis, self.sp_axis) if a)
         blocks = tuple(a for a in (self.dp_axis,) if a) + sp
         scale = 1.0 / self._dp
-        if sp and self.loss_reduction == "mean":
-            scale /= self._sp
+        if self.loss_reduction == "mean":
+            scale /= self._sp * self._ep
         return (self.pp_axis,) + blocks, blocks, scale
+
+    def _leaf_axes(self, axes: Tuple[str, ...], spec: P) -> Tuple[str, ...]:
+        """The reduction axes of a gradient leaf under ``spec``: the ep
+        axis left out for a leaf sharded over it (the reference's
+        ``_reduce_ep``: its lane-local gradient already sums every lane's
+        tokens, the all-to-all's backward routed them home)."""
+        if self.ep_axis and spec_mentions(spec, self.ep_axis):
+            return tuple(a for a in axes if a != self.ep_axis)
+        return axes
 
     def _reduce(self, loss: torch.Tensor, leaves: dict,
                 blocks: Pytree) -> Tuple[torch.Tensor, dict]:
         """The loss and every gradient reduced as :meth:`_reduction` says,
-        each pre/post/loss leaf in one reduction over its pp x dp x sp
-        group; under fsdp each gathered block tensor's gradient (of
+        each pre/post/loss leaf in one reduction over its pp x dp x ep x
+        sp group; under fsdp each gathered block tensor's gradient (of
         ``blocks``) reduce-scattered back to this lane's shard."""
         mesh = self.mesh
         every, block_axes, scale = self._reduction()
@@ -1938,8 +2117,9 @@ class SpmdGPipe:
             g = _tree_map(lambda a: torch.zeros_like(a) if a.grad is None else a.grad,
                           leaves[key])
             axes = block_axes if key == "blocks" else every
-            grads[key] = _tree_map(lambda t: mesh.all_reduce(t, axes, scale), g) \
-                if axes else g
+            grads[key] = _tree_map(
+                lambda t, spec: mesh.all_reduce(t, self._leaf_axes(axes, spec), scale), g,
+                broadcast_specs(self._specs[key], g))
         return loss, grads
 
     def _reduce_fsdp(self, a: torch.Tensor, dim: int) -> torch.Tensor:
@@ -2116,42 +2296,105 @@ class SpmdGPipe:
 
     def make_train_step(self, optimizer: Callable[..., torch.optim.Optimizer], *,
                         donate: bool = True, megastep: Optional[int] = None,
-                        zero: Any = None) -> Callable[..., torch.Tensor]:
-        """``step(params, x, target) -> loss``: :meth:`train_step`, then
-        one ``torch.optim`` update of this rank's leaves of ``params``
+                        zero: Any = None) -> Callable[..., Any]:
+        """``step(params, x, target, rng=None) -> loss``: :meth:`train_step`,
+        then one ``torch.optim`` update of this rank's leaves of ``params``
         (``optimizer`` is a factory taking an iterable of tensors, e.g.
         ``functools.partial(torch.optim.SGD, lr=0.1)``), in place as the
         port's ``GPipe.make_train_step`` does.  The optimizer is built at
         the first call by :meth:`zero_opt_state` at ZeRO level ``zero``
         (None: the pipe's ``zero_update``), over that call's ``params``
         tensors (``step.optimizer``); later calls must pass the same tree.
-        ``donate`` changes nothing here (the update is in place);
-        ``megastep`` above 1 is ROADMAP.md A.5.4e."""
+        ``donate`` changes nothing here (the update is in place).
+
+        ``megastep=K`` (default: the pipe's ``megastep``) above 1 runs K
+        steps a call: ``step(params, xs, targets, rng=None) -> (loss[K],
+        finite[K])`` over ``[K, ...]``-stacked batches, inner step ``k``
+        keyed ``fold_in(rng, k)``.  After each inner step the loss and
+        every updated parameter and optimizer state tensor are checked on
+        every rank (one all-reduce of a flag); a step that is not finite
+        anywhere is undone everywhere (``gpipe.StateSnapshot``), bitwise
+        what :class:`~torchgpipe_tpu_torch.resilience.guard.StepGuard`
+        around K single steps leaves.  Gloo's collectives cannot be
+        captured into a CUDA graph, so the K steps are a host loop in one
+        call, not one captured program: the call saves the guard's
+        per-step host work, not the per-step launches.
+
+        ``step.snapshot(args)`` is the state a guard protects (this rank's
+        parameters, the optimizer's state, ZeRO-1's segments), what
+        ``StepGuard`` takes before each step."""
         K = self.megastep if megastep is None else int(megastep)
-        if K != 1:
-            raise not_ported("SpmdGPipe.make_train_step(megastep=) (A.5.4e)", "5.4")
+        if K < 1:
+            raise ValueError(f"megastep must be >= 1, got {K}")
         level = self._zero_level(zero)
         self._zero_check(level)
 
-        def step(params: dict, x: Pytree, target: Pytree,
-                 rng: Optional[Any] = None) -> torch.Tensor:
+        def prepare(params: dict) -> None:
             tensors = self._flat(params)
             if step.optimizer is None:
                 step.tensors = tensors
                 step.optimizer = self.zero_opt_state(optimizer, params, zero=level)
+                step.optimizers.append(step.optimizer)
             elif len(tensors) != len(step.tensors) or any(
                     a is not b for a, b in zip(tensors, step.tensors)):
                 raise ValueError(
                     "this step's optimizer was built over another params tree; "
                     "pass the tree of the first call (updated in place)")
+
+        def one(params: dict, x: Pytree, target: Pytree, rng: Optional[Any]) -> torch.Tensor:
+            prepare(params)
             loss, grads = self.train_step(params, x, target, rng)
             self._zero_apply(step.optimizer, self._flat(grads))
             return loss
 
+        def snapshot(args: Tuple, extra: Sequence[torch.Tensor] = ()) -> Any:
+            from torchgpipe_tpu_torch.gpipe import StateSnapshot
+
+            prepare(args[0])
+            opt = step.optimizer
+            seg = list(opt.zero_segments) if opt.zero_level == 1 else []
+            return StateSnapshot(nn.Module(), step.optimizers,
+                                 self._flat(args[0]) + seg + list(extra))
+
+        if K == 1:
+            def step(params: dict, x: Pytree, target: Pytree,
+                     rng: Optional[Any] = None) -> torch.Tensor:
+                return one(params, x, target, rng)
+        else:
+            def step(params: dict, xs: Pytree, targets: Pytree,
+                     rng: Optional[Any] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                for leaf in _leaves(xs):
+                    if leaf.shape[:1] != (K,):
+                        raise ValueError(
+                            f"megastep={K} consumes [K, ...]-stacked batches "
+                            f"(K steps in one call), got a leading dim of "
+                            f"{leaf.shape[0]} — stack K per-step batches with "
+                            "torch.stack, or pass megastep=1")
+                    break
+                from torchgpipe_tpu_torch.resilience.guard import _all_finite
+
+                key = None if rng is None else _rng.key_tensor(rng)
+                snap = snapshot((params,))
+                losses, oks = [], []
+                for k in range(K):
+                    x, y = _tree_map(lambda a: a[k], (xs, targets))
+                    snap.take()
+                    loss = one(params, x, y, None if key is None else _rng.fold_in(key, k))
+                    ok = _all_finite([loss, *snap.tensors()]).to(self.mesh.device)
+                    # Skipped everywhere if not finite anywhere.
+                    bad = self.mesh.all_reduce((~ok).float(), None, op="max", kind="loss")
+                    ok = bad.to(ok.device) == 0
+                    snap.select(ok, eager=True)
+                    losses.append(loss)
+                    oks.append(ok)
+                return torch.stack(losses), torch.stack(oks)
+
         step.optimizer = None
+        step.optimizers = []
         step.tensors = []
         step.pipe = self
-        step.megastep = 1
+        step.megastep = K
+        step.snapshot = snapshot
         return step
 
     # ------------------------------------------------------------------ #
@@ -2174,10 +2417,12 @@ class SpmdGPipe:
             if j > 0:
                 h = mesh.recv(mesh.rank_of(j - 1, self._lane), _ACT * _TAG + i)
             elif self.pre is not None:
+                self._where = (0, i, self._block_name(self.pre, "pre layer"))
                 h = self._run_pre(params, x_mb[i], False)
             else:
                 h = x_mb[i]
-            y = self._run_block(blocks, h)
+            self._where = (j, i, self._block_name())
+            y = self._run_block(blocks, _faults.spmd_corrupt_cell_input(j, i, h))
             if j < n - 1:
                 mesh.send(y, mesh.rank_of(j + 1, self._lane), _ACT * _TAG + i)
             else:
@@ -2218,10 +2463,11 @@ class SpmdGPipe:
         sequence over sp.  Ragged batches are edge-padded through the
         pipeline and the padding rows sliced off."""
         self._check_params(params)
+        self._fault_check()
         pad = self._check_batch(x, ragged_ok=True)
         b_real = microbatch.batch_size(x)
         out = None
-        with self._bound():
+        with self._bound(), self._annotate_cell_failure():
             outs = self._forward_outputs(params, self._local_microbatches(_pad_batch(x, pad)))
             if outs is not None:
                 out = torch.stack([self._run_post(params, y) if self.post is not None else y
@@ -2233,19 +2479,21 @@ class SpmdGPipe:
         out = self.mesh.broadcast(out, last, self.pp_axis)
         if self._sp > 1:
             out = torch.cat(self.mesh.all_gather(out, self.sp_axis, kind="sp"), 2)
-        if self.dp_axis and self._dp > 1:
-            lanes = self.mesh.all_gather(out, self.dp_axis)     # dp x [m, b, ...]
-            out = torch.cat(lanes, 1)
+        # The row lanes d*ep + e: ep's within each dp lane's.
+        for axis, size in ((self.ep_axis, self._ep), (self.dp_axis, self._dp)):
+            if axis and size > 1:
+                out = torch.cat(self.mesh.all_gather(out, axis), 1)   # lanes x [m, b, ...]
         out = out.reshape(-1, *out.shape[2:])
         return out[:b_real] if pad else out
 
     @torch.no_grad()
     def eval_loss(self, params: dict, x: Pytree, target: Pytree) -> torch.Tensor:
         """Loss on a mini-batch without gradients: per micro-batch on the
-        last stage (a decomposable loss), summed over pp, averaged over dp
-        and sp.  ``loss_reduction=None`` and ragged batches compute the
-        loss on :meth:`apply`'s gathered outputs instead."""
+        last stage (a decomposable loss), summed over pp, averaged over
+        dp, ep and sp.  ``loss_reduction=None`` and ragged batches compute
+        the loss on :meth:`apply`'s gathered outputs instead."""
         self._check_params(params)
+        self._fault_check()
         pad = self._check_batch(x, target, ragged_ok=True)
         if self.loss_reduction is None or pad:
             out = self.apply(params, x)
@@ -2253,7 +2501,7 @@ class SpmdGPipe:
                                    if isinstance(target, torch.Tensor) else target).float()
         tgt_mb = self._local_microbatches(target)
         loss = torch.zeros((), device=self.mesh.device)
-        with self._bound():
+        with self._bound(), self._annotate_cell_failure():
             outs = self._forward_outputs(params, self._local_microbatches(x))
             if outs is not None:
                 for y, t in zip(outs, tgt_mb):
@@ -2264,5 +2512,5 @@ class SpmdGPipe:
         every, _, _ = self._reduction()
         mean = self.loss_reduction == "mean"
         return self.mesh.all_reduce(loss, every,
-                                    1.0 / (self._dp * self._sp) if mean else 1.0,
+                                    1.0 / (self._rows * self._sp) if mean else 1.0,
                                     kind="loss")
