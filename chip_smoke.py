@@ -458,9 +458,10 @@ KERNEL_FUNCS = {
     "flash_bwd_dq_d256": ("flash_bwd", ("flash_bwd_dq_kernel",)),
     "flash_bwd_dkv_d256": ("flash_bwd", ("flash_bwd_dkv_kernel", "flash_bwd_dkv_sum_kernel")),
     "flash_decode_d256": ("flash_decode", ("flash_decode_kernel", "flash_decode_merge")),
-    "flash_fwd_wide": ("flash_simt", ("fwd_simt_kernel",)),
-    "flash_bwd_dq_wide": ("flash_simt", ("dq_simt_kernel",)),
-    "flash_bwd_dkv_wide": ("flash_simt", ("dkv_simt_kernel",)),
+    # Above 512 the same wrappers launch flash_simt.cu's chunked kernels.
+    "flash_fwd_wide": ("flash_simt", ("fwd_simt_kernel", "fwd_chunk_kernel")),
+    "flash_bwd_dq_wide": ("flash_simt", ("dq_simt_kernel", "dq_chunk_kernel")),
+    "flash_bwd_dkv_wide": ("flash_simt", ("dkv_simt_kernel", "dkv_chunk_kernel")),
     "flash_decode_wide": ("flash_simt", ("decode_simt_kernel",)),
 }
 # The redesigned kernels and the instructions their SASS must hold: HGMMA
@@ -557,7 +558,8 @@ def sass_check(build):
 
 
 # What the wide simt kernels take (the kernels line's ``takes``).
-WIDE_TAKES = "head dims 129-255, 384 and 512 in bf16 and f16; 129-256, 384 and 512 in f32"
+WIDE_TAKES = ("head dims 129-255 and the multiples of 128 above 256 in bf16 and f16; "
+              "the same and 256 in f32")
 
 
 def smem_simt(which, d):
@@ -2600,6 +2602,7 @@ def phase_train_graph(torch, tfa, tt, card, seed: int, balance):
     stats = dict(fused.graph_stats)
     if stats["captures"] != 1 or stats["replays"] != 1:
         fail(f"train_graph: graph stats {stats}, expected one capture and one replay")
+    ref_host = [to_host(x) for x in ref]   # for the remat policy's steps below
     del ref, grads1, loss, grads   # the replay's outputs hold the graph's pool
     # Times: three replays with new tokens each, two eager steps.
     replay_ms = timed_steps(torch, lambda: fstep(toks[1], toks[1]), 3)
@@ -2626,6 +2629,13 @@ def phase_train_graph(torch, tfa, tt, card, seed: int, balance):
           f"{1 - eb / ew:.3f}; flash launches per replay (profile) {per_replay} = the eager "
           f"step's [{card}]", flush=True)
     del estep, fstep, eager, fused
+    for p in params:
+        p.grad = None
+    torch.cuda.empty_cache()
+    policy = train_graph_policy(torch, tfa, card, pipe, run, ref_host, sgd, loss_fn,
+                                dict(want_launches, flash_fwd=cfg.n_layers * chunks),
+                                toks[2], cfg.n_layers * (chunks - 1))
+    del ref_host
     for p in params:
         p.grad = None
     torch.cuda.empty_cache()
@@ -2694,7 +2704,68 @@ def phase_train_graph(torch, tfa, tt, card, seed: int, balance):
     return {"launches": results["fused warm-up"], "per_replay": per_replay, "balance": balance,
             "replay_ms": statistics.median(replay_ms),
             "eager_ms": statistics.median(eager_ms), "replay_idle": 1 - rb / rw,
-            "eager_idle": 1 - eb / ew, "capture_s": stats["capture_s"]}
+            "eager_idle": 1 - eb / ew, "capture_s": stats["capture_s"], "policy": policy}
+
+
+def train_graph_policy(torch, tfa, card, pipe, run, ref_host, sgd, loss_fn, want, tokens,
+                       kept_cells):
+    """Phase 12's captured step again under ``remat_policy=
+    policies.save_flash_stats``: each checkpointed cell (``kept_cells`` of
+    them, a block each) keeps its flash O and LSE, so its recompute
+    launches no forward kernel (``want``: the warm-up's wrapper counts and
+    a replay's profile).  The warm-up and a replay bitwise the policy-free
+    eager step (``ref_host``: loss, every .grad, every updated
+    parameter); the warm-up's peak memory (eager step and capture) beside
+    a policy-free fused pipe's, and the bytes the policy kept."""
+    from torchgpipe_tpu_torch.checkpoint import policies
+
+    peaks, out = {}, {}
+    for what, kw in (("policy-free", {}),
+                     ("save_flash_stats", dict(remat_policy=policies.save_flash_stats))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        ppipe = pipe(fused=True, **kw)
+        pstep = ppipe.make_train_step(sgd, loss_fn)
+        for p in ppipe.parameters():   # the last step's .grad: a captured pool's
+            p.grad = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, grads, launches = run(pstep, f"{what} warm-up")
+        peaks[what] = torch.cuda.max_memory_allocated() - base
+        if kw:
+            expect_launches(launches, want, "the save_flash_stats warm-up (wrapper counts)")
+            for step_what in ("warm-up", "replay"):
+                if step_what == "replay":
+                    loss, grads, launches = run(pstep, "save_flash_stats replay")
+                    expect_launches(launches, {}, "a save_flash_stats replay (wrapper counts)")
+                bad = [bitwise(torch, [loss], ref_host[0]), bitwise(torch, grads, ref_host[1]),
+                       bitwise(torch, list(ppipe.parameters()), ref_host[2])]
+                if any(bad):
+                    fail(f"train_graph save_flash_stats: the {step_what} differs from the "
+                         f"policy-free step: loss {bad[0]}, grads {bad[1][:8]}, params "
+                         f"{bad[2][:8]}")
+            _, _, rows = profile(torch, card, "train_graph save_flash_stats replay",
+                                 lambda: pstep(tokens, tokens), top=6, cuda_only=True)
+            out["per_replay"] = profile_launches(rows)
+            if out["per_replay"] != want:
+                fail(f"train_graph save_flash_stats: flash kernels per replay (profile) "
+                     f"{out['per_replay']}, expected {want}")
+            out["kept_bytes"] = ppipe.remat_stats["saved_bytes"]
+            out["replay_ms"] = statistics.median(timed_steps(torch, lambda: pstep(tokens,
+                                                                                  tokens), 3))
+        del ppipe, pstep, loss, grads
+    out["peak_rise_bytes"] = peaks["save_flash_stats"] - peaks["policy-free"]
+    out["peaks"] = peaks
+    print(f"train_graph save_flash_stats: the captured step with remat_policy="
+          f"policies.save_flash_stats, warm-up and replay bitwise the policy-free step; flash "
+          f"launches {out['per_replay']} a replay (the policy-free step's forward count less "
+          f"the {kept_cells} recomputes); kept {out['kept_bytes']} B of O and LSE "
+          f"({kept_cells} cells); warm-up peak {peaks['save_flash_stats']} B vs "
+          f"{peaks['policy-free']} B policy-free (rise {out['peak_rise_bytes']} B); "
+          f"replay {out['replay_ms']:.1f} ms [{card}]", flush=True)
+    return out
 
 
 # Phase 13 (a)'s witness, at phase 11's row: plain float32 and the policy
@@ -4439,7 +4510,10 @@ def phase_simt(torch, tfa, tt, tg, card, seed: int):
 # *_d512 rows hold and time flash_simt.cu at the reference's multiples of
 # 128 above 256 (sixteen lanes a row, 16-key dQ and 16-query dK/dV
 # tiles), bf16 and f32, and their decode over bf16 and int8 caches with
-# live lengths of 300 to 511.  Tolerances:
+# live lengths of 300 to 511; the *_d640 and *_d1024 rows the same above
+# 512, on flash_simt.cu's chunked kernels (the output head dim split over
+# the grid in chunks of 512, S and dP formed over the whole head dim by
+# every chunk's block) and its chunked decode.  Tolerances:
 # float16 rounds where bf16 does at 2^-11 instead of 2^-8, so FWD_TOL, BWD_ROW_TOL/BWD_FLOOR (derived for bf16
 # above) hold with room; the d=256 tensor-core kernels round P and dS as
 # the d=128 ones do (the derivations above hold at any head dim; dK/dV's
@@ -4458,10 +4532,13 @@ WIDE_CASES = [("f16_train_microbatch", "f16", 2, 32, 8, 1024, 128, None, True, "
               ("bf16_d384", "bf16", 1, 8, 4, 512, 384, None, True, "wide"),
               ("f32_d384_window", "f32", 1, 4, 2, 300, 384, 64, True, "wide"),
               ("bf16_d512", "bf16", 1, 8, 4, 512, 512, None, True, "wide"),
-              ("f32_d512", "f32", 1, 4, 2, 257, 512, None, False, "wide")]
+              ("f32_d512", "f32", 1, 4, 2, 257, 512, None, False, "wide"),
+              ("bf16_d640", "bf16", 1, 8, 4, 512, 640, None, True, "wide"),
+              ("f32_d640_window", "f32", 1, 4, 2, 300, 640, 64, True, "wide"),
+              ("bf16_d1024", "bf16", 1, 8, 4, 512, 1024, None, True, "wide")]
 # The rows timed beside their bounds, plain versions and SDPA.
 WIDE_TIMED = ("f16_train_microbatch", "gemma_microbatch", "gemma_long", "bf16_d192",
-              "bf16_d384", "bf16_d512")
+              "bf16_d384", "bf16_d512", "bf16_d640", "bf16_d1024")
 # (name, kind, b, g, nh, nkv, hd, pos0, window, max_len, route)
 WIDE_DECODE = [("f16_generate", "f16", 4, 1, 32, 8, 128, 527, None, 544, "kernel"),
                ("f16_int8", "f16int8", 2, 5, 8, 4, 64, 300, 64, 517, "kernel"),
@@ -4473,14 +4550,19 @@ WIDE_DECODE = [("f16_generate", "f16", 4, 1, 32, 8, 128, 527, None, 544, "kernel
                ("bf16_d384_generate", "bf16", 1, 1, 8, 4, 384, 299, None, 320, "wide"),
                ("int8_d384", "int8", 1, 3, 8, 4, 384, 300, 64, 517, "wide"),
                ("bf16_d512_generate", "bf16", 1, 1, 8, 4, 512, 299, None, 320, "wide"),
-               ("int8_d512", "int8", 1, 1, 8, 2, 512, 510, None, 512, "wide")]
+               ("int8_d512", "int8", 1, 1, 8, 2, 512, 510, None, 512, "wide"),
+               ("bf16_d640_generate", "bf16", 1, 1, 8, 4, 640, 299, None, 320, "wide"),
+               ("int8_d640", "int8", 1, 3, 8, 4, 640, 300, 64, 517, "wide"),
+               ("bf16_d1024_generate", "bf16", 1, 1, 8, 4, 1024, 299, None, 320, "wide"),
+               ("int8_d1024", "int8", 1, 2, 8, 2, 1024, 400, None, 517, "wide")]
 # The decode rows timed: the f16 generate's, 25c's (gemma_generate, on the
 # d=256 tiles of flash_decode.cu, beside flash_simt.cu's decode it
 # replaced), a long live cache at Gemma's width (4096 of its 8192
 # positions: the share of the bytes bound) and a d=192 cache (flash_simt.cu,
 # which keeps head dims 129-255).
 WIDE_DECODE_TIMED = ("f16_generate", "gemma_generate", "gemma_long_cache",
-                     "bf16_d192_generate", "bf16_d384_generate", "bf16_d512_generate")
+                     "bf16_d192_generate", "bf16_d384_generate", "bf16_d512_generate",
+                     "bf16_d640_generate", "bf16_d1024_generate")
 HALF = {"f16": "float16", "bf16": "bfloat16", "f32": "float32"}
 
 
@@ -4585,8 +4667,8 @@ def wide_f16_kernels(torch, tfa, tg, card):
               f"{ms['dq']:.4f} dkv {ms['dkv']:.4f}{earlier}; bounds (16-bit tensor cores) "
               f"{ {n: round(x[0], 4) for n, x in bounds.items()} } (f32 FMA "
               f"{ {n: round(x, 4) for n, x in fma.items()} }); plain fwd {plain_fwd:.4f} "
-              f"bwd {plain_bwd:.4f}; sdpa fwd {lib_f[2]:.4f} ({lib_f[1]}) bwd {lib_b[2]:.4f} "
-              f"({lib_b[1]}, three grads) [{card}]", flush=True)
+              f"bwd {plain_bwd:.4f}; sdpa fwd {lib_f[2]:.4f} ({lib_f[1]}) bwd "
+              f"{lib_b[2]:.4f} ({lib_b[1]}, three grads) [{card}]", flush=True)
         rows[name] = dict(ms=ms, bounds=bounds, fma=fma, plain_fwd=plain_fwd,
                           plain_bwd=plain_bwd, lib_fwd=lib_f, lib_bwd=lib_b)
         del o, lse, delta, got, again, want
@@ -5664,6 +5746,14 @@ SPMD_PROFILE = {"flash_fwd_d256": "flash_fwd_kernel<256", "flash_bwd_dq_d256":
 SPMD_LOSS_REL, SPMD_GRAD_REL = 2 ** -6, 2 ** -4
 # 25e's 'never' and 'offload' steps: no recompute.
 SPMD_NEVER_LAUNCHES = {k: SPMD_CHUNKS for k in SPMD_LAUNCHES}
+# 25f: 'always' recomputes every cell (a forward each), and under
+# remat_policy=policies.save_flash_stats no recompute launches the forward
+# kernel, so the step launches what 'never' does.  The policy keeps each
+# cell's O (bf16 [b/m, s, h, 256]) and LSE (f32 [b/m * h, s]) of the
+# rank's one block.
+SPMD_ALWAYS_LAUNCHES = dict(SPMD_LAUNCHES, flash_fwd_d256=2 * SPMD_CHUNKS)
+SPMD_KEPT_BYTES = SPMD_CHUNKS * (SPMD_BATCH // SPMD_CHUNKS) * SPMD_SEQ * GEMMA_7B["n_heads"] * (
+    256 * 2 + 4)
 
 
 class _Stand:
@@ -5865,6 +5955,35 @@ def knobs_rank(torch, tfa, tt, spmd, mesh, pipe, params, tokens, seed, report, t
                      "loss": got["never"][0].item()}
     report["25de_s"] = time.perf_counter() - t0
     del got
+    remat_rank(torch, tt, spmd, mesh, params, tokens, report, timed, flat, same)
+
+
+def remat_rank(torch, tt, spmd, mesh, params, tokens, report, timed, flat, same):
+    """25f on one rank of phase 25's world: ``checkpoint='always'`` with
+    ``remat_policy=policies.save_flash_stats`` against the policy-free
+    ``'always'`` step: loss and every gradient bitwise; launches (the
+    policy's recomputes launch no forward kernel) and peaks beside."""
+    from torchgpipe_tpu_torch.checkpoint import policies
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    got = {}
+    for what, kw in (("always", {}),
+                     ("save_flash_stats", dict(remat_policy=policies.save_flash_stats))):
+        _, e = spmd_engine(torch, tt, spmd, mesh, True, "fill_drain", None, "meta",
+                           checkpoint="always", **kw)
+        loss, g = timed(lambda: e.train_step(params, tokens, tokens))
+        got[what] = (loss, [t.cpu() for t in flat(g)])   # on the host: the peaks compare
+        if kw:
+            report["25f_kept_bytes"] = e.remat_stats["saved_bytes"]
+        del e, g
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["25f"] = {"bitwise": bool(torch.equal(got["always"][0], got["save_flash_stats"][0])
+                                     and same(got["always"][1], got["save_flash_stats"][1])),
+                     "loss": got["always"][0].item(), "seconds": time.perf_counter() - t0}
+    del got
 
 
 def spmd_rel_diff(torch, got, want, chunk: int = 1 << 24) -> float:
@@ -6031,9 +6150,18 @@ def phase_spmd(torch, tfa, tt, tg, card, seed: int):
             fail(f"spmd 25e rank {r}: the 'offload' step is not bitwise the 'never' step")
         knob_launches = rep["launches"][2:]
         want = ([{k: 2 * v for k, v in SPMD_LAUNCHES.items()}]
-                + [SPMD_LAUNCHES] * 3 + [SPMD_NEVER_LAUNCHES] * 2)
+                + [SPMD_LAUNCHES] * 3 + [SPMD_NEVER_LAUNCHES] * 2
+                + [SPMD_ALWAYS_LAUNCHES, SPMD_NEVER_LAUNCHES])
+        if len(knob_launches) != len(want):
+            fail(f"spmd 25d-f rank {r}: {len(knob_launches)} timed calls, expected {len(want)}")
         for k, (got, w) in enumerate(zip(knob_launches, want)):
-            expect_launches(got, w, f"25d/25e rank {r}, timed call {k}")
+            expect_launches(got, w, f"25d-f rank {r}, timed call {k}")
+        if not rep["25f"]["bitwise"]:
+            fail(f"spmd 25f rank {r}: the save_flash_stats step is not bitwise the "
+                 f"policy-free 'always' step")
+        if rep["25f_kept_bytes"] != SPMD_KEPT_BYTES:
+            fail(f"spmd 25f rank {r}: the policy kept {rep['25f_kept_bytes']} B, expected "
+                 f"{SPMD_KEPT_BYTES} (O and LSE of {SPMD_CHUNKS} cells)")
     # 25c: generate from 25a's trained params on the card.
     cfg = tt.TransformerConfig(**GEMMA_7B, dtype=torch.bfloat16)
     _, pipe = spmd_engine(torch, tt, spmd, _Stand(2, 1, torch.device("cuda")), True,
@@ -6086,8 +6214,14 @@ def phase_spmd(torch, tfa, tt, tg, card, seed: int):
           f"bitwise; 25e: checkpoint='offload' bitwise 'never' on every rank, offload stats "
           f"by rank {[r['25e_offload_stats'] for r in ra]}; step ms by rank (megastep, 2 "
           f"guarded, poisoned, never, offload) {[r['step_ms'][2:] for r in ra]}, peak GiB "
-          f"{[r['peak_gib'][2:] for r in ra]}; 25d-e took "
+          f"{[r['peak_gib'][2:8] for r in ra]}; 25d-e took "
           f"{[round(r['25de_s'], 1) for r in ra]} s [{card}]", flush=True)
+    print(f"spmd 25f: checkpoint='always' with remat_policy=policies.save_flash_stats bitwise "
+          f"the policy-free 'always' step on every rank (loss {ra[0]['25f']['loss']:.6f}); "
+          f"launches a rank {ra[0]['launches'][8]} policy-free vs {ra[0]['launches'][9]} "
+          f"kept ({ra[0]['25f_kept_bytes']} B of O and LSE a rank); step ms by rank "
+          f"{[r['step_ms'][8:] for r in ra]}, peak GiB {[r['peak_gib'][8:] for r in ra]}; "
+          f"25f took {[round(r['25f']['seconds'], 1) for r in ra]} s [{card}]", flush=True)
     print(f"spmd: step_ms by rank {step}; bytes staged through the host a step {staged}; "
           f"peak GiB {peak}; the oracle's step {ref_ms:.1f} ms; ranks ran 25a in "
           f"{a_s:.1f}s, started in {max(r['ready_s'] for r in ra):.1f}s; the phase "
@@ -6102,7 +6236,11 @@ def phase_spmd(torch, tfa, tt, tg, card, seed: int):
               "ranks_s": {"a": a_s},
               "knobs": {f"a{r['rank']}": {"25d": r["25d"], "25e": r["25e"],
                                           "offload_stats": r["25e_offload_stats"],
-                                          "seconds": r["25de_s"]} for r in ra}}
+                                          "seconds": r["25de_s"]} for r in ra},
+              "remat": {f"a{r['rank']}": {"25f": r["25f"], "kept_bytes": r["25f_kept_bytes"],
+                                          "launches": r["launches"][8:],
+                                          "step_ms": r["step_ms"][8:],
+                                          "peak_gib": r["peak_gib"][8:]} for r in ra}}
     print(json.dumps({"spmd": result}), flush=True)
     return result
 
@@ -6490,7 +6628,12 @@ ZS_LAUNCHES = {
     "interleaved": {"flash_fwd_d256": ZS_V * (2 * _C - 1), "flash_bwd_dq_d256": ZS_V * _C,
                     "flash_bwd_dkv_d256": ZS_V * _C},
     "zero3": SPMD_LAUNCHES, "zero1": SPMD_LAUNCHES,
+    # phase 29: 27a's step again, the reference and the resumed one
+    "ckpt_step2": SPMD_LAUNCHES, "ckpt_resumed": SPMD_LAUNCHES,
 }
+# Phase 29: the disk must hold the snapshot this many times over (its
+# temp directory is renamed into place, not copied).
+CKPT_FREE_FACTOR = 1.5
 ZS_ORACLE_LAUNCHES = {k: 2 * ZS_V for k in SPMD_LAUNCHES}
 # At dp=2 ZeRO-3 stores half of each chosen block leaf and ZeRO-1 half of
 # each leaf's state (each segment padded to a multiple of dp).
@@ -6691,7 +6834,11 @@ def zero_sched_rank(torch, tfa, tt, spmd, mesh, seed: int, path: str) -> None:
     del opt, gfull
     cmp("zero3", z3, fsdp_lane(spmd, fp, full), loss3.item(), loss3.item())
     memory(z3, g3, step3.optimizer, "zero3", "zero3")
-    del step3, full, z3
+    del full
+    # Phase 29 from 27a's state after its step.
+    ckpt_rank(torch, tt, spmd, mesh, fp, z3, step3, adamw, seed, case, rep,
+              os.path.join(os.path.dirname(path), "ckpt29"))
+    del step3, z3
     save()
 
     # 27b: make_train_step(zero=1) against the zero=0 update of the same
@@ -6740,6 +6887,140 @@ def zero_sched_rank(torch, tfa, tt, spmd, mesh, seed: int, path: str) -> None:
                                      "leaves": len(w), "of": len(got), "oracle_ms": ref_ms,
                                      "oracle_launches": ref_launches}
     save()
+
+
+def ckpt_rank(torch, tt, spmd, mesh, pipe, params, step, adamw, seed, case, rep, root):
+    """Phase 29 on one rank of phase 27's world, from 27a's state (fsdp,
+    ZeRO-3 AdamW, one step taken): the snapshot's bytes a rank reckoned
+    and the disk's free space checked (short: fail); a sharded snapshot
+    (``CheckpointManager(sharded=True, keep_last_k=1)``); a second step,
+    the reference; a fresh engine and optimizer restore the snapshot and
+    take the second step again (``ckpt_resumed``): loss, every parameter
+    shard and the optimizer state bitwise the reference's, launches as
+    27a's; then one byte of one rank's file flipped, ``restore_latest``
+    must answer None; the snapshot removed.  Save and restore seconds."""
+    import shutil
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from torchgpipe_tpu_torch.resilience.checkpoint import CheckpointManager, _leaves
+    from torchgpipe_tpu_torch.utils import serialization as ser
+
+    rank = mesh.rank
+    out = rep["ckpt"] = {}
+    second = torch.from_numpy(np.random.default_rng(seed + 290).integers(
+        0, GEMMA_7B["vocab"], (SPMD_BATCH, SPMD_SEQ)))
+    state = pipe.train_state(params, step.optimizer)
+    mine = 0
+    for _, leaf in _leaves(state):   # what write_shards writes on this rank
+        if isinstance(leaf, ser.Shard) and leaf.owner:
+            mine += leaf.local.numel() * leaf.local.element_size()
+        elif not isinstance(leaf, ser.Shard) and rank == 0:
+            mine += leaf.numel() * leaf.element_size()
+    total = torch.tensor([float(mine)])
+    dist.all_reduce(total)
+    if rank == 0:
+        os.makedirs(root, exist_ok=True)
+    dist.barrier()
+    free = shutil.disk_usage(root).free
+    out.update(bytes_rank=mine, bytes_all=int(total.item()), free_bytes=free)
+    if free < CKPT_FREE_FACTOR * total.item():
+        raise RuntimeError(f"phase 29: {free} B free under {root}, the snapshot needs "
+                           f"{int(total.item())} B (x{CKPT_FREE_FACTOR})")
+    print(f"spmd_ckpt rank {rank}: the snapshot holds {mine} B of this rank's "
+          f"({int(total.item())} B in all); {free} B free under {root}", flush=True)
+    run = os.path.join(root, "run")
+    mgr = CheckpointManager(run, keep_last_k=1)
+    dist.barrier()
+    t0 = time.perf_counter()
+    mgr.save(1, state, sharded=True, world_size=mesh.shape["pp"])
+    out["save_s"] = time.perf_counter() - t0
+    del state
+    loss2 = case("ckpt_step2", lambda: step(params, second, second))
+    want = [t.detach().to("cpu") for t in pipe._flat(params) + ckpt_opt(step.optimizer)]
+    # A fresh engine and optimizer (the params' tensors in their shapes,
+    # 27a's freed first: four ranks share the card).
+    params2 = {k: spmd._tree_map(torch.empty_like, params[k]) for k in ("pre", "blocks", "post")}
+    pipe2 = spmd_engine(torch, tt, spmd, mesh, True, "fill_drain", "dp", "meta", fsdp=True)[1]
+    params.clear()
+    step.optimizer.state.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    step2 = pipe2.make_train_step(adamw, zero=3)
+    step2.prepare(params2)
+    dist.barrier()
+    t0 = time.perf_counter()
+    snap = CheckpointManager(run, keep_last_k=1).restore_latest(
+        pipe2.train_state(params2, step2.optimizer))
+    out["restore_s"] = time.perf_counter() - t0
+    if snap is None or snap.step != 1:
+        raise RuntimeError(f"phase 29: restore_latest gave {snap}, expected the snapshot of "
+                           "step 1")
+    pipe2.load_train_state(snap.tree, params2, step2.optimizer)
+    del snap
+    loss2b = case("ckpt_resumed", lambda: step2(params2, second, second))
+    got = pipe2._flat(params2) + ckpt_opt(step2.optimizer)
+    out["loss"] = [loss2.item(), loss2b.item()]
+    out["tensors"] = len(want)
+    out["bitwise"] = bool(torch.equal(loss2, loss2b)) and not bitwise(torch, got, want)
+    del want, got
+    dist.barrier()
+    if rank == 0:   # one byte of the last rank's file
+        victim = os.path.join(run, "step_0000000001", "sharded",
+                              f"rank_{mesh.size(None) - 1:05d}.npz")
+        with open(victim, "r+b") as f:
+            f.seek(os.path.getsize(victim) // 2)
+            b = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([b[0] ^ 0xFF]))
+    dist.barrier()
+    t0 = time.perf_counter()
+    out["corrupt_restore"] = CheckpointManager(run, keep_last_k=1).restore_latest(
+        pipe2.train_state(params2, step2.optimizer)) is None
+    out["corrupt_s"] = time.perf_counter() - t0
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(root)
+    dist.barrier()
+    out["removed"] = not os.path.exists(root)
+    del params2, step2, pipe2
+
+
+def ckpt_opt(opt):
+    """An optimizer's state tensors, in its parameters' order."""
+    return [v for p in opt.zero_segments for v in opt.state[p].values()
+            if isinstance(v, type(p))]
+
+
+def phase_spmd_ckpt(card, zero_sched):
+    """Phase 29's checks, on the reports of phase 27's world
+    (:func:`ckpt_rank`): every rank's resumed step bitwise the reference
+    step, the corrupted snapshot refused (None), the snapshot removed,
+    and the resumed step's launches as 27a's."""
+    reps = zero_sched["ckpt"]
+    for r, c in reps.items():
+        if not (c["bitwise"] and c["corrupt_restore"] and c["removed"]):
+            fail(f"spmd_ckpt rank {r}: resumed bitwise {c['bitwise']} (losses {c['loss']}), "
+                 f"corrupt snapshot refused {c['corrupt_restore']}, removed {c['removed']}")
+        want = zero_sched["launches"][r]["zero3"]
+        for name in ("ckpt_step2", "ckpt_resumed"):
+            if zero_sched["launches"][r][name] != want:
+                fail(f"spmd_ckpt rank {r}: {name} launched {zero_sched['launches'][r][name]}, "
+                     f"27a's step {want}")
+    c0 = reps[0]
+    print(f"spmd_ckpt 29: a sharded snapshot of 27a's state (fsdp, zero=3 AdamW lr {ZS_LR}, "
+          f"pp=2 x dp=2) through CheckpointManager(sharded=True, keep_last_k=1): bytes a rank "
+          f"{[c['bytes_rank'] for c in reps.values()]} ({c0['bytes_all']} B in all, "
+          f"{c0['free_bytes']} B free); save s {[round(c['save_s'], 2) for c in reps.values()]}, "
+          f"restore s {[round(c['restore_s'], 2) for c in reps.values()]}; the resumed second "
+          f"step bitwise the uninterrupted one on every rank (loss {c0['loss'][0]:.6f}, "
+          f"{c0['tensors']} parameter and AdamW tensors a rank on rank 0); launches a rank as "
+          f"27a's; one flipped byte in the last rank's file: restore_latest None on every rank "
+          f"(in {[round(c['corrupt_s'], 2) for c in reps.values()]} s); snapshot removed "
+          f"[{card}]", flush=True)
+    print(json.dumps({"spmd_ckpt": reps}), flush=True)
+    return reps
 
 
 def phase_zero_sched(torch, card, seed: int):
@@ -6857,7 +7138,7 @@ def phase_zero_sched(torch, card, seed: int):
               "launches": {rep["rank"]: {n: row["launches"] for n, row in rep["cases"].items()}
                            for rep in reps},
               "profile": reps[0]["profile"], "projections": proj,
-              "world_s": world_s}
+              "world_s": world_s, "ckpt": {rep["rank"]: rep["ckpt"] for rep in reps}}
     print(json.dumps({"spmd_zero_sched": result}), flush=True)
     return result
 
@@ -7139,11 +7420,12 @@ PHASES = {
     "17": "timeline", "18": "vit_l16", "19": "amoebanetd", "20": "t5",
     "21": "gpt2_xl_generate", "22": "mixtral_moe", "23": "distributed", "24": "fleet",
     "25": "spmd", "26": "spmd_tp_sp", "27": "spmd_zero_sched", "28": "spmd_moe_ep",
+    "29": "spmd_ckpt",
 }
 PHASE_ORDER = list(PHASES)
 PHASE_NEEDS = {"6b": ["6"], "6c": ["6"], "6d": ["6"], "7": ["6"], "9": ["6"], "24": ["6"],
                "9b": ["6", "9"], "12": ["10"], "13": ["11", "12"], "14": ["10"],
-               "15": ["8"], "17": ["16"]}
+               "15": ["8"], "17": ["16"], "29": ["27"]}
 
 
 def select_phases(spec):
@@ -7318,8 +7600,10 @@ def main() -> None:
            ("25", lambda: phase_spmd(torch, tfa, tt, tg, card, args.seed)),
            ("26", lambda: phase_tp_sp(torch, tfa, tt, card, args.seed)),
            ("27", lambda: phase_zero_sched(torch, card, args.seed)),
+           ("29", lambda: phase_spmd_ckpt(card, r["27"])),
            ("28", lambda: phase_moe_ep(torch, tfa, tt, card, args.seed))],
-          "23, 25-28 (distributed, spmd, spmd_tp_sp, spmd_zero_sched, spmd_moe_ep)")
+          "23, 25-29 (distributed, spmd, spmd_tp_sp, spmd_zero_sched, spmd_ckpt, "
+          "spmd_moe_ep)")
 
     if run != set(PHASES):
         print(f"chip_smoke: phases {sorted(run, key=PHASE_ORDER.index)} of {len(PHASES)} "
@@ -7530,11 +7814,12 @@ def main() -> None:
                 "library_ms_by_backend": lib[0],
                 "shape": "f16 b=2 s=1024 h=32 g=8 d=128 causal"}
 
-    def big_dims(key):
+    def big_dims(key, dims=(384, 512)):
         # flash_simt.cu at head dims 384 and 512 (bf16): the same kernel's
-        # sixteen-lane instantiation, timed beside its bound, plain and SDPA.
+        # sixteen-lane instantiation, timed beside its bound, plain and SDPA;
+        # at 640 and 1024 its chunked kernels.
         out = {}
-        for d in (384, 512):
+        for d in dims:
             row = wrows[f"bf16_d{d}"]
             lib = row["lib_fwd"] if key == "fwd" else row["lib_bwd"]
             out[f"d{d}"] = {
@@ -7559,7 +7844,8 @@ def main() -> None:
                 "bound_ms": row["bounds"][key][0], "bound_by": row["bounds"][key][1],
                 "bound_fma_ms": row["fma"][key], "library_ms": lib[2],
                 "library_backend": lib[1], "library_ms_by_backend": lib[0], "takes": takes,
-                "shape": shape, "head_dims_384_512": big_dims(key)}
+                "shape": shape, "head_dims_384_512": big_dims(key),
+                "head_dims_640_1024": big_dims(key, (640, 1024))}
 
     def d256_entry(name, key, line, source):
         row, long = wrows["gemma_microbatch"], wrows["gemma_long"]
@@ -7636,15 +7922,21 @@ def main() -> None:
                          "spmd_generate", source=src + "flash_simt.cu",
                          max_abs_err=wworst["decode_wide"],
                          launches_by_path=by_path("flash_decode_wide"),
-                         takes="head dims 129-255, 384 and 512 (bf16, f16, f32 and int8 "
-                               "caches) and f32 caches at 256",
+                         takes="head dims 129-255 and the multiples of 128 above 256 "
+                               "(bf16, f16, f32 and int8 caches) and f32 caches at 256",
                          shape="bf16 cache [2, 144, 8, 192] live 136 g=1",
                          head_dims_384_512={
                              f"d{d}": {"shape": f"bf16 cache [1, 320, 4, {d}] live 300 g=1",
                                        **{k: wrows[f"bf16_d{d}_generate"][k] for k in (
                                            "ms", "plain_ms", "bound_ms", "bound_by")},
                                        "library_ms": wrows[f"bf16_d{d}_generate"]["lib"][2]}
-                             for d in (384, 512)}),
+                             for d in (384, 512)},
+                         head_dims_640_1024={
+                             f"d{d}": {"shape": f"bf16 cache [1, 320, 4, {d}] live 300 g=1",
+                                       **{k: wrows[f"bf16_d{d}_generate"][k] for k in (
+                                           "ms", "plain_ms", "bound_ms", "bound_by")},
+                                       "library_ms": wrows[f"bf16_d{d}_generate"]["lib"][2]}
+                             for d in (640, 1024)}),
     ]
     smem = smem_dynamic(_build)
     for k in kernels:

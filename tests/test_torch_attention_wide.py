@@ -1,15 +1,16 @@
-"""float16 and head dims up to 256 (Gemma's), 384 and 512 through the
-port's attention routes, against the JAX reference.
+"""float16, head dims up to 256 (Gemma's) and the multiples of 128 above
+256 through the port's attention routes, against the JAX reference.
 
 On the card float16 runs the tensor-core kernels' f16 instantiations
 (``flash_fwd``, ``flash_bwd_dq``/``dkv``, ``flash_decode``; zero-padded
 below 128 as bf16 is), and head dims 129 to 256 run ``flash_simt.cu``'s
 CUDA-core kernels in bf16, f16 and f32 (route ``"wide"``; the forward and
 dQ at exactly 256 in bf16 and f16 run the tensor-core kernels' d=256
-instantiation, ``wide_kernel``), and so do 384 and 512 (the reference's
-multiples of 128 above 256, up to the cap ``WIDE_HEAD_DIM_MAX``); any other
-head dim above 256, or another dtype, no kernel takes (``"none"``, refused
-on the card).
+instantiation, ``wide_kernel``), and so does every multiple of 128 above
+256, as the reference's kernels take them (384 and 512 on flash_simt.cu's
+sixteen-lane kernels, 640 and up on its chunked ones); any other head dim
+above 256, or another dtype, no kernel takes (``"none"``, refused on the
+card).
 On the CPU every route runs its plain version, so the models here hold
 the algorithm against the reference; the kernels are held against those
 plain versions by tests/test_torch_cuda_kernels.py and chip_smoke.py.
@@ -24,7 +25,7 @@ logits to 2^-5 of max |logit|, every gradient leaf to 2^-4 of its max
 numbers).  Head dim 256 at float32: the same float32 sums in other orders
 (~1e-6 relative): logits to 5e-5 absolute (as
 tests/test_torch_attention_route.py), gradients to 1e-4 of each leaf's
-max.  Head dims 384 and 512 against the reference's Pallas kernels in
+max.  Head dims 384, 512 and 640 against the reference's Pallas kernels in
 interpret mode (tests/test_torch_flash_attention.py's tolerances): the
 same float32 inputs and float32 arithmetic to F32_TOL (the output and
 the decode) and 1e-4 of each gradient's max; bf16 inputs rounded once
@@ -73,17 +74,22 @@ F16, BF16, F32, I8 = torch.float16, torch.bfloat16, torch.float32, torch.int8
      (160, F32, {"decode": True}, ("wide", 160)),
      (256, BF16, {"decode": True, "cache_dtype": I8}, ("wide", 256)),
      (320, BF16, {"decode": True}, ("none", 320)),
-     # 384 and 512, the reference's multiples of 128 above 256: the wide
-     # route (flash_simt.cu) in every type and for bf16 and int8 caches;
-     # 448 and 640 (not a multiple of 128, past the cap) none
+     # the reference's multiples of 128 above 256: the wide route
+     # (flash_simt.cu; chunked above 512) in every type and for bf16 and
+     # int8 caches; 448 (not a multiple of 128) none
      (384, BF16, {}, ("wide", 384)), (384, F16, {"window": 16}, ("wide", 384)),
      (384, F32, {}, ("wide", 384)), (512, BF16, {}, ("wide", 512)),
      (512, F16, {}, ("wide", 512)), (512, F32, {}, ("wide", 512)),
-     (448, BF16, {}, ("none", 448)), (640, BF16, {}, ("none", 640)),
+     (448, BF16, {}, ("none", 448)), (640, BF16, {}, ("wide", 640)),
+     (768, F16, {"window": 16}, ("wide", 768)), (1024, F32, {}, ("wide", 1024)),
+     (2048, BF16, {}, ("wide", 2048)), (448, BF16, {"decode": True}, ("none", 448)),
      (384, BF16, {"decode": True}, ("wide", 384)),
      (512, BF16, {"decode": True, "cache_dtype": I8}, ("wide", 512)),
      (512, F32, {"decode": True}, ("wide", 512)),
-     (640, BF16, {"decode": True}, ("none", 640)),
+     (640, BF16, {"decode": True}, ("wide", 640)),
+     (768, F16, {"decode": True, "cache_dtype": I8}, ("wide", 768)),
+     (1024, F32, {"decode": True}, ("wide", 1024)),
+     (2048, BF16, {"decode": True}, ("wide", 2048)),
      (128, F16, {"decode": True, "cache_dtype": BF16}, ("none", 128))],
 )
 def test_route_table(d, dtype, kw, want):
@@ -113,7 +119,8 @@ def test_gates():
     "d,dtype,want",
     [(256, BF16, "tc"), (256, F16, "tc"), (256, F32, "simt"), (160, BF16, "simt"),
      (160, F16, "simt"), (192, BF16, "simt"), (192, F16, "simt"), (160, F32, "simt"),
-     (136, BF16, "simt"), (384, BF16, "simt"), (512, F16, "simt"), (512, F32, "simt")],
+     (136, BF16, "simt"), (384, BF16, "simt"), (512, F16, "simt"), (512, F32, "simt"),
+     (640, BF16, "simt"), (1024, F16, "simt")],
 )
 def test_wide_kernel_table(d, dtype, want):
     """The wide route's forward and dQ: the tensor-core kernels' d=256
@@ -129,7 +136,7 @@ def test_wide_kernel_table(d, dtype, want):
     [(256, BF16, BF16, "tc"), (256, F16, F16, "tc"), (256, BF16, I8, "tc"),
      (256, F32, I8, "tc"), (256, F32, F32, "simt"), (192, BF16, BF16, "simt"),
      (160, BF16, I8, "simt"), (136, F16, F16, "simt"), (384, BF16, BF16, "simt"),
-     (512, BF16, I8, "simt")],
+     (512, BF16, I8, "simt"), (640, BF16, BF16, "simt"), (1024, F16, I8, "simt")],
 )
 def test_wide_decode_kernel_table(d, qdt, cache, want):
     """The wide route's decode: flash_decode.cu's 256 tiles for a bf16,
@@ -213,7 +220,7 @@ def test_llama_forward_and_backward_match_jax(case):
 
 
 # --------------------------------------------------------------------- #
-# head dims 384 and 512 against the reference's kernels (interpret mode) #
+# head dims 384-640 against the reference's kernels (interpret mode)     #
 # --------------------------------------------------------------------- #
 
 F32_TOL, BF16_TOL, F32_GRAD_REL, BF16_GRAD_REL, DECODE_TOL = 2e-5, 3e-2, 1e-4, 2 ** -6, 2e-5
@@ -238,11 +245,12 @@ def _big_dim_case(d, jdtype_name):
         tuple(np.asarray(g, np.float32) for g in pull(jdo))
 
 
-@pytest.mark.parametrize("d", [384, 512])
+@pytest.mark.parametrize("d", [384, 512, 640])
 @pytest.mark.parametrize("dtype", [F32, BF16])
 def test_big_head_dim_forward_and_grads_match_jax_kernels(d, dtype):
     """The wide route at head dims 384 and 512 (on the card
-    csrc/flash_simt.cu's sixteen-lane kernels): the output and dQ, dK, dV
+    csrc/flash_simt.cu's sixteen-lane kernels) and 640 (its chunked
+    kernels, two output chunks): the output and dQ, dK, dV
     of ``attention`` on the CPU, its plain version, against the
     reference's Pallas forward and backward kernels."""
     (q, k, v, do), ref, ref_grads = _big_dim_case(d, "float32" if dtype == F32 else "bfloat16")
@@ -261,10 +269,10 @@ def test_big_head_dim_forward_and_grads_match_jax_kernels(d, dtype):
             tfa.flash_bwd_dkv_wide.launches) == (0, 0, 0)
 
 
-@pytest.mark.parametrize("d", [384, 512])
+@pytest.mark.parametrize("d", [384, 512, 640])
 @pytest.mark.parametrize("quant", [False, True])
 def test_big_head_dim_decode_matches_jax_kernel(d, quant):
-    """The wide decode at head dims 384 and 512 over a bf16 or an int8
+    """The wide decode at head dims 384, 512 and 640 over a bf16 or an int8
     cache (live length 332 of 384: the reference's decode needs max_len
     >= 256), g = 2 query rows under a window, against the reference's
     Pallas decode in interpret mode."""
@@ -303,10 +311,12 @@ def test_big_head_dim_decode_matches_jax_kernel(d, quant):
 class _OnTheCard:
     """What ``_no_kernel`` reads of a CUDA tensor (this test needs no card)."""
 
-    shape, dtype, device = (1, 4, 2, 640), BF16, torch.device("cuda", 0)
+    shape, dtype, device = (1, 4, 2, 448), BF16, torch.device("cuda", 0)
 
 
 def test_no_kernel_names_the_cap():
-    """Above the cap the card refuses, naming what is taken and the cap."""
-    with pytest.raises(ValueError, match="above 512, the cap of csrc/flash_simt.cu"):
-        tfa._no_kernel(_OnTheCard(), (1, 4, 2, 640), "attention")
+    """A head dim above 256 that is not a multiple of 128 the card refuses,
+    naming what is taken; there is no cap on the multiples of 128."""
+    with pytest.raises(ValueError, match="every multiple of 128 above it are taken"):
+        tfa._no_kernel(_OnTheCard(), (1, 4, 2, 448), "attention")
+    assert tfa.attention_route((1, 4, 4, 4096), (1, 4, 2, 4096), BF16).kind == "wide"

@@ -889,7 +889,11 @@ def wide_launches():
     [(512, 4, 4, 256, None, True), (333, 4, 2, 256, 50, True),
      (200, 4, 1, 160, None, False), (129, 2, 2, 256, None, True),
      (300, 4, 2, 384, None, True), (257, 2, 1, 512, 64, True),
-     (160, 4, 4, 512, None, False)],
+     (160, 4, 4, 512, None, False),
+     # above 512: the chunked kernels (two chunks at 640 and 1024, the
+     # second narrower at 640; a window; no mask)
+     (200, 4, 2, 640, None, True), (150, 2, 1, 640, 48, True),
+     (130, 4, 4, 1024, None, False), (160, 4, 2, 1024, None, True)],
 )
 def test_flash_wide_matches_plain(cuda_device, kind, s, h, g, d, window, causal):
     """The wide forward, dQ and dK/dV against the plain versions from the
@@ -1024,7 +1028,9 @@ def test_flash_d256_dkv_matches_plain(cuda_device, kind, s, sk, h, g, window, ca
      ("int8", 3, 300, 64, 256, 517), ("f32int8", 2, 500, None, 256, 517),
      ("f16int8", 8, 700, None, 256, 1152), ("bf16", 8, 135, None, 256, 144),
      ("bf16", 2, 300, None, 384, 320), ("int8", 3, 300, 64, 384, 517),
-     ("bf16", 4, 260, 128, 512, 384), ("int8", 1, 511, None, 512, 512)],
+     ("bf16", 4, 260, 128, 512, 384), ("int8", 1, 511, None, 512, 512),
+     ("bf16", 2, 300, None, 640, 320), ("int8", 3, 300, 64, 640, 517),
+     ("f32", 1, 200, None, 1024, 256), ("f16int8", 4, 250, None, 1024, 300)],
 )
 def test_flash_decode_wide_matches_plain(cuda_device, kind, g, pos0, window, hd, L):
     gen = torch.Generator(device=cuda_device).manual_seed(0)

@@ -1,6 +1,7 @@
-"""``GPipe(fused=True)``, the megastep and ``checkpoint='offload'`` on
-the card; a small ViT's step and a GPT-2-class decode through the flash
-kernels; float32 and head-dim-32 Llamas through the attention routes.
+"""``GPipe(fused=True)`` (with each remat policy preset), the megastep
+and ``checkpoint='offload'`` on the card; a small ViT's step and a
+GPT-2-class decode through the flash kernels; float32 and head-dim-32
+Llamas through the attention routes.
 
 Needs an NVIDIA GPU; every test skips without one.  This file imports
 neither JAX nor the JAX package (``tests/conftest.py`` imports JAX, hence
@@ -593,3 +594,35 @@ def test_two_rank_distributed_step_equals_gpipe_bitwise(cuda_device):
     assert _flash_launches() == want_launches
     assert torch.equal(loss, want_loss)
     assert _equal([p.grad for layer in layers for p in layer.parameters()], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["save_attn_out", "save_block_outputs", "save_flash_stats",
+                                  "dots_no_batch", "offload_names", "offload_default"])
+def test_fused_remat_policy_replays_equal_the_policy_free_step(cuda_device, name):
+    """A captured step under each preset: the op cache's dispatch mode is
+    active while the step is captured, and the offload presets copy
+    through pinned host buffers that the warm-up makes and the graph
+    holds.  Every call's loss and gradients are bitwise those of the
+    policy-free step (the per-cell scheduler, checkpoint='always')."""
+    from torchgpipe_tpu_torch.checkpoint import policies
+
+    policy = {"offload_names": lambda: policies.offload_names("attn_out", "mlp_hidden"),
+              "offload_default": policies.offload_default}.get(
+        name, lambda: getattr(policies, name))()
+    layers = _layers(2)
+    fused = GPipe(layers, [2, 2], chunks=2, checkpoint="always", fused=True,
+                  remat_policy=policy)
+    eager = GPipe(layers, [2, 2], chunks=2, checkpoint="always")
+    for t in (_tokens(5), _tokens(6), _tokens(5)):
+        lf, gf, _ = fused.value_and_grad(t, t, _loss)
+        gf = [g.clone() for s in gf for d in s for g in d.values()]
+        lf = lf.clone()
+        le, ge, _ = eager.value_and_grad(t, t, _loss)
+        assert torch.equal(lf, le), name
+        assert _equal(gf, [g for s in ge for d in s for g in d.values()]), name
+    assert fused.graph_stats["captures"] == 1 and fused.graph_stats["replays"] == 2
+    assert fused.remat_stats["saved_bytes"] > 0
+    if policy.offload:
+        host = next(iter(fused._graphs.values())).host
+        assert host.bufs and all(b.is_pinned() for b in host.bufs)

@@ -330,8 +330,9 @@ _JAX_DTYPES = {torch.float16: jnp.float16, torch.bfloat16: jnp.bfloat16}
     # refuses the pairing, and the port must refuse it with the
     # reference's text.  ``tracer`` and ``hbm_budget_bytes`` are ported
     # too: the pipe keeps them as the reference's does.  ``remat_policy``
-    # meets the reference's two checks first; one they let through is
-    # still unported and names its ROADMAP item.
+    # meets the reference's two checks first; one they let through must be
+    # a ``checkpoint.policies`` preset (the port applies no jax policy
+    # callable), and a preset is taken.
     [{"schedule": "1f1b", "loss_reduction": "mean", "megastep": 3},
      {"fused": True, "schedule": "1f1b", "loss_reduction": "mean"},
      {"megastep": 2},
@@ -355,8 +356,13 @@ def test_unported_options_raise_with_roadmap_item(kwargs):
         assert pipe.hbm_budget_bytes == jpipe_.hbm_budget_bytes
         return
     if kwargs.keys() == {"remat_policy", "fused"}:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, queue A item 2"):
+        with pytest.raises(TypeError, match="checkpoint.policies preset"):
             GPipe(layers, [1, 1], devices=["cpu"], **kwargs)
+        from torchgpipe_tpu_torch.checkpoint import policies
+
+        pipe = GPipe(layers, [1, 1], devices=["cpu"], fused=True,
+                     remat_policy=policies.save_flash_stats)
+        assert pipe.remat_policy.names == ("flash_out", "flash_stats")
         return
     with pytest.raises(ValueError) as je:
         JGPipe(jt.llama(JCFG)[:2], [1, 1], devices=[jax.devices()[0]], **jkw)

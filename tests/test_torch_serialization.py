@@ -14,6 +14,8 @@ import importlib
 
 import jax
 import jax.numpy as jnp
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -146,10 +148,27 @@ def test_load_is_strict(llama_pair):
 
 
 def test_save_appends_npz_and_sharded_checkpoints_wait(tmp_path):
+    """``save`` appends ``.npz``; the sharded checkpoints (once refused,
+    now ported) round-trip in one process: one rank's piece of a bf16
+    leaf (its left half) and a whole leaf, read back as a slice of the
+    piece bitwise; the rest of the leaf is in no file, so a whole read
+    fails; a second save replaces the first through the temp directory."""
     ser.save(str(tmp_path / "x"), {"a": np.arange(3)})
     assert list(ser.load(str(tmp_path / "x.npz"))) == ["a"]
     assert not [p for p in tmp_path.iterdir() if ".tmp" in p.name]
-    with pytest.raises(NotImplementedError, match="queue A item 5.4"):
-        ser.save_sharded(str(tmp_path / "s"), {})
-    with pytest.raises(NotImplementedError, match="queue A item 5.4"):
-        ser.restore_sharded(str(tmp_path / "s"), {})
+    w = torch.randn(4, 6, generator=torch.Generator().manual_seed(0)).bfloat16()
+    tree = {"w": ser.Shard(w[:, :3], (4, 6), (0, 0)), "n": np.arange(5, dtype=np.int32)}
+    ser.save_sharded(str(tmp_path / "s"), tree)
+    ser.save_sharded(str(tmp_path / "s"), tree)
+    assert sorted(os.listdir(tmp_path / "s")) == ["rank_00000.npz"]
+    assert not [p for p in tmp_path.iterdir() if p.name.startswith("s.")]
+    with pytest.raises(Exception, match="do not cover"):
+        ser.restore_sharded(str(tmp_path / "s"), {"w": torch.empty(4, 6, dtype=torch.bfloat16),
+                                                  "n": np.zeros(5, np.int32)})
+    back = ser.restore_sharded(str(tmp_path / "s"), {
+        "w": ser.Shard(torch.empty(2, 3, dtype=torch.bfloat16), (4, 6), (1, 0)),
+        "n": np.zeros(5, np.int32)})
+    assert torch.equal(back["w"], w[1:3, :3]) and back["w"].dtype == torch.bfloat16
+    assert np.array_equal(back["n"], np.arange(5)) and back["n"].dtype == np.int32
+    with pytest.raises(FileExistsError):
+        ser.save_sharded(str(tmp_path / "s"), {"n": tree["n"]}, overwrite=False)

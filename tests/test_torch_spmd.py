@@ -200,7 +200,7 @@ def mse(out, tgt):
     (dict(zero_update=2), ValueError, "zero=2 is not a supported ZeRO level"),
     (dict(ep_axis="dp", loss_reduction=None), ValueError, "batch-decomposable loss"),
     (dict(checkpoint="offload", schedule="1f1b"), ValueError, "fill_drain feature"),
-    (dict(remat_policy=lambda *a: None), NotImplementedError, r"queue A item 2\b"),
+    (dict(remat_policy=lambda *a: None), TypeError, "checkpoint.policies preset"),
     (dict(fsdp=True, dp_axis="dp", ep_axis="dp"), ValueError, r"fsdp \+ ep is not supported"),
 ])
 def test_constructor_validation(kw, exc, match):

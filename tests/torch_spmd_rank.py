@@ -25,7 +25,10 @@ and every rank's own tree to ``DIR/<case>_rank<r>.pt``; an ``op`` case
 primitive on this rank's shard of ``{"q", "k", "v", "do"}`` or ``{"x"}``;
 a ``knob`` case (:func:`run_knob`) runs the engine's own knobs (megastep,
 ``rng=``, ``checkpoint='offload'``, StepGuard under ``faults.inject``,
-a failing cell's note) and writes each rank's findings.
+a failing cell's note) and writes each rank's findings; a ``ckpt`` case
+(:func:`run_ckpt`) takes sharded checkpoints of a training run and
+writes each rank's findings.  A case's ``remat`` names a
+``checkpoint.policies`` preset for the engine.
 """
 
 import argparse
@@ -39,6 +42,7 @@ from torch import nn
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+from torchgpipe_tpu_torch import checkpoint as tckpt  # noqa: E402
 from torchgpipe_tpu_torch import parallel, skip  # noqa: E402
 from torchgpipe_tpu_torch import spmd  # noqa: E402
 from torchgpipe_tpu_torch.models import moe as tm  # noqa: E402
@@ -92,6 +96,8 @@ def build(spec, mesh):
               loss_reduction=spec.get("loss_reduction", "mean"),
               dp_axis="dp" if spec["dp"] > 1 or spec.get("dp_axis") else None,
               fsdp=spec.get("fsdp", False), virtual_stages=spec.get("v", 1))
+    if spec.get("remat"):
+        kw["remat_policy"] = getattr(tckpt.policies, spec["remat"])
     n = spec["pp"]
     if spec["model"] == "moe":
         cfg = tt.TransformerConfig(vocab=64, dim=32, n_layers=spec["n_layers"], n_heads=4,
@@ -421,6 +427,147 @@ def run_zero(spec, case, mesh):
     return {k: every_rank(v) for k, v in res.items()}
 
 
+def _state_tree(pipe, params, opt, name):
+    """``params``' layout with each leaf replaced by ``opt``'s state
+    ``name`` of it (ZeRO levels 0 and 3: the optimizer holds the leaves)."""
+    return {k: spmd._tree_map(lambda p: opt.state[p][name], params[k])
+            for k, _ in pipe._layers()}
+
+
+def _mine(pipe, params, opt):
+    """This rank's parameters and optimizer state tensors, cloned."""
+    return [t.detach().clone() for t in pipe._flat(params) + _opt_state(opt)]
+
+
+def run_ckpt(spec, case, mesh, out, rank):
+    """Sharded checkpoints of a ``make_train_step`` AdamW run at ZeRO
+    ``spec['zero']`` (3 under fsdp), every rank: step 1, snapshots after
+    steps 1 and 2 (``CheckpointManager(sharded=True, keep_last_k=2)``) and
+    a ``save_sharded`` copy of step 1 (``one``); one byte of a rank file
+    of snapshot 2 flipped, a fresh engine restores (falls back to
+    snapshot 1) and retakes step 2, which must equal the uninterrupted
+    step 2 bitwise; then the refusal of a template-free sharded restore,
+    GC, a same-step re-save and a crash between its renames (``.old``),
+    ``world_size=`` on an npz snapshot, saves with every filesystem call
+    but file writes refused on ranks other than 0 (``overwrite=False``
+    too: a second such save refuses on every rank), and a ZeRO-1 run's
+    state (``z1``).  Rank 0 also keeps the gathered params and AdamW
+    moments after step 1."""
+    import shutil
+
+    from torchgpipe_tpu_torch.resilience.checkpoint import CheckpointError, CheckpointManager
+    from torchgpipe_tpu_torch.utils import serialization as ser
+
+    x, y = case["x"], case["tgt"]
+    x2, y2 = x.flip(0), y.flip(0)
+    opt, root, res = ZERO_OPTS["adamw"], os.path.join(out, "ckpt"), {}
+    level = spec["zero"]
+
+    def engine():
+        pipe = build(spec, mesh)
+        params = pipe.place(case["params"])
+        step = pipe.make_train_step(opt, zero=level)
+        step.prepare(params)
+        return pipe, params, step
+
+    pipe, params, step = engine()
+    step(params, x, y)
+    run = os.path.join(root, "run")
+    mgr = CheckpointManager(run, keep_last_k=2)
+    state = pipe.train_state(params, step.optimizer)
+    mgr.save(1, state, sharded=True, world_size=spec["pp"])
+    ser.save_sharded(os.path.join(root, "one"), state)
+    # Copies: on the CPU rank 0's own pieces of a gathered tree are its
+    # live tensors, which the next step updates.
+    gathered = {"params": pipe.gather(params)}
+    for name in ("exp_avg", "exp_avg_sq"):
+        gathered[name] = pipe.gather(_state_tree(pipe, params, step.optimizer, name))
+    if rank == 0:
+        gathered = spmd._tree_map(lambda a: a.clone(), gathered)
+    loss2 = step(params, x2, y2)
+    want = _mine(pipe, params, step.optimizer)
+    mgr.save(2, pipe.train_state(params, step.optimizer), sharded=True, world_size=spec["pp"])
+    ser.barrier()
+    if rank == 0:
+        victim = os.path.join(run, "step_0000000002", "sharded", "rank_00001.npz")
+        with open(victim, "r+b") as f:
+            f.seek(os.path.getsize(victim) // 2)
+            b = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([b[0] ^ 0xFF]))
+    ser.barrier()
+    p2, params2, step2 = engine()
+    snap = CheckpointManager(run, keep_last_k=2).restore_latest(
+        p2.train_state(params2, step2.optimizer))
+    res["fell_back_to"] = snap.step
+    p2.load_train_state(snap.tree, params2, step2.optimizer)
+    loss2b = step2(params2, x2, y2)
+    got = _mine(p2, params2, step2.optimizer)
+    res["resume_bitwise"] = torch.equal(loss2, loss2b) and len(got) == len(want) and all(
+        torch.equal(a, b) for a, b in zip(got, want))
+    try:
+        mgr.restore_latest()
+        res["template_refused"] = False
+    except CheckpointError as e:
+        res["template_refused"] = "template" in str(e)
+    state3 = p2.train_state(params2, step2.optimizer)
+    mgr.save(3, state3, sharded=True)
+    res["steps_after_gc"] = mgr.steps()
+    mgr.save(3, state3, sharded=True)
+    res["resave_clean"] = sorted(os.listdir(run))
+    ser.barrier()
+    if rank == 0:
+        os.rename(os.path.join(run, "step_0000000003"), os.path.join(run, "step_0000000003.old"))
+    ser.barrier()
+    snap = mgr.restore_latest(p2.train_state(params2, step2.optimizer))
+    res["old_recovered"] = snap.step == 3 and snap.path.endswith(".old") and all(
+        torch.equal(a, b) for a, b in zip(spmd._leaves(snap.tree["params"]["blocks"]),
+                                          spmd._leaves(params2["blocks"])))
+    npz = CheckpointManager(os.path.join(root, "npz"))
+    npz.save(1, {"a": torch.arange(4.0).numpy()}, world_size=spec["pp"], balance=[1, 1])
+    flat = npz.restore_latest({"a": torch.zeros(4).numpy()}, world_size=spec["pp"] + 1)
+    same = npz.restore_latest({"a": torch.zeros(4).numpy()}, world_size=spec["pp"])
+    res["world_size_flat"] = sorted(flat.tree) == ["['a']"] and \
+        flat.metadata["balance"] == [1, 1] and isinstance(same.tree, dict) and \
+        sorted(same.tree) == ["a"]
+    # Only rank 0 touches the filesystem's structure: elsewhere a rename,
+    # a removal or an existence probe raises.
+    saved = (os.rename, shutil.rmtree, os.path.exists)
+    if rank != 0:
+        def refuse(*a, **k):
+            raise AssertionError(f"rank {rank} touched the filesystem's structure")
+        os.rename = shutil.rmtree = os.path.exists = refuse
+    try:
+        for _ in range(2):
+            ser.save_sharded(os.path.join(root, "gated"), state3)
+        mgr.save(4, state3, sharded=True)
+        ser.save_sharded(os.path.join(root, "once"), state3, overwrite=False)
+        try:   # rank 0 finds the files, so every rank refuses
+            ser.save_sharded(os.path.join(root, "once"), state3, overwrite=False)
+            res["no_clobber"] = False
+        except FileExistsError:
+            res["no_clobber"] = True
+    finally:
+        os.rename, shutil.rmtree, os.path.exists = saved
+    back = ser.restore_sharded(os.path.join(root, "gated"), p2.train_state(params2))
+    res["gated_swap"] = all(torch.equal(a, b) for a, b in zip(
+        spmd._leaves(back["params"]["blocks"]), spmd._leaves(params2["blocks"])))
+    z1 = build(dict(spec, fsdp=False), mesh)
+    p1 = z1.place(case["params"])
+    s1 = z1.make_train_step(opt, zero=1)
+    s1(p1, x, y)
+    ser.save_sharded(os.path.join(root, "z1"), z1.train_state(p1, s1.optimizer))
+    q1 = z1.place(case["params"])
+    t1 = z1.make_train_step(opt, zero=1)
+    t1.prepare(q1)
+    z1.load_train_state(ser.restore_sharded(os.path.join(root, "z1"),
+                                            z1.train_state(q1, t1.optimizer)), q1, t1.optimizer)
+    res["zero1_same_mesh"] = all(torch.equal(a, b) for a, b in zip(
+        _mine(z1, p1, s1.optimizer), _mine(z1, q1, t1.optimizer)))
+    torch.save(res, os.path.join(out, f"{case['name']}_rank{rank}.pt"))
+    return {"gathered": gathered} if rank == 0 else None
+
+
 def main():
     ap = argparse.ArgumentParser()
     for name in ("rank", "world", "port", "pp", "dp"):
@@ -439,6 +586,11 @@ def main():
         cases = torch.load(a.inputs, weights_only=True)
         for name, case in cases.items():
             spec = case["spec"]
+            if spec.get("ckpt"):
+                res = run_ckpt(spec, dict(case, name=name), mesh, a.out, a.rank)
+                if a.rank == 0:
+                    torch.save(res, os.path.join(a.out, name + ".pt"))
+                continue
             if spec.get("knob"):
                 res = run_knob(spec, dict(case, name=name), mesh, a.out, a.rank)
                 if a.rank == 0:
@@ -474,7 +626,9 @@ def main():
             loss, grads = pipe.train_step(params, case["x"], case["tgt"])
             grads = pipe.gather(grads)
             if a.rank == 0:
-                torch.save({"loss": loss, "grads": grads}, os.path.join(a.out, name + ".pt"))
+                torch.save({"loss": loss, "grads": grads,
+                            "remat_bytes": torch.tensor(pipe.remat_stats["saved_bytes"])},
+                           os.path.join(a.out, name + ".pt"))
         if a.sp > 1:   # every rank's own positions, assembled over sp on dim 1
             local = torch.arange(6, dtype=torch.float32).reshape(2, 3) + 10 * mesh.coords["sp"]
             got = global_batch_from_local(mesh, spmd.P(None, "sp"), local)

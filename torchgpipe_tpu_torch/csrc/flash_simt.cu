@@ -5,8 +5,9 @@
 // * float32 q/k/v at a head dim TMA cannot map (d % 4 != 0, up to 128),
 //   and wide head dims: the forward (O and the per-row logsumexp), dQ
 //   and dK/dV (summed over each kv head's query heads) in bf16, float16
-//   or float32 at head dims 129 to 255 and at 384 and 512 (any d up to
-//   DMAX runs), and in float32 at 256 (bf16 and float16 at exactly 256,
+//   or float32 at head dims 129 to 255 and at the multiples of 128 above
+//   256 (any d runs: up to DMAX on the row kernels, above it on the
+//   chunked ones), and in float32 at 256 (bf16 and float16 at exactly 256,
 //   Gemma's, run the d = 256 instantiations of flash_fwd.cu and
 //   flash_bwd.cu: ops/flash_attention.py wide_kernel).  Replaces:
 //   torchgpipe_tpu/ops/flash_attention.py:_fwd_kernel, :_dq_kernel and
@@ -14,8 +15,8 @@
 //   and load their operands `.astype(jnp.float32)`), which the wgmma
 //   kernels have no tile for.
 // * decode at a head dim the tensor-core decode cannot map (a cache row
-//   not a multiple of 16 bytes, hd from 129 to 255, 384 or 512, or a
-//   float32 cache at 256): g consecutive
+//   not a multiple of 16 bytes, hd from 129 to 255, a multiple of 128
+//   above 256, or a float32 cache at 256): g consecutive
 //   queries against the live prefix of a bf16, float16, f32 or int8 cache.
 //   Replaces :_decode_kernel at those dims; no padded copy of the cache
 //   is made.
@@ -43,10 +44,23 @@
 // * dK/dV: a block takes 32 keys of one (batch, kv head), L threads a key,
 //   and walks the query tiles (and query heads of the group) that see
 //   them, accumulating dK and dV in registers: no atomics.
+// * Above DMAX (the chunked kernels, sixteen lanes a row): a row no
+//   longer fits registers and shared memory whole, so the output head dim
+//   is split over the grid (blockIdx.z) in chunks of DC = DMAX columns.
+//   A block owns one chunk of O, dQ, dK or dV.  It still forms the scores
+//   S = Q K^T (and dP = dO V^T) over the whole head dim, streaming DS =
+//   128 columns of Q, K (dO, V) at a time through shared memory, and then
+//   reads only its chunk's columns of V (K, Q, dO) for the products that
+//   make its output.  Every chunk's block forms S and dP in the same order
+//   of sums, so each gets the same max, sum and logsumexp bit for bit;
+//   only chunk 0 writes the logsumexp.  The extra S/dP work a chunk (d /
+//   DC times that of one block) is the price of a simple kernel.
 // * Decode: a block per (query head, query row, batch row).  The live keys
 //   go by in tiles of 128, one key a thread; the tile's max and sum meet
 //   through shared memory; thread t owns head dims t, t + 128, ... of
-//   the output.  The live length is read from the device (`pos_dev`) or taken
+//   the output (above DMAX the grid splits the output dims in chunks of
+//   DMAX, as the chunked kernels do, and q streams through shared memory
+//   DMAX dims at a time).  The live length is read from the device (`pos_dev`) or taken
 //   from the host, as flash_decode.cu does, so a captured call replays at
 //   any length.
 //
@@ -66,7 +80,10 @@ namespace {
 constexpr int BQ = 32;       // query rows of a forward / dQ block
 constexpr int BK = 32;       // keys of a K/V tile, and of a dK/dV block
 constexpr int ACC = 32;      // head dims a thread owns (d <= 32 * L)
-constexpr int DMAX = 512;    // largest head dim
+constexpr int DMAX = 512;    // largest head dim of the row kernels (and a chunk's width)
+constexpr int DS = 128;      // head dims a chunked kernel streams at a time for S and dP
+constexpr int DC = DMAX;     // output head dims of a chunked kernel's block
+constexpr int LC = 16;       // lanes a row in the chunked kernels (ACC * LC == DC)
 constexpr int THREADS = 128; // decode block
 constexpr int DEC_TILE = 128;  // decode keys per tile: one a thread
 constexpr int DEC_ACC = DMAX / THREADS;
@@ -120,6 +137,19 @@ __device__ __forceinline__ void load_rows(float* dst, int pitch, const T* src, i
     const int rr = i / d, dd = i - rr * d;
     const int row = r0 + rr;
     dst[rr * pitch + dd] = row < limit ? to_f32(src[(size_t)row * stride + dd]) : 0.f;
+  }
+}
+
+// Columns [c0, c0 + nc) of rows [r0, r0 + n) of a [rows, heads, d] slice
+// into shared memory as f32 at pitch `pitch` (load_rows for a chunk of
+// the head dim).
+template <int NT, typename T>
+__device__ __forceinline__ void load_cols(float* dst, int pitch, const T* src, int r0, int n,
+                                          int limit, int stride, int c0, int nc) {
+  for (int i = threadIdx.x; i < n * nc; i += NT) {
+    const int rr = i / nc, cc = i - rr * nc;
+    const int row = r0 + rr;
+    dst[rr * pitch + cc] = row < limit ? to_f32(src[(size_t)row * stride + c0 + cc]) : 0.f;
   }
 }
 
@@ -360,6 +390,270 @@ __global__ void __launch_bounds__(32 * L) dkv_simt_kernel(
   }
 }
 
+// ------------------------------------------------------------------------
+// Head dims above DMAX: the chunked kernels (see the note at the top).
+// Sixteen lanes a row (LC), blockIdx.z the output chunk [c0, c0 + dc).
+
+constexpr int CQT = 16;  // queries a tile of the chunked dK/dV
+
+// q [b, s, h, d], k/v [b, sk, g, d], o [b, s, h, d] in T; lse [b*h, s] f32.
+template <typename T>
+__global__ void __launch_bounds__(32 * LC) fwd_chunk_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ o, float* __restrict__ lse, int s, int sk, int h, int g, int d,
+    float scale, int causal, int window) {
+  extern __shared__ float sm[];
+  float* Qs = sm;                  // [BQ][DS + 1]
+  float* Ks = Qs + BQ * (DS + 1);  // [BK][DS + 1]
+  float* Vs = Ks + BK * (DS + 1);  // [BK][DC + 1]: this chunk's columns
+  float* Ps = Vs + BK * (DC + 1);  // [BQ][BK + 1]
+  const int tid = threadIdx.x, r = tid / LC, c = tid % LC;
+  const int q0 = blockIdx.x * BQ;
+  const int bi = blockIdx.y / h, hi = blockIdx.y % h, kvh = hi / (h / g);
+  const int c0 = blockIdx.z * DC, dc = min(DC, d - c0);
+  const int qi = q0 + r;
+  int lo, hiq;
+  key_range(q0, s, sk, causal, window, &lo, &hiq);
+  float m = -CUDART_INF_F, l = 0.f;
+  float acc[ACC];
+#pragma unroll
+  for (int j = 0; j < ACC; ++j) acc[j] = 0.f;
+  const T* qb = q + ((size_t)bi * s * h + hi) * d;
+  const T* kb = k + ((size_t)bi * sk * g + kvh) * d;
+  const T* vb = v + ((size_t)bi * sk * g + kvh) * d;
+  for (int k0 = lo - lo % BK; k0 < hiq; k0 += BK) {
+    float sv[BK / LC];
+#pragma unroll
+    for (int jj = 0; jj < BK / LC; ++jj) sv[jj] = 0.f;
+    for (int t0 = 0; t0 < d; t0 += DS) {
+      const int n = min(DS, d - t0);
+      __syncthreads();
+      load_cols<32 * LC>(Qs, DS + 1, qb, q0, BQ, s, h * d, t0, n);
+      load_cols<32 * LC>(Ks, DS + 1, kb, k0, BK, sk, g * d, t0, n);
+      __syncthreads();
+#pragma unroll
+      for (int jj = 0; jj < BK / LC; ++jj) {
+        const int kk = c + LC * jj;
+        for (int t = 0; t < n; ++t)
+          sv[jj] = fmaf(Qs[r * (DS + 1) + t], Ks[kk * (DS + 1) + t], sv[jj]);
+      }
+    }
+    load_cols<32 * LC>(Vs, DC + 1, vb, k0, BK, sk, g * d, c0, dc);
+    float mt = -CUDART_INF_F;
+#pragma unroll
+    for (int jj = 0; jj < BK / LC; ++jj) {
+      sv[jj] = visible(qi, k0 + c + LC * jj, sk, causal, window) ? sv[jj] * scale
+                                                                  : -CUDART_INF_F;
+      mt = fmaxf(mt, sv[jj]);
+    }
+    const float mn = fmaxf(m, row_max<LC>(mt));
+    const float base = mn == -CUDART_INF_F ? 0.f : mn;  // an all-masked row keeps p = 0
+    const float alpha = expf(m - base);
+    float ls = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < BK / LC; ++jj) {
+      const float p = expf(sv[jj] - base);
+      Ps[r * (BK + 1) + c + LC * jj] = p;
+      ls += p;
+    }
+    l = l * alpha + row_sum<LC>(ls);
+    m = mn;
+    __syncthreads();  // Vs (all rows) and Ps (this row's lanes) are written
+#pragma unroll
+    for (int j = 0; j < ACC; ++j) acc[j] *= alpha;
+    for (int kk = 0; kk < BK; ++kk) {
+      const float p = Ps[r * (BK + 1) + kk];
+#pragma unroll
+      for (int j = 0; j < ACC; ++j)
+        if (c + LC * j < dc) acc[j] = fmaf(p, Vs[kk * (DC + 1) + c + LC * j], acc[j]);
+    }
+  }
+  if (qi >= s) return;
+  const float inv = l > 0.f ? 1.f / l : 0.f;
+  T* orow = o + (((size_t)bi * s + qi) * h + hi) * d + c0;
+#pragma unroll
+  for (int j = 0; j < ACC; ++j)
+    if (c + LC * j < dc) from_f32(orow + c + LC * j, acc[j] * inv);
+  if (blockIdx.z == 0 && c == 0)
+    lse[(size_t)blockIdx.y * s + qi] = l > 0.f ? m + logf(l) : -CUDART_INF_F;
+}
+
+// dq [b, s, h, d] from do [b, s, h, d] (T), lse and delta [b*h, s] (f32).
+template <typename T>
+__global__ void __launch_bounds__(32 * LC) dq_chunk_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dq, int s, int sk, int h, int g, int d,
+    float scale, int causal, int window) {
+  extern __shared__ float sm[];
+  float* Qs = sm;                  // [BQ][DS + 1]
+  float* Ds = Qs + BQ * (DS + 1);  // dO [BQ][DS + 1]
+  float* Ks = Ds + BQ * (DS + 1);  // [BK][DS + 1]
+  float* Vs = Ks + BK * (DS + 1);  // [BK][DS + 1]
+  float* Kc = Vs + BK * (DS + 1);  // [BK][DC + 1]: this chunk's columns of K
+  float* Ss = Kc + BK * (DC + 1);  // dS [BQ][BK + 1]
+  const int tid = threadIdx.x, r = tid / LC, c = tid % LC;
+  const int q0 = blockIdx.x * BQ;
+  const int bi = blockIdx.y / h, hi = blockIdx.y % h, kvh = hi / (h / g);
+  const int c0 = blockIdx.z * DC, dc = min(DC, d - c0);
+  const int qi = q0 + r;
+  const size_t qoff = ((size_t)bi * s * h + hi) * d;
+  const float lr = qi < s ? lse[(size_t)blockIdx.y * s + qi] : 0.f;
+  const float dr = qi < s ? delta[(size_t)blockIdx.y * s + qi] : 0.f;
+  int lo, hiq;
+  key_range(q0, s, sk, causal, window, &lo, &hiq);
+  float acc[ACC];
+#pragma unroll
+  for (int j = 0; j < ACC; ++j) acc[j] = 0.f;
+  const T* kb = k + ((size_t)bi * sk * g + kvh) * d;
+  const T* vb = v + ((size_t)bi * sk * g + kvh) * d;
+  for (int k0 = lo - lo % BK; k0 < hiq; k0 += BK) {
+    float sc[BK / LC], dp[BK / LC];
+#pragma unroll
+    for (int jj = 0; jj < BK / LC; ++jj) sc[jj] = dp[jj] = 0.f;
+    for (int t0 = 0; t0 < d; t0 += DS) {
+      const int n = min(DS, d - t0);
+      __syncthreads();
+      load_cols<32 * LC>(Qs, DS + 1, q + qoff, q0, BQ, s, h * d, t0, n);
+      load_cols<32 * LC>(Ds, DS + 1, dout + qoff, q0, BQ, s, h * d, t0, n);
+      load_cols<32 * LC>(Ks, DS + 1, kb, k0, BK, sk, g * d, t0, n);
+      load_cols<32 * LC>(Vs, DS + 1, vb, k0, BK, sk, g * d, t0, n);
+      __syncthreads();
+#pragma unroll
+      for (int jj = 0; jj < BK / LC; ++jj) {
+        const int kk = c + LC * jj;
+        for (int t = 0; t < n; ++t) {
+          sc[jj] = fmaf(Qs[r * (DS + 1) + t], Ks[kk * (DS + 1) + t], sc[jj]);
+          dp[jj] = fmaf(Ds[r * (DS + 1) + t], Vs[kk * (DS + 1) + t], dp[jj]);
+        }
+      }
+    }
+    load_cols<32 * LC>(Kc, DC + 1, kb, k0, BK, sk, g * d, c0, dc);
+#pragma unroll
+    for (int jj = 0; jj < BK / LC; ++jj) {
+      const int kk = c + LC * jj;
+      float ds = 0.f;
+      if (qi < s && visible(qi, k0 + kk, sk, causal, window)) {
+        const float p = expf(sc[jj] * scale - lr);
+        ds = p * (dp[jj] - dr);
+      }
+      Ss[r * (BK + 1) + kk] = ds;
+    }
+    __syncthreads();  // Kc and Ss are written
+    for (int kk = 0; kk < BK; ++kk) {
+      const float ds = Ss[r * (BK + 1) + kk];
+#pragma unroll
+      for (int j = 0; j < ACC; ++j)
+        if (c + LC * j < dc) acc[j] = fmaf(ds, Kc[kk * (DC + 1) + c + LC * j], acc[j]);
+    }
+  }
+  if (qi >= s) return;
+  T* row = dq + (((size_t)bi * s + qi) * h + hi) * d + c0;
+#pragma unroll
+  for (int j = 0; j < ACC; ++j)
+    if (c + LC * j < dc) from_f32(row + c + LC * j, acc[j] * scale);
+}
+
+// dk, dv [b, sk, g, d]: a block per 32 keys of one (batch, kv head) and
+// one chunk of the head dim.
+template <typename T>
+__global__ void __launch_bounds__(32 * LC) dkv_chunk_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int s,
+    int sk, int h, int g, int d, float scale, int causal, int window) {
+  extern __shared__ float sm[];
+  float* Ks = sm;                   // [BK][DS + 1]
+  float* Vs = Ks + BK * (DS + 1);   // [BK][DS + 1]
+  float* Qs = Vs + BK * (DS + 1);   // [CQT][DS + 1]
+  float* Ds = Qs + CQT * (DS + 1);  // dO [CQT][DS + 1]
+  float* Qc = Ds + CQT * (DS + 1);  // [CQT][DC + 1]: this chunk's columns of Q
+  float* Dc = Qc + CQT * (DC + 1);  // [CQT][DC + 1]: and of dO
+  float* Pt = Dc + CQT * (DC + 1);  // P^T [BK][CQT + 1]
+  float* St = Pt + BK * (CQT + 1);  // dS^T [BK][CQT + 1]
+  float* Ls = St + BK * (CQT + 1);  // lse [CQT]
+  float* Es = Ls + CQT;             // delta [CQT]
+  const int tid = threadIdx.x, kr = tid / LC, c = tid % LC;
+  const int k0 = blockIdx.x * BK;
+  const int bi = blockIdx.y / g, kvh = blockIdx.y % g, rep = h / g;
+  const int c0 = blockIdx.z * DC, dc = min(DC, d - c0);
+  const int kj = k0 + kr;
+  const size_t koff = ((size_t)bi * sk * g + kvh) * d;
+  int qlo = 0, qhi = s;
+  if (causal) {
+    qlo = k0;
+    if (window > 0) qhi = min(s, k0 + BK - 1 + window);
+  }
+  float ak[ACC], av[ACC];
+#pragma unroll
+  for (int j = 0; j < ACC; ++j) ak[j] = av[j] = 0.f;
+  for (int hi = kvh * rep; hi < (kvh + 1) * rep; ++hi) {
+    const size_t qoff = ((size_t)bi * s * h + hi) * d;
+    const float* lrow = lse + ((size_t)bi * h + hi) * s;
+    const float* erow = delta + ((size_t)bi * h + hi) * s;
+    for (int q0 = qlo - qlo % CQT; q0 < qhi; q0 += CQT) {
+      float sc[CQT / LC], dp[CQT / LC];
+#pragma unroll
+      for (int jj = 0; jj < CQT / LC; ++jj) sc[jj] = dp[jj] = 0.f;
+      for (int t0 = 0; t0 < d; t0 += DS) {
+        const int n = min(DS, d - t0);
+        __syncthreads();
+        load_cols<32 * LC>(Ks, DS + 1, k + koff, k0, BK, sk, g * d, t0, n);
+        load_cols<32 * LC>(Vs, DS + 1, v + koff, k0, BK, sk, g * d, t0, n);
+        load_cols<32 * LC>(Qs, DS + 1, q + qoff, q0, CQT, s, h * d, t0, n);
+        load_cols<32 * LC>(Ds, DS + 1, dout + qoff, q0, CQT, s, h * d, t0, n);
+        __syncthreads();
+#pragma unroll
+        for (int jj = 0; jj < CQT / LC; ++jj) {
+          const int qq = c + LC * jj;
+          for (int t = 0; t < n; ++t) {
+            sc[jj] = fmaf(Qs[qq * (DS + 1) + t], Ks[kr * (DS + 1) + t], sc[jj]);
+            dp[jj] = fmaf(Ds[qq * (DS + 1) + t], Vs[kr * (DS + 1) + t], dp[jj]);
+          }
+        }
+      }
+      load_cols<32 * LC>(Qc, DC + 1, q + qoff, q0, CQT, s, h * d, c0, dc);
+      load_cols<32 * LC>(Dc, DC + 1, dout + qoff, q0, CQT, s, h * d, c0, dc);
+      if (tid < CQT) {
+        Ls[tid] = q0 + tid < s ? lrow[q0 + tid] : 0.f;
+        Es[tid] = q0 + tid < s ? erow[q0 + tid] : 0.f;
+      }
+      __syncthreads();  // Qc, Dc, Ls and Es are written
+#pragma unroll
+      for (int jj = 0; jj < CQT / LC; ++jj) {
+        const int qq = c + LC * jj, qi = q0 + qq;
+        float p = 0.f, ds = 0.f;
+        if (qi < s && visible(qi, kj, sk, causal, window)) {
+          p = expf(sc[jj] * scale - Ls[qq]);
+          ds = p * (dp[jj] - Es[qq]);
+        }
+        Pt[kr * (CQT + 1) + qq] = p;
+        St[kr * (CQT + 1) + qq] = ds;
+      }
+      __syncwarp();
+      for (int qq = 0; qq < CQT; ++qq) {
+        const float p = Pt[kr * (CQT + 1) + qq], ds = St[kr * (CQT + 1) + qq];
+#pragma unroll
+        for (int j = 0; j < ACC; ++j) {
+          if (c + LC * j < dc) {
+            av[j] = fmaf(p, Dc[qq * (DC + 1) + c + LC * j], av[j]);
+            ak[j] = fmaf(ds, Qc[qq * (DC + 1) + c + LC * j], ak[j]);
+          }
+        }
+      }
+    }
+  }
+  if (kj >= sk) return;
+  const size_t out = (((size_t)bi * sk + kj) * g + kvh) * d + c0;
+#pragma unroll
+  for (int j = 0; j < ACC; ++j) {
+    if (c + LC * j < dc) {
+      from_f32(dk + out + c + LC * j, ak[j] * scale);
+      from_f32(dv + out + c + LC * j, av[j]);
+    }
+  }
+}
+
 // Max (or sum) of one value a thread over the block, through `red`.
 template <bool MAX>
 __device__ __forceinline__ float block_reduce(float x, float* red) {
@@ -379,8 +673,14 @@ __device__ __forceinline__ float block_reduce(float x, float* red) {
 }
 
 // q [b, g, nh, hd]; ck/cv [b, max_len, nkv, hd]; scales [b, nkv, max_len]
-// (int8 only); out [b, g, nh*hd] f32.  Grid (nh, g, b).
-template <typename TQ, typename TK>
+// (int8 only); out [b, g, nh*hd] f32.  Up to DMAX (CHUNKED false) a block
+// per (query head, query row, batch row) holds q in shared memory whole.
+// Above it (CHUNKED) the grid is (nh, g, b * chunks): a block owns output
+// dims [c0, c0 + DMAX) and forms the scores over all hd, streaming q
+// through shared memory DMAX dims at a time.  Two instantiations: with
+// the streaming loop folded into the whole-q one, the decode at d <= 512
+// ran 1.4-1.8x slower on the H100.
+template <typename TQ, typename TK, bool CHUNKED>
 __global__ void __launch_bounds__(THREADS) decode_simt_kernel(
     const TQ* __restrict__ q, const TK* __restrict__ ck, const TK* __restrict__ cv,
     const float* __restrict__ ks, const float* __restrict__ vs, float* __restrict__ out,
@@ -390,15 +690,20 @@ __global__ void __launch_bounds__(THREADS) decode_simt_kernel(
   __shared__ float ps[DEC_TILE];
   __shared__ float red[THREADS / 32];
   const int tid = threadIdx.x;
-  const int head = blockIdx.x, i = blockIdx.y, bi = blockIdx.z;
+  const int nch = CHUNKED ? (hd + DMAX - 1) / DMAX : 1;
+  const int head = blockIdx.x, i = blockIdx.y, bi = blockIdx.z / nch;
+  const int c0 = CHUNKED ? (blockIdx.z % nch) * DMAX : 0;
+  const int dc = CHUNKED ? min(DMAX, hd - c0) : hd;
   const int kvh = head / (nh / nkv);
   int pos0 = pos_dev != nullptr ? *pos_dev : pos_host;
   pos0 = min(max(pos0, 0), max_len - g);
   const int qpos = pos0 + i;
   const int lo = window > 0 ? max(0, qpos - window + 1) : 0, end = qpos + 1;
   const size_t qrow = (((size_t)bi * g + i) * nh + head) * hd;
-  for (int t = tid; t < hd; t += THREADS) qs[t] = to_f32(q[qrow + t]);
-  __syncthreads();
+  if (!CHUNKED) {
+    for (int t = tid; t < hd; t += THREADS) qs[t] = to_f32(q[qrow + t]);
+    __syncthreads();
+  }
   const size_t stride = (size_t)nkv * hd;  // between positions
   const TK* kb = ck + ((size_t)bi * max_len * nkv + kvh) * hd;
   const TK* vb = cv + ((size_t)bi * max_len * nkv + kvh) * hd;
@@ -410,15 +715,34 @@ __global__ void __launch_bounds__(THREADS) decode_simt_kernel(
   for (int k0 = lo; k0 < end; k0 += DEC_TILE) {
     const int kj = k0 + tid;
     float sc = -CUDART_INF_F;
-    if (kj < end) {
-      const TK* kr = kb + (size_t)kj * stride;
-      const float s_k = ksr != nullptr ? ksr[kj] : 1.f;
-      float dot = 0.f;
-      for (int t = 0; t < hd; ++t) {
-        const float kv = ksr != nullptr ? to_f32(kr[t]) * s_k : to_f32(kr[t]);
-        dot = fmaf(qs[t], kv, dot);
+    if (!CHUNKED) {
+      if (kj < end) {
+        const TK* kr = kb + (size_t)kj * stride;
+        const float s_k = ksr != nullptr ? ksr[kj] : 1.f;
+        float dot = 0.f;
+        for (int t = 0; t < hd; ++t) {
+          const float kv = ksr != nullptr ? to_f32(kr[t]) * s_k : to_f32(kr[t]);
+          dot = fmaf(qs[t], kv, dot);
+        }
+        sc = dot * scale;
       }
-      sc = dot * scale;
+    } else {
+      float dot = 0.f;
+      for (int t0 = 0; t0 < hd; t0 += DMAX) {  // uniform: every thread takes part
+        const int n = min(DMAX, hd - t0);
+        __syncthreads();
+        for (int t = tid; t < n; t += THREADS) qs[t] = to_f32(q[qrow + t0 + t]);
+        __syncthreads();
+        if (kj < end) {
+          const TK* kr = kb + (size_t)kj * stride + t0;
+          const float s_k = ksr != nullptr ? ksr[kj] : 1.f;
+          for (int t = 0; t < n; ++t) {
+            const float kv = ksr != nullptr ? to_f32(kr[t]) * s_k : to_f32(kr[t]);
+            dot = fmaf(qs[t], kv, dot);
+          }
+        }
+      }
+      if (kj < end) sc = dot * scale;
     }
     const float mn = fmaxf(m, block_reduce<true>(sc, red));  // finite: key k0 is live
     const float alpha = expf(m - mn);
@@ -429,8 +753,8 @@ __global__ void __launch_bounds__(THREADS) decode_simt_kernel(
     const int n = min(DEC_TILE, end - k0);
 #pragma unroll
     for (int e = 0; e < DEC_ACC; ++e) {
-      const int t = tid + e * THREADS;
-      if (t < hd) {
+      const int t = c0 + tid + e * THREADS;
+      if (t < c0 + dc) {
         float a = acc[e] * alpha;
         for (int kk = 0; kk < n; ++kk) {
           const float vv = to_f32(vb[(size_t)(k0 + kk) * stride + t]);
@@ -442,14 +766,21 @@ __global__ void __launch_bounds__(THREADS) decode_simt_kernel(
   }
 #pragma unroll
   for (int e = 0; e < DEC_ACC; ++e) {
-    const int t = tid + e * THREADS;
-    if (t < hd) out[qrow + t] = acc[e] / l;
+    const int t = c0 + tid + e * THREADS;
+    if (t < c0 + dc) out[qrow + t] = acc[e] / l;
   }
 }
 
 // Shared memory of one block (bytes) at head dim d: 0 forward, 1 dQ,
 // 2 dK/dV.
 int smem_bytes(int which, int d) {
+  if (d > DMAX) {  // the chunked kernels: the same at every such d
+    if (which == 0) return (BQ * (DS + 1) + BK * (DS + 1) + BK * (DC + 1) + BQ * (BK + 1)) * 4;
+    if (which == 1)
+      return (2 * BQ * (DS + 1) + 2 * BK * (DS + 1) + BK * (DC + 1) + BQ * (BK + 1)) * 4;
+    return (2 * BK * (DS + 1) + 2 * CQT * (DS + 1) + 2 * CQT * (DC + 1) + 2 * BK * (CQT + 1) +
+            2 * CQT) * 4;
+  }
   const int P = d + 1, T = inner_tile(lanes(d));
   if (which == 0) return (BQ * P + 2 * BK * P + BQ * (BK + 1)) * 4;
   if (which == 1) return (2 * BQ * P + 2 * T * P + BQ * (T + 1)) * 4;
@@ -457,7 +788,7 @@ int smem_bytes(int which, int d) {
 }
 
 // The kernel's dynamic shared memory limit raised to its largest size (d =
-// 32 * L), once per device (a call captured into a CUDA graph then makes
+// 32 * L; any d above DMAX for a chunked kernel), once per device (a call captured into a CUDA graph then makes
 // no attribute call).
 template <typename K>
 int allow_smem(K* kernel, int which, int dmax, unsigned* done) {
@@ -473,7 +804,7 @@ int allow_smem(K* kernel, int which, int dmax, unsigned* done) {
 }
 
 bool shape_ok(int b, int s, int sk, int h, int g, int d) {
-  return b > 0 && s > 0 && sk > 0 && g > 0 && h % g == 0 && d > 0 && d <= DMAX;
+  return b > 0 && s > 0 && sk > 0 && g > 0 && h % g == 0 && d > 0;
 }
 
 struct Attn {
@@ -515,9 +846,41 @@ int run(int which, const Attn& a) {
   return int(cudaGetLastError());
 }
 
-// The lanes a row of head dim a.d (lanes).
+// Above DMAX: the chunked kernels, one block per (rows, head, chunk).
+template <typename T>
+int run_chunked(int which, const Attn& a) {
+  static unsigned done[3] = {0, 0, 0};
+  const int bytes = smem_bytes(which, a.d), nch = (a.d + DC - 1) / DC;
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  int e;
+  if (which == 0) {
+    if ((e = allow_smem(fwd_chunk_kernel<T>, 0, DMAX + 1, &done[0]))) return e;
+    fwd_chunk_kernel<T><<<dim3((a.s + BQ - 1) / BQ, a.b * a.h, nch), 32 * LC, bytes, a.st>>>(
+        q, k, v, static_cast<T*>(a.o), static_cast<float*>(a.out_lse), a.s, a.sk, a.h, a.g, a.d,
+        a.scale, a.causal, a.window);
+  } else if (which == 1) {
+    if ((e = allow_smem(dq_chunk_kernel<T>, 1, DMAX + 1, &done[1]))) return e;
+    dq_chunk_kernel<T><<<dim3((a.s + BQ - 1) / BQ, a.b * a.h, nch), 32 * LC, bytes, a.st>>>(
+        q, k, v, static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<T*>(a.dq), a.s, a.sk, a.h, a.g, a.d,
+        a.scale, a.causal, a.window);
+  } else {
+    if ((e = allow_smem(dkv_chunk_kernel<T>, 2, DMAX + 1, &done[2]))) return e;
+    dkv_chunk_kernel<T><<<dim3((a.sk + BK - 1) / BK, a.b * a.g, nch), 32 * LC, bytes, a.st>>>(
+        q, k, v, static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.s,
+        a.sk, a.h, a.g, a.d, a.scale, a.causal, a.window);
+  }
+  return int(cudaGetLastError());
+}
+
+// The lanes a row of head dim a.d (lanes), or the chunked kernels above
+// DMAX.
 template <typename T>
 int run_lanes(int which, const Attn& a) {
+  if (a.d > DMAX) return run_chunked<T>(which, a);
   const int L = lanes(a.d);
   if (L == 16) return run<T, 16>(which, a);
   if (L == 8) return run<T, 8>(which, a);
@@ -538,7 +901,9 @@ int launch_decode(const void* q, const void* ck, const void* cv, const void* k_s
                   const void* v_scale, void* out, const void* pos_dev, int pos_host, int b, int g,
                   int nh, int nkv, int hd, int max_len, int window, float scale,
                   cudaStream_t st) {
-  decode_simt_kernel<TQ, TK><<<dim3(nh, g, b), THREADS, 0, st>>>(
+  const int nch = (hd + DMAX - 1) / DMAX;
+  auto kernel = nch > 1 ? decode_simt_kernel<TQ, TK, true> : decode_simt_kernel<TQ, TK, false>;
+  kernel<<<dim3(nh, g, b * nch), THREADS, 0, st>>>(
       static_cast<const TQ*>(q), static_cast<const TK*>(ck), static_cast<const TK*>(cv),
       static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
       static_cast<float*>(out), static_cast<const int*>(pos_dev), pos_host, g, nh, nkv, hd,
@@ -552,7 +917,8 @@ int launch_decode(const void* q, const void* ck, const void* cv, const void* k_s
 extern "C" int tgt_flash_simt_smem_bytes(int which, int d) { return smem_bytes(which, d); }
 
 // q [b, s, h, d], k/v [b, sk, g, d], o [b, s, h, d] contiguous, all of the
-// element type `type` (0 bf16, 1 f32, 3 f16); lse [b*h, s] f32.  d <= 512.
+// element type `type` (0 bf16, 1 f32, 3 f16); lse [b*h, s] f32; any d
+// (above 512 the chunked kernels).
 // window <= 0 means none.  Returns 0 or a cudaError_t.
 extern "C" int tgt_flash_fwd_simt(const void* q, const void* k, const void* v, void* o,
                                   void* lse, int b, int s, int sk, int h, int g, int d,
@@ -586,7 +952,7 @@ extern "C" int tgt_flash_bwd_dkv_simt(const void* q, const void* k, const void* 
 }
 
 // Decode: q [b, g, nh, hd]; ck/cv [b, max_len, nkv, hd] contiguous; out
-// [b, g, nh*hd] f32; hd <= 512.  Type codes as flash_decode.cu's (0 bf16,
+// [b, g, nh*hd] f32; any hd (above 512 in chunks of 512).  Type codes as flash_decode.cu's (0 bf16,
 // 1 f32, 2 int8 with k_scale/v_scale f32 [b, nkv, max_len], 3 f16).
 // pos0: the int32 at `pos_dev` or, when it is null, `pos_host`; clamped to
 // [0, max_len - g].
@@ -596,7 +962,7 @@ extern "C" int tgt_flash_decode_simt(const void* q, const void* ck, const void* 
                                      int nkv, int hd, int max_len, int window, float scale,
                                      int q_type, int kv_type, void* stream) {
   if (b == 0 || g == 0) return 0;
-  if (nkv <= 0 || nh % nkv != 0 || hd <= 0 || hd > DMAX || max_len < g)
+  if (nkv <= 0 || nh % nkv != 0 || hd <= 0 || max_len < g)
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define TGT_DECODE(TQ, TK)                                                                  \

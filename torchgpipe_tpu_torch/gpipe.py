@@ -66,10 +66,10 @@ from torch import nn
 from torchgpipe_tpu_torch import graphs, microbatch
 from torchgpipe_tpu_torch import rng as _rng
 from torchgpipe_tpu_torch.batchnorm import convert_deferred_batch_norm
+from torchgpipe_tpu_torch import checkpoint as _ckpt
 from torchgpipe_tpu_torch.checkpoint import CHECKPOINT_MODES, Offload, checkpoint_stop
 from torchgpipe_tpu_torch.models.transformer import (
     Device,
-    not_ported,
     resolve_device,
 )
 from torchgpipe_tpu_torch.partition import Stage, split_layers, verify_module
@@ -78,13 +78,6 @@ from torchgpipe_tpu_torch.precision import apply_policy
 from torchgpipe_tpu_torch.resilience import faults as _faults
 from torchgpipe_tpu_torch.skip import inspect_skip_layout, verify_skippables
 
-_SLICE = "2"  # ROADMAP.md queue A item for what the training slice leaves out
-
-# The reference's constructor options that the port does not cover yet,
-# each with the one value it takes here (the reference's default).
-_UNPORTED_OPTIONS = {
-    "remat_policy": None,
-}
 _GRAPH_CACHE = 8   # captured graphs kept per pipe (the reference's jit cache)
 
 
@@ -196,11 +189,14 @@ def _refuse_shared_params(partitions: Sequence[nn.Module]) -> None:
 
 class _Graph:
     """One captured step: the graph, its static inputs and outputs, and
-    the static gradient of each parameter."""
+    the static gradient of each parameter (and an offload remat policy's
+    pinned host buffers)."""
 
     def __init__(self, graph: Any, inputs: graphs.StaticTree, outputs: Any,
-                 grads: List[Tuple[nn.Parameter, Optional[torch.Tensor]]]) -> None:
+                 grads: List[Tuple[nn.Parameter, Optional[torch.Tensor]]],
+                 host: Optional[_ckpt.HostBuffers] = None) -> None:
         self.graph, self.inputs, self.outputs, self.grads = graph, inputs, outputs, grads
+        self.host = host   # an offload policy's pinned buffers, which every replay copies through
 
 
 class GPipe(nn.Module):
@@ -224,7 +220,10 @@ class GPipe(nn.Module):
     ``fused=True`` runs every step as one captured CUDA graph (all
     stages on one device, fill-drain only), and ``megastep=K`` is
     :meth:`make_train_step`'s default number of optimizer steps per
-    graph.
+    graph.  ``remat_policy`` (``fused=True``; a
+    :data:`~torchgpipe_tpu_torch.checkpoint.policies` preset) refines the
+    checkpointed cells: each keeps what the policy names in its forward
+    and its recompute takes it back (``remat_stats`` has the bytes).
     """
 
     def __init__(
@@ -243,7 +242,7 @@ class GPipe(nn.Module):
         megastep: int = 1,
         tracer: Any = None,
         hbm_budget_bytes: Optional[int] = None,
-        **options: Any,
+        remat_policy: Any = None,
     ) -> None:
         super().__init__()
         if balance is None:
@@ -258,9 +257,6 @@ class GPipe(nn.Module):
             raise ValueError(
                 f"checkpoint is not one of {'|'.join(CHECKPOINT_MODES)}"
             )
-        for name in options:
-            if name not in _UNPORTED_OPTIONS:
-                raise TypeError(f"GPipe got an unexpected keyword argument {name!r}")
         if schedule not in ("gpipe", "1f1b"):
             raise ValueError("schedule must be 'gpipe' or '1f1b'")
         if schedule == "1f1b" and loss_reduction not in ("mean", "sum"):
@@ -311,7 +307,7 @@ class GPipe(nn.Module):
         )
         _refuse_shared_params(self.partitions)
         self.tracer = tracer
-        self._validate_fused(fused, schedule, checkpoint, megastep, tracer, options)
+        self._validate_fused(fused, schedule, checkpoint, megastep, tracer, remat_policy)
         random = _torch_dropout(layers)
         if random is not None and (fused or checkpoint in ("always", "except_last")):
             where = "a captured (fused) step" if fused else "a recomputed pipeline cell"
@@ -322,6 +318,7 @@ class GPipe(nn.Module):
                 "the pipeline's per-micro-batch key (rng=)"
             )
         self.fused = fused
+        self.remat_policy = remat_policy
         self.megastep = megastep
         self._layers = layers
         self._pipeline = Pipeline(list(self.partitions), self.devices, self.skip_layout,
@@ -332,13 +329,16 @@ class GPipe(nn.Module):
         self.graph_stats = {"captures": 0, "capture_s": 0.0, "replays": 0}
         # Bytes of the last 'offload' step (checkpoint.Offload).
         self.offload_stats = {"saved_bytes": 0, "moved_bytes": 0}
+        # Bytes the remat policy kept in the last step (checkpoint.Remat).
+        self.remat_stats = {"saved_bytes": 0}
+        # An offload policy's pinned buffers while a step is warmed up and captured.
+        self._remat_host: Optional[_ckpt.HostBuffers] = None
 
     def _validate_fused(self, fused: bool, schedule: str, checkpoint: str,
-                        megastep: Any, tracer: Any, options: Dict[str, Any]) -> None:
+                        megastep: Any, tracer: Any, remat_policy: Any) -> None:
         """The reference's checks of ``fused``, ``'offload'``,
         ``remat_policy`` and ``megastep`` (its messages word for word),
-        then the options the port does not take yet."""
-        remat_policy = options.get("remat_policy")
+        then that the policy is one the port applies."""
         if fused and schedule == "1f1b":
             raise ValueError(
                 "fused=True compiles the whole fill-drain step into one "
@@ -401,9 +401,7 @@ class GPipe(nn.Module):
                 "scanned.  Pass fused=True (single-device), or use the "
                 "SPMD engine (SpmdGPipe.megastep), or megastep=1"
             )
-        for name, value in options.items():
-            if value is not _UNPORTED_OPTIONS[name]:
-                raise not_ported(f"GPipe({name}={value!r})", _SLICE)
+        _ckpt.check_policy(remat_policy)
 
     # ------------------------------------------------------------------ #
     # container protocol                                                 #
@@ -522,8 +520,12 @@ class GPipe(nn.Module):
                 loss, aux = self._run_1f1b(mbatches, target, loss_fn, stop, rng)
             else:
                 offload = Offload() if self.checkpoint == "offload" else None
+                remat = None if self.remat_policy is None else _ckpt.Remat(
+                    self.remat_policy, self._remat_host)
                 loss, aux = self._pipeline.run_train(
-                    mbatches, target, loss_fn, stop, offload, rng)
+                    mbatches, target, loss_fn, stop, offload, rng, remat)
+                if remat is not None:
+                    self.remat_stats = {"saved_bytes": remat.saved_bytes}
                 if offload is not None:
                     self.offload_stats = {"saved_bytes": offload.saved_bytes,
                                           "moved_bytes": offload.moved_bytes}
@@ -582,8 +584,13 @@ class GPipe(nn.Module):
             box["out"] = body(static.value)
             box["grads"] = [p.grad for p in params]
 
-        graph, (result, grads) = graphs.capture(
-            run_body, device, self._graph_pool, warmup=run_warmup)
+        offload = self.remat_policy is not None and self.remat_policy.offload
+        host = self._remat_host = _ckpt.HostBuffers() if offload else None
+        try:
+            graph, (result, grads) = graphs.capture(
+                run_body, device, self._graph_pool, warmup=run_warmup)
+        finally:
+            self._remat_host = None
         # Capture ran the body's Python without running its kernels: the
         # parameters keep the warm-up's gradients for this call's result.
         for p, g in zip(params, grads):
@@ -591,7 +598,7 @@ class GPipe(nn.Module):
         while len(self._graphs) >= _GRAPH_CACHE:
             self._graphs.pop(next(iter(self._graphs)))
         self._graphs[key] = _Graph(graph, static, box["out"],
-                                   list(zip(params, box["grads"])))
+                                   list(zip(params, box["grads"])), host)
         self.graph_stats["captures"] += 1
         self.graph_stats["capture_s"] += time.perf_counter() - t0
         return result

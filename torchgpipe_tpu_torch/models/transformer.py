@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torchgpipe_tpu_torch.checkpoint import checkpoint_name
 from torchgpipe_tpu_torch.models.quant import QuantWeight, dequantize_weight, refuse_quantized
 from torchgpipe_tpu_torch.ops.flash_attention import _validate_window, attention
 from torchgpipe_tpu_torch.ops.losses import chunked_softmax_xent
@@ -410,13 +411,18 @@ def _mlp_out(
     if tp is not None:
         h = psum_grad(h, tp.name)
     if "w_fc" in p:
-        hid = _act_fn(cfg.act)(h @ _w(cfg, p, "w_fc") + p["b_fc"])
+        # Named save point (checkpoint.NAMED_SAVE_POINTS), as below.
+        hid = checkpoint_name(_act_fn(cfg.act)(h @ _w(cfg, p, "w_fc") + p["b_fc"]),
+                              "mlp_hidden")
         out = hid @ _w(cfg, p, "w_proj")
         if tp is not None:
             out = psum_value(out, tp.name)
         return out + p["b_proj"]
     gate = _act_fn(cfg.act)(h @ _w(cfg, p, "w_gate"))
-    out = (gate * (h @ _w(cfg, p, "w_up"))) @ _w(cfg, p, "w_down")
+    # Named save point: keeping the [b, s, hidden] activation lets the
+    # recompute skip the product that makes it.
+    hid = checkpoint_name(gate * (h @ _w(cfg, p, "w_up")), "mlp_hidden")
+    out = hid @ _w(cfg, p, "w_down")
     return psum_value(out, tp.name) if tp is not None else out
 
 
@@ -439,6 +445,9 @@ def _block_attn_out(
         o = psum_value(o, tp.name)
     if "bo" in p:
         o = o + p["bo"]
+    # Named save point: a remat policy such as checkpoint.policies.
+    # save_attn_out keeps (or offloads) this [b, s, dim] tensor a block.
+    o = checkpoint_name(o, "attn_out")
     if cfg.norm_position == "post":
         x = _block_norm(cfg, p, "ln1", x + o)
         return _block_norm(cfg, p, "ln2", x + _mlp_out(cfg, p, x, mlp, tp))
@@ -949,9 +958,11 @@ class LMHead(_Layer):
         h = _block_norm(self.cfg, p, "scale", x)
         tp = axis_bound(self.cfg.tp_axis)
         if tp is None:
-            return h @ _head_w(self.cfg, p)
+            # Named save point: the [tokens, vocab] logits.
+            return checkpoint_name(h @ _head_w(self.cfg, p), "ce_logits")
         logits = psum_grad(h, tp.name) @ _head_w(self.cfg, p)      # [.., vocab/tp]
-        return all_gather_value(logits, tp.name, -1) if self.gather_logits else logits
+        logits = all_gather_value(logits, tp.name, -1) if self.gather_logits else logits
+        return checkpoint_name(logits, "ce_logits")
 
 
 class ChunkedLMLoss(LMHead):

@@ -40,8 +40,9 @@ axis) because of VMEM size; on Hopper one tile loop serves every length.
   is not a multiple of 16 bytes.  :func:`flash_attention_wide` (with
   :func:`flash_bwd_dq_wide` and :func:`flash_bwd_dkv_wide`) and
   :func:`flash_decode_wide` launch the same kernels at head dims 129 to
-  256 and at 384 and 512 (:data:`WIDE_HEAD_DIM_MAX`, the reference's
-  multiples of 128 above 256) in bfloat16, float16 or float32, except at
+  256 and at every multiple of 128 above 256 (the reference's; above 512
+  the chunked kernels, which split the output head dim over the grid) in
+  bfloat16, float16 or float32, except at
   head dim 256 (Gemma's):
   there the forward, dQ and dK/dV in bfloat16 or float16 run the
   tensor-core kernels' d=256 instantiation, and the decode of a bfloat16,
@@ -79,6 +80,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from torchgpipe_tpu_torch import checkpoint as _ckpt
 from torchgpipe_tpu_torch.ops import _build
 
 _NEG = -1e30
@@ -829,7 +831,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale, window):
-        o, lse = _flash_fwd(q, k, v, causal, sm_scale, window)
+        o, lse = _ckpt.flash_call(_flash_fwd, q, k, v, causal, sm_scale, window)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = (causal, sm_scale, window)
         return o
@@ -1006,18 +1008,18 @@ def _tc_decode(what, q, ck, cv, quant, pos_dev, pos0, window, k_scale, v_scale):
 
 
 # --------------------------------------------------------------------- #
-# what TMA cannot map, and head dims 129-512: csrc/flash_simt.cu        #
+# what TMA cannot map, and head dims above 128: csrc/flash_simt.cu     #
 # --------------------------------------------------------------------- #
 
 SIMT_HEAD_DIM_MAX = 128   # the float32 and decode routes below the wide dims
-# The wide route: every head dim from 129 to 256, and above 256 the
-# multiples of 128 the reference's kernels take, up to csrc/flash_simt.cu's
-# DMAX (a cap: 640 and up have no kernel on the card).
-WIDE_HEAD_DIM_MAX = 512
+# The wide route: every head dim from 129 to 256, and above 256 every
+# multiple of 128, as the reference's kernels take (csrc/flash_simt.cu's
+# row kernels up to 512, its chunked kernels above).  The other head dims
+# above 256 (320, 448, ...) the reference's callers compute densely.
 
 
 def _wide_dim(d: int) -> bool:
-    return SIMT_HEAD_DIM_MAX < d <= 256 or (256 < d <= WIDE_HEAD_DIM_MAX and d % 128 == 0)
+    return SIMT_HEAD_DIM_MAX < d <= 256 or (d > 256 and d % 128 == 0)
 
 _SIMT_TYPES = (torch.bfloat16, torch.float16, torch.float32)
 # q, k, v, o, lse, b, s, sk, h, g, d, scale, causal, window, type, stream
@@ -1053,7 +1055,7 @@ def supports_wide(
     dtype: torch.dtype = torch.bfloat16,
 ) -> bool:
     """Whether the wide route takes these shapes: bfloat16, float16 or
-    float32, a head dim from 129 to 256 or 384 or 512, ``h`` a multiple
+    float32, a head dim from 129 to 256 or a multiple of 128 above it, ``h`` a multiple
     of ``g``.  :func:`wide_kernel` says which kernels run them."""
     b, s, h, d = q_shape
     g = k_shape[2]
@@ -1068,7 +1070,8 @@ def wide_kernel(q_shape: Tuple[int, ...], dtype: torch.dtype, *,
     """Which kernels a wide-route shape runs on: ``"tc"``, the tensor-core
     kernels at their head-dim-256 instantiation (Gemma's head dim, exactly
     256), or ``"simt"``, the CUDA-core kernels of ``csrc/flash_simt.cu``
-    (the other wide head dims, 129 to 255, 384 and 512, and float32).  Forward, dQ and
+    (the other wide head dims, 129 to 255 and the multiples of 128 above
+    256, and float32).  Forward, dQ and
     dK/dV (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``): ``"tc"`` for
     bfloat16 or float16 ``dtype``.  The decode (``decode=True``, ``dtype``
     the cache's; ``csrc/flash_decode.cu``): ``"tc"`` for a bfloat16,
@@ -1105,9 +1108,10 @@ def supports_decode_wide(
     q_shape: Tuple[int, ...], k_shape: Tuple[int, ...],
     window: Optional[int], dtype: torch.dtype = torch.bfloat16,
 ) -> bool:
-    """:func:`supports_decode_simt` at head dims 129 to 256, 384 and 512."""
+    """:func:`supports_decode_simt` at head dims 129 to 256 and the
+    multiples of 128 above 256."""
     return _wide_dim(q_shape[-1]) and _decode_dims_ok(
-        q_shape, k_shape, window, dtype, SIMT_HEAD_DIM_MAX, WIDE_HEAD_DIM_MAX)
+        q_shape, k_shape, window, dtype, SIMT_HEAD_DIM_MAX, q_shape[-1])
 
 
 def _check_f32(what: str, *ts: torch.Tensor) -> None:
@@ -1146,8 +1150,8 @@ def _check_wide(what: str, q, k, v, do=None, lse=None, delta=None) -> None:
         raise ValueError(
             f"{what} kernel does not take q {tuple(q.shape)}, k "
             f"{tuple(k.shape)}, v {tuple(v.shape)}: head dim must be from "
-            f"{SIMT_HEAD_DIM_MAX + 1} to 256, 384 or {WIDE_HEAD_DIM_MAX} and h a "
-            "multiple of g"
+            f"{SIMT_HEAD_DIM_MAX + 1} to 256 or a multiple of 128 above it and h "
+            "a multiple of g"
         )
 
 
@@ -1268,7 +1272,7 @@ class _FlashAttentionF32(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale, window):
-        o, lse = _flash_fwd_f32(q, k, v, causal, sm_scale, window)
+        o, lse = _ckpt.flash_call(_flash_fwd_f32, q, k, v, causal, sm_scale, window)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = (causal, sm_scale, window)
         return o
@@ -1391,7 +1395,7 @@ class _FlashAttentionWide(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale, window):
-        o, lse = _flash_fwd_wide(q, k, v, causal, sm_scale, window)
+        o, lse = _ckpt.flash_call(_flash_fwd_wide, q, k, v, causal, sm_scale, window)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = (causal, sm_scale, window)
         return o
@@ -1407,7 +1411,8 @@ def flash_attention_wide(
     window: Optional[int] = None,
 ) -> torch.Tensor:
     """:func:`flash_attention` at a head dim from 129 to 256 (Gemma's 256),
-    384 or 512 in bfloat16, float16 or float32: on the CUDA cores, except at d=256 in
+    or a multiple of 128 above 256 in bfloat16, float16 or float32: on the
+    CUDA cores (above 512 the chunked kernels), except at d=256 in
     bfloat16 or float16 (the tensor cores for the forward, dQ and dK/dV,
     :func:`wide_kernel`).  Differentiable in ``q``, ``k`` and ``v``."""
     sm_scale = q.shape[-1] ** -0.5 if sm_scale is None else sm_scale
@@ -1491,12 +1496,14 @@ def flash_decode_wide(
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """:func:`flash_decode_simt` at head dims 129 to 256, 384 and 512: the same
+    """:func:`flash_decode_simt` at head dims 129 to 256 and the multiples
+    of 128 above 256: the same
     arguments and output, on the kernel :func:`wide_kernel` names for the
     cache (``decode=True``): at head dim 256 (Gemma's) with a bfloat16,
     float16 or int8 cache, ``csrc/flash_decode.cu``'s 256 tiles (counted
     in ``launches_d256``); else ``csrc/flash_simt.cu`` (``launches``)."""
-    what, dims = "flash_decode_wide", f"from {SIMT_HEAD_DIM_MAX + 1} to 256, 384 or 512"
+    what, dims = ("flash_decode_wide",
+                  f"from {SIMT_HEAD_DIM_MAX + 1} to 256 or a multiple of 128 above it")
     if q.device.type == "cpu" or wide_kernel(q.shape, ck.dtype, decode=True) == "simt":
         return _decode_simt_call(flash_decode_wide, what, supports_decode_wide, dims,
                                  q, ck, cv, pos0, window, k_scale, v_scale)
@@ -1780,7 +1787,7 @@ class _FlashAttentionTF32(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale, window):
-        o, lse = _flash_fwd_tf32(q, k, v, causal, sm_scale, window)
+        o, lse = _ckpt.flash_call(_flash_fwd_tf32, q, k, v, causal, sm_scale, window)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.args = (causal, sm_scale, window)
         return o
@@ -1832,7 +1839,8 @@ class Route(NamedTuple):
     ``"f32"`` (float32: the 3xTF32 forward of ``csrc/flash_fwd_tf32.cu``
     with the 3xTF32 backward of ``csrc/flash_bwd_tf32.cu``), ``"simt"`` (the CUDA-core
     kernels of ``csrc/flash_simt.cu``, for rows TMA cannot map),
-    ``"wide"`` (head dims 129 to 256, 384 and 512: the same kernels, or at d=256 the
+    ``"wide"`` (head dims 129 to 256 and the multiples of 128 above 256:
+    the same kernels, chunked above 512, or at d=256 the
     tensor-core kernels, :func:`wide_kernel`) or ``"none"``
     (no kernel takes it: the plain version on the CPU, refused on the
     card); ``head_dim`` is the dim the work runs at."""
@@ -1859,17 +1867,19 @@ def attention_route(
     zero output columns, sliced off); float32 up to d=128 runs the 3xTF32
     forward and backward (:func:`supports_tf32`: ``d % 4 == 0``) or, at
     other dims, the CUDA-core forward and backward.  Head dims from 129 to
-    256, and 384 and 512 (the reference's multiples of 128 above 256, to
-    :data:`WIDE_HEAD_DIM_MAX`), run the CUDA-core kernels in bfloat16,
+    256, and every multiple of 128 above 256 (the reference's), run the
+    CUDA-core kernels in bfloat16,
     float16 or float32 (``"wide"``), except at 256 (Gemma's) in bfloat16 or float16, which
     runs the tensor-core kernels (:func:`wide_kernel`).  Decode (``decode=True``, the cache in
     ``cache_dtype``): a :func:`supports_decode` shape (any head dim up to
     128 whose cache row is a multiple of 16 bytes) runs the tensor-core
     decode, any other head dim up to 128 the CUDA-core one, head dims 129
-    to 256, 384 and 512 the wide one (the tensor-core decode's 256 tiles at 256 for a
+    to 256 and the multiples of 128 above it the wide one (the tensor-core
+    decode's 256 tiles at 256 for a
     bfloat16, float16 or int8 cache).  A decode is never padded: that would copy the
     whole cache every token.  Anything else (another dtype, a head dim
-    from 257 to 511 that is not 384, or above 512) has no kernel.  Answers are cached by shape: a decode step
+    above 256 that is not a multiple of 128) has no kernel.  Answers are
+    cached by shape: a decode step
     asks once a layer."""
     d = q_shape[-1]
     if decode:
@@ -1903,9 +1913,9 @@ def _no_kernel(q: torch.Tensor, k_shape: Tuple[int, ...], what: str) -> None:
     if q.device.type not in _PLAIN_DEVICES:
         raise ValueError(
             f"{what}: no CUDA kernel takes {q.dtype} q {tuple(q.shape)} with "
-            f"k/cache {tuple(k_shape)} (bfloat16, float16 and float32 up to "
-            f"head dim 256, and 384 and {WIDE_HEAD_DIM_MAX}, are taken; above "
-            f"{WIDE_HEAD_DIM_MAX}, the cap of csrc/flash_simt.cu, none)"
+            f"k/cache {tuple(k_shape)} (bfloat16, float16 and float32 at head "
+            "dims up to 256 and at every multiple of 128 above it are taken; "
+            "another head dim above 256 none, as the reference's kernels)"
         )
 
 

@@ -34,6 +34,7 @@ from typing import Any, Callable, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from torchgpipe_tpu_torch import checkpoint as _ckpt
 from torchgpipe_tpu_torch.ops import flash_attention as _fa
 from torchgpipe_tpu_torch.parallel.axes import BoundAxis, axis_bound, require_axis
 
@@ -221,21 +222,27 @@ def block_grads(dq: torch.Tensor, dk: torch.Tensor, dv: torch.Tensor, q: torch.T
         dv[:, k0:k1] += dv_t.float()
 
 
+def _ring_fwd(q, k, v, ax: BoundAxis, causal: bool, scale: float, n_sub: int):
+    """``(out, lse)`` of the whole ring: each block's tiles through the
+    flash forward kernels, merged by LSE."""
+    b, s, h, d = q.shape
+    fwd, _ = tile_fns(q, k)
+    o = torch.zeros(b, s, h, v.shape[-1], dtype=torch.float32, device=q.device)
+    lse = torch.full((b * h, s), float("-inf"), dtype=torch.float32, device=q.device)
+    kv = torch.stack([k, v])
+    for t in range(ax.size):
+        src = (ax.index - t) % ax.size
+        merge_block(o, lse, q, kv[0], kv[1],
+                    ring_tiles(ax.index, src, s, n_sub, causal), fwd, scale)
+        if t < ax.size - 1:
+            kv = ax.shift(kv)
+    return o.to(q.dtype), lse
+
+
 class _RingAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, ax: BoundAxis, causal: bool, scale: float, n_sub: int):
-        b, s, h, d = q.shape
-        fwd, _ = tile_fns(q, k)
-        o = torch.zeros(b, s, h, v.shape[-1], dtype=torch.float32, device=q.device)
-        lse = torch.full((b * h, s), float("-inf"), dtype=torch.float32, device=q.device)
-        kv = torch.stack([k, v])
-        for t in range(ax.size):
-            src = (ax.index - t) % ax.size
-            merge_block(o, lse, q, kv[0], kv[1],
-                        ring_tiles(ax.index, src, s, n_sub, causal), fwd, scale)
-            if t < ax.size - 1:
-                kv = ax.shift(kv)
-        out = o.to(q.dtype)
+        out, lse = _ckpt.flash_call(_ring_fwd, q, k, v, ax, causal, scale, n_sub)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (ax, causal, scale, n_sub)
         return out

@@ -158,8 +158,9 @@ class _Cells:
 
     def __init__(self, pipe: "Pipeline", m: int, checkpoint_stop: int,
                  offload: Optional[ckpt.Offload] = None,
-                 rng: Optional[Key] = None) -> None:
+                 rng: Optional[Key] = None, remat: Optional[ckpt.Remat] = None) -> None:
         self.pipe = pipe
+        self.remat = remat
         self.aux = 1.0 / m     # every forward and recompute injects at 1/m
         self.stop = checkpoint_stop
         self.offload = offload
@@ -179,7 +180,9 @@ class _Cells:
         skips_in = {k: _as_leaf(self.skips.pop((i, k))) for k in stage.ext_pop_keys}
         rng_i = _mb_key(self.rng, i)
         if i < self.stop:
-            with torch.no_grad(), ckpt.phase(checkpointing=True), aux_scale(self.aux):
+            keep = contextlib.nullcontext() if self.remat is None else \
+                self.remat.forward((i, j))
+            with torch.no_grad(), ckpt.phase(checkpointing=True), aux_scale(self.aux), keep:
                 y, ext = stage(x, skips_in, rng_i)
             self.saved[(i, j)] = (x, skips_in, rng_i)
         else:
@@ -210,7 +213,9 @@ class _Cells:
                 None if nxt is None else pipe.devices[nxt[1]])
         if (i, j) in self.saved:
             x, skips_in, rng_i = self.saved.pop((i, j))
-            with torch.enable_grad(), ckpt.phase(recomputing=True), aux_scale(self.aux):
+            take = contextlib.nullcontext() if self.remat is None else \
+                self.remat.recompute((i, j))
+            with torch.enable_grad(), ckpt.phase(recomputing=True), aux_scale(self.aux), take:
                 y, ext = stage(x, skips_in, rng_i)
         else:
             x, skips_in, y, ext = self.graphs.pop((i, j))
@@ -279,15 +284,18 @@ class Pipeline:
         checkpoint_stop: int,
         offload: Optional[ckpt.Offload] = None,
         rng: Optional[Key] = None,
+        remat: Optional[ckpt.Remat] = None,
     ) -> Tuple[torch.Tensor, Any]:
         """Fill-drain forward, loss on the gathered output, and backward.
         Returns ``(loss, aux)`` (``aux`` is what ``loss_fn`` returned
         beside the loss, or None); the parameters' ``.grad`` hold the
         mini-batch gradients (a parametric ``loss_fn``'s too).  With
         ``offload``, the cells' saved tensors wait in host memory
-        (``checkpoint='offload'``)."""
+        (``checkpoint='offload'``).  With ``remat`` (``GPipe(fused=True,
+        remat_policy=)``) a checkpointed cell keeps what its policy names
+        and its recompute takes it back."""
         n, m = len(self.stages), len(mbatches)
-        cells = _Cells(self, m, checkpoint_stop, offload, rng)
+        cells = _Cells(self, m, checkpoint_stop, offload, rng, remat)
         acts: Dict[int, Any] = {}
         outs: List[Any] = [None] * m
 

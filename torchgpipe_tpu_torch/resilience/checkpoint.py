@@ -1,4 +1,5 @@
-"""Crash-safe, versioned checkpoints of numpy trees, for one process.
+"""Crash-safe, versioned checkpoints of numpy trees, in one process or
+many.
 
 Counterpart of :class:`CheckpointManager` in
 ``torchgpipe_tpu/resilience/checkpoint.py`` (``:148``), with the same
@@ -22,9 +23,22 @@ numpy arrays (or anything ``np.asarray`` takes), flattened to the names
 keys, ``[0]`` for sequence items, dict keys in sorted order.  This module
 computes those names itself; it imports no JAX.
 
-Not ported (each raises, ROADMAP.md queue A item 5.4, sub-slice e): the orbax
-``sharded=True`` backend, and more than one process (the reference
-fences its filesystem surgery with cross-process barriers).
+In a ``torch.distributed`` job every process calls :meth:`CheckpointManager.save`
+and :meth:`CheckpointManager.restore_latest` with the same arguments.
+The filesystem surgery (the temp directory, the manifest written last,
+the renames, ``.old`` and GC) is rank 0's alone, fenced by barriers over
+the job's default group at the reference's points (init, pre-save,
+post-write, post-swap); no branch depends on a per-rank probe of the
+filesystem.  The npz backend keeps the reference's meaning: rank 0
+writes the tree it is passed.  ``sharded=True`` (the reference's orbax
+backend) writes one file a rank under ``sharded/``, each rank's pieces
+of a tree of :class:`~torchgpipe_tpu_torch.utils.serialization.Shard`
+leaves (``SpmdGPipe.train_state``), and the manifest records a CRC-32 and
+size per file; a restore needs the template of the tree it restores
+into, and any file that fails verification makes the whole snapshot
+fall back to the next older one.  Every rank takes the same snapshot: a
+restore agrees on each candidate over the job (one all-reduce of a
+flag).
 """
 
 from __future__ import annotations
@@ -37,14 +51,17 @@ import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
-from torchgpipe_tpu_torch.models.transformer import not_ported
+from torchgpipe_tpu_torch.utils.serialization import _dist, barrier, read_shards, write_shards
 
 Tree = Any
 
 _FORMAT_VERSION = 1
 _MANIFEST = "manifest.json"
 _NPZ = "state.npz"
+_SHARDED = "sharded"
 _STEP_PREFIX = "step_"
 _TMP_PREFIX = ".tmp-"
 
@@ -88,9 +105,11 @@ def _leaves(tree: Tree, path: str = "") -> List[Tuple[str, Any]]:
 
 def _rebuild(template: Tree, leaves: List[Any]) -> Tree:
     """``template``'s structure with its leaves taken in order from
-    ``leaves`` (consumed from the front)."""
+    ``leaves`` (consumed from the front, dict keys sorted; each dict keeps
+    the template's own key order)."""
     if isinstance(template, dict):
-        return {k: _rebuild(template[k], leaves) for k in sorted(template)}
+        built = {k: _rebuild(template[k], leaves) for k in sorted(template)}
+        return {k: built[k] for k in template}
     if isinstance(template, (list, tuple)):
         return type(template)(_rebuild(v, leaves) for v in template)
     if template is None:
@@ -145,26 +164,32 @@ def _fsync_dir(path: str) -> None:
         os.close(fd)
 
 
-def _single_process(what: str) -> None:
-    """Refuse a multi-process job: the reference's cross-process barriers
-    are not ported."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise not_ported(f"multi-process checkpoints ({what})", "5.4")
+def _all_agree(ok: bool) -> bool:
+    """Whether ``ok`` holds on every rank of the job (itself in one
+    process)."""
+    if _dist()[1] == 1:
+        return ok
+    dev = torch.device("cuda", torch.cuda.current_device()) \
+        if dist.get_backend() == "nccl" else torch.device("cpu")
+    flag = torch.tensor([1.0 if ok else 0.0], device=dev)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    return bool(flag.item() == 1.0)
 
 
 class CheckpointManager:
-    """Atomic, versioned, checksummed snapshots under one directory, for
-    one process."""
+    """Atomic, versioned, checksummed snapshots under one directory.
+    In a multi-process job every process calls :meth:`save` and
+    :meth:`restore_latest` with the same arguments (see the module
+    doc)."""
 
     def __init__(self, directory: str, *, keep_last_k: int = 3) -> None:
         if keep_last_k < 1:
             raise ValueError("keep_last_k must be >= 1")
-        _single_process("CheckpointManager")
         self.directory = os.path.abspath(os.fspath(directory))
         self.keep_last_k = keep_last_k
-        os.makedirs(self.directory, exist_ok=True)
+        if _dist()[0] == 0:
+            os.makedirs(self.directory, exist_ok=True)
+        barrier()
 
     # ------------------------------------------------------------------ #
     # save                                                               #
@@ -177,69 +202,100 @@ class CheckpointManager:
         *,
         metadata: Optional[Dict[str, Any]] = None,
         sharded: bool = False,
+        world_size: Optional[int] = None,
+        balance: Optional[List[int]] = None,
     ) -> str:
         """Write snapshot ``step_<step>`` atomically; returns its path.
         ``metadata`` must be JSON-serializable; arrays belong in ``tree``.
-        (The reference's ``world_size``/``balance`` records serve its
-        elastic ``Supervisor``, not ported yet.)"""
-        if sharded:
-            raise not_ported("orbax sharded checkpoints (sharded=True)", "5.4")
+        ``world_size``/``balance`` record the stage count and layer cut the
+        snapshot was taken under (in the manifest's metadata), so a
+        restore into another world size is detected up front
+        (:meth:`restore_latest` with ``world_size=``).  ``sharded=True``
+        writes each rank's pieces of ``tree`` (leaves
+        :class:`~torchgpipe_tpu_torch.utils.serialization.Shard` or whole
+        arrays, which rank 0 writes) to its own file."""
         if step < 0:
             raise ValueError(f"step must be >= 0, got {step}")
-        _single_process("save")
         final = self._step_dir(step)
         tmp = os.path.join(
             self.directory, f"{_TMP_PREFIX}{_STEP_PREFIX}{step:010d}"
         )
         meta = dict(metadata or {})
-        flat = _flatten(tree)
+        if world_size is not None:
+            meta["world_size"] = int(world_size)
+        if balance is not None:
+            meta["balance"] = [int(b) for b in balance]
         manifest: Dict[str, Any] = {
             "format": _FORMAT_VERSION,
             "step": int(step),
-            "backend": "npz",
+            "backend": _SHARDED if sharded else "npz",
             "metadata": meta,
-            "arrays": {
+        }
+        rank = _dist()[0]
+        if rank == 0:
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(os.path.join(tmp, _SHARDED) if sharded else tmp)
+        barrier()   # pre-save
+        if sharded:
+            write_shards(os.path.join(tmp, _SHARDED), tree)
+            barrier()   # post-write
+            if rank == 0:
+                manifest["files"] = self._hash_dir(tmp)   # each file fsync'd by its writer
+        else:
+            flat = _flatten(tree)
+            manifest["arrays"] = {
                 k: {"crc32": _crc(a), "shape": list(a.shape), "dtype": str(a.dtype)}
                 for k, a in flat.items()
-            },
-        }
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        with open(os.path.join(tmp, _NPZ), "wb") as f:
-            np.savez(f, **flat)
-            f.flush()
-            os.fsync(f.fileno())
-        # Manifest LAST, then the tmp dir itself, then the swap: its
-        # presence inside a step_* dir certifies a complete write.
-        with open(os.path.join(tmp, _MANIFEST), "w") as f:
-            json.dump(manifest, f, indent=1, sort_keys=True)
-            f.flush()
-            os.fsync(f.fileno())
-        _fsync_dir(tmp)
-        if os.path.exists(final):
-            old = final + ".old"
-            shutil.rmtree(old, ignore_errors=True)
-            os.rename(final, old)
-            os.rename(tmp, final)
-            shutil.rmtree(old, ignore_errors=True)
-        else:
-            os.rename(tmp, final)
-        _fsync_dir(self.directory)
-        self._gc()
+            }
+            if rank == 0:
+                with open(os.path.join(tmp, _NPZ), "wb") as f:
+                    np.savez(f, **flat)
+                    f.flush()
+                    os.fsync(f.fileno())
+        if rank == 0:
+            # Manifest LAST, then the tmp dir itself, then the swap: its
+            # presence inside a step_* dir certifies a complete write.
+            with open(os.path.join(tmp, _MANIFEST), "w") as f:
+                json.dump(manifest, f, indent=1, sort_keys=True)
+                f.flush()
+                os.fsync(f.fileno())
+            _fsync_dir(tmp)
+            if os.path.exists(final):
+                old = final + ".old"
+                shutil.rmtree(old, ignore_errors=True)
+                os.rename(final, old)
+                os.rename(tmp, final)
+                shutil.rmtree(old, ignore_errors=True)
+            else:
+                os.rename(tmp, final)
+            _fsync_dir(self.directory)
+            self._gc()
+        barrier()   # post-swap
         return final
 
     # ------------------------------------------------------------------ #
     # restore                                                            #
     # ------------------------------------------------------------------ #
 
-    def restore_latest(self, template: Optional[Tree] = None) -> Optional[Snapshot]:
+    def restore_latest(self, template: Optional[Tree] = None, *,
+                       world_size: Optional[int] = None) -> Optional[Snapshot]:
         """The newest snapshot that passes verification, or ``None``.
         Corrupt or partial snapshots are skipped in favor of the next
         older one.  With ``template`` the payload is rebuilt into its
-        structure; without it the flat ``{keystr: ndarray}`` dict is
-        returned."""
-        for step in sorted(self.steps(), reverse=True):
-            snap = self._try_restore(step, template)
+        structure (required for a sharded snapshot: this rank's live tree
+        of ``Shard`` leaves, or whole arrays for the gathered tree);
+        without it the flat ``{keystr: ndarray}`` dict is returned.
+        ``world_size=`` is the stage count the caller restores into: a
+        snapshot recorded under another returns flat (its metadata holds
+        the recorded ``balance``).  In a multi-process job every rank
+        takes the same snapshot."""
+        for step in self._candidates():
+            use_template = template
+            if world_size is not None and template is not None:
+                recorded = self._recorded_world_size(step)
+                if recorded is not None and recorded != int(world_size):
+                    use_template = None
+            snap = self._try_restore(step, use_template)
             if snap is not None:
                 return snap
         return None
@@ -283,26 +339,104 @@ class CheckpointManager:
             return None
         return manifest
 
+    def _candidates(self) -> List[int]:
+        """The steps to try, newest first: rank 0's listing, which every
+        rank of a multi-process job then walks in the same order."""
+        steps = sorted(self.steps(), reverse=True)
+        if _dist()[1] > 1:
+            box = [steps]
+            dist.broadcast_object_list(box, src=0)
+            steps = box[0]
+        return steps
+
+    def _recorded_world_size(self, step: int) -> Optional[int]:
+        """The ``world_size`` snapshot ``step`` was taken under (``.old``
+        fallback included), or ``None`` when unrecorded or unreadable."""
+        primary = self._step_dir(step)
+        for path in (primary, primary + ".old"):
+            manifest = self._read_manifest(path)
+            if manifest is not None:
+                ws = manifest.get("metadata", {}).get("world_size")
+                try:
+                    return int(ws) if ws is not None else None
+                except (TypeError, ValueError):
+                    return None
+        return None
+
+    def _hash_dir(self, root: str, *,
+                  only: Optional[List[str]] = None) -> Dict[str, Dict[str, int]]:
+        """CRC-32 and size per file under ``root`` (the manifest
+        excluded), by relative path: the sharded backend's integrity
+        record.  ``only`` limits it to those paths."""
+        out: Dict[str, Dict[str, int]] = {}
+        for dirpath, _, filenames in os.walk(root):
+            for fn in sorted(filenames):
+                full = os.path.join(dirpath, fn)
+                rel = os.path.relpath(full, root)
+                if fn == _MANIFEST or (only is not None and rel not in only):
+                    continue
+                crc = size = 0
+                with open(full, "rb") as f:
+                    while True:
+                        chunk = f.read(1 << 22)
+                        if not chunk:
+                            break
+                        crc = zlib.crc32(chunk, crc)
+                        size += len(chunk)
+                out[rel] = {"crc32": crc, "size": size}
+        return out
+
     def _try_restore(
         self, step: int, template: Optional[Tree]
     ) -> Optional[Snapshot]:
-        """Verify-and-load ``step``, falling back to ``step_<n>.old``."""
+        """Verify-and-load ``step``, falling back to ``step_<n>.old``.  In
+        a multi-process job a copy is read only once every rank found it
+        whole (a sharded snapshot: each rank hashing its share of the
+        files), and counts only if every rank loaded it."""
         primary = self._step_dir(step)
-        snap = self._restore_dir(primary, step, template)
-        if snap is not None:
-            return snap
-        return self._restore_dir(primary + ".old", step, template)
+        for path in (primary, primary + ".old"):
+            manifest = self._read_manifest(path)
+            if manifest is not None and manifest.get("backend") == _SHARDED \
+                    and template is None:
+                raise CheckpointError(
+                    f"snapshot step_{step} is sharded: restore_latest needs the "
+                    "template tree to supply its structure and this rank's "
+                    "slices (SpmdGPipe.train_state)")
+            if not _all_agree(manifest is not None and self._verified(path, manifest)):
+                continue
+            snap = self._load(path, step, template, manifest)
+            if _all_agree(snap is not None):
+                return snap
+        return None
 
-    def _restore_dir(
-        self, path: str, step: int, template: Optional[Tree]
+    def _verified(self, path: str, manifest: Dict[str, Any]) -> bool:
+        """A sharded snapshot's files: those the manifest names, and this
+        rank's share of them hashing to its record.  (An npz snapshot is
+        verified array by array as it loads.)"""
+        if manifest.get("backend") != _SHARDED:
+            return True
+        want = manifest.get("files")
+        if not isinstance(want, dict):
+            return False
+        rank, world = _dist()
+        names = sorted(want)
+        present = {os.path.relpath(os.path.join(dirpath, fn), path)
+                   for dirpath, _, filenames in os.walk(path)
+                   for fn in filenames if fn != _MANIFEST}
+        share = names[rank::world]
+        return present == set(names) and \
+            self._hash_dir(path, only=share) == {n: want[n] for n in share}
+
+    def _load(
+        self, path: str, step: int, template: Optional[Tree], manifest: Dict[str, Any]
     ) -> Optional[Snapshot]:
-        manifest = self._read_manifest(path)
-        if manifest is None:
-            return None
-        if manifest.get("backend") != "npz":
-            raise not_ported(
-                f"snapshot step_{step} is an orbax sharded checkpoint", "5.4"
-            )
+        metadata = manifest.get("metadata", {})
+        if manifest.get("backend") == _SHARDED:
+            try:
+                tree = read_shards(os.path.join(path, _SHARDED), template)
+            except Exception:  # noqa: BLE001 - unreadable file, missing piece
+                return None
+            return Snapshot(step=step, tree=tree, metadata=metadata, path=path)
         want_arrays = manifest.get("arrays")
         if not isinstance(want_arrays, dict):
             return None
@@ -322,8 +456,7 @@ class CheckpointManager:
             ):
                 return None
         tree = _unflatten_like(template, flat) if template is not None else flat
-        return Snapshot(step=step, tree=tree, metadata=manifest.get("metadata", {}),
-                        path=path)
+        return Snapshot(step=step, tree=tree, metadata=metadata, path=path)
 
     def _gc(self) -> None:
         """Keep the last ``keep_last_k`` COMPLETE snapshots; sweep
@@ -369,7 +502,8 @@ def _scan_steps(directory: str) -> List[int]:
 
 
 def latest_step_or_none(directory: str) -> Optional[int]:
-    """Peek at a checkpoint directory without constructing a manager."""
+    """Peek at a checkpoint directory without constructing a manager, and
+    so without its init barrier: any one rank may call it."""
     steps = _scan_steps(os.path.abspath(os.fspath(directory)))
     return steps[-1] if steps else None
 

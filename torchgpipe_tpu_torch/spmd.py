@@ -82,9 +82,17 @@ pinned host memory, and ``resilience.faults.inject(nan_at=)`` poisons a
 cell's input; an exception raised in a cell keeps its type and gains a
 note naming its stage and micro-batch.
 
+``remat_policy`` (a :data:`~torchgpipe_tpu_torch.checkpoint.policies`
+preset; fill-drain under ``'always'``, ``'except_last'`` or
+``'offload'``) refines the checkpointed cells: a cell's no-grad forward
+keeps what the policy names and its recompute takes it back
+(:class:`~torchgpipe_tpu_torch.checkpoint.Remat`); under ``'offload'``
+an explicit policy checkpoints every cell and names what it keeps (in
+host memory for an offload policy), as the reference's does.
+
 Not ported, raising ``NotImplementedError`` that names ROADMAP.md:
 ``tracer=``, ``partition_rules=`` and ``hbm_budget_bytes=`` (queue A item
-5.6) and ``remat_policy`` (item 2, A.2.12).
+5.6).
 """
 
 from __future__ import annotations
@@ -741,6 +749,9 @@ class SpmdGPipe:
         host memory from its forward to its backward,
         ``checkpoint.Offload``; ``offload_stats`` has the last step's
         bytes).
+      remat_policy: a ``checkpoint.policies`` preset refining the
+        checkpointed cells (fill-drain; ``remat_stats`` has the bytes it
+        kept in the last step).
       loss_reduction: 'mean' (default) or 'sum' declares that ``post`` and
         ``loss_fn`` decompose over batch rows that way, which shards the
         fill-drain head and loss over ``pp`` and admits ragged batches;
@@ -1036,9 +1047,8 @@ class SpmdGPipe:
                     f"both from the same value (e.g. TransformerConfig.{key} "
                     f"and SpmdGPipe.{key})"
                 )
+        _ckpt.check_policy(self.remat_policy)
         # What later items of ROADMAP.md bring.
-        if self.remat_policy is not None:
-            raise not_ported("SpmdGPipe(remat_policy=)", "2")
         if self.tracer is not None or self.partition_rules is not None \
                 or self.hbm_budget_bytes is not None:
             raise not_ported("SpmdGPipe(tracer=, partition_rules=, hbm_budget_bytes=) "
@@ -1094,8 +1104,11 @@ class SpmdGPipe:
         self._key: Optional[_rng.Key] = None   # the running step's rng
         self._where: Optional[Tuple[int, int, str]] = None   # the running cell
         self._offload: Optional[_ckpt.Offload] = None
+        self._remat: Optional[_ckpt.Remat] = None
         # Bytes of the last 'offload' step (checkpoint.Offload).
         self.offload_stats = {"saved_bytes": 0, "moved_bytes": 0}
+        # Bytes the remat policy kept in the last step (checkpoint.Remat).
+        self.remat_stats = {"saved_bytes": 0}
 
     # ------------------------------------------------------------------ #
     # FSDP (ZeRO-3-style parameter sharding over dp)                     #
@@ -1301,6 +1314,117 @@ class SpmdGPipe:
         for key in keys:
             out[key] = self._rebuild(tree[key], whole[key])
         return out
+
+    # ------------------------------------------------------------------ #
+    # sharded checkpoints                                                #
+    # ------------------------------------------------------------------ #
+
+    def shards(self, tree: dict) -> dict:
+        """``tree`` (params or grads in :meth:`place`'s layout) with each
+        leaf of the engine's layers as a ``utils.serialization.Shard``:
+        its global shape and where this rank's piece starts, by the leaf's
+        spec (the stage's ``[1, ...]`` slice of the blocks, a tp or ep
+        lane's slice, an fsdp lane's 1/dp), and whether this rank writes
+        it (of the ranks holding one piece, the one at coordinate 0 of
+        every axis the spec leaves out).  Other keys pass through (whole
+        leaves, which rank 0 writes)."""
+        out = dict(tree)
+        for key, _ in self._layers():
+            out[key] = _tree_map(self._shard_index, tree[key],
+                                 broadcast_specs(self._specs[key], tree[key]))
+        return out
+
+    def _shard_index(self, a: torch.Tensor, spec: P) -> Any:
+        from torchgpipe_tpu_torch.utils.serialization import Shard
+
+        gshape, start, named = list(a.shape), [0] * a.ndim, set()
+        for dim, ax in enumerate(spec):
+            if ax is None:
+                continue
+            idx, n = 0, 1
+            for name in (ax if isinstance(ax, tuple) else (ax,)):
+                idx, n = idx * self.mesh.shape[name] + self.mesh.coords[name], \
+                    n * self.mesh.shape[name]
+                named.add(name)
+            gshape[dim], start[dim] = a.shape[dim] * n, idx * a.shape[dim]
+        owner = all(self.mesh.coords[n] == 0 for n in self.mesh.axis_names if n not in named)
+        return Shard(a, tuple(gshape), tuple(start), owner)
+
+    def _zero1_layout(self) -> str:
+        """The layout a ZeRO-1 segment belongs to: the mesh, and this rank's
+        coordinates off dp (a segment is a piece of a rank-local flat leaf,
+        so it restores only into the same mesh)."""
+        at = ",".join(f"{n}={c}" for n, c in self.mesh.coords.items() if n != self.dp_axis)
+        return f"ZeRO-1 segments of mesh {self.mesh.shape} at {at}"
+
+    @staticmethod
+    def _state_names(opt: torch.optim.Optimizer, t: torch.Tensor
+                     ) -> Dict[str, Any]:
+        """The state ``opt`` keeps for a tensor like ``t`` before its first
+        step: a throwaway of ``opt``'s class and hyperparameters steps once
+        on a 2-element probe; each state entry of the probe's shape becomes
+        an empty tensor like ``t``, each other entry (a step count) itself."""
+        group = next(g for g in opt.param_groups if any(p is t for p in g["params"]))
+        probe = torch.zeros(2, dtype=t.dtype, device=t.device, requires_grad=True)
+        probe.grad = torch.zeros_like(probe)
+        twin = type(opt)([dict({k: v for k, v in group.items() if k != "params"},
+                               params=[probe])])
+        twin.step()
+        return {name: torch.empty_like(t) if isinstance(v, torch.Tensor)
+                and v.shape == probe.shape else v
+                for name, v in twin.state[probe].items()}
+
+    def train_state(self, params: dict, optimizer: Optional[torch.optim.Optimizer] = None
+                    ) -> dict:
+        """What a sharded checkpoint of this rank's training state holds:
+        ``{'params': shards(params)[, 'opt': ...]}``, ``'opt'`` a list over
+        ``optimizer``'s tensors (:meth:`zero_opt_state`'s, in the engine's
+        leaf order) of its state by name, each entry that mirrors a
+        tensor as a ``Shard`` of that tensor's leaf (ZeRO-1's segments in
+        the layout of their mesh alone), a step count whole.  A fresh
+        optimizer (no step yet) gives empty tensors of the state's shapes:
+        the template a restore reads into.  Save it with
+        ``CheckpointManager(...).save(step, state, sharded=True)``
+        (or ``serialization.save_sharded``); restore with
+        ``restore_latest(train_state(...))`` and :meth:`load_train_state`."""
+        from torchgpipe_tpu_torch.utils.serialization import Shard
+
+        state: dict = {"params": self.shards(params)}
+        if optimizer is None:
+            return state
+        index = [sh for key, _ in self._layers() for sh in _leaves(state["params"][key])]
+        level = getattr(optimizer, "zero_level", 0)
+        opt = []
+        for sh, t in zip(index, optimizer.zero_segments):
+            names = optimizer.state.get(t) or self._state_names(optimizer, t)
+            entry = {}
+            for name, v in names.items():
+                if not (isinstance(v, torch.Tensor) and v.shape == t.shape and v.ndim):
+                    entry[name] = v
+                elif level == 1:
+                    n = t.numel()
+                    entry[name] = Shard(v, (n * self._dp,), (self._lane * n,), True,
+                                        self._zero1_layout())
+                else:
+                    entry[name] = Shard(v, sh.global_shape, sh.start, sh.owner)
+            opt.append(entry)
+        state["opt"] = opt
+        return state
+
+    @torch.no_grad()
+    def load_train_state(self, state: dict, params: dict,
+                         optimizer: Optional[torch.optim.Optimizer] = None) -> None:
+        """Load a restored :meth:`train_state` tree: each parameter copied
+        in place into ``params`` (the tensors the optimizer and a captured
+        step hold), and ``optimizer``'s state through its own
+        ``load_state_dict``."""
+        for key, _ in self._layers():
+            for dst, src in zip(_leaves(params[key]), _leaves(state["params"][key])):
+                dst.copy_(src)
+        if optimizer is not None:
+            sd = optimizer.state_dict()
+            sd["state"] = {i: dict(entry) for i, entry in enumerate(state["opt"])}
+            optimizer.load_state_dict(sd)
 
     @staticmethod
     def _rebuild(tree: Pytree, by_path: Dict[tuple, Any], path: tuple = ()) -> Pytree:
@@ -1606,7 +1730,9 @@ class SpmdGPipe:
             x.requires_grad_()
         with aux_scale(1.0 / self.chunks):
             if ckpt:
-                with torch.no_grad(), _ckpt.phase(checkpointing=True):
+                keep = contextlib.nullcontext() if self._remat is None else \
+                    self._remat.forward((g, i))
+                with torch.no_grad(), _ckpt.phase(checkpointing=True), keep:
                     y = self._run_block(blocks, x, key)
                 return y, _Cell(h, x, None, True, i, g, key)
             if self._offload is None:
@@ -1640,7 +1766,9 @@ class SpmdGPipe:
     def _recompute(self, blocks: Pytree, cell: _Cell) -> torch.Tensor:
         """A checkpointed cell's output again, with its graph (and its
         key: the same masks)."""
-        with aux_scale(1.0 / self.chunks), _ckpt.phase(recomputing=True):
+        take = contextlib.nullcontext() if self._remat is None else \
+            self._remat.recompute((cell.stage, cell.i))
+        with aux_scale(1.0 / self.chunks), _ckpt.phase(recomputing=True), take:
             return self._run_block(blocks, cell.x, cell.key)
 
     def _stage_input(self, leaves: dict, x_mb: List[Pytree], i: int) -> torch.Tensor:
@@ -2010,6 +2138,11 @@ class SpmdGPipe:
         x_mb = self._local_microbatches(x)
         tgt_mb = self._local_microbatches(target)
         stop = _ckpt.checkpoint_stop(self.checkpoint, self.chunks, train=True)
+        policy_offload = self.checkpoint == "offload" and self.remat_policy is not None
+        if policy_offload:
+            # The reference's 'offload' with an explicit policy: every cell
+            # checkpointed, the policy naming what its forward keeps.
+            stop = self.chunks
         leaves = self._leaf_copy(params)
         # Under fsdp every schedule runs on the full block tensors,
         # all-gathered over dp once a step.
@@ -2018,7 +2151,9 @@ class SpmdGPipe:
         run = {"1f1b": self._one_f_one_b, "interleaved": self._interleaved,
                "zb": self._zero_bubble}.get(self.schedule, self._fill_drain)
         self._key = None if rng is None else _rng.Key(_rng.key_tensor(rng))
-        self._offload = _ckpt.Offload() if self.checkpoint == "offload" else None
+        self._offload = _ckpt.Offload() \
+            if self.checkpoint == "offload" and not policy_offload else None
+        self._remat = None if self.remat_policy is None else _ckpt.Remat(self.remat_policy)
         try:
             with self._bound(), self._annotate_cell_failure():
                 loss = run(cells, x_mb, tgt_mb, mask_mb, mean_scale, stop)
@@ -2029,6 +2164,9 @@ class SpmdGPipe:
                 self.offload_stats = {"saved_bytes": self._offload.saved_bytes,
                                       "moved_bytes": self._offload.moved_bytes}
                 self._offload = None
+            if self._remat is not None:
+                self.remat_stats = {"saved_bytes": self._remat.saved_bytes}
+                self._remat = None
         return self._reduce(loss, leaves, cells["blocks"])
 
     def _fault_check(self, *, for_train: bool = False) -> None:
@@ -2392,6 +2530,7 @@ class SpmdGPipe:
         step.optimizer = None
         step.optimizers = []
         step.tensors = []
+        step.prepare = prepare   # builds step.optimizer over a params tree
         step.pipe = self
         step.megastep = K
         step.snapshot = snapshot
